@@ -1,0 +1,83 @@
+"""Agent removal and addition as prefix-sum stream compaction (port of
+``repro.core.compaction``: the commit phase of the step)."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from .agents import AgentPool
+
+
+def compaction_permutation(alive: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Permutation placing live slots first (stable), dead after (stable).
+
+    Returns ``(perm, n_live)`` with ``new[i] = old[perm[i]]``."""
+    c = alive.shape[0]
+    alive_i = alive.to(torch.int32)
+    n_live = alive_i.sum(dtype=torch.int32)
+    dst_live = torch.cumsum(alive_i, 0, dtype=torch.int32) - 1
+    dst_dead = n_live + torch.cumsum(1 - alive_i, 0, dtype=torch.int32) - 1
+    dst = torch.where(alive, dst_live, dst_dead).to(torch.int64)
+    perm = torch.empty(c, dtype=torch.int32, device=alive.device)
+    perm[dst] = torch.arange(c, dtype=torch.int32, device=alive.device)
+    return perm, n_live
+
+
+def apply_permutation(pool: AgentPool, perm: torch.Tensor) -> AgentPool:
+    """Gather-reorder every SoA channel by ``perm``."""
+    idx = perm.to(torch.int64)
+    return pool.with_channels({k: v.index_select(0, idx)
+                               for k, v in pool.channels().items()})
+
+
+def compact(pool: AgentPool) -> AgentPool:
+    """Remove dead agents: live agents move (stably) to slots [0, n_live)."""
+    perm, _ = compaction_permutation(pool.alive)
+    return apply_permutation(pool, perm)
+
+
+def commit_births(pool: AgentPool, queue: Dict[str, torch.Tensor],
+                  queue_valid: torch.Tensor, iteration: torch.Tensor
+                  ) -> AgentPool:
+    """Append staged newborns at the tail of the live region.
+
+    Destinations are ``n_live + cumsum(valid) - 1``; a write whose
+    destination is not below capacity is parked at index ``c`` and dropped
+    (the engine counts it as ``birth_overflow``). Queue channels win over
+    the defaults (alive, moved, grew set; static clear; born_iter =
+    ``iteration``; force_nnz 0; everything else zero).
+    """
+    c = pool.capacity
+    dev = pool.device
+    qv = queue_valid.to(torch.int32)
+    dst = pool.n_live + torch.cumsum(qv, 0, dtype=torch.int32) - 1
+    ok = queue_valid & (dst < c)
+    # parked writes land in an extra row c that is cut off afterwards
+    dst = torch.where(ok, dst, torch.full_like(dst, c)).to(torch.int64)
+    shape = queue_valid.shape
+
+    out = {}
+    for k, v in pool.channels().items():
+        if k in queue:
+            src = queue[k]
+        elif k in ("alive", "moved", "grew"):
+            src = torch.ones(shape, dtype=torch.bool, device=dev)
+        elif k == "born_iter":
+            src = iteration.to(torch.int32).expand(shape)
+        else:                                   # static, force_nnz, extras
+            src = torch.zeros(shape + v.shape[1:], dtype=v.dtype, device=dev)
+        grown = torch.cat([v, v[:1]], 0)        # row c: the parking slot
+        grown[dst] = src.to(v.dtype)
+        out[k] = grown[:c]
+    return pool.with_channels(out)
+
+
+def birth_overflow(pool: AgentPool, queue_valid: torch.Tensor
+                   ) -> torch.Tensor:
+    """Number of staged newborns that will not fit in capacity (int32)."""
+    n_new = queue_valid.sum(dtype=torch.int32)
+    free = pool.capacity - pool.n_live
+    return torch.clamp(n_new - free, min=0)

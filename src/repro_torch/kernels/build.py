@@ -1,0 +1,99 @@
+"""Build and load the port's CUDA kernels: ``nvcc`` into a shared library
+with a plain C interface, loaded with ``ctypes``.
+
+Each ``csrc/<name>.cu`` compiles on its first use into
+``<repo>/build/kernels/<name>-<hash>.so``, where the hash covers the source
+and the flags, so an edited source rebuilds and an unchanged one is reused.
+:func:`build_all` starts one ``nvcc`` per source at once and waits for all.
+Nothing here runs at import time: this module imports on hosts without a
+CUDA toolkit, and only a kernel launch on a CUDA tensor builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List, Sequence
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# sm_90a: Hopper with its arch-specific features; IEEE sqrt/div (no
+# --use_fast_math). nvcc contracts a*b+c into FMA by default, so sums can
+# differ from the CPU's in the last bits — the reason for the force
+# tolerance in the tests.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+BUILD_LOGS: Dict[str, str] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else under ``$CUDA_HOME`` or
+    ``/usr/local/cuda``. Raises when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (nvcc on PATH or under /usr/local/cuda)")
+
+
+def sources() -> List[str]:
+    """Names of every kernel source under ``csrc/``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build_all(names: Sequence[str] | None = None) -> Dict[str, Path]:
+    """Compile every named source that is not built yet, all in parallel.
+
+    Returns ``{name: library path}``. Raises with the compiler's output if
+    any build fails; ``BUILD_LOGS[name]`` keeps each compiler's output
+    (register and shared-memory use from ``-Xptxas=-v``).
+    """
+    names = list(sources() if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {n: library_path(n) for n in names}
+    todo = [n for n in names if not paths[n].is_file()]
+    if not todo:
+        return paths
+    nvcc = nvcc_path()
+    procs = {}
+    for n in todo:
+        tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
+        procs[n] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        BUILD_LOGS[n] = out
+        if proc.returncode != 0:
+            failed.append(f"--- {n}.cu (nvcc exit {proc.returncode}) ---\n"
+                          f"{out}")
+            continue
+        os.replace(tmp, paths[n])            # atomic: no half-written .so
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build_all([name])[name]))
+        _LOADED[name] = lib
+    return lib

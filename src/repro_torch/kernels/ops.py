@@ -1,0 +1,155 @@
+"""K1's wrappers around the kernel: the block-sparse column map and the
+resident-layout entry point (port of ``repro.kernels.ops`` for K1)."""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..core import morton
+from . import collision_force as k1
+
+BLOCK = k1.BLOCK
+_SENTINEL = 2 ** 30
+# row blocks per chunk of the column-map build: bounds its scratch to
+# chunk·128·9·span ids (the reference maps 64 at a time)
+_COLMAP_ROW_BLOCKS = 256
+
+Adhesion = Optional[Union[Tuple[Tuple[float, ...], ...], torch.Tensor]]
+
+
+def k1_run_offsets() -> np.ndarray:
+    """The 9 (dx, dy) stencil columns; each pairs with a 3-box z-run."""
+    return np.array([(dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1)],
+                    dtype=np.int32)
+
+
+def build_block_cols(sorted_cells: torch.Tensor, starts: torch.Tensor,
+                     counts: torch.Tensor, row_active: torch.Tensor,
+                     dims: Tuple[int, int, int], maxb: int, span: int = 8
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Block-sparse column map: for each 128-row block, the ascending unique
+    128-wide column blocks covering the 9 merged stencil z-runs of its
+    *active* rows, -1 padded to ``maxb``.
+
+    sorted_cells (N_pad, 3) int32, starts (M,) int32, counts (M,),
+    row_active (N_pad,) bool. Returns ``(block_cols (N_pad/128, maxb)
+    int32, overflow () bool)``; the flag fires when a row block needs more
+    than ``maxb`` column blocks or one run spans more than ``span`` blocks.
+    Equal, entry for entry, to the reference's map.
+    """
+    dev = sorted_cells.device
+    n_rb = sorted_cells.shape[0] // BLOCK
+    xy = torch.as_tensor(k1_run_offsets(), device=dev)
+    ks = torch.arange(span, dtype=torch.int32, device=dev)
+    cols = torch.empty((n_rb, maxb), dtype=torch.int32, device=dev)
+    ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    starts = starts.to(torch.int32)
+    counts = counts.to(torch.int32)
+    for b0 in range(0, n_rb, _COLMAP_ROW_BLOCKS):
+        b1 = min(b0 + _COLMAP_ROW_BLOCKS, n_rb)
+        nb = b1 - b0
+        cell = sorted_cells[b0 * BLOCK:b1 * BLOCK]            # (R·128, 3)
+        act = row_active[b0 * BLOCK:b1 * BLOCK]
+        nx = cell[:, None, 0] + xy[None, :, 0]                # (R·128, 9)
+        ny = cell[:, None, 1] + xy[None, :, 1]
+        inside = (nx >= 0) & (nx < dims[0]) & (ny >= 0) & (ny < dims[1])
+        nx = nx.clamp(0, dims[0] - 1)
+        ny = ny.clamp(0, dims[1] - 1)
+        z_lo = (cell[:, 2] - 1).clamp(min=0)[:, None].expand_as(nx)
+        z_hi = (cell[:, 2] + 1).clamp(max=dims[2] - 1)[:, None].expand_as(nx)
+        k_lo = morton.linear_encode3(nx, ny, z_lo, dims)
+        k_hi = morton.linear_encode3(nx, ny, z_hi, dims)
+        s = starts[k_lo]
+        e = starts[k_hi] + counts[k_hi]
+        n = torch.where(inside & act[:, None], e - s, torch.zeros_like(s))
+        first = torch.div(s, BLOCK, rounding_mode="floor")
+        last = torch.where(n > 0,
+                           torch.div(s + n - 1, BLOCK, rounding_mode="floor"),
+                           torch.full_like(s, -1))
+        cand = first[..., None] + ks                  # (R·128, 9, span)
+        ok = (n[..., None] > 0) & (cand <= last[..., None])
+        ids = torch.where(ok, cand, torch.full_like(cand, _SENTINEL))
+        ids = torch.sort(ids.reshape(nb, -1), dim=1).values
+        uniq = torch.ones_like(ids, dtype=torch.bool)
+        uniq[:, 1:] = ids[:, 1:] != ids[:, :-1]
+        uniq &= ids < _SENTINEL
+        pos = torch.cumsum(uniq, 1) - 1
+        n_uniq = uniq.sum(1)
+        write = torch.where(uniq & (pos < maxb), pos,
+                            torch.full_like(pos, maxb))
+        out = torch.full((nb, maxb + 1), -1, dtype=torch.int32, device=dev)
+        out.scatter_(1, write, ids)      # column maxb: dropped writes
+        cols[b0:b1] = out[:, :maxb]
+        span_ovf = ((last - first + 1) > span).reshape(nb, -1).any(1)
+        ovf |= ((n_uniq > maxb) | span_ovf).any()
+    return cols, ovf
+
+
+def k1_inputs(position: torch.Tensor, diameter: torch.Tensor,
+              agent_type: torch.Tensor, alive: torch.Tensor,
+              active: torch.Tensor, starts: torch.Tensor,
+              counts: torch.Tensor, origin: torch.Tensor, box_size: float,
+              dims: Tuple[int, int, int], maxb: int = 64
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor]:
+    """Pad to 128, pack and map: ``(data_t (8, N_pad) f32, block_cols,
+    overflow () bool, row mask (N_pad,) bool)`` — K1's inputs as the
+    resident wrapper builds them."""
+    dev = position.device
+    c = position.shape[0]
+    n_pad = -(-c // BLOCK) * BLOCK
+    pad = n_pad - c
+    sact = torch.nn.functional.pad(active & alive, (0, pad))
+    cells = morton.cell_of(
+        torch.nn.functional.pad(position, (0, 0, 0, pad)), origin, box_size,
+        dims)
+    block_cols, ovf = build_block_cols(cells, starts, counts, sact, dims,
+                                       maxb)
+    data_t = torch.zeros((8, n_pad), dtype=torch.float32, device=dev)
+    data_t[k1.ROW_X:k1.ROW_Z + 1, :c] = position.T
+    data_t[k1.ROW_DIA, :c] = diameter
+    data_t[k1.ROW_TYPE, :c] = agent_type.to(torch.float32)
+    data_t[k1.ROW_ALIVE, :c] = alive.to(torch.float32)
+    return data_t, block_cols, ovf, sact
+
+
+def collision_force_resident(position: torch.Tensor, diameter: torch.Tensor,
+                             agent_type: torch.Tensor, alive: torch.Tensor,
+                             active: torch.Tensor, starts: torch.Tensor,
+                             counts: torch.Tensor, origin: torch.Tensor,
+                             box_size: float, *, dims: Tuple[int, int, int],
+                             k_rep: float = 2.0, adhesion: Adhesion = None,
+                             adhesion_band: float = 0.4, maxb: int = 64
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """K1 over the resident grid-ordered pool: column map → kernel.
+
+    Inputs are in grid-key order with the grid's ``(starts, counts)``
+    tables. ``active`` marks the rows whose own force is needed; inactive
+    rows get zero force and nnz (they still push their neighbors). Returns
+    ``(force (C, 3) f32, nnz (C,) int32, column-map overflow () bool)``.
+    ``box_size`` must cover the largest interaction distance, as in the
+    reference.
+    """
+    dev = position.device
+    c = position.shape[0]
+    with record_function("k1/inputs"):
+        data_t, block_cols, ovf, sact = k1_inputs(
+            position, diameter, agent_type, alive, active, starts, counts,
+            origin, box_size, dims, maxb)
+    if adhesion is not None and not isinstance(adhesion, torch.Tensor):
+        adhesion = torch.tensor(adhesion, dtype=torch.float32, device=dev)
+    with record_function("k1/kernel"):
+        out_t = k1.collision_force(data_t, block_cols, k_rep=k_rep,
+                                   adhesion=adhesion,
+                                   adhesion_band=adhesion_band)
+    act = sact[:c]
+    force = torch.where(act[:, None], out_t[k1.ROW_FX:k1.ROW_FZ + 1, :c].T,
+                        torch.zeros((), device=dev))
+    nnz = torch.where(act, out_t[k1.ROW_NNZ, :c].to(torch.int32),
+                      torch.zeros((), dtype=torch.int32, device=dev))
+    return force, nnz, ovf
