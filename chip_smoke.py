@@ -17,7 +17,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      live agents, ``run(check_overflow=True)`` for 10 steps; every kernel's
      launch count is reset just before and read just after;
   4. births: examples/quickstart.py's configuration (128 agents, capacity
-     32,768) for 60 steps must grow the population.
+     32,768) for 60 steps must grow the population;
+  5. K2 vs plain: flash attention at the qwen2-1.5b prefill shape (B 1,
+     Hq 12, Hkv 2, D 128, S 4096, bf16, causal), the same heads in bf16 at
+     the first prompt length phase 7 serves (not block-aligned), f32
+     S 1000 (not block-aligned), a chunk (Sq 64 < Sk 1088, f32) and a
+     non-causal case: bf16 atol 2e-2 and, scaled to the output, within
+     1e-3 + 1.6e-2·|plain| (two bf16 ulps) everywhere; f32 atol 2e-5;
+     kernel, plain and library-call
+     (``F.scaled_dot_product_attention``, timed for the record only) times
+     and the kernel's lower bound on this card;
+  6. the LM on the card ≡ the LM on the CPU: a 2-layer f32 qwen2-family
+     model (d_model 128, vocab 1000), prefill logits and 8 greedy decode
+     steps to atol/rtol 1e-4, argmax tokens equal;
+  7. the serving path (this slice's main path): ``launch/serve_lm.serve``
+     with qwen2-1.5b at full width and depth (28 layers, bf16, random
+     weights from a seed), 8 requests of 256-2048 prompt tokens, 32 new
+     tokens each, 4 slots, s_max 4096, 1,024 pages of 16 tokens; every
+     kernel's launch count is reset just before and read just after; K2
+     must launch 28 times per prefill.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and last ``{"ok": true, "device": {...}}``. Writes the same numbers to
@@ -27,6 +45,7 @@ CUDA device; exits non-zero otherwise.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -37,11 +56,29 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_TENSOR_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 FORCE_ATOL = 1e-4
 K1_SIZES = (65_536, 1_048_576)       # agents for the kernel-vs-plain phase
 MAIN_AGENTS, MAIN_STEPS = 1_048_576, 10
 PARITY_AGENTS = 8192
+# K2 cases: (name, B, Hq, Hkv, Sq, Sk, D, causal, dtype); the first is the
+# qwen2-1.5b prefill shape and the one the kernels line reports. Sq = Sk =
+# None is the length of the first prompt phase 7 serves.
+K2_CASES = (("qwen2-prefill", 1, 12, 2, 4096, 4096, 128, True, "bfloat16"),
+            ("served-prompt", 1, 12, 2, None, None, 128, True, "bfloat16"),
+            ("f32-ragged", 1, 12, 2, 1000, 1000, 128, True, "float32"),
+            ("chunk", 1, 12, 2, 64, 1088, 128, True, "float32"),
+            ("non-causal", 1, 12, 2, 512, 512, 128, False, "float32"))
+K2_TOL = {"bfloat16": 2e-2, "float32": 2e-5}       # tests/test_kernels.py
+# bf16 also elementwise |Δ| <= atol + rtol·|plain|: the kernel and its plain
+# version both accumulate in f32, so they may differ by one rounding of
+# the output (one bf16 ulp, at most 2^-7 relative); rtol is two ulps
+K2_BF16_SCALED = (1e-3, 1.6e-2)
+LM_TOL = 1e-4
+SERVE = dict(arch="qwen2-1.5b", requests=8, prompt_min=256, prompt_max=2048,
+             new_tokens=32, slots=4, s_max=4096, page_size=16, n_pages=1024,
+             seed=0)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -241,6 +278,235 @@ def phase_births(report: dict) -> None:
           flush=True)
 
 
+def k2_bound(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
+             causal: bool, dtype: str) -> tuple[float, str, dict]:
+    """Least time this card could take for one K2 call: 4·D operations per
+    visible (query, key) pair at the peak for the input type (bf16 tensor
+    cores, or FP32), against q, k, v read once and o written once."""
+    import numpy as np
+    from repro_torch.kernels import flash_attention as k2
+    off = sk - sq                          # ops.flash_attention's alignment
+    if causal:
+        rows = np.clip(np.minimum(np.arange(sq) + off + 1, sk), 0, None)
+        pairs = int(rows.sum()) * b * hq
+    else:
+        pairs = sq * sk * b * hq
+    ops = k2.OPS_PER_PAIR_PER_D * d * pairs
+    width = 2 if dtype == "bfloat16" else 4
+    moved = width * d * b * (2 * hq * sq + 2 * hkv * sk)
+    peak = PEAK_BF16_TENSOR_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS
+    t_ops = ops / peak * 1e3
+    t_bytes = moved / PEAK_HBM_BYTES * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes), by, {"pairs": pairs, "operations": ops,
+                                     "bytes": moved}
+
+
+def phase_k2_vs_plain(report: dict) -> list:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # plain f32 stays f32
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    recs = []
+    for name, b, hq, hkv, sq, sk, d, causal, dtype in K2_CASES:
+        if sq is None:
+            sq = sk = len(_served_requests()[0].prompt)
+        dt = getattr(torch, dtype)
+        q = torch.randn((b, hq, sq, d), generator=gen, device="cuda").to(dt)
+        k = torch.randn((b, hkv, sk, d), generator=gen, device="cuda").to(dt)
+        v = torch.randn((b, hkv, sk, d), generator=gen, device="cuda").to(dt)
+        out = ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        plain = k2.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        check(out.dtype == q.dtype and out.shape == q.shape,
+              f"K2 output {out.dtype} {tuple(out.shape)} at {name}")
+        check(bool(torch.isfinite(out).all()), f"K2 output not finite at "
+                                               f"{name}")
+        diff = (out.float() - plain.float()).abs()
+        err = float(diff.max())
+        check(err <= K2_TOL[dtype], f"K2 differs from plain by {err} at "
+                                    f"{name} (tolerance {K2_TOL[dtype]})")
+        scaled_err = None
+        if dtype == "bfloat16":
+            atol, rtol = K2_BF16_SCALED
+            scaled_err = float((diff / (atol + rtol * plain.float().abs()))
+                               .max())
+            check(scaled_err <= 1.0, f"K2 differs from plain by "
+                  f"{scaled_err:.3g}× atol {atol} + rtol {rtol}·|plain| "
+                  f"at {name}")
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
+                     iters=20, warmup=3)
+        plain_ms = cuda_ms(lambda: k2.flash_attention_plain(
+            q, k, v, causal=causal), iters=3, warmup=1)
+        lib_ms = lib_err = None
+        if sq == sk:          # the library's causal mask is top-left aligned
+            lib = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                 enable_gqa=True)
+            lib_err = float((lib.float() - plain.float()).abs().max())
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), iters=20,
+                warmup=3)
+        bound_ms, bound_by, work = k2_bound(b, hq, hkv, sq, sk, d, causal,
+                                             dtype)
+        rec = {"case": name, "shape": [b, hq, hkv, sq, sk, d],
+               "causal": causal, "dtype": dtype, "max_abs_err": err,
+               "max_err_over_scaled_tol": scaled_err,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library_max_abs_err": lib_err, "bound_ms": bound_ms,
+               "bound_by": bound_by, **work}
+        lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"[5] K2 {name} (B{b} Hq{hq} Hkv{hkv} Sq{sq} Sk{sk} D{d} "
+              f"{dtype}{' causal' if causal else ''}): kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, SDPA {lib_txt}, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); max|Δ| {err:.3g}"
+              + ("" if scaled_err is None else
+                 f", max |Δ|/(atol + rtol·|plain|) {scaled_err:.3g}"),
+              flush=True)
+        recs.append(rec)
+        del q, k, v, out, plain
+    report["k2_vs_plain"] = recs
+    return recs
+
+
+def _small_lm_config():
+    from repro_torch.configs import ARCHS
+    return dataclasses.replace(
+        ARCHS["qwen2-1.5b"], name="qwen2-small", n_layers=2, d_model=128,
+        n_heads=4, n_kv_heads=2, d_head=32, d_ff=512, vocab_size=1000,
+        param_dtype="float32", activation_dtype="float32", remat="none")
+
+
+def _greedy_run(cfg, leaves, toks, dev: str, steps: int, s_max: int,
+                feed=None):
+    """Prefill ``toks`` then ``steps`` decode steps on ``dev``; the decode
+    inputs are ``feed`` or, without it, this run's own argmax. Returns the
+    logits of every step (numpy) and the tokens fed."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.models import build_model
+
+    m = build_model(cfg, device=dev)
+    params = convert.params_from_numpy(leaves, dev)
+    b, t0 = toks.shape
+    logits, pre = m.prefill(params, torch.from_numpy(toks).to(dev))
+    caches = m.init_decode_caches(b, s_max)
+    for dense, part in zip(caches[1], pre[1]):
+        for key in dense:
+            dense[key][..., :t0, :] = part[key]
+    out, fed = [logits.cpu().numpy()], []
+    for i in range(steps):
+        nxt = torch.argmax(logits, -1).cpu() if feed is None else feed[i]
+        fed.append(nxt)
+        logits, caches = m.decode_step(params, nxt.to(dev), caches, t0 + i)
+        out.append(logits.cpu().numpy())
+    return out, fed
+
+
+def phase_lm_cpu_parity(report: dict) -> None:
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.models import build_model
+
+    cfg = _small_lm_config()
+    b, t0, steps, s_max = 2, 48, 8, 64
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)               # as phase 2
+    try:
+        leaves = convert.params_to_numpy(build_model(
+            cfg, device="cpu").init_params(torch.Generator().manual_seed(5)))
+        toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (b, t0))
+        got, fed = _greedy_run(cfg, leaves, toks, "cuda", steps, s_max)
+        # the card's greedy tokens drive the CPU run too
+        want, _ = _greedy_run(cfg, leaves, toks, "cpu", steps, s_max, fed)
+    finally:
+        torch.set_num_threads(threads)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g, w, atol=LM_TOL, rtol=LM_TOL,
+                                   err_msg=f"LM logits, step {i}")
+        check(np.array_equal(g.argmax(-1), w.argmax(-1)),
+              f"LM argmax differs at step {i}")
+        worst = max(worst, float(np.abs(g - w).max()))
+    report["lm_gpu_vs_cpu"] = {"config": dataclasses.asdict(cfg),
+                               "prefill_tokens": [b, t0],
+                               "decode_steps": steps, "max_abs_diff": worst,
+                               "argmax_equal": True}
+    print(f"[6] LM on the card ≡ on the CPU ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, f32): prefill + {steps} "
+          f"decode steps, max|Δlogit| {worst:.3g}, argmax equal", flush=True)
+
+
+def _served_requests() -> list:
+    """Phase 7's requests."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve_lm
+    return serve_lm.make_requests(
+        SERVE["requests"], ARCHS[SERVE["arch"]].vocab_size,
+        prompt_min=SERVE["prompt_min"], prompt_max=SERVE["prompt_max"],
+        new_tokens=SERVE["new_tokens"], seed=SERVE["seed"])
+
+
+def phase_serve(report: dict) -> dict:
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import collision_force as k1
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model
+
+    cfg = ARCHS[SERVE["arch"]]
+    model = build_model(cfg, device="cuda")
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(SERVE["seed"]))
+    reqs = _served_requests()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.collision_force.launches = 0
+    k2.flash_attention.launches = 0
+    rep = serve_lm.serve(model, params, reqs, slots=SERVE["slots"],
+                         s_max=SERVE["s_max"], page_size=SERVE["page_size"],
+                         n_pages=SERVE["n_pages"])
+    launches = {"k1_collision_force": k1.collision_force.launches,
+                "k2_flash_attention": k2.flash_attention.launches}
+    summ = rep.summary()
+    check(sorted(f.uid for f in rep.finished) == list(range(len(reqs))),
+          f"finished {sorted(f.uid for f in rep.finished)}")
+    check(all(len(f.tokens) == SERVE["new_tokens"] for f in rep.finished),
+          "a request stopped short of its new tokens")
+    check(rep.n_free == SERVE["n_pages"],
+          f"pool leaked: {rep.n_free} of {SERVE['n_pages']} pages free")
+    check(rep.logits_finite, "non-finite logits")
+    check(launches["k2_flash_attention"] == cfg.n_layers * summ["prefills"],
+          f"K2 launched {launches['k2_flash_attention']} times in "
+          f"{summ['prefills']} prefills of {cfg.n_layers} layers")
+    rec = {"config": SERVE, "n_layers": cfg.n_layers,
+           "n_params": model.n_params(), "launches": launches,
+           "prompt_lens": [len(r.prompt) for r in reqs],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           **summ}
+    report["serve"] = rec
+    print(f"[7] serve {cfg.name} ({cfg.n_layers} layers, "
+          f"{model.n_params():,} params, bf16): {summ['requests']} requests,"
+          f" {summ['prompt_tokens']} prompt tokens, "
+          f"{summ['generated_tokens']} generated; prefill "
+          f"{summ['prefill_tokens_per_s']:.0f} tokens/s (mean "
+          f"{summ['prefill_ms_mean']:.2f} ms per prompt); time to first "
+          f"token median {summ['ttft_ms_median']:.2f} ms, max "
+          f"{summ['ttft_ms_max']:.2f} ms; decode "
+          f"{summ['decode_ms_per_iter_median']:.2f} ms/iteration (median of "
+          f"{summ['decode_iterations']}); {summ['generated_tokens_per_s']:.1f}"
+          f" generated tokens/s; K2 launches "
+          f"{launches['k2_flash_attention']} (= {cfg.n_layers} x "
+          f"{summ['prefills']}); peak memory {rec['peak_memory_gb']:.2f} GB",
+          flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -265,6 +531,7 @@ def main() -> int:
     libs = build.build_all()
     report["build_s"] = time.perf_counter() - t0
     print(f"[0] built {sorted(libs)} in {report['build_s']:.1f} s", flush=True)
+    report["build_logs"] = dict(build.BUILD_LOGS)
     for name, log in build.BUILD_LOGS.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -274,6 +541,9 @@ def main() -> int:
     phase_engine_cpu_parity(PARITY_AGENTS, report)
     main_rec = phase_main_path(MAIN_AGENTS, MAIN_STEPS, report)
     phase_births(report)
+    k2_recs = phase_k2_vs_plain(report)
+    phase_lm_cpu_parity(report)
+    serve_rec = phase_serve(report)
 
     big = recs[-1]
     kernels = [{
@@ -284,7 +554,16 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in recs),
         "ms": big["ms"], "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
-        "library_ms": None}]
+        "library_ms": None}, {
+        "name": "k2_flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:84",
+        "launches": serve_rec["launches"]["k2_flash_attention"],
+        "max_abs_err": max(r["max_abs_err"] for r in k2_recs),
+        "ms": k2_recs[0]["ms"], "plain_ms": k2_recs[0]["plain_ms"],
+        "bound_ms": k2_recs[0]["bound_ms"],
+        "bound_by": k2_recs[0]["bound_by"],
+        "library_ms": k2_recs[0]["library_ms"]}]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

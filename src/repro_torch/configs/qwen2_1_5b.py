@@ -1,0 +1,10 @@
+"""qwen2-1.5b [dense]: 28L d=1536 12H (GQA kv=2) d_ff=8960 vocab=151936.
+GQA + QKV bias, tied embeddings. [arXiv:2407.10671; hf]"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2-1.5b", family="dense",
+    n_layers=28, d_model=1536, n_heads=12, n_kv_heads=2, d_head=128,
+    d_ff=8960, vocab_size=151936,
+    qkv_bias=True, tie_embeddings=True, rope_theta=1e6,
+)

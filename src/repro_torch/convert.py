@@ -1,7 +1,16 @@
-"""Carry simulation state across: numpy leaves ↔ a port ``EngineState``.
+"""Carry state across from the reference: numpy leaves ↔ the port's tensors.
 
-The pool is the state (there are no weights), so a state from the reference
-engine converts leaf by leaf: ``np.asarray`` on each of its arrays gives the
+LM weights and decode caches (:func:`params_from_numpy`,
+:func:`params_to_numpy`): ``jax.tree.map(np.asarray, tree)`` of the
+reference's parameter tree or its ``(prefix_caches, block_caches)`` gives
+nested dicts, lists and tuples of numpy arrays; the port's tree has the
+same structure with tensors. bfloat16 leaves arrive as numpy arrays whose
+``dtype.name == "bfloat16"`` (the ml_dtypes type) and are carried bit for
+bit through their 16-bit patterns, without importing ml_dtypes.
+
+Simulation state (:func:`state_from_numpy`, :func:`state_to_numpy`): the
+pool is the state, so a state from the reference engine converts leaf by
+leaf: ``np.asarray`` on each of its arrays gives the
 dict :func:`state_from_numpy` reads::
 
     {"pool": {channel: array, ...},         # AgentPool.channels() names
@@ -16,7 +25,7 @@ Dtypes are kept (uint32 keys become int64 holding the same values), so
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -60,3 +69,46 @@ def state_to_numpy(state: EngineState) -> Dict[str, Any]:
             "iteration": arr(state.iteration),
             "stats": {f: arr(state.stats[f]) for f in StepStats.FIELDS},
             "conc": arr(state.conc)}
+
+
+def _leaf_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.int16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def params_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
+    """A nested dict/list/tuple of numpy arrays (LM parameters or decode
+    caches) → the same tree of tensors on ``device`` (None → the CUDA
+    card). bfloat16 leaves keep their bits."""
+    dev = resolve_device(device)
+
+    def walk(t: Any) -> Any:
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        return _leaf_from_numpy(t, dev)
+    return walk(tree)
+
+
+def params_to_numpy(tree: Any, bfloat16: Optional[np.dtype] = None) -> Any:
+    """Inverse of :func:`params_from_numpy`. bfloat16 leaves come back as
+    their uint16 bit patterns, or viewed as ``bfloat16`` when the caller
+    passes that numpy dtype (``ml_dtypes.bfloat16``, ``jnp.bfloat16``)."""
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            bits = t.view(torch.int16).numpy().view(np.uint16)
+            return bits if bfloat16 is None else bits.view(bfloat16)
+        return t.numpy()
+
+    def walk(t: Any) -> Any:
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        return leaf(t)
+    return walk(tree)

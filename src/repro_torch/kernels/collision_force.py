@@ -101,13 +101,17 @@ def collision_force(data_t: torch.Tensor, block_cols: torch.Tensor, *,
 collision_force.launches = 0
 
 
+# k1_collision_force(data, n_pad, block_cols, maxb, adhesion, n_types,
+#                    k_rep, adhesion_band, out, stream)
+ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+            ctypes.c_void_p, ctypes.c_void_p]
+
+
 def _kernel_fn():
     lib = build.load("collision_force")
     fn = lib.k1_collision_force
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-                   ctypes.c_void_p]
+    fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 

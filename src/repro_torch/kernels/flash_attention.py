@@ -1,0 +1,160 @@
+"""K2: flash attention — the CUDA kernel's wrapper and its plain PyTorch
+version.
+
+Replaces ``repro/kernels/flash_attention.py::flash_attention_kernel`` (the
+Pallas TPU kernel). The kernel itself is ``csrc/flash_attention.cu``; its
+header says how the TPU design was translated and what bounds it.
+
+:func:`flash_attention` takes q (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D),
+``Hq % Hkv == 0``, all float32 or all bfloat16, D in {16, 32, 64, 128}, and
+returns softmax(q·kᵀ·scale)·v (B, Hq, Sq, D) in q's dtype, accumulated in
+float32. Keys at or past ``sk_actual`` are masked; when ``causal``, key
+``j`` is visible to query ``i`` iff ``j <= i + kv_offset`` (queries aligned
+to the end of the keys). Masked scores are -1e30 with p forced to 0, and a
+row with no visible key is 0. On a CUDA tensor it launches the kernel (and
+counts the launch in ``flash_attention.launches``); on a CPU tensor it runs
+:func:`flash_attention_plain`. There is no other path: a failed build or
+launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import build
+
+SUPPORTED_D = (16, 32, 64, 128)
+NEG_INF = -1e30
+# operations per visible (query, key) pair, per unit of D: q·k and p·v,
+# a multiply and an add each — the work unit of the bound chip_smoke.py
+# reports
+OPS_PER_PAIR_PER_D = 4
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the plain version materialises (B, Hq, rows, Sk) scores; rows per chunk
+# keep that under ~2^28 elements
+_PLAIN_ELEMS = 1 << 28
+
+
+def _resolve(q: torch.Tensor, k: torch.Tensor, scale: Optional[float],
+             sk_actual: Optional[int], kv_offset: Optional[int]
+             ) -> tuple[float, int, int]:
+    """Defaults of the TPU kernel: scale 1/√D, sk_actual Sk,
+    kv_offset sk_actual − Sq."""
+    d = q.shape[-1]
+    scale = 1.0 / (d ** 0.5) if scale is None else float(scale)
+    sk_actual = k.shape[2] if sk_actual is None else int(sk_actual)
+    kv_offset = sk_actual - q.shape[2] if kv_offset is None else int(kv_offset)
+    return scale, sk_actual, kv_offset
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           sk_actual: int) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q must be (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D),"
+                         f" got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, hq, _, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or k.shape[1] == 0 \
+            or hq % k.shape[1]:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)} (batch, D, Hq % Hkv == 0)")
+    if d not in SUPPORTED_D:
+        raise ValueError(f"head dim {d} not in {SUPPORTED_D}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must all be float32 or all bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not 0 <= sk_actual <= k.shape[2]:
+        raise ValueError(f"sk_actual={sk_actual} outside [0, {k.shape[2]}]")
+    for name, x in (("k", k), ("v", v)):
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: Optional[float] = None,
+                    sk_actual: Optional[int] = None,
+                    kv_offset: Optional[int] = None) -> torch.Tensor:
+    """K2 on q's device: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors. ``scale`` defaults to 1/√D, ``sk_actual`` to Sk and
+    ``kv_offset`` to sk_actual − Sq, as in the TPU kernel."""
+    scale, sk_actual, kv_offset = _resolve(q, k, scale, sk_actual, kv_offset)
+    _check(q, k, v, sk_actual)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     sk_actual=sk_actual, kv_offset=kv_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"K2 runs on CUDA or CPU tensors, not {q.device}")
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    fn = _kernel_fn()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 _DTYPE_CODE[q.dtype], b, hq, hkv, sq, sk, d, sk_actual,
+                 kv_offset, int(causal), scale, stream)
+    if err != 0:
+        raise RuntimeError(f"K2 flash_attention launch failed: CUDA error "
+                           f"{err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+# k2_flash_attention(q, k, v, o, dtype, b, hq, hkv, sq, sk, d, sk_actual,
+#                    kv_offset, causal, scale, stream)
+ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+            + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _kernel_fn():
+    lib = build.load("flash_attention")
+    fn = lib.k2_flash_attention
+    fn.argtypes = ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          scale: Optional[float] = None,
+                          sk_actual: Optional[int] = None,
+                          kv_offset: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch K2 on any device: the kernel's result computed directly
+    (one softmax over all keys, not tile by tile), with its masks, its −1e30
+    fill and its ``l = 0 → 0`` rule. Query rows go in chunks so the score
+    block stays bounded."""
+    scale, sk_actual, kv_offset = _resolve(q, k, scale, sk_actual, kv_offset)
+    _check(q, k, v, sk_actual)
+    b, hq, sq, _ = q.shape
+    group = hq // k.shape[1]
+    sk = k.shape[2]
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    kpos = torch.arange(sk, device=q.device)
+    out = torch.empty_like(q)
+    rows = max(1, _PLAIN_ELEMS // max(1, b * hq * sk))
+    for r0 in range(0, sq, rows):
+        r1 = min(sq, r0 + rows)
+        s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, r0:r1].float(),
+                         kf) * scale
+        mask = (kpos < sk_actual)[None, :]
+        if causal:
+            qpos = torch.arange(r0, r1, device=q.device) + kv_offset
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+        m = s.amax(-1, keepdim=True)
+        p = torch.where(mask, torch.exp(s - m),
+                        torch.zeros((), device=q.device))
+        l = p.sum(-1, keepdim=True)
+        o = torch.einsum("bhqk,bhkd->bhqd", p, vf)
+        out[:, :, r0:r1] = (o / torch.where(l > 0, l, torch.ones_like(l))
+                            ).to(q.dtype)
+    return out

@@ -1,5 +1,6 @@
-"""K1's wrappers around the kernel: the block-sparse column map and the
-resident-layout entry point (port of ``repro.kernels.ops`` for K1)."""
+"""Wrappers around the kernels (port of ``repro.kernels.ops``): K1's
+block-sparse column map and resident-layout entry point, and K2's
+whole-sequence attention."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from torch.profiler import record_function
 
 from ..core import morton
 from . import collision_force as k1
+from . import flash_attention as k2
 
 BLOCK = k1.BLOCK
 _SENTINEL = 2 ** 30
@@ -153,3 +155,22 @@ def collision_force_resident(position: torch.Tensor, diameter: torch.Tensor,
     nnz = torch.where(act, out_t[k1.ROW_NNZ, :c].to(torch.int32),
                       torch.zeros((), dtype=torch.int32, device=dev))
     return force, nnz, ovf
+
+
+# ---------------------------------------------------------------------------
+# K2: flash attention
+# ---------------------------------------------------------------------------
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: Optional[float] = None
+                    ) -> torch.Tensor:
+    """K2 over whole sequences: every key is real (``sk_actual = Sk``) and
+    the queries sit at the end of the keys (``kv_offset = Sk − Sq``).
+
+    The TPU wrapper pads Sq and Sk to block multiples and unpads; that is a
+    TPU artefact. The CUDA kernel masks its ragged tiles by bounds, so
+    nothing is padded here.
+    """
+    sk = k.shape[2]
+    return k2.flash_attention(q, k, v, causal=causal, scale=scale,
+                              sk_actual=sk, kv_offset=sk - q.shape[2])

@@ -1,5 +1,6 @@
-"""Dense O(N²) oracle for the collision force (port of
-``repro.kernels.ref.collision_force_ref``), the ground truth of the tests."""
+"""Dense oracles for the kernels (ports of ``repro.kernels.ref``): the
+O(N²) collision force and softmax attention, the ground truth of the
+tests."""
 
 from __future__ import annotations
 
@@ -43,3 +44,29 @@ def collision_force_ref(position: torch.Tensor, diameter: torch.Tensor,
     force = pair.sum(1)
     nnz = ((pair * pair).sum(-1) > (1e-7) ** 2).sum(1).to(torch.int32)
     return force, nnz
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, scale: Optional[float] = None
+                        ) -> torch.Tensor:
+    """Reference softmax attention with GQA broadcast.
+
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) with Hq % Hkv == 0. Causal
+    masks with −inf, queries aligned to the end of the keys, so a row with
+    no visible key is NaN here (K2 writes 0 there).
+    """
+    b, hq, sq, dh = q.shape
+    sk = k.shape[2]
+    group = hq // k.shape[1]
+    kk = k.repeat_interleave(group, dim=1)
+    vv = v.repeat_interleave(group, dim=1)
+    scale = scale if scale is not None else 1.0 / (dh ** 0.5)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * scale
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + (sk - sq)
+        kpos = torch.arange(sk, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        logits = torch.where(mask, logits,
+                             torch.full((), float("-inf"), device=q.device))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv.float()).to(q.dtype)

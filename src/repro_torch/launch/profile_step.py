@@ -6,7 +6,8 @@ path (the Fig-6 proliferation configuration).
 
 Reports, per step: wall time without and with the profiler (the cost of
 tracing); the device's busy time (union of kernel, copy and memset
-intervals) and idle share; and, for each named range of the step
+intervals) and idle share over the profiled steps (the profiler slows the
+host, so unprofiled steps idle less); and, for each named range of the step
 (``step/*`` and ``k1/*``, recorded with ``record_function`` in engine.py and
 kernels/ops.py), the device time and the number of launches of the work
 it issued — a device operation belongs to the innermost range open on the
@@ -44,8 +45,9 @@ def analyze_trace(events: list, steps: int) -> dict:
     """Busy time, idle share and per-range device time from a Chrome trace
     (``traceEvents`` of ``export_chrome_trace``), per step."""
     ranges = [e for e in events if e.get("cat") == "user_annotation"]
+    # cuBLASLt launches its GEMMs with cuLaunchKernelEx, traced as cuda_driver
     launches = {e["args"]["correlation"]: e for e in events
-                if e.get("cat") == "cuda_runtime"
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "correlation" in e.get("args", {})}
     device = [e for e in events if e.get("cat") in _DEVICE_CATS]
     per_range = collections.defaultdict(lambda: [0.0, 0])
@@ -113,13 +115,13 @@ def main() -> None:
     report = {"card": card_description(), "agents": args.agents,
               "capacity": sim.config.capacity, "steps": args.steps,
               "ms_per_step": plain_ms, "ms_per_step_profiled": prof_ms,
-              "device_idle_share": max(
-                  0.0, 1.0 - stats["device_busy_ms"] / plain_ms),
+              # busy time and wall from the same (profiled) steps
+              "device_idle_share": 1.0 - stats["device_busy_ms"] / prof_ms,
               **stats}
     print(f"card: {report['card']}")
     print(f"{args.agents} agents: {plain_ms:.3f} ms/step ({prof_ms:.3f} "
           f"profiled); device busy {stats['device_busy_ms']:.3f} ms/step, "
-          f"idle share {report['device_idle_share']:.3f}; "
+          f"idle share {report['device_idle_share']:.3f} (profiled); "
           f"{stats['launches']:.0f} device ops/step")
     for name, r in stats["ranges"].items():
         print(f"  {name:28s} {r['device_ms']:9.3f} ms  "

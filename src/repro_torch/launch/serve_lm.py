@@ -1,0 +1,258 @@
+"""Serve a language model with continuous batching over the paged KV pool,
+on the CUDA card unless asked for the CPU.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch qwen2-1.5b \\
+        --requests 8 --new-tokens 32 --slots 4 --s-max 4096 --pages 1024
+
+The counterpart of ``examples/serve_lm.py``: a ``ContinuousBatcher`` over
+the paged pool (admission control) with dense decode caches per slot
+(model side) and greedy ``argmax``. Weights are random, drawn from
+``--seed``. It differs from the example in one place: the example writes a
+prompt by one ``decode_step`` per token, while here ``prefill_fn`` runs
+``LM.prefill`` on the prompt — through K2 — and writes the returned K/V
+into the slot's rows of the decode caches (zero past the prompt), as
+``tests/test_arch_smoke.py`` pads prefill caches into decode caches.
+
+Kept from the reference on purpose: ``decode_step`` takes one position for
+the whole batch, and the loop passes the longest slot's length
+(``lens.max()``), so a shorter slot writes its next K/V at that shared
+position and attends the rows between (ROADMAP.md records this). The
+paged pool is kept in step with the batch as in the example (its pages
+hold zeros; it decides admission).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from pathlib import Path
+from typing import Any, Dict, List, Sequence
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..configs import ARCHS
+from ..kernels import flash_attention as k2
+from ..models import build_model
+from ..models.lm import LM
+from ..serve import ContinuousBatcher, Finished, Request
+from ..serve import kv_cache as kvc
+
+
+@dataclasses.dataclass
+class ServeReport:
+    finished: List[Finished]          # in order of completion
+    n_free: int                       # pool pages free at the end
+    n_pages: int
+    prompt_tokens: int
+    prefill_s: List[float]            # per prefill, prompt in → first token
+    ttft_s: List[float]               # per prefill: serve start → first
+                                      # token (admission is FIFO, so the
+                                      # order of submission)
+    decode_s: List[float]             # per decode iteration
+    wall_s: float
+    logits_finite: bool
+
+    @property
+    def generated_tokens(self) -> int:
+        return sum(len(f.tokens) for f in self.finished)
+
+    def summary(self) -> Dict[str, Any]:
+        ttft = sorted(self.ttft_s)
+        return {
+            "requests": len(self.finished),
+            "prefills": len(self.prefill_s),
+            "decode_iterations": len(self.decode_s),
+            "prompt_tokens": self.prompt_tokens,
+            "generated_tokens": self.generated_tokens,
+            "prefill_tokens_per_s": self.prompt_tokens / sum(self.prefill_s),
+            "prefill_ms_mean": 1e3 * float(np.mean(self.prefill_s)),
+            "ttft_ms_median": 1e3 * float(np.median(ttft)),
+            "ttft_ms_max": 1e3 * ttft[-1],
+            "decode_ms_per_iter_median": 1e3 * float(
+                np.median(self.decode_s)),
+            "decode_ms_per_iter_mean": 1e3 * float(np.mean(self.decode_s)),
+            "generated_tokens_per_s": self.generated_tokens / self.wall_s,
+            "wall_s": self.wall_s,
+            "n_free": self.n_free, "n_pages": self.n_pages,
+            "logits_finite": self.logits_finite}
+
+
+def make_requests(n: int, vocab: int, *, prompt_min: int, prompt_max: int,
+                  new_tokens: int, seed: int) -> List[Request]:
+    """``n`` requests with prompt lengths uniform in [prompt_min,
+    prompt_max] and tokens uniform in [2, vocab), from ``seed``."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for uid in range(n):
+        length = int(rng.integers(prompt_min, prompt_max + 1))
+        prompt = rng.integers(2, vocab, size=length).astype(np.int32)
+        reqs.append(Request(uid=uid, prompt=prompt,
+                            max_new_tokens=new_tokens))
+    return reqs
+
+
+def _write_prompt(dense: Any, pre: Any, slot: int, n: int) -> None:
+    """Copy one prompt's prefill caches (batch 1, length n) into ``slot`` of
+    the dense decode caches (batch = slots, length s_max), zero past n. The
+    slot axis of every cache leaf is the fourth from the end."""
+    if isinstance(dense, dict):
+        for k in dense:
+            _write_prompt(dense[k], pre[k], slot, n)
+    elif isinstance(dense, (list, tuple)):
+        for d, p in zip(dense, pre):
+            _write_prompt(d, p, slot, n)
+    else:
+        rows = dense.select(-4, slot)
+        rows.zero_()
+        rows[..., :n, :] = pre.select(-4, 0)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve(model: LM, params: Dict, requests: Sequence[Request], *,
+          slots: int = 4, s_max: int = 4096, page_size: int = 16,
+          n_pages: int = 1024, eos_token: int = -1,
+          max_steps: int = 100_000) -> ServeReport:
+    """Serve ``requests`` to completion on the model's device.
+
+    ``eos_token`` −1 (no token ends a request: random weights have no end
+    token) makes every request produce its ``max_new_tokens``. Each
+    request needs ``len(prompt) + max_new_tokens < s_max``.
+    """
+    cfg, dev = model.cfg, model.device
+    for r in requests:
+        if len(r.prompt) + r.max_new_tokens >= s_max:
+            raise ValueError(f"request {r.uid}: prompt {len(r.prompt)} + "
+                             f"{r.max_new_tokens} new tokens does not fit "
+                             f"s_max={s_max}")
+    spec = kvc.PagedCacheSpec(
+        n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
+        page_size=page_size, n_pages=n_pages, max_seqs=slots,
+        max_pages_per_seq=s_max // page_size, dtype=cfg.activation_dtype)
+    caches = model.init_decode_caches(slots, s_max)
+    lens = np.zeros(slots, np.int64)
+    zero_kv = torch.zeros((spec.n_layers, slots, spec.n_kv_heads,
+                           spec.d_head), dtype=spec._dt, device=dev)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    prefill_s: List[float] = []
+    decode_s: List[float] = []
+    ttft: List[float] = []
+
+    def prefill_fn(prompt, slot, batcher):
+        nonlocal finite
+        t = time.perf_counter()
+        with record_function("serve/prefill"):
+            toks = torch.as_tensor(prompt, dtype=torch.int64,
+                                   device=dev)[None]
+            logits, pre = model.prefill(params, toks)
+            _write_prompt(caches, pre, slot, toks.shape[1])
+            lens[slot] = toks.shape[1]
+            finite = finite & torch.isfinite(logits).all()
+            first = int(torch.argmax(logits[0]))        # synchronises
+        done = time.perf_counter()
+        prefill_s.append(done - t)
+        ttft.append(done - t0)
+        return None, first
+
+    def decode_fn(p, tokens, pool_state, active):
+        nonlocal finite
+        t = time.perf_counter()
+        with record_function("serve/decode"):
+            logits, _ = model.decode_step(p, tokens.to(dev, torch.int64),
+                                          caches, int(lens.max()))
+            lens[active.numpy()] += 1
+            finite = finite & torch.isfinite(logits).all()
+            nxt = torch.argmax(logits, dim=-1)
+            # keep the paged pool in lock-step (admission control)
+            st, _ = kvc.append_token(spec, pool_state, zero_kv, zero_kv)
+            nxt = nxt.cpu()                              # synchronises
+        decode_s.append(time.perf_counter() - t)
+        return nxt, st
+
+    batcher = ContinuousBatcher(spec, prefill_fn, decode_fn,
+                                eos_token=eos_token, device=dev)
+    for r in requests:
+        batcher.submit(r)
+    _sync(dev)
+    t0 = time.perf_counter()
+    batcher.run_until_drained(params, max_steps=max_steps)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    return ServeReport(
+        finished=batcher.finished, n_free=int(batcher.state.n_free),
+        n_pages=n_pages,
+        prompt_tokens=sum(len(r.prompt) for r in requests),
+        prefill_s=prefill_s, ttft_s=ttft, decode_s=decode_s, wall_s=wall,
+        logits_finite=bool(finite))
+
+
+def traffic_parser(description: str, **defaults) -> argparse.ArgumentParser:
+    """The model, traffic and pool options of a serve (and ``--out``);
+    ``defaults`` overrides their defaults."""
+    ap = argparse.ArgumentParser(description=description)
+    ap.add_argument("--arch", default="qwen2-1.5b", choices=sorted(ARCHS))
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth (default: the config's)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--prompt-min", type=int, default=256)
+    ap.add_argument("--prompt-max", type=int, default=2048)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--s-max", type=int, default=4096)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--pages", type=int, default=1024)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None, help="write the report as JSON")
+    ap.set_defaults(**defaults)
+    return ap
+
+
+def setup(args: argparse.Namespace, device: str | None = None
+          ) -> tuple[LM, Dict, List[Request], Dict[str, int]]:
+    """Model, random weights from ``--seed``, requests and ``serve``'s pool
+    keywords, from :func:`traffic_parser`'s options."""
+    cfg = ARCHS[args.arch]
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    model = build_model(cfg, device=device)
+    gen = torch.Generator(device=model.device).manual_seed(args.seed)
+    params = model.init_params(gen)
+    reqs = make_requests(args.requests, cfg.vocab_size,
+                         prompt_min=args.prompt_min,
+                         prompt_max=args.prompt_max,
+                         new_tokens=args.new_tokens, seed=args.seed)
+    pool = dict(slots=args.slots, s_max=args.s_max,
+                page_size=args.page_size, n_pages=args.pages)
+    return model, params, reqs, pool
+
+
+def main(argv: Sequence[str] | None = None) -> ServeReport:
+    ap = traffic_parser(__doc__.splitlines()[0])
+    ap.add_argument("--device", default=None,
+                    help="default: the CUDA card (raises without one)")
+    args = ap.parse_args(argv)
+
+    model, params, reqs, pool = setup(args, args.device)
+    cfg = model.cfg
+    k2.flash_attention.launches = 0
+    report = serve(model, params, reqs, **pool)
+    summary = {"arch": cfg.name, "n_layers": cfg.n_layers,
+               "device": str(model.device),
+               "k2_launches": k2.flash_attention.launches,
+               **report.summary()}
+    print(json.dumps(summary))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(summary, indent=1))
+    return report
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,7 @@
+"""repro_torch.models — the LM substrate (port of ``repro.models``): the
+dense family so far."""
+
+from .lm import LM
+from .zoo import build_model, reduced_config
+
+__all__ = ["LM", "build_model", "reduced_config"]

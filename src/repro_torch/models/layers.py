@@ -1,0 +1,126 @@
+"""Model-layer primitives and the parameter registry (port of
+``repro.models.layers``).
+
+Parameters are nested dicts of tensors. A ``ParamSet`` records, for every
+parameter: shape, dtype, init kind and std, and the placeholder sharding
+axes of the reference ("fsdp" / "tp"), kept as data so the two registries
+stay comparable. Sharding itself (``hint``, ``MeshAxes``,
+``resolve_spec``) waits for ROADMAP.md Queue 1 items 15 and 18; the port
+has no ``hint``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's dtype name."""
+    return _DTYPES[name]
+
+
+class ShapeDtype(NamedTuple):
+    """Shape and dtype of a tensor not yet made (``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+# ---------------------------------------------------------------------------
+# Parameter registry
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ParamInfo:
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    spec: Tuple[Optional[str], ...]       # axis names: "fsdp" | "tp" | None
+    init: str = "normal"                  # normal | zeros | ones
+    std: float = 0.02
+
+
+class ParamSet:
+    """Collects ParamInfo under nested string paths ('a/b/c')."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        self.infos: Dict[str, ParamInfo] = {}
+        self.default_dtype = dtype
+
+    def add(self, path: str, shape: Sequence[int],
+            spec: Sequence[Optional[str]], init: str = "normal",
+            std: float = 0.02, dtype: Optional[torch.dtype] = None) -> None:
+        assert path not in self.infos, f"duplicate param {path}"
+        assert len(spec) == len(shape), (path, shape, spec)
+        self.infos[path] = ParamInfo(tuple(shape), dtype or self.default_dtype,
+                                     tuple(spec), init, std)
+
+    def init_params(self, generator: torch.Generator) -> Dict[str, Any]:
+        """Materialise every parameter on ``generator``'s device: in sorted
+        path order, ``normal`` draws f32 N(0, 1)·std from ``generator`` and
+        casts; ``zeros`` / ``ones`` are constant. The draws differ from
+        ``jax.random`` — carry the reference's weights with
+        ``convert.params_from_numpy`` where the numbers must agree."""
+        dev = generator.device
+        out: Dict[str, Any] = {}
+        for path, info in sorted(self.infos.items()):
+            if info.init == "zeros":
+                val = torch.zeros(info.shape, dtype=info.dtype, device=dev)
+            elif info.init == "ones":
+                val = torch.ones(info.shape, dtype=info.dtype, device=dev)
+            else:
+                val = (torch.randn(info.shape, generator=generator,
+                                   dtype=torch.float32, device=dev)
+                       * info.std).to(info.dtype)
+            _set(out, path, val)
+        return out
+
+    def n_params(self) -> int:
+        return sum(math.prod(i.shape) for i in self.infos.values())
+
+
+def _set(tree: Dict[str, Any], path: str, val: Any) -> None:
+    parts = path.split("/")
+    for p in parts[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[parts[-1]] = val
+
+
+# ---------------------------------------------------------------------------
+# Numerics (casts as in the reference)
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    """Normalise in f32, cast to x's dtype, then scale by ``weight``."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(dt) * weight
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4
+         ) -> torch.Tensor:
+    """Rotary embedding. x: (..., S, D_even); positions: (..., S) or (S,).
+    Frequencies ``1 / theta ** (arange(half) / half)`` in f32."""
+    d = x.shape[-1]
+    half = d // 2
+    exps = torch.arange(half, dtype=torch.float32, device=x.device) / half
+    freqs = 1.0 / (theta ** exps)
+    angles = positions[..., :, None].float() * freqs        # (..., S, half)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = torch.matmul(x, w_gate)
+    u = torch.matmul(x, w_up)
+    return torch.matmul(F.silu(g) * u, w_down)

@@ -1,0 +1,287 @@
+"""Decoder-only LM over repeating layer patterns (port of
+``repro.models.lm``), dense family: pattern [attn + dense].
+
+The parameter tree is the reference's: ``embed/tokens``, ``prefix<i>/...``
+for unstacked leading layers, ``blocks/l<j>/...`` with a leading
+``n_blocks`` axis, ``final_norm`` and, untied, ``lm_head``. The decode
+caches are the reference's ``(prefix_caches, block_caches)`` with stacked
+``(n_blocks, B, Hkv, S, Dh)`` leaves. So weights and caches carry across
+1:1 (``convert.py``). The reference's ``jax.lax.scan`` over blocks is a
+Python loop over the stacked axis.
+
+Modes:
+  prefill(tokens[, embeds])    → last-position logits + decode caches
+  decode_step(token, caches, len) → next logits + caches (updated in place)
+
+Not ported yet (ROADMAP.md Queue 1 item 17): training (``train_loss``),
+MoE, SSM and cross-attention layers, MLA.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch.profiler import record_function
+
+from ..configs.base import ArchConfig, LayerDesc
+from ..device import DeviceLike, resolve_device
+from . import attention as attn_mod
+from .layers import ParamSet, ShapeDtype, rms_norm, swiglu, torch_dtype
+
+_TODO = "ROADMAP.md Queue 1 item 17"
+
+
+def register_mlp(ps: ParamSet, prefix: str, cfg: ArchConfig,
+                 stack: Tuple[int, ...]) -> None:
+    d, f = cfg.d_model, cfg.d_ff
+    s = tuple(stack)
+    ns = (None,) * len(s)
+    ps.add(f"{prefix}/w_gate", s + (d, f), ns + ("fsdp", "tp"))
+    ps.add(f"{prefix}/w_up", s + (d, f), ns + ("fsdp", "tp"))
+    ps.add(f"{prefix}/w_down", s + (f, d), ns + ("tp", "fsdp"))
+    ps.add(f"{prefix}/norm", s + (d,), ns + (None,), init="ones")
+
+
+def mlp_layer(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    return x + swiglu(rms_norm(x, p["norm"], cfg.norm_eps),
+                      p["w_gate"], p["w_up"], p["w_down"])
+
+
+def _check_layer(ld: LayerDesc, cross: bool) -> None:
+    if ld.kind != "attn":
+        raise NotImplementedError(f"{ld.kind} layers are not ported yet "
+                                  f"({_TODO}, SSM family)")
+    if ld.mlp not in ("dense", "none"):
+        raise NotImplementedError(f"{ld.mlp} MLP layers are not ported yet "
+                                  f"({_TODO}, MoE family)")
+    if cross:
+        raise NotImplementedError(f"cross-attention is not ported yet "
+                                  f"({_TODO}, encoder-decoder family)")
+
+
+def register_pattern_block(ps: ParamSet, prefix: str, cfg: ArchConfig,
+                           pattern: Tuple[LayerDesc, ...],
+                           stack: Tuple[int, ...],
+                           cross: bool = False) -> None:
+    for i, ld in enumerate(pattern):
+        _check_layer(ld, cross)
+        pfx = f"{prefix}/l{i}"
+        if cfg.mla:
+            attn_mod.register_mla(ps, f"{pfx}/attn", cfg, stack)
+        attn_mod.register_attn(ps, f"{pfx}/attn", cfg, stack)
+        if ld.mlp == "dense":
+            register_mlp(ps, f"{pfx}/mlp", cfg, stack)
+
+
+def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
+                        pattern: Tuple[LayerDesc, ...], mode: str,
+                        caches: Optional[Tuple] = None,
+                        cur_len: Optional[int] = None,
+                        causal: bool = True,
+                        attn_impl: str = "k2",
+                        want_cache: bool = False
+                        ) -> Tuple[torch.Tensor, Tuple]:
+    """Apply one pattern block. mode: "full" | "decode". Returns
+    (x, new_caches); the reference's aux loss is MoE-only and absent."""
+    new_caches: List[Any] = []
+    for i, ld in enumerate(pattern):
+        lp = p_block[f"l{i}"]
+        with record_function(f"{mode}/attn"):
+            if mode == "full":
+                x, c = attn_mod.gqa_full(lp["attn"], x, cfg, causal=causal,
+                                         attn_impl=attn_impl)
+            else:
+                x, c = attn_mod.gqa_decode(lp["attn"], x, caches[i],
+                                           cur_len, cfg)
+        if ld.mlp == "dense":
+            with record_function(f"{mode}/mlp"):
+                x = mlp_layer(lp["mlp"], x, cfg)
+        if mode == "full" and not want_cache:
+            c = ()
+        new_caches.append(c)
+    return x, tuple(new_caches)
+
+
+def _index(tree: Any, i: int) -> Any:
+    """Slice ``i`` of every leaf's leading axis (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_index(v, i) for v in tree)
+    return tree[i]
+
+
+def _stack(trees: List[Any]) -> Any:
+    """Stack a list of equal trees along a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_stack([t[j] for t in trees])
+                           for j in range(len(first)))
+    return torch.stack(trees)
+
+
+def _map(fn, tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, ShapeDtype):
+        return type(tree)(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+class LM:
+    """Decoder-only language model, dense family (pattern-stacked).
+
+    ``device`` (None → the CUDA card, raising without one) is where
+    :meth:`init_params` and :meth:`init_decode_caches` put their tensors;
+    ``attn_impl`` is ``"k2"`` (the reference's ``"pallas"``) or ``"sdpa"``
+    (its ``"xla"``).
+    """
+
+    def __init__(self, cfg: ArchConfig, attn_impl: str = "k2",
+                 device: DeviceLike = None):
+        if attn_impl not in attn_mod.ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of "
+                             f"{attn_mod.ATTN_IMPLS}, got {attn_impl!r}")
+        self.cfg = cfg
+        self.attn_impl = attn_impl
+        self.device = resolve_device(device)
+        self.pattern = cfg.layer_pattern()
+        self.n_prefix = cfg.first_dense_layers
+        n_scanned = cfg.n_layers - self.n_prefix
+        assert n_scanned % len(self.pattern) == 0, cfg.name
+        self.n_blocks = n_scanned // len(self.pattern)
+        self.pdt = torch_dtype(cfg.param_dtype)
+        self.adt = torch_dtype(cfg.activation_dtype)
+
+        # vocab padded to a 128 multiple (the reference shards the table on
+        # any TP degree); padded logit columns are masked in _logits
+        self.v_pad = ((cfg.vocab_size + 127) // 128) * 128
+        ps = ParamSet(dtype=self.pdt)
+        ps.add("embed/tokens", (self.v_pad, cfg.d_model), ("tp", "fsdp"))
+        prefix_pat = (LayerDesc(kind="attn", mlp="dense"),)
+        for i in range(self.n_prefix):
+            register_pattern_block(ps, f"prefix{i}", cfg, prefix_pat, ())
+        register_pattern_block(ps, "blocks", cfg, self.pattern,
+                               (self.n_blocks,))
+        ps.add("final_norm", (cfg.d_model,), (None,), init="ones")
+        if not cfg.tie_embeddings:
+            ps.add("lm_head", (cfg.d_model, self.v_pad), ("fsdp", "tp"))
+        self.ps = ps
+        self.prefix_pattern = prefix_pat
+
+    # -- parameter plumbing --------------------------------------------------
+    def init_params(self, generator: torch.Generator) -> Dict:
+        """Random-init weights from ``generator``, which must live on the
+        model's device."""
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator is on {generator.device}, the model "
+                             f"on {self.device}")
+        return self.ps.init_params(generator)
+
+    def n_params(self) -> int:
+        return self.ps.n_params()
+
+    # -- embedding / head ----------------------------------------------------
+    def _embed(self, params: Dict, tokens: torch.Tensor,
+               frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+        x = params["embed"]["tokens"][tokens].to(self.adt)
+        if frontend_embeds is not None:
+            x = torch.cat([frontend_embeds.to(self.adt), x], dim=1)
+        return x
+
+    def _logits(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        if self.cfg.tie_embeddings:
+            logits = torch.matmul(x, params["embed"]["tokens"].T)
+        else:
+            logits = torch.matmul(x, params["lm_head"])
+        if self.v_pad != self.cfg.vocab_size:   # mask padded vocab columns
+            col = torch.arange(self.v_pad, device=x.device)
+            logits = torch.where(col < self.cfg.vocab_size, logits,
+                                 torch.full((), -1e30, dtype=logits.dtype,
+                                            device=x.device))
+        return logits
+
+    # -- full-sequence pass ----------------------------------------------------
+    def _run_blocks_full(self, params: Dict, x: torch.Tensor,
+                         want_cache: bool) -> Tuple[torch.Tensor, List,
+                                                    Tuple]:
+        cfg = self.cfg
+        prefix_caches = []
+        for i in range(self.n_prefix):
+            x, c = apply_pattern_block(
+                params[f"prefix{i}"], x, cfg, self.prefix_pattern, "full",
+                attn_impl=self.attn_impl, want_cache=want_cache)
+            prefix_caches.append(c)
+        per_block = []
+        for j in range(self.n_blocks):
+            x, c = apply_pattern_block(
+                _index(params["blocks"], j), x, cfg, self.pattern, "full",
+                attn_impl=self.attn_impl, want_cache=want_cache)
+            per_block.append(c)
+        return x, prefix_caches, _stack(per_block)
+
+    # -- public entry points ---------------------------------------------------
+    def train_loss(self, params: Dict, batch: Dict[str, torch.Tensor]):
+        raise NotImplementedError(f"training is not ported yet ({_TODO}, "
+                                  f"training)")
+
+    @torch.no_grad()
+    def prefill(self, params: Dict, tokens: torch.Tensor,
+                frontend_embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Tuple[List, Tuple]]:
+        """tokens: (B, S) int. Returns (logits (B, V_pad) at the last
+        position, (prefix_caches, block_caches)) with caches S long."""
+        x = self._embed(params, tokens, frontend_embeds)
+        x, prefix_caches, caches = self._run_blocks_full(params, x,
+                                                         want_cache=True)
+        with record_function("full/logits"):
+            logits = self._logits(params, x[:, -1:, :])
+        return logits[:, 0], (prefix_caches, caches)
+
+    @torch.no_grad()
+    def decode_step(self, params: Dict, token: torch.Tensor,
+                    caches: Tuple[List, Tuple], cur_len: int
+                    ) -> Tuple[torch.Tensor, Tuple[List, Tuple]]:
+        """token: (B,) int; cur_len: the position being written, one for the
+        whole batch. The caches are written in place and returned."""
+        cfg = self.cfg
+        cur_len = int(cur_len)
+        prefix_caches, block_caches = caches
+        x = params["embed"]["tokens"][token[:, None]].to(self.adt)
+        for i in range(self.n_prefix):
+            x, _ = apply_pattern_block(
+                params[f"prefix{i}"], x, cfg, self.prefix_pattern, "decode",
+                caches=prefix_caches[i], cur_len=cur_len)
+        for j in range(self.n_blocks):
+            x, _ = apply_pattern_block(
+                _index(params["blocks"], j), x, cfg, self.pattern, "decode",
+                caches=_index(block_caches, j), cur_len=cur_len)
+        with record_function("decode/logits"):
+            logits = self._logits(params, x)
+        return logits[:, 0], caches
+
+    # -- cache construction ------------------------------------------------------
+    def _slot_cache_spec(self, ld: LayerDesc, batch: int, s_max: int,
+                         stack: Tuple[int, ...]) -> Dict[str, ShapeDtype]:
+        spec = attn_mod.gqa_cache_spec(self.cfg, batch, s_max, self.adt)
+        return {k: ShapeDtype(stack + sd.shape, sd.dtype)
+                for k, sd in spec.items()}
+
+    def decode_cache_specs(self, batch: int, s_max: int) -> Tuple[List, Tuple]:
+        prefix = [tuple(self._slot_cache_spec(ld, batch, s_max, ())
+                        for ld in self.prefix_pattern)
+                  for _ in range(self.n_prefix)]
+        blocks = tuple(self._slot_cache_spec(ld, batch, s_max,
+                                             (self.n_blocks,))
+                       for ld in self.pattern)
+        return prefix, blocks
+
+    def init_decode_caches(self, batch: int, s_max: int) -> Tuple[List, Tuple]:
+        """Zero decode caches on the model's device."""
+        return _map(lambda sd: torch.zeros(sd.shape, dtype=sd.dtype,
+                                           device=self.device),
+                    self.decode_cache_specs(batch, s_max))

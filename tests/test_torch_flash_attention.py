@@ -1,0 +1,204 @@
+"""K2 in the port ≡ the reference's K2 (Pallas, interpret mode) and oracle.
+
+Same inputs, made with numpy from a seed, go through the JAX package's
+``ops.flash_attention`` and ``ref.flash_attention_ref`` and the port's
+``ops.flash_attention`` (on the CPU: K2's plain version) and
+``ref.flash_attention_ref``, at the tolerances ``tests/test_kernels.py``
+holds Pallas K2 to (f32 2e-5, bf16 2e-2). Rows with no visible key follow
+the kernel's rule (0), tested on their own. The CUDA kernel is held
+against its plain version by the card-only test at the end, which needs
+no JAX (on the GPU host: ``python -m pytest -q
+tests/test_torch_flash_attention.py -k cuda``).
+"""
+
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from hypothesis_compat import given, settings, st  # noqa: E402
+
+from repro_torch.kernels import flash_attention as tk2  # noqa: E402
+from repro_torch.kernels import ops as tops, ref as tref  # noqa: E402
+
+CASES = [   # (b, hq, hkv, sq, sk, d, causal, dtype): tests/test_kernels.py
+    (2, 4, 2, 128, 128, 64, True, "float32"),
+    (1, 8, 8, 256, 256, 32, True, "float32"),
+    (1, 4, 1, 100, 100, 64, True, "float32"),     # non-aligned seq
+    (2, 2, 2, 64, 192, 32, True, "float32"),      # chunk (Sq < Sk)
+    (1, 4, 2, 128, 128, 64, False, "float32"),    # non-causal
+    (1, 2, 2, 128, 128, 128, True, "bfloat16"),   # bf16 inputs
+    (1, 2, 1, 384, 384, 64, True, "float32"),     # multi-block both axes
+]
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+@pytest.fixture
+def ref():
+    """The JAX reference modules (imported here, so the card-only test runs
+    where JAX is not installed)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import ops, ref as oracle
+    return types.SimpleNamespace(jnp=jnp, ops=ops, oracle=oracle)
+
+
+@pytest.fixture(autouse=True)
+def _single_thread():
+    """One torch CPU thread keeps the parity tests deterministic (see
+    tests/test_torch_kernels.py)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _qkv(seed, b, hq, hkv, sq, sk, d):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, hq, sq, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, sk, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, sk, d)).astype(np.float32))
+
+
+def _t(x, dtype="float32", device="cpu"):
+    return torch.from_numpy(x).to(device=device, dtype=getattr(torch, dtype))
+
+
+def _np(x):
+    return x.float().cpu().numpy()
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,dtype", CASES)
+def test_flash_attention_matches_jax(ref, b, hq, hkv, sq, sk, d, causal,
+                                     dtype):
+    q, k, v = _qkv(sq * 7 + d, b, hq, hkv, sq, sk, d)
+    jdt = getattr(ref.jnp, dtype)
+    jq, jk, jv = (ref.jnp.asarray(x, jdt) for x in (q, k, v))
+    want_kernel = np.asarray(ref.ops.flash_attention(jq, jk, jv,
+                                                     causal=causal),
+                             np.float32)
+    want_oracle = np.asarray(ref.oracle.flash_attention_ref(
+        jq, jk, jv, causal=causal), np.float32)
+    tq, tk, tv = (_t(x, dtype) for x in (q, k, v))
+    got = tops.flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    assert torch.equal(got, tk2.flash_attention_plain(tq, tk, tv,
+                                                      causal=causal))
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(got), want_kernel, atol=tol)
+    np.testing.assert_allclose(_np(got), want_oracle, atol=tol)
+    oracle = tref.flash_attention_ref(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(_np(oracle), want_oracle, atol=tol)
+
+
+@settings(max_examples=8, deadline=None)
+@given(st.integers(1, 2), st.sampled_from([1, 2, 4]), st.integers(1, 3),
+       st.sampled_from([16, 32, 64, 128]), st.integers(0, 10_000))
+def test_flash_attention_plain_matches_oracle_property(b, group, hkv, d,
+                                                       seed):
+    rng = np.random.default_rng(seed)
+    sq = int(rng.integers(2, 200))
+    sk = sq + int(rng.integers(0, 64))
+    q, k, v = _qkv(seed, b, group * hkv, hkv, sq, sk, d)
+    tq, tk, tv = _t(q), _t(k), _t(v)
+    got = tops.flash_attention(tq, tk, tv, causal=True)
+    want = tref.flash_attention_ref(tq, tk, tv, causal=True)
+    np.testing.assert_allclose(_np(got), _np(want), atol=3e-5)
+
+
+def test_flash_attention_identical_v_returns_v():
+    """softmax sanity: attending to identical V returns V."""
+    b, h, s, d = 1, 2, 130, 32
+    q, k, _ = _qkv(3, b, h, h, s, s, d)
+    row = np.random.default_rng(4).standard_normal((1, 1, 1, d))
+    v = np.broadcast_to(row.astype(np.float32), (b, h, s, d)).copy()
+    out = tops.flash_attention(_t(q), _t(k), _t(v), causal=True)
+    np.testing.assert_allclose(_np(out), v, atol=1e-5)
+
+
+def test_flash_attention_rows_without_keys_are_zero():
+    """The kernel's l = 0 → 0 rule: with Sq > Sk (kv_offset < 0), causal
+    rows before the first key see nothing and are 0 (the oracle gives NaN
+    there); the other rows match softmax over their visible keys. With
+    sk_actual = 0 every row is 0."""
+    b, hq, hkv, sq, sk, d = 1, 4, 2, 40, 24, 32
+    q, k, v = _qkv(5, b, hq, hkv, sq, sk, d)
+    tq, tk, tv = _t(q), _t(k), _t(v)
+    out = tk2.flash_attention(tq, tk, tv, causal=True)     # kv_offset -16
+    assert torch.equal(out[:, :, :sq - sk], torch.zeros_like(
+        out[:, :, :sq - sk]))
+    want = tref.flash_attention_ref(tq[:, :, sq - sk:], tk, tv, causal=True)
+    np.testing.assert_allclose(_np(out[:, :, sq - sk:]), _np(want),
+                               atol=2e-5)
+    nan_rows = tref.flash_attention_ref(tq, tk, tv, causal=True)
+    assert torch.isnan(nan_rows[:, :, :sq - sk]).all()
+    empty = tk2.flash_attention(tq, tk, tv, causal=False, sk_actual=0)
+    assert torch.equal(empty, torch.zeros_like(empty))
+
+
+def test_flash_attention_sk_actual_masks_key_padding():
+    """Keys at or past sk_actual do not count: same as cutting them off."""
+    q, k, v = _qkv(6, 1, 4, 2, 50, 80, 64)
+    tq, tk, tv = _t(q), _t(k), _t(v)
+    got = tk2.flash_attention(tq, tk, tv, causal=True, sk_actual=60,
+                              kv_offset=10)
+    want = tops.flash_attention(tq, tk[:, :, :60], tv[:, :, :60],
+                                causal=True)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-6)
+
+
+def test_flash_attention_wrapper_checks_inputs():
+    q, k, v = (_t(x) for x in _qkv(7, 1, 4, 2, 16, 16, 32))
+    with pytest.raises(ValueError):                   # head dim 48
+        tk2.flash_attention(q[..., :24].repeat(1, 1, 1, 2),
+                            k[..., :24].repeat(1, 1, 1, 2),
+                            v[..., :24].repeat(1, 1, 1, 2))
+    with pytest.raises(ValueError):                   # Hq % Hkv != 0
+        tk2.flash_attention(q[:, :3], k, v)
+    with pytest.raises(ValueError):                   # mixed dtypes
+        tk2.flash_attention(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError):                   # float16
+        tk2.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):                   # sk_actual > Sk
+        tk2.flash_attention(q, k, v, sk_actual=17)
+    before = tk2.flash_attention.launches
+    tk2.flash_attention(q, k, v)
+    assert tk2.flash_attention.launches == before     # CPU: no kernel launch
+
+
+CUDA_CASES = [  # (b, hq, hkv, sq, sk, d, causal, dtype, sk_actual)
+    (1, 12, 2, 1000, 1000, 128, True, "bfloat16", None),  # qwen2 heads
+    (1, 12, 2, 1781, 1781, 128, True, "bfloat16", None),  # a served prompt
+    (1, 12, 2, 1000, 1000, 128, True, "float32", None),
+    (2, 4, 2, 64, 1088, 64, True, "float32", None),       # chunk
+    (1, 4, 4, 200, 200, 32, False, "float32", None),      # non-causal
+    (2, 8, 1, 77, 77, 16, True, "float32", None),
+    (1, 4, 2, 40, 24, 64, True, "float32", None),         # empty rows
+    (1, 4, 2, 130, 160, 128, True, "bfloat16", 150),      # key padding
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,dtype,sk_actual",
+                         CUDA_CASES)
+def test_k2_cuda_kernel_matches_plain(b, hq, hkv, sq, sk, d, causal, dtype,
+                                      sk_actual):
+    """The hand-written kernel against its plain version, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    q, k, v = (_t(x, dtype, "cuda") for x in _qkv(sq + d, b, hq, hkv, sq, sk,
+                                                   d))
+    before = tk2.flash_attention.launches
+    got = tk2.flash_attention(q, k, v, causal=causal, sk_actual=sk_actual)
+    torch.cuda.synchronize()
+    assert tk2.flash_attention.launches == before + 1
+    want = tk2.flash_attention_plain(q, k, v, causal=causal,
+                                     sk_actual=sk_actual)
+    assert got.dtype == q.dtype
+    np.testing.assert_allclose(_np(got), _np(want), atol=TOL[dtype])
+    if dtype == "bfloat16":
+        # both accumulate in f32: at most one rounding of the output apart
+        # (one bf16 ulp, 2^-7 relative); rtol allows two
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-3,
+                                   rtol=1.6e-2)

@@ -3,7 +3,7 @@
 * ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor the
   JAX package ``repro``;
 * entry points default to the CUDA card and raise where there is none;
-* the K1 wrapper and the kernel build catch no exception.
+* the kernel wrappers and the kernel build catch no exception.
 """
 
 import ast
@@ -53,6 +53,7 @@ def test_simulation_defaults_to_cuda_and_raises_without_it():
 
 
 @pytest.mark.parametrize("rel", ["kernels/collision_force.py",
+                                 "kernels/flash_attention.py",
                                  "kernels/build.py", "kernels/ops.py"])
 def test_kernel_path_swallows_no_error(rel):
     tree = ast.parse((PORT / rel).read_text())
@@ -68,3 +69,51 @@ def test_kernel_wrapper_raises_on_a_device_it_cannot_run():
     with pytest.raises(ValueError):
         k1.collision_force(data, cols, k_rep=2.0, adhesion=None,
                            adhesion_band=0.4)
+
+
+def test_k2_wrapper_raises_on_a_device_it_cannot_run():
+    from repro_torch.kernels import flash_attention as k2
+    q = torch.zeros((1, 2, 8, 32), device="meta")
+    kv = torch.zeros((1, 1, 8, 32), device="meta")
+    with pytest.raises(ValueError):
+        k2.flash_attention(q, kv, kv)
+
+
+def test_lm_and_serve_default_to_cuda_and_raise_without_it():
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import LM, build_model, reduced_config
+    from repro_torch.serve import ContinuousBatcher, PagedCacheSpec
+    cfg = dataclasses.replace(reduced_config(ARCHS["qwen2-1.5b"]),
+                              n_layers=1)
+    if torch.cuda.is_available():
+        assert LM(cfg).device.type == "cuda"
+        return
+    for make in (lambda: LM(cfg), lambda: build_model(cfg),
+                 lambda: ContinuousBatcher(PagedCacheSpec(1, 1, 16), None,
+                                           None),
+                 lambda: serve_lm.main(["--layers", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert build_model(cfg, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("module,entry", [
+    ("collision_force", "k1_collision_force"),
+    ("flash_attention", "k2_flash_attention")])
+def test_ctypes_signature_matches_the_cuda_entry_point(module, entry):
+    """The wrapper's argtypes follow the C entry point parameter for
+    parameter (a short list is only caught when the library is called)."""
+    import ctypes
+    import importlib
+    import re
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    src = (PORT / "kernels" / "csrc" / f"{module}.cu").read_text()
+    sig = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src)
+    assert sig, f"{entry} not found in csrc/{module}.cu"
+    params = [p.strip() for p in sig.group(1).split(",")]
+    want = [ctypes.c_void_p if "*" in p else
+            ctypes.c_float if p.startswith("float") else ctypes.c_int
+            for p in params]
+    assert mod.ARGTYPES == want
