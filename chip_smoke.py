@@ -6,7 +6,9 @@ kernel of that path against its plain PyTorch version.
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   0. build: compile every kernel under src/repro_torch/kernels/csrc with
-     nvcc for sm_90a, all sources at once;
+     nvcc for sm_90a, all sources at once; print each K2 template's
+     registers and spills (from the ptxas log) and dynamic shared memory,
+     and fail if a tensor-core template spills;
   1. kernel vs plain: K1 against its plain version at the Fig-6
      proliferation shapes (65,536 and 1,048,576 agents, column map from
      the port's own resident build): force atol 1e-4, nnz exact; kernel and
@@ -20,11 +22,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      32,768) for 60 steps must grow the population;
   5. K2 vs plain: flash attention at the qwen2-1.5b prefill shape (B 1,
      Hq 12, Hkv 2, D 128, S 4096, bf16, causal), the same heads in bf16 at
-     the first prompt length phase 7 serves (not block-aligned), f32
-     S 1000 (not block-aligned), a chunk (Sq 64 < Sk 1088, f32) and a
-     non-causal case: bf16 atol 2e-2 and, scaled to the output, within
-     1e-3 + 1.6e-2·|plain| (two bf16 ulps) everywhere; f32 atol 2e-5;
-     kernel, plain and library-call
+     the first and the shortest prompt lengths phase 7 serves (not
+     block-aligned) and as a chunk (Sq 64 < Sk 1088), f32 S 1000 (not
+     block-aligned), an f32 chunk and an f32 non-causal case: bf16 atol
+     2e-2 and, scaled to the output, within 1e-3 + 1.6e-2·|plain| (two
+     bf16 ulps) everywhere; f32 atol 2e-5; each case names the kernel it
+     ran (tensor-core bf16 or scalar); kernel, plain and library-call
      (``F.scaled_dot_product_attention``, timed for the record only) times
      and the kernel's lower bound on this card;
   6. the LM on the card ≡ the LM on the CPU: a 2-layer f32 qwen2-family
@@ -64,9 +67,13 @@ MAIN_AGENTS, MAIN_STEPS = 1_048_576, 10
 PARITY_AGENTS = 8192
 # K2 cases: (name, B, Hq, Hkv, Sq, Sk, D, causal, dtype); the first is the
 # qwen2-1.5b prefill shape and the one the kernels line reports. Sq = Sk =
-# None is the length of the first prompt phase 7 serves.
+# "first" or "shortest" is the length of that prompt of phase 7.
 K2_CASES = (("qwen2-prefill", 1, 12, 2, 4096, 4096, 128, True, "bfloat16"),
-            ("served-prompt", 1, 12, 2, None, None, 128, True, "bfloat16"),
+            ("served-prompt", 1, 12, 2, "first", None, 128, True,
+             "bfloat16"),
+            ("served-shortest", 1, 12, 2, "shortest", None, 128, True,
+             "bfloat16"),
+            ("chunk-bf16", 1, 12, 2, 64, 1088, 128, True, "bfloat16"),
             ("f32-ragged", 1, 12, 2, 1000, 1000, 128, True, "float32"),
             ("chunk", 1, 12, 2, 64, 1088, 128, True, "float32"),
             ("non-causal", 1, 12, 2, 512, 512, 128, False, "float32"))
@@ -302,6 +309,57 @@ def k2_bound(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
                                      "bytes": moved}
 
 
+def k2_templates(log: str) -> list:
+    """Each K2 kernel template in the ptxas log (``-Xptxas=-v``): path,
+    type, head dim, registers, spill bytes, and the dynamic shared memory
+    the launch asks for. Fails if a tensor-core template spills."""
+    import re
+    import torch
+    from repro_torch.kernels import flash_attention as k2
+    recs, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            tc = re.search(r"flash_attention_tcILi(\d+)E", m.group(1))
+            sc = re.search(r"flash_attention_kernelI(13__nv_bfloat16|f)"
+                           r"Li(\d+)E", m.group(1))
+            cur = None
+            if tc:
+                cur = {"path": "tensor_core", "dtype": "bfloat16",
+                       "d": int(tc.group(1))}
+            elif sc:
+                cur = {"path": "scalar", "d": int(sc.group(2)),
+                       "dtype": "float32" if sc.group(1) == "f"
+                       else "bfloat16"}
+            if cur:
+                cur["smem_bytes"] = k2.smem_bytes(
+                    getattr(torch, cur["dtype"]), cur["d"])
+                recs.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    for r in recs:
+        # the tensor-core kernel's count is the one a block starts with;
+        # setmaxnreg moves its consumers to 240
+        print(f"    flash_attention: {r['path']} {r['dtype']} D{r['d']}: "
+              f"{r.get('registers')} registers, {r.get('spill_bytes')} "
+              f"spill bytes, {r['smem_bytes']:,} B dynamic shared memory",
+              flush=True)
+        if r["path"] == "tensor_core":
+            check(r.get("spill_bytes") == 0,
+                  f"K2 tensor-core D{r['d']} spills: {r}")
+    check(any(r["path"] == "tensor_core" for r in recs),
+          "no tensor-core K2 template in the build log")
+    return recs
+
+
 def phase_k2_vs_plain(report: dict) -> list:
     import torch
     import torch.nn.functional as F
@@ -311,10 +369,14 @@ def phase_k2_vs_plain(report: dict) -> list:
     torch.backends.cuda.matmul.allow_tf32 = False     # plain f32 stays f32
     gen = torch.Generator(device="cuda").manual_seed(12)
     recs = []
+    served = [len(r.prompt) for r in _served_requests()]
     for name, b, hq, hkv, sq, sk, d, causal, dtype in K2_CASES:
-        if sq is None:
-            sq = sk = len(_served_requests()[0].prompt)
+        if sq == "first":
+            sq = sk = served[0]
+        elif sq == "shortest":
+            sq = sk = min(served)
         dt = getattr(torch, dtype)
+        path = k2.kernel_path(dt, d)
         q = torch.randn((b, hq, sq, d), generator=gen, device="cuda").to(dt)
         k = torch.randn((b, hkv, sk, d), generator=gen, device="cuda").to(dt)
         v = torch.randn((b, hkv, sk, d), generator=gen, device="cuda").to(dt)
@@ -353,14 +415,16 @@ def phase_k2_vs_plain(report: dict) -> list:
         bound_ms, bound_by, work = k2_bound(b, hq, hkv, sq, sk, d, causal,
                                              dtype)
         rec = {"case": name, "shape": [b, hq, hkv, sq, sk, d],
-               "causal": causal, "dtype": dtype, "max_abs_err": err,
+               "causal": causal, "dtype": dtype, "path": path,
+               "max_abs_err": err,
                "max_err_over_scaled_tol": scaled_err,
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "library_max_abs_err": lib_err, "bound_ms": bound_ms,
                "bound_by": bound_by, **work}
         lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"[5] K2 {name} (B{b} Hq{hq} Hkv{hkv} Sq{sq} Sk{sk} D{d} "
-              f"{dtype}{' causal' if causal else ''}): kernel {ms:.4f} ms, "
+              f"{dtype}{' causal' if causal else ''}, {path} kernel): "
+              f"kernel {ms:.4f} ms, "
               f"plain {plain_ms:.3f} ms, SDPA {lib_txt}, bound "
               f"{bound_ms:.4f} ms ({bound_by}); max|Δ| {err:.3g}"
               + ("" if scaled_err is None else
@@ -532,10 +596,11 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     print(f"[0] built {sorted(libs)} in {report['build_s']:.1f} s", flush=True)
     report["build_logs"] = dict(build.BUILD_LOGS)
-    for name, log in build.BUILD_LOGS.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {name}: {line.strip()}", flush=True)
+    for line in build.BUILD_LOGS.get("collision_force", "").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"    collision_force: {line.strip()}", flush=True)
+    report["k2_templates"] = k2_templates(
+        build.BUILD_LOGS.get("flash_attention", ""))
 
     recs = [phase_kernel_vs_plain(n, report) for n in K1_SIZES]
     phase_engine_cpu_parity(PARITY_AGENTS, report)

@@ -61,12 +61,17 @@ def build_all(names: Sequence[str] | None = None) -> Dict[str, Path]:
 
     Returns ``{name: library path}``. Raises with the compiler's output if
     any build fails; ``BUILD_LOGS[name]`` keeps each compiler's output
-    (register and shared-memory use from ``-Xptxas=-v``).
+    (register and spill use from ``-Xptxas=-v``), also for a library built
+    earlier (its log is kept beside it).
     """
     names = list(sources() if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: library_path(n) for n in names}
     todo = [n for n in names if not paths[n].is_file()]
+    for n in names:
+        log = paths[n].with_suffix(".log")
+        if n not in todo and log.is_file():
+            BUILD_LOGS[n] = log.read_text()
     if not todo:
         return paths
     nvcc = nvcc_path()
@@ -84,6 +89,7 @@ def build_all(names: Sequence[str] | None = None) -> Dict[str, Path]:
             failed.append(f"--- {n}.cu (nvcc exit {proc.returncode}) ---\n"
                           f"{out}")
             continue
+        paths[n].with_suffix(".log").write_text(out)
         os.replace(tmp, paths[n])            # atomic: no half-written .so
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

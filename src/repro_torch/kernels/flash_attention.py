@@ -2,8 +2,11 @@
 version.
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention_kernel`` (the
-Pallas TPU kernel). The kernel itself is ``csrc/flash_attention.cu``; its
-header says how the TPU design was translated and what bounds it.
+Pallas TPU kernel). The kernels are in ``csrc/flash_attention.cu``; its
+header says how the TPU design was translated and what bounds it. The
+choice between them is static (:func:`kernel_path`): bf16 with D 64 or 128
+runs on the tensor cores (wgmma, TMA), everything else on the scalar
+kernel.
 
 :func:`flash_attention` takes q (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D),
 ``Hq % Hkv == 0``, all float32 or all bfloat16, D in {16, 32, 64, 128}, and
@@ -11,15 +14,20 @@ returns softmax(q·kᵀ·scale)·v (B, Hq, Sq, D) in q's dtype, accumulated in
 float32. Keys at or past ``sk_actual`` are masked; when ``causal``, key
 ``j`` is visible to query ``i`` iff ``j <= i + kv_offset`` (queries aligned
 to the end of the keys). Masked scores are -1e30 with p forced to 0, and a
-row with no visible key is 0. On a CUDA tensor it launches the kernel (and
-counts the launch in ``flash_attention.launches``); on a CPU tensor it runs
-:func:`flash_attention_plain`. There is no other path: a failed build or
-launch raises.
+row with no visible key is 0. q, k and v may be strided views: the
+tensor-core kernel reads any (B, H, S) strides that are multiples of 8 with
+unit stride along D and a 16-byte-aligned base (a transposed V needs no
+copy); other layouts, and every input of the scalar kernel, are made
+contiguous first. On a CUDA tensor it launches the kernel (and counts the
+launch in ``flash_attention.launches``); on a CPU tensor it runs
+:func:`flash_attention_plain`. There is no other path: a failed build,
+tensor-map encode or launch raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -27,6 +35,7 @@ import torch
 from . import build
 
 SUPPORTED_D = (16, 32, 64, 128)
+TENSOR_CORE_D = (64, 128)           # bf16 head dims of the wgmma kernel
 NEG_INF = -1e30
 # operations per visible (query, key) pair, per unit of D: q·k and p·v,
 # a multiply and an add each — the work unit of the bound chip_smoke.py
@@ -36,6 +45,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the plain version materialises (B, Hq, rows, Sk) scores; rows per chunk
 # keep that under ~2^28 elements
 _PLAIN_ELEMS = 1 << 28
+# the C entry point returns 10000 + CUresult when a tensor-map encode fails
+_ENCODE_ERROR = 10000
 
 
 def _resolve(q: torch.Tensor, k: torch.Tensor, scale: Optional[float],
@@ -74,6 +85,57 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
 
 
+def kernel_path(dtype: torch.dtype, d: int) -> str:
+    """The CUDA kernel K2 runs for this input type and head dim:
+    ``"tensor_core"`` (bf16, D 64 or 128: wgmma with TMA loads, P·V with P
+    split into bf16 hi + lo) or ``"scalar"`` (f32 FMAs; every f32 input,
+    and bf16 at D 16 or 32)."""
+    if dtype == torch.bfloat16 and d in TENSOR_CORE_D:
+        return "tensor_core"
+    return "scalar"
+
+
+def _strides(x: torch.Tensor) -> tuple[int, int, int]:
+    """(B, H, S) strides of a (B, H, S, D) view in elements; a dimension of
+    size 1 takes its contiguous stride (its own is arbitrary in PyTorch and
+    a tensor map needs a multiple of 16 bytes)."""
+    b, h, s, d = x.shape
+    sb, sh, ss, _ = x.stride()
+    return (h * s * d if b == 1 else sb, s * d if h == 1 else sh,
+            d if s == 1 else ss)
+
+
+def kernel_takes(x: torch.Tensor, path: str) -> bool:
+    """Whether the kernel of ``path`` reads ``x`` as it lies: the
+    tensor-core kernel takes unit stride along D, (B, H, S) strides that
+    are multiples of 8 elements (16 bytes) and a 16-byte-aligned base; the
+    scalar kernel takes contiguous tensors only."""
+    if path == "scalar":
+        return x.is_contiguous()
+    sb, sh, ss = _strides(x)
+    return x.stride(-1) == 1 and not (sb % 8 or sh % 8 or ss % 8) \
+        and x.data_ptr() % 16 == 0
+
+
+def _launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 out: torch.Tensor, causal: bool, scale: float,
+                 sk_actual: int, kv_offset: int) -> tuple:
+    """``(arguments of the C entry point before the stream, (q, k, v) as
+    passed)``: each of q, k and v is copied into a fresh contiguous tensor
+    only where the kernel cannot read it as it lies, and passed with its
+    (B, H, S) strides; the output is contiguous."""
+    path = kernel_path(q.dtype, q.shape[-1])
+    q, k, v = (x if kernel_takes(x, path)
+               else x.clone(memory_format=torch.contiguous_format)
+               for x in (q, k, v))
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[q.dtype], b, hq, hkv, sq, sk, d, sk_actual,
+            kv_offset, int(causal), scale, *_strides(q), *_strides(k),
+            *_strides(v)), (q, k, v)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
                     sk_actual: Optional[int] = None,
@@ -88,16 +150,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      sk_actual=sk_actual, kv_offset=kv_offset)
     if q.device.type != "cuda":
         raise ValueError(f"K2 runs on CUDA or CPU tensors, not {q.device}")
-    b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
-    fn = _kernel_fn()
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    args, _keep = _launch_args(q, k, v, out, causal, scale, sk_actual,
+                               kv_offset)
+    fn = _lib().k2_flash_attention
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 _DTYPE_CODE[q.dtype], b, hq, hkv, sq, sk, d, sk_actual,
-                 kv_offset, int(causal), scale, stream)
+        err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
+    if err >= _ENCODE_ERROR:
+        raise RuntimeError(f"K2 flash_attention: cuTensorMapEncodeTiled "
+                           f"failed with CUresult {err - _ENCODE_ERROR}")
     if err != 0:
         raise RuntimeError(f"K2 flash_attention launch failed: CUDA error "
                            f"{err}")
@@ -109,17 +170,26 @@ flash_attention.launches = 0
 
 
 # k2_flash_attention(q, k, v, o, dtype, b, hq, hkv, sq, sk, d, sk_actual,
-#                    kv_offset, causal, scale, stream)
-ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-            + [ctypes.c_float, ctypes.c_void_p])
+#                    kv_offset, causal, scale, q_sb, q_sh, q_ss, k_sb, k_sh,
+#                    k_ss, v_sb, v_sh, v_ss, stream)
+ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float]
+            + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
 
 
-def _kernel_fn():
+@functools.cache
+def _lib():
     lib = build.load("flash_attention")
-    fn = lib.k2_flash_attention
-    fn.argtypes = ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+    lib.k2_flash_attention.argtypes = ARGTYPES
+    lib.k2_flash_attention.restype = ctypes.c_int
+    lib.k2_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.k2_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
+def smem_bytes(dtype: torch.dtype, d: int) -> int:
+    """Dynamic shared memory of one K2 block for this type and head dim
+    (from the built library)."""
+    return int(_lib().k2_smem_bytes(_DTYPE_CODE[dtype], d))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

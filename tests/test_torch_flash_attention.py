@@ -5,10 +5,13 @@ Same inputs, made with numpy from a seed, go through the JAX package's
 ``ops.flash_attention`` (on the CPU: K2's plain version) and
 ``ref.flash_attention_ref``, at the tolerances ``tests/test_kernels.py``
 holds Pallas K2 to (f32 2e-5, bf16 2e-2). Rows with no visible key follow
-the kernel's rule (0), tested on their own. The CUDA kernel is held
-against its plain version by the card-only test at the end, which needs
+the kernel's rule (0), tested on their own. The wrapper's layout
+handling (strided views go to the kernel as they lie where it can read
+them) is tested on the CPU through the arguments it would pass. The CUDA
+kernels (tensor-core bf16 at D 64 and 128, scalar otherwise) are held
+against their plain version by the card-only tests at the end, which need
 no JAX (on the GPU host: ``python -m pytest -q
-tests/test_torch_flash_attention.py -k cuda``).
+tests/test_torch_flash_attention.py -m cuda``).
 """
 
 import types
@@ -168,6 +171,92 @@ def test_flash_attention_wrapper_checks_inputs():
     assert tk2.flash_attention.launches == before     # CPU: no kernel launch
 
 
+def test_k2_kernel_path_is_static_by_type_and_head_dim():
+    """bf16 at D 64 and 128 runs on the tensor cores, everything else on
+    the scalar kernel (f32 would lose its 2e-5 tolerance in TF32)."""
+    for d in tk2.SUPPORTED_D:
+        assert tk2.kernel_path(torch.float32, d) == "scalar"
+        assert tk2.kernel_path(torch.bfloat16, d) == (
+            "tensor_core" if d in (64, 128) else "scalar")
+
+
+def _transposed_v(b, hkv, s, d, dtype):
+    """V as ``gqa_full`` makes it: (B, S, H, D) memory seen as (B, H, S,
+    D)."""
+    x = np.random.default_rng(8).standard_normal((b, s, hkv, d))
+    return _t(x.astype(np.float32), dtype).transpose(1, 2)
+
+
+def test_k2_wrapper_passes_a_transposed_v_as_it_lies():
+    """The tensor-core kernel reads gqa_full's transposed V through its
+    strides: the wrapper passes V's own pointer and strides, no copy. The
+    scalar kernel takes contiguous inputs, so there V is copied."""
+    q, k, _ = (_t(x, "bfloat16") for x in _qkv(9, 1, 12, 2, 77, 77, 128))
+    v = _transposed_v(1, 2, 77, 128, "bfloat16")
+    assert not v.is_contiguous()
+    out = torch.empty_like(q)
+    args, (_, _, v_in) = tk2._launch_args(q, k, v, out, True, 0.1, 77, 0)
+    assert v_in is v and args[2] == v.data_ptr()
+    assert args[15:18] == (q.numel(), 77 * 128, 128)            # q: packed
+    assert args[21:24] == tuple(v.stride()[:3]) == (77 * 256, 128, 256)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    args, (_, _, v_in) = tk2._launch_args(qf, kf, vf, out.float(), True,
+                                          0.1, 77, 0)
+    assert v_in.is_contiguous() and args[2] == v_in.data_ptr()
+    assert args[21:24] == (2 * 77 * 128, 77 * 128, 128)
+
+
+@pytest.mark.parametrize("layout", ["d_strided", "row_stride_130",
+                                    "unaligned_base"])
+def test_k2_wrapper_copies_what_the_kernel_cannot_read(layout):
+    """Views the tensor-core kernel cannot read (D not unit-stride, a row
+    stride that is not a multiple of 16 bytes, a base off 16 bytes) are
+    made contiguous before the launch and passed with packed strides."""
+    rng = np.random.default_rng(10)
+    if layout == "d_strided":
+        base = _t(rng.standard_normal((1, 2, 128, 128)).astype(np.float32),
+                  "bfloat16")
+        v = base.transpose(2, 3)
+    elif layout == "row_stride_130":
+        base = _t(rng.standard_normal((1, 2, 128, 130)).astype(np.float32),
+                  "bfloat16")
+        v = base[..., :128]
+    else:
+        flat = _t(rng.standard_normal(2 * 128 * 128 + 1).astype(np.float32),
+                  "bfloat16")
+        v = flat[1:].view(1, 2, 128, 128)
+    assert not tk2.kernel_takes(v, "tensor_core")
+    q, k, _ = (_t(x, "bfloat16") for x in _qkv(11, 1, 4, 2, 128, 128, 128))
+    assert tk2.kernel_takes(k, "tensor_core")
+    args, (_, k_in, v_in) = tk2._launch_args(q, k, v, torch.empty_like(q),
+                                             True, 0.1, 128, 0)
+    assert k_in is k and v_in is not v and v_in.is_contiguous()
+    assert args[2] == v_in.data_ptr()
+    assert args[21:24] == (2 * 128 * 128, 128 * 128, 128)
+    assert torch.equal(v_in, v)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_transposed_v_equals_its_contiguous_copy(dtype):
+    """The plain version (and so K2 on the CPU) gives the same result for
+    a transposed V view and its contiguous copy."""
+    q, k, _ = (_t(x, dtype) for x in _qkv(12, 2, 6, 2, 90, 90, 64))
+    v = _transposed_v(2, 2, 90, 64, dtype)
+    for fn in (tk2.flash_attention_plain, tk2.flash_attention):
+        assert torch.equal(fn(q, k, v, causal=True),
+                           fn(q, k, v.contiguous(), causal=True))
+
+
+def test_k2_variants_follow_the_source():
+    """launch/k2_variants.py builds its variants from the kernel source by
+    text substitution: each substitution still finds its text."""
+    from repro_torch.launch import k2_variants
+    srcs = k2_variants.variant_sources()
+    assert len(set(srcs.values())) == len(srcs) == 3
+    assert "ex2.approx" in srcs["ex2_approx"]
+    assert "wgmma_rs_n64_kmajor(s, qf[kk]" in srcs["q_in_registers"]
+
+
 CUDA_CASES = [  # (b, hq, hkv, sq, sk, d, causal, dtype, sk_actual)
     (1, 12, 2, 1000, 1000, 128, True, "bfloat16", None),  # qwen2 heads
     (1, 12, 2, 1781, 1781, 128, True, "bfloat16", None),  # a served prompt
@@ -177,9 +266,35 @@ CUDA_CASES = [  # (b, hq, hkv, sq, sk, d, causal, dtype, sk_actual)
     (2, 8, 1, 77, 77, 16, True, "float32", None),
     (1, 4, 2, 40, 24, 64, True, "float32", None),         # empty rows
     (1, 4, 2, 130, 160, 128, True, "bfloat16", 150),      # key padding
+    # the tensor-core kernel's branches (bf16, D 64 and 128)
+    (1, 4, 2, 300, 300, 64, True, "bfloat16", None),      # D 64
+    (1, 12, 2, 64, 1088, 128, True, "bfloat16", None),    # chunk
+    (2, 4, 2, 64, 1088, 64, True, "bfloat16", None),      # chunk, D 64
+    (1, 4, 4, 200, 333, 128, False, "bfloat16", None),    # non-causal
+    (1, 4, 2, 200, 333, 64, False, "bfloat16", None),     # non-causal, D 64
+    (1, 4, 2, 100, 200, 128, False, "bfloat16", 131),     # sk_actual % 64
+    (1, 4, 2, 40, 24, 128, True, "bfloat16", None),       # empty rows
+    (1, 4, 2, 40, 24, 64, True, "bfloat16", None),        # empty rows, D 64
+    (1, 4, 2, 40, 24, 128, False, "bfloat16", 0),         # no key at all
+    (2, 12, 2, 256, 256, 128, True, "bfloat16", None),    # B 2
+    (1, 12, 2, 550, 550, 128, True, "bfloat16", None),    # shortest prompt
+    (1, 8, 1, 77, 77, 16, True, "bfloat16", None),        # scalar bf16
+    (1, 4, 2, 200, 200, 32, False, "bfloat16", None),     # scalar bf16
 ]
 
 
+def _card_check(got, want, dtype):
+    assert got.dtype == want.dtype
+    np.testing.assert_allclose(_np(got), _np(want), atol=TOL[dtype])
+    if dtype == "bfloat16":
+        # both accumulate in f32 (the tensor-core kernel's P·V is f32-exact
+        # to 2^-18 through P_hi + P_lo): at most one rounding of the output
+        # apart (one bf16 ulp, 2^-7 relative); rtol allows two
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-3,
+                                   rtol=1.6e-2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,dtype,sk_actual",
                          CUDA_CASES)
 def test_k2_cuda_kernel_matches_plain(b, hq, hkv, sq, sk, d, causal, dtype,
@@ -195,10 +310,23 @@ def test_k2_cuda_kernel_matches_plain(b, hq, hkv, sq, sk, d, causal, dtype,
     assert tk2.flash_attention.launches == before + 1
     want = tk2.flash_attention_plain(q, k, v, causal=causal,
                                      sk_actual=sk_actual)
-    assert got.dtype == q.dtype
-    np.testing.assert_allclose(_np(got), _np(want), atol=TOL[dtype])
-    if dtype == "bfloat16":
-        # both accumulate in f32: at most one rounding of the output apart
-        # (one bf16 ulp, 2^-7 relative); rtol allows two
-        np.testing.assert_allclose(_np(got), _np(want), atol=1e-3,
-                                   rtol=1.6e-2)
+    _card_check(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_k2_cuda_kernel_reads_a_transposed_v(d):
+    """gqa_full's transposed V, read in place by the tensor-core kernel,
+    gives its contiguous copy's result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    q, k, _ = (_t(x, "bfloat16", "cuda")
+               for x in _qkv(d, 1, 12, 2, 777, 777, d))
+    v = _transposed_v(1, 2, 777, d, "bfloat16").cuda()
+    assert tk2.kernel_takes(v, "tensor_core") and not v.is_contiguous()
+    got = tk2.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _card_check(got, tk2.flash_attention_plain(q, k, v, causal=True),
+                "bfloat16")
+    assert torch.equal(got, tk2.flash_attention(q, k, v.contiguous(),
+                                                causal=True))

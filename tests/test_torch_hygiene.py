@@ -114,6 +114,7 @@ def test_ctypes_signature_matches_the_cuda_entry_point(module, entry):
     assert sig, f"{entry} not found in csrc/{module}.cu"
     params = [p.strip() for p in sig.group(1).split(",")]
     want = [ctypes.c_void_p if "*" in p else
-            ctypes.c_float if p.startswith("float") else ctypes.c_int
+            ctypes.c_float if p.startswith("float") else
+            ctypes.c_longlong if p.startswith("long long") else ctypes.c_int
             for p in params]
     assert mod.ARGTYPES == want

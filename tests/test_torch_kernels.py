@@ -5,7 +5,7 @@ atol 1e-4 (the tolerance tests/test_kernels.py holds Pallas K1 to). On the
 CPU the port's wrapper runs K1's plain version; the CUDA kernel itself is
 held against that plain version by the card-only tests at the end, which
 need no JAX (the GPU host runs them with
-``python -m pytest -q tests/test_torch_kernels.py -k cuda``).
+``python -m pytest -q tests/test_torch_kernels.py -m cuda``).
 """
 
 import types
@@ -217,6 +217,7 @@ def test_k1_wrapper_checks_inputs():
     assert tk1.collision_force.launches == before   # CPU: no kernel launch
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("adhesion", [None, ADH])
 def test_k1_cuda_kernel_matches_plain(adhesion):
     """The hand-written kernel against its plain version, on the card."""
