@@ -9,15 +9,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      nvcc for sm_90a, all sources at once; print each K2 template's
      registers and spills (from the ptxas log) and dynamic shared memory,
      and fail if a tensor-core template spills;
-  1. kernel vs plain: K1 against its plain version at the Fig-6
-     proliferation shapes (65,536 and 1,048,576 agents, column map from
-     the port's own resident build): force atol 1e-4, nnz exact; kernel and
-     plain times (CUDA events) and the kernel's lower bound on this card;
+  1. kernel vs plain, at the Fig-6 proliferation shapes (65,536 and
+     1,048,576 agents, on the pool of the port's own resident build): the
+     column-map kernel against its plain version, entry for entry (fused
+     with the pack as the main path runs it, and from the cells at three
+     maxb/span settings); K1 against its plain version, force atol 1e-4,
+     nnz exact; kernel and plain times (CUDA events) and each kernel's
+     lower bound on this card (K1's counts the listed pairs through the
+     cheap reject and the pairs in reach through the exact arithmetic;
+     the all-pairs bound of earlier runs is printed beside it);
   2. the engine on the card ≡ the engine on the CPU, one step at 8,192
      agents (integers exact, floats atol/rtol 1e-4);
   3. main path: ``Simulation`` with the Fig-6 configuration at 1,048,576
      live agents, ``run(check_overflow=True)`` for 10 steps; every kernel's
-     launch count is reset just before and read just after;
+     launch count is reset just before and read just after: K1 and the
+     column map launch once a step;
   4. births: examples/quickstart.py's configuration (128 agents, capacity
      32,768) for 60 steps must grow the population;
   5. K2 vs plain: flash attention at the qwen2-1.5b prefill shape (B 1,
@@ -109,25 +115,104 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def k1_bound(data_t, block_cols, adhesion) -> tuple[float, str, dict]:
-    """Least time this card could take for one K1 call on these inputs."""
+def k1_bound(data_t, block_cols, adhesion, adhesion_band: float
+             ) -> tuple[float, str, dict]:
+    """Least time this card could take for one K1 call on these inputs:
+    every listed pair through the cheap reject, the pairs in reach (both
+    alive, inside the exact band test) through the exact arithmetic, against
+    the inputs read and the output written once. Also the all-pairs bound
+    that earlier versions of this script reported (every listed pair
+    through the exact arithmetic)."""
     from repro_torch.kernels import collision_force as k1
     tiles = int((block_cols >= 0).sum())
     pairs = tiles * k1.BLOCK * k1.BLOCK
+    in_reach = k1.pairs_in_reach(data_t, block_cols,
+                                 adhesion_band=adhesion_band)
     ops_per_pair = k1.OPS_PER_PAIR + (k1.OPS_PER_PAIR_ADHESION
                                       if adhesion is not None else 0)
     n_pad = data_t.shape[1]
     moved = (data_t.numel() * 4 + block_cols.numel() * 4 + 4 * n_pad * 4
              + (0 if adhesion is None else adhesion.numel() * 4))
-    t_ops = pairs * ops_per_pair / PEAK_FP32_FLOPS * 1e3
+    ops = pairs * k1.OPS_TEST + in_reach * ops_per_pair
+    t_ops = ops / PEAK_FP32_FLOPS * 1e3
     t_bytes = moved / PEAK_HBM_BYTES * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
+    all_pairs = max(pairs * ops_per_pair / PEAK_FP32_FLOPS * 1e3, t_bytes)
     return max(t_ops, t_bytes), by, {"tiles": tiles, "pairs": pairs,
+                                     "pairs_in_reach": in_reach,
+                                     "ops_test": k1.OPS_TEST,
                                      "ops_per_pair": ops_per_pair,
-                                     "bytes": moved}
+                                     "operations": ops, "bytes": moved,
+                                     "bound_all_pairs_ms": all_pairs}
 
 
-def phase_kernel_vs_plain(n: int, report: dict) -> dict:
+def column_map_bound(position, starts, data_t, cols) -> tuple[float, str,
+                                                              dict]:
+    """Least time for one fused column-map launch (``ops.k1_inputs``): the
+    pool channels (position, diameter, type, alive, active), the box tables
+    and the origin read once; data_t, the row mask, block_cols and the flag
+    written once; against the kernel's per-row integer operations."""
+    from repro_torch.kernels import block_cols as colmap
+    c, m, n_pad = position.shape[0], starts.shape[0], data_t.shape[1]
+    moved = (c * (12 + 4 + 4 + 1 + 1) + 8 * m + 12
+             + data_t.numel() * 4 + n_pad + cols.numel() * 4 + 4)
+    ops = n_pad * colmap.OPS_PER_ROW
+    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = moved / PEAK_HBM_BYTES * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes), by, {"bytes": moved, "operations": ops}
+
+
+def phase_column_map_vs_plain(n: int, sim, res, origin, report: dict
+                              ) -> dict:
+    """The column-map kernel ≡ its plain version, entry for entry: from the
+    cells (``ops.build_block_cols``) and fused with the pack
+    (``ops.k1_inputs``), on the pool of the resident build; timed fused."""
+    import torch
+    from repro_torch.core import morton
+    from repro_torch.kernels import ops
+    cfg, spec = sim.config, sim.spec
+    pool, g = res.pool, res.grid
+    args = (pool.position, pool.diameter, pool.agent_type, pool.alive,
+            pool.alive, g.starts, g.counts, origin, cfg.cell_size, spec.dims)
+    got = ops.k1_inputs(*args)
+    torch.cuda.synchronize()
+    want = ops.k1_inputs_plain(*args)
+    torch.cuda.synchronize()
+    for gt, w, what in zip(got, want, ("data_t", "block_cols", "overflow",
+                                       "row mask")):
+        check(gt.dtype == w.dtype and torch.equal(gt, w),
+              f"column map (fused) differs from plain in {what} at {n}")
+    data_t, cols, _, mask = got
+    n_pad = data_t.shape[1]
+    cells = morton.cell_of(torch.nn.functional.pad(
+        pool.position, (0, 0, 0, n_pad - pool.position.shape[0])), origin,
+        cfg.cell_size, spec.dims)
+    for maxb, span in ((64, 8), (8, 8), (64, 1)):
+        kc, ko = ops.build_block_cols(cells, g.starts, g.counts, mask,
+                                      spec.dims, maxb, span)
+        pc, po = ops.build_block_cols_plain(cells, g.starts, g.counts, mask,
+                                            spec.dims, maxb, span)
+        check(torch.equal(kc, pc) and bool(ko) == bool(po),
+              f"column map differs from plain at {n} agents, maxb {maxb}, "
+              f"span {span}")
+    ms = cuda_ms(lambda: ops.k1_inputs(*args), iters=20, warmup=3)
+    plain_ms = cuda_ms(lambda: ops.k1_inputs_plain(*args), iters=2,
+                       warmup=0)
+    bound_ms, bound_by, work = column_map_bound(pool.position, g.starts,
+                                                data_t, cols)
+    rec = {"agents": n, "n_pad": n_pad, "equal": True, "max_abs_err": 0.0,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, **work}
+    print(f"[1] column map at {n} agents: kernel (fused with the pack) "
+          f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}); block_cols, flag, data_t and row mask equal, also "
+          f"from cells at maxb/span 64/8, 8/8, 64/1", flush=True)
+    report.setdefault("column_map_vs_plain", []).append(rec)
+    return rec
+
+
+def phase_kernel_vs_plain(n: int, report: dict) -> tuple[dict, dict]:
     import torch
     from repro_torch.core import engine as eng
     from repro_torch.kernels import collision_force as k1, ops
@@ -138,6 +223,7 @@ def phase_kernel_vs_plain(n: int, report: dict) -> dict:
     origin = torch.tensor(cfg.domain_lo, dtype=torch.float32, device="cuda")
     res = eng.build_env(cfg, spec, st.pool, origin, cfg.cell_size)
     pool, g = res.pool, res.grid
+    cm_rec = phase_column_map_vs_plain(n, sim, res, origin, report)
     data_t, cols, ovf, _ = ops.k1_inputs(
         pool.position, pool.diameter, pool.agent_type, pool.alive,
         pool.alive, g.starts, g.counts, origin, cfg.cell_size, spec.dims)
@@ -157,7 +243,8 @@ def phase_kernel_vs_plain(n: int, report: dict) -> dict:
                  warmup=3)
     plain_ms = cuda_ms(lambda: k1.collision_force_plain(data_t, cols, **kw),
                        iters=2, warmup=0)
-    bound_ms, bound_by, work = k1_bound(data_t, cols, None)
+    bound_ms, bound_by, work = k1_bound(data_t, cols, None,
+                                        cfg.force.adhesion_band)
     listed = (cols >= 0).sum(1)
     rec = {"agents": n, "capacity": cfg.capacity, "n_pad": data_t.shape[1],
            "dims": list(spec.dims), "max_abs_err": err, "nnz_equal": True,
@@ -168,13 +255,15 @@ def phase_kernel_vs_plain(n: int, report: dict) -> dict:
            "active_row_blocks": int((listed > 0).sum()),
            "row_blocks": int(cols.shape[0]), **work}
     print(f"[1] K1 at {n} agents: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms,"
-          f" bound {bound_ms:.4f} ms ({bound_by}); max|Δf| {err:.3g}, nnz "
+          f" bound {bound_ms:.4f} ms ({bound_by}; all pairs "
+          f"{work['bound_all_pairs_ms']:.4f} ms); max|Δf| {err:.3g}, nnz "
           f"equal; column blocks per active row block "
           f"{rec['cols_per_row_block_mean']:.2f} (max "
-          f"{rec['cols_per_row_block_max']}), {rec['tiles']} tiles",
-          flush=True)
+          f"{rec['cols_per_row_block_max']}), {rec['tiles']} tiles, "
+          f"{rec['pairs']} listed pairs, pairs_in_reach "
+          f"{work['pairs_in_reach']}", flush=True)
     report.setdefault("k1_vs_plain", []).append(rec)
-    return rec
+    return rec, cm_rec
 
 
 def phase_engine_cpu_parity(n: int, report: dict) -> None:
@@ -218,6 +307,7 @@ def phase_engine_cpu_parity(n: int, report: dict) -> None:
 
 def phase_main_path(n: int, steps: int, report: dict) -> dict:
     import torch
+    from repro_torch.kernels import block_cols as colmap
     from repro_torch.kernels import collision_force as k1
     from repro_torch.launch import simulate
 
@@ -230,14 +320,16 @@ def phase_main_path(n: int, steps: int, report: dict) -> dict:
         stamps.append(time.perf_counter())
 
     k1.collision_force.launches = 0
+    colmap.column_map.launches = 0
     t0 = time.perf_counter()
     st = sim.run(st, steps, callback=tick, check_overflow=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"k1_collision_force": k1.collision_force.launches}
-    check(launches["k1_collision_force"] == steps,
-          f"K1 launched {launches['k1_collision_force']} times in {steps} "
-          f"steps")
+    launches = {"k1_collision_force": k1.collision_force.launches,
+                "k1_column_map": colmap.column_map.launches}
+    for name, count in launches.items():
+        check(count == steps, f"{name} launched {count} times in {steps} "
+                              f"steps")
     check(st.stats.health_bits() == 0, "health flags set")
     check(not st.stats.flags(), f"overflow flags {st.stats.flags()}")
     n_live = int(st.stats["n_live"])
@@ -255,7 +347,8 @@ def phase_main_path(n: int, steps: int, report: dict) -> dict:
           f"{rec['ms_per_step']:.2f} ms/step (median "
           f"{rec['ms_per_step_median']:.2f}, first {steps_ms[0]:.2f}), "
           f"{rec['agent_steps_per_s']:.4g} agent-steps/s, K1 launches "
-          f"{launches['k1_collision_force']}", flush=True)
+          f"{launches['k1_collision_force']}, column-map launches "
+          f"{launches['k1_column_map']}", flush=True)
     return rec
 
 
@@ -518,6 +611,7 @@ def _served_requests() -> list:
 def phase_serve(report: dict) -> dict:
     import torch
     from repro_torch.configs import ARCHS
+    from repro_torch.kernels import block_cols as colmap
     from repro_torch.kernels import collision_force as k1
     from repro_torch.kernels import flash_attention as k2
     from repro_torch.launch import serve_lm
@@ -531,11 +625,13 @@ def phase_serve(report: dict) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     k1.collision_force.launches = 0
+    colmap.column_map.launches = 0
     k2.flash_attention.launches = 0
     rep = serve_lm.serve(model, params, reqs, slots=SERVE["slots"],
                          s_max=SERVE["s_max"], page_size=SERVE["page_size"],
                          n_pages=SERVE["n_pages"])
     launches = {"k1_collision_force": k1.collision_force.launches,
+                "k1_column_map": colmap.column_map.launches,
                 "k2_flash_attention": k2.flash_attention.launches}
     summ = rep.summary()
     check(sorted(f.uid for f in rep.finished) == list(range(len(reqs))),
@@ -596,13 +692,15 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     print(f"[0] built {sorted(libs)} in {report['build_s']:.1f} s", flush=True)
     report["build_logs"] = dict(build.BUILD_LOGS)
-    for line in build.BUILD_LOGS.get("collision_force", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"    collision_force: {line.strip()}", flush=True)
+    for name in ("collision_force", "block_cols"):
+        for line in build.BUILD_LOGS.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    {name}: {line.strip()}", flush=True)
     report["k2_templates"] = k2_templates(
         build.BUILD_LOGS.get("flash_attention", ""))
 
-    recs = [phase_kernel_vs_plain(n, report) for n in K1_SIZES]
+    recs, cm_recs = zip(*[phase_kernel_vs_plain(n, report)
+                          for n in K1_SIZES])
     phase_engine_cpu_parity(PARITY_AGENTS, report)
     main_rec = phase_main_path(MAIN_AGENTS, MAIN_STEPS, report)
     phase_births(report)
@@ -610,7 +708,7 @@ def main() -> int:
     phase_lm_cpu_parity(report)
     serve_rec = phase_serve(report)
 
-    big = recs[-1]
+    big, cm_big = recs[-1], cm_recs[-1]
     kernels = [{
         "name": "k1_collision_force", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/collision_force.cu",
@@ -619,6 +717,14 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in recs),
         "ms": big["ms"], "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+        "library_ms": None}, {
+        "name": "k1_column_map", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/block_cols.cu",
+        "replaces": "src/repro/kernels/ops.py:22",
+        "launches": main_rec["launches"]["k1_column_map"],
+        "max_abs_err": 0.0,
+        "ms": cm_big["ms"], "plain_ms": cm_big["plain_ms"],
+        "bound_ms": cm_big["bound_ms"], "bound_by": cm_big["bound_by"],
         "library_ms": None}, {
         "name": "k2_flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -27,12 +27,20 @@ BLOCK = 128
 ROW_X, ROW_Y, ROW_Z, ROW_DIA, ROW_TYPE, ROW_ALIVE = 0, 1, 2, 3, 4, 5
 ROW_FX, ROW_FY, ROW_FZ, ROW_NNZ = 0, 1, 2, 3
 MAX_TYPES = 16                       # adhesion table bound (shared memory)
-# FP32 operations one pair evaluation costs in the kernel, counting each
-# add, mul, compare/select, max, sqrt, pow and division as one (the
-# adhesion terms add 8 more when a table is given): the work unit of the
-# bound chip_smoke.py reports.
+# FP32 operations of the exact arithmetic on one pair, counting each add,
+# mul, compare/select, max, sqrt, pow and division as one (the adhesion
+# terms add 8 more when a table is given), and of the cheap reject every
+# listed pair goes through (csrc/collision_force.cu: dx, dy, dz; d2 as one
+# mul and two FMAs, each FMA a mul and an add; R = rho_q + rho_n; R·R; the
+# compare): the work units of the bound chip_smoke.py reports.
 OPS_PER_PAIR = 40
 OPS_PER_PAIR_ADHESION = 8
+OPS_TEST = 11
+# The reject accepts d2 <= R·R with R the sum of two inflated radii,
+# rho = (max(r, 0) + max(a, 0)/2)·REACH_SLACK; any slack >= (1 + 2^-24) /
+# (1 - 2^-24)^4.5 keeps every pair the exact float32 band test accepts (the
+# kernel's header gives the argument). 2^-16 leaves ~45x room.
+REACH_SLACK = 1.0 + 2.0 ** -16
 
 _PLAIN_ROW_BLOCKS = 64          # row blocks per chunk of the plain version
 
@@ -81,6 +89,8 @@ def collision_force(data_t: torch.Tensor, block_cols: torch.Tensor, *,
         raise ValueError(f"N_pad={n_pad} overflows the kernel's int32 "
                          f"indexing")
     data_t = data_t.contiguous()
+    if data_t.data_ptr() % 16:
+        raise ValueError("data_t must be 16-byte aligned (cp.async tiles)")
     block_cols = block_cols.contiguous()
     adh = None if adhesion is None else adhesion.contiguous()
     out = torch.empty((4, n_pad), dtype=torch.float32, device=data_t.device)
@@ -90,7 +100,7 @@ def collision_force(data_t: torch.Tensor, block_cols: torch.Tensor, *,
         err = fn(data_t.data_ptr(), n_pad, block_cols.data_ptr(),
                  block_cols.shape[1], 0 if adh is None else adh.data_ptr(),
                  0 if adh is None else adh.shape[0], k_rep, adhesion_band,
-                 out.data_ptr(), stream)
+                 REACH_SLACK, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"K1 collision_force launch failed: CUDA error "
                            f"{err}")
@@ -102,10 +112,10 @@ collision_force.launches = 0
 
 
 # k1_collision_force(data, n_pad, block_cols, maxb, adhesion, n_types,
-#                    k_rep, adhesion_band, out, stream)
+#                    k_rep, adhesion_band, reach_slack, out, stream)
 ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def _kernel_fn():
@@ -116,21 +126,15 @@ def _kernel_fn():
     return fn
 
 
-def collision_force_plain(data_t: torch.Tensor, block_cols: torch.Tensor, *,
-                          k_rep: float, adhesion: Optional[torch.Tensor],
-                          adhesion_band: float) -> torch.Tensor:
-    """Plain PyTorch K1 with the kernel's tile semantics, on any device.
-
-    Chunks of ``_PLAIN_ROW_BLOCKS`` row blocks gather their listed column
-    blocks (cut to the chunk's longest list) and evaluate every (row,
-    candidate) pair of those tiles at once; unlisted (-1) tiles contribute
-    nothing. Reads the chunk's list length on the host (one sync a chunk).
-    """
-    _check(data_t, block_cols, adhesion)
-    n_pad = data_t.shape[1]
-    n_rb, maxb = block_cols.shape
+def _listed_tiles(data_t: torch.Tensor, block_cols: torch.Tensor):
+    """Chunks of ``_PLAIN_ROW_BLOCKS`` row blocks with their listed column
+    blocks gathered (cut to the chunk's longest list): yields ``(the
+    chunk's row slice, rowv (8, R, 128, 1), colv (8, R, 1, W·128), same
+    (R, 128, W·128): row and candidate are one agent, listed (R, 1,
+    W·128))``. Reads each chunk's list length on the host (one sync a
+    chunk)."""
+    n_rb = block_cols.shape[0]
     dev = data_t.device
-    out = torch.zeros((4, n_pad), dtype=torch.float32, device=dev)
     lane = torch.arange(BLOCK, device=dev)
     n_listed = (block_cols >= 0).sum(1)
     for r0 in range(0, n_rb, _PLAIN_ROW_BLOCKS):
@@ -146,20 +150,43 @@ def collision_force_plain(data_t: torch.Tensor, block_cols: torch.Tensor, *,
         rows = data_t[:, r0 * BLOCK:r1 * BLOCK].reshape(8, r1 - r0, BLOCK)
         colv = data_t[:, col_ids.reshape(-1)].reshape(8, r1 - r0, 1,
                                                       width * BLOCK)
-        rowv = rows[..., None]                                # (8, R, 128, 1)
-        dx = colv[ROW_X] - rowv[ROW_X]                        # (R, 128, W·128)
-        dy = colv[ROW_Y] - rowv[ROW_Y]
-        dz = colv[ROW_Z] - rowv[ROW_Z]
-        dist = torch.sqrt(torch.clamp(dx * dx + dy * dy + dz * dz,
-                                      min=1e-18))
-        r_q = rowv[ROW_DIA] * 0.5
-        r_n = colv[ROW_DIA] * 0.5
-        delta = r_q + r_n - dist
+        same = row_ids[..., None] == col_ids.reshape(r1 - r0, 1, -1)
+        yield (slice(r0 * BLOCK, r1 * BLOCK), rows[..., None], colv, same,
+               listed.repeat_interleave(BLOCK, 1)[:, None, :])
+
+
+def _band(rowv: torch.Tensor, colv: torch.Tensor, adhesion_band: float):
+    """dx, dy, dz, dist, r_q, r_n, delta and the band test of every pair,
+    in the kernel's float32 arithmetic."""
+    dx = colv[ROW_X] - rowv[ROW_X]                        # (R, 128, W·128)
+    dy = colv[ROW_Y] - rowv[ROW_Y]
+    dz = colv[ROW_Z] - rowv[ROW_Z]
+    dist = torch.sqrt(torch.clamp(dx * dx + dy * dy + dz * dz, min=1e-18))
+    r_q = rowv[ROW_DIA] * 0.5
+    r_n = colv[ROW_DIA] * 0.5
+    delta = r_q + r_n - dist
+    return dx, dy, dz, dist, r_q, r_n, delta, delta + adhesion_band > 0.0
+
+
+def collision_force_plain(data_t: torch.Tensor, block_cols: torch.Tensor, *,
+                          k_rep: float, adhesion: Optional[torch.Tensor],
+                          adhesion_band: float) -> torch.Tensor:
+    """Plain PyTorch K1 with the kernel's tile semantics, on any device.
+
+    Chunks of ``_PLAIN_ROW_BLOCKS`` row blocks gather their listed column
+    blocks and evaluate every (row, candidate) pair of those tiles at once;
+    unlisted (-1) tiles contribute nothing.
+    """
+    _check(data_t, block_cols, adhesion)
+    dev = data_t.device
+    out = torch.zeros((4, data_t.shape[1]), dtype=torch.float32, device=dev)
+    for sl, rowv, colv, same, listed in _listed_tiles(data_t, block_cols):
+        dx, dy, dz, dist, r_q, r_n, delta, in_band = _band(rowv, colv,
+                                                           adhesion_band)
         r_eff = torch.clamp(r_q * r_n / torch.clamp(r_q + r_n, min=1e-12),
                             min=1e-12)
         f_mag = k_rep * torch.sqrt(r_eff) * torch.pow(
             torch.clamp(delta, min=0.0), 1.5)
-        in_band = delta + adhesion_band > 0.0
         if adhesion is not None:
             t = adhesion.shape[0]
             ti = rowv[ROW_TYPE].long()
@@ -171,16 +198,26 @@ def collision_force_plain(data_t: torch.Tensor, block_cols: torch.Tensor, *,
             band = torch.clamp(delta + adhesion_band, min=0.0)
             f_mag = f_mag - torch.where(in_band, mu * torch.sqrt(r_eff * band),
                                         torch.zeros((), device=dev))
-        valid = ((rowv[ROW_ALIVE] > 0.5) & (colv[ROW_ALIVE] > 0.5)
-                 & (row_ids[..., None] != col_ids.reshape(r1 - r0, 1, -1))
-                 & listed.repeat_interleave(BLOCK, 1)[:, None, :]
-                 & in_band)
+        valid = ((rowv[ROW_ALIVE] > 0.5) & (colv[ROW_ALIVE] > 0.5) & ~same
+                 & listed & in_band)
         f = torch.where(valid, -f_mag, torch.zeros((), device=dev))
         inv = 1.0 / dist
-        sl = slice(r0 * BLOCK, r1 * BLOCK)
         out[ROW_FX, sl] = (f * dx * inv).sum(-1).reshape(-1)
         out[ROW_FY, sl] = (f * dy * inv).sum(-1).reshape(-1)
         out[ROW_FZ, sl] = (f * dz * inv).sum(-1).reshape(-1)
         out[ROW_NNZ, sl] = (f * f > 1e-14).sum(-1).reshape(-1).to(
             torch.float32)
     return out
+
+
+def pairs_in_reach(data_t: torch.Tensor, block_cols: torch.Tensor, *,
+                   adhesion_band: float) -> int:
+    """Listed (row, candidate) pairs that reach the kernel's exact
+    arithmetic: both alive and inside the exact float32 band test (self
+    pairs included). The work unit of K1's bound beside the listed pairs."""
+    n = 0
+    for _, rowv, colv, _, listed in _listed_tiles(data_t, block_cols):
+        in_band = _band(rowv, colv, adhesion_band)[-1]
+        n += int((in_band & listed & (rowv[ROW_ALIVE] > 0.5)
+                  & (colv[ROW_ALIVE] > 0.5)).sum())
+    return n

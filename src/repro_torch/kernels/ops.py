@@ -11,10 +11,12 @@ import torch
 from torch.profiler import record_function
 
 from ..core import morton
+from . import block_cols as colmap
 from . import collision_force as k1
 from . import flash_attention as k2
 
 BLOCK = k1.BLOCK
+SPAN = 8                 # most column blocks one stencil run may cover
 _SENTINEL = 2 ** 30
 # row blocks per chunk of the column-map build: bounds its scratch to
 # chunk·128·9·span ids (the reference maps 64 at a time)
@@ -31,8 +33,8 @@ def k1_run_offsets() -> np.ndarray:
 
 def build_block_cols(sorted_cells: torch.Tensor, starts: torch.Tensor,
                      counts: torch.Tensor, row_active: torch.Tensor,
-                     dims: Tuple[int, int, int], maxb: int, span: int = 8
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
+                     dims: Tuple[int, int, int], maxb: int,
+                     span: int = SPAN) -> tuple[torch.Tensor, torch.Tensor]:
     """Block-sparse column map: for each 128-row block, the ascending unique
     128-wide column blocks covering the 9 merged stencil z-runs of its
     *active* rows, -1 padded to ``maxb``.
@@ -41,8 +43,26 @@ def build_block_cols(sorted_cells: torch.Tensor, starts: torch.Tensor,
     row_active (N_pad,) bool. Returns ``(block_cols (N_pad/128, maxb)
     int32, overflow () bool)``; the flag fires when a row block needs more
     than ``maxb`` column blocks or one run spans more than ``span`` blocks.
-    Equal, entry for entry, to the reference's map.
+    Equal, entry for entry, to the reference's map. On CUDA tensors the
+    column-map kernel builds it (``block_cols.column_map``), on CPU tensors
+    :func:`build_block_cols_plain`.
     """
+    if sorted_cells.device.type == "cpu":
+        return build_block_cols_plain(sorted_cells, starts, counts,
+                                      row_active, dims, maxb, span)
+    cols, ovf, _, _ = colmap.column_map(
+        starts, counts, dims, maxb, span, n_pad=sorted_cells.shape[0],
+        cells=sorted_cells, row_active=row_active)
+    return cols, ovf
+
+
+def build_block_cols_plain(sorted_cells: torch.Tensor, starts: torch.Tensor,
+                           counts: torch.Tensor, row_active: torch.Tensor,
+                           dims: Tuple[int, int, int], maxb: int,
+                           span: int = SPAN
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`build_block_cols` in plain PyTorch, on any device: chunks of
+    row blocks, each sorting its candidate ids."""
     dev = sorted_cells.device
     n_rb = sorted_cells.shape[0] // BLOCK
     xy = torch.as_tensor(k1_run_offsets(), device=dev)
@@ -100,7 +120,29 @@ def k1_inputs(position: torch.Tensor, diameter: torch.Tensor,
                          torch.Tensor]:
     """Pad to 128, pack and map: ``(data_t (8, N_pad) f32, block_cols,
     overflow () bool, row mask (N_pad,) bool)`` — K1's inputs as the
-    resident wrapper builds them."""
+    resident wrapper builds them. On CUDA tensors one launch of the
+    column-map kernel does all of it; on CPU tensors
+    :func:`k1_inputs_plain`."""
+    if position.device.type == "cpu":
+        return k1_inputs_plain(position, diameter, agent_type, alive, active,
+                               starts, counts, origin, box_size, dims, maxb)
+    n_pad = -(-position.shape[0] // BLOCK) * BLOCK
+    cols, ovf, data_t, sact = colmap.column_map(
+        starts, counts, dims, maxb, SPAN, n_pad=n_pad,
+        pool=(position, diameter, agent_type, alive, active), origin=origin,
+        box_size=box_size)
+    return data_t, cols, ovf, sact
+
+
+def k1_inputs_plain(position: torch.Tensor, diameter: torch.Tensor,
+                    agent_type: torch.Tensor, alive: torch.Tensor,
+                    active: torch.Tensor, starts: torch.Tensor,
+                    counts: torch.Tensor, origin: torch.Tensor,
+                    box_size: float, dims: Tuple[int, int, int],
+                    maxb: int = 64
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor]:
+    """:func:`k1_inputs` in plain PyTorch, on any device."""
     dev = position.device
     c = position.shape[0]
     n_pad = -(-c // BLOCK) * BLOCK
@@ -109,8 +151,8 @@ def k1_inputs(position: torch.Tensor, diameter: torch.Tensor,
     cells = morton.cell_of(
         torch.nn.functional.pad(position, (0, 0, 0, pad)), origin, box_size,
         dims)
-    block_cols, ovf = build_block_cols(cells, starts, counts, sact, dims,
-                                       maxb)
+    block_cols, ovf = build_block_cols_plain(cells, starts, counts, sact,
+                                             dims, maxb)
     data_t = torch.zeros((8, n_pad), dtype=torch.float32, device=dev)
     data_t[k1.ROW_X:k1.ROW_Z + 1, :c] = position.T
     data_t[k1.ROW_DIA, :c] = diameter

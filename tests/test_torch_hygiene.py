@@ -53,6 +53,7 @@ def test_simulation_defaults_to_cuda_and_raises_without_it():
 
 
 @pytest.mark.parametrize("rel", ["kernels/collision_force.py",
+                                 "kernels/block_cols.py",
                                  "kernels/flash_attention.py",
                                  "kernels/build.py", "kernels/ops.py"])
 def test_kernel_path_swallows_no_error(rel):
@@ -69,6 +70,15 @@ def test_kernel_wrapper_raises_on_a_device_it_cannot_run():
     with pytest.raises(ValueError):
         k1.collision_force(data, cols, k_rep=2.0, adhesion=None,
                            adhesion_band=0.4)
+
+
+def test_column_map_raises_on_a_device_it_cannot_run():
+    from repro_torch.kernels import ops
+    cells = torch.zeros((128, 3), dtype=torch.int32, device="meta")
+    table = torch.zeros(8, dtype=torch.int32, device="meta")
+    act = torch.zeros(128, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError):
+        ops.build_block_cols(cells, table, table, act, (2, 2, 2), 4)
 
 
 def test_k2_wrapper_raises_on_a_device_it_cannot_run():
@@ -101,6 +111,7 @@ def test_lm_and_serve_default_to_cuda_and_raise_without_it():
 
 @pytest.mark.parametrize("module,entry", [
     ("collision_force", "k1_collision_force"),
+    ("block_cols", "k1_block_cols"),
     ("flash_attention", "k2_flash_attention")])
 def test_ctypes_signature_matches_the_cuda_entry_point(module, entry):
     """The wrapper's argtypes follow the C entry point parameter for

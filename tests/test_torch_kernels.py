@@ -241,3 +241,336 @@ def test_k1_cuda_kernel_matches_plain(adhesion):
                                atol=1e-4)
     np.testing.assert_array_equal(gn.cpu().numpy(), cn.numpy())
     assert bool(go) == bool(co)
+
+
+# ---------------------------------------------------------------------------
+# The redesigned K1: its cheap reject, its in-reach count, and (on the card)
+# both kernels against their plain versions.
+# ---------------------------------------------------------------------------
+
+from hypothesis_compat import given, settings, st  # noqa: E402
+from repro_torch.kernels import block_cols as tcolmap  # noqa: E402
+
+F32 = np.float32
+
+
+def _exact_in_band(d2, r_q, r_n, band):
+    """The kernel's (and the plain version's) float32 band test."""
+    dist = np.sqrt(np.maximum(d2, F32(1e-18)))
+    delta = (r_q + r_n) - dist
+    return delta + F32(band) > F32(0)
+
+
+def _rho(r, band, slack):
+    """The kernel's inflated radius of a live agent."""
+    half = F32(max(band, 0.0)) * F32(0.5)
+    return (np.fmax(r, F32(0)) + half) * F32(slack)
+
+
+def _reject_passes(d2, r_q, r_n, band, slack):
+    """numpy mirror of the kernel's cheap test: R = rho_q + rho_n, accept
+    iff d2 <= R·R (the same d2 as the exact test)."""
+    reach = _rho(r_q, band, slack) + _rho(r_n, band, slack)
+    return d2 <= reach * reach
+
+
+def _edge_pairs(seed, band, n=2048, max_ulps=6):
+    """Pairs at the band's edge: the partner at distance fl(fl(r_q + r_n) +
+    a) from the row along a random direction (or an axis), moved by up to
+    ``max_ulps`` ulps per coordinate; half the diameters in 0.5-12."""
+    rng = np.random.default_rng(seed)
+    r_q = (rng.uniform(0.5, 12, n) * 0.5).astype(F32)
+    r_n = (rng.uniform(0.5, 12, n) * 0.5).astype(F32)
+    reach = (r_q + r_n) + F32(band)
+    u = rng.normal(size=(n, 3))
+    u[: n // 4] = np.eye(3)[rng.integers(0, 3, n // 4)]        # on an axis
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    row = rng.uniform(-50, 50, (n, 3)).astype(F32)
+    col = (row + u * reach[:, None]).astype(F32)
+    steps = rng.integers(-max_ulps, max_ulps + 1, (n, 3))
+    for k in range(1, max_ulps + 1):
+        col = np.where(steps >= k, np.nextafter(col, F32(np.inf)), col)
+        col = np.where(steps <= -k, np.nextafter(col, F32(-np.inf)), col)
+    d = col - row
+    d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+    return d2.astype(F32), r_q, r_n
+
+
+@settings(max_examples=40, deadline=None)
+@given(seed=st.integers(0, 2 ** 31 - 1),
+       band=st.sampled_from([0.0, 0.4, 1e-7, 2.5, -0.3]))
+def test_k1_reject_keeps_every_pair_in_band(seed, band):
+    """No pair that the exact float32 band test accepts is rejected by the
+    kernel's cheap test with the wrapper's slack: at the band's edge (within
+    a few ulps), for coincident agents (the 1e-18 clamp) and for diameters
+    0.5-12."""
+    d2, r_q, r_n = _edge_pairs(seed, band)
+    exact = _exact_in_band(d2, r_q, r_n, band)
+    kept = _reject_passes(d2, r_q, r_n, band, tk1.REACH_SLACK)
+    assert exact.any() and (~exact).any()        # the draw straddles the edge
+    assert not (exact & ~kept).any(), np.flatnonzero(exact & ~kept)[:5]
+    # coincident and nearly coincident agents
+    rng = np.random.default_rng(seed)
+    n = 512
+    r_q = (rng.uniform(0.5, 12, n) * 0.5).astype(F32)
+    r_n = (rng.uniform(0.5, 12, n) * 0.5).astype(F32)
+    d2 = np.concatenate([np.zeros(n // 2, F32), (10.0 ** rng.uniform(
+        -45, -10, n - n // 2)).astype(F32)])
+    exact = _exact_in_band(d2, r_q, r_n, band)
+    kept = _reject_passes(d2, r_q, r_n, band, tk1.REACH_SLACK)
+    assert exact.all() and kept.all()
+
+
+def test_k1_reject_slack_covers_the_rounding():
+    """The slack satisfies the kernel's bound (1 + u)/(1 - u)^4.5 <= slack,
+    and a dead agent's NaN radius fails the test."""
+    u = 2.0 ** -24
+    assert F32(tk1.REACH_SLACK) >= (1 + u) / (1 - u) ** 4.5
+    reach = F32(np.nan) + _rho(F32(1), 0.4, tk1.REACH_SLACK)
+    assert not F32(0) <= reach * reach
+
+
+def test_pairs_in_reach_matches_brute_force():
+    """K1's in-reach count (the bound's exact-arithmetic pairs) against a
+    numpy loop over every listed (row, candidate) pair."""
+    dims, box = (8, 8, 8), 2.0
+    P, D, T, A, act, starts, counts = _sorted_case(11, 300, 384, dims, box,
+                                                   0.6)
+    A = A.copy()
+    A[::7] = False                                   # some dead agents
+    data_t, cols, ovf, _ = tops.k1_inputs(
+        _t(P), _t(D), _t(T), _t(A), _t(act), _t(starts), _t(counts),
+        torch.zeros(3), box, dims)
+    assert not bool(ovf)
+    got = tk1.pairs_in_reach(data_t, cols, adhesion_band=0.4)
+    x = data_t.numpy()
+    want = 0
+    for rb, row_cols in enumerate(cols.numpy()):
+        rows = np.arange(rb * 128, rb * 128 + 128)
+        for cb in row_cols[row_cols >= 0]:
+            cand = np.arange(cb * 128, cb * 128 + 128)
+            dx = x[0, cand][None, :] - x[0, rows][:, None]
+            dy = x[1, cand][None, :] - x[1, rows][:, None]
+            dz = x[2, cand][None, :] - x[2, rows][:, None]
+            d2 = dx * dx + dy * dy + dz * dz
+            band = _exact_in_band(d2, x[3, rows][:, None] * F32(0.5),
+                                  x[3, cand][None, :] * F32(0.5), 0.4)
+            alive = (x[5, rows][:, None] > 0.5) & (x[5, cand][None, :] > 0.5)
+            want += int((band & alive).sum())
+    assert got == want > 0
+
+
+def test_column_map_wrapper_runs_only_on_the_card():
+    """The kernel wrapper takes CUDA tensors only; on CPU tensors
+    ``ops.build_block_cols`` runs the plain version and launches nothing."""
+    dims = (3, 3, 3)
+    starts = torch.zeros(27, dtype=torch.int32)
+    counts = torch.zeros(27, dtype=torch.int32)
+    cells = torch.zeros((128, 3), dtype=torch.int32)
+    act = torch.ones(128, dtype=torch.bool)
+    with pytest.raises(ValueError):
+        tcolmap.column_map(starts, counts, dims, 4, 8, n_pad=128,
+                           cells=cells, row_active=act)
+    before = tcolmap.column_map.launches
+    cols, ovf = tops.build_block_cols(cells, starts, counts, act, dims, 4)
+    assert tcolmap.column_map.launches == before
+    assert (cols == -1).all() and not bool(ovf)
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _face_case():
+    """Agents in every face, edge and corner box of a 5x5x5 grid."""
+    dims, box = (5, 5, 5), 2.0
+    lo, hi = 0.05, dims[0] * box - 0.05
+    pts = [(x, y, z) for x in (lo, 5.0, hi) for y in (lo, 5.0, hi)
+           for z in (lo, 5.0, hi)]
+    pos = np.array(pts * 5, np.float32) + np.random.default_rng(3).uniform(
+        -0.04, 0.04, (len(pts) * 5, 3)).astype(np.float32)
+    pos = np.clip(pos, 0, hi)
+    return pos, dims, box
+
+
+def _column_map_cases():
+    """(name, P, A, act, starts, counts, dims, box, [(maxb, span), ...])."""
+    cases = []
+    for name, args, combos in (
+            ("random", (21, 3000, 3200, (16, 16, 16), 2.0, 1.0),
+             [(64, 8), (4, 8), (64, 1)]),
+            ("over-maxb", (3, 500, 512, (3, 3, 3), 4.0, 1.0), [(2, 8)]),
+            ("inactive", (7, 2000, 2100, (12, 12, 12), 2.0, 0.3),
+             [(64, 8), (3, 2)])):
+        P, D, T, A, act, starts, counts = _sorted_case(*args)
+        cases.append((name, P, D, T, A, act, starts, counts, args[3],
+                      args[4], combos))
+    # a run longer than span: 400 agents in two boxes
+    P, D, T, A, act, starts, counts = _sorted_case(
+        9, 400, 512, (4, 4, 4), 1.0, 1.0)
+    P[:400] = np.float32(0.5)
+    keys = tmorton.grid_sort_keys(torch.from_numpy(P), torch.from_numpy(A),
+                                  torch.zeros(3), 1.0, (4, 4, 4))
+    order = torch.sort(keys, stable=True).indices
+    st, ct = tgrid.box_tables(keys[order], 64)
+    o = order.numpy()
+    cases.append(("long-run", P[o], D[o], T[o], A[o], act[o], st.numpy(),
+                  ct.numpy(), (4, 4, 4), 1.0, [(64, 2), (64, 8)]))
+    # rows on every domain face
+    pos, dims, box = _face_case()
+    n = pos.shape[0]
+    Pf = np.zeros((n + 40, 3), np.float32)
+    Pf[:n] = pos
+    Af = np.zeros(n + 40, bool)
+    Af[:n] = True
+    keys = tmorton.grid_sort_keys(torch.from_numpy(Pf), torch.from_numpy(Af),
+                                  torch.zeros(3), box, dims)
+    order = torch.sort(keys, stable=True).indices
+    st, ct = tgrid.box_tables(keys[order], tmorton.linear_size(dims))
+    o = order.numpy()
+    z = np.zeros(n + 40, np.float32)
+    cases.append(("faces", Pf[o], z + 1.0, z.astype(np.int32), Af[o], Af[o],
+                  st.numpy(), ct.numpy(), dims, box, [(64, 8), (3, 8)]))
+    # an all-inactive pool
+    P, D, T, A, act, starts, counts = _sorted_case(5, 600, 640, (8, 8, 8),
+                                                   2.0)
+    cases.append(("all-inactive", P, D, T, A, np.zeros_like(act), starts,
+                  counts, (8, 8, 8), 2.0, [(64, 8)]))
+    return cases
+
+
+@pytest.mark.cuda
+def test_column_map_cuda_kernel_matches_plain():
+    """The column-map kernel ≡ its plain version entry for entry, flag for
+    flag, from cells and fused with the pack (k1_inputs), on random pools,
+    a row block needing more than maxb ids, a run longer than span blocks,
+    inactive rows, rows on every domain face and an all-inactive pool."""
+    dev = _cuda_or_skip()
+    for (name, P, D, T, A, act, starts, counts, dims, box,
+         combos) in _column_map_cases():
+        c = P.shape[0]
+        n_pad = -(-c // 128) * 128
+        Pp = np.zeros((n_pad, 3), np.float32)
+        Pp[:c] = P
+        ap = np.zeros(n_pad, bool)
+        ap[:c] = act & A
+        cells = tmorton.cell_of(_t(Pp), torch.zeros(3), box, dims)
+        for maxb, span in combos:
+            want_c, want_o = tops.build_block_cols_plain(
+                cells, _t(starts), _t(counts), _t(ap), dims, maxb, span)
+            before = tcolmap.column_map.launches
+            got_c, got_o = tops.build_block_cols(
+                cells.to(dev), _t(starts).to(dev), _t(counts).to(dev),
+                _t(ap).to(dev), dims, maxb, span)
+            torch.cuda.synchronize()
+            assert tcolmap.column_map.launches == before + 1
+            np.testing.assert_array_equal(got_c.cpu().numpy(),
+                                          want_c.numpy(), err_msg=name)
+            assert bool(got_o) == bool(want_o), (name, maxb, span)
+        args = [_t(x) for x in (P, D, T, A, act, starts, counts)]
+        want = tops.k1_inputs_plain(*args, torch.zeros(3), box, dims)
+        got = tops.k1_inputs(*[a.to(dev) for a in args],
+                             torch.zeros(3, device=dev), box, dims)
+        torch.cuda.synchronize()
+        for g, w, what in zip(got, want, ("data_t", "block_cols", "overflow",
+                                          "row mask")):
+            assert g.dtype == w.dtype, (name, what)
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                          err_msg=f"{name}: {what}")
+    # the Fig-6 pool after the engine's resident build, on the card
+    from repro_torch.core import engine as eng
+    from repro_torch.launch import simulate
+    sim, st = simulate.build("proliferation", 32768, "fig6", device="cuda")
+    cfg, spec = sim.config, sim.spec
+    origin = torch.tensor(cfg.domain_lo, dtype=torch.float32, device=dev)
+    res = eng.build_env(cfg, spec, st.pool, origin, cfg.cell_size)
+    pool, g = res.pool, res.grid
+    args = (pool.position, pool.diameter, pool.agent_type, pool.alive,
+            pool.alive, g.starts, g.counts, origin, cfg.cell_size, spec.dims)
+    for gt, w in zip(tops.k1_inputs(*args), tops.k1_inputs_plain(*args)):
+        assert gt.dtype == w.dtype and torch.equal(gt, w)
+
+
+def _band_edge_data(n_types=16):
+    """K1 inputs with dead agents, a 16-type adhesion table, row blocks that
+    list every block (self pairs) but one with an empty list, and isolated
+    pairs on an axis 1 ulp either side of the band's edge."""
+    rng = np.random.default_rng(17)
+    n_pad = 512
+    x = np.zeros((8, n_pad), np.float32)
+    x[0:3] = rng.uniform(0, 12, (3, n_pad))          # a dense cluster
+    x[3] = rng.uniform(0.5, 4, n_pad)
+    x[4] = rng.integers(0, n_types, n_pad)
+    x[5] = rng.random(n_pad) < 0.85
+    band = np.float32(0.4)
+    # pairs (2i, 2i+1) of rows 256..383: on the x axis, far from the rest
+    for i, a in enumerate(range(256, 384, 2)):
+        r_q, r_n = np.float32(x[3, a] * 0.5), np.float32(x[3, a + 1] * 0.5)
+        base = np.float32(100 + 20 * i)
+        xb = np.float32(base + ((r_q + r_n) + band))
+        inside = _exact_in_band(np.float32((xb - base) ** 2), r_q, r_n, band)
+        step = np.float32(np.inf if inside else -np.inf)
+        # walk to the last partner position inside the band, then 1 ulp out
+        # for odd i
+        while True:
+            nxt = np.nextafter(xb, step)
+            d = np.float32(nxt - base)
+            if _exact_in_band(np.float32(d * d), r_q, r_n, band) != inside:
+                break
+            xb = nxt
+        if not inside:
+            xb = np.nextafter(xb, step)            # the first one inside
+        if i % 2:
+            xb = np.nextafter(xb, np.float32(np.inf))   # 1 ulp outside
+        x[0:3, a] = (base, 50, 50)
+        x[0:3, a + 1] = (xb, 50, 50)
+        x[5, a] = x[5, a + 1] = 1
+    cols = np.full((n_pad // 128, 6), -1, np.int32)
+    cols[0, :4] = [0, 1, 2, 3]
+    cols[1, :3] = [0, 1, 3]
+    cols[2, :1] = [2]
+    # row block 3: an empty list
+    adh = rng.uniform(0, 1, (n_types, n_types)).astype(np.float32)
+    return x, cols, adh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_adhesion", [False, True])
+def test_k1_cuda_kernel_matches_plain_at_the_band_edge(with_adhesion):
+    """K1 ≡ its plain version (force atol 1e-4, nnz exact) on dead agents,
+    self pairs, a 16-type adhesion table, an empty list and pairs 1 ulp
+    either side of the band."""
+    dev = _cuda_or_skip()
+    x, cols, adh = _band_edge_data()
+    data, blocks = torch.from_numpy(x), torch.from_numpy(cols)
+    table = torch.from_numpy(adh) if with_adhesion else None
+    kw = dict(k_rep=2.0, adhesion_band=0.4)
+    want = tk1.collision_force_plain(data, blocks, adhesion=table, **kw)
+    edge_nnz = want[3, 256:384].reshape(-1, 2)[:, 0].numpy()
+    assert not edge_nnz[1::2].any()
+    if with_adhesion:              # inside the band only adhesion acts
+        assert edge_nnz[0::2].all()
+    before = tk1.collision_force.launches
+    got = tk1.collision_force(data.to(dev), blocks.to(dev),
+                              adhesion=None if table is None
+                              else table.to(dev), **kw).cpu()
+    assert tk1.collision_force.launches == before + 1
+    np.testing.assert_allclose(got[:3].numpy(), want[:3].numpy(), rtol=0,
+                               atol=1e-4)
+    np.testing.assert_array_equal(got[3].numpy(), want[3].numpy())
+    assert not got[:, 384:].any()                  # the empty list
+
+
+def test_k1_variants_follow_the_source():
+    """launch/k1_variants.py builds its variants from the kernel source by
+    text substitution: each must change the source, and only where meant."""
+    from repro_torch.launch import k1_variants
+    srcs = k1_variants.variant_sources()
+    base = srcs["committed"]
+    assert set(srcs) == {"committed", "rows1", "rows4", "no_exact",
+                         "test_only"}
+    for name, text in srcs.items():
+        assert (text == base) == (name == "committed"), name
+    assert "kRows = 4;" in srcs["rows4"] and "kRows = 1;" in srcs["rows1"]
