@@ -14,10 +14,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      column-map kernel against its plain version, entry for entry (fused
      with the pack as the main path runs it, and from the cells at three
      maxb/span settings); K1 against its plain version, force atol 1e-4,
-     nnz exact; kernel and plain times (CUDA events) and each kernel's
-     lower bound on this card (K1's counts the listed pairs through the
-     cheap reject and the pairs in reach through the exact arithmetic;
-     the all-pairs bound of earlier runs is printed beside it);
+     nnz exact (K1's exact arithmetic rounds as the plain version's does);
+     kernel and plain times (CUDA events) and each kernel's lower bound on
+     this card (K1's counts the listed pairs through the cheap reject and
+     the pairs in reach through the exact arithmetic; the all-pairs bound
+     of earlier runs is printed beside it);
   2. the engine on the card ≡ the engine on the CPU, one step at 8,192
      agents (integers exact, floats atol/rtol 1e-4);
   3. main path: ``Simulation`` with the Fig-6 configuration at 1,048,576
@@ -39,12 +40,41 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   6. the LM on the card ≡ the LM on the CPU: a 2-layer f32 qwen2-family
      model (d_model 128, vocab 1000), prefill logits and 8 greedy decode
      steps to atol/rtol 1e-4, argmax tokens equal;
-  7. the serving path (this slice's main path): ``launch/serve_lm.serve``
-     with qwen2-1.5b at full width and depth (28 layers, bf16, random
-     weights from a seed), 8 requests of 256-2048 prompt tokens, 32 new
-     tokens each, 4 slots, s_max 4096, 1,024 pages of 16 tokens; every
-     kernel's launch count is reset just before and read just after; K2
-     must launch 28 times per prefill.
+  7. the serving path: ``launch/serve_lm.serve`` with qwen2-1.5b at full
+     width and depth (28 layers, bf16, random weights from a seed), 8
+     requests of 256-2048 prompt tokens, 32 new tokens each, 4 slots, s_max
+     4096, 1,024 pages of 16 tokens; every kernel's launch count is reset
+     just before and read just after; K2 must launch 28 times per prefill;
+  8. K1 with static rows: the 'front' workload of
+     benchmarks/optimizations.py grown to 1,000,000 agents (a lattice of
+     spacing 5, 100 per axis, the first 5% random-walking) after two steps
+     with ``detect_static``, so at least half the row blocks are wholly
+     static: the column map and K1 against their plain versions on that
+     query mask (map and empty lists equal, force atol 1e-4, nnz exact,
+     static rows zero), K1's time beside its all-active time;
+  9. the five scenarios of ``launch/simulate.py`` (the reference CLI's
+     set-ups at 1,000 agents), one step on the card ≡ on the CPU after two
+     on the card: integers and stats equal, floats atol/rtol 1e-4, the
+     diffusion grid within 1e-5 of its largest value (the card adds
+     secretion by atomics, in no fixed order);
+ 10. the engine's main path: the forces + SIR workload of
+     benchmarks/breakdown.py at 1,048,576 agents (``--config breakdown``).
+     First the column map and K1 against their plain versions on the first
+     step's inputs (as phase 1: map equal, force atol 1e-4, nnz exact),
+     timed: the times of the kernels line. Then K1 for the forces and
+     Infection in the streamed sweep over the same tables,
+     ``run(check_overflow=True)`` for 10 steps; every kernel's
+     launch count is reset just before and read just after (K1 and the
+     column map once a step); the infected count must rise; then two
+     profiled steps give device operations per step, the sweep's share and
+     the idle share (launch/profile_step.py's: 1 − busy / profiled wall);
+ 11. the same configuration with ``force_impl="streamed"``: its sweep
+     against K1's at full width (force atol 1e-4, exposed equal, force_nnz
+     equal but in rows where a pair's force lies within float32 rounding
+     of ``force_eps``, at most 16 and each such a row: the sweep counts a
+     pair by its force vector, K1 by the force's magnitude, two float32
+     forms of one threshold), and one engine
+     step each (floats 1e-4, other integers and stats equal).
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and last ``{"ok": true, "device": {...}}``. Writes the same numbers to
@@ -71,6 +101,9 @@ FORCE_ATOL = 1e-4
 K1_SIZES = (65_536, 1_048_576)       # agents for the kernel-vs-plain phase
 MAIN_AGENTS, MAIN_STEPS = 1_048_576, 10
 PARITY_AGENTS = 8192
+SCENARIO_AGENTS = 1000               # phase 9, per scenario
+FRONT_SIDE = 100                     # phase 8: 100³ lattice agents
+CONC_RTOL = 1e-5
 # K2 cases: (name, B, Hq, Hkv, Sq, Sk, D, causal, dtype); the first is the
 # qwen2-1.5b prefill shape and the one the kernels line reports. Sq = Sk =
 # "first" or "shortest" is the length of that prompt of phase 7.
@@ -163,18 +196,17 @@ def column_map_bound(position, starts, data_t, cols) -> tuple[float, str,
     return max(t_ops, t_bytes), by, {"bytes": moved, "operations": ops}
 
 
-def phase_column_map_vs_plain(n: int, sim, res, origin, report: dict
-                              ) -> dict:
-    """The column-map kernel ≡ its plain version, entry for entry: from the
-    cells (``ops.build_block_cols``) and fused with the pack
-    (``ops.k1_inputs``), on the pool of the resident build; timed fused."""
+def _column_map_vs_plain(label: str, cfg, spec, pool, grid, origin, active
+                         ) -> tuple[dict, tuple]:
+    """The fused column map (``ops.k1_inputs``) ≡ its plain version, entry
+    for entry, on a resident pool with the query mask ``active``; timed
+    (CUDA events) beside its plain version and its bound. Returns the
+    record and the kernel's outputs."""
     import torch
-    from repro_torch.core import morton
     from repro_torch.kernels import ops
-    cfg, spec = sim.config, sim.spec
-    pool, g = res.pool, res.grid
     args = (pool.position, pool.diameter, pool.agent_type, pool.alive,
-            pool.alive, g.starts, g.counts, origin, cfg.cell_size, spec.dims)
+            active, grid.starts, grid.counts, origin, cfg.cell_size,
+            spec.dims)
     got = ops.k1_inputs(*args)
     torch.cuda.synchronize()
     want = ops.k1_inputs_plain(*args)
@@ -182,12 +214,85 @@ def phase_column_map_vs_plain(n: int, sim, res, origin, report: dict
     for gt, w, what in zip(got, want, ("data_t", "block_cols", "overflow",
                                        "row mask")):
         check(gt.dtype == w.dtype and torch.equal(gt, w),
-              f"column map (fused) differs from plain in {what} at {n}")
-    data_t, cols, _, mask = got
-    n_pad = data_t.shape[1]
+              f"column map (fused) differs from plain in {what} ({label})")
+    check(not bool(got[2]), f"column map overflow ({label})")
+    ms = cuda_ms(lambda: ops.k1_inputs(*args), iters=20, warmup=3)
+    plain_ms = cuda_ms(lambda: ops.k1_inputs_plain(*args), iters=2,
+                       warmup=0)
+    bound_ms, bound_by, work = column_map_bound(pool.position, grid.starts,
+                                                got[0], got[1])
+    rec = {"n_pad": got[0].shape[1], "equal": True, "max_abs_err": 0.0,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, **work}
+    print(f"{label} column map: kernel (fused with the pack) {ms:.4f} ms, "
+          f"plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+          f"block_cols, flag, data_t and row mask equal", flush=True)
+    return rec, got
+
+
+def _k1_vs_plain(label: str, data_t, cols, cfg) -> dict:
+    """K1 ≡ its plain version on the card (force atol FORCE_ATOL, nnz
+    exact, finite), timed beside its plain version and its bound."""
+    import torch
+    from repro_torch.kernels import collision_force as k1
+    kw = dict(k_rep=cfg.force.k_rep, adhesion=None,
+              adhesion_band=cfg.force.adhesion_band)
+    check(cfg.adhesion is None, "the K1 phases run without adhesion")
+    out = k1.collision_force(data_t, cols, **kw)
+    torch.cuda.synchronize()
+    plain = k1.collision_force_plain(data_t, cols, **kw)
+    torch.cuda.synchronize()
+    err = float((out[:3] - plain[:3]).abs().max())
+    nnz_rows = int((out[3] != plain[3]).sum())
+    check(err <= FORCE_ATOL, f"K1 force differs from plain by {err} "
+                             f"({label})")
+    check(nnz_rows == 0, f"K1 nnz differs from plain in {nnz_rows} rows "
+                         f"({label})")
+    check(bool(torch.isfinite(out).all()), f"K1 output not finite ({label})")
+    ms = cuda_ms(lambda: k1.collision_force(data_t, cols, **kw), iters=20,
+                 warmup=3)
+    plain_ms = cuda_ms(lambda: k1.collision_force_plain(data_t, cols, **kw),
+                       iters=2, warmup=0)
+    bound_ms, bound_by, work = k1_bound(data_t, cols, None,
+                                        cfg.force.adhesion_band)
+    listed = (cols >= 0).sum(1)
+    rec = {"n_pad": data_t.shape[1], "max_abs_err": err, "nnz_equal": True,
+           "nnz_counted": int(plain[3].sum()), "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "cols_per_row_block_mean": float(listed[listed > 0].float().mean())
+           if bool((listed > 0).any()) else 0.0,
+           "cols_per_row_block_max": int(listed.max()),
+           "active_row_blocks": int((listed > 0).sum()),
+           "row_blocks": int(cols.shape[0]), **work}
+    print(f"{label} K1: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}; all pairs "
+          f"{work['bound_all_pairs_ms']:.4f} ms); max|Δf| {err:.3g}, nnz "
+          f"equal ({rec['nnz_counted']} pairs counted); column blocks per "
+          f"active row block {rec['cols_per_row_block_mean']:.2f} (max "
+          f"{rec['cols_per_row_block_max']}), {rec['tiles']} tiles, "
+          f"{rec['pairs']} listed pairs, pairs_in_reach "
+          f"{work['pairs_in_reach']}", flush=True)
+    return rec
+
+
+def phase_kernel_vs_plain(n: int, report: dict) -> tuple[dict, dict]:
+    import torch
+    from repro_torch.core import engine as eng, morton
+    from repro_torch.kernels import ops
+    from repro_torch.launch import simulate
+
+    sim, st = simulate.build("proliferation", n, "fig6", device="cuda")
+    cfg, spec = sim.config, sim.spec
+    origin = torch.tensor(cfg.domain_lo, dtype=torch.float32, device="cuda")
+    res = eng.build_env(cfg, spec, st.pool, origin, cfg.cell_size)
+    pool, g = res.pool, res.grid
+    label = f"[1] {n} agents:"
+    cm_rec, (data_t, cols, _, mask) = _column_map_vs_plain(
+        label, cfg, spec, pool, g, origin, pool.alive)
+    # the column map from the cells, at three maxb/span settings
     cells = morton.cell_of(torch.nn.functional.pad(
-        pool.position, (0, 0, 0, n_pad - pool.position.shape[0])), origin,
-        cfg.cell_size, spec.dims)
+        pool.position, (0, 0, 0, data_t.shape[1] - pool.position.shape[0])),
+        origin, cfg.cell_size, spec.dims)
     for maxb, span in ((64, 8), (8, 8), (64, 1)):
         kc, ko = ops.build_block_cols(cells, g.starts, g.counts, mask,
                                       spec.dims, maxb, span)
@@ -196,122 +301,80 @@ def phase_column_map_vs_plain(n: int, sim, res, origin, report: dict
         check(torch.equal(kc, pc) and bool(ko) == bool(po),
               f"column map differs from plain at {n} agents, maxb {maxb}, "
               f"span {span}")
-    ms = cuda_ms(lambda: ops.k1_inputs(*args), iters=20, warmup=3)
-    plain_ms = cuda_ms(lambda: ops.k1_inputs_plain(*args), iters=2,
-                       warmup=0)
-    bound_ms, bound_by, work = column_map_bound(pool.position, g.starts,
-                                                data_t, cols)
-    rec = {"agents": n, "n_pad": n_pad, "equal": True, "max_abs_err": 0.0,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, **work}
-    print(f"[1] column map at {n} agents: kernel (fused with the pack) "
-          f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}); block_cols, flag, data_t and row mask equal, also "
-          f"from cells at maxb/span 64/8, 8/8, 64/1", flush=True)
-    report.setdefault("column_map_vs_plain", []).append(rec)
-    return rec
-
-
-def phase_kernel_vs_plain(n: int, report: dict) -> tuple[dict, dict]:
-    import torch
-    from repro_torch.core import engine as eng
-    from repro_torch.kernels import collision_force as k1, ops
-    from repro_torch.launch import simulate
-
-    sim, st = simulate.build("proliferation", n, "fig6", device="cuda")
-    cfg, spec = sim.config, sim.spec
-    origin = torch.tensor(cfg.domain_lo, dtype=torch.float32, device="cuda")
-    res = eng.build_env(cfg, spec, st.pool, origin, cfg.cell_size)
-    pool, g = res.pool, res.grid
-    cm_rec = phase_column_map_vs_plain(n, sim, res, origin, report)
-    data_t, cols, ovf, _ = ops.k1_inputs(
-        pool.position, pool.diameter, pool.agent_type, pool.alive,
-        pool.alive, g.starts, g.counts, origin, cfg.cell_size, spec.dims)
-    check(not bool(ovf), f"K1 column map overflow at {n} agents")
-    kw = dict(k_rep=cfg.force.k_rep, adhesion=None,
-              adhesion_band=cfg.force.adhesion_band)
-    out = k1.collision_force(data_t, cols, **kw)
-    torch.cuda.synchronize()
-    plain = k1.collision_force_plain(data_t, cols, **kw)
-    torch.cuda.synchronize()
-    err = float((out[:3] - plain[:3]).abs().max())
-    nnz_equal = bool(torch.equal(out[3], plain[3]))
-    check(err <= FORCE_ATOL, f"K1 force differs from plain by {err} at {n}")
-    check(nnz_equal, f"K1 nnz differs from plain at {n} agents")
-    check(bool(torch.isfinite(out).all()), "K1 output not finite")
-    ms = cuda_ms(lambda: k1.collision_force(data_t, cols, **kw), iters=20,
-                 warmup=3)
-    plain_ms = cuda_ms(lambda: k1.collision_force_plain(data_t, cols, **kw),
-                       iters=2, warmup=0)
-    bound_ms, bound_by, work = k1_bound(data_t, cols, None,
-                                        cfg.force.adhesion_band)
-    listed = (cols >= 0).sum(1)
-    rec = {"agents": n, "capacity": cfg.capacity, "n_pad": data_t.shape[1],
-           "dims": list(spec.dims), "max_abs_err": err, "nnz_equal": True,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by,
-           "cols_per_row_block_mean": float(listed[listed > 0].float().mean()),
-           "cols_per_row_block_max": int(listed.max()),
-           "active_row_blocks": int((listed > 0).sum()),
-           "row_blocks": int(cols.shape[0]), **work}
-    print(f"[1] K1 at {n} agents: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms,"
-          f" bound {bound_ms:.4f} ms ({bound_by}; all pairs "
-          f"{work['bound_all_pairs_ms']:.4f} ms); max|Δf| {err:.3g}, nnz "
-          f"equal; column blocks per active row block "
-          f"{rec['cols_per_row_block_mean']:.2f} (max "
-          f"{rec['cols_per_row_block_max']}), {rec['tiles']} tiles, "
-          f"{rec['pairs']} listed pairs, pairs_in_reach "
-          f"{work['pairs_in_reach']}", flush=True)
+    print(f"{label} column map from the cells equal at maxb/span 64/8, "
+          f"8/8, 64/1", flush=True)
+    cm_rec["agents"] = n
+    report.setdefault("column_map_vs_plain", []).append(cm_rec)
+    rec = {"agents": n, "capacity": cfg.capacity, "dims": list(spec.dims),
+           **_k1_vs_plain(label, data_t, cols, cfg)}
     report.setdefault("k1_vs_plain", []).append(rec)
     return rec, cm_rec
 
 
-def phase_engine_cpu_parity(n: int, report: dict) -> None:
+def _card_vs_cpu(want: dict, got: dict, what: str) -> dict:
+    """Integers and stats equal, floats atol/rtol 1e-4, conc within
+    CONC_RTOL of its largest value; returns the largest float residues."""
     import numpy as np
+    worst = {}
+    for k, w in want["pool"].items():
+        g = got["pool"][k]
+        check(g.dtype == w.dtype, f"{what}: dtype of {k} differs")
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4,
+                                       err_msg=f"{what}: {k}")
+            worst[k] = float(np.abs(g - w).max())
+        else:
+            check(np.array_equal(g, w), f"{what}: integer channel {k} "
+                                        f"differs")
+    for f, w in want["stats"].items():
+        check(np.array_equal(got["stats"][f], w), f"{what}: stat {f} "
+                                                  f"differs")
+    cw, cg = want["conc"], got["conc"]
+    scale = max(float(np.abs(cw).max()), 1e-30)
+    worst["conc_rel"] = float(np.abs(cg - cw).max()) / scale
+    check(worst["conc_rel"] <= CONC_RTOL, f"{what}: conc differs by "
+                                         f"{worst['conc_rel']:.3g}")
+    return worst
+
+
+def _cpu_step(sim_c, state):
+    """One step on the CPU with one torch thread (as phase 2)."""
     import torch
+    from repro_torch import convert
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return convert.state_to_numpy(sim_c.step(
+            convert.state_from_numpy(convert.state_to_numpy(state), "cpu")))
+    finally:
+        torch.set_num_threads(threads)
+
+
+def phase_engine_cpu_parity(n: int, report: dict) -> None:
     from repro_torch import convert
     from repro_torch.launch import simulate
 
     sim_g, st_g = simulate.build("proliferation", n, "fig6", device="cuda")
-    sim_c, st_c = simulate.build("proliferation", n, "fig6", device="cpu")
-    for _ in range(3):                     # leave the initial layout
-        st_g = sim_g.step(st_g)
-    st_c = convert.state_from_numpy(convert.state_to_numpy(st_g), "cpu")
-    # one CPU thread: multi-threaded torch CPU kernels were seen to return a
-    # worker's whole chunk of float32 sqrt results ~3e-4 off on some hosts
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        want = convert.state_to_numpy(sim_c.step(st_c))
-    finally:
-        torch.set_num_threads(threads)
+    sim_c, _ = simulate.build("proliferation", n, "fig6", device="cpu")
+    st_g = sim_g.run(st_g, 3)              # leave the initial layout
+    want = _cpu_step(sim_c, st_g)
     got = convert.state_to_numpy(sim_g.step(st_g))
-    torch.cuda.synchronize()
-    worst = {}
-    for k, w in want["pool"].items():
-        g = got["pool"][k]
-        check(g.dtype == w.dtype, f"dtype of {k} differs")
-        if w.dtype.kind == "f":
-            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4,
-                                       err_msg=k)
-            worst[k] = float(np.abs(g - w).max())
-        else:
-            check(np.array_equal(g, w), f"integer channel {k} differs")
-    for f, w in want["stats"].items():
-        check(np.array_equal(got["stats"][f], w), f"stat {f} differs")
+    worst = _card_vs_cpu(want, got, "engine step")
     report["engine_gpu_vs_cpu"] = {"agents": n, "max_abs_diff": worst,
                                    "integers_equal": True}
     print(f"[2] engine step on the card ≡ on the CPU at {n} agents: "
           f"max|Δ| {worst}, integer channels and stats equal", flush=True)
 
 
-def phase_main_path(n: int, steps: int, report: dict) -> dict:
+def _timed_run(sim, st, steps: int):
+    """``sim.run(check_overflow=True)`` for ``steps`` steps with a sync at
+    each step's end. K1's and the column map's launch counts are reset just
+    before and read just after; each must equal ``steps``, and no health or
+    overflow flag may be set. Returns the state, each step's ms, the mean
+    ms per step and the launches."""
     import torch
     from repro_torch.kernels import block_cols as colmap
     from repro_torch.kernels import collision_force as k1
-    from repro_torch.launch import simulate
-
-    sim, st = simulate.build("proliferation", n, "fig6", device="cuda")
     torch.cuda.synchronize()
     stamps = []
 
@@ -332,16 +395,25 @@ def phase_main_path(n: int, steps: int, report: dict) -> dict:
                               f"steps")
     check(st.stats.health_bits() == 0, "health flags set")
     check(not st.stats.flags(), f"overflow flags {st.stats.flags()}")
+    steps_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps[:-1], stamps)]
+    return st, steps_ms, wall * 1e3 / steps, launches
+
+
+def phase_main_path(n: int, steps: int, report: dict) -> dict:
+    import torch
+    from repro_torch.launch import simulate
+
+    sim, st = simulate.build("proliferation", n, "fig6", device="cuda")
+    st, steps_ms, ms, launches = _timed_run(sim, st, steps)
     n_live = int(st.stats["n_live"])
     check(n_live >= n, f"population shrank to {n_live}")
     live = st.pool.position[:n_live]
     check(bool(torch.isfinite(live).all()), "non-finite positions")
-    steps_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps[:-1], stamps)]
     rec = {"agents": n, "capacity": sim.config.capacity, "steps": steps,
-           "launches": launches, "ms_per_step": wall * 1e3 / steps,
+           "launches": launches, "ms_per_step": ms,
            "ms_per_step_median": statistics.median(steps_ms),
            "ms_first_step": steps_ms[0],
-           "agent_steps_per_s": n * steps / wall, "n_live_end": n_live}
+           "agent_steps_per_s": n * 1e3 / ms, "n_live_end": n_live}
     report["main_path"] = rec
     print(f"[3] main path: {n} agents x {steps} steps, "
           f"{rec['ms_per_step']:.2f} ms/step (median "
@@ -667,6 +739,292 @@ def phase_serve(report: dict) -> dict:
     return rec
 
 
+def phase_k1_static(report: dict) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core import (EngineConfig, ForceParams, RandomWalk,
+                                  Simulation, engine as eng, statics)
+    from repro_torch.kernels import collision_force as k1, ops
+
+    g = FRONT_SIDE
+    n = g ** 3
+    side = 5.0 * g + 10
+    cfg = EngineConfig(capacity=n, domain_lo=(0, 0, 0),
+                       domain_hi=(side,) * 3, interaction_radius=4.0,
+                       dt=0.05, detect_static=True, max_per_box=32,
+                       query_chunk=4096,
+                       force=ForceParams(max_displacement=0.5))
+    sim = Simulation(cfg, [RandomWalk(sigma=0.4, applies_to=1)],
+                     device="cuda")
+    pos = np.stack(np.meshgrid(*[np.arange(g) * 5.0 + 5] * 3), -1
+                   ).reshape(-1, 3).astype(np.float32)
+    types = np.zeros(n, np.int32)
+    types[:n // 20] = 1                                 # 5% active front
+    st = sim.run(sim.init_state(pos, diameter=np.full(n, 3.0, np.float32),
+                                agent_type=types), 2, check_overflow=True)
+    spec = sim.spec
+    origin = torch.zeros(3, device="cuda")
+    res = eng.build_env(cfg, spec, st.pool, origin, cfg.cell_size)
+    pool, grid = res.pool, res.grid
+    static = statics.update_static_flags(pool, spec, grid, st.iteration)
+    active = pool.alive & ~static
+    label = f"[8] front, {n} agents:"
+    _, (data_t, cols, _, _) = _column_map_vs_plain(label, cfg, spec, pool,
+                                                   grid, origin, active)
+    empty = (cols < 0).all(1)
+    frac_static = float(empty.float().mean())
+    check(frac_static >= 0.5, f"only {frac_static:.3f} of the row blocks "
+                              f"are wholly static")
+    k1_rec = _k1_vs_plain(label, data_t, cols, cfg)
+    f, nnz, _ = ops.collision_force_resident(
+        pool.position, pool.diameter, pool.agent_type, pool.alive, active,
+        grid.starts, grid.counts, origin, cfg.cell_size, dims=spec.dims,
+        k_rep=cfg.force.k_rep, adhesion_band=cfg.force.adhesion_band)
+    check(not bool(f[static].any()) and not bool(nnz[static].any()),
+          "a static row got a force")
+    data_a, cols_a, _, _ = ops.k1_inputs(
+        pool.position, pool.diameter, pool.agent_type, pool.alive,
+        pool.alive, grid.starts, grid.counts, origin, cfg.cell_size,
+        spec.dims)
+    kw = dict(k_rep=cfg.force.k_rep, adhesion=None,
+              adhesion_band=cfg.force.adhesion_band)
+    ms_all = cuda_ms(lambda: k1.collision_force(data_a, cols_a, **kw),
+                     iters=20, warmup=3)
+    rec = {"agents": n, "static_rows": int(static.sum()),
+           "empty_row_blocks": int(empty.sum()), **k1_rec,
+           "ms_all_active": ms_all}
+    report["k1_static"] = rec
+    print(f"[8] K1 with static rows ({n} agents, {rec['static_rows']} "
+          f"static, {rec['empty_row_blocks']} of {rec['row_blocks']} row "
+          f"blocks empty, the same lists as the plain map's): kernel "
+          f"{rec['ms']:.4f} ms (all active {ms_all:.4f} ms); static rows "
+          f"zero", flush=True)
+    return rec
+
+
+def phase_scenarios_cpu_parity(n: int, report: dict) -> None:
+    from repro_torch import convert
+    from repro_torch.launch import simulate
+
+    recs = {}
+    for sc in simulate.SCENARIOS:
+        sim_g, st = simulate.build(sc, n, device="cuda")
+        sim_c, _ = simulate.build(sc, n, device="cpu")
+        st = sim_g.run(st, 2)              # leave the initial layout
+        want = _cpu_step(sim_c, st)
+        got = convert.state_to_numpy(sim_g.step(st))
+        worst = _card_vs_cpu(want, got, f"scenario {sc}")
+        recs[sc] = {"max_abs_diff": worst,
+                    "births": int(want["stats"]["births"]),
+                    "deaths": int(want["stats"]["deaths"]),
+                    "n_active": int(want["stats"]["n_active"])}
+        print(f"[9] {sc}: one step on the card ≡ on the CPU at {n} agents "
+              f"(births {recs[sc]['births']}, deaths {recs[sc]['deaths']}, "
+              f"n_active {recs[sc]['n_active']}); max|Δ| "
+              f"{ {k: float(f'{v:.3g}') for k, v in worst.items() if v} }",
+              flush=True)
+    report["scenarios_gpu_vs_cpu"] = {"agents": n, "scenarios": recs}
+
+
+def phase_sir_main_path(n: int, steps: int, report: dict
+                        ) -> tuple[dict, dict, dict]:
+    import torch
+    from repro_torch.core import engine as eng
+    from repro_torch.core.behaviors import INFECTED
+    from repro_torch.launch import simulate
+    from repro_torch.launch.profile_step import profile_steps
+
+    sim, st = simulate.build("epidemiology", n, "breakdown", device="cuda")
+    cfg, spec = sim.config, sim.spec
+    # the kernels on the first step's inputs, against their plain versions
+    origin = torch.tensor(cfg.domain_lo, dtype=torch.float32, device="cuda")
+    res = eng.build_env(cfg, spec, st.pool, origin, cfg.cell_size)
+    label = f"[10] breakdown, {n} agents:"
+    cm_rec, (data_t, cols, _, _) = _column_map_vs_plain(
+        label, cfg, spec, res.pool, res.grid, origin, res.pool.alive)
+    k1_rec = _k1_vs_plain(label, data_t, cols, cfg)
+    del res, data_t, cols
+    report["k1_breakdown"] = {"agents": n, "column_map": cm_rec,
+                              "k1": k1_rec}
+
+    infected0 = int((st.pool.agent_type == INFECTED).sum())
+    torch.cuda.reset_peak_memory_stats()
+    st, steps_ms, ms, launches = _timed_run(sim, st, steps)
+    n_live = int(st.stats["n_live"])
+    check(n_live == n, f"population changed to {n_live}")
+    alive = st.pool.alive
+    check(bool(torch.isfinite(st.pool.position[alive]).all()),
+          "non-finite positions")
+    infected = int((st.pool.agent_type[alive] == INFECTED).sum())
+    check(infected > infected0, f"infected {infected0} -> {infected}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _, prof = profile_steps(sim, st, 2)
+    sweep = prof["ranges"].get("grid/sweep", {"device_ms": 0.0,
+                                              "launches": 0})
+    rec = {"config": "breakdown", "agents": n, "capacity": cfg.capacity,
+           "steps": steps, "launches": launches, "ms_per_step": ms,
+           "ms_per_step_median": statistics.median(steps_ms),
+           "ms_first_step": steps_ms[0],
+           "agent_steps_per_s": n * 1e3 / ms, "n_live_end": n_live,
+           "infected_start": infected0, "infected_end": infected,
+           "peak_memory_gb": peak_gb,
+           "device_ops_per_step": prof["launches"],
+           "device_busy_ms_per_step": prof["device_busy_ms"],
+           "device_idle_share": prof["device_idle_share"],
+           "sweep_device_ms_per_step": sweep["device_ms"],
+           "sweep_ops_per_step": sweep["launches"], "profile": prof}
+    report["sir_main_path"] = rec
+    print(f"[10] main path (forces in K1 + Infection in the streamed sweep): "
+          f"{n} agents x {steps} steps, {ms:.2f} ms/step "
+          f"(median {rec['ms_per_step_median']:.2f}, first "
+          f"{steps_ms[0]:.2f}), {rec['agent_steps_per_s']:.4g} "
+          f"agent-steps/s; K1 launches {launches['k1_collision_force']}, "
+          f"column-map launches {launches['k1_column_map']}; n_live "
+          f"{n_live}, infected {infected0} -> {infected}; peak memory "
+          f"{peak_gb:.2f} GB", flush=True)
+    print(f"[10] profiled: {prof['launches']:.0f} device ops/step, busy "
+          f"{prof['device_busy_ms']:.3f} ms of "
+          f"{prof['ms_per_step_profiled']:.2f} ms/step, idle share "
+          f"{prof['device_idle_share']:.3f} (launch/profile_step.py's); "
+          f"grid/sweep {sweep['device_ms']:.3f} ms in "
+          f"{sweep['launches']:.0f} ops; "
+          + ", ".join(f"{k} {v['device_ms']:.3f} ms/{v['launches']:.0f}"
+                      for k, v in list(prof["ranges"].items())[:8]),
+          flush=True)
+    return rec, cm_rec, k1_rec
+
+
+def _threshold_pairs(pool, rows, cfg) -> list:
+    """For each row, its pair whose force lies nearest ``force_eps``, in
+    float64: the partner's slot, the overlap δ, |f|/force_eps with |f| =
+    k_rep·√r_eff·δ^1.5, and whether that pair is at the threshold: |f| at
+    δ ± 2e-6 (about 8 ulps of a distance near 3, more than the float32
+    arithmetic of either path can move it) straddles force_eps. Such a
+    pair may count in one path's force_nnz and not in the other's."""
+    import numpy as np
+    check(cfg.adhesion is None, "the threshold test assumes no adhesion")
+    pos = pool.position.double().cpu().numpy()
+    dia = pool.diameter.double().cpu().numpy()
+    alive = pool.alive.cpu().numpy()
+    fp = cfg.force
+
+    def force(dl):
+        return fp.k_rep * np.sqrt(r_eff) * np.maximum(dl, 0.0) ** 1.5
+    out = []
+    for r in rows:
+        d = np.linalg.norm(pos - pos[r], axis=1)
+        near = np.nonzero(alive & (d < cfg.interaction_radius))[0]
+        near = near[near != r]
+        rq, rn = dia[r] / 2, dia[near] / 2
+        delta = rq + rn - d[near]
+        r_eff = rq * rn / (rq + rn)
+        lo, hi = force(delta - 2e-6), force(delta + 2e-6)
+        k = int(np.argmin(np.abs(np.log(np.maximum(force(delta), 1e-300)
+                                         / fp.force_eps))))
+        out.append({"row": int(r), "partner": int(near[k]),
+                    "overlap": float(delta[k]),
+                    "force_over_eps": float(force(delta)[k] / fp.force_eps),
+                    "at_threshold": bool(((lo <= fp.force_eps)
+                                          & (hi >= fp.force_eps)).any())})
+    return out
+
+
+def _same_nnz(a, b, pool, cfg, what: str) -> list:
+    """force_nnz equal, but for rows whose count a pair at the threshold
+    makes ambiguous (``_threshold_pairs``); returns those rows' pairs."""
+    import torch
+    rows = torch.nonzero(a != b).flatten().tolist()
+    check(len(rows) <= 16, f"{what}: force_nnz differs in {len(rows)} rows")
+    pairs = _threshold_pairs(pool, rows, cfg)
+    for p, r in zip(pairs, rows):
+        p["counts"] = [int(a[r]), int(b[r])]
+    check(all(p["at_threshold"] for p in pairs),
+          f"{what}: force_nnz differs in rows with no pair at the force_eps "
+          f"threshold: {pairs}")
+    return pairs
+
+
+def phase_streamed_vs_k1(n: int, report: dict) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.core import engine as eng, grid as grid_mod
+    from repro_torch.kernels import ops
+    from repro_torch.launch import simulate
+
+    sim_k, st = simulate.build("epidemiology", n, "breakdown", device="cuda")
+    sim_s, _ = simulate.build("epidemiology", n, "breakdown", device="cuda",
+                              force_impl="streamed")
+    cfg, spec = sim_k.config, sim_k.spec
+    origin = torch.zeros(3, device="cuda")
+    res = eng.build_env(cfg, spec, st.pool, origin, cfg.cell_size)
+    ch = res.pool.channels()
+    kernels = eng.registered_kernels(cfg, sim_k.behaviors, device="cuda")
+    alive = res.pool.alive
+
+    def via_k1():
+        return ops.fused_resident_sweep(
+            spec, res.grid, ch, kernels, alive, origin=origin,
+            box_size=cfg.cell_size, k_rep=cfg.force.k_rep,
+            adhesion_band=cfg.force.adhesion_band, chunk=cfg.query_chunk)[0]
+
+    def via_sweep():
+        return grid_mod.resident_apply_fused(spec, res.grid, ch, kernels,
+                                             alive, cfg.query_chunk)
+    a, b = via_k1(), via_sweep()
+    torch.cuda.synchronize()
+    err = float((a["force"]["force"] - b["force"]["force"]).abs().max())
+    check(err <= FORCE_ATOL, f"streamed force differs from K1's by {err}")
+    threshold = _same_nnz(a["force"]["force_nnz"], b["force"]["force_nnz"],
+                          res.pool, cfg, "streamed sweep vs K1")
+    check(torch.equal(a["infection"]["exposed"], b["infection"]["exposed"]),
+          "exposed differs between the two paths")
+    torch.cuda.reset_peak_memory_stats()
+    ms_k1 = cuda_ms(via_k1, iters=3, warmup=1)
+    ms_sweep = cuda_ms(via_sweep, iters=3, warmup=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st_k, st_s = sim_k.step(st), sim_s.step(st)
+    # no births or deaths: the step's pool keeps the build's slot order, so
+    # the ambiguity is judged at the positions the forces were taken at
+    step_threshold = _same_nnz(st_k.pool.force_nnz, st_s.pool.force_nnz,
+                               res.pool, cfg, "streamed vs K1 step")
+    want, got = convert.state_to_numpy(st_k), convert.state_to_numpy(st_s)
+    worst = {}
+    for k, w in want["pool"].items():
+        g = got["pool"][k]
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4,
+                                       err_msg=f"streamed vs K1 step: {k}")
+            worst[k] = float(np.abs(g - w).max())
+        elif k != "force_nnz":
+            check(np.array_equal(g, w), f"streamed vs K1 step: {k} differs")
+    for f, w in want["stats"].items():
+        check(np.array_equal(got["stats"][f], w),
+              f"streamed vs K1 step: stat {f} differs")
+    rec = {"agents": n, "force_max_abs_err": err,
+           "nnz_rows_at_threshold": threshold,
+           "step_nnz_rows_at_threshold": step_threshold,
+           "exposed_equal": True,
+           "exposed": int((a["infection"]["exposed"] > 0).sum()),
+           "fused_ms_k1": ms_k1, "fused_ms_streamed": ms_sweep,
+           "peak_memory_gb": peak_gb, "step_max_abs_diff": worst}
+    report["streamed_vs_k1"] = rec
+    print(f"[11] streamed sweep ≡ K1 at {n} agents: max|Δf| {err:.3g}, "
+          f"exposed equal ({rec['exposed']} exposed), force_nnz equal but "
+          f"in {len(threshold)} rows (step: {len(step_threshold)}) whose "
+          f"pair sits at the force_eps threshold; the "
+          f"fused sweep {ms_k1:.2f} ms with K1, {ms_sweep:.2f} ms streamed "
+          f"(peak {peak_gb:.2f} GB); one engine step each: max|Δ| "
+          f"{ {k: float(f'{v:.3g}') for k, v in worst.items() if v} }, "
+          f"integers and stats equal", flush=True)
+    for p in threshold:
+        print(f"[11]   row {p['row']}: K1 counts {p['counts'][0]}, the "
+              f"sweep {p['counts'][1]}; its pair with slot {p['partner']} "
+              f"overlaps by {p['overlap']:.4g}, |f|/force_eps "
+              f"{p['force_over_eps']:.6f}", flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -699,29 +1057,35 @@ def main() -> int:
     report["k2_templates"] = k2_templates(
         build.BUILD_LOGS.get("flash_attention", ""))
 
-    recs, cm_recs = zip(*[phase_kernel_vs_plain(n, report)
-                          for n in K1_SIZES])
+    for n in K1_SIZES:
+        phase_kernel_vs_plain(n, report)
     phase_engine_cpu_parity(PARITY_AGENTS, report)
-    main_rec = phase_main_path(MAIN_AGENTS, MAIN_STEPS, report)
+    phase_main_path(MAIN_AGENTS, MAIN_STEPS, report)
     phase_births(report)
     k2_recs = phase_k2_vs_plain(report)
     phase_lm_cpu_parity(report)
     serve_rec = phase_serve(report)
+    phase_k1_static(report)
+    phase_scenarios_cpu_parity(SCENARIO_AGENTS, report)
+    sir_rec, cm_big, big = phase_sir_main_path(MAIN_AGENTS, MAIN_STEPS,
+                                               report)
+    phase_streamed_vs_k1(MAIN_AGENTS, report)
 
-    big, cm_big = recs[-1], cm_recs[-1]
+    # K1 and the column map: the main path's launches beside their check
+    # and times on that path's first-step inputs (phase 10)
     kernels = [{
         "name": "k1_collision_force", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/collision_force.cu",
         "replaces": "src/repro/kernels/collision_force.py:118",
-        "launches": main_rec["launches"]["k1_collision_force"],
-        "max_abs_err": max(r["max_abs_err"] for r in recs),
+        "launches": sir_rec["launches"]["k1_collision_force"],
+        "max_abs_err": big["max_abs_err"],
         "ms": big["ms"], "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
         "library_ms": None}, {
         "name": "k1_column_map", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_cols.cu",
         "replaces": "src/repro/kernels/ops.py:22",
-        "launches": main_rec["launches"]["k1_column_map"],
+        "launches": sir_rec["launches"]["k1_column_map"],
         "max_abs_err": 0.0,
         "ms": cm_big["ms"], "plain_ms": cm_big["plain_ms"],
         "bound_ms": cm_big["bound_ms"], "bound_by": cm_big["bound_by"],

@@ -13,11 +13,16 @@ pool is the state, so a state from the reference engine converts leaf by
 leaf: ``np.asarray`` on each of its arrays gives the
 dict :func:`state_from_numpy` reads::
 
-    {"pool": {channel: array, ...},         # AgentPool.channels() names
+    {"pool": {channel: array, ...},         # AgentPool.channels() names,
+                                            # behaviors' extra.* included
      "rng": (2,) uint32,                    # raw threefry key
      "iteration": () int32,
      "stats": {field: () int32, ...},       # StepStats.FIELDS
-     "conc": (X, Y, Z) float32}             # optional
+     "conc": (X, Y, Z) float32}             # the diffusion grid; optional
+
+The behaviors' extra channels (``extra.infect_timer``,
+``extra.direction``, ``extra.path_len``) travel as pool channels, the
+diffusion grid as ``conc``.
 
 Dtypes are kept (uint32 keys become int64 holding the same values), so
 :func:`state_to_numpy` returns arrays equal, bit for bit, to the input.

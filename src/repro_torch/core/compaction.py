@@ -1,5 +1,7 @@
 """Agent removal and addition as prefix-sum stream compaction (port of
-``repro.core.compaction``: the commit phase of the step)."""
+``repro.core.compaction``: the commit phase of the step, and the active
+index and block lists of static-region skipping). The capacity ladder's
+restage helpers are ROADMAP.md Queue 1 item 11."""
 
 from __future__ import annotations
 
@@ -81,3 +83,36 @@ def birth_overflow(pool: AgentPool, queue_valid: torch.Tensor
     n_new = queue_valid.sum(dtype=torch.int32)
     free = pool.capacity - pool.n_live
     return torch.clamp(n_new - free, min=0)
+
+
+def active_index_list(active: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Compact the indices of active slots to the front.
+
+    Returns ``(idx, n_active)``: ``idx[:n_active]`` are the active slots in
+    order, the tail repeats the last active index (0 if none is active).
+    """
+    c = active.shape[0]
+    a = active.to(torch.int32)
+    n_active = a.sum(dtype=torch.int32)
+    ar = torch.arange(c, dtype=torch.int32, device=active.device)
+    dst = torch.where(active, torch.cumsum(a, 0, dtype=torch.int32) - 1,
+                      torch.full_like(ar, c)).to(torch.int64)
+    # row c parks the inactive writes and is cut off
+    idx = torch.zeros(c + 1, dtype=torch.int32, device=active.device)
+    idx[dst] = ar
+    idx = idx[:c]
+    last = idx[torch.clamp(n_active - 1, min=0).to(torch.int64)]
+    pad_val = torch.where(n_active > 0, last, torch.zeros_like(last))
+    return torch.where(ar < n_active, idx, pad_val), n_active
+
+
+def active_block_list(active: torch.Tensor, block: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Ids of ``block``-sized slot ranges holding ≥ 1 active slot, as
+    :func:`active_index_list` returns them; a trailing partial range counts
+    as one block."""
+    c = active.shape[0]
+    n_blk = (c + block - 1) // block
+    padded = torch.nn.functional.pad(active, (0, n_blk * block - c))
+    return active_index_list(padded.reshape(n_blk, block).any(1))

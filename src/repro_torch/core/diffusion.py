@@ -1,0 +1,138 @@
+"""Extracellular diffusion grid (port of ``repro.core.diffusion``).
+
+An explicit FTCS scheme (central-difference Laplacian, decay term) on a
+regular voxel grid, with agent sources added per voxel and nearest-voxel
+sampling of values and gradients. Stability: dt ≤ h²/(6·D) in 3-D
+(:func:`stable_dt`).
+
+The reference runs these inside its jitted step, where ``spec.voxel`` is a
+constant and XLA rewrites each division by it into a multiplication by its
+float32 reciprocal. The port multiplies by the same reciprocals, so voxel
+indices (a floor) and gradients equal the engine's, not those of an eager
+call of the reference. The FTCS update agrees to a few float32 ulps:
+XLA:CPU also contracts its multiply-adds into FMAs. The port's diffusion
+tests hold all of it at voxel 1.5.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionSpec:
+    dims: Tuple[int, int, int]      # voxels per axis
+    coefficient: float = 0.1        # D
+    decay: float = 0.0              # μ
+    voxel: float = 1.0              # h
+
+
+def stable_dt(spec: DiffusionSpec) -> float:
+    return spec.voxel ** 2 / (6.0 * max(spec.coefficient, 1e-12))
+
+
+def _recip(x: float) -> float:
+    """float32(1 / float32(x)): what XLA multiplies by for ``/ x``."""
+    return float(np.float32(1.0) / np.float32(x))
+
+
+def _edge_pad(a: torch.Tensor, x: int, yz: int) -> torch.Tensor:
+    """Replicate-pad a 3-D grid by ``x`` voxels along x and ``yz`` along y
+    and z (``jnp.pad(mode="edge")``; replicate padding needs a 5-D view)."""
+    return F.pad(a[None, None], (yz, yz, yz, yz, x, x),
+                 mode="replicate")[0, 0]
+
+
+def step_slab(spec: DiffusionSpec, conc: torch.Tensor, dt: float,
+              x_lo: torch.Tensor, x_hi: torch.Tensor) -> torch.Tensor:
+    """FTCS step on an x-slab whose face neighbors are given: ``x_lo`` /
+    ``x_hi`` (ny, nz) are the planes just outside its low / high x face.
+    Passing the slab's own edge planes gives the zero-flux (Neumann)
+    boundary, which is how :func:`step` is defined; y and z stay Neumann."""
+    cx = torch.cat([x_lo[None], conc, x_hi[None]], 0)
+    pad = _edge_pad(cx, 0, 1)
+    lap = (pad[2:, 1:-1, 1:-1] + pad[:-2, 1:-1, 1:-1]
+           + pad[1:-1, 2:, 1:-1] + pad[1:-1, :-2, 1:-1]
+           + pad[1:-1, 1:-1, 2:] + pad[1:-1, 1:-1, :-2]
+           - 6.0 * conc) * _recip(spec.voxel ** 2)
+    return conc + dt * (spec.coefficient * lap - spec.decay * conc)
+
+
+def step(spec: DiffusionSpec, conc: torch.Tensor, dt: float
+         ) -> torch.Tensor:
+    """One FTCS diffusion-decay step with zero-flux (Neumann) boundaries."""
+    return step_slab(spec, conc, dt, conc[0], conc[-1])
+
+
+def voxel_of(spec: DiffusionSpec, position: torch.Tensor,
+             origin: torch.Tensor) -> torch.Tensor:
+    """Voxel indices (N, 3) int32, clipped into the grid."""
+    v = torch.floor((position - origin) * _recip(spec.voxel)).to(torch.int32)
+    v = v.clamp(min=0)
+    return torch.stack([v[:, i].clamp(max=d - 1)
+                        for i, d in enumerate(spec.dims)], -1)
+
+
+def _flat(spec: DiffusionSpec, v: torch.Tensor) -> torch.Tensor:
+    _, ny, nz = spec.dims
+    v = v.to(torch.int64)
+    return (v[:, 0] * ny + v[:, 1]) * nz + v[:, 2]
+
+
+def add_sources(spec: DiffusionSpec, conc: torch.Tensor,
+                position: torch.Tensor, amount: torch.Tensor,
+                origin: torch.Tensor) -> torch.Tensor:
+    """Add per-agent secretion into the voxel grid. On the CPU the amounts
+    of one voxel are added in slot order, as XLA:CPU's scatter does; on the
+    card ``index_add_`` adds them by atomics, in no fixed order."""
+    idx = _flat(spec, voxel_of(spec, position, origin))
+    return conc.reshape(-1).index_add(0, idx, amount.to(conc.dtype)
+                                      ).reshape(conc.shape)
+
+
+def sample(spec: DiffusionSpec, conc: torch.Tensor, position: torch.Tensor,
+           origin: torch.Tensor) -> torch.Tensor:
+    idx = _flat(spec, voxel_of(spec, position, origin))
+    return conc.reshape(-1)[idx]
+
+
+def gradient(spec: DiffusionSpec, conc: torch.Tensor, position: torch.Tensor,
+             origin: torch.Tensor) -> torch.Tensor:
+    """Central-difference gradient sampled at agent voxels, (N, 3)."""
+    pad = _edge_pad(conc, 1, 1)
+    r = _recip(2 * spec.voxel)
+    gx = (pad[2:, 1:-1, 1:-1] - pad[:-2, 1:-1, 1:-1]) * r
+    gy = (pad[1:-1, 2:, 1:-1] - pad[1:-1, :-2, 1:-1]) * r
+    gz = (pad[1:-1, 1:-1, 2:] - pad[1:-1, 1:-1, :-2]) * r
+    idx = _flat(spec, voxel_of(spec, position, origin))
+    return torch.stack([g.reshape(-1)[idx] for g in (gx, gy, gz)], -1)
+
+
+class DiffusionOps:
+    """Substance-grid operations as the iteration core consumes them, on
+    the full in-memory grid (the reference's sharded variant is ROADMAP.md
+    Queue 1 item 15)."""
+
+    def __init__(self, spec: DiffusionSpec, origin: torch.Tensor):
+        self.spec = spec
+        self.origin = origin
+
+    def step(self, conc: torch.Tensor, dt: float) -> torch.Tensor:
+        return step(self.spec, conc, dt)
+
+    def sample(self, conc: torch.Tensor, position: torch.Tensor
+               ) -> torch.Tensor:
+        return sample(self.spec, conc, position, self.origin)
+
+    def gradient(self, conc: torch.Tensor, position: torch.Tensor
+                 ) -> torch.Tensor:
+        return gradient(self.spec, conc, position, self.origin)
+
+    def add_sources(self, conc: torch.Tensor, position: torch.Tensor,
+                    amount: torch.Tensor) -> torch.Tensor:
+        return add_sources(self.spec, conc, position, amount, self.origin)

@@ -1,19 +1,23 @@
-"""Simulation engine — one Algorithm-1 iteration per step (port of the
-main-path slice of ``repro.core.engine``).
+"""Simulation engine — one Algorithm-1 iteration per step (port of
+``repro.core.engine``).
 
 An iteration: resident grid build (one stable key sort permutes the pool
-into grid order and compacts the dead) → K1 collision forces over the
-block-sparse column map → overdamped integration → behaviors → health
-watchdog → death compaction and birth commit → statistics.
+into grid order and compacts the dead) → diffusion substeps → static flags
+→ the fused neighbor sweep (forces in K1, or in the streamed sweep, beside
+every behavior's pair kernels) → overdamped integration → behaviors and
+secretion → health watchdog → death compaction and birth commit →
+statistics.
 
 PyTorch runs eagerly, so the step is plain Python over tensors on one
 device; it never reads a device value on the host (no synchronisation)
 except where ``run(check_overflow=True)`` reads the flags.
 
-This slice runs ``environment="uniform_grid"`` with every-step rebuilds,
-no pair list, no static detection, no diffusion and the float32 dtype
-policy, with forces from K1 (``force_impl="k1"``). Every other option raises
-``NotImplementedError`` naming its ROADMAP.md item.
+The port runs ``environment="uniform_grid"`` with every-step rebuilds, no
+pair list and the float32 dtype policy; forces come from K1
+(``force_impl="k1"``: the CUDA kernel on the card, its plain version on the
+CPU) or from the streamed sweep (``"streamed"``, the reference's ``"xla"``).
+Every other option raises ``NotImplementedError`` naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.profiler import record_function
 
-from . import compaction, forces as force_mod, grid as grid_mod, rand
+from . import compaction, diffusion as diff_mod, forces as force_mod
+from . import grid as grid_mod, rand, statics as statics_mod
 from . import health as health_mod
 from .agents import AgentPool, DtypePolicy, make_pool
 from .behaviors import Behavior
@@ -42,8 +47,8 @@ class EngineConfig:
 
     ``force_impl``: ``"k1"`` (default) computes forces with the K1 kernel —
     the hand-written CUDA kernel on the card, its plain version on the CPU.
-    ``"streamed"``, the counterpart of the reference's XLA fused sweep, is a
-    later slice.
+    ``"streamed"`` (or the reference's name ``"xla"``) computes them in the
+    streamed sweep, beside the behaviors' pair kernels.
     """
     capacity: int
     domain_lo: Tuple[float, float, float]
@@ -62,7 +67,7 @@ class EngineConfig:
     adhesion: Optional[Tuple[Tuple[float, ...], ...]] = None
     force: force_mod.ForceParams = dataclasses.field(
         default_factory=force_mod.ForceParams)
-    diffusion: Optional[Any] = None
+    diffusion: Optional[diff_mod.DiffusionSpec] = None
     diffusion_substeps: int = 1
     rebuild: grid_mod.RebuildPolicy = dataclasses.field(
         default_factory=grid_mod.RebuildPolicy)
@@ -122,7 +127,7 @@ class EngineConfig:
 @dataclasses.dataclass
 class EngineState:
     pool: AgentPool
-    conc: torch.Tensor              # diffusion grid ((1,1,1) dummy)
+    conc: torch.Tensor              # diffusion grid ((1,1,1) when unused)
     rng: torch.Tensor               # (2,) int64 holding a uint32 key
     iteration: torch.Tensor         # () int32
     stats: StepStats
@@ -158,54 +163,130 @@ def build_env(cfg: EngineConfig, spec: grid_mod.GridSpec, pool: AgentPool,
     return builder(pool, origin, box_size)
 
 
-def _check_slice(cfg: EngineConfig, behaviors: Sequence[Behavior]) -> None:
-    """Raise NotImplementedError for every option this slice does not run."""
+def _check_slice(cfg: EngineConfig) -> None:
+    """Raise NotImplementedError for every option the port does not run."""
     todo = []
     if cfg.environment != "uniform_grid":
         todo.append(f"environment={cfg.environment!r} (item 12)")
-    if cfg.force_impl != "k1":
-        todo.append(f"force_impl={cfg.force_impl!r}: the streamed fused "
-                    f"sweep (item 6)")
     if cfg.rebuild.mode != "every_step":
         todo.append("rebuild.mode='every_k' (item 11)")
     if cfg.pairlist is not None:
         todo.append("pairlist (item 11)")
-    if cfg.detect_static:
-        todo.append("detect_static (item 10, core/statics.py)")
-    if cfg.diffusion is not None:
-        todo.append("diffusion (item 10)")
-    kernels = [b.name for b in behaviors if b.neighbor_kernels()]
-    if kernels:
-        todo.append(f"behaviors with neighbor kernels {kernels} (items 6 "
-                    f"and 10)")
     if todo:
         raise NotImplementedError(
             "not ported yet (ROADMAP.md Queue 1): " + "; ".join(todo))
 
 
-def _no_neighbor_apply(*args, **kwargs):
-    raise NotImplementedError("ctx.neighbor_apply (the streamed resident "
-                              "sweep) is not ported yet (ROADMAP.md Queue 1 "
-                              "item 6)")
+def make_neighbor_apply(cfg: EngineConfig, spec: grid_mod.GridSpec,
+                        grid_env: grid_mod.GridState,
+                        channels: Dict[str, torch.Tensor],
+                        default_mask: torch.Tensor) -> Callable:
+    """The step's ``ctx.neighbor_apply``: ``apply(pair_fn, out_specs,
+    query_mask=None)`` runs one streamed sweep over the resident pool
+    (``grid.resident_apply``); the mask defaults to ``default_mask``."""
+
+    def apply(pair_fn, out_specs, query_mask=None):
+        mask = default_mask if query_mask is None else query_mask
+        return grid_mod.resident_apply(spec, grid_env, channels, mask,
+                                       pair_fn, out_specs, cfg.query_chunk)
+    return apply
+
+
+def _adhesion(cfg: EngineConfig, device) -> Optional[torch.Tensor]:
+    if cfg.adhesion is None:
+        return None
+    return torch.tensor(cfg.adhesion, dtype=torch.float32, device=device)
+
+
+def registered_kernels(cfg: EngineConfig, behaviors: Sequence[Behavior],
+                       device: torch.device | str
+                       ) -> List[grid_mod.PairKernel]:
+    """The PairKernels the step registers into its fused sweep, their
+    tensors on ``device`` (masks unresolved: they are per-step values)."""
+    kernels: List[grid_mod.PairKernel] = []
+    if cfg.use_forces:
+        kernels.append(grid_mod.PairKernel(
+            "force", force_mod.make_force_pair_fn(cfg.force,
+                                                  _adhesion(cfg, device)),
+            force_mod.FORCE_OUT_SPECS, reads=force_mod.FORCE_READS))
+    for b in behaviors:
+        kernels.extend(b.neighbor_kernels())
+    return kernels
+
+
+def realized_footprint(cfg: EngineConfig, behaviors: Sequence[Behavior]
+                       ) -> Tuple[str, ...]:
+    """Union of the channels the step's fused sweep streams."""
+    return grid_mod.fused_reads(registered_kernels(cfg, behaviors, "cpu"))
+
+
+def check_kernel_footprints(cfg: EngineConfig, behaviors: Sequence[Behavior],
+                            block: int = 4, width: int = 8
+                            ) -> Tuple[str, ...]:
+    """Run every registered kernel on zeros that hold ONLY its declared
+    channels, so an undeclared read raises ``KeyError`` even where another
+    kernel's declaration would have streamed the channel. Also checks the
+    declared reads and outputs against the pool. Returns the footprint."""
+    pool = stage_pool(max(block, 1), behaviors,
+                      torch.zeros((1, 3), dtype=torch.float32),
+                      policy=cfg.dtypes)
+    channels = pool.channels()
+    for k in registered_kernels(cfg, behaviors, "cpu"):
+        missing = [ch for ch in k.reads if ch not in channels]
+        if missing:
+            raise KeyError(
+                f"kernel {k.name!r} declares channels the pool does not "
+                f"have: {missing} (pool has {sorted(channels)})")
+        # the sweep always slices position for run_bounds, declared or not
+        q = {ch: torch.zeros((block, *channels[ch].shape[1:]),
+                             dtype=channels[ch].dtype)
+             for ch in dict.fromkeys(("position",) + tuple(k.reads))}
+        nbr = {ch: torch.zeros((block, width, *channels[ch].shape[1:]),
+                               dtype=channels[ch].dtype) for ch in k.reads}
+        try:
+            out = k.pair_fn(q, nbr, torch.zeros((block, width),
+                                                dtype=torch.bool),
+                            torch.zeros(block, dtype=torch.int32))
+        except KeyError as e:
+            raise KeyError(
+                f"kernel {k.name!r} reads channel {e} it did not declare — "
+                f"add it to PairKernel.reads (declared: {k.reads})") from None
+        undeclared = sorted(set(out) - set(k.out_specs))
+        if undeclared:
+            raise KeyError(f"kernel {k.name!r} returns outputs {undeclared} "
+                           f"missing from its out_specs "
+                           f"{sorted(k.out_specs)}")
+    return realized_footprint(cfg, behaviors)
 
 
 def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
                         device: torch.device):
-    """The Algorithm-1 iteration body for this slice.
+    """The Algorithm-1 iteration body.
 
     Returns ``core(pool, conc, rng, it, env=None) -> (pool, conc, rng,
     StepStats, env)`` over tensors on ``device``.
     """
     behaviors = list(behaviors)
-    _check_slice(cfg, behaviors)
+    _check_slice(cfg)
+    # the fused sweep's registry: names key ctx.neighbor_results, so they
+    # must be unique ("force" is the engine's own kernel)
+    registry = registered_kernels(cfg, behaviors, device)
+    knames = [k.name for b in behaviors for k in b.neighbor_kernels()]
+    if len(set(knames)) != len(knames) or "force" in knames:
+        raise ValueError(
+            f"behavior neighbor_kernels() names must be unique and must not "
+            f"shadow the engine's 'force' kernel, got {knames} — give each "
+            f"behavior instance a distinct .name")
     spec = cfg.grid_spec
     box_size = cfg.cell_size
     dlo = torch.tensor(cfg.domain_lo, dtype=torch.float32, device=device)
     dhi = torch.tensor(cfg.domain_hi, dtype=torch.float32, device=device)
     origin = dlo
-    adhesion = (torch.tensor(cfg.adhesion, dtype=torch.float32, device=device)
-                if cfg.adhesion is not None else None)
+    adhesion = _adhesion(cfg, device)
     fp = cfg.force
+    use_k1 = cfg.force_impl == "k1"
+    diff_ops = (diff_mod.DiffusionOps(cfg.diffusion, origin)
+                if cfg.diffusion is not None else None)
 
     def zeros_i32():
         return torch.zeros((), dtype=torch.int32, device=device)
@@ -217,7 +298,7 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
         stats = StepStats.zeros(device)
         dt = cfg.dt
 
-        # ---------------- pre standalone ops: resident build ----------------
+        # ---------------- pre standalone ops ----------------
         with record_function("step/grid_build"):
             res = build_env(cfg, spec, pool, origin, box_size)
         pool, grid_env = res.pool, res.grid
@@ -226,41 +307,104 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
         box_overflow = (grid_env.max_run_count
                         > spec.run_capacity).to(torch.int32)
 
+        if diff_ops is not None:
+            with record_function("step/diffusion"):
+                sub_dt = dt / cfg.diffusion_substeps
+                for _ in range(cfg.diffusion_substeps):
+                    conc = diff_ops.step(conc, sub_dt)
+
+        # the snapshot the sequential sweeps read (before forces move it)
+        channels = {k: v for k, v in pool.channels().items()
+                    if not k.startswith("extra.")}
         owned_alive = pool.alive
+        nbr_apply = make_neighbor_apply(cfg, spec, grid_env, channels,
+                                        owned_alive)
+
+        # static flags from last iteration's bookkeeping (paper §5), box
+        # granular over this build's tables
+        if cfg.detect_static:
+            with record_function("step/statics"):
+                static = statics_mod.update_static_flags(pool, spec,
+                                                         grid_env, it)
+            pool = dataclasses.replace(pool, static=static)
+
         pos0 = pool.position
         dia0 = pool.diameter
 
-        # ---------------- agent ops: forces (K1) ----------------
-        active = owned_alive if cfg.use_forces else None
-        force_arr = None
+        # ---------------- agent ops: the fused neighbor sweep ----------------
+        active = None
         if cfg.use_forces:
-            from ..kernels import ops as kops
+            active = (owned_alive & ~pool.static if cfg.detect_static
+                      else owned_alive)
+        nbr_results: Dict[str, Dict[str, torch.Tensor]] = {}
+        # the force kernel's mask is this step's active rows
+        registry_now = [dataclasses.replace(k, query_mask=active)
+                        if k.name == "force" else k for k in registry]
+        kernels = registry_now if cfg.fused_sweep else []
+        if kernels:
+            # extra.* channels are streamed only by kernels declaring them
+            channels_full = pool.channels()
+            with record_function("step/forces" if cfg.use_forces
+                                 else "step/sweep"):
+                if cfg.use_forces and use_k1:
+                    from ..kernels import ops as kops
+                    nbr_results, ovf = kops.fused_resident_sweep(
+                        spec, grid_env, channels_full, kernels,
+                        default_mask=owned_alive, origin=origin,
+                        box_size=box_size, k_rep=fp.k_rep, adhesion=adhesion,
+                        adhesion_band=fp.adhesion_band, chunk=cfg.query_chunk)
+                    # a column-map overflow means possibly-missed pairs: the
+                    # same never-silent flag as a run overflow
+                    box_overflow = torch.maximum(box_overflow, ovf)
+                else:
+                    nbr_results = grid_mod.resident_apply_fused(
+                        spec, grid_env, channels_full, kernels,
+                        default_mask=owned_alive, chunk=cfg.query_chunk)
+
+        # ---------------- agent ops: forces ----------------
+        force_arr = None                  # kept for the health guard below
+        if cfg.use_forces:
             with record_function("step/forces"):
-                f, nnz, ovf = kops.collision_force_resident(
-                    pool.position, pool.diameter, pool.agent_type,
-                    pool.alive, active, grid_env.starts, grid_env.counts,
-                    origin, box_size, dims=spec.dims, k_rep=fp.k_rep,
-                    adhesion=adhesion, adhesion_band=fp.adhesion_band)
-            # a column-map overflow means possibly-missed pairs: the same
-            # never-silent flag as a run overflow
-            box_overflow = torch.maximum(box_overflow, ovf.to(torch.int32))
-            force_arr = f
+                if "force" in nbr_results:
+                    fres = nbr_results["force"]
+                elif use_k1:
+                    from ..kernels import ops as kops
+                    f, nnz, ovf = kops.collision_force_resident(
+                        pool.position, pool.diameter, pool.agent_type,
+                        pool.alive, active, grid_env.starts, grid_env.counts,
+                        origin, box_size, dims=spec.dims, k_rep=fp.k_rep,
+                        adhesion=adhesion, adhesion_band=fp.adhesion_band)
+                    box_overflow = torch.maximum(box_overflow,
+                                                 ovf.to(torch.int32))
+                    fres = {"force": f, "force_nnz": nnz}
+                else:                   # the force kernel comes first
+                    fres = nbr_apply(registry_now[0].pair_fn,
+                                     force_mod.FORCE_OUT_SPECS,
+                                     query_mask=active)
+            force_arr = fres["force"]
             with record_function("step/integrate"):
-                dx = force_mod.displacement(f, fp, dt)
+                dx = force_mod.displacement(force_arr, fp, dt)
                 new_pos = torch.clamp(pool.position + dx, min=dlo, max=dhi)
                 new_pos = torch.where(active[:, None], new_pos,
                                       pool.position)
-                force_nnz = torch.where(active, nnz, pool.force_nnz)
+                force_nnz = torch.where(active, fres["force_nnz"],
+                                        pool.force_nnz)
             pool = dataclasses.replace(pool, position=new_pos,
                                        force_nnz=force_nnz)
 
         # ---------------- agent ops: behaviors ----------------
+        # the substance lambdas read `conc` when called, so a behavior sees
+        # the secretion of the behaviors before it (as in the reference)
         ctx = StepContext(
             config=cfg, dt=dt, domain_lo=dlo, domain_hi=dhi, iteration=it,
-            owned=owned_alive, neighbor_apply=_no_neighbor_apply,
-            substance_gradient=torch.zeros_like,
-            substance_value=lambda p: torch.zeros(p.shape[:-1],
-                                                  device=p.device))
+            owned=owned_alive, neighbor_apply=nbr_apply,
+            neighbor_results=nbr_results,
+            substance_gradient=(
+                (lambda p: diff_ops.gradient(conc, p)) if diff_ops
+                else torch.zeros_like),
+            substance_value=(
+                (lambda p: diff_ops.sample(conc, p)) if diff_ops
+                else (lambda p: torch.zeros(p.shape[:-1], device=p.device))))
         birth_queues: List[Tuple[Dict[str, torch.Tensor], torch.Tensor]] = []
         death_mask = None
         for b, bk in zip(behaviors, bkeys):
@@ -276,8 +420,12 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
             if eff.death_mask is not None:
                 death_mask = eff.death_mask if death_mask is None \
                     else death_mask | eff.death_mask
+            if eff.secretion is not None and diff_ops is not None:
+                with record_function("step/secretion"):
+                    conc = diff_ops.add_sources(conc, pool.position,
+                                                eff.secretion)
 
-        # bookkeeping for static detection (a later slice reads it)
+        # bookkeeping for the next static detection
         move_d = pool.position - pos0
         moved = (move_d * move_d).sum(-1) > fp.move_eps ** 2
         grew = pool.diameter > dia0 + 1e-12
@@ -375,10 +523,11 @@ class Simulation:
         pool = stage_pool(self.config.capacity, self.behaviors, position,
                           diameter, agent_type, extra_init,
                           policy=self.config.dtypes, device=self.device)
+        dspec = self.config.diffusion
         return EngineState(
             pool=pool,
-            conc=torch.zeros((1, 1, 1), dtype=torch.float32,
-                             device=self.device),
+            conc=torch.zeros(dspec.dims if dspec else (1, 1, 1),
+                             dtype=torch.float32, device=self.device),
             rng=rand.prng_key(seed, self.device),
             iteration=torch.zeros((), dtype=torch.int32, device=self.device),
             stats=StepStats.zeros(self.device))

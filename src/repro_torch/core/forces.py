@@ -7,14 +7,15 @@
 
 with r_eff = r_i·r_j/(r_i + r_j); a pair farther apart than its reach
 contributes exactly +0.0. The engine's step computes these forces in the K1
-kernel (kernels/collision_force.py); :func:`pair_force` is the candidate-
-list form of the same function.
+kernel (kernels/collision_force.py) or, with ``force_impl="streamed"``,
+through :func:`make_force_pair_fn` in the streamed sweep (grid.py);
+:func:`pair_force` is the candidate-list form of the same function.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -64,6 +65,23 @@ def pair_force(q_pos: torch.Tensor, q_dia: torch.Tensor, q_type: torch.Tensor,
 FORCE_READS = ("position", "diameter", "agent_type", "alive")
 FORCE_OUT_SPECS = {"force": ((3,), torch.float32),
                    "force_nnz": ((), torch.int32)}
+
+
+def make_force_pair_fn(params: ForceParams,
+                       adhesion: Optional[torch.Tensor] = None) -> Callable:
+    """pair_fn of the streamed sweep computing (force, nnz count) per agent:
+    the ``force_impl="streamed"`` counterpart of K1."""
+
+    def pair_fn(q: Dict[str, torch.Tensor], nbr: Dict[str, torch.Tensor],
+                valid: torch.Tensor, q_slot: torch.Tensor
+                ) -> Dict[str, torch.Tensor]:
+        f = pair_force(q["position"], q["diameter"], q["agent_type"],
+                       nbr["position"], nbr["diameter"], nbr["agent_type"],
+                       valid & nbr["alive"], params, adhesion)
+        nnz = ((f * f).sum(-1) > params.force_eps ** 2).sum(-1)
+        return {"force": f.sum(1), "force_nnz": nnz.to(torch.int32)}
+
+    return pair_fn
 
 
 def displacement(force: torch.Tensor, params: ForceParams, dt: float

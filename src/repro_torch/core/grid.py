@@ -7,17 +7,21 @@ and dead slots (``DEAD_KEY``) sink to the tail — grid build, memory-layout
 sort and death compaction in one permutation. The per-box ``(starts,
 counts)`` tables then index the permuted pool directly.
 
-The sorted / scatter / hash builds and the streamed fused sweep are later
-slices (ROADMAP.md Queue 1 items 6 and 12).
+The streamed sweep (:func:`resident_apply`, :func:`resident_apply_fused`)
+evaluates pair kernels over each query row's 9 stencil z-runs of the
+resident pool. The sorted / scatter / hash builds are ROADMAP.md Queue 1
+item 12, the pair-list mode of the sweep item 11.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional, Tuple
+from collections.abc import Mapping
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from . import compaction, morton
 from .agents import AgentPool
@@ -203,3 +207,217 @@ def make_builder(spec: GridSpec, *, method: str = "resident",
                            torch.clamp(demand - spec.run_capacity, min=0),
                            demand)
     return build_fn
+
+
+# ---------------------------------------------------------------------------
+# The streamed sweep over the resident pool
+# ---------------------------------------------------------------------------
+
+# candidate lanes (rows × 9 runs × run_capacity) per chunk of the sweep:
+# bounds its temporaries to a few hundred bytes per lane (about 4 GB for the
+# force kernel at this budget) whatever the pool's size
+SWEEP_LANES = 2 ** 25
+
+
+def _run_offsets(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 9 (dx, dy) stencil columns, dx major, made on the device."""
+    j = torch.arange(9, dtype=torch.int32, device=device)
+    return torch.div(j, 3, rounding_mode="floor") - 1, j % 3 - 1
+
+
+def run_bounds(spec: GridSpec, grid: GridState, query_pos: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-query ``(start, length)`` of the 9 contiguous stencil z-runs.
+
+    query_pos (Q, 3). Returns ``(s, n)``, each (Q, 9) int32: for every
+    (dx, dy) stencil column the resident range ``[s, s + n)`` covering its
+    z-run of ≤ 3 boxes, zero-length where the column falls outside the grid.
+    Candidates are box-level; callers apply the radius test.
+    """
+    dims = spec.dims
+    cell = morton.cell_of(query_pos, grid.origin, grid.box_size, dims)
+    dx, dy = _run_offsets(query_pos.device)
+    nx = cell[:, None, 0] + dx
+    ny = cell[:, None, 1] + dy
+    inside = (nx >= 0) & (nx < dims[0]) & (ny >= 0) & (ny < dims[1])
+    nx = nx.clamp(0, dims[0] - 1)
+    ny = ny.clamp(0, dims[1] - 1)
+    z_lo = (cell[:, 2] - 1).clamp(min=0)[:, None].expand_as(nx)
+    z_hi = (cell[:, 2] + 1).clamp(max=dims[2] - 1)[:, None].expand_as(nx)
+    k_lo = morton.linear_encode3(nx, ny, z_lo, dims)
+    k_hi = morton.linear_encode3(nx, ny, z_hi, dims)
+    s = grid.starts[k_lo]
+    e = grid.starts[k_hi] + grid.counts[k_hi].to(torch.int32)
+    n = torch.where(inside, e - s, torch.zeros_like(s))
+    return s.to(torch.int32), n.to(torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class PairKernel:
+    """One pair kernel of a fused resident sweep.
+
+    name:       unique key; the sweep returns its outputs under it.
+    pair_fn:    ``(q, nbr, valid, q_slot) -> dict`` of per-query reductions:
+                q entries (B, ...), nbr entries (B, W, ...), valid (B, W)
+                bool, q_slot (B,) int32; outputs additive across splits of
+                the candidate axis.
+    out_specs:  output name → (shape_suffix, dtype).
+    reads:      every pool channel the pair_fn reads (``extra.*`` names
+                included); the sweep streams only their union, and a read
+                outside it raises ``KeyError``.
+    query_mask: this kernel's query rows (None → the sweep's default);
+                outputs are zero outside it.
+    """
+    name: str
+    pair_fn: Callable
+    out_specs: Dict[str, Tuple[Tuple[int, ...], Any]]
+    reads: Tuple[str, ...]
+    query_mask: Optional[torch.Tensor] = None
+
+
+def fused_reads(kernels: Sequence[PairKernel]) -> Tuple[str, ...]:
+    """Union of the kernels' channel footprints, first-appearance order."""
+    return tuple(dict.fromkeys(ch for k in kernels for ch in k.reads))
+
+
+class _OnRead(Mapping):
+    """Channels made on first read: ``make(channels[name])``. A pair kernel
+    reads a few of the channels it is offered, and eager PyTorch would
+    otherwise gather every one (XLA drops the unread gathers)."""
+
+    def __init__(self, channels: Mapping, make: Callable):
+        self._src, self._make, self._made = channels, make, {}
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        if name not in self._made:
+            self._made[name] = self._make(self._src[name])
+        return self._made[name]
+
+    def __iter__(self):
+        return iter(self._src)
+
+    def __len__(self) -> int:
+        return len(self._src)
+
+
+def _stream(spec: GridSpec, grid: GridState, q_src: Mapping,
+            nbr_src: Mapping, kernels: Sequence[PairKernel],
+            masks: Sequence[torch.Tensor], chunk: Optional[int]
+            ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Every row of the pool against its 9 z-runs, chunk by chunk.
+
+    The reference loops over the blocks that hold a masked row, a trip
+    count on the device. Here every row is evaluated, in chunks whose count
+    the host knows, and each kernel's outputs are kept on its own mask: a
+    row's output is a function of the channels alone, so the grouping
+    changes no value and the step reads nothing back from the card. A
+    chunk is a whole number of ``chunk``-row blocks within ``SWEEP_LANES``
+    lanes. Each (row, run) pair is one row of the pair kernel's input, so
+    one call covers all 9 runs; the runs' partial sums are then added in
+    the reference's order, run 0 first.
+    """
+    c = q_src["position"].shape[0]
+    dev = q_src["position"].device
+    r_cap = spec.run_capacity
+    b = min(chunk if chunk is not None else spec.query_chunk, c)
+    step = b * max(1, SWEEP_LANES // (9 * r_cap * b))
+    lane = torch.arange(r_cap, dtype=torch.int32, device=dev)
+    outs = {k.name: {name: torch.zeros((c, *sfx), dtype=dt, device=dev)
+                     for name, (sfx, dt) in k.out_specs.items()}
+            for k in kernels}
+    for r0 in range(0, c, step):
+        r1 = min(r0 + step, c)
+        nb = r1 - r0
+        rows = torch.arange(r0, r1, dtype=torch.int32, device=dev)
+        s, n = run_bounds(spec, grid, q_src["position"][r0:r1])
+        n = n.clamp(max=r_cap)
+        pos = s[:, :, None] + lane                          # (nb, 9, R)
+        valid = lane < n[:, :, None]
+        valid &= pos != rows[:, None, None]      # resident: position == slot
+        pos = torch.where(valid, pos, torch.zeros_like(pos))
+        idx = pos.reshape(-1).to(torch.int64)
+        valid = valid.reshape(nb * 9, r_cap)
+
+        def per_run(v, r0=r0, r1=r1, nb=nb):
+            v = v[r0:r1]
+            return v[:, None].expand(nb, 9, *v.shape[1:]).reshape(
+                nb * 9, *v.shape[1:])
+
+        def gather(v, idx=idx, nb=nb):
+            return v.index_select(0, idx).reshape(nb * 9, r_cap,
+                                                  *v.shape[1:])
+
+        q = _OnRead(q_src, per_run)
+        nbr = _OnRead(nbr_src, gather)
+        q_slot = rows[:, None].expand(nb, 9).reshape(-1)
+        for k, m in zip(kernels, masks):
+            res = k.pair_fn(q, nbr, valid, q_slot)
+            km = m[r0:r1]
+            for name, (sfx, dt) in k.out_specs.items():
+                if name not in res:
+                    continue
+                part = res[name].to(dt).reshape(nb, 9, *sfx)
+                acc = torch.zeros((nb, *sfx), dtype=dt, device=dev)
+                for j in range(9):
+                    acc = acc + part[:, j]
+                outs[k.name][name][r0:r1] = torch.where(
+                    km.reshape(nb, *(1,) * len(sfx)), acc,
+                    torch.zeros((), dtype=dt, device=dev))
+    return outs
+
+
+def resident_apply(spec: GridSpec, grid: GridState,
+                   channels: Dict[str, torch.Tensor],
+                   query_mask: torch.Tensor, pair_fn: Callable,
+                   out_specs: Dict[str, Tuple[Tuple[int, ...], Any]],
+                   chunk: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Run-streaming neighbor apply over the resident grid-ordered pool.
+
+    ``channels`` must be in grid-key order (sorted position == slot id).
+    ``pair_fn`` sees every channel on both sides; its outputs are summed
+    over the 9 z-runs (at most ``run_capacity`` candidates each, self
+    excluded) and written for ``query_mask`` rows, zeros elsewhere.
+    """
+    k = PairKernel("apply", pair_fn, out_specs, tuple(channels))
+    with record_function("grid/sweep"):
+        return _stream(spec, grid, channels, channels, [k], [query_mask],
+                       chunk)["apply"]
+
+
+def resident_apply_fused(spec: GridSpec, grid: GridState,
+                         channels: Dict[str, torch.Tensor],
+                         kernels: Sequence[PairKernel],
+                         default_mask: torch.Tensor,
+                         chunk: Optional[int] = None, pairs: Any = None
+                         ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Multi-kernel :func:`resident_apply`: one candidate stream for every
+    registered :class:`PairKernel`, pruned to the union of their declared
+    footprints. Each kernel's outputs equal, bit for bit, those of its own
+    :func:`resident_apply` sweep, and are zero outside its own mask.
+
+    Raises ``ValueError`` on duplicate kernel names and ``KeyError`` when a
+    footprint names a channel the pool lacks or a kernel reads a channel it
+    did not declare. The pair-list mode (``pairs``) is ROADMAP.md Queue 1
+    item 11.
+    """
+    if pairs is not None:
+        raise NotImplementedError("resident_apply_fused(pairs=...) is not "
+                                  "ported yet (ROADMAP.md Queue 1 item 11)")
+    if not kernels:
+        return {}
+    names = [k.name for k in kernels]
+    if len(set(names)) != len(names):
+        raise ValueError(f"duplicate PairKernel names: {names} — give each "
+                         f"registered kernel (behavior) a unique name")
+    reads = fused_reads(kernels)
+    missing = [ch for ch in reads if ch not in channels]
+    if missing:
+        raise KeyError(f"PairKernel footprint names channels not in the "
+                       f"pool: {missing} (have {sorted(channels)})")
+    gather_ch = {ch: channels[ch] for ch in reads}       # the pruned stream
+    q_src = dict(gather_ch)
+    q_src.setdefault("position", channels["position"])    # run_bounds
+    masks = [k.query_mask if k.query_mask is not None else default_mask
+             for k in kernels]
+    with record_function("grid/sweep"):
+        return _stream(spec, grid, q_src, gather_ch, kernels, masks, chunk)

@@ -1,23 +1,33 @@
 """Numerical health guards folded into ``StepStats.health`` (port of
-``repro.core.health``; the fault-injection hooks come with ROADMAP.md
-Queue 1 item 10).
+``repro.core.health``).
 
 Bits: NONFINITE (NaN/Inf in a live position or force), ESCAPE (a live agent
 outside the domain plus ``domain_tol``), DISPLACEMENT (per-axis step motion
 above ``max_step_displacement``). Observability only: the engine never
 raises on them.
+
+The module also holds the test-only fault injection: deterministic
+host-side corruption of an ``EngineState`` between steps (a value written,
+bits flipped, an overflow flag forced on), so every reaction to a fault can
+be exercised without waiting for one.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
+
+from .agents import pool_from_channels
 
 NONFINITE = 1
 ESCAPE = 2
 DISPLACEMENT = 4
+
+_FLAG_NAMES = ((NONFINITE, "nonfinite"), (ESCAPE, "domain_escape"),
+               (DISPLACEMENT, "displacement"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,3 +65,73 @@ def step_health(hcfg: HealthConfig, mask: torch.Tensor,
         over = move_d.abs().amax(-1) > hcfg.max_step_displacement
         bits = bits | (over & mask).any().to(torch.int32) * DISPLACEMENT
     return bits
+
+
+def fault_bits(health) -> int:
+    """Host-side OR over a step's health field (scalar or vector)."""
+    h = health.detach().cpu().numpy() if isinstance(health, torch.Tensor) \
+        else health
+    return int(np.bitwise_or.reduce(np.asarray(h, np.int32).ravel(),
+                                    initial=0))
+
+
+def describe(bits: int) -> Tuple[str, ...]:
+    """Names of the set health bits, e.g. ``('nonfinite',)``."""
+    return tuple(name for bit, name in _FLAG_NAMES if bits & bit)
+
+
+class HealthFault(RuntimeError):
+    """A health flag fired and the supervisor ran out of remedies; carries
+    the decoded flag names, the run report and the last healthy state."""
+
+    def __init__(self, message: str, bits: int = 0, state=None, report=None):
+        super().__init__(message)
+        self.bits = bits
+        self.flags = describe(bits)
+        self.state = state
+        self.report = report
+
+
+def _channels(state):
+    """(channels, rebuild(channels) -> state) of an ``EngineState`` (the
+    distributed state is ROADMAP.md Queue 1 item 15)."""
+    if not hasattr(state, "pool"):
+        raise TypeError(f"not a simulation state: {type(state)!r}")
+
+    def rebuild(ch):
+        return dataclasses.replace(state, pool=pool_from_channels(ch))
+    return state.pool.channels(), rebuild
+
+
+def inject_value(state, channel: str, slot: int, value):
+    """Overwrite one row (or one lane of a vector channel) with ``value``;
+    ``inject_value(state, "position", 3, float("nan"))`` is the NaN
+    injection the NONFINITE guard catches on the next step."""
+    ch, rebuild = _channels(state)
+    arr = ch[channel].clone()
+    arr[slot] = value
+    return rebuild({**ch, channel: arr})
+
+
+def flip_bits(state, channel: str, slot: int, mask: int = 0x00400000):
+    """XOR ``mask`` into one float32 row: simulated memory corruption. The
+    default flips a high mantissa bit (large, finite); ``0x7FC00000``
+    forges a quiet NaN."""
+    ch, rebuild = _channels(state)
+    t = ch[channel]
+    if t.dtype != torch.float32:
+        raise TypeError(f"flip_bits targets float32 channels, {channel} is "
+                        f"{t.dtype}")
+    arr = t.detach().cpu().numpy().copy()
+    flat = arr.reshape(arr.shape[0], -1)
+    flat[slot] = (flat[slot].view(np.uint32) ^ np.uint32(mask)).view(
+        np.float32)
+    return rebuild({**ch, channel: torch.from_numpy(arr).to(t.device)})
+
+
+def storm_flags(state, field: str = "birth_overflow", count: int = 1):
+    """Force a never-silent overflow flag on, as if ``count`` items had
+    been dropped, so reactions to an overflow storm can be tested."""
+    stats = dataclasses.replace(state.stats, **{
+        field: torch.full_like(getattr(state.stats, field), count)})
+    return dataclasses.replace(state, stats=stats)

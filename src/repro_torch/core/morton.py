@@ -29,10 +29,11 @@ def cell_of(position: torch.Tensor, origin: torch.Tensor, box_size: float,
     """
     recip = float(np.float32(1.0) / np.float32(box_size))   # exact in f32
     rel = (position - origin) * recip
-    cell = torch.floor(rel).to(torch.int32)
-    hi = torch.tensor([d - 1 for d in dims], dtype=torch.int32,
-                      device=position.device)
-    return torch.minimum(torch.clamp(cell, min=0), hi)
+    cell = torch.clamp(torch.floor(rel).to(torch.int32), min=0)
+    # clipped axis by axis: a bounds tensor made on the host would cost a
+    # copy to the card, which waits for the device, on every call
+    return torch.stack([cell[..., i].clamp(max=d - 1)
+                        for i, d in enumerate(dims)], -1)
 
 
 def linear_size(dims: Tuple[int, int, int]) -> int:

@@ -37,9 +37,9 @@ OPS_PER_PAIR = 40
 OPS_PER_PAIR_ADHESION = 8
 OPS_TEST = 11
 # The reject accepts d2 <= R·R with R the sum of two inflated radii,
-# rho = (max(r, 0) + max(a, 0)/2)·REACH_SLACK; any slack >= (1 + 2^-24) /
-# (1 - 2^-24)^4.5 keeps every pair the exact float32 band test accepts (the
-# kernel's header gives the argument). 2^-16 leaves ~45x room.
+# rho = (max(r, 0) + max(a, 0)/2)·REACH_SLACK; any slack >= (1 + 2^-24)^2.5
+# / (1 - 2^-24)^6 keeps every pair the exact float32 band test accepts (the
+# kernel's header gives the argument). 2^-16 leaves ~30x room.
 REACH_SLACK = 1.0 + 2.0 ** -16
 
 _PLAIN_ROW_BLOCKS = 64          # row blocks per chunk of the plain version

@@ -23,19 +23,23 @@
 // The cheap reject. Each agent gets an inflated radius, once per tile (a
 // candidate) or per kernel (a row): rho = fl(fl(max(r, 0) + a⁺/2)·slack)
 // with a⁺ = max(a, 0), or NaN for a dead agent. Per candidate: dx, dy, dz,
-// d2 = dx² + dy² + dz² (FMAs), R = rho_q + rho_n; accept iff d2 <= R·R.
-// The exact path computes the same d2 by the same operations, so the
-// argument below does not depend on how d2 was contracted. With u = 2^-24
-// and correctly rounded f32 operations, S = fl(r_q + r_n):
+// d2t = fma(dx, dx, fma(dy, dy, dz·dz)), R = rho_q + rho_n; accept iff
+// d2t <= R·R. The exact path forms its d2 as the plain version does,
+// fl(fl(fl(dx²) + fl(dy²)) + fl(dz²)) with no contraction, so that the
+// pairs it keeps, their forces and nnz are those of the plain version bit
+// for bit. With u = 2^-24, correctly rounded f32 operations, T = dx² + dy²
+// + dz² exactly, and S = fl(r_q + r_n):
 //   in_band  <=>  fl(fl(S − D) + a) > 0, where D = fl(√max(d2, 1e-18)).
 //   Rounding is monotone and −a is a float, so in_band implies S − D > −a,
 //   i.e. D < S + a <= S + a⁺ <= X·(1 + u) with X = r_q⁺ + r_n⁺ + a⁺ (all
 //   terms >= 0, S <= fl(r_q⁺ + r_n⁺)), and X >= D > 0. Each rounding of
 //   the nonnegative sums and products loses at most a factor (1 − u), so
 //   R >= X·slack·(1 − u)³ and fl(R·R) >= X²·slack²·(1 − u)^7, while
-//   √d2 <= D/(1 − u) gives d2 < X²·(1 + u)²/(1 − u)².
-//   Any slack >= (1 + u)/(1 − u)^4.5 ≈ 1 + 5.5u accepts every in-band
-//   pair; the wrapper passes 1 + 2^-16 (~256u). A negative radius or band
+//   √d2 <= D/(1 − u) gives d2 < X²·(1 + u)²/(1 − u)². Both d2 and d2t
+//   round T three times: d2 >= T·(1 − u)³ and d2t <= T·(1 + u)³, so
+//   d2t < X²·(1 + u)^5/(1 − u)^5.
+//   Any slack >= (1 + u)^2.5/(1 − u)^6 ≈ 1 + 8.5u accepts every in-band
+//   pair; the wrapper passes 1 + 2^-16 (~256u).
 //   only makes the test looser. A dead row or candidate has rho = NaN, so
 //   R·R is NaN and the test is false: dead agents never reach the exact
 //   path (valid would be false for them anyway).
@@ -70,9 +74,12 @@
 // have added ±0.
 //
 // Numerics. IEEE sqrtf, powf and 1.0f/dist (no --use_fast_math) on every
-// pair that passes the test. nvcc contracts a*b+c into FMA by default, so
-// sums differ from the CPU's plain version in the last bits; the tests
-// hold forces to atol 1e-4.
+// pair that passes the test. The exact path spells its products and sums
+// with __fmul_rn/__fadd_rn/__fsub_rn where nvcc would contract them into
+// FMAs, so each pair's force and its nnz bit (f² > 1e-14, a threshold a
+// one-ulp change in d2 can cross) equal those of the plain version on the
+// card. A row adds its pairs in another order than the plain version, so
+// the tests hold forces to atol 1e-4 and nnz exactly.
 //
 // Layout: data (8, n_pad) f32 rows [x, y, z, diameter, type, alive, -, -];
 // out (4, n_pad) f32 rows [fx, fy, fz, nnz].
@@ -195,10 +202,13 @@ collision_force_kernel(const Params p) {
       const int lr = warp * 32 + owner + slot * kThreads;
       const float4 a = srow[lr];
       const float4 c = cand[k];
-      const float dx = c.x - a.x;           // as in the test: the same d2
+      const float dx = c.x - a.x;
       const float dy = c.y - a.y;
       const float dz = c.z - a.z;
-      const float d2 = fmaf(dx, dx, fmaf(dy, dy, dz * dz));
+      // the plain version's d2, ((dx² + dy²) + dz²), each step rounded
+      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
+                                           __fmul_rn(dy, dy)),
+                                 __fmul_rn(dz, dz));
       const float r_q = a.w, r_n = crn[k];
       const float s = r_q + r_n;
       const float dist = sqrtf(fmaxf(d2, 1e-18f));
@@ -211,7 +221,8 @@ collision_force_kernel(const Params p) {
         const float mu = (ti >= 0 && ti < p.n_types && tj >= 0 &&
                           tj < p.n_types) ? smu[ti * p.n_types + tj] : 0.f;
         const float b = fmaxf(delta + band, 0.f);
-        f_mag -= in_band ? mu * sqrtf(r_eff * b) : 0.f;
+        f_mag = __fsub_rn(f_mag, in_band ? __fmul_rn(mu, sqrtf(r_eff * b))
+                                         : 0.f);
       }
       // both alive: a NaN radius never passes the test
       const bool valid = rb * kBlock + lr != col_base + k && in_band;
@@ -337,7 +348,7 @@ collision_force_kernel(const Params p) {
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success). The caller
 // checks shapes: n_pad a multiple of 128, 8·n_pad < 2^31, n_types <= 16,
-// data 16-byte aligned; reach_slack >= (1 + 2^-24)/(1 - 2^-24)^4.5 (see
+// data 16-byte aligned; reach_slack >= (1 + 2^-24)^2.5/(1 - 2^-24)^6 (see
 // above).
 extern "C" int k1_collision_force(const float* data, int n_pad,
                                   const int* block_cols, int maxb,

@@ -1,16 +1,17 @@
 """Wrappers around the kernels (port of ``repro.kernels.ops``): K1's
-block-sparse column map and resident-layout entry point, and K2's
-whole-sequence attention."""
+block-sparse column map, its resident-layout entry point and the fused
+sweep that runs it beside the other pair kernels, and K2's whole-sequence
+attention."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..core import morton
+from ..core import grid, morton
 from . import block_cols as colmap
 from . import collision_force as k1
 from . import flash_attention as k2
@@ -197,6 +198,45 @@ def collision_force_resident(position: torch.Tensor, diameter: torch.Tensor,
     nnz = torch.where(act, out_t[k1.ROW_NNZ, :c].to(torch.int32),
                       torch.zeros((), dtype=torch.int32, device=dev))
     return force, nnz, ovf
+
+
+def fused_resident_sweep(spec: grid.GridSpec, grid_env: grid.GridState,
+                         channels: Dict[str, torch.Tensor],
+                         kernels: Sequence[grid.PairKernel],
+                         default_mask: torch.Tensor, *, origin: torch.Tensor,
+                         box_size: float, k_rep: float = 2.0,
+                         adhesion: Adhesion = None,
+                         adhesion_band: float = 0.4,
+                         chunk: Optional[int] = None, maxb: int = 64
+                         ) -> tuple[Dict[str, Dict[str, torch.Tensor]],
+                                    torch.Tensor]:
+    """K1-backed form of ``grid.resident_apply_fused``: the kernel named
+    ``"force"`` runs in K1 over the step's grid tables (its ``pair_fn`` is
+    not called: K1 computes the same function), every other kernel shares
+    one streamed sweep over the same tables.
+
+    Returns ``(results, overflow)``: results keyed like
+    ``resident_apply_fused``, overflow K1's column-map flag (a zero ()
+    int32 when no kernel is named ``"force"``).
+    """
+    results: Dict[str, Dict[str, torch.Tensor]] = {}
+    ovf = torch.zeros((), dtype=torch.int32, device=default_mask.device)
+    rest = [k for k in kernels if k.name != "force"]
+    fk = next((k for k in kernels if k.name == "force"), None)
+    if fk is not None:
+        active = fk.query_mask if fk.query_mask is not None else default_mask
+        f, nnz, k_ovf = collision_force_resident(
+            channels["position"], channels["diameter"],
+            channels["agent_type"], channels["alive"], active,
+            grid_env.starts, grid_env.counts, origin, box_size,
+            dims=spec.dims, k_rep=k_rep, adhesion=adhesion,
+            adhesion_band=adhesion_band, maxb=maxb)
+        results["force"] = {"force": f, "force_nnz": nnz}
+        ovf = k_ovf.to(torch.int32)
+    if rest:
+        results.update(grid.resident_apply_fused(
+            spec, grid_env, channels, rest, default_mask, chunk))
+    return results, ovf
 
 
 # ---------------------------------------------------------------------------

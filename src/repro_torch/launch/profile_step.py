@@ -1,15 +1,17 @@
-"""Where one step's time goes on the card: ``torch.profiler`` over the main
-path (the Fig-6 proliferation configuration).
+"""Where one step's time goes on the card: ``torch.profiler`` over a set-up
+of ``launch/simulate.py`` (default: the Fig-6 proliferation configuration).
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \
         --agents 1048576 --steps 5 --out chiprun_out/profile_step.json
+    PYTHONPATH=src python -m repro_torch.launch.profile_step \
+        --scenario epidemiology --config breakdown --agents 1048576
 
 Reports, per step: wall time without and with the profiler (the cost of
 tracing); the device's busy time (union of kernel, copy and memset
 intervals) and idle share over the profiled steps (the profiler slows the
 host, so unprofiled steps idle less); and, for each named range of the step
-(``step/*`` and ``k1/*``, recorded with ``record_function`` in engine.py and
-kernels/ops.py), the device time and the number of launches of the work
+(``step/*``, ``k1/*`` and ``grid/sweep``, recorded with ``record_function``
+in engine.py, kernels/ops.py and core/grid.py), the device time and the number of launches of the work
 it issued — a device operation belongs to the innermost range open on the
 host when it was launched. Runs on the CUDA card only.
 """
@@ -90,8 +92,31 @@ def analyze_trace(events: list, steps: int) -> dict:
         ][:15]}
 
 
+def profile_steps(sim, st, steps: int, trace: str | None = None):
+    """Run ``steps`` steps under ``torch.profiler``; returns the state and
+    :func:`analyze_trace`'s numbers, with the profiled wall time per step
+    and the idle share: 1 − busy / that wall, both from the same steps.
+    Keeps the Chrome trace at ``trace`` if given."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st, prof_ms = _timed_steps(sim, st, steps)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = trace or str(Path(tmp) / "trace.json")
+        prof.export_chrome_trace(path)
+        events = json.loads(Path(path).read_text())["traceEvents"]
+    stats = analyze_trace(events, steps)
+    return st, {"ms_per_step_profiled": prof_ms,
+                "device_idle_share": 1.0 - stats["device_busy_ms"] / prof_ms,
+                **stats}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--scenario", choices=simulate.SCENARIOS,
+                    default="proliferation")
+    ap.add_argument("--config", choices=simulate.CONFIGS, default="fig6")
+    ap.add_argument("--force-impl", choices=simulate.FORCE_IMPLS,
+                    default="k1")
     ap.add_argument("--agents", type=int, default=1_048_576)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=2)
@@ -101,25 +126,20 @@ def main() -> None:
     args = ap.parse_args()
 
     resolve_device(None)                      # the card, or raise
-    sim, st = simulate.build("proliferation", args.agents, "fig6")
+    sim, st = simulate.build(args.scenario, args.agents, args.config,
+                             force_impl=args.force_impl)
     st, _ = _timed_steps(sim, st, args.warmup)
     st, plain_ms = _timed_steps(sim, st, args.steps)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        st, prof_ms = _timed_steps(sim, st, args.steps)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = args.trace or str(Path(tmp) / "trace.json")
-        prof.export_chrome_trace(path)
-        events = json.loads(Path(path).read_text())["traceEvents"]
-    stats = analyze_trace(events, args.steps)
-    report = {"card": card_description(), "agents": args.agents,
+    st, stats = profile_steps(sim, st, args.steps, args.trace)
+    prof_ms = stats["ms_per_step_profiled"]
+    report = {"card": card_description(), "scenario": args.scenario,
+              "config": args.config, "force_impl": args.force_impl,
+              "agents": args.agents,
               "capacity": sim.config.capacity, "steps": args.steps,
-              "ms_per_step": plain_ms, "ms_per_step_profiled": prof_ms,
-              # busy time and wall from the same (profiled) steps
-              "device_idle_share": 1.0 - stats["device_busy_ms"] / prof_ms,
-              **stats}
+              "ms_per_step": plain_ms, **stats}
     print(f"card: {report['card']}")
-    print(f"{args.agents} agents: {plain_ms:.3f} ms/step ({prof_ms:.3f} "
+    print(f"{args.scenario}/{args.config}/{args.force_impl}, "
+          f"{args.agents} agents: {plain_ms:.3f} ms/step ({prof_ms:.3f} "
           f"profiled); device busy {stats['device_busy_ms']:.3f} ms/step, "
           f"idle share {report['device_idle_share']:.3f} (profiled); "
           f"{stats['launches']:.0f} device ops/step")

@@ -1,16 +1,23 @@
 """ABM simulation driver for the port (counterpart of
-``repro.launch.simulate``).
+``repro.launch.simulate``): the paper's five scenarios, CLI-sized.
 
+    PYTHONPATH=src python -m repro_torch.launch.simulate \
+        --scenario epidemiology --agents 100000 --iterations 100
     PYTHONPATH=src python -m repro_torch.launch.simulate --config fig6 \
         --agents 1048576 --iterations 10
 
-``--scenario proliferation`` mirrors the reference CLI's set-up exactly,
-including its density: about 125 agents per box, which overflows the
-384-agent run capacity at every size (the reference raises the same
-error). ``--config fig6`` takes the Fig-6 proliferation scaling set-up of
-``benchmarks/scaling.py`` instead (about one agent per box). The other
-scenarios are not ported yet (ROADMAP.md Queue 1 item 10). Runs on the CUDA
-card unless ``--device cpu`` is given.
+Each scenario is set up exactly as the reference's ``build``, densities
+included: ``--scenario proliferation`` places about 125 agents per box,
+which overflows the 384-agent run capacity at every size (the reference
+raises the same error), and ``neuroscience`` crowds its growth cones into
+a 20³ region, which overflows from about 6,500 cones on. ``--config
+fig6`` takes the Fig-6 proliferation scaling set-up of
+``benchmarks/scaling.py`` instead (about one agent per box), and
+``--scenario epidemiology --config breakdown`` the forces + SIR workload of
+``benchmarks/breakdown.py`` (about four agents per box; forces in K1 and
+Infection in the streamed sweep, the two sharing the step's grid tables).
+``--force-impl`` picks K1 (default) or the streamed sweep for the set-ups
+with forces. Runs on the CUDA card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -21,20 +28,29 @@ import time
 import numpy as np
 import torch
 
-from ..core import EngineConfig, ForceParams, Simulation
-from ..core.behaviors import GrowDivide
+from ..core import DiffusionSpec, EngineConfig, ForceParams, Simulation
+from ..core.behaviors import (GROWTH_CONE, INFECTED, Chemotaxis, GrowDivide,
+                              Infection, NeuriteGrowth, RandomDeath,
+                              RandomWalk, Secretion)
 
 SCENARIOS = ("proliferation", "clustering", "epidemiology", "neuroscience",
              "oncology")
-CONFIGS = ("cli", "fig6")
+CONFIGS = ("cli", "fig6", "breakdown")
+# the scenario each non-CLI set-up belongs to
+_CONFIG_SCENARIO = {"fig6": "proliferation", "breakdown": "epidemiology"}
+FORCE_IMPLS = ("k1", "streamed")
 
 
-def build(scenario: str, n: int, config: str = "cli", device=None):
-    """(Simulation, initial state) for a scenario; positions from seed 0."""
-    if scenario != "proliferation":
-        raise NotImplementedError(
-            f"scenario {scenario!r} is not ported yet (ROADMAP.md Queue 1 "
-            f"item 10)")
+def build(scenario: str, n: int, config: str = "cli", device=None,
+          force_impl: str = "k1"):
+    """(Simulation, initial state) for a scenario; data from seed 0."""
+    if config not in CONFIGS:
+        raise ValueError(f"config must be one of {CONFIGS}, got {config!r}")
+    if config != "cli" and scenario != _CONFIG_SCENARIO[config]:
+        raise ValueError(f"--config {config} is a set-up of the "
+                         f"{_CONFIG_SCENARIO[config]} scenario")
+    if config == "breakdown":
+        return _breakdown(n, device, force_impl)
     rng = np.random.default_rng(0)
     if config == "fig6":
         # benchmarks/scaling.py: constant density, ~1 agent per box
@@ -42,22 +58,104 @@ def build(scenario: str, n: int, config: str = "cli", device=None):
         cfg = EngineConfig(capacity=int(n * 1.3), domain_lo=(0, 0, 0),
                            domain_hi=(side,) * 3, interaction_radius=4.0,
                            dt=0.05, max_per_box=32, query_chunk=4096,
+                           force_impl=force_impl,
                            force=ForceParams(max_displacement=0.5))
         sim = Simulation(cfg, [GrowDivide(rate=0.01, threshold_diameter=6.0)],
                          device=device)
         pos = rng.uniform(2.0, side - 2.0, (n, 3)).astype(np.float32)
         return sim, sim.init_state(pos, diameter=np.full(n, 3.0, np.float32))
-    if config != "cli":
-        raise ValueError(f"config must be one of {CONFIGS}, got {config!r}")
-    side = max(120.0, (n ** (1 / 3)) * 14)
-    cfg = EngineConfig(capacity=max(4 * n, 1024), domain_lo=(0,) * 3,
-                       domain_hi=(side,) * 3, interaction_radius=14.0,
-                       dt=0.2, sort_frequency=10, max_per_box=128,
-                       force=ForceParams(max_displacement=1.0))
-    sim = Simulation(cfg, [GrowDivide(rate=0.6, threshold_diameter=12.0)],
+    if scenario == "proliferation":
+        side = max(120.0, (n ** (1 / 3)) * 14)
+        cfg = EngineConfig(capacity=max(4 * n, 1024), domain_lo=(0,) * 3,
+                           domain_hi=(side,) * 3, interaction_radius=14.0,
+                           dt=0.2, sort_frequency=10, max_per_box=128,
+                           force_impl=force_impl,
+                           force=ForceParams(max_displacement=1.0))
+        sim = Simulation(cfg, [GrowDivide(rate=0.6, threshold_diameter=12.0)],
+                         device=device)
+        pos = rng.uniform(side * 0.4, side * 0.6, (n, 3)).astype(np.float32)
+        st = sim.init_state(pos, diameter=np.full(n, 8.0, np.float32))
+    elif scenario == "clustering":
+        side = max(64.0, (n ** (1 / 3)) * 4)
+        dim = int(side // 2)
+        cfg = EngineConfig(capacity=n, domain_lo=(0,) * 3,
+                           domain_hi=(side,) * 3, interaction_radius=3.0,
+                           use_forces=False, query_chunk=4096,
+                           diffusion=DiffusionSpec(dims=(dim,) * 3,
+                                                   coefficient=0.5,
+                                                   decay=0.01, voxel=2.0))
+        sim = Simulation(cfg, [Secretion(rate=2.0), Chemotaxis(speed=0.35)],
+                         device=device)
+        pos = rng.uniform(4, side - 4, (n, 3)).astype(np.float32)
+        st = sim.init_state(pos, diameter=np.full(n, 1.0, np.float32))
+    elif scenario == "epidemiology":
+        side = max(100.0, (n ** (1 / 3)) * 5)
+        cfg = EngineConfig(capacity=n, domain_lo=(0,) * 3,
+                           domain_hi=(side,) * 3, interaction_radius=3.0,
+                           use_forces=False, query_chunk=4096)
+        sim = Simulation(cfg, [RandomWalk(sigma=0.8),
+                               Infection(radius=3.0, beta=0.25,
+                                         recovery_time=40)], device=device)
+        pos = rng.uniform(0, side, (n, 3)).astype(np.float32)
+        types = np.zeros(n, np.int32)
+        types[:max(n // 1000, 5)] = INFECTED
+        st = sim.init_state(pos, diameter=np.full(n, 1.0, np.float32),
+                            agent_type=types,
+                            extra_init={"infect_timer":
+                                        np.full(n, 40, np.int32)})
+    elif scenario == "neuroscience":
+        cfg = EngineConfig(capacity=max(40 * n, 2048), domain_lo=(0,) * 3,
+                           domain_hi=(160,) * 3, interaction_radius=4.0,
+                           dt=0.5, detect_static=True, sort_frequency=20,
+                           max_per_box=64, force_impl=force_impl,
+                           force=ForceParams(max_displacement=0.2,
+                                             move_eps=1e-4))
+        sim = Simulation(cfg, [NeuriteGrowth(speed=0.8, noise=0.2,
+                                             bifurcation_prob=0.008)],
+                         device=device)
+        pos = rng.uniform(70, 90, (n, 3)).astype(np.float32)
+        d0 = rng.standard_normal((n, 3)).astype(np.float32)
+        d0 /= np.linalg.norm(d0, axis=1, keepdims=True)
+        st = sim.init_state(pos, diameter=np.full(n, 2.0, np.float32),
+                            agent_type=np.full(n, GROWTH_CONE, np.int32),
+                            extra_init={"direction": d0})
+    elif scenario == "oncology":
+        side = max(160.0, (n ** (1 / 3)) * 16)
+        cfg = EngineConfig(capacity=max(8 * n, 2048), domain_lo=(0,) * 3,
+                           domain_hi=(side,) * 3, interaction_radius=14.0,
+                           dt=0.2, sort_frequency=10, max_per_box=160,
+                           force_impl=force_impl,
+                           force=ForceParams(max_displacement=1.0))
+        sim = Simulation(cfg, [GrowDivide(rate=0.7, threshold_diameter=12.0),
+                               RandomWalk(sigma=0.1),
+                               RandomDeath(rate=0.012)], device=device)
+        pos = rng.uniform(side * 0.35, side * 0.65, (n, 3)).astype(np.float32)
+        st = sim.init_state(pos, diameter=np.full(n, 9.0, np.float32))
+    else:
+        raise ValueError(f"scenario must be one of {SCENARIOS}, got "
+                         f"{scenario!r}")
+    return sim, st
+
+
+def _breakdown(n: int, device, force_impl: str):
+    """benchmarks/breakdown.py's workload: ~4 live agents per box, forces
+    and SIR infection (two pair kernels), 1% infected, seed 4."""
+    rng = np.random.default_rng(4)
+    side = float(np.ceil(4.0 * (n / 4.0) ** (1.0 / 3.0)))
+    cfg = EngineConfig(capacity=n, domain_lo=(0, 0, 0),
+                       domain_hi=(side,) * 3, interaction_radius=4.0,
+                       dt=0.05, max_per_box=32, query_chunk=4096,
+                       force_impl=force_impl,
+                       force=ForceParams(max_displacement=0.5))
+    sim = Simulation(cfg, [Infection(radius=4.0, beta=0.3, recovery_time=40)],
                      device=device)
-    pos = rng.uniform(side * 0.4, side * 0.6, (n, 3)).astype(np.float32)
-    return sim, sim.init_state(pos, diameter=np.full(n, 8.0, np.float32))
+    pos = rng.uniform(2.0, side - 2.0, (n, 3)).astype(np.float32)
+    types = np.zeros(n, np.int32)
+    types[:max(n // 100, 1)] = INFECTED
+    return sim, sim.init_state(pos, diameter=np.full(n, 3.0, np.float32),
+                               agent_type=types,
+                               extra_init={"infect_timer":
+                                           np.full(n, 40, np.int32)})
 
 
 def main() -> None:
@@ -66,12 +164,14 @@ def main() -> None:
     ap.add_argument("--config", choices=CONFIGS, default="cli")
     ap.add_argument("--agents", type=int, default=10_000)
     ap.add_argument("--iterations", type=int, default=100)
+    ap.add_argument("--force-impl", choices=FORCE_IMPLS, default="k1")
     ap.add_argument("--report-every", type=int, default=20)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args()
 
-    sim, st = build(args.scenario, args.agents, args.config, args.device)
+    sim, st = build(args.scenario, args.agents, args.config, args.device,
+                    args.force_impl)
     sync = (torch.cuda.synchronize if sim.device.type == "cuda"
             else (lambda: None))
     sync()

@@ -5,9 +5,13 @@ The state crosses over through ``convert.state_from_numpy`` (``np.asarray``
 on every leaf of the JAX ``EngineState``). After one step integer channels
 and every ``StepStats`` field must match exactly, floats to atol/rtol 1e-4 —
 the tolerance tests/test_engine_kernel.py holds the reference's own two
-force paths to. The reference runs its default streamed XLA sweep (and, in
-one small case, its Pallas K1); the port runs K1's plain version.
+force paths to — and the diffusion grid to 1e-5 relative. The port runs
+K1's plain version (against the reference's XLA sweep or its Pallas K1)
+or its streamed sweep (against the XLA sweep); each of the five scenarios
+of the reference CLI is held both ways.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -18,13 +22,23 @@ import jax  # noqa: E402
 
 from repro.core import EngineConfig as JConfig  # noqa: E402
 from repro.core import ForceParams as JForce, Simulation as JSim  # noqa: E402
+from repro.core import health as jhealth  # noqa: E402
 from repro.core.behaviors import GrowDivide as JGrow  # noqa: E402
+from repro.core.behaviors import Infection as JInfection  # noqa: E402
+from repro.core.behaviors import Secretion as JSecretion  # noqa: E402
+from repro.core.diffusion import DiffusionSpec as JDiff  # noqa: E402
+from repro.launch import simulate as jlaunch  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import EngineConfig as TConfig  # noqa: E402
 from repro_torch.core import ForceParams as TForce  # noqa: E402
 from repro_torch.core import GrowDivide as TGrow  # noqa: E402
-from repro_torch.core import DtypePolicy, RebuildPolicy  # noqa: E402
+from repro_torch.core import Infection as TInfection  # noqa: E402
+from repro_torch.core import Secretion as TSecretion  # noqa: E402
+from repro_torch.core import DiffusionSpec as TDiff  # noqa: E402
+from repro_torch.core import DtypePolicy, PairListConfig  # noqa: E402
+from repro_torch.core import RebuildPolicy  # noqa: E402
 from repro_torch.core import Simulation as TSim  # noqa: E402
+from repro_torch.core import health  # noqa: E402
 from repro_torch.launch import simulate as tlaunch  # noqa: E402
 
 
@@ -196,15 +210,197 @@ def test_run_raises_on_run_overflow_like_reference():
 
 
 @pytest.mark.parametrize("change", [
-    dict(environment="hash_grid"), dict(force_impl="xla"),
-    dict(detect_static=True), dict(diffusion=object()),
+    dict(environment="hash_grid"),
     dict(rebuild=RebuildPolicy(mode="every_k", k=2)),
+    dict(pairlist=PairListConfig()),
 ])
 def test_options_outside_the_slice_raise(change):
     cfg = TConfig(capacity=128, domain_lo=(0, 0, 0), domain_hi=(8, 8, 8),
                   interaction_radius=2.0, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TSim(cfg, [], device="cpu")
+
+
+@pytest.mark.parametrize("option", ["force_impl", "detect_static",
+                                    "diffusion"])
+def test_options_now_ported_match_reference(option):
+    """The options the first slices refused now run: one step of each,
+    from a shared state, against the reference (its XLA sweep; the
+    port's "xla" is the streamed sweep)."""
+    n = 150
+    kw = dict(capacity=192, domain_lo=(0, 0, 0), domain_hi=(24,) * 3,
+              interaction_radius=3.0, dt=0.2, max_per_box=32)
+    jkw, tkw = dict(kw), dict(kw)
+    jbeh, tbeh = [JGrow(rate=0.5, threshold_diameter=4.0)], \
+        [TGrow(rate=0.5, threshold_diameter=4.0)]
+    if option == "force_impl":
+        tkw["force_impl"] = "xla"
+    elif option == "detect_static":
+        jkw["detect_static"] = tkw["detect_static"] = True
+        jbeh, tbeh = [], []              # a quiet pool: most rows go static
+    else:
+        jkw["diffusion"] = JDiff(dims=(12, 12, 12), coefficient=0.5,
+                                 decay=0.01, voxel=2.0)
+        tkw["diffusion"] = TDiff(dims=(12, 12, 12), coefficient=0.5,
+                                 decay=0.01, voxel=2.0)
+        jbeh, tbeh = [JSecretion(rate=2.0)], [TSecretion(rate=2.0)]
+    jsim = JSim(JConfig(**jkw), jbeh)
+    tsim = TSim(TConfig(**tkw), tbeh, device="cpu")
+    pos = np.random.default_rng(2).uniform(1, 23, (n, 3)).astype(np.float32)
+    s0 = jsim.run(jsim.init_state(pos, diameter=np.full(n, 2.0,
+                                                        np.float32)), 2)
+    want, got = _one_step(jsim, tsim, s0)
+    _assert_states_match(want, got)
+    _assert_conc_match(want, got)
+    if option == "detect_static":
+        assert 0 < int(want["stats"]["n_active"]) < n
+    if option == "diffusion":
+        assert want["conc"].shape == (12, 12, 12) and want["conc"].max() > 0
+
+
+def _assert_conc_match(want, got, rtol=1e-5):
+    w, g = want["conc"], got["conc"]
+    assert g.shape == w.shape and g.dtype == w.dtype
+    np.testing.assert_allclose(g, w, rtol=rtol,
+                               atol=rtol * max(float(np.abs(w).max()), 1.0))
+
+
+# the reference path each port path is held against: K1 ≡ the reference's
+# Pallas K1 (interpret mode), the streamed sweep ≡ its XLA sweep. The two
+# reference paths differ where two agents coincide (NeuriteGrowth stages a
+# bifurcation at its mother's position): K1 counts the pair in force_nnz by
+# the force's magnitude, the XLA sweep by the vector, which is zero there.
+_REF_IMPL = {"k1": "pallas", "streamed": "xla"}
+_FORCE_SCENARIOS = ("proliferation", "neuroscience", "oncology")
+
+
+@functools.lru_cache(maxsize=None)
+def _scenario_step(scenario, ref_impl, n=160):
+    """(state after 2 reference steps, the reference's next step) as numpy
+    leaves, for the reference CLI's set-up of ``scenario``."""
+    jsim, s0 = jlaunch.build(scenario, n, "xla")
+    s0 = jsim.run(s0, 2)
+    if ref_impl != "xla":
+        jsim, _ = jlaunch.build(scenario, n, ref_impl)
+    return _leaves(s0), _leaves(jsim.step(s0))
+
+
+@pytest.mark.parametrize("force_impl", ["k1", "streamed"])
+@pytest.mark.parametrize("scenario", tlaunch.SCENARIOS)
+def test_one_step_parity_scenarios(scenario, force_impl):
+    ref_impl = _REF_IMPL[force_impl] if scenario in _FORCE_SCENARIOS \
+        else "xla"
+    s0, want = _scenario_step(scenario, ref_impl)
+    tsim, _ = tlaunch.build(scenario, 160, device="cpu",
+                            force_impl=force_impl)
+    got = convert.state_to_numpy(tsim.step(
+        convert.state_from_numpy(s0, "cpu")))
+    _assert_states_match(want, got)
+    _assert_conc_match(want, got)
+
+
+def test_sir_with_forces_matches_over_30_steps():
+    """Forces + Infection at beta = 1: nothing random is drawn that could
+    flip, so the S/I/R counts match the reference at every step, and the
+    fused K1 path matches the port's sequential sweeps too."""
+    n = 300
+    kw = dict(capacity=n, domain_lo=(0, 0, 0), domain_hi=(28,) * 3,
+              interaction_radius=4.0, dt=0.05, max_per_box=32,
+              query_chunk=128, force=None)
+    rng = np.random.default_rng(4)
+    pos = rng.uniform(2, 26, (n, 3)).astype(np.float32)
+    types = np.zeros(n, np.int32)
+    types[:3] = 1
+    init = dict(diameter=np.full(n, 3.0, np.float32), agent_type=types,
+                extra_init={"infect_timer": np.full(n, 12, np.int32)})
+
+    def cfg(mod, force, **extra):
+        return mod(**{**kw, "force": force(max_displacement=0.5), **extra})
+    jsim = JSim(cfg(JConfig, JForce),
+                [JInfection(radius=4.0, beta=1.0, recovery_time=12)])
+    tsims = [TSim(cfg(TConfig, TForce, **extra),
+                  [TInfection(radius=4.0, beta=1.0, recovery_time=12)],
+                  device="cpu")
+             for extra in ({}, dict(fused_sweep=False,
+                                    force_impl="streamed"))]
+    js = jsim.init_state(pos, **init)
+    ts = [convert.state_from_numpy(_leaves(js), "cpu") for _ in tsims]
+    for i in range(30):
+        js = jsim.step(js)
+        ts = [sim.step(t) for sim, t in zip(tsims, ts)]
+        want = np.bincount(np.asarray(js.pool.agent_type)[
+            np.asarray(js.pool.alive)], minlength=3)
+        for t in ts:
+            got = np.bincount(t.pool.agent_type[t.pool.alive].numpy(),
+                              minlength=3)
+            np.testing.assert_array_equal(got, want, err_msg=f"step {i}")
+            assert int(t.stats["n_live"]) == n
+    assert want[2] > 0 and want[1] + want[2] > 3      # it spread, recovered
+
+
+def test_fused_equals_sequential_sweeps():
+    """fused_sweep=False runs forces and Infection as separate sweeps over
+    the same pre-force snapshot: the same step, bit for bit."""
+    n = 200
+    rng = np.random.default_rng(6)
+    kw = dict(capacity=n, domain_lo=(0, 0, 0), domain_hi=(20,) * 3,
+              interaction_radius=3.0, max_per_box=32, query_chunk=64,
+              force_impl="streamed", detect_static=True)
+    types = (rng.random(n) < 0.1).astype(np.int32)
+    pos = rng.uniform(1, 19, (n, 3)).astype(np.float32)
+    states = []
+    for fused in (True, False):
+        sim = TSim(TConfig(**kw, fused_sweep=fused),
+                   [TInfection(radius=3.0, beta=0.5)], device="cpu")
+        st = sim.init_state(pos, diameter=np.full(n, 2.5, np.float32),
+                            agent_type=types)
+        states.append(sim.run(st, 4))
+    a, b = states
+    for k, v in a.pool.channels().items():
+        assert torch.equal(v, b.pool.channels()[k]), k
+
+
+def test_health_fault_injection():
+    """A NaN written into a live position raises NONFINITE on the next
+    step, as in the reference; flipped bits and a flag storm too."""
+    jsim, tsim, s0 = _quickstart()
+    ts = convert.state_from_numpy(_leaves(s0), "cpu")
+    bad = health.inject_value(ts, "position", 3, float("nan"))
+    jbad = jhealth.inject_value(s0, "position", 3, np.nan)
+    got = health.fault_bits(tsim.step(bad).stats.health)
+    want = jhealth.fault_bits(jsim.step(jbad).stats["health"])
+    assert got == want == health.NONFINITE
+    assert health.describe(got) == jhealth.describe(want) == ("nonfinite",)
+    flipped = health.flip_bits(ts, "position", 5, 0x7FC00000)
+    assert not torch.equal(flipped.pool.position[5], ts.pool.position[5])
+    np.testing.assert_array_equal(
+        flipped.pool.position.numpy(),
+        np.asarray(jhealth.flip_bits(s0, "position", 5, 0x7FC00000
+                                     ).pool.position))
+    with pytest.raises(TypeError):
+        health.flip_bits(ts, "agent_type", 0)
+    stormy = health.storm_flags(ts, "birth_overflow", 3)
+    assert stormy.stats.flags() == {"birth_overflow": 3}
+    err = health.HealthFault("boom", bits=health.NONFINITE | health.ESCAPE)
+    assert err.flags == ("nonfinite", "domain_escape")
+
+
+def test_state_with_conc_and_extras_round_trips():
+    jsim, s0 = jlaunch.build("neuroscience", 64, "xla")
+    s1 = jsim.step(jsim.step(s0))
+    for sc in ("clustering", "epidemiology"):
+        sim, st = jlaunch.build(sc, 64, "xla")
+        leaves = _leaves(sim.step(st))
+        back = convert.state_to_numpy(convert.state_from_numpy(leaves, "cpu"))
+        np.testing.assert_array_equal(back["conc"], leaves["conc"])
+        for k, w in leaves["pool"].items():
+            np.testing.assert_array_equal(back["pool"][k], w, err_msg=k)
+    leaves = _leaves(s1)
+    back = convert.state_to_numpy(convert.state_from_numpy(leaves, "cpu"))
+    assert {"extra.direction", "extra.path_len"} <= set(back["pool"])
+    for k, w in leaves["pool"].items():
+        assert back["pool"][k].dtype == w.dtype
+        np.testing.assert_array_equal(back["pool"][k], w, err_msg=k)
 
 
 def test_narrowed_dtype_policy_raises():

@@ -267,11 +267,25 @@ def _rho(r, band, slack):
     return (np.fmax(r, F32(0)) + half) * F32(slack)
 
 
-def _reject_passes(d2, r_q, r_n, band, slack):
+def _fma32(a, b, c):
+    """float32 fma(a, b, c): a·b is exact in float64, the sum is rounded
+    to float64 and then to float32 (a double rounding, off by one ulp in
+    rare ties; the slack's ~30x room covers that)."""
+    return (a.astype(np.float64) * b + c).astype(F32)
+
+
+def _d2_test(d):
+    """The kernel's cheap-test d2 of difference vectors d (n, 3):
+    fma(dx, dx, fma(dy, dy, dz·dz))."""
+    return _fma32(d[:, 0], d[:, 0], _fma32(d[:, 1], d[:, 1],
+                                           d[:, 2] * d[:, 2]))
+
+
+def _reject_passes(d2t, r_q, r_n, band, slack):
     """numpy mirror of the kernel's cheap test: R = rho_q + rho_n, accept
-    iff d2 <= R·R (the same d2 as the exact test)."""
+    iff d2t <= R·R, with d2t the test's fused d2 (``_d2_test``)."""
     reach = _rho(r_q, band, slack) + _rho(r_n, band, slack)
-    return d2 <= reach * reach
+    return d2t <= reach * reach
 
 
 def _edge_pairs(seed, band, n=2048, max_ulps=6):
@@ -293,7 +307,7 @@ def _edge_pairs(seed, band, n=2048, max_ulps=6):
         col = np.where(steps <= -k, np.nextafter(col, F32(-np.inf)), col)
     d = col - row
     d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
-    return d2.astype(F32), r_q, r_n
+    return d2.astype(F32), _d2_test(d), r_q, r_n
 
 
 @settings(max_examples=40, deadline=None)
@@ -304,9 +318,9 @@ def test_k1_reject_keeps_every_pair_in_band(seed, band):
     kernel's cheap test with the wrapper's slack: at the band's edge (within
     a few ulps), for coincident agents (the 1e-18 clamp) and for diameters
     0.5-12."""
-    d2, r_q, r_n = _edge_pairs(seed, band)
+    d2, d2t, r_q, r_n = _edge_pairs(seed, band)
     exact = _exact_in_band(d2, r_q, r_n, band)
-    kept = _reject_passes(d2, r_q, r_n, band, tk1.REACH_SLACK)
+    kept = _reject_passes(d2t, r_q, r_n, band, tk1.REACH_SLACK)
     assert exact.any() and (~exact).any()        # the draw straddles the edge
     assert not (exact & ~kept).any(), np.flatnonzero(exact & ~kept)[:5]
     # coincident and nearly coincident agents
@@ -322,10 +336,10 @@ def test_k1_reject_keeps_every_pair_in_band(seed, band):
 
 
 def test_k1_reject_slack_covers_the_rounding():
-    """The slack satisfies the kernel's bound (1 + u)/(1 - u)^4.5 <= slack,
-    and a dead agent's NaN radius fails the test."""
+    """The slack satisfies the kernel's bound (1 + u)^2.5/(1 - u)^6 <=
+    slack, and a dead agent's NaN radius fails the test."""
     u = 2.0 ** -24
-    assert F32(tk1.REACH_SLACK) >= (1 + u) / (1 - u) ** 4.5
+    assert F32(tk1.REACH_SLACK) >= (1 + u) ** 2.5 / (1 - u) ** 6
     reach = F32(np.nan) + _rho(F32(1), 0.4, tk1.REACH_SLACK)
     assert not F32(0) <= reach * reach
 
@@ -561,6 +575,84 @@ def test_k1_cuda_kernel_matches_plain_at_the_band_edge(with_adhesion):
                                atol=1e-4)
     np.testing.assert_array_equal(got[3].numpy(), want[3].numpy())
     assert not got[:, 384:].any()                  # the empty list
+
+
+K_REP, FORCE_EPS = 2.0, 1e-7
+
+
+def _nnz_bit(d2, r=F32(1.5), k_rep=K_REP):
+    """K1's nnz bit (f² > 1e-14) of a pair of radius-r agents at squared
+    distance d2, in float32 as the kernel and its plain version form it."""
+    dist = np.sqrt(np.maximum(d2, F32(1e-18)))
+    delta = (r + r) - dist
+    r_eff = np.maximum(r * r / np.maximum(r + r, F32(1e-12)), F32(1e-12))
+    f = F32(k_rep) * np.sqrt(r_eff) * np.power(np.maximum(delta, F32(0)),
+                                               F32(1.5))
+    return f * f > F32(1e-14)
+
+
+def _nnz_threshold_data(seed=23, n_pairs=128, tries=64):
+    """K1 inputs (8, 2·n_pairs) of isolated pairs of diameter-3 agents,
+    each at a distance that puts its force within a few percent of
+    force_eps (1e-7) along a random direction. For each pair slot the first
+    of ``tries`` draws whose nnz bit differs between the plain d2, ((dx² +
+    dy²) + dz²) rounded at each step, and the fused fma(dx, dx, fma(dy, dy,
+    dz²)) is kept, else the first draw. Returns data, block_cols and the
+    mask of pairs whose bit the fused d2 flips."""
+    rng = np.random.default_rng(seed)
+    delta_eps = (FORCE_EPS / (K_REP * np.sqrt(0.75))) ** (2 / 3)
+    slot = np.arange(n_pairs)
+    lattice = np.stack([slot % 8, slot // 8 % 8, slot // 64], -1) * 10.0
+    base = (lattice[:, None] + 20 + rng.uniform(0, 1, (n_pairs, tries, 3))
+            ).astype(F32)
+    u = rng.normal(size=(n_pairs, tries, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    dist = 3.0 - delta_eps * (1 + rng.uniform(-0.03, 0.03, (n_pairs, tries)))
+    partner = (base + u * dist[..., None]).astype(F32)
+    d = (partner - base).reshape(-1, 3)
+    d2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+    flips = (_nnz_bit(d2) != _nnz_bit(_d2_test(d))).reshape(n_pairs, tries)
+    pick = np.where(flips.any(1), flips.argmax(1), 0)
+    x = np.zeros((8, 2 * n_pairs), np.float32)
+    x[0:3, 0::2] = base[slot, pick].T
+    x[0:3, 1::2] = partner[slot, pick].T
+    x[3], x[5] = 3.0, 1.0
+    cols = np.full((2 * n_pairs // 128, 4), -1, np.int32)
+    cols[:, :cols.shape[0]] = np.arange(cols.shape[0])
+    return x, cols, flips[slot, pick]
+
+
+def test_k1_nnz_threshold_pairs_tell_the_two_d2_forms_apart():
+    """The threshold fixture holds pairs whose nnz bit the fused d2 would
+    flip (the card's test of K1 against its plain version needs them), and
+    the plain version counts each isolated pair at most once per row, the
+    same for both of its agents."""
+    x, cols, flips = _nnz_threshold_data()
+    assert flips.sum() >= 16, int(flips.sum())
+    out = tk1.collision_force_plain(torch.from_numpy(x),
+                                    torch.from_numpy(cols), k_rep=K_REP,
+                                    adhesion=None, adhesion_band=0.4)
+    nnz = out[3].numpy().reshape(-1, 2)
+    assert set(np.unique(nnz)) <= {0.0, 1.0}
+    np.testing.assert_array_equal(nnz[:, 0], nnz[:, 1])
+    assert 0 < nnz[:, 0].sum() < len(nnz)        # both sides of the threshold
+
+
+@pytest.mark.cuda
+def test_k1_cuda_kernel_nnz_at_the_force_threshold():
+    """K1 ≡ its plain version on the card (force atol 1e-4, nnz exact) on
+    pairs whose force lies within float32 rounding of force_eps, where a
+    d2 contracted into FMAs would count other pairs than the plain
+    version."""
+    dev = _cuda_or_skip()
+    x, cols, _ = _nnz_threshold_data()
+    data, blocks = torch.from_numpy(x).to(dev), torch.from_numpy(cols).to(dev)
+    kw = dict(k_rep=K_REP, adhesion=None, adhesion_band=0.4)
+    want = tk1.collision_force_plain(data, blocks, **kw).cpu()
+    got = tk1.collision_force(data, blocks, **kw).cpu()
+    np.testing.assert_allclose(got[:3].numpy(), want[:3].numpy(), rtol=0,
+                               atol=1e-4)
+    np.testing.assert_array_equal(got[3].numpy(), want[3].numpy())
 
 
 def test_k1_variants_follow_the_source():
