@@ -55,8 +55,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   9. the five scenarios of ``launch/simulate.py`` (the reference CLI's
      set-ups at 1,000 agents), one step on the card ≡ on the CPU after two
      on the card: integers and stats equal, floats atol/rtol 1e-4, the
-     diffusion grid within 1e-5 of its largest value (the card adds
-     secretion by atomics, in no fixed order);
+     diffusion grid within 1e-5 of its largest value;
  10. the engine's main path: the forces + SIR workload of
      benchmarks/breakdown.py at 1,048,576 agents (``--config breakdown``).
      First the column map and K1 against their plain versions on the first
@@ -74,7 +73,38 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      of ``force_eps``, at most 16 and each such a row: the sweep counts a
      pair by its force vector, K1 by the force's magnitude, two float32
      forms of one threshold), and one engine
-     step each (floats 1e-4, other integers and stats equal).
+     step each (floats 1e-4, other integers and stats equal);
+ 12. the pair-list build kernel ≡ its plain version, entry for entry (idx,
+     run_off, count, demand), on the forces + SIR step's pool at 1,048,576
+     agents, max_pairs 64 at skin 0 (benchmarks/breakdown.py's) and 16
+     (below the demand: overflow rows); kernel and plain times and the
+     kernel's bound;
+ 13. on the same inputs, the column map from the pair list ≡ its plain
+     version (fused with the pack, entry for entry), and K1 on that map ≡
+     K1 on the stencil map, bit for bit (force and nnz); K1's time on each
+     map, the map kernel's time and bound;
+ 14. the slice's main path at full width: ``Simulation.run(
+     check_overflow=True)`` for 10 steps of the forces + SIR configuration
+     at 1,048,576 agents (a) with ``PairListConfig(skin=0, max_pairs=64)``
+     and every-step rebuilds, first held against the streamed path after
+     one step (integers and force_nnz equal, positions 1e-4), and (b) with
+     ``RebuildPolicy("every_k", k=8, displacement_bound=0.75)`` and
+     ``PairListConfig(skin=1.5)``, max_pairs from a probe build; every
+     kernel's launch count is reset just before and read just after each
+     run; (b) must skip builds; ms/step, rebuilds and skips, pair demand,
+     and from four profiled steps device ops, idle share and the device
+     ms of ``step/pairlist_build``, ``grid/sweep`` and ``k1/kernel``,
+     printed beside phase 10's;
+ 15. reproducible secretion: the secretion kernel ≡ the plain CPU version
+     (``index_add`` in slot order), bit for bit, with 4,000 agents in 32³
+     voxels (the clustering run's shape), 65,536 agents in 8 voxels and
+     1,048,576 agents in 32³ voxels, two card runs bit-equal
+     (``index_add_`` on the card timed for the record); then the clustering
+     ``--pairlist`` configuration of examples/cell_clustering.py (4,000
+     agents, secretion, chemotaxis, forces from a pair list under
+     every_k) for 10 steps: card ≡ CPU (integers, rebuilds and skips
+     equal; floats 1e-4, the grid 1e-5 of its largest value) and two card
+     runs bit-equal, pools and grids.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and last ``{"ok": true, "device": {...}}``. Writes the same numbers to
@@ -104,6 +134,8 @@ PARITY_AGENTS = 8192
 SCENARIO_AGENTS = 1000               # phase 9, per scenario
 FRONT_SIDE = 100                     # phase 8: 100³ lattice agents
 CONC_RTOL = 1e-5
+CLUSTER_AGENTS, CLUSTER_STEPS = 4000, 10       # phase 15
+PROFILED_STEPS = 4                             # phase 14, per set-up
 # K2 cases: (name, B, Hq, Hkv, Sq, Sk, D, causal, dtype); the first is the
 # qwen2-1.5b prefill shape and the one the kernels line reports. Sq = Sk =
 # "first" or "shortest" is the length of that prompt of phase 7.
@@ -366,37 +398,63 @@ def phase_engine_cpu_parity(n: int, report: dict) -> None:
           f"max|Δ| {worst}, integer channels and stats equal", flush=True)
 
 
-def _timed_run(sim, st, steps: int):
-    """``sim.run(check_overflow=True)`` for ``steps`` steps with a sync at
-    each step's end. K1's and the column map's launch counts are reset just
-    before and read just after; each must equal ``steps``, and no health or
-    overflow flag may be set. Returns the state, each step's ms, the mean
-    ms per step and the launches."""
-    import torch
+def _counters() -> dict:
+    """Every kernel wrapper's launch counter, by the kernels line's name."""
     from repro_torch.kernels import block_cols as colmap
     from repro_torch.kernels import collision_force as k1
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import pair_cols, pairlist, secretion
+    return {"k1_collision_force": k1.collision_force,
+            "k1_column_map": colmap.column_map,
+            "k2_flash_attention": k2.flash_attention,
+            "pairlist_build": pairlist.build_list,
+            "k1_pair_cols": pair_cols.column_map_from_pairs,
+            "secretion": secretion.add}
+
+
+def _reset_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _timed_run(sim, st, steps: int, expect: dict | None = None):
+    """``sim.run(check_overflow=True)`` for ``steps`` steps with a sync at
+    each step's end. Every kernel's launch count is reset just before and
+    read just after; each named in ``expect`` must equal its value there
+    (default: K1 and the column map once a step), and no health or
+    overflow flag may be set. Returns the state, each step's ms, the mean
+    ms per step, the launches and the summed rebuilds and skips."""
+    import torch
     torch.cuda.synchronize()
-    stamps = []
+    stamps, rebuilds = [], []
+    expect = expect or {"k1_collision_force": steps,
+                        "k1_column_map": steps}
 
     def tick(i, state):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
+        rebuilds.append((int(state.stats["rebuilds"]),
+                         int(state.stats["rebuild_skips"])))
 
-    k1.collision_force.launches = 0
-    colmap.column_map.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     st = sim.run(st, steps, callback=tick, check_overflow=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"k1_collision_force": k1.collision_force.launches,
-                "k1_column_map": colmap.column_map.launches}
-    for name, count in launches.items():
-        check(count == steps, f"{name} launched {count} times in {steps} "
-                              f"steps")
+    launches = _read_counts()
+    for name, count in expect.items():
+        check(launches[name] == count, f"{name} launched {launches[name]} "
+                                       f"times in {steps} steps, not {count}")
     check(st.stats.health_bits() == 0, "health flags set")
     check(not st.stats.flags(), f"overflow flags {st.stats.flags()}")
     steps_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps[:-1], stamps)]
-    return st, steps_ms, wall * 1e3 / steps, launches
+    counts = {"rebuilds": sum(r for r, _ in rebuilds),
+              "rebuild_skips": sum(k for _, k in rebuilds)}
+    return st, steps_ms, wall * 1e3 / steps, launches, counts
 
 
 def phase_main_path(n: int, steps: int, report: dict) -> dict:
@@ -404,7 +462,7 @@ def phase_main_path(n: int, steps: int, report: dict) -> dict:
     from repro_torch.launch import simulate
 
     sim, st = simulate.build("proliferation", n, "fig6", device="cuda")
-    st, steps_ms, ms, launches = _timed_run(sim, st, steps)
+    st, steps_ms, ms, launches, _ = _timed_run(sim, st, steps)
     n_live = int(st.stats["n_live"])
     check(n_live >= n, f"population shrank to {n_live}")
     live = st.pool.position[:n_live]
@@ -683,9 +741,6 @@ def _served_requests() -> list:
 def phase_serve(report: dict) -> dict:
     import torch
     from repro_torch.configs import ARCHS
-    from repro_torch.kernels import block_cols as colmap
-    from repro_torch.kernels import collision_force as k1
-    from repro_torch.kernels import flash_attention as k2
     from repro_torch.launch import serve_lm
     from repro_torch.models import build_model
 
@@ -696,15 +751,11 @@ def phase_serve(report: dict) -> dict:
     reqs = _served_requests()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    k1.collision_force.launches = 0
-    colmap.column_map.launches = 0
-    k2.flash_attention.launches = 0
+    _reset_counts()
     rep = serve_lm.serve(model, params, reqs, slots=SERVE["slots"],
                          s_max=SERVE["s_max"], page_size=SERVE["page_size"],
                          n_pages=SERVE["n_pages"])
-    launches = {"k1_collision_force": k1.collision_force.launches,
-                "k1_column_map": colmap.column_map.launches,
-                "k2_flash_attention": k2.flash_attention.launches}
+    launches = _read_counts()
     summ = rep.summary()
     check(sorted(f.uid for f in rep.finished) == list(range(len(reqs))),
           f"finished {sorted(f.uid for f in rep.finished)}")
@@ -849,7 +900,7 @@ def phase_sir_main_path(n: int, steps: int, report: dict
 
     infected0 = int((st.pool.agent_type == INFECTED).sum())
     torch.cuda.reset_peak_memory_stats()
-    st, steps_ms, ms, launches = _timed_run(sim, st, steps)
+    st, steps_ms, ms, launches, _ = _timed_run(sim, st, steps)
     n_live = int(st.stats["n_live"])
     check(n_live == n, f"population changed to {n_live}")
     alive = st.pool.alive
@@ -1025,6 +1076,395 @@ def phase_streamed_vs_k1(n: int, report: dict) -> dict:
     return rec
 
 
+def _breakdown_build(n: int, pairlist: str = "off"):
+    """The forces + SIR workload's simulation, initial state and first
+    resident build on the card."""
+    import torch
+    from repro_torch.core import engine as eng
+    from repro_torch.launch import simulate
+    sim, st = simulate.build("epidemiology", n, "breakdown", device="cuda",
+                             pairlist=pairlist)
+    origin = torch.zeros(3, device="cuda")
+    res = eng.build_env(sim.config, sim.spec, st.pool, origin,
+                        sim.config.cell_size)
+    return sim, st, res, origin
+
+
+def pairlist_bound(spec, grid, pool, pairs) -> tuple[float, str, dict]:
+    """Least time for one pair-list build: the pool's positions and alive
+    flags and the box tables read once, the table (idx, run_off, count,
+    demand) written once; against ~9 FP32 operations per candidate lane
+    these inputs give (each row's 9 runs, truncated at run_capacity)."""
+    from repro_torch.core import grid as grid_mod
+    from repro_torch.kernels import pairlist
+    c, p = pairs.idx.shape
+    m = grid.starts.shape[0]
+    _, n = grid_mod.run_bounds(spec, grid, pool.position)
+    lanes = int(n.clamp(max=spec.run_capacity)[pool.alive].sum())
+    moved = c * (12 + 1) + 8 * m + 12 + 4 * c * p + 40 * c + 4 * c + 4
+    ops = lanes * pairlist.OPS_PER_LANE
+    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = moved / PEAK_HBM_BYTES * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes), by, {"bytes": moved, "operations": ops,
+                                     "candidate_lanes": lanes}
+
+
+def phase_pairlist_build(n: int, report: dict):
+    """[12] the pair-list kernel ≡ its plain version at full width."""
+    import torch
+    from repro_torch.core import grid as grid_mod
+    sim, _, res, _ = _breakdown_build(n)
+    cfg, spec, pool, g = sim.config, sim.spec, res.pool, res.grid
+    r = cfg.interaction_radius
+    recs = {}
+    for mp in (64, 16):
+        kw = dict(radius=r, max_pairs=mp, chunk=cfg.query_chunk)
+        got = grid_mod.build_pairlist(spec, g, pool.position, pool.alive,
+                                      **kw)
+        torch.cuda.synchronize()
+        want = grid_mod.build_pairlist_plain(spec, g, pool.position,
+                                             pool.alive, **kw)
+        torch.cuda.synchronize()
+        for f in ("idx", "run_off", "count", "demand"):
+            check(torch.equal(getattr(got, f), getattr(want, f)),
+                  f"pair list differs from plain in {f} (max_pairs {mp})")
+        demand = int(got.demand)
+        over = int((got.count > mp).sum())
+        check((demand > mp) == (mp == 16), f"max_pairs {mp}: demand "
+                                           f"{demand}")
+        ms = cuda_ms(lambda: grid_mod.build_pairlist(
+            spec, g, pool.position, pool.alive, **kw), iters=20, warmup=3)
+        plain_ms = cuda_ms(lambda: grid_mod.build_pairlist_plain(
+            spec, g, pool.position, pool.alive, **kw), iters=2, warmup=0)
+        bound_ms, bound_by, work = pairlist_bound(spec, g, pool, got)
+        recs[mp] = {"max_pairs": mp, "demand": demand, "rows_over": over,
+                    "pairs_listed": int(got.run_off[:, 9].sum()),
+                    "equal": True, "max_abs_err": 0.0, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None, **work}
+        print(f"[12] pair-list build, {n} agents, radius {r}, max_pairs "
+              f"{mp}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); idx, run_off, count and "
+              f"demand equal (demand {demand}, {over} rows over max_pairs, "
+              f"{recs[mp]['pairs_listed']} pairs listed, "
+              f"{work['candidate_lanes']} candidate lanes)", flush=True)
+    report["pairlist_build"] = recs
+    return recs[64]
+
+
+def pairs_map_bound(pool, pairs, data_t, cols) -> tuple[float, str, dict]:
+    """Least time for one fused pairs column-map launch: the pool channels
+    and each active row's run_off entry and stored pair entries read once,
+    data_t, the row mask, block_cols and the flag written once."""
+    c, n_pad = pool.position.shape[0], data_t.shape[1]
+    act = pool.alive
+    stored = int(pairs.run_off[:, 9][act].sum())
+    moved = (c * (12 + 4 + 4 + 1 + 1) + 4 * int(act.sum()) + 4 * stored
+             + data_t.numel() * 4 + n_pad + cols.numel() * 4 + 4)
+    return moved / PEAK_HBM_BYTES * 1e3, "bytes", {"bytes": moved,
+                                                   "stored_entries": stored}
+
+
+def phase_pairs_map(n: int, report: dict):
+    """[13] the pairs column map ≡ plain; K1 on it ≡ K1 on the stencil
+    map, bit for bit."""
+    import torch
+    from repro_torch.core import grid as grid_mod
+    from repro_torch.kernels import collision_force as k1, ops
+    sim, _, res, origin = _breakdown_build(n)
+    cfg, spec, pool, g = sim.config, sim.spec, res.pool, res.grid
+    pairs = grid_mod.build_pairlist(spec, g, pool.position, pool.alive,
+                                    radius=cfg.interaction_radius,
+                                    max_pairs=64, chunk=cfg.query_chunk)
+    args = (pool.position, pool.diameter, pool.agent_type, pool.alive,
+            pool.alive, g.starts, g.counts, origin, cfg.cell_size,
+            spec.dims, 64)
+    got = ops.k1_inputs(*args, pairs)
+    torch.cuda.synchronize()
+    want = ops.k1_inputs_plain(*args, pairs)
+    torch.cuda.synchronize()
+    for gt, w, what in zip(got, want, ("data_t", "block_cols", "overflow",
+                                       "row mask")):
+        check(gt.dtype == w.dtype and torch.equal(gt, w),
+              f"pairs column map differs from plain in {what}")
+    check(not bool(got[2]), "pairs column map overflow")
+    data_t, cols_p = got[0], got[1]
+    cols_s = ops.k1_inputs(*args)[1]
+    kw = dict(k_rep=cfg.force.k_rep, adhesion=None,
+              adhesion_band=cfg.force.adhesion_band)
+    out_p = k1.collision_force(data_t, cols_p, **kw)
+    out_s = k1.collision_force(data_t, cols_s, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(out_p, out_s),
+          f"K1 on the pairs map differs from K1 on the stencil map: force "
+          f"{float((out_p[:3] - out_s[:3]).abs().max())}, nnz rows "
+          f"{int((out_p[3] != out_s[3]).sum())}")
+    ms = cuda_ms(lambda: ops.k1_inputs(*args, pairs), iters=20, warmup=3)
+    plain_ms = cuda_ms(lambda: ops.k1_inputs_plain(*args, pairs), iters=2,
+                       warmup=0)
+    k1_pairs_ms = cuda_ms(lambda: k1.collision_force(data_t, cols_p, **kw),
+                          iters=20, warmup=3)
+    k1_stencil_ms = cuda_ms(lambda: k1.collision_force(data_t, cols_s,
+                                                       **kw),
+                            iters=20, warmup=3)
+    bound_ms, bound_by, work = pairs_map_bound(pool, pairs, data_t, cols_p)
+    k1_bound_ms, k1_by, k1_work = k1_bound(data_t, cols_p, None,
+                                           cfg.force.adhesion_band)
+    tiles_s = int((cols_s >= 0).sum())
+    rec = {"agents": n, "equal": True, "max_abs_err": 0.0, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None, "k1_equal_bitwise": True,
+           "k1_pairs_map_ms": k1_pairs_ms, "k1_stencil_map_ms": k1_stencil_ms,
+           "k1_pairs_map_bound_ms": k1_bound_ms,
+           "k1_pairs_map_bound_by": k1_by,
+           "tiles_pairs_map": k1_work["tiles"], "tiles_stencil_map": tiles_s,
+           **work}
+    report["pairs_map"] = rec
+    print(f"[13] pairs column map, {n} agents: kernel (fused with the pack) "
+          f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}); block_cols, flag, data_t and row mask equal; K1 on "
+          f"the pairs map ≡ K1 on the stencil map bit for bit (force and "
+          f"nnz): {k1_pairs_ms:.4f} ms on {k1_work['tiles']} tiles against "
+          f"{k1_stencil_ms:.4f} ms on {tiles_s} (bound on the pairs map "
+          f"{k1_bound_ms:.4f} ms, {k1_by})", flush=True)
+    return rec
+
+
+def _profiled(sim, st, steps: int) -> dict:
+    from repro_torch.launch.profile_step import profile_steps
+    _, prof = profile_steps(sim, st, steps)
+    rng = prof["ranges"]
+
+    def dev_ms(name):
+        return rng.get(name, {"device_ms": 0.0})["device_ms"]
+    return {"device_ops_per_step": prof["launches"],
+            "device_busy_ms_per_step": prof["device_busy_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "ms_per_step_profiled": prof["ms_per_step_profiled"],
+            "profiled_rebuilds": prof["rebuilds"],
+            "profiled_skips": prof["rebuild_skips"],
+            "pairlist_build_device_ms": dev_ms("step/pairlist_build"),
+            "sweep_device_ms": dev_ms("grid/sweep"),
+            "k1_device_ms": dev_ms("k1/kernel"), "profile": prof}
+
+
+def phase_pairlist_main_path(n: int, steps: int, report: dict,
+                             streamed: dict) -> dict:
+    """[14] the slice's main path at full width, (a) and (b)."""
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.launch import simulate
+
+    # (a) against the streamed path after one step
+    sim_a, st0 = simulate.build("epidemiology", n, "breakdown",
+                                device="cuda", pairlist="skin0")
+    sim_s, _ = simulate.build("epidemiology", n, "breakdown", device="cuda")
+    want = convert.state_to_numpy(sim_s.step(st0))
+    got = convert.state_to_numpy(sim_a.step(st0))
+    worst = 0.0
+    for k, w in want["pool"].items():
+        g = got["pool"][k]
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4,
+                                       err_msg=f"[14a] vs streamed: {k}")
+            worst = max(worst, float(np.abs(g - w).max()))
+        else:
+            check(np.array_equal(g, w), f"[14a] vs streamed: {k} differs")
+    for f in ("n_live", "births", "deaths", "box_overflow", "box_demand"):
+        check(np.array_equal(got["stats"][f], want["stats"][f]),
+              f"[14a] vs streamed: stat {f} differs")
+    print(f"[14a] one step with the skin-0 pair list ≡ the streamed path: "
+          f"integer channels (Infection's, force_nnz) equal, max|Δ| of "
+          f"floats {worst:.3g}", flush=True)
+    del want, got
+    recs = {}
+    for key, mode in (("a", "skin0"), ("b", "reuse")):
+        sim, st = simulate.build("epidemiology", n, "breakdown",
+                                 device="cuda", pairlist=mode)
+        torch.cuda.reset_peak_memory_stats()
+        st, steps_ms, ms, launches, counts = _timed_run(
+            sim, st, steps, {"k1_collision_force": steps,
+                             "k1_pair_cols": steps, "k1_column_map": 0})
+        check(launches["pairlist_build"] == counts["rebuilds"],
+              f"[14{key}] {launches['pairlist_build']} pair-list builds in "
+              f"{counts['rebuilds']} rebuilds")
+        if key == "a":
+            check(counts["rebuilds"] == steps, "[14a] skipped a build")
+        else:
+            check(counts["rebuild_skips"] > 0, "[14b] no build was skipped")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(int(st.stats["n_live"]) == n and bool(torch.isfinite(
+            st.pool.position[st.pool.alive]).all()), f"[14{key}] pool")
+        prof = _profiled(sim, st, PROFILED_STEPS)
+        rec = {"pairlist": mode, "config": dataclasses.asdict(
+                   sim.config.pairlist) | {"rebuild": dataclasses.asdict(
+                       sim.config.rebuild)},
+               "agents": n, "steps": steps, "ms_per_step": ms,
+               "ms_per_step_median": statistics.median(steps_ms),
+               "agent_steps_per_s": n * 1e3 / ms, "launches": launches,
+               "pair_demand": int(st.stats["pair_demand"]),
+               "peak_memory_gb": peak_gb, **counts, **prof}
+        recs[key] = rec
+        print(f"[14{key}] pair list {mode} (max_pairs "
+              f"{sim.config.pairlist.max_pairs}, skin "
+              f"{sim.config.pairlist.skin}, rebuild "
+              f"{sim.config.rebuild.mode} k {sim.config.rebuild.k}): {n} "
+              f"agents x {steps} steps, {ms:.2f} ms/step (median "
+              f"{rec['ms_per_step_median']:.2f}), "
+              f"{rec['agent_steps_per_s']:.4g} agent-steps/s; rebuilds "
+              f"{counts['rebuilds']}, skips {counts['rebuild_skips']}; "
+              f"pair_demand {rec['pair_demand']}; launches: pair-list build "
+              f"{launches['pairlist_build']}, pairs map "
+              f"{launches['k1_pair_cols']}, K1 "
+              f"{launches['k1_collision_force']}; peak memory "
+              f"{peak_gb:.2f} GB", flush=True)
+        print(f"[14{key}] profiled ({PROFILED_STEPS} steps, "
+              f"{prof['profiled_rebuilds']} rebuilds): "
+              f"{prof['device_ops_per_step']:.0f} device ops/step, busy "
+              f"{prof['device_busy_ms_per_step']:.3f} ms of "
+              f"{prof['ms_per_step_profiled']:.2f}, idle share "
+              f"{prof['device_idle_share']:.3f}; step/pairlist_build "
+              f"{prof['pairlist_build_device_ms']:.3f} ms, grid/sweep "
+              f"{prof['sweep_device_ms']:.3f} ms, k1/kernel "
+              f"{prof['k1_device_ms']:.3f} ms per step", flush=True)
+    print(f"[14] beside phase 10's streamed path: "
+          f"{streamed['ms_per_step']:.2f} ms/step, idle {streamed['device_idle_share']:.3f}, grid/sweep "
+          f"{streamed['sweep_device_ms_per_step']:.3f} ms, peak "
+          f"{streamed['peak_memory_gb']:.2f} GB", flush=True)
+    report["pairlist_main_path"] = recs
+    return recs
+
+
+def _secretion_inputs(n: int, dims, seed: int):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.0, dims[0], (n, 3)).astype(np.float32)
+    amount = (rng.uniform(1.0, 2.0, n) * 2.0 ** rng.integers(-5, 5, n)
+              * rng.choice([-1.0, 1.0], n)).astype(np.float32)
+    conc = rng.uniform(0.0, 1.0, dims).astype(np.float32)
+    return pos, amount, conc
+
+
+def phase_secretion(report: dict) -> dict:
+    """[15] secretion reproducible on the card, ≡ the CPU; then the
+    clustering --pairlist configuration card ≡ CPU and card ≡ card."""
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.core import diffusion
+    recs = []
+    # the clustering run's shape (the kernels line's), many agents per
+    # voxel, and a million agents
+    for n, dims in ((CLUSTER_AGENTS, (32, 32, 32)), (65_536, (2, 2, 2)),
+                    (1_048_576, (32, 32, 32))):
+        spec = diffusion.DiffusionSpec(dims=dims, voxel=1.0)
+        pos, amount, conc = _secretion_inputs(n, dims, 3)
+        cpu = [torch.from_numpy(x) for x in (conc, pos, amount)]
+        gpu = [x.cuda() for x in cpu]
+        o_c, o_g = torch.zeros(3), torch.zeros(3, device="cuda")
+        want = diffusion.add_sources(spec, *cpu, o_c)
+        runs = [diffusion.add_sources(spec, *gpu, o_g) for _ in range(2)]
+        torch.cuda.synchronize()
+        check(torch.equal(runs[0], runs[1]), "secretion: two card runs "
+                                             "differ")
+        check(torch.equal(runs[0].cpu(), want), "secretion: card differs "
+                                                "from the CPU's slot order")
+        flat = diffusion._flat(spec, diffusion.voxel_of(spec, gpu[1], o_g))
+        lib = gpu[0].reshape(-1).clone()
+        ms = cuda_ms(lambda: diffusion.add_sources(spec, *gpu, o_g),
+                     iters=20, warmup=3)
+        lib_ms = cuda_ms(lambda: lib.index_add_(0, flat, gpu[2]), iters=20,
+                         warmup=3)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            diffusion.add_sources(spec, *cpu, o_c)
+        plain_ms = (time.perf_counter() - t0) * 1e3 / 3
+        v = int(np.prod(dims))
+        moved = 4 * v + 12 * n + 8 * n + 4 * n + 4 * v
+        bound_ms = moved / PEAK_HBM_BYTES * 1e3
+        rec = {"agents": n, "voxels": v, "equal": True, "max_abs_err": 0.0,
+               "ms": ms, "plain_ms": plain_ms, "plain_device": "cpu",
+               "library_ms": lib_ms, "bound_ms": bound_ms,
+               "bound_by": "bytes", "bytes": moved}
+        recs.append(rec)
+        print(f"[15] secretion, {n} agents into {v} voxels: kernel "
+              f"{ms:.4f} ms (sort included), plain (index_add on the CPU, "
+              f"host clock) {plain_ms:.2f} ms, index_add_ on the card "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes); two card "
+              f"runs and the CPU bit-equal", flush=True)
+
+    # the clustering --pairlist configuration, card ≡ CPU, card ≡ card
+    def run(dev):
+        sim, st = _clustering_pairlist(dev)
+        _reset_counts()
+        out, counts = [], []
+        for _ in range(CLUSTER_STEPS):
+            st = sim.run(st, 1, check_overflow=True)
+            counts.append((int(st.stats["rebuilds"]),
+                           int(st.stats["rebuild_skips"])))
+        return convert.state_to_numpy(st), counts, _read_counts()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)               # as phase 2
+    try:
+        want, want_counts, _ = run("cpu")
+    finally:
+        torch.set_num_threads(threads)
+    got, got_counts, launches = run("cuda")
+    again, again_counts, _ = run("cuda")
+    check(got_counts == want_counts, f"[15] rebuild schedule differs: card "
+                                     f"{got_counts}, CPU {want_counts}")
+    check(launches["secretion"] == CLUSTER_STEPS,
+          f"[15] secretion launched {launches['secretion']} times")
+    worst = _card_vs_cpu(want, got, "[15] clustering --pairlist")
+    for k, w in got["pool"].items():
+        check(np.array_equal(again["pool"][k], w), f"[15] two card runs "
+                                                   f"differ in {k}")
+    check(np.array_equal(again["conc"], got["conc"]), "[15] two card runs "
+                                                      "differ in the grid")
+    check(again_counts == got_counts, "[15] two card runs rebuild apart")
+    rebuilds = sum(r for r, _ in got_counts)
+    check(0 < rebuilds < CLUSTER_STEPS, f"[15] rebuilds {rebuilds}")
+    rec = {"kernel": recs, "clustering": {
+        "agents": CLUSTER_AGENTS, "steps": CLUSTER_STEPS,
+        "rebuilds": rebuilds, "rebuild_skips": CLUSTER_STEPS - rebuilds,
+        "launches": launches, "max_abs_diff_vs_cpu": worst,
+        "card_runs_bit_equal": True}}
+    report["secretion"] = rec
+    print(f"[15] clustering --pairlist, {CLUSTER_AGENTS} agents x "
+          f"{CLUSTER_STEPS} steps: card ≡ CPU (rebuilds {rebuilds}, skips "
+          f"{CLUSTER_STEPS - rebuilds}, equal; integers and stats equal; "
+          f"max|Δ| {worst}); two card runs bit-equal, pools and grids; "
+          f"secretion launches {launches['secretion']}", flush=True)
+    return rec
+
+
+def _clustering_pairlist(device):
+    """examples/cell_clustering.py --pairlist: 4,000 agents secreting and
+    climbing a 32³ diffusion grid, with contact forces from a skin-1.5 pair
+    list reused under every_k (k 8, displacement bound 0.75), seed 4."""
+    import numpy as np
+    from repro_torch.core import (Chemotaxis, DiffusionSpec, EngineConfig,
+                                  ForceParams, PairListConfig, RebuildPolicy,
+                                  Secretion, Simulation)
+    skin, n, side = 1.5, CLUSTER_AGENTS, 64.0
+    cfg = EngineConfig(
+        capacity=n, domain_lo=(0, 0, 0), domain_hi=(side,) * 3,
+        interaction_radius=3.0, query_chunk=4096,
+        diffusion=DiffusionSpec(dims=(32, 32, 32), coefficient=0.5,
+                                decay=0.01, voxel=2.0),
+        use_forces=True, force=ForceParams(max_displacement=0.25),
+        rebuild=RebuildPolicy(mode="every_k", k=8,
+                              displacement_bound=skin / 2),
+        pairlist=PairListConfig(skin=skin, max_pairs=64))
+    sim = Simulation(cfg, [Secretion(rate=2.0), Chemotaxis(speed=0.35)],
+                     device=device)
+    pos = np.random.default_rng(4).uniform(4, side - 4, (n, 3)).astype(
+        np.float32)
+    return sim, sim.init_state(pos, diameter=np.full(n, 2.0, np.float32))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1050,7 +1490,8 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     print(f"[0] built {sorted(libs)} in {report['build_s']:.1f} s", flush=True)
     report["build_logs"] = dict(build.BUILD_LOGS)
-    for name in ("collision_force", "block_cols"):
+    for name in ("collision_force", "block_cols", "pairlist", "pair_cols",
+                 "secretion"):
         for line in build.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}", flush=True)
@@ -1070,6 +1511,11 @@ def main() -> int:
     sir_rec, cm_big, big = phase_sir_main_path(MAIN_AGENTS, MAIN_STEPS,
                                                report)
     phase_streamed_vs_k1(MAIN_AGENTS, report)
+    pl_rec = phase_pairlist_build(MAIN_AGENTS, report)
+    pm_rec = phase_pairs_map(MAIN_AGENTS, report)
+    main_b = phase_pairlist_main_path(MAIN_AGENTS, MAIN_STEPS, report,
+                                      sir_rec)["b"]
+    sec = phase_secretion(report)
 
     # K1 and the column map: the main path's launches beside their check
     # and times on that path's first-step inputs (phase 10)
@@ -1099,6 +1545,23 @@ def main() -> int:
         "bound_ms": k2_recs[0]["bound_ms"],
         "bound_by": k2_recs[0]["bound_by"],
         "library_ms": k2_recs[0]["library_ms"]}]
+    # this slice's kernels: launches from phase 14 (b) and the clustering
+    # run of phase 15, times from phases 12, 13 and 15 (at the clustering
+    # run's shape)
+    for name, src, ref, count, rec in (
+            ("pairlist_build", "pairlist.cu", "src/repro/core/grid.py:602",
+             main_b["launches"]["pairlist_build"], pl_rec),
+            ("k1_pair_cols", "pair_cols.cu", "src/repro/kernels/ops.py:98",
+             main_b["launches"]["k1_pair_cols"], pm_rec),
+            ("secretion", "secretion.cu",
+             "src/repro/core/diffusion.py:68",
+             sec["clustering"]["launches"]["secretion"], sec["kernel"][0])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": ref, "launches": count,
+            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}})
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

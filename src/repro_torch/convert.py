@@ -18,11 +18,17 @@ dict :func:`state_from_numpy` reads::
      "rng": (2,) uint32,                    # raw threefry key
      "iteration": () int32,
      "stats": {field: () int32, ...},       # StepStats.FIELDS
-     "conc": (X, Y, Z) float32}             # the diffusion grid; optional
+     "conc": (X, Y, Z) float32,             # the diffusion grid; optional
+     "env": {...} or None}                  # every_k's cache; optional
 
 The behaviors' extra channels (``extra.infect_timer``,
 ``extra.direction``, ``extra.path_len``) travel as pool channels, the
-diffusion grid as ``conc``.
+diffusion grid as ``conc``. The cache of ``RebuildPolicy("every_k")``
+(``EngineState.env``, a ``RebuildState``) travels as ``{"grid": {origin,
+box_size, keys, order, rank, starts, counts, max_count, max_run_count},
+"steps_since", "disp_accum", "dirty", "pairs": {idx, run_off, count,
+demand} or None, "pair_disp": array or None}``, so a state with a warm
+cache steps on in the port as it would have in the reference.
 
 Dtypes are kept (uint32 keys become int64 holding the same values), so
 :func:`state_to_numpy` returns arrays equal, bit for bit, to the input.
@@ -37,6 +43,7 @@ import torch
 
 from .core.agents import pool_from_channels
 from .core.engine import EngineState
+from .core.grid import GridState, PairList, RebuildState
 from .core.stats import StepStats
 from .device import DeviceLike, resolve_device
 
@@ -62,18 +69,57 @@ def state_from_numpy(leaves: Dict[str, Any], device: DeviceLike = None
                        rng=_to_torch(leaves["rng"], dev),
                        iteration=_to_torch(leaves["iteration"],
                                            dev).to(torch.int32),
-                       stats=stats)
+                       stats=stats, env=_env_from_numpy(leaves.get("env"),
+                                                        dev))
+
+
+_GRID_FIELDS = ("origin", "keys", "order", "rank", "starts", "counts",
+                "max_count", "max_run_count")
+_PAIR_FIELDS = ("idx", "run_off", "count", "demand")
+
+
+def _env_from_numpy(env: Optional[Dict[str, Any]], dev: torch.device
+                    ) -> Optional[RebuildState]:
+    if env is None:
+        return None
+    g = env["grid"]
+    grid = GridState(box_size=float(np.asarray(g["box_size"])),
+                     **{f: _to_torch(g[f], dev) for f in _GRID_FIELDS})
+    pairs = env.get("pairs")
+    if pairs is not None:
+        pairs = PairList(**{f: _to_torch(pairs[f], dev)
+                            for f in _PAIR_FIELDS})
+    pair_disp = env.get("pair_disp")
+    return RebuildState(
+        grid=grid, pairs=pairs,
+        pair_disp=None if pair_disp is None else _to_torch(pair_disp, dev),
+        **{f: _to_torch(env[f], dev)
+           for f in ("steps_since", "disp_accum", "dirty")})
 
 
 def state_to_numpy(state: EngineState) -> Dict[str, Any]:
     """Inverse of :func:`state_from_numpy` (keys back to uint32)."""
     def arr(t: torch.Tensor) -> np.ndarray:
         return t.detach().cpu().numpy()
-    return {"pool": {k: arr(v) for k, v in state.pool.channels().items()},
-            "rng": arr(state.rng).astype(np.uint32),
-            "iteration": arr(state.iteration),
-            "stats": {f: arr(state.stats[f]) for f in StepStats.FIELDS},
-            "conc": arr(state.conc)}
+    out = {"pool": {k: arr(v) for k, v in state.pool.channels().items()},
+           "rng": arr(state.rng).astype(np.uint32),
+           "iteration": arr(state.iteration),
+           "stats": {f: arr(state.stats[f]) for f in StepStats.FIELDS},
+           "conc": arr(state.conc), "env": None}
+    env = state.env
+    if env is not None:
+        grid = {f: arr(getattr(env.grid, f)) for f in _GRID_FIELDS}
+        grid["keys"] = grid["keys"].astype(np.uint32)
+        grid["box_size"] = np.float32(env.grid.box_size)
+        out["env"] = {
+            "grid": grid,
+            **{f: arr(getattr(env, f))
+               for f in ("steps_since", "disp_accum", "dirty")},
+            "pairs": None if env.pairs is None else {
+                f: arr(getattr(env.pairs, f)) for f in _PAIR_FIELDS},
+            "pair_disp": None if env.pair_disp is None
+            else arr(env.pair_disp)}
+    return out
 
 
 def _leaf_from_numpy(a: Any, device: torch.device) -> torch.Tensor:

@@ -31,7 +31,7 @@ def torch_dtype(dt: Any) -> torch.dtype:
 class DtypePolicy:
     """Per-channel storage dtypes. Only the float32 policy is ported: the
     narrowed policies (bf16/f16 aux channels, int16 ints) are ROADMAP.md
-    Queue 1 item 11."""
+    Queue 1 item 11b."""
 
     aux_float: str = "float32"
     compact_ints: bool = False
@@ -41,7 +41,7 @@ class DtypePolicy:
             raise NotImplementedError(
                 "narrowed DtypePolicy (aux_float != 'float32' or "
                 "compact_ints=True) is not ported yet (ROADMAP.md Queue 1 "
-                "item 11)")
+                "item 11b)")
 
     @property
     def aux_dtype(self) -> torch.dtype:

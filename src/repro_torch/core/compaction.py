@@ -1,7 +1,7 @@
 """Agent removal and addition as prefix-sum stream compaction (port of
 ``repro.core.compaction``: the commit phase of the step, and the active
 index and block lists of static-region skipping). The capacity ladder's
-restage helpers are ROADMAP.md Queue 1 item 11."""
+restage helpers are ROADMAP.md Queue 1 item 11b."""
 
 from __future__ import annotations
 

@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels import secretion
+
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionSpec:
@@ -87,10 +89,13 @@ def _flat(spec: DiffusionSpec, v: torch.Tensor) -> torch.Tensor:
 def add_sources(spec: DiffusionSpec, conc: torch.Tensor,
                 position: torch.Tensor, amount: torch.Tensor,
                 origin: torch.Tensor) -> torch.Tensor:
-    """Add per-agent secretion into the voxel grid. On the CPU the amounts
-    of one voxel are added in slot order, as XLA:CPU's scatter does; on the
-    card ``index_add_`` adds them by atomics, in no fixed order."""
+    """Add per-agent secretion into the voxel grid, each voxel's amounts in
+    slot order, as XLA:CPU's scatter does: ``index_add`` on the CPU, the
+    secretion kernel on the card (``kernels/secretion.add``; the card's
+    ``index_add`` adds by atomics, in no fixed order)."""
     idx = _flat(spec, voxel_of(spec, position, origin))
+    if conc.device.type != "cpu":
+        return secretion.add(conc, idx, amount)
     return conc.reshape(-1).index_add(0, idx, amount.to(conc.dtype)
                                       ).reshape(conc.shape)
 

@@ -9,15 +9,19 @@ secretion → health watchdog → death compaction and birth commit →
 statistics.
 
 PyTorch runs eagerly, so the step is plain Python over tensors on one
-device; it never reads a device value on the host (no synchronisation)
-except where ``run(check_overflow=True)`` reads the flags.
+device. With every-step rebuilds it never reads a device value on the host
+(no synchronisation) except where ``run(check_overflow=True)`` reads the
+flags. Under ``RebuildPolicy(mode="every_k")`` each step reads one flag,
+whether to rebuild, from the carried cache at its start: the reference
+skips the build with ``lax.cond``, and computing both branches would pay
+for the build it means to skip.
 
-The port runs ``environment="uniform_grid"`` with every-step rebuilds, no
-pair list and the float32 dtype policy; forces come from K1
-(``force_impl="k1"``: the CUDA kernel on the card, its plain version on the
-CPU) or from the streamed sweep (``"streamed"``, the reference's ``"xla"``).
-Every other option raises ``NotImplementedError`` naming its ROADMAP.md
-item.
+The port runs ``environment="uniform_grid"``, every-step or every_k
+rebuilds, with or without a Verlet pair list, and the float32 dtype
+policy; forces come from K1 (``force_impl="k1"``: the CUDA kernel on the
+card, its plain version on the CPU) or from the streamed sweep
+(``"streamed"``, the reference's ``"xla"``). Every other option raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -131,7 +135,8 @@ class EngineState:
     rng: torch.Tensor               # (2,) int64 holding a uint32 key
     iteration: torch.Tensor         # () int32
     stats: StepStats
-    env: Optional[Any] = None       # cached build (every_k; later slice)
+    env: Optional[grid_mod.RebuildState] = None
+    # the cached build carried across steps (every_k); None under every_step
 
 
 @dataclasses.dataclass
@@ -165,16 +170,10 @@ def build_env(cfg: EngineConfig, spec: grid_mod.GridSpec, pool: AgentPool,
 
 def _check_slice(cfg: EngineConfig) -> None:
     """Raise NotImplementedError for every option the port does not run."""
-    todo = []
     if cfg.environment != "uniform_grid":
-        todo.append(f"environment={cfg.environment!r} (item 12)")
-    if cfg.rebuild.mode != "every_step":
-        todo.append("rebuild.mode='every_k' (item 11)")
-    if cfg.pairlist is not None:
-        todo.append("pairlist (item 11)")
-    if todo:
         raise NotImplementedError(
-            "not ported yet (ROADMAP.md Queue 1): " + "; ".join(todo))
+            f"not ported yet (ROADMAP.md Queue 1): "
+            f"environment={cfg.environment!r} (item 12)")
 
 
 def make_neighbor_apply(cfg: EngineConfig, spec: grid_mod.GridSpec,
@@ -291,21 +290,66 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
     def zeros_i32():
         return torch.zeros((), dtype=torch.int32, device=device)
 
+    use_cache = cfg.rebuild.mode == "every_k"
+    pl = cfg.pairlist
+    pair_radius = cfg.interaction_radius + pl.skin if pl is not None else 0.0
+
+    def build_pairs(pool: AgentPool, grid_env: grid_mod.GridState
+                    ) -> Optional[grid_mod.PairList]:
+        if pl is None:
+            return None
+        with record_function("step/pairlist_build"):
+            return grid_mod.build_pairlist(
+                spec, grid_env, pool.position, pool.alive,
+                radius=pair_radius, max_pairs=pl.max_pairs,
+                chunk=cfg.query_chunk)
+
+    def do_build(env: grid_mod.RebuildState) -> bool:
+        """The reference's rebuild test, read on the host: the cache is
+        dirty, its k steps are spent, the per-axis displacement exceeds the
+        widened boxes' slack, or the euclidean one half the skin."""
+        flag = (env.dirty | (env.steps_since >= cfg.rebuild.k)
+                | (env.disp_accum > cfg.rebuild.displacement_bound))
+        if pl is not None:
+            flag = flag | (2.0 * env.pair_disp > pl.skin)
+        return bool(flag)
+
     def core(pool: AgentPool, conc: torch.Tensor, rng: torch.Tensor,
-             it: torch.Tensor, env=None):
+             it: torch.Tensor, env: Optional[grid_mod.RebuildState] = None):
+        # under every_k the step's one host read, first, from the carried
+        # cache: every value it needs was computed by the previous step
+        rebuild = not use_cache or do_build(env)
         keys = rand.split(rng, 2 + len(behaviors))
         rng, bkeys = keys[0], keys[2:]           # keys[1]: the force key
         stats = StepStats.zeros(device)
         dt = cfg.dt
 
         # ---------------- pre standalone ops ----------------
-        with record_function("step/grid_build"):
-            res = build_env(cfg, spec, pool, origin, box_size)
-        pool, grid_env = res.pool, res.grid
+        if rebuild:
+            with record_function("step/grid_build"):
+                res = build_env(cfg, spec, pool, origin, box_size)
+            pool, grid_env = res.pool, res.grid
+            pairs = build_pairs(pool, grid_env)
+            if use_cache:
+                f32 = torch.zeros((), dtype=torch.float32, device=device)
+                env = grid_mod.RebuildState(
+                    grid=grid_env, steps_since=zeros_i32(), disp_accum=f32,
+                    dirty=torch.zeros((), dtype=torch.bool, device=device),
+                    pairs=pairs, pair_disp=f32 if pl is not None else None)
+        else:
+            # the cached tables index the layout their build left: no death
+            # or birth since (either marks the cache dirty)
+            grid_env, pairs = env.grid, env.pairs
         # query exactness bound: every 3-box z-run must fit run_capacity
         box_demand = grid_env.max_run_count.to(torch.int32)
         box_overflow = (grid_env.max_run_count
                         > spec.run_capacity).to(torch.int32)
+        pair_overflow, pair_demand = stats.pair_overflow, stats.pair_demand
+        if pairs is not None:
+            # never silent: a row demanding more than max_pairs entries
+            # lost the rest of its list
+            pair_demand = pairs.demand
+            pair_overflow = (pairs.demand > pl.max_pairs).to(torch.int32)
 
         if diff_ops is not None:
             with record_function("step/diffusion"):
@@ -352,14 +396,16 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
                         spec, grid_env, channels_full, kernels,
                         default_mask=owned_alive, origin=origin,
                         box_size=box_size, k_rep=fp.k_rep, adhesion=adhesion,
-                        adhesion_band=fp.adhesion_band, chunk=cfg.query_chunk)
+                        adhesion_band=fp.adhesion_band, chunk=cfg.query_chunk,
+                        pairs=pairs)
                     # a column-map overflow means possibly-missed pairs: the
                     # same never-silent flag as a run overflow
                     box_overflow = torch.maximum(box_overflow, ovf)
                 else:
                     nbr_results = grid_mod.resident_apply_fused(
                         spec, grid_env, channels_full, kernels,
-                        default_mask=owned_alive, chunk=cfg.query_chunk)
+                        default_mask=owned_alive, chunk=cfg.query_chunk,
+                        pairs=pairs)
 
         # ---------------- agent ops: forces ----------------
         force_arr = None                  # kept for the health guard below
@@ -431,6 +477,18 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
         grew = pool.diameter > dia0 + 1e-12
         pool = dataclasses.replace(pool, moved=moved & pool.alive,
                                    grew=grew & pool.alive)
+        if use_cache:
+            # the displacement budget spent this step: the largest per-axis
+            # |Δposition| (what the widened stencil's coverage consumes) and,
+            # for the pair list's skin, the largest euclidean ‖Δposition‖
+            zero = torch.zeros((), dtype=move_d.dtype, device=device)
+            step_disp = torch.where(pool.alive[:, None], move_d.abs(),
+                                    zero).max()
+            if pl is not None:
+                d2 = move_d[:, 0] * move_d[:, 0] + move_d[:, 1] * move_d[
+                    :, 1] + move_d[:, 2] * move_d[:, 2]
+                step_disp_eu = torch.sqrt(torch.where(pool.alive, d2,
+                                                      zero).max())
 
         # ---------------- health watchdog ----------------
         health = stats.health
@@ -453,7 +511,9 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
             # the build left the live agents in front, so with no deaths
             # this permutation is the identity: compacting unconditionally
             # equals the reference's `cond(deaths > 0, compact)` without a
-            # host read of `deaths`
+            # host read of `deaths`. A step that skipped its build keeps
+            # that layout: the step before it had no death or birth, or its
+            # cache would be dirty and this step would have rebuilt
             pool = compaction.compact(pool)
 
         births = zeros_i32()
@@ -465,14 +525,27 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
                 births = births + valid.sum(dtype=torch.int32)
                 pool = compaction.commit_births(pool, q, valid, it)
 
+        if use_cache:
+            # a death ran the compaction permutation and a birth filled a
+            # tail slot: either way the cached tables no longer describe the
+            # pool, so the next step rebuilds
+            env = dataclasses.replace(
+                env, steps_since=env.steps_since + 1,
+                disp_accum=env.disp_accum + step_disp,
+                dirty=(deaths > 0) | (births > 0),
+                **({"pairs": pairs, "pair_disp": env.pair_disp + step_disp_eu}
+                   if pl is not None else {}))
+
         n_live_end = pool.alive.sum(dtype=torch.int32)
+        rebuilt = (torch.ones if rebuild else torch.zeros)(
+            (), dtype=torch.int32, device=device)
         stats = dataclasses.replace(
             stats, n_live=n_live_end, n_active=n_active, births=births,
             deaths=deaths, box_overflow=box_overflow,
             birth_overflow=birth_overflow, box_demand=box_demand,
             capacity_demand=n_live_end + birth_overflow,
-            rebuilds=torch.ones((), dtype=torch.int32, device=device),
-            health=health)
+            pair_overflow=pair_overflow, pair_demand=pair_demand,
+            rebuilds=rebuilt, rebuild_skips=1 - rebuilt, health=health)
         return pool, conc, rng, stats, env
 
     return core
@@ -524,13 +597,20 @@ class Simulation:
                           diameter, agent_type, extra_init,
                           policy=self.config.dtypes, device=self.device)
         dspec = self.config.diffusion
+        env = None
+        if self.config.rebuild.mode == "every_k":
+            env = grid_mod.initial_rebuild_state(
+                self.spec, self.config.capacity,
+                torch.tensor(self.config.domain_lo, dtype=torch.float32,
+                             device=self.device),
+                self.config.cell_size, pairlist=self.config.pairlist)
         return EngineState(
             pool=pool,
             conc=torch.zeros(dspec.dims if dspec else (1, 1, 1),
                              dtype=torch.float32, device=self.device),
             rng=rand.prng_key(seed, self.device),
             iteration=torch.zeros((), dtype=torch.int32, device=self.device),
-            stats=StepStats.zeros(self.device))
+            stats=StepStats.zeros(self.device), env=env)
 
     def step(self, state: EngineState) -> EngineState:
         pool, conc, rng, stats, env = self._core(
@@ -558,6 +638,11 @@ class Simulation:
                     raise RuntimeError(
                         f"iteration {i}: birth overflow; raise "
                         f"EngineConfig.capacity")
+                if "pair_overflow" in flags:
+                    raise RuntimeError(
+                        f"iteration {i}: pair-list overflow (an agent has > "
+                        f"{self.config.pairlist.max_pairs} in-range(+skin) "
+                        f"candidates); raise PairListConfig.max_pairs")
             if callback is not None:
                 callback(i, state)
         return state

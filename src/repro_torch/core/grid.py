@@ -9,8 +9,11 @@ counts)`` tables then index the permuted pool directly.
 
 The streamed sweep (:func:`resident_apply`, :func:`resident_apply_fused`)
 evaluates pair kernels over each query row's 9 stencil z-runs of the
-resident pool. The sorted / scatter / hash builds are ROADMAP.md Queue 1
-item 12, the pair-list mode of the sweep item 11.
+resident pool. A Verlet pair list (:class:`PairList`, built by
+:func:`build_pairlist` from the same runs) lets the fused sweep evaluate
+only the candidates within ``r + skin``, and a :class:`RebuildState`
+carries the build across steps under ``RebuildPolicy(mode="every_k")``.
+The sorted / scatter / hash builds are ROADMAP.md Queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -19,12 +22,14 @@ import dataclasses
 from collections.abc import Mapping
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
 from . import compaction, morton
 from .agents import AgentPool
+from ..kernels import pairlist as pairlist_kernel
 
 # sort realizations of the reference; each yields the unique stable
 # permutation, which the port computes with one stable sort
@@ -34,8 +39,11 @@ BUILD_METHODS = ("resident", "sorted", "scatter", "hash")
 
 @dataclasses.dataclass(frozen=True)
 class RebuildPolicy:
-    """When the grid build runs. Only ``every_step`` is ported; ``every_k``
-    is ROADMAP.md Queue 1 item 11. Validation as in the reference."""
+    """When the grid build runs: ``every_step``, or ``every_k`` — at most
+    every ``k`` steps, and sooner when a structural change or an
+    accumulated per-axis displacement above ``displacement_bound`` (the
+    slack the grid's boxes are widened by) invalidates the cached tables.
+    Validation as in the reference."""
     mode: str = "every_step"
     k: int = 1
     displacement_bound: float = 0.0
@@ -63,8 +71,15 @@ class RebuildPolicy:
 
 @dataclasses.dataclass(frozen=True)
 class PairListConfig:
-    """Verlet pair-list settings (the stage itself is ROADMAP.md Queue 1
-    item 11). Validation as in the reference."""
+    """Verlet pair-list settings, as in the reference.
+
+    skin:      the list is built at ``interaction_radius + skin`` and covers
+               every in-range pair while each agent's euclidean displacement
+               since the build is ≤ ``skin/2``; skin 0 pairs with every-step
+               rebuilds.
+    max_pairs: P, the table's width per agent; a larger demand raises the
+               ``pair_overflow`` flag (never silent).
+    """
     skin: float = 0.0
     max_pairs: int = 32
 
@@ -122,6 +137,130 @@ class BuildResult(NamedTuple):
 def table_count_dtype(capacity: int) -> torch.dtype:
     """int16 while the pool fits int16, else int32 (as the reference)."""
     return torch.int16 if capacity < 2 ** 15 else torch.int32
+
+
+@dataclasses.dataclass
+class PairList:
+    """Compacted per-agent candidate table (the reference's Verlet list).
+
+    Rows list the candidates of the 9 streamed z-runs within the build's
+    radius, run-major and lane-minor (the order the streamed sweep adds
+    them), so the sweep can replay its per-run sums over the pruned set.
+
+    idx:     (C, P) int32 — sorted-pool candidate positions, row-packed
+    run_off: (C, 10) int32 — cumulative per-run offsets into idx, capped at
+             P (run_off[:, 0] = 0, run_off[:, 9] = the row's stored count)
+    count:   (C,) int32 — the row's demand, not capped
+    demand:  () int32 — the largest ``count``; overflow ⇔ demand > P
+    """
+    idx: torch.Tensor
+    run_off: torch.Tensor
+    count: torch.Tensor
+    demand: torch.Tensor
+
+
+def initial_pairlist(capacity: int, max_pairs: int,
+                     device: torch.device | str = "cpu") -> PairList:
+    """Zero tables — what a build writes for rows it never lists."""
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=device)
+    return PairList(idx=z(capacity, max_pairs), run_off=z(capacity, 10),
+                    count=z(capacity), demand=z())
+
+
+def grow_pairlist(pairs: PairList, new_capacity: int, new_max_pairs: int
+                  ) -> PairList:
+    """Pad a cached list to a larger capacity and/or width with zeros —
+    what a build at that size would have written (a list that overflowed
+    is never carried: the ladder rewinds that step). Leading axes (shards)
+    are kept."""
+    old_c, old_p = pairs.idx.shape[-2], pairs.idx.shape[-1]
+    if new_capacity < old_c or new_max_pairs < old_p:
+        raise ValueError(f"grow_pairlist: ({new_capacity}, {new_max_pairs}) "
+                         f"< ({old_c}, {old_p})")
+    if new_capacity == old_c and new_max_pairs == old_p:
+        return pairs
+    dc, dp = new_capacity - old_c, new_max_pairs - old_p
+    return PairList(idx=F.pad(pairs.idx, (0, dp, 0, dc)),
+                    run_off=F.pad(pairs.run_off, (0, 0, 0, dc)),
+                    count=F.pad(pairs.count, (0, dc)), demand=pairs.demand)
+
+
+@dataclasses.dataclass
+class RebuildState:
+    """The build carried across steps under ``RebuildPolicy("every_k")``.
+
+    grid:        the last build's tables (they index the pool's layout as
+                 that build left it; a death or birth marks them dirty)
+    steps_since: () int32 — steps served by ``grid`` so far
+    disp_accum:  () float32 — the largest per-agent per-axis |Δposition|
+                 of each step, summed since the build
+    dirty:       () bool — a structural change invalidated ``grid``
+    pairs:       the pair list built beside ``grid`` (None without one)
+    pair_disp:   () float32 — the largest per-agent euclidean ‖Δposition‖
+                 of each step, summed since the build; the list is reused
+                 while 2·pair_disp ≤ skin
+    """
+    grid: GridState
+    steps_since: torch.Tensor
+    disp_accum: torch.Tensor
+    dirty: torch.Tensor
+    pairs: Optional[PairList] = None
+    pair_disp: Optional[torch.Tensor] = None
+
+
+def initial_rebuild_state(spec: GridSpec, capacity: int,
+                          origin: torch.Tensor, box_size: float,
+                          pairlist: Optional[PairListConfig] = None
+                          ) -> RebuildState:
+    """The cache before the first step: empty tables, dirty, so step 0
+    builds. Tensors on ``origin``'s device."""
+    dev = origin.device
+    ident = torch.arange(capacity, dtype=torch.int32, device=dev)
+    cdt = table_count_dtype(capacity)
+    grid = GridState(
+        origin=origin.to(torch.float32), box_size=float(box_size),
+        keys=torch.full((capacity,), morton.DEAD_KEY, dtype=torch.int64,
+                        device=dev),
+        order=ident, rank=ident,
+        starts=torch.zeros(spec.table_size, dtype=torch.int32, device=dev),
+        counts=torch.zeros(spec.table_size, dtype=cdt, device=dev),
+        max_count=torch.zeros((), dtype=cdt, device=dev),
+        max_run_count=torch.zeros((), dtype=cdt, device=dev))
+    f32 = torch.zeros((), dtype=torch.float32, device=dev)
+    pairs = pair_disp = None
+    if pairlist is not None:
+        pairs = initial_pairlist(capacity, pairlist.max_pairs, dev)
+        pair_disp = f32.clone()
+    return RebuildState(grid=grid,
+                        steps_since=torch.zeros((), dtype=torch.int32,
+                                                device=dev),
+                        disp_accum=f32, dirty=torch.ones((), dtype=torch.bool,
+                                                         device=dev),
+                        pairs=pairs, pair_disp=pair_disp)
+
+
+def grow_grid_state(grid: GridState, new_capacity: int) -> GridState:
+    """Grow cached resident tables to a larger pool capacity, as a build at
+    that capacity would have made them: dead keys pad ``keys``, the
+    identity ``order``/``rank`` extend, and the counts take the new
+    capacity's table dtype. Leading axes (shards) are kept."""
+    old = grid.keys.shape[-1]
+    if new_capacity == old:
+        return grid
+    if new_capacity < old:
+        raise ValueError(f"grow_grid_state: {new_capacity} < {old}")
+    pad = new_capacity - old
+    ident = torch.arange(old, new_capacity, dtype=torch.int32,
+                         device=grid.keys.device).expand(
+        *grid.keys.shape[:-1], pad)
+    cdt = table_count_dtype(new_capacity)
+    return dataclasses.replace(
+        grid, keys=F.pad(grid.keys, (0, pad), value=morton.DEAD_KEY),
+        order=torch.cat([grid.order, ident], -1),
+        rank=torch.cat([grid.rank, ident], -1),
+        counts=grid.counts.to(cdt), max_count=grid.max_count.to(cdt),
+        max_run_count=grid.max_run_count.to(cdt))
 
 
 def counting_sort_order(keys: torch.Tensor, table_size: int, *,
@@ -300,17 +439,79 @@ class _OnRead(Mapping):
         return len(self._src)
 
 
-def _stream(spec: GridSpec, grid: GridState, q_src: Mapping,
-            nbr_src: Mapping, kernels: Sequence[PairKernel],
-            masks: Sequence[torch.Tensor], chunk: Optional[int]
+def _row_step(spec: GridSpec, c: int, chunk: Optional[int],
+              width: int) -> Tuple[int, int]:
+    """(block, rows per chunk): whole ``chunk``-row blocks within
+    ``SWEEP_LANES`` lanes of 9 runs × ``width``."""
+    b = min(chunk if chunk is not None else spec.query_chunk, c)
+    return b, b * max(1, SWEEP_LANES // (9 * width * b))
+
+
+def _stream_candidates(spec: GridSpec, grid: GridState,
+                       position: torch.Tensor):
+    """The streamed sweep's candidates: each (row, run) pair is one row of
+    width R, its run's slots past the run's length or equal to the row's
+    own slot invalid."""
+    r_cap = spec.run_capacity
+    lane = torch.arange(r_cap, dtype=torch.int32, device=position.device)
+
+    def rows_of(r0: int, r1: int):
+        nb = r1 - r0
+        rows = torch.arange(r0, r1, dtype=torch.int32,
+                            device=position.device)
+        s, n = run_bounds(spec, grid, position[r0:r1])
+        n = n.clamp(max=r_cap)
+        pos = s[:, :, None] + lane                          # (nb, 9, R)
+        valid = lane < n[:, :, None]
+        valid &= pos != rows[:, None, None]      # resident: position == slot
+        pos = torch.where(valid, pos, torch.zeros_like(pos))
+        idx = pos.reshape(-1).to(torch.int64)
+
+        def gather(v):
+            return v.index_select(0, idx).reshape(nb * 9, r_cap,
+                                                  *v.shape[1:])
+        return gather, valid.reshape(nb * 9, r_cap)
+    return r_cap, rows_of
+
+
+def _pair_candidates(pairs: PairList):
+    """The pair-list sweep's candidates: each row's stored entries gathered
+    once at width P, then presented to each of the 9 runs with only that
+    run's segment ``[run_off[j], run_off[j+1])`` valid."""
+    p = pairs.idx.shape[-1]
+    lane = torch.arange(p, dtype=torch.int32, device=pairs.idx.device)
+
+    def rows_of(r0: int, r1: int):
+        nb = r1 - r0
+        off = pairs.run_off[r0:r1]
+        stored = lane < off[:, 9:]
+        idx = torch.where(stored, pairs.idx[r0:r1],
+                          torch.zeros((), dtype=torch.int32,
+                                      device=off.device))
+        idx = idx.reshape(-1).to(torch.int64)
+        valid = (lane >= off[:, :9, None]) & (lane < off[:, 1:, None])
+
+        def gather(v):
+            g = v.index_select(0, idx).reshape(nb, 1, p, *v.shape[1:])
+            return g.expand(nb, 9, p, *v.shape[1:]).reshape(
+                nb * 9, p, *v.shape[1:])
+        return gather, valid.reshape(nb * 9, p)
+    return p, rows_of
+
+
+def _stream(spec: GridSpec, q_src: Mapping, nbr_src: Mapping,
+            kernels: Sequence[PairKernel], masks: Sequence[torch.Tensor],
+            chunk: Optional[int], candidates
             ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Every row of the pool against its 9 z-runs, chunk by chunk.
+    """Every row of the pool against its 9 runs of candidates, chunk by
+    chunk (``candidates`` is :func:`_stream_candidates` or
+    :func:`_pair_candidates`).
 
     The reference loops over the blocks that hold a masked row, a trip
     count on the device. Here every row is evaluated, in chunks whose count
     the host knows, and each kernel's outputs are kept on its own mask: a
     row's output is a function of the channels alone, so the grouping
-    changes no value and the step reads nothing back from the card. A
+    changes no value and the sweep reads nothing back from the card. A
     chunk is a whole number of ``chunk``-row blocks within ``SWEEP_LANES``
     lanes. Each (row, run) pair is one row of the pair kernel's input, so
     one call covers all 9 runs; the runs' partial sums are then added in
@@ -318,38 +519,25 @@ def _stream(spec: GridSpec, grid: GridState, q_src: Mapping,
     """
     c = q_src["position"].shape[0]
     dev = q_src["position"].device
-    r_cap = spec.run_capacity
-    b = min(chunk if chunk is not None else spec.query_chunk, c)
-    step = b * max(1, SWEEP_LANES // (9 * r_cap * b))
-    lane = torch.arange(r_cap, dtype=torch.int32, device=dev)
+    width, rows_of = candidates
+    _, step = _row_step(spec, c, chunk, width)
     outs = {k.name: {name: torch.zeros((c, *sfx), dtype=dt, device=dev)
                      for name, (sfx, dt) in k.out_specs.items()}
             for k in kernels}
     for r0 in range(0, c, step):
         r1 = min(r0 + step, c)
         nb = r1 - r0
-        rows = torch.arange(r0, r1, dtype=torch.int32, device=dev)
-        s, n = run_bounds(spec, grid, q_src["position"][r0:r1])
-        n = n.clamp(max=r_cap)
-        pos = s[:, :, None] + lane                          # (nb, 9, R)
-        valid = lane < n[:, :, None]
-        valid &= pos != rows[:, None, None]      # resident: position == slot
-        pos = torch.where(valid, pos, torch.zeros_like(pos))
-        idx = pos.reshape(-1).to(torch.int64)
-        valid = valid.reshape(nb * 9, r_cap)
+        gather, valid = rows_of(r0, r1)
 
         def per_run(v, r0=r0, r1=r1, nb=nb):
             v = v[r0:r1]
             return v[:, None].expand(nb, 9, *v.shape[1:]).reshape(
                 nb * 9, *v.shape[1:])
 
-        def gather(v, idx=idx, nb=nb):
-            return v.index_select(0, idx).reshape(nb * 9, r_cap,
-                                                  *v.shape[1:])
-
         q = _OnRead(q_src, per_run)
         nbr = _OnRead(nbr_src, gather)
-        q_slot = rows[:, None].expand(nb, 9).reshape(-1)
+        q_slot = torch.arange(r0, r1, dtype=torch.int32, device=dev)[
+            :, None].expand(nb, 9).reshape(-1)
         for k, m in zip(kernels, masks):
             res = k.pair_fn(q, nbr, valid, q_slot)
             km = m[r0:r1]
@@ -366,6 +554,83 @@ def _stream(spec: GridSpec, grid: GridState, q_src: Mapping,
     return outs
 
 
+def pair_radius_sq(radius: float) -> float:
+    """The pair list's inclusive bound: ``float32(radius)`` squared in
+    float32, as the reference forms it."""
+    r = np.float32(radius)
+    return float(r * r)
+
+
+def build_pairlist(spec: GridSpec, grid: GridState, position: torch.Tensor,
+                   alive: torch.Tensor, *, radius: float, max_pairs: int,
+                   chunk: Optional[int] = None) -> PairList:
+    """Distance-filter the streamed candidate runs into a packed PairList.
+
+    The candidates are the streamed sweep's (the same 9 z-runs truncated
+    at ``run_capacity``, self excluded); a candidate is kept when ‖Δpos‖²
+    ≤ ``radius``² (inclusive; ‖Δpos‖² rounded as x² + y², then + z²) and
+    the row is alive. Each row's kept candidates are packed in run-major,
+    lane-minor order; entries past ``max_pairs`` are dropped and counted in
+    ``count``/``demand`` (never silent). ``position``/``alive`` are the
+    resident channels of the build.
+
+    On CUDA tensors the pair-list kernel builds it
+    (``kernels/pairlist.build_list``), on CPU tensors
+    :func:`build_pairlist_plain`.
+    """
+    if position.device.type == "cpu":
+        return build_pairlist_plain(spec, grid, position, alive,
+                                    radius=radius, max_pairs=max_pairs,
+                                    chunk=chunk)
+    idx, run_off, count, demand = pairlist_kernel.build_list(
+        position, alive, grid.origin, grid.box_size, grid.starts,
+        grid.counts, spec.dims, spec.run_capacity, pair_radius_sq(radius),
+        max_pairs)
+    return PairList(idx=idx, run_off=run_off, count=count, demand=demand)
+
+
+def build_pairlist_plain(spec: GridSpec, grid: GridState,
+                         position: torch.Tensor, alive: torch.Tensor, *,
+                         radius: float, max_pairs: int,
+                         chunk: Optional[int] = None) -> PairList:
+    """:func:`build_pairlist` in plain PyTorch, on any device: every row,
+    in chunks the host counts (as the streamed sweep), each packing its
+    kept candidates with one scatter."""
+    c = position.shape[0]
+    dev = position.device
+    p = max_pairs
+    r_cap = spec.run_capacity
+    r2 = pair_radius_sq(radius)
+    _, step = _row_step(spec, c, chunk, r_cap)
+    _, rows_of = _stream_candidates(spec, grid, position)
+    idx_t = torch.zeros((c, p), dtype=torch.int32, device=dev)
+    off_t = torch.zeros((c, 10), dtype=torch.int32, device=dev)
+    cnt_t = torch.zeros((c,), dtype=torch.int32, device=dev)
+    for r0 in range(0, c, step):
+        r1 = min(r0 + step, c)
+        nb = r1 - r0
+        gather, valid = rows_of(r0, r1)
+        slot = gather(torch.arange(c, dtype=torch.int32, device=dev))
+        d = gather(position) - position[r0:r1, None].expand(
+            nb, 9, 3).reshape(nb * 9, 1, 3)
+        d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] \
+            + d[..., 2] * d[..., 2]
+        keep = (valid & (d2 <= r2)).reshape(nb, 9 * r_cap)
+        keep &= alive[r0:r1, None]
+        inc = torch.cumsum(keep, 1, dtype=torch.int32)
+        # packed position inc - 1; dropped and overflowing lanes park in
+        # column p, which is cut off
+        dst = torch.where(keep & (inc <= p), inc - 1,
+                          torch.full_like(inc, p)).to(torch.int64)
+        buf = torch.zeros((nb, p + 1), dtype=torch.int32, device=dev)
+        buf.scatter_(1, dst, slot.reshape(nb, 9 * r_cap))
+        idx_t[r0:r1] = buf[:, :p]
+        off_t[r0:r1, 1:] = inc.reshape(nb, 9, r_cap)[:, :, -1].clamp(max=p)
+        cnt_t[r0:r1] = inc[:, -1]
+    return PairList(idx=idx_t, run_off=off_t, count=cnt_t,
+                    demand=cnt_t.max() if c else cnt_t.sum())
+
+
 def resident_apply(spec: GridSpec, grid: GridState,
                    channels: Dict[str, torch.Tensor],
                    query_mask: torch.Tensor, pair_fn: Callable,
@@ -380,29 +645,36 @@ def resident_apply(spec: GridSpec, grid: GridState,
     """
     k = PairKernel("apply", pair_fn, out_specs, tuple(channels))
     with record_function("grid/sweep"):
-        return _stream(spec, grid, channels, channels, [k], [query_mask],
-                       chunk)["apply"]
+        return _stream(spec, channels, channels, [k], [query_mask], chunk,
+                       _stream_candidates(spec, grid,
+                                          channels["position"]))["apply"]
 
 
 def resident_apply_fused(spec: GridSpec, grid: GridState,
                          channels: Dict[str, torch.Tensor],
                          kernels: Sequence[PairKernel],
                          default_mask: torch.Tensor,
-                         chunk: Optional[int] = None, pairs: Any = None
+                         chunk: Optional[int] = None,
+                         pairs: Optional[PairList] = None
                          ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Multi-kernel :func:`resident_apply`: one candidate stream for every
     registered :class:`PairKernel`, pruned to the union of their declared
     footprints. Each kernel's outputs equal, bit for bit, those of its own
     :func:`resident_apply` sweep, and are zero outside its own mask.
 
-    Raises ``ValueError`` on duplicate kernel names and ``KeyError`` when a
-    footprint names a channel the pool lacks or a kernel reads a channel it
-    did not declare. The pair-list mode (``pairs``) is ROADMAP.md Queue 1
-    item 11.
+    With ``pairs`` (a :class:`PairList` of this pool) the candidates are the
+    list's: each row's stored entries are gathered once at width P and
+    every kernel is evaluated once per run segment ``[run_off[j],
+    run_off[j+1])``, the runs summed in the streamed order. The list keeps
+    the streamed order and drops only candidates that add exact zeros, so
+    with skin 0 and a list built this step integer outputs equal the
+    streamed sweep's; floats may differ in the last bits, as the
+    reference's two modes do (their lane sums group differently).
+
+    Raises ``ValueError`` on duplicate kernel names or a list of another
+    pool's size and ``KeyError`` when a footprint names a channel the pool
+    lacks or a kernel reads a channel it did not declare.
     """
-    if pairs is not None:
-        raise NotImplementedError("resident_apply_fused(pairs=...) is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 11)")
     if not kernels:
         return {}
     names = [k.name for k in kernels]
@@ -414,10 +686,20 @@ def resident_apply_fused(spec: GridSpec, grid: GridState,
     if missing:
         raise KeyError(f"PairKernel footprint names channels not in the "
                        f"pool: {missing} (have {sorted(channels)})")
+    c = channels["position"].shape[0]
+    if pairs is not None and (pairs.idx.dim() != 2
+                              or pairs.idx.shape[0] != c
+                              or pairs.run_off.shape != (c, 10)):
+        raise ValueError(f"pairs must list the {c} rows of the pool, got "
+                         f"idx {tuple(pairs.idx.shape)}, run_off "
+                         f"{tuple(pairs.run_off.shape)}")
     gather_ch = {ch: channels[ch] for ch in reads}       # the pruned stream
     q_src = dict(gather_ch)
-    q_src.setdefault("position", channels["position"])    # run_bounds
+    q_src.setdefault("position", channels["position"])    # its row count
     masks = [k.query_mask if k.query_mask is not None else default_mask
              for k in kernels]
+    candidates = (_pair_candidates(pairs) if pairs is not None else
+                  _stream_candidates(spec, grid, channels["position"]))
     with record_function("grid/sweep"):
-        return _stream(spec, grid, q_src, gather_ch, kernels, masks, chunk)
+        return _stream(spec, q_src, gather_ch, kernels, masks, chunk,
+                       candidates)

@@ -1,7 +1,7 @@
 """Wrappers around the kernels (port of ``repro.kernels.ops``): K1's
-block-sparse column map, its resident-layout entry point and the fused
-sweep that runs it beside the other pair kernels, and K2's whole-sequence
-attention."""
+block-sparse column map (from the stencil runs or from a Verlet pair list),
+its resident-layout entry point and the fused sweep that runs it beside the
+other pair kernels, and K2's whole-sequence attention."""
 
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from ..core import grid, morton
 from . import block_cols as colmap
 from . import collision_force as k1
 from . import flash_attention as k2
+from . import pair_cols
 
 BLOCK = k1.BLOCK
 SPAN = 8                 # most column blocks one stencil run may cover
@@ -95,20 +96,81 @@ def build_block_cols_plain(sorted_cells: torch.Tensor, starts: torch.Tensor,
                            torch.full_like(s, -1))
         cand = first[..., None] + ks                  # (R·128, 9, span)
         ok = (n[..., None] > 0) & (cand <= last[..., None])
-        ids = torch.where(ok, cand, torch.full_like(cand, _SENTINEL))
-        ids = torch.sort(ids.reshape(nb, -1), dim=1).values
-        uniq = torch.ones_like(ids, dtype=torch.bool)
-        uniq[:, 1:] = ids[:, 1:] != ids[:, :-1]
-        uniq &= ids < _SENTINEL
-        pos = torch.cumsum(uniq, 1) - 1
-        n_uniq = uniq.sum(1)
-        write = torch.where(uniq & (pos < maxb), pos,
-                            torch.full_like(pos, maxb))
-        out = torch.full((nb, maxb + 1), -1, dtype=torch.int32, device=dev)
-        out.scatter_(1, write, ids)      # column maxb: dropped writes
-        cols[b0:b1] = out[:, :maxb]
+        cols[b0:b1], n_uniq = _ascending_unique(
+            torch.where(ok, cand, torch.full_like(cand, _SENTINEL)
+                        ).reshape(nb, -1), maxb)
         span_ovf = ((last - first + 1) > span).reshape(nb, -1).any(1)
         ovf |= ((n_uniq > maxb) | span_ovf).any()
+    return cols, ovf
+
+
+def _ascending_unique(ids: torch.Tensor, maxb: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per row of ``ids`` (rows, K) int32 (``_SENTINEL`` for none): the
+    first ``maxb`` ascending unique ids, -1 padded, and how many there
+    are."""
+    ids = torch.sort(ids, dim=1).values
+    uniq = torch.ones_like(ids, dtype=torch.bool)
+    uniq[:, 1:] = ids[:, 1:] != ids[:, :-1]
+    uniq &= ids < _SENTINEL
+    pos = torch.cumsum(uniq, 1) - 1
+    write = torch.where(uniq & (pos < maxb), pos,
+                        torch.full_like(pos, maxb))
+    out = torch.full((ids.shape[0], maxb + 1), -1, dtype=torch.int32,
+                     device=ids.device)
+    out.scatter_(1, write, ids)          # column maxb: dropped writes
+    return out[:, :maxb], uniq.sum(1)
+
+
+def build_block_cols_from_pairs(pairs: grid.PairList,
+                                row_active: torch.Tensor, n_pad: int,
+                                maxb: int
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Block-sparse column map from a Verlet pair list: for each 128-row
+    block, the ascending unique ``idx // 128`` over every stored entry of
+    its active rows (``row_active`` (n_pad,) bool), -1 padded to ``maxb``,
+    with the overflow flag when more than ``maxb`` are needed.
+
+    A subset of :func:`build_block_cols`'s map: a dropped block holds no
+    listed candidate, so K1, which adds each row's pairs in candidate order
+    and no pair outside its band, gives the same sums on either map.
+    Equal, entry for entry, to the reference's. On CUDA tensors the pairs
+    column-map kernel builds it (``pair_cols.column_map_from_pairs``), on
+    CPU tensors :func:`build_block_cols_from_pairs_plain`.
+    """
+    if pairs.idx.device.type == "cpu":
+        return build_block_cols_from_pairs_plain(pairs, row_active, n_pad,
+                                                 maxb)
+    cols, ovf, _, _ = pair_cols.column_map_from_pairs(
+        pairs.idx, pairs.run_off, n_pad, maxb, row_active=row_active)
+    return cols, ovf
+
+
+def build_block_cols_from_pairs_plain(pairs: grid.PairList,
+                                      row_active: torch.Tensor, n_pad: int,
+                                      maxb: int
+                                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`build_block_cols_from_pairs` in plain PyTorch, on any device:
+    chunks of row blocks, each sorting its column ids."""
+    c, p = pairs.idx.shape
+    dev = pairs.idx.device
+    n_rb = n_pad // BLOCK
+    lane = torch.arange(p, dtype=torch.int32, device=dev)
+    cols = torch.empty((n_rb, maxb), dtype=torch.int32, device=dev)
+    ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    for b0 in range(0, n_rb, _COLMAP_ROW_BLOCKS):
+        b1 = min(b0 + _COLMAP_ROW_BLOCKS, n_rb)
+        rows = torch.arange(b0 * BLOCK, b1 * BLOCK, device=dev)
+        safe = rows.clamp(max=c - 1)
+        act = row_active[rows] & (rows < c)
+        ok = (lane < pairs.run_off[safe, 9:]) & act[:, None]
+        ids = torch.where(ok, torch.div(pairs.idx[safe], BLOCK,
+                                        rounding_mode="floor"),
+                          torch.full((), _SENTINEL, dtype=torch.int32,
+                                     device=dev))
+        cols[b0:b1], n_uniq = _ascending_unique(
+            ids.reshape(b1 - b0, BLOCK * p), maxb)
+        ovf |= (n_uniq > maxb).any()
     return cols, ovf
 
 
@@ -116,22 +178,29 @@ def k1_inputs(position: torch.Tensor, diameter: torch.Tensor,
               agent_type: torch.Tensor, alive: torch.Tensor,
               active: torch.Tensor, starts: torch.Tensor,
               counts: torch.Tensor, origin: torch.Tensor, box_size: float,
-              dims: Tuple[int, int, int], maxb: int = 64
+              dims: Tuple[int, int, int], maxb: int = 64,
+              pairs: Optional[grid.PairList] = None
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                          torch.Tensor]:
     """Pad to 128, pack and map: ``(data_t (8, N_pad) f32, block_cols,
     overflow () bool, row mask (N_pad,) bool)`` — K1's inputs as the
-    resident wrapper builds them. On CUDA tensors one launch of the
-    column-map kernel does all of it; on CPU tensors
-    :func:`k1_inputs_plain`."""
+    resident wrapper builds them, the map from the stencil runs or, with
+    ``pairs``, from the pair list. On CUDA tensors one launch of the
+    column-map kernel (or of the pairs column-map kernel) does all of it;
+    on CPU tensors :func:`k1_inputs_plain`."""
     if position.device.type == "cpu":
         return k1_inputs_plain(position, diameter, agent_type, alive, active,
-                               starts, counts, origin, box_size, dims, maxb)
+                               starts, counts, origin, box_size, dims, maxb,
+                               pairs)
     n_pad = -(-position.shape[0] // BLOCK) * BLOCK
-    cols, ovf, data_t, sact = colmap.column_map(
-        starts, counts, dims, maxb, SPAN, n_pad=n_pad,
-        pool=(position, diameter, agent_type, alive, active), origin=origin,
-        box_size=box_size)
+    pool = (position, diameter, agent_type, alive, active)
+    if pairs is not None:
+        cols, ovf, data_t, sact = pair_cols.column_map_from_pairs(
+            pairs.idx, pairs.run_off, n_pad, maxb, pool=pool)
+    else:
+        cols, ovf, data_t, sact = colmap.column_map(
+            starts, counts, dims, maxb, SPAN, n_pad=n_pad, pool=pool,
+            origin=origin, box_size=box_size)
     return data_t, cols, ovf, sact
 
 
@@ -140,7 +209,7 @@ def k1_inputs_plain(position: torch.Tensor, diameter: torch.Tensor,
                     active: torch.Tensor, starts: torch.Tensor,
                     counts: torch.Tensor, origin: torch.Tensor,
                     box_size: float, dims: Tuple[int, int, int],
-                    maxb: int = 64
+                    maxb: int = 64, pairs: Optional[grid.PairList] = None
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                torch.Tensor]:
     """:func:`k1_inputs` in plain PyTorch, on any device."""
@@ -149,11 +218,15 @@ def k1_inputs_plain(position: torch.Tensor, diameter: torch.Tensor,
     n_pad = -(-c // BLOCK) * BLOCK
     pad = n_pad - c
     sact = torch.nn.functional.pad(active & alive, (0, pad))
-    cells = morton.cell_of(
-        torch.nn.functional.pad(position, (0, 0, 0, pad)), origin, box_size,
-        dims)
-    block_cols, ovf = build_block_cols_plain(cells, starts, counts, sact,
-                                             dims, maxb)
+    if pairs is not None:
+        block_cols, ovf = build_block_cols_from_pairs_plain(pairs, sact,
+                                                            n_pad, maxb)
+    else:
+        cells = morton.cell_of(
+            torch.nn.functional.pad(position, (0, 0, 0, pad)), origin,
+            box_size, dims)
+        block_cols, ovf = build_block_cols_plain(cells, starts, counts, sact,
+                                                 dims, maxb)
     data_t = torch.zeros((8, n_pad), dtype=torch.float32, device=dev)
     data_t[k1.ROW_X:k1.ROW_Z + 1, :c] = position.T
     data_t[k1.ROW_DIA, :c] = diameter
@@ -168,7 +241,8 @@ def collision_force_resident(position: torch.Tensor, diameter: torch.Tensor,
                              counts: torch.Tensor, origin: torch.Tensor,
                              box_size: float, *, dims: Tuple[int, int, int],
                              k_rep: float = 2.0, adhesion: Adhesion = None,
-                             adhesion_band: float = 0.4, maxb: int = 64
+                             adhesion_band: float = 0.4, maxb: int = 64,
+                             pairs: Optional[grid.PairList] = None
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """K1 over the resident grid-ordered pool: column map → kernel.
@@ -178,14 +252,16 @@ def collision_force_resident(position: torch.Tensor, diameter: torch.Tensor,
     rows get zero force and nnz (they still push their neighbors). Returns
     ``(force (C, 3) f32, nnz (C,) int32, column-map overflow () bool)``.
     ``box_size`` must cover the largest interaction distance, as in the
-    reference.
+    reference. With ``pairs`` the map comes from the pair list
+    (:func:`build_block_cols_from_pairs`); K1 itself is unchanged, and its
+    sums equal the stencil map's while the list covers every pair in reach.
     """
     dev = position.device
     c = position.shape[0]
     with record_function("k1/inputs"):
         data_t, block_cols, ovf, sact = k1_inputs(
             position, diameter, agent_type, alive, active, starts, counts,
-            origin, box_size, dims, maxb)
+            origin, box_size, dims, maxb, pairs)
     if adhesion is not None and not isinstance(adhesion, torch.Tensor):
         adhesion = torch.tensor(adhesion, dtype=torch.float32, device=dev)
     with record_function("k1/kernel"):
@@ -207,13 +283,15 @@ def fused_resident_sweep(spec: grid.GridSpec, grid_env: grid.GridState,
                          box_size: float, k_rep: float = 2.0,
                          adhesion: Adhesion = None,
                          adhesion_band: float = 0.4,
-                         chunk: Optional[int] = None, maxb: int = 64
+                         chunk: Optional[int] = None, maxb: int = 64,
+                         pairs: Optional[grid.PairList] = None
                          ) -> tuple[Dict[str, Dict[str, torch.Tensor]],
                                     torch.Tensor]:
     """K1-backed form of ``grid.resident_apply_fused``: the kernel named
     ``"force"`` runs in K1 over the step's grid tables (its ``pair_fn`` is
     not called: K1 computes the same function), every other kernel shares
-    one streamed sweep over the same tables.
+    one streamed sweep over the same tables. With ``pairs`` both take their
+    candidates from the pair list: K1 its column map, the sweep its rows.
 
     Returns ``(results, overflow)``: results keyed like
     ``resident_apply_fused``, overflow K1's column-map flag (a zero ()
@@ -230,12 +308,12 @@ def fused_resident_sweep(spec: grid.GridSpec, grid_env: grid.GridState,
             channels["agent_type"], channels["alive"], active,
             grid_env.starts, grid_env.counts, origin, box_size,
             dims=spec.dims, k_rep=k_rep, adhesion=adhesion,
-            adhesion_band=adhesion_band, maxb=maxb)
+            adhesion_band=adhesion_band, maxb=maxb, pairs=pairs)
         results["force"] = {"force": f, "force_nnz": nnz}
         ovf = k_ovf.to(torch.int32)
     if rest:
         results.update(grid.resident_apply_fused(
-            spec, grid_env, channels, rest, default_mask, chunk))
+            spec, grid_env, channels, rest, default_mask, chunk, pairs))
     return results, ovf
 
 

@@ -5,15 +5,20 @@ of ``launch/simulate.py`` (default: the Fig-6 proliferation configuration).
         --agents 1048576 --steps 5 --out chiprun_out/profile_step.json
     PYTHONPATH=src python -m repro_torch.launch.profile_step \
         --scenario epidemiology --config breakdown --agents 1048576
+    PYTHONPATH=src python -m repro_torch.launch.profile_step \
+        --scenario epidemiology --config breakdown --pairlist reuse
 
 Reports, per step: wall time without and with the profiler (the cost of
 tracing); the device's busy time (union of kernel, copy and memset
 intervals) and idle share over the profiled steps (the profiler slows the
 host, so unprofiled steps idle less); and, for each named range of the step
 (``step/*``, ``k1/*`` and ``grid/sweep``, recorded with ``record_function``
-in engine.py, kernels/ops.py and core/grid.py), the device time and the number of launches of the work
-it issued — a device operation belongs to the innermost range open on the
-host when it was launched. Runs on the CUDA card only.
+in engine.py, kernels/ops.py and core/grid.py; ``step/pairlist_build`` is
+the pair-list build of ``--pairlist`` set-ups), the device time and the
+number of launches of the work it issued — a device operation belongs to
+the innermost range open on the host when it was launched — and the
+rebuilds and rebuild skips of the profiled steps. Runs on the CUDA card
+only.
 """
 
 from __future__ import annotations
@@ -34,11 +39,15 @@ from . import simulate
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def _timed_steps(sim, st, steps: int):
+def _timed_steps(sim, st, steps: int, rebuilds: list | None = None):
+    """``steps`` steps; appends each step's (rebuilds, rebuild_skips)
+    tensors to ``rebuilds`` (read after the timing)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
         st = sim.step(st)
+        if rebuilds is not None:
+            rebuilds.append((st.stats["rebuilds"], st.stats["rebuild_skips"]))
     torch.cuda.synchronize()
     return st, (time.perf_counter() - t0) * 1e3 / steps
 
@@ -97,9 +106,10 @@ def profile_steps(sim, st, steps: int, trace: str | None = None):
     :func:`analyze_trace`'s numbers, with the profiled wall time per step
     and the idle share: 1 − busy / that wall, both from the same steps.
     Keeps the Chrome trace at ``trace`` if given."""
+    counts = []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        st, prof_ms = _timed_steps(sim, st, steps)
+        st, prof_ms = _timed_steps(sim, st, steps, counts)
     with tempfile.TemporaryDirectory() as tmp:
         path = trace or str(Path(tmp) / "trace.json")
         prof.export_chrome_trace(path)
@@ -107,7 +117,8 @@ def profile_steps(sim, st, steps: int, trace: str | None = None):
     stats = analyze_trace(events, steps)
     return st, {"ms_per_step_profiled": prof_ms,
                 "device_idle_share": 1.0 - stats["device_busy_ms"] / prof_ms,
-                **stats}
+                "rebuilds": sum(int(r) for r, _ in counts),
+                "rebuild_skips": sum(int(k) for _, k in counts), **stats}
 
 
 def main() -> None:
@@ -117,6 +128,8 @@ def main() -> None:
     ap.add_argument("--config", choices=simulate.CONFIGS, default="fig6")
     ap.add_argument("--force-impl", choices=simulate.FORCE_IMPLS,
                     default="k1")
+    ap.add_argument("--pairlist", choices=simulate.PAIRLIST_MODES,
+                    default="off")
     ap.add_argument("--agents", type=int, default=1_048_576)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=2)
@@ -127,22 +140,27 @@ def main() -> None:
 
     resolve_device(None)                      # the card, or raise
     sim, st = simulate.build(args.scenario, args.agents, args.config,
-                             force_impl=args.force_impl)
+                             force_impl=args.force_impl,
+                             pairlist=args.pairlist)
     st, _ = _timed_steps(sim, st, args.warmup)
     st, plain_ms = _timed_steps(sim, st, args.steps)
     st, stats = profile_steps(sim, st, args.steps, args.trace)
     prof_ms = stats["ms_per_step_profiled"]
     report = {"card": card_description(), "scenario": args.scenario,
               "config": args.config, "force_impl": args.force_impl,
+              "pairlist": args.pairlist,
               "agents": args.agents,
               "capacity": sim.config.capacity, "steps": args.steps,
               "ms_per_step": plain_ms, **stats}
     print(f"card: {report['card']}")
-    print(f"{args.scenario}/{args.config}/{args.force_impl}, "
-          f"{args.agents} agents: {plain_ms:.3f} ms/step ({prof_ms:.3f} "
-          f"profiled); device busy {stats['device_busy_ms']:.3f} ms/step, "
-          f"idle share {report['device_idle_share']:.3f} (profiled); "
-          f"{stats['launches']:.0f} device ops/step")
+    print(f"{args.scenario}/{args.config}/{args.force_impl}/pairlist "
+          f"{args.pairlist}, {args.agents} agents: {plain_ms:.3f} ms/step "
+          f"({prof_ms:.3f} profiled); device busy "
+          f"{stats['device_busy_ms']:.3f} ms/step, idle share "
+          f"{report['device_idle_share']:.3f} (profiled); "
+          f"{stats['launches']:.0f} device ops/step; rebuilds "
+          f"{stats['rebuilds']}, skips {stats['rebuild_skips']} in the "
+          f"profiled steps")
     for name, r in stats["ranges"].items():
         print(f"  {name:28s} {r['device_ms']:9.3f} ms  "
               f"{r['launches']:7.0f} launches")

@@ -17,18 +17,26 @@ fig6`` takes the Fig-6 proliferation scaling set-up of
 ``benchmarks/breakdown.py`` (about four agents per box; forces in K1 and
 Infection in the streamed sweep, the two sharing the step's grid tables).
 ``--force-impl`` picks K1 (default) or the streamed sweep for the set-ups
-with forces. Runs on the CUDA card unless ``--device cpu`` is given.
+with forces. ``--pairlist`` serves the breakdown workload from a Verlet
+pair list: ``skin0`` rebuilds it every step at the interaction radius
+(max_pairs 64, as benchmarks/breakdown.py), ``reuse`` keeps it across
+steps under ``RebuildPolicy("every_k", k=8, displacement_bound=0.75)`` with
+skin 1.5 (examples/cell_clustering.py's reuse settings), max_pairs sized
+from a probe build as benchmarks/capacity.py sizes it. Runs on the CUDA
+card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
-from ..core import DiffusionSpec, EngineConfig, ForceParams, Simulation
+from ..core import (DiffusionSpec, EngineConfig, ForceParams, PairListConfig,
+                    RebuildPolicy, Simulation, build_env, grid)
 from ..core.behaviors import (GROWTH_CONE, INFECTED, Chemotaxis, GrowDivide,
                               Infection, NeuriteGrowth, RandomDeath,
                               RandomWalk, Secretion)
@@ -39,18 +47,24 @@ CONFIGS = ("cli", "fig6", "breakdown")
 # the scenario each non-CLI set-up belongs to
 _CONFIG_SCENARIO = {"fig6": "proliferation", "breakdown": "epidemiology"}
 FORCE_IMPLS = ("k1", "streamed")
+PAIRLIST_MODES = ("off", "skin0", "reuse")
 
 
 def build(scenario: str, n: int, config: str = "cli", device=None,
-          force_impl: str = "k1"):
+          force_impl: str = "k1", pairlist: str = "off"):
     """(Simulation, initial state) for a scenario; data from seed 0."""
     if config not in CONFIGS:
         raise ValueError(f"config must be one of {CONFIGS}, got {config!r}")
     if config != "cli" and scenario != _CONFIG_SCENARIO[config]:
         raise ValueError(f"--config {config} is a set-up of the "
                          f"{_CONFIG_SCENARIO[config]} scenario")
+    if pairlist not in PAIRLIST_MODES:
+        raise ValueError(f"pairlist must be one of {PAIRLIST_MODES}, got "
+                         f"{pairlist!r}")
+    if pairlist != "off" and config != "breakdown":
+        raise ValueError("--pairlist serves the breakdown workload only")
     if config == "breakdown":
-        return _breakdown(n, device, force_impl)
+        return _breakdown(n, device, force_impl, pairlist)
     rng = np.random.default_rng(0)
     if config == "fig6":
         # benchmarks/scaling.py: constant density, ~1 agent per box
@@ -137,9 +151,10 @@ def build(scenario: str, n: int, config: str = "cli", device=None,
     return sim, st
 
 
-def _breakdown(n: int, device, force_impl: str):
+def _breakdown(n: int, device, force_impl: str, pairlist: str = "off"):
     """benchmarks/breakdown.py's workload: ~4 live agents per box, forces
-    and SIR infection (two pair kernels), 1% infected, seed 4."""
+    and SIR infection (two pair kernels), 1% infected, seed 4; with a pair
+    list as :func:`build`'s ``pairlist`` says."""
     rng = np.random.default_rng(4)
     side = float(np.ceil(4.0 * (n / 4.0) ** (1.0 / 3.0)))
     cfg = EngineConfig(capacity=n, domain_lo=(0, 0, 0),
@@ -147,15 +162,45 @@ def _breakdown(n: int, device, force_impl: str):
                        dt=0.05, max_per_box=32, query_chunk=4096,
                        force_impl=force_impl,
                        force=ForceParams(max_displacement=0.5))
-    sim = Simulation(cfg, [Infection(radius=4.0, beta=0.3, recovery_time=40)],
-                     device=device)
+    if pairlist == "skin0":
+        cfg = dataclasses.replace(cfg, pairlist=PairListConfig(
+            skin=0.0, max_pairs=64))
+    elif pairlist == "reuse":
+        cfg = dataclasses.replace(
+            cfg, rebuild=RebuildPolicy(mode="every_k", k=8,
+                                       displacement_bound=0.75),
+            pairlist=PairListConfig(skin=1.5, max_pairs=8))
+    behaviors = [Infection(radius=4.0, beta=0.3, recovery_time=40)]
     pos = rng.uniform(2.0, side - 2.0, (n, 3)).astype(np.float32)
     types = np.zeros(n, np.int32)
     types[:max(n // 100, 1)] = INFECTED
-    return sim, sim.init_state(pos, diameter=np.full(n, 3.0, np.float32),
-                               agent_type=types,
-                               extra_init={"infect_timer":
-                                           np.full(n, 40, np.int32)})
+
+    def init(sim):
+        return sim.init_state(pos, diameter=np.full(n, 3.0, np.float32),
+                              agent_type=types,
+                              extra_init={"infect_timer":
+                                          np.full(n, 40, np.int32)})
+    sim = Simulation(cfg, behaviors, device=device)
+    if pairlist == "reuse":
+        cfg = dataclasses.replace(cfg, pairlist=dataclasses.replace(
+            cfg.pairlist, max_pairs=probe_max_pairs(sim, init(sim))))
+        sim = Simulation(cfg, behaviors, device=device)
+    return sim, init(sim)
+
+
+def probe_max_pairs(sim: Simulation, st) -> int:
+    """The pair table's width for ``st``, as benchmarks/capacity.py sizes
+    it: the demand of a probe build at the configuration's pair radius,
+    up to the next power of two, at least 8 (one host read)."""
+    cfg = sim.config
+    origin = torch.tensor(cfg.domain_lo, dtype=torch.float32,
+                          device=sim.device)
+    res = build_env(cfg, sim.spec, st.pool, origin, cfg.cell_size)
+    probe = grid.build_pairlist(
+        sim.spec, res.grid, res.pool.position, res.pool.alive,
+        radius=cfg.interaction_radius + cfg.pairlist.skin, max_pairs=8,
+        chunk=cfg.query_chunk)
+    return max(8, 1 << int(np.ceil(np.log2(max(int(probe.demand), 1)))))
 
 
 def main() -> None:
@@ -165,13 +210,16 @@ def main() -> None:
     ap.add_argument("--agents", type=int, default=10_000)
     ap.add_argument("--iterations", type=int, default=100)
     ap.add_argument("--force-impl", choices=FORCE_IMPLS, default="k1")
+    ap.add_argument("--pairlist", choices=PAIRLIST_MODES, default="off",
+                    help="breakdown only: a Verlet pair list (skin0: every "
+                         "step; reuse: every_k with skin 1.5)")
     ap.add_argument("--report-every", type=int, default=20)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args()
 
     sim, st = build(args.scenario, args.agents, args.config, args.device,
-                    args.force_impl)
+                    args.force_impl, args.pairlist)
     sync = (torch.cuda.synchronize if sim.device.type == "cuda"
             else (lambda: None))
     sync()
@@ -187,7 +235,8 @@ def main() -> None:
         print(f"iter {done:5d}  n_live={n_live:8d}  "
               f"n_active={int(st.stats['n_active']):8d}  "
               f"{done / dt:6.2f} iter/s  {n_live * done / dt:,.0f} "
-              f"agent·iter/s  ({sim.device})")
+              f"agent·iter/s  rebuilds={int(st.stats['rebuilds'])}  "
+              f"pair_demand={int(st.stats['pair_demand'])}  ({sim.device})")
     print("done")
 
 

@@ -1,17 +1,16 @@
 """Port diffusion grid: the reference's own checks (mass conservation,
 decay, sources, sampling, gradient) and parity with the jitted reference
 at a voxel of 1.5, where dividing by the voxel and multiplying by its
-float32 reciprocal floor differently."""
+float32 reciprocal floor differently. The card-only test at the end holds
+the secretion kernel to the CPU's slot-order sum, bit for bit; it needs no
+JAX (the GPU host runs it with
+``python -m pytest -q tests/test_torch_diffusion.py -m cuda``)."""
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
-
-from repro.core import diffusion as JD  # noqa: E402
 from repro_torch.core import diffusion as TD  # noqa: E402
 
 ORIGIN = np.array([0.3, -1.0, 0.5], np.float32)
@@ -26,10 +25,26 @@ def _single_thread():
     torch.set_num_threads(prev)
 
 
-def _specs(**kw):
-    kw = {"dims": DIMS, "coefficient": 0.3, "decay": 0.02, "voxel": 1.5,
-          **kw}
-    return JD.DiffusionSpec(**kw), TD.DiffusionSpec(**kw)
+@pytest.fixture
+def ref():
+    """The JAX reference (imported here, so the card-only test runs where
+    JAX is not installed): (jax, jax.numpy, repro.core.diffusion)."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    from repro.core import diffusion
+    return jax, jnp, diffusion
+
+
+def _kw(**kw):
+    return {"dims": DIMS, "coefficient": 0.3, "decay": 0.02, "voxel": 1.5,
+            **kw}
+
+
+def _specs(ref=None, **kw):
+    """(the reference's spec or None without ``ref``, the port's spec)."""
+    return (None if ref is None else ref[2].DiffusionSpec(**_kw(**kw)),
+            TD.DiffusionSpec(**_kw(**kw)))
 
 
 def test_mass_conservation_neumann():
@@ -84,8 +99,9 @@ def _edge_positions():
     return np.asarray(rows, np.float32)
 
 
-def test_voxel_of_matches_jitted_reference():
-    jspec, tspec = _specs()
+def test_voxel_of_matches_jitted_reference(ref):
+    jax, jnp, JD = ref
+    jspec, tspec = _specs(ref)
     rng = np.random.default_rng(0)
     pos = np.concatenate([_edge_positions(),
                           rng.uniform(-2, 15, (4000, 3)).astype(np.float32)])
@@ -98,8 +114,9 @@ def test_voxel_of_matches_jitted_reference():
     assert (eager != want).any(), "the edge positions must tell them apart"
 
 
-def test_step_gradient_sources_match_jitted_reference():
-    jspec, tspec = _specs()
+def test_step_gradient_sources_match_jitted_reference(ref):
+    jax, jnp, JD = ref
+    jspec, tspec = _specs(ref)
     rng = np.random.default_rng(1)
     c = rng.uniform(0, 5, DIMS).astype(np.float32)
     pos = np.concatenate([_edge_positions(),
@@ -124,8 +141,9 @@ def test_step_gradient_sources_match_jitted_reference():
     np.testing.assert_array_equal(TD.sample(tspec, tc, tp, to).numpy(), want)
 
 
-def test_step_slab_with_external_halos_matches_reference():
-    jspec, tspec = _specs()
+def test_step_slab_with_external_halos_matches_reference(ref):
+    jax, jnp, JD = ref
+    jspec, tspec = _specs(ref)
     rng = np.random.default_rng(2)
     c, lo, hi = (rng.uniform(0, 3, s).astype(np.float32)
                  for s in (DIMS, DIMS[1:], DIMS[1:]))
@@ -149,3 +167,53 @@ def test_diffusion_ops_route_to_the_functions():
                        TD.gradient(spec, c, p, ops.origin))
     assert torch.equal(ops.add_sources(c, p, torch.ones(2)),
                        TD.add_sources(spec, c, p, torch.ones(2), ops.origin))
+
+
+def test_add_sources_plain_is_slot_order():
+    """The plain version (the CPU's index_add) adds a voxel's amounts in
+    slot order: the card's kernel is held to exactly this."""
+    _, spec = _specs(dims=(4, 4, 4), voxel=1.0)
+    amount = torch.tensor([1.0, 2.0 ** -24, 2.0 ** -24, -1.0])
+    pos = torch.full((4, 3), 0.5)
+    c = TD.add_sources(spec, torch.zeros(spec.dims), pos, amount,
+                       torch.zeros(3))
+    want = np.float32(0)
+    for a in amount.numpy():
+        want = np.float32(want + a)
+    assert float(c[0, 0, 0]) == float(want) == 0.0   # not 2^-23
+
+
+def _secretion_case(n=65_536, voxels=8, seed=0):
+    """Many agents per voxel (65,536 into 8 voxels) with amounts spread
+    over ten binades: a sum whose value depends on its order."""
+    rng = np.random.default_rng(seed)
+    spec = TD.DiffusionSpec(dims=(2, 2, 2), voxel=1.0)
+    assert voxels == 8
+    pos = rng.uniform(0.0, 2.0, (n, 3)).astype(np.float32)
+    amount = (rng.uniform(1.0, 2.0, n) * 2.0 ** rng.integers(-5, 5, n)
+              * rng.choice([-1.0, 1.0], n)).astype(np.float32)
+    conc = rng.uniform(0.0, 1.0, spec.dims).astype(np.float32)
+    return spec, conc, pos, amount
+
+
+@pytest.mark.cuda
+def test_add_sources_on_the_card_is_reproducible_and_slot_order():
+    """Secretion on the card: two runs on the same inputs give equal bits,
+    and equal the plain CPU version's slot-order sum bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec, conc, pos, amount = _secretion_case()
+    origin = torch.zeros(3)
+    want = TD.add_sources(spec, torch.from_numpy(conc),
+                          torch.from_numpy(pos), torch.from_numpy(amount),
+                          origin)
+    dev = torch.device("cuda")
+    args = (torch.from_numpy(conc).to(dev), torch.from_numpy(pos).to(dev),
+            torch.from_numpy(amount).to(dev), origin.to(dev))
+    runs = [TD.add_sources(spec, *args[:3], args[3]).cpu()
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]), "two card runs differ"
+    assert torch.equal(runs[0], want), \
+        f"card differs from the CPU's slot order by " \
+        f"{float((runs[0] - want).abs().max())}"

@@ -35,8 +35,7 @@ from repro_torch.core import GrowDivide as TGrow  # noqa: E402
 from repro_torch.core import Infection as TInfection  # noqa: E402
 from repro_torch.core import Secretion as TSecretion  # noqa: E402
 from repro_torch.core import DiffusionSpec as TDiff  # noqa: E402
-from repro_torch.core import DtypePolicy, PairListConfig  # noqa: E402
-from repro_torch.core import RebuildPolicy  # noqa: E402
+from repro_torch.core import DtypePolicy  # noqa: E402
 from repro_torch.core import Simulation as TSim  # noqa: E402
 from repro_torch.core import health  # noqa: E402
 from repro_torch.launch import simulate as tlaunch  # noqa: E402
@@ -211,8 +210,8 @@ def test_run_raises_on_run_overflow_like_reference():
 
 @pytest.mark.parametrize("change", [
     dict(environment="hash_grid"),
-    dict(rebuild=RebuildPolicy(mode="every_k", k=2)),
-    dict(pairlist=PairListConfig()),
+    dict(environment="scatter_grid"),
+    dict(environment="brute_force"),
 ])
 def test_options_outside_the_slice_raise(change):
     cfg = TConfig(capacity=128, domain_lo=(0, 0, 0), domain_hi=(8, 8, 8),

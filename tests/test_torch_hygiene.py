@@ -55,7 +55,10 @@ def test_simulation_defaults_to_cuda_and_raises_without_it():
 @pytest.mark.parametrize("rel", ["kernels/collision_force.py",
                                  "kernels/block_cols.py",
                                  "kernels/flash_attention.py",
-                                 "kernels/build.py", "kernels/ops.py"])
+                                 "kernels/build.py", "kernels/ops.py",
+                                 "kernels/pairlist.py",
+                                 "kernels/pair_cols.py",
+                                 "kernels/secretion.py"])
 def test_kernel_path_swallows_no_error(rel):
     tree = ast.parse((PORT / rel).read_text())
     handlers = [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
@@ -79,6 +82,30 @@ def test_column_map_raises_on_a_device_it_cannot_run():
     act = torch.zeros(128, dtype=torch.bool, device="meta")
     with pytest.raises(ValueError):
         ops.build_block_cols(cells, table, table, act, (2, 2, 2), 4)
+
+
+def test_slice_kernels_raise_on_a_device_they_cannot_run():
+    """The pair-list build, the pairs column map and secretion launch
+    their kernels for any tensor off the CPU, and raise where they cannot;
+    none falls back to its plain version."""
+    from repro_torch.core import diffusion, grid
+    from repro_torch.kernels import ops
+    meta = dict(device="meta")
+    spec = grid.GridSpec(dims=(2, 2, 2))
+    g = grid.initial_rebuild_state(spec, 128, torch.zeros(3, **meta),
+                                   1.0).grid
+    pos = torch.zeros((128, 3), **meta)
+    alive = torch.ones(128, dtype=torch.bool, **meta)
+    with pytest.raises(ValueError):
+        grid.build_pairlist(spec, g, pos, alive, radius=1.0, max_pairs=4)
+    pairs = grid.initial_pairlist(128, 4, "meta")
+    with pytest.raises(ValueError):
+        ops.build_block_cols_from_pairs(pairs, alive, 128, 4)
+    dspec = diffusion.DiffusionSpec(dims=(2, 2, 2))
+    with pytest.raises(ValueError):
+        diffusion.add_sources(dspec, torch.zeros((2, 2, 2), **meta), pos,
+                              torch.ones(128, **meta),
+                              torch.zeros(3, **meta))
 
 
 def test_k2_wrapper_raises_on_a_device_it_cannot_run():
@@ -112,7 +139,10 @@ def test_lm_and_serve_default_to_cuda_and_raise_without_it():
 @pytest.mark.parametrize("module,entry", [
     ("collision_force", "k1_collision_force"),
     ("block_cols", "k1_block_cols"),
-    ("flash_attention", "k2_flash_attention")])
+    ("flash_attention", "k2_flash_attention"),
+    ("pairlist", "pairlist_build"),
+    ("pair_cols", "k1_pair_cols"),
+    ("secretion", "secretion_add")])
 def test_ctypes_signature_matches_the_cuda_entry_point(module, entry):
     """The wrapper's argtypes follow the C entry point parameter for
     parameter (a short list is only caught when the library is called)."""

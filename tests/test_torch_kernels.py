@@ -8,6 +8,7 @@ need no JAX (the GPU host runs them with
 ``python -m pytest -q tests/test_torch_kernels.py -m cuda``).
 """
 
+import dataclasses
 import types
 
 import numpy as np
@@ -666,3 +667,265 @@ def test_k1_variants_follow_the_source():
     for name, text in srcs.items():
         assert (text == base) == (name == "committed"), name
     assert "kRows = 4;" in srcs["rows4"] and "kRows = 1;" in srcs["rows1"]
+
+
+# ---------------------------------------------------------------------------
+# The pair-list build and the column map from a pair list
+# ---------------------------------------------------------------------------
+
+from repro_torch.core.agents import make_pool  # noqa: E402
+from repro_torch.kernels import pair_cols as tpaircols  # noqa: E402
+from repro_torch.kernels import pairlist as tpairlist  # noqa: E402
+
+
+def _radius_pairs(n=2048, r=4.0, seed=11):
+    """Agents and their partners (n/2 each, float32) at distance r in
+    random directions, each pair 20 apart from the others."""
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(np.sqrt(n / 2))) + 1
+    base = np.stack(np.meshgrid(np.arange(side), np.arange(side), [0]),
+                    -1).reshape(-1, 3)[:n // 2] * 20.0 + 10.0
+    u = rng.normal(size=(n // 2, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    return base.astype(np.float32), (base + r * u).astype(np.float32), side
+
+
+def _radius_case(n=2048, r=4.0, seed=11):
+    """The pairs of :func:`_radius_pairs`: float32 d2 lands within a few
+    ulps of r², where a d2 contracted into FMAs keeps other pairs than the
+    plain version's. Returns (spec, grid, position, alive) of the resident
+    build, every third agent dead."""
+    base, partner, side = _radius_pairs(n, r, seed)
+    pos = np.concatenate([base, partner])
+    alive = np.arange(n) % 3 != 2
+    dims = (int(np.ceil((side * 20.0 + 10) / r)),) * 2 + (4,)
+    spec = tgrid.GridSpec(dims=dims, max_per_box=8)
+    pool = make_pool(n, position=pos, diameter=np.ones(n, np.float32))
+    pool = dataclasses.replace(pool, alive=_t(alive))
+    res = tgrid.make_builder(spec)(pool, torch.zeros(3), r)
+    return spec, res.grid, res.pool.position, res.pool.alive
+
+
+def _grid_to(g, dev):
+    return dataclasses.replace(g, **{f.name: getattr(g, f.name).to(dev)
+                                     for f in dataclasses.fields(g)
+                                     if isinstance(getattr(g, f.name),
+                                                   torch.Tensor)})
+
+
+def _pairlist_cases():
+    """(name, spec, grid, position, alive, radius, max_pairs) on the CPU:
+    a random pool with dead rows and an inactive half, the same with a
+    table too narrow (overflow rows), pairs at the radius, and a run
+    longer than run_capacity."""
+    cases = []
+    P, D, T, A, act, starts, counts = _sorted_case(21, 3000, 3200,
+                                                   (16, 16, 16), 2.0)
+    spec = tgrid.GridSpec(dims=(16, 16, 16), max_per_box=8)
+    g = tgrid.GridState(origin=torch.zeros(3), box_size=2.0, keys=None,
+                        order=None, rank=None, starts=_t(starts),
+                        counts=_t(counts), max_count=None,
+                        max_run_count=None)
+    for name, radius, mp in (("random", 2.0, 64), ("overflow", 2.0, 3),
+                             ("skin", 2.7, 96)):
+        cases.append((name, spec, g, _t(P), _t(A), radius, mp))
+    cases.append(("at-the-radius", *_radius_case(), 4.0, 8))
+    # 400 agents in two boxes: runs longer than run_capacity (24)
+    P2 = P.copy()
+    P2[:400] = np.float32(0.5) + np.random.default_rng(2).uniform(
+        0, 1.4, (400, 3)).astype(np.float32)
+    keys = tmorton.grid_sort_keys(_t(P2), _t(A), torch.zeros(3), 2.0,
+                                  (16, 16, 16))
+    order = torch.sort(keys, stable=True).indices
+    st_, ct_ = tgrid.box_tables(keys[order], 16 ** 3)
+    g2 = tgrid.GridState(origin=torch.zeros(3), box_size=2.0, keys=None,
+                         order=None, rank=None, starts=st_, counts=ct_,
+                         max_count=None, max_run_count=None)
+    cases.append(("long-run", spec, g2, _t(P2)[order], _t(A)[order], 2.0,
+                  32))
+    return cases
+
+
+def _pairs_equal(got, want, name):
+    for f in ("idx", "run_off", "count", "demand"):
+        g, w = getattr(got, f), getattr(want, f)
+        assert g.dtype == w.dtype == torch.int32, (name, f)
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy(),
+                                      err_msg=f"{name}: {f}")
+
+
+def test_pairlist_at_the_radius_case_splits_on_rounding():
+    """The at-the-radius case keeps some pairs and drops others, and
+    rounding d2 with an FMA would decide some of them otherwise: the card
+    test below can tell a contracted d2 from the plain one."""
+    spec, g, pos, alive = _radius_case()
+    pl = tgrid.build_pairlist_plain(spec, g, pos, alive, radius=4.0,
+                                    max_pairs=8)
+    kept = int(pl.count.sum())
+    assert 0 < kept < 2 * int(alive.sum())
+    # the pairs themselves: d2 rounded as the plain version vs one FMA
+    base, partner, _ = _radius_pairs()
+    dd = partner - base
+    plain = np.float32(np.float32(dd[:, 0] * dd[:, 0])
+                       + np.float32(dd[:, 1] * dd[:, 1])) \
+        + np.float32(dd[:, 2] * dd[:, 2])
+    fused = np.float32(np.float64(dd[:, 2]) * dd[:, 2] + np.float64(
+        np.float32(np.float32(dd[:, 0] * dd[:, 0])
+                   + np.float32(dd[:, 1] * dd[:, 1]))))
+    assert ((plain <= 16.0) != (fused <= 16.0)).any()
+
+
+def test_pairlist_wrapper_runs_the_plain_version_on_the_cpu():
+    before = tpairlist.build_list.launches
+    for name, spec, g, pos, alive, radius, mp in _pairlist_cases():
+        got = tgrid.build_pairlist(spec, g, pos, alive, radius=radius,
+                                   max_pairs=mp)
+        want = tgrid.build_pairlist_plain(spec, g, pos, alive, radius=radius,
+                                          max_pairs=mp, chunk=7)
+        _pairs_equal(got, want, name)
+    assert tpairlist.build_list.launches == before
+    with pytest.raises(ValueError):
+        tpairlist.build_list(pos, alive, torch.zeros(3), 4.0,
+                             g.starts, g.counts, spec.dims, 24, 16.0, 8)
+
+
+@pytest.mark.cuda
+def test_pairlist_cuda_kernel_matches_plain():
+    """The pair-list kernel ≡ its plain version, entry for entry (idx,
+    run_off, count, demand), on a random pool with dead rows, an overflow
+    case, a skin radius, pairs at the radius and runs past run_capacity,
+    and on the forces + SIR pool after the engine's build."""
+    dev = _cuda_or_skip()
+    for name, spec, g, pos, alive, radius, mp in _pairlist_cases():
+        want = tgrid.build_pairlist_plain(spec, g, pos, alive, radius=radius,
+                                          max_pairs=mp)
+        before = tpairlist.build_list.launches
+        got = tgrid.build_pairlist(spec, _grid_to(g, dev), pos.to(dev),
+                                   alive.to(dev), radius=radius,
+                                   max_pairs=mp)
+        torch.cuda.synchronize()
+        assert tpairlist.build_list.launches == before + 1
+        _pairs_equal(got, want, name)
+    from repro_torch.core import engine as eng
+    from repro_torch.launch import simulate
+    sim, st = simulate.build("epidemiology", 32768, "breakdown",
+                             device="cuda")
+    cfg, spec = sim.config, sim.spec
+    origin = torch.zeros(3, device=dev)
+    res = eng.build_env(cfg, spec, st.pool, origin, cfg.cell_size)
+    for radius, mp in ((4.0, 64), (4.0, 8), (5.5, 128)):
+        got = tgrid.build_pairlist(spec, res.grid, res.pool.position,
+                                   res.pool.alive, radius=radius,
+                                   max_pairs=mp)
+        want = tgrid.build_pairlist_plain(spec, res.grid, res.pool.position,
+                                          res.pool.alive, radius=radius,
+                                          max_pairs=mp)
+        _pairs_equal(got, want, f"breakdown r={radius} P={mp}")
+
+
+def _synthetic_pairs(seed=4, c=300, p=12, spread=2 ** 26):
+    """A pair list whose rows name column blocks far apart (more than one
+    32,768-block window of the kernel's bitmap) and near each other."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, spread, (c, p)).astype(np.int32)
+    idx[::2] = rng.integers(0, 50_000, (len(idx[::2]), p))
+    stored = rng.integers(0, p + 1, c)
+    off = np.zeros((c, 10), np.int32)
+    off[:, 1:] = np.minimum(np.sort(rng.integers(0, p + 1, (c, 9)), 1),
+                            stored[:, None])
+    off[:, 9] = stored
+    return tgrid.PairList(idx=_t(idx), run_off=_t(off),
+                          count=_t(stored.astype(np.int32)),
+                          demand=torch.tensor(int(stored.max()),
+                                              dtype=torch.int32))
+
+
+def test_pairs_column_map_wrapper_runs_the_plain_version_on_the_cpu():
+    pairs = _synthetic_pairs()
+    act = torch.ones(384, dtype=torch.bool)
+    before = tpaircols.column_map_from_pairs.launches
+    cols, ovf = tops.build_block_cols_from_pairs(pairs, act, 384, 64)
+    want, wovf = tops.build_block_cols_from_pairs_plain(pairs, act, 384, 64)
+    assert tpaircols.column_map_from_pairs.launches == before
+    assert torch.equal(cols, want) and bool(ovf) == bool(wovf)
+    with pytest.raises(ValueError):
+        tpaircols.column_map_from_pairs(pairs.idx, pairs.run_off, 384, 64,
+                                        row_active=act)
+
+
+@pytest.mark.cuda
+def test_pairs_column_map_cuda_kernel_matches_plain():
+    """The pairs column-map kernel ≡ its plain version, entry for entry and
+    flag for flag, from the row mask and fused with the pack (k1_inputs),
+    on pair lists of the cases above, a synthetic list spanning several
+    bitmap windows, and maxb below the need."""
+    dev = _cuda_or_skip()
+    lists = []
+    for name, spec, g, pos, alive, radius, mp in _pairlist_cases():
+        lists.append((name, tgrid.build_pairlist_plain(
+            spec, g, pos, alive, radius=radius, max_pairs=mp), alive))
+    syn = _synthetic_pairs()
+    lists.append(("synthetic", syn, torch.arange(300) % 5 != 0))
+    for name, pairs, act in lists:
+        c = pairs.idx.shape[0]
+        n_pad = -(-c // 128) * 128
+        ap = torch.nn.functional.pad(act, (0, n_pad - c))
+        dpairs = tgrid.PairList(*(x.to(dev) for x in (
+            pairs.idx, pairs.run_off, pairs.count, pairs.demand)))
+        for maxb in (64, 4):
+            want = tops.build_block_cols_from_pairs_plain(pairs, ap, n_pad,
+                                                          maxb)
+            before = tpaircols.column_map_from_pairs.launches
+            got = tops.build_block_cols_from_pairs(dpairs, ap.to(dev), n_pad,
+                                                   maxb)
+            torch.cuda.synchronize()
+            assert tpaircols.column_map_from_pairs.launches == before + 1
+            np.testing.assert_array_equal(got[0].cpu().numpy(),
+                                          want[0].numpy(), err_msg=name)
+            assert bool(got[1]) == bool(want[1]), (name, maxb)
+        rng = np.random.default_rng(1)
+        pool = [_t(rng.uniform(0, 9, (c, 3)).astype(np.float32)),
+                _t(rng.uniform(1, 3, c).astype(np.float32)),
+                _t(rng.integers(0, 3, c).astype(np.int32)), act,
+                _t(rng.random(c) < 0.7)]
+        tables = (torch.zeros(8, dtype=torch.int32),) * 2
+        want = tops.k1_inputs_plain(*pool, *tables, torch.zeros(3), 2.0,
+                                    (2, 2, 2), 64, pairs)
+        got = tops.k1_inputs(*[x.to(dev) for x in pool],
+                             *(x.to(dev) for x in tables),
+                             torch.zeros(3, device=dev), 2.0, (2, 2, 2), 64,
+                             dpairs)
+        torch.cuda.synchronize()
+        for gt, w, what in zip(got, want, ("data_t", "block_cols",
+                                           "overflow", "row mask")):
+            assert gt.dtype == w.dtype, (name, what)
+            np.testing.assert_array_equal(gt.cpu().numpy(), w.numpy(),
+                                          err_msg=f"{name}: {what}")
+
+
+@pytest.mark.cuda
+def test_k1_on_the_pairs_map_equals_k1_on_the_stencil_map():
+    """K1 fed the column map from a skin-0 pair list gives the same force
+    and nnz, bit for bit, as K1 fed the stencil map: it adds each row's
+    pairs in candidate order and no pair outside its band, and the list
+    drops only blocks without a listed candidate."""
+    dev = _cuda_or_skip()
+    from repro_torch.core import engine as eng
+    from repro_torch.launch import simulate
+    sim, st = simulate.build("epidemiology", 32768, "breakdown",
+                             device="cuda")
+    cfg, spec = sim.config, sim.spec
+    origin = torch.zeros(3, device=dev)
+    res = eng.build_env(cfg, spec, st.pool, origin, cfg.cell_size)
+    p = res.pool
+    pairs = tgrid.build_pairlist(spec, res.grid, p.position, p.alive,
+                                 radius=cfg.interaction_radius, max_pairs=64)
+    kw = dict(dims=spec.dims, k_rep=cfg.force.k_rep,
+              adhesion_band=cfg.force.adhesion_band)
+    args = (p.position, p.diameter, p.agent_type, p.alive, p.alive,
+            res.grid.starts, res.grid.counts, origin, cfg.cell_size)
+    f0, n0, o0 = tops.collision_force_resident(*args, **kw)
+    f1, n1, o1 = tops.collision_force_resident(*args, **kw, pairs=pairs)
+    torch.cuda.synchronize()
+    assert not bool(o0) and not bool(o1)
+    assert torch.equal(f0, f1) and torch.equal(n0, n1)

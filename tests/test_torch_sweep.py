@@ -209,9 +209,10 @@ def test_fused_sweep_checks_its_registry():
     with pytest.raises(KeyError, match="not in the pool"):
         tgrid.resident_apply_fused(tspec, tg, tch, [missing], alive)
     assert tgrid.resident_apply_fused(tspec, tg, tch, [], alive) == {}
-    with pytest.raises(NotImplementedError, match="item 11"):
+    wrong = tgrid.initial_pairlist(len(alive) + 1, 4)   # another pool's
+    with pytest.raises(ValueError, match="pairs must list"):
         tgrid.resident_apply_fused(tspec, tg, tch, [inf], alive,
-                                   pairs=object())
+                                   pairs=wrong)
 
 
 def test_footprints_match_reference():
