@@ -104,7 +104,61 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      agents, secretion, chemotaxis, forces from a pair list under
      every_k) for 10 steps: card ≡ CPU (integers, rebuilds and skips
      equal; floats 1e-4, the grid 1e-5 of its largest value) and two card
-     runs bit-equal, pools and grids.
+     runs bit-equal, pools and grids;
+ 16. paper-scale growth through the capacity ladder: benchmarks/capacity.py's
+     scenario unchanged (1,000 seeds in 512³, bf16 diameters and int16
+     ints, GrowDivide + RandomWalk, no forces, capacity 1,024) stepped by
+     ``CapacityLadder.step`` until 10,500,000 live agents (at most 80
+     steps): the rung schedule, the restages, the bytes per agent, and per
+     rung its steps, largest population, median warm ms/step (host clock
+     after a synchronising read; a rung's first step, which also ran the
+     rung before and the restage, counts only where it is the rung's
+     only step), restage ms and peak device memory, and two more timed
+     steps of the last rung's Simulation; the live prefix compact at the
+     end. The same scenario to 100,000 on the
+     card ≡ on the CPU: rung schedules and per-step n_live, births and
+     deaths equal, the live agents equal as sets (integer and bf16
+     channels as multisets, positions within 1e-4 of a partner);
+ 17. the reference CLI's ``--supervised`` run: ``--scenario proliferation
+     --agents 65536 --checkpoint-every 50`` set up as the CLI does (its
+     ``build``, then ``SupervisedRunner(CapacityLadder)``), forces in K1,
+     for 55 iterations: at iteration 55, just after the second division
+     wave, K1's column map needs more than its 64 column blocks (the
+     reference's limit, which no rung clears), so the run stops at the last
+     iteration before it. (a) the uninterrupted run — the rung schedule,
+     the run report, ms/step, K1's and the column map's launches (counts
+     reset just before, read just after: one per executed step, re-runs
+     after a grow included), the most column blocks a row block of K1's
+     map lists at each rung and at the end, 4 × 65,536 live agents; then
+     one more ladder step must raise "still overflowing", and the map it
+     would need is printed; (b) a child process SIGKILLed at iteration 53,
+     after the checkpoint at 50, and a second child resuming through the
+     CLI (``--resume --iterations 5``): its final live state equal to
+     (a)'s bit for bit (a digest of the lexsorted live positions,
+     diameters and types, and the count); (c) a ``Simulation`` pre-sized
+     at (a)'s final rungs equal to (a) bit for bit; (d) the same set-up at
+     2,048 agents for 80 steps under the ladder, card ≡ CPU: rung
+     schedules (a capacity rung among them) and each step's n_live,
+     births and deaths equal, diameters and birth steps equal as
+     multisets; one step from the card's state before steps 20, 40, 60
+     and 79 ≡ the same step on the CPU (integers exact, floats 1e-4). The
+     free-running position residue is printed every 10 steps, not bound:
+     K1's kernel and its plain version sum a row in different orders, and
+     this over-packed cluster is chaotic (a one-ulp change of one
+     coordinate grows about 3× in 5 steps), so the runs part by ~1e-3
+     within 20 steps;
+ 18. K1 on a narrowed pool: the Fig-6 pool of phase 1 at 1,048,576 agents
+     with diameters drawn in [2, 4) and stored as bf16 and as f16, types
+     in {0, 1, 2} as int16: the column map and pack ≡ their plain versions
+     and ≡ the pack of the same values in float32; K1 ≡ its plain version
+     (force atol 1e-4, nnz exact); then tests/test_ladder.py's lean
+     scenario (200 agents, 6 steps) with K1 and with the streamed sweep,
+     card ≡ CPU (integers and bf16 bits equal, floats 1e-4).
+
+The CPU halves of phases 16-18 run in a child process (``chip_smoke.py
+--cpu-worker OUT``, one torch thread, no CUDA) started before phase 0, so
+they overlap the card phases; the script waits for it, and kills it on a
+failure.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and last ``{"ok": true, "device": {...}}``. Writes the same numbers to
@@ -136,6 +190,23 @@ FRONT_SIDE = 100                     # phase 8: 100³ lattice agents
 CONC_RTOL = 1e-5
 CLUSTER_AGENTS, CLUSTER_STEPS = 4000, 10       # phase 15
 PROFILED_STEPS = 4                             # phase 14, per set-up
+# phase 16: benchmarks/capacity.py's growth scenario and its smoke override
+GROWTH_SIDE, GROWTH_TARGET, GROWTH_MAX_STEPS = 512.0, 10_500_000, 80
+GROWTH_SMOKE_TARGET = 100_000
+# phase 17: the CLI's --supervised proliferation run, its SIGKILL and the
+# card ≡ CPU run. At 65,536 agents K1's column map overflows at iteration
+# 55, just after the second division wave: more column blocks than maxb =
+# 64 or a run longer than span = 8 blocks, the reference's own limits,
+# which no ladder rung clears. The run stops at the last iteration before
+# it (55 steps) and a probe shows the overflow.
+PROLIF_AGENTS, PROLIF_STEPS, PROLIF_EVERY, PROLIF_KILL_AT = 65_536, 55, 50, 53
+PROLIF_CPU_AGENTS, PROLIF_CPU_STEPS = 2048, 80
+# (d)'s one-step card ≡ CPU checks, before these steps: the free-running
+# runs part by chaos (a one-ulp change of one coordinate grows about 3× in
+# 5 steps in this over-packed cluster), so positions are held from a
+# shared state and the free-running residue is printed
+PROLIF_RESYNC = (20, 40, 60, 79)
+CPU_WORKER_TIMEOUT_S = 900
 # K2 cases: (name, B, Hq, Hkv, Sq, Sk, D, causal, dtype); the first is the
 # qwen2-1.5b prefill shape and the one the kernels line reports. Sq = Sk =
 # "first" or "shortest" is the length of that prompt of phase 7.
@@ -1465,12 +1536,654 @@ def _clustering_pairlist(device):
     return sim, sim.init_state(pos, diameter=np.full(n, 2.0, np.float32))
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Phases 16-18: the capacity ladder, narrowed dtypes, the supervised CLI
+# ---------------------------------------------------------------------------
+
+def _growth_ladder(device, cls=None):
+    """benchmarks/capacity.py's growth scenario, unchanged: 1,000 seeds in
+    a 512³ domain (radius 4, no forces, max_per_box 8), lean dtypes,
+    GrowDivide + RandomWalk, the ladder from capacity 1,024."""
+    import numpy as np
+    from repro_torch.core import (CapacityLadder, DtypePolicy, EngineConfig,
+                                  GrowDivide, LadderConfig, RandomWalk)
+    n_seed = 1000
+    cfg = EngineConfig(
+        capacity=max(1024, n_seed), domain_lo=(0.0, 0.0, 0.0),
+        domain_hi=(GROWTH_SIDE,) * 3, interaction_radius=4.0, dt=1.0,
+        use_forces=False, max_per_box=8, query_chunk=8192,
+        dtypes=DtypePolicy(aux_float="bfloat16", compact_ints=True))
+    behaviors = [GrowDivide(rate=0.55, threshold_diameter=6.0),
+                 RandomWalk(sigma=0.6)]
+    lad = (cls or CapacityLadder)(cfg, behaviors,
+                                  LadderConfig(growth_factor=2.0),
+                                  device=device)
+    rng = np.random.default_rng(0)
+    pos = rng.uniform(4.0, GROWTH_SIDE - 4.0, (n_seed, 3)).astype(np.float32)
+    return lad, lad.init_state(pos, diameter=np.full(n_seed, 5.0,
+                                                     np.float32))
+
+
+def _rung_schedule(rungs) -> list:
+    return [(r["iteration"], r["field"], r["old"], r["new"]) for r in rungs]
+
+
+def _step_ints(stats) -> list:
+    """n_live, births and deaths of a step, in one host read."""
     import torch
+    return torch.stack([stats[f] for f in ("n_live", "births",
+                                           "deaths")]).tolist()
+
+
+def _growth_to(device, target: int, max_steps: int):
+    """The growth scenario stepped until ``target`` live agents: per-step
+    integers, the rung schedule and the final live state on the host."""
+    lad, st = _growth_ladder(device)
+    ints = []
+    for _ in range(max_steps):
+        st = lad.step(st)
+        ints.append(_step_ints(st.stats))
+        if ints[-1][0] >= target:
+            break
+    return {"ints": ints, "rungs": _rung_schedule(lad.rungs),
+            "live": _live_host(st.pool)}
+
+
+def _live_host(pool) -> dict:
+    """The live agents' channels on the host (bf16 as float32: exact)."""
+    a = pool.alive
+    return {k: v[a].float().cpu().numpy() if v.dtype.is_floating_point
+            else v[a].cpu().numpy()
+            for k, v in pool.channels().items() if k != "alive"}
+
+
+def _max_nearest(a, b, device: str = "cuda") -> float:
+    """The larger of the two one-sided nearest-neighbour distances between
+    two point sets (their Hausdorff distance), on the card in chunks: a
+    comparison that needs no agent order, which an ulp's difference in a
+    position can change through the grid sort."""
+    import torch
+    a = torch.as_tensor(a, device=device)
+    b = torch.as_tensor(b, device=device)
+
+    def one_sided(p, q):
+        worst = 0.0
+        for i in range(0, p.shape[0], 2048):
+            d = torch.cdist(p[i:i + 2048].double(), q.double())
+            worst = max(worst, float(d.min(1).values.max()))
+        return worst
+    return max(one_sided(a, b), one_sided(b, a))
+
+
+def _same_live_sets(want: dict, got: dict, atol: float, what: str,
+                    exact=("diameter", "agent_type", "born_iter")) -> float:
+    """Live populations equal as sets: equal counts, the ``exact``
+    channels equal as multisets, positions within ``atol`` of a partner
+    (both ways). Returns the position residue."""
+    import numpy as np
+    check(len(want["position"]) == len(got["position"]),
+          f"{what}: live counts differ")
+    for k in exact:
+        check(np.array_equal(np.sort(want[k]), np.sort(got[k])),
+              f"{what}: {k} differs")
+    err = _max_nearest(want["position"], got["position"])
+    check(err <= atol, f"{what}: positions differ by {err:.3g} > {atol}")
+    return err
+
+
+def _cpu_worker(out: str) -> int:
+    """The CPU halves of phases 16-18, run beside the card phases in a child
+    process (one torch thread, no CUDA): the growth scenario to its smoke
+    target, the CLI's proliferation set-up at PROLIF_CPU_AGENTS under the
+    ladder, and the reference's lean scenario."""
+    import pickle
+    import torch
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(ROOT / "src"))
+    res = {"growth": _growth_to("cpu", GROWTH_SMOKE_TARGET,
+                                GROWTH_MAX_STEPS),
+           "prolif": _prolif_lockstep("cpu"),
+           "lean": {impl: _lean_run("cpu", impl) for impl in ("k1",
+                                                              "streamed")}}
+    tmp = out + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(res, f)
+    Path(tmp).rename(out)
+    return 0
+
+
+def _start_cpu_worker(tmpdir: str):
+    import os
+    out = str(Path(tmpdir) / "cpu_worker.pkl")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--cpu-worker", out],
+                            env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    return proc, out
+
+
+def _cpu_results(worker) -> dict:
+    import pickle
+    proc, out = worker
+    check(proc.wait(timeout=CPU_WORKER_TIMEOUT_S) == 0,
+          f"the CPU worker exited {proc.returncode}")
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+def _timed_ladder_cls():
+    """A CapacityLadder that times each restage on the card and splits the
+    peak device memory by rung (the peak is reset at each restage, so a
+    rung's peak covers its restage, its re-run step and its later steps)."""
+    import torch
+    from repro_torch.core import CapacityLadder
+
+    class TimedLadder(CapacityLadder):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.restages = []
+
+        def _grow(self, new_cfg, prev, iteration):
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            old = (self.config.capacity, self.config.max_per_run)
+            t0 = time.perf_counter()
+            out = super()._grow(new_cfg, prev, iteration)
+            torch.cuda.synchronize()
+            self.restages.append({
+                "iteration": iteration, "old": old,
+                "new": (new_cfg.capacity, new_cfg.max_per_run),
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "old_rung_peak_bytes": peak})
+            return out
+    return TimedLadder
+
+
+def _bytes_per_agent(policy) -> float:
+    """benchmarks/capacity.py's measure: a pool's bytes over its slots."""
+    from repro_torch.core import make_pool
+    pool = make_pool(8, policy=policy, device="cuda")
+    return sum(v.numel() * v.element_size()
+               for v in pool.channels().values()) / 8.0
+
+
+def phase_growth(report: dict, cpu) -> dict:
+    """Phase 16: the paper-scale growth scenario through the ladder."""
+    import torch
+    from repro_torch.core import DtypePolicy
+
+    lad, st = _growth_ladder("cuda", _timed_ladder_cls())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(GROWTH_MAX_STEPS):
+        t0 = time.perf_counter()
+        st = lad.step(st)
+        n_live = int(st.stats["n_live"])        # a host read: the step ended
+        steps.append({"iteration": i, "n_live": n_live,
+                      "rung": (lad.config.capacity, lad.config.max_per_run),
+                      "ms": (time.perf_counter() - t0) * 1e3})
+        if n_live >= GROWTH_TARGET:
+            break
+    final_peak = torch.cuda.max_memory_allocated()
+    # the last rung's own step time: its only step also ran the rung before
+    # and the restage, so two more steps of its Simulation are timed
+    # (their results dropped)
+    probe_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        int(lad.sim.step(st).stats["n_live"])
+        probe_ms.append((time.perf_counter() - t0) * 1e3)
+    n_live = steps[-1]["n_live"]
+    check(n_live >= GROWTH_TARGET, f"growth reached {n_live} live agents in "
+                                   f"{len(steps)} steps, not "
+                                   f"{GROWTH_TARGET}")
+    check(lad.config.capacity > 1024 and any(
+        r["field"] == "capacity" for r in lad.rungs),
+        "the capacity did not grow through the ladder")
+    alive = st.pool.alive
+    check(bool(alive[:n_live].all()) and not bool(alive[n_live:].any()),
+          "the live prefix is not compact")
+    check(bool(torch.isfinite(st.pool.position[:n_live]).all()),
+          "non-finite positions")
+    peaks = {}
+    for r in lad.restages:
+        peaks[r["old"]] = max(peaks.get(r["old"], 0),
+                              r["old_rung_peak_bytes"])
+    peaks[steps[-1]["rung"]] = final_peak
+    rungs = []
+    for rung in dict.fromkeys(s["rung"] for s in steps):
+        at = [s for s in steps if s["rung"] == rung]
+        warm = [s["ms"] for s in at[1:]] or [at[0]["ms"]]
+        grown = [r for r in lad.restages if r["new"] == rung]
+        rungs.append({"capacity": rung[0], "max_per_run": rung[1],
+                      "steps": len(at), "max_live": max(s["n_live"]
+                                                        for s in at),
+                      "ms_per_step_median_warm": statistics.median(warm),
+                      "restage_ms": sum(r["ms"] for r in grown),
+                      "peak_bytes": peaks.get(rung)})
+    rec = {"target": GROWTH_TARGET, "steps": len(steps), "n_live": n_live,
+           "schedule": _rung_schedule(lad.rungs),
+           "restages": lad.recompiles,
+           "bytes_per_agent": {"float32": _bytes_per_agent(DtypePolicy()),
+                               "lean": _bytes_per_agent(DtypePolicy(
+                                   aux_float="bfloat16",
+                                   compact_ints=True))},
+           "rungs": rungs, "last_rung_probe_ms": probe_ms,
+           "ms_total": sum(s["ms"] for s in steps)}
+    print(f"[16] growth: {n_live} live agents after {len(steps)} steps "
+          f"(target {GROWTH_TARGET}), {lad.recompiles} restages, capacity "
+          f"1024 -> {lad.config.capacity}, bytes/agent "
+          f"{rec['bytes_per_agent']}", flush=True)
+    print(f"[16] rung schedule {rec['schedule']}", flush=True)
+    print(f"[16] the last rung's Simulation alone: {probe_ms[0]:.2f}, "
+          f"{probe_ms[1]:.2f} ms/step (two steps timed after the run)",
+          flush=True)
+    for r in rungs:
+        peak = r["peak_bytes"]
+        print(f"[16] rung capacity {r['capacity']} max_per_run "
+              f"{r['max_per_run']}: {r['steps']} steps, max live "
+              f"{r['max_live']}, median warm "
+              f"{r['ms_per_step_median_warm']:.2f} ms/step, restage "
+              f"{r['restage_ms']:.2f} ms, peak "
+              f"{'-' if peak is None else f'{peak / 2**30:.3f} GiB'}",
+              flush=True)
+    # the smoke override: the same scenario to GROWTH_SMOKE_TARGET, card
+    # ≡ CPU (the CPU run is the worker's)
+    got = _growth_to("cuda", GROWTH_SMOKE_TARGET, GROWTH_MAX_STEPS)
+    want = cpu["growth"]
+    check(got["rungs"] == want["rungs"], f"growth to "
+          f"{GROWTH_SMOKE_TARGET}: rung schedule on the card "
+          f"{got['rungs']} != on the CPU {want['rungs']}")
+    check(got["ints"] == want["ints"], "growth: per-step n_live, births or "
+                                       "deaths differ")
+    err = _same_live_sets(want["live"], got["live"], 1e-4,
+                          f"growth to {GROWTH_SMOKE_TARGET}")
+    rec["smoke"] = {"target": GROWTH_SMOKE_TARGET, "steps": len(got["ints"]),
+                    "schedule": got["rungs"], "position_residue": err}
+    print(f"[16] growth to {GROWTH_SMOKE_TARGET} on the card ≡ on the CPU: "
+          f"{len(got['ints'])} steps, rung schedule equal, per-step "
+          f"integers equal, live sets equal (positions within {err:.3g})",
+          flush=True)
+    report["growth"] = rec
+    return rec
+
+
+def _digest(pool) -> str:
+    """sha256 of the lexsorted live positions, diameters and types, and
+    the live count."""
+    import hashlib
+    import numpy as np
+    live = _live_host(pool)
+    p = live["position"]
+    o = np.lexsort(p.T)
+    h = hashlib.sha256()
+    for a in (p[o], live["diameter"][o], live["agent_type"][o],
+              np.int64(len(p))):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _map_load(cfg, spec, pool) -> dict:
+    """K1's column map for ``pool``, from the plain version (no counted
+    launch): the most column blocks any row block lists at the engine's
+    maxb 64 and span 8, and unbounded (maxb 1024, span 64: the need); the
+    densest box and 3-box run."""
+    import torch
+    from repro_torch.core import engine as eng, morton
+    from repro_torch.kernels import ops
+    origin = torch.tensor(cfg.domain_lo, dtype=torch.float32,
+                          device=pool.device)
+    res = eng.build_env(cfg, spec, pool, origin, cfg.cell_size)
+    p, g = res.pool, res.grid
+    _, cols, ovf, mask = ops.k1_inputs_plain(
+        p.position, p.diameter, p.agent_type, p.alive, p.alive, g.starts,
+        g.counts, origin, cfg.cell_size, spec.dims)
+    cells = morton.cell_of(torch.nn.functional.pad(
+        p.position, (0, 0, 0, mask.shape[0] - p.position.shape[0])),
+        origin, cfg.cell_size, spec.dims)
+    need, _ = ops.build_block_cols_plain(cells, g.starts, g.counts, mask,
+                                         spec.dims, 1024, 64)
+    _, span_ovf = ops.build_block_cols_plain(cells, g.starts, g.counts,
+                                             mask, spec.dims, 1024)
+    return {"max_cols": int((cols >= 0).sum(1).max()),
+            "maxb": int(cols.shape[1]), "overflow": bool(ovf),
+            "need_cols": int((need >= 0).sum(1).max()),
+            "span_overflow": bool(span_ovf), "box_max": int(g.max_count),
+            "run_max": int(g.max_run_count)}
+
+
+_KILL_CHILD = """
+import os, signal, sys, time
+sys.path.insert(0, os.path.join(sys.argv[1], "src"))
+from repro_torch.core import CapacityLadder, SupervisedRunner
+from repro_torch.launch import simulate
+from repro_torch.train import checkpoint
+ckpt, n, steps, every, kill_at = sys.argv[2], *map(int, sys.argv[3:7])
+sim, st = simulate.build("proliferation", n, device="cuda")
+
+def hook(it, state):
+    if it == kill_at:
+        # the kill comes after the checkpoint before it is on disk
+        t0 = time.time()
+        while checkpoint.latest_step(ckpt) != kill_at // every * every:
+            if time.time() - t0 > 120:
+                sys.exit("the checkpoint never landed")
+            time.sleep(0.05)
+        os.kill(os.getpid(), signal.SIGKILL)
+    return None
+
+runner = SupervisedRunner(CapacityLadder(sim.config, sim.behaviors,
+                                         device="cuda"),
+                          ckpt, checkpoint_every=every, fault_hook=hook)
+runner.run(st, steps)
+print("survived")
+"""
+
+
+def _print_load(tag: str, ld: dict) -> None:
+    print(f"{tag} column map at iteration {ld['iteration']} (capacity "
+          f"{ld['capacity']}, max_per_run {ld['max_per_run']}): at most "
+          f"{ld['max_cols']} of maxb {ld['maxb']} column blocks a row block "
+          f"(unbounded: {ld['need_cols']}; a run beyond span 8 blocks: "
+          f"{ld['span_overflow']}), densest box {ld['box_max']}, densest "
+          f"run {ld['run_max']}", flush=True)
+
+
+def _child(args: list, timeout: float = 600):
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    return subprocess.run([sys.executable] + args, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def _prolif_lockstep(device, before_step=None) -> dict:
+    """The CLI's proliferation set-up at PROLIF_CPU_AGENTS under the
+    ladder for PROLIF_CPU_STEPS steps: per-step integers, live sets every
+    10 steps and at the end, the rung schedule. ``before_step(i, ladder,
+    state)`` sees each step's input."""
+    from repro_torch.core import CapacityLadder
+    from repro_torch.launch import simulate
+    sim, st = simulate.build("proliferation", PROLIF_CPU_AGENTS,
+                             device=device)
+    lad = CapacityLadder(sim.config, sim.behaviors, device=device)
+    ints, snaps = [], {}
+    for i in range(PROLIF_CPU_STEPS):
+        if before_step is not None:
+            before_step(i, lad, st)
+        st = lad.step(st)
+        ints.append(_step_ints(st.stats))
+        if (i + 1) % 10 == 0 or i + 1 == PROLIF_CPU_STEPS:
+            snaps[i + 1] = _live_host(st.pool)
+    return {"ints": ints, "snaps": snaps, "rungs": _rung_schedule(lad.rungs)}
+
+
+def phase_supervised_cli(report: dict, cpu, tmpdir: str) -> dict:
+    """Phase 17: the CLI's --supervised proliferation run with K1."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.core import (CapacityLadder, Simulation,
+                                  SupervisedRunner, restore_state)
+    from repro_torch.launch import simulate
+
+    n, steps, every = PROLIF_AGENTS, PROLIF_STEPS, PROLIF_EVERY
+    # (a) the uninterrupted run, as the CLI sets it up
+    sim, st0 = simulate.build("proliferation", n, device="cuda")
+    pos0 = st0.pool.position[:n].cpu().numpy()
+    dia0 = st0.pool.diameter[:n].cpu().numpy()
+    lad = CapacityLadder(sim.config, sim.behaviors, device="cuda")
+    loads, seen = [], [None]
+
+    def observe(it, state):                  # the column map at each rung
+        rung = (lad.config.capacity, lad.config.max_per_run)
+        if rung != seen[0]:
+            seen[0] = rung
+            loads.append({"iteration": it, "capacity": rung[0],
+                          "max_per_run": rung[1],
+                          **_map_load(lad.config, lad.sim.spec, state.pool)})
+        return None
+
+    ck_a = str(Path(tmpdir) / "supervised_a")
+    runner = SupervisedRunner(lad, ck_a, checkpoint_every=every,
+                              fault_hook=observe)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    st, run_report = runner.run(st0, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    last = {"iteration": steps, "capacity": lad.config.capacity,
+            "max_per_run": lad.config.max_per_run,
+            **_map_load(lad.config, lad.sim.spec, st.pool)}
+    n_live = int(st.stats["n_live"])
+    executed = steps + lad.recompiles
+    print(f"[17a] supervised proliferation, {n} agents x {steps} steps: "
+          f"n_live {n_live}, {wall * 1e3 / steps:.2f} ms/step (checkpoints "
+          f"and restages included), rung schedule "
+          f"{_rung_schedule(lad.rungs)}", flush=True)
+    print("[17a] run report: " + json.dumps(run_report.to_dict()),
+          flush=True)
+    print(f"[17a] steps executed {executed} ({steps} + {lad.recompiles} "
+          f"re-run after a grow); K1 launches "
+          f"{launches['k1_collision_force']}, column-map launches "
+          f"{launches['k1_column_map']}", flush=True)
+    for ld in loads + [last]:
+        _print_load("[17a]", ld)
+    check(run_report.completed and run_report.retries == 0,
+          f"the supervised run did not complete cleanly: "
+          f"{run_report.to_dict()}")
+    check(n_live == n * 4, f"two division waves should give {n * 4} live "
+                           f"agents, not {n_live}")
+    for name in ("k1_collision_force", "k1_column_map"):
+        check(launches[name] == executed, f"{name} launched "
+                                          f"{launches[name]} times in "
+                                          f"{executed} executed steps")
+    digest = _digest(st.pool)
+    # the next iteration overflows K1's column map, which the ladder's
+    # max_per_run rungs cannot clear: the reference's limit, mirrored
+    final_cfg = lad.config
+    overflow = None
+    try:
+        lad.step(st)
+    except RuntimeError as e:               # checked just below
+        overflow = str(e)
+    check(overflow is not None and "still overflowing" in overflow,
+          f"iteration {steps} did not overflow K1's column map: {overflow}")
+    check(last["need_cols"] > last["maxb"] or last["span_overflow"],
+          "the overflow at the next iteration is not K1's column map")
+    print(f"[17a] iteration {steps} overflows K1's column map ({overflow}): "
+          f"it needs {last['need_cols']} column blocks a row block against "
+          f"maxb {last['maxb']} (a run beyond span 8 blocks: "
+          f"{last['span_overflow']}); densest box {last['box_max']}, densest "
+          f"run {last['run_max']} agents", flush=True)
+
+    # (b) SIGKILL at iteration PROLIF_KILL_AT, then --resume through the CLI
+    ck_b = str(Path(tmpdir) / "supervised_b")
+    killed = _child(["-c", _KILL_CHILD, str(ROOT), ck_b, str(n), str(steps),
+                     str(every), str(PROLIF_KILL_AT)])
+    check(killed.returncode == -9 and "survived" not in killed.stdout,
+          f"the killed run exited {killed.returncode}: "
+          f"{killed.stderr[-2000:]}")
+    resumed = _child(["-m", "repro_torch.launch.simulate", "--scenario",
+                      "proliferation", "--agents", str(n), "--iterations",
+                      str(steps - every), "--supervised", "--resume",
+                      "--ckpt-dir", ck_b, "--checkpoint-every", str(every)])
+    check(resumed.returncode == 0, f"the resumed run exited "
+                                   f"{resumed.returncode}: "
+                                   f"{resumed.stderr[-2000:]}")
+    check(f"at iteration {every}" in resumed.stdout,
+          f"the resume did not start at iteration {every}: "
+          f"{resumed.stdout[-2000:]}")
+    line = [ln for ln in resumed.stdout.splitlines()
+            if ln.startswith("run report: ")][-1]
+    st_b, _ = restore_state(ck_b, sim.config, sim.behaviors, device="cuda")
+    check(int(st_b.iteration) == steps, "the resumed run's last checkpoint "
+                                        "is not its last step")
+    check(_digest(st_b.pool) == digest, "the SIGKILL-resumed run differs "
+                                        "from the uninterrupted run")
+    print(f"[17b] killed at iteration {PROLIF_KILL_AT} (exit "
+          f"{killed.returncode}), resumed through the CLI from iteration "
+          f"{every}: final live state equal bit for bit ({digest[:16]}); "
+          f"resumed {line}", flush=True)
+
+    # (c) ladder ≡ a Simulation pre-sized at the final rungs
+    pre = Simulation(final_cfg, sim.behaviors, device="cuda")
+    st_c = pre.run(pre.init_state(pos0, diameter=dia0), steps,
+                   check_overflow=True)
+    check(_digest(st_c.pool) == digest, "the pre-sized run differs from "
+                                        "the ladder run")
+    print(f"[17c] pre-sized at capacity {final_cfg.capacity}, max_per_run "
+          f"{final_cfg.max_per_run}: final live state equal bit for bit",
+          flush=True)
+
+    # (d) card ≡ CPU at PROLIF_CPU_AGENTS (the free-running CPU run is the
+    # worker's); one-step checks from the card's state at PROLIF_RESYNC
+    one_step = {}
+
+    def resync(i, ladder, state):
+        if i in PROLIF_RESYNC:
+            sim_c = Simulation(ladder.config, ladder.behaviors, device="cpu")
+            want = _cpu_step(sim_c, state)
+            got = convert.state_to_numpy(ladder.sim.step(state))
+            one_step[i] = max(_card_vs_cpu(want, got, f"step {i}").values())
+
+    got, want = _prolif_lockstep("cuda", resync), cpu["prolif"]
+    check(got["rungs"] == want["rungs"], f"rung schedule on the card "
+                                         f"{got['rungs']} != on the CPU "
+                                         f"{want['rungs']}")
+    for i, (g, w) in enumerate(zip(got["ints"], want["ints"])):
+        check(g == w, f"step {i}: n_live, births or deaths differ (card "
+                      f"{g}, CPU {w})")
+    check(any(r[1] == "capacity" for r in got["rungs"]),
+          "no capacity rung in the card ≡ CPU run")
+    resid = {}
+    for k in sorted(want["snaps"]):
+        resid[k] = _same_live_sets(want["snaps"][k], got["snaps"][k],
+                                   float("inf"), f"step {k}",
+                                   exact=("diameter", "born_iter"))
+    print(f"[17d] {PROLIF_CPU_AGENTS} agents x {PROLIF_CPU_STEPS} steps "
+          f"card ≡ CPU: rung schedule {got['rungs']} equal, n_live/births/"
+          f"deaths equal each step (n_live {got['ints'][-1][0]}), diameters "
+          f"and birth steps equal as multisets; one step from the card's "
+          f"state ≡ the CPU's (integers equal, floats 1e-4) before steps "
+          f"{ {k: float(f'{v:.3g}') for k, v in one_step.items()} } (max|Δ|); "
+          f"free-running position residue by step "
+          f"{ {k: float(f'{v:.3g}') for k, v in resid.items()} }",
+          flush=True)
+    rec = {"agents": n, "steps": steps, "n_live": n_live,
+           "overflow_at": steps, "overflow": overflow,
+           "ms_per_step": wall * 1e3 / steps, "executed_steps": executed,
+           "launches": launches, "schedule": _rung_schedule(lad.rungs),
+           "report": run_report.to_dict(), "column_map": loads + [last],
+           "digest": digest, "resumed_equal": True, "presized_equal": True,
+           "cpu": {"agents": PROLIF_CPU_AGENTS, "steps": PROLIF_CPU_STEPS,
+                   "schedule": got["rungs"], "one_step_max_abs": one_step,
+                   "free_running_position_residue": resid}}
+    report["supervised_cli"] = rec
+    return rec
+
+
+def _lean_run(device, force_impl: str):
+    """tests/test_ladder.py's lean scenario: 200 agents, 6 steps, bf16
+    diameters and int16 types; the final state on the host."""
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.core import (DtypePolicy, EngineConfig, ForceParams,
+                                  GrowDivide, Simulation)
+    rng = np.random.default_rng(7)
+    pos = rng.uniform(4, 60, (200, 3)).astype(np.float32)
+    cfg = EngineConfig(capacity=512, domain_lo=(0, 0, 0),
+                       domain_hi=(64.0,) * 3, interaction_radius=4.0,
+                       dt=0.5, max_per_box=16, query_chunk=256,
+                       force=ForceParams(max_displacement=0.5),
+                       force_impl=force_impl,
+                       dtypes=DtypePolicy(aux_float="bfloat16",
+                                          compact_ints=True))
+    sim = Simulation(cfg, [GrowDivide(rate=0.25, threshold_diameter=4.5)],
+                     device=device)
+    st = sim.run(sim.init_state(pos, diameter=np.full(200, 3.0, np.float32)),
+                 6, check_overflow=True)
+    return convert.state_to_numpy(st)
+
+
+def phase_narrowed_k1(report: dict, cpu) -> dict:
+    """Phase 18: K1 on a narrowed pool, and the lean scenario card ≡ CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.core import DtypePolicy, Simulation
+    from repro_torch.core import engine as eng
+    from repro_torch.kernels import ops
+    from repro_torch.launch import simulate
+
+    n = MAIN_AGENTS
+    recs = {}
+    for aux in ("bfloat16", "float16"):
+        sim, _ = simulate.build("proliferation", n, "fig6", device="cuda")
+        cfg = dataclasses.replace(sim.config, dtypes=DtypePolicy(
+            aux_float=aux, compact_ints=True))
+        sim = Simulation(cfg, sim.behaviors, device="cuda")
+        rng = np.random.default_rng(0)
+        side = cfg.domain_hi[0]
+        pos = rng.uniform(2.0, side - 2.0, (n, 3)).astype(np.float32)
+        st = sim.init_state(pos, diameter=rng.uniform(2.0, 4.0, n).astype(
+            np.float32), agent_type=rng.integers(0, 3, n).astype(np.int32))
+        origin = torch.tensor(cfg.domain_lo, dtype=torch.float32,
+                              device="cuda")
+        res = eng.build_env(cfg, sim.spec, st.pool, origin, cfg.cell_size)
+        p, g = res.pool, res.grid
+        check(p.diameter.dtype == getattr(torch, aux)
+              and p.agent_type.dtype == torch.int16, "pool not narrowed")
+        label = f"[18] {aux} diameters, int16 types, {n} agents:"
+        cm_rec, (data_t, cols, _, _) = _column_map_vs_plain(
+            label, cfg, sim.spec, p, g, origin, p.alive)
+        wide = dataclasses.replace(p, diameter=p.diameter.float(),
+                                   agent_type=p.agent_type.int())
+        ref = ops.k1_inputs(wide.position, wide.diameter, wide.agent_type,
+                            wide.alive, wide.alive, g.starts, g.counts,
+                            origin, cfg.cell_size, sim.spec.dims)
+        check(torch.equal(ref[0], data_t) and torch.equal(ref[1], cols),
+              f"{aux}: the pack of the narrowed pool differs from the "
+              f"float32 pool's")
+        recs[aux] = {"column_map": cm_rec,
+                     "k1": _k1_vs_plain(label, data_t, cols, cfg)}
+    lean = {}
+    for impl in ("k1", "streamed"):
+        got = _lean_run("cuda", impl)
+        worst = _card_vs_cpu(cpu["lean"][impl], got, f"lean {impl}")
+        lean[impl] = {"max_abs_diff": worst,
+                      "n_live": int(got["stats"]["n_live"])}
+        print(f"[18] lean scenario (200 agents, 6 steps, bf16/int16), "
+              f"force_impl {impl}: card ≡ CPU, n_live "
+              f"{lean[impl]['n_live']}, max|Δ| "
+              f"{ {k: float(f'{v:.3g}') for k, v in worst.items() if v} }",
+              flush=True)
+    rec = {"agents": n, "pools": recs, "lean": lean}
+    report["narrowed_k1"] = rec
+    return rec
+
+
+def main() -> int:
+    import tempfile
+    import torch
+    if sys.argv[1:2] == ["--cpu-worker"]:
+        return _cpu_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmpdir:
+        worker = _start_cpu_worker(tmpdir)
+        try:
+            return _run(worker, tmpdir)
+        finally:
+            if worker[0].poll() is None:
+                worker[0].kill()
+                worker[0].wait()
+
+
+def _run(worker, tmpdir: str) -> int:
+    import torch
     from repro_torch.device import card_description
     from repro_torch.kernels import build
 
@@ -1516,6 +2229,10 @@ def main() -> int:
     main_b = phase_pairlist_main_path(MAIN_AGENTS, MAIN_STEPS, report,
                                       sir_rec)["b"]
     sec = phase_secretion(report)
+    cpu = _cpu_results(worker)
+    phase_growth(report, cpu)
+    phase_supervised_cli(report, cpu, tmpdir)
+    phase_narrowed_k1(report, cpu)
 
     # K1 and the column map: the main path's launches beside their check
     # and times on that path's first-step inputs (phase 10)

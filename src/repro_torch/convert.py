@@ -32,6 +32,10 @@ cache steps on in the port as it would have in the reference.
 
 Dtypes are kept (uint32 keys become int64 holding the same values), so
 :func:`state_to_numpy` returns arrays equal, bit for bit, to the input.
+The channels a narrowed ``DtypePolicy`` stores in bfloat16, float16 or
+int16 cross bit for bit too: bfloat16 through its 16-bit patterns, as the
+LM weights do, coming back as uint16 bits or viewed as the ``bfloat16``
+numpy dtype a caller passes.
 """
 
 from __future__ import annotations
@@ -49,9 +53,23 @@ from .device import DeviceLike, resolve_device
 
 
 def _to_torch(a: Any, device: torch.device) -> torch.Tensor:
-    a = np.array(a, dtype=np.int64 if np.asarray(a).dtype == np.uint32
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return _leaf_from_numpy(a, device)
+    a = np.array(a, dtype=np.int64 if a.dtype == np.uint32
                  else None)                      # a writable copy
     return torch.from_numpy(a).to(device)
+
+
+def _to_numpy(t: torch.Tensor, bfloat16: Optional[np.dtype] = None
+              ) -> np.ndarray:
+    """A tensor on the host; bfloat16 as uint16 bits, or viewed as
+    ``bfloat16`` when the caller passes that numpy dtype."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        bits = t.view(torch.int16).numpy().view(np.uint16)
+        return bits if bfloat16 is None else bits.view(bfloat16)
+    return t.numpy()
 
 
 def state_from_numpy(leaves: Dict[str, Any], device: DeviceLike = None
@@ -97,10 +115,13 @@ def _env_from_numpy(env: Optional[Dict[str, Any]], dev: torch.device
            for f in ("steps_since", "disp_accum", "dirty")})
 
 
-def state_to_numpy(state: EngineState) -> Dict[str, Any]:
-    """Inverse of :func:`state_from_numpy` (keys back to uint32)."""
+def state_to_numpy(state: EngineState,
+                   bfloat16: Optional[np.dtype] = None) -> Dict[str, Any]:
+    """Inverse of :func:`state_from_numpy` (keys back to uint32). bfloat16
+    channels come back as their uint16 bit patterns, or viewed as
+    ``bfloat16`` when the caller passes that numpy dtype."""
     def arr(t: torch.Tensor) -> np.ndarray:
-        return t.detach().cpu().numpy()
+        return _to_numpy(t, bfloat16)
     out = {"pool": {k: arr(v) for k, v in state.pool.channels().items()},
            "rng": arr(state.rng).astype(np.uint32),
            "iteration": arr(state.iteration),
@@ -149,17 +170,10 @@ def params_to_numpy(tree: Any, bfloat16: Optional[np.dtype] = None) -> Any:
     """Inverse of :func:`params_from_numpy`. bfloat16 leaves come back as
     their uint16 bit patterns, or viewed as ``bfloat16`` when the caller
     passes that numpy dtype (``ml_dtypes.bfloat16``, ``jnp.bfloat16``)."""
-    def leaf(t: torch.Tensor) -> np.ndarray:
-        t = t.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            bits = t.view(torch.int16).numpy().view(np.uint16)
-            return bits if bfloat16 is None else bits.view(bfloat16)
-        return t.numpy()
-
     def walk(t: Any) -> Any:
         if isinstance(t, dict):
             return {k: walk(v) for k, v in t.items()}
         if isinstance(t, (list, tuple)):
             return type(t)(walk(v) for v in t)
-        return leaf(t)
+        return _to_numpy(t, bfloat16)
     return walk(tree)

@@ -4,24 +4,37 @@ from .agents import AgentPool, DtypePolicy, make_pool, pool_from_channels
 from .behaviors import (Behavior, BehaviorEffects, Chemotaxis, GrowDivide,
                         Infection, NeuriteGrowth, RandomDeath, RandomWalk,
                         Secretion)
+from .compaction import grow_channels, grow_pool, repack_slabs
 from .diffusion import DiffusionSpec
-from .engine import (EngineConfig, EngineState, Simulation, StepContext,
+from .engine import (CapacityExhausted, CapacityLadder, EngineConfig,
+                     EngineState, LadderConfig, Simulation, StepContext,
                      build_env, check_kernel_footprints, make_iteration_core,
-                     make_neighbor_apply, realized_footprint,
+                     make_neighbor_apply, next_rung, realized_footprint,
                      registered_kernels, stage_pool)
 from .forces import ForceParams
-from .grid import (BuildResult, GridSpec, GridState, PairKernel,
-                   PairListConfig, RebuildPolicy, make_builder)
-from .health import HealthConfig
+from .grid import (BuildResult, GridSpec, GridState, PairKernel, PairList,
+                   PairListConfig, RebuildPolicy, counting_sort_order,
+                   make_builder)
+from .health import HealthConfig, HealthFault
+from .simcheck import (DegradationPolicy, RunReport, SimCheckpointer,
+                       SupervisedRunner, restore_dist_state,
+                       restore_ensemble_state, restore_state,
+                       save_dist_state, save_ensemble_state, save_state)
 from .stats import StepStats
 
 __all__ = ["AgentPool", "DtypePolicy", "make_pool", "pool_from_channels",
            "Behavior", "BehaviorEffects", "Chemotaxis", "GrowDivide",
            "Infection", "NeuriteGrowth", "RandomDeath", "RandomWalk",
-           "Secretion", "DiffusionSpec", "EngineConfig", "EngineState",
-           "PairListConfig", "RebuildPolicy", "Simulation", "StepContext",
-           "build_env", "check_kernel_footprints", "make_iteration_core",
-           "make_neighbor_apply", "realized_footprint", "registered_kernels",
-           "stage_pool", "ForceParams", "BuildResult", "GridSpec",
-           "GridState", "PairKernel", "make_builder", "HealthConfig",
-           "StepStats"]
+           "Secretion", "grow_channels", "grow_pool", "repack_slabs",
+           "DiffusionSpec", "CapacityExhausted", "CapacityLadder",
+           "EngineConfig", "EngineState", "LadderConfig", "PairListConfig",
+           "RebuildPolicy", "Simulation", "StepContext", "build_env",
+           "check_kernel_footprints", "make_iteration_core",
+           "make_neighbor_apply", "next_rung", "realized_footprint",
+           "registered_kernels", "stage_pool", "ForceParams", "BuildResult",
+           "GridSpec", "GridState", "PairKernel", "PairList",
+           "counting_sort_order", "make_builder", "HealthConfig",
+           "HealthFault", "DegradationPolicy", "RunReport",
+           "SimCheckpointer", "SupervisedRunner", "restore_dist_state",
+           "restore_ensemble_state", "restore_state", "save_dist_state",
+           "save_ensemble_state", "save_state", "StepStats"]

@@ -13,6 +13,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..device import DeviceLike, resolve_device
+
 _TORCH_DTYPES = {
     "float32": torch.float32, "bfloat16": torch.bfloat16,
     "float16": torch.float16, "int16": torch.int16, "int32": torch.int32,
@@ -29,30 +31,61 @@ def torch_dtype(dt: Any) -> torch.dtype:
 
 @dataclasses.dataclass(frozen=True)
 class DtypePolicy:
-    """Per-channel storage dtypes. Only the float32 policy is ported: the
-    narrowed policies (bf16/f16 aux channels, int16 ints) are ROADMAP.md
-    Queue 1 item 11b."""
+    """Per-channel storage dtypes: each capacity rung holds more agents per
+    byte.
+
+    Positions stay float32 always (forces and grid keys depend on them);
+    the policy narrows the auxiliary channels only:
+
+      aux_float:    ``diameter`` and every float32 behavior extra channel
+                    ('float32' | 'bfloat16' | 'float16'). Narrowing trades
+                    precision for bytes: the ladder's bit-parity contract
+                    holds for the float32 policy.
+      compact_ints: ``agent_type`` and ``force_nnz`` as int16 (type ids and
+                    neighbor counts below 32768); ``born_iter`` stays int32.
+
+    Arithmetic on a narrowed channel promotes as the reference's does: a
+    Python scalar takes the channel's dtype (:func:`weak`), a float32
+    tensor promotes the result to float32, and the engine casts each write
+    back to the channel's dtype.
+    """
 
     aux_float: str = "float32"
     compact_ints: bool = False
 
     def __post_init__(self):
-        if self.aux_float != "float32" or self.compact_ints:
-            raise NotImplementedError(
-                "narrowed DtypePolicy (aux_float != 'float32' or "
-                "compact_ints=True) is not ported yet (ROADMAP.md Queue 1 "
-                "item 11b)")
+        if self.aux_float not in AUX_FLOATS:
+            raise ValueError(f"aux_float must be one of {AUX_FLOATS}, got "
+                             f"{self.aux_float!r}")
 
     @property
     def aux_dtype(self) -> torch.dtype:
-        return torch.float32
+        return _TORCH_DTYPES[self.aux_float]
 
     @property
     def int_dtype(self) -> torch.dtype:
-        return torch.int32
+        return torch.int16 if self.compact_ints else torch.int32
 
     def extra_dtype(self, declared: Any) -> torch.dtype:
-        return torch_dtype(declared)
+        """Storage dtype of a behavior extra channel declared ``declared``."""
+        dt = torch_dtype(declared)
+        return self.aux_dtype if dt == torch.float32 else dt
+
+
+AUX_FLOATS = ("float32", "bfloat16", "float16")
+
+
+def weak(value: float, like: torch.Tensor):
+    """A Python scalar as the reference's weak-typed JAX scalar meets
+    ``like``: rounded to ``like``'s dtype first when that is a narrowed
+    float. Torch would otherwise carry a scalar factor at float32 precision
+    into a bf16/f16 product (``bf16 * 0.79`` rounds once, from the exact
+    float32 product), where JAX rounds the scalar to bf16 before
+    multiplying. Float32 tensors take the scalar as they are."""
+    if (isinstance(value, (int, float))
+            and like.dtype in (torch.bfloat16, torch.float16)):
+        return torch.tensor(value, dtype=like.dtype)
+    return value
 
 
 @dataclasses.dataclass
@@ -118,15 +151,16 @@ def make_pool(capacity: int, n_live: int = 0,
               position=None, diameter=None, agent_type=None,
               extra_specs: Optional[Dict[str, Any]] = None,
               policy: Optional[DtypePolicy] = None,
-              device: torch.device | str = "cpu") -> AgentPool:
+              device: DeviceLike = None) -> AgentPool:
     """Allocate ``capacity`` slots; fill the first ``n_live`` from the args.
 
     Same defaults as the reference: diameter 10 for live agents without one,
     type 0, every slot ``moved`` at t=0. ``extra_specs`` maps a channel name
     to ``(shape_suffix, dtype, fill)`` or to an (n_live, ...) initial array.
+    ``device=None`` means the CUDA card and raises without one.
     """
     policy = policy or DtypePolicy()
-    device = torch.device(device)
+    device = resolve_device(device)
     if position is not None:
         n_live = int(position.shape[0])
 

@@ -30,7 +30,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import rand
-from .agents import AgentPool
+from .agents import AgentPool, weak
 from .grid import PairKernel
 
 
@@ -104,12 +104,13 @@ class GrowDivide(Behavior):
         mask = _typed(ctx, pool, self.applies_to)
         rate = resolve(self.rate, ctx)
         threshold = resolve(self.threshold, ctx)
-        # rate·dt in Python double, then one float32 add — the reference's
-        # weak-typed scalar arithmetic
-        new_dia = torch.where(mask, pool.diameter + rate * ctx.dt,
-                              pool.diameter)
-        divide = mask & (new_dia >= threshold)
-        mother_dia = torch.where(divide, new_dia * _HALF_VOLUME, new_dia)
+        # rate·dt in Python double, then one add in the channel's dtype —
+        # the reference's weak-typed scalar arithmetic
+        dia = pool.diameter
+        new_dia = torch.where(mask, dia + weak(rate * ctx.dt, dia), dia)
+        divide = mask & (new_dia >= weak(threshold, dia))
+        mother_dia = torch.where(divide, new_dia * weak(_HALF_VOLUME, dia),
+                                 new_dia)
         direction = _unit(rand.normal_rows(rng, pool.capacity, 3))
         d_pos = pool.position + direction * (mother_dia * 0.5)[:, None]
         return BehaviorEffects(
@@ -290,11 +291,11 @@ class NeuriteGrowth(Behavior):
         new_pos = torch.where(cones[:, None], pool.position + d * step,
                               pool.position)
         new_pos = torch.clamp(new_pos, min=ctx.domain_lo, max=ctx.domain_hi)
-        path = torch.where(cones, pool.extra["path_len"] + step,
-                           pool.extra["path_len"])
+        path0 = pool.extra["path_len"]
+        path = torch.where(cones, path0 + weak(step, path0), path0)
 
         # deposit a (soon static) segment agent at the old position
-        deposit = cones & (path >= self.segment_every)
+        deposit = cones & (path >= weak(self.segment_every, path0))
         path = torch.where(deposit, torch.zeros_like(path), path)
 
         # bifurcation: stage a second cone with a rotated direction

@@ -1,12 +1,13 @@
 """Agent removal and addition as prefix-sum stream compaction (port of
-``repro.core.compaction``: the commit phase of the step, and the active
-index and block lists of static-region skipping). The capacity ladder's
-restage helpers are ROADMAP.md Queue 1 item 11b."""
+``repro.core.compaction``: the commit phase of the step, the capacity
+ladder's restage, and the active index and block lists of static-region
+skipping)."""
 
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from .agents import AgentPool
@@ -83,6 +84,66 @@ def birth_overflow(pool: AgentPool, queue_valid: torch.Tensor
     n_new = queue_valid.sum(dtype=torch.int32)
     free = pool.capacity - pool.n_live
     return torch.clamp(n_new - free, min=0)
+
+
+# ---------------------------------------------------------------------------
+# Capacity-ladder restage
+# ---------------------------------------------------------------------------
+#
+# A rung cannot resize a tensor in place: the restage allocates the larger
+# channels and copies the old pool into their prefix. Torch has no buffer
+# donation, so the old channels live until the caller drops them; the restage
+# holds no reference past its return, so a rung's peak is about old + new.
+
+def grow_channels(ch: Dict[str, torch.Tensor], new_capacity: int
+                  ) -> Dict[str, torch.Tensor]:
+    """Re-stage a channel dict into ``new_capacity`` slots, dtypes kept.
+
+    Slots ``[old_capacity, new_capacity)`` are zero-filled and dead
+    (``alive`` False), as the tail of a freshly made pool, so a live
+    trajectory equals a pre-sized pool's. Growing to the same capacity
+    returns ``ch`` itself; growing to a smaller one raises.
+    """
+    cap = next(iter(ch.values())).shape[0]
+    if new_capacity < cap:
+        raise ValueError(f"cannot shrink pool {cap} -> {new_capacity}")
+    if new_capacity == cap:
+        return ch
+    out = {}
+    for k, v in ch.items():
+        g = torch.zeros((new_capacity, *v.shape[1:]), dtype=v.dtype,
+                        device=v.device)
+        g[:cap] = v
+        out[k] = g
+    return out
+
+
+def grow_pool(pool: AgentPool, new_capacity: int) -> AgentPool:
+    """Re-stage a pool into a larger fixed-shape pool (a capacity rung)."""
+    return pool.with_channels(grow_channels(pool.channels(), new_capacity))
+
+
+def repack_slabs(channels: Dict[str, np.ndarray], n_shards: int,
+                 old_local: int, new_local: int) -> Dict[str, np.ndarray]:
+    """Host-side re-pack of sharded slab channels into a new local width.
+
+    Channels are global ``(n_shards·old_local, ...)`` arrays with shard i's
+    agents in ``[i·old_local, i·old_local + n_i)``. Each shard's slab is
+    kept verbatim and padded with zero (dead) tail slots: the distributed
+    counterpart of :func:`grow_channels`. Numpy in, numpy out, as the
+    reference (its distributed ladder is ROADMAP.md Queue 1 item 15).
+    """
+    if new_local < old_local:
+        raise ValueError(f"cannot shrink slabs {old_local} -> {new_local}")
+    out = {}
+    for k, v in channels.items():
+        a = np.asarray(v)
+        a = a.reshape((n_shards, old_local) + a.shape[1:])
+        pad = np.zeros((n_shards, new_local - old_local) + a.shape[2:],
+                       a.dtype)
+        out[k] = np.concatenate([a, pad], axis=1).reshape(
+            (n_shards * new_local,) + a.shape[2:])
+    return out
 
 
 def active_index_list(active: torch.Tensor

@@ -14,14 +14,16 @@ device. With every-step rebuilds it never reads a device value on the host
 flags. Under ``RebuildPolicy(mode="every_k")`` each step reads one flag,
 whether to rebuild, from the carried cache at its start: the reference
 skips the build with ``lax.cond``, and computing both branches would pay
-for the build it means to skip.
+for the build it means to skip. The capacity ladder (:class:`CapacityLadder`)
+reads every flag and demand of a step in one host transfer after it, so a
+ladder run costs one host read a step (two under every_k).
 
 The port runs ``environment="uniform_grid"``, every-step or every_k
-rebuilds, with or without a Verlet pair list, and the float32 dtype
-policy; forces come from K1 (``force_impl="k1"``: the CUDA kernel on the
-card, its plain version on the CPU) or from the streamed sweep
-(``"streamed"``, the reference's ``"xla"``). Every other option raises
-``NotImplementedError`` naming its ROADMAP.md item.
+rebuilds, with or without a Verlet pair list, under any
+:class:`DtypePolicy`; forces come from K1 (``force_impl="k1"``: the CUDA
+kernel on the card, its plain version on the CPU) or from the streamed
+sweep (``"streamed"``, the reference's ``"xla"``). Every other option
+raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from torch.profiler import record_function
 from . import compaction, diffusion as diff_mod, forces as force_mod
 from . import grid as grid_mod, rand, statics as statics_mod
 from . import health as health_mod
-from .agents import AgentPool, DtypePolicy, make_pool
+from .agents import AgentPool, DtypePolicy, make_pool, weak
 from .behaviors import Behavior
 from .stats import StepStats
 from ..device import DeviceLike, resolve_device
@@ -228,7 +230,7 @@ def check_kernel_footprints(cfg: EngineConfig, behaviors: Sequence[Behavior],
     declared reads and outputs against the pool. Returns the footprint."""
     pool = stage_pool(max(block, 1), behaviors,
                       torch.zeros((1, 3), dtype=torch.float32),
-                      policy=cfg.dtypes)
+                      policy=cfg.dtypes, device="cpu")
     channels = pool.channels()
     for k in registered_kernels(cfg, behaviors, "cpu"):
         missing = [ch for ch in k.reads if ch not in channels]
@@ -433,8 +435,11 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
                 new_pos = torch.clamp(pool.position + dx, min=dlo, max=dhi)
                 new_pos = torch.where(active[:, None], new_pos,
                                       pool.position)
+                # K1 and the sweep count in int32; the channel keeps the
+                # policy's dtype (int16 under compact_ints)
                 force_nnz = torch.where(active, fres["force_nnz"],
-                                        pool.force_nnz)
+                                        pool.force_nnz).to(
+                                            pool.force_nnz.dtype)
             pool = dataclasses.replace(pool, position=new_pos,
                                        force_nnz=force_nnz)
 
@@ -474,7 +479,7 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
         # bookkeeping for the next static detection
         move_d = pool.position - pos0
         moved = (move_d * move_d).sum(-1) > fp.move_eps ** 2
-        grew = pool.diameter > dia0 + 1e-12
+        grew = pool.diameter > dia0 + weak(1e-12, dia0)
         pool = dataclasses.replace(pool, moved=moved & pool.alive,
                                    grew=grew & pool.alive)
         if use_cache:
@@ -556,8 +561,9 @@ def stage_pool(capacity: int, behaviors: Sequence[Behavior], position,
                extra_init: Dict[str, Any] | None = None,
                extra_specs: Dict[str, tuple] | None = None,
                policy: DtypePolicy | None = None,
-               device: torch.device | str = "cpu") -> AgentPool:
-    """Initial pool with every behavior's extra channels."""
+               device: DeviceLike = None) -> AgentPool:
+    """Initial pool with every behavior's extra channels (``device=None``:
+    the CUDA card, raising without one)."""
     specs: Dict[str, tuple] = {}
     for b in behaviors:
         specs.update(b.extra_specs())
@@ -646,3 +652,253 @@ class Simulation:
             if callback is not None:
                 callback(i, state)
         return state
+
+    def run_supervised(self, state: EngineState, n_iterations: int,
+                       ckpt_dir: str, **kwargs):
+        """Run under the fault-tolerant supervisor (``simcheck``).
+
+        Wraps this config and its behaviors in a :class:`CapacityLadder`
+        and hands them to ``simcheck.SupervisedRunner``: checkpoints every
+        ``checkpoint_every`` steps, rollback to the last one on a health
+        fault or ladder exhaustion, retries under the degradation policy.
+        Returns ``(state, RunReport)``.
+        """
+        from . import simcheck
+        runner = simcheck.SupervisedRunner(
+            CapacityLadder(self.config, self.behaviors, device=self.device),
+            ckpt_dir, **kwargs)
+        return runner.run(state, n_iterations)
+
+
+# ---------------------------------------------------------------------------
+# Capacity ladder: automatic pool growth across rungs
+# ---------------------------------------------------------------------------
+
+class CapacityExhausted(RuntimeError):
+    """The ladder hit ``max_capacity``.
+
+    Carries the last-good pre-step state and the overflowing step's
+    ``StepStats`` (attached by :meth:`LadderDriverBase.step` before it
+    re-raises), so a supervisor can checkpoint the trajectory and retry
+    under a degradation policy instead of losing the run.
+    """
+
+    def __init__(self, message: str, demand: int = 0, rung: int = 0,
+                 max_capacity: Optional[int] = None):
+        super().__init__(message)
+        self.demand = demand
+        self.rung = rung
+        self.max_capacity = max_capacity
+        self.state = None      # last-good pre-step state (driver attaches)
+        self.stats = None      # StepStats of the overflowing execution
+        self.iteration = None  # iteration index the state is rewound to
+
+
+@dataclasses.dataclass(frozen=True)
+class LadderConfig:
+    """How the capacity ladder grows on overflow.
+
+    growth_factor:      geometric rung ratio.
+    max_capacity:       ceiling on the pool capacity; a rung beyond it
+                        raises :class:`CapacityExhausted` (never silent).
+    max_grows_per_step: bound on grow → re-run cycles for one iteration.
+    round_to:           capacities round up to a multiple of this.
+    """
+
+    growth_factor: float = 2.0
+    max_capacity: Optional[int] = None
+    max_grows_per_step: int = 16
+    round_to: int = 64
+
+
+def next_rung(old: int, demand: int, factor: float, round_to: int = 1) -> int:
+    """Smallest geometric rung ≥ demand (always at least one rung up)."""
+    new = max(int(math.ceil(old * factor)), old + 1)
+    while new < demand:
+        new = int(math.ceil(new * factor))
+    return -(-new // round_to) * round_to
+
+
+class LadderDriverBase:
+    """The overflow → grow → re-run loop.
+
+    Subclass contract: ``self._sim`` is the current rung's engine (anything
+    with a ``step``), ``_diagnose(stats)`` returns the next rung's config or
+    None, and ``_grow(new_cfg, prev_state, iteration)`` rebuilds the engine
+    at the new rung and returns the (possibly restaged) pre-step state to
+    re-run.
+    """
+
+    ladder: "LadderConfig"
+
+    def _iter_of(self, state) -> int:
+        """The step index a rewind rewinds to."""
+        return int(state.iteration)
+
+    def step(self, state):
+        """One iteration with automatic growth.
+
+        The overflowing execution dropped work (newborns, candidate pairs),
+        so its output is discarded and the iteration re-runs from its
+        pre-step state at the new rung. ``Simulation.step`` leaves its input
+        untouched, so ``state`` stays valid; on a growing step the restage
+        copies it into the larger rung.
+        """
+        prev = state
+        state = self._sim.step(prev)
+        grows = 0
+        while True:
+            try:
+                new_cfg = self._diagnose(state.stats)   # the one host read
+            except CapacityExhausted as e:
+                # the last-good pre-step state, so a supervisor can
+                # checkpoint it and degrade instead of losing the run
+                e.state = prev
+                e.stats = state.stats
+                e.iteration = self._iter_of(prev)
+                raise
+            if new_cfg is None:
+                return state
+            grows += 1
+            if grows > self.ladder.max_grows_per_step:
+                raise RuntimeError(
+                    f"iteration {self._iter_of(prev)}: still overflowing "
+                    f"after {grows - 1} grows — demand outruns "
+                    f"growth_factor={self.ladder.growth_factor}")
+            # drop the overflowing output before the restage allocates
+            state = None
+            prev = self._grow(new_cfg, prev, self._iter_of(prev))
+            state = self._sim.step(prev)
+
+    def run(self, state, n_iterations: int,
+            callback: Callable | None = None):
+        for i in range(n_iterations):
+            state = self.step(state)
+            if callback is not None:
+                callback(i, state)
+        return state
+
+    def _log_rungs(self, iteration: int, triples) -> None:
+        """Record the (field, old, new) growth events and count the
+        restage."""
+        for field, old, new in triples:
+            if old != new:
+                self.rungs.append({"iteration": iteration, "field": field,
+                                   "old": old, "new": new})
+        self.recompiles += 1
+
+
+class CapacityLadder(LadderDriverBase):
+    """``Simulation.run`` with automatic capacity growth.
+
+    The paper's pool allocator lets a population grow without per-agent
+    allocation; here the pool is a ladder of fixed-shape rungs. After each
+    step the driver reads the never-silent overflow flags; when one fires
+    it grows the affected capacity geometrically, restages the pool into
+    the larger shape, builds the Simulation of the new rung and re-runs the
+    very iteration that overflowed from its pre-step state. The rewind
+    makes the trajectory equal, bit for bit, to a run pre-sized at the
+    final rung.
+
+    Which knob grows is read off the stats:
+
+      birth_overflow → ``capacity``            (target: capacity_demand)
+      box_overflow   → ``max_per_run``         (target: box_demand)
+      pair_overflow  → ``pairlist.max_pairs``  (target: pair_demand)
+
+    Growth events are recorded in ``self.rungs``. ``self.recompiles`` keeps
+    the reference's name, where each rung costs a jit compile; the port
+    compiles nothing, and the count is of rung changes, each of which
+    builds the new rung's Simulation and restages what the rung resizes.
+    ``device=None`` means the CUDA card and raises without one.
+    """
+
+    def __init__(self, config: EngineConfig, behaviors: Sequence[Behavior] = (),
+                 ladder: LadderConfig | None = None,
+                 device: DeviceLike = None):
+        self.ladder = ladder or LadderConfig()
+        self.behaviors = list(behaviors)
+        self.config = config
+        self.rungs: List[Dict] = []
+        self.recompiles = 0
+        self._sim = Simulation(config, self.behaviors, device=device)
+        self.device = self._sim.device
+
+    @property
+    def sim(self) -> Simulation:
+        """The current rung's Simulation (rebuilt at every grow)."""
+        return self._sim
+
+    def init_state(self, *args, **kwargs) -> EngineState:
+        return self._sim.init_state(*args, **kwargs)
+
+    # -- growth policy -------------------------------------------------------
+    _READ = ("pair_overflow", "pair_demand", "box_overflow", "box_demand",
+             "birth_overflow", "capacity_demand")
+
+    def _diagnose(self, stats: StepStats) -> Optional[EngineConfig]:
+        """The next rung's config for the overflow in ``stats`` (None: no
+        grow). Every flag and demand comes over in one host transfer."""
+        v = dict(zip(self._READ, torch.stack(
+            [stats[f].reshape(()).to(torch.int64) for f in self._READ]
+        ).tolist()))
+        cfg, lad = self.config, self.ladder
+        changes: Dict = {}
+        if v["pair_overflow"]:
+            changes["pairlist"] = dataclasses.replace(
+                cfg.pairlist,
+                max_pairs=next_rung(cfg.pairlist.max_pairs, v["pair_demand"],
+                                    lad.growth_factor))
+        if v["box_overflow"]:
+            changes["max_per_run"] = next_rung(
+                cfg.grid_spec.run_capacity, v["box_demand"],
+                lad.growth_factor)
+        if v["birth_overflow"]:
+            demand = v["capacity_demand"]
+            new_cap = next_rung(cfg.capacity, demand, lad.growth_factor,
+                                lad.round_to)
+            if lad.max_capacity is not None and new_cap > lad.max_capacity:
+                raise CapacityExhausted(
+                    f"capacity ladder exhausted: demand {demand} needs rung "
+                    f"{new_cap} > max_capacity={lad.max_capacity}",
+                    demand=demand, rung=new_cap,
+                    max_capacity=lad.max_capacity)
+            changes["capacity"] = new_cap
+        if not changes:
+            return None
+        return dataclasses.replace(cfg, **changes)
+
+    def _grow(self, new_cfg: EngineConfig, prev: EngineState,
+              iteration: int) -> EngineState:
+        rungs = [(f, getattr(self.config, f), getattr(new_cfg, f))
+                 for f in ("capacity", "max_per_box", "max_per_run")]
+        if new_cfg.pairlist is not None and self.config.pairlist is not None:
+            rungs.append(("max_pairs", self.config.pairlist.max_pairs,
+                          new_cfg.pairlist.max_pairs))
+        self._log_rungs(iteration, rungs)
+        old_cfg, self.config = self.config, new_cfg
+        self._sim = Simulation(new_cfg, self.behaviors, device=self.device)
+        cap_grew = new_cfg.capacity != prev.pool.capacity
+        pairs_grew = (new_cfg.pairlist is not None
+                      and old_cfg.pairlist is not None
+                      and (cap_grew or new_cfg.pairlist.max_pairs
+                           != old_cfg.pairlist.max_pairs))
+        if cap_grew or pairs_grew:
+            env = prev.env
+            if env is not None:
+                # the rewound step re-runs with this cache: grown as a
+                # pre-sized build would have laid it out, so the grown
+                # trajectory stays bit-identical
+                if cap_grew:
+                    env = dataclasses.replace(
+                        env, grid=grid_mod.grow_grid_state(env.grid,
+                                                           new_cfg.capacity))
+                if pairs_grew and env.pairs is not None:
+                    env = dataclasses.replace(
+                        env, pairs=grid_mod.grow_pairlist(
+                            env.pairs, new_cfg.capacity,
+                            new_cfg.pairlist.max_pairs))
+            pool = (compaction.grow_pool(prev.pool, new_cfg.capacity)
+                    if cap_grew else prev.pool)
+            prev = dataclasses.replace(prev, pool=pool, env=env)
+        return prev

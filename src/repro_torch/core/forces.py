@@ -19,6 +19,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from .agents import weak
+
 
 @dataclasses.dataclass(frozen=True)
 class ForceParams:
@@ -44,7 +46,7 @@ def pair_force(q_pos: torch.Tensor, q_dia: torch.Tensor, q_type: torch.Tensor,
     delta = r_q + r_n - dist
     r_eff = torch.clamp(r_q * r_n / torch.clamp(r_q + r_n, min=1e-12),
                         min=1e-12)
-    f_rep = params.k_rep * torch.sqrt(r_eff) * torch.pow(
+    f_rep = weak(params.k_rep, r_eff) * torch.sqrt(r_eff) * torch.pow(
         torch.clamp(delta, min=0.0), 1.5)
     in_band = delta + params.adhesion_band > 0.0
     if adhesion is not None:

@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from ..device import DeviceLike, resolve_device
+
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
@@ -40,12 +42,14 @@ def threefry2x32(k0: torch.Tensor, k1: torch.Tensor,
     return x0, x1
 
 
-def prng_key(seed: int, device: torch.device | str = "cpu") -> torch.Tensor:
+def prng_key(seed: int, device: DeviceLike = None) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` (threefry): the key ``[0, seed]``, with a
-    negative int32 seed taken modulo 2**32 as jax does."""
+    negative int32 seed taken modulo 2**32 as jax does. ``device=None``
+    means the CUDA card and raises without one."""
     if not -2 ** 31 <= seed < 2 ** 31:
         raise ValueError(f"seed must fit int32, got {seed}")
-    return torch.tensor([0, seed & _M32], dtype=torch.int64, device=device)
+    return torch.tensor([0, seed & _M32], dtype=torch.int64,
+                        device=resolve_device(device))
 
 
 def split(key: torch.Tensor, n: int, partitionable: bool = True

@@ -1,0 +1,404 @@
+"""Simulation checkpoint/resume and the supervised run loop (port of
+``repro.core.simcheck``, its single-device part).
+
+* :func:`save_state` / :func:`restore_state` — the complete run state
+  (pool channels, RNG key, every_k cache, step index, stats) as one
+  checkpoint in the reference's format (``train/checkpoint.py``), with the
+  rung and degradation knobs in the manifest, so the resuming process
+  builds the same step. The step is deterministic, so a resumed run
+  replays the uninterrupted trajectory bit for bit. A checkpoint written
+  by either package restores in the other.
+* :class:`SupervisedRunner` — checkpoints every ``checkpoint_every``
+  steps, reads the step's health bitmask, and on a health fault or
+  :class:`CapacityExhausted` rolls back to the last checkpoint and retries
+  under a :class:`DegradationPolicy`. Every intervention lands in a
+  :class:`RunReport`.
+
+The ensemble variants are ROADMAP.md Queue 1 item 13, the distributed
+ones item 15; they raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..train import checkpoint as ckpt_mod
+from . import grid as grid_mod, rand
+from .behaviors import Behavior
+from .engine import (CapacityExhausted, CapacityLadder, EngineConfig,
+                     EngineState, Simulation, stage_pool)
+from .health import HealthFault, describe
+from .stats import StepStats
+
+_FORMAT = 1            # manifest extras schema version
+
+# force_impl as the reference's knobs name it, and back
+_REF_FORCE_IMPL = {"k1": "pallas", "streamed": "xla", "xla": "xla"}
+_PORT_FORCE_IMPL = {"pallas": "k1", "xla": "xla"}
+
+
+# ---------------------------------------------------------------------------
+# Knob snapshots — what the arrays alone cannot carry
+# ---------------------------------------------------------------------------
+
+def _engine_knobs(cfg: EngineConfig) -> Dict:
+    """The knobs a resume must reproduce: rung sizes (shapes depend on
+    them) and the degradation knobs (the trajectory depends on them)."""
+    return {"capacity": cfg.capacity,
+            "max_per_box": cfg.max_per_box,
+            "max_per_run": cfg.max_per_run,
+            "dt": cfg.dt,
+            "fused_sweep": cfg.fused_sweep,
+            "force_impl": _REF_FORCE_IMPL[cfg.force_impl],
+            "rebuild": {"mode": cfg.rebuild.mode, "k": cfg.rebuild.k,
+                        "displacement_bound": cfg.rebuild.displacement_bound}}
+
+
+def _apply_engine_knobs(cfg: EngineConfig, knobs: Dict,
+                        mode: str) -> EngineConfig:
+    """Apply recorded knobs onto ``cfg``.
+
+    mode="all":   rungs and degradation knobs — a plain resume runs the
+                  step the checkpoint ran under (bit-exact).
+    mode="rungs": rung sizes only — the supervisor's rollback, which keeps
+                  its degraded dt/sweep/rebuild knobs.
+    """
+    if mode not in ("all", "rungs"):
+        raise ValueError(f"apply_knobs must be 'all' or 'rungs', got {mode!r}")
+    changes: Dict[str, Any] = {k: knobs[k] for k in
+                               ("capacity", "max_per_box", "max_per_run")}
+    if mode == "all":
+        impl = _PORT_FORCE_IMPL[knobs["force_impl"]]
+        if impl == "xla" and cfg.force_impl in ("streamed", "xla"):
+            impl = cfg.force_impl               # one path, either name
+        changes.update(dt=knobs["dt"], fused_sweep=knobs["fused_sweep"],
+                       force_impl=impl,
+                       rebuild=grid_mod.RebuildPolicy(**knobs["rebuild"]))
+    return dataclasses.replace(cfg, **changes)
+
+
+# ---------------------------------------------------------------------------
+# Templates — a zero state with the checkpoint's structure and shapes
+# ---------------------------------------------------------------------------
+
+def _template_state(cfg: EngineConfig, behaviors: Sequence[Behavior],
+                    device: torch.device) -> EngineState:
+    """Structural twin of ``Simulation.init_state``'s output."""
+    pool = stage_pool(cfg.capacity, list(behaviors),
+                      torch.zeros((1, 3), dtype=torch.float32),
+                      policy=cfg.dtypes, device=device)
+    dspec = cfg.diffusion
+    conc = torch.zeros(dspec.dims if dspec else (1, 1, 1),
+                       dtype=torch.float32, device=device)
+    env = None
+    if cfg.rebuild.mode == "every_k":
+        env = grid_mod.initial_rebuild_state(
+            cfg.grid_spec, cfg.capacity,
+            torch.tensor(cfg.domain_lo, dtype=torch.float32, device=device),
+            cfg.cell_size, pairlist=cfg.pairlist)
+    return EngineState(pool=pool, conc=conc, rng=rand.prng_key(0, device),
+                       iteration=torch.zeros((), dtype=torch.int32,
+                                             device=device),
+                       stats=StepStats.zeros(device), env=env)
+
+
+def _adapt_env(state, saved_mode: str, cfg: EngineConfig,
+               template_fn: Callable):
+    """Reconcile the cache's presence when the target rebuild mode differs
+    from the checkpoint's (a supervisor may have degraded every_k to
+    every_step)."""
+    if (cfg.rebuild.mode == "every_k") == (saved_mode == "every_k"):
+        return state
+    if cfg.rebuild.mode == "every_step":
+        return dataclasses.replace(state, env=None)
+    # the target wants a cache the checkpoint lacks: a dirty initial cache,
+    # so the first step rebuilds
+    return dataclasses.replace(state, env=template_fn().env)
+
+
+def _stored(state: EngineState) -> EngineState:
+    """The state as the reference stores it: the RNG key and the grid keys
+    as uint32 (the port holds them in int64)."""
+    def u32(t: torch.Tensor) -> np.ndarray:
+        return t.detach().cpu().numpy().astype(np.uint32)
+    env = state.env
+    if env is not None:
+        env = dataclasses.replace(env, grid=dataclasses.replace(
+            env.grid, keys=u32(env.grid.keys)))
+    return dataclasses.replace(state, rng=u32(state.rng), env=env)
+
+
+def _meta(cfg: EngineConfig, extras: Optional[Dict]) -> Dict:
+    meta = {"format": _FORMAT, "kind": "engine", "knobs": _engine_knobs(cfg)}
+    if extras:
+        meta.update(extras)
+    return meta
+
+
+# ---------------------------------------------------------------------------
+# Single-device save / restore
+# ---------------------------------------------------------------------------
+
+def save_state(ckpt_dir: str, state: EngineState, cfg: EngineConfig,
+               extras: Optional[Dict] = None) -> str:
+    """Atomic checkpoint of a complete single-device run state."""
+    return ckpt_mod.save(ckpt_dir, int(state.iteration), _stored(state),
+                         extras=_meta(cfg, extras))
+
+
+def restore_state(ckpt_dir: str, cfg: EngineConfig,
+                  behaviors: Sequence[Behavior], step: Optional[int] = None,
+                  apply_knobs: str = "all", device: DeviceLike = None
+                  ) -> Tuple[EngineState, EngineConfig]:
+    """Restore ``(state, config)`` on ``device`` (None: the CUDA card);
+    resume with ``Simulation(config)``.
+
+    ``step=None`` restores the latest checkpoint. ``apply_knobs`` decides
+    which recorded knobs overwrite ``cfg`` (:func:`_apply_engine_knobs`):
+    with "all", stepping the returned state under the returned config is
+    bit-exact with the uninterrupted run.
+    """
+    dev = resolve_device(device)
+    if step is None:
+        step = ckpt_mod.latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
+    meta = ckpt_mod.load_manifest(ckpt_dir, step).get("extras", {})
+    knobs = meta.get("knobs")
+    if knobs is None:
+        raise ValueError(f"{ckpt_dir} step {step}: not a simulation "
+                         f"checkpoint (no knobs in manifest extras)")
+    cfg = _apply_engine_knobs(cfg, knobs, apply_knobs)
+    saved_mode = knobs["rebuild"]["mode"]
+    # the template mirrors the config the checkpoint was SAVED under (the
+    # cache's presence), then adapts to the target config
+    tmpl_cfg = cfg
+    if (cfg.rebuild.mode == "every_k") != (saved_mode == "every_k"):
+        tmpl_cfg = dataclasses.replace(
+            cfg, rebuild=grid_mod.RebuildPolicy(**knobs["rebuild"]))
+    state = ckpt_mod.restore(ckpt_dir, step,
+                             _template_state(tmpl_cfg, behaviors, dev))
+    state = _adapt_env(state, saved_mode, cfg,
+                       lambda: _template_state(cfg, behaviors, dev))
+    return state, cfg
+
+
+def save_ensemble_state(*args, **kwargs):
+    raise NotImplementedError("ensemble checkpoints are not ported yet "
+                              "(ROADMAP.md Queue 1 item 13)")
+
+
+def restore_ensemble_state(*args, **kwargs):
+    raise NotImplementedError("ensemble checkpoints are not ported yet "
+                              "(ROADMAP.md Queue 1 item 13)")
+
+
+def save_dist_state(*args, **kwargs):
+    raise NotImplementedError("distributed checkpoints are not ported yet "
+                              "(ROADMAP.md Queue 1 item 15)")
+
+
+def restore_dist_state(*args, **kwargs):
+    raise NotImplementedError("distributed checkpoints are not ported yet "
+                              "(ROADMAP.md Queue 1 item 15)")
+
+
+class SimCheckpointer:
+    """Async simulation checkpointer: the host copy is taken on the
+    caller's thread, the file written on a background thread. Saves are
+    serialised (a new save waits for the previous write)."""
+
+    def __init__(self, ckpt_dir: str, keep: int = 3):
+        self.ckpt_dir = ckpt_dir
+        self._async = ckpt_mod.AsyncCheckpointer(ckpt_dir, keep=keep)
+
+    def save_async(self, state: EngineState, config: EngineConfig,
+                   extras: Optional[Dict] = None) -> int:
+        if not isinstance(config, EngineConfig):
+            raise NotImplementedError(
+                "distributed checkpoints are not ported yet (ROADMAP.md "
+                "Queue 1 item 15)")
+        step = int(state.iteration)
+        self._async.save_async(step, _stored(state),
+                               extras=_meta(config, extras))
+        return step
+
+    def wait(self) -> None:
+        self._async.wait()
+
+
+# ---------------------------------------------------------------------------
+# Degradation policy + run report
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DegradationPolicy:
+    """Ordered remedies the supervisor tries after a rollback.
+
+    By trajectory impact: (1) drop the every_k cache — positions are
+    unchanged, only the skip schedule resets; (2) the sequential streamed
+    sweep (the reference's sequential XLA path); (3) shrink dt, the only
+    remedy that changes the trajectory, at most ``max_dt_shrinks`` times.
+    """
+
+    dt_shrink: float = 0.5
+    max_dt_shrinks: int = 2
+
+    def next_remedy(self, cfg: EngineConfig, applied: Sequence[str]
+                    ) -> Optional[Tuple[str, EngineConfig]]:
+        """(name, degraded config), or None when out of remedies."""
+        if cfg.rebuild.mode == "every_k":
+            return "rebuild_every_step", dataclasses.replace(
+                cfg, rebuild=grid_mod.RebuildPolicy())
+        if cfg.fused_sweep or cfg.force_impl not in ("xla", "streamed"):
+            return "sequential_sweep", dataclasses.replace(
+                cfg, fused_sweep=False, force_impl="xla")
+        if sum(1 for a in applied if a == "shrink_dt") < self.max_dt_shrinks:
+            return "shrink_dt", dataclasses.replace(
+                cfg, dt=cfg.dt * self.dt_shrink)
+        return None
+
+
+@dataclasses.dataclass
+class RunReport:
+    """Everything the supervisor did to keep the run alive: no
+    intervention is silent."""
+
+    interventions: List[Dict] = dataclasses.field(default_factory=list)
+    checkpoints: List[int] = dataclasses.field(default_factory=list)
+    rungs: List[Dict] = dataclasses.field(default_factory=list)
+    retries: int = 0
+    completed: bool = False
+    final_iteration: int = 0
+
+    def to_dict(self) -> Dict:
+        return dataclasses.asdict(self)
+
+
+# ---------------------------------------------------------------------------
+# The supervised run loop
+# ---------------------------------------------------------------------------
+
+class SupervisedRunner:
+    """Fault-tolerant driver around a :class:`CapacityLadder`.
+
+    Runs it step by step, checkpoints every ``checkpoint_every`` iterations
+    (and once up front, so there is always a rollback target), and reads
+    the health bitmask after every step. On a health fault or
+    ``CapacityExhausted``:
+
+      1. the failing state is discarded (on capacity exhaustion the
+         last-good pre-step state carried by the exception is checkpointed
+         first, so no progress is lost);
+      2. the engine config is degraded one remedy down the policy;
+      3. the run rolls back to the latest checkpoint (rung knobs from the
+         checkpoint, degraded knobs kept) and continues.
+
+    When remedies run out the fault is re-raised with the ``RunReport``
+    attached.
+
+    ``fault_hook(iteration, state) -> state | None`` is a test-only
+    injection point, called on the input state of each iteration.
+    """
+
+    def __init__(self, driver: CapacityLadder, ckpt_dir: str,
+                 checkpoint_every: int = 50, keep: int = 3,
+                 policy: Optional[DegradationPolicy] = None,
+                 max_retries: int = 8,
+                 fault_hook: Optional[Callable] = None):
+        if not isinstance(driver, CapacityLadder):
+            raise NotImplementedError(
+                "the supervisor drives a single-device CapacityLadder; the "
+                "distributed ladder is ROADMAP.md Queue 1 item 15")
+        self.driver = driver
+        self.ckpt_dir = ckpt_dir
+        self.checkpoint_every = checkpoint_every
+        self.policy = policy or DegradationPolicy()
+        self.max_retries = max_retries
+        self.fault_hook = fault_hook
+        self.report = RunReport()
+        self._ckpt = SimCheckpointer(ckpt_dir, keep=keep)
+        self._applied: List[str] = []
+
+    def _reconfigure(self, new_cfg: EngineConfig) -> None:
+        self.driver.config = new_cfg
+        self.driver._sim = Simulation(new_cfg, self.driver.behaviors,
+                                      device=self.driver.device)
+
+    def _save(self, state: EngineState) -> None:
+        step = self._ckpt.save_async(state, self.driver.config)
+        if step not in self.report.checkpoints:
+            self.report.checkpoints.append(step)
+
+    def _rollback(self) -> EngineState:
+        """The latest checkpoint under the current (degraded) config."""
+        self._ckpt.wait()
+        state, cfg = restore_state(
+            self.ckpt_dir, self.driver.config, self.driver.behaviors,
+            apply_knobs="rungs", device=self.driver.device)
+        self._reconfigure(cfg)
+        return state
+
+    def _handle_fault(self, kind: str, detail: Dict, fault) -> EngineState:
+        self.report.retries += 1
+        if self.report.retries > self.max_retries:
+            fault.report = self.report
+            raise fault
+        remedy = self.policy.next_remedy(self.driver.config, self._applied)
+        if remedy is None:
+            fault.report = self.report
+            raise fault
+        name, new_cfg = remedy
+        self._applied.append(name)
+        self._reconfigure(new_cfg)
+        state = self._rollback()
+        self.report.interventions.append(
+            {"kind": kind, "remedy": name,
+             "rolled_back_to": int(state.iteration), **detail})
+        return state
+
+    def run(self, state: EngineState, n_iterations: int):
+        """Returns ``(final_state, RunReport)``."""
+        target = int(state.iteration) + n_iterations
+        self._save(state)                       # always a rollback target
+        while int(state.iteration) < target:
+            it = int(state.iteration)
+            if self.fault_hook is not None:
+                injected = self.fault_hook(it, state)
+                if injected is not None:
+                    state = injected
+            try:
+                nxt = self.driver.step(state)
+                bits = nxt.stats.health_bits()
+                if bits:
+                    raise HealthFault(
+                        f"iteration {it}: health guard fired "
+                        f"{describe(bits)}", bits=bits)
+            except HealthFault as e:
+                state = self._handle_fault(
+                    "health", {"iteration": it, "flags": list(e.flags)}, e)
+                continue
+            except CapacityExhausted as e:
+                if e.state is not None:
+                    # emergency checkpoint of the last-good pre-step state
+                    self._ckpt.wait()
+                    self._save(e.state)
+                state = self._handle_fault(
+                    "capacity_exhausted",
+                    {"iteration": it, "demand": e.demand,
+                     "max_capacity": e.max_capacity}, e)
+                continue
+            state = nxt
+            if int(state.iteration) % self.checkpoint_every == 0:
+                self._save(state)
+        self._save(state)
+        self._ckpt.wait()
+        self.report.completed = True
+        self.report.final_iteration = int(state.iteration)
+        self.report.rungs = list(self.driver.rungs)
+        return state, self.report

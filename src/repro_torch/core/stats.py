@@ -12,6 +12,8 @@ from typing import Dict
 
 import torch
 
+from ..device import DeviceLike, resolve_device
+
 
 @dataclasses.dataclass
 class StepStats:
@@ -47,8 +49,11 @@ class StepStats:
                        "pair_overflow")
 
     @classmethod
-    def zeros(cls, device: torch.device | str = "cpu") -> "StepStats":
-        return cls(**{f: torch.zeros((), dtype=torch.int32, device=device)
+    def zeros(cls, device: DeviceLike = None) -> "StepStats":
+        """All-zero counters (``device=None``: the CUDA card, raising
+        without one)."""
+        dev = resolve_device(device)
+        return cls(**{f: torch.zeros((), dtype=torch.int32, device=dev)
                       for f in cls.FIELDS})
 
     def __getitem__(self, key: str) -> torch.Tensor:

@@ -24,19 +24,33 @@ steps under ``RebuildPolicy("every_k", k=8, displacement_bound=0.75)`` with
 skin 1.5 (examples/cell_clustering.py's reuse settings), max_pairs sized
 from a probe build as benchmarks/capacity.py sizes it. Runs on the CUDA
 card unless ``--device cpu`` is given.
+
+Fault-tolerant mode: ``--supervised --ckpt-dir DIR`` runs under the
+checkpointing supervisor (``core/simcheck.py``) around a capacity ladder,
+so the population grows past the set-up's capacities instead of raising:
+atomic checkpoints every ``--checkpoint-every`` steps, health guards,
+rollback and degradation on a fault, and a ``run report:`` JSON line at the
+end. ``--resume`` restores the latest checkpoint in ``--ckpt-dir`` and runs
+``--iterations`` more steps, bit-exact with the uninterrupted run::
+
+    PYTHONPATH=src python -m repro_torch.launch.simulate \
+        --scenario proliferation --agents 65536 --iterations 100 \
+        --supervised --ckpt-dir /tmp/ck --checkpoint-every 50
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 
 import numpy as np
 import torch
 
-from ..core import (DiffusionSpec, EngineConfig, ForceParams, PairListConfig,
-                    RebuildPolicy, Simulation, build_env, grid)
+from ..core import (CapacityLadder, DiffusionSpec, EngineConfig, ForceParams,
+                    PairListConfig, RebuildPolicy, Simulation,
+                    SupervisedRunner, build_env, grid, restore_state)
 from ..core.behaviors import (GROWTH_CONE, INFECTED, Chemotaxis, GrowDivide,
                               Infection, NeuriteGrowth, RandomDeath,
                               RandomWalk, Secretion)
@@ -203,7 +217,25 @@ def probe_max_pairs(sim: Simulation, st) -> int:
     return max(8, 1 << int(np.ceil(np.log2(max(int(probe.demand), 1)))))
 
 
-def main() -> None:
+def supervised_run(sim: Simulation, st, iterations: int, ckpt_dir: str,
+                   checkpoint_every: int = 50, resume: bool = False):
+    """The CLI's ``--supervised``/``--resume`` path: restore the latest
+    checkpoint when resuming (its knobs applied), then run ``iterations``
+    steps under ``SupervisedRunner(CapacityLadder(...))``. Returns
+    ``(state, report, runner)``."""
+    cfg, behaviors = sim.config, sim.behaviors
+    if resume:
+        st, cfg = restore_state(ckpt_dir, cfg, behaviors, device=sim.device)
+        print(f"resumed from {ckpt_dir} at iteration {int(st.iteration)}",
+              flush=True)
+    runner = SupervisedRunner(CapacityLadder(cfg, behaviors,
+                                             device=sim.device),
+                              ckpt_dir, checkpoint_every=checkpoint_every)
+    st, report = runner.run(st, iterations)
+    return st, report, runner
+
+
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scenario", choices=SCENARIOS, default="proliferation")
     ap.add_argument("--config", choices=CONFIGS, default="cli")
@@ -216,13 +248,35 @@ def main() -> None:
     ap.add_argument("--report-every", type=int, default=20)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
-    args = ap.parse_args()
+    ap.add_argument("--supervised", action="store_true",
+                    help="run under the fault-tolerant supervisor")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (required with --supervised)")
+    ap.add_argument("--checkpoint-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest checkpoint in --ckpt-dir")
+    args = ap.parse_args(argv)
 
+    if (args.supervised or args.resume) and not args.ckpt_dir:
+        raise SystemExit("--supervised/--resume require --ckpt-dir")
     sim, st = build(args.scenario, args.agents, args.config, args.device,
                     args.force_impl, args.pairlist)
     sync = (torch.cuda.synchronize if sim.device.type == "cuda"
             else (lambda: None))
     sync()
+    if args.supervised or args.resume:
+        t0 = time.perf_counter()
+        st, report, _ = supervised_run(sim, st, args.iterations,
+                                       args.ckpt_dir, args.checkpoint_every,
+                                       args.resume)
+        sync()
+        dt = time.perf_counter() - t0
+        print(f"iter {int(st.iteration):5d}  "
+              f"n_live={int(st.stats['n_live']):8d}  "
+              f"{args.iterations / dt:6.2f} iter/s  ({sim.device})")
+        print("run report: " + json.dumps(report.to_dict()))
+        print("done")
+        return
     t0 = time.perf_counter()
     done = 0
     while done < args.iterations:

@@ -44,7 +44,8 @@ def _state(jbeh, tbeh, seed=0, cap=256, n=200, types=(0, 1, 2)):
         extra["direction"] = d / np.linalg.norm(d, axis=1, keepdims=True)
         extra["path_len"] = rng.uniform(0, 2.5, n).astype(np.float32)
     jpool = jeng.stage_pool(cap, jbeh, extra_init=extra, **kw)
-    tpool = teng.stage_pool(cap, tbeh, extra_init=extra, **kw)
+    tpool = teng.stage_pool(cap, tbeh, extra_init=extra, device="cpu",
+                            **kw)
     alive = np.arange(cap) < n
     alive[rng.choice(n, 10, replace=False)] = False    # holes: not owned
     jpool.alive = jnp.asarray(alive)

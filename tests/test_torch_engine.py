@@ -403,8 +403,14 @@ def test_state_with_conc_and_extras_round_trips():
 
 
 def test_narrowed_dtype_policy_raises():
-    with pytest.raises(NotImplementedError):
-        DtypePolicy(aux_float="bfloat16")
+    """The narrowed policies are ported; a dtype outside the reference's
+    three still raises."""
+    lean = DtypePolicy(aux_float="bfloat16", compact_ints=True)
+    assert lean.aux_dtype == torch.bfloat16
+    assert lean.int_dtype == torch.int16
+    assert DtypePolicy(aux_float="float16").aux_dtype == torch.float16
+    with pytest.raises(ValueError):
+        DtypePolicy(aux_float="float64")
 
 
 def test_config_validation_matches_reference():

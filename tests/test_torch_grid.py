@@ -40,7 +40,7 @@ def _pools(pos, c, alive=None, dia=None):
     dia = np.full(n, 1.0, np.float32) if dia is None else dia
     jp = jagents.make_pool(c, position=jnp.asarray(pos),
                            diameter=jnp.asarray(dia))
-    tp = tagents.make_pool(c, position=pos, diameter=dia)
+    tp = tagents.make_pool(c, position=pos, diameter=dia, device="cpu")
     if alive is not None:
         jp = dataclasses.replace(jp, alive=jnp.asarray(alive))
         tp = dataclasses.replace(tp, alive=torch.from_numpy(alive.copy()))

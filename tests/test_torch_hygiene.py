@@ -52,6 +52,45 @@ def test_simulation_defaults_to_cuda_and_raises_without_it():
     assert Simulation(cfg, [], device="cpu").device.type == "cpu"
 
 
+@pytest.mark.parametrize("make", ["make_pool", "stage_pool", "prng_key",
+                                  "StepStats.zeros", "restore_state",
+                                  "CapacityLadder"])
+def test_public_constructors_default_to_cuda_and_raise_without_it(make,
+                                                                  tmp_path):
+    """The pool, key and stats constructors, the restore and the ladder
+    put their tensors on the card unless asked for the CPU."""
+    import numpy as np
+    from repro_torch.core import (CapacityLadder, EngineConfig, StepStats,
+                                  make_pool, rand, restore_state, save_state,
+                                  stage_pool)
+    cfg = EngineConfig(capacity=16, domain_lo=(0, 0, 0),
+                       domain_hi=(8, 8, 8), interaction_radius=2.0)
+    pos = np.zeros((2, 3), np.float32)
+    if make == "restore_state":
+        from repro_torch.core import Simulation
+        save_state(str(tmp_path),
+                   Simulation(cfg, [], device="cpu").init_state(pos), cfg)
+    calls = {
+        "make_pool": lambda **kw: make_pool(16, **kw),
+        "stage_pool": lambda **kw: stage_pool(16, [], pos, **kw),
+        "prng_key": lambda **kw: rand.prng_key(0, **kw),
+        "StepStats.zeros": lambda **kw: StepStats.zeros(**kw),
+        "restore_state": lambda **kw: restore_state(str(tmp_path), cfg, [],
+                                                    **kw)[0].pool,
+        "CapacityLadder": lambda **kw: CapacityLadder(cfg, [], **kw).sim,
+    }
+    fn = calls[make]
+
+    def device_of(out):                 # StepStats: one tensor per field
+        return getattr(out, "device", None) or out.n_live.device
+    if torch.cuda.is_available():
+        assert device_of(fn()).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
+    assert device_of(fn(device="cpu")).type == "cpu"
+
+
 @pytest.mark.parametrize("rel", ["kernels/collision_force.py",
                                  "kernels/block_cols.py",
                                  "kernels/flash_attention.py",

@@ -700,7 +700,8 @@ def _radius_case(n=2048, r=4.0, seed=11):
     alive = np.arange(n) % 3 != 2
     dims = (int(np.ceil((side * 20.0 + 10) / r)),) * 2 + (4,)
     spec = tgrid.GridSpec(dims=dims, max_per_box=8)
-    pool = make_pool(n, position=pos, diameter=np.ones(n, np.float32))
+    pool = make_pool(n, position=pos, diameter=np.ones(n, np.float32),
+                     device="cpu")
     pool = dataclasses.replace(pool, alive=_t(alive))
     res = tgrid.make_builder(spec)(pool, torch.zeros(3), r)
     return spec, res.grid, res.pool.position, res.pool.alive
@@ -929,3 +930,179 @@ def test_k1_on_the_pairs_map_equals_k1_on_the_stencil_map():
     torch.cuda.synchronize()
     assert not bool(o0) and not bool(o1)
     assert torch.equal(f0, f1) and torch.equal(n0, n1)
+
+
+# ---------------------------------------------------------------------------
+# K1 on a narrowed pool (DtypePolicy bf16/f16 diameters, int16 types)
+# ---------------------------------------------------------------------------
+
+def _narrowed_fig6(aux, device, n=32768):
+    """The Fig-6 pool after the engine's resident build, with the diameter
+    stored as ``aux`` and the type and force_nnz as int16."""
+    import dataclasses as dc
+    from repro_torch.core import DtypePolicy, Simulation
+    from repro_torch.core import engine as eng
+    from repro_torch.launch import simulate
+    sim, _ = simulate.build("proliferation", n, "fig6", device=device)
+    cfg = dc.replace(sim.config, dtypes=DtypePolicy(aux_float=aux,
+                                                    compact_ints=True))
+    sim = Simulation(cfg, sim.behaviors, device=device)
+    rng = np.random.default_rng(0)
+    side = cfg.domain_hi[0]
+    pos = rng.uniform(2.0, side - 2.0, (n, 3)).astype(np.float32)
+    types = rng.integers(0, 3, n).astype(np.int32)
+    st = sim.init_state(pos, diameter=rng.uniform(2.0, 4.0, n).astype(
+        np.float32), agent_type=types)
+    origin = torch.tensor(cfg.domain_lo, dtype=torch.float32, device=device)
+    res = eng.build_env(cfg, sim.spec, st.pool, origin, cfg.cell_size)
+    return sim, res, origin
+
+
+def _k1_args(sim, res, origin, pool=None):
+    p = pool or res.pool
+    return (p.position, p.diameter, p.agent_type, p.alive, p.alive,
+            res.grid.starts, res.grid.counts, origin, sim.config.cell_size)
+
+
+@pytest.mark.parametrize("aux", ["bfloat16", "float16"])
+def test_k1_inputs_on_a_narrowed_pool_equal_the_float32_pool(aux):
+    """The pack casts the narrowed channels exactly: K1's inputs from a
+    bf16/f16/int16 pool equal those from the same values in float32 and
+    int32, and so do K1's plain force and nnz."""
+    sim, res, origin = _narrowed_fig6(aux, "cpu", n=4096)
+    p = res.pool
+    assert p.diameter.dtype == getattr(torch, aux)
+    assert p.agent_type.dtype == torch.int16
+    wide = dataclasses.replace(p, diameter=p.diameter.float(),
+                               agent_type=p.agent_type.int())
+    got = tops.k1_inputs_plain(*_k1_args(sim, res, origin), sim.spec.dims)
+    want = tops.k1_inputs_plain(*_k1_args(sim, res, origin, wide),
+                                sim.spec.dims)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    kw = dict(dims=sim.spec.dims, k_rep=sim.config.force.k_rep,
+              adhesion_band=sim.config.force.adhesion_band)
+    f, nnz, _ = tops.collision_force_resident(*_k1_args(sim, res, origin),
+                                              **kw)
+    fw, nw, _ = tops.collision_force_resident(
+        *_k1_args(sim, res, origin, wide), **kw)
+    assert nnz.dtype == torch.int32
+    assert torch.equal(f, fw) and torch.equal(nnz, nw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aux", ["bfloat16", "float16"])
+def test_k1_cuda_kernel_on_a_narrowed_pool_matches_plain(aux):
+    """The column map and pack ≡ their plain versions entry for entry on a
+    bf16/f16 diameter, int16 type pool; K1 ≡ its plain version (force atol
+    1e-4, nnz exact); one engine step keeps force_nnz int16."""
+    dev = _cuda_or_skip()
+    sim, res, origin = _narrowed_fig6(aux, "cuda")
+    args = _k1_args(sim, res, origin)
+    got = tops.k1_inputs(*args, sim.spec.dims)
+    want = tops.k1_inputs_plain(*args, sim.spec.dims)
+    torch.cuda.synchronize()
+    for g, w, what in zip(got, want, ("data_t", "block_cols", "overflow",
+                                      "row mask")):
+        assert g.dtype == w.dtype and torch.equal(g, w), what
+    kw = dict(dims=sim.spec.dims, k_rep=sim.config.force.k_rep,
+              adhesion_band=sim.config.force.adhesion_band)
+    f, nnz, ovf = tops.collision_force_resident(*args, **kw)
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    fp, np_, op = tops.collision_force_resident(*cpu, **kw)
+    assert bool(ovf.cpu()) == bool(op)
+    np.testing.assert_allclose(f.cpu().numpy(), fp.numpy(), atol=1e-4)
+    assert torch.equal(nnz.cpu(), np_)
+    st = sim.step(sim.init_state(res.pool.position[:100].cpu().numpy()))
+    torch.cuda.synchronize()
+    assert st.pool.force_nnz.dtype == torch.int16
+    assert st.pool.diameter.dtype == getattr(torch, aux)
+    assert dev.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("force_impl", ["k1", "streamed"])
+def test_ladder_grow_on_the_card_equals_presized(force_impl):
+    """On the card, a ladder run across capacity, max_per_run and
+    max_pairs rungs equals, bit for bit, a run pre-sized at its final
+    rungs (tests/test_ladder.py's and tests/test_pairlist.py's
+    set-ups)."""
+    _cuda_or_skip()
+    from repro_torch.core import (CapacityLadder, EngineConfig, ForceParams,
+                                  LadderConfig, PairListConfig, Simulation)
+    from repro_torch.core.behaviors import (INFECTED, GrowDivide, Infection,
+                                            RandomDeath, RandomWalk)
+
+    def live(st):
+        a = st.pool.alive.cpu().numpy()
+        p = st.pool.position.cpu().numpy()[a]
+        o = np.lexsort(p.T)
+        return (p[o], st.pool.diameter.cpu().numpy()[a][o],
+                st.pool.agent_type.cpu().numpy()[a][o])
+
+    def same(a, b, what):
+        for x, y in zip(live(a), live(b)):
+            np.testing.assert_array_equal(x, y, err_msg=what)
+
+    fp = ForceParams(max_displacement=0.5)
+    # capacity rungs (tests/test_ladder.py)
+    rng = np.random.default_rng(0)
+    pos, dia = rng.uniform(4, 92, (64, 3)).astype(np.float32), \
+        np.full(64, 5.2, np.float32)
+    beh = lambda: [GrowDivide(rate=0.8, threshold_diameter=6.0),
+                   RandomWalk(sigma=0.3), RandomDeath(rate=0.01)]
+    cfg = EngineConfig(capacity=96, domain_lo=(0, 0, 0),
+                       domain_hi=(96.0,) * 3, interaction_radius=4.0,
+                       dt=1.0, max_per_box=4, query_chunk=256, force=fp,
+                       force_impl=force_impl)
+    lad = CapacityLadder(cfg, beh(), LadderConfig(round_to=32),
+                         device="cuda")
+    st = lad.run(lad.init_state(pos, diameter=dia), 9)
+    assert {r["field"] for r in lad.rungs} >= {"capacity"}
+    sim = Simulation(lad.config, beh(), device="cuda")
+    same(st, sim.run(sim.init_state(pos, diameter=dia), 9,
+                     check_overflow=True), "capacity rungs")
+    # a max_per_run rung
+    rng = np.random.default_rng(3)
+    pos, dia = rng.uniform(1, 23, (256, 3)).astype(np.float32), \
+        np.full(256, 3.0, np.float32)
+    cfg = EngineConfig(capacity=1024, domain_lo=(0, 0, 0),
+                       domain_hi=(24.0,) * 3, interaction_radius=4.0, dt=0.5,
+                       max_per_box=3, query_chunk=128, force=fp,
+                       force_impl=force_impl)
+    gd = lambda: [GrowDivide(rate=0.5, threshold_diameter=5.0)]
+    lad = CapacityLadder(cfg, gd(), device="cuda")
+    st = lad.run(lad.init_state(pos, diameter=dia), 5)
+    assert any(r["field"] == "max_per_run" for r in lad.rungs), lad.rungs
+    sim = Simulation(lad.config, gd(), device="cuda")
+    sp = sim.run(sim.init_state(pos, diameter=dia), 5, check_overflow=True)
+    same(st, sp, "max_per_run rung")
+    assert torch.equal(st.pool.force_nnz, sp.pool.force_nnz)
+    # a max_pairs rung (tests/test_pairlist.py)
+    n = 900
+    pos = np.random.default_rng(4).uniform(2, 46, (n, 3)).astype(np.float32)
+
+    def pl_cfg(max_pairs):
+        return EngineConfig(capacity=n, domain_lo=(0, 0, 0),
+                            domain_hi=(48.0,) * 3, interaction_radius=3.0,
+                            max_per_box=32, query_chunk=256,
+                            force_impl=force_impl,
+                            pairlist=PairListConfig(skin=0.0,
+                                                    max_pairs=max_pairs))
+
+    def sir(s):
+        types = np.zeros(n, np.int32)
+        types[: n // 20] = INFECTED
+        return s.init_state(pos, diameter=np.full(n, 2.5, np.float32),
+                            agent_type=types,
+                            extra_init={"infect_timer":
+                                        np.full(n, 8, np.int32)})
+    inf = lambda: [Infection(radius=3.0, beta=0.4, recovery_time=8)]
+    lad = CapacityLadder(pl_cfg(2), inf(), device="cuda")
+    st = lad.run(sir(lad), 4)
+    assert any(r["field"] == "max_pairs" for r in lad.rungs), lad.rungs
+    pre = Simulation(pl_cfg(lad.config.pairlist.max_pairs), inf(),
+                     device="cuda")
+    sp = pre.run(sir(pre), 4, check_overflow=True)
+    for ch in ("position", "agent_type", "force_nnz"):
+        assert torch.equal(getattr(st.pool, ch), getattr(sp.pool, ch)), ch

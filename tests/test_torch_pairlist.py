@@ -273,7 +273,7 @@ def test_skin_coverage_property(seed, skin, domain):
     cfg = TConfig(**_kw(n, max_per_box=64),
                   rebuild=tgrid.RebuildPolicy("every_k", 8, skin / 2),
                   pairlist=tgrid.PairListConfig(skin=skin, max_pairs=128))
-    pool = teng.stage_pool(n, [], torch.from_numpy(pos))
+    pool = teng.stage_pool(n, [], torch.from_numpy(pos), device="cpu")
     res = teng.build_env(cfg, cfg.grid_spec, pool, torch.zeros(3),
                          cfg.cell_size)
     pl = tgrid.build_pairlist(cfg.grid_spec, res.grid, res.pool.position,

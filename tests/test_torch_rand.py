@@ -24,7 +24,7 @@ def _single_thread():
 
 
 def _key(seed):
-    return jax.random.PRNGKey(seed), trand.prng_key(seed)
+    return jax.random.PRNGKey(seed), trand.prng_key(seed, "cpu")
 
 
 def test_threefry2x32_bits_exact(rng):
@@ -73,5 +73,6 @@ def test_split_matches_jax(partitionable, seed, n):
         want = np.asarray(jax.random.split(jax.random.PRNGKey(seed), n))
     finally:
         jax.config.update("jax_threefry_partitionable", prev)
-    got = trand.split(trand.prng_key(seed), n, partitionable=partitionable)
+    got = trand.split(trand.prng_key(seed, "cpu"), n,
+                      partitionable=partitionable)
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))

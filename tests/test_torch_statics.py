@@ -20,7 +20,7 @@ from repro_torch.core import statics as tstatics  # noqa: E402
 def _pools(rng, n, c, side, p_moved, p_dead):
     pos = rng.uniform(0, side, (n, 3)).astype(np.float32)
     jp = jagents.make_pool(c, position=jnp.asarray(pos))
-    tp = tagents.make_pool(c, position=pos)
+    tp = tagents.make_pool(c, position=pos, device="cpu")
     alive = np.arange(c) < n
     alive[rng.random(c) < p_dead] = False
     fields = dict(
@@ -68,7 +68,8 @@ def test_dead_keys_never_disturb_a_box():
     """A dead slot that moved must not mark the last box (its key is
     2**32 - 1, clamped to the dropped row m)."""
     c = 16
-    tp = tagents.make_pool(c, position=np.full((4, 3), 1.0, np.float32))
+    tp = tagents.make_pool(c, position=np.full((4, 3), 1.0, np.float32),
+                           device="cpu")
     tp = dataclasses.replace(tp, moved=torch.zeros(c, dtype=torch.bool))
     tp.moved[4:] = True                    # only dead slots moved
     spec = tgrid.GridSpec(dims=(3, 3, 3))
