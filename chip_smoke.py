@@ -155,10 +155,40 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      scenario (200 agents, 6 steps) with K1 and with the streamed sweep,
      card ≡ CPU (integers and bf16 bits equal, floats 1e-4).
 
-The CPU halves of phases 16-18 run in a child process (``chip_smoke.py
---cpu-worker OUT``, one torch thread, no CUDA) started before phase 0, so
-they overlap the card phases; the script waits for it, and kills it on a
-failure.
+ 19. Fig 11 on the card: benchmarks/neighbor.py's set-up scaled to
+     1,048,576 agents at its density (side 425.0, radius 4, dims 107³,
+     max_per_box and max_per_run 32, query_chunk 4096, seed 3): the build
+     and the force search of the resident, sorted (``neighbor_apply``),
+     scatter, hash (streamed probes) and wide hash environments, each by
+     CUDA events and the host clock; max_run_count and max_bucket_count
+     against their caps; then at 65,536 agents (side 168.7, dims 43³: the
+     O(N²) oracle cuts the size) each environment ≡ brute force (force
+     atol 1e-4, nnz exact), each error printed beside
+     benchmarks/neighbor.py's 2e-6;
+ 20. the Fig-9 'cluster' workload per environment: benchmarks/
+     optimizations.py's set-up scaled to 1,048,576 agents (side 449.1,
+     radius 4, dt 0.05, max_per_box 32, query_chunk 4096,
+     max_displacement 0.5, seed 1, forces only) under ``CapacityLadder``
+     (a bucket overflow grows a rung, printed): scatter and hash with
+     sort_frequency 0 and 10, the uniform grid streamed and with K1; a
+     warm-up step, then 10 timed steps (ms/step median and mean, kernel
+     launches per step, peak memory) and one profiled step (device
+     operations, idle share); each scatter and hash run repeated and equal
+     to itself bit for bit; brute force at 65,536 agents (side 178.2) for
+     3 steps, its first step ≡ the uniform grid's (1e-4, integers equal);
+ 21. the five CLI scenarios at 1,000 agents under scatter_grid, hash_grid
+     and brute_force (sort_frequency 10 where the scenario sets none), 2
+     steps, card ≡ CPU (integers and stats equal, floats 1e-4);
+ 22. K1 in slot order: phase 1's 1,048,576-agent Fig-6 pool shuffled;
+     ``ops.collision_force`` ≡ its plain version (force 1e-4, nnz exact),
+     and mapped back ≡ ``collision_force_resident`` on the grid-ordered
+     pool bit for bit; the wrapper's time against the resident call's.
+
+Each phase prints its seconds. The CPU halves of phases 16-18 run in a
+child process (``chip_smoke.py --cpu-worker OUT``, one torch thread, no
+CUDA) and phase 21's in a second (``--cpu-worker-envs OUT``), both started
+before phase 0, so they overlap the card phases; the script waits for
+them, and kills them on a failure.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and last ``{"ok": true, "device": {...}}``. Writes the same numbers to
@@ -237,18 +267,26 @@ def check(cond: bool, msg: str) -> None:
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     """Mean device time of ``fn()`` over ``iters`` runs (CUDA events)."""
+    return _both_clocks(fn, iters, warmup)[0]
+
+
+def _both_clocks(fn, iters: int, warmup: int = 1) -> tuple[float, float]:
+    """(CUDA-event ms, host-clock ms) per call of ``fn``, the host clock
+    over the same calls ending in a synchronise."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(iters):
         fn()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    return start.elapsed_time(stop) / iters, host
 
 
 def k1_bound(data_t, block_cols, adhesion, adhesion_band: float
@@ -1652,11 +1690,25 @@ def _cpu_worker(out: str) -> int:
     return 0
 
 
-def _start_cpu_worker(tmpdir: str):
+def _cpu_worker_envs(out: str) -> int:
+    """The CPU half of phase 21, in a second child process (one torch
+    thread, no CUDA)."""
+    import pickle
+    import torch
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(ROOT / "src"))
+    tmp = out + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(_env_scenarios("cpu"), f)
+    Path(tmp).rename(out)
+    return 0
+
+
+def _start_cpu_worker(tmpdir: str, flag: str = "--cpu-worker"):
     import os
-    out = str(Path(tmpdir) / "cpu_worker.pkl")
+    out = str(Path(tmpdir) / f"{flag.strip('-')}.pkl")
     proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
-                             "--cpu-worker", out],
+                             flag, out],
                             env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     return proc, out
 
@@ -2163,26 +2215,419 @@ def phase_narrowed_k1(report: dict, cpu) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phases 19-22: the non-resident environments, the Morton sort and K1's
+# slot-order wrapper
+# ---------------------------------------------------------------------------
+
+# benchmarks/neighbor.py:35-60 scaled to 1,048,576 agents at its density
+# (30,000 in 130³): side 425.0, dims 107³; the oracle at 65,536 (side
+# 168.7, dims 43³: the O(N²) brute force is cut there)
+FIG11 = dict(agents=1_048_576, side=425.0, dims=(107,) * 3)
+FIG11_ORACLE = dict(agents=65_536, side=168.7, dims=(43,) * 3)
+FIG11_REF_ERR = 2e-6               # benchmarks/neighbor.py's oracle bound
+# benchmarks/optimizations.py:36-58 'cluster' scaled to 1,048,576 agents
+# (20,000 in 120³): side 449.1; brute force at 65,536 (side 178.2)
+FIG9_AGENTS, FIG9_SIDE, FIG9_STEPS = 1_048_576, 449.1, 10
+FIG9_BRUTE_AGENTS, FIG9_BRUTE_SIDE, FIG9_BRUTE_STEPS = 65_536, 178.2, 3
+ENV_SCENARIO_AGENTS, ENV_SCENARIO_STEPS = 1000, 2       # phase 21
+NON_RESIDENT_ENVS = ("scatter_grid", "hash_grid", "brute_force")
+
+
+def _fig11_envs(n: int, side: float, dims, device: str = "cuda"):
+    """benchmarks/neighbor.py's set-up at ``n`` agents: the pool, the spec
+    and, per environment, its build and its force search as closures."""
+    import numpy as np
+    import torch
+    from repro_torch.core import agents
+    from repro_torch.core import grid as G
+    from repro_torch.core.forces import ForceParams, make_force_pair_fn
+
+    rng = np.random.default_rng(3)
+    pos = rng.uniform(2.0, side - 2.0, (n, 3)).astype(np.float32)
+    pool = agents.make_pool(n, position=pos, diameter=np.full(n, 3.0,
+                                                              np.float32),
+                            device=device)
+    spec = G.GridSpec(dims=dims, max_per_box=32, max_per_run=32,
+                      query_chunk=4096)
+    origin = torch.zeros(3, device=device)
+    box = 4.0
+    ch = {k: v for k, v in pool.channels().items()
+          if not k.startswith("extra.")}
+    pair = make_force_pair_fn(ForceParams())
+    out = {"force": ((3,), torch.float32), "force_nnz": ((), torch.int32)}
+    all_idx = torch.arange(n, dtype=torch.int32, device=device)
+    builders = {name: G.make_builder(spec, method=m) for name, m in (
+        ("resident", "resident"), ("sorted", "sorted"),
+        ("scatter", "scatter"), ("hash", "hash"))}
+
+    def build(name):
+        return builders[name](pool, origin, box)
+
+    def unsort(res, order):
+        o = order.to(torch.int64)
+        return {k: torch.zeros_like(v).index_copy_(0, o, v)
+                for k, v in res.items()}
+
+    def search(name, b):
+        if name == "resident":
+            rch = {k: v for k, v in b.pool.channels().items()
+                   if not k.startswith("extra.")}
+            return unsort(G.resident_apply(spec, b.grid, rch, b.pool.alive,
+                                           pair, out), b.order)
+        if name == "sorted":
+            return G.neighbor_apply(spec, b.grid, ch, all_idx, n, pair, out)
+        if name == "scatter":
+            def cand(q_pos, q_slot):
+                ids, valid = G.scatter_grid_candidates(spec, b.grid, q_pos)
+                return ids, valid & (ids != q_slot[:, None])
+            return G.chunk_apply(ch, ch, all_idx, n, cand, pair, out,
+                                 spec.query_chunk, 27 * spec.max_per_box)
+        if name == "hash":
+            def phase(q_pos, q_slot, j):
+                ids, valid = G.hash_grid_probe(spec, b.grid, q_pos, j)
+                return ids, valid & (ids != q_slot[:, None])
+            return G.phased_chunk_apply(
+                ch, ch, all_idx, n, phase, 27, pair, out, spec.query_chunk,
+                G.HASH_K_MULT * spec.max_per_box)
+
+        def wide(q_pos, q_slot):                           # "hash_wide"
+            ids, valid = G.hash_grid_candidates(spec, b.grid, q_pos)
+            return ids, valid & (ids != q_slot[:, None])
+        return G.chunk_apply(ch, ch, all_idx, n, wide, pair, out,
+                             spec.query_chunk,
+                             27 * G.HASH_K_MULT * spec.max_per_box)
+
+    def oracle():
+        return G.brute_force_apply(ch, pool.alive, pair, out, chunk=4096)
+    return spec, build, search, oracle
+
+
+def phase_fig11(report: dict) -> dict:
+    """[19] Fig 11 on the card: build and search of each environment at
+    1,048,576 agents; exactness against brute force at 65,536."""
+    import torch
+    from repro_torch.core import grid as G
+    from repro_torch.device import card_description
+    card = card_description()
+    envs = ("resident", "sorted", "scatter", "hash", "hash_wide")
+    f = FIG11
+    spec, build, search, _ = _fig11_envs(f["agents"], f["side"],
+                                         f["dims"])
+    rec = {"agents": f["agents"], "side": f["side"], "dims": f["dims"],
+           "card": card, "build": {}, "search": {}}
+    builds = {}
+    for name in envs:
+        bname = "hash" if name == "hash_wide" else name
+        if bname not in builds:
+            ev, host = _both_clocks(lambda: build(bname), 5)
+            rec["build"][bname] = {"ms": ev, "host_ms": host}
+            builds[bname] = build(bname)
+        b = builds[bname]
+        iters = 3 if name in ("resident", "sorted") else 1
+        ev, host = _both_clocks(lambda: search(name, b), iters)
+        rec["search"][name] = {"ms": ev, "host_ms": host}
+        bt = rec["build"][bname]
+        print(f"[19] Fig 11, {f['agents']} agents, {name}: build "
+              f"{bt['ms']:.3f} ms (host {bt['host_ms']:.3f}), search "
+              f"{ev:.3f} ms (host {host:.3f}), total "
+              f"{bt['ms'] + ev:.3f} ms; {card}", flush=True)
+    u, h, s = builds["resident"], builds["hash"], builds["scatter"]
+    rec["max_run_count"] = int(u.grid.max_run_count)
+    rec["run_capacity"] = spec.run_capacity
+    rec["max_bucket_count"] = int(h.grid.max_bucket_count)
+    rec["bucket_cap"] = G.HASH_K_MULT * spec.max_per_box
+    rec["max_box_count"] = int(s.demand)
+    print(f"[19] max_run_count {rec['max_run_count']} (cap "
+          f"{rec['run_capacity']}), max_bucket_count "
+          f"{rec['max_bucket_count']} (cap {rec['bucket_cap']}), fullest "
+          f"box {rec['max_box_count']} (scatter table {spec.max_per_box})",
+          flush=True)
+    check(rec["max_run_count"] <= rec["run_capacity"],
+          "Fig-11 uniform grid overflows its runs")
+    del builds, u, h, s
+
+    o = FIG11_ORACLE
+    spec, build, search, oracle = _fig11_envs(o["agents"], o["side"],
+                                              o["dims"])
+    want = oracle()
+    errs = {}
+    for name in envs:
+        b = build("hash" if name == "hash_wide" else name)
+        check(int(b.overflow) == 0, f"Fig-11 oracle set-up: {name} "
+                                    f"overflows ({int(b.demand)})")
+        got = search(name, b)
+        err = float((got["force"] - want["force"]).abs().max())
+        nnz_eq = bool(torch.equal(got["force_nnz"], want["force_nnz"]))
+        check(err <= FORCE_ATOL and nnz_eq,
+              f"Fig-11 {name} vs brute force: max|Δf| {err:.3g}, nnz equal "
+              f"{nnz_eq}")
+        errs[name] = err
+        print(f"[19] {name} ≡ brute force at {o['agents']} agents: max|Δf| "
+              f"{err:.3g} (bound {FORCE_ATOL:g}; benchmarks/neighbor.py "
+              f"holds its resident grid to {FIG11_REF_ERR:g}), nnz equal",
+              flush=True)
+    ev, host = _both_clocks(oracle, 1, warmup=0)
+    rec["oracle"] = {**o, "max_abs_err": errs, "brute_force_ms": ev,
+                     "brute_force_host_ms": host,
+                     "nnz_pairs": int(want["force_nnz"].sum())}
+    print(f"[19] brute force at {o['agents']} agents: {ev:.1f} ms", flush=True)
+    report["fig11"] = rec
+    return rec
+
+
+def _fig9_sim(env: str, sort_freq: int, n: int, side: float, device: str,
+              force_impl=None):
+    """benchmarks/optimizations.py's 'cluster' workload at ``n`` agents."""
+    import numpy as np
+    from repro_torch.core import EngineConfig, ForceParams
+    rng = np.random.default_rng(1)
+    cfg = EngineConfig(capacity=n, domain_lo=(0, 0, 0), domain_hi=(side,) * 3,
+                       interaction_radius=4.0, dt=0.05, environment=env,
+                       sort_frequency=sort_freq, max_per_box=32,
+                       query_chunk=4096, force_impl=force_impl,
+                       force=ForceParams(max_displacement=0.5))
+    pos = rng.uniform(2.0, side - 2.0, (n, 3)).astype(np.float32)
+    return cfg, pos, np.full(n, 3.0, np.float32)
+
+
+def _fig9_run(cfg, pos, dia, steps: int, device: str = "cuda"):
+    """A warm-up step, then ``steps`` timed ladder steps (host clock, a
+    sync at each step's end); the rungs, launches, peak memory and the
+    final pool."""
+    import torch
+    from repro_torch.core.engine import CapacityLadder
+    lad = CapacityLadder(cfg, [], device=device)
+    st = lad.step(lad.init_state(pos, diameter=dia))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    stamps = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        st = lad.step(st)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    launches = _read_counts()
+    ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps[:-1], stamps)]
+    check(st.stats.health_bits() == 0, f"{cfg.environment}: health flags")
+    return lad, st, {"ms_per_step": statistics.mean(ms),
+                     "ms_per_step_median": statistics.median(ms),
+                     "launches_per_step": {k: v / steps for k, v in
+                                           launches.items() if v},
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "rungs": list(lad.rungs),
+                     "max_per_box": lad.config.max_per_box,
+                     "box_demand": int(st.stats["box_demand"])}
+
+
+def phase_fig9(report: dict) -> dict:
+    """[20] the Fig-9 'cluster' workload per environment at 1,048,576
+    agents; brute force at 65,536 against the uniform grid."""
+    import torch
+    from repro_torch.core import Simulation
+    from repro_torch.device import card_description
+    card = card_description()
+    runs = [("scatter_grid", 0, None), ("scatter_grid", 10, None),
+            ("hash_grid", 0, None), ("hash_grid", 10, None),
+            ("uniform_grid", 0, "streamed"), ("uniform_grid", 0, "k1")]
+    rec = {"agents": FIG9_AGENTS, "side": FIG9_SIDE, "steps": FIG9_STEPS,
+           "card": card, "runs": {}}
+    for env, sf, impl in runs:
+        cfg, pos, dia = _fig9_sim(env, sf, FIG9_AGENTS, FIG9_SIDE, "cuda",
+                                  impl)
+        lad, st, r = _fig9_run(cfg, pos, dia, FIG9_STEPS)
+        key = f"{env}/sort{sf}/{cfg.force_impl}"
+        k1_calls = r["launches_per_step"].get("k1_collision_force", 0)
+        check((k1_calls == 1) == (cfg.force_impl == "k1"),
+              f"{key}: K1 launched {k1_calls} times a step")
+        prof = _profiled(lad.sim, st, 1)
+        r.update({k: prof[k] for k in ("device_ops_per_step",
+                                       "device_busy_ms_per_step",
+                                       "device_idle_share",
+                                       "sweep_device_ms")})
+        if env != "uniform_grid":
+            # the same run again on the card: equal bit for bit
+            _, st2, _ = _fig9_run(cfg, pos, dia, FIG9_STEPS)
+            for name, v in st.pool.channels().items():
+                check(torch.equal(v, st2.pool.channels()[name]),
+                      f"{key}: two card runs differ in {name}")
+            r["repeat_bit_equal"] = True
+        rec["runs"][key] = r
+        print(f"[20] Fig 9 cluster, {FIG9_AGENTS} agents, {key}: "
+              f"{r['ms_per_step']:.2f} ms/step (median "
+              f"{r['ms_per_step_median']:.2f}), {r['device_ops_per_step']} "
+              f"device ops/step, idle {r['device_idle_share']:.3f}, kernel "
+              f"launches/step {r['launches_per_step']}, peak "
+              f"{r['peak_gb']:.2f} GB, rungs {r['rungs']} (max_per_box "
+              f"{r['max_per_box']}, box demand {r['box_demand']})"
+              f"{', repeat bit-equal' if env != 'uniform_grid' else ''}; "
+              f"{card}", flush=True)
+        del lad, st
+    # brute force: 3 steps at 65,536, its first step ≡ the uniform grid's
+    cfg_b, pos, dia = _fig9_sim("brute_force", 0, FIG9_BRUTE_AGENTS,
+                                FIG9_BRUTE_SIDE, "cuda")
+    cfg_u = dataclasses.replace(cfg_b, environment="uniform_grid",
+                                force_impl="streamed")
+    sim_b = Simulation(cfg_b, [], device="cuda")
+    sim_u = Simulation(cfg_u, [], device="cuda")
+    st0 = sim_b.init_state(pos, diameter=dia)
+    one_b, one_u = sim_b.step(st0), sim_u.step(st0)
+    worst = 0.0
+    for name, v in one_b.pool.channels().items():
+        w = one_u.pool.channels()[name]
+        if v.dtype.is_floating_point:
+            worst = max(worst, float((v - w).abs().max()))
+        else:
+            check(torch.equal(v, w), f"brute force vs uniform grid: {name}")
+    for f in one_b.stats.FIELDS:
+        if f not in ("box_overflow", "box_demand"):
+            check(int(one_b.stats[f]) == int(one_u.stats[f]),
+                  f"brute force vs uniform grid: stats {f}")
+    check(worst <= FORCE_ATOL, f"brute force vs uniform grid: {worst:.3g}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = sim_b.run(one_b, FIG9_BRUTE_STEPS - 1, check_overflow=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (FIG9_BRUTE_STEPS - 1)
+    rec["brute_force"] = {"agents": FIG9_BRUTE_AGENTS,
+                          "side": FIG9_BRUTE_SIDE,
+                          "steps": FIG9_BRUTE_STEPS, "ms_per_step": ms,
+                          "first_step_vs_uniform_max_abs": worst}
+    print(f"[20] brute force, {FIG9_BRUTE_AGENTS} agents: first step ≡ the "
+          f"uniform grid's (max|Δ| {worst:.3g}, integers and stats equal), "
+          f"{ms:.1f} ms/step over {FIG9_BRUTE_STEPS - 1} more steps; {card}",
+          flush=True)
+    report["fig9"] = rec
+    return rec
+
+
+def _env_scenarios(device: str) -> dict:
+    """The five CLI scenarios at ENV_SCENARIO_AGENTS under each
+    non-resident environment (sort_frequency 10 where a scenario sets
+    none), ENV_SCENARIO_STEPS steps from the initial state; the final
+    states on the host."""
+    from repro_torch import convert
+    from repro_torch.core import Simulation
+    from repro_torch.launch import simulate
+    out = {}
+    for sc in simulate.SCENARIOS:
+        sim, st = simulate.build(sc, ENV_SCENARIO_AGENTS, device=device)
+        for env in NON_RESIDENT_ENVS:
+            sf = sim.config.sort_frequency or 10
+            cfg = dataclasses.replace(
+                sim.config, environment=env, force_impl="streamed",
+                sort_frequency=sf if env != "brute_force" else 0)
+            s2 = Simulation(cfg, sim.behaviors, device=device)
+            out[(sc, env)] = convert.state_to_numpy(
+                s2.run(st, ENV_SCENARIO_STEPS))
+    return out
+
+
+def phase_env_scenarios(report: dict, cpu: dict) -> dict:
+    """[21] the five scenarios under scatter, hash and brute force: card ≡
+    CPU."""
+    got = _env_scenarios("cuda")
+    recs = {}
+    for (sc, env), g in got.items():
+        worst = _card_vs_cpu(cpu[(sc, env)], g, f"{sc} under {env}")
+        recs[f"{sc}/{env}"] = {"max_abs_diff": worst,
+                               "n_live": int(g["stats"]["n_live"])}
+        print(f"[21] {sc} under {env}: {ENV_SCENARIO_STEPS} steps card ≡ "
+              f"CPU (n_live {recs[f'{sc}/{env}']['n_live']}); max|Δ| "
+              f"{ {k: float(f'{v:.3g}') for k, v in worst.items() if v} }",
+              flush=True)
+    report["env_scenarios"] = {"agents": ENV_SCENARIO_AGENTS,
+                               "steps": ENV_SCENARIO_STEPS, "runs": recs}
+    return recs
+
+
+def phase_k1_slot_order(report: dict) -> dict:
+    """[22] K1 in slot order on phase 1's 1,048,576-agent Fig-6 pool,
+    shuffled."""
+    import torch
+    from repro_torch.core import engine as eng
+    from repro_torch.device import card_description
+    from repro_torch.kernels import collision_force as k1
+    from repro_torch.kernels import ops
+    from repro_torch.launch import simulate
+
+    n = MAIN_AGENTS
+    sim, st = simulate.build("proliferation", n, "fig6", device="cuda")
+    cfg, spec = sim.config, sim.spec
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    perm = torch.randperm(st.pool.capacity, device="cuda", generator=gen)
+    pool = st.pool.with_channels({k: v.index_select(0, perm)
+                                  for k, v in st.pool.channels().items()})
+    origin = torch.tensor(cfg.domain_lo, dtype=torch.float32, device="cuda")
+    box = cfg.cell_size
+    kw = dict(dims=spec.dims, k_rep=cfg.force.k_rep,
+              adhesion_band=cfg.force.adhesion_band)
+    args = (pool.position, pool.diameter, pool.agent_type, pool.alive,
+            pool.alive, origin, box)
+    before = k1.collision_force.launches
+    f, nnz, ovf = ops.collision_force(*args, **kw)
+    check(k1.collision_force.launches == before + 1,
+          "the slot-order wrapper did not launch K1")
+    pf, pnnz, povf = ops.collision_force_plain(*args, **kw)
+    err = float((f - pf).abs().max())
+    check(err <= FORCE_ATOL and torch.equal(nnz, pnnz)
+          and bool(ovf) == bool(povf) is False,
+          f"slot-order K1 vs plain: max|Δf| {err:.3g}")
+    res = eng.build_env(cfg, spec, pool, origin, box)
+    p, g = res.pool, res.grid
+
+    def resident():
+        return ops.collision_force_resident(
+            p.position, p.diameter, p.agent_type, p.alive, p.alive,
+            g.starts, g.counts, origin, box, **kw)
+    rf, rnnz, _ = resident()
+    o = res.order.to(torch.int64)
+    back_f = torch.zeros_like(rf).index_copy_(0, o, rf)
+    back_n = torch.zeros_like(rnnz).index_copy_(0, o, rnnz)
+    check(torch.equal(back_f, f) and torch.equal(back_n, nnz),
+          "slot-order K1 mapped back differs from the resident call")
+    ms_w = cuda_ms(lambda: ops.collision_force(*args, **kw), 10, 2)
+    ms_r = cuda_ms(resident, 10, 2)
+    card = card_description()
+    rec = {"agents": n, "max_abs_err": err, "nnz_equal": True,
+           "resident_bit_equal": True, "wrapper_ms": ms_w,
+           "resident_ms": ms_r, "nnz_pairs": int(nnz.sum()), "card": card}
+    report["k1_slot_order"] = rec
+    print(f"[22] K1 in slot order, {n} shuffled Fig-6 agents: kernel ≡ "
+          f"plain (max|Δf| {err:.3g}, nnz equal), mapped back ≡ the "
+          f"resident call bit for bit; wrapper {ms_w:.4f} ms against the "
+          f"resident call's {ms_r:.4f} ms; {card}", flush=True)
+    return rec
+
+
+T_START = time.perf_counter()
+
+
 def main() -> int:
     import tempfile
     import torch
     if sys.argv[1:2] == ["--cpu-worker"]:
         return _cpu_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--cpu-worker-envs"]:
+        return _cpu_worker_envs(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmpdir:
-        worker = _start_cpu_worker(tmpdir)
+        workers = (_start_cpu_worker(tmpdir),
+                   _start_cpu_worker(tmpdir, "--cpu-worker-envs"))
         try:
-            return _run(worker, tmpdir)
+            return _run(workers, tmpdir)
         finally:
-            if worker[0].poll() is None:
-                worker[0].kill()
-                worker[0].wait()
+            for proc, _ in workers:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
 
 
-def _run(worker, tmpdir: str) -> int:
+def _run(workers, tmpdir: str) -> int:
     import torch
     from repro_torch.device import card_description
     from repro_torch.kernels import build
@@ -2211,28 +2656,48 @@ def _run(worker, tmpdir: str) -> int:
     report["k2_templates"] = k2_templates(
         build.BUILD_LOGS.get("flash_attention", ""))
 
+    seconds = report["phase_s"] = {"0": report["build_s"]}
+
+    def timed(label: str, fn, *args):
+        """Run one phase and print its seconds."""
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[label] = time.perf_counter() - t
+        print(f"[{label}] phase time {seconds[label]:.1f} s", flush=True)
+        return out
+
     for n in K1_SIZES:
-        phase_kernel_vs_plain(n, report)
-    phase_engine_cpu_parity(PARITY_AGENTS, report)
-    phase_main_path(MAIN_AGENTS, MAIN_STEPS, report)
-    phase_births(report)
-    k2_recs = phase_k2_vs_plain(report)
-    phase_lm_cpu_parity(report)
-    serve_rec = phase_serve(report)
-    phase_k1_static(report)
-    phase_scenarios_cpu_parity(SCENARIO_AGENTS, report)
-    sir_rec, cm_big, big = phase_sir_main_path(MAIN_AGENTS, MAIN_STEPS,
-                                               report)
-    phase_streamed_vs_k1(MAIN_AGENTS, report)
-    pl_rec = phase_pairlist_build(MAIN_AGENTS, report)
-    pm_rec = phase_pairs_map(MAIN_AGENTS, report)
-    main_b = phase_pairlist_main_path(MAIN_AGENTS, MAIN_STEPS, report,
-                                      sir_rec)["b"]
-    sec = phase_secretion(report)
-    cpu = _cpu_results(worker)
-    phase_growth(report, cpu)
-    phase_supervised_cli(report, cpu, tmpdir)
-    phase_narrowed_k1(report, cpu)
+        timed(f"1 ({n})", phase_kernel_vs_plain, n, report)
+    timed("2", phase_engine_cpu_parity, PARITY_AGENTS, report)
+    timed("3", phase_main_path, MAIN_AGENTS, MAIN_STEPS, report)
+    timed("4", phase_births, report)
+    k2_recs = timed("5", phase_k2_vs_plain, report)
+    timed("6", phase_lm_cpu_parity, report)
+    serve_rec = timed("7", phase_serve, report)
+    timed("8", phase_k1_static, report)
+    timed("9", phase_scenarios_cpu_parity, SCENARIO_AGENTS, report)
+    sir_rec, cm_big, big = timed("10", phase_sir_main_path, MAIN_AGENTS,
+                                 MAIN_STEPS, report)
+    timed("11", phase_streamed_vs_k1, MAIN_AGENTS, report)
+    pl_rec = timed("12", phase_pairlist_build, MAIN_AGENTS, report)
+    pm_rec = timed("13", phase_pairs_map, MAIN_AGENTS, report)
+    main_b = timed("14", phase_pairlist_main_path, MAIN_AGENTS, MAIN_STEPS,
+                   report, sir_rec)["b"]
+    sec = timed("15", phase_secretion, report)
+    cpu = timed("wait for the CPU worker of 16-18", _cpu_results,
+                workers[0])
+    timed("16", phase_growth, report, cpu)
+    timed("17", phase_supervised_cli, report, cpu, tmpdir)
+    timed("18", phase_narrowed_k1, report, cpu)
+    timed("19", phase_fig11, report)
+    timed("20", phase_fig9, report)
+    cpu_envs = timed("wait for the CPU worker of 21", _cpu_results,
+                     workers[1])
+    timed("21", phase_env_scenarios, report, cpu_envs)
+    timed("22", phase_k1_slot_order, report)
+    report["total_s"] = time.perf_counter() - T_START
+    print(f"phases took {sum(seconds.values()):.1f} s, the script "
+          f"{report['total_s']:.1f} s", flush=True)
 
     # K1 and the column map: the main path's launches beside their check
     # and times on that path's first-step inputs (phase 10)

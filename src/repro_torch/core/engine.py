@@ -18,12 +18,16 @@ for the build it means to skip. The capacity ladder (:class:`CapacityLadder`)
 reads every flag and demand of a step in one host transfer after it, so a
 ladder run costs one host read a step (two under every_k).
 
-The port runs ``environment="uniform_grid"``, every-step or every_k
-rebuilds, with or without a Verlet pair list, under any
-:class:`DtypePolicy`; forces come from K1 (``force_impl="k1"``: the CUDA
-kernel on the card, its plain version on the CPU) or from the streamed
-sweep (``"streamed"``, the reference's ``"xla"``). Every other option
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+Every environment of the reference runs: the resident ``uniform_grid``
+(every-step or every_k rebuilds, with or without a Verlet pair list), and
+the paper's baselines ``scatter_grid``, ``hash_grid`` (both with the
+periodic Morton sort under ``sort_frequency``) and ``brute_force``, under
+any :class:`DtypePolicy`. Forces come from K1 (``force_impl="k1"``: the
+CUDA kernel on the card, its plain version on the CPU; uniform grid only)
+or from the streamed sweep (``"streamed"``, the reference's ``"xla"``).
+The periodic Morton sort, which the reference runs under ``lax.cond``, is
+computed every step and applied as the identity on the steps that do not
+sort, so it reads nothing back.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ import torch
 from torch.profiler import record_function
 
 from . import compaction, diffusion as diff_mod, forces as force_mod
-from . import grid as grid_mod, rand, statics as statics_mod
+from . import grid as grid_mod, morton, rand, statics as statics_mod
 from . import health as health_mod
 from .agents import AgentPool, DtypePolicy, make_pool, weak
 from .behaviors import Behavior
@@ -46,15 +50,27 @@ from ..device import DeviceLike, resolve_device
 # "xla" is the reference's name for the streamed fused sweep
 FORCE_IMPLS = ("k1", "streamed", "xla")
 
+# EngineConfig.environment → grid.make_builder method
+_ENV_METHOD = {
+    "uniform_grid": "resident",
+    "brute_force": "resident",   # its tables serve the static detection
+    "scatter_grid": "scatter",
+    "hash_grid": "hash",
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Static engine configuration; the reference's fields and checks.
 
-    ``force_impl``: ``"k1"`` (default) computes forces with the K1 kernel —
-    the hand-written CUDA kernel on the card, its plain version on the CPU.
-    ``"streamed"`` (or the reference's name ``"xla"``) computes them in the
-    streamed sweep, beside the behaviors' pair kernels.
+    ``force_impl``: ``"k1"`` computes forces with the K1 kernel — the
+    hand-written CUDA kernel on the card, its plain version on the CPU —
+    and needs the uniform grid. ``"streamed"`` (or the reference's name
+    ``"xla"``) computes them in the streamed sweep, beside the behaviors'
+    pair kernels. ``None`` (the default) means ``"k1"`` on the uniform grid
+    and ``"streamed"`` on every other environment, so that a config naming
+    only its environment runs the path the reference's default (``"xla"``)
+    runs there; the field holds the resolved name after construction.
     """
     capacity: int
     domain_lo: Tuple[float, float, float]
@@ -66,7 +82,7 @@ class EngineConfig:
     detect_static: bool = False
     sort_frequency: int = 0
     environment: str = "uniform_grid"
-    force_impl: str = "k1"
+    force_impl: Optional[str] = None
     max_per_box: int = 16
     max_per_run: Optional[int] = None
     query_chunk: int = 2048
@@ -87,6 +103,10 @@ class EngineConfig:
         if self.sort_impl not in grid_mod.SORT_IMPLS:
             raise ValueError(f"sort_impl must be one of {grid_mod.SORT_IMPLS},"
                              f" got {self.sort_impl!r}")
+        if self.force_impl is None:
+            object.__setattr__(self, "force_impl",
+                               "k1" if self.environment == "uniform_grid"
+                               else "streamed")
         if self.force_impl not in FORCE_IMPLS:
             raise ValueError(f"force_impl must be one of {FORCE_IMPLS}, got "
                              f"{self.force_impl!r}")
@@ -160,36 +180,68 @@ class StepContext:
 
 def build_env(cfg: EngineConfig, spec: grid_mod.GridSpec, pool: AgentPool,
               origin: torch.Tensor, box_size: float) -> grid_mod.BuildResult:
-    """The iteration's grid build (resident: the pool comes back permuted)."""
-    if cfg.environment != "uniform_grid":
-        raise NotImplementedError(
-            f"environment {cfg.environment!r} is not ported yet (ROADMAP.md "
-            f"Queue 1 item 12)")
-    builder = grid_mod.make_builder(spec, method="resident",
+    """The iteration's environment build. The resident environments
+    (``uniform_grid``, and ``brute_force``, which keeps the tables for the
+    static detection) return the pool permuted into grid order; scatter
+    and hash leave it as it is."""
+    builder = grid_mod.make_builder(spec, method=_ENV_METHOD[cfg.environment],
                                     sort_impl=cfg.sort_impl)
     return builder(pool, origin, box_size)
 
 
-def _check_slice(cfg: EngineConfig) -> None:
-    """Raise NotImplementedError for every option the port does not run."""
-    if cfg.environment != "uniform_grid":
-        raise NotImplementedError(
-            f"not ported yet (ROADMAP.md Queue 1): "
-            f"environment={cfg.environment!r} (item 12)")
-
-
-def make_neighbor_apply(cfg: EngineConfig, spec: grid_mod.GridSpec,
-                        grid_env: grid_mod.GridState,
+def make_neighbor_apply(cfg: EngineConfig, spec: grid_mod.GridSpec, grid_env,
                         channels: Dict[str, torch.Tensor],
                         default_mask: torch.Tensor) -> Callable:
     """The step's ``ctx.neighbor_apply``: ``apply(pair_fn, out_specs,
-    query_mask=None)`` runs one streamed sweep over the resident pool
-    (``grid.resident_apply``); the mask defaults to ``default_mask``."""
+    query_mask=None)``, the mask defaulting to ``default_mask``.
+
+    The uniform grid runs one streamed sweep over the resident pool
+    (``grid.resident_apply``); the hash grid streams its 27 probes through
+    ``grid.phased_chunk_apply``; the scatter grid (27 table rows) and brute
+    force (every slot) run ``grid.chunk_apply`` over their wide candidate
+    rows. Each excludes the query's own slot.
+    """
+    if cfg.environment == "uniform_grid":
+        def apply(pair_fn, out_specs, query_mask=None):
+            mask = default_mask if query_mask is None else query_mask
+            return grid_mod.resident_apply(spec, grid_env, channels, mask,
+                                           pair_fn, out_specs,
+                                           cfg.query_chunk)
+        return apply
+
+    if cfg.environment == "hash_grid":
+        def phase_fn(q_pos, q_slot, j):
+            ids, valid = grid_mod.hash_grid_probe(spec, grid_env, q_pos, j)
+            return ids, valid & (ids != q_slot[:, None])
+        n_phases, width = 27, grid_mod.HASH_K_MULT * spec.max_per_box
+    else:
+        if cfg.environment == "scatter_grid":
+            def box_cand(q_pos):
+                return grid_mod.scatter_grid_candidates(spec, grid_env, q_pos)
+            width = 27 * spec.max_per_box
+        else:                                   # brute_force
+            c = channels["position"].shape[0]
+            ids_all = torch.arange(c, dtype=torch.int32,
+                                   device=default_mask.device)
+
+            def box_cand(q_pos):
+                q = q_pos.shape[0]
+                return (ids_all[None].expand(q, c),
+                        channels["alive"][None].expand(q, c))
+            width = c
+
+        def phase_fn(q_pos, q_slot, j):
+            ids, valid = box_cand(q_pos)
+            return ids, valid & (ids != q_slot[:, None])
+        n_phases = 1
 
     def apply(pair_fn, out_specs, query_mask=None):
         mask = default_mask if query_mask is None else query_mask
-        return grid_mod.resident_apply(spec, grid_env, channels, mask,
-                                       pair_fn, out_specs, cfg.query_chunk)
+        query_idx, n_query = compaction.active_index_list(mask)
+        with record_function("grid/sweep"):
+            return grid_mod.phased_chunk_apply(
+                channels, channels, query_idx, n_query, phase_fn, n_phases,
+                pair_fn, out_specs, cfg.query_chunk, width)
     return apply
 
 
@@ -267,8 +319,13 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
     Returns ``core(pool, conc, rng, it, env=None) -> (pool, conc, rng,
     StepStats, env)`` over tensors on ``device``.
     """
+    if cfg.environment not in _ENV_METHOD:
+        raise ValueError(f"unknown environment {cfg.environment!r}")
+    if cfg.force_impl == "k1" and cfg.environment != "uniform_grid":
+        raise ValueError("force_impl='k1' requires the uniform_grid "
+                         "environment (the kernel consumes its resident "
+                         "grid tables)")
     behaviors = list(behaviors)
-    _check_slice(cfg)
     # the fused sweep's registry: names key ctx.neighbor_results, so they
     # must be unique ("force" is the engine's own kernel)
     registry = registered_kernels(cfg, behaviors, device)
@@ -278,6 +335,7 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
             f"behavior neighbor_kernels() names must be unique and must not "
             f"shadow the engine's 'force' kernel, got {knames} — give each "
             f"behavior instance a distinct .name")
+    fused = cfg.fused_sweep and cfg.environment == "uniform_grid"
     spec = cfg.grid_spec
     box_size = cfg.cell_size
     dlo = torch.tensor(cfg.domain_lo, dtype=torch.float32, device=device)
@@ -293,8 +351,29 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
         return torch.zeros((), dtype=torch.int32, device=device)
 
     use_cache = cfg.rebuild.mode == "every_k"
+    # the reference's every_k queries read the box size that lax.cond
+    # returns with the cached tables, a traced value, and XLA divides by it
+    # (its builds multiply by the constant's reciprocal): a tensor box size
+    # makes morton.cell_of divide
+    traced_box = (torch.tensor(box_size, dtype=torch.float32, device=device)
+                  if use_cache else None)
     pl = cfg.pairlist
     pair_radius = cfg.interaction_radius + pl.skin if pl is not None else 0.0
+    sort_every = (cfg.sort_frequency
+                  if cfg.environment in ("scatter_grid", "hash_grid") else 0)
+
+    def sort_pool(pool: AgentPool, it: torch.Tensor) -> AgentPool:
+        """The §4.2 Morton sort on the steps ``it % sort_frequency == 0``.
+        The reference branches with ``lax.cond``; here the sort is computed
+        every step and the identity kept on the others, so no device value
+        is read on the host."""
+        keys = morton.morton_keys(pool.position, origin, box_size, spec.dims)
+        keys = torch.where(pool.alive, keys,
+                           torch.full_like(keys, morton.DEAD_KEY))
+        order = torch.sort(keys, stable=True).indices
+        ident = torch.arange(pool.capacity, device=device)
+        return compaction.apply_permutation(
+            pool, torch.where((it % sort_every) == 0, order, ident))
 
     def build_pairs(pool: AgentPool, grid_env: grid_mod.GridState
                     ) -> Optional[grid_mod.PairList]:
@@ -327,6 +406,11 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
         dt = cfg.dt
 
         # ---------------- pre standalone ops ----------------
+        # the resident environments reorder the pool at every build; the
+        # periodic Morton sort serves scatter and hash
+        if sort_every > 0:
+            with record_function("step/morton_sort"):
+                pool = sort_pool(pool, it)
         if rebuild:
             with record_function("step/grid_build"):
                 res = build_env(cfg, spec, pool, origin, box_size)
@@ -342,10 +426,22 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
             # the cached tables index the layout their build left: no death
             # or birth since (either marks the cache dirty)
             grid_env, pairs = env.grid, env.pairs
-        # query exactness bound: every 3-box z-run must fit run_capacity
-        box_demand = grid_env.max_run_count.to(torch.int32)
-        box_overflow = (grid_env.max_run_count
-                        > spec.run_capacity).to(torch.int32)
+        if use_cache:
+            grid_env = dataclasses.replace(grid_env, box_size=traced_box)
+        box_overflow, box_demand = stats.box_overflow, stats.box_demand
+        if cfg.environment == "uniform_grid":
+            # query exactness bound: every 3-box z-run fits run_capacity
+            box_demand = grid_env.max_run_count.to(torch.int32)
+            box_overflow = (grid_env.max_run_count
+                            > spec.run_capacity).to(torch.int32)
+        elif cfg.environment == "hash_grid":
+            # the same contract: a bucket fuller than the probe's width
+            # would lose candidates (scatter's truncation is the baseline's
+            # own and stays unflagged, as in the reference)
+            box_demand = grid_env.max_bucket_count.to(torch.int32)
+            box_overflow = (grid_env.max_bucket_count
+                            > grid_mod.HASH_K_MULT * spec.max_per_box
+                            ).to(torch.int32)
         pair_overflow, pair_demand = stats.pair_overflow, stats.pair_demand
         if pairs is not None:
             # never silent: a row demanding more than max_pairs entries
@@ -367,8 +463,9 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
                                         owned_alive)
 
         # static flags from last iteration's bookkeeping (paper §5), box
-        # granular over this build's tables
-        if cfg.detect_static:
+        # granular over this build's resident tables
+        if cfg.detect_static and cfg.environment in ("uniform_grid",
+                                                     "brute_force"):
             with record_function("step/statics"):
                 static = statics_mod.update_static_flags(pool, spec,
                                                          grid_env, it)
@@ -386,7 +483,9 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
         # the force kernel's mask is this step's active rows
         registry_now = [dataclasses.replace(k, query_mask=active)
                         if k.name == "force" else k for k in registry]
-        kernels = registry_now if cfg.fused_sweep else []
+        # the fused sweep runs on the uniform grid; the other environments
+        # run each kernel's own sweep through ctx.neighbor_apply
+        kernels = registry_now if fused else []
         if kernels:
             # extra.* channels are streamed only by kernels declaring them
             channels_full = pool.channels()
@@ -636,6 +735,12 @@ class Simulation:
             if check_overflow:
                 flags = state.stats.flags()
                 if "box_overflow" in flags:
+                    if self.config.environment == "hash_grid":
+                        raise RuntimeError(
+                            f"iteration {i}: hash bucket overflow (a bucket "
+                            f"holds > {grid_mod.HASH_K_MULT}×max_per_box = "
+                            f"{grid_mod.HASH_K_MULT * self.spec.max_per_box} "
+                            f"agents); raise EngineConfig.max_per_box")
                     raise RuntimeError(
                         f"iteration {i}: grid run overflow (a 3-box z-run "
                         f"holds > {self.spec.run_capacity} agents); raise "
@@ -804,6 +909,7 @@ class CapacityLadder(LadderDriverBase):
 
       birth_overflow → ``capacity``            (target: capacity_demand)
       box_overflow   → ``max_per_run``         (target: box_demand)
+                       ``max_per_box``         (hash grid: ⌈box_demand / 4⌉)
       pair_overflow  → ``pairlist.max_pairs``  (target: pair_demand)
 
     Growth events are recorded in ``self.rungs``. ``self.recompiles`` keeps
@@ -850,9 +956,15 @@ class CapacityLadder(LadderDriverBase):
                 max_pairs=next_rung(cfg.pairlist.max_pairs, v["pair_demand"],
                                     lad.growth_factor))
         if v["box_overflow"]:
-            changes["max_per_run"] = next_rung(
-                cfg.grid_spec.run_capacity, v["box_demand"],
-                lad.growth_factor)
+            if cfg.environment == "hash_grid":
+                # the probe gathers HASH_K_MULT × max_per_box a bucket
+                need = -(-v["box_demand"] // grid_mod.HASH_K_MULT)
+                changes["max_per_box"] = next_rung(
+                    cfg.max_per_box, need, lad.growth_factor)
+            else:
+                changes["max_per_run"] = next_rung(
+                    cfg.grid_spec.run_capacity, v["box_demand"],
+                    lad.growth_factor)
         if v["birth_overflow"]:
             demand = v["capacity_demand"]
             new_cap = next_rung(cfg.capacity, demand, lad.growth_factor,

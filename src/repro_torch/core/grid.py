@@ -13,12 +13,19 @@ resident pool. A Verlet pair list (:class:`PairList`, built by
 :func:`build_pairlist` from the same runs) lets the fused sweep evaluate
 only the candidates within ``r + skin``, and a :class:`RebuildState`
 carries the build across steps under ``RebuildPolicy(mode="every_k")``.
-The sorted / scatter / hash builds are ROADMAP.md Queue 1 item 12.
+
+The paper's Fig-9/Fig-11 baselines leave the pool in slot order: the
+sorted build (the same tables over a key-sorted copy, queried through
+:func:`neighbor_apply`), the scatter-table grid (:class:`ScatterGridState`)
+and the spatial hash (:class:`HashGridState`, its 27 probes streamed
+through :func:`phased_chunk_apply`), and the exact O(N²)
+:func:`brute_force_apply`. :func:`make_builder` builds any of the four.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from collections.abc import Mapping
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
@@ -35,6 +42,18 @@ from ..kernels import pairlist as pairlist_kernel
 # permutation, which the port computes with one stable sort
 SORT_IMPLS = ("auto", "host", "xla", "argsort")
 BUILD_METHODS = ("resident", "sorted", "scatter", "hash")
+
+# the 27 offsets of the 3×3×3 stencil, dx major, then dy, then dz: the lane
+# order of the scatter and hash environments, whose tables are not
+# contiguous in z
+_OFFSETS = np.array([(dx, dy, dz)
+                     for dx in (-1, 0, 1)
+                     for dy in (-1, 0, 1)
+                     for dz in (-1, 0, 1)], dtype=np.int32)   # (27, 3)
+
+# the hash probe's gather width is HASH_K_MULT × max_per_box (collisions
+# inflate buckets); a fuller bucket truncates and raises box_overflow
+HASH_K_MULT = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,12 +131,15 @@ class GridSpec:
 
 @dataclasses.dataclass
 class GridState:
-    """Per-iteration neighbor index over the resident pool."""
+    """Per-iteration neighbor index: over the resident pool (keys sorted,
+    order and rank the identity) or, from the sorted build, over the pool
+    as laid out (keys in slot order, order the key sort, rank its
+    inverse)."""
     origin: torch.Tensor          # (3,) f32
-    box_size: float               # box edge
-    keys: torch.Tensor            # (C,) int64 holding uint32, sorted
-    order: torch.Tensor           # (C,) int32 — identity (resident)
-    rank: torch.Tensor            # (C,) int32 — identity (resident)
+    box_size: morton.BoxSize      # box edge (see morton.cell_of)
+    keys: torch.Tensor            # (C,) int64 holding uint32
+    order: torch.Tensor           # (C,) int32 — slots in key order
+    rank: torch.Tensor            # (C,) int32 — inverse of order
     starts: torch.Tensor          # (M,) int32 — first slot of each box
     counts: torch.Tensor          # (M,) table_count_dtype(C)
     max_count: torch.Tensor       # () counts' dtype — fullest box
@@ -125,10 +147,21 @@ class GridState:
 
 
 class BuildResult(NamedTuple):
-    """pool (permuted), grid, order (old→new gather permutation applied),
-    overflow (() int32 agents beyond run_capacity), demand (() int32)."""
+    """Result of every build method.
+
+    pool:     the pool the tables index (permuted by "resident", else the
+              input)
+    grid:     GridState ("resident", "sorted"), ScatterGridState or
+              HashGridState
+    order:    (C,) int32 old→new gather permutation applied to the pool
+              (the identity for the methods that keep slot order)
+    overflow: () int32 agents beyond the method's capacity: run_capacity
+              (uniform), max_per_box (scatter), the probe width (hash)
+    demand:   () int32 the peak occupancy behind ``overflow`` (fullest
+              3-box z-run, box or bucket)
+    """
     pool: AgentPool
-    grid: GridState
+    grid: Any
     order: torch.Tensor
     overflow: torch.Tensor
     demand: torch.Tensor
@@ -321,31 +354,123 @@ def _build_resident_impl(spec: GridSpec, pool: AgentPool,
     return pool, grid, order
 
 
+def _build_sorted_impl(spec: GridSpec, pool: AgentPool,
+                       origin: torch.Tensor, box_size: morton.BoxSize,
+                       sort_impl: str = "auto") -> GridState:
+    """The grid tables over the pool as laid out (slot order kept):
+    ``keys`` in slot order, ``order`` their stable sort and ``rank`` its
+    inverse; queries gather through :func:`sort_channels`."""
+    keys = morton.grid_sort_keys(pool.position, pool.alive, origin, box_size,
+                                 spec.dims)
+    order = counting_sort_order(keys, spec.table_size, impl=sort_impl)
+    o64 = order.to(torch.int64)
+    sorted_keys = keys.index_select(0, o64)
+    rank = torch.empty_like(order).index_copy_(
+        0, o64, torch.arange(order.shape[0], dtype=torch.int32,
+                             device=order.device))
+    starts, counts, max_count, max_run = _index_tables(spec, sorted_keys)
+    return GridState(origin=origin, box_size=box_size, keys=keys, order=order,
+                     rank=rank, starts=starts, counts=counts,
+                     max_count=max_count, max_run_count=max_run)
+
+
 def make_builder(spec: GridSpec, *, method: str = "resident",
-                 sort_impl: str = "auto"
-                 ) -> Callable[[AgentPool, torch.Tensor, float], BuildResult]:
-    """``build_fn(pool, origin, box_size) -> BuildResult``; only the
-    resident method is ported."""
+                 sort_impl: str = "auto", n_buckets: int = 1 << 14
+                 ) -> Callable[[AgentPool, torch.Tensor, morton.BoxSize],
+                               BuildResult]:
+    """``build_fn(pool, origin, box_size) -> BuildResult`` for ``method``:
+
+    - "resident": the key sort's permutation applied to the pool itself
+      (the engine's uniform grid);
+    - "sorted": the same tables over the pool as laid out;
+    - "scatter": the dense (boxes × max_per_box) member table, the paper's
+      'standard implementation';
+    - "hash": a spatial hash over ``n_buckets`` buckets.
+
+    ``overflow`` and ``demand`` as the reference reports them for each
+    method. ``box_size`` follows ``morton.cell_of``: a float multiplies by
+    its float32 reciprocal, a tensor divides.
+    """
     if method not in BUILD_METHODS:
         raise ValueError(
             f"method must be one of {BUILD_METHODS}, got {method!r}")
     if sort_impl not in SORT_IMPLS:
         raise ValueError(
             f"sort_impl must be one of {SORT_IMPLS}, got {sort_impl!r}")
-    if method != "resident":
-        raise NotImplementedError(
-            f"grid build method {method!r} is not ported yet (ROADMAP.md "
-            f"Queue 1 item 12)")
 
-    def build_fn(pool: AgentPool, origin: torch.Tensor, box_size: float
-                 ) -> BuildResult:
-        pool, grid, order = _build_resident_impl(spec, pool, origin,
-                                                 box_size, sort_impl)
-        demand = grid.max_run_count.to(torch.int32)
+    def ident(pool: AgentPool) -> torch.Tensor:
+        return torch.arange(pool.capacity, dtype=torch.int32,
+                            device=pool.device)
+
+    def result(pool, grid, order, demand, cap) -> BuildResult:
+        demand = demand.to(torch.int32)
         return BuildResult(pool, grid, order,
-                           torch.clamp(demand - spec.run_capacity, min=0),
-                           demand)
+                           torch.clamp(demand - cap, min=0), demand)
+
+    def build_fn(pool: AgentPool, origin: torch.Tensor,
+                 box_size: morton.BoxSize) -> BuildResult:
+        if method == "resident":
+            pool, grid, order = _build_resident_impl(spec, pool, origin,
+                                                     box_size, sort_impl)
+            return result(pool, grid, order, grid.max_run_count,
+                          spec.run_capacity)
+        if method == "sorted":
+            grid = _build_sorted_impl(spec, pool, origin, box_size, sort_impl)
+            return result(pool, grid, ident(pool), grid.max_run_count,
+                          spec.run_capacity)
+        if method == "scatter":
+            grid = _build_scatter_impl(spec, pool, origin, box_size,
+                                       sort_impl)
+            return result(pool, grid, ident(pool), grid.counts.max(),
+                          spec.max_per_box)
+        grid = _build_hash_impl(spec, pool, origin, box_size, n_buckets,
+                                sort_impl)
+        return result(pool, grid, ident(pool), grid.max_bucket_count,
+                      HASH_K_MULT * spec.max_per_box)
     return build_fn
+
+
+class GridBuilderDeprecationWarning(DeprecationWarning):
+    """A legacy direct grid-build entry point was called (use
+    :func:`make_builder`); a category of its own so that these alone can
+    be made errors."""
+
+
+def _builder_deprecated(name: str, repl: str) -> None:
+    warnings.warn(
+        f"grid.{name} is deprecated and will be removed next release; use "
+        f"grid.make_builder(spec, method={repl!r}) instead",
+        GridBuilderDeprecationWarning, stacklevel=3)
+
+
+def build(spec: GridSpec, pool: AgentPool, origin: torch.Tensor,
+          box_size: morton.BoxSize) -> GridState:
+    """Deprecated: ``make_builder(spec, method='sorted')(...).grid``."""
+    _builder_deprecated("build", "sorted")
+    return _build_sorted_impl(spec, pool, origin, box_size)
+
+
+def build_resident(spec: GridSpec, pool: AgentPool, origin: torch.Tensor,
+                   box_size: morton.BoxSize
+                   ) -> Tuple[AgentPool, GridState, torch.Tensor]:
+    """Deprecated: ``make_builder(spec, method='resident')``."""
+    _builder_deprecated("build_resident", "resident")
+    return _build_resident_impl(spec, pool, origin, box_size)
+
+
+def build_scatter_grid(spec: GridSpec, pool: AgentPool, origin: torch.Tensor,
+                       box_size: morton.BoxSize) -> "ScatterGridState":
+    """Deprecated: ``make_builder(spec, method='scatter')(...).grid``."""
+    _builder_deprecated("build_scatter_grid", "scatter")
+    return _build_scatter_impl(spec, pool, origin, box_size)
+
+
+def build_hash_grid(spec: GridSpec, pool: AgentPool, origin: torch.Tensor,
+                    box_size: morton.BoxSize, n_buckets: int = 1 << 14
+                    ) -> "HashGridState":
+    """Deprecated: ``make_builder(spec, method='hash')(...).grid``."""
+    _builder_deprecated("build_hash_grid", "hash")
+    return _build_hash_impl(spec, pool, origin, box_size, n_buckets)
 
 
 # ---------------------------------------------------------------------------
@@ -703,3 +828,347 @@ def resident_apply_fused(spec: GridSpec, grid: GridState,
     with record_function("grid/sweep"):
         return _stream(spec, q_src, gather_ch, kernels, masks, chunk,
                        candidates)
+
+
+# ---------------------------------------------------------------------------
+# Non-resident queries: the sorted build's compat path and the Fig-9/Fig-11
+# baselines (scatter table, spatial hash, brute force)
+# ---------------------------------------------------------------------------
+
+def neighbor_runs(spec: GridSpec, grid: GridState, query_pos: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Candidates as key-sorted positions, the 9 runs materialized:
+    ``(pos, valid)``, each (Q, 9·R), run-major and lane-minor."""
+    r_cap = spec.run_capacity
+    s, n = run_bounds(spec, grid, query_pos)
+    lane = torch.arange(r_cap, dtype=torch.int32, device=query_pos.device)
+    pos = s[..., None] + lane                                  # (Q, 9, R)
+    valid = lane < n.clamp(max=r_cap)[..., None]
+    pos = torch.where(valid, pos, torch.zeros_like(pos))
+    q = query_pos.shape[0]
+    return pos.reshape(q, 9 * r_cap), valid.reshape(q, 9 * r_cap)
+
+
+def neighbor_candidates(spec: GridSpec, grid: GridState,
+                        query_pos: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`neighbor_runs` as slot ids: ``(ids, valid)``, (Q, 9·R)."""
+    pos, valid = neighbor_runs(spec, grid, query_pos)
+    return grid.order[pos.to(torch.int64)], valid
+
+
+def sort_channels(grid: GridState, channels: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """The channels in grid-key order (the sorted build's query copy)."""
+    o = grid.order.to(torch.int64)
+    return {k: v.index_select(0, o) for k, v in channels.items()}
+
+
+def _query_rows(c: int, chunk: int, width: Optional[int]) -> int:
+    """Query rows per chunk of :func:`phased_chunk_apply`: whole
+    ``chunk``-row blocks within ``SWEEP_LANES`` candidate lanes of
+    ``width``, or fewer rows where one block alone exceeds them (brute
+    force: the candidate axis, which fixes each row's sum, stays whole)."""
+    b = max(1, min(chunk, c))
+    if width is None:
+        return b
+    fit = max(1, SWEEP_LANES // max(width, 1))
+    return b * (fit // b) if fit >= b else fit
+
+
+def phased_chunk_apply(channels: Dict[str, torch.Tensor],
+                       gather_channels: Dict[str, torch.Tensor],
+                       query_idx: torch.Tensor, n_query,
+                       phase_fn: Callable, n_phases: int, pair_fn: Callable,
+                       out_specs: Dict[str, Tuple[Tuple[int, ...], Any]],
+                       chunk: int, width: Optional[int] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """Apply ``pair_fn`` to each query row against ``n_phases`` candidate
+    slabs, the slabs' results added in phase order.
+
+    ``query_idx`` (C,) lists the query slots (``compaction.
+    active_index_list``), the first ``n_query`` of them real;
+    ``phase_fn(q_pos, q_slot, j) -> (idx, valid)`` gives phase ``j``'s
+    candidates as rows of ``gather_channels``, ``width`` their count per
+    row (it sizes the chunks). ``pair_fn`` is the resident sweep's: ``(q,
+    nbr, valid, q_slot) -> dict``; outputs are written to the query slots,
+    zeros elsewhere.
+
+    The reference loops over ⌈n_query / chunk⌉ chunks, a trip count on the
+    device. On the card every chunk of the capacity is evaluated with the
+    lanes past ``n_query`` masked, so nothing is read back; on the CPU,
+    where reading ``n_query`` waits for no device, the chunks wholly past
+    it are skipped. A row's output is a function of the channels alone, so
+    neither the grouping nor the skip changes a value. The
+    reference adds each chunk's results into the output at the query slots
+    (masked lanes add zeros); the slots of real lanes are distinct, so the
+    port writes each real lane to its own slot once and parks the masked
+    lanes in a row that is cut off — no write order or atomic decides a
+    value.
+    """
+    c = channels["position"].shape[0]
+    dev = channels["position"].device
+    step = _query_rows(c, chunk, width)
+    qi = query_idx.to(torch.int64)
+    lane_ok = torch.arange(c, device=dev) < n_query
+    outs = {name: torch.zeros((c + 1, *sfx), dtype=dt, device=dev)
+            for name, (sfx, dt) in out_specs.items()}
+    end = min(c, int(n_query)) if dev.type == "cpu" else c
+    for r0 in range(0, end, step):
+        q_slot = qi[r0:min(r0 + step, end)]
+        ok = lane_ok[r0:min(r0 + step, end)]
+        b = q_slot.shape[0]
+        q = _OnRead(channels, lambda v, q_slot=q_slot: v.index_select(
+            0, q_slot))
+        q_slot32 = q_slot.to(torch.int32)
+        acc = {name: torch.zeros((b, *sfx), dtype=dt, device=dev)
+               for name, (sfx, dt) in out_specs.items()}
+        for j in range(n_phases):
+            idx, valid = phase_fn(q["position"], q_slot32, j)
+            valid = valid & ok[:, None]
+            flat = idx.reshape(-1).to(torch.int64)
+            shape = tuple(idx.shape)
+            nbr = _OnRead(gather_channels,
+                          lambda v, flat=flat, shape=shape: v.index_select(
+                              0, flat).reshape(*shape, *v.shape[1:]))
+            res = pair_fn(q, nbr, valid, q_slot32)
+            acc = {name: acc[name] + res[name].to(acc[name].dtype)
+                   if name in res else acc[name] for name in acc}
+        dst = torch.where(ok, q_slot, torch.full_like(q_slot, c))
+        for name, val in acc.items():
+            outs[name].index_copy_(0, dst, val)
+    return {name: v[:c] for name, v in outs.items()}
+
+
+def chunk_apply(channels: Dict[str, torch.Tensor],
+                gather_channels: Dict[str, torch.Tensor],
+                query_idx: torch.Tensor, n_query, cand_fn: Callable,
+                pair_fn: Callable,
+                out_specs: Dict[str, Tuple[Tuple[int, ...], Any]],
+                chunk: int, width: Optional[int] = None
+                ) -> Dict[str, torch.Tensor]:
+    """:func:`phased_chunk_apply` with one slab:
+    ``cand_fn(q_pos, q_slot) -> (idx, valid)`` of ``width`` per row."""
+    return phased_chunk_apply(channels, gather_channels, query_idx, n_query,
+                              lambda q_pos, q_slot, j: cand_fn(q_pos, q_slot),
+                              1, pair_fn, out_specs, chunk, width)
+
+
+def neighbor_apply(spec: GridSpec, grid: GridState,
+                   channels: Dict[str, torch.Tensor],
+                   query_idx: torch.Tensor, n_query, pair_fn: Callable,
+                   out_specs: Dict[str, Tuple[Tuple[int, ...], Any]]
+                   ) -> Dict[str, torch.Tensor]:
+    """``pair_fn`` over each query's 9 stencil runs of a sorted build
+    (slot order kept): candidates are gathered from a key-sorted copy of
+    the channels, self excluded, in chunks of ``spec.query_chunk``."""
+    sorted_ch = sort_channels(grid, channels)
+
+    def cand_fn(q_pos, q_slot):
+        pos, valid = neighbor_runs(spec, grid, q_pos)
+        valid = valid & (pos != grid.rank[q_slot.to(torch.int64)][:, None])
+        return pos, valid
+
+    return chunk_apply(channels, sorted_ch, query_idx, n_query, cand_fn,
+                       pair_fn, out_specs, spec.query_chunk,
+                       9 * spec.run_capacity)
+
+
+def brute_force_apply(channels: Dict[str, torch.Tensor], alive: torch.Tensor,
+                      pair_fn: Callable,
+                      out_specs: Dict[str, Tuple[Tuple[int, ...], Any]],
+                      chunk: int = 512) -> Dict[str, torch.Tensor]:
+    """Exact O(N²) apply (the oracle): every live agent but the row itself
+    is a candidate; ``pair_fn``'s own distance test does the rest."""
+    c = channels["position"].shape[0]
+    ids = torch.arange(c, dtype=torch.int32, device=alive.device)
+
+    def cand_fn(q_pos, q_slot):
+        b = q_slot.shape[0]
+        idx = ids[None].expand(b, c)
+        return idx, alive[None] & (idx != q_slot[:, None])
+
+    return chunk_apply(channels, channels, ids, c, cand_fn, pair_fn,
+                       out_specs, min(chunk, c), c)
+
+
+def _stencil_cells(cell: torch.Tensor, dims: Tuple[int, int, int],
+                   j: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stencil cells of each query cell (Q, 3): all 27 in ``_OFFSETS``
+    order, or the ``j``-th alone. Returns ``(clipped (Q, O, 3) int32,
+    inside (Q, O) bool)``; the offsets are made on the device (a table
+    copied from the host would wait for the card on every call)."""
+    if j is None:
+        o = torch.arange(27, dtype=torch.int32, device=cell.device)
+        off = (torch.div(o, 9, rounding_mode="floor") - 1,
+               torch.div(o, 3, rounding_mode="floor") % 3 - 1, o % 3 - 1)
+    else:
+        off = tuple(int(v) for v in _OFFSETS[j])
+    nc, inside = [], None
+    for a in range(3):
+        v = cell[:, a, None] + off[a]
+        ok = (v >= 0) & (v < dims[a])
+        inside = ok if inside is None else inside & ok
+        nc.append(v.clamp(0, dims[a] - 1))
+    return torch.stack(nc, -1), inside
+
+
+@dataclasses.dataclass
+class ScatterGridState:
+    """The 'standard implementation' grid: a dense (boxes × max_per_box)
+    member table, rebuilt every step.
+
+    table:  (M, K) int32 slot ids, -1 empty; a box holding more than K
+            agents keeps its first K-1 in column order and its last in
+            column K-1 (what the reference's scatter leaves)
+    counts: (M,) int32 live agents per box
+    """
+    origin: torch.Tensor
+    box_size: morton.BoxSize
+    table: torch.Tensor
+    counts: torch.Tensor
+
+
+def _build_scatter_impl(spec: GridSpec, pool: AgentPool, origin: torch.Tensor,
+                        box_size: morton.BoxSize, sort_impl: str = "auto"
+                        ) -> ScatterGridState:
+    """The member table, built by construction.
+
+    The reference writes ``table[key, min(rank_in_box, K-1)] = slot`` in
+    sorted order with one scatter: in a box of more than K agents every
+    agent from the K-th on writes column K-1 and, on XLA, the last write
+    wins. A CUDA scatter picks an unspecified winner among duplicates, so
+    here each written cell has one writer: the columns below K-1 their own
+    agent, column K-1 the box's last agent in sorted order. Every other
+    write, and every dead agent, lands in row M, which is cut off.
+    """
+    m, k = spec.table_size, spec.max_per_box
+    dev = pool.position.device
+    keys = morton.linear_keys(pool.position, origin, box_size, spec.dims)
+    keys = torch.where(pool.alive, keys, torch.full_like(keys, m))
+    order = counting_sort_order(keys, m, impl=sort_impl)
+    sk = keys.index_select(0, order.to(torch.int64))
+    c = sk.shape[0]
+    first = torch.searchsorted(sk, sk, side="left")
+    in_box = torch.arange(c, device=dev) - first
+    last = torch.ones(c, dtype=torch.bool, device=dev)
+    last[:-1] = sk[1:] != sk[:-1]
+    row = torch.where((in_box < k - 1) | last, sk, torch.full_like(sk, m))
+    col = in_box.clamp(max=k - 1)
+    table = torch.full((m + 1, k), -1, dtype=torch.int32, device=dev)
+    table.index_put_((row, col), order)
+    bounds = torch.searchsorted(sk, torch.arange(m + 1, dtype=sk.dtype,
+                                                 device=dev), side="left")
+    counts = (bounds[1:] - bounds[:-1]).to(torch.int32)
+    return ScatterGridState(origin=origin, box_size=box_size,
+                            table=table[:m], counts=counts)
+
+
+def scatter_grid_candidates(spec: GridSpec, g: ScatterGridState,
+                            query_pos: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each query's 27 stencil boxes' table rows: ``(ids, valid)``, (Q,
+    27·K) in ``_OFFSETS`` order, -1 entries and boxes outside the grid
+    invalid."""
+    k = spec.max_per_box
+    cell = morton.cell_of(query_pos, g.origin, g.box_size, spec.dims)
+    ncell, inside = _stencil_cells(cell, spec.dims)
+    codes = morton.linear_encode3(ncell[..., 0], ncell[..., 1],
+                                  ncell[..., 2], spec.dims)
+    members = g.table[codes]                                  # (Q, 27, K)
+    valid = (members >= 0) & inside[..., None]
+    q = query_pos.shape[0]
+    return members.clamp(min=0).reshape(q, 27 * k), valid.reshape(q, 27 * k)
+
+
+@dataclasses.dataclass
+class HashGridState:
+    """Spatial hash over a fixed bucket table.
+
+    keys:      (C,) int64 each slot's bucket (dead → n_buckets)
+    cell_keys: (C,) int64 each slot's unhashed linear cell (dead →
+               DEAD_KEY): a bucket mixes every cell that hashes to it, so
+               a probe keeps only the probed cell's agents — else two
+               stencil cells of one bucket would count its agents twice
+    order:     (C,) int32 slots sorted by bucket
+    starts, counts: (n_buckets,) per bucket, in ``order``
+    max_bucket_count: () the fullest bucket
+    """
+    origin: torch.Tensor
+    box_size: morton.BoxSize
+    keys: torch.Tensor
+    cell_keys: torch.Tensor
+    order: torch.Tensor
+    starts: torch.Tensor
+    counts: torch.Tensor
+    max_bucket_count: torch.Tensor
+
+
+def _hash_cell(cell: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """The 3-prime spatial hash (Teschner et al.) of cells, in uint32
+    arithmetic held in int64: each product wraps at 2^32 before the XOR."""
+    c = cell.to(torch.int64) & morton.DEAD_KEY
+    h = ((c[..., 0] * 73856093) & morton.DEAD_KEY) \
+        ^ ((c[..., 1] * 19349663) & morton.DEAD_KEY) \
+        ^ ((c[..., 2] * 83492791) & morton.DEAD_KEY)
+    return h % n_buckets
+
+
+def _build_hash_impl(spec: GridSpec, pool: AgentPool, origin: torch.Tensor,
+                     box_size: morton.BoxSize, n_buckets: int = 1 << 14,
+                     sort_impl: str = "auto") -> HashGridState:
+    cell = morton.cell_of(pool.position, origin, box_size, spec.dims)
+    keys = _hash_cell(cell, n_buckets)
+    keys = torch.where(pool.alive, keys, torch.full_like(keys, n_buckets))
+    lin = morton.linear_encode3(cell[..., 0], cell[..., 1], cell[..., 2],
+                                spec.dims)
+    cell_keys = torch.where(pool.alive, lin,
+                            torch.full_like(lin, morton.DEAD_KEY))
+    order = counting_sort_order(keys, n_buckets, impl=sort_impl)
+    sk = keys.index_select(0, order.to(torch.int64))
+    ids = torch.arange(n_buckets, dtype=sk.dtype, device=sk.device)
+    starts = torch.searchsorted(sk, ids, side="left").to(torch.int32)
+    ends = torch.searchsorted(sk, ids, side="right").to(torch.int32)
+    counts = (ends - starts).to(table_count_dtype(pool.capacity))
+    return HashGridState(origin=origin, box_size=box_size, keys=keys,
+                         cell_keys=cell_keys, order=order, starts=starts,
+                         counts=counts, max_bucket_count=counts.max())
+
+
+def hash_grid_probe(spec: GridSpec, g: HashGridState, query_pos: torch.Tensor,
+                    j: int, k_mult: int = HASH_K_MULT
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The candidates of stencil box ``j`` alone (one phase of
+    :func:`phased_chunk_apply`): its bucket's first ``k_mult·max_per_box``
+    agents, kept where their own cell is the probed one. ``(ids, valid)``,
+    (Q, k_mult·max_per_box)."""
+    n_buckets = g.starts.shape[0]
+    k = spec.max_per_box * k_mult
+    cell = morton.cell_of(query_pos, g.origin, g.box_size, spec.dims)
+    ncell, inside = _stencil_cells(cell, spec.dims, j)
+    ncell, inside = ncell[:, 0], inside[:, 0]
+    h = _hash_cell(ncell, n_buckets)
+    k_true = morton.linear_encode3(ncell[..., 0], ncell[..., 1],
+                                   ncell[..., 2], spec.dims)
+    s = g.starts[h]
+    n = torch.where(inside, g.counts[h].to(torch.int32),
+                    torch.zeros_like(s))
+    lane = torch.arange(k, dtype=torch.int32, device=query_pos.device)
+    pos = s[:, None] + lane
+    valid = lane < n.clamp(max=k)[:, None]
+    pos = torch.where(valid, pos, torch.zeros_like(pos))
+    ids = g.order[pos.to(torch.int64)]
+    valid = valid & (g.cell_keys[ids.to(torch.int64)] == k_true[:, None])
+    return ids, valid
+
+
+def hash_grid_candidates(spec: GridSpec, g: HashGridState,
+                         query_pos: torch.Tensor, k_mult: int = HASH_K_MULT
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All 27 probes of :func:`hash_grid_probe` at once, (Q, 27·k): the
+    Fig-11 'hash wide' baseline."""
+    probes = [hash_grid_probe(spec, g, query_pos, j, k_mult)
+              for j in range(27)]
+    return (torch.cat([ids for ids, _ in probes], 1),
+            torch.cat([valid for _, valid in probes], 1))

@@ -1,7 +1,8 @@
 """Wrappers around the kernels (port of ``repro.kernels.ops``): K1's
 block-sparse column map (from the stencil runs or from a Verlet pair list),
-its resident-layout entry point and the fused sweep that runs it beside the
-other pair kernels, and K2's whole-sequence attention."""
+its resident-layout entry point, the fused sweep that runs it beside the
+other pair kernels and its slot-order entry point, and K2's whole-sequence
+attention."""
 
 from __future__ import annotations
 
@@ -197,6 +198,15 @@ def k1_inputs(position: torch.Tensor, diameter: torch.Tensor,
     if pairs is not None:
         cols, ovf, data_t, sact = pair_cols.column_map_from_pairs(
             pairs.idx, pairs.run_off, n_pad, maxb, pool=pool)
+    elif isinstance(box_size, torch.Tensor):
+        # a traced box size divides (morton.cell_of), where the kernel's
+        # own cell computation multiplies by a reciprocal: the cells come
+        # from cell_of and the kernel maps them
+        data_t, sact = _pack(position, diameter, agent_type, alive, active)
+        cells = morton.cell_of(torch.nn.functional.pad(
+            position, (0, 0, 0, n_pad - position.shape[0])), origin,
+            box_size, dims)
+        cols, ovf = build_block_cols(cells, starts, counts, sact, dims, maxb)
     else:
         cols, ovf, data_t, sact = colmap.column_map(
             starts, counts, dims, maxb, SPAN, n_pad=n_pad, pool=pool,
@@ -213,11 +223,10 @@ def k1_inputs_plain(position: torch.Tensor, diameter: torch.Tensor,
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                torch.Tensor]:
     """:func:`k1_inputs` in plain PyTorch, on any device."""
-    dev = position.device
     c = position.shape[0]
     n_pad = -(-c // BLOCK) * BLOCK
     pad = n_pad - c
-    sact = torch.nn.functional.pad(active & alive, (0, pad))
+    data_t, sact = _pack(position, diameter, agent_type, alive, active)
     if pairs is not None:
         block_cols, ovf = build_block_cols_from_pairs_plain(pairs, sact,
                                                             n_pad, maxb)
@@ -227,12 +236,23 @@ def k1_inputs_plain(position: torch.Tensor, diameter: torch.Tensor,
             box_size, dims)
         block_cols, ovf = build_block_cols_plain(cells, starts, counts, sact,
                                                  dims, maxb)
-    data_t = torch.zeros((8, n_pad), dtype=torch.float32, device=dev)
+    return data_t, block_cols, ovf, sact
+
+
+def _pack(position: torch.Tensor, diameter: torch.Tensor,
+          agent_type: torch.Tensor, alive: torch.Tensor,
+          active: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's packed ``data_t`` (8, N_pad) and row mask (N_pad,), padded to
+    whole 128-row blocks."""
+    c = position.shape[0]
+    n_pad = -(-c // BLOCK) * BLOCK
+    data_t = torch.zeros((8, n_pad), dtype=torch.float32,
+                         device=position.device)
     data_t[k1.ROW_X:k1.ROW_Z + 1, :c] = position.T
     data_t[k1.ROW_DIA, :c] = diameter
     data_t[k1.ROW_TYPE, :c] = agent_type.to(torch.float32)
     data_t[k1.ROW_ALIVE, :c] = alive.to(torch.float32)
-    return data_t, block_cols, ovf, sact
+    return data_t, torch.nn.functional.pad(active & alive, (0, n_pad - c))
 
 
 def collision_force_resident(position: torch.Tensor, diameter: torch.Tensor,
@@ -268,11 +288,7 @@ def collision_force_resident(position: torch.Tensor, diameter: torch.Tensor,
         out_t = k1.collision_force(data_t, block_cols, k_rep=k_rep,
                                    adhesion=adhesion,
                                    adhesion_band=adhesion_band)
-    act = sact[:c]
-    force = torch.where(act[:, None], out_t[k1.ROW_FX:k1.ROW_FZ + 1, :c].T,
-                        torch.zeros((), device=dev))
-    nnz = torch.where(act, out_t[k1.ROW_NNZ, :c].to(torch.int32),
-                      torch.zeros((), dtype=torch.int32, device=dev))
+    force, nnz = _k1_outputs(out_t, sact[:c], c)
     return force, nnz, ovf
 
 
@@ -315,6 +331,93 @@ def fused_resident_sweep(spec: grid.GridSpec, grid_env: grid.GridState,
         results.update(grid.resident_apply_fused(
             spec, grid_env, channels, rest, default_mask, chunk, pairs))
     return results, ovf
+
+
+def collision_force(position: torch.Tensor, diameter: torch.Tensor,
+                    agent_type: torch.Tensor, alive: torch.Tensor,
+                    active: torch.Tensor, origin: torch.Tensor,
+                    box_size: morton.BoxSize, *, dims: Tuple[int, int, int],
+                    k_rep: float = 2.0, adhesion: Adhesion = None,
+                    adhesion_band: float = 0.4, maxb: int = 64
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1 on a pool in any slot order: linear-key sort → box tables →
+    :func:`collision_force_resident` → the results written back to the
+    caller's slots. Same contract and returns as the resident call.
+
+    The reference jits this wrapper with ``box_size`` as an argument, so
+    its cells divide: pass a tensor for that (``morton.cell_of``). The
+    write-back puts each sorted row at its slot with ``index_copy`` over
+    the sort's permutation, whose indices are distinct, so no write order
+    decides a value. :func:`collision_force_plain` is its plain version.
+    """
+    return _in_slot_order(collision_force_resident, position, diameter,
+                          agent_type, alive, active, origin, box_size,
+                          dims=dims, k_rep=k_rep, adhesion=adhesion,
+                          adhesion_band=adhesion_band, maxb=maxb)
+
+
+def collision_force_plain(position: torch.Tensor, diameter: torch.Tensor,
+                          agent_type: torch.Tensor, alive: torch.Tensor,
+                          active: torch.Tensor, origin: torch.Tensor,
+                          box_size: morton.BoxSize, *,
+                          dims: Tuple[int, int, int], k_rep: float = 2.0,
+                          adhesion: Adhesion = None,
+                          adhesion_band: float = 0.4, maxb: int = 64
+                          ) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """:func:`collision_force` with the plain column map and K1's plain
+    version, on any device."""
+    def resident_plain(position, diameter, agent_type, alive, active,
+                       starts, counts, origin, box_size, *, dims, k_rep,
+                       adhesion, adhesion_band, maxb):
+        c = position.shape[0]
+        data_t, block_cols, ovf, sact = k1_inputs_plain(
+            position, diameter, agent_type, alive, active, starts, counts,
+            origin, box_size, dims, maxb)
+        if adhesion is not None and not isinstance(adhesion, torch.Tensor):
+            adhesion = torch.tensor(adhesion, dtype=torch.float32,
+                                    device=position.device)
+        out_t = k1.collision_force_plain(data_t, block_cols, k_rep=k_rep,
+                                         adhesion=adhesion,
+                                         adhesion_band=adhesion_band)
+        return _k1_outputs(out_t, sact[:c], c) + (ovf,)
+    return _in_slot_order(resident_plain, position, diameter, agent_type,
+                          alive, active, origin, box_size, dims=dims,
+                          k_rep=k_rep, adhesion=adhesion,
+                          adhesion_band=adhesion_band, maxb=maxb)
+
+
+def _in_slot_order(resident_fn, position, diameter, agent_type, alive,
+                   active, origin, box_size, *, dims, **kw):
+    """``resident_fn`` over the pool sorted into grid-key order, its
+    force and nnz written back to the caller's slots."""
+    c = position.shape[0]
+    m = morton.linear_size(dims)
+    keys = morton.grid_sort_keys(position, alive, origin, box_size, dims)
+    order = grid.counting_sort_order(keys, m).to(torch.int64)
+    starts, counts = grid.box_tables(keys.index_select(0, order), m)
+    f_s, nnz_s, ovf = resident_fn(
+        *(x.index_select(0, order) for x in (position, diameter, agent_type,
+                                             alive, active & alive)),
+        starts, counts, origin, box_size, dims=dims, **kw)
+    dev = position.device
+    force = torch.zeros((c, 3), dtype=torch.float32,
+                        device=dev).index_copy_(0, order, f_s)
+    nnz = torch.zeros((c,), dtype=torch.int32,
+                      device=dev).index_copy_(0, order, nnz_s)
+    return force, nnz, ovf
+
+
+def _k1_outputs(out_t: torch.Tensor, act: torch.Tensor, c: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Force (C, 3) and nnz (C,) from K1's output rows, zero outside
+    ``act``."""
+    dev = out_t.device
+    force = torch.where(act[:, None], out_t[k1.ROW_FX:k1.ROW_FZ + 1, :c].T,
+                        torch.zeros((), device=dev))
+    nnz = torch.where(act, out_t[k1.ROW_NNZ, :c].to(torch.int32),
+                      torch.zeros((), dtype=torch.int32, device=dev))
+    return force, nnz
 
 
 # ---------------------------------------------------------------------------

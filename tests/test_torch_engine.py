@@ -88,11 +88,11 @@ def _assert_states_match(want, got, atol=1e-4, rtol=1e-4):
     np.testing.assert_array_equal(got["iteration"], want["iteration"])
 
 
-def _quickstart(capacity=1024):
+def _quickstart(capacity=1024, **change):
     """examples/quickstart.py's configuration at a reduced capacity."""
     kw = dict(capacity=capacity, domain_lo=(0, 0, 0),
               domain_hi=(120, 120, 120), interaction_radius=14.0, dt=0.2,
-              sort_frequency=10, max_per_box=64)
+              sort_frequency=10, max_per_box=64, **change)
     rng = np.random.default_rng(0)
     pos = rng.uniform(50, 70, (128, 3)).astype(np.float32)
     dia = np.full(128, 8.0, np.float32)
@@ -214,10 +214,136 @@ def test_run_raises_on_run_overflow_like_reference():
     dict(environment="brute_force"),
 ])
 def test_options_outside_the_slice_raise(change):
-    cfg = TConfig(capacity=128, domain_lo=(0, 0, 0), domain_hi=(8, 8, 8),
-                  interaction_radius=2.0, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TSim(cfg, [], device="cpu")
+    """The environments the first slices refused now run: one step of
+    each from a shared state matches the reference, the Morton sort of
+    scatter and hash included (sort_frequency 1). Neither config names a
+    force_impl: the port's default resolves to the streamed sweep off the
+    uniform grid, as the reference's default ("xla") runs there."""
+    n = 150
+    kw = dict(capacity=192, domain_lo=(0, 0, 0), domain_hi=(24,) * 3,
+              interaction_radius=3.0, dt=0.2, max_per_box=32,
+              sort_frequency=1, **change)
+    jsim = JSim(JConfig(**kw), [JGrow(rate=0.5, threshold_diameter=4.0)])
+    tcfg = TConfig(**kw)
+    assert tcfg.force_impl == "streamed"
+    tsim = TSim(tcfg, [TGrow(rate=0.5, threshold_diameter=4.0)],
+                device="cpu")
+    pos = np.random.default_rng(2).uniform(1, 23, (n, 3)).astype(np.float32)
+    s0 = jsim.run(jsim.init_state(pos, diameter=np.full(n, 2.0,
+                                                        np.float32)), 2)
+    want, got = _one_step(jsim, tsim, s0, until_births=True)
+    assert int(want["stats"]["births"]) > 0
+    _assert_states_match(want, got)
+
+
+@pytest.mark.parametrize("env", ["scatter_grid", "hash_grid"])
+def test_population_matches_over_30_steps_with_morton_sort(env):
+    """The quickstart population under scatter and hash, Morton-sorted
+    every 10 steps: the counts match the reference at every step."""
+    jsim, tsim, s0 = _quickstart(environment=env)
+    js = s0
+    ts = convert.state_from_numpy(_leaves(s0), "cpu")
+    for i in range(30):
+        js = jsim.step(js)
+        ts = tsim.step(ts)
+        for f in ("n_live", "births", "deaths", "box_overflow",
+                  "birth_overflow"):
+            assert int(ts.stats[f]) == int(js.stats[f]), (i, f)
+    assert int(ts.stats["n_live"]) == 256
+
+
+def _crowd_kw(env, n=40):
+    return dict(capacity=64, domain_lo=(0, 0, 0), domain_hi=(40,) * 3,
+                interaction_radius=4.0, dt=0.05, max_per_box=2,
+                environment=env)
+
+
+def _crowd(n=40):
+    rng = np.random.default_rng(8)
+    return rng.uniform(17, 23, (n, 3)).astype(np.float32)
+
+
+def test_run_raises_on_hash_bucket_overflow_like_reference():
+    cfg = _crowd_kw("hash_grid")
+    jsim = JSim(JConfig(**cfg), [])
+    tsim = TSim(TConfig(**cfg), [], device="cpu")
+    pos = _crowd()
+    msgs = []
+    for sim, st in ((jsim, jsim.init_state(pos)), (tsim,
+                                                   tsim.init_state(pos))):
+        with pytest.raises(RuntimeError, match="hash bucket overflow") as e:
+            sim.run(st, 1, check_overflow=True)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+
+
+def test_k1_off_the_uniform_grid_raises_like_reference():
+    for env in ("hash_grid", "scatter_grid", "brute_force"):
+        kw = dict(capacity=64, domain_lo=(0, 0, 0), domain_hi=(16,) * 3,
+                  interaction_radius=4.0, environment=env)
+        with pytest.raises(ValueError, match="requires the uniform_grid"):
+            JSim(JConfig(**kw, force_impl="pallas"), [])
+        with pytest.raises(ValueError, match="requires the uniform_grid"):
+            TSim(TConfig(**kw, force_impl="k1"), [], device="cpu")
+
+
+def test_hash_grid_ladder_grows_max_per_box_like_reference():
+    """A bucket overflow grows max_per_box to ⌈demand / 4⌉'s rung, and the
+    re-run step matches the reference's."""
+    from repro.core.engine import CapacityLadder as JLadder
+    from repro_torch.core.engine import CapacityLadder as TLadder
+    cfg = _crowd_kw("hash_grid")
+    pos = _crowd()
+    jl = JLadder(JConfig(**cfg), [])
+    tl = TLadder(TConfig(**cfg), [], device="cpu")
+    js = jl.run(jl.init_state(pos), 2)
+    ts = tl.run(tl.init_state(pos), 2)
+    assert tl.rungs == jl.rungs
+    assert any(r["field"] == "max_per_box" for r in tl.rungs)
+    assert tl.config.max_per_box == jl.config.max_per_box > 2
+    _assert_states_match(_leaves(js), convert.state_to_numpy(ts))
+
+
+def test_every_k_queries_divide_by_the_cached_box_size():
+    """radius 4 and displacement_bound 0.8 make a 4.8 box. The susceptible
+    agent at z = 72.0 sits on a box boundary: the build's cell (a multiply
+    by float32(1/4.8)) is 15, the every_k query's (the reference divides
+    by the box size its lax.cond returns) is 14. Its 14..16 run then holds
+    a crowd of 10 in box 13 first and, truncated at max_per_run 8, loses
+    the infected neighbor in box 15: the agent stays susceptible on the
+    build step and the skip step, in both packages."""
+    kw = dict(capacity=64, domain_lo=(0, 0, 0), domain_hi=(96,) * 3,
+              interaction_radius=4.0, use_forces=False, max_per_box=16,
+              max_per_run=8)
+    rng = np.random.default_rng(0)
+    crowd = np.stack([rng.uniform(48.5, 52.5, 10),
+                      rng.uniform(48.5, 52.5, 10),
+                      rng.uniform(63, 66.5, 10)], 1)
+    pos = np.concatenate([crowd, [[50.0, 50.0, 72.0], [50.0, 50.0, 74.0]]]
+                         ).astype(np.float32)
+    types = np.zeros(len(pos), np.int32)
+    types[-1] = 1                                     # infected
+    init = dict(agent_type=types)
+    from repro.core import grid as jgrid
+    from repro_torch.core import grid as tgrid
+    jsim = JSim(JConfig(**kw, rebuild=jgrid.RebuildPolicy(
+        "every_k", k=8, displacement_bound=0.8)),
+        [JInfection(radius=4.0, beta=1.0, recovery_time=40)])
+    tsim = TSim(TConfig(**kw, force_impl="streamed",
+                        rebuild=tgrid.RebuildPolicy(
+                            "every_k", k=8, displacement_bound=0.8)),
+                [TInfection(radius=4.0, beta=1.0, recovery_time=40)],
+                device="cpu")
+    js = jsim.init_state(pos, **init)
+    ts = tsim.init_state(pos, **init)
+    for step in range(2):                     # a build, then a skip
+        js, ts = jsim.step(js), tsim.step(ts)
+        assert int(js.stats["rebuilds"]) == int(ts.stats["rebuilds"]) \
+            == (1 if step == 0 else 0)
+        want = _leaves(js)
+        _assert_states_match(want, convert.state_to_numpy(ts), 0, 0)
+        q = np.flatnonzero(want["pool"]["position"][:, 2] == 72.0)
+        assert want["pool"]["agent_type"][q].tolist() == [0], step
 
 
 @pytest.mark.parametrize("option", ["force_impl", "detect_static",
