@@ -184,6 +184,42 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      and mapped back ≡ ``collision_force_resident`` on the grid-ordered
      pool bit for bit; the wrapper's time against the resident call's.
 
+23. lanes ≡ solo on the card: (a) tests/test_ensemble.py's SIR
+     (RandomWalk + Infection, per-lane β) in 8 lanes of 96 agents in
+     capacity 192 for 20 ticks, (b) the Fig-6 scaling set-up with K1 in
+     16 lanes of 4,096 agents (capacity 5,324: lanes packed at 5,376 rows)
+     for 10 ticks. Every lane ≡ its solo port run on the card bit for bit,
+     RNG keys included; one lane of each ≡ the CPU (integers exact, floats
+     1e-4; (b) over its last tick from the card's state before it). On
+     (b)'s first tick the lane-aware column map ≡ its plain version entry
+     for entry (per-lane flags too) and K1 ≡ its plain version (force
+     1e-4, nnz exact), timed beside their plain versions and bounds; K1
+     and the column map launch once a tick for all 16 lanes (counts reset
+     just before the 10 ticks, read just after); (c) (a)'s lanes with
+     diameter 2.5 and forces in the streamed sweep, 10 ticks: each lane ≡
+     its solo card run, integers and keys exact, floats within 1e-4, and
+     whether they are bit-equal is printed (torch may sum a row's
+     candidates in another order at L·C rows than at C);
+ 24. ensemble throughput: benchmarks/ensemble.py's set-up (side 12,
+     max_per_box 4, argsort) at 64 agents a lane for 8 and 64 lanes, and
+     the service CLI's (launch/sim_serve.py, 256 agents a lane) at 256
+     lanes: ms per serving tick (the step and the per-lane infected count
+     read back, as that benchmark times it), agent-steps/s, device ops per
+     tick and idle share (launch/profile_step.py's profiler), host syncs
+     per tick (``torch.cuda.set_sync_debug_mode("warn")``'s warnings),
+     beside the sequential baseline (a one-lane engine serving each member
+     back to back);
+ 25. the service CLI: ``python -m repro_torch.launch.sim_serve`` at the
+     reference's defaults (8 lanes, 32 requests, 256 agents, 100 steps, β
+     0.1-0.5); a run with ``--ckpt-dir --checkpoint-every 25`` SIGKILLed
+     after its checkpoint at tick 125 and run again with ``--resume``:
+     every simulation it retires has the uninterrupted run's steps, reason
+     and final infected count, and with the checkpoint's finished uids
+     they are all 32; the median µs of ``admit`` and ``retire``.
+
+The kernels line's K1 and column-map entries add their launches per tick
+on phase 23 (b) (``ensemble_launches_per_tick``).
+
 Each phase prints its seconds. The CPU halves of phases 16-18 run in a
 child process (``chip_smoke.py --cpu-worker OUT``, one torch thread, no
 CUDA) and phase 21's in a second (``--cpu-worker-envs OUT``), both started
@@ -237,6 +273,18 @@ PROLIF_CPU_AGENTS, PROLIF_CPU_STEPS = 2048, 80
 # shared state and the free-running residue is printed
 PROLIF_RESYNC = (20, 40, 60, 79)
 CPU_WORKER_TIMEOUT_S = 900
+# phase 23: tests/test_ensemble.py's SIR lanes (8 of 96 agents in capacity
+# 192, not a multiple of 128) and Fig-6 lanes with K1 (16 of 4,096)
+ENS_SIR_LANES, ENS_SIR_AGENTS, ENS_SIR_CAP, ENS_SIR_TICKS = 8, 96, 192, 20
+ENS_K1_LANES, ENS_K1_AGENTS, ENS_K1_TICKS = 16, 4096, 10
+ENS_STREAMED_TICKS = 10           # (c): the SIR lanes with streamed forces
+# phase 24: benchmarks/ensemble.py's set-up (SIDE 12, max_per_box 4,
+# argsort) at 64 agents a lane, and the service CLI's at 256
+ENS_BENCH_SIDE = 12.0
+ENS_BENCH = ((8, 64, "benchmark"), (64, 64, "benchmark"), (256, 256, "cli"))
+ENS_BENCH_TICKS = 50
+# phase 25: the CLI checkpoints every 25 ticks; killed after the one at 125
+SERVE_CKPT_EVERY, SERVE_KILL_AFTER = 25, 125
 # K2 cases: (name, B, Hq, Hkv, Sq, Sk, D, causal, dtype); the first is the
 # qwen2-1.5b prefill shape and the one the kernels line reports. Sq = Sk =
 # "first" or "shortest" is the length of that prompt of phase 7.
@@ -2601,6 +2649,550 @@ def phase_k1_slot_order(report: dict) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases 23-25: the ensemble engine and the simulation service
+# ---------------------------------------------------------------------------
+
+def _sir_lane_parts():
+    """tests/test_ensemble.py's SIR lanes (per-lane β) at capacity
+    ENS_SIR_CAP: (config, behaviors)."""
+    from repro_torch.core import EngineConfig
+    from repro_torch.core.behaviors import Infection, RandomWalk
+    cfg = EngineConfig(capacity=ENS_SIR_CAP, domain_lo=(0.0,) * 3,
+                       domain_hi=(48.0,) * 3, interaction_radius=3.0,
+                       use_forces=False, detect_static=False,
+                       query_chunk=1024, max_per_box=32)
+    return cfg, [RandomWalk(sigma=0.8),
+                 Infection(radius=3.0, beta=lambda ctx: ctx.params["beta"],
+                           recovery_time=40)]
+
+
+def _sir_lane_inputs(seed: int, n: int = ENS_SIR_AGENTS):
+    import numpy as np
+    r = np.random.RandomState(seed)
+    pos = r.uniform(0, 48, (n, 3)).astype(np.float32)
+    at = np.zeros((n,), np.int32)
+    at[:8] = 1                                          # INFECTED
+    timer = np.zeros((n,), np.int32)
+    timer[:8] = 40
+    return (pos, np.full((n,), 1.0, np.float32), at,
+            {"infect_timer": timer})
+
+
+def _fig6_lane_inputs(n: int, lane: int):
+    """The Fig-6 scaling set-up's agents (launch/simulate.py ``--config
+    fig6``), drawn from seed ``lane``."""
+    import numpy as np
+    side = max(40.0, (n ** (1 / 3)) * 4.0)
+    pos = np.random.default_rng(lane).uniform(2.0, side - 2.0, (n, 3))
+    return pos.astype(np.float32), np.full(n, 3.0, np.float32)
+
+
+def _solo_core_run(cfg, behaviors, st, params, steps: int, device: str):
+    """A lane's solo oracle: the port's iteration core with ``params``."""
+    import torch
+    from repro_torch.core import make_iteration_core
+    core = make_iteration_core(cfg, behaviors, torch.device(device))
+    pool, conc, rng, it = st.pool, st.conc, st.rng, st.iteration
+    for _ in range(steps):
+        pool, conc, rng, _, _ = core(pool, conc, rng, it, None, params)
+        it = it + 1
+    return pool, rng
+
+
+def _same_lane(pool, rng, lane, what: str) -> None:
+    import torch
+    for k, v in pool.channels().items():
+        check(torch.equal(v, lane.pool.channels()[k]),
+              f"{what}: channel {k} differs from the solo run")
+    check(torch.equal(rng, lane.rng), f"{what}: RNG key differs")
+
+
+def _host_pool(pool):
+    """A pool's channels copied to the CPU."""
+    return pool.with_channels({k: v.cpu()
+                               for k, v in pool.channels().items()})
+
+
+def _pools_close(card_pool, cpu_pool, what: str) -> float:
+    """Integers exact, floats atol/rtol 1e-4 (``cpu_pool`` on the host);
+    returns the largest float residue."""
+    import numpy as np
+    worst = 0.0
+    for k, w in cpu_pool.channels().items():
+        g = card_pool.channels()[k].cpu().numpy()
+        w = w.numpy()
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4,
+                                       err_msg=f"{what}: {k}")
+            worst = max(worst, float(np.abs(g - w).max()))
+        else:
+            check(np.array_equal(g, w), f"{what}: integer channel {k} "
+                                        f"differs")
+    return worst
+
+
+def phase_lanes_vs_solo(report: dict) -> dict:
+    """[23] (a) the SIR lanes and (b) Fig-6 lanes with K1: every lane ≡
+    its solo run on the card bit for bit, one lane ≡ the CPU, K1 and the
+    column map once per tick, and both kernels ≡ their plain versions on
+    the lanes' inputs."""
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.core import (EnsembleEngine, ScenarioParams,
+                                  Simulation, build_env)
+    from repro_torch.core.lanes import Lanes
+    from repro_torch.device import card_description
+    from repro_torch.kernels import ops
+    from repro_torch.launch import simulate
+
+    card = card_description()
+    rec = {"card": card}
+    # (a) SIR: 8 lanes of 96 agents in capacity 192, per-lane β
+    cfg, bs = _sir_lane_parts()
+    betas = np.linspace(0.1, 0.5, ENS_SIR_LANES)
+    eng = EnsembleEngine(cfg, bs, ENS_SIR_LANES,
+                         ScenarioParams.of(beta=0.0), device="cuda")
+    st = eng.init_state()
+    for lane in range(ENS_SIR_LANES):
+        st = eng.admit(st, lane, eng.stage_lane(*_sir_lane_inputs(lane),
+                                                seed=lane),
+                       ScenarioParams.of(beta=float(betas[lane])))
+    _reset_counts()
+    for _ in range(ENS_SIR_TICKS):
+        st = eng.step(st)
+    torch.cuda.synchronize()
+    sim = Simulation(cfg, bs, device="cuda")
+    for lane in range(ENS_SIR_LANES):
+        solo = sim.init_state(*_sir_lane_inputs(lane), seed=lane)
+        pool, rng = _solo_core_run(cfg, bs, solo, ScenarioParams.of(
+            beta=float(betas[lane])), ENS_SIR_TICKS, "cuda")
+        _same_lane(pool, rng, eng.read_lane(st, lane), f"[23a] lane {lane}")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cpu_lane = 3
+        cpu = Simulation(cfg, bs, device="cpu").init_state(
+            *_sir_lane_inputs(cpu_lane), seed=cpu_lane)
+        cpool, crng = _solo_core_run(cfg, bs, cpu, ScenarioParams.of(
+            beta=float(betas[cpu_lane])), ENS_SIR_TICKS, "cpu")
+    finally:
+        torch.set_num_threads(threads)
+    got = eng.read_lane(st, cpu_lane)
+    worst_a = _pools_close(got.pool, cpool, "[23a] card lane vs CPU")
+    check(torch.equal(got.rng.cpu(), crng), "[23a] card lane RNG vs CPU")
+    infected = [int(v) for v in ((st.pool.agent_type == 1)
+                                 & st.pool.alive).reshape(
+                                     ENS_SIR_LANES, -1).sum(1)]
+    rec["sir"] = {"lanes": ENS_SIR_LANES, "agents": ENS_SIR_AGENTS,
+                  "capacity": ENS_SIR_CAP, "ticks": ENS_SIR_TICKS,
+                  "lanes_equal_solo": True, "cpu_lane": cpu_lane,
+                  "cpu_max_abs_diff": worst_a, "infected": infected}
+    print(f"[23a] SIR {ENS_SIR_LANES} lanes x {ENS_SIR_AGENTS} agents in "
+          f"capacity {ENS_SIR_CAP}, {ENS_SIR_TICKS} ticks: every lane ≡ its "
+          f"solo card run bit for bit (keys included); lane {cpu_lane} ≡ "
+          f"the CPU (max|Δ| {worst_a:.3g}, integers and key equal); "
+          f"infected per lane {infected}; {card}", flush=True)
+
+    # (c) the SIR lanes with forces in the streamed sweep: torch may sum a
+    # row's candidates in another order at L·C rows than at C, so floats
+    # are held to 1e-4 (integers exact) and bit-equality is reported
+    scfg = dataclasses.replace(cfg, use_forces=True, force_impl="streamed")
+    seng = EnsembleEngine(scfg, bs, ENS_SIR_LANES,
+                          ScenarioParams.of(beta=0.0), device="cuda")
+    sst = seng.init_state()
+    for lane in range(ENS_SIR_LANES):
+        args = _sir_lane_inputs(lane)
+        sst = seng.admit(sst, lane, seng.stage_lane(
+            args[0], args[1] * 2.5, *args[2:], seed=lane),
+            ScenarioParams.of(beta=float(betas[lane])))
+    for _ in range(ENS_STREAMED_TICKS):
+        sst = seng.step(sst)
+    worst_c, bit_equal = 0.0, True
+    for lane in range(ENS_SIR_LANES):
+        args = _sir_lane_inputs(lane)
+        solo = Simulation(scfg, bs, device="cuda").init_state(
+            args[0], args[1] * 2.5, *args[2:], seed=lane)
+        pool, rng = _solo_core_run(scfg, bs, solo, ScenarioParams.of(
+            beta=float(betas[lane])), ENS_STREAMED_TICKS, "cuda")
+        got = seng.read_lane(sst, lane)
+        check(torch.equal(rng, got.rng), f"[23c] lane {lane} RNG key")
+        bit_equal &= all(torch.equal(v, got.pool.channels()[k])
+                         for k, v in pool.channels().items())
+        worst_c = max(worst_c, _pools_close(got.pool, _host_pool(pool),
+                                            f"[23c] lane {lane}"))
+    forces = int(sst.pool.force_nnz.sum())
+    check(forces > 0, "[23c] no force was computed")
+    rec["streamed"] = {"lanes": ENS_SIR_LANES, "ticks": ENS_STREAMED_TICKS,
+                       "bit_equal": bit_equal, "max_abs_diff": worst_c,
+                       "force_nnz_total": forces}
+    print(f"[23c] SIR lanes with forces in the streamed sweep, "
+          f"{ENS_STREAMED_TICKS} ticks: every lane ≡ its solo card run "
+          f"{'bit for bit' if bit_equal else f'within {worst_c:.3g}'} "
+          f"(integers and keys equal; {forces} nonzero pair forces); "
+          f"{card}", flush=True)
+
+    # (b) Fig-6 with K1: 16 lanes of 4,096 agents
+    n = ENS_K1_AGENTS
+    sim, _ = simulate.build("proliferation", n, "fig6", device="cuda")
+    cfg, bs, spec = sim.config, sim.behaviors, sim.spec
+    ln = Lanes(ENS_K1_LANES, cfg.capacity)
+    eng = EnsembleEngine(cfg, bs, ENS_K1_LANES, device="cuda")
+    st = eng.init_state()
+    for lane in range(ENS_K1_LANES):
+        st = eng.admit(st, lane, eng.stage_lane(*_fig6_lane_inputs(n, lane),
+                                                seed=lane))
+    origin = torch.tensor(cfg.domain_lo, dtype=torch.float32, device="cuda")
+    res = build_env(cfg, spec, st.pool, origin, cfg.cell_size, ln)
+    pool, g = res.pool, res.grid
+    args = (pool.position, pool.diameter, pool.agent_type, pool.alive,
+            pool.alive, g.starts, g.counts, origin, cfg.cell_size, spec.dims,
+            64, None, ln)
+    got = ops.k1_inputs(*args)
+    torch.cuda.synchronize()
+    want = ops.k1_inputs_plain(*args)
+    torch.cuda.synchronize()
+    for gt, w, what in zip(got, want, ("data_t", "block_cols", "overflow",
+                                       "row mask")):
+        check(gt.dtype == w.dtype and torch.equal(gt, w),
+              f"[23b] lane-aware column map differs from plain in {what}")
+    check(tuple(got[2].shape) == (ENS_K1_LANES,) and not bool(got[2].any()),
+          "[23b] per-lane column-map overflow")
+    label = f"[23b] {ENS_K1_LANES} lanes x {n} agents:"
+    ms = cuda_ms(lambda: ops.k1_inputs(*args), iters=20, warmup=3)
+    plain_ms = cuda_ms(lambda: ops.k1_inputs_plain(*args), iters=2,
+                       warmup=0)
+    bound_ms, bound_by, work = column_map_bound(pool.position, g.starts,
+                                                got[0], got[1])
+    cm = {"n_pad": got[0].shape[1], "equal": True, "max_abs_err": 0.0,
+          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+          "bound_by": bound_by, "library_ms": None, **work}
+    print(f"{label} lane-aware column map ({ENS_K1_LANES} lanes packed at "
+          f"{got[0].shape[1] // ENS_K1_LANES} rows each): kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}); block_cols, per-lane flags, data_t and row mask "
+          f"equal", flush=True)
+    k1_rec = _k1_vs_plain(label, got[0], got[1], cfg)
+    k1_rec["library_ms"] = None
+
+    states = []
+    _reset_counts()
+    for _ in range(ENS_K1_TICKS):
+        states = states[-1:] + [st]
+        st = eng.step(st)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    for name in ("k1_collision_force", "k1_column_map"):
+        check(launches[name] == ENS_K1_TICKS,
+              f"[23b] {name} launched {launches[name]} times in "
+              f"{ENS_K1_TICKS} ticks of {ENS_K1_LANES} lanes, not once a "
+              f"tick")
+    check(not st.stats.flags(), f"[23b] overflow flags {st.stats.flags()}")
+    for lane in range(ENS_K1_LANES):
+        solo = sim.init_state(*_fig6_lane_inputs(n, lane), seed=lane)
+        for _ in range(ENS_K1_TICKS):
+            solo = sim.step(solo)
+        _same_lane(solo.pool, solo.rng, eng.read_lane(st, lane),
+                   f"[23b] lane {lane}")
+    # one lane's last tick on the CPU, from the card's state before it
+    cpu_lane = 5
+    before = eng.read_lane(states[-1], cpu_lane)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        sim_c = Simulation(cfg, bs, device="cpu")
+        after = sim_c.step(convert.state_from_numpy(
+            convert.state_to_numpy(before), "cpu"))
+    finally:
+        torch.set_num_threads(threads)
+    worst_b = _pools_close(eng.read_lane(st, cpu_lane).pool, after.pool,
+                           "[23b] card lane vs CPU")
+    n_live = [int(v) for v in st.stats.n_live]
+    rec["k1"] = {"lanes": ENS_K1_LANES, "agents": n,
+                 "capacity": cfg.capacity, "ticks": ENS_K1_TICKS,
+                 "lanes_equal_solo": True, "launches": launches,
+                 "launches_per_tick": {
+                     k: launches[k] / ENS_K1_TICKS
+                     for k in ("k1_collision_force", "k1_column_map")},
+                 "cpu_lane": cpu_lane, "cpu_max_abs_diff": worst_b,
+                 "n_live": n_live, "column_map": cm, "k1_vs_plain": k1_rec}
+    print(f"{label} {ENS_K1_TICKS} ticks: K1 {launches['k1_collision_force']}"
+          f" and column map {launches['k1_column_map']} launches (once a "
+          f"tick for all lanes); every lane ≡ its solo card run bit for "
+          f"bit; lane {cpu_lane}'s last tick ≡ the CPU (max|Δ| "
+          f"{worst_b:.3g}, integers equal); live per lane {n_live}; {card}",
+          flush=True)
+    report["ensemble_lanes"] = rec
+    return rec
+
+
+def _bench_parts(agents: int, kind: str, lanes: int):
+    """(config, behaviors, params template, lane inputs(lane)) of
+    benchmarks/ensemble.py's set-up (``kind="benchmark"``) or of the
+    service CLI's (``"cli"``, launch/sim_serve.py's make_service)."""
+    import numpy as np
+    from repro_torch.core import EngineConfig, ScenarioParams
+    from repro_torch.core.behaviors import Infection, RandomWalk
+    from repro_torch.launch import sim_serve
+    if kind == "cli":
+        side = max(40.0, (agents ** (1 / 3)) * 5)
+        svc = sim_serve.make_service(lanes, agents, side, device="cuda")
+        betas = np.linspace(0.1, 0.5, lanes)
+
+        def lane_inputs(lane):
+            req = sim_serve.make_request(lane, agents, side,
+                                         float(betas[lane]), 40, 100)
+            return ((req.position, req.diameter, req.agent_type,
+                     req.extra_init), req.seed, req.params)
+        return (svc.driver.config, svc.driver.behaviors,
+                svc.driver.params_template, lane_inputs)
+    side = ENS_BENCH_SIDE
+    cfg = EngineConfig(capacity=max(64, -(-agents // 64) * 64),
+                       domain_lo=(0.0,) * 3, domain_hi=(side,) * 3,
+                       interaction_radius=3.0, use_forces=False,
+                       detect_static=False, query_chunk=2048, max_per_box=4,
+                       sort_impl="argsort")
+    bs = [RandomWalk(sigma=0.8),
+          Infection(radius=3.0, beta=lambda ctx: ctx.params["beta"],
+                    recovery_time=30)]
+    betas = np.linspace(0.1, 0.5, lanes)
+
+    def lane_inputs(lane):
+        r = np.random.RandomState(100 + lane)
+        pos = r.uniform(0, side, (agents, 3)).astype(np.float32)
+        types = np.zeros(agents, np.int32)
+        n0 = max(agents // 50, 2)
+        types[:n0] = 1
+        timer = np.zeros(agents, np.int32)
+        timer[:n0] = 30
+        return ((pos, np.full(agents, 1.0, np.float32), types,
+                 {"infect_timer": timer}), 100 + lane,
+                ScenarioParams.of(beta=float(betas[lane])))
+    return cfg, bs, ScenarioParams.of(beta=0.0), lane_inputs
+
+
+class _ServingTick:
+    """One serving-loop tick, as benchmarks/ensemble.py times it: the
+    ensemble step, then the per-lane infected count read back (the
+    convergence check every real sweep pays)."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    @staticmethod
+    def metric(pool, params):
+        return ((pool.agent_type == 1) & pool.alive).sum()
+
+    def step(self, st):
+        from repro_torch.serve.sim_service import lane_metrics
+        st = self.engine.step(st)
+        lane_metrics(self.metric, st).cpu()
+        return st
+
+
+def _host_syncs(fn, calls: int) -> float:
+    """Host synchronisations per call of ``fn``: the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")`` (each synchronising copy or
+    read it sees), counted over ``calls`` calls."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(calls):
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen) / calls
+
+
+def _serving_ticks(engine, st, ticks: int) -> dict:
+    """ms per serving tick (host clock, each tick ends in its read-back),
+    host syncs per tick, and from profiled ticks the device ops per tick
+    and the idle share (launch/profile_step.py's)."""
+    import torch
+    from repro_torch.launch.profile_step import profile_steps
+    runner = _ServingTick(engine)
+    for _ in range(3):
+        st = runner.step(st)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        st = runner.step(st)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / ticks
+    box = [st]
+
+    def one():
+        box[0] = runner.step(box[0])
+    syncs = _host_syncs(one, 5)
+    st, prof = profile_steps(runner, box[0], 5)
+    return {"ms_per_tick": ms, "host_syncs_per_tick": syncs,
+            "device_ops_per_tick": prof["launches"],
+            "device_busy_ms_per_tick": prof["device_busy_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "ms_per_tick_profiled": prof["ms_per_step_profiled"]}
+
+
+def phase_ensemble_throughput(report: dict) -> list:
+    """[24] benchmarks/ensemble.py's set-up at 64 agents a lane for 8 and
+    64 lanes, and the service CLI's 256 agents a lane at 256 lanes, beside
+    the sequential baseline: one lane's step serving each member back to
+    back."""
+    from repro_torch.core import EnsembleEngine
+    from repro_torch.device import card_description
+    card = card_description()
+    recs = []
+    for lanes, agents, kind in ENS_BENCH:
+        cfg, bs, tmpl, lane_inputs = _bench_parts(agents, kind, lanes)
+
+        def filled(n_lanes):
+            eng = EnsembleEngine(cfg, bs, n_lanes, tmpl, device="cuda")
+            st = eng.init_state()
+            for lane in range(n_lanes):
+                args, seed, params = lane_inputs(lane)
+                st = eng.admit(st, lane, eng.stage_lane(*args, seed=seed),
+                               params)
+            return eng, st
+        ens = _serving_ticks(*filled(lanes), ENS_BENCH_TICKS)
+        seq = _serving_ticks(*filled(1), ENS_BENCH_TICKS)
+        ens_rate = lanes * agents / (ens["ms_per_tick"] * 1e-3)
+        seq_rate = agents / (seq["ms_per_tick"] * 1e-3)
+        rec = {"set_up": kind, "lanes": lanes, "agents_per_lane": agents,
+               "capacity": cfg.capacity, "ticks": ENS_BENCH_TICKS,
+               "ensemble": {**ens, "agent_steps_per_s": ens_rate},
+               "sequential": {**seq, "agent_steps_per_s": seq_rate},
+               "speedup_vs_sequential": ens_rate / seq_rate, "card": card}
+        recs.append(rec)
+        print(f"[24] {kind} set-up, {lanes} lanes x {agents} agents: "
+              f"{ens['ms_per_tick']:.3f} ms/tick, {ens_rate:.4g} "
+              f"agent-steps/s, {ens['device_ops_per_tick']:.0f} device "
+              f"ops/tick, idle {ens['device_idle_share']:.3f}, "
+              f"{ens['host_syncs_per_tick']:.1f} host syncs/tick | "
+              f"sequential: {seq['ms_per_tick']:.3f} ms/tick per member, "
+              f"{seq_rate:.4g} agent-steps/s, "
+              f"{seq['device_ops_per_tick']:.0f} ops, idle "
+              f"{seq['device_idle_share']:.3f}, "
+              f"{seq['host_syncs_per_tick']:.1f} syncs | speedup "
+              f"{rec['speedup_vs_sequential']:.2f}x; {card}", flush=True)
+    report["ensemble_throughput"] = recs
+    return recs
+
+
+def _admit_retire_us(lanes: int, agents: int) -> dict:
+    """Median µs of ``admit`` and ``retire`` (each ending in a
+    synchronise) on the service CLI's engine."""
+    import statistics as stats_mod
+    import torch
+    from repro_torch.core import EnsembleEngine
+    cfg, bs, tmpl, lane_inputs = _bench_parts(agents, "cli", lanes)
+    eng = EnsembleEngine(cfg, bs, lanes, tmpl, device="cuda")
+    st = eng.init_state()
+    args, seed, params = lane_inputs(0)
+    staged = eng.stage_lane(*args, seed=seed)
+    eng.retire(eng.admit(st, 0, staged, params), 0)
+    torch.cuda.synchronize()
+    admit, retire = [], []
+    for lane in range(lanes):
+        t0 = time.perf_counter()
+        eng.admit(st, lane, staged, params)
+        torch.cuda.synchronize()
+        admit.append((time.perf_counter() - t0) * 1e6)
+        t0 = time.perf_counter()
+        eng.retire(st, lane)
+        torch.cuda.synchronize()
+        retire.append((time.perf_counter() - t0) * 1e6)
+    return {"admit_us_median": stats_mod.median(admit),
+            "retire_us_median": stats_mod.median(retire), "lanes": lanes,
+            "agents": agents}
+
+
+def phase_service_cli(report: dict, tmpdir: str) -> dict:
+    """[25] ``python -m repro_torch.launch.sim_serve`` at the reference's
+    defaults; a run checkpointing every SERVE_CKPT_EVERY ticks SIGKILLed
+    mid-churn and resumed must retire the simulations it serves as the
+    uninterrupted run does (steps, reason, final infected count)."""
+    import json as json_mod
+    import os
+    import signal
+    from repro_torch.device import card_description
+    card = card_description()
+    mod = ["-m", "repro_torch.launch.sim_serve"]
+    full_json = str(Path(tmpdir) / "serve_full.json")
+    t0 = time.perf_counter()
+    full = _child(mod + ["--report", full_json])
+    full_s = time.perf_counter() - t0
+    check(full.returncode == 0, f"[25] sim_serve exited {full.returncode}: "
+                                f"{full.stderr[-2000:]}")
+    drained = [ln for ln in full.stdout.splitlines()
+               if ln.startswith("drained")]
+    print(f"[25] sim_serve (8 lanes, 32 requests, 256 agents, 100 steps): "
+          f"{drained[0] if drained else '?'}; process {full_s:.1f} s; "
+          f"{card}", flush=True)
+    want = {r["uid"]: r for r in json_mod.loads(Path(full_json).read_text())}
+    check(sorted(want) == list(range(32)), "[25] not every request retired")
+
+    ck = Path(tmpdir) / "serve_ckpt"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    args = mod + ["--ckpt-dir", str(ck), "--checkpoint-every",
+                  str(SERVE_CKPT_EVERY)]
+    proc = subprocess.Popen([sys.executable] + args, env=env,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    latest = ck / "LATEST"
+    deadline = time.time() + 600
+    try:
+        while time.time() < deadline and proc.poll() is None:
+            if latest.exists() and int(latest.read_text() or 0) \
+                    >= SERVE_KILL_AFTER:
+                break
+            time.sleep(0.005)
+        check(proc.poll() is None, f"[25] the service ended before its "
+                                   f"checkpoint at {SERVE_KILL_AFTER}")
+        os.kill(proc.pid, signal.SIGKILL)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    killed_at = int(latest.read_text())
+    res_json = str(Path(tmpdir) / "serve_resumed.json")
+    res = _child(args + ["--resume", "--report", res_json])
+    check(res.returncode == 0, f"[25] resumed sim_serve exited "
+                               f"{res.returncode}: {res.stderr[-2000:]}")
+    resumed_line = [ln for ln in res.stdout.splitlines()
+                    if ln.startswith("resumed")]
+    meta = json_mod.loads((ck / f"step_{killed_at:09d}" /
+                           "manifest.json").read_text())["extras"]
+    done = set(meta["finished_uids"])
+    busy = {e["uid"] for e in meta["lanes"] if e is not None}
+    got = {r["uid"]: r for r in json_mod.loads(Path(res_json).read_text())}
+    check(done and busy, f"[25] the kill at tick {killed_at} was not "
+                         f"mid-churn (finished {sorted(done)}, busy "
+                         f"{sorted(busy)})")
+    check(set(got) | done == set(want) and not set(got) & done,
+          "[25] the resumed service did not retire the rest")
+    for uid, r in got.items():
+        check(r == want[uid], f"[25] uid {uid} resumed {r}, uninterrupted "
+                              f"{want[uid]}")
+    ar = _admit_retire_us(8, 256)
+    rec = {"card": card, "uninterrupted": drained[0] if drained else None,
+           "process_s": full_s, "killed_at_tick": killed_at,
+           "finished_at_kill": sorted(done), "busy_at_kill": sorted(busy),
+           "resumed": resumed_line[0] if resumed_line else None,
+           "resumed_equal": True, **ar}
+    print(f"[25] SIGKILL after the checkpoint at tick {killed_at} "
+          f"({len(done)} finished, lanes busy with {sorted(busy)}); "
+          f"resumed: {len(got)} simulations retired, steps, reasons and "
+          f"final infected counts equal to the uninterrupted run's; admit "
+          f"{ar['admit_us_median']:.1f} µs, retire "
+          f"{ar['retire_us_median']:.1f} µs (median, 8 lanes x 256 "
+          f"agents); {card}", flush=True)
+    report["service_cli"] = rec
+    return rec
+
+
 T_START = time.perf_counter()
 
 
@@ -2695,6 +3287,9 @@ def _run(workers, tmpdir: str) -> int:
                      workers[1])
     timed("21", phase_env_scenarios, report, cpu_envs)
     timed("22", phase_k1_slot_order, report)
+    lanes_rec = timed("23", phase_lanes_vs_solo, report)
+    timed("24", phase_ensemble_throughput, report)
+    timed("25", phase_service_cli, report, tmpdir)
     report["total_s"] = time.perf_counter() - T_START
     print(f"phases took {sum(seconds.values()):.1f} s, the script "
           f"{report['total_s']:.1f} s", flush=True)
@@ -2709,7 +3304,9 @@ def _run(workers, tmpdir: str) -> int:
         "max_abs_err": big["max_abs_err"],
         "ms": big["ms"], "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None,
+        "ensemble_launches_per_tick":
+            lanes_rec["k1"]["launches_per_tick"]["k1_collision_force"]}, {
         "name": "k1_column_map", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_cols.cu",
         "replaces": "src/repro/kernels/ops.py:22",
@@ -2717,7 +3314,9 @@ def _run(workers, tmpdir: str) -> int:
         "max_abs_err": 0.0,
         "ms": cm_big["ms"], "plain_ms": cm_big["plain_ms"],
         "bound_ms": cm_big["bound_ms"], "bound_by": cm_big["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None,
+        "ensemble_launches_per_tick":
+            lanes_rec["k1"]["launches_per_tick"]["k1_column_map"]}, {
         "name": "k2_flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:84",

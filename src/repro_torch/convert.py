@@ -30,6 +30,17 @@ box_size, keys, order, rank, starts, counts, max_count, max_run_count},
 demand} or None, "pair_disp": array or None}``, so a state with a warm
 cache steps on in the port as it would have in the reference.
 
+An ensemble (:func:`ensemble_state_from_numpy`,
+:func:`ensemble_state_to_numpy`) crosses in the reference's stacked
+layout, whatever the port's lane-major pool holds in memory::
+
+    {"pool": {channel: (L, C, ...)},
+     "conc": (L, ...), "rng": (L, 2) uint32, "iteration": (L,) int32,
+     "stats": {field: (L,) int32, ...}, "active": (L,) bool,
+     "params": {"dt": () per lane or None, "force": {...},
+                "rates": {...}} or None,     # leaves (L, ...)
+     "tick": () int32}
+
 Dtypes are kept (uint32 keys become int64 holding the same values), so
 :func:`state_to_numpy` returns arrays equal, bit for bit, to the input.
 The channels a narrowed ``DtypePolicy`` stores in bfloat16, float16 or
@@ -46,7 +57,8 @@ import numpy as np
 import torch
 
 from .core.agents import pool_from_channels
-from .core.engine import EngineState
+from .core.engine import EngineState, ScenarioParams
+from .core.ensemble import EnsembleState
 from .core.grid import GridState, PairList, RebuildState
 from .core.stats import StepStats
 from .device import DeviceLike, resolve_device
@@ -141,6 +153,58 @@ def state_to_numpy(state: EngineState,
             "pair_disp": None if env.pair_disp is None
             else arr(env.pair_disp)}
     return out
+
+
+def ensemble_state_from_numpy(leaves: Dict[str, Any],
+                              device: DeviceLike = None) -> EnsembleState:
+    """Build an ``EnsembleState`` on ``device`` (None → the CUDA card) from
+    the reference's stacked leaves; the pool becomes lane-major."""
+    dev = resolve_device(device)
+    pool = pool_from_channels({
+        k: _to_torch(v, dev).reshape(-1, *np.shape(v)[2:])
+        for k, v in leaves["pool"].items()})
+    p = leaves.get("params")
+    params = None
+    if p is not None:
+        params = ScenarioParams(
+            dt=None if p.get("dt") is None else _to_torch(p["dt"], dev),
+            force={k: _to_torch(v, dev)
+                   for k, v in (p.get("force") or {}).items()},
+            rates={k: _to_torch(v, dev)
+                   for k, v in (p.get("rates") or {}).items()})
+    return EnsembleState(
+        pool=pool, conc=_to_torch(leaves["conc"], dev),
+        rng=_to_torch(leaves["rng"], dev),
+        iteration=_to_torch(leaves["iteration"], dev).to(torch.int32),
+        stats=StepStats(**{f: _to_torch(leaves["stats"][f], dev).to(
+            torch.int32) for f in StepStats.FIELDS}),
+        active=_to_torch(leaves["active"], dev).to(torch.bool),
+        params=params,
+        tick=_to_torch(leaves["tick"], dev).to(torch.int32))
+
+
+def ensemble_state_to_numpy(state: EnsembleState,
+                            bfloat16: Optional[np.dtype] = None
+                            ) -> Dict[str, Any]:
+    """Inverse of :func:`ensemble_state_from_numpy`: the stacked (L, C,
+    ...) leaves, keys back to uint32."""
+    def arr(t: torch.Tensor) -> np.ndarray:
+        return _to_numpy(t, bfloat16)
+    n = state.n_lanes
+    p = state.params
+    return {
+        "pool": {k: arr(v).reshape(n, -1, *v.shape[1:])
+                 for k, v in state.pool.channels().items()},
+        "conc": arr(state.conc),
+        "rng": arr(state.rng).astype(np.uint32),
+        "iteration": arr(state.iteration),
+        "stats": {f: arr(state.stats[f]) for f in StepStats.FIELDS},
+        "active": arr(state.active),
+        "params": None if p is None else {
+            "dt": None if p.dt is None else arr(p.dt),
+            "force": {k: arr(v) for k, v in p.force.items()},
+            "rates": {k: arr(v) for k, v in p.rates.items()}},
+        "tick": arr(state.tick)}
 
 
 def _leaf_from_numpy(a: Any, device: torch.device) -> torch.Tensor:

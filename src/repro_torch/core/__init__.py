@@ -7,10 +7,12 @@ from .behaviors import (Behavior, BehaviorEffects, Chemotaxis, GrowDivide,
 from .compaction import grow_channels, grow_pool, repack_slabs
 from .diffusion import DiffusionSpec
 from .engine import (CapacityExhausted, CapacityLadder, EngineConfig,
-                     EngineState, LadderConfig, Simulation, StepContext,
-                     build_env, check_kernel_footprints, make_iteration_core,
-                     make_neighbor_apply, next_rung, realized_footprint,
-                     registered_kernels, stage_pool)
+                     EngineState, LadderConfig, ScenarioParams, Simulation,
+                     StepContext, build_env, check_kernel_footprints,
+                     make_iteration_core, make_neighbor_apply, next_rung,
+                     realized_footprint, registered_kernels, stage_pool)
+from .ensemble import (EnsembleCapacityLadder, EnsembleEngine, EnsembleState,
+                       grow_stacked_pool, make_ensemble_core)
 from .forces import ForceParams
 from .grid import (BuildResult, GridSpec, GridState, PairKernel, PairList,
                    PairListConfig, RebuildPolicy, counting_sort_order,
@@ -37,4 +39,6 @@ __all__ = ["AgentPool", "DtypePolicy", "make_pool", "pool_from_channels",
            "HealthFault", "DegradationPolicy", "RunReport",
            "SimCheckpointer", "SupervisedRunner", "restore_dist_state",
            "restore_ensemble_state", "restore_state", "save_dist_state",
-           "save_ensemble_state", "save_state", "StepStats"]
+           "save_ensemble_state", "save_state", "StepStats",
+           "ScenarioParams", "EnsembleCapacityLadder", "EnsembleEngine",
+           "EnsembleState", "grow_stacked_pool", "make_ensemble_core"]

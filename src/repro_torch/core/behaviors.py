@@ -39,6 +39,14 @@ def resolve(value, ctx):
     return value(ctx) if callable(value) else value
 
 
+def _col(knob):
+    """A knob that scales (C, 3) rows: an ensemble's per-row knob (C,) as
+    a column; a number or a 0-dim tensor as it is."""
+    if isinstance(knob, torch.Tensor) and knob.dim() == 1:
+        return knob[:, None]
+    return knob
+
+
 def _typed(ctx, pool: AgentPool, applies_to: Optional[int]) -> torch.Tensor:
     """``ctx.owned``, narrowed to one agent type when one is given."""
     if applies_to is None:
@@ -132,9 +140,10 @@ class RandomWalk(Behavior):
     def __call__(self, ctx, pool: AgentPool, rng: torch.Tensor
                  ) -> BehaviorEffects:
         mask = _typed(ctx, pool, self.applies_to)
-        step = resolve(self.sigma, ctx) * rand.normal_rows(rng, pool.capacity,
-                                                            3)
-        new_pos = torch.where(mask[:, None], pool.position + step * ctx.dt,
+        step = _col(resolve(self.sigma, ctx)) * rand.normal_rows(
+            rng, pool.capacity, 3)
+        new_pos = torch.where(mask[:, None],
+                              pool.position + step * _col(ctx.dt),
                               pool.position)
         new_pos = torch.clamp(new_pos, min=ctx.domain_lo, max=ctx.domain_hi)
         return BehaviorEffects(set_channels={"position": new_pos})
@@ -194,8 +203,11 @@ class Infection(Behavior):
         newly = ctx.owned & (pool.agent_type == SUSCEPTIBLE) & exposed \
             & (u < resolve(self.beta, ctx))
         timer = pool.extra["infect_timer"]
-        recovery = torch.as_tensor(resolve(self.recovery_time, ctx),
-                                   dtype=timer.dtype, device=timer.device)
+        recovery = resolve(self.recovery_time, ctx)
+        if isinstance(recovery, torch.Tensor):
+            recovery = recovery.to(timer.dtype)
+        # a Python number goes in as a scalar: a tensor made from it on the
+        # host would cost a copy to the card that waits for the device
         timer = torch.where(newly, recovery, timer)
         is_inf = pool.agent_type == INFECTED
         timer = torch.where(is_inf, timer - 1, timer)
@@ -218,7 +230,7 @@ class Chemotaxis(Behavior):
                  ) -> BehaviorEffects:
         g = ctx.substance_gradient(pool.position)
         norm = torch.sqrt((g * g).sum(-1, keepdim=True) + 1e-12)
-        step = resolve(self.speed, ctx) * ctx.dt * g / norm
+        step = _col(resolve(self.speed, ctx)) * _col(ctx.dt) * g / norm
         new_pos = torch.where(ctx.owned[:, None], pool.position + step,
                               pool.position)
         new_pos = torch.clamp(new_pos, min=ctx.domain_lo, max=ctx.domain_hi)
@@ -288,7 +300,7 @@ class NeuriteGrowth(Behavior):
         d = _unit(pool.extra["direction"]
                   + self.noise * rand.normal_rows(k1, c, 3))
         step = self.speed * ctx.dt
-        new_pos = torch.where(cones[:, None], pool.position + d * step,
+        new_pos = torch.where(cones[:, None], pool.position + d * _col(step),
                               pool.position)
         new_pos = torch.clamp(new_pos, min=ctx.domain_lo, max=ctx.domain_hi)
         path0 = pool.extra["path_len"]

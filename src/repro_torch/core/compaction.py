@@ -5,20 +5,36 @@ skipping)."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from .agents import AgentPool
+from .lanes import Lanes
 
 
-def compaction_permutation(alive: torch.Tensor
+def compaction_permutation(alive: torch.Tensor,
+                           lanes: Optional[Lanes] = None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Permutation placing live slots first (stable), dead after (stable).
+    """Permutation placing live slots first (stable), dead after (stable);
+    with ``lanes``, within each lane's segment.
 
-    Returns ``(perm, n_live)`` with ``new[i] = old[perm[i]]``."""
+    Returns ``(perm, n_live)`` with ``new[i] = old[perm[i]]`` (``n_live``
+    (L,) per lane)."""
     c = alive.shape[0]
+    if lanes is not None and not lanes.solo:
+        a = lanes.view(alive).to(torch.int32)
+        n_live = a.sum(1, dtype=torch.int32)
+        dst_live = torch.cumsum(a, 1, dtype=torch.int32) - 1
+        dst_dead = n_live[:, None] + torch.cumsum(1 - a, 1,
+                                                  dtype=torch.int32) - 1
+        dst = torch.where(lanes.view(alive), dst_live, dst_dead).to(
+            torch.int64) + lanes.offsets(alive.device)[:, None]
+        perm = torch.empty(c, dtype=torch.int32, device=alive.device)
+        perm[dst.reshape(-1)] = torch.arange(c, dtype=torch.int32,
+                                             device=alive.device)
+        return perm, n_live
     alive_i = alive.to(torch.int32)
     n_live = alive_i.sum(dtype=torch.int32)
     dst_live = torch.cumsum(alive_i, 0, dtype=torch.int32) - 1
@@ -36,31 +52,59 @@ def apply_permutation(pool: AgentPool, perm: torch.Tensor) -> AgentPool:
                                for k, v in pool.channels().items()})
 
 
-def compact(pool: AgentPool) -> AgentPool:
-    """Remove dead agents: live agents move (stably) to slots [0, n_live)."""
-    perm, _ = compaction_permutation(pool.alive)
+def compact(pool: AgentPool, lanes: Optional[Lanes] = None) -> AgentPool:
+    """Remove dead agents: live agents move (stably) to slots [0, n_live)
+    (of each lane's segment, with ``lanes``)."""
+    perm, _ = compaction_permutation(pool.alive, lanes)
     return apply_permutation(pool, perm)
 
 
+def _lane_queue(queue_valid: torch.Tensor, lanes: Lanes) -> torch.Tensor:
+    """A birth queue's valid flags (k·L·C,) — ``k`` blocks of L·C rows, as
+    a behavior stages them over the lane-major pool — as (L, k·C): each
+    lane's entries in its solo queue order."""
+    k = queue_valid.shape[0] // (lanes.n * lanes.capacity)
+    return queue_valid.reshape(k, lanes.n, lanes.capacity).transpose(
+        0, 1).reshape(lanes.n, k * lanes.capacity)
+
+
 def commit_births(pool: AgentPool, queue: Dict[str, torch.Tensor],
-                  queue_valid: torch.Tensor, iteration: torch.Tensor
-                  ) -> AgentPool:
+                  queue_valid: torch.Tensor, iteration: torch.Tensor,
+                  lanes: Optional[Lanes] = None) -> AgentPool:
     """Append staged newborns at the tail of the live region.
 
     Destinations are ``n_live + cumsum(valid) - 1``; a write whose
     destination is not below capacity is parked at index ``c`` and dropped
     (the engine counts it as ``birth_overflow``). Queue channels win over
     the defaults (alive, moved, grew set; static clear; born_iter =
-    ``iteration``; force_nnz 0; everything else zero).
+    ``iteration``; force_nnz 0; everything else zero). With ``lanes`` each
+    lane's newborns fill its own free slots in its solo queue order, and
+    ``iteration`` is (L,).
     """
     c = pool.capacity
     dev = pool.device
-    qv = queue_valid.to(torch.int32)
-    dst = pool.n_live + torch.cumsum(qv, 0, dtype=torch.int32) - 1
-    ok = queue_valid & (dst < c)
-    # parked writes land in an extra row c that is cut off afterwards
-    dst = torch.where(ok, dst, torch.full_like(dst, c)).to(torch.int64)
     shape = queue_valid.shape
+    if lanes is not None and not lanes.solo:
+        n, per = lanes.n, lanes.capacity
+        k = shape[0] // (n * per)
+        qv = _lane_queue(queue_valid, lanes)
+        n_live = lanes.sum(pool.alive)
+        dst = n_live[:, None] + torch.cumsum(qv.to(torch.int32), 1,
+                                             dtype=torch.int32) - 1
+        ok = qv & (dst < per)
+        dst = torch.where(ok, dst.to(torch.int64)
+                          + lanes.offsets(dev)[:, None],
+                          torch.full((), c, dtype=torch.int64, device=dev))
+        dst = dst.reshape(n, k, per).transpose(0, 1).reshape(-1)
+        born = iteration.to(torch.int32)[None, :, None].expand(
+            k, n, per).reshape(shape)
+    else:
+        qv = queue_valid.to(torch.int32)
+        dst = pool.n_live + torch.cumsum(qv, 0, dtype=torch.int32) - 1
+        ok = queue_valid & (dst < c)
+        # parked writes land in an extra row c that is cut off afterwards
+        dst = torch.where(ok, dst, torch.full_like(dst, c)).to(torch.int64)
+        born = iteration.to(torch.int32).expand(shape)
 
     out = {}
     for k, v in pool.channels().items():
@@ -69,7 +113,7 @@ def commit_births(pool: AgentPool, queue: Dict[str, torch.Tensor],
         elif k in ("alive", "moved", "grew"):
             src = torch.ones(shape, dtype=torch.bool, device=dev)
         elif k == "born_iter":
-            src = iteration.to(torch.int32).expand(shape)
+            src = born
         else:                                   # static, force_nnz, extras
             src = torch.zeros(shape + v.shape[1:], dtype=v.dtype, device=dev)
         grown = torch.cat([v, v[:1]], 0)        # row c: the parking slot
@@ -78,9 +122,14 @@ def commit_births(pool: AgentPool, queue: Dict[str, torch.Tensor],
     return pool.with_channels(out)
 
 
-def birth_overflow(pool: AgentPool, queue_valid: torch.Tensor
-                   ) -> torch.Tensor:
-    """Number of staged newborns that will not fit in capacity (int32)."""
+def birth_overflow(pool: AgentPool, queue_valid: torch.Tensor,
+                   lanes: Optional[Lanes] = None) -> torch.Tensor:
+    """Number of staged newborns that will not fit in capacity (int32; (L,)
+    per lane with ``lanes``)."""
+    if lanes is not None and not lanes.solo:
+        n_new = _lane_queue(queue_valid, lanes).sum(1, dtype=torch.int32)
+        free = lanes.capacity - lanes.sum(pool.alive)
+        return torch.clamp(n_new - free, min=0)
     n_new = queue_valid.sum(dtype=torch.int32)
     free = pool.capacity - pool.n_live
     return torch.clamp(n_new - free, min=0)

@@ -36,6 +36,7 @@ import dataclasses
 import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -44,6 +45,7 @@ from . import grid as grid_mod, morton, rand, statics as statics_mod
 from . import health as health_mod
 from .agents import AgentPool, DtypePolicy, make_pool, weak
 from .behaviors import Behavior
+from .lanes import Lanes
 from .stats import StepStats
 from ..device import DeviceLike, resolve_device
 
@@ -161,11 +163,76 @@ class EngineState:
     # the cached build carried across steps (every_k); None under every_step
 
 
+def _as_knob(v, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A knob as ``jnp.asarray`` makes it without x64 (a Python int as
+    int32, a float as float32, a bool as bool), on the CPU
+    (:meth:`ScenarioParams.to` moves it)."""
+    t = v.detach() if isinstance(v, torch.Tensor) else torch.as_tensor(
+        np.asarray(v))
+    if dtype is None:
+        dtype = {torch.int64: torch.int32,
+                 torch.float64: torch.float32}.get(t.dtype, t.dtype)
+    return t.to(dtype)
+
+
+@dataclasses.dataclass
+class ScenarioParams:
+    """Per-run scenario knobs passed INTO the iteration core as tensors.
+
+    ``EngineConfig`` is static: its floats are constants of the step. These
+    knobs may differ per run, so one step serves any parameter point, which
+    is what lets the ensemble engine (ensemble.py) step differently
+    parameterised lanes together and the simulation service admit a new
+    parameter point into a free lane.
+
+    dt:    () float32 — replaces ``cfg.dt`` (None: the static value).
+    force: ForceParams field overrides (e.g. ``{"k_rep": x}``) as float32
+           tensors; empty: the static ``cfg.force``. Refused under
+           ``force_impl="k1"``, whose kernel takes its constants at launch,
+           as the reference refuses them under its Pallas kernel.
+    rates: free-form behavior knobs, exposed to behaviors as ``ctx.params``
+           — a behavior opts in through a callable parameter
+           (``Infection(beta=lambda ctx: ctx.params["beta"])``).
+
+    In an ensemble every leaf has a leading lane axis (L,); the step hands
+    each row its lane's value, so a behavior sees (L·C,) knobs where a
+    solo step sees 0-dim ones.
+    """
+    dt: Optional[torch.Tensor] = None
+    force: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    rates: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+
+    @classmethod
+    def of(cls, dt: Optional[float] = None,
+           force: Optional[Dict[str, float]] = None,
+           **rates) -> "ScenarioParams":
+        """Scalar-tensor ScenarioParams from plain Python numbers, with the
+        reference's dtypes (``jnp.asarray``: int32, float32, bool)."""
+        return cls(
+            dt=None if dt is None else _as_knob(dt, torch.float32),
+            force={k: _as_knob(v, torch.float32)
+                   for k, v in (force or {}).items()},
+            rates={k: _as_knob(v) for k, v in rates.items()})
+
+    def map(self, fn: Callable[[torch.Tensor], torch.Tensor]
+            ) -> "ScenarioParams":
+        """``fn`` applied to every leaf."""
+        return ScenarioParams(
+            dt=None if self.dt is None else fn(self.dt),
+            force={k: fn(v) for k, v in self.force.items()},
+            rates={k: fn(v) for k, v in self.rates.items()})
+
+    def to(self, device) -> "ScenarioParams":
+        return self.map(lambda t: t.to(device))
+
+
 @dataclasses.dataclass
 class StepContext:
-    """What behaviors may read during one iteration."""
+    """What behaviors may read during one iteration. ``dt`` is the
+    config's float, a 0-dim tensor from ``ScenarioParams.dt``, or (L·C,)
+    per row in an ensemble; ``params`` holds the rates likewise."""
     config: EngineConfig
-    dt: float
+    dt: Any
     domain_lo: torch.Tensor
     domain_hi: torch.Tensor
     iteration: torch.Tensor
@@ -179,13 +246,15 @@ class StepContext:
 
 
 def build_env(cfg: EngineConfig, spec: grid_mod.GridSpec, pool: AgentPool,
-              origin: torch.Tensor, box_size: float) -> grid_mod.BuildResult:
+              origin: torch.Tensor, box_size: float,
+              lanes: Optional[Lanes] = None) -> grid_mod.BuildResult:
     """The iteration's environment build. The resident environments
     (``uniform_grid``, and ``brute_force``, which keeps the tables for the
     static detection) return the pool permuted into grid order; scatter
-    and hash leave it as it is."""
+    and hash leave it as it is. ``lanes``: an ensemble's lane-major pool,
+    each lane built on its own."""
     builder = grid_mod.make_builder(spec, method=_ENV_METHOD[cfg.environment],
-                                    sort_impl=cfg.sort_impl)
+                                    sort_impl=cfg.sort_impl, lanes=lanes)
     return builder(pool, origin, box_size)
 
 
@@ -312,13 +381,48 @@ def check_kernel_footprints(cfg: EngineConfig, behaviors: Sequence[Behavior],
     return realized_footprint(cfg, behaviors)
 
 
+def _lane_limits(cfg: EngineConfig) -> None:
+    """What an ensemble's step does not run yet (ROADMAP.md item 13b)."""
+    missing = [what for what, on in (
+        (f"environment={cfg.environment!r}",
+         cfg.environment != "uniform_grid"),
+        ("rebuild.mode='every_k'", cfg.rebuild.mode == "every_k"),
+        ("pairlist", cfg.pairlist is not None),
+        ("diffusion", cfg.diffusion is not None),
+        ("detect_static", cfg.detect_static)) if on]
+    if missing:
+        raise NotImplementedError(
+            f"the ensemble does not run {', '.join(missing)} yet "
+            f"(ROADMAP.md Queue 1 item 13b)")
+
+
 def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
-                        device: torch.device):
+                        device: torch.device, n_lanes: int = 1):
     """The Algorithm-1 iteration body.
 
-    Returns ``core(pool, conc, rng, it, env=None) -> (pool, conc, rng,
-    StepStats, env)`` over tensors on ``device``.
+    Returns ``core(pool, conc, rng, it, env=None, params=None) -> (pool,
+    conc, rng, StepStats, env)`` over tensors on ``device``.
+
+    ``params`` (a :class:`ScenarioParams`) replaces the static dt, force
+    constants and behavior rates; ``params=None`` runs the static config,
+    bit-identical to a core without the argument.
+
+    ``n_lanes`` > 1 makes it an ensemble's step: ``pool`` holds L lanes of
+    ``cfg.capacity`` slots (:mod:`lanes`), ``rng`` (L, 2), ``it`` (L,), the
+    params' leaves (L,), and every stat comes back (L,). Each lane takes
+    exactly the values its solo step would, RNG keys included: the build
+    sorts and indexes each lane on its own, the sweep's runs stay in the
+    query's lane, K1's column map packs every lane at whole row blocks,
+    and every reduction is per lane. The operations do not grow with L
+    beyond the streamed sweep's extra query chunks. With one lane this is
+    the solo step itself.
     """
+    if n_lanes < 1:
+        raise ValueError(f"n_lanes must be >= 1, got {n_lanes}")
+    if n_lanes > 1:
+        _lane_limits(cfg)
+    ln = Lanes(n_lanes, cfg.capacity)
+    lane_shape = () if ln.solo else (n_lanes,)
     if cfg.environment not in _ENV_METHOD:
         raise ValueError(f"unknown environment {cfg.environment!r}")
     if cfg.force_impl == "k1" and cfg.environment != "uniform_grid":
@@ -348,7 +452,7 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
                 if cfg.diffusion is not None else None)
 
     def zeros_i32():
-        return torch.zeros((), dtype=torch.int32, device=device)
+        return torch.zeros(lane_shape, dtype=torch.int32, device=device)
 
     use_cache = cfg.rebuild.mode == "every_k"
     # the reference's every_k queries read the box size that lax.cond
@@ -396,14 +500,37 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
         return bool(flag)
 
     def core(pool: AgentPool, conc: torch.Tensor, rng: torch.Tensor,
-             it: torch.Tensor, env: Optional[grid_mod.RebuildState] = None):
+             it: torch.Tensor, env: Optional[grid_mod.RebuildState] = None,
+             params: Optional[ScenarioParams] = None):
         # under every_k the step's one host read, first, from the carried
         # cache: every value it needs was computed by the previous step
         rebuild = not use_cache or do_build(env)
         keys = rand.split(rng, 2 + len(behaviors))
         rng, bkeys = keys[0], keys[2:]           # keys[1]: the force key
-        stats = StepStats.zeros(device)
-        dt = cfg.dt
+        stats = StepStats.zeros(device, lane_shape)
+
+        # the scenario knobs: with params=None the static config's values
+        dt, fp_step, rates = cfg.dt, fp, {}
+        force_fn = None
+        if params is not None:
+            params = params.to(device)
+            if not ln.solo:                     # each row its lane's knob
+                params = params.map(ln.rows)
+            if params.dt is not None:
+                dt = params.dt
+            if params.force:
+                if use_k1:
+                    raise ValueError(
+                        "ScenarioParams.force overrides require "
+                        "force_impl='xla' (the Pallas kernel bakes its force "
+                        "constants)")
+                if not ln.solo:
+                    raise NotImplementedError(
+                        "per-lane force overrides are not ported yet "
+                        "(ROADMAP.md Queue 1 item 13b)")
+                fp_step = dataclasses.replace(fp, **params.force)
+                force_fn = force_mod.make_force_pair_fn(fp_step, adhesion)
+            rates = params.rates
 
         # ---------------- pre standalone ops ----------------
         # the resident environments reorder the pool at every build; the
@@ -413,7 +540,7 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
                 pool = sort_pool(pool, it)
         if rebuild:
             with record_function("step/grid_build"):
-                res = build_env(cfg, spec, pool, origin, box_size)
+                res = build_env(cfg, spec, pool, origin, box_size, ln)
             pool, grid_env = res.pool, res.grid
             pairs = build_pairs(pool, grid_env)
             if use_cache:
@@ -481,8 +608,10 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
                       else owned_alive)
         nbr_results: Dict[str, Dict[str, torch.Tensor]] = {}
         # the force kernel's mask is this step's active rows
-        registry_now = [dataclasses.replace(k, query_mask=active)
-                        if k.name == "force" else k for k in registry]
+        registry_now = [
+            dataclasses.replace(k, query_mask=active, **(
+                {"pair_fn": force_fn} if force_fn is not None else {}))
+            if k.name == "force" else k for k in registry]
         # the fused sweep runs on the uniform grid; the other environments
         # run each kernel's own sweep through ctx.neighbor_apply
         kernels = registry_now if fused else []
@@ -498,7 +627,7 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
                         default_mask=owned_alive, origin=origin,
                         box_size=box_size, k_rep=fp.k_rep, adhesion=adhesion,
                         adhesion_band=fp.adhesion_band, chunk=cfg.query_chunk,
-                        pairs=pairs)
+                        pairs=pairs, lanes=ln)
                     # a column-map overflow means possibly-missed pairs: the
                     # same never-silent flag as a run overflow
                     box_overflow = torch.maximum(box_overflow, ovf)
@@ -520,7 +649,8 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
                         pool.position, pool.diameter, pool.agent_type,
                         pool.alive, active, grid_env.starts, grid_env.counts,
                         origin, box_size, dims=spec.dims, k_rep=fp.k_rep,
-                        adhesion=adhesion, adhesion_band=fp.adhesion_band)
+                        adhesion=adhesion, adhesion_band=fp.adhesion_band,
+                        lanes=ln)
                     box_overflow = torch.maximum(box_overflow,
                                                  ovf.to(torch.int32))
                     fres = {"force": f, "force_nnz": nnz}
@@ -530,7 +660,7 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
                                      query_mask=active)
             force_arr = fres["force"]
             with record_function("step/integrate"):
-                dx = force_mod.displacement(force_arr, fp, dt)
+                dx = force_mod.displacement(force_arr, fp_step, dt)
                 new_pos = torch.clamp(pool.position + dx, min=dlo, max=dhi)
                 new_pos = torch.where(active[:, None], new_pos,
                                       pool.position)
@@ -548,7 +678,7 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
         ctx = StepContext(
             config=cfg, dt=dt, domain_lo=dlo, domain_hi=dhi, iteration=it,
             owned=owned_alive, neighbor_apply=nbr_apply,
-            neighbor_results=nbr_results,
+            neighbor_results=nbr_results, params=rates,
             substance_gradient=(
                 (lambda p: diff_ops.gradient(conc, p)) if diff_ops
                 else torch.zeros_like),
@@ -577,7 +707,7 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
 
         # bookkeeping for the next static detection
         move_d = pool.position - pos0
-        moved = (move_d * move_d).sum(-1) > fp.move_eps ** 2
+        moved = (move_d * move_d).sum(-1) > fp_step.move_eps ** 2
         grew = pool.diameter > dia0 + weak(1e-12, dia0)
         pool = dataclasses.replace(pool, moved=moved & pool.alive,
                                    grew=grew & pool.alive)
@@ -599,18 +729,17 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
         if cfg.health is not None and cfg.health.any_enabled:
             health = health_mod.step_health(
                 cfg.health, pool.alive, pool.position, dlo, dhi,
-                force=force_arr, move_d=move_d)
+                force=force_arr, move_d=move_d, lanes=ln)
 
         # ---------------- post standalone ops: commit ----------------
         deaths = zeros_i32()
         if death_mask is not None:
             death_mask = death_mask & pool.alive
-            deaths = death_mask.sum(dtype=torch.int32)
+            deaths = ln.sum(death_mask)
             pool = dataclasses.replace(pool, alive=pool.alive & ~death_mask)
         # force-computed agents still alive at iteration end
-        n_active = ((active & pool.alive).sum(dtype=torch.int32)
-                    if active is not None
-                    else pool.alive.sum(dtype=torch.int32))
+        n_active = ln.sum(active & pool.alive if active is not None
+                          else pool.alive)
         if death_mask is not None:
             # the build left the live agents in front, so with no deaths
             # this permutation is the identity: compacting unconditionally
@@ -618,16 +747,16 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
             # host read of `deaths`. A step that skipped its build keeps
             # that layout: the step before it had no death or birth, or its
             # cache would be dirty and this step would have rebuilt
-            pool = compaction.compact(pool)
+            pool = compaction.compact(pool, ln)
 
         births = zeros_i32()
         birth_overflow = zeros_i32()
         for q, valid in birth_queues:
             with record_function("step/commit_births"):
                 birth_overflow = birth_overflow + compaction.birth_overflow(
-                    pool, valid)
-                births = births + valid.sum(dtype=torch.int32)
-                pool = compaction.commit_births(pool, q, valid, it)
+                    pool, valid, ln)
+                births = births + ln.sum_queue(valid)
+                pool = compaction.commit_births(pool, q, valid, it, ln)
 
         if use_cache:
             # a death ran the compaction permutation and a birth filled a
@@ -640,9 +769,9 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
                 **({"pairs": pairs, "pair_disp": env.pair_disp + step_disp_eu}
                    if pl is not None else {}))
 
-        n_live_end = pool.alive.sum(dtype=torch.int32)
+        n_live_end = ln.sum(pool.alive)
         rebuilt = (torch.ones if rebuild else torch.zeros)(
-            (), dtype=torch.int32, device=device)
+            lane_shape, dtype=torch.int32, device=device)
         stats = dataclasses.replace(
             stats, n_live=n_live_end, n_active=n_active, births=births,
             deaths=deaths, box_overflow=box_overflow,

@@ -88,8 +88,12 @@ def make_force_pair_fn(params: ForceParams,
 
 def displacement(force: torch.Tensor, params: ForceParams, dt: float
                  ) -> torch.Tensor:
-    """Overdamped integration with the per-step displacement cap."""
-    dx = force * (dt / params.zeta)
+    """Overdamped integration with the per-step displacement cap. ``dt``
+    may be a tensor: 0-dim, or (C,) per row in an ensemble."""
+    scale = dt / params.zeta
+    if isinstance(scale, torch.Tensor) and scale.dim() == 1:
+        scale = scale[:, None]
+    dx = force * scale
     norm = torch.sqrt(torch.clamp((dx * dx).sum(-1, keepdim=True),
                                   min=1e-30))
     scale = torch.clamp(params.max_displacement / norm, max=1.0)

@@ -36,6 +36,7 @@ from torch.profiler import record_function
 
 from . import compaction, morton
 from .agents import AgentPool
+from .lanes import Lanes
 from ..kernels import pairlist as pairlist_kernel
 
 # sort realizations of the reference; each yields the unique stable
@@ -134,7 +135,14 @@ class GridState:
     """Per-iteration neighbor index: over the resident pool (keys sorted,
     order and rank the identity) or, from the sorted build, over the pool
     as laid out (keys in slot order, order the key sort, rank its
-    inverse)."""
+    inverse).
+
+    An ensemble's resident build (:func:`make_builder` with ``lanes``)
+    indexes L lanes of C slots at once: ``keys``/``order``/``rank`` cover
+    the L·C slots, ``starts``/``counts`` are L tables of M boxes, lane
+    ``l``'s at ``[l·M, (l+1)·M)`` with slot ids of the whole pool, and
+    ``max_count``/``max_run_count`` are (L,). The lane count is
+    ``starts.shape[0] // M``."""
     origin: torch.Tensor          # (3,) f32
     box_size: morton.BoxSize      # box edge (see morton.cell_of)
     keys: torch.Tensor            # (C,) int64 holding uint32
@@ -331,21 +339,58 @@ def _index_tables(spec: GridSpec, sorted_keys: torch.Tensor):
     return starts, counts, counts.max(), runs.max()
 
 
+def _lane_index_tables(spec: GridSpec, sorted_keys: torch.Tensor,
+                       lanes: Lanes):
+    """:func:`_index_tables` of each lane's sorted keys (L, C) at once:
+    starts (L·M,) as slot ids of the lane-major pool, counts (L·M,), and
+    each lane's fullest box and 3-box z-run (L,)."""
+    m = spec.table_size
+    box_ids = torch.arange(m + 1, dtype=sorted_keys.dtype,
+                           device=sorted_keys.device)
+    bounds = torch.searchsorted(sorted_keys, box_ids.expand(lanes.n, m + 1)
+                                .contiguous(), side="left")
+    counts = (bounds[:, 1:] - bounds[:, :-1]).to(
+        table_count_dtype(lanes.capacity))
+    starts = (bounds[:, :-1] + lanes.offsets(sorted_keys.device)[:, None]
+              ).to(torch.int32)
+    cp = F.pad(counts.reshape(lanes.n, *spec.dims), (1, 1))
+    runs = cp[..., :-2] + cp[..., 1:-1] + cp[..., 2:]
+    return (starts.reshape(-1), counts.reshape(-1), counts.amax(1),
+            runs.reshape(lanes.n, -1).amax(1))
+
+
 def _build_resident_impl(spec: GridSpec, pool: AgentPool,
                          origin: torch.Tensor, box_size: float,
-                         sort_impl: str = "auto"
+                         sort_impl: str = "auto",
+                         lanes: Optional[Lanes] = None
                          ) -> Tuple[AgentPool, GridState, torch.Tensor]:
     """Permute the pool into grid-key order and index it in place.
 
     Returns ``(pool, grid, order)``: the reordered pool, its tables (order
-    and rank the identity), and the applied gather permutation.
+    and rank the identity), and the applied gather permutation. With
+    ``lanes`` each lane's segment is sorted on its own (one batched stable
+    sort: dead slots sink to the end of their own lane) and indexed by its
+    own table.
     """
     keys = morton.grid_sort_keys(pool.position, pool.alive, origin, box_size,
                                  spec.dims)
-    order = counting_sort_order(keys, spec.table_size, impl=sort_impl)
-    pool = compaction.apply_permutation(pool, order)
-    sorted_keys = keys.index_select(0, order.to(torch.int64))
-    starts, counts, max_count, max_run = _index_tables(spec, sorted_keys)
+    if lanes is not None and not lanes.solo:
+        if sort_impl not in SORT_IMPLS:
+            raise ValueError(f"sort_impl must be one of {SORT_IMPLS}, "
+                             f"got {sort_impl!r}")
+        lane_sorted, local = torch.sort(lanes.view(keys), dim=1, stable=True)
+        order = (local + lanes.offsets(keys.device)[:, None]).reshape(
+            -1).to(torch.int32)
+        pool = compaction.apply_permutation(pool, order)
+        starts, counts, max_count, max_run = _lane_index_tables(
+            spec, lane_sorted, lanes)
+        sorted_keys = lane_sorted.reshape(-1)
+    else:
+        order = counting_sort_order(keys, spec.table_size, impl=sort_impl)
+        pool = compaction.apply_permutation(pool, order)
+        sorted_keys = keys.index_select(0, order.to(torch.int64))
+        starts, counts, max_count, max_run = _index_tables(spec,
+                                                           sorted_keys)
     ident = torch.arange(order.shape[0], dtype=torch.int32,
                          device=order.device)
     grid = GridState(origin=origin, box_size=box_size, keys=sorted_keys,
@@ -375,7 +420,8 @@ def _build_sorted_impl(spec: GridSpec, pool: AgentPool,
 
 
 def make_builder(spec: GridSpec, *, method: str = "resident",
-                 sort_impl: str = "auto", n_buckets: int = 1 << 14
+                 sort_impl: str = "auto", n_buckets: int = 1 << 14,
+                 lanes: Optional[Lanes] = None
                  ) -> Callable[[AgentPool, torch.Tensor, morton.BoxSize],
                                BuildResult]:
     """``build_fn(pool, origin, box_size) -> BuildResult`` for ``method``:
@@ -389,11 +435,17 @@ def make_builder(spec: GridSpec, *, method: str = "resident",
 
     ``overflow`` and ``demand`` as the reference reports them for each
     method. ``box_size`` follows ``morton.cell_of``: a float multiplies by
-    its float32 reciprocal, a tensor divides.
+    its float32 reciprocal, a tensor divides. ``lanes`` (the resident
+    method only) builds an ensemble's L lanes at once; ``overflow`` and
+    ``demand`` are then (L,).
     """
     if method not in BUILD_METHODS:
         raise ValueError(
             f"method must be one of {BUILD_METHODS}, got {method!r}")
+    if lanes is not None and not lanes.solo and method != "resident":
+        raise NotImplementedError(
+            f"an ensemble builds the resident grid only, not {method!r} "
+            f"(ROADMAP.md Queue 1 item 13b)")
     if sort_impl not in SORT_IMPLS:
         raise ValueError(
             f"sort_impl must be one of {SORT_IMPLS}, got {sort_impl!r}")
@@ -411,7 +463,8 @@ def make_builder(spec: GridSpec, *, method: str = "resident",
                  box_size: morton.BoxSize) -> BuildResult:
         if method == "resident":
             pool, grid, order = _build_resident_impl(spec, pool, origin,
-                                                     box_size, sort_impl)
+                                                     box_size, sort_impl,
+                                                     lanes)
             return result(pool, grid, order, grid.max_run_count,
                           spec.run_capacity)
         if method == "sorted":
@@ -489,7 +542,8 @@ def _run_offsets(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.div(j, 3, rounding_mode="floor") - 1, j % 3 - 1
 
 
-def run_bounds(spec: GridSpec, grid: GridState, query_pos: torch.Tensor
+def run_bounds(spec: GridSpec, grid: GridState, query_pos: torch.Tensor,
+               rows: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-query ``(start, length)`` of the 9 contiguous stencil z-runs.
 
@@ -497,6 +551,11 @@ def run_bounds(spec: GridSpec, grid: GridState, query_pos: torch.Tensor
     (dx, dy) stencil column the resident range ``[s, s + n)`` covering its
     z-run of ≤ 3 boxes, zero-length where the column falls outside the grid.
     Candidates are box-level; callers apply the radius test.
+
+    Over an ensemble's tables ``rows`` (Q,) gives each query's slot: the
+    stencil boxes are found in the lane's own coordinates, with the solo
+    bounds, and only then moved to the lane's table, so no run leaves the
+    query's lane and each sees its candidates in the solo order.
     """
     dims = spec.dims
     cell = morton.cell_of(query_pos, grid.origin, grid.box_size, dims)
@@ -510,6 +569,14 @@ def run_bounds(spec: GridSpec, grid: GridState, query_pos: torch.Tensor
     z_hi = (cell[:, 2] + 1).clamp(max=dims[2] - 1)[:, None].expand_as(nx)
     k_lo = morton.linear_encode3(nx, ny, z_lo, dims)
     k_hi = morton.linear_encode3(nx, ny, z_hi, dims)
+    n_lanes = grid.starts.shape[0] // spec.table_size
+    if n_lanes > 1:
+        if rows is None:
+            raise ValueError("an ensemble's run bounds need the query rows")
+        per = grid.keys.shape[0] // n_lanes
+        off = torch.div(rows.to(torch.int64), per,
+                        rounding_mode="floor")[:, None] * spec.table_size
+        k_lo, k_hi = k_lo + off, k_hi + off
     s = grid.starts[k_lo]
     e = grid.starts[k_hi] + grid.counts[k_hi].to(torch.int32)
     n = torch.where(inside, e - s, torch.zeros_like(s))
@@ -584,7 +651,7 @@ def _stream_candidates(spec: GridSpec, grid: GridState,
         nb = r1 - r0
         rows = torch.arange(r0, r1, dtype=torch.int32,
                             device=position.device)
-        s, n = run_bounds(spec, grid, position[r0:r1])
+        s, n = run_bounds(spec, grid, position[r0:r1], rows)
         n = n.clamp(max=r_cap)
         pos = s[:, :, None] + lane                          # (nb, 9, R)
         valid = lane < n[:, :, None]

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .agents import pool_from_channels
+from .lanes import Lanes
 
 NONFINITE = 1
 ESCAPE = 2
@@ -47,23 +48,25 @@ def step_health(hcfg: HealthConfig, mask: torch.Tensor,
                 position: torch.Tensor, domain_lo: torch.Tensor,
                 domain_hi: torch.Tensor,
                 force: Optional[torch.Tensor] = None,
-                move_d: Optional[torch.Tensor] = None) -> torch.Tensor:
+                move_d: Optional[torch.Tensor] = None,
+                lanes: Optional[Lanes] = None) -> torch.Tensor:
     """() int32 bitmask over the enabled predicates, rows restricted to
-    ``mask``."""
+    ``mask``; (L,), one mask per lane, with ``lanes``."""
+    lanes = lanes or Lanes()
     bits = torch.zeros((), dtype=torch.int32, device=position.device)
     if hcfg.check_finite:
         bad = ~torch.isfinite(position).all(-1)
         if force is not None:
             bad |= ~torch.isfinite(force).all(-1)
-        bits = bits | (bad & mask).any().to(torch.int32) * NONFINITE
+        bits = bits | lanes.any(bad & mask).to(torch.int32) * NONFINITE
     if hcfg.check_domain:
         tol = hcfg.domain_tol
         out = ((position < domain_lo - tol)
                | (position > domain_hi + tol)).any(-1)
-        bits = bits | (out & mask).any().to(torch.int32) * ESCAPE
+        bits = bits | lanes.any(out & mask).to(torch.int32) * ESCAPE
     if hcfg.max_step_displacement is not None and move_d is not None:
         over = move_d.abs().amax(-1) > hcfg.max_step_displacement
-        bits = bits | (over & mask).any().to(torch.int32) * DISPLACEMENT
+        bits = bits | lanes.any(over & mask).to(torch.int32) * DISPLACEMENT
     return bits
 
 

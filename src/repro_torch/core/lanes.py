@@ -1,0 +1,64 @@
+"""The lane layout of an ensemble: L independent simulations of C slots
+each, stored as one lane-major pool of L·C slots, lane ``l`` in slots
+``[l·C, (l+1)·C)`` laid out as its solo pool would be.
+
+The engine's step runs over the whole pool at once. Where the solo step
+reduces over the pool (a live count, a maximum, a compaction's prefix sum)
+the lane step reduces over each lane's segment; :class:`Lanes` holds those
+reductions. With one lane every helper is the solo step's own operation,
+so a solo :class:`~.engine.Simulation` runs exactly the operations it ran
+before lanes existed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Lanes:
+    """``n`` lanes of ``capacity`` slots each."""
+    n: int = 1
+    capacity: int = 0
+
+    @property
+    def solo(self) -> bool:
+        return self.n == 1
+
+    def view(self, x: torch.Tensor) -> torch.Tensor:
+        """(L·C, ...) → (L, C, ...)."""
+        return x.reshape(self.n, self.capacity, *x.shape[1:])
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """int32 sum of each lane's rows: () solo, (L,) otherwise."""
+        if self.solo:
+            return x.sum(dtype=torch.int32)
+        return self.view(x).sum(1, dtype=torch.int32)
+
+    def sum_queue(self, valid: torch.Tensor) -> torch.Tensor:
+        """int32 count of each lane's entries of a birth queue: ``k``
+        blocks of L·C rows, as a behavior stages it over the pool."""
+        if self.solo:
+            return valid.sum(dtype=torch.int32)
+        return valid.reshape(-1, self.n, self.capacity).sum(
+            (0, 2), dtype=torch.int32)
+
+    def any(self, x: torch.Tensor) -> torch.Tensor:
+        """OR of each lane's rows: () solo, (L,) otherwise."""
+        if self.solo:
+            return x.any()
+        return self.view(x).any(1)
+
+    def rows(self, v: torch.Tensor) -> torch.Tensor:
+        """A per-lane value (L, ...) repeated for each lane's C rows (an
+        expand and one copy: no repeat count crosses from the host)."""
+        return v[:, None].expand(self.n, self.capacity, *v.shape[1:]
+                                 ).reshape(self.n * self.capacity,
+                                           *v.shape[1:])
+
+    def offsets(self, device) -> torch.Tensor:
+        """(L,) int64 first slot of each lane."""
+        return torch.arange(self.n, dtype=torch.int64,
+                            device=device) * self.capacity

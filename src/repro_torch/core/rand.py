@@ -3,9 +3,13 @@
 makes: ``PRNGKey(seed)`` and ``split(key, n)``).
 
 Keys are int64 tensors holding uint32 values: ``(2,)`` for one key, ``(n, 2)``
-for ``n`` keys. All uint32 arithmetic runs in int64, masked to 32 bits after
-every add and rotate; values stay non-negative, so ``>>`` is a logical shift.
-The bits equal the reference's exactly (tests/test_torch_rand.py).
+for ``n`` keys. An ensemble's lanes carry one key each, ``(L, 2)``: every
+function here takes such a key too and gives lane ``l`` exactly the bits its
+solo draw with ``key[l]`` gives. Threefry works element by element, so that
+is one broadcast, not a loop over lanes. All uint32 arithmetic runs in
+int64, masked to 32 bits after every add and rotate; values stay
+non-negative, so ``>>`` is a logical shift. The bits equal the
+reference's exactly (tests/test_torch_rand.py).
 """
 
 from __future__ import annotations
@@ -54,29 +58,51 @@ def prng_key(seed: int, device: DeviceLike = None) -> torch.Tensor:
 
 def split(key: torch.Tensor, n: int, partitionable: bool = True
           ) -> torch.Tensor:
-    """``jax.random.split(key, n)`` → (n, 2) keys, bit-exact.
+    """``jax.random.split(key, n)`` → (n, 2) keys, bit-exact; lane keys
+    (L, 2) give (n, L, 2), ``[i, l]`` the ``i``-th key of lane ``l``.
 
     ``partitionable`` follows jax's ``jax_threefry_partitionable`` flag (on
     by default since jax 0.5): counters ``(0, i)`` give row ``i``. With the
     flag off (jax 0.4.x) the counters are ``arange(2n)`` cut in halves and
     the two output streams are concatenated before the reshape.
     """
-    k0, k1 = key[0], key[1]
     dev = key.device
+    if key.dim() == 2:                       # lanes: (L, 1) keys × counters
+        k0, k1 = key[:, :1], key[:, 1:]
+    else:
+        k0, k1 = key[0], key[1]
     if partitionable:
         b0, b1 = threefry2x32(k0, k1, torch.zeros(n, dtype=torch.int64,
                                                   device=dev),
                               torch.arange(n, dtype=torch.int64, device=dev))
+        if key.dim() == 2:
+            return torch.stack([b0.T, b1.T], dim=2)
         return torch.stack([b0, b1], dim=1)
     c = torch.arange(2 * n, dtype=torch.int64, device=dev)
     b0, b1 = threefry2x32(k0, k1, c[:n], c[n:])
+    if key.dim() == 2:
+        return torch.cat([b0, b1], 1).reshape(-1, n, 2).transpose(0, 1)
     return torch.cat([b0, b1]).reshape(n, 2)
 
 
 def _row_col_bits(key: torch.Tensor, rows: int, cols: int
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(rows, cols) pairs of uint32 streams, element = f(key, row, col)."""
+    """(rows, cols) pairs of uint32 streams, element = f(key, row, col).
+    Lane keys (L, 2) split ``rows`` into L lanes of ``rows // L``, each
+    drawn with its own key and row counters from 0."""
     dev = key.device
+    if key.dim() == 2:
+        n_lanes = key.shape[0]
+        if rows % n_lanes:
+            raise ValueError(f"{rows} rows do not split into {n_lanes} "
+                             f"lanes")
+        per = rows // n_lanes
+        r = torch.arange(per, dtype=torch.int64, device=dev)[None, :, None]
+        c = torch.arange(cols, dtype=torch.int64, device=dev)[None, None, :]
+        b0, b1 = threefry2x32(key[:, 0, None, None], key[:, 1, None, None],
+                              r.expand(n_lanes, per, cols),
+                              c.expand(n_lanes, per, cols))
+        return b0.reshape(rows, cols), b1.reshape(rows, cols)
     r = torch.arange(rows, dtype=torch.int64, device=dev)[:, None]
     c = torch.arange(cols, dtype=torch.int64, device=dev)[None, :]
     return threefry2x32(key[0], key[1], r.expand(rows, cols),

@@ -14,8 +14,14 @@
   under a :class:`DegradationPolicy`. Every intervention lands in a
   :class:`RunReport`.
 
-The ensemble variants are ROADMAP.md Queue 1 item 13, the distributed
-ones item 15; they raise ``NotImplementedError``.
+* :func:`save_ensemble_state` / :func:`restore_ensemble_state` — a whole
+  ensemble (every lane, the active mask, per-lane params, the tick) in the
+  reference's format, lanes stored ``(L, C, ...)`` whatever the port's
+  lane-major layout in memory, so an ensemble checkpoint crosses between
+  the packages both ways.
+
+The distributed variants are ROADMAP.md Queue 1 item 15; they raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ from ..train import checkpoint as ckpt_mod
 from . import grid as grid_mod, rand
 from .behaviors import Behavior
 from .engine import (CapacityExhausted, CapacityLadder, EngineConfig,
-                     EngineState, Simulation, stage_pool)
+                     EngineState, ScenarioParams, Simulation, stage_pool)
+from .ensemble import EnsembleEngine, EnsembleState
 from .health import HealthFault, describe
 from .stats import StepStats
 
@@ -188,14 +195,71 @@ def restore_state(ckpt_dir: str, cfg: EngineConfig,
     return state, cfg
 
 
-def save_ensemble_state(*args, **kwargs):
-    raise NotImplementedError("ensemble checkpoints are not ported yet "
-                              "(ROADMAP.md Queue 1 item 13)")
+def _lanes_stacked(state: EnsembleState) -> EnsembleState:
+    """The ensemble with its pool as the reference stacks it, (L, C, ...)
+    (views of the lane-major channels)."""
+    n = state.n_lanes
+    return dataclasses.replace(state, pool=state.pool.with_channels({
+        k: v.reshape(n, v.shape[0] // n, *v.shape[1:])
+        for k, v in state.pool.channels().items()}))
 
 
-def restore_ensemble_state(*args, **kwargs):
-    raise NotImplementedError("ensemble checkpoints are not ported yet "
-                              "(ROADMAP.md Queue 1 item 13)")
+def _lanes_flat(state: EnsembleState) -> EnsembleState:
+    """Inverse of :func:`_lanes_stacked`: the lane-major pool."""
+    return dataclasses.replace(state, pool=state.pool.with_channels({
+        k: v.reshape(v.shape[0] * v.shape[1], *v.shape[2:])
+        for k, v in state.pool.channels().items()}))
+
+
+def save_ensemble_state(ckpt_dir: str, state: EnsembleState,
+                        cfg: EngineConfig,
+                        extras: Optional[Dict] = None) -> str:
+    """Atomic checkpoint of a whole ensemble — every lane's state, the
+    active mask, per-lane params and the tick — keyed as the reference
+    keys it. The step index is the ensemble's ``tick``; callers with
+    host-side lane bookkeeping (``serve/sim_service.py``'s request table)
+    record it through ``extras``."""
+    meta = {"format": _FORMAT, "kind": "ensemble",
+            "knobs": _engine_knobs(cfg), "n_lanes": state.n_lanes}
+    if extras:
+        meta.update(extras)
+    stored = _lanes_stacked(state)
+    stored = dataclasses.replace(
+        stored, rng=stored.rng.detach().cpu().numpy().astype(np.uint32))
+    return ckpt_mod.save(ckpt_dir, int(state.tick), stored, extras=meta)
+
+
+def restore_ensemble_state(ckpt_dir: str, cfg: EngineConfig,
+                           behaviors: Sequence[Behavior],
+                           params_template: Optional[ScenarioParams] = None,
+                           step: Optional[int] = None,
+                           apply_knobs: str = "all",
+                           device: DeviceLike = None
+                           ) -> Tuple[EnsembleState, EngineConfig, Dict]:
+    """Restore ``(state, config, manifest extras)`` of an ensemble on
+    ``device`` (None: the CUDA card).
+
+    With ``apply_knobs="all"`` the returned config builds the step the
+    checkpoint ran under, so stepping the restored ensemble replays the
+    uninterrupted trajectory bit for bit on every lane.
+    ``params_template`` must have the structure the run was saved with.
+    The extras give a service its lane table back.
+    """
+    dev = resolve_device(device)
+    if step is None:
+        step = ckpt_mod.latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
+    meta = ckpt_mod.load_manifest(ckpt_dir, step).get("extras", {})
+    knobs = meta.get("knobs")
+    if knobs is None or meta.get("kind") != "ensemble":
+        raise ValueError(f"{ckpt_dir} step {step}: not an ensemble "
+                         f"simulation checkpoint")
+    cfg = _apply_engine_knobs(cfg, knobs, apply_knobs)
+    tmpl = EnsembleEngine(cfg, behaviors, meta["n_lanes"], params_template,
+                          device=dev).init_state()
+    state = ckpt_mod.restore(ckpt_dir, step, _lanes_stacked(tmpl))
+    return _lanes_flat(state), cfg, meta
 
 
 def save_dist_state(*args, **kwargs):

@@ -1,6 +1,7 @@
 """Per-iteration statistics (port of ``repro.core.stats``).
 
-Every field is a 0-dim int32 tensor on the engine's device; the host-side
+Every field is a 0-dim int32 tensor on the engine's device — (L,) in an
+ensemble, one counter per lane; the host-side
 helpers (:meth:`StepStats.flags`, :meth:`any_overflow`, :meth:`health_bits`)
 are the only places that synchronise.
 """
@@ -49,11 +50,12 @@ class StepStats:
                        "pair_overflow")
 
     @classmethod
-    def zeros(cls, device: DeviceLike = None) -> "StepStats":
-        """All-zero counters (``device=None``: the CUDA card, raising
-        without one)."""
+    def zeros(cls, device: DeviceLike = None, shape: tuple = ()
+              ) -> "StepStats":
+        """All-zero counters of ``shape`` (``(L,)`` for an ensemble;
+        ``device=None``: the CUDA card, raising without one)."""
         dev = resolve_device(device)
-        return cls(**{f: torch.zeros((), dtype=torch.int32, device=dev)
+        return cls(**{f: torch.zeros(shape, dtype=torch.int32, device=dev)
                       for f in cls.FIELDS})
 
     def __getitem__(self, key: str) -> torch.Tensor:

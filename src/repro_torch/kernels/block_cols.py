@@ -31,15 +31,15 @@ OPS_PER_ROW = 9 * 44 + 19
 
 # k1_block_cols(cells, row_active, position, diameter, agent_type, alive,
 #               active, n_rows, origin, recip, starts, counts, n_pad, dim_x,
-#               dim_y, dim_z, maxb, span, block_cols, overflow, data_t,
-#               row_mask, stream)
+#               dim_y, dim_z, maxb, span, lane_rows, lane_stride, block_cols,
+#               overflow, data_t, row_mask, stream)
 ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_float,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 Pool = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
              torch.Tensor]
@@ -63,15 +63,24 @@ def column_map(starts: torch.Tensor, counts: torch.Tensor,
                row_active: Optional[torch.Tensor] = None,
                pool: Optional[Pool] = None,
                origin: Optional[torch.Tensor] = None,
-               box_size: Optional[float] = None):
+               box_size: Optional[float] = None, lanes: int = 1,
+               lane_rows: Optional[int] = None):
     """The column map of ``n_pad`` rows on the card, from ``cells`` (n_pad,
     3) int32 and ``row_active`` (n_pad,) bool, or from ``pool`` = (position
     (C, 3) f32, diameter (C,) f32, agent_type (C,) int, alive (C,) bool,
     active (C,) bool) with ``origin`` (3,) and ``box_size``.
 
-    Returns ``(block_cols (n_pad/128, maxb) int32, overflow () bool, data_t
-    (8, n_pad) f32 or None, row mask (n_pad,) bool or None)`` — the last
-    two only from a pool.
+    ``lanes`` > 1 maps an ensemble in the same launch: the pool holds
+    ``lanes`` lanes of C / lanes rows, packed at a stride of n_pad / lanes
+    rows (a multiple of 128) so that no row block holds two lanes, and
+    ``starts``/``counts`` are the lanes' tables one after another (slot ids
+    of the whole pool). Column ids are packed blocks of the row block's own
+    lane, and the overflow is per lane. With ``cells`` (packed rows) the
+    pool's rows per lane come as ``lane_rows``.
+
+    Returns ``(block_cols (n_pad/128, maxb) int32, overflow () bool — (L,)
+    for lanes, data_t (8, n_pad) f32 or None, row mask (n_pad,) bool or
+    None)`` — the last two only from a pool.
     """
     dev = starts.device
     if dev.type != "cuda":
@@ -86,12 +95,18 @@ def column_map(starts: torch.Tensor, counts: torch.Tensor,
         raise ValueError(f"grid {dims} does not fit int32 box ids")
     if maxb < 0 or span < 1:
         raise ValueError(f"maxb={maxb}, span={span}")
+    if lanes < 1 or n_pad % (lanes * BLOCK):
+        raise ValueError(f"n_pad={n_pad} must pack {lanes} lanes at whole "
+                         f"{BLOCK}-row blocks")
     m = dims[0] * dims[1] * dims[2]
+    if lanes * m >= 2 ** 31:
+        raise ValueError(f"{lanes} tables of {m} boxes overflow int32")
     starts = starts.to(torch.int32).contiguous()
     counts = counts.to(torch.int32).contiguous()
-    if starts.shape != (m,) or counts.shape != (m,):
-        raise ValueError(f"starts/counts must be ({m},), got "
+    if starts.shape != (lanes * m,) or counts.shape != (lanes * m,):
+        raise ValueError(f"starts/counts must be ({lanes * m},), got "
                          f"{tuple(starts.shape)}, {tuple(counts.shape)}")
+    lane_stride = n_pad // lanes
     data_t = mask = position = diameter = agent_type = alive = active = None
     recip, n_rows = 0.0, 0
     if cells is not None:
@@ -101,13 +116,19 @@ def column_map(starts: torch.Tensor, counts: torch.Tensor,
                              f"({n_pad},)")
         cells = cells.to(torch.int32).contiguous()
         row_active = row_active.to(torch.bool).contiguous()
+        lane_rows = lane_stride if lane_rows is None else lane_rows
+        if not 0 < lane_rows <= lane_stride:
+            raise ValueError(f"lane_rows={lane_rows} must be in (0, "
+                             f"{lane_stride}]")
     else:
         position, diameter, agent_type, alive, active = pool
         n_rows = position.shape[0]
-        if n_rows > n_pad or position.shape != (n_rows, 3) or any(
-                x.shape != (n_rows,) for x in pool[1:]):
-            raise ValueError(f"pool channels must have {n_rows} <= {n_pad} "
-                             f"rows")
+        lane_rows = n_rows // lanes
+        if lane_rows * lanes != n_rows or lane_rows > lane_stride \
+                or position.shape != (n_rows, 3) or any(
+                    x.shape != (n_rows,) for x in pool[1:]):
+            raise ValueError(f"pool channels must have {n_rows} rows, "
+                             f"{lanes} lanes of at most {lane_stride}")
         if origin is None or origin.shape != (3,) or box_size is None:
             raise ValueError("a pool needs origin (3,) and box_size")
         position = position.to(torch.float32).contiguous()
@@ -127,7 +148,8 @@ def column_map(starts: torch.Tensor, counts: torch.Tensor,
         if x is not None and x.device != dev:
             raise ValueError(f"{name} is on {x.device}, starts on {dev}")
     cols = torch.empty((n_pad // BLOCK, maxb), dtype=torch.int32, device=dev)
-    ovf = torch.zeros((), dtype=torch.int32, device=dev)
+    ovf = torch.zeros(() if lanes == 1 else (lanes,), dtype=torch.int32,
+                      device=dev)
     fn = _kernel_fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -135,8 +157,8 @@ def column_map(starts: torch.Tensor, counts: torch.Tensor,
                  _ptr(diameter), _ptr(agent_type), _ptr(alive), _ptr(active),
                  n_rows, _ptr(origin), recip, starts.data_ptr(),
                  counts.data_ptr(), n_pad, dims[0], dims[1], dims[2], maxb,
-                 span, cols.data_ptr(), ovf.data_ptr(), _ptr(data_t),
-                 _ptr(mask), stream)
+                 span, lane_rows, lane_stride, cols.data_ptr(),
+                 ovf.data_ptr(), _ptr(data_t), _ptr(mask), stream)
     if err != 0:
         raise RuntimeError(f"K1 column-map launch failed: CUDA error {err}")
     column_map.launches += 1

@@ -27,7 +27,16 @@
 // rows in the fused form); the arithmetic is a few dozen integer ops per
 // row. The sweep is serial per block, over the kept intervals only.
 //
-// Layout: cells (n_pad, 3) int32; starts, counts (M,) int32; row_active,
+// Lanes. An ensemble packs L lanes of lane_rows pool rows each at a stride
+// of lane_stride rows (a multiple of 128), so that no row block holds two
+// lanes; starts/counts are L tables of M boxes holding slot ids of the
+// lane-major pool (lane l at [l*lane_rows, (l+1)*lane_rows)). A row block
+// reads its own lane's table and moves the slot ids to packed rows
+// (+ l*(lane_stride - lane_rows)), so its column ids are global packed
+// blocks of its own lane, and its overflow goes to overflow[l]. One lane
+// (lane_rows = n_rows, lane_stride = n_pad) is the solo map.
+//
+// Layout: cells (n_pad, 3) int32; starts, counts (L*M,) int32; row_active,
 // alive, active, row_mask: one byte per row (torch.bool); position (C, 3)
 // f32; data_t (8, n_pad) f32 rows [x, y, z, diameter, type, alive, 0, 0];
 // block_cols (n_pad/128, maxb) int32.
@@ -52,9 +61,9 @@ block_cols_kernel(const int* __restrict__ cells,
                   const float* __restrict__ origin, float recip,
                   const int* __restrict__ starts,
                   const int* __restrict__ counts, int n_pad, int dim_x,
-                  int dim_y, int dim_z, int maxb, int span,
-                  int* __restrict__ block_cols, int* __restrict__ overflow,
-                  float* __restrict__ data_t,
+                  int dim_y, int dim_z, int maxb, int span, int lane_rows,
+                  int lane_stride, int* __restrict__ block_cols,
+                  int* __restrict__ overflow, float* __restrict__ data_t,
                   unsigned char* __restrict__ row_mask) {
   __shared__ int s_lo[kStencil][kBlock];
   __shared__ int s_hi[kStencil][kBlock];
@@ -66,6 +75,12 @@ block_cols_kernel(const int* __restrict__ cells,
   const int rb = blockIdx.x;
   const int t = threadIdx.x;
   const int row = rb * kBlock + t;
+  // the row block's lane, the row's place in it, and the table it reads
+  const int lane_id = (rb * kBlock) / lane_stride;
+  const int local = row - lane_id * lane_stride;
+  const int shift = lane_id * (lane_stride - lane_rows);  // slot -> packed row
+  const long long table =
+      static_cast<long long>(lane_id) * dim_x * dim_y * dim_z;
 
   int cx, cy, cz;
   bool act;
@@ -80,14 +95,15 @@ block_cols_kernel(const int* __restrict__ cells,
     float dia = 0.f;
     int typ = 0;
     bool al = false, ac = false;
-    if (row < n_rows) {
-      p[0] = position[3 * row + 0];
-      p[1] = position[3 * row + 1];
-      p[2] = position[3 * row + 2];
-      dia = diameter[row];
-      typ = agent_type[row];
-      al = alive[row] != 0;
-      ac = active[row] != 0;
+    if (local < lane_rows && row - shift < n_rows) {
+      const int src = row - shift;              // the row's pool slot
+      p[0] = position[3 * src + 0];
+      p[1] = position[3 * src + 1];
+      p[2] = position[3 * src + 2];
+      dia = diameter[src];
+      typ = agent_type[src];
+      al = alive[src] != 0;
+      ac = active[src] != 0;
     }
     act = al && ac;
     row_mask[row] = act ? 1 : 0;
@@ -123,9 +139,9 @@ block_cols_kernel(const int* __restrict__ cells,
     const bool inside = nx0 >= 0 && nx0 < dim_x && ny0 >= 0 && ny0 < dim_y;
     const int nx = min(max(nx0, 0), dim_x - 1);
     const int ny = min(max(ny0, 0), dim_y - 1);
-    const int col = (nx * dim_y + ny) * dim_z;
-    const int s = starts[col + z_lo];
-    const int e = starts[col + z_hi] + counts[col + z_hi];
+    const long long col = table + (nx * dim_y + ny) * dim_z;
+    const int s = starts[col + z_lo] + shift;
+    const int e = starts[col + z_hi] + counts[col + z_hi] + shift;
     const int n = (inside && act) ? e - s : 0;
     const int b0 = s / kBlock;                  // s >= 0
     const int b_last = n > 0 ? (s + n - 1) / kBlock : -1;
@@ -196,7 +212,7 @@ block_cols_kernel(const int* __restrict__ cells,
     s_written = static_cast<int>(n_uniq < maxb ? n_uniq : maxb);
     span_ovf |= n_uniq > maxb;
   }
-  if (__syncthreads_or(span_ovf) && t == 0) atomicOr(overflow, 1);
+  if (__syncthreads_or(span_ovf) && t == 0) atomicOr(overflow + lane_id, 1);
   for (int j = s_written + t; j < maxb; j += kBlock) out[j] = -1;
 }
 
@@ -206,8 +222,9 @@ block_cols_kernel(const int* __restrict__ cells,
 // `cells` given, reads it and `row_active`; with `cells` null, computes the
 // cells from the pool (n_rows rows of position, diameter, agent_type,
 // alive, active; origin (3,) f32 on the device) and writes data_t and
-// row_mask. `overflow` must hold 0 before the launch. The caller checks
-// shapes: n_pad a multiple of 128, 8·n_pad < 2^31, prod(dims) < 2^31.
+// row_mask. `overflow` (one int per lane) must hold 0 before the launch.
+// The caller checks shapes: n_pad a multiple of 128, 8·n_pad < 2^31,
+// lanes·prod(dims) < 2^31, lane_stride a multiple of 128 dividing n_pad.
 extern "C" int k1_block_cols(const int* cells, const unsigned char* row_active,
                              const float* position, const float* diameter,
                              const int* agent_type, const unsigned char* alive,
@@ -215,15 +232,16 @@ extern "C" int k1_block_cols(const int* cells, const unsigned char* row_active,
                              const float* origin, float recip,
                              const int* starts, const int* counts, int n_pad,
                              int dim_x, int dim_y, int dim_z, int maxb,
-                             int span, int* block_cols, int* overflow,
-                             float* data_t, unsigned char* row_mask,
-                             void* stream) {
+                             int span, int lane_rows, int lane_stride,
+                             int* block_cols, int* overflow, float* data_t,
+                             unsigned char* row_mask, void* stream) {
   const int n_rb = n_pad / kBlock;
   if (n_rb > 0) {
     block_cols_kernel<<<n_rb, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
         cells, row_active, position, diameter, agent_type, alive, active,
         n_rows, origin, recip, starts, counts, n_pad, dim_x, dim_y, dim_z,
-        maxb, span, block_cols, overflow, data_t, row_mask);
+        maxb, span, lane_rows, lane_stride, block_cols, overflow, data_t,
+        row_mask);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,6 +13,7 @@ import torch
 from torch.profiler import record_function
 
 from ..core import grid, morton
+from ..core.lanes import Lanes
 from . import block_cols as colmap
 from . import collision_force as k1
 from . import flash_attention as k2
@@ -34,10 +35,22 @@ def k1_run_offsets() -> np.ndarray:
                     dtype=np.int32)
 
 
+def _multi(lanes: Optional[Lanes]) -> bool:
+    return lanes is not None and not lanes.solo
+
+
+def lane_stride(lanes: Optional[Lanes], rows: int) -> int:
+    """Packed rows per lane: a lane's C rows padded to whole 128-row
+    blocks (``rows`` padded, without lanes)."""
+    per = lanes.capacity if _multi(lanes) else rows
+    return -(-per // BLOCK) * BLOCK
+
+
 def build_block_cols(sorted_cells: torch.Tensor, starts: torch.Tensor,
                      counts: torch.Tensor, row_active: torch.Tensor,
                      dims: Tuple[int, int, int], maxb: int,
-                     span: int = SPAN) -> tuple[torch.Tensor, torch.Tensor]:
+                     span: int = SPAN, lanes: Optional[Lanes] = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Block-sparse column map: for each 128-row block, the ascending unique
     128-wide column blocks covering the 9 merged stencil z-runs of its
     *active* rows, -1 padded to ``maxb``.
@@ -49,20 +62,28 @@ def build_block_cols(sorted_cells: torch.Tensor, starts: torch.Tensor,
     Equal, entry for entry, to the reference's map. On CUDA tensors the
     column-map kernel builds it (``block_cols.column_map``), on CPU tensors
     :func:`build_block_cols_plain`.
+
+    ``lanes``: an ensemble's map in one call. The rows are the lanes packed
+    at :func:`lane_stride` each, ``starts``/``counts`` the lanes' tables
+    (L·M,) over the lane-major pool; each row block maps its own lane, so
+    its column ids never reach another lane's rows, and ``overflow`` is
+    (L,).
     """
     if sorted_cells.device.type == "cpu":
         return build_block_cols_plain(sorted_cells, starts, counts,
-                                      row_active, dims, maxb, span)
+                                      row_active, dims, maxb, span, lanes)
     cols, ovf, _, _ = colmap.column_map(
         starts, counts, dims, maxb, span, n_pad=sorted_cells.shape[0],
-        cells=sorted_cells, row_active=row_active)
+        cells=sorted_cells, row_active=row_active,
+        **({"lanes": lanes.n, "lane_rows": lanes.capacity}
+           if _multi(lanes) else {}))
     return cols, ovf
 
 
 def build_block_cols_plain(sorted_cells: torch.Tensor, starts: torch.Tensor,
                            counts: torch.Tensor, row_active: torch.Tensor,
                            dims: Tuple[int, int, int], maxb: int,
-                           span: int = SPAN
+                           span: int = SPAN, lanes: Optional[Lanes] = None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`build_block_cols` in plain PyTorch, on any device: chunks of
     row blocks, each sorting its candidate ids."""
@@ -72,6 +93,10 @@ def build_block_cols_plain(sorted_cells: torch.Tensor, starts: torch.Tensor,
     ks = torch.arange(span, dtype=torch.int32, device=dev)
     cols = torch.empty((n_rb, maxb), dtype=torch.int32, device=dev)
     ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    multi = _multi(lanes)
+    if multi:
+        stride = sorted_cells.shape[0] // lanes.n
+        ovf_rb = torch.zeros((n_rb,), dtype=torch.bool, device=dev)
     starts = starts.to(torch.int32)
     counts = counts.to(torch.int32)
     for b0 in range(0, n_rb, _COLMAP_ROW_BLOCKS):
@@ -88,8 +113,17 @@ def build_block_cols_plain(sorted_cells: torch.Tensor, starts: torch.Tensor,
         z_hi = (cell[:, 2] + 1).clamp(max=dims[2] - 1)[:, None].expand_as(nx)
         k_lo = morton.linear_encode3(nx, ny, z_lo, dims)
         k_hi = morton.linear_encode3(nx, ny, z_hi, dims)
-        s = starts[k_lo]
-        e = starts[k_hi] + counts[k_hi]
+        shift = 0
+        if multi:
+            # each row's own lane: its table, and its slot ids as packed rows
+            lane = torch.div(torch.arange(b0 * BLOCK, b1 * BLOCK,
+                                          device=dev), stride,
+                             rounding_mode="floor")[:, None]
+            m = counts.shape[0] // lanes.n
+            k_lo, k_hi = k_lo + lane * m, k_hi + lane * m
+            shift = (lane * (stride - lanes.capacity)).to(torch.int32)
+        s = starts[k_lo] + shift
+        e = starts[k_hi] + counts[k_hi] + shift
         n = torch.where(inside & act[:, None], e - s, torch.zeros_like(s))
         first = torch.div(s, BLOCK, rounding_mode="floor")
         last = torch.where(n > 0,
@@ -101,7 +135,12 @@ def build_block_cols_plain(sorted_cells: torch.Tensor, starts: torch.Tensor,
             torch.where(ok, cand, torch.full_like(cand, _SENTINEL)
                         ).reshape(nb, -1), maxb)
         span_ovf = ((last - first + 1) > span).reshape(nb, -1).any(1)
-        ovf |= ((n_uniq > maxb) | span_ovf).any()
+        if multi:
+            ovf_rb[b0:b1] = (n_uniq > maxb) | span_ovf
+        else:
+            ovf |= ((n_uniq > maxb) | span_ovf).any()
+    if multi:
+        ovf = ovf_rb.reshape(lanes.n, -1).any(1)
     return cols, ovf
 
 
@@ -180,7 +219,8 @@ def k1_inputs(position: torch.Tensor, diameter: torch.Tensor,
               active: torch.Tensor, starts: torch.Tensor,
               counts: torch.Tensor, origin: torch.Tensor, box_size: float,
               dims: Tuple[int, int, int], maxb: int = 64,
-              pairs: Optional[grid.PairList] = None
+              pairs: Optional[grid.PairList] = None,
+              lanes: Optional[Lanes] = None
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                          torch.Tensor]:
     """Pad to 128, pack and map: ``(data_t (8, N_pad) f32, block_cols,
@@ -188,12 +228,20 @@ def k1_inputs(position: torch.Tensor, diameter: torch.Tensor,
     resident wrapper builds them, the map from the stencil runs or, with
     ``pairs``, from the pair list. On CUDA tensors one launch of the
     column-map kernel (or of the pairs column-map kernel) does all of it;
-    on CPU tensors :func:`k1_inputs_plain`."""
+    on CPU tensors :func:`k1_inputs_plain`.
+
+    ``lanes``: an ensemble's L lanes, each packed at :func:`lane_stride`
+    rows (N_pad = L·stride) and mapped in the same launch; the overflow is
+    (L,). Pair lists are single-lane."""
     if position.device.type == "cpu":
         return k1_inputs_plain(position, diameter, agent_type, alive, active,
                                starts, counts, origin, box_size, dims, maxb,
-                               pairs)
-    n_pad = -(-position.shape[0] // BLOCK) * BLOCK
+                               pairs, lanes)
+    multi = _multi(lanes)
+    if multi and pairs is not None:
+        raise NotImplementedError("an ensemble's K1 takes no pair list "
+                                  "(ROADMAP.md Queue 1 item 13b)")
+    n_pad = (lanes.n if multi else 1) * lane_stride(lanes, position.shape[0])
     pool = (position, diameter, agent_type, alive, active)
     if pairs is not None:
         cols, ovf, data_t, sact = pair_cols.column_map_from_pairs(
@@ -202,15 +250,17 @@ def k1_inputs(position: torch.Tensor, diameter: torch.Tensor,
         # a traced box size divides (morton.cell_of), where the kernel's
         # own cell computation multiplies by a reciprocal: the cells come
         # from cell_of and the kernel maps them
-        data_t, sact = _pack(position, diameter, agent_type, alive, active)
-        cells = morton.cell_of(torch.nn.functional.pad(
-            position, (0, 0, 0, n_pad - position.shape[0])), origin,
-            box_size, dims)
-        cols, ovf = build_block_cols(cells, starts, counts, sact, dims, maxb)
+        data_t, sact = _pack(position, diameter, agent_type, alive, active,
+                             lanes)
+        cells = morton.cell_of(_pad_rows(position, n_pad, lanes), origin,
+                               box_size, dims)
+        cols, ovf = build_block_cols(cells, starts, counts, sact, dims, maxb,
+                                     lanes=lanes)
     else:
         cols, ovf, data_t, sact = colmap.column_map(
             starts, counts, dims, maxb, SPAN, n_pad=n_pad, pool=pool,
-            origin=origin, box_size=box_size)
+            origin=origin, box_size=box_size,
+            lanes=lanes.n if multi else 1)
     return data_t, cols, ovf, sact
 
 
@@ -219,32 +269,61 @@ def k1_inputs_plain(position: torch.Tensor, diameter: torch.Tensor,
                     active: torch.Tensor, starts: torch.Tensor,
                     counts: torch.Tensor, origin: torch.Tensor,
                     box_size: float, dims: Tuple[int, int, int],
-                    maxb: int = 64, pairs: Optional[grid.PairList] = None
+                    maxb: int = 64, pairs: Optional[grid.PairList] = None,
+                    lanes: Optional[Lanes] = None
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                torch.Tensor]:
     """:func:`k1_inputs` in plain PyTorch, on any device."""
-    c = position.shape[0]
-    n_pad = -(-c // BLOCK) * BLOCK
-    pad = n_pad - c
-    data_t, sact = _pack(position, diameter, agent_type, alive, active)
+    multi = _multi(lanes)
+    if multi and pairs is not None:
+        raise NotImplementedError("an ensemble's K1 takes no pair list "
+                                  "(ROADMAP.md Queue 1 item 13b)")
+    n_pad = (lanes.n if multi else 1) * lane_stride(lanes, position.shape[0])
+    data_t, sact = _pack(position, diameter, agent_type, alive, active,
+                         lanes)
     if pairs is not None:
         block_cols, ovf = build_block_cols_from_pairs_plain(pairs, sact,
                                                             n_pad, maxb)
     else:
-        cells = morton.cell_of(
-            torch.nn.functional.pad(position, (0, 0, 0, pad)), origin,
-            box_size, dims)
+        cells = morton.cell_of(_pad_rows(position, n_pad, lanes), origin,
+                               box_size, dims)
         block_cols, ovf = build_block_cols_plain(cells, starts, counts, sact,
-                                                 dims, maxb)
+                                                 dims, maxb, lanes=lanes)
     return data_t, block_cols, ovf, sact
+
+
+def _pad_rows(x: torch.Tensor, n_pad: int, lanes: Optional[Lanes] = None
+              ) -> torch.Tensor:
+    """Rows (C, ...) zero-padded to K1's ``n_pad`` rows; an ensemble's
+    (L·C, ...) padded lane by lane to :func:`lane_stride` each."""
+    if not _multi(lanes):
+        return torch.nn.functional.pad(
+            x, (0, 0) * (x.dim() - 1) + (0, n_pad - x.shape[0]))
+    v = lanes.view(x)
+    stride = n_pad // lanes.n
+    out = torch.zeros((lanes.n, stride, *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    out[:, :lanes.capacity] = v
+    return out.reshape(n_pad, *x.shape[1:])
 
 
 def _pack(position: torch.Tensor, diameter: torch.Tensor,
           agent_type: torch.Tensor, alive: torch.Tensor,
-          active: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+          active: torch.Tensor, lanes: Optional[Lanes] = None
+          ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1's packed ``data_t`` (8, N_pad) and row mask (N_pad,), padded to
-    whole 128-row blocks."""
+    whole 128-row blocks (an ensemble's lane by lane)."""
     c = position.shape[0]
+    if _multi(lanes):
+        n_pad = lanes.n * lane_stride(lanes, c)
+        data_t = torch.zeros((8, n_pad), dtype=torch.float32,
+                             device=position.device)
+        dst = data_t.view(8, lanes.n, -1)[:, :, :lanes.capacity]
+        rows = torch.cat([position.T, diameter[None].float(),
+                          agent_type[None].to(torch.float32),
+                          alive[None].to(torch.float32)], 0)
+        dst[:k1.ROW_ALIVE + 1] = rows.reshape(k1.ROW_ALIVE + 1, lanes.n, -1)
+        return data_t, _pad_rows(active & alive, n_pad, lanes)
     n_pad = -(-c // BLOCK) * BLOCK
     data_t = torch.zeros((8, n_pad), dtype=torch.float32,
                          device=position.device)
@@ -262,7 +341,8 @@ def collision_force_resident(position: torch.Tensor, diameter: torch.Tensor,
                              box_size: float, *, dims: Tuple[int, int, int],
                              k_rep: float = 2.0, adhesion: Adhesion = None,
                              adhesion_band: float = 0.4, maxb: int = 64,
-                             pairs: Optional[grid.PairList] = None
+                             pairs: Optional[grid.PairList] = None,
+                             lanes: Optional[Lanes] = None
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """K1 over the resident grid-ordered pool: column map → kernel.
@@ -275,20 +355,24 @@ def collision_force_resident(position: torch.Tensor, diameter: torch.Tensor,
     reference. With ``pairs`` the map comes from the pair list
     (:func:`build_block_cols_from_pairs`); K1 itself is unchanged, and its
     sums equal the stencil map's while the list covers every pair in reach.
+    With ``lanes`` it steps an ensemble's every lane in one column-map
+    launch and one K1 launch: each lane is packed at whole row blocks, so
+    no tile holds rows of two lanes and no pair crosses lanes; the
+    overflow is (L,).
     """
     dev = position.device
     c = position.shape[0]
     with record_function("k1/inputs"):
         data_t, block_cols, ovf, sact = k1_inputs(
             position, diameter, agent_type, alive, active, starts, counts,
-            origin, box_size, dims, maxb, pairs)
+            origin, box_size, dims, maxb, pairs, lanes)
     if adhesion is not None and not isinstance(adhesion, torch.Tensor):
         adhesion = torch.tensor(adhesion, dtype=torch.float32, device=dev)
     with record_function("k1/kernel"):
         out_t = k1.collision_force(data_t, block_cols, k_rep=k_rep,
                                    adhesion=adhesion,
                                    adhesion_band=adhesion_band)
-    force, nnz = _k1_outputs(out_t, sact[:c], c)
+    force, nnz = _k1_outputs(out_t, sact, c, lanes)
     return force, nnz, ovf
 
 
@@ -300,7 +384,8 @@ def fused_resident_sweep(spec: grid.GridSpec, grid_env: grid.GridState,
                          adhesion: Adhesion = None,
                          adhesion_band: float = 0.4,
                          chunk: Optional[int] = None, maxb: int = 64,
-                         pairs: Optional[grid.PairList] = None
+                         pairs: Optional[grid.PairList] = None,
+                         lanes: Optional[Lanes] = None
                          ) -> tuple[Dict[str, Dict[str, torch.Tensor]],
                                     torch.Tensor]:
     """K1-backed form of ``grid.resident_apply_fused``: the kernel named
@@ -311,7 +396,8 @@ def fused_resident_sweep(spec: grid.GridSpec, grid_env: grid.GridState,
 
     Returns ``(results, overflow)``: results keyed like
     ``resident_apply_fused``, overflow K1's column-map flag (a zero ()
-    int32 when no kernel is named ``"force"``).
+    int32 when no kernel is named ``"force"``; (L,) with ``lanes``, an
+    ensemble's grid tables).
     """
     results: Dict[str, Dict[str, torch.Tensor]] = {}
     ovf = torch.zeros((), dtype=torch.int32, device=default_mask.device)
@@ -324,7 +410,8 @@ def fused_resident_sweep(spec: grid.GridSpec, grid_env: grid.GridState,
             channels["agent_type"], channels["alive"], active,
             grid_env.starts, grid_env.counts, origin, box_size,
             dims=spec.dims, k_rep=k_rep, adhesion=adhesion,
-            adhesion_band=adhesion_band, maxb=maxb, pairs=pairs)
+            adhesion_band=adhesion_band, maxb=maxb, pairs=pairs,
+            lanes=lanes)
         results["force"] = {"force": f, "force_nnz": nnz}
         ovf = k_ovf.to(torch.int32)
     if rest:
@@ -380,7 +467,7 @@ def collision_force_plain(position: torch.Tensor, diameter: torch.Tensor,
         out_t = k1.collision_force_plain(data_t, block_cols, k_rep=k_rep,
                                          adhesion=adhesion,
                                          adhesion_band=adhesion_band)
-        return _k1_outputs(out_t, sact[:c], c) + (ovf,)
+        return _k1_outputs(out_t, sact, c) + (ovf,)
     return _in_slot_order(resident_plain, position, diameter, agent_type,
                           alive, active, origin, box_size, dims=dims,
                           k_rep=k_rep, adhesion=adhesion,
@@ -408,11 +495,19 @@ def _in_slot_order(resident_fn, position, diameter, agent_type, alive,
     return force, nnz, ovf
 
 
-def _k1_outputs(out_t: torch.Tensor, act: torch.Tensor, c: int
+def _k1_outputs(out_t: torch.Tensor, act: torch.Tensor, c: int,
+                lanes: Optional[Lanes] = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Force (C, 3) and nnz (C,) from K1's output rows, zero outside
-    ``act``."""
+    """Force (C, 3) and nnz (C,) from K1's output rows (N_pad) and row mask
+    ``act`` (N_pad,), zero outside ``act``; an ensemble's packed lanes are
+    unpacked to the lane-major pool's rows."""
     dev = out_t.device
+    if _multi(lanes):
+        out_t = out_t.view(4, lanes.n, -1)[:, :, :lanes.capacity].reshape(
+            4, c)
+        act = act.view(lanes.n, -1)[:, :lanes.capacity].reshape(c)
+    else:
+        act = act[:c]
     force = torch.where(act[:, None], out_t[k1.ROW_FX:k1.ROW_FZ + 1, :c].T,
                         torch.zeros((), device=dev))
     nnz = torch.where(act, out_t[k1.ROW_NNZ, :c].to(torch.int32),

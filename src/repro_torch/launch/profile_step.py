@@ -105,7 +105,9 @@ def profile_steps(sim, st, steps: int, trace: str | None = None):
     """Run ``steps`` steps under ``torch.profiler``; returns the state and
     :func:`analyze_trace`'s numbers, with the profiled wall time per step
     and the idle share: 1 − busy / that wall, both from the same steps.
-    Keeps the Chrome trace at ``trace`` if given."""
+    Keeps the Chrome trace at ``trace`` if given. ``sim`` is anything with
+    ``step(state) -> state`` whose stats carry rebuilds and skips (an
+    ensemble's are summed over its lanes)."""
     counts = []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -117,8 +119,9 @@ def profile_steps(sim, st, steps: int, trace: str | None = None):
     stats = analyze_trace(events, steps)
     return st, {"ms_per_step_profiled": prof_ms,
                 "device_idle_share": 1.0 - stats["device_busy_ms"] / prof_ms,
-                "rebuilds": sum(int(r) for r, _ in counts),
-                "rebuild_skips": sum(int(k) for _, k in counts), **stats}
+                "rebuilds": sum(int(r.sum()) for r, _ in counts),
+                "rebuild_skips": sum(int(k.sum()) for _, k in counts),
+                **stats}
 
 
 def main() -> None:

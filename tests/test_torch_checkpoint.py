@@ -549,11 +549,11 @@ def test_run_supervised_wraps_a_ladder(tmp_path):
 
 
 def test_ensemble_and_distributed_variants_name_their_items():
-    for fn, item in ((simcheck.save_ensemble_state, "item 13"),
-                     (simcheck.restore_ensemble_state, "item 13"),
-                     (simcheck.save_dist_state, "item 15"),
-                     (simcheck.restore_dist_state, "item 15")):
-        with pytest.raises(NotImplementedError, match=item):
+    # the ensemble variants are ported (tests/test_torch_ensemble.py and
+    # test_torch_sim_service.py hold their round trips); the distributed
+    # ones still name their item
+    for fn in (simcheck.save_dist_state, simcheck.restore_dist_state):
+        with pytest.raises(NotImplementedError, match="item 15"):
             fn()
 
 
