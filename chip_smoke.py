@@ -217,8 +217,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      and final infected count, and with the checkpoint's finished uids
      they are all 32; the median µs of ``admit`` and ``retire``.
 
+ 26. tissue lanes: (a) examples/cell_clustering.py ``--pairlist`` as a
+     sweep through ``EnsembleEngine``: 8 lanes of its 4,000 agents (not
+     cut), each with its own seed, Secretion rate and Chemotaxis speed
+     (``ScenarioParams`` rates), every_k k 8, skin 1.5, max_pairs 64, a
+     32³ field per lane, K1 over the lanes' pair lists, 30 ticks with the
+     last lane admitted at tick 11 (the others rebuild together on even
+     ticks): the ticks with mixed rebuild flags are printed (one at
+     least); every lane ≡ its solo card run bit for bit
+     (pool, key, field and cache); a mixed tick and the last ≡ the same
+     tick on the CPU from the card's state (integers and the cache's
+     tables exact, floats 1e-4, grids 1e-5 of their largest value); the
+     pair-list build once a tick with a rebuild, the pairs map, K1 and
+     secretion once a tick, for every lane; one host read a tick (the
+     rebuild flags); (b) 16 Fig-6 lanes of 4,096 agents with K1 and a
+     skin-0 pair list every step, 10 ticks: lanes ≡ solo bit for bit,
+     the build, the pairs map and K1 at 10 launches each; the lane-aware
+     ``pairlist.cu`` and ``pair_cols.cu`` ≡ their plain versions entry
+     for entry on the first tick's inputs, timed against their bounds
+     (bytes summed over lanes) and against the solo call on one Fig-6
+     pool of 65,536 agents; (c) 2 Fig-6 lanes with per-lane ``k_rep``
+     (2.0, 6.0) in the streamed sweep (integers and keys exact, floats
+     1e-4, bit-equality printed, as 23 (c)) and 4 lanes of the 'front'
+     (16³) with ``detect_static`` and K1 (bit for bit), 5 ticks, each ≡
+     its solo card run; (d) (a)'s set-up at 8 and 64 lanes beside the
+     one-lane baseline, as phase 24 measures it (each tick reads the live
+     count back).
+
 The kernels line's K1 and column-map entries add their launches per tick
-on phase 23 (b) (``ensemble_launches_per_tick``).
+on phase 23 (b) (``ensemble_launches_per_tick``); the pair-list build's
+and the pairs map's theirs on phase 26 (b), secretion's on 26 (a).
 
 Each phase prints its seconds. The CPU halves of phases 16-18 run in a
 child process (``chip_smoke.py --cpu-worker OUT``, one torch thread, no
@@ -285,6 +313,17 @@ ENS_BENCH = ((8, 64, "benchmark"), (64, 64, "benchmark"), (256, 256, "cli"))
 ENS_BENCH_TICKS = 50
 # phase 25: the CLI checkpoints every 25 ticks; killed after the one at 125
 SERVE_CKPT_EVERY, SERVE_KILL_AFTER = 25, 125
+# phase 26: the clustering --pairlist set-up as a sweep (8 lanes of the
+# example's 4,000 agents, the last admitted at tick 11), Fig-6 lanes with
+# K1 and a skin-0 pair list (16 of 4,096), per-lane k_rep and statics
+# lanes (the 'front' cut to 16³), and the sweep at 8 and 64 lanes
+# (the example's lanes exhaust the 0.75 displacement bound in two ticks
+# and rebuild together on even ticks, so the last lane is admitted on an
+# odd one, 11, where it alone rebuilds)
+TISSUE_LANES, TISSUE_TICKS, TISSUE_ADMIT_AT = 8, 30, 11
+ENS_PL_LANES, ENS_PL_AGENTS, ENS_PL_TICKS = 16, 4096, 10
+TISSUE_SMALL_TICKS, TISSUE_STATIC_LANES, TISSUE_FRONT_SIDE = 5, 4, 16
+TISSUE_BENCH_LANES, TISSUE_BENCH_TICKS = (8, 64), 20
 # K2 cases: (name, B, Hq, Hkv, Sq, Sk, D, causal, dtype); the first is the
 # qwen2-1.5b prefill shape and the one the kernels line reports. Sq = Sk =
 # "first" or "shortest" is the length of that prompt of phase 7.
@@ -1252,11 +1291,13 @@ def pairlist_bound(spec, grid, pool, pairs) -> tuple[float, str, dict]:
     flags and the box tables read once, the table (idx, run_off, count,
     demand) written once; against ~9 FP32 operations per candidate lane
     these inputs give (each row's 9 runs, truncated at run_capacity)."""
+    import torch
     from repro_torch.core import grid as grid_mod
     from repro_torch.kernels import pairlist
     c, p = pairs.idx.shape
     m = grid.starts.shape[0]
-    _, n = grid_mod.run_bounds(spec, grid, pool.position)
+    _, n = grid_mod.run_bounds(spec, grid, pool.position, torch.arange(
+        c, device=pool.position.device))
     lanes = int(n.clamp(max=spec.run_capacity)[pool.alive].sum())
     moved = c * (12 + 1) + 8 * m + 12 + 4 * c * p + 40 * c + 4 * c + 4
     ops = lanes * pairlist.OPS_PER_LANE
@@ -2974,11 +3015,13 @@ def _bench_parts(agents: int, kind: str, lanes: int):
 
 class _ServingTick:
     """One serving-loop tick, as benchmarks/ensemble.py times it: the
-    ensemble step, then the per-lane infected count read back (the
-    convergence check every real sweep pays)."""
+    ensemble step, then a per-lane metric read back (the convergence check
+    every real sweep pays; by default the infected count)."""
 
-    def __init__(self, engine):
+    def __init__(self, engine, metric=None):
         self.engine = engine
+        if metric is not None:
+            self.metric = metric
 
     @staticmethod
     def metric(pool, params):
@@ -3008,13 +3051,13 @@ def _host_syncs(fn, calls: int) -> float:
     return sum("synchroniz" in str(w.message) for w in seen) / calls
 
 
-def _serving_ticks(engine, st, ticks: int) -> dict:
+def _serving_ticks(engine, st, ticks: int, metric=None) -> dict:
     """ms per serving tick (host clock, each tick ends in its read-back),
     host syncs per tick, and from profiled ticks the device ops per tick
     and the idle share (launch/profile_step.py's)."""
     import torch
     from repro_torch.launch.profile_step import profile_steps
-    runner = _ServingTick(engine)
+    runner = _ServingTick(engine, metric)
     for _ in range(3):
         st = runner.step(st)
     torch.cuda.synchronize()
@@ -3193,6 +3236,454 @@ def phase_service_cli(report: dict, tmpdir: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 26: tissue lanes — every_k, pair lists, diffusion, statics and force
+# overrides in the ensemble
+# ---------------------------------------------------------------------------
+
+def _tissue_parts(n_lanes: int):
+    """(config, behaviors, params template, lane inputs(lane)) of
+    examples/cell_clustering.py --pairlist as a sweep: the example's
+    configuration (phase 15's), Secretion and Chemotaxis reading per-lane
+    rates up to the example's 2.0 and 0.35, lane l's agents from seed
+    4 + l (faster lanes overflow max_pairs 64 or the run capacity within
+    30 ticks as their clusters form)."""
+    import numpy as np
+    from repro_torch.core import Chemotaxis, ScenarioParams, Secretion
+    cfg = _clustering_pairlist("cpu")[0].config
+    bs = [Secretion(rate=lambda ctx: ctx.params["secretion"]),
+          Chemotaxis(speed=lambda ctx: ctx.params["speed"])]
+    rates = np.linspace(1.5, 2.0, n_lanes)
+    speeds = np.linspace(0.25, 0.35, n_lanes)
+    n, side = cfg.capacity, cfg.domain_hi[0]
+
+    def lane_inputs(lane):
+        pos = np.random.default_rng(4 + lane).uniform(
+            4, side - 4, (n, 3)).astype(np.float32)
+        return ((pos, np.full(n, 2.0, np.float32)), lane,
+                ScenarioParams.of(secretion=float(rates[lane]),
+                                  speed=float(speeds[lane])))
+    return cfg, bs, ScenarioParams.of(secretion=0.0, speed=0.0), lane_inputs
+
+
+def _env_tensors(env) -> dict:
+    """name → tensor of a cache's array leaves."""
+    from repro_torch.core import grid as grid_mod
+    out = {f"grid.{f}": getattr(env.grid, f) for f in grid_mod._GRID_LEAVES}
+    out.update(steps_since=env.steps_since, disp_accum=env.disp_accum,
+               dirty=env.dirty)
+    if env.pairs is not None:
+        out.update({f"pairs.{f}": getattr(env.pairs, f)
+                    for f in grid_mod._PAIR_LEAVES}, pair_disp=env.pair_disp)
+    return out
+
+
+def _same_tissue_lane(got, pool, conc, rng, env, what: str) -> None:
+    """A lane ≡ its solo run bit for bit: pool, grid, key and cache."""
+    import torch
+    _same_lane(pool, rng, got, what)
+    check(torch.equal(conc, got.conc), f"{what}: diffusion grid differs")
+    if env is not None:
+        mine = _env_tensors(got.env)
+        for k, v in _env_tensors(env).items():
+            check(torch.equal(v, mine[k]), f"{what}: cache {k} differs")
+
+
+def _tissue_solo(cfg, bs, lane_inputs, lane: int, steps: int):
+    """Lane ``lane``'s solo card run: (pool, conc, rng, env)."""
+    import torch
+    from repro_torch.core import Simulation, make_iteration_core
+    args, seed, params = lane_inputs(lane)
+    st = Simulation(cfg, bs, device="cuda").init_state(*args, seed=seed)
+    core = make_iteration_core(cfg, bs, torch.device("cuda"))
+    pool, conc, rng, it, env = st.pool, st.conc, st.rng, st.iteration, st.env
+    for _ in range(steps):
+        pool, conc, rng, _, env = core(pool, conc, rng, it, env, params)
+        it = it + 1
+    return pool, conc, rng, env
+
+
+def _ensemble_vs_cpu(card_next, cpu_next, what: str) -> float:
+    """A card tick ≡ the same tick on the CPU from the same state: the
+    pool, keys, stats and every cache leaf (integers exact, floats 1e-4)
+    and the grids within 1e-5 of their largest value; the largest float
+    residue."""
+    import numpy as np
+    worst = _pools_close(card_next.pool, cpu_next.pool, f"{what} pool")
+    check(np.array_equal(card_next.rng.cpu().numpy(), cpu_next.rng.numpy()),
+          f"{what}: keys differ")
+    for f in card_next.stats.keys():
+        check(np.array_equal(card_next.stats[f].cpu().numpy(),
+                             cpu_next.stats[f].numpy()),
+              f"{what}: stats {f} differ")
+    g, w = card_next.conc.cpu().numpy(), cpu_next.conc.numpy()
+    scale = max(float(np.abs(w).max()), 1e-30)
+    check(float(np.abs(g - w).max()) <= CONC_RTOL * scale,
+          f"{what}: grids differ by {float(np.abs(g - w).max())}")
+    mine = _env_tensors(cpu_next.env)
+    for k, v in _env_tensors(card_next.env).items():
+        gv, wv = v.cpu().numpy(), mine[k].numpy()
+        if wv.dtype.kind == "f":
+            np.testing.assert_allclose(gv, wv, rtol=1e-4, atol=1e-4,
+                                       err_msg=f"{what}: cache {k}")
+            worst = max(worst, float(np.abs(gv - wv).max(initial=0.0)))
+        else:
+            check(np.array_equal(gv, wv), f"{what}: cache {k} differs")
+    return worst
+
+
+def _front_lane_inputs(lane: int):
+    """Phase 8's 'front' cut to a 16³ lattice: 4,096 agents at spacing 5,
+    the first 5% random-walking, drawn from seed ``lane``."""
+    import numpy as np
+    g = TISSUE_FRONT_SIDE
+    pos = np.stack(np.meshgrid(*[np.arange(g) * 5.0 + 5] * 3), -1
+                   ).reshape(-1, 3).astype(np.float32)
+    pos += np.random.default_rng(lane).uniform(-0.2, 0.2, pos.shape).astype(
+        np.float32)
+    types = np.zeros(g ** 3, np.int32)
+    types[:g ** 3 // 20] = 1
+    return pos, np.full(g ** 3, 3.0, np.float32), types
+
+
+def phase_tissue_lanes(report: dict, tmpdir: str) -> dict:
+    """[26] (a) the clustering --pairlist sweep, (b) Fig-6 lanes with K1
+    and a skin-0 pair list, (c) per-lane k_rep and statics lanes: lanes ≡
+    solo on the card, the kernels once a tick for every lane, the
+    lane-aware kernels ≡ plain; (d) the sweep's throughput."""
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.core import (EngineConfig, EnsembleEngine, ForceParams,
+                                  PairListConfig, RandomWalk, ScenarioParams,
+                                  Simulation, build_env)
+    from repro_torch.core import grid as grid_mod
+    from repro_torch.core.lanes import Lanes
+    from repro_torch.device import card_description
+    from repro_torch.kernels import ops
+    from repro_torch.launch import simulate
+
+    card = card_description()
+    rec = {"card": card}
+    # (a) the clustering sweep: 7 lanes, the 8th admitted mid-run
+    n_l = TISSUE_LANES
+    cfg, bs, tmpl, lane_inputs = _tissue_parts(n_l)
+    eng = EnsembleEngine(cfg, bs, n_l, tmpl, device="cuda")
+    st = eng.init_state()
+
+    def admit(state, lane):
+        args, seed, params = lane_inputs(lane)
+        return eng.admit(state, lane, eng.stage_lane(*args, seed=seed),
+                         params)
+    for lane in range(n_l - 1):
+        st = admit(st, lane)
+    _reset_counts()
+    flags, states = [], []
+    for tick in range(TISSUE_TICKS):
+        if tick == TISSUE_ADMIT_AT:
+            st = admit(st, n_l - 1)
+        states.append(st)
+        st = eng.step(st)
+        flags.append(st.stats.rebuilds.tolist())
+    states.append(st)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    n_active = [n_l - 1 if t < TISSUE_ADMIT_AT else n_l
+                for t in range(TISSUE_TICKS)]
+    mixed = [t for t, f in enumerate(flags)
+             if len(set(f[:n_active[t]])) > 1]
+    check(mixed, f"[26a] no tick had mixed rebuild flags: {flags}")
+    rebuild_ticks = sum(any(f) for f in flags)
+    want = {"pairlist_build": rebuild_ticks, "k1_pair_cols": TISSUE_TICKS,
+            "k1_collision_force": TISSUE_TICKS, "secretion": TISSUE_TICKS,
+            "k1_column_map": 0}
+    for name, count in want.items():
+        check(launches[name] == count,
+              f"[26a] {name} launched {launches[name]} times in "
+              f"{TISSUE_TICKS} ticks ({rebuild_ticks} with a rebuild), "
+              f"expected {count}")
+    check(not st.stats.flags(), f"[26a] overflow flags {st.stats.flags()}")
+    for lane in range(n_l):
+        steps = TISSUE_TICKS - (TISSUE_ADMIT_AT if lane == n_l - 1 else 0)
+        _same_tissue_lane(eng.read_lane(st, lane),
+                          *_tissue_solo(cfg, bs, lane_inputs, lane, steps),
+                          f"[26a] lane {lane}")
+    # a mixed tick and the last, on the CPU from the card's state (the
+    # admission writes the state of tick ADMIT_AT - 1 in place, so that
+    # tick's output is not kept)
+    t_mixed = next(t for t in mixed if t != TISSUE_ADMIT_AT - 1)
+    cpu_ticks = sorted({t_mixed, TISSUE_TICKS - 1})
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cpu_eng = EnsembleEngine(cfg, bs, n_l, tmpl, device="cpu")
+        worst = 0.0
+        for t in cpu_ticks:
+            before = convert.ensemble_state_from_numpy(
+                convert.ensemble_state_to_numpy(states[t]), "cpu")
+            worst = max(worst, _ensemble_vs_cpu(
+                states[t + 1], cpu_eng.step(before), f"[26a] tick {t}"))
+    finally:
+        torch.set_num_threads(threads)
+    box = [st]
+
+    def one():
+        box[0] = eng.step(box[0])
+    syncs = _host_syncs(one, 5)
+    check(syncs == 1.0, f"[26a] {syncs} host reads a tick, not the one "
+                        f"read of the rebuild flags")
+    rec["clustering"] = {
+        "lanes": n_l, "agents": cfg.capacity, "ticks": TISSUE_TICKS,
+        "admitted_at": TISSUE_ADMIT_AT, "rebuild_flags": flags,
+        "mixed_ticks": mixed, "launches": launches,
+        "launches_per_tick": {k: launches[k] / TISSUE_TICKS
+                              for k in ("pairlist_build", "k1_pair_cols",
+                                        "k1_collision_force", "secretion")},
+        "lanes_equal_solo": True, "cpu_ticks": cpu_ticks,
+        "cpu_max_abs_diff": worst, "host_reads_per_tick": syncs,
+        "pair_demand": [int(v) for v in st.stats.pair_demand],
+        "conc_max": [float(v) for v in st.conc.reshape(n_l, -1).amax(1)]}
+    print(f"[26a] clustering --pairlist sweep, {n_l} lanes x {cfg.capacity} "
+          f"agents (lane {n_l - 1} admitted at tick {TISSUE_ADMIT_AT}), "
+          f"{TISSUE_TICKS} ticks: mixed rebuild flags at ticks {mixed} "
+          f"(tick {t_mixed}: {flags[t_mixed]}); every lane ≡ its solo "
+          f"card run bit for bit (grid, key and cache); ticks "
+          f"{cpu_ticks} ≡ the CPU (max|Δ| "
+          f"{worst:.3g}, integers equal); launches {launches} "
+          f"({rebuild_ticks} ticks rebuilt); {syncs:.1f} host read a tick; "
+          f"{card}", flush=True)
+
+    # (b) Fig-6 lanes with K1 and a skin-0 pair list every step
+    n = ENS_PL_AGENTS
+    sim6, _ = simulate.build("proliferation", n, "fig6", device="cuda")
+    cfg6 = dataclasses.replace(sim6.config, pairlist=PairListConfig(
+        skin=0.0, max_pairs=64))
+    bs6, spec = sim6.behaviors, cfg6.grid_spec
+    ln = Lanes(ENS_PL_LANES, cfg6.capacity)
+    eng6 = EnsembleEngine(cfg6, bs6, ENS_PL_LANES, device="cuda")
+    st6 = eng6.init_state()
+    for lane in range(ENS_PL_LANES):
+        st6 = eng6.admit(st6, lane, eng6.stage_lane(
+            *_fig6_lane_inputs(n, lane), seed=lane))
+    origin = torch.tensor(cfg6.domain_lo, dtype=torch.float32, device="cuda")
+    res = build_env(cfg6, spec, st6.pool, origin, cfg6.cell_size, ln)
+    pool, g = res.pool, res.grid
+    kw = dict(radius=cfg6.interaction_radius, max_pairs=64,
+              chunk=cfg6.query_chunk)
+    got = grid_mod.build_pairlist(spec, g, pool.position, pool.alive, **kw)
+    torch.cuda.synchronize()
+    want_pl = grid_mod.build_pairlist_plain(spec, g, pool.position,
+                                            pool.alive, **kw)
+    for f in ("idx", "run_off", "count", "demand"):
+        check(torch.equal(getattr(got, f), getattr(want_pl, f)),
+              f"[26b] lane-aware pair list differs from plain in {f}")
+    check(tuple(got.demand.shape) == (ENS_PL_LANES,)
+          and int(got.demand.max()) <= 64, f"[26b] demand {got.demand}")
+    pl_ms = cuda_ms(lambda: grid_mod.build_pairlist(
+        spec, g, pool.position, pool.alive, **kw), iters=20, warmup=3)
+    pl_plain = cuda_ms(lambda: grid_mod.build_pairlist_plain(
+        spec, g, pool.position, pool.alive, **kw), iters=2, warmup=0)
+    pl_bound, pl_by, pl_work = pairlist_bound(spec, g, pool, got)
+    args = (pool.position, pool.diameter, pool.agent_type, pool.alive,
+            pool.alive, g.starts, g.counts, origin, cfg6.cell_size,
+            spec.dims, 64)
+    pm = ops.k1_inputs(*args, got, ln)
+    torch.cuda.synchronize()
+    pm_want = ops.k1_inputs_plain(*args, got, ln)
+    for gt, w, what in zip(pm, pm_want, ("data_t", "block_cols", "overflow",
+                                         "row mask")):
+        check(gt.dtype == w.dtype and torch.equal(gt, w),
+              f"[26b] lane-aware pairs map differs from plain in {what}")
+    check(tuple(pm[2].shape) == (ENS_PL_LANES,) and not bool(pm[2].any()),
+          "[26b] per-lane pairs-map overflow")
+    pm_ms = cuda_ms(lambda: ops.k1_inputs(*args, got, ln), iters=20,
+                    warmup=3)
+    pm_plain = cuda_ms(lambda: ops.k1_inputs_plain(*args, got, ln), iters=2,
+                       warmup=0)
+    pm_bound, pm_by, pm_work = pairs_map_bound(pool, got, pm[0], pm[1])
+    # the solo calls at the same total rows: one Fig-6 pool of L·n agents
+    ssim, sst = simulate.build("proliferation", ENS_PL_LANES * n, "fig6",
+                               device="cuda")
+    sres = build_env(ssim.config, ssim.spec, sst.pool, origin,
+                     ssim.config.cell_size)
+    sp, sg = sres.pool, sres.grid
+    spairs = grid_mod.build_pairlist(ssim.spec, sg, sp.position, sp.alive,
+                                     **kw)
+    solo_pl_ms = cuda_ms(lambda: grid_mod.build_pairlist(
+        ssim.spec, sg, sp.position, sp.alive, **kw), iters=20, warmup=3)
+    sargs = (sp.position, sp.diameter, sp.agent_type, sp.alive, sp.alive,
+             sg.starts, sg.counts, origin, ssim.config.cell_size,
+             ssim.spec.dims, 64)
+    solo_pm_ms = cuda_ms(lambda: ops.k1_inputs(*sargs, spairs), iters=20,
+                         warmup=3)
+    kernels = {
+        "pairlist_build": {
+            "equal": True, "max_abs_err": 0.0, "ms": pl_ms,
+            "plain_ms": pl_plain, "bound_ms": pl_bound, "bound_by": pl_by,
+            "library_ms": None, "solo_ms": solo_pl_ms,
+            "rows": pool.position.shape[0],
+            "solo_rows": sp.position.shape[0], **pl_work},
+        "k1_pair_cols": {
+            "equal": True, "max_abs_err": 0.0, "ms": pm_ms,
+            "plain_ms": pm_plain, "bound_ms": pm_bound, "bound_by": pm_by,
+            "library_ms": None, "solo_ms": solo_pm_ms,
+            "n_pad": pm[0].shape[1], **pm_work}}
+    _reset_counts()
+    for _ in range(ENS_PL_TICKS):
+        st6 = eng6.step(st6)
+    torch.cuda.synchronize()
+    launches6 = _read_counts()
+    for name in ("pairlist_build", "k1_pair_cols", "k1_collision_force"):
+        check(launches6[name] == ENS_PL_TICKS,
+              f"[26b] {name} launched {launches6[name]} times in "
+              f"{ENS_PL_TICKS} ticks of {ENS_PL_LANES} lanes, not once a "
+              f"tick")
+    check(launches6["k1_column_map"] == 0, "[26b] the stencil map ran")
+    check(not st6.stats.flags(), f"[26b] overflow flags {st6.stats.flags()}")
+    sim_pl = Simulation(cfg6, bs6, device="cuda")
+    for lane in range(ENS_PL_LANES):
+        solo = sim_pl.init_state(*_fig6_lane_inputs(n, lane), seed=lane)
+        for _ in range(ENS_PL_TICKS):
+            solo = sim_pl.step(solo)
+        _same_lane(solo.pool, solo.rng, eng6.read_lane(st6, lane),
+                   f"[26b] lane {lane}")
+    rec["fig6_pairs"] = {
+        "lanes": ENS_PL_LANES, "agents": n, "capacity": cfg6.capacity,
+        "ticks": ENS_PL_TICKS, "lanes_equal_solo": True,
+        "launches": launches6,
+        "launches_per_tick": {k: launches6[k] / ENS_PL_TICKS for k in (
+            "pairlist_build", "k1_pair_cols", "k1_collision_force")},
+        "kernels": kernels,
+        "demand": [int(v) for v in got.demand]}
+    print(f"[26b] Fig-6 {ENS_PL_LANES} lanes x {n} agents, K1 from a skin-0 "
+          f"pair list every step, {ENS_PL_TICKS} ticks: pair-list build, "
+          f"pairs map and K1 {launches6['pairlist_build']}, "
+          f"{launches6['k1_pair_cols']}, {launches6['k1_collision_force']} "
+          f"launches (once a tick for all lanes); every lane ≡ its solo card "
+          f"run bit for bit; lane-aware pair list ≡ plain (idx, run_off, "
+          f"count, per-lane demand {rec['fig6_pairs']['demand']}): kernel "
+          f"{pl_ms:.4f} ms, plain {pl_plain:.2f} ms, bound {pl_bound:.4f} ms "
+          f"({pl_by}), the solo call on {sp.position.shape[0]} rows "
+          f"{solo_pl_ms:.4f} ms; lane-aware pairs map ≡ plain: kernel "
+          f"{pm_ms:.4f} ms, plain {pm_plain:.2f} ms, bound {pm_bound:.4f} ms "
+          f"({pm_by}), the solo call {solo_pm_ms:.4f} ms; {card}",
+          flush=True)
+
+    # (c) per-lane k_rep in the streamed sweep; statics lanes with K1
+    kcfg = dataclasses.replace(sim6.config, force_impl="streamed")
+    kt = ScenarioParams.of(force={"k_rep": 0.0})
+    k_reps = (2.0, 6.0)
+    keng = EnsembleEngine(kcfg, bs6, 2, kt, device="cuda")
+    kst = keng.init_state()
+    for lane in range(2):
+        kst = keng.admit(kst, lane, keng.stage_lane(
+            *_fig6_lane_inputs(n, lane), seed=lane),
+            ScenarioParams.of(force={"k_rep": k_reps[lane]}))
+    for _ in range(TISSUE_SMALL_TICKS):
+        kst = keng.step(kst)
+    k_equal, k_worst = True, 0.0
+    for lane in range(2):
+        solo = Simulation(kcfg, bs6, device="cuda").init_state(
+            *_fig6_lane_inputs(n, lane), seed=lane)
+        pool_s, rng_s = _solo_core_run(
+            kcfg, bs6, solo, ScenarioParams.of(force={"k_rep": k_reps[lane]}),
+            TISSUE_SMALL_TICKS, "cuda")
+        got_l = keng.read_lane(kst, lane)
+        check(torch.equal(rng_s, got_l.rng), f"[26c] k_rep lane {lane} key")
+        k_equal &= all(torch.equal(v, got_l.pool.channels()[k])
+                       for k, v in pool_s.channels().items())
+        k_worst = max(k_worst, _pools_close(got_l.pool, _host_pool(pool_s),
+                                            f"[26c] k_rep lane {lane}"))
+    a_pos, b_pos = (keng.read_lane(kst, lane).pool.position
+                    for lane in range(2))
+    check(not torch.equal(a_pos, b_pos), "[26c] k_rep made no difference")
+    side = 5.0 * TISSUE_FRONT_SIDE + 10
+    scfg = EngineConfig(capacity=TISSUE_FRONT_SIDE ** 3,
+                        domain_lo=(0, 0, 0), domain_hi=(side,) * 3,
+                        interaction_radius=4.0, dt=0.05, detect_static=True,
+                        max_per_box=32, query_chunk=4096,
+                        force=ForceParams(max_displacement=0.5))
+    sbs = [RandomWalk(sigma=0.4, applies_to=1)]
+    seng = EnsembleEngine(scfg, sbs, TISSUE_STATIC_LANES, device="cuda")
+    sst2 = seng.init_state()
+    for lane in range(TISSUE_STATIC_LANES):
+        pos, dia, types = _front_lane_inputs(lane)
+        sst2 = seng.admit(sst2, lane, seng.stage_lane(pos, dia, types,
+                                                      seed=lane))
+    for _ in range(TISSUE_SMALL_TICKS):
+        sst2 = seng.step(sst2)
+    ssim2 = Simulation(scfg, sbs, device="cuda")
+    for lane in range(TISSUE_STATIC_LANES):
+        pos, dia, types = _front_lane_inputs(lane)
+        solo = ssim2.init_state(pos, dia, types, seed=lane)
+        for _ in range(TISSUE_SMALL_TICKS):
+            solo = ssim2.step(solo)
+        _same_lane(solo.pool, solo.rng, seng.read_lane(sst2, lane),
+                   f"[26c] statics lane {lane}")
+    n_static = [int(v) for v in sst2.pool.static.reshape(
+        TISSUE_STATIC_LANES, -1).sum(1)]
+    check(min(n_static) > 0, f"[26c] static rows per lane {n_static}")
+    rec["k_rep"] = {"lanes": 2, "agents": n, "k_rep": list(k_reps),
+                    "ticks": TISSUE_SMALL_TICKS, "bit_equal": k_equal,
+                    "max_abs_diff": k_worst}
+    rec["statics"] = {"lanes": TISSUE_STATIC_LANES,
+                      "agents": TISSUE_FRONT_SIDE ** 3,
+                      "ticks": TISSUE_SMALL_TICKS,
+                      "lanes_equal_solo": True, "static_rows": n_static}
+    print(f"[26c] per-lane k_rep {list(k_reps)} in the streamed sweep, 2 "
+          f"lanes x {n} Fig-6 agents, {TISSUE_SMALL_TICKS} ticks: each lane "
+          f"≡ its solo card run "
+          f"{'bit for bit' if k_equal else f'within {k_worst:.3g}'} "
+          f"(integers and keys equal); statics: {TISSUE_STATIC_LANES} lanes "
+          f"of the {TISSUE_FRONT_SIDE ** 3}-agent front with K1 ≡ their solo "
+          f"card runs bit for bit, static rows per lane {n_static}; {card}",
+          flush=True)
+
+    # (d) the sweep's serving ticks at 8 and 64 lanes beside one lane
+    recs = []
+    for lanes in TISSUE_BENCH_LANES:
+        cfg_d, bs_d, tmpl_d, inputs_d = _tissue_parts(lanes)
+
+        def filled(n_lanes):
+            e = EnsembleEngine(cfg_d, bs_d, n_lanes, tmpl_d, device="cuda")
+            s = e.init_state()
+            for lane in range(n_lanes):
+                a, seed, params = inputs_d(lane)
+                s = e.admit(s, lane, e.stage_lane(*a, seed=seed), params)
+            return e, s
+        ens = _serving_ticks(*filled(lanes), TISSUE_BENCH_TICKS,
+                             metric=_live_count)
+        seq = _serving_ticks(*filled(1), TISSUE_BENCH_TICKS,
+                             metric=_live_count)
+        agents = cfg_d.capacity
+        ens_rate = lanes * agents / (ens["ms_per_tick"] * 1e-3)
+        seq_rate = agents / (seq["ms_per_tick"] * 1e-3)
+        r = {"lanes": lanes, "agents_per_lane": agents,
+             "ticks": TISSUE_BENCH_TICKS,
+             "ensemble": {**ens, "agent_steps_per_s": ens_rate},
+             "sequential": {**seq, "agent_steps_per_s": seq_rate},
+             "speedup_vs_sequential": ens_rate / seq_rate, "card": card}
+        recs.append(r)
+        print(f"[26d] clustering sweep, {lanes} lanes x {agents} agents: "
+              f"{ens['ms_per_tick']:.3f} ms/tick, {ens_rate:.4g} "
+              f"agent-steps/s, {ens['device_ops_per_tick']:.0f} device "
+              f"ops/tick, idle {ens['device_idle_share']:.3f}, "
+              f"{ens['host_syncs_per_tick']:.1f} host syncs/tick | one lane: "
+              f"{seq['ms_per_tick']:.3f} ms/tick, {seq_rate:.4g} "
+              f"agent-steps/s, {seq['device_ops_per_tick']:.0f} ops, idle "
+              f"{seq['device_idle_share']:.3f}, "
+              f"{seq['host_syncs_per_tick']:.1f} syncs | speedup "
+              f"{r['speedup_vs_sequential']:.2f}x; {card}", flush=True)
+    rec["throughput"] = recs
+    report["tissue_lanes"] = rec
+    return rec
+
+
+def _live_count(pool, params):
+    """The serving tick's read-back for the tissue sweep: live agents."""
+    return pool.alive.sum()
+
+
 T_START = time.perf_counter()
 
 
@@ -3290,6 +3781,7 @@ def _run(workers, tmpdir: str) -> int:
     lanes_rec = timed("23", phase_lanes_vs_solo, report)
     timed("24", phase_ensemble_throughput, report)
     timed("25", phase_service_cli, report, tmpdir)
+    tissue = timed("26", phase_tissue_lanes, report, tmpdir)
     report["total_s"] = time.perf_counter() - T_START
     print(f"phases took {sum(seconds.values()):.1f} s, the script "
           f"{report['total_s']:.1f} s", flush=True)
@@ -3337,12 +3829,16 @@ def _run(workers, tmpdir: str) -> int:
             ("secretion", "secretion.cu",
              "src/repro/core/diffusion.py:68",
              sec["clustering"]["launches"]["secretion"], sec["kernel"][0])):
+        per_tick = (tissue["fig6_pairs"]["launches_per_tick"]
+                    if name != "secretion"
+                    else tissue["clustering"]["launches_per_tick"])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": ref, "launches": count,
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}})
+                                   "bound_ms", "bound_by", "library_ms")},
+            "ensemble_launches_per_tick": per_tick[name]})
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -39,7 +39,13 @@ layout, whatever the port's lane-major pool holds in memory::
      "stats": {field: (L,) int32, ...}, "active": (L,) bool,
      "params": {"dt": () per lane or None, "force": {...},
                 "rates": {...}} or None,     # leaves (L, ...)
-     "tick": () int32}
+     "tick": () int32,
+     "env": {...} or None}                  # every_k's caches, (L, ...)
+
+An ensemble's ``env`` is the solo layout with a leading lane axis on every
+leaf (``box_size`` (L,) float32 too) and each lane's slot ids its own, as
+the reference's vmapped cache holds them; the port keeps it lane-major in
+memory (``grid.stack_rebuild_state`` / ``flatten_rebuild_state``).
 
 Dtypes are kept (uint32 keys become int64 holding the same values), so
 :func:`state_to_numpy` returns arrays equal, bit for bit, to the input.
@@ -51,7 +57,7 @@ numpy dtype a caller passes.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -59,7 +65,9 @@ import torch
 from .core.agents import pool_from_channels
 from .core.engine import EngineState, ScenarioParams
 from .core.ensemble import EnsembleState
-from .core.grid import GridState, PairList, RebuildState
+from .core.grid import (GridState, PairList, RebuildState,
+                        flatten_rebuild_state, stack_rebuild_state)
+from .core.lanes import Lanes
 from .core.stats import StepStats
 from .device import DeviceLike, resolve_device
 
@@ -108,23 +116,46 @@ _GRID_FIELDS = ("origin", "keys", "order", "rank", "starts", "counts",
 _PAIR_FIELDS = ("idx", "run_off", "count", "demand")
 
 
-def _env_from_numpy(env: Optional[Dict[str, Any]], dev: torch.device
-                    ) -> Optional[RebuildState]:
+def _env_from_numpy(env: Optional[Dict[str, Any]], dev: torch.device,
+                    stacked: bool = False) -> Optional[RebuildState]:
+    """The cache from its leaves; ``stacked``: an ensemble's (L, ...)
+    leaves, returned lane-major."""
     if env is None:
         return None
     g = env["grid"]
-    grid = GridState(box_size=float(np.asarray(g["box_size"])),
+    box = (_to_torch(g["box_size"], dev) if stacked
+           else float(np.asarray(g["box_size"])))
+    grid = GridState(box_size=box,
                      **{f: _to_torch(g[f], dev) for f in _GRID_FIELDS})
     pairs = env.get("pairs")
     if pairs is not None:
         pairs = PairList(**{f: _to_torch(pairs[f], dev)
                             for f in _PAIR_FIELDS})
     pair_disp = env.get("pair_disp")
-    return RebuildState(
+    out = RebuildState(
         grid=grid, pairs=pairs,
         pair_disp=None if pair_disp is None else _to_torch(pair_disp, dev),
         **{f: _to_torch(env[f], dev)
            for f in ("steps_since", "disp_accum", "dirty")})
+    return flatten_rebuild_state(out) if stacked else out
+
+
+def _env_to_numpy(env: Optional[RebuildState], arr: Callable
+                  ) -> Optional[Dict[str, Any]]:
+    if env is None:
+        return None
+    grid = {f: arr(getattr(env.grid, f)) for f in _GRID_FIELDS}
+    grid["keys"] = grid["keys"].astype(np.uint32)
+    box = env.grid.box_size
+    grid["box_size"] = (arr(box).astype(np.float32)
+                        if isinstance(box, torch.Tensor) else np.float32(box))
+    return {
+        "grid": grid,
+        **{f: arr(getattr(env, f))
+           for f in ("steps_since", "disp_accum", "dirty")},
+        "pairs": None if env.pairs is None else {
+            f: arr(getattr(env.pairs, f)) for f in _PAIR_FIELDS},
+        "pair_disp": None if env.pair_disp is None else arr(env.pair_disp)}
 
 
 def state_to_numpy(state: EngineState,
@@ -138,20 +169,7 @@ def state_to_numpy(state: EngineState,
            "rng": arr(state.rng).astype(np.uint32),
            "iteration": arr(state.iteration),
            "stats": {f: arr(state.stats[f]) for f in StepStats.FIELDS},
-           "conc": arr(state.conc), "env": None}
-    env = state.env
-    if env is not None:
-        grid = {f: arr(getattr(env.grid, f)) for f in _GRID_FIELDS}
-        grid["keys"] = grid["keys"].astype(np.uint32)
-        grid["box_size"] = np.float32(env.grid.box_size)
-        out["env"] = {
-            "grid": grid,
-            **{f: arr(getattr(env, f))
-               for f in ("steps_since", "disp_accum", "dirty")},
-            "pairs": None if env.pairs is None else {
-                f: arr(getattr(env.pairs, f)) for f in _PAIR_FIELDS},
-            "pair_disp": None if env.pair_disp is None
-            else arr(env.pair_disp)}
+           "conc": arr(state.conc), "env": _env_to_numpy(state.env, arr)}
     return out
 
 
@@ -180,7 +198,8 @@ def ensemble_state_from_numpy(leaves: Dict[str, Any],
             torch.int32) for f in StepStats.FIELDS}),
         active=_to_torch(leaves["active"], dev).to(torch.bool),
         params=params,
-        tick=_to_torch(leaves["tick"], dev).to(torch.int32))
+        tick=_to_torch(leaves["tick"], dev).to(torch.int32),
+        env=_env_from_numpy(leaves.get("env"), dev, stacked=True))
 
 
 def ensemble_state_to_numpy(state: EnsembleState,
@@ -192,6 +211,9 @@ def ensemble_state_to_numpy(state: EnsembleState,
         return _to_numpy(t, bfloat16)
     n = state.n_lanes
     p = state.params
+    env = state.env
+    if env is not None:
+        env = stack_rebuild_state(env, Lanes(n, state.pool.capacity // n))
     return {
         "pool": {k: arr(v).reshape(n, -1, *v.shape[1:])
                  for k, v in state.pool.channels().items()},
@@ -204,7 +226,7 @@ def ensemble_state_to_numpy(state: EnsembleState,
             "dt": None if p.dt is None else arr(p.dt),
             "force": {k: arr(v) for k, v in p.force.items()},
             "rates": {k: arr(v) for k, v in p.rates.items()}},
-        "tick": arr(state.tick)}
+        "tick": arr(state.tick), "env": _env_to_numpy(env, arr)}
 
 
 def _leaf_from_numpy(a: Any, device: torch.device) -> torch.Tensor:

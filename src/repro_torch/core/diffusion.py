@@ -17,13 +17,14 @@ tests hold all of it at voxel 1.5.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..kernels import secretion
+from .lanes import Lanes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,31 +45,39 @@ def _recip(x: float) -> float:
 
 
 def _edge_pad(a: torch.Tensor, x: int, yz: int) -> torch.Tensor:
-    """Replicate-pad a 3-D grid by ``x`` voxels along x and ``yz`` along y
-    and z (``jnp.pad(mode="edge")``; replicate padding needs a 5-D view)."""
-    return F.pad(a[None, None], (yz, yz, yz, yz, x, x),
-                 mode="replicate")[0, 0]
+    """Replicate-pad a 3-D grid, or an ensemble's (L, X, Y, Z) grids, by
+    ``x`` voxels along x and ``yz`` along y and z (``jnp.pad(mode="edge")``;
+    replicate padding needs a 5-D view)."""
+    v = a[:, None] if a.dim() == 4 else a[None, None]
+    p = F.pad(v, (yz, yz, yz, yz, x, x), mode="replicate")
+    return p[:, 0] if a.dim() == 4 else p[0, 0]
 
 
-def step_slab(spec: DiffusionSpec, conc: torch.Tensor, dt: float,
+def step_slab(spec: DiffusionSpec, conc: torch.Tensor, dt,
               x_lo: torch.Tensor, x_hi: torch.Tensor) -> torch.Tensor:
     """FTCS step on an x-slab whose face neighbors are given: ``x_lo`` /
     ``x_hi`` (ny, nz) are the planes just outside its low / high x face.
     Passing the slab's own edge planes gives the zero-flux (Neumann)
-    boundary, which is how :func:`step` is defined; y and z stay Neumann."""
-    cx = torch.cat([x_lo[None], conc, x_hi[None]], 0)
+    boundary, which is how :func:`step` is defined; y and z stay Neumann.
+
+    An ensemble's grids step together: ``conc`` (L, nx, ny, nz), the faces
+    (L, ny, nz) and ``dt`` a number or (L,) per lane; each lane's voxels
+    take exactly the operations of its solo step."""
+    cx = torch.cat([x_lo.unsqueeze(-3), conc, x_hi.unsqueeze(-3)], -3)
     pad = _edge_pad(cx, 0, 1)
-    lap = (pad[2:, 1:-1, 1:-1] + pad[:-2, 1:-1, 1:-1]
-           + pad[1:-1, 2:, 1:-1] + pad[1:-1, :-2, 1:-1]
-           + pad[1:-1, 1:-1, 2:] + pad[1:-1, 1:-1, :-2]
+    lap = (pad[..., 2:, 1:-1, 1:-1] + pad[..., :-2, 1:-1, 1:-1]
+           + pad[..., 1:-1, 2:, 1:-1] + pad[..., 1:-1, :-2, 1:-1]
+           + pad[..., 1:-1, 1:-1, 2:] + pad[..., 1:-1, 1:-1, :-2]
            - 6.0 * conc) * _recip(spec.voxel ** 2)
+    if isinstance(dt, torch.Tensor) and dt.dim() == 1:
+        dt = dt[:, None, None, None]
     return conc + dt * (spec.coefficient * lap - spec.decay * conc)
 
 
-def step(spec: DiffusionSpec, conc: torch.Tensor, dt: float
-         ) -> torch.Tensor:
-    """One FTCS diffusion-decay step with zero-flux (Neumann) boundaries."""
-    return step_slab(spec, conc, dt, conc[0], conc[-1])
+def step(spec: DiffusionSpec, conc: torch.Tensor, dt) -> torch.Tensor:
+    """One FTCS diffusion-decay step with zero-flux (Neumann) boundaries
+    (an ensemble's (L, X, Y, Z) grids at once)."""
+    return step_slab(spec, conc, dt, conc[..., 0, :, :], conc[..., -1, :, :])
 
 
 def voxel_of(spec: DiffusionSpec, position: torch.Tensor,
@@ -80,20 +89,31 @@ def voxel_of(spec: DiffusionSpec, position: torch.Tensor,
                         for i, d in enumerate(spec.dims)], -1)
 
 
-def _flat(spec: DiffusionSpec, v: torch.Tensor) -> torch.Tensor:
+def _flat(spec: DiffusionSpec, v: torch.Tensor,
+          lanes: Optional[Lanes] = None) -> torch.Tensor:
+    """Flat voxel ids; an ensemble's rows index their own lane's grid of
+    the (L, X, Y, Z) stack (+ lane·V)."""
     _, ny, nz = spec.dims
     v = v.to(torch.int64)
-    return (v[:, 0] * ny + v[:, 1]) * nz + v[:, 2]
+    flat = (v[:, 0] * ny + v[:, 1]) * nz + v[:, 2]
+    if lanes is not None and not lanes.solo:
+        vox = spec.dims[0] * ny * nz
+        flat = flat + lanes.rows(torch.arange(
+            lanes.n, dtype=torch.int64, device=flat.device) * vox)
+    return flat
 
 
 def add_sources(spec: DiffusionSpec, conc: torch.Tensor,
                 position: torch.Tensor, amount: torch.Tensor,
-                origin: torch.Tensor) -> torch.Tensor:
+                origin: torch.Tensor, lanes: Optional[Lanes] = None
+                ) -> torch.Tensor:
     """Add per-agent secretion into the voxel grid, each voxel's amounts in
     slot order, as XLA:CPU's scatter does: ``index_add`` on the CPU, the
     secretion kernel on the card (``kernels/secretion.add``; the card's
-    ``index_add`` adds by atomics, in no fixed order)."""
-    idx = _flat(spec, voxel_of(spec, position, origin))
+    ``index_add`` adds by atomics, in no fixed order). An ensemble's rows
+    add into their own lane's grid: the lanes' voxel ids are disjoint and
+    its rows lane-major, so one call keeps every voxel's slot order."""
+    idx = _flat(spec, voxel_of(spec, position, origin), lanes)
     if conc.device.type != "cpu":
         return secretion.add(conc, idx, amount)
     return conc.reshape(-1).index_add(0, idx, amount.to(conc.dtype)
@@ -101,43 +121,49 @@ def add_sources(spec: DiffusionSpec, conc: torch.Tensor,
 
 
 def sample(spec: DiffusionSpec, conc: torch.Tensor, position: torch.Tensor,
-           origin: torch.Tensor) -> torch.Tensor:
-    idx = _flat(spec, voxel_of(spec, position, origin))
+           origin: torch.Tensor, lanes: Optional[Lanes] = None
+           ) -> torch.Tensor:
+    idx = _flat(spec, voxel_of(spec, position, origin), lanes)
     return conc.reshape(-1)[idx]
 
 
 def gradient(spec: DiffusionSpec, conc: torch.Tensor, position: torch.Tensor,
-             origin: torch.Tensor) -> torch.Tensor:
+             origin: torch.Tensor, lanes: Optional[Lanes] = None
+             ) -> torch.Tensor:
     """Central-difference gradient sampled at agent voxels, (N, 3)."""
     pad = _edge_pad(conc, 1, 1)
     r = _recip(2 * spec.voxel)
-    gx = (pad[2:, 1:-1, 1:-1] - pad[:-2, 1:-1, 1:-1]) * r
-    gy = (pad[1:-1, 2:, 1:-1] - pad[1:-1, :-2, 1:-1]) * r
-    gz = (pad[1:-1, 1:-1, 2:] - pad[1:-1, 1:-1, :-2]) * r
-    idx = _flat(spec, voxel_of(spec, position, origin))
+    gx = (pad[..., 2:, 1:-1, 1:-1] - pad[..., :-2, 1:-1, 1:-1]) * r
+    gy = (pad[..., 1:-1, 2:, 1:-1] - pad[..., 1:-1, :-2, 1:-1]) * r
+    gz = (pad[..., 1:-1, 1:-1, 2:] - pad[..., 1:-1, 1:-1, :-2]) * r
+    idx = _flat(spec, voxel_of(spec, position, origin), lanes)
     return torch.stack([g.reshape(-1)[idx] for g in (gx, gy, gz)], -1)
 
 
 class DiffusionOps:
     """Substance-grid operations as the iteration core consumes them, on
     the full in-memory grid (the reference's sharded variant is ROADMAP.md
-    Queue 1 item 15)."""
+    Queue 1 item 15). ``lanes``: an ensemble's (L, X, Y, Z) grids, each
+    row reading and writing its own lane's."""
 
-    def __init__(self, spec: DiffusionSpec, origin: torch.Tensor):
+    def __init__(self, spec: DiffusionSpec, origin: torch.Tensor,
+                 lanes: Optional[Lanes] = None):
         self.spec = spec
         self.origin = origin
+        self.lanes = lanes
 
-    def step(self, conc: torch.Tensor, dt: float) -> torch.Tensor:
+    def step(self, conc: torch.Tensor, dt) -> torch.Tensor:
         return step(self.spec, conc, dt)
 
     def sample(self, conc: torch.Tensor, position: torch.Tensor
                ) -> torch.Tensor:
-        return sample(self.spec, conc, position, self.origin)
+        return sample(self.spec, conc, position, self.origin, self.lanes)
 
     def gradient(self, conc: torch.Tensor, position: torch.Tensor
                  ) -> torch.Tensor:
-        return gradient(self.spec, conc, position, self.origin)
+        return gradient(self.spec, conc, position, self.origin, self.lanes)
 
     def add_sources(self, conc: torch.Tensor, position: torch.Tensor,
                     amount: torch.Tensor) -> torch.Tensor:
-        return add_sources(self.spec, conc, position, amount, self.origin)
+        return add_sources(self.spec, conc, position, amount, self.origin,
+                           self.lanes)

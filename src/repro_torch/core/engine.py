@@ -382,26 +382,20 @@ def check_kernel_footprints(cfg: EngineConfig, behaviors: Sequence[Behavior],
 
 
 def _lane_limits(cfg: EngineConfig) -> None:
-    """What an ensemble's step does not run yet (ROADMAP.md item 13b)."""
-    missing = [what for what, on in (
-        (f"environment={cfg.environment!r}",
-         cfg.environment != "uniform_grid"),
-        ("rebuild.mode='every_k'", cfg.rebuild.mode == "every_k"),
-        ("pairlist", cfg.pairlist is not None),
-        ("diffusion", cfg.diffusion is not None),
-        ("detect_static", cfg.detect_static)) if on]
-    if missing:
+    """What an ensemble's step does not run yet (ROADMAP.md item 13c): the
+    environments other than the uniform grid."""
+    if cfg.environment != "uniform_grid":
         raise NotImplementedError(
-            f"the ensemble does not run {', '.join(missing)} yet "
-            f"(ROADMAP.md Queue 1 item 13b)")
+            f"the ensemble does not run environment={cfg.environment!r} "
+            f"yet, only the uniform grid (ROADMAP.md Queue 1 item 13c)")
 
 
 def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
                         device: torch.device, n_lanes: int = 1):
     """The Algorithm-1 iteration body.
 
-    Returns ``core(pool, conc, rng, it, env=None, params=None) -> (pool,
-    conc, rng, StepStats, env)`` over tensors on ``device``.
+    Returns ``core(pool, conc, rng, it, env=None, params=None, active=None)
+    -> (pool, conc, rng, StepStats, env)`` over tensors on ``device``.
 
     ``params`` (a :class:`ScenarioParams`) replaces the static dt, force
     constants and behavior rates; ``params=None`` runs the static config,
@@ -416,6 +410,15 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
     and every reduction is per lane. The operations do not grow with L
     beyond the streamed sweep's extra query chunks. With one lane this is
     the solo step itself.
+
+    An ensemble's every_k cache (``env``) is per lane, in the lane-major
+    layout of :class:`~.grid.RebuildState`. The step reads the (L,)
+    rebuild flags in one host transfer: no lane set skips the build, every
+    lane set builds, and a mix builds every lane and keeps, per lane, the
+    fresh or the cached pool order, tables, pair list and counters — what
+    the reference's vmapped ``lax.cond`` selects. ``active`` (L,) bool
+    names the lanes whose results the caller keeps; the flags of the
+    others are not read. The diffusion grid ``conc`` is (L, X, Y, Z).
     """
     if n_lanes < 1:
         raise ValueError(f"n_lanes must be >= 1, got {n_lanes}")
@@ -448,7 +451,7 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
     adhesion = _adhesion(cfg, device)
     fp = cfg.force
     use_k1 = cfg.force_impl == "k1"
-    diff_ops = (diff_mod.DiffusionOps(cfg.diffusion, origin)
+    diff_ops = (diff_mod.DiffusionOps(cfg.diffusion, origin, ln)
                 if cfg.diffusion is not None else None)
 
     def zeros_i32():
@@ -489,31 +492,45 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
                 radius=pair_radius, max_pairs=pl.max_pairs,
                 chunk=cfg.query_chunk)
 
-    def do_build(env: grid_mod.RebuildState) -> bool:
-        """The reference's rebuild test, read on the host: the cache is
-        dirty, its k steps are spent, the per-axis displacement exceeds the
+    def rebuild_flags(env: grid_mod.RebuildState) -> torch.Tensor:
+        """The reference's rebuild test, () or (L,): the cache is dirty,
+        its k steps are spent, the per-axis displacement exceeds the
         widened boxes' slack, or the euclidean one half the skin."""
         flag = (env.dirty | (env.steps_since >= cfg.rebuild.k)
                 | (env.disp_accum > cfg.rebuild.displacement_bound))
         if pl is not None:
             flag = flag | (2.0 * env.pair_disp > pl.skin)
-        return bool(flag)
+        return flag
 
     def core(pool: AgentPool, conc: torch.Tensor, rng: torch.Tensor,
              it: torch.Tensor, env: Optional[grid_mod.RebuildState] = None,
-             params: Optional[ScenarioParams] = None):
+             params: Optional[ScenarioParams] = None,
+             active: Optional[torch.Tensor] = None):
         # under every_k the step's one host read, first, from the carried
         # cache: every value it needs was computed by the previous step
-        rebuild = not use_cache or do_build(env)
+        # (an ensemble's (L,) flags in one transfer)
+        rebuild, mixed = True, False
+        if use_cache:
+            flags = rebuild_flags(env)
+            if ln.solo:
+                rebuild = bool(flags)
+            else:
+                if active is not None:
+                    flags = flags & active
+                lane_flags = flags.tolist()
+                rebuild, mixed = any(lane_flags), not all(lane_flags)
         keys = rand.split(rng, 2 + len(behaviors))
         rng, bkeys = keys[0], keys[2:]           # keys[1]: the force key
         stats = StepStats.zeros(device, lane_shape)
 
         # the scenario knobs: with params=None the static config's values
         dt, fp_step, rates = cfg.dt, fp, {}
+        dt_lane = dt                  # () solo, (L,) per lane: diffusion's
         force_fn = None
         if params is not None:
             params = params.to(device)
+            if params.dt is not None:
+                dt_lane = params.dt
             if not ln.solo:                     # each row its lane's knob
                 params = params.map(ln.rows)
             if params.dt is not None:
@@ -524,10 +541,8 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
                         "ScenarioParams.force overrides require "
                         "force_impl='xla' (the Pallas kernel bakes its force "
                         "constants)")
-                if not ln.solo:
-                    raise NotImplementedError(
-                        "per-lane force overrides are not ported yet "
-                        "(ROADMAP.md Queue 1 item 13b)")
+                # an ensemble's (L·C,) overrides: the pair function reads
+                # each query row's own (forces.make_force_pair_fn)
                 fp_step = dataclasses.replace(fp, **params.force)
                 force_fn = force_mod.make_force_pair_fn(fp_step, adhesion)
             rates = params.rates
@@ -541,14 +556,29 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
         if rebuild:
             with record_function("step/grid_build"):
                 res = build_env(cfg, spec, pool, origin, box_size, ln)
-            pool, grid_env = res.pool, res.grid
+            old_pool, pool, grid_env = pool, res.pool, res.grid
             pairs = build_pairs(pool, grid_env)
             if use_cache:
-                f32 = torch.zeros((), dtype=torch.float32, device=device)
-                env = grid_mod.RebuildState(
+                f32 = torch.zeros(lane_shape, dtype=torch.float32,
+                                  device=device)
+                fresh = grid_mod.RebuildState(
                     grid=grid_env, steps_since=zeros_i32(), disp_accum=f32,
-                    dirty=torch.zeros((), dtype=torch.bool, device=device),
+                    dirty=torch.zeros(lane_shape, dtype=torch.bool,
+                                      device=device),
                     pairs=pairs, pair_disp=f32 if pl is not None else None)
+                if mixed:
+                    # per lane, this build or the cache (the pool's order
+                    # with its tables, pair list and counters): what the
+                    # reference's vmapped lax.cond selects
+                    pick = ln.selector(flags)
+                    env = grid_mod.map_rebuild_state(pick, fresh, env)
+                    old = old_pool.channels()
+                    pool = pool.with_channels({
+                        k: pick(v, old[k])
+                        for k, v in pool.channels().items()})
+                    grid_env, pairs = env.grid, env.pairs
+                else:
+                    env = fresh
         else:
             # the cached tables index the layout their build left: no death
             # or birth since (either marks the cache dirty)
@@ -578,7 +608,7 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
 
         if diff_ops is not None:
             with record_function("step/diffusion"):
-                sub_dt = dt / cfg.diffusion_substeps
+                sub_dt = dt_lane / cfg.diffusion_substeps
                 for _ in range(cfg.diffusion_substeps):
                     conc = diff_ops.step(conc, sub_dt)
 
@@ -595,7 +625,7 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
                                                      "brute_force"):
             with record_function("step/statics"):
                 static = statics_mod.update_static_flags(pool, spec,
-                                                         grid_env, it)
+                                                         grid_env, it, ln)
             pool = dataclasses.replace(pool, static=static)
 
         pos0 = pool.position
@@ -716,13 +746,13 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
             # |Δposition| (what the widened stencil's coverage consumes) and,
             # for the pair list's skin, the largest euclidean ‖Δposition‖
             zero = torch.zeros((), dtype=move_d.dtype, device=device)
-            step_disp = torch.where(pool.alive[:, None], move_d.abs(),
-                                    zero).max()
+            step_disp = ln.max(torch.where(pool.alive[:, None],
+                                           move_d.abs(), zero))
             if pl is not None:
                 d2 = move_d[:, 0] * move_d[:, 0] + move_d[:, 1] * move_d[
                     :, 1] + move_d[:, 2] * move_d[:, 2]
-                step_disp_eu = torch.sqrt(torch.where(pool.alive, d2,
-                                                      zero).max())
+                step_disp_eu = torch.sqrt(ln.max(torch.where(pool.alive, d2,
+                                                             zero)))
 
         # ---------------- health watchdog ----------------
         health = stats.health
@@ -770,8 +800,11 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
                    if pl is not None else {}))
 
         n_live_end = ln.sum(pool.alive)
-        rebuilt = (torch.ones if rebuild else torch.zeros)(
-            lane_shape, dtype=torch.int32, device=device)
+        if use_cache and not ln.solo:
+            rebuilt = flags.to(torch.int32)
+        else:
+            rebuilt = (torch.ones if rebuild else torch.zeros)(
+                lane_shape, dtype=torch.int32, device=device)
         stats = dataclasses.replace(
             stats, n_live=n_live_end, n_active=n_active, births=births,
             deaths=deaths, box_overflow=box_overflow,

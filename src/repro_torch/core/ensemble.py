@@ -24,17 +24,23 @@ launch once a tick for every lane).
   and re-runs the overflowing tick at the new rung, bit-identical to a
   pre-sized ensemble.
 
-In memory a lane's channels are rows ``[l·C, (l+1)·C)`` of the pool;
-checkpoints and :mod:`convert` present them as the reference's ``(L, C,
-...)``. What an ensemble does not run yet (every_k rebuilds and pair
-lists per lane, the scatter, hash and brute-force environments, diffusion,
-static detection, per-lane force overrides) raises, naming ROADMAP.md
-Queue 1 item 13b.
+* **Per-lane caches.** Under every_k each lane carries its own rebuild
+  cache, pair list and counters; one host read a tick fetches the (L,)
+  rebuild flags, and a tick whose lanes disagree builds every lane and
+  keeps each lane's choice. A lane's diffusion grid, static flags and
+  force overrides are its own too.
+
+In memory a lane's channels are rows ``[l·C, (l+1)·C)`` of the pool and
+its cache is the lane-major :class:`~.grid.RebuildState`; checkpoints and
+:mod:`convert` present both as the reference's ``(L, C, ...)``. The
+scatter, hash and brute-force environments over lanes raise, naming
+ROADMAP.md Queue 1 item 13c.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -67,7 +73,7 @@ class EnsembleState:
     active: torch.Tensor                 # (L,) bool
     params: Optional[ScenarioParams]     # leaves (L, ...)
     tick: torch.Tensor                   # () int32
-    env: Optional[grid_mod.RebuildState] = None
+    env: Optional[grid_mod.RebuildState] = None   # lane-major caches
 
     @property
     def n_lanes(self) -> int:
@@ -80,11 +86,11 @@ def make_ensemble_core(config: EngineConfig,
     """The iteration core over ``n_lanes`` lanes, with lane masking.
 
     Returns ``ecore(pool, conc, rng, iteration, active, env=None,
-    params=None) -> (pool, conc, rng, stats, env)``: ``pool`` lane-major,
-    every other argument and result with a leading (L,) axis. Lanes with
-    ``active`` False are frozen — their state passes through unchanged
-    and their stats are zero — so a retired lane can neither drift nor
-    trip the ladder.
+    params=None) -> (pool, conc, rng, stats, env)``: ``pool`` and ``env``
+    lane-major, every other argument and result with a leading (L,) axis.
+    Lanes with ``active`` False are frozen — their state and cache pass
+    through unchanged and their stats are zero — so a retired lane can
+    neither drift nor trip the ladder.
     """
     dev = resolve_device(device)
     _lane_limits(config)
@@ -97,24 +103,24 @@ def make_ensemble_core(config: EngineConfig,
               params: Optional[ScenarioParams] = None):
         if ln.solo:      # the solo core itself, on lane 0's leaves
             one = None if params is None else params.map(lambda t: t[0])
-            npool, nconc, nrng, stats, _ = core(pool, conc[0], rng[0],
-                                                iteration[0], None, one)
+            npool, nconc, nrng, stats, nenv = core(pool, conc[0], rng[0],
+                                                   iteration[0], env, one)
             nconc, nrng = nconc[None], nrng[None]
             stats = StepStats(**{f: v.reshape(1) for f, v in stats.items()})
+            # one lane: its cache has the solo cache's () leaves
+            freeze = functools.partial(torch.where, active[0])
         else:
-            npool, nconc, nrng, stats, _ = core(pool, conc, rng, iteration,
-                                                None, params)
-        rows = ln.rows(active)
-
-        def freeze(new: torch.Tensor, old: torch.Tensor, mask) -> torch.Tensor:
-            return torch.where(mask.reshape(mask.shape + (1,) * (
-                new.dim() - 1)), new, old)
+            npool, nconc, nrng, stats, nenv = core(
+                pool, conc, rng, iteration, env, params, active=active)
+            freeze = ln.selector(active)
 
         old = pool.channels()
-        pool = npool.with_channels({k: freeze(v, old[k], rows)
+        pool = npool.with_channels({k: freeze(v, old[k])
                                     for k, v in npool.channels().items()})
-        conc = freeze(nconc, conc, active)
-        rng = freeze(nrng, rng, active)
+        conc = freeze(nconc, conc)
+        rng = freeze(nrng, rng)
+        if env is not None:
+            env = grid_mod.map_rebuild_state(freeze, nenv, env)
         zero = torch.zeros((), dtype=torch.int32, device=active.device)
         stats = StepStats(**{f: torch.where(active, v, zero)
                              for f, v in stats.items()})
@@ -168,7 +174,8 @@ class EnsembleEngine:
     None means the CUDA card and raises without one.
 
     ``admit`` and ``retire`` write the lane's segment of the state's
-    tensors in place (no host read) and return the state; ``read_lane``
+    tensors in place (no host read; an every_k cache is replaced by one
+    holding the admitted lane's) and return the state; ``read_lane``
     returns copies, which later writes leave alone.
     """
 
@@ -186,6 +193,7 @@ class EnsembleEngine:
         self.device = self._solo.device
         self._core = make_ensemble_core(config, self.behaviors, n_lanes,
                                         self.device)
+        self._lanes = Lanes(n_lanes, config.capacity)
 
     @property
     def capacity(self) -> int:
@@ -200,7 +208,8 @@ class EnsembleEngine:
                                      extra_init, seed=seed)
 
     def blank_lane(self) -> EngineState:
-        """An idle lane: an empty pool (no live agents)."""
+        """An idle lane: an empty pool (no live agents), a fresh dirty
+        cache under every_k."""
         return self._solo.init_state(torch.zeros((0, 3)))
 
     def init_state(self) -> EnsembleState:
@@ -211,6 +220,10 @@ class EnsembleEngine:
         params = None
         if self.params_template is not None:
             params = self.params_template.to(self.device).map(rep)
+        env = lane.env
+        if env is not None and n > 1:
+            env = grid_mod.flatten_rebuild_state(
+                grid_mod.map_rebuild_state(rep, env))
         return EnsembleState(
             pool=lane.pool.with_channels({
                 k: v.repeat(n, *(1,) * (v.dim() - 1))
@@ -221,7 +234,8 @@ class EnsembleEngine:
             stats=StepStats.zeros(self.device, (n,)),
             active=torch.zeros((n,), dtype=torch.bool, device=self.device),
             params=params,
-            tick=torch.zeros((), dtype=torch.int32, device=self.device))
+            tick=torch.zeros((), dtype=torch.int32, device=self.device),
+            env=env)
 
     # -- the lockstep iteration ---------------------------------------------
     def step(self, state: EnsembleState) -> EnsembleState:
@@ -245,7 +259,9 @@ class EnsembleEngine:
 
     def admit(self, state: EnsembleState, lane: int, lane_state: EngineState,
               params: Optional[ScenarioParams] = None) -> EnsembleState:
-        """Write a solo state into lane ``lane`` and mark it active."""
+        """Write a solo state into lane ``lane`` and mark it active. Its
+        cache comes with it: a staged lane's is fresh and dirty, so its
+        first tick rebuilds."""
         _check_params(params, self.params_template)
         lane = int(lane)
         seg = self._segment(lane)
@@ -255,6 +271,12 @@ class EnsembleEngine:
         state.conc[lane].copy_(lane_state.conc)
         state.rng[lane].copy_(lane_state.rng)
         state.iteration[lane].copy_(lane_state.iteration)
+        if state.env is not None:
+            state.env = (grid_mod.map_rebuild_state(torch.clone,
+                                                    lane_state.env)
+                         if self.n_lanes == 1 else
+                         grid_mod.with_lane_rebuild_state(
+                             state.env, self._lanes, lane, lane_state.env))
         state.active[lane] = True
         if params is not None:
             new = params.to(self.device)
@@ -276,10 +298,15 @@ class EnsembleEngine:
 
     def read_lane(self, state: EnsembleState, lane: int) -> EngineState:
         """Lane ``lane``'s state as a solo EngineState (copies, on the
-        device)."""
+        device), its cache included."""
         seg = self._segment(int(lane))
+        env = state.env
+        if env is not None:
+            env = (grid_mod.map_rebuild_state(torch.clone, env)
+                   if self.n_lanes == 1 else grid_mod.lane_rebuild_state(
+                       env, self._lanes, int(lane)))
         return EngineState(
-            pool=state.pool.with_channels({
+            env=env, pool=state.pool.with_channels({
                 k: v[seg].clone() for k, v in state.pool.channels().items()}),
             conc=state.conc[lane].clone(), rng=state.rng[lane].clone(),
             iteration=state.iteration[lane].clone(),
@@ -371,11 +398,35 @@ class EnsembleCapacityLadder(LadderDriverBase):
               iteration: int) -> EnsembleState:
         rungs = [(f, getattr(self.config, f), getattr(new_cfg, f))
                  for f in ("capacity", "max_per_box", "max_per_run")]
+        if new_cfg.pairlist is not None and self.config.pairlist is not None:
+            rungs.append(("max_pairs", self.config.pairlist.max_pairs,
+                          new_cfg.pairlist.max_pairs))
         self._log_rungs(iteration, rungs)
         old_cfg, self.config = self.config, new_cfg
         self._sim = EnsembleEngine(new_cfg, self.behaviors, self.n_lanes,
                                    self.params_template, device=self.device)
-        if new_cfg.capacity != old_cfg.capacity:
-            prev = dataclasses.replace(prev, pool=grow_stacked_pool(
-                prev.pool, new_cfg.capacity, self.n_lanes))
+        cap_grew = new_cfg.capacity != old_cfg.capacity
+        pairs_grew = (new_cfg.pairlist is not None
+                      and old_cfg.pairlist is not None
+                      and (cap_grew or new_cfg.pairlist.max_pairs
+                           != old_cfg.pairlist.max_pairs))
+        if cap_grew or pairs_grew:
+            env = prev.env
+            if env is not None:
+                # every lane's cache grown as L pre-sized builds would have
+                # laid it out, so the grown trajectory stays bit-identical
+                old_lanes = Lanes(self.n_lanes, old_cfg.capacity)
+                if cap_grew:
+                    env = dataclasses.replace(
+                        env, grid=grid_mod.grow_grid_state(
+                            env.grid, new_cfg.capacity, old_lanes))
+                if pairs_grew and env.pairs is not None:
+                    env = dataclasses.replace(
+                        env, pairs=grid_mod.grow_pairlist(
+                            env.pairs, new_cfg.capacity,
+                            new_cfg.pairlist.max_pairs, old_lanes))
+            pool = (grow_stacked_pool(prev.pool, new_cfg.capacity,
+                                      self.n_lanes)
+                    if cap_grew else prev.pool)
+            prev = dataclasses.replace(prev, pool=pool, env=env)
         return prev

@@ -69,32 +69,49 @@ FORCE_OUT_SPECS = {"force": ((3,), torch.float32),
                    "force_nnz": ((), torch.int32)}
 
 
+def _per_query(params: ForceParams, q_slot: torch.Tensor) -> ForceParams:
+    """``params`` with each per-row field (an ensemble's overrides, a (C,)
+    tensor of each slot's lane's value) taken at the query rows as a (B, 1)
+    column, which broadcasts against the (B, W) candidates."""
+    rows = {f.name: v[q_slot.long()][:, None]
+            for f in dataclasses.fields(params)
+            if isinstance(v := getattr(params, f.name), torch.Tensor)
+            and v.dim() == 1}
+    return dataclasses.replace(params, **rows) if rows else params
+
+
 def make_force_pair_fn(params: ForceParams,
                        adhesion: Optional[torch.Tensor] = None) -> Callable:
     """pair_fn of the streamed sweep computing (force, nnz count) per agent:
-    the ``force_impl="streamed"`` counterpart of K1."""
+    the ``force_impl="streamed"`` counterpart of K1. A field of ``params``
+    may be a (C,) tensor of per-row values (an ensemble's per-lane
+    overrides): each query row then computes with its own."""
 
     def pair_fn(q: Dict[str, torch.Tensor], nbr: Dict[str, torch.Tensor],
                 valid: torch.Tensor, q_slot: torch.Tensor
                 ) -> Dict[str, torch.Tensor]:
+        fp = _per_query(params, q_slot)
         f = pair_force(q["position"], q["diameter"], q["agent_type"],
                        nbr["position"], nbr["diameter"], nbr["agent_type"],
-                       valid & nbr["alive"], params, adhesion)
-        nnz = ((f * f).sum(-1) > params.force_eps ** 2).sum(-1)
+                       valid & nbr["alive"], fp, adhesion)
+        nnz = ((f * f).sum(-1) > fp.force_eps ** 2).sum(-1)
         return {"force": f.sum(1), "force_nnz": nnz.to(torch.int32)}
 
     return pair_fn
 
 
+def _col(v):
+    """A per-row (C,) tensor as a (C, 1) column; anything else as it is."""
+    return v[:, None] if isinstance(v, torch.Tensor) and v.dim() == 1 else v
+
+
 def displacement(force: torch.Tensor, params: ForceParams, dt: float
                  ) -> torch.Tensor:
     """Overdamped integration with the per-step displacement cap. ``dt``
-    may be a tensor: 0-dim, or (C,) per row in an ensemble."""
-    scale = dt / params.zeta
-    if isinstance(scale, torch.Tensor) and scale.dim() == 1:
-        scale = scale[:, None]
-    dx = force * scale
+    and the fields of ``params`` may be tensors: 0-dim, or (C,) per row in
+    an ensemble."""
+    dx = force * _col(dt / params.zeta)
     norm = torch.sqrt(torch.clamp((dx * dx).sum(-1, keepdim=True),
                                   min=1e-30))
-    scale = torch.clamp(params.max_displacement / norm, max=1.0)
+    scale = torch.clamp(_col(params.max_displacement) / norm, max=1.0)
     return dx * scale

@@ -193,6 +193,9 @@ class PairList:
              P (run_off[:, 0] = 0, run_off[:, 9] = the row's stored count)
     count:   (C,) int32 — the row's demand, not capped
     demand:  () int32 — the largest ``count``; overflow ⇔ demand > P
+
+    An ensemble's list holds its L lanes' rows lane-major (L·C rows), its
+    entries slot ids of the whole pool, and ``demand`` (L,).
     """
     idx: torch.Tensor
     run_off: torch.Tensor
@@ -201,20 +204,29 @@ class PairList:
 
 
 def initial_pairlist(capacity: int, max_pairs: int,
-                     device: torch.device | str = "cpu") -> PairList:
-    """Zero tables — what a build writes for rows it never lists."""
+                     device: torch.device | str = "cpu",
+                     lanes: Optional[Lanes] = None) -> PairList:
+    """Zero tables — what a build writes for rows it never lists. With
+    ``lanes`` an ensemble's: (L·C, ...) rows and a demand per lane."""
     def z(*shape):
         return torch.zeros(shape, dtype=torch.int32, device=device)
-    return PairList(idx=z(capacity, max_pairs), run_off=z(capacity, 10),
-                    count=z(capacity), demand=z())
+    rows, dem = capacity, ()
+    if lanes is not None and not lanes.solo:
+        rows, dem = lanes.n * lanes.capacity, (lanes.n,)
+    return PairList(idx=z(rows, max_pairs), run_off=z(rows, 10),
+                    count=z(rows), demand=z(*dem))
 
 
-def grow_pairlist(pairs: PairList, new_capacity: int, new_max_pairs: int
-                  ) -> PairList:
+def grow_pairlist(pairs: PairList, new_capacity: int, new_max_pairs: int,
+                  lanes: Optional[Lanes] = None) -> PairList:
     """Pad a cached list to a larger capacity and/or width with zeros —
     what a build at that size would have written (a list that overflowed
     is never carried: the ladder rewinds that step). Leading axes (shards)
-    are kept."""
+    are kept. With ``lanes`` (an ensemble's lane-major list, lanes of
+    ``lanes.capacity``) each lane grows to ``new_capacity`` rows."""
+    if lanes is not None and not lanes.solo:
+        return _flat_pairs(grow_pairlist(_stacked_pairs(pairs, lanes),
+                                         new_capacity, new_max_pairs))
     old_c, old_p = pairs.idx.shape[-2], pairs.idx.shape[-1]
     if new_capacity < old_c or new_max_pairs < old_p:
         raise ValueError(f"grow_pairlist: ({new_capacity}, {new_max_pairs}) "
@@ -241,6 +253,13 @@ class RebuildState:
     pair_disp:   () float32 — the largest per-agent euclidean ‖Δposition‖
                  of each step, summed since the build; the list is reused
                  while 2·pair_disp ≤ skin
+
+    An ensemble's cache (``lanes``) holds every lane in the lane-major
+    layout of its pool: the grid as :class:`GridState` describes it, the
+    pair list's rows lane-major with slot ids of the whole pool, and the
+    counters, flags and demands (L,). :func:`stack_rebuild_state` and
+    :func:`flatten_rebuild_state` convert to and from the reference's
+    ``(L, ...)`` layout, whose ids are each lane's own.
     """
     grid: GridState
     steps_since: torch.Tensor
@@ -252,40 +271,53 @@ class RebuildState:
 
 def initial_rebuild_state(spec: GridSpec, capacity: int,
                           origin: torch.Tensor, box_size: float,
-                          pairlist: Optional[PairListConfig] = None
-                          ) -> RebuildState:
+                          pairlist: Optional[PairListConfig] = None,
+                          lanes: Optional[Lanes] = None) -> RebuildState:
     """The cache before the first step: empty tables, dirty, so step 0
-    builds. Tensors on ``origin``'s device."""
+    builds. Tensors on ``origin``'s device. With ``lanes``, L such caches
+    in the lane-major layout."""
     dev = origin.device
-    ident = torch.arange(capacity, dtype=torch.int32, device=dev)
     cdt = table_count_dtype(capacity)
+    n = 1 if lanes is None else lanes.n
+    shape = () if n == 1 else (n,)
+    rows = n * capacity
+    ident = torch.arange(rows, dtype=torch.int32, device=dev)
+    # an empty lane's boxes all start at its first slot
+    starts = torch.arange(n, dtype=torch.int32, device=dev).mul_(
+        capacity).repeat_interleave(spec.table_size)
     grid = GridState(
         origin=origin.to(torch.float32), box_size=float(box_size),
-        keys=torch.full((capacity,), morton.DEAD_KEY, dtype=torch.int64,
+        keys=torch.full((rows,), morton.DEAD_KEY, dtype=torch.int64,
                         device=dev),
-        order=ident, rank=ident,
-        starts=torch.zeros(spec.table_size, dtype=torch.int32, device=dev),
-        counts=torch.zeros(spec.table_size, dtype=cdt, device=dev),
-        max_count=torch.zeros((), dtype=cdt, device=dev),
-        max_run_count=torch.zeros((), dtype=cdt, device=dev))
-    f32 = torch.zeros((), dtype=torch.float32, device=dev)
+        order=ident, rank=ident, starts=starts,
+        counts=torch.zeros(n * spec.table_size, dtype=cdt, device=dev),
+        max_count=torch.zeros(shape, dtype=cdt, device=dev),
+        max_run_count=torch.zeros(shape, dtype=cdt, device=dev))
+    f32 = torch.zeros(shape, dtype=torch.float32, device=dev)
     pairs = pair_disp = None
     if pairlist is not None:
-        pairs = initial_pairlist(capacity, pairlist.max_pairs, dev)
+        pairs = initial_pairlist(capacity, pairlist.max_pairs, dev, lanes)
         pair_disp = f32.clone()
     return RebuildState(grid=grid,
-                        steps_since=torch.zeros((), dtype=torch.int32,
+                        steps_since=torch.zeros(shape, dtype=torch.int32,
                                                 device=dev),
-                        disp_accum=f32, dirty=torch.ones((), dtype=torch.bool,
+                        disp_accum=f32, dirty=torch.ones(shape,
+                                                         dtype=torch.bool,
                                                          device=dev),
                         pairs=pairs, pair_disp=pair_disp)
 
 
-def grow_grid_state(grid: GridState, new_capacity: int) -> GridState:
+def grow_grid_state(grid: GridState, new_capacity: int,
+                    lanes: Optional[Lanes] = None) -> GridState:
     """Grow cached resident tables to a larger pool capacity, as a build at
     that capacity would have made them: dead keys pad ``keys``, the
     identity ``order``/``rank`` extend, and the counts take the new
-    capacity's table dtype. Leading axes (shards) are kept."""
+    capacity's table dtype. Leading axes (shards) are kept. With ``lanes``
+    (an ensemble's lane-major tables, lanes of ``lanes.capacity``) each
+    lane grows to ``new_capacity`` slots."""
+    if lanes is not None and not lanes.solo:
+        return _flat_grid(grow_grid_state(_stacked_grid(grid, lanes),
+                                          new_capacity))
     old = grid.keys.shape[-1]
     if new_capacity == old:
         return grid
@@ -302,6 +334,167 @@ def grow_grid_state(grid: GridState, new_capacity: int) -> GridState:
         rank=torch.cat([grid.rank, ident], -1),
         counts=grid.counts.to(cdt), max_count=grid.max_count.to(cdt),
         max_run_count=grid.max_run_count.to(cdt))
+
+
+# ---------------------------------------------------------------------------
+# An ensemble's cache: the lane-major layout and the reference's (L, ...)
+# ---------------------------------------------------------------------------
+
+def _lane_base(n: int, capacity: int, device) -> torch.Tensor:
+    """(L, 1) int32 first slot of each lane."""
+    return torch.arange(n, dtype=torch.int32, device=device)[:, None] \
+        * capacity
+
+
+def _shift_stored(idx: torch.Tensor, run_off: torch.Tensor,
+                  shift: torch.Tensor) -> torch.Tensor:
+    """``idx`` (..., C, P) with ``shift`` (..., 1, 1) added to each row's
+    stored entries; the zeros past a row's stored count stay zeros, as a
+    build writes them."""
+    col = torch.arange(idx.shape[-1], dtype=torch.int32, device=idx.device)
+    return torch.where(col < run_off[..., 9:], idx + shift,
+                       torch.zeros((), dtype=idx.dtype, device=idx.device))
+
+
+def _stacked_grid(grid: GridState, lanes: Lanes) -> GridState:
+    """Lane-major tables → the reference's (L, ...) tables with each
+    lane's own slot ids (origin (L, 3), box_size (L,) float32)."""
+    n, c = lanes.n, lanes.capacity
+    dev = grid.keys.device
+    base = _lane_base(n, c, dev)
+    box = grid.box_size
+    box = (box.reshape(-1)[:1] if isinstance(box, torch.Tensor)
+           else torch.tensor([box], dtype=torch.float32, device=dev))
+    return GridState(
+        origin=grid.origin.reshape(-1, 3)[:1].expand(n, 3).clone(),
+        box_size=box.to(torch.float32).expand(n).clone(),
+        keys=grid.keys.reshape(n, c),
+        order=grid.order.reshape(n, c) - base,
+        rank=grid.rank.reshape(n, c) - base,
+        starts=grid.starts.reshape(n, -1) - base,
+        counts=grid.counts.reshape(n, -1),
+        max_count=grid.max_count.reshape(n),
+        max_run_count=grid.max_run_count.reshape(n))
+
+
+def _lane_shape(n: int) -> tuple:
+    """The shape of a per-lane leaf in the lane-major layout: () for one
+    lane (the solo cache), (L,) otherwise."""
+    return () if n == 1 else (n,)
+
+
+def _flat_grid(grid: GridState) -> GridState:
+    """Inverse of :func:`_stacked_grid`: (L, ...) tables → lane-major, the
+    box size a Python float."""
+    n, c = grid.keys.shape
+    base = _lane_base(n, c, grid.keys.device)
+    box = grid.box_size
+    return GridState(
+        origin=grid.origin.reshape(-1, 3)[0].clone(),
+        box_size=float(box.reshape(-1)[0]) if isinstance(
+            box, torch.Tensor) else float(box),
+        keys=grid.keys.reshape(-1),
+        order=(grid.order + base).reshape(-1),
+        rank=(grid.rank + base).reshape(-1),
+        starts=(grid.starts + base).reshape(-1),
+        counts=grid.counts.reshape(-1),
+        max_count=grid.max_count.reshape(_lane_shape(n)),
+        max_run_count=grid.max_run_count.reshape(_lane_shape(n)))
+
+
+def _stacked_pairs(pairs: PairList, lanes: Lanes) -> PairList:
+    n, c = lanes.n, lanes.capacity
+    run_off = pairs.run_off.reshape(n, c, 10)
+    base = _lane_base(n, c, pairs.idx.device)[:, :, None]
+    return PairList(
+        idx=_shift_stored(pairs.idx.reshape(n, c, -1), run_off, -base),
+        run_off=run_off, count=pairs.count.reshape(n, c),
+        demand=pairs.demand.reshape(n))
+
+
+def _flat_pairs(pairs: PairList) -> PairList:
+    n, c, p = pairs.idx.shape
+    base = _lane_base(n, c, pairs.idx.device)[:, :, None]
+    return PairList(
+        idx=_shift_stored(pairs.idx, pairs.run_off, base).reshape(n * c, p),
+        run_off=pairs.run_off.reshape(n * c, 10),
+        count=pairs.count.reshape(n * c),
+        demand=pairs.demand.reshape(_lane_shape(n)))
+
+
+def stack_rebuild_state(env: RebuildState, lanes: Lanes) -> RebuildState:
+    """An ensemble's cache in the reference's ``(L, ...)`` layout: every
+    leaf with a leading lane axis and each lane's ids its own (what the
+    reference's vmapped step carries, and its checkpoints store)."""
+    return RebuildState(
+        grid=_stacked_grid(env.grid, lanes),
+        steps_since=env.steps_since.reshape(lanes.n),
+        disp_accum=env.disp_accum.reshape(lanes.n),
+        dirty=env.dirty.reshape(lanes.n),
+        pairs=None if env.pairs is None else _stacked_pairs(env.pairs,
+                                                            lanes),
+        pair_disp=None if env.pair_disp is None
+        else env.pair_disp.reshape(lanes.n))
+
+
+def flatten_rebuild_state(env: RebuildState) -> RebuildState:
+    """Inverse of :func:`stack_rebuild_state`: the lane-major cache an
+    ensemble steps with (one lane's is the solo cache)."""
+    shape = _lane_shape(env.dirty.shape[0])
+    return RebuildState(
+        grid=_flat_grid(env.grid),
+        steps_since=env.steps_since.reshape(shape),
+        disp_accum=env.disp_accum.reshape(shape),
+        dirty=env.dirty.reshape(shape),
+        pairs=None if env.pairs is None else _flat_pairs(env.pairs),
+        pair_disp=None if env.pair_disp is None
+        else env.pair_disp.reshape(shape))
+
+
+_GRID_LEAVES = ("keys", "order", "rank", "starts", "counts", "max_count",
+                "max_run_count")
+_PAIR_LEAVES = ("idx", "run_off", "count", "demand")
+
+
+def map_rebuild_state(fn: Callable, env: RebuildState,
+                      *others: RebuildState) -> RebuildState:
+    """``fn`` applied leaf by leaf to caches of one structure
+    (``fn(leaf, *other_leaves)``); the grid's origin and box size are
+    ``env``'s."""
+    def leaves(get):
+        return fn(get(env), *(get(o) for o in others))
+
+    grid = dataclasses.replace(env.grid, **{
+        f: leaves(lambda e, f=f: getattr(e.grid, f)) for f in _GRID_LEAVES})
+    pairs = None if env.pairs is None else PairList(**{
+        f: leaves(lambda e, f=f: getattr(e.pairs, f)) for f in _PAIR_LEAVES})
+    return RebuildState(
+        grid=grid, pairs=pairs,
+        pair_disp=None if env.pair_disp is None
+        else leaves(lambda e: e.pair_disp),
+        **{f: leaves(lambda e, f=f: getattr(e, f))
+           for f in ("steps_since", "disp_accum", "dirty")})
+
+
+def lane_rebuild_state(env: RebuildState, lanes: Lanes,
+                       lane: int) -> RebuildState:
+    """Lane ``lane``'s cache as its solo run carries it (copies)."""
+    one = map_rebuild_state(lambda t: t[lane].clone(),
+                            stack_rebuild_state(env, lanes))
+    return dataclasses.replace(one, grid=dataclasses.replace(
+        one.grid, origin=env.grid.origin.clone(),
+        box_size=env.grid.box_size))
+
+
+def with_lane_rebuild_state(env: RebuildState, lanes: Lanes, lane: int,
+                            solo: RebuildState) -> RebuildState:
+    """``env`` with lane ``lane``'s cache replaced by a solo run's."""
+    def put(stacked: torch.Tensor, one: torch.Tensor) -> torch.Tensor:
+        out = stacked.clone()
+        out[lane] = one
+        return out
+    return flatten_rebuild_state(map_rebuild_state(
+        put, stack_rebuild_state(env, lanes), solo))
 
 
 def counting_sort_order(keys: torch.Tensor, table_size: int, *,
@@ -445,7 +638,7 @@ def make_builder(spec: GridSpec, *, method: str = "resident",
     if lanes is not None and not lanes.solo and method != "resident":
         raise NotImplementedError(
             f"an ensemble builds the resident grid only, not {method!r} "
-            f"(ROADMAP.md Queue 1 item 13b)")
+            f"(ROADMAP.md Queue 1 item 13c)")
     if sort_impl not in SORT_IMPLS:
         raise ValueError(
             f"sort_impl must be one of {SORT_IMPLS}, got {sort_impl!r}")
@@ -766,6 +959,10 @@ def build_pairlist(spec: GridSpec, grid: GridState, position: torch.Tensor,
     ``count``/``demand`` (never silent). ``position``/``alive`` are the
     resident channels of the build.
 
+    Over an ensemble's tables (L·M boxes, :func:`make_builder` with
+    ``lanes``) each row lists candidates of its own lane only, as slot ids
+    of the whole pool, and ``demand`` is (L,), each lane's largest count.
+
     On CUDA tensors the pair-list kernel builds it
     (``kernels/pairlist.build_list``), on CPU tensors
     :func:`build_pairlist_plain`.
@@ -777,7 +974,7 @@ def build_pairlist(spec: GridSpec, grid: GridState, position: torch.Tensor,
     idx, run_off, count, demand = pairlist_kernel.build_list(
         position, alive, grid.origin, grid.box_size, grid.starts,
         grid.counts, spec.dims, spec.run_capacity, pair_radius_sq(radius),
-        max_pairs)
+        max_pairs, lanes=grid.starts.shape[0] // spec.table_size)
     return PairList(idx=idx, run_off=run_off, count=count, demand=demand)
 
 
@@ -819,8 +1016,10 @@ def build_pairlist_plain(spec: GridSpec, grid: GridState,
         idx_t[r0:r1] = buf[:, :p]
         off_t[r0:r1, 1:] = inc.reshape(nb, 9, r_cap)[:, :, -1].clamp(max=p)
         cnt_t[r0:r1] = inc[:, -1]
-    return PairList(idx=idx_t, run_off=off_t, count=cnt_t,
-                    demand=cnt_t.max() if c else cnt_t.sum())
+    n_lanes = grid.starts.shape[0] // spec.table_size
+    demand = (cnt_t.reshape(n_lanes, -1).amax(1) if n_lanes > 1
+              else cnt_t.max() if c else cnt_t.sum())
+    return PairList(idx=idx_t, run_off=off_t, count=cnt_t, demand=demand)
 
 
 def resident_apply(spec: GridSpec, grid: GridState,

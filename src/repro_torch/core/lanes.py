@@ -13,6 +13,7 @@ before lanes existed.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
@@ -57,6 +58,30 @@ class Lanes:
         return v[:, None].expand(self.n, self.capacity, *v.shape[1:]
                                  ).reshape(self.n * self.capacity,
                                            *v.shape[1:])
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """Largest element of each lane's rows: () solo, (L,) otherwise."""
+        if self.solo:
+            return x.max()
+        return self.view(x).reshape(self.n, -1).amax(1)
+
+    def selector(self, lane_mask: torch.Tensor
+                 ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+        """``pick(new, old)``: ``new`` in the lanes ``lane_mask`` (L,)
+        holds, ``old`` in the others, for leaves of L, L·C or L·M rows (per
+        lane, per slot or per box), each lane's block of rows taking its
+        lane's choice. Each row count's mask is expanded once."""
+        masks = {self.n: lane_mask}
+
+        def pick(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+            k = new.shape[0] // self.n
+            if k * self.n not in masks:
+                masks[k * self.n] = lane_mask[:, None].expand(
+                    self.n, k).reshape(-1)
+            m = masks[k * self.n]
+            return torch.where(m.reshape(m.shape + (1,) * (new.dim() - 1)),
+                               new, old)
+        return pick
 
     def offsets(self, device) -> torch.Tensor:
         """(L,) int64 first slot of each lane."""

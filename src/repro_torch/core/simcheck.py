@@ -40,6 +40,7 @@ from .engine import (CapacityExhausted, CapacityLadder, EngineConfig,
                      EngineState, ScenarioParams, Simulation, stage_pool)
 from .ensemble import EnsembleEngine, EnsembleState
 from .health import HealthFault, describe
+from .lanes import Lanes
 from .stats import StepStats
 
 _FORMAT = 1            # manifest extras schema version
@@ -196,17 +197,24 @@ def restore_state(ckpt_dir: str, cfg: EngineConfig,
 
 
 def _lanes_stacked(state: EnsembleState) -> EnsembleState:
-    """The ensemble with its pool as the reference stacks it, (L, C, ...)
-    (views of the lane-major channels)."""
+    """The ensemble with its pool and caches as the reference stacks them,
+    (L, C, ...), each lane's cache with its own slot ids."""
     n = state.n_lanes
-    return dataclasses.replace(state, pool=state.pool.with_channels({
+    env = state.env
+    if env is not None:
+        env = grid_mod.stack_rebuild_state(
+            env, Lanes(n, state.pool.capacity // n))
+    return dataclasses.replace(state, env=env, pool=state.pool.with_channels({
         k: v.reshape(n, v.shape[0] // n, *v.shape[1:])
         for k, v in state.pool.channels().items()}))
 
 
 def _lanes_flat(state: EnsembleState) -> EnsembleState:
-    """Inverse of :func:`_lanes_stacked`: the lane-major pool."""
-    return dataclasses.replace(state, pool=state.pool.with_channels({
+    """Inverse of :func:`_lanes_stacked`: the lane-major pool and caches."""
+    env = state.env
+    if env is not None:
+        env = grid_mod.flatten_rebuild_state(env)
+    return dataclasses.replace(state, env=env, pool=state.pool.with_channels({
         k: v.reshape(v.shape[0] * v.shape[1], *v.shape[2:])
         for k, v in state.pool.channels().items()}))
 
@@ -223,9 +231,7 @@ def save_ensemble_state(ckpt_dir: str, state: EnsembleState,
             "knobs": _engine_knobs(cfg), "n_lanes": state.n_lanes}
     if extras:
         meta.update(extras)
-    stored = _lanes_stacked(state)
-    stored = dataclasses.replace(
-        stored, rng=stored.rng.detach().cpu().numpy().astype(np.uint32))
+    stored = _stored(_lanes_stacked(state))
     return ckpt_mod.save(ckpt_dir, int(state.tick), stored, extras=meta)
 
 
@@ -256,10 +262,20 @@ def restore_ensemble_state(ckpt_dir: str, cfg: EngineConfig,
         raise ValueError(f"{ckpt_dir} step {step}: not an ensemble "
                          f"simulation checkpoint")
     cfg = _apply_engine_knobs(cfg, knobs, apply_knobs)
-    tmpl = EnsembleEngine(cfg, behaviors, meta["n_lanes"], params_template,
-                          device=dev).init_state()
-    state = ckpt_mod.restore(ckpt_dir, step, _lanes_stacked(tmpl))
-    return _lanes_flat(state), cfg, meta
+    saved_mode = knobs["rebuild"]["mode"]
+    tmpl_cfg = cfg
+    if (cfg.rebuild.mode == "every_k") != (saved_mode == "every_k"):
+        tmpl_cfg = dataclasses.replace(
+            cfg, rebuild=grid_mod.RebuildPolicy(**knobs["rebuild"]))
+
+    def template(c: EngineConfig) -> EnsembleState:
+        return EnsembleEngine(c, behaviors, meta["n_lanes"], params_template,
+                              device=dev).init_state()
+    state = ckpt_mod.restore(ckpt_dir, step,
+                             _lanes_stacked(template(tmpl_cfg)))
+    state = _adapt_env(_lanes_flat(state), saved_mode, cfg,
+                       lambda: template(cfg))
+    return state, cfg, meta
 
 
 def save_dist_state(*args, **kwargs):

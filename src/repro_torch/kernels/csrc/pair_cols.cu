@@ -27,6 +27,17 @@
 // rows a row in the fused form). The integer work is a divide and a
 // shared-memory OR per entry.
 //
+// Lanes. An ensemble packs L lanes of lane_rows pool rows each at a stride
+// of lane_stride rows (a multiple of 128), as csrc/block_cols.cu does, so
+// no row block holds two lanes; its pair list holds the lanes' rows
+// lane-major with slot ids of the whole pool (lane l at [l*lane_rows,
+// (l+1)*lane_rows)). Row block rb is in lane l = rb*128 / lane_stride: its
+// packed rows read pool rows moved back by l*(lane_stride - lane_rows),
+// its entries' slot ids move forward by the same shift to packed rows,
+// so its column ids are packed blocks of its own lane, and its overflow
+// goes to overflow[l]. One lane (lane_rows = n_rows, lane_stride = n_pad)
+// is the solo map.
+//
 // Layout: idx (n_rows, max_pairs) int32; run_off (n_rows, 10) int32;
 // row_active (n_pad,), alive, active, row_mask: one byte per row
 // (torch.bool); position (n_rows, 3) f32; data_t (8, n_pad) f32 rows
@@ -71,7 +82,8 @@ pair_cols_kernel(const int* __restrict__ idx, const int* __restrict__ run_off,
                  const int* __restrict__ agent_type,
                  const unsigned char* __restrict__ alive,
                  const unsigned char* __restrict__ active, int n_rows,
-                 int n_pad, int maxb, int* __restrict__ block_cols,
+                 int n_pad, int maxb, int lane_rows, int lane_stride,
+                 int* __restrict__ block_cols,
                  int* __restrict__ overflow, float* __restrict__ data_t,
                  unsigned char* __restrict__ row_mask) {
   __shared__ unsigned s_bits[kWindowWords];
@@ -83,24 +95,30 @@ pair_cols_kernel(const int* __restrict__ idx, const int* __restrict__ run_off,
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
   const int row = rb * kBlock + t;
+  // the row block's lane, and the shift from a pool row to its packed row
+  const int lane_id = (rb * kBlock) / lane_stride;
+  const int shift = lane_id * (lane_stride - lane_rows);
+  const int prow = row - shift;               // the row's pool row
+  const bool in_pool = row - lane_id * lane_stride < lane_rows &&
+                       prow < n_rows;
 
   bool act;
   if (position == nullptr) {
-    act = row_active[row] != 0 && row < n_rows;
+    act = row_active[row] != 0 && in_pool;
   } else {
     // ops.k1_inputs: rows past the pool are zero padding, inactive
     float p[3] = {0.f, 0.f, 0.f};
     float dia = 0.f;
     int typ = 0;
     bool al = false, ac = false;
-    if (row < n_rows) {
-      p[0] = position[3 * row + 0];
-      p[1] = position[3 * row + 1];
-      p[2] = position[3 * row + 2];
-      dia = diameter[row];
-      typ = agent_type[row];
-      al = alive[row] != 0;
-      ac = active[row] != 0;
+    if (in_pool) {
+      p[0] = position[3 * prow + 0];
+      p[1] = position[3 * prow + 1];
+      p[2] = position[3 * prow + 2];
+      dia = diameter[prow];
+      typ = agent_type[prow];
+      al = alive[prow] != 0;
+      ac = active[prow] != 0;
     }
     act = al && ac;
     row_mask[row] = act ? 1 : 0;
@@ -113,15 +131,15 @@ pair_cols_kernel(const int* __restrict__ idx, const int* __restrict__ run_off,
     data_t[6 * n_pad + row] = 0.f;
     data_t[7 * n_pad + row] = 0.f;
   }
-  s_stored[t] = act ? run_off[static_cast<long long>(row) * 10 + 9] : 0;
+  s_stored[t] = act ? run_off[static_cast<long long>(prow) * 10 + 9] : 0;
   __syncthreads();
 
   // pass 1: the lowest and highest listed column block
   int lo = INT_MAX, hi = -1;
   for (int r = warp * 32; r < warp * 32 + 32; ++r) {
-    const int* src = idx + static_cast<long long>(rb * kBlock + r) * max_pairs;
+    const long long src_row = rb * kBlock + r - shift;
     for (int m = lane; m < s_stored[r]; m += 32) {
-      const int b = src[m] / kBlock;
+      const int b = (idx[src_row * max_pairs + m] + shift) / kBlock;
       lo = min(lo, b);
       hi = max(hi, b);
     }
@@ -150,10 +168,10 @@ pair_cols_kernel(const int* __restrict__ idx, const int* __restrict__ run_off,
     for (int w = t; w < kWindowWords; w += kBlock) s_bits[w] = 0u;
     __syncthreads();
     for (int r = warp * 32; r < warp * 32 + 32; ++r) {
-      const int* src =
-          idx + static_cast<long long>(rb * kBlock + r) * max_pairs;
+      const long long src_row = rb * kBlock + r - shift;
       for (int m = lane; m < s_stored[r]; m += 32) {
-        const long long b = src[m] / kBlock - base;
+        const long long b =
+            (idx[src_row * max_pairs + m] + shift) / kBlock - base;
         if (b >= 0 && b < kWindowBits) {
           atomicOr(&s_bits[b >> 5], 1u << (b & 31));
         }
@@ -182,7 +200,7 @@ pair_cols_kernel(const int* __restrict__ idx, const int* __restrict__ run_off,
     n_uniq += total;
     __syncthreads();
   }
-  if (t == 0 && n_uniq > maxb) atomicOr(overflow, 1);
+  if (t == 0 && n_uniq > maxb) atomicOr(overflow + lane_id, 1);
   const int written = static_cast<int>(n_uniq < maxb ? n_uniq : maxb);
   for (int j = written + t; j < maxb; j += kBlock) out[j] = -1;
 }
@@ -193,22 +211,25 @@ pair_cols_kernel(const int* __restrict__ idx, const int* __restrict__ run_off,
 // `position` null, reads `row_active` (n_pad rows); with it given, reads
 // the pool (n_rows rows of position, diameter, agent_type, alive, active)
 // and writes data_t and row_mask. idx and run_off hold n_rows rows.
-// `overflow` must hold 0 before the launch. The caller checks shapes:
-// n_pad a multiple of 128 with n_rows <= n_pad, 8·n_pad < 2^31.
+// `overflow` (one int per lane) must hold 0 before the launch. The caller
+// checks shapes: lane_stride a multiple of 128 dividing n_pad, n_rows =
+// lanes·lane_rows with lane_rows <= lane_stride, 8·n_pad < 2^31,
+// n_rows·max_pairs < 2^31.
 extern "C" int k1_pair_cols(const int* idx, const int* run_off, int max_pairs,
                             const unsigned char* row_active,
                             const float* position, const float* diameter,
                             const int* agent_type, const unsigned char* alive,
                             const unsigned char* active, int n_rows,
-                            int n_pad, int maxb, int* block_cols,
+                            int n_pad, int maxb, int lane_rows,
+                            int lane_stride, int* block_cols,
                             int* overflow, float* data_t,
                             unsigned char* row_mask, void* stream) {
   const int n_rb = n_pad / kBlock;
   if (n_rb > 0) {
     pair_cols_kernel<<<n_rb, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
         idx, run_off, max_pairs, row_active, position, diameter, agent_type,
-        alive, active, n_rows, n_pad, maxb, block_cols, overflow, data_t,
-        row_mask);
+        alive, active, n_rows, n_pad, maxb, lane_rows, lane_stride,
+        block_cols, overflow, data_t, row_mask);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,9 +27,19 @@
 // engine's widths (max_pairs 64: 256 B a row); the arithmetic is ~10 FP32
 // operations per candidate lane.
 //
+// Lanes. An ensemble's pool holds L lanes of lane_rows rows each, lane l
+// at rows [l*lane_rows, (l+1)*lane_rows), and starts/counts are L tables
+// of M boxes (lane l's at [l*M, (l+1)*M)) whose slot ids are rows of the
+// whole pool. Row r is in lane r / lane_rows: it finds its stencil boxes
+// in its lane's coordinates and reads them at lane*M in the tables, so
+// its candidates are rows of its own lane, and its count goes into
+// demand[lane] by the same atomicMax. One lane (lane_rows = n_rows) is the
+// solo build.
+//
 // Layout: position (C, 3) f32; alive (C,) one byte per row (torch.bool);
-// origin (3,) f32; starts, counts (M,) int32; idx (C, max_pairs) int32;
-// run_off (C, 10) int32; count (C,) int32; demand () int32.
+// origin (3,) f32; starts, counts (L*M,) int32; idx (C, max_pairs) int32;
+// run_off (C, 10) int32; count (C,) int32; demand (L,) int32, C = L *
+// lane_rows.
 
 #include <cuda_runtime.h>
 
@@ -38,6 +48,9 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kStencil = 9;
 
+// kLanes false: the solo build (one lane), compiled without the lane's
+// division and table offset.
+template <bool kLanes>
 __global__ void __launch_bounds__(kWarps * 32)
 pairlist_kernel(const float* __restrict__ position,
                 const unsigned char* __restrict__ alive, int n_rows,
@@ -45,13 +58,15 @@ pairlist_kernel(const float* __restrict__ position,
                 const int* __restrict__ starts,
                 const int* __restrict__ counts, int dim_x, int dim_y,
                 int dim_z, int run_cap, float r2, int max_pairs,
-                int* __restrict__ idx, int* __restrict__ run_off,
-                int* __restrict__ count, int* __restrict__ demand) {
+                int lane_rows, int* __restrict__ idx,
+                int* __restrict__ run_off, int* __restrict__ count,
+                int* __restrict__ demand) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= n_rows) return;                 // the whole warp
   int* out = idx + static_cast<long long>(row) * max_pairs;
   int* off = run_off + static_cast<long long>(row) * 10;
+  const int lane_id = kLanes ? row / lane_rows : 0;
   int kept = 0;
   if (alive[row] != 0) {
     const float q[3] = {position[3 * row + 0], position[3 * row + 1],
@@ -63,6 +78,7 @@ pairlist_kernel(const float* __restrict__ position,
       const float rel = __fmul_rn(__fsub_rn(q[a], origin[a]), recip);
       c[a] = min(max(__float2int_rd(rel), 0), dims[a] - 1);
     }
+    const int table = lane_id * dim_x * dim_y * dim_z;  // the lane's boxes
     const int z_lo = max(c[2] - 1, 0);
     const int z_hi = min(c[2] + 1, dim_z - 1);
     for (int k = 0; k < kStencil; ++k) {
@@ -71,7 +87,7 @@ pairlist_kernel(const float* __restrict__ position,
       const bool inside = nx0 >= 0 && nx0 < dim_x && ny0 >= 0 && ny0 < dim_y;
       const int nx = min(max(nx0, 0), dim_x - 1);
       const int ny = min(max(ny0, 0), dim_y - 1);
-      const int col = (nx * dim_y + ny) * dim_z;
+      const int col = table + (nx * dim_y + ny) * dim_z;
       const int s = starts[col + z_lo];
       const int e = starts[col + z_hi] + counts[col + z_hi];
       const int n = inside ? min(e - s, run_cap) : 0;
@@ -101,7 +117,7 @@ pairlist_kernel(const float* __restrict__ position,
   if (lane == 0) {
     off[0] = 0;
     count[row] = kept;
-    atomicMax(demand, kept);
+    atomicMax(demand + lane_id, kept);
   }
   for (int m = min(kept, max_pairs) + lane; m < max_pairs; m += 32) out[m] = 0;
 }
@@ -109,20 +125,24 @@ pairlist_kernel(const float* __restrict__ position,
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success). `demand`
-// must hold 0 before the launch. The caller checks shapes: 3·n_rows <
-// 2^31, prod(dims) < 2^31.
+// (one int per lane) must hold 0 before the launch. The caller checks
+// shapes: 3·n_rows < 2^31, lanes·prod(dims) < 2^31, n_rows a multiple of
+// lane_rows.
 extern "C" int pairlist_build(const float* position, const unsigned char* alive,
                               int n_rows, const float* origin, float recip,
                               const int* starts, const int* counts, int dim_x,
                               int dim_y, int dim_z, int run_cap, float r2,
-                              int max_pairs, int* idx, int* run_off,
-                              int* count, int* demand, void* stream) {
+                              int max_pairs, int lane_rows, int* idx,
+                              int* run_off, int* count, int* demand,
+                              void* stream) {
   if (n_rows > 0) {
     const int blocks = (n_rows + kWarps - 1) / kWarps;
-    pairlist_kernel<<<blocks, kWarps * 32, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+    const auto kernel = lane_rows == n_rows ? pairlist_kernel<false>
+                                            : pairlist_kernel<true>;
+    kernel<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
         position, alive, n_rows, origin, recip, starts, counts, dim_x, dim_y,
-        dim_z, run_cap, r2, max_pairs, idx, run_off, count, demand);
+        dim_z, run_cap, r2, max_pairs, lane_rows, idx, run_off, count,
+        demand);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,6 +21,14 @@
 // once, and each touched voxel read and written once. A voxel with many
 // agents is summed serially by one thread, the price of the fixed order.
 //
+// Lanes. An ensemble's L grids of V voxels are one (L*V,) array, and its
+// lane-major rows add into their own lane's grid at voxel + lane*V
+// (core/diffusion.py). The lanes' voxel ids are disjoint and each lane's
+// rows are contiguous and in slot order, so the stable sort keeps every
+// voxel's amounts in its lane's slot order: one launch for every lane
+// gives each lane's grid exactly its solo call's. The kernel needs no
+// change for it.
+//
 // Layout: keys (N,) int64, sorted; perm (N,) int64; amount (N,) f32; conc
 // (V,) f32, updated in place.
 

@@ -164,7 +164,7 @@ def _ascending_unique(ids: torch.Tensor, maxb: int
 
 def build_block_cols_from_pairs(pairs: grid.PairList,
                                 row_active: torch.Tensor, n_pad: int,
-                                maxb: int
+                                maxb: int, lanes: Optional[Lanes] = None
                                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Block-sparse column map from a Verlet pair list: for each 128-row
     block, the ascending unique ``idx // 128`` over every stored entry of
@@ -177,18 +177,25 @@ def build_block_cols_from_pairs(pairs: grid.PairList,
     Equal, entry for entry, to the reference's. On CUDA tensors the pairs
     column-map kernel builds it (``pair_cols.column_map_from_pairs``), on
     CPU tensors :func:`build_block_cols_from_pairs_plain`.
+
+    ``lanes``: an ensemble's list (lane-major rows, slot ids of the whole
+    pool), its rows packed at :func:`lane_stride` each; the entries move
+    to packed rows, so each row block maps its own lane, and ``overflow``
+    is (L,).
     """
     if pairs.idx.device.type == "cpu":
         return build_block_cols_from_pairs_plain(pairs, row_active, n_pad,
-                                                 maxb)
+                                                 maxb, lanes)
     cols, ovf, _, _ = pair_cols.column_map_from_pairs(
-        pairs.idx, pairs.run_off, n_pad, maxb, row_active=row_active)
+        pairs.idx, pairs.run_off, n_pad, maxb, row_active=row_active,
+        lanes=lanes.n if _multi(lanes) else 1)
     return cols, ovf
 
 
 def build_block_cols_from_pairs_plain(pairs: grid.PairList,
                                       row_active: torch.Tensor, n_pad: int,
-                                      maxb: int
+                                      maxb: int,
+                                      lanes: Optional[Lanes] = None
                                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`build_block_cols_from_pairs` in plain PyTorch, on any device:
     chunks of row blocks, each sorting its column ids."""
@@ -198,19 +205,40 @@ def build_block_cols_from_pairs_plain(pairs: grid.PairList,
     lane = torch.arange(p, dtype=torch.int32, device=dev)
     cols = torch.empty((n_rb, maxb), dtype=torch.int32, device=dev)
     ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    multi = _multi(lanes)
+    if multi:
+        stride = n_pad // lanes.n
+        ovf_rb = torch.zeros((n_rb,), dtype=torch.bool, device=dev)
     for b0 in range(0, n_rb, _COLMAP_ROW_BLOCKS):
         b1 = min(b0 + _COLMAP_ROW_BLOCKS, n_rb)
         rows = torch.arange(b0 * BLOCK, b1 * BLOCK, device=dev)
+        shift = 0
+        if multi:
+            # each packed row's lane, its pool row, and the shift of its
+            # lane's slot ids to packed rows
+            lane_id = torch.div(rows, stride, rounding_mode="floor")
+            local = rows - lane_id * stride
+            in_pool = local < lanes.capacity
+            rows = lane_id * lanes.capacity + local
+            shift = (lane_id * (stride - lanes.capacity)).to(
+                torch.int32)[:, None]
+            act = row_active[b0 * BLOCK:b1 * BLOCK] & in_pool
+        else:
+            act = row_active[rows] & (rows < c)
         safe = rows.clamp(max=c - 1)
-        act = row_active[rows] & (rows < c)
         ok = (lane < pairs.run_off[safe, 9:]) & act[:, None]
-        ids = torch.where(ok, torch.div(pairs.idx[safe], BLOCK,
+        ids = torch.where(ok, torch.div(pairs.idx[safe] + shift, BLOCK,
                                         rounding_mode="floor"),
                           torch.full((), _SENTINEL, dtype=torch.int32,
                                      device=dev))
         cols[b0:b1], n_uniq = _ascending_unique(
             ids.reshape(b1 - b0, BLOCK * p), maxb)
-        ovf |= (n_uniq > maxb).any()
+        if multi:
+            ovf_rb[b0:b1] = n_uniq > maxb
+        else:
+            ovf |= (n_uniq > maxb).any()
+    if multi:
+        ovf = ovf_rb.reshape(lanes.n, -1).any(1)
     return cols, ovf
 
 
@@ -231,21 +259,19 @@ def k1_inputs(position: torch.Tensor, diameter: torch.Tensor,
     on CPU tensors :func:`k1_inputs_plain`.
 
     ``lanes``: an ensemble's L lanes, each packed at :func:`lane_stride`
-    rows (N_pad = L·stride) and mapped in the same launch; the overflow is
-    (L,). Pair lists are single-lane."""
+    rows (N_pad = L·stride) and mapped in the same launch, from the stencil
+    runs or from the ensemble's pair list; the overflow is (L,)."""
     if position.device.type == "cpu":
         return k1_inputs_plain(position, diameter, agent_type, alive, active,
                                starts, counts, origin, box_size, dims, maxb,
                                pairs, lanes)
     multi = _multi(lanes)
-    if multi and pairs is not None:
-        raise NotImplementedError("an ensemble's K1 takes no pair list "
-                                  "(ROADMAP.md Queue 1 item 13b)")
     n_pad = (lanes.n if multi else 1) * lane_stride(lanes, position.shape[0])
     pool = (position, diameter, agent_type, alive, active)
     if pairs is not None:
         cols, ovf, data_t, sact = pair_cols.column_map_from_pairs(
-            pairs.idx, pairs.run_off, n_pad, maxb, pool=pool)
+            pairs.idx, pairs.run_off, n_pad, maxb, pool=pool,
+            lanes=lanes.n if multi else 1)
     elif isinstance(box_size, torch.Tensor):
         # a traced box size divides (morton.cell_of), where the kernel's
         # own cell computation multiplies by a reciprocal: the cells come
@@ -275,15 +301,13 @@ def k1_inputs_plain(position: torch.Tensor, diameter: torch.Tensor,
                                torch.Tensor]:
     """:func:`k1_inputs` in plain PyTorch, on any device."""
     multi = _multi(lanes)
-    if multi and pairs is not None:
-        raise NotImplementedError("an ensemble's K1 takes no pair list "
-                                  "(ROADMAP.md Queue 1 item 13b)")
     n_pad = (lanes.n if multi else 1) * lane_stride(lanes, position.shape[0])
     data_t, sact = _pack(position, diameter, agent_type, alive, active,
                          lanes)
     if pairs is not None:
         block_cols, ovf = build_block_cols_from_pairs_plain(pairs, sact,
-                                                            n_pad, maxb)
+                                                            n_pad, maxb,
+                                                            lanes)
     else:
         cells = morton.cell_of(_pad_rows(position, n_pad, lanes), origin,
                                box_size, dims)

@@ -23,13 +23,14 @@ from . import build
 BLOCK = 128
 
 # k1_pair_cols(idx, run_off, max_pairs, row_active, position, diameter,
-#              agent_type, alive, active, n_rows, n_pad, maxb, block_cols,
-#              overflow, data_t, row_mask, stream)
+#              agent_type, alive, active, n_rows, n_pad, maxb, lane_rows,
+#              lane_stride, block_cols, overflow, data_t, row_mask, stream)
 ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]
 
 Pool = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
              torch.Tensor]
@@ -50,7 +51,7 @@ def _ptr(x: Optional[torch.Tensor]) -> int:
 def column_map_from_pairs(idx: torch.Tensor, run_off: torch.Tensor,
                           n_pad: int, maxb: int, *,
                           row_active: Optional[torch.Tensor] = None,
-                          pool: Optional[Pool] = None):
+                          pool: Optional[Pool] = None, lanes: int = 1):
     """The column map of ``n_pad`` rows from a pair list (``idx`` (C, P)
     int32, ``run_off`` (C, 10) int32) on the card, with the rows' activity
     from ``row_active`` (n_pad,) bool or from ``pool`` = (position (C, 3)
@@ -60,6 +61,11 @@ def column_map_from_pairs(idx: torch.Tensor, run_off: torch.Tensor,
     Returns ``(block_cols (n_pad/128, maxb) int32, overflow () bool, data_t
     (8, n_pad) f32 or None, row mask (n_pad,) bool or None)`` — the last
     two only from a pool.
+
+    ``lanes`` > 1: an ensemble's list, its C rows ``lanes`` lanes of C /
+    lanes (lane-major, entries slot ids of the whole pool), packed at
+    n_pad / lanes rows each (``ops.lane_stride``); each row block maps its
+    own lane, and the overflow is (lanes,).
     """
     dev = idx.device
     if dev.type != "cuda":
@@ -74,6 +80,13 @@ def column_map_from_pairs(idx: torch.Tensor, run_off: torch.Tensor,
     if n_pad % BLOCK or c > n_pad or 8 * n_pad >= 2 ** 31 or maxb < 0:
         raise ValueError(f"n_pad={n_pad} must be a multiple of {BLOCK}, at "
                          f"least C={c} and below 2^28; maxb={maxb}")
+    if lanes < 1 or c % lanes or n_pad % lanes \
+            or (n_pad // lanes) % BLOCK or c // lanes > n_pad // lanes:
+        raise ValueError(f"{c} rows in {n_pad} packed rows do not split "
+                         f"into {lanes} lanes of whole row blocks")
+    if c * idx.shape[1] >= 2 ** 31:
+        raise ValueError(f"{c} rows x {idx.shape[1]} entries do not fit "
+                         f"int32")
     idx = idx.to(torch.int32).contiguous()
     run_off = run_off.to(torch.int32).contiguous()
     data_t = mask = position = diameter = agent_type = alive = active = None
@@ -100,15 +113,16 @@ def column_map_from_pairs(idx: torch.Tensor, run_off: torch.Tensor,
         if x is not None and x.device != dev:
             raise ValueError(f"{name} is on {x.device}, idx on {dev}")
     cols = torch.empty((n_pad // BLOCK, maxb), dtype=torch.int32, device=dev)
-    ovf = torch.zeros((), dtype=torch.int32, device=dev)
+    ovf = torch.zeros(() if lanes == 1 else (lanes,), dtype=torch.int32,
+                      device=dev)
     fn = _kernel_fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(idx.data_ptr(), run_off.data_ptr(), idx.shape[1],
                  _ptr(row_active), _ptr(position), _ptr(diameter),
                  _ptr(agent_type), _ptr(alive), _ptr(active), c, n_pad, maxb,
-                 cols.data_ptr(), ovf.data_ptr(), _ptr(data_t), _ptr(mask),
-                 stream)
+                 c // lanes, n_pad // lanes, cols.data_ptr(), ovf.data_ptr(),
+                 _ptr(data_t), _ptr(mask), stream)
     if err != 0:
         raise RuntimeError(f"pairs column-map launch failed: CUDA error "
                            f"{err}")

@@ -24,13 +24,13 @@ from . import build
 OPS_PER_LANE = 9
 
 # pairlist_build(position, alive, n_rows, origin, recip, starts, counts,
-#                dim_x, dim_y, dim_z, run_cap, r2, max_pairs, idx, run_off,
-#                count, demand, stream)
+#                dim_x, dim_y, dim_z, run_cap, r2, max_pairs, lane_rows, idx,
+#                run_off, count, demand, stream)
 ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def _kernel_fn():
@@ -44,7 +44,8 @@ def _kernel_fn():
 def build_list(position: torch.Tensor, alive: torch.Tensor,
                origin: torch.Tensor, box_size: float, starts: torch.Tensor,
                counts: torch.Tensor, dims: Tuple[int, int, int],
-               run_capacity: int, r2: float, max_pairs: int
+               run_capacity: int, r2: float, max_pairs: int,
+               lanes: int = 1
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                           torch.Tensor]:
     """The pair list of the resident pool ``position`` (C, 3) f32 /
@@ -53,6 +54,10 @@ def build_list(position: torch.Tensor, alive: torch.Tensor,
 
     Returns ``(idx (C, max_pairs) int32, run_off (C, 10) int32, count (C,)
     int32, demand () int32)``.
+
+    ``lanes`` > 1: an ensemble's lane-major pool of ``lanes`` lanes of C /
+    lanes rows and its (lanes·M,) tables; each row lists its own lane's
+    candidates, and ``demand`` is (lanes,).
     """
     dev = position.device
     if dev.type != "cuda":
@@ -64,10 +69,18 @@ def build_list(position: torch.Tensor, alive: torch.Tensor,
         raise ValueError(f"position must be (C, 3) and alive (C,) with "
                          f"3·C < 2^31, got {tuple(position.shape)}, "
                          f"{tuple(alive.shape)}")
-    if m >= 2 ** 31 or min(dims) < 1:
-        raise ValueError(f"grid {dims} does not fit int32 box ids")
-    if starts.shape != (m,) or counts.shape != (m,) or origin.shape != (3,):
-        raise ValueError(f"starts/counts must be ({m},) and origin (3,)")
+    if lanes < 1 or c % lanes:
+        raise ValueError(f"{c} rows do not split into {lanes} lanes")
+    if lanes * m >= 2 ** 31 or min(dims) < 1:
+        raise ValueError(f"{lanes} lanes of grid {dims} do not fit int32 "
+                         f"box ids")
+    if max_pairs >= 1 and c * max_pairs >= 2 ** 31:
+        raise ValueError(f"{c} rows x max_pairs {max_pairs} do not fit "
+                         f"int32 entries")
+    if starts.shape != (lanes * m,) or counts.shape != (lanes * m,) \
+            or origin.shape != (3,):
+        raise ValueError(f"starts/counts must be ({lanes * m},) and origin "
+                         f"(3,)")
     if max_pairs < 1 or run_capacity < 0:
         raise ValueError(f"max_pairs={max_pairs}, "
                          f"run_capacity={run_capacity}")
@@ -84,15 +97,16 @@ def build_list(position: torch.Tensor, alive: torch.Tensor,
     idx = torch.empty((c, max_pairs), dtype=torch.int32, device=dev)
     run_off = torch.empty((c, 10), dtype=torch.int32, device=dev)
     count = torch.empty((c,), dtype=torch.int32, device=dev)
-    demand = torch.zeros((), dtype=torch.int32, device=dev)
+    demand = torch.zeros(() if lanes == 1 else (lanes,), dtype=torch.int32,
+                         device=dev)
     fn = _kernel_fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(position.data_ptr(), alive.data_ptr(), c, origin.data_ptr(),
                  recip, starts.data_ptr(), counts.data_ptr(), dims[0],
                  dims[1], dims[2], run_capacity, r2, max_pairs,
-                 idx.data_ptr(), run_off.data_ptr(), count.data_ptr(),
-                 demand.data_ptr(), stream)
+                 c // lanes, idx.data_ptr(), run_off.data_ptr(),
+                 count.data_ptr(), demand.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"pair-list launch failed: CUDA error {err}")
     build_list.launches += 1

@@ -23,6 +23,11 @@ with every lane busy a request stays queued. Checkpoints hold the whole
 ensemble and the lane table (core/simcheck.py), so a killed service
 resumes mid-churn with every occupied lane bit-exact; the queue is the
 caller's to re-submit.
+
+A tissue configuration (every_k rebuilds, a pair list, a diffusion grid,
+static detection) serves as any other: an admitted lane brings a fresh
+dirty cache, so its first tick rebuilds, and a retired lane freezes with
+its cache and field.
 """
 
 from __future__ import annotations

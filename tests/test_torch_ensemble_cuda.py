@@ -8,6 +8,12 @@ whole row blocks): the lane-aware column map kernel ≡ its plain version
 entry for entry, with per-lane overflow flags; every lane of an SIR and
 of a K1 ensemble ≡ its solo run on the card bit for bit, RNG keys
 included; K1 and the column map launch once a tick for all lanes.
+
+Tissue lanes (every_k, pair lists, diffusion): the lane-aware pair-list
+and pairs column-map kernels ≡ their plain versions entry for entry
+(per-lane demands and flags too), secretion over lane-offset voxels ≡ the
+CPU bit for bit, and clustering lanes with K1 over their pair lists ≡
+their solo card runs, the build, the map, K1 and secretion once a tick.
 """
 
 import numpy as np
@@ -15,14 +21,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import (EngineConfig, EnsembleEngine,  # noqa: E402
-                              ScenarioParams, Simulation, build_env,
-                              make_iteration_core)
+from repro_torch.core import (DiffusionSpec, EngineConfig,  # noqa: E402
+                              EnsembleEngine, ForceParams, PairListConfig,
+                              RebuildPolicy, ScenarioParams, Simulation,
+                              build_env, make_iteration_core)
 from repro_torch.core import behaviors as tb  # noqa: E402
+from repro_torch.core import diffusion as tdiff  # noqa: E402
+from repro_torch.core import grid as tgrid  # noqa: E402
 from repro_torch.core.lanes import Lanes  # noqa: E402
 from repro_torch.kernels import block_cols as colmap  # noqa: E402
 from repro_torch.kernels import collision_force as tk1  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import pair_cols, pairlist, secretion  # noqa: E402
 
 N, CAP, LANES = 96, 192, 3
 
@@ -135,3 +145,165 @@ def test_lanes_equal_solo_on_the_card(force_impl):
             else:
                 assert torch.equal(v, g), (lane, k)
         assert torch.equal(rng, got.rng)
+
+
+def _lane_build(dev, n_lanes=LANES):
+    """An ensemble's resident build of the 2.5-diameter SIR inputs."""
+    cfg = _cfg(use_forces=True)
+    eng = EnsembleEngine(cfg, [], n_lanes, device=dev)
+    st = eng.init_state()
+    for lane in range(n_lanes):
+        st = eng.admit(st, lane, eng.stage_lane(*_inputs(lane)[:2],
+                                                seed=lane))
+    ln = Lanes(n_lanes, CAP)
+    origin = torch.zeros(3, device=dev)
+    res = build_env(cfg, cfg.grid_spec, st.pool, origin, cfg.cell_size, ln)
+    return cfg, ln, res.pool, res.grid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_pairs", [64, 4])
+def test_lane_pairlist_kernel_equals_plain(max_pairs):
+    """The lane-aware pair-list build ≡ its plain version entry for entry,
+    each row's entries in its own lane, the demand per lane (max_pairs 4:
+    rows past it overflow)."""
+    dev = _card()
+    cfg, ln, pool, g = _lane_build(dev)
+    spec = cfg.grid_spec
+    pairlist.build_list.launches = 0
+    got = tgrid.build_pairlist(spec, g, pool.position, pool.alive,
+                               radius=3.0 + 1.5, max_pairs=max_pairs)
+    want = tgrid.build_pairlist_plain(spec, g, pool.position, pool.alive,
+                                      radius=3.0 + 1.5, max_pairs=max_pairs)
+    assert pairlist.build_list.launches == 1
+    for f in ("idx", "run_off", "count", "demand"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert got.demand.shape == (LANES,) and bool((got.demand > 0).all())
+    stored = (torch.arange(max_pairs, device=dev)
+              < got.run_off[:, 9:])
+    row_lane = torch.arange(LANES * CAP, device=dev)[:, None] // CAP
+    assert bool(((got.idx // CAP == row_lane) | ~stored).all())
+    if max_pairs == 4:
+        assert bool((got.demand > 4).any())
+
+
+@pytest.mark.cuda
+def test_lane_pairs_column_map_kernel_equals_plain():
+    """K1's inputs from an ensemble's pair list: the lane-aware pairs map
+    (fused with the pack) ≡ its plain version entry for entry, per-lane
+    flags too; K1 on it ≡ K1 on the stencil map (the list covers every
+    pair in reach)."""
+    dev = _card()
+    cfg, ln, pool, g = _lane_build(dev)
+    spec = cfg.grid_spec
+    pairs = tgrid.build_pairlist(spec, g, pool.position, pool.alive,
+                                 radius=3.0, max_pairs=64)
+    active = pool.alive.clone()
+    active[CAP:CAP + 40] = False
+    args = (pool.position, pool.diameter, pool.agent_type, pool.alive,
+            active, g.starts, g.counts, torch.zeros(3, device=dev),
+            cfg.cell_size, spec.dims, 64)
+    pair_cols.column_map_from_pairs.launches = 0
+    got = tops.k1_inputs(*args, pairs, ln)
+    want = tops.k1_inputs_plain(*args, pairs, ln)
+    assert pair_cols.column_map_from_pairs.launches == 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert got[2].shape == (LANES,) and not bool(got[2].any())
+    stencil = tops.k1_inputs(*args, None, ln)
+    on_pairs = tk1.collision_force(got[0], got[1], k_rep=2.0, adhesion=None,
+                                   adhesion_band=0.4)
+    on_stencil = tk1.collision_force(stencil[0], stencil[1], k_rep=2.0,
+                                     adhesion=None, adhesion_band=0.4)
+    assert torch.equal(on_pairs, on_stencil)
+
+
+@pytest.mark.cuda
+def test_secretion_over_lane_offset_voxels_equals_the_cpu():
+    """Secretion of 3 lanes into their own 8³ grids through one launch of
+    the unchanged kernel: each voxel's amounts in slot order, ≡ the CPU's
+    index_add bit for bit, and each lane ≡ its solo call."""
+    dev = _card()
+    spec = DiffusionSpec(dims=(8, 8, 8), voxel=2.0)
+    ln = Lanes(LANES, 4096)
+    r = np.random.default_rng(0)
+    pos = torch.from_numpy(r.uniform(0, 16, (LANES * 4096, 3)).astype(
+        np.float32))
+    amount = torch.from_numpy(r.normal(size=LANES * 4096).astype(np.float32))
+    conc = torch.from_numpy(r.uniform(size=(LANES, 8, 8, 8)).astype(
+        np.float32))
+    origin = torch.zeros(3)
+    want = tdiff.add_sources(spec, conc, pos, amount, origin, ln)
+    secretion.add.launches = 0
+    got = tdiff.add_sources(spec, conc.to(dev), pos.to(dev), amount.to(dev),
+                            origin.to(dev), ln)
+    assert secretion.add.launches == 1
+    assert torch.equal(got.cpu(), want)
+    for lane in range(LANES):
+        rows = slice(lane * 4096, (lane + 1) * 4096)
+        solo = tdiff.add_sources(spec, conc[lane].to(dev), pos[rows].to(dev),
+                                 amount[rows].to(dev), origin.to(dev))
+        assert torch.equal(solo, got[lane])
+
+
+def _clustering():
+    return [tb.Secretion(rate=lambda ctx: ctx.params["secretion"]),
+            tb.Chemotaxis(speed=lambda ctx: ctx.params["speed"])]
+
+
+@pytest.mark.cuda
+def test_clustering_lanes_equal_solo_on_the_card():
+    """Clustering lanes (every_k, a skin-1.5 pair list, 16³ fields, K1):
+    each lane ≡ its solo card run bit for bit, fields included; the
+    pair-list build, the pairs map, K1 and secretion launch once a tick
+    for every lane (the build only on ticks that rebuild)."""
+    dev = _card()
+    cfg = EngineConfig(
+        capacity=CAP, domain_lo=(0.0,) * 3, domain_hi=(32.0,) * 3,
+        interaction_radius=3.0, query_chunk=1024, max_per_box=16,
+        force=ForceParams(max_displacement=0.25),
+        rebuild=RebuildPolicy(mode="every_k", k=4, displacement_bound=0.75),
+        pairlist=PairListConfig(skin=1.5, max_pairs=64),
+        diffusion=DiffusionSpec(dims=(16, 16, 16), coefficient=0.5,
+                                decay=0.01, voxel=2.0))
+
+    def params(lane):
+        return ScenarioParams.of(secretion=1.0 + 0.5 * lane,
+                                 speed=0.2 + 0.1 * lane)
+
+    def inputs(seed):
+        r = np.random.default_rng(seed)
+        return (r.uniform(4, 28, (160, 3)).astype(np.float32),
+                np.full(160, 2.0, np.float32))
+    eng = EnsembleEngine(cfg, _clustering(), LANES,
+                         ScenarioParams.of(secretion=0.0, speed=0.0),
+                         device=dev)
+    st = eng.init_state()
+    for lane in range(LANES):
+        st = eng.admit(st, lane, eng.stage_lane(*inputs(lane), seed=lane),
+                       params(lane))
+    for k in (pairlist.build_list, pair_cols.column_map_from_pairs,
+              tk1.collision_force, secretion.add):
+        k.launches = 0
+    rebuild_ticks = 0
+    for _ in range(9):
+        st = eng.step(st)
+        rebuild_ticks += int(st.stats.rebuilds.any())
+    assert pairlist.build_list.launches == rebuild_ticks < 9
+    assert pair_cols.column_map_from_pairs.launches == 9
+    assert tk1.collision_force.launches == 9 and secretion.add.launches == 9
+    sim = Simulation(cfg, _clustering(), device=dev)
+    core = make_iteration_core(cfg, _clustering(), dev)
+    for lane in range(LANES):
+        solo = sim.init_state(*inputs(lane), seed=lane)
+        pool, conc, rng, it, env = (solo.pool, solo.conc, solo.rng,
+                                    solo.iteration, solo.env)
+        for _ in range(9):
+            pool, conc, rng, _, env = core(pool, conc, rng, it, env,
+                                           params(lane))
+            it = it + 1
+        got = eng.read_lane(st, lane)
+        for k, v in pool.channels().items():
+            assert torch.equal(v, got.pool.channels()[k]), (lane, k)
+        assert torch.equal(conc, got.conc) and torch.equal(rng, got.rng)
+        assert torch.equal(env.pairs.idx, got.env.pairs.idx)
