@@ -243,6 +243,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      its solo card run; (d) (a)'s set-up at 8 and 64 lanes beside the
      one-lane baseline, as phase 24 measures it (each tick reads the live
      count back).
+ 27. every environment over lanes, and the examples: (a) phase 23's SIR
+     lanes (8 × 96 in capacity 192) under scatter_grid, hash_grid and
+     brute_force, 20 ticks, sort_frequency 4, the last lane admitted
+     after tick 3 (so lanes Morton-sort on different ticks): every lane ≡
+     its solo card run bit for bit (keys and stats included), ticks 0 and
+     19 ≡ the same tick on the CPU from the card's state (integers, keys,
+     stats and the build's tables exact, floats 1e-4), per-lane
+     box_demand printed; (b) phase 26 (c)'s 4 'front' lanes under brute
+     force with ``detect_static`` and streamed forces, 5 ticks: each lane
+     ≡ its solo card run (integers, keys and static flags exact, floats
+     1e-4, bit-equality printed); (c) the SIR lanes crowded into side 12
+     under the hash with max_per_box 1: ``EnsembleCapacityLadder`` grows
+     max_per_box and ≡ an ensemble pre-sized at the final rung, bit for
+     bit; (d) phase 24's set-ups under each environment, ms, device ops
+     and idle share per serving tick beside phase 24's uniform grid; (e)
+     the six examples of ``repro_torch.examples`` on the card at CI's
+     smoke sizes (``serve_lm`` at its own), each passing its own
+     assertions, with every kernel's launches over its run (counts reset
+     just before, read just after; K1 and the map on the uniform-grid
+     examples, secretion on the clustering runs and the pair-list
+     kernels under ``--pairlist`` must launch).
 
 The kernels line's K1 and column-map entries add their launches per tick
 on phase 23 (b) (``ensemble_launches_per_tick``); the pair-list build's
@@ -324,6 +345,10 @@ TISSUE_LANES, TISSUE_TICKS, TISSUE_ADMIT_AT = 8, 30, 11
 ENS_PL_LANES, ENS_PL_AGENTS, ENS_PL_TICKS = 16, 4096, 10
 TISSUE_SMALL_TICKS, TISSUE_STATIC_LANES, TISSUE_FRONT_SIDE = 5, 4, 16
 TISSUE_BENCH_LANES, TISSUE_BENCH_TICKS = (8, 64), 20
+# phase 27: phase 23's SIR lanes under scatter, hash and brute force, the
+# Morton sort every 4 iterations and the last lane admitted after tick 3
+# (so lanes sort on different ticks); the hash rung's ladder run
+ENV_LANES_SORT, ENV_LANES_ADMIT_AT, ENV_RUNG_TICKS = 4, 3, 10
 # K2 cases: (name, B, Hq, Hkv, Sq, Sk, D, causal, dtype); the first is the
 # qwen2-1.5b prefill shape and the one the kernels line reports. Sq = Sk =
 # "first" or "shortest" is the length of that prompt of phase 7.
@@ -3684,6 +3709,369 @@ def _live_count(pool, params):
     return pool.alive.sum()
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the non-resident environments over ensemble lanes, and the
+# reference's examples as the port's entry points
+# ---------------------------------------------------------------------------
+
+def _ens_to(st, device: str):
+    """An ensemble state with every tensor copied to ``device``."""
+    from repro_torch.core import StepStats
+    return dataclasses.replace(
+        st, pool=st.pool.with_channels({k: v.to(device) for k, v in
+                                        st.pool.channels().items()}),
+        conc=st.conc.to(device), rng=st.rng.to(device),
+        iteration=st.iteration.to(device),
+        stats=StepStats(**{f: v.to(device) for f, v in st.stats.items()}),
+        active=st.active.to(device),
+        params=None if st.params is None else st.params.to(device),
+        tick=st.tick.to(device))
+
+
+def _env_sir_parts(env: str):
+    """Phase 23's SIR lanes under ``env``, with the periodic Morton sort
+    every 4 iterations where the environment runs it."""
+    cfg, bs = _sir_lane_parts()
+    return dataclasses.replace(cfg, environment=env, force_impl="streamed",
+                               sort_frequency=ENV_LANES_SORT), bs
+
+
+def _env_tables(cfg, pool, n_lanes: int, device: str) -> dict:
+    """The lane build's tables over ``pool`` on ``device``, by name."""
+    import torch
+    from repro_torch.core import build_env
+    from repro_torch.core.lanes import Lanes
+    origin = torch.tensor(cfg.domain_lo, dtype=torch.float32, device=device)
+    res = build_env(cfg, cfg.grid_spec, pool, origin, cfg.cell_size,
+                    Lanes(n_lanes, cfg.capacity))
+    g = res.grid
+    return {f: getattr(g, f).cpu() for f in
+            ("table", "counts", "keys", "cell_keys", "order", "starts",
+             "max_bucket_count", "max_run_count") if hasattr(g, f)}
+
+
+def _ens_tick_vs_cpu(cfg, bs, before, after, what: str) -> float:
+    """One tick of the lanes on the CPU from the card's state ``before``
+    ≡ the card's ``after``: integers, keys, stats and the build's tables
+    exact, floats 1e-4. Returns the largest float residue."""
+    import numpy as np
+    import torch
+    from repro_torch.core import EnsembleEngine, ScenarioParams
+    n = before.n_lanes
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        eng = EnsembleEngine(cfg, bs, n, ScenarioParams.of(beta=0.0),
+                             device="cpu")
+        host = _ens_to(before, "cpu")
+        cpu_tables = _env_tables(cfg, host.pool, n, "cpu")
+        cpu_after = eng.step(host)
+    finally:
+        torch.set_num_threads(threads)
+    for k, v in _env_tables(cfg, before.pool, n, "cuda").items():
+        check(torch.equal(v, cpu_tables[k]), f"{what}: table {k} differs "
+                                             f"from the CPU's")
+    worst = _pools_close(after.pool, cpu_after.pool, what)
+    check(np.array_equal(after.rng.cpu().numpy(), cpu_after.rng.numpy()),
+          f"{what}: keys differ from the CPU's")
+    for f in after.stats.keys():
+        check(torch.equal(after.stats[f].cpu(), cpu_after.stats[f]),
+              f"{what}: stats {f} differ from the CPU's")
+    return worst
+
+
+def _env_lanes_parity(env: str) -> dict:
+    """[27a] phase 23's 8 SIR lanes under ``env`` for 20 ticks, the last
+    lane admitted after tick 3: every lane ≡ its solo card run bit for
+    bit; ticks 0 and 19 ≡ the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.core import EnsembleEngine, ScenarioParams, Simulation
+    cfg, bs = _env_sir_parts(env)
+    n = ENS_SIR_LANES
+    late = n - 1
+    betas = np.linspace(0.1, 0.5, n)
+    eng = EnsembleEngine(cfg, bs, n, ScenarioParams.of(beta=0.0),
+                         device="cuda")
+
+    def admit(st, lane):
+        return eng.admit(st, lane, eng.stage_lane(*_sir_lane_inputs(lane),
+                                                  seed=lane),
+                         ScenarioParams.of(beta=float(betas[lane])))
+    st = eng.init_state()
+    for lane in range(n):
+        if lane != late:
+            st = admit(st, lane)
+    cpu_ticks, worst = (0, ENS_SIR_TICKS - 1), 0.0
+    for t in range(ENS_SIR_TICKS):
+        if t == ENV_LANES_ADMIT_AT:
+            st = admit(st, late)
+        before = st                 # a step leaves its input as it was
+        st = eng.step(st)
+        if t in cpu_ticks:
+            worst = max(worst, _ens_tick_vs_cpu(
+                cfg, bs, before, st, f"[27a] {env} tick {t}"))
+    torch.cuda.synchronize()
+    check(st.iteration.tolist() == [ENS_SIR_TICKS] * late
+          + [ENS_SIR_TICKS - ENV_LANES_ADMIT_AT],
+          f"[27a] {env}: lane iterations {st.iteration.tolist()}")
+    sim = Simulation(cfg, bs, device="cuda")
+    for lane in range(n):
+        solo = sim.init_state(*_sir_lane_inputs(lane), seed=lane)
+        steps = int(st.iteration[lane])
+        pool, rng = _solo_core_run(cfg, bs, solo, ScenarioParams.of(
+            beta=float(betas[lane])), steps, "cuda")
+        got = eng.read_lane(st, lane)
+        _same_lane(pool, rng, got, f"[27a] {env} lane {lane}")
+    demand = [int(v) for v in st.stats.box_demand]
+    if env == "hash_grid":
+        check(min(demand) > 0, f"[27a] hash demand per lane {demand}")
+    return {"lanes": n, "agents": ENS_SIR_AGENTS, "capacity": cfg.capacity,
+            "ticks": ENS_SIR_TICKS, "admitted_at": ENV_LANES_ADMIT_AT,
+            "sort_frequency": cfg.sort_frequency, "lanes_equal_solo": True,
+            "cpu_ticks": list(cpu_ticks), "cpu_max_abs_diff": worst,
+            "box_demand": demand}
+
+
+def _env_statics() -> dict:
+    """[27b] phase 26 (c)'s 4 'front' lanes under brute force with
+    ``detect_static`` and forces in the streamed sweep: each lane ≡ its
+    solo card run (integers and keys exact, floats 1e-4, bit-equality
+    reported)."""
+    import torch
+    from repro_torch.core import (EngineConfig, EnsembleEngine, ForceParams,
+                                  RandomWalk, Simulation)
+    side = 5.0 * TISSUE_FRONT_SIDE + 10
+    cfg = EngineConfig(capacity=TISSUE_FRONT_SIDE ** 3, domain_lo=(0, 0, 0),
+                       domain_hi=(side,) * 3, interaction_radius=4.0,
+                       dt=0.05, detect_static=True, max_per_box=32,
+                       query_chunk=4096, environment="brute_force",
+                       force=ForceParams(max_displacement=0.5))
+    bs = [RandomWalk(sigma=0.4, applies_to=1)]
+    n = TISSUE_STATIC_LANES
+    eng = EnsembleEngine(cfg, bs, n, device="cuda")
+    st = eng.init_state()
+    for lane in range(n):
+        pos, dia, types = _front_lane_inputs(lane)
+        st = eng.admit(st, lane, eng.stage_lane(pos, dia, types, seed=lane))
+    for _ in range(TISSUE_SMALL_TICKS):
+        st = eng.step(st)
+    sim = Simulation(cfg, bs, device="cuda")
+    bit_equal, worst = True, 0.0
+    for lane in range(n):
+        pos, dia, types = _front_lane_inputs(lane)
+        solo = sim.init_state(pos, dia, types, seed=lane)
+        for _ in range(TISSUE_SMALL_TICKS):
+            solo = sim.step(solo)
+        got = eng.read_lane(st, lane)
+        check(torch.equal(solo.rng, got.rng), f"[27b] lane {lane} key")
+        check(torch.equal(solo.pool.static, got.pool.static),
+              f"[27b] lane {lane} static flags differ from the solo run")
+        bit_equal &= all(torch.equal(v, got.pool.channels()[k])
+                         for k, v in solo.pool.channels().items())
+        worst = max(worst, _pools_close(got.pool, _host_pool(solo.pool),
+                                        f"[27b] lane {lane}"))
+    n_static = [int(v) for v in st.pool.static.reshape(n, -1).sum(1)]
+    forces = int(st.pool.force_nnz.sum())
+    check(min(n_static) > 0, f"[27b] static rows per lane {n_static}")
+    return {"lanes": n, "agents": TISSUE_FRONT_SIDE ** 3,
+            "ticks": TISSUE_SMALL_TICKS, "bit_equal": bit_equal,
+            "max_abs_diff": worst, "static_rows": n_static,
+            "force_nnz_total": forces}
+
+
+def _env_hash_rung() -> dict:
+    """[27c] the SIR lanes crowded into side 12 under the hash with
+    max_per_box 1 (a probe width of 4), below the densest lane's bucket
+    demand: ``EnsembleCapacityLadder`` grows max_per_box, and the result
+    ≡ an ensemble pre-sized at the final rung bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (EnsembleCapacityLadder, EnsembleEngine,
+                                  LadderConfig, ScenarioParams)
+    cfg, bs = _env_sir_parts("hash_grid")
+    cfg = dataclasses.replace(cfg, domain_hi=(ENS_BENCH_SIDE,) * 3,
+                              max_per_box=1)
+    n = ENS_SIR_LANES
+    betas = np.linspace(0.1, 0.5, n)
+
+    def fill(eng):
+        st = eng.init_state()
+        for lane in range(n):
+            pos, dia, at, extra = _sir_lane_inputs(lane)
+            st = eng.admit(st, lane, eng.stage_lane(
+                pos * (ENS_BENCH_SIDE / 48.0), dia, at, extra, seed=lane),
+                ScenarioParams.of(beta=float(betas[lane])))
+        return st
+    ladder = EnsembleCapacityLadder(cfg, bs, n, ScenarioParams.of(beta=0.0),
+                                    LadderConfig(growth_factor=2.0),
+                                    device="cuda")
+    st = ladder.run(fill(ladder.engine), ENV_RUNG_TICKS)
+    rungs = [r for r in ladder.rungs if r["field"] == "max_per_box"]
+    check(bool(rungs), f"[27c] the hash rung did not grow: {ladder.rungs}")
+    check(int(st.stats.box_overflow.sum()) == 0, "[27c] still overflowing")
+    pre = EnsembleEngine(ladder.config, bs, n, ScenarioParams.of(beta=0.0),
+                         device="cuda")
+    st2 = fill(pre)
+    for _ in range(ENV_RUNG_TICKS):
+        st2 = pre.step(st2)
+    for lane in range(n):
+        want = pre.read_lane(st2, lane)
+        _same_lane(want.pool, want.rng, ladder.engine.read_lane(st, lane),
+                   f"[27c] lane {lane}")
+    torch.cuda.synchronize()
+    return {"lanes": n, "ticks": ENV_RUNG_TICKS,
+            "max_per_box": ladder.config.max_per_box, "rungs": ladder.rungs,
+            "box_demand": [int(v) for v in st.stats.box_demand],
+            "equal_presized": True}
+
+
+def _env_tick_times(uniform: dict) -> list:
+    """[27d] phase 24's set-ups under each environment: ms, device ops
+    and idle share per serving tick, beside phase 24's uniform grid."""
+    from repro_torch.core import EnsembleEngine
+    recs = []
+    for lanes, agents, kind in ENS_BENCH:
+        cfg, bs, tmpl, lane_inputs = _bench_parts(agents, kind, lanes)
+        row = {"set_up": kind, "lanes": lanes, "agents_per_lane": agents,
+               "ticks": ENS_BENCH_TICKS}
+        base = uniform.get((lanes, agents, kind))
+        if base is not None:
+            row["uniform_grid"] = base
+        for env in (["uniform_grid"] if base is None else []) \
+                + list(NON_RESIDENT_ENVS):
+            ecfg = dataclasses.replace(cfg, environment=env,
+                                       force_impl="streamed")
+            eng = EnsembleEngine(ecfg, bs, lanes, tmpl, device="cuda")
+            st = eng.init_state()
+            for lane in range(lanes):
+                args, seed, params = lane_inputs(lane)
+                st = eng.admit(st, lane, eng.stage_lane(*args, seed=seed),
+                               params)
+            row[env] = _serving_ticks(eng, st, ENS_BENCH_TICKS)
+        recs.append(row)
+        print(f"[27d] {kind} set-up, {lanes} lanes x {agents} agents: "
+              + " | ".join(
+                  f"{env} {row[env]['ms_per_tick']:.3f} ms/tick, "
+                  f"{row[env]['device_ops_per_tick']:.0f} ops, idle "
+                  f"{row[env]['device_idle_share']:.3f}"
+                  for env in ("uniform_grid",) + NON_RESIDENT_ENVS),
+              flush=True)
+    return recs
+
+
+# (name, environment knobs, arguments, the kernels its path must launch):
+# CI's smoke sizes (.github/workflows/ci.yml), serve_lm at its own
+EXAMPLES = (
+    ("quickstart", {"EXAMPLE_EPOCHS": "4"}, [],
+     ("k1_collision_force", "k1_column_map")),
+    ("oncology", {"EXAMPLE_EPOCHS": "4"}, [],
+     ("k1_collision_force", "k1_column_map")),
+    ("cell_clustering", {"EXAMPLE_N": "2000", "EXAMPLE_EPOCHS": "4"}, [],
+     ("secretion",)),
+    ("cell_clustering", {"EXAMPLE_N": "2000", "EXAMPLE_EPOCHS": "4"},
+     ["--pairlist"], ("secretion", "pairlist_build", "k1_pair_cols",
+                      "k1_collision_force")),
+    ("neuroscience", {"EXAMPLE_EPOCHS": "6"}, [],
+     ("k1_collision_force", "k1_column_map")),
+    ("ensemble_sweep", {"EXAMPLE_N": "200", "EXAMPLE_LANES": "4",
+                        "EXAMPLE_POINTS": "8", "EXAMPLE_STEPS": "60"}, [],
+     ()),
+    ("serve_lm", {}, [], ()),
+)
+
+
+def _examples_on_the_card(tmpdir: str) -> list:
+    """[27e] each example's ``main`` on the card at CI's smoke size: its
+    own assertions pass, and every kernel's launches over its run (counts
+    reset just before, read just after). Temporary files (oncology's
+    checkpoint) go under ``tmpdir``."""
+    import contextlib
+    import importlib
+    import io
+    import os
+    import tempfile
+    import torch
+    recs = []
+    for name, env, argv, must in EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        out = io.StringIO()
+        tempfile.tempdir = tmpdir
+        try:
+            _reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                mod.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = _read_counts()
+        finally:
+            tempfile.tempdir = None
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        text = out.getvalue()
+        ok = [ln for ln in text.splitlines() if ln.startswith("OK:")]
+        check(bool(ok), f"[27e] {name} {argv} printed no OK line")
+        for k in must:
+            check(launches[k] > 0, f"[27e] {name} {argv}: {k} never "
+                                   f"launched")
+        label = " ".join([name, *argv])
+        recs.append({"example": label, "env": env, "seconds": seconds,
+                     "launches": launches, "ok": ok, "output": text})
+        knobs = " ".join(f"{k}={v}" for k, v in env.items())
+        used = {k: v for k, v in launches.items() if v} or "none"
+        print(f"[27e] {label} ({knobs}) on the card in {seconds:.1f} s: "
+              f"{ok[-1]}; launches {used}", flush=True)
+    return recs
+
+
+def phase_ensemble_envs(report: dict, tmpdir: str) -> dict:
+    """[27] (a) the SIR lanes under scatter, hash and brute force ≡ solo
+    and ≡ the CPU, (b) brute-force statics lanes ≡ solo, (c) the hash rung
+    ≡ pre-sized, (d) tick times per environment, (e) the six examples on
+    the card."""
+    from repro_torch.device import card_description
+    card = card_description()
+    rec = {"card": card, "parity": {}}
+    for env in NON_RESIDENT_ENVS:
+        r = rec["parity"][env] = _env_lanes_parity(env)
+        print(f"[27a] {env}: SIR {r['lanes']} lanes x {r['agents']} agents "
+              f"in capacity {r['capacity']}, {r['ticks']} ticks, lane "
+              f"{r['lanes'] - 1} admitted after tick {r['admitted_at']}, "
+              f"sort every {r['sort_frequency']}: every lane ≡ its solo card "
+              f"run bit for bit (keys and stats included); ticks "
+              f"{r['cpu_ticks']} ≡ the CPU (max|Δ| "
+              f"{r['cpu_max_abs_diff']:.3g}, integers, keys and tables "
+              f"equal); box_demand per lane {r['box_demand']}; {card}",
+              flush=True)
+    r = rec["statics"] = _env_statics()
+    same = ("bit for bit" if r["bit_equal"]
+            else f"within {r['max_abs_diff']:.3g}")
+    print(f"[27b] brute force, {r['lanes']} 'front' lanes x {r['agents']} "
+          f"agents, detect_static, streamed forces, {r['ticks']} ticks: "
+          f"each lane ≡ its solo card run {same} (integers, keys and "
+          f"static flags equal); static rows per lane "
+          f"{r['static_rows']}, nonzero pair forces {r['force_nnz_total']}; "
+          f"{card}", flush=True)
+    r = rec["hash_rung"] = _env_hash_rung()
+    print(f"[27c] hash rung: {r['lanes']} SIR lanes in side "
+          f"{ENS_BENCH_SIDE}, max_per_box 1 -> {r['max_per_box']} "
+          f"(rungs {r['rungs']}), {r['ticks']} ticks ≡ an ensemble "
+          f"pre-sized at the final rung bit for bit; box_demand per lane "
+          f"{r['box_demand']}; {card}", flush=True)
+    uniform = {(x["lanes"], x["agents_per_lane"], x["set_up"]):
+               x["ensemble"] for x in report.get("ensemble_throughput", [])}
+    rec["tick_times"] = _env_tick_times(uniform)
+    rec["examples"] = _examples_on_the_card(tmpdir)
+    report["ensemble_envs"] = rec
+    return rec
+
+
 T_START = time.perf_counter()
 
 
@@ -3782,6 +4170,7 @@ def _run(workers, tmpdir: str) -> int:
     timed("24", phase_ensemble_throughput, report)
     timed("25", phase_service_cli, report, tmpdir)
     tissue = timed("26", phase_tissue_lanes, report, tmpdir)
+    timed("27", phase_ensemble_envs, report, tmpdir)
     report["total_s"] = time.perf_counter() - T_START
     print(f"phases took {sum(seconds.values()):.1f} s, the script "
           f"{report['total_s']:.1f} s", flush=True)

@@ -14,7 +14,8 @@ from .engine import (CapacityExhausted, CapacityLadder, EngineConfig,
 from .ensemble import (EnsembleCapacityLadder, EnsembleEngine, EnsembleState,
                        grow_stacked_pool, make_ensemble_core)
 from .forces import ForceParams
-from .grid import (BuildResult, GridSpec, GridState, PairKernel, PairList,
+from .grid import (BuildResult, GridBuilderDeprecationWarning, GridSpec,
+                   GridState, PairKernel, PairList,
                    PairListConfig, RebuildPolicy, counting_sort_order,
                    make_builder)
 from .health import HealthConfig, HealthFault
@@ -34,7 +35,8 @@ __all__ = ["AgentPool", "DtypePolicy", "make_pool", "pool_from_channels",
            "check_kernel_footprints", "make_iteration_core",
            "make_neighbor_apply", "next_rung", "realized_footprint",
            "registered_kernels", "stage_pool", "ForceParams", "BuildResult",
-           "GridSpec", "GridState", "PairKernel", "PairList",
+           "GridBuilderDeprecationWarning", "GridSpec", "GridState",
+           "PairKernel", "PairList",
            "counting_sort_order", "make_builder", "HealthConfig",
            "HealthFault", "DegradationPolicy", "RunReport",
            "SimCheckpointer", "SupervisedRunner", "restore_dist_state",

@@ -260,7 +260,8 @@ def build_env(cfg: EngineConfig, spec: grid_mod.GridSpec, pool: AgentPool,
 
 def make_neighbor_apply(cfg: EngineConfig, spec: grid_mod.GridSpec, grid_env,
                         channels: Dict[str, torch.Tensor],
-                        default_mask: torch.Tensor) -> Callable:
+                        default_mask: torch.Tensor,
+                        lanes: Optional[Lanes] = None) -> Callable:
     """The step's ``ctx.neighbor_apply``: ``apply(pair_fn, out_specs,
     query_mask=None)``, the mask defaulting to ``default_mask``.
 
@@ -269,7 +270,18 @@ def make_neighbor_apply(cfg: EngineConfig, spec: grid_mod.GridSpec, grid_env,
     ``grid.phased_chunk_apply``; the scatter grid (27 table rows) and brute
     force (every slot) run ``grid.chunk_apply`` over their wide candidate
     rows. Each excludes the query's own slot.
+
+    ``lanes``: an ensemble's lane-major pool. A query slot's lane is
+    ``q_slot // C``; the scatter and hash queries read that lane's tables,
+    and brute force's candidates are that lane's C slots in slot order, so
+    each row sees its solo candidates in its solo order.
     """
+    ln = lanes or Lanes(1, channels["position"].shape[0])
+
+    def lane_of(q_slot: torch.Tensor) -> Optional[torch.Tensor]:
+        return (None if ln.solo else
+                torch.div(q_slot, ln.capacity, rounding_mode="floor"))
+
     if cfg.environment == "uniform_grid":
         def apply(pair_fn, out_specs, query_mask=None):
             mask = default_mask if query_mask is None else query_mask
@@ -280,27 +292,34 @@ def make_neighbor_apply(cfg: EngineConfig, spec: grid_mod.GridSpec, grid_env,
 
     if cfg.environment == "hash_grid":
         def phase_fn(q_pos, q_slot, j):
-            ids, valid = grid_mod.hash_grid_probe(spec, grid_env, q_pos, j)
+            ids, valid = grid_mod.hash_grid_probe(
+                spec, grid_env, q_pos, j, lane=lane_of(q_slot))
             return ids, valid & (ids != q_slot[:, None])
         n_phases, width = 27, grid_mod.HASH_K_MULT * spec.max_per_box
     else:
         if cfg.environment == "scatter_grid":
-            def box_cand(q_pos):
-                return grid_mod.scatter_grid_candidates(spec, grid_env, q_pos)
+            def box_cand(q_pos, q_slot):
+                return grid_mod.scatter_grid_candidates(
+                    spec, grid_env, q_pos, lane=lane_of(q_slot))
             width = 27 * spec.max_per_box
         else:                                   # brute_force
-            c = channels["position"].shape[0]
+            c = ln.capacity
             ids_all = torch.arange(c, dtype=torch.int32,
                                    device=default_mask.device)
+            alive = ln.view(channels["alive"])
 
-            def box_cand(q_pos):
+            def box_cand(q_pos, q_slot):
                 q = q_pos.shape[0]
-                return (ids_all[None].expand(q, c),
-                        channels["alive"][None].expand(q, c))
+                if ln.solo:
+                    return (ids_all[None].expand(q, c),
+                            alive[0][None].expand(q, c))
+                lane = lane_of(q_slot).to(torch.int64)
+                return (ids_all[None] + (lane * c).to(torch.int32)[:, None],
+                        alive.index_select(0, lane))
             width = c
 
         def phase_fn(q_pos, q_slot, j):
-            ids, valid = box_cand(q_pos)
+            ids, valid = box_cand(q_pos, q_slot)
             return ids, valid & (ids != q_slot[:, None])
         n_phases = 1
 
@@ -381,15 +400,6 @@ def check_kernel_footprints(cfg: EngineConfig, behaviors: Sequence[Behavior],
     return realized_footprint(cfg, behaviors)
 
 
-def _lane_limits(cfg: EngineConfig) -> None:
-    """What an ensemble's step does not run yet (ROADMAP.md item 13c): the
-    environments other than the uniform grid."""
-    if cfg.environment != "uniform_grid":
-        raise NotImplementedError(
-            f"the ensemble does not run environment={cfg.environment!r} "
-            f"yet, only the uniform grid (ROADMAP.md Queue 1 item 13c)")
-
-
 def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
                         device: torch.device, n_lanes: int = 1):
     """The Algorithm-1 iteration body.
@@ -406,7 +416,10 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
     params' leaves (L,), and every stat comes back (L,). Each lane takes
     exactly the values its solo step would, RNG keys included: the build
     sorts and indexes each lane on its own, the sweep's runs stay in the
-    query's lane, K1's column map packs every lane at whole row blocks,
+    query's lane (the scatter and hash tables a query reads, and brute
+    force's candidates, are its own lane's; the periodic Morton sort
+    orders each lane on its own iterations), K1's column map packs every
+    lane at whole row blocks,
     and every reduction is per lane. The operations do not grow with L
     beyond the streamed sweep's extra query chunks. With one lane this is
     the solo step itself.
@@ -422,8 +435,6 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
     """
     if n_lanes < 1:
         raise ValueError(f"n_lanes must be >= 1, got {n_lanes}")
-    if n_lanes > 1:
-        _lane_limits(cfg)
     ln = Lanes(n_lanes, cfg.capacity)
     lane_shape = () if ln.solo else (n_lanes,)
     if cfg.environment not in _ENV_METHOD:
@@ -473,14 +484,21 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
         """The §4.2 Morton sort on the steps ``it % sort_frequency == 0``.
         The reference branches with ``lax.cond``; here the sort is computed
         every step and the identity kept on the others, so no device value
-        is read on the host."""
+        is read on the host. Over lanes each lane sorts its own slots on
+        its own iterations, as the reference's vmapped ``lax.cond``."""
         keys = morton.morton_keys(pool.position, origin, box_size, spec.dims)
         keys = torch.where(pool.alive, keys,
                            torch.full_like(keys, morton.DEAD_KEY))
-        order = torch.sort(keys, stable=True).indices
+        due = (it % sort_every) == 0
+        if ln.solo:
+            order = torch.sort(keys, stable=True).indices
+        else:
+            local = torch.sort(ln.view(keys), dim=1, stable=True).indices
+            order = (local + ln.offsets(device)[:, None]).reshape(-1)
+            due = ln.rows(due)
         ident = torch.arange(pool.capacity, device=device)
         return compaction.apply_permutation(
-            pool, torch.where((it % sort_every) == 0, order, ident))
+            pool, torch.where(due, order, ident))
 
     def build_pairs(pool: AgentPool, grid_env: grid_mod.GridState
                     ) -> Optional[grid_mod.PairList]:
@@ -617,7 +635,7 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
                     if not k.startswith("extra.")}
         owned_alive = pool.alive
         nbr_apply = make_neighbor_apply(cfg, spec, grid_env, channels,
-                                        owned_alive)
+                                        owned_alive, ln)
 
         # static flags from last iteration's bookkeeping (paper §5), box
         # granular over this build's resident tables

@@ -29,12 +29,14 @@ launch once a tick for every lane).
   rebuild flags, and a tick whose lanes disagree builds every lane and
   keeps each lane's choice. A lane's diffusion grid, static flags and
   force overrides are its own too.
+* **Every environment.** The scatter and hash grids build L tables at
+  once, each lane's boxes or buckets its own, and brute force offers a
+  query its own lane's C slots; the periodic Morton sort orders each
+  lane on that lane's iterations.
 
 In memory a lane's channels are rows ``[l·C, (l+1)·C)`` of the pool and
 its cache is the lane-major :class:`~.grid.RebuildState`; checkpoints and
-:mod:`convert` present both as the reference's ``(L, C, ...)``. The
-scatter, hash and brute-force environments over lanes raise, naming
-ROADMAP.md Queue 1 item 13c.
+:mod:`convert` present both as the reference's ``(L, C, ...)``.
 """
 
 from __future__ import annotations
@@ -50,8 +52,7 @@ from .agents import AgentPool
 from .behaviors import Behavior
 from .engine import (CapacityExhausted, EngineConfig, EngineState,
                      LadderConfig, LadderDriverBase, ScenarioParams,
-                     Simulation, _lane_limits, make_iteration_core,
-                     next_rung)
+                     Simulation, make_iteration_core, next_rung)
 from .lanes import Lanes
 from .stats import StepStats
 from ..device import DeviceLike, resolve_device
@@ -93,7 +94,6 @@ def make_ensemble_core(config: EngineConfig,
     neither drift nor trip the ladder.
     """
     dev = resolve_device(device)
-    _lane_limits(config)
     core = make_iteration_core(config, behaviors, dev, n_lanes)
     ln = Lanes(n_lanes, config.capacity)
 

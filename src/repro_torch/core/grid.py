@@ -511,6 +511,24 @@ def counting_sort_order(keys: torch.Tensor, table_size: int, *,
     return torch.sort(keys, stable=True).indices.to(torch.int32)
 
 
+def lane_sort(keys: torch.Tensor, table_size: int, sort_impl: str = "auto",
+              lanes: Optional[Lanes] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each lane's keys sorted on their own, stably: ``(sorted_keys (L, C),
+    order (L·C,) int32)``, ``order`` listing slot ids of the whole pool,
+    lane by lane. One lane (``lanes`` None or solo) is
+    :func:`counting_sort_order`; more are one batched stable sort."""
+    if lanes is None or lanes.solo:
+        order = counting_sort_order(keys, table_size, impl=sort_impl)
+        return keys.index_select(0, order.to(torch.int64))[None], order
+    if sort_impl not in SORT_IMPLS:
+        raise ValueError(f"sort_impl must be one of {SORT_IMPLS}, "
+                         f"got {sort_impl!r}")
+    sorted_keys, local = torch.sort(lanes.view(keys), dim=1, stable=True)
+    order = (local + lanes.offsets(keys.device)[:, None]).reshape(-1)
+    return sorted_keys, order.to(torch.int32)
+
+
 def box_tables(sorted_keys: torch.Tensor, table_size: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense per-box ``(starts, counts)`` from the key-sorted keys."""
@@ -568,12 +586,8 @@ def _build_resident_impl(spec: GridSpec, pool: AgentPool,
     keys = morton.grid_sort_keys(pool.position, pool.alive, origin, box_size,
                                  spec.dims)
     if lanes is not None and not lanes.solo:
-        if sort_impl not in SORT_IMPLS:
-            raise ValueError(f"sort_impl must be one of {SORT_IMPLS}, "
-                             f"got {sort_impl!r}")
-        lane_sorted, local = torch.sort(lanes.view(keys), dim=1, stable=True)
-        order = (local + lanes.offsets(keys.device)[:, None]).reshape(
-            -1).to(torch.int32)
+        lane_sorted, order = lane_sort(keys, spec.table_size, sort_impl,
+                                       lanes)
         pool = compaction.apply_permutation(pool, order)
         starts, counts, max_count, max_run = _lane_index_tables(
             spec, lane_sorted, lanes)
@@ -628,17 +642,16 @@ def make_builder(spec: GridSpec, *, method: str = "resident",
 
     ``overflow`` and ``demand`` as the reference reports them for each
     method. ``box_size`` follows ``morton.cell_of``: a float multiplies by
-    its float32 reciprocal, a tensor divides. ``lanes`` (the resident
-    method only) builds an ensemble's L lanes at once; ``overflow`` and
-    ``demand`` are then (L,).
+    its float32 reciprocal, a tensor divides. ``lanes`` builds an
+    ensemble's L lanes at once, each indexed by tables of its own (the
+    "resident", "scatter" and "hash" methods, which the engine runs);
+    ``overflow`` and ``demand`` are then (L,).
     """
     if method not in BUILD_METHODS:
         raise ValueError(
             f"method must be one of {BUILD_METHODS}, got {method!r}")
-    if lanes is not None and not lanes.solo and method != "resident":
-        raise NotImplementedError(
-            f"an ensemble builds the resident grid only, not {method!r} "
-            f"(ROADMAP.md Queue 1 item 13c)")
+    if lanes is not None and not lanes.solo and method == "sorted":
+        raise ValueError("the sorted build indexes one lane only")
     if sort_impl not in SORT_IMPLS:
         raise ValueError(
             f"sort_impl must be one of {SORT_IMPLS}, got {sort_impl!r}")
@@ -666,11 +679,12 @@ def make_builder(spec: GridSpec, *, method: str = "resident",
                           spec.run_capacity)
         if method == "scatter":
             grid = _build_scatter_impl(spec, pool, origin, box_size,
-                                       sort_impl)
-            return result(pool, grid, ident(pool), grid.counts.max(),
+                                       sort_impl, lanes)
+            return result(pool, grid, ident(pool),
+                          (lanes or Lanes()).max(grid.counts),
                           spec.max_per_box)
         grid = _build_hash_impl(spec, pool, origin, box_size, n_buckets,
-                                sort_impl)
+                                sort_impl, lanes)
         return result(pool, grid, ident(pool), grid.max_bucket_count,
                       HASH_K_MULT * spec.max_per_box)
     return build_fn
@@ -1289,6 +1303,10 @@ class ScatterGridState:
             agents keeps its first K-1 in column order and its last in
             column K-1 (what the reference's scatter leaves)
     counts: (M,) int32 live agents per box
+
+    An ensemble's build holds L such tables, lane ``l``'s rows at
+    ``[l·M, (l+1)·M)`` with slot ids of the whole pool: ``table`` (L·M, K),
+    ``counts`` (L·M,).
     """
     origin: torch.Tensor
     box_size: morton.BoxSize
@@ -1297,8 +1315,8 @@ class ScatterGridState:
 
 
 def _build_scatter_impl(spec: GridSpec, pool: AgentPool, origin: torch.Tensor,
-                        box_size: morton.BoxSize, sort_impl: str = "auto"
-                        ) -> ScatterGridState:
+                        box_size: morton.BoxSize, sort_impl: str = "auto",
+                        lanes: Optional[Lanes] = None) -> ScatterGridState:
     """The member table, built by construction.
 
     The reference writes ``table[key, min(rank_in_box, K-1)] = slot`` in
@@ -1307,41 +1325,51 @@ def _build_scatter_impl(spec: GridSpec, pool: AgentPool, origin: torch.Tensor,
     wins. A CUDA scatter picks an unspecified winner among duplicates, so
     here each written cell has one writer: the columns below K-1 their own
     agent, column K-1 the box's last agent in sorted order. Every other
-    write, and every dead agent, lands in row M, which is cut off.
+    write, and every dead agent, lands in row L·M, which is cut off.
+
+    With ``lanes`` each lane's keys are sorted on their own and its boxes
+    written to its own rows ``lane·M + key``, one writer per cell as above.
     """
+    ln = lanes or Lanes(1, pool.capacity)
     m, k = spec.table_size, spec.max_per_box
     dev = pool.position.device
     keys = morton.linear_keys(pool.position, origin, box_size, spec.dims)
     keys = torch.where(pool.alive, keys, torch.full_like(keys, m))
-    order = counting_sort_order(keys, m, impl=sort_impl)
-    sk = keys.index_select(0, order.to(torch.int64))
-    c = sk.shape[0]
+    sk, order = lane_sort(keys, m, sort_impl, lanes)         # (L, C)
+    c = sk.shape[1]
     first = torch.searchsorted(sk, sk, side="left")
     in_box = torch.arange(c, device=dev) - first
-    last = torch.ones(c, dtype=torch.bool, device=dev)
-    last[:-1] = sk[1:] != sk[:-1]
-    row = torch.where((in_box < k - 1) | last, sk, torch.full_like(sk, m))
+    last = torch.ones_like(sk, dtype=torch.bool)
+    last[:, :-1] = sk[:, 1:] != sk[:, :-1]
+    keep = ((in_box < k - 1) | last) & (sk < m)
+    lane_row = torch.arange(ln.n, dtype=sk.dtype, device=dev)[:, None] * m
+    row = torch.where(keep, sk + lane_row, torch.full_like(sk, ln.n * m))
     col = in_box.clamp(max=k - 1)
-    table = torch.full((m + 1, k), -1, dtype=torch.int32, device=dev)
-    table.index_put_((row, col), order)
-    bounds = torch.searchsorted(sk, torch.arange(m + 1, dtype=sk.dtype,
-                                                 device=dev), side="left")
-    counts = (bounds[1:] - bounds[:-1]).to(torch.int32)
+    table = torch.full((ln.n * m + 1, k), -1, dtype=torch.int32, device=dev)
+    table.index_put_((row.reshape(-1), col.reshape(-1)), order)
+    box_ids = torch.arange(m + 1, dtype=sk.dtype, device=dev)
+    bounds = torch.searchsorted(sk, box_ids.expand(ln.n, m + 1).contiguous(),
+                                side="left")
+    counts = (bounds[:, 1:] - bounds[:, :-1]).to(torch.int32).reshape(-1)
     return ScatterGridState(origin=origin, box_size=box_size,
-                            table=table[:m], counts=counts)
+                            table=table[:ln.n * m], counts=counts)
 
 
 def scatter_grid_candidates(spec: GridSpec, g: ScatterGridState,
-                            query_pos: torch.Tensor
+                            query_pos: torch.Tensor,
+                            lane: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each query's 27 stencil boxes' table rows: ``(ids, valid)``, (Q,
     27·K) in ``_OFFSETS`` order, -1 entries and boxes outside the grid
-    invalid."""
+    invalid. ``lane`` (Q,): each query's lane in an ensemble's build, whose
+    tables it reads."""
     k = spec.max_per_box
     cell = morton.cell_of(query_pos, g.origin, g.box_size, spec.dims)
     ncell, inside = _stencil_cells(cell, spec.dims)
     codes = morton.linear_encode3(ncell[..., 0], ncell[..., 1],
                                   ncell[..., 2], spec.dims)
+    if lane is not None:
+        codes = codes + lane.to(codes.dtype)[:, None] * spec.table_size
     members = g.table[codes]                                  # (Q, 27, K)
     valid = (members >= 0) & inside[..., None]
     q = query_pos.shape[0]
@@ -1360,6 +1388,13 @@ class HashGridState:
     order:     (C,) int32 slots sorted by bucket
     starts, counts: (n_buckets,) per bucket, in ``order``
     max_bucket_count: () the fullest bucket
+    n_buckets: buckets of one lane
+
+    An ensemble's build hashes each lane into buckets of its own: ``order``
+    lists each lane's slots (ids of the whole pool) lane by lane,
+    ``starts``/``counts`` are (L·n_buckets,), lane ``l``'s at
+    ``[l·n_buckets, (l+1)·n_buckets)``, and ``max_bucket_count`` is (L,);
+    ``keys`` and ``cell_keys`` stay each lane's own.
     """
     origin: torch.Tensor
     box_size: morton.BoxSize
@@ -1369,6 +1404,7 @@ class HashGridState:
     starts: torch.Tensor
     counts: torch.Tensor
     max_bucket_count: torch.Tensor
+    n_buckets: int
 
 
 def _hash_cell(cell: torch.Tensor, n_buckets: int) -> torch.Tensor:
@@ -1383,7 +1419,8 @@ def _hash_cell(cell: torch.Tensor, n_buckets: int) -> torch.Tensor:
 
 def _build_hash_impl(spec: GridSpec, pool: AgentPool, origin: torch.Tensor,
                      box_size: morton.BoxSize, n_buckets: int = 1 << 14,
-                     sort_impl: str = "auto") -> HashGridState:
+                     sort_impl: str = "auto",
+                     lanes: Optional[Lanes] = None) -> HashGridState:
     cell = morton.cell_of(pool.position, origin, box_size, spec.dims)
     keys = _hash_cell(cell, n_buckets)
     keys = torch.where(pool.alive, keys, torch.full_like(keys, n_buckets))
@@ -1391,30 +1428,39 @@ def _build_hash_impl(spec: GridSpec, pool: AgentPool, origin: torch.Tensor,
                                 spec.dims)
     cell_keys = torch.where(pool.alive, lin,
                             torch.full_like(lin, morton.DEAD_KEY))
-    order = counting_sort_order(keys, n_buckets, impl=sort_impl)
-    sk = keys.index_select(0, order.to(torch.int64))
-    ids = torch.arange(n_buckets, dtype=sk.dtype, device=sk.device)
-    starts = torch.searchsorted(sk, ids, side="left").to(torch.int32)
-    ends = torch.searchsorted(sk, ids, side="right").to(torch.int32)
-    counts = (ends - starts).to(table_count_dtype(pool.capacity))
+    ln = lanes or Lanes(1, pool.capacity)
+    sk, order = lane_sort(keys, n_buckets, sort_impl, lanes)  # (L, C)
+    ids = torch.arange(n_buckets, dtype=sk.dtype, device=sk.device).expand(
+        ln.n, n_buckets).contiguous()
+    lo = torch.searchsorted(sk, ids, side="left")
+    counts = (torch.searchsorted(sk, ids, side="right") - lo).to(
+        table_count_dtype(ln.capacity)).reshape(-1)
+    # each lane's positions in ``order`` follow the lanes before it
+    starts = (lo + ln.offsets(sk.device)[:, None]).to(torch.int32)
     return HashGridState(origin=origin, box_size=box_size, keys=keys,
-                         cell_keys=cell_keys, order=order, starts=starts,
-                         counts=counts, max_bucket_count=counts.max())
+                         cell_keys=cell_keys, order=order,
+                         starts=starts.reshape(-1), counts=counts,
+                         max_bucket_count=ln.max(counts),
+                         n_buckets=n_buckets)
 
 
 def hash_grid_probe(spec: GridSpec, g: HashGridState, query_pos: torch.Tensor,
-                    j: int, k_mult: int = HASH_K_MULT
+                    j: int, k_mult: int = HASH_K_MULT,
+                    lane: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The candidates of stencil box ``j`` alone (one phase of
     :func:`phased_chunk_apply`): its bucket's first ``k_mult·max_per_box``
     agents, kept where their own cell is the probed one. ``(ids, valid)``,
-    (Q, k_mult·max_per_box)."""
-    n_buckets = g.starts.shape[0]
+    (Q, k_mult·max_per_box). ``lane`` (Q,): each query's lane in an
+    ensemble's build, whose buckets it probes (so it reaches only slots of
+    its own lane, and the cell test stays lane-local)."""
     k = spec.max_per_box * k_mult
     cell = morton.cell_of(query_pos, g.origin, g.box_size, spec.dims)
     ncell, inside = _stencil_cells(cell, spec.dims, j)
     ncell, inside = ncell[:, 0], inside[:, 0]
-    h = _hash_cell(ncell, n_buckets)
+    h = _hash_cell(ncell, g.n_buckets)
+    if lane is not None:
+        h = h + lane.to(h.dtype) * g.n_buckets
     k_true = morton.linear_encode3(ncell[..., 0], ncell[..., 1],
                                    ncell[..., 2], spec.dims)
     s = g.starts[h]

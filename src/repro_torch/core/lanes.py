@@ -60,10 +60,11 @@ class Lanes:
                                            *v.shape[1:])
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
-        """Largest element of each lane's rows: () solo, (L,) otherwise."""
+        """Largest element of each lane's rows: () solo, (L,) otherwise,
+        for leaves of L·C or L·M rows (per slot or per box)."""
         if self.solo:
             return x.max()
-        return self.view(x).reshape(self.n, -1).amax(1)
+        return x.reshape(self.n, -1).amax(1)
 
     def selector(self, lane_mask: torch.Tensor
                  ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:

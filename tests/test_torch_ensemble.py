@@ -408,17 +408,6 @@ def test_scenario_force_overrides_refused_under_k1():
     assert not torch.equal(a.position, c.position)
 
 
-def test_ensemble_raises_for_what_it_does_not_run_yet():
-    """Over lanes the scatter, hash and brute-force environments are not
-    ported yet: each is refused naming ROADMAP item 13c (every_k, pair
-    lists, diffusion, statics and force overrides run: see
-    tests/test_torch_ensemble_tissue.py)."""
-    for env in ("scatter_grid", "hash_grid", "brute_force"):
-        _, tcfg = _cfgs(environment=env, force_impl="xla")
-        with pytest.raises(NotImplementedError, match="item 13c"):
-            EnsembleEngine(tcfg, _behaviors(tb), n_lanes=2, device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # a traced dt, K1 over padded lanes, one program per tick
 # ---------------------------------------------------------------------------

@@ -37,6 +37,26 @@ def test_port_imports_neither_jax_nor_reference(path):
             f"{path.relative_to(ROOT)} imports {name}"
 
 
+def test_import_check_covers_the_examples():
+    """The examples package is part of the port: every module of it is
+    among the files the import check reads."""
+    names = {p.stem for p in PORT_FILES if p.parent.name == "examples"}
+    assert {"quickstart", "oncology", "neuroscience", "cell_clustering",
+            "ensemble_sweep", "serve_lm"} <= names, names
+
+
+def test_port_core_exports_what_the_reference_core_exports():
+    """Every name of ``repro.core.__all__`` but the multi-device ones is
+    exported by ``repro_torch.core`` too."""
+    repro_core = pytest.importorskip("repro.core")
+    import repro_torch.core
+    multi_device = {"DistConfig", "DistState", "DistributedSimulation",
+                    "DistributedCapacityLadder"}
+    missing = set(repro_core.__all__) - multi_device \
+        - set(repro_torch.core.__all__)
+    assert not missing, sorted(missing)
+
+
 def test_simulation_defaults_to_cuda_and_raises_without_it():
     from repro_torch.core import EngineConfig, Simulation
     from repro_torch.device import resolve_device
