@@ -264,10 +264,33 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      just before, read just after; K1 and the map on the uniform-grid
      examples, secretion on the clustering runs and the pair-list
      kernels under ``--pairlist`` must launch).
+ 28. the distributed engine, its 4 shards stacked as lanes of the card:
+     (a) benchmarks/distributed.py's weak-scaling case at 4 shards
+     (524,288 agents, side 256, radius 4, diameter 3, max_per_box 32;
+     local 163,904, halo 20,736, migrate 8,192, rebalance every 4) with
+     ``force_impl`` streamed and K1, 10 steps, against the solo
+     ``Simulation`` of the same config and seed: live counts equal, no
+     flag set, positions within 1e-3 agent by agent (a no-op behavior
+     carries each agent's index); ms/step (median of 10) of both, device
+     ops, busy ms and idle share of 4 profiled steps; K1 and its column
+     map once a step for all shards; (b) tests/test_distributed.py's SIR
+     case (births, deaths, migration, rebalance) with K1 on the card ≡
+     the same run on the CPU: every step's stats equal, each shard's
+     integers equal, positions 1e-4; (c) its sharded diffusion with
+     secretion: the grid within 1e-4 of its scale of the solo card run,
+     secretion once a step for all shards; (d) tests/test_ladder.py's
+     distributed ladder ≡ pre-sized bit for bit (the rungs printed),
+     tests/test_pairlist.py's 4-shard case with K1: a skin-0 list's run ≡
+     the stencil map's, its build and pairs map once a step, the
+     max_pairs rung ≡ pre-sized bit for bit; ``epidemiology
+     --distributed`` at CI's smoke size prints its OK.
 
 The kernels line's K1 and column-map entries add their launches per tick
 on phase 23 (b) (``ensemble_launches_per_tick``); the pair-list build's
-and the pairs map's theirs on phase 26 (b), secretion's on 26 (a).
+and the pairs map's theirs on phase 26 (b), secretion's on 26 (a); every
+entry adds its launches on phase 28's distributed runs
+(``distributed_launches`` in ``distributed_steps``: K1 and the map from
+(a)'s K1 run, the pair-list kernels from (d), secretion from (c)).
 
 Each phase prints its seconds. The CPU halves of phases 16-18 run in a
 child process (``chip_smoke.py --cpu-worker OUT``, one torch thread, no
@@ -283,12 +306,14 @@ CUDA device; exits non-zero otherwise.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -3981,53 +4006,56 @@ EXAMPLES = (
 )
 
 
-def _examples_on_the_card(tmpdir: str) -> list:
-    """[27e] each example's ``main`` on the card at CI's smoke size: its
-    own assertions pass, and every kernel's launches over its run (counts
-    reset just before, read just after). Temporary files (oncology's
-    checkpoint) go under ``tmpdir``."""
+def _example_on_the_card(name: str, env: dict, argv: list, must,
+                         tmpdir: str, tag: str) -> dict:
+    """One example's ``main`` on the card: it must print its OK line, and
+    each kernel in ``must`` must launch over its run (counts reset just
+    before, read just after). Temporary files (oncology's checkpoint) go
+    under ``tmpdir``."""
     import contextlib
     import importlib
     import io
     import os
     import tempfile
     import torch
-    recs = []
-    for name, env, argv, must in EXAMPLES:
-        mod = importlib.import_module(f"repro_torch.examples.{name}")
-        saved = {k: os.environ.get(k) for k in env}
-        os.environ.update(env)
-        out = io.StringIO()
-        tempfile.tempdir = tmpdir
-        try:
-            _reset_counts()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(out):
-                mod.main(argv)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            launches = _read_counts()
-        finally:
-            tempfile.tempdir = None
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k)
-                else:
-                    os.environ[k] = v
-        text = out.getvalue()
-        ok = [ln for ln in text.splitlines() if ln.startswith("OK:")]
-        check(bool(ok), f"[27e] {name} {argv} printed no OK line")
-        for k in must:
-            check(launches[k] > 0, f"[27e] {name} {argv}: {k} never "
-                                   f"launched")
-        label = " ".join([name, *argv])
-        recs.append({"example": label, "env": env, "seconds": seconds,
-                     "launches": launches, "ok": ok, "output": text})
-        knobs = " ".join(f"{k}={v}" for k, v in env.items())
-        used = {k: v for k, v in launches.items() if v} or "none"
-        print(f"[27e] {label} ({knobs}) on the card in {seconds:.1f} s: "
-              f"{ok[-1]}; launches {used}", flush=True)
-    return recs
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    out = io.StringIO()
+    tempfile.tempdir = tmpdir
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            mod.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _read_counts()
+    finally:
+        tempfile.tempdir = None
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    text = out.getvalue()
+    ok = [ln for ln in text.splitlines() if ln.startswith("OK:")]
+    check(bool(ok), f"[{tag}] {name} {argv} printed no OK line")
+    for k in must:
+        check(launches[k] > 0, f"[{tag}] {name} {argv}: {k} never launched")
+    label = " ".join([name, *argv])
+    knobs = " ".join(f"{k}={v}" for k, v in env.items())
+    used = {k: v for k, v in launches.items() if v} or "none"
+    print(f"[{tag}] {label} ({knobs}) on the card in {seconds:.1f} s: "
+          f"{ok[-1]}; launches {used}", flush=True)
+    return {"example": label, "env": env, "seconds": seconds,
+            "launches": launches, "ok": ok, "output": text}
+
+
+def _examples_on_the_card(tmpdir: str) -> list:
+    """[27e] each example's ``main`` on the card at CI's smoke size."""
+    return [_example_on_the_card(name, env, argv, must, tmpdir, "27e")
+            for name, env, argv, must in EXAMPLES]
 
 
 def phase_ensemble_envs(report: dict, tmpdir: str) -> dict:
@@ -4069,6 +4097,687 @@ def phase_ensemble_envs(report: dict, tmpdir: str) -> dict:
     rec["tick_times"] = _env_tick_times(uniform)
     rec["examples"] = _examples_on_the_card(tmpdir)
     report["ensemble_envs"] = rec
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 28: the distributed engine, its shards stacked as lanes on the card
+# ---------------------------------------------------------------------------
+
+# benchmarks/distributed.py's weak-scaling case at 4 shards (its per-shard
+# population, density, capacities and rebalance frequency)
+DIST_SHARDS, DIST_PER_SHARD, DIST_STEPS, DIST_PROFILED = 4, 131_072, 10, 4
+DIST_POS_TOL = 1e-3                  # tests/test_distributed.py:243
+DIST_SIR_STEPS, DIST_DIFF_STEPS, DIST_PL_STEPS = 20, 8, 8
+DIST_EXAMPLE = ("epidemiology", {"EXAMPLE_N": "6000", "EXAMPLE_EPOCHS": "5"},
+                ["--distributed"], ())       # .github/workflows/ci.yml:188
+
+
+def _dist_tag_behavior():
+    """A behavior that does nothing but carry each agent's index (an int32
+    extra channel), so two runs are matched agent by agent: at 524,288
+    agents a lexsort of positions pairs up different agents wherever an
+    ulp reorders two nearly equal coordinates."""
+    from repro_torch.core.behaviors import Behavior, BehaviorEffects
+    import torch
+
+    class Tag(Behavior):
+        name = "tag"
+
+        def extra_specs(self):
+            return {"tag": ((), torch.int32, -1)}
+
+        def __call__(self, ctx, pool, rng):
+            return BehaviorEffects()
+    return Tag()
+
+
+def _dist_weak_case(force_impl: str):
+    """benchmarks/distributed.py:64-89 at DIST_SHARDS shards: (DistConfig,
+    positions, diameters)."""
+    import numpy as np
+    from repro_torch.core import DistConfig, EngineConfig, ForceParams
+    n_total = DIST_PER_SHARD * DIST_SHARDS
+    rng = np.random.default_rng(DIST_SHARDS)
+    side = float(np.ceil((n_total / 2.0) ** (1 / 3)) * 4.0)
+    cfg = EngineConfig(capacity=n_total, domain_lo=(0, 0, 0),
+                       domain_hi=(side,) * 3, interaction_radius=4.0,
+                       dt=0.05, max_per_box=32, query_chunk=4096,
+                       force=ForceParams(max_displacement=0.5),
+                       force_impl=force_impl)
+    per = n_total // DIST_SHARDS
+    band = int(n_total * cfg.interaction_radius / side * 2.5) + 256
+    dcfg = DistConfig(engine=cfg, n_shards=DIST_SHARDS,
+                      local_capacity=int(per * 1.25) + 64,
+                      halo_capacity=min(band, int(per * 1.25) + 64),
+                      migrate_capacity=max(256, per // 16),
+                      rebalance_frequency=4)
+    pos = rng.uniform(1.0, side - 1.0, (n_total, 3)).astype(np.float32)
+    return dcfg, pos, np.full(n_total, 3.0, np.float32)
+
+
+def _synced_steps(sim, st, steps: int):
+    """``steps`` steps, each timed on the host clock to a synchronise;
+    every never-silent flag read after each step (outside its time) must
+    be clear. Returns the state and each step's ms."""
+    import torch
+    ms = []
+    torch.cuda.synchronize()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        st = sim.step(st)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(not st.stats.flags(), f"step {i}: flags {st.stats.flags()}")
+    return st, ms
+
+
+def _by_tag(channels: dict, alive) -> dict:
+    """The live agents' channels on the host, ordered by their tag."""
+    a = alive.cpu().numpy()
+    tag = channels["extra.tag"].cpu().numpy()[a]
+    order = tag.argsort()
+    return {k: v.cpu().numpy()[a][order] for k, v in channels.items()}
+
+
+@contextlib.contextmanager
+def _first_call(module, name: str):
+    """While the block runs, ``module.name`` records the arguments of its
+    first call (tensors cloned, as the call received them) and then runs
+    the call unchanged: a kernel's inputs as the distributed step gives
+    them."""
+    import torch
+    real = getattr(module, name)
+    seen = {}
+
+    def keep(a):
+        return a.clone() if isinstance(a, torch.Tensor) else a
+
+    def spy(*args, **kw):
+        if not seen:
+            seen["args"] = tuple(keep(a) for a in args)
+            seen["kw"] = {k: keep(v) for k, v in kw.items()}
+        return real(*args, **kw)
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+def _dist_k1_vs_plain(label: str, cfg, args) -> dict:
+    """On the inputs the distributed step handed ``ops.k1_inputs`` (every
+    shard's in-step pool, ghost rows in it but not queried): the lane-aware
+    column map (the stencil map, or the pairs map when ``args`` carry a
+    pair list) ≡ its plain version entry for entry, and K1 on that map ≡
+    plain K1; each timed beside its plain version and its bound."""
+    import torch
+    from repro_torch.kernels import ops
+    got = ops.k1_inputs(*args)
+    torch.cuda.synchronize()
+    want = ops.k1_inputs_plain(*args)
+    torch.cuda.synchronize()
+    for gt, w, what in zip(got, want, ("data_t", "block_cols", "overflow",
+                                       "row mask")):
+        check(gt.dtype == w.dtype and torch.equal(gt, w),
+              f"{label} the column map differs from plain in {what}")
+    lanes = args[12]
+    check(tuple(got[2].shape) == (lanes.n,) and not bool(got[2].any()),
+          f"{label} per-shard column-map overflow")
+    position, alive, active, starts, pairs = (args[0], args[3], args[4],
+                                              args[5], args[11])
+    ms = cuda_ms(lambda: ops.k1_inputs(*args), iters=20, warmup=3)
+    plain_ms = cuda_ms(lambda: ops.k1_inputs_plain(*args), iters=2,
+                       warmup=0)
+    if pairs is None:
+        bound_ms, bound_by, work = column_map_bound(position, starts,
+                                                    got[0], got[1])
+    else:
+        bound_ms, bound_by, work = pairs_map_bound(types.SimpleNamespace(
+            position=position, alive=alive), pairs, got[0], got[1])
+    rows = {"rows": position.shape[0], "lanes": lanes.n,
+            "queried_rows": int((active & alive).sum()),
+            "ghost_rows": int((alive & ~active).sum())}
+    cmap = {"equal": True, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "n_pad": got[0].shape[1], **rows, **work}
+    name = "pairs map" if pairs is not None else "column map"
+    print(f"{label} {name} on the step's own {lanes.n} x "
+          f"{lanes.capacity} rows ({rows['queried_rows']} queried, "
+          f"{rows['ghost_rows']} live ghosts not): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+          f"block_cols, per-shard flags, data_t and row mask equal",
+          flush=True)
+    k1_rec = _k1_vs_plain(label, got[0], got[1], cfg)
+    k1_rec["library_ms"] = None
+    return {"map": cmap, "k1": k1_rec}
+
+
+def _dist_weak(force_impl: str) -> dict:
+    """[28a] the 4-shard step against the solo step at 524,288 agents."""
+    import numpy as np
+    import torch
+    from repro_torch.core import DistributedSimulation, Simulation
+    dcfg, pos, dia = _dist_weak_case(force_impl)
+    n = pos.shape[0]
+    init = dict(diameter=dia, extra_init={"tag": np.arange(n,
+                                                           dtype=np.int32)})
+    beh = [_dist_tag_behavior()]
+    solo = Simulation(dcfg.engine, beh, device="cuda")
+    s_st, s_ms = _synced_steps(solo, solo.init_state(pos, **init),
+                               DIST_STEPS)
+    dsim = DistributedSimulation(dcfg, beh, device="cuda")
+    t0 = time.perf_counter()
+    d_st = dsim.init_state(pos, **init)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    _reset_counts()
+    d_st, d_ms = _synced_steps(dsim, d_st, DIST_STEPS)
+    launches = _read_counts()
+    if force_impl == "k1":
+        for k in ("k1_collision_force", "k1_column_map"):
+            check(launches[k] == DIST_STEPS,
+                  f"[28a] {k} launched {launches[k]} times in {DIST_STEPS} "
+                  f"steps of {DIST_SHARDS} shards, not once a step")
+    checks = None
+    if force_impl == "k1":
+        # one more step, its K1 inputs kept: the kernels ≡ plain on them
+        from repro_torch.kernels import ops
+        with _first_call(ops, "k1_inputs") as cap:
+            dsim.step(d_st)
+        checks = _dist_k1_vs_plain("[28a]", dcfg.engine, cap["args"])
+    want = _by_tag(s_st.pool.channels(), s_st.pool.alive)
+    got = _by_tag(d_st.channels, d_st.channels["alive"])
+    check(len(want["extra.tag"]) == len(got["extra.tag"]) == n,
+          f"[28a] live counts {len(want['extra.tag'])} (solo), "
+          f"{len(got['extra.tag'])} (4 shards), not {n}")
+    check(np.array_equal(want["extra.tag"], got["extra.tag"]),
+          "[28a] the live agents differ")
+    err = float(np.abs(want["position"] - got["position"]).max())
+    check(err < DIST_POS_TOL, f"[28a] positions differ by {err:.3g}")
+    nnz_rows = int((want["force_nnz"] != got["force_nnz"]).sum())
+    d_prof = _profiled(dsim, d_st, DIST_PROFILED)
+    s_prof = _profiled(solo, s_st, DIST_PROFILED)
+    return {"force_impl": force_impl, "agents": n,
+            "side": dcfg.engine.domain_hi[0],
+            "local_capacity": dcfg.local_capacity,
+            "halo_capacity": dcfg.halo_capacity,
+            "migrate_capacity": dcfg.migrate_capacity,
+            "total_capacity": dcfg.total_capacity, "steps": DIST_STEPS,
+            "dist_ms_steps": d_ms, "solo_ms_steps": s_ms,
+            "dist_ms_median": statistics.median(d_ms),
+            "solo_ms_median": statistics.median(s_ms),
+            "dist_init_ms": init_ms, "launches": launches,
+            "per_shard_live": d_st.stats.n_live.tolist(),
+            "boundaries": d_st.boundaries.tolist(),
+            "max_abs_pos_diff": err, "force_nnz_rows_differ": nnz_rows,
+            "kernel_checks": checks,
+            "dist_profiled": {k: v for k, v in d_prof.items()
+                              if k != "profile"},
+            "solo_profiled": {k: v for k, v in s_prof.items()
+                              if k != "profile"},
+            "dist_top_ops": d_prof["profile"]["top_device_ops"],
+            "dist_ranges": d_prof["profile"]["ranges"]}
+
+
+def _dist_sir_parts():
+    """tests/test_distributed.py's SIR case (its drift, deterministic
+    infection, births and deaths, migration and rebalance) with K1:
+    (DistConfig, behaviors factory, positions, init)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import DistConfig, EngineConfig, ForceParams
+    from repro_torch.core.behaviors import (Behavior, BehaviorEffects,
+                                            INFECTED, RECOVERED, Infection)
+    side = 48.0
+
+    class Drift(Behavior):
+        name = "drift"
+
+        def __call__(self, ctx, pool, rng):
+            step = torch.tensor([1.2, 0.0, 0.0],
+                                device=pool.device) * ctx.dt
+            new_pos = torch.where(ctx.owned[:, None], pool.position + step,
+                                  pool.position)
+            return BehaviorEffects(set_channels={"position": torch.clamp(
+                new_pos, ctx.domain_lo, ctx.domain_hi)})
+
+    class RecoveredFate(Behavior):
+        name = "fate"
+
+        def extra_specs(self):
+            return {"post": ((), torch.int32, 0)}
+
+        def __call__(self, ctx, pool, rng):
+            rec = ctx.owned & (pool.agent_type == RECOVERED)
+            post = torch.where(rec, pool.extra["post"] + 1,
+                               pool.extra["post"])
+            bp = torch.clamp(pool.position + torch.tensor(
+                [0.0, 1.5, 0.0], device=pool.device), ctx.domain_lo,
+                ctx.domain_hi)
+            return BehaviorEffects(
+                set_channels={"extra.post": post},
+                birth_channels={"position": bp, "diameter": pool.diameter,
+                                "agent_type": torch.zeros_like(
+                                    pool.agent_type)},
+                birth_valid=rec & (post == 3), death_mask=rec & (post >= 6))
+
+    rng = np.random.default_rng(0)
+    rng.uniform(2, side - 2, (400, 3))       # the forces case's draw
+    n = 500
+    cfg = EngineConfig(capacity=1024, domain_lo=(0, 0, 0),
+                       domain_hi=(side,) * 3, interaction_radius=4.0,
+                       dt=0.5, max_per_box=64, query_chunk=128,
+                       force=ForceParams(max_displacement=0.5),
+                       force_impl="k1")
+    pos = rng.uniform(1, side - 1, (n, 3)).astype(np.float32)
+    types = np.zeros(n, np.int32)
+    types[:10] = INFECTED
+    init = dict(diameter=np.full(n, 2.0, np.float32), agent_type=types,
+                extra_init={"infect_timer": np.full(n, 4, np.int32)})
+    dcfg = DistConfig(engine=cfg, n_shards=4, local_capacity=512,
+                      halo_capacity=256, migrate_capacity=128,
+                      rebalance_frequency=3)
+    return dcfg, lambda: [Drift(), Infection(radius=4.0, beta=1.0,
+                                             recovery_time=4),
+                          RecoveredFate()], pos, init
+
+
+def _dist_run(dcfg, behaviors, pos, init, steps: int, device: str):
+    """(final state, every step's stats as host lists)."""
+    from repro_torch.core import DistributedSimulation
+    dsim = DistributedSimulation(dcfg, behaviors, device=device)
+    st = dsim.init_state(pos, **init)
+    stats = []
+    for _ in range(steps):
+        st = dsim.step(st)
+        stats.append({f: v.tolist() for f, v in st.stats.items()})
+    return st, stats
+
+
+def _per_shard_live(st, c: int, names) -> list:
+    """Each shard's live agents (position first, then ``names``), sorted
+    by position."""
+    import numpy as np
+    ch = {k: v.cpu().numpy() for k, v in st.channels.items()}
+    out = []
+    for s in range(len(ch["alive"]) // c):
+        sl = slice(s * c, (s + 1) * c)
+        a = ch["alive"][sl]
+        p = ch["position"][sl][a]
+        o = np.lexsort(p.T)
+        out.append([p[o]] + [ch[k][sl][a][o] for k in names])
+    return out
+
+
+def _dist_sir_vs_cpu() -> dict:
+    """[28b] the SIR case on the card ≡ the port's CPU run of it."""
+    import numpy as np
+    import torch
+    dcfg, beh, pos, init = _dist_sir_parts()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)                 # as phase 2
+    try:
+        cpu, cpu_stats = _dist_run(dcfg, beh(), pos, init, DIST_SIR_STEPS,
+                                   "cpu")
+    finally:
+        torch.set_num_threads(threads)
+    _reset_counts()
+    card, card_stats = _dist_run(dcfg, beh(), pos, init, DIST_SIR_STEPS,
+                                 "cuda")
+    launches = _read_counts()
+    for i, (w, g) in enumerate(zip(cpu_stats, card_stats)):
+        check(w == g, f"[28b] stats after step {i} differ: {w} vs {g}")
+    names = ("agent_type", "extra.post", "extra.infect_timer", "born_iter")
+    worst = 0.0
+    for s, (w, g) in enumerate(zip(_per_shard_live(cpu, 512, names),
+                                   _per_shard_live(card, 512, names))):
+        check(w[0].shape == g[0].shape, f"[28b] shard {s} live counts")
+        worst = max(worst, float(np.abs(w[0] - g[0]).max(initial=0.0)))
+        for k, a, b in zip(names, w[1:], g[1:]):
+            check(np.array_equal(a, b), f"[28b] shard {s} {k} differs")
+    check(worst <= 1e-4, f"[28b] positions differ by {worst:.3g}")
+    np.testing.assert_allclose(card.boundaries.cpu().numpy(),
+                               cpu.boundaries.numpy(), rtol=0, atol=1e-4)
+    tot = lambda f: sum(sum(st[f]) for st in card_stats)  # noqa: E731
+    check(tot("births") > 0 and tot("deaths") > 0, "[28b] no births/deaths")
+    types = card.channels["agent_type"][card.channels["alive"]]
+    return {"steps": DIST_SIR_STEPS, "max_abs_pos_diff": worst,
+            "births": tot("births"), "deaths": tot("deaths"),
+            "infected_or_recovered": int((types != 0).sum()),
+            "per_shard_live": card.stats.n_live.tolist(),
+            "launches": launches}
+
+
+def _dist_diffusion() -> dict:
+    """[28c] tests/test_distributed.py's sharded-diffusion case on the
+    card against the solo card run; secretion once a step for all shards,
+    and ≡ its plain version on the first step's own inputs."""
+    import numpy as np
+    from repro_torch.core import (DiffusionSpec, DistConfig, EngineConfig,
+                                  Simulation, diffusion)
+    from repro_torch.core.behaviors import Chemotaxis, Secretion
+    side = 48.0
+    rng = np.random.default_rng(0)
+    dspec = DiffusionSpec(dims=(16, 8, 8), coefficient=0.2, decay=0.01,
+                          voxel=3.0)
+    cfg = EngineConfig(capacity=256, domain_lo=(0, 0, 0),
+                       domain_hi=(side, 24, 24), interaction_radius=4.0,
+                       dt=0.5, use_forces=False, max_per_box=64,
+                       query_chunk=64, diffusion=dspec, diffusion_substeps=2)
+    pos = rng.uniform(1, 23, (200, 3)).astype(np.float32)
+    pos[:, 0] = rng.uniform(1, side - 1, 200)
+    init = dict(diameter=np.full(200, 2.0, np.float32))
+    beh = lambda: [Secretion(rate=2.0), Chemotaxis(speed=0.8)]  # noqa
+    dcfg = DistConfig(engine=cfg, n_shards=4, local_capacity=128,
+                      halo_capacity=64, migrate_capacity=32)
+    sim = Simulation(cfg, beh(), device="cuda")
+    st = sim.run(sim.init_state(pos, **init), DIST_DIFF_STEPS,
+                 check_overflow=True)
+    _reset_counts()
+    with _first_call(diffusion, "add_sources") as cap:
+        dst, _ = _dist_run(dcfg, beh(), pos, init, DIST_DIFF_STEPS, "cuda")
+    launches = _read_counts()
+    kernel = _dist_secretion_vs_plain(cap["args"])
+    check(launches["secretion"] == DIST_DIFF_STEPS,
+          f"[28c] secretion launched {launches['secretion']} times in "
+          f"{DIST_DIFF_STEPS} steps of 4 shards, not once a step")
+    ref = st.conc.cpu().numpy()
+    scale = float(ref.max())
+    err = float(np.abs(ref - dst.conc.cpu().numpy()).max())
+    check(scale > 0 and err <= 1e-4 * max(1.0, scale),
+          f"[28c] conc differs by {err:.3g} (scale {scale:.3g})")
+    a, da = st.pool.alive.cpu().numpy(), dst.channels["alive"].cpu().numpy()
+    p = st.pool.position.cpu().numpy()[a]
+    q = dst.channels["position"].cpu().numpy()[da]
+    check(p.shape == q.shape, "[28c] live counts differ")
+    perr = float(np.abs(p[np.lexsort(p.T)] - q[np.lexsort(q.T)]).max())
+    check(perr < DIST_POS_TOL, f"[28c] positions differ by {perr:.3g}")
+    return {"steps": DIST_DIFF_STEPS, "conc_max_abs_diff": err,
+            "conc_scale": scale, "max_abs_pos_diff": perr,
+            "launches": launches, "kernel_check": kernel}
+
+
+def _dist_secretion_vs_plain(args) -> dict:
+    """[28c] on the inputs the distributed step handed
+    ``diffusion.add_sources`` (every shard's rows into its own zeroed
+    full-size grid of the (n_shards, X, Y, Z) stack): the secretion kernel
+    ≡ its plain version, ``index_add`` on the CPU in slot order, bit for
+    bit; timed beside it, the card's ``index_add_`` and the bound."""
+    import numpy as np
+    import torch
+    from repro_torch.core import diffusion
+    spec, grids, position, amount, origin, lanes = args
+    got = diffusion.add_sources(*args)
+    torch.cuda.synchronize()
+    cpu = (spec, grids.cpu(), position.cpu(), amount.cpu(), origin.cpu(),
+           lanes)
+    want = diffusion.add_sources(*cpu)
+    err = float((got.cpu() - want).abs().max())
+    check(torch.equal(got.cpu(), want),
+          f"[28c] secretion into the shards' grids differs from plain by "
+          f"{err:.3g}")
+    check(tuple(got.shape) == (lanes.n, *spec.dims),
+          f"[28c] secretion grids {tuple(got.shape)}")
+    flat = diffusion._flat(spec, diffusion.voxel_of(spec, position, origin),
+                           lanes)
+    lib = grids.reshape(-1).clone()
+    ms = cuda_ms(lambda: diffusion.add_sources(*args), iters=20, warmup=3)
+    lib_ms = cuda_ms(lambda: lib.index_add_(0, flat, amount), iters=20,
+                     warmup=3)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        diffusion.add_sources(*cpu)
+    plain_ms = (time.perf_counter() - t0) * 1e3 / 3
+    n, v = position.shape[0], int(np.prod(grids.shape))
+    moved = 4 * v + 12 * n + 8 * n + 4 * n + 4 * v      # as phase 15
+    rec = {"agents": n, "voxels": v, "equal": True, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "plain_device": "cpu",
+           "library_ms": lib_ms, "bound_ms": moved / PEAK_HBM_BYTES * 1e3,
+           "bound_by": "bytes", "bytes": moved}
+    print(f"[28c] secretion on the step's own {n} rows into {lanes.n} "
+          f"grids of {spec.dims}: kernel {ms:.4f} ms (sort included), "
+          f"plain (index_add on the CPU, host clock) {plain_ms:.2f} ms, "
+          f"index_add_ on the card {lib_ms:.4f} ms, bound "
+          f"{rec['bound_ms']:.5f} ms (bytes); bit-equal to plain",
+          flush=True)
+    return rec
+
+
+def _dist_ladder() -> dict:
+    """[28d] tests/test_ladder.py:309's distributed ladder on the card ≡ a
+    run pre-sized at its final rungs, bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (DistConfig, DistributedCapacityLadder,
+                                  DistributedSimulation, EngineConfig,
+                                  ForceParams)
+    from repro_torch.core.behaviors import (Behavior, BehaviorEffects,
+                                            GrowDivide)
+
+    class Drift(Behavior):
+        name = "drift"
+
+        def __call__(self, ctx, pool, rng):
+            step = torch.tensor([1.0, 0.0, 0.0],
+                                device=pool.device) * ctx.dt
+            new_pos = torch.where(ctx.owned[:, None], pool.position + step,
+                                  pool.position)
+            return BehaviorEffects(set_channels={"position": torch.clamp(
+                new_pos, ctx.domain_lo, ctx.domain_hi)})
+
+    beh = lambda: [GrowDivide(rate=0.8, threshold_diameter=6.0),  # noqa
+                   Drift()]
+    rng = np.random.default_rng(1)
+    side, n0 = 64.0, 64
+    cfg = EngineConfig(capacity=n0, domain_lo=(0, 0, 0),
+                       domain_hi=(side,) * 3, interaction_radius=4.0, dt=1.0,
+                       max_per_box=8, query_chunk=128,
+                       force=ForceParams(max_displacement=0.5))
+    pos = rng.uniform(2, side - 2, (n0, 3)).astype(np.float32)
+    dia = np.full(n0, 5.2, np.float32)
+    dl = DistributedCapacityLadder(
+        DistConfig(engine=cfg, n_shards=4, local_capacity=48,
+                   halo_capacity=24, migrate_capacity=12,
+                   rebalance_frequency=3), beh(), device="cuda")
+    _reset_counts()
+    st = dl.run(dl.init_state(pos, diameter=dia), 7)
+    launches = _read_counts()
+    ds = DistributedSimulation(dl.dcfg, beh(), device="cuda")
+    st2 = ds.run(ds.init_state(pos, diameter=dia), 7, check_overflow=True)
+    for k, v in st.channels.items():
+        check(torch.equal(v, st2.channels[k]),
+              f"[28d] the ladder's {k} differs from the pre-sized run's")
+    n_live = int(st.channels["alive"].sum())
+    check(n_live > n0, "[28d] the population did not grow")
+    return {"rungs": _rung_schedule(dl.rungs), "recompiles": dl.recompiles,
+            "n_live": n_live, "per_shard_live": st.stats.n_live.tolist(),
+            "final": {f: getattr(dl.dcfg, f) for f in (
+                "local_capacity", "halo_capacity", "migrate_capacity")},
+            "launches": launches}
+
+
+def _dist_pairlist_vs_plain(cap) -> dict:
+    """[28d] on the inputs the distributed step handed
+    ``grid.build_pairlist`` (every shard's in-step pool and its lane
+    tables): the lane-aware build ≡ its plain version, every field; timed
+    beside it and its bound."""
+    import torch
+    from repro_torch.core import grid as grid_mod
+    spec, g, position, alive = cap["args"]
+    kw = cap["kw"]
+    got = grid_mod.build_pairlist(spec, g, position, alive, **kw)
+    torch.cuda.synchronize()
+    want = grid_mod.build_pairlist_plain(spec, g, position, alive, **kw)
+    for f in ("idx", "run_off", "count", "demand"):
+        check(torch.equal(getattr(got, f), getattr(want, f)),
+              f"[28d] the pair-list build differs from plain in {f}")
+    lanes = g.starts.shape[0] // spec.table_size
+    check(tuple(got.demand.shape) == (lanes,)
+          and int(got.demand.max()) <= kw["max_pairs"],
+          f"[28d] pair demand {got.demand.tolist()}")
+    ms = cuda_ms(lambda: grid_mod.build_pairlist(
+        spec, g, position, alive, **kw), iters=20, warmup=3)
+    plain_ms = cuda_ms(lambda: grid_mod.build_pairlist_plain(
+        spec, g, position, alive, **kw), iters=2, warmup=0)
+    bound_ms, bound_by, work = pairlist_bound(spec, g, types.SimpleNamespace(
+        position=position, alive=alive), got)
+    print(f"[28d] pair-list build on the step's own {lanes} x "
+          f"{position.shape[0] // lanes} rows: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}); idx, "
+          f"run_off, count and per-shard demand equal", flush=True)
+    return {"equal": True, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "rows": position.shape[0], "lanes": lanes,
+            **work}
+
+
+def _dist_pairlist() -> dict:
+    """[28d] tests/test_pairlist.py:410's 4-shard case with K1 on the
+    card: the stencil map ≡ a skin-0 pair list's map (the pair-list build
+    and the pairs map once a step for all shards), and the max_pairs rung
+    ≡ the pre-sized run, bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (DistConfig, DistributedCapacityLadder,
+                                  DistributedSimulation, EngineConfig,
+                                  PairListConfig, grid as grid_mod)
+    from repro_torch.core.behaviors import INFECTED, Infection, RandomWalk
+    from repro_torch.kernels import ops
+    side, n = 48.0, 1024
+    rng = np.random.default_rng(7)
+    pos = rng.uniform(2, side - 2, (n, 3)).astype(np.float32)
+    types = np.zeros(n, np.int32)
+    types[:32] = INFECTED
+
+    def dcfg(pl):
+        return DistConfig(engine=EngineConfig(
+            capacity=n, domain_lo=(0., 0., 0.), domain_hi=(side,) * 3,
+            interaction_radius=3.0, max_per_box=32, query_chunk=256,
+            force_impl="k1", pairlist=pl), n_shards=4,
+            local_capacity=2 * n // 4, halo_capacity=256,
+            migrate_capacity=256)
+
+    def beh():
+        return [RandomWalk(sigma=0.35),
+                Infection(radius=3.0, beta=0.4, recovery_time=8)]
+
+    def init(sim):
+        return sim.init_state(pos, np.full(n, 2.5, np.float32), types,
+                              extra_init={"infect_timer":
+                                          np.full(n, 8, np.int32)})
+    out, launches, checks = {}, None, None
+    for pl in (None, PairListConfig(skin=0.0, max_pairs=96)):
+        sim = DistributedSimulation(dcfg(pl), beh(), device="cuda")
+        st = init(sim)
+        _reset_counts()
+        st = sim.run(st, DIST_PL_STEPS, check_overflow=True)
+        if pl is not None:
+            launches = _read_counts()
+            # one more step, its list and map inputs kept: ≡ plain on them
+            with _first_call(grid_mod, "build_pairlist") as cap_pl, \
+                    _first_call(ops, "k1_inputs") as cap_map:
+                sim.step(st)
+            checks = {"pairlist_build": _dist_pairlist_vs_plain(cap_pl),
+                      **_dist_k1_vs_plain("[28d]", sim.dcfg.engine,
+                                          cap_map["args"])}
+        out[pl is None] = st.channels
+    for k in ("pairlist_build", "k1_pair_cols", "k1_collision_force"):
+        check(launches[k] == DIST_PL_STEPS,
+              f"[28d] {k} launched {launches[k]} times in {DIST_PL_STEPS} "
+              f"steps of 4 shards, not once a step")
+    same = all(torch.equal(out[True][k], out[False][k]) for k in out[True])
+    a = out[True]["alive"].cpu().numpy()
+    p = out[True]["position"].cpu().numpy()[a]
+    q = out[False]["position"].cpu().numpy()[out[False]["alive"].cpu(
+    ).numpy()]
+    check(p.shape == q.shape, "[28d] live counts differ")
+    err = float(np.abs(p[np.lexsort(p.T)] - q[np.lexsort(q.T)]).max())
+    check(err <= 1e-5, f"[28d] list vs stencil map: positions {err:.3g}")
+    lad = DistributedCapacityLadder(
+        dcfg(PairListConfig(skin=0.0, max_pairs=2)), beh(), device="cuda")
+    st = init(lad)
+    for _ in range(4):
+        st = lad.step(st)
+    grown = lad.dcfg.engine.pairlist.max_pairs
+    pre = DistributedSimulation(dcfg(PairListConfig(skin=0.0,
+                                                    max_pairs=grown)),
+                                beh(), device="cuda")
+    sp = init(pre)
+    for _ in range(4):
+        sp = pre.step(sp)
+    for k, v in st.channels.items():
+        check(torch.equal(v, sp.channels[k]),
+              f"[28d] the max_pairs rung's {k} differs from pre-sized")
+    return {"steps": DIST_PL_STEPS, "launches": launches,
+            "kernel_checks": checks, "list_vs_stencil_bit_equal": same,
+            "list_vs_stencil_max_abs_diff": err,
+            "max_pairs_rungs": _rung_schedule(lad.rungs)}
+
+
+def phase_distributed(report: dict, tmpdir: str) -> dict:
+    """[28] the distributed engine on the card: (a) the weak-scaling case
+    against the solo step, streamed and K1; (b) SIR card ≡ CPU; (c)
+    sharded diffusion ≡ solo; (d) the ladder and the pair-list rung ≡
+    pre-sized, and the epidemiology example distributed. Every kernel of
+    the path is also held against its plain version on the inputs a
+    distributed step gave it: K1 and its map in (a), secretion in (c),
+    the list build, the pairs map and K1 in (d)."""
+    from repro_torch.device import card_description
+    card = card_description()
+    rec = {"card": card, "weak": {}}
+    for impl in ("streamed", "k1"):
+        r = rec["weak"][impl] = _dist_weak(impl)
+        dp, sp = r["dist_profiled"], r["solo_profiled"]
+        print(f"[28a] {impl}: {r['agents']} agents over {DIST_SHARDS} "
+              f"shards (local {r['local_capacity']}, halo "
+              f"{r['halo_capacity']}, migrate {r['migrate_capacity']}; "
+              f"lanes of {r['total_capacity']}), {r['steps']} steps: "
+              f"{r['dist_ms_median']:.3f} ms/step (median) against "
+              f"{r['solo_ms_median']:.3f} solo; device ops/step "
+              f"{dp['device_ops_per_step']:.0f} vs "
+              f"{sp['device_ops_per_step']:.0f}, idle share "
+              f"{dp['device_idle_share']:.3f} vs "
+              f"{sp['device_idle_share']:.3f}, busy ms/step "
+              f"{dp['device_busy_ms_per_step']:.3f} vs "
+              f"{sp['device_busy_ms_per_step']:.3f} ({DIST_PROFILED} "
+              f"profiled steps); ≡ solo agent by agent, max|Δpos| "
+              f"{r['max_abs_pos_diff']:.3g}, force_nnz differs in "
+              f"{r['force_nnz_rows_differ']} rows; per-shard live "
+              f"{r['per_shard_live']}; K1 "
+              f"{r['launches']['k1_collision_force']}, map "
+              f"{r['launches']['k1_column_map']} launches; {card}",
+              flush=True)
+    r = rec["sir"] = _dist_sir_vs_cpu()
+    print(f"[28b] SIR on 4 shards (K1), {r['steps']} steps: card ≡ CPU, "
+          f"every step's stats equal, per shard integers equal, max|Δpos| "
+          f"{r['max_abs_pos_diff']:.3g}; births {r['births']}, deaths "
+          f"{r['deaths']}, per-shard live {r['per_shard_live']}; K1 "
+          f"{r['launches']['k1_collision_force']} launches", flush=True)
+    r = rec["diffusion"] = _dist_diffusion()
+    print(f"[28c] sharded diffusion, {r['steps']} steps: conc within "
+          f"{r['conc_max_abs_diff']:.3g} of the solo card run (scale "
+          f"{r['conc_scale']:.3g}), positions {r['max_abs_pos_diff']:.3g}; "
+          f"secretion {r['launches']['secretion']} launches", flush=True)
+    r = rec["ladder"] = _dist_ladder()
+    print(f"[28d] distributed ladder ≡ pre-sized bit for bit: rungs "
+          f"{r['rungs']}, final {r['final']}, {r['n_live']} live "
+          f"{r['per_shard_live']}; K1 {r['launches']['k1_collision_force']} "
+          f"launches (re-runs included)", flush=True)
+    r = rec["pairlist"] = _dist_pairlist()
+    same = ("bit for bit" if r["list_vs_stencil_bit_equal"] else
+            f"max|Δ| {r['list_vs_stencil_max_abs_diff']:.3g}")
+    print(f"[28d] pair list over 4 shards, {r['steps']} steps: ≡ the "
+          f"stencil map ({same}); "
+          f"build {r['launches']['pairlist_build']}, pairs map "
+          f"{r['launches']['k1_pair_cols']}, K1 "
+          f"{r['launches']['k1_collision_force']} launches; max_pairs "
+          f"rungs {r['max_pairs_rungs']} ≡ pre-sized bit for bit",
+          flush=True)
+    name, env, argv, must = DIST_EXAMPLE
+    rec["example"] = _example_on_the_card(name, env, argv, must, tmpdir,
+                                          "28d")
+    report["distributed"] = rec
     return rec
 
 
@@ -4171,6 +4880,7 @@ def _run(workers, tmpdir: str) -> int:
     timed("25", phase_service_cli, report, tmpdir)
     tissue = timed("26", phase_tissue_lanes, report, tmpdir)
     timed("27", phase_ensemble_envs, report, tmpdir)
+    dist = timed("28", phase_distributed, report, tmpdir)
     report["total_s"] = time.perf_counter() - T_START
     print(f"phases took {sum(seconds.values()):.1f} s, the script "
           f"{report['total_s']:.1f} s", flush=True)
@@ -4228,6 +4938,35 @@ def _run(workers, tmpdir: str) -> int:
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},
             "ensemble_launches_per_tick": per_tick[name]})
+    # the distributed path (phase 28): launches over its runs, all shards
+    # stepped together — K1 and its map in (a)'s K1 run, the pair-list
+    # kernels in (d)'s list run, secretion in (c); K2 is not on it
+    dist_runs = {"k1_collision_force": dist["weak"]["k1"],
+                 "k1_column_map": dist["weak"]["k1"],
+                 "k2_flash_attention": dist["weak"]["k1"],
+                 "pairlist_build": dist["pairlist"],
+                 "k1_pair_cols": dist["pairlist"],
+                 "secretion": dist["diffusion"]}
+    # and each kernel ≡ its plain version on the inputs a distributed step
+    # gave it: K1 and its map at 4 x 205,376 rows (a), K1 again on the
+    # pairs map (d), the list build (d), secretion into 4 grids (c)
+    wk, pk = dist["weak"]["k1"]["kernel_checks"], dist["pairlist"][
+        "kernel_checks"]
+    dist_checks = {"k1_collision_force": {"28a": wk["k1"], "28d": pk["k1"]},
+                   "k1_column_map": {"28a": wk["map"]},
+                   "pairlist_build": {"28d": pk["pairlist_build"]},
+                   "k1_pair_cols": {"28d": pk["map"]},
+                   "secretion": {"28c": dist["diffusion"]["kernel_check"]}}
+    for k in kernels:
+        run = dist_runs[k["name"]]
+        k["distributed_launches"] = run["launches"][k["name"]]
+        k["distributed_steps"] = run["steps"]
+        checks = dist_checks.get(k["name"], {})
+        k["distributed_checks"] = {where: {f: rec[f] for f in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")} for where, rec in checks.items()}
+        k["max_abs_err"] = max([k["max_abs_err"]] + [
+            rec["max_abs_err"] for rec in checks.values()])
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -6,6 +6,8 @@ from .behaviors import (Behavior, BehaviorEffects, Chemotaxis, GrowDivide,
                         Secretion)
 from .compaction import grow_channels, grow_pool, repack_slabs
 from .diffusion import DiffusionSpec
+from .distributed import (DistConfig, DistributedCapacityLadder,
+                          DistributedSimulation, DistState)
 from .engine import (CapacityExhausted, CapacityLadder, EngineConfig,
                      EngineState, LadderConfig, ScenarioParams, Simulation,
                      StepContext, build_env, check_kernel_footprints,
@@ -43,4 +45,6 @@ __all__ = ["AgentPool", "DtypePolicy", "make_pool", "pool_from_channels",
            "restore_ensemble_state", "restore_state", "save_dist_state",
            "save_ensemble_state", "save_state", "StepStats",
            "ScenarioParams", "EnsembleCapacityLadder", "EnsembleEngine",
-           "EnsembleState", "grow_stacked_pool", "make_ensemble_core"]
+           "EnsembleState", "grow_stacked_pool", "make_ensemble_core",
+           "DistConfig", "DistState", "DistributedSimulation",
+           "DistributedCapacityLadder"]

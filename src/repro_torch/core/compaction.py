@@ -5,13 +5,13 @@ skipping)."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from .agents import AgentPool
-from .lanes import Lanes
+from .lanes import Lanes, row_cumsum
 
 
 def compaction_permutation(alive: torch.Tensor,
@@ -26,9 +26,12 @@ def compaction_permutation(alive: torch.Tensor,
     if lanes is not None and not lanes.solo:
         a = lanes.view(alive).to(torch.int32)
         n_live = a.sum(1, dtype=torch.int32)
-        dst_live = torch.cumsum(a, 1, dtype=torch.int32) - 1
-        dst_dead = n_live[:, None] + torch.cumsum(1 - a, 1,
-                                                  dtype=torch.int32) - 1
+        live_before = row_cumsum(a)
+        dst_live = live_before - 1
+        # the dead slots up to j: (j + 1) less the live ones
+        ar = torch.arange(1, a.shape[1] + 1, dtype=torch.int32,
+                          device=alive.device)
+        dst_dead = n_live[:, None] + (ar - live_before) - 1
         dst = torch.where(lanes.view(alive), dst_live, dst_dead).to(
             torch.int64) + lanes.offsets(alive.device)[:, None]
         perm = torch.empty(c, dtype=torch.int32, device=alive.device)
@@ -89,8 +92,7 @@ def commit_births(pool: AgentPool, queue: Dict[str, torch.Tensor],
         k = shape[0] // (n * per)
         qv = _lane_queue(queue_valid, lanes)
         n_live = lanes.sum(pool.alive)
-        dst = n_live[:, None] + torch.cumsum(qv.to(torch.int32), 1,
-                                             dtype=torch.int32) - 1
+        dst = n_live[:, None] + row_cumsum(qv.to(torch.int32)) - 1
         ok = qv & (dst < per)
         dst = torch.where(ok, dst.to(torch.int64)
                           + lanes.offsets(dev)[:, None],
@@ -172,26 +174,28 @@ def grow_pool(pool: AgentPool, new_capacity: int) -> AgentPool:
     return pool.with_channels(grow_channels(pool.channels(), new_capacity))
 
 
-def repack_slabs(channels: Dict[str, np.ndarray], n_shards: int,
-                 old_local: int, new_local: int) -> Dict[str, np.ndarray]:
-    """Host-side re-pack of sharded slab channels into a new local width.
+def repack_slabs(channels: Dict[str, Any], n_shards: int, old_local: int,
+                 new_local: int) -> Dict[str, Any]:
+    """Re-pack sharded slab channels into a new local width.
 
     Channels are global ``(n_shards·old_local, ...)`` arrays with shard i's
     agents in ``[i·old_local, i·old_local + n_i)``. Each shard's slab is
     kept verbatim and padded with zero (dead) tail slots: the distributed
-    counterpart of :func:`grow_channels`. Numpy in, numpy out, as the
-    reference (its distributed ladder is ROADMAP.md Queue 1 item 15).
+    counterpart of :func:`grow_channels`, used by the distributed ladder's
+    restage and by a restore onto a larger rung. Tensors stay tensors on
+    their device; numpy in, numpy out, as the reference.
     """
     if new_local < old_local:
         raise ValueError(f"cannot shrink slabs {old_local} -> {new_local}")
     out = {}
     for k, v in channels.items():
-        a = np.asarray(v)
-        a = a.reshape((n_shards, old_local) + a.shape[1:])
-        pad = np.zeros((n_shards, new_local - old_local) + a.shape[2:],
-                       a.dtype)
-        out[k] = np.concatenate([a, pad], axis=1).reshape(
-            (n_shards * new_local,) + a.shape[2:])
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.array(v))
+        g = torch.zeros((n_shards, new_local, *t.shape[1:]),
+                        dtype=t.dtype, device=t.device)
+        g[:, :old_local] = t.reshape(n_shards, old_local, *t.shape[1:])
+        g = g.reshape(n_shards * new_local, *t.shape[1:])
+        out[k] = g if isinstance(v, torch.Tensor) else g.numpy()
     return out
 
 

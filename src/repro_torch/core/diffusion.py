@@ -142,9 +142,9 @@ def gradient(spec: DiffusionSpec, conc: torch.Tensor, position: torch.Tensor,
 
 class DiffusionOps:
     """Substance-grid operations as the iteration core consumes them, on
-    the full in-memory grid (the reference's sharded variant is ROADMAP.md
-    Queue 1 item 15). ``lanes``: an ensemble's (L, X, Y, Z) grids, each
-    row reading and writing its own lane's."""
+    the full in-memory grid (the distributed engine substitutes x-slab ops,
+    ``distributed._ShardedDiffusionOps``). ``lanes``: an ensemble's (L, X,
+    Y, Z) grids, each row reading and writing its own lane's."""
 
     def __init__(self, spec: DiffusionSpec, origin: torch.Tensor,
                  lanes: Optional[Lanes] = None):

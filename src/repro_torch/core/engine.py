@@ -16,7 +16,10 @@ whether to rebuild, from the carried cache at its start: the reference
 skips the build with ``lax.cond``, and computing both branches would pay
 for the build it means to skip. The capacity ladder (:class:`CapacityLadder`)
 reads every flag and demand of a step in one host transfer after it, so a
-ladder run costs one host read a step (two under every_k).
+ladder run costs one host read a step (two under every_k). The
+distributed engine (:mod:`.distributed`) steps its shards as lanes: under
+every_k it reads the (n_shards,) rebuild flags in one transfer a step, as
+an ensemble does, and nothing else.
 
 Every environment of the reference runs: the resident ``uniform_grid``
 (every-step or every_k rebuilds, with or without a Verlet pair list), and
@@ -401,7 +404,9 @@ def check_kernel_footprints(cfg: EngineConfig, behaviors: Sequence[Behavior],
 
 
 def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
-                        device: torch.device, n_lanes: int = 1):
+                        device: torch.device, n_lanes: int = 1,
+                        owned_channel: Optional[str] = None,
+                        diff_ops: Optional[diff_mod.DiffusionOps] = None):
     """The Algorithm-1 iteration body.
 
     Returns ``core(pool, conc, rng, it, env=None, params=None, active=None)
@@ -432,6 +437,14 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
     the reference's vmapped ``lax.cond`` selects. ``active`` (L,) bool
     names the lanes whose results the caller keeps; the flags of the
     others are not read. The diffusion grid ``conc`` is (L, X, Y, Z).
+
+    ``owned_channel`` names a bool extra channel that tells the agents the
+    pool owns from ghost rows a distributed wrapper appended (None: every
+    live agent is owned). Ghosts are gather sources only: they are never
+    queried, acted on by behaviors, killed or counted in the stats, and
+    newborns are committed owned. ``diff_ops`` replaces the full-grid
+    :class:`~.diffusion.DiffusionOps` (the distributed engine's x-slabs).
+    With both None the core is the one without them, bit for bit.
     """
     if n_lanes < 1:
         raise ValueError(f"n_lanes must be >= 1, got {n_lanes}")
@@ -462,8 +475,13 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
     adhesion = _adhesion(cfg, device)
     fp = cfg.force
     use_k1 = cfg.force_impl == "k1"
-    diff_ops = (diff_mod.DiffusionOps(cfg.diffusion, origin, ln)
-                if cfg.diffusion is not None else None)
+    if diff_ops is None and cfg.diffusion is not None:
+        diff_ops = diff_mod.DiffusionOps(cfg.diffusion, origin, ln)
+
+    def owned_of(pool: AgentPool) -> torch.Tensor:
+        if owned_channel is None:
+            return pool.alive
+        return pool.extra[owned_channel].to(torch.bool) & pool.alive
 
     def zeros_i32():
         return torch.zeros(lane_shape, dtype=torch.int32, device=device)
@@ -633,7 +651,7 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
         # the snapshot the sequential sweeps read (before forces move it)
         channels = {k: v for k, v in pool.channels().items()
                     if not k.startswith("extra.")}
-        owned_alive = pool.alive
+        owned_alive = owned_of(pool)
         nbr_apply = make_neighbor_apply(cfg, spec, grid_env, channels,
                                         owned_alive, ln)
 
@@ -776,18 +794,19 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
         health = stats.health
         if cfg.health is not None and cfg.health.any_enabled:
             health = health_mod.step_health(
-                cfg.health, pool.alive, pool.position, dlo, dhi,
+                cfg.health, owned_of(pool), pool.position, dlo, dhi,
                 force=force_arr, move_d=move_d, lanes=ln)
 
         # ---------------- post standalone ops: commit ----------------
         deaths = zeros_i32()
         if death_mask is not None:
-            death_mask = death_mask & pool.alive
+            # ghosts are their own shard's to kill
+            death_mask = death_mask & owned_of(pool)
             deaths = ln.sum(death_mask)
             pool = dataclasses.replace(pool, alive=pool.alive & ~death_mask)
         # force-computed agents still alive at iteration end
         n_active = ln.sum(active & pool.alive if active is not None
-                          else pool.alive)
+                          else owned_of(pool))
         if death_mask is not None:
             # the build left the live agents in front, so with no deaths
             # this permutation is the identity: compacting unconditionally
@@ -800,6 +819,9 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
         births = zeros_i32()
         birth_overflow = zeros_i32()
         for q, valid in birth_queues:
+            if owned_channel is not None:
+                # the shard that staged a newborn commits it
+                q = {**q, "extra." + owned_channel: torch.ones_like(valid)}
             with record_function("step/commit_births"):
                 birth_overflow = birth_overflow + compaction.birth_overflow(
                     pool, valid, ln)
@@ -817,7 +839,7 @@ def make_iteration_core(cfg: EngineConfig, behaviors: Sequence[Behavior],
                 **({"pairs": pairs, "pair_disp": env.pair_disp + step_disp_eu}
                    if pl is not None else {}))
 
-        n_live_end = ln.sum(pool.alive)
+        n_live_end = ln.sum(owned_of(pool))
         if use_cache and not ln.solo:
             rebuilt = flags.to(torch.int32)
         else:

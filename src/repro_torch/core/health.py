@@ -96,14 +96,17 @@ class HealthFault(RuntimeError):
 
 
 def _channels(state):
-    """(channels, rebuild(channels) -> state) of an ``EngineState`` (the
-    distributed state is ROADMAP.md Queue 1 item 15)."""
-    if not hasattr(state, "pool"):
-        raise TypeError(f"not a simulation state: {type(state)!r}")
-
-    def rebuild(ch):
-        return dataclasses.replace(state, pool=pool_from_channels(ch))
-    return state.pool.channels(), rebuild
+    """(channels, rebuild(channels) -> state) of an ``EngineState`` or a
+    ``DistState`` (whose channels are the global per-shard slabs)."""
+    if hasattr(state, "pool"):
+        def rebuild(ch):
+            return dataclasses.replace(state, pool=pool_from_channels(ch))
+        return state.pool.channels(), rebuild
+    if hasattr(state, "channels"):
+        def rebuild(ch):
+            return dataclasses.replace(state, channels=ch)
+        return dict(state.channels), rebuild
+    raise TypeError(f"not a simulation state: {type(state)!r}")
 
 
 def inject_value(state, channel: str, slot: int, value):

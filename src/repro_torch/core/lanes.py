@@ -88,3 +88,15 @@ class Lanes:
         """(L,) int64 first slot of each lane."""
         return torch.arange(self.n, dtype=torch.int64,
                             device=device) * self.capacity
+
+
+def row_cumsum(a: torch.Tensor) -> torch.Tensor:
+    """Inclusive int32 cumulative sum along each row of ``a`` (R, K):
+    one scan over the flattened rows less each row's base, the count of
+    the rows before it. Equal to ``torch.cumsum(a, 1)``; on the card a
+    scan along the inner dimension of a few long rows costs many times
+    the one flat scan. Exact while the whole sum fits int32."""
+    flat = torch.cumsum(a.reshape(-1), 0, dtype=torch.int32).reshape(
+        a.shape)
+    base = torch.nn.functional.pad(flat[:-1, -1], (1, 0))
+    return flat - base[:, None]

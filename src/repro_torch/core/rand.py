@@ -1,6 +1,7 @@
 """Capacity-stable per-row random draws and the engine's step keys
-(port of ``repro.core.rand`` plus the two ``jax.random`` calls the engine
-makes: ``PRNGKey(seed)`` and ``split(key, n)``).
+(port of ``repro.core.rand`` plus the ``jax.random`` calls the engines
+make: ``PRNGKey(seed)``, ``split(key, n)`` and the distributed engine's
+``fold_in(key, shard)``).
 
 Keys are int64 tensors holding uint32 values: ``(2,)`` for one key, ``(n, 2)``
 for ``n`` keys. An ensemble's lanes carry one key each, ``(L, 2)``: every
@@ -83,6 +84,15 @@ def split(key: torch.Tensor, n: int, partitionable: bool = True
     if key.dim() == 2:
         return torch.cat([b0, b1], 1).reshape(-1, n, 2).transpose(0, 1)
     return torch.cat([b0, b1]).reshape(n, 2)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` (threefry), bit-exact: the key
+    (k0, k1) hashed over the counters (0, data). ``data`` is a uint32 value
+    or an int tensor of them, (n,) data giving (n, 2) keys."""
+    d = torch.as_tensor(data, dtype=torch.int64).to(key.device) & _M32
+    b0, b1 = threefry2x32(key[0], key[1], torch.zeros_like(d), d)
+    return torch.stack([b0, b1], dim=-1)
 
 
 def _row_col_bits(key: torch.Tensor, rows: int, cols: int

@@ -20,8 +20,11 @@
   lane-major layout in memory, so an ensemble checkpoint crosses between
   the packages both ways.
 
-The distributed variants are ROADMAP.md Queue 1 item 15; they raise
-``NotImplementedError``.
+* :func:`save_dist_state` / :func:`restore_dist_state` — a distributed
+  run (every shard's slab, keys, boundaries and caches) in the reference's
+  format, the caches stored ``(n_shards, ...)``; a restore onto another
+  shard count re-partitions the live agents. The supervisor drives a
+  :class:`DistributedCapacityLadder` as it drives a single-device one.
 """
 
 from __future__ import annotations
@@ -36,6 +39,11 @@ from ..device import DeviceLike, resolve_device
 from ..train import checkpoint as ckpt_mod
 from . import grid as grid_mod, rand
 from .behaviors import Behavior
+from .compaction import repack_slabs
+from .distributed import (OWNED, DistConfig, DistributedCapacityLadder,
+                          DistributedSimulation, DistState, initial_dist_env,
+                          partition_global, quantile_boundaries,
+                          shard_keys)
 from .engine import (CapacityExhausted, CapacityLadder, EngineConfig,
                      EngineState, ScenarioParams, Simulation, stage_pool)
 from .ensemble import EnsembleEngine, EnsembleState
@@ -90,6 +98,24 @@ def _apply_engine_knobs(cfg: EngineConfig, knobs: Dict,
     return dataclasses.replace(cfg, **changes)
 
 
+def _dist_knobs(dcfg: DistConfig) -> Dict:
+    return {"n_shards": dcfg.n_shards,
+            "local_capacity": dcfg.local_capacity,
+            "halo_capacity": dcfg.halo_capacity,
+            "migrate_capacity": dcfg.migrate_capacity,
+            "rebalance_frequency": dcfg.rebalance_frequency,
+            "engine": _engine_knobs(dcfg.engine)}
+
+
+def _apply_dist_knobs(dcfg: DistConfig, knobs: Dict, mode: str
+                      ) -> DistConfig:
+    return dataclasses.replace(
+        dcfg, engine=_apply_engine_knobs(dcfg.engine, knobs["engine"], mode),
+        n_shards=knobs["n_shards"], local_capacity=knobs["local_capacity"],
+        halo_capacity=knobs["halo_capacity"],
+        migrate_capacity=knobs["migrate_capacity"])
+
+
 # ---------------------------------------------------------------------------
 # Templates — a zero state with the checkpoint's structure and shapes
 # ---------------------------------------------------------------------------
@@ -113,6 +139,31 @@ def _template_state(cfg: EngineConfig, behaviors: Sequence[Behavior],
                        iteration=torch.zeros((), dtype=torch.int32,
                                              device=device),
                        stats=StepStats.zeros(device), env=env)
+
+
+def _template_dist_state(dcfg: DistConfig, behaviors: Sequence[Behavior],
+                         device: torch.device) -> DistState:
+    """Structural twin of ``DistributedSimulation.init_state``'s output."""
+    cfg = dcfg.engine
+    staging = stage_pool(1, list(behaviors),
+                         torch.zeros((1, 3), dtype=torch.float32),
+                         extra_specs={OWNED: ((), torch.bool, True)},
+                         policy=cfg.dtypes, device=device)
+    n = dcfg.n_shards * dcfg.local_capacity
+    dspec = cfg.diffusion
+    return DistState(
+        channels={k: torch.zeros((n, *v.shape[1:]), dtype=v.dtype,
+                                 device=device)
+                  for k, v in staging.channels().items()},
+        conc=torch.zeros(dspec.dims if dspec else (dcfg.n_shards, 1, 1),
+                         dtype=torch.float32, device=device),
+        rng=torch.zeros((dcfg.n_shards, 2), dtype=torch.int64,
+                        device=device),
+        boundaries=torch.zeros(dcfg.n_shards + 1, dtype=torch.float32,
+                               device=device),
+        iteration=torch.zeros((), dtype=torch.int32),
+        stats=StepStats.zeros(device, (dcfg.n_shards,)),
+        env=initial_dist_env(dcfg, device))
 
 
 def _adapt_env(state, saved_mode: str, cfg: EngineConfig,
@@ -278,14 +329,117 @@ def restore_ensemble_state(ckpt_dir: str, cfg: EngineConfig,
     return state, cfg, meta
 
 
-def save_dist_state(*args, **kwargs):
-    raise NotImplementedError("distributed checkpoints are not ported yet "
-                              "(ROADMAP.md Queue 1 item 15)")
+def _dist_stacked(state: DistState, dcfg: DistConfig) -> DistState:
+    """The distributed state as the reference stores it: every cache leaf
+    with a leading (n_shards,) axis and each shard's slot ids its own."""
+    env = state.env
+    if env is not None:
+        env = grid_mod.stack_rebuild_state(
+            env, Lanes(dcfg.n_shards, dcfg.total_capacity))
+    return dataclasses.replace(state, env=env)
 
 
-def restore_dist_state(*args, **kwargs):
-    raise NotImplementedError("distributed checkpoints are not ported yet "
-                              "(ROADMAP.md Queue 1 item 15)")
+def _dist_flat(state: DistState) -> DistState:
+    env = state.env
+    if env is not None:
+        env = grid_mod.flatten_rebuild_state(env)
+    return dataclasses.replace(state, env=env)
+
+
+def _dist_meta(dcfg: DistConfig, extras: Optional[Dict]) -> Dict:
+    meta = {"format": _FORMAT, "kind": "dist", "knobs": _dist_knobs(dcfg)}
+    if extras:
+        meta.update(extras)
+    return meta
+
+
+def save_dist_state(ckpt_dir: str, state: DistState, dcfg: DistConfig,
+                    extras: Optional[Dict] = None) -> str:
+    """Atomic checkpoint of a distributed run: every shard's slab at once
+    (the channels are already the global tensors)."""
+    return ckpt_mod.save(ckpt_dir, int(state.iteration),
+                         _stored(_dist_stacked(state, dcfg)),
+                         extras=_dist_meta(dcfg, extras))
+
+
+def restore_dist_state(ckpt_dir: str, dcfg: DistConfig,
+                       behaviors: Sequence[Behavior],
+                       step: Optional[int] = None, apply_knobs: str = "all",
+                       seed: int = 0, device: DeviceLike = None
+                       ) -> Tuple[DistState, DistConfig]:
+    """Restore ``(state, dist_config)`` on ``device`` (None: the CUDA
+    card), across shard counts.
+
+    The checkpoint's ``n_shards``: an exact restore, so the resumed run is
+    bit-exact (a larger ``local_capacity`` in ``dcfg`` re-packs the slabs
+    as the ladder's restage does). Another ``n_shards``: the live agents
+    are re-partitioned through the init path (fresh quantile boundaries,
+    per-shard keys folded from ``seed``, dirty caches) — the same
+    population, another layout and stream, so not bit-exact.
+    """
+    dev = resolve_device(device)
+    if step is None:
+        step = ckpt_mod.latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
+    meta = ckpt_mod.load_manifest(ckpt_dir, step).get("extras", {})
+    knobs = meta.get("knobs")
+    if knobs is None or meta.get("kind") != "dist":
+        raise ValueError(f"{ckpt_dir} step {step}: not a distributed "
+                         f"simulation checkpoint")
+    saved_mode = knobs["engine"]["rebuild"]["mode"]
+
+    def restored(saved: DistConfig) -> DistState:
+        return _dist_flat(ckpt_mod.restore(ckpt_dir, step, _dist_stacked(
+            _template_dist_state(saved, behaviors, dev), saved)))
+
+    if dcfg.n_shards == knobs["n_shards"]:
+        target = _apply_dist_knobs(dcfg, knobs, apply_knobs)
+        grow_local = max(dcfg.local_capacity, target.local_capacity)
+        tmpl_cfg = target
+        if (target.engine.rebuild.mode == "every_k") != (saved_mode
+                                                         == "every_k"):
+            tmpl_cfg = dataclasses.replace(
+                target, engine=dataclasses.replace(
+                    target.engine, rebuild=grid_mod.RebuildPolicy(
+                        **knobs["engine"]["rebuild"])))
+        state = _adapt_env(restored(tmpl_cfg), saved_mode, target.engine,
+                           lambda: _template_dist_state(target, behaviors,
+                                                        dev))
+        if grow_local > target.local_capacity:
+            # the caller's rung outgrew the checkpoint's: repack, keep it
+            state = dataclasses.replace(state, channels=repack_slabs(
+                state.channels, target.n_shards, target.local_capacity,
+                grow_local))
+            target = dataclasses.replace(target, local_capacity=grow_local)
+        return state, target
+
+    # reshard: restore at the saved topology, re-partition the live agents
+    state = restored(_apply_dist_knobs(dcfg, knobs, "all"))
+    target = dcfg if apply_knobs == "rungs" else dataclasses.replace(
+        dcfg, engine=_apply_engine_knobs(dcfg.engine, knobs["engine"], "all"))
+    cfg = target.engine
+    ch = state.channels
+    boundaries = quantile_boundaries(ch["position"][:, 0], ch["alive"],
+                                     target.n_shards,
+                                     float(cfg.domain_lo[0]),
+                                     float(cfg.domain_hi[0]))
+    channels = partition_global(ch, boundaries, target)
+    n_live, kept = (int(v) for v in torch.stack(
+        [ch["alive"].sum(), channels["alive"].sum()]).tolist())
+    if kept != n_live:
+        raise ValueError(
+            f"reshard onto n_shards={target.n_shards} drops "
+            f"{n_live - kept} agents (a slab exceeds local_capacity="
+            f"{target.local_capacity}); raise local_capacity")
+    conc = (state.conc if cfg.diffusion is not None
+            else torch.zeros((target.n_shards, 1, 1), dtype=torch.float32,
+                             device=dev))
+    return DistState(channels=channels, conc=conc,
+                     rng=shard_keys(seed, target.n_shards, dev),
+                     boundaries=boundaries, iteration=state.iteration,
+                     stats=StepStats.zeros(dev, (target.n_shards,)),
+                     env=initial_dist_env(target, dev)), target
 
 
 class SimCheckpointer:
@@ -297,15 +451,18 @@ class SimCheckpointer:
         self.ckpt_dir = ckpt_dir
         self._async = ckpt_mod.AsyncCheckpointer(ckpt_dir, keep=keep)
 
-    def save_async(self, state: EngineState, config: EngineConfig,
-                   extras: Optional[Dict] = None) -> int:
-        if not isinstance(config, EngineConfig):
-            raise NotImplementedError(
-                "distributed checkpoints are not ported yet (ROADMAP.md "
-                "Queue 1 item 15)")
+    def save_async(self, state, config, extras: Optional[Dict] = None
+                   ) -> int:
+        """Save an ``EngineState`` under its ``EngineConfig`` or a
+        ``DistState`` under its ``DistConfig``."""
         step = int(state.iteration)
-        self._async.save_async(step, _stored(state),
-                               extras=_meta(config, extras))
+        if isinstance(config, DistConfig):
+            self._async.save_async(step, _stored(_dist_stacked(state,
+                                                               config)),
+                                   extras=_dist_meta(config, extras))
+        else:
+            self._async.save_async(step, _stored(state),
+                                   extras=_meta(config, extras))
         return step
 
     def wait(self) -> None:
@@ -365,7 +522,8 @@ class RunReport:
 # ---------------------------------------------------------------------------
 
 class SupervisedRunner:
-    """Fault-tolerant driver around a :class:`CapacityLadder`.
+    """Fault-tolerant driver around a :class:`CapacityLadder` or a
+    :class:`DistributedCapacityLadder`.
 
     Runs it step by step, checkpoints every ``checkpoint_every`` iterations
     (and once up front, so there is always a rollback target), and reads
@@ -386,16 +544,18 @@ class SupervisedRunner:
     injection point, called on the input state of each iteration.
     """
 
-    def __init__(self, driver: CapacityLadder, ckpt_dir: str,
+    def __init__(self, driver, ckpt_dir: str,
                  checkpoint_every: int = 50, keep: int = 3,
                  policy: Optional[DegradationPolicy] = None,
                  max_retries: int = 8,
                  fault_hook: Optional[Callable] = None):
-        if not isinstance(driver, CapacityLadder):
-            raise NotImplementedError(
-                "the supervisor drives a single-device CapacityLadder; the "
-                "distributed ladder is ROADMAP.md Queue 1 item 15")
+        if not isinstance(driver, (CapacityLadder,
+                                   DistributedCapacityLadder)):
+            raise TypeError(f"the supervisor drives a CapacityLadder or a "
+                            f"DistributedCapacityLadder, got "
+                            f"{type(driver).__name__}")
         self.driver = driver
+        self._dist = isinstance(driver, DistributedCapacityLadder)
         self.ckpt_dir = ckpt_dir
         self.checkpoint_every = checkpoint_every
         self.policy = policy or DegradationPolicy()
@@ -405,44 +565,57 @@ class SupervisedRunner:
         self._ckpt = SimCheckpointer(ckpt_dir, keep=keep)
         self._applied: List[str] = []
 
-    def _reconfigure(self, new_cfg: EngineConfig) -> None:
-        self.driver.config = new_cfg
-        self.driver._sim = Simulation(new_cfg, self.driver.behaviors,
-                                      device=self.driver.device)
+    # -- driver plumbing (CapacityLadder vs DistributedCapacityLadder) ------
+    def _config(self):
+        return self.driver.dcfg if self._dist else self.driver.config
 
-    def _save(self, state: EngineState) -> None:
-        step = self._ckpt.save_async(state, self.driver.config)
+    def _engine_cfg(self) -> EngineConfig:
+        return self._config().engine if self._dist else self._config()
+
+    def _reconfigure(self, new_cfg) -> None:
+        d = self.driver
+        if self._dist:
+            d.dcfg = new_cfg
+            d._sim = DistributedSimulation(new_cfg, d.behaviors, d.device)
+        else:
+            d.config = new_cfg
+            d._sim = Simulation(new_cfg, d.behaviors, device=d.device)
+
+    def _save(self, state) -> None:
+        step = self._ckpt.save_async(state, self._config())
         if step not in self.report.checkpoints:
             self.report.checkpoints.append(step)
 
-    def _rollback(self) -> EngineState:
+    def _rollback(self):
         """The latest checkpoint under the current (degraded) config."""
         self._ckpt.wait()
-        state, cfg = restore_state(
-            self.ckpt_dir, self.driver.config, self.driver.behaviors,
-            apply_knobs="rungs", device=self.driver.device)
+        restore = restore_dist_state if self._dist else restore_state
+        state, cfg = restore(self.ckpt_dir, self._config(),
+                             self.driver.behaviors, apply_knobs="rungs",
+                             device=self.driver.device)
         self._reconfigure(cfg)
         return state
 
-    def _handle_fault(self, kind: str, detail: Dict, fault) -> EngineState:
+    def _handle_fault(self, kind: str, detail: Dict, fault):
         self.report.retries += 1
         if self.report.retries > self.max_retries:
             fault.report = self.report
             raise fault
-        remedy = self.policy.next_remedy(self.driver.config, self._applied)
+        remedy = self.policy.next_remedy(self._engine_cfg(), self._applied)
         if remedy is None:
             fault.report = self.report
             raise fault
-        name, new_cfg = remedy
+        name, new_eng = remedy
         self._applied.append(name)
-        self._reconfigure(new_cfg)
+        self._reconfigure(dataclasses.replace(self._config(), engine=new_eng)
+                          if self._dist else new_eng)
         state = self._rollback()
         self.report.interventions.append(
             {"kind": kind, "remedy": name,
              "rolled_back_to": int(state.iteration), **detail})
         return state
 
-    def run(self, state: EngineState, n_iterations: int):
+    def run(self, state, n_iterations: int):
         """Returns ``(final_state, RunReport)``."""
         target = int(state.iteration) + n_iterations
         self._save(state)                       # always a rollback target

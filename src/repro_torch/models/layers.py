@@ -5,7 +5,7 @@ Parameters are nested dicts of tensors. A ``ParamSet`` records, for every
 parameter: shape, dtype, init kind and std, and the placeholder sharding
 axes of the reference ("fsdp" / "tp"), kept as data so the two registries
 stay comparable. Sharding itself (``hint``, ``MeshAxes``,
-``resolve_spec``) waits for ROADMAP.md Queue 1 items 15 and 18; the port
+``resolve_spec``) waits for ROADMAP.md Queue 1 items 15b and 18; the port
 has no ``hint``.
 """
 

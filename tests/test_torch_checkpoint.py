@@ -548,13 +548,35 @@ def test_run_supervised_wraps_a_ladder(tmp_path):
     assert int(final.stats["n_live"]) > 32
 
 
-def test_ensemble_and_distributed_variants_name_their_items():
+def test_ensemble_and_distributed_variants_name_their_items(tmp_path):
     # the ensemble variants are ported (tests/test_torch_ensemble.py and
-    # test_torch_sim_service.py hold their round trips); the distributed
-    # ones still name their item
-    for fn in (simcheck.save_dist_state, simcheck.restore_dist_state):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            fn()
+    # test_torch_sim_service.py hold their round trips), and so are the
+    # distributed ones (tests/test_torch_distributed_ladder.py holds their
+    # resume, reshard and supervisor cases): a 2-shard every_k state
+    # written with its knobs restores leaf for leaf
+    from repro_torch.core import DistConfig, DistributedSimulation
+    cfg = _cfg(rebuild=tgrid.RebuildPolicy("every_k", k=3,
+                                           displacement_bound=0.5))
+    dcfg = DistConfig(engine=cfg, n_shards=2, local_capacity=32,
+                      halo_capacity=16, migrate_capacity=8)
+    dsim = DistributedSimulation(dcfg, [tb.RandomWalk(sigma=0.3)],
+                                 device="cpu")
+    st = dsim.run(dsim.init_state(_pos(), diameter=np.full(20, 1.5,
+                                                           np.float32)), 3)
+    simcheck.save_dist_state(str(tmp_path), st, dcfg)
+    manifest = checkpoint.load_manifest(str(tmp_path), 3)["extras"]
+    assert manifest["kind"] == "dist"
+    assert manifest["knobs"]["n_shards"] == 2
+    got, rcfg = simcheck.restore_dist_state(
+        str(tmp_path), dcfg, [tb.RandomWalk(sigma=0.3)], device="cpu")
+    assert rcfg == dcfg and int(got.iteration) == 3
+    for k, v in st.channels.items():
+        assert torch.equal(got.channels[k], v), k
+    for a, b in ((got.rng, st.rng), (got.boundaries, st.boundaries),
+                 (got.env.grid.order, st.env.grid.order),
+                 (got.env.grid.keys, st.env.grid.keys),
+                 (got.env.dirty, st.env.dirty)):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

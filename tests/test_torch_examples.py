@@ -85,7 +85,7 @@ def _same_behaviors(tbs, jbs):
 
 
 CONFIG_CASES = [("quickstart", {}), ("oncology", {}), ("neuroscience", {}),
-                ("cell_clustering", {}),
+                ("epidemiology", {}), ("cell_clustering", {}),
                 ("cell_clustering", {"pairlist": True, "skin": 1.5})]
 
 
@@ -153,11 +153,16 @@ MAIN_CASES = [
     ("ensemble_sweep", {"EXAMPLE_N": "64", "EXAMPLE_LANES": "2",
                         "EXAMPLE_POINTS": "4", "EXAMPLE_STEPS": "20"}, []),
     ("serve_lm", {}, []),
+    # at 800 agents the epidemic passes its 20 seeds within one epoch
+    ("epidemiology", {"EXAMPLE_N": "800", "EXAMPLE_EPOCHS": "1"}, []),
+    ("epidemiology", {"EXAMPLE_N": "800", "EXAMPLE_EPOCHS": "1"},
+     ["--distributed"]),
+    ("check_footprints", {}, []),
 ]
 
 
 @pytest.mark.parametrize("name,env,argv", MAIN_CASES,
-                         ids=[f"{n}{'-pairlist' if a else ''}"
+                         ids=["-".join([n, *(x.strip("-") for x in a)])
                               for n, _, a in MAIN_CASES])
 def test_example_main_runs_on_the_cpu(name, env, argv, monkeypatch,
                                       tmp_path, capsys):
@@ -172,7 +177,7 @@ def test_example_main_runs_on_the_cpu(name, env, argv, monkeypatch,
 
 @pytest.mark.parametrize("name", ["quickstart", "oncology", "neuroscience",
                                   "cell_clustering", "ensemble_sweep",
-                                  "serve_lm"])
+                                  "serve_lm", "epidemiology"])
 def test_example_defaults_to_cuda_and_raises_without_it(name):
     from repro_torch.device import resolve_device
     if torch.cuda.is_available():
@@ -180,3 +185,29 @@ def test_example_defaults_to_cuda_and_raises_without_it(name):
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _port(name).main([])
+
+
+def test_epidemiology_distributed_defaults_to_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _port("epidemiology").main(["--distributed"])
+
+
+def test_check_footprints_tables_equal_the_reference():
+    """The pinned footprints and the pair-list variants are the reference
+    script's, and both scripts pass."""
+    import sys
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        ref = _reference("check_footprints")
+        assert ref.main() == 0
+    finally:
+        sys.path.remove(str(ROOT / "examples"))
+    port = _port("check_footprints")
+    assert {k: tuple(v) for k, v in port.EXPECTED.items()} == \
+        {k: tuple(v) for k, v in ref.EXPECTED.items()}
+    assert sorted(port.PAIRLIST_VARIANTS) == sorted(ref.PAIRLIST_VARIANTS)
+    for k, (_, want) in ref.PAIRLIST_VARIANTS.items():
+        assert tuple(port.PAIRLIST_VARIANTS[k][1]) == tuple(want)
+    assert port.main([]) == 0

@@ -42,18 +42,20 @@ def test_import_check_covers_the_examples():
     among the files the import check reads."""
     names = {p.stem for p in PORT_FILES if p.parent.name == "examples"}
     assert {"quickstart", "oncology", "neuroscience", "cell_clustering",
-            "ensemble_sweep", "serve_lm"} <= names, names
+            "ensemble_sweep", "serve_lm", "epidemiology",
+            "check_footprints"} <= names, names
+
+
+def test_import_check_covers_the_distributed_engine():
+    assert PORT / "core" / "distributed.py" in PORT_FILES
 
 
 def test_port_core_exports_what_the_reference_core_exports():
-    """Every name of ``repro.core.__all__`` but the multi-device ones is
-    exported by ``repro_torch.core`` too."""
+    """Every name of ``repro.core.__all__`` is exported by
+    ``repro_torch.core`` too, the distributed engine's included."""
     repro_core = pytest.importorskip("repro.core")
     import repro_torch.core
-    multi_device = {"DistConfig", "DistState", "DistributedSimulation",
-                    "DistributedCapacityLadder"}
-    missing = set(repro_core.__all__) - multi_device \
-        - set(repro_torch.core.__all__)
+    missing = set(repro_core.__all__) - set(repro_torch.core.__all__)
     assert not missing, sorted(missing)
 
 
@@ -74,7 +76,8 @@ def test_simulation_defaults_to_cuda_and_raises_without_it():
 
 @pytest.mark.parametrize("make", ["make_pool", "stage_pool", "prng_key",
                                   "StepStats.zeros", "restore_state",
-                                  "CapacityLadder"])
+                                  "CapacityLadder", "restore_dist_state",
+                                  "DistributedCapacityLadder"])
 def test_public_constructors_default_to_cuda_and_raise_without_it(make,
                                                                   tmp_path):
     """The pool, key and stats constructors, the restore and the ladder
@@ -86,10 +89,18 @@ def test_public_constructors_default_to_cuda_and_raise_without_it(make,
     cfg = EngineConfig(capacity=16, domain_lo=(0, 0, 0),
                        domain_hi=(8, 8, 8), interaction_radius=2.0)
     pos = np.zeros((2, 3), np.float32)
+    from repro_torch.core import (DistConfig, DistributedCapacityLadder,
+                                  restore_dist_state, save_dist_state)
+    dcfg = DistConfig(engine=cfg, n_shards=2, local_capacity=8,
+                      halo_capacity=4, migrate_capacity=4)
     if make == "restore_state":
         from repro_torch.core import Simulation
         save_state(str(tmp_path),
                    Simulation(cfg, [], device="cpu").init_state(pos), cfg)
+    if make == "restore_dist_state":
+        from repro_torch.core import DistributedSimulation
+        save_dist_state(str(tmp_path), DistributedSimulation(
+            dcfg, [], device="cpu").init_state(pos), dcfg)
     calls = {
         "make_pool": lambda **kw: make_pool(16, **kw),
         "stage_pool": lambda **kw: stage_pool(16, [], pos, **kw),
@@ -98,6 +109,10 @@ def test_public_constructors_default_to_cuda_and_raise_without_it(make,
         "restore_state": lambda **kw: restore_state(str(tmp_path), cfg, [],
                                                     **kw)[0].pool,
         "CapacityLadder": lambda **kw: CapacityLadder(cfg, [], **kw).sim,
+        "restore_dist_state": lambda **kw: restore_dist_state(
+            str(tmp_path), dcfg, [], **kw)[0].channels["position"],
+        "DistributedCapacityLadder": lambda **kw: DistributedCapacityLadder(
+            dcfg, [], **kw).sim,
     }
     fn = calls[make]
 
