@@ -284,6 +284,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      the stencil map's, its build and pairs map once a step, the
      max_pairs rung ≡ pre-sized bit for bit; ``epidemiology
      --distributed`` at CI's smoke size prints its OK.
+ 29. LM training: (a) qwen2-1.5b at full width and depth (28 layers,
+     bf16 parameters, f32 moments, remat full, random weights from a
+     seed) for 5 AdamW steps (lr 3e-4, warm-up 2, total 5) of 2 × 4,096
+     tokens from ``batch_at`` through ``make_train_step``: every step's
+     loss, grad_norm and lr finite and the loss lower at step 5 than at
+     step 1; ms/step (median of steps 2-5 by CUDA events and by the host
+     clock), tokens/s, peak memory, the model-FLOPs share of the bf16
+     peak with its formula, and one more step profiled (device ops, busy
+     ms, idle share, device ms by range and by kind of kernel); (b) the
+     reduced qwen2-1.5b in f32 with remat full, 3 steps on the card and
+     on the CPU from the same weights and batches: loss, grad_norm and lr
+     within rtol 1e-4 each step, and after step 1 at most 1e-3 of the
+     parameters beyond 1e-6 of the CPU's, each within 2·lr (AdamW's
+     first step moves an element whose |g| is near eps by up to lr on
+     rounding alone); (c) K2 under autograd raises, and so does
+     ``train_loss`` with ``attn_impl="k2"``; (d) ``train_lm smoke
+     --steps 5`` (CI's size) prints OK, and its 60-step run SIGKILLed
+     after the step-20 checkpoint and resumed ends bit for bit where the
+     uninterrupted run ends (both children under
+     ``torch.use_deterministic_algorithms`` with
+     ``CUBLAS_WORKSPACE_CONFIG`` set: the embedding's backward
+     accumulates with atomics otherwise). No kernel launches in the
+     phase (counts reset before (a), read after (d)); each kernel
+     entry's ``training_launches`` is that count.
 
 The kernels line's K1 and column-map entries add their launches per tick
 on phase 23 (b) (``ensemble_launches_per_tick``); the pair-list build's
@@ -309,9 +333,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -4781,6 +4807,406 @@ def phase_distributed(report: dict, tmpdir: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 29: LM training
+# ---------------------------------------------------------------------------
+
+# (a) qwen2-1.5b at full width and depth (bf16 params, f32 moments, remat
+# full), 2 × 4,096 tokens a step (qwen2's pretraining context,
+# arXiv:2407.10671 §3); steps 2-5 are timed, then one more is profiled
+TRAIN = dict(arch="qwen2-1.5b", batch=2, seq_len=4096, steps=5, lr=3e-4,
+             warmup=2, seed=0)
+# (b) reduced_config(qwen2-1.5b) in f32 with the full-width run's remat,
+# 3 steps card ≡ CPU from the same weights and batches
+TRAIN_PARITY = dict(steps=3, seq_len=64, batch=4, rtol=1e-4, param_atol=1e-6,
+                    seed=3)
+# (d) the example at CI's size (.github/workflows/ci.yml:194), then its
+# default 60 steps uninterrupted and SIGKILLed after the step-20 checkpoint
+# and resumed, both deterministic (torch.use_deterministic_algorithms,
+# CUBLAS_WORKSPACE_CONFIG set before CUDA starts): the two must end bit for
+# bit equal
+TRAIN_EXAMPLE_STEPS, TRAIN_KILL_AFTER = 5, 20
+DETERMINISTIC_MAIN = ("import sys, torch; "
+                      "torch.use_deterministic_algorithms(True); "
+                      "from repro_torch.examples.train_lm import main; "
+                      "main(sys.argv[1:])")
+
+
+def train_flops(cfg, n_params: int, tokens: int, seq_len: int) -> float:
+    """Model FLOPs of one training step (no recomputation counted):
+    6·N·T for the weights plus 12·L·H·d_head·S·T for the attention
+    scores and their use (the PaLM paper's count, causal mask ignored)."""
+    return tokens * (6 * n_params + 12 * cfg.n_layers * cfg.n_heads
+                     * cfg.d_head * seq_len)
+
+
+def _kernel_classes(events: list) -> dict:
+    """Device ms of one profiled step by kind of kernel: the f32 GEMMs
+    (the plain ``_sdpa``'s einsums, on the CUDA cores), the bf16 GEMMs
+    (projections, MLP, logits), softmax, and everything else."""
+    out = {"f32 GEMM": 0.0, "bf16 GEMM": 0.0, "softmax": 0.0, "other": 0.0}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        name = e["name"]
+        if "gemm" in name.lower() or name.startswith("nvjet"):
+            kind = ("f32 GEMM" if "f32f32" in name or "sgemm" in name
+                    else "bf16 GEMM")
+        else:
+            kind = "softmax" if "SoftMax" in name else "other"
+        out[kind] += e["dur"] / 1e3
+    return out
+
+
+def _train_full_width() -> dict:
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.launch.profile_step import analyze_trace
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+
+    cfg = ARCHS[TRAIN["arch"]]
+    check(cfg.param_dtype == "bfloat16" and cfg.remat == "full"
+          and cfg.opt_moment_dtype == "float32", f"[29a] {cfg}")
+    model = build_model(cfg, attn_impl="sdpa", device="cuda")
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(TRAIN["seed"]))
+    ocfg = AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"],
+                       total_steps=TRAIN["steps"],
+                       moment_dtype=cfg.opt_moment_dtype)
+    state = init_state(ocfg, params)
+    step_fn = make_train_step(model, ocfg)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
+                      global_batch=TRAIN["batch"], seed=TRAIN["seed"])
+    tokens = TRAIN["batch"] * TRAIN["seq_len"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, ev_ms, host_ms = [], [], []
+    for i in range(TRAIN["steps"]):
+        batch = batch_at(dcfg, i, device="cuda")
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        params, state, met = step_fn(params, state, batch)
+        stop.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        ev_ms.append(start.elapsed_time(stop))
+        metrics.append(met)
+    peak = torch.cuda.max_memory_allocated()
+    rows = [{k: float(v) for k, v in m.items()} for m in metrics]
+    for i, r in enumerate(rows):
+        check(all(math.isfinite(v) for v in r.values()),
+              f"[29a] step {i + 1} metrics {r}")
+    check(rows[-1]["loss"] < rows[0]["loss"],
+          f"[29a] the loss did not fall: {[r['loss'] for r in rows]}")
+    check(int(state["step"]) == TRAIN["steps"], f"[29a] {state['step']}")
+    # one more step under the profiler: device ops, busy ms, idle share
+    batch = batch_at(dcfg, TRAIN["steps"], device="cuda")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "trace.json")
+        prof.export_chrome_trace(path)
+        events = json.loads(Path(path).read_text())["traceEvents"]
+    prof_stats = analyze_trace(events, 1)
+    prof_stats["device_ms_by_kind"] = _kernel_classes(events)
+    ms = statistics.median(ev_ms[1:])
+    host = statistics.median(host_ms[1:])
+    flops = train_flops(cfg, model.n_params(), tokens, TRAIN["seq_len"])
+    rec = {"config": TRAIN, "n_layers": cfg.n_layers,
+           "n_params": model.n_params(), "tokens_per_step": tokens,
+           "steps": rows, "ms_per_step_events": ev_ms,
+           "ms_per_step_host": host_ms, "ms_per_step_median": ms,
+           "ms_per_step_host_median": host,
+           "tokens_per_s": tokens / (host / 1e3),
+           "peak_memory_bytes": peak, "model_flops_per_step": flops,
+           "model_flops_formula": "T·(6·N + 12·L·H·d_head·S)",
+           "mfu_bf16": flops / (ms / 1e3) / PEAK_BF16_TENSOR_FLOPS,
+           "profiled_ms": prof_ms,
+           "device_idle_share": 1.0 - prof_stats["device_busy_ms"] / prof_ms,
+           **prof_stats}
+    del params, state, metrics, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _train_steps(cfg, leaves, batches, ocfg, dev: str) -> tuple:
+    """``len(batches)`` train steps on ``dev`` from the numpy weights
+    ``leaves``; returns each step's metrics and the params after each."""
+    from repro_torch import convert
+    from repro_torch.models import build_model
+    from repro_torch.train import init_state, make_train_step
+
+    model = build_model(cfg, attn_impl="sdpa", device=dev)
+    params = convert.params_from_numpy(leaves, dev)
+    state = init_state(ocfg, params)
+    step_fn = make_train_step(model, ocfg)
+    rows, after = [], []
+    for b in batches:
+        params, state, met = step_fn(params, state,
+                                     {k: v.to(dev) for k, v in b.items()})
+        rows.append({k: float(v) for k, v in met.items()})
+        after.append(convert.params_to_numpy(params))
+    return rows, after
+
+
+def _train_card_vs_cpu() -> dict:
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.models import build_model, reduced_config
+    from repro_torch.train import AdamWConfig
+
+    p = TRAIN_PARITY
+    cfg = dataclasses.replace(reduced_config(ARCHS[TRAIN["arch"]]),
+                              remat="full")
+    ocfg = AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"],
+                       total_steps=TRAIN["steps"])
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=p["seq_len"],
+                      global_batch=p["batch"], seed=p["seed"])
+    batches = [batch_at(dcfg, i, device="cpu") for i in range(p["steps"])]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)               # as phase 2
+    try:
+        leaves = convert.params_to_numpy(build_model(
+            cfg, device="cpu").init_params(
+                torch.Generator().manual_seed(p["seed"])))
+        got, got_p = _train_steps(cfg, leaves, batches, ocfg, "cuda")
+        want, want_p = _train_steps(cfg, leaves, batches, ocfg, "cpu")
+    finally:
+        torch.set_num_threads(threads)
+    worst = {k: 0.0 for k in got[0]}
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in g:
+            rel = abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+            check(rel <= p["rtol"], f"[29b] step {i + 1} {k}: card {g[k]}, "
+                                    f"CPU {w[k]}")
+            worst[k] = max(worst[k], rel)
+    # after step 1 every element moved by lr·m̂/(√v̂ + eps) + lr·wd·p:
+    # where |g| >> eps that is lr·sign(g) on both devices, so the card
+    # and the CPU agree to param_atol; an element whose |g| is near eps (or
+    # whose g changes sign between the two) may differ by up to 2·lr·(1 +
+    # wd·|p|) on rounding alone: those are counted and bounded by that
+    lr1 = got[0]["lr"]
+    n_all = n_loose = 0
+    max_diff = 0.0
+    for key, a in _flat_np(got_p[0]).items():
+        b = _flat_np(want_p[0])[key]
+        d = np.abs(a.astype(np.float64) - b)
+        loose = d > p["param_atol"]
+        bound = 2 * lr1 * (1 + ocfg.weight_decay * np.abs(b)) + 1e-7
+        check(bool(np.all(d <= bound)), f"[29b] {key}: max|Δp| "
+                                        f"{d.max()} beyond 2·lr")
+        n_all += d.size
+        n_loose += int(loose.sum())
+        max_diff = max(max_diff, float(d.max()))
+    check(n_loose <= 1e-3 * n_all, f"[29b] {n_loose} of {n_all} elements "
+                                   f"differ by more than {p['param_atol']}")
+    return {"config": dataclasses.asdict(cfg), "steps": p["steps"],
+            "card": got, "cpu": want, "max_rel_diff": worst,
+            "params_after_step1_max_abs_diff": max_diff,
+            "params_beyond_atol": n_loose, "params": n_all}
+
+
+def _flat_np(tree, path=()) -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat_np(tree[k], path + (k,)))
+        return out
+    return {"/".join(path): tree}
+
+
+def _k2_refuses_grad() -> dict:
+    """K2 under autograd raises on the card, and so does train_loss with
+    attn_impl="k2"; neither launches K2."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.models import build_model, reduced_config
+
+    q = torch.randn((1, 12, 256, 128), device="cuda",
+                    dtype=torch.bfloat16, requires_grad=True)
+    kv = torch.randn((1, 2, 256, 128), device="cuda", dtype=torch.bfloat16)
+    raised = {}
+    try:
+        k2.flash_attention(q, kv, kv)
+    except RuntimeError as e:
+        raised["k2"] = str(e)
+    cfg = reduced_config(ARCHS[TRAIN["arch"]])
+    m = build_model(cfg, attn_impl="k2", device="cuda")
+    params = m.init_params(torch.Generator(device="cuda").manual_seed(0))
+    batch = batch_at(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                global_batch=1), 0, device="cuda")
+    try:
+        m.train_loss(params, batch)
+    except ValueError as e:
+        raised["train_loss"] = str(e)
+    check(set(raised) == {"k2", "train_loss"},
+          f"[29c] K2 under autograd did not raise: {raised}")
+    return raised
+
+
+def _train_lm_child(args: list, env: dict, **kw):
+    return subprocess.Popen(
+        [sys.executable, "-c", DETERMINISTIC_MAIN, "smoke", *args],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        **kw)
+
+
+def _train_example(tmpdir: str) -> dict:
+    import contextlib
+    import io
+    import os
+    import signal
+    import numpy as np
+    from repro_torch.examples import train_lm
+
+    rec = {}
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        train_lm.main(["smoke", "--steps", str(TRAIN_EXAMPLE_STEPS),
+                       "--ckpt", str(Path(tmpdir) / "train_lm_ci")])
+    lines = out.getvalue().splitlines()
+    check(lines[-1] == "OK", f"[29d] train_lm printed {lines[-3:]}")
+    rec["ci"] = {"seconds": time.perf_counter() - t0, "output": lines}
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    full, part = Path(tmpdir) / "train_full", Path(tmpdir) / "train_kill"
+    t0 = time.perf_counter()
+    proc = _train_lm_child(["--ckpt", str(full)], env)
+    stdout, stderr = proc.communicate(timeout=600)
+    check(proc.returncode == 0 and stdout.splitlines()[-1] == "OK",
+          f"[29d] uninterrupted train_lm exited {proc.returncode}: "
+          f"{stderr[-2000:]}")
+    rec["uninterrupted"] = {"seconds": time.perf_counter() - t0,
+                            "output": stdout.splitlines()}
+    proc = _train_lm_child(["--ckpt", str(part)], env)
+    mark = part / f"step_{TRAIN_KILL_AFTER:09d}"
+    deadline = time.time() + 600
+    try:
+        while time.time() < deadline and proc.poll() is None \
+                and not mark.exists():
+            time.sleep(0.005)
+        check(proc.poll() is None, "[29d] train_lm ended before its "
+                                   f"checkpoint at {TRAIN_KILL_AFTER}")
+        os.kill(proc.pid, signal.SIGKILL)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+    from repro_torch.train import checkpoint
+    killed_at = checkpoint.latest_step(str(part))
+    proc = _train_lm_child(["--ckpt", str(part)], env)
+    stdout, stderr = proc.communicate(timeout=600)
+    lines = stdout.splitlines()
+    check(proc.returncode == 0 and lines[-1] == "OK",
+          f"[29d] resumed train_lm exited {proc.returncode}: "
+          f"{stderr[-2000:]}")
+    check(f"[train] resuming from checkpoint step {killed_at}" in lines,
+          f"[29d] the resumed run did not resume at {killed_at}: {lines}")
+    last = checkpoint.latest_step(str(full))
+    check(checkpoint.latest_step(str(part)) == last == 60,
+          f"[29d] final steps {last}")
+    with np.load(full / f"step_{last:09d}" / "arrays.npz") as a, \
+            np.load(part / f"step_{last:09d}" / "arrays.npz") as b:
+        n_leaves = len(a.files)
+        differ = [k for k in a.files if not np.array_equal(a[k], b[k])]
+        check(sorted(a.files) == sorted(b.files) and not differ,
+              f"[29d] the resumed run's final checkpoint differs in "
+              f"{differ}")
+    def final_line(out):                # the line less its tok/s
+        return [ln.split(" tok/s")[0] for ln in out
+                if ln.startswith(f"[train] step {last}/")][-1]
+    final = final_line(rec["uninterrupted"]["output"])
+    check(final == final_line(lines), f"[29d] the final log lines differ: "
+                                      f"{final}, {final_line(lines)}")
+    rec["killed"] = {"killed_at": killed_at, "output": lines,
+                     "final": final, "leaves": n_leaves}
+    return rec
+
+
+def phase_training(report: dict, tmpdir: str) -> dict:
+    """[29] LM training on the card: (a) qwen2-1.5b at full width and
+    depth, 5 AdamW steps of 2 × 4,096 tokens, timed and one more
+    profiled; (b) the reduced model card ≡ CPU for 3 steps; (c) K2 refuses
+    autograd; (d) the train_lm example, killed and resumed. K2 launches
+    nowhere in the phase (counts reset before (a), read after (d))."""
+    from repro_torch.device import card_description
+    card = card_description()
+    _reset_counts()
+    rec = {"card": card}
+    r = rec["full_width"] = _train_full_width()
+    loss, gnorm, lr = (" ".join(f"{s[k]:.4g}" for s in r["steps"])
+                       for k in ("loss", "grad_norm", "lr"))
+    print(f"[29a] train {TRAIN['arch']} at full width ({r['n_layers']} "
+          f"layers, {r['n_params']:,} params, bf16, f32 moments, remat "
+          f"full), {TRAIN['batch']} x {TRAIN['seq_len']} tokens a step, "
+          f"{TRAIN['steps']} AdamW steps: loss {loss}; grad_norm {gnorm}; "
+          f"lr {lr}", flush=True)
+    print(f"[29a] {r['ms_per_step_median']:.1f} ms/step by CUDA events, "
+          f"{r['ms_per_step_host_median']:.1f} by the host clock (median "
+          f"of steps 2-{TRAIN['steps']}; step 1 "
+          f"{r['ms_per_step_events'][0]:.1f}); {r['tokens_per_s']:.0f} "
+          f"tokens/s; peak memory {r['peak_memory_bytes'] / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated); model-FLOPs share of the "
+          f"bf16 peak {r['mfu_bf16']:.4f} = {r['model_flops_formula']} "
+          f"= {r['model_flops_per_step']:.4g} FLOPs / (ms/step · "
+          f"{PEAK_BF16_TENSOR_FLOPS:.4g} FLOP/s); {card}", flush=True)
+    print(f"[29a] one profiled step: {r['profiled_ms']:.1f} ms, "
+          f"{r['launches']:.0f} device ops, busy "
+          f"{r['device_busy_ms']:.1f} ms, idle share "
+          f"{r['device_idle_share']:.3f}; device ms by range "
+          f"{ {k: round(v['device_ms'], 1) for k, v in r['ranges'].items()} }"
+          f"; by kind "
+          f"{ {k: round(v, 1) for k, v in r['device_ms_by_kind'].items()} }",
+          flush=True)
+    for op in r["top_device_ops"][:8]:
+        print(f"    {op['device_ms']:9.2f} ms {op['calls']:6.0f} x "
+              f"{op['name'][:100]}", flush=True)
+    r = rec["card_vs_cpu"] = _train_card_vs_cpu()
+    print(f"[29b] reduced {TRAIN['arch']} (f32, remat full), "
+          f"{r['steps']} steps card ≡ CPU: loss, grad_norm, lr within rel "
+          f"{ {k: float(f'{v:.3g}') for k, v in r['max_rel_diff'].items()} } "
+          f"(bound {TRAIN_PARITY['rtol']}); params after step 1 max|Δ| "
+          f"{r['params_after_step1_max_abs_diff']:.3g}, "
+          f"{r['params_beyond_atol']} of {r['params']} beyond "
+          f"{TRAIN_PARITY['param_atol']} (each within 2·lr)", flush=True)
+    rec["k2_refuses_grad"] = _k2_refuses_grad()
+    print("[29c] K2 under autograd raises on the card; train_loss with "
+          "attn_impl='k2' raises ValueError", flush=True)
+    r = rec["example"] = _train_example(tmpdir)
+    print(f"[29d] train_lm smoke --steps {TRAIN_EXAMPLE_STEPS}: "
+          f"{r['ci']['output'][-2]}, OK in {r['ci']['seconds']:.1f} s; the "
+          f"60-step run SIGKILLed after its step-{TRAIN_KILL_AFTER} "
+          f"checkpoint (latest on disk: {r['killed']['killed_at']}) and "
+          f"resumed ≡ the uninterrupted run bit for bit "
+          f"({r['killed']['leaves']} leaves; deterministic algorithms): "
+          f"{r['killed']['final']}", flush=True)
+    launches = rec["launches"] = _read_counts()
+    check(launches["k2_flash_attention"] == 0,
+          f"[29] K2 launched {launches['k2_flash_attention']} times in "
+          f"training")
+    print(f"[29] kernel launches over the phase: {launches}", flush=True)
+    report["training"] = rec
+    return rec
+
+
 T_START = time.perf_counter()
 
 
@@ -4881,6 +5307,7 @@ def _run(workers, tmpdir: str) -> int:
     tissue = timed("26", phase_tissue_lanes, report, tmpdir)
     timed("27", phase_ensemble_envs, report, tmpdir)
     dist = timed("28", phase_distributed, report, tmpdir)
+    training = timed("29", phase_training, report, tmpdir)
     report["total_s"] = time.perf_counter() - T_START
     print(f"phases took {sum(seconds.values()):.1f} s, the script "
           f"{report['total_s']:.1f} s", flush=True)
@@ -4967,6 +5394,9 @@ def _run(workers, tmpdir: str) -> int:
             "library_ms")} for where, rec in checks.items()}
         k["max_abs_err"] = max([k["max_abs_err"]] + [
             rec["max_abs_err"] for rec in checks.values()])
+    # the training path (phase 29) runs no kernel: K2 has no backward
+    for k in kernels:
+        k["training_launches"] = training["launches"][k["name"]]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -6,7 +6,10 @@ reference's parameter tree or its ``(prefix_caches, block_caches)`` gives
 nested dicts, lists and tuples of numpy arrays; the port's tree has the
 same structure with tensors. bfloat16 leaves arrive as numpy arrays whose
 ``dtype.name == "bfloat16"`` (the ml_dtypes type) and are carried bit for
-bit through their 16-bit patterns, without importing ml_dtypes.
+bit through their 16-bit patterns, without importing ml_dtypes. The AdamW
+state ``{"mu", "nu", "step"}`` crosses the same way
+(:func:`opt_state_from_numpy`, :func:`opt_state_to_numpy`), so a
+reference run's optimizer steps on in the port.
 
 Simulation state (:func:`state_from_numpy`, :func:`state_to_numpy`): the
 pool is the state, so a state from the reference engine converts leaf by
@@ -263,3 +266,28 @@ def params_to_numpy(tree: Any, bfloat16: Optional[np.dtype] = None) -> Any:
             return type(t)(walk(v) for v in t)
         return _to_numpy(t, bfloat16)
     return walk(tree)
+
+
+def opt_state_from_numpy(leaves: Dict[str, Any], device: DeviceLike = None
+                         ) -> Dict[str, Any]:
+    """The reference's AdamW state as numpy leaves (``{"mu": tree, "nu":
+    tree, "step": () int32}``) → the port's on ``device`` (None → the
+    CUDA card); moments keep their dtype (bf16 bit for bit)."""
+    if set(leaves) != {"mu", "nu", "step"}:
+        raise ValueError(f"an AdamW state has mu, nu and step, not "
+                         f"{sorted(leaves)}")
+    dev = resolve_device(device)
+    return {"mu": params_from_numpy(leaves["mu"], dev),
+            "nu": params_from_numpy(leaves["nu"], dev),
+            "step": _leaf_from_numpy(
+                np.asarray(leaves["step"], np.int32), dev)}
+
+
+def opt_state_to_numpy(state: Dict[str, Any],
+                       bfloat16: Optional[np.dtype] = None
+                       ) -> Dict[str, Any]:
+    """Inverse of :func:`opt_state_from_numpy` (bfloat16 moments as in
+    :func:`params_to_numpy`)."""
+    return {"mu": params_to_numpy(state["mu"], bfloat16),
+            "nu": params_to_numpy(state["nu"], bfloat16),
+            "step": _to_numpy(state["step"].to(torch.int32))}

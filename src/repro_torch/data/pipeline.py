@@ -1,0 +1,61 @@
+"""Deterministic synthetic token pipeline, shardable across hosts (port of
+``repro.data.pipeline``).
+
+The batch for a step is drawn with numpy from a counter-based seed
+``SeedSequence([seed, step, host_id])`` (stateless: any host can make any
+batch index, so a restart repeats no data — the data state is the step
+counter the checkpoint carries). The draws are the reference's, so tokens
+and frontend embeds are bit-equal to its for every ``(step, host_id,
+n_hosts)``; only the last step differs: the arrays go onto a torch device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 1234
+    frontend_tokens: int = 0
+    d_model: int = 0          # for frontend embeds
+
+
+def batch_at(cfg: DataConfig, step: int, host_id: int = 0, n_hosts: int = 1,
+             device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Batch for ``step``, restricted to this host's shard
+    (host-data-parallel): int32 ``tokens`` and ``labels`` (B, S) and, with
+    ``frontend_tokens``, f32 ``frontend_embeds`` (B, F, d_model), on
+    ``device`` (None → the CUDA card)."""
+    dev = resolve_device(device)
+    per_host = cfg.global_batch // n_hosts
+    rng = np.random.default_rng(
+        np.random.SeedSequence([cfg.seed, step, host_id]))
+    # zipf-ish marginal: realistic token frequency skew
+    z = rng.zipf(1.3, size=(per_host, cfg.seq_len)).astype(np.int64)
+    tokens = torch.from_numpy(((z % (cfg.vocab_size - 2)) + 2).astype(
+        np.int32)).to(dev)
+    out = {"tokens": tokens, "labels": tokens}
+    if cfg.frontend_tokens:
+        fe = rng.standard_normal((per_host, cfg.frontend_tokens,
+                                  cfg.d_model)).astype(np.float32)
+        out["frontend_embeds"] = torch.from_numpy(fe).to(dev)
+    return out
+
+
+def iterate(cfg: DataConfig, start_step: int = 0, host_id: int = 0,
+            n_hosts: int = 1, device: DeviceLike = None
+            ) -> Iterator[Dict[str, torch.Tensor]]:
+    step = start_step
+    while True:
+        yield batch_at(cfg, step, host_id, n_hosts, device)
+        step += 1

@@ -142,7 +142,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_offset: Optional[int] = None) -> torch.Tensor:
     """K2 on q's device: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors. ``scale`` defaults to 1/√D, ``sk_actual`` to Sk and
-    ``kv_offset`` to sk_actual − Sq, as in the TPU kernel."""
+    ``kv_offset`` to sk_actual − Sq, as in the TPU kernel.
+
+    K2 has no backward (nor has the TPU kernel): under autograd, with q, k
+    or v requiring grad, it raises on every device rather than return an
+    output cut from the graph. Training runs the plain ``_sdpa``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("K2 flash_attention has no backward: call it "
+                           "under torch.no_grad(), or train with "
+                           "attn_impl='sdpa'")
     scale, sk_actual, kv_offset = _resolve(q, k, scale, sk_actual, kv_offset)
     _check(q, k, v, sk_actual)
     if q.device.type == "cpu":

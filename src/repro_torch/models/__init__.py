@@ -1,5 +1,5 @@
 """repro_torch.models — the LM substrate (port of ``repro.models``): the
-dense family so far."""
+dense family and the vlm backbone, serving and training."""
 
 from .lm import LM
 from .zoo import build_model, reduced_config

@@ -1,5 +1,7 @@
 """Decoder-only LM over repeating layer patterns (port of
-``repro.models.lm``), dense family: pattern [attn + dense].
+``repro.models.lm``), dense family: pattern [attn + dense], and the vlm
+family's backbone (phi-3-vision), whose frontend stub enters as
+precomputed embeddings ahead of the token embeddings.
 
 The parameter tree is the reference's: ``embed/tokens``, ``prefix<i>/...``
 for unstacked leading layers, ``blocks/l<j>/...`` with a leading
@@ -10,26 +12,36 @@ caches are the reference's ``(prefix_caches, block_caches)`` with stacked
 Python loop over the stacked axis.
 
 Modes:
+  train_loss(params, batch)    → mean CE + aux (aux is MoE-only: 0 here)
   prefill(tokens[, embeds])    → last-position logits + decode caches
   decode_step(token, caches, len) → next logits + caches (updated in place)
 
-Not ported yet (ROADMAP.md Queue 1 item 17): training (``train_loss``),
-MoE, SSM and cross-attention layers, MLA.
+``train_loss`` runs under autograd through the plain ``_sdpa``
+(``attn_impl="sdpa"``, the reference's ``"xla"``): K2 has no backward, in
+either package. The reference's ``jax.checkpoint`` around the scanned
+block is ``torch.utils.checkpoint`` around each stacked block.
+
+Not ported yet (ROADMAP.md Queue 1 item 17b): MoE, SSM and
+cross-attention layers, MLA.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig, LayerDesc
 from ..device import DeviceLike, resolve_device
 from . import attention as attn_mod
-from .layers import ParamSet, ShapeDtype, rms_norm, swiglu, torch_dtype
+from .layers import (ParamSet, ShapeDtype, cross_entropy, rms_norm, swiglu,
+                     torch_dtype)
 
-_TODO = "ROADMAP.md Queue 1 item 17"
+_TODO = "ROADMAP.md Queue 1 item 17b"
 
 
 def register_mlp(ps: ParamSet, prefix: str, cfg: ArchConfig,
@@ -112,6 +124,17 @@ def _index(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+def _unbind(tree: Any, n: int) -> List[Any]:
+    """The ``n`` slices of every leaf's leading axis, split once per leaf
+    with ``torch.unbind``, whose backward is one ``stack``. Under autograd
+    ``tree[j]`` (``_index``) would give each of the ``n`` selects a
+    backward that writes into a zero tensor the size of the whole leaf."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][j] for k in parts} for j in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def _stack(trees: List[Any]) -> Any:
     """Stack a list of equal trees along a new leading axis."""
     first = trees[0]
@@ -129,6 +152,37 @@ def _map(fn, tree: Any) -> Any:
     if isinstance(tree, (list, tuple)) and not isinstance(tree, ShapeDtype):
         return type(tree)(_map(fn, v) for v in tree)
     return fn(tree)
+
+
+# remat="dots": keep what a matmul without batch dims made (the reference's
+# dots_with_no_batch_dims_saveable); torch.matmul of (B, S, d) by a weight
+# runs aten.mm, the batched attention einsums run bmm and are recomputed
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, remat: str):
+    """``fn`` under the reference's remat policy: ``"none"`` keeps every
+    activation, ``"dots"`` saves the outputs of matmuls without batch
+    dims, anything else (``"full"``) saves only the block's inputs."""
+    if remat == "none":
+        return fn
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
+def _train_block(x: torch.Tensor, p_block: Dict, cfg: ArchConfig,
+                 pattern: Tuple[LayerDesc, ...], attn_impl: str
+                 ) -> torch.Tensor:
+    return apply_pattern_block(p_block, x, cfg, pattern, "full",
+                               attn_impl=attn_impl)[0]
 
 
 class LM:
@@ -224,10 +278,45 @@ class LM:
             per_block.append(c)
         return x, prefix_caches, _stack(per_block)
 
+    def _run_blocks_train(self, params: Dict, x: torch.Tensor
+                          ) -> torch.Tensor:
+        """The full pass under autograd: prefix layers as they are, each
+        stacked block under ``cfg.remat`` on its slice of the stacked
+        leaves (split once, :func:`_unbind`)."""
+        cfg = self.cfg
+        for i in range(self.n_prefix):
+            x, _ = apply_pattern_block(
+                params[f"prefix{i}"], x, cfg, self.prefix_pattern, "full",
+                attn_impl=self.attn_impl)
+        block = _remat(functools.partial(
+            _train_block, cfg=cfg, pattern=self.pattern,
+            attn_impl=self.attn_impl), cfg.remat)
+        for p_block in _unbind(params["blocks"], self.n_blocks):
+            x = block(x, p_block)
+        return x
+
     # -- public entry points ---------------------------------------------------
-    def train_loss(self, params: Dict, batch: Dict[str, torch.Tensor]):
-        raise NotImplementedError(f"training is not ported yet ({_TODO}, "
-                                  f"training)")
+    def train_loss(self, params: Dict, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean next-token CE (+ aux, zero for these families) of a batch
+        ``{"tokens", "labels"[, "frontend_embeds"][, "loss_mask"]}``:
+        logits after the frontend positions, ``[:, :-1]`` against
+        ``labels[:, 1:]``. Returns ``(loss, {"ce", "aux"})``."""
+        if self.attn_impl == "k2":
+            raise ValueError(
+                "train_loss: K2 has no backward (nor has the reference's "
+                "Pallas kernel); training runs attn_impl='sdpa'")
+        fe = batch.get("frontend_embeds")
+        x = self._embed(params, batch["tokens"], fe)
+        x = self._run_blocks_train(params, x)
+        with record_function("train/logits_ce"):
+            logits = self._logits(params, x)
+            nfe = 0 if fe is None else fe.shape[1]
+            ce = cross_entropy(logits[:, nfe:][:, :-1],
+                               batch["labels"][:, 1:],
+                               batch.get("loss_mask"))
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        return ce + aux, {"ce": ce, "aux": aux}
 
     @torch.no_grad()
     def prefill(self, params: Dict, tokens: torch.Tensor,

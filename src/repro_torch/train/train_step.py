@@ -1,0 +1,91 @@
+"""train_step / serve_step factories (port of ``repro.train.train_step``).
+
+``make_train_step`` returns a function (params, opt_state, batch) →
+(params, opt_state, metrics), with optional microbatch gradient
+accumulation: the batch's leading axis splits into ``n_microbatches``
+slices, run one after another (activation memory ∝ 1/n, FLOPs unchanged),
+their gradients summed into f32 buffers and divided by n.
+
+Gradients come from ``torch.autograd.grad`` on the parameter leaves; the
+caller's parameter tensors need not require grad (the step takes detached
+views of them). ``make_prefill_step`` / ``make_decode_step`` are the
+serving entry points.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+from torch.profiler import record_function
+
+from . import optimizer as opt_mod
+from .optimizer import _leaves, _unflatten
+
+_SYNC_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
+
+
+def make_train_step(model, opt_cfg: opt_mod.AdamWConfig,
+                    n_microbatches: int = 1,
+                    grad_sync_dtype: Optional[str] = None) -> Callable:
+    """``grad_sync_dtype="bfloat16"`` casts each (micro)batch's gradients
+    to bf16 before they are summed (the reference's data-parallel
+    gradient compression; on one device only its rounding remains); the
+    moments still take the dequantised f32 value. Metrics: ``loss`` (the
+    mean over microbatches), ``grad_norm``, ``lr``, all device tensors."""
+    sync_dt = _SYNC_DTYPES[grad_sync_dtype]
+
+    def loss_and_grads(params, batch):
+        leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
+        with torch.enable_grad():
+            loss, _ = model.train_loss(_unflatten(params, iter(leaves)),
+                                       batch)
+            with record_function("train/backward"):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
+        if sync_dt is not None:
+            grads = [g.to(sync_dt) for g in grads]
+        return loss.detach(), grads
+
+    def train_step(params, opt_state, batch):
+        if n_microbatches == 1:
+            loss, grads = loss_and_grads(params, batch)
+        else:
+            n = n_microbatches
+            grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for p in _leaves(params)]
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=grads[0].device)
+            for i in range(n):
+                micro = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
+                         for k, v in batch.items()}
+                l_i, g_i = loss_and_grads(params, micro)
+                for acc, g in zip(grads, g_i):
+                    acc += g.float()
+                loss = loss + l_i
+                del g_i
+            grads = [g / n for g in grads]
+            loss = loss / n
+        with record_function("train/adamw"):
+            params, opt_state, om = opt_mod.apply_updates(
+                opt_cfg, params, _unflatten(params, iter(grads)), opt_state)
+        return params, opt_state, {"loss": loss, **om}
+
+    return train_step
+
+
+def make_prefill_step(model) -> Callable:
+    def prefill_step(params, batch: Dict[str, torch.Tensor]):
+        fe = batch.get("frontend_embeds")
+        if fe is not None:
+            return model.prefill(params, batch["tokens"], fe)
+        return model.prefill(params, batch["tokens"])
+
+    return prefill_step
+
+
+def make_decode_step(model) -> Callable:
+    def decode_step(params, token, caches, cur_len):
+        return model.decode_step(params, token, caches, cur_len)
+
+    return decode_step

@@ -43,7 +43,7 @@ def test_import_check_covers_the_examples():
     names = {p.stem for p in PORT_FILES if p.parent.name == "examples"}
     assert {"quickstart", "oncology", "neuroscience", "cell_clustering",
             "ensemble_sweep", "serve_lm", "epidemiology",
-            "check_footprints"} <= names, names
+            "check_footprints", "train_lm"} <= names, names
 
 
 def test_import_check_covers_the_distributed_engine():
@@ -57,6 +57,39 @@ def test_port_core_exports_what_the_reference_core_exports():
     import repro_torch.core
     missing = set(repro_core.__all__) - set(repro_torch.core.__all__)
     assert not missing, sorted(missing)
+
+
+@pytest.mark.parametrize("pkg", ["train", "data"])
+def test_port_train_and_data_export_what_the_reference_exports(pkg):
+    """Every public name of ``repro.train`` / ``repro.data`` (functions,
+    classes and submodules) is a name of the port's package too."""
+    import importlib
+    ref = importlib.import_module(f"repro.{pkg}")
+    port = importlib.import_module(f"repro_torch.{pkg}")
+    want = {n for n in dir(ref) if not n.startswith("_")}
+    missing = want - set(dir(port))
+    assert not missing, sorted(missing)
+
+
+def test_train_driver_and_example_default_to_cuda_and_raise_without_it(
+        tmp_path):
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train
+    from repro_torch.models import reduced_config
+    if torch.cuda.is_available():
+        assert train.resolve_device(None).type == "cuda"
+        return
+    arch = dataclasses.replace(reduced_config(ARCHS["qwen2-1.5b"]),
+                               n_layers=1)
+    job = train.TrainJob(arch=arch, steps=1, seq_len=8, global_batch=1)
+    for call in (lambda: train.run(job),
+                 lambda: train_lm.main(["--steps", "1", "--ckpt",
+                                        str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not any(tmp_path.iterdir())
 
 
 def test_simulation_defaults_to_cuda_and_raises_without_it():

@@ -237,8 +237,11 @@ def test_unported_families_raise():
         tbuild(TARCHS["seamless-m4t-large-v2"], device="cpu")
     with pytest.raises(NotImplementedError, match="item 17"):
         tattn.mla_full({}, None, TARCHS["deepseek-v2-lite-16b"])
+    for name, slice_ in (("kimi-k2-1t-a32b", "MoE"), ("mamba2-370m", "SSM"),
+                         ("jamba-v0.1-52b", "jamba hybrid")):
+        with pytest.raises(NotImplementedError,
+                           match=f"item 17b, {slice_}"):
+            tbuild(TARCHS[name], device="cpu")
     m = tbuild(_small(treduced(TARCHS["qwen2-1.5b"])), device="cpu")
-    with pytest.raises(NotImplementedError, match="training"):
-        m.train_loss({}, {})
     with pytest.raises(ValueError):
         tattn.gqa_full({}, torch.zeros(1, 1, 64), m.cfg, attn_impl="xla")
