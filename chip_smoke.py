@@ -308,6 +308,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      accumulates with atomics otherwise). No kernel launches in the
      phase (counts reset before (a), read after (d)); each kernel
      entry's ``training_launches`` is that count.
+ 30. the MoE + MLA family: (a) deepseek-v2-lite-16b at full width and
+     depth (27 layers, MLA, 64 experts top-6 + 2 shared, 15.7 B
+     parameters, random bf16 weights from a seed) served through
+     ``serve_lm.serve`` with phase 7's traffic: every request finishes
+     with its 32 tokens, the pool leaks no page, the logits are finite,
+     and no kernel launches (MLA's prefill runs the plain ``_sdpa``, as
+     the reference's does; counts reset just before the serve, read just
+     after: each kernel entry's ``moe_serving_launches``); prints TTFT,
+     prefill and generated tokens/s, decode ms/iteration, the parameter
+     count, and the peak memory of the weights' draw and of the serve;
+     (d) one prefill and one decode iteration profiled (device ops, busy
+     ms, idle share, device ms by range: ``full/attn``, ``full/moe``,
+     ``decode/attn``, ``decode/moe`` ...); (b) the reduced deepseek-v2-lite
+     and kimi-k2 in f32, prefill + 4 decode steps on the card ≡ on the
+     CPU from the same weights (phase 6's 1e-4), greedy tokens equal; (c)
+     top-k ties on the card in ``jax.lax.top_k``'s order (lower expert
+     index first).
 
 The kernels line's K1 and column-map entries add their launches per tick
 on phase 23 (b) (``ensemble_launches_per_tick``); the pair-list build's
@@ -946,6 +963,7 @@ def _greedy_run(cfg, leaves, toks, dev: str, steps: int, s_max: int,
     logits of every step (numpy) and the tokens fed."""
     import torch
     from repro_torch import convert
+    from repro_torch.launch import serve_lm
     from repro_torch.models import build_model
 
     m = build_model(cfg, device=dev)
@@ -953,9 +971,8 @@ def _greedy_run(cfg, leaves, toks, dev: str, steps: int, s_max: int,
     b, t0 = toks.shape
     logits, pre = m.prefill(params, torch.from_numpy(toks).to(dev))
     caches = m.init_decode_caches(b, s_max)
-    for dense, part in zip(caches[1], pre[1]):
-        for key in dense:
-            dense[key][..., :t0, :] = part[key]
+    for dense, part in zip(serve_lm._leaves(caches), serve_lm._leaves(pre)):
+        dense[..., :t0, :] = part
     out, fed = [logits.cpu().numpy()], []
     for i in range(steps):
         nxt = torch.argmax(logits, -1).cpu() if feed is None else feed[i]
@@ -5207,6 +5224,255 @@ def phase_training(report: dict, tmpdir: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 30: the MoE + MLA family served
+# ---------------------------------------------------------------------------
+
+# (a) deepseek-v2-lite-16b at full width and depth (configs/
+# deepseek_v2_lite_16b.py, arXiv:2405.04434), random bf16 weights, phase 7's
+# traffic
+SERVE_MOE = dict(SERVE, arch="deepseek-v2-lite-16b")
+# (b) the reduced configs in f32, prefill + 4 decode steps card ≡ CPU
+MOE_PARITY = dict(archs=("deepseek-v2-lite-16b", "kimi-k2-1t-a32b"),
+                  batch=2, prompt=48, steps=4, s_max=64, seed=6)
+
+
+def _moe_init_and_serve() -> dict:
+    """[30a] Build deepseek-v2-lite-16b on the card, draw its weights
+    (peak memory of the draw) and serve phase 7's traffic (peak memory of
+    the serve); kernel counts reset just before the serve, read after."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model
+
+    cfg = ARCHS[SERVE_MOE["arch"]]
+    check(cfg.mla and cfg.n_experts == 64 and cfg.top_k == 6
+          and cfg.n_layers == 27 and cfg.param_dtype == "bfloat16",
+          f"[30a] {cfg}")
+    model = build_model(cfg, device="cuda")
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(SERVE_MOE["seed"]))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    params_bytes = torch.cuda.memory_allocated() - left
+    reqs = serve_lm.make_requests(
+        SERVE_MOE["requests"], cfg.vocab_size,
+        prompt_min=SERVE_MOE["prompt_min"], prompt_max=SERVE_MOE["prompt_max"],
+        new_tokens=SERVE_MOE["new_tokens"], seed=SERVE_MOE["seed"])
+    pool = dict(slots=SERVE_MOE["slots"], s_max=SERVE_MOE["s_max"],
+                page_size=SERVE_MOE["page_size"],
+                n_pages=SERVE_MOE["n_pages"])
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    rep = serve_lm.serve(model, params, reqs, **pool)
+    launches = _read_counts()
+    serve_peak = torch.cuda.max_memory_allocated()
+    summ = rep.summary()
+    check(sorted(f.uid for f in rep.finished) == list(range(len(reqs))),
+          f"[30a] finished {sorted(f.uid for f in rep.finished)}")
+    check(all(len(f.tokens) == SERVE_MOE["new_tokens"]
+              for f in rep.finished),
+          "[30a] a request stopped short of its new tokens")
+    check(rep.n_free == SERVE_MOE["n_pages"],
+          f"[30a] pool leaked: {rep.n_free} of {SERVE_MOE['n_pages']} free")
+    check(rep.logits_finite, "[30a] non-finite logits")
+    check(not any(launches.values()),
+          f"[30a] a kernel launched on the MLA + MoE serve: {launches}")
+    return {"model": model, "params": params, "reqs": reqs, "rec": {
+        "config": SERVE_MOE, "n_layers": cfg.n_layers,
+        "n_params": model.n_params(), "launches": launches,
+        "prompt_lens": [len(r.prompt) for r in reqs],
+        "memory_left_before_init_bytes": left, "init_s": init_s,
+        "params_bytes": params_bytes, "init_peak_bytes": init_peak,
+        "serve_peak_bytes": serve_peak,
+        "prefill_ms": [1e3 * t for t in rep.prefill_s], **summ}}
+
+
+def _moe_card_vs_cpu() -> dict:
+    """[30b] The reduced deepseek-v2-lite and kimi-k2 (f32): prefill + 4
+    decode steps on the card and on the CPU from the same weights, the
+    card's greedy tokens fed to both (as phase 6)."""
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build_model, reduced_config
+
+    p = MOE_PARITY
+    out = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)               # as phase 2
+    try:
+        for arch in p["archs"]:
+            cfg = reduced_config(ARCHS[arch])
+            leaves = convert.params_to_numpy(build_model(
+                cfg, device="cpu").init_params(
+                    torch.Generator().manual_seed(p["seed"])))
+            toks = np.random.default_rng(p["seed"]).integers(
+                0, cfg.vocab_size, (p["batch"], p["prompt"]))
+            got, fed = _greedy_run(cfg, leaves, toks, "cuda", p["steps"],
+                                   p["s_max"])
+            want, _ = _greedy_run(cfg, leaves, toks, "cpu", p["steps"],
+                                  p["s_max"], fed)
+            worst = 0.0
+            for i, (g, w) in enumerate(zip(got, want)):
+                np.testing.assert_allclose(g, w, atol=LM_TOL, rtol=LM_TOL,
+                                           err_msg=f"[30b] {arch} step {i}")
+                check(np.array_equal(g.argmax(-1), w.argmax(-1)),
+                      f"[30b] {arch}: greedy tokens differ at step {i}")
+                worst = max(worst, float(np.abs(g - w).max()))
+            out[arch] = {"config": dataclasses.asdict(cfg),
+                         "max_abs_diff": worst, "argmax_equal": True}
+    finally:
+        torch.set_num_threads(threads)
+    return out
+
+
+def _moe_ties_on_the_card() -> dict:
+    """[30c] Ties among the top-k probabilities go to the lower expert
+    index on the card, as ``jax.lax.top_k`` orders them: the crafted row
+    gives [1, 2, 4], and 4,096 rows of coarse values (ties everywhere)
+    give the CPU's order, which the CPU tests hold to the reference's."""
+    import numpy as np
+    import torch
+    from repro_torch.models import moe
+
+    row = torch.tensor([[.1, .3, .3, .2, .3, .05]], device="cuda")
+    got = moe.top_k(row, 3)[1].tolist()
+    check(got == [[1, 2, 4]], f"[30c] top_k of the tied row: {got}")
+    probs = torch.from_numpy((np.random.default_rng(7).integers(
+        0, 4, (4096, 64)) / 4).astype(np.float32))
+    card = moe.top_k(probs.cuda(), 6)
+    cpu = moe.top_k(probs, 6)
+    check(torch.equal(card[1].cpu(), cpu[1])
+          and torch.equal(card[0].cpu(), cpu[0]),
+          "[30c] the card's top-k order differs from the CPU's on ties")
+    return {"tied_row": got[0], "coarse_rows": probs.shape[0],
+            "rows_with_ties_in_top6": int(
+                (cpu[0][:, :-1] == cpu[0][:, 1:]).any(-1).sum())}
+
+
+def _profiled_call(fn) -> dict:
+    """One call of ``fn`` under the profiler, ending in a synchronise:
+    wall ms, device ops, busy ms, idle share and device ms by range."""
+    import torch
+    from repro_torch.launch.profile_step import analyze_trace
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "trace.json")
+        prof.export_chrome_trace(path)
+        events = json.loads(Path(path).read_text())["traceEvents"]
+    stats = analyze_trace(events, 1)
+    return {"wall_ms": wall,
+            "device_idle_share": 1.0 - stats["device_busy_ms"] / wall,
+            **stats}
+
+
+def _moe_profiled(model, params, reqs) -> dict:
+    """[30d] One prefill of the first request's prompt and one decode
+    iteration of the 4 slots at the longest prompt's position, each
+    profiled after a warm-up call."""
+    import torch
+    from repro_torch.launch import serve_lm
+
+    prompt = torch.as_tensor(reqs[0].prompt, dtype=torch.int64,
+                             device="cuda")[None]
+    caches = model.init_decode_caches(SERVE_MOE["slots"], SERVE_MOE["s_max"])
+    for slot, r in enumerate(reqs[:SERVE_MOE["slots"]]):
+        toks = torch.as_tensor(r.prompt, dtype=torch.int64,
+                               device="cuda")[None]
+        _, pre = model.prefill(params, toks)
+        serve_lm._write_prompt(caches, pre, slot, len(r.prompt))
+    del pre
+    cur = max(len(r.prompt) for r in reqs[:SERVE_MOE["slots"]])
+    tokens = torch.arange(SERVE_MOE["slots"], device="cuda") + 2
+    out = {"prefill_tokens": prompt.shape[1], "decode_position": cur}
+    out["prefill"] = _profiled_call(lambda: model.prefill(params, prompt))
+    model.decode_step(params, tokens, caches, cur)            # warm-up
+    out["decode"] = _profiled_call(
+        lambda: model.decode_step(params, tokens, caches, cur + 1))
+    return out
+
+
+def phase_moe_serve(report: dict) -> dict:
+    """[30] The MoE + MLA family on the card: (a) deepseek-v2-lite-16b at
+    full width and depth served with phase 7's traffic, no kernel launched
+    (MLA runs the plain ``_sdpa`` as in the reference); (b) the reduced
+    deepseek-v2-lite and kimi-k2 card ≡ CPU; (c) top-k ties as
+    ``jax.lax.top_k``; (d) one profiled prefill and decode iteration."""
+    import torch
+    from repro_torch.device import card_description
+    torch.cuda.empty_cache()
+    card = card_description()
+    run = _moe_init_and_serve()
+    rec = {"card": card, "serve": run["rec"]}
+    r = rec["serve"]
+    print(f"[30a] serve {SERVE_MOE['arch']} at full width ({r['n_layers']} "
+          f"layers, {r['n_params']:,} params, bf16, MLA + 64 experts top-6 "
+          f"+ 2 shared): {r['requests']} requests, {r['prompt_tokens']} "
+          f"prompt tokens, {r['generated_tokens']} generated; prefill "
+          f"{r['prefill_tokens_per_s']:.0f} tokens/s (mean "
+          f"{r['prefill_ms_mean']:.2f} ms per prompt); time to first token "
+          f"median {r['ttft_ms_median']:.2f} ms, max {r['ttft_ms_max']:.2f} "
+          f"ms; decode {r['decode_ms_per_iter_median']:.2f} ms/iteration "
+          f"(median of {r['decode_iterations']}); "
+          f"{r['generated_tokens_per_s']:.1f} generated tokens/s; kernel "
+          f"launches {r['launches']}", flush=True)
+    print(f"[30a] prefill ms by prompt: "
+          f"{[f'{n}: {t:.1f}' for n, t in zip(r['prompt_lens'], r['prefill_ms'])]}"
+          f" (in order of admission)", flush=True)
+    print(f"[30a] memory: {r['memory_left_before_init_bytes'] / 1e9:.2f} GB "
+          f"held before the build, weights {r['params_bytes'] / 1e9:.2f} GB "
+          f"drawn in {r['init_s']:.1f} s, init peak "
+          f"{r['init_peak_bytes'] / 1e9:.2f} GB, serve peak "
+          f"{r['serve_peak_bytes'] / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated); {card}", flush=True)
+    prof = rec["profiled"] = _moe_profiled(run["model"], run["params"],
+                                           run["reqs"])
+    for kind in ("prefill", "decode"):
+        d = prof[kind]
+        print(f"[30d] one profiled {kind} ("
+              + (f"{prof['prefill_tokens']} tokens" if kind == "prefill"
+                 else f"{SERVE_MOE['slots']} slots at position "
+                      f"{prof['decode_position'] + 1}")
+              + f"): {d['wall_ms']:.2f} ms, {d['launches']:.0f} device ops, "
+              f"busy {d['device_busy_ms']:.2f} ms, idle share "
+              f"{d['device_idle_share']:.3f}; device ms by range "
+              f"{ {k: round(v['device_ms'], 3) for k, v in d['ranges'].items()} }",
+              flush=True)
+        for op in d["top_device_ops"][:6]:
+            print(f"    {op['device_ms']:9.3f} ms {op['calls']:6.0f} x "
+                  f"{op['name'][:100]}", flush=True)
+    del run
+    torch.cuda.empty_cache()
+    par = rec["card_vs_cpu"] = _moe_card_vs_cpu()
+    worst = ", ".join(f"{k} {v['max_abs_diff']:.3g}" for k, v in par.items())
+    print(f"[30b] reduced configs (f32): prefill of {MOE_PARITY['batch']} x "
+          f"{MOE_PARITY['prompt']} tokens + {MOE_PARITY['steps']} decode "
+          f"steps card ≡ CPU, max|Δlogit| {worst} (bound {LM_TOL}), greedy "
+          f"tokens equal", flush=True)
+    ties = rec["ties"] = _moe_ties_on_the_card()
+    print(f"[30c] top-k ties on the card: the tied row gives "
+          f"{ties['tied_row']} (jax.lax.top_k's order); "
+          f"{ties['coarse_rows']} coarse rows ({ties['rows_with_ties_in_top6']}"
+          f" with ties in their top 6) ≡ the CPU's order", flush=True)
+    report["moe_serve"] = rec
+    return rec
+
+
 T_START = time.perf_counter()
 
 
@@ -5308,6 +5574,7 @@ def _run(workers, tmpdir: str) -> int:
     timed("27", phase_ensemble_envs, report, tmpdir)
     dist = timed("28", phase_distributed, report, tmpdir)
     training = timed("29", phase_training, report, tmpdir)
+    moe = timed("30", phase_moe_serve, report)
     report["total_s"] = time.perf_counter() - T_START
     print(f"phases took {sum(seconds.values()):.1f} s, the script "
           f"{report['total_s']:.1f} s", flush=True)
@@ -5397,6 +5664,10 @@ def _run(workers, tmpdir: str) -> int:
     # the training path (phase 29) runs no kernel: K2 has no backward
     for k in kernels:
         k["training_launches"] = training["launches"][k["name"]]
+    # the MoE + MLA serving path (phase 30 (a)) runs no kernel: MLA
+    # attention is the plain _sdpa in both packages
+    for k in kernels:
+        k["moe_serving_launches"] = moe["serve"]["launches"][k["name"]]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

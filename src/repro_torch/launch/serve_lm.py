@@ -9,16 +9,21 @@ the paged pool (admission control) with dense decode caches per slot
 (model side) and greedy ``argmax``. Weights are random, drawn from
 ``--seed``. It differs from the example in one place: the example writes a
 prompt by one ``decode_step`` per token, while here ``prefill_fn`` runs
-``LM.prefill`` on the prompt — through K2 — and writes the returned K/V
-into the slot's rows of the decode caches (zero past the prompt), as
-``tests/test_arch_smoke.py`` pads prefill caches into decode caches.
+``LM.prefill`` on the prompt — through K2 for GQA attention, the plain
+``_sdpa`` for MLA — and writes the returned caches into the slot's rows of
+the decode caches (zero past the prompt), as ``tests/test_arch_smoke.py``
+pads prefill caches into decode caches.
 
 Kept from the reference on purpose: ``decode_step`` takes one position for
 the whole batch, and the loop passes the longest slot's length
 (``lens.max()``), so a shorter slot writes its next K/V at that shared
 position and attends the rows between (ROADMAP.md records this). The
 paged pool is kept in step with the batch as in the example (its pages
-hold zeros; it decides admission).
+hold zeros; it decides admission). Its spec is the reference's,
+``n_kv_heads`` × ``d_head`` a token per layer, for an MLA model too (whose
+decode caches hold ``c_kv`` and the rope key instead): at
+deepseek-v2-lite-16b's shape the pool's 1,024 pages of 16 tokens take
+27 × 1,024 × 16 × 16 × 128 × 2 (K and V) × 2 bytes ≈ 3.6 GB.
 """
 
 from __future__ import annotations
@@ -95,20 +100,27 @@ def make_requests(n: int, vocab: int, *, prompt_min: int, prompt_max: int,
     return reqs
 
 
+def _leaves(tree: Any) -> List[torch.Tensor]:
+    """The tensors of a cache tree, dict entries in key order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
 def _write_prompt(dense: Any, pre: Any, slot: int, n: int) -> None:
     """Copy one prompt's prefill caches (batch 1, length n) into ``slot`` of
-    the dense decode caches (batch = slots, length s_max), zero past n. The
-    slot axis of every cache leaf is the fourth from the end."""
-    if isinstance(dense, dict):
-        for k in dense:
-            _write_prompt(dense[k], pre[k], slot, n)
-    elif isinstance(dense, (list, tuple)):
-        for d, p in zip(dense, pre):
-            _write_prompt(d, p, slot, n)
-    else:
-        rows = dense.select(-4, slot)
-        rows.zero_()
-        rows[..., :n, :] = pre.select(-4, 0)
+    the dense decode caches (batch = slots, length s_max), zero past n.
+    Both are ``(prefix_caches, block_caches)``: the slot axis is axis 0 of
+    a prefix leaf and axis 1 of a stacked block leaf, and the sequence axis
+    the second from the end, for GQA's ``(B, Hkv, S, Dh)`` and MLA's
+    ``(B, S, r)`` alike."""
+    for axis, d_part, p_part in zip((0, 1), dense, pre):
+        for d, p in zip(_leaves(d_part), _leaves(p_part), strict=True):
+            rows = d.select(axis, slot)
+            rows.zero_()
+            rows[..., :n, :] = p.select(axis, 0)
 
 
 def _sync(dev: torch.device) -> None:

@@ -1,5 +1,6 @@
 """repro_torch.models — the LM substrate (port of ``repro.models``): the
-dense family and the vlm backbone, serving and training."""
+dense family and the vlm backbone (serving and training), and the MoE
+family with MLA or GQA attention (serving)."""
 
 from .lm import LM
 from .zoo import build_model, reduced_config

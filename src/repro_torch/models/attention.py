@@ -1,5 +1,5 @@
 """Attention layers (port of ``repro.models.attention``): GQA with optional
-qk_norm and QKV bias.
+qk_norm and QKV bias, and DeepSeek MLA.
 
 Two execution modes per layer:
   * full-sequence (prefill): softmax attention over the whole sequence,
@@ -10,10 +10,15 @@ Two execution modes per layer:
   * cached decode: one new token against a preallocated dense KV cache,
     through ``_sdpa`` (the reference computes it outside any kernel).
 
+MLA runs outside any kernel in both modes, as in the reference, whatever
+``attn_impl`` says: the full sequence materialises keys and values from
+the compressed ``c_kv`` and calls ``_sdpa`` (query and key width
+nope + rope, value width ``v_head_dim``); decode keeps only ``c_kv`` and
+the rope key in its cache and absorbs ``w_uk`` / ``w_uv`` into the query
+and the context.
+
 The KV caches are updated in place (the reference returns new arrays):
 at full width a copy per token would move the whole cache.
-
-DeepSeek MLA is not ported yet (ROADMAP.md Queue 1 item 17, "MLA").
 """
 
 from __future__ import annotations
@@ -28,8 +33,6 @@ from ..kernels import ops as kops
 from .layers import ParamSet, ShapeDtype, rms_norm, rope
 
 ATTN_IMPLS = ("k2", "sdpa")     # the reference's "pallas" and "xla"
-_MLA_TODO = ("MLA attention is not ported yet (ROADMAP.md Queue 1 item 17, "
-             "MLA family)")
 
 
 # ---------------------------------------------------------------------------
@@ -58,7 +61,20 @@ def register_attn(ps: ParamSet, prefix: str, cfg: ArchConfig,
 
 def register_mla(ps: ParamSet, prefix: str, cfg: ArchConfig,
                  stack: Tuple[int, ...]) -> None:
-    raise NotImplementedError(_MLA_TODO)
+    """DeepSeek-V2 MLA: compressed KV (kv_lora_rank) + decoupled rope key."""
+    d, h = cfg.d_model, cfg.n_heads
+    r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    s = tuple(stack)
+    ns = (None,) * len(s)
+    ps.add(f"{prefix}/wq", s + (d, h * (dn + dr)), ns + ("fsdp", "tp"))
+    ps.add(f"{prefix}/w_dkv", s + (d, r), ns + ("fsdp", None))      # down
+    ps.add(f"{prefix}/w_kpe", s + (d, dr), ns + ("fsdp", None))     # rope key
+    ps.add(f"{prefix}/w_uk", s + (r, h * dn), ns + (None, "tp"))    # up: key
+    ps.add(f"{prefix}/w_uv", s + (r, h * dv), ns + (None, "tp"))    # up: value
+    ps.add(f"{prefix}/wo", s + (h * dv, d), ns + ("tp", "fsdp"))
+    ps.add(f"{prefix}/norm", s + (d,), ns + (None,), init="ones")
+    ps.add(f"{prefix}/kv_norm", s + (r,), ns + (None,), init="ones")
 
 
 # ---------------------------------------------------------------------------
@@ -167,13 +183,85 @@ def gqa_cache_spec(cfg: ArchConfig, batch: int, s_max: int,
 
 
 # ---------------------------------------------------------------------------
-# MLA layer (DeepSeek-V2): not ported yet
+# MLA layer (DeepSeek-V2): full sequence materialised; decode absorbed
 # ---------------------------------------------------------------------------
 
-def mla_full(p: Dict, x: torch.Tensor, cfg: ArchConfig, causal: bool = True):
-    raise NotImplementedError(_MLA_TODO)
+def _mla_q(p: Dict, xn: torch.Tensor, cfg: ArchConfig, pos: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q_nope, roped q_pe), each (B, H, S, ·)."""
+    b, s, _ = xn.shape
+    dn = cfg.qk_nope_dim
+    q = torch.matmul(xn, p["wq"]).reshape(b, s, cfg.n_heads, -1)
+    q = q.transpose(1, 2)
+    return q[..., :dn], rope(q[..., dn:], pos, cfg.rope_theta)
+
+
+def _mla_kv(p: Dict, xn: torch.Tensor, cfg: ArchConfig, pos: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(c_kv (B, S, r) normalised, roped k_pe (B, 1, S, dr))."""
+    c_kv = rms_norm(torch.matmul(xn, p["w_dkv"]), p["kv_norm"], cfg.norm_eps)
+    k_pe = rope(torch.matmul(xn, p["w_kpe"])[:, None], pos, cfg.rope_theta)
+    return c_kv, k_pe
+
+
+def mla_full(p: Dict, x: torch.Tensor, cfg: ArchConfig, causal: bool = True
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence MLA through ``_sdpa``. Returns (output, {"c_kv" (B, S,
+    r), "k_pe" (B, S, dr)})."""
+    b, s, _ = x.shape
+    h, dn, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    pos = torch.arange(s, device=x.device)
+    q_nope, q_pe = _mla_q(p, xn, cfg, pos)
+    c_kv, k_pe = _mla_kv(p, xn, cfg, pos)
+    k_nope = torch.matmul(c_kv, p["w_uk"]).reshape(b, s, h, dn).transpose(1, 2)
+    v = torch.matmul(c_kv, p["w_uv"]).reshape(b, s, h, dv).transpose(1, 2)
+    qf = torch.cat([q_nope, q_pe], dim=-1)
+    kf = torch.cat([k_nope, k_pe.expand(b, h, s, k_pe.shape[-1])], dim=-1)
+    o = _sdpa(qf, kf, v, causal)
+    out = torch.matmul(_merge_heads(o), p["wo"])
+    return x + out, {"c_kv": c_kv, "k_pe": k_pe[:, 0]}
 
 
 def mla_decode(p: Dict, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-               cur_len: int, cfg: ArchConfig):
-    raise NotImplementedError(_MLA_TODO)
+               cur_len: int, cfg: ArchConfig
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Absorbed-weight one-token decode. x: (B, 1, D); cache ``c_kv`` (B,
+    S_max, r) and ``k_pe`` (B, S_max, dr), written in place at
+    ``cur_len``. The absorbed query is in the activation dtype, the scores,
+    softmax and context in f32, as in the reference. Returns (output,
+    cache)."""
+    h = cfg.n_heads
+    dn, dr, dv, r = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                     cfg.kv_lora_rank)
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    pos = torch.full((1, 1, 1), cur_len, dtype=torch.int64, device=x.device)
+    q_nope, q_pe = _mla_q(p, xn, cfg, pos)                        # (B,h,1,·)
+    c_new, kpe_new = _mla_kv(p, xn, cfg, pos)
+    c_kv, k_pe = cache["c_kv"], cache["k_pe"]
+    c_kv[:, cur_len, :] = c_new[:, 0]
+    k_pe[:, cur_len, :] = kpe_new[:, 0, 0]
+
+    # absorb w_uk into the query: score = (q_nope w_ukᵀ)·c_kv + q_pe·k_pe
+    q_abs = torch.einsum("bhsd,rhd->bhsr", q_nope,
+                         p["w_uk"].reshape(r, h, dn))             # (B,h,1,r)
+    c32 = c_kv.float()
+    logits = (torch.einsum("bhsr,btr->bhst", q_abs.float(), c32)
+              + torch.einsum("bhsr,btr->bhst", q_pe.float(), k_pe.float())
+              ) / ((dn + dr) ** 0.5)
+    mask = torch.arange(c_kv.shape[1], device=x.device) < cur_len + 1
+    logits = torch.where(mask, logits, torch.full((), -1e30,
+                                                  dtype=torch.float32,
+                                                  device=x.device))
+    pr = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("bhst,btr->bhsr", pr, c32)                 # (B,h,1,r)
+    o = torch.einsum("bhsr,rhv->bhsv", ctx,
+                     p["w_uv"].reshape(r, h, dv).float()).to(x.dtype)
+    out = torch.matmul(_merge_heads(o), p["wo"])
+    return x + out, {"c_kv": c_kv, "k_pe": k_pe}
+
+
+def mla_cache_spec(cfg: ArchConfig, batch: int, s_max: int,
+                   dtype: torch.dtype) -> Dict[str, ShapeDtype]:
+    return {"c_kv": ShapeDtype((batch, s_max, cfg.kv_lora_rank), dtype),
+            "k_pe": ShapeDtype((batch, s_max, cfg.qk_rope_dim), dtype)}

@@ -65,7 +65,9 @@ class ParamSet:
         path order, ``normal`` draws f32 N(0, 1)·std from ``generator`` and
         casts; ``zeros`` / ``ones`` are constant. The draws differ from
         ``jax.random`` — carry the reference's weights with
-        ``convert.params_from_numpy`` where the numbers must agree."""
+        ``convert.params_from_numpy`` where the numbers must agree. The
+        scale is applied in place: one f32 copy of a leaf at a time (an
+        expert leaf of deepseek-v2-lite is 19.2 GB in f32)."""
         dev = generator.device
         out: Dict[str, Any] = {}
         for path, info in sorted(self.infos.items()):
@@ -74,9 +76,9 @@ class ParamSet:
             elif info.init == "ones":
                 val = torch.ones(info.shape, dtype=info.dtype, device=dev)
             else:
-                val = (torch.randn(info.shape, generator=generator,
-                                   dtype=torch.float32, device=dev)
-                       * info.std).to(info.dtype)
+                val = torch.randn(info.shape, generator=generator,
+                                  dtype=torch.float32, device=dev)
+                val = val.mul_(info.std).to(info.dtype)
             _set(out, path, val)
         return out
 

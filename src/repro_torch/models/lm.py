@@ -1,18 +1,20 @@
 """Decoder-only LM over repeating layer patterns (port of
-``repro.models.lm``), dense family: pattern [attn + dense], and the vlm
+``repro.models.lm``): the dense family (pattern [attn + dense]), the vlm
 family's backbone (phi-3-vision), whose frontend stub enters as
-precomputed embeddings ahead of the token embeddings.
+precomputed embeddings ahead of the token embeddings, and the MoE family
+(dense prefix layers + [attn + moe]; deepseek-v2-lite's attention is MLA,
+kimi-k2's GQA).
 
 The parameter tree is the reference's: ``embed/tokens``, ``prefix<i>/...``
 for unstacked leading layers, ``blocks/l<j>/...`` with a leading
 ``n_blocks`` axis, ``final_norm`` and, untied, ``lm_head``. The decode
 caches are the reference's ``(prefix_caches, block_caches)`` with stacked
-``(n_blocks, B, Hkv, S, Dh)`` leaves. So weights and caches carry across
-1:1 (``convert.py``). The reference's ``jax.lax.scan`` over blocks is a
-Python loop over the stacked axis.
+leaves: GQA's ``(n_blocks, B, Hkv, S, Dh)``, MLA's ``(n_blocks, B, S, r)``.
+So weights and caches carry across 1:1 (``convert.py``). The reference's
+``jax.lax.scan`` over blocks is a Python loop over the stacked axis.
 
 Modes:
-  train_loss(params, batch)    → mean CE + aux (aux is MoE-only: 0 here)
+  train_loss(params, batch)    → mean CE + aux (dense and vlm families)
   prefill(tokens[, embeds])    → last-position logits + decode caches
   decode_step(token, caches, len) → next logits + caches (updated in place)
 
@@ -21,8 +23,8 @@ Modes:
 either package. The reference's ``jax.checkpoint`` around the scanned
 block is ``torch.utils.checkpoint`` around each stacked block.
 
-Not ported yet (ROADMAP.md Queue 1 item 17b): MoE, SSM and
-cross-attention layers, MLA.
+Not ported yet (ROADMAP.md Queue 1 item 17b): SSM and cross-attention
+layers, and training of the MoE and MLA configs.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..configs.base import ArchConfig, LayerDesc
 from ..device import DeviceLike, resolve_device
 from . import attention as attn_mod
+from . import moe as moe_mod
 from .layers import (ParamSet, ShapeDtype, cross_entropy, rms_norm, swiglu,
                      torch_dtype)
 
@@ -64,9 +67,6 @@ def _check_layer(ld: LayerDesc, cross: bool) -> None:
     if ld.kind != "attn":
         raise NotImplementedError(f"{ld.kind} layers are not ported yet "
                                   f"({_TODO}, SSM family)")
-    if ld.mlp not in ("dense", "none"):
-        raise NotImplementedError(f"{ld.mlp} MLP layers are not ported yet "
-                                  f"({_TODO}, MoE family)")
     if cross:
         raise NotImplementedError(f"cross-attention is not ported yet "
                                   f"({_TODO}, encoder-decoder family)")
@@ -81,9 +81,12 @@ def register_pattern_block(ps: ParamSet, prefix: str, cfg: ArchConfig,
         pfx = f"{prefix}/l{i}"
         if cfg.mla:
             attn_mod.register_mla(ps, f"{pfx}/attn", cfg, stack)
-        attn_mod.register_attn(ps, f"{pfx}/attn", cfg, stack)
+        else:
+            attn_mod.register_attn(ps, f"{pfx}/attn", cfg, stack)
         if ld.mlp == "dense":
             register_mlp(ps, f"{pfx}/mlp", cfg, stack)
+        elif ld.mlp == "moe":
+            moe_mod.register_moe(ps, f"{pfx}/moe", cfg, stack)
 
 
 def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
@@ -93,26 +96,39 @@ def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
                         causal: bool = True,
                         attn_impl: str = "k2",
                         want_cache: bool = False
-                        ) -> Tuple[torch.Tensor, Tuple]:
-    """Apply one pattern block. mode: "full" | "decode". Returns
-    (x, new_caches); the reference's aux loss is MoE-only and absent."""
+                        ) -> Tuple[torch.Tensor, torch.Tensor, Tuple]:
+    """Apply one pattern block. mode: "full" | "decode". Returns (x, the
+    summed router aux loss of its MoE layers (() f32), new_caches). MLA
+    runs the plain path whatever ``attn_impl`` says, as in the
+    reference."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: List[Any] = []
     for i, ld in enumerate(pattern):
         lp = p_block[f"l{i}"]
         with record_function(f"{mode}/attn"):
             if mode == "full":
-                x, c = attn_mod.gqa_full(lp["attn"], x, cfg, causal=causal,
-                                         attn_impl=attn_impl)
+                if cfg.mla:
+                    x, c = attn_mod.mla_full(lp["attn"], x, cfg,
+                                             causal=causal)
+                else:
+                    x, c = attn_mod.gqa_full(lp["attn"], x, cfg,
+                                             causal=causal,
+                                             attn_impl=attn_impl)
             else:
-                x, c = attn_mod.gqa_decode(lp["attn"], x, caches[i],
-                                           cur_len, cfg)
+                decode = attn_mod.mla_decode if cfg.mla \
+                    else attn_mod.gqa_decode
+                x, c = decode(lp["attn"], x, caches[i], cur_len, cfg)
         if ld.mlp == "dense":
             with record_function(f"{mode}/mlp"):
                 x = mlp_layer(lp["mlp"], x, cfg)
+        elif ld.mlp == "moe":
+            with record_function(f"{mode}/moe"):
+                x, a = moe_mod.moe_layer(lp["moe"], x, cfg)
+                aux = aux + a
         if mode == "full" and not want_cache:
             c = ()
         new_caches.append(c)
-    return x, tuple(new_caches)
+    return x, aux, tuple(new_caches)
 
 
 def _index(tree: Any, i: int) -> Any:
@@ -186,7 +202,8 @@ def _train_block(x: torch.Tensor, p_block: Dict, cfg: ArchConfig,
 
 
 class LM:
-    """Decoder-only language model, dense family (pattern-stacked).
+    """Decoder-only language model, dense, vlm and MoE families
+    (pattern-stacked).
 
     ``device`` (None → the CUDA card, raising without one) is where
     :meth:`init_params` and :meth:`init_decode_caches` put their tensors;
@@ -266,13 +283,13 @@ class LM:
         cfg = self.cfg
         prefix_caches = []
         for i in range(self.n_prefix):
-            x, c = apply_pattern_block(
+            x, _, c = apply_pattern_block(
                 params[f"prefix{i}"], x, cfg, self.prefix_pattern, "full",
                 attn_impl=self.attn_impl, want_cache=want_cache)
             prefix_caches.append(c)
         per_block = []
         for j in range(self.n_blocks):
-            x, c = apply_pattern_block(
+            x, _, c = apply_pattern_block(
                 _index(params["blocks"], j), x, cfg, self.pattern, "full",
                 attn_impl=self.attn_impl, want_cache=want_cache)
             per_block.append(c)
@@ -285,7 +302,7 @@ class LM:
         leaves (split once, :func:`_unbind`)."""
         cfg = self.cfg
         for i in range(self.n_prefix):
-            x, _ = apply_pattern_block(
+            x, _, _ = apply_pattern_block(
                 params[f"prefix{i}"], x, cfg, self.prefix_pattern, "full",
                 attn_impl=self.attn_impl)
         block = _remat(functools.partial(
@@ -301,7 +318,12 @@ class LM:
         """Mean next-token CE (+ aux, zero for these families) of a batch
         ``{"tokens", "labels"[, "frontend_embeds"][, "loss_mask"]}``:
         logits after the frontend positions, ``[:, :-1]`` against
-        ``labels[:, 1:]``. Returns ``(loss, {"ce", "aux"})``."""
+        ``labels[:, 1:]``. Returns ``(loss, {"ce", "aux"})``. Configs with
+        experts or MLA serve only: their training is a later slice."""
+        if self.cfg.n_experts or self.cfg.mla:
+            raise NotImplementedError(
+                f"{self.cfg.name}: training of the MoE and MLA configs is "
+                f"not ported yet ({_TODO}, slice 5: training)")
         if self.attn_impl == "k2":
             raise ValueError(
                 "train_loss: K2 has no backward (nor has the reference's "
@@ -342,11 +364,11 @@ class LM:
         prefix_caches, block_caches = caches
         x = params["embed"]["tokens"][token[:, None]].to(self.adt)
         for i in range(self.n_prefix):
-            x, _ = apply_pattern_block(
+            x, _, _ = apply_pattern_block(
                 params[f"prefix{i}"], x, cfg, self.prefix_pattern, "decode",
                 caches=prefix_caches[i], cur_len=cur_len)
         for j in range(self.n_blocks):
-            x, _ = apply_pattern_block(
+            x, _, _ = apply_pattern_block(
                 _index(params["blocks"], j), x, cfg, self.pattern, "decode",
                 caches=_index(block_caches, j), cur_len=cur_len)
         with record_function("decode/logits"):
@@ -356,7 +378,9 @@ class LM:
     # -- cache construction ------------------------------------------------------
     def _slot_cache_spec(self, ld: LayerDesc, batch: int, s_max: int,
                          stack: Tuple[int, ...]) -> Dict[str, ShapeDtype]:
-        spec = attn_mod.gqa_cache_spec(self.cfg, batch, s_max, self.adt)
+        cache_spec = attn_mod.mla_cache_spec if self.cfg.mla \
+            else attn_mod.gqa_cache_spec
+        spec = cache_spec(self.cfg, batch, s_max, self.adt)
         return {k: ShapeDtype(stack + sd.shape, sd.dtype)
                 for k, sd in spec.items()}
 

@@ -231,13 +231,9 @@ def test_init_params_follows_the_registry(jx):
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tbuild(TARCHS["deepseek-v2-lite-16b"], device="cpu")
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         tbuild(TARCHS["seamless-m4t-large-v2"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tattn.mla_full({}, None, TARCHS["deepseek-v2-lite-16b"])
-    for name, slice_ in (("kimi-k2-1t-a32b", "MoE"), ("mamba2-370m", "SSM"),
+    for name, slice_ in (("mamba2-370m", "SSM"),
                          ("jamba-v0.1-52b", "jamba hybrid")):
         with pytest.raises(NotImplementedError,
                            match=f"item 17b, {slice_}"):
@@ -245,3 +241,30 @@ def test_unported_families_raise():
     m = tbuild(_small(treduced(TARCHS["qwen2-1.5b"])), device="cpu")
     with pytest.raises(ValueError):
         tattn.gqa_full({}, torch.zeros(1, 1, 64), m.cfg, attn_impl="xla")
+    # the MoE family serves; its training is item 17b's slice 5
+    for name in ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b"):
+        m = tbuild(treduced(TARCHS[name]), attn_impl="sdpa", device="cpu")
+        toks = torch.zeros((1, 4), dtype=torch.int64)
+        with pytest.raises(NotImplementedError,
+                           match="item 17b, slice 5: training"):
+            m.train_loss({}, {"tokens": toks, "labels": toks})
+
+
+def test_init_params_scales_in_place_with_the_same_bits():
+    """The in-place scale draws what ``(randn · std).to(dtype)`` draws,
+    bit for bit, leaf by leaf in sorted path order."""
+    for dtype in (torch.float32, torch.bfloat16):
+        ps = tlayers.ParamSet(dtype=dtype)
+        ps.add("b/w", (37, 19), (None, None), std=0.006)
+        ps.add("a/w", (3, 5, 7), (None, None, None))
+        ps.add("a/n", (7,), (None,), init="ones")
+        got = ps.init_params(torch.Generator().manual_seed(3))
+        gen = torch.Generator().manual_seed(3)
+        for path, std in (("a/w", 0.02), ("b/w", 0.006)):
+            shape = ps.infos[path].shape
+            want = (torch.randn(shape, generator=gen, dtype=torch.float32)
+                    * std).to(dtype)
+            part, leaf = path.split("/")
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            assert torch.equal(got[part][leaf].view(bits),
+                               want.view(bits)), (path, dtype)
