@@ -325,6 +325,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      CPU from the same weights (phase 6's 1e-4), greedy tokens equal; (c)
      top-k ties on the card in ``jax.lax.top_k``'s order (lower expert
      index first).
+ 31. the SSM family and the hybrid, phase 7's traffic, random bf16 weights
+     from a seed: (a) mamba2-370m at full width and depth (48 SSM layers,
+     d_model 1,024, state 128, 368 M parameters; no attention, so no
+     kernel launches); (b) jamba-v0.1-52b at full width, 16 of its 32
+     layers (two 8-layer blocks: 14 SSM layers, 2 GQA layers at Hq 32,
+     Hkv 8, D 128, 8 MoE layers of 16 experts top-2; 26.0 B parameters,
+     52.0 GB: the 32-layer model's 103 GB do not fit the card). Each
+     served as phase 30 (a) (counts reset just before, read just after;
+     every request finishes, no page leaks, finite logits; the same
+     prints); K2 must launch once per attention layer per prefill (2 a
+     prompt, 16 in the serve) and nothing else launch, and K2 ≡ its plain
+     version (phase 5's bf16 tolerances) on the q, k, v the serve's first
+     prefill gave its first attention layer, timed beside the plain
+     version, SDPA and its bound; (c) the reduced mamba2 and jamba in f32
+     card ≡ CPU as phase 30 (b), and on the card prefill(48) + 12 decode
+     steps ≡ prefill(60) within 5e-4; (d) one profiled prefill and decode
+     iteration of each full-width model (``full/ssm``, ``decode/ssm``,
+     ``full/attn``, ``full/moe`` ... ranges). Every kernel entry adds
+     ``mamba2_serving_launches`` and ``jamba_serving_launches``; K2's adds
+     ``jamba_check``.
 
 The kernels line's K1 and column-map entries add their launches per tick
 on phase 23 (b) (``ensemble_launches_per_tick``); the pair-list build's
@@ -872,13 +892,78 @@ def k2_templates(log: str) -> list:
     return recs
 
 
-def phase_k2_vs_plain(report: dict) -> list:
+def _k2_case(tag: str, name: str, q, k, v, causal: bool) -> dict:
+    """K2 (``ops.flash_attention``) against its plain version on q, k, v:
+    output type, shape and finiteness, max|Δ| within K2_TOL and, for bf16,
+    within atol + rtol·|plain| everywhere; kernel, plain and SDPA times
+    (SDPA where Sq = Sk: the library's causal mask is top-left aligned)
+    and the bound. Prints one line under ``tag``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as k2
     from repro_torch.kernels import ops
 
     torch.backends.cuda.matmul.allow_tf32 = False     # plain f32 stays f32
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    dtype = str(q.dtype).removeprefix("torch.")
+    path = k2.kernel_path(q.dtype, d)
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    plain = k2.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    check(out.dtype == q.dtype and out.shape == q.shape,
+          f"{tag} K2 output {out.dtype} {tuple(out.shape)} at {name}")
+    check(bool(torch.isfinite(out).all()), f"{tag} K2 output not finite at "
+                                           f"{name}")
+    diff = (out.float() - plain.float()).abs()
+    err = float(diff.max())
+    check(err <= K2_TOL[dtype], f"{tag} K2 differs from plain by {err} at "
+                                f"{name} (tolerance {K2_TOL[dtype]})")
+    scaled_err = None
+    if dtype == "bfloat16":
+        atol, rtol = K2_BF16_SCALED
+        scaled_err = float((diff / (atol + rtol * plain.float().abs()))
+                           .max())
+        check(scaled_err <= 1.0, f"{tag} K2 differs from plain by "
+              f"{scaled_err:.3g}× atol {atol} + rtol {rtol}·|plain| "
+              f"at {name}")
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
+                 iters=20, warmup=3)
+    plain_ms = cuda_ms(lambda: k2.flash_attention_plain(
+        q, k, v, causal=causal), iters=3, warmup=1)
+    lib_ms = lib_err = None
+    if sq == sk:
+        lib = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                             enable_gqa=True)
+        lib_err = float((lib.float() - plain.float()).abs().max())
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), iters=20,
+            warmup=3)
+    bound_ms, bound_by, work = k2_bound(b, hq, hkv, sq, sk, d, causal,
+                                         dtype)
+    rec = {"case": name, "shape": [b, hq, hkv, sq, sk, d],
+           "causal": causal, "dtype": dtype, "path": path,
+           "max_abs_err": err,
+           "max_err_over_scaled_tol": scaled_err,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library_max_abs_err": lib_err, "bound_ms": bound_ms,
+           "bound_by": bound_by, **work}
+    lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+    print(f"{tag} K2 {name} (B{b} Hq{hq} Hkv{hkv} Sq{sq} Sk{sk} D{d} "
+          f"{dtype}{' causal' if causal else ''}, {path} kernel): "
+          f"kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms, SDPA {lib_txt}, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); max|Δ| {err:.3g}"
+          + ("" if scaled_err is None else
+             f", max |Δ|/(atol + rtol·|plain|) {scaled_err:.3g}"),
+          flush=True)
+    return rec
+
+
+def phase_k2_vs_plain(report: dict) -> list:
+    import torch
+
     gen = torch.Generator(device="cuda").manual_seed(12)
     recs = []
     served = [len(r.prompt) for r in _served_requests()]
@@ -888,62 +973,11 @@ def phase_k2_vs_plain(report: dict) -> list:
         elif sq == "shortest":
             sq = sk = min(served)
         dt = getattr(torch, dtype)
-        path = k2.kernel_path(dt, d)
         q = torch.randn((b, hq, sq, d), generator=gen, device="cuda").to(dt)
         k = torch.randn((b, hkv, sk, d), generator=gen, device="cuda").to(dt)
         v = torch.randn((b, hkv, sk, d), generator=gen, device="cuda").to(dt)
-        out = ops.flash_attention(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        plain = k2.flash_attention_plain(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        check(out.dtype == q.dtype and out.shape == q.shape,
-              f"K2 output {out.dtype} {tuple(out.shape)} at {name}")
-        check(bool(torch.isfinite(out).all()), f"K2 output not finite at "
-                                               f"{name}")
-        diff = (out.float() - plain.float()).abs()
-        err = float(diff.max())
-        check(err <= K2_TOL[dtype], f"K2 differs from plain by {err} at "
-                                    f"{name} (tolerance {K2_TOL[dtype]})")
-        scaled_err = None
-        if dtype == "bfloat16":
-            atol, rtol = K2_BF16_SCALED
-            scaled_err = float((diff / (atol + rtol * plain.float().abs()))
-                               .max())
-            check(scaled_err <= 1.0, f"K2 differs from plain by "
-                  f"{scaled_err:.3g}× atol {atol} + rtol {rtol}·|plain| "
-                  f"at {name}")
-        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
-                     iters=20, warmup=3)
-        plain_ms = cuda_ms(lambda: k2.flash_attention_plain(
-            q, k, v, causal=causal), iters=3, warmup=1)
-        lib_ms = lib_err = None
-        if sq == sk:          # the library's causal mask is top-left aligned
-            lib = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
-                                                 enable_gqa=True)
-            lib_err = float((lib.float() - plain.float()).abs().max())
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, enable_gqa=True), iters=20,
-                warmup=3)
-        bound_ms, bound_by, work = k2_bound(b, hq, hkv, sq, sk, d, causal,
-                                             dtype)
-        rec = {"case": name, "shape": [b, hq, hkv, sq, sk, d],
-               "causal": causal, "dtype": dtype, "path": path,
-               "max_abs_err": err,
-               "max_err_over_scaled_tol": scaled_err,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-               "library_max_abs_err": lib_err, "bound_ms": bound_ms,
-               "bound_by": bound_by, **work}
-        lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
-        print(f"[5] K2 {name} (B{b} Hq{hq} Hkv{hkv} Sq{sq} Sk{sk} D{d} "
-              f"{dtype}{' causal' if causal else ''}, {path} kernel): "
-              f"kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.3f} ms, SDPA {lib_txt}, bound "
-              f"{bound_ms:.4f} ms ({bound_by}); max|Δ| {err:.3g}"
-              + ("" if scaled_err is None else
-                 f", max |Δ|/(atol + rtol·|plain|) {scaled_err:.3g}"),
-              flush=True)
-        recs.append(rec)
-        del q, k, v, out, plain
+        recs.append(_k2_case("[5]", name, q, k, v, causal))
+        del q, k, v
     report["k2_vs_plain"] = recs
     return recs
 
@@ -971,8 +1005,7 @@ def _greedy_run(cfg, leaves, toks, dev: str, steps: int, s_max: int,
     b, t0 = toks.shape
     logits, pre = m.prefill(params, torch.from_numpy(toks).to(dev))
     caches = m.init_decode_caches(b, s_max)
-    for dense, part in zip(serve_lm._leaves(caches), serve_lm._leaves(pre)):
-        dense[..., :t0, :] = part
+    serve_lm.write_caches(caches, pre, t0)
     out, fed = [logits.cpu().numpy()], []
     for i in range(steps):
         nxt = torch.argmax(logits, -1).cpu() if feed is None else feed[i]
@@ -5235,39 +5268,56 @@ SERVE_MOE = dict(SERVE, arch="deepseek-v2-lite-16b")
 # (b) the reduced configs in f32, prefill + 4 decode steps card ≡ CPU
 MOE_PARITY = dict(archs=("deepseek-v2-lite-16b", "kimi-k2-1t-a32b"),
                   batch=2, prompt=48, steps=4, s_max=64, seed=6)
+# phase 31, phase 7's traffic: (a) mamba2-370m at full width and depth
+# (configs/mamba2_370m.py, arXiv:2405.21060); (b) jamba-v0.1-52b at full
+# width, 16 of its 32 layers (configs/jamba_v0_1_52b.py, arXiv:2403.19887):
+# 32 layers are 103 GB of bf16 weights, more than the card's 80 GB; 16
+# (two of its 8-layer blocks) run every layer kind at full width
+SERVE_SSM = dict(SERVE, arch="mamba2-370m")
+SERVE_HYBRID = dict(SERVE, arch="jamba-v0.1-52b", n_layers=16)
+# (c) the reduced configs in f32 card ≡ CPU as phase 30 (b); then on the
+# card prefill(prompt) + teacher-forced decode ≡ prefill(prompt + extend)
+SSM_PARITY = dict(archs=("mamba2-370m", "jamba-v0.1-52b"), batch=2,
+                  prompt=48, steps=4, s_max=64, seed=7, extend=12)
+DECODE_VS_PREFILL_TOL = 5e-4            # tests/test_arch_smoke.py
 
 
-def _moe_init_and_serve() -> dict:
-    """[30a] Build deepseek-v2-lite-16b on the card, draw its weights
-    (peak memory of the draw) and serve phase 7's traffic (peak memory of
-    the serve); kernel counts reset just before the serve, read after."""
-    import torch
+def _serve_config(spec: dict):
     from repro_torch.configs import ARCHS
+    cfg = ARCHS[spec["arch"]]
+    if spec.get("n_layers") is not None:
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
+    return cfg
+
+
+def _init_and_serve(spec: dict, tag: str) -> dict:
+    """Build ``spec``'s model on the card, draw its weights (peak memory of
+    the draw) and serve ``spec``'s traffic (peak memory of the serve);
+    kernel counts reset just before the serve, read just after. Every
+    request must finish with its tokens, the pool leak no page and the
+    logits stay finite."""
+    import torch
     from repro_torch.launch import serve_lm
     from repro_torch.models import build_model
 
-    cfg = ARCHS[SERVE_MOE["arch"]]
-    check(cfg.mla and cfg.n_experts == 64 and cfg.top_k == 6
-          and cfg.n_layers == 27 and cfg.param_dtype == "bfloat16",
-          f"[30a] {cfg}")
+    cfg = _serve_config(spec)
     model = build_model(cfg, device="cuda")
     torch.cuda.synchronize()
     left = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init_params(
-        torch.Generator(device="cuda").manual_seed(SERVE_MOE["seed"]))
+        torch.Generator(device="cuda").manual_seed(spec["seed"]))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated()
     params_bytes = torch.cuda.memory_allocated() - left
     reqs = serve_lm.make_requests(
-        SERVE_MOE["requests"], cfg.vocab_size,
-        prompt_min=SERVE_MOE["prompt_min"], prompt_max=SERVE_MOE["prompt_max"],
-        new_tokens=SERVE_MOE["new_tokens"], seed=SERVE_MOE["seed"])
-    pool = dict(slots=SERVE_MOE["slots"], s_max=SERVE_MOE["s_max"],
-                page_size=SERVE_MOE["page_size"],
-                n_pages=SERVE_MOE["n_pages"])
+        spec["requests"], cfg.vocab_size, prompt_min=spec["prompt_min"],
+        prompt_max=spec["prompt_max"], new_tokens=spec["new_tokens"],
+        seed=spec["seed"])
+    pool = dict(slots=spec["slots"], s_max=spec["s_max"],
+                page_size=spec["page_size"], n_pages=spec["n_pages"])
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     rep = serve_lm.serve(model, params, reqs, **pool)
@@ -5275,17 +5325,14 @@ def _moe_init_and_serve() -> dict:
     serve_peak = torch.cuda.max_memory_allocated()
     summ = rep.summary()
     check(sorted(f.uid for f in rep.finished) == list(range(len(reqs))),
-          f"[30a] finished {sorted(f.uid for f in rep.finished)}")
-    check(all(len(f.tokens) == SERVE_MOE["new_tokens"]
-              for f in rep.finished),
-          "[30a] a request stopped short of its new tokens")
-    check(rep.n_free == SERVE_MOE["n_pages"],
-          f"[30a] pool leaked: {rep.n_free} of {SERVE_MOE['n_pages']} free")
-    check(rep.logits_finite, "[30a] non-finite logits")
-    check(not any(launches.values()),
-          f"[30a] a kernel launched on the MLA + MoE serve: {launches}")
+          f"{tag} finished {sorted(f.uid for f in rep.finished)}")
+    check(all(len(f.tokens) == spec["new_tokens"] for f in rep.finished),
+          f"{tag} a request stopped short of its new tokens")
+    check(rep.n_free == spec["n_pages"],
+          f"{tag} pool leaked: {rep.n_free} of {spec['n_pages']} free")
+    check(rep.logits_finite, f"{tag} non-finite logits")
     return {"model": model, "params": params, "reqs": reqs, "rec": {
-        "config": SERVE_MOE, "n_layers": cfg.n_layers,
+        "config": spec, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "n_params": model.n_params(), "launches": launches,
         "prompt_lens": [len(r.prompt) for r in reqs],
         "memory_left_before_init_bytes": left, "init_s": init_s,
@@ -5294,17 +5341,52 @@ def _moe_init_and_serve() -> dict:
         "prefill_ms": [1e3 * t for t in rep.prefill_s], **summ}}
 
 
-def _moe_card_vs_cpu() -> dict:
-    """[30b] The reduced deepseek-v2-lite and kimi-k2 (f32): prefill + 4
-    decode steps on the card and on the CPU from the same weights, the
-    card's greedy tokens fed to both (as phase 6)."""
+def _print_serve(tag: str, what: str, r: dict, card: str) -> None:
+    print(f"{tag} serve {r['config']['arch']} ({r['n_layers']} layers, "
+          f"d_model {r['d_model']}, {r['n_params']:,} params, bf16, "
+          f"{what}): {r['requests']} requests, {r['prompt_tokens']} prompt "
+          f"tokens, {r['generated_tokens']} generated; prefill "
+          f"{r['prefill_tokens_per_s']:.0f} tokens/s (mean "
+          f"{r['prefill_ms_mean']:.2f} ms per prompt); time to first token "
+          f"median {r['ttft_ms_median']:.2f} ms, max {r['ttft_ms_max']:.2f} "
+          f"ms; decode {r['decode_ms_per_iter_median']:.2f} ms/iteration "
+          f"(median of {r['decode_iterations']}); "
+          f"{r['generated_tokens_per_s']:.1f} generated tokens/s; kernel "
+          f"launches {r['launches']}", flush=True)
+    print(f"{tag} prefill ms by prompt: "
+          f"{[f'{n}: {t:.1f}' for n, t in zip(r['prompt_lens'], r['prefill_ms'])]}"
+          f" (in order of admission)", flush=True)
+    print(f"{tag} memory: {r['memory_left_before_init_bytes'] / 1e9:.2f} GB "
+          f"held before the build, weights {r['params_bytes'] / 1e9:.2f} GB "
+          f"drawn in {r['init_s']:.1f} s, init peak "
+          f"{r['init_peak_bytes'] / 1e9:.2f} GB, serve peak "
+          f"{r['serve_peak_bytes'] / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated); {card}", flush=True)
+
+
+def _moe_init_and_serve() -> dict:
+    """[30a] deepseek-v2-lite-16b: MLA + MoE, no kernel launched."""
+    cfg = _serve_config(SERVE_MOE)
+    check(cfg.mla and cfg.n_experts == 64 and cfg.top_k == 6
+          and cfg.n_layers == 27 and cfg.param_dtype == "bfloat16",
+          f"[30a] {cfg}")
+    run = _init_and_serve(SERVE_MOE, "[30a]")
+    launches = run["rec"]["launches"]
+    check(not any(launches.values()),
+          f"[30a] a kernel launched on the MLA + MoE serve: {launches}")
+    return run
+
+
+def _reduced_card_vs_cpu(tag: str, p: dict) -> dict:
+    """The reduced configs of ``p["archs"]`` (f32): prefill + decode steps
+    on the card and on the CPU from the same weights, the card's greedy
+    tokens fed to both (as phase 6)."""
     import numpy as np
     import torch
     from repro_torch import convert
     from repro_torch.configs import ARCHS
     from repro_torch.models import build_model, reduced_config
 
-    p = MOE_PARITY
     out = {}
     threads = torch.get_num_threads()
     torch.set_num_threads(1)               # as phase 2
@@ -5323,9 +5405,9 @@ def _moe_card_vs_cpu() -> dict:
             worst = 0.0
             for i, (g, w) in enumerate(zip(got, want)):
                 np.testing.assert_allclose(g, w, atol=LM_TOL, rtol=LM_TOL,
-                                           err_msg=f"[30b] {arch} step {i}")
+                                           err_msg=f"{tag} {arch} step {i}")
                 check(np.array_equal(g.argmax(-1), w.argmax(-1)),
-                      f"[30b] {arch}: greedy tokens differ at step {i}")
+                      f"{tag} {arch}: greedy tokens differ at step {i}")
                 worst = max(worst, float(np.abs(g - w).max()))
             out[arch] = {"config": dataclasses.asdict(cfg),
                          "max_abs_diff": worst, "argmax_equal": True}
@@ -5381,30 +5463,49 @@ def _profiled_call(fn) -> dict:
             **stats}
 
 
-def _moe_profiled(model, params, reqs) -> dict:
-    """[30d] One prefill of the first request's prompt and one decode
-    iteration of the 4 slots at the longest prompt's position, each
-    profiled after a warm-up call."""
+def _serve_profiled(model, params, reqs, spec: dict) -> dict:
+    """One prefill of the first request's prompt and one decode iteration
+    of the slots filled with the first prompts, at the longest one's
+    position, each profiled after a warm-up call."""
     import torch
     from repro_torch.launch import serve_lm
 
+    slots = spec["slots"]
     prompt = torch.as_tensor(reqs[0].prompt, dtype=torch.int64,
                              device="cuda")[None]
-    caches = model.init_decode_caches(SERVE_MOE["slots"], SERVE_MOE["s_max"])
-    for slot, r in enumerate(reqs[:SERVE_MOE["slots"]]):
+    caches = model.init_decode_caches(slots, spec["s_max"])
+    for slot, r in enumerate(reqs[:slots]):
         toks = torch.as_tensor(r.prompt, dtype=torch.int64,
                                device="cuda")[None]
         _, pre = model.prefill(params, toks)
         serve_lm._write_prompt(caches, pre, slot, len(r.prompt))
     del pre
-    cur = max(len(r.prompt) for r in reqs[:SERVE_MOE["slots"]])
-    tokens = torch.arange(SERVE_MOE["slots"], device="cuda") + 2
-    out = {"prefill_tokens": prompt.shape[1], "decode_position": cur}
+    cur = max(len(r.prompt) for r in reqs[:slots])
+    tokens = torch.arange(slots, device="cuda") + 2
+    out = {"prefill_tokens": prompt.shape[1], "decode_position": cur,
+           "slots": slots}
     out["prefill"] = _profiled_call(lambda: model.prefill(params, prompt))
     model.decode_step(params, tokens, caches, cur)            # warm-up
     out["decode"] = _profiled_call(
         lambda: model.decode_step(params, tokens, caches, cur + 1))
     return out
+
+
+def _print_profiled(tag: str, prof: dict) -> None:
+    for kind in ("prefill", "decode"):
+        d = prof[kind]
+        print(f"{tag} one profiled {kind} ("
+              + (f"{prof['prefill_tokens']} tokens" if kind == "prefill"
+                 else f"{prof['slots']} slots at position "
+                      f"{prof['decode_position'] + 1}")
+              + f"): {d['wall_ms']:.2f} ms, {d['launches']:.0f} device ops, "
+              f"busy {d['device_busy_ms']:.2f} ms, idle share "
+              f"{d['device_idle_share']:.3f}; device ms by range "
+              f"{ {k: round(v['device_ms'], 3) for k, v in d['ranges'].items()} }",
+              flush=True)
+        for op in d["top_device_ops"][:6]:
+            print(f"    {op['device_ms']:9.3f} ms {op['calls']:6.0f} x "
+                  f"{op['name'][:100]}", flush=True)
 
 
 def phase_moe_serve(report: dict) -> dict:
@@ -5419,46 +5520,14 @@ def phase_moe_serve(report: dict) -> dict:
     card = card_description()
     run = _moe_init_and_serve()
     rec = {"card": card, "serve": run["rec"]}
-    r = rec["serve"]
-    print(f"[30a] serve {SERVE_MOE['arch']} at full width ({r['n_layers']} "
-          f"layers, {r['n_params']:,} params, bf16, MLA + 64 experts top-6 "
-          f"+ 2 shared): {r['requests']} requests, {r['prompt_tokens']} "
-          f"prompt tokens, {r['generated_tokens']} generated; prefill "
-          f"{r['prefill_tokens_per_s']:.0f} tokens/s (mean "
-          f"{r['prefill_ms_mean']:.2f} ms per prompt); time to first token "
-          f"median {r['ttft_ms_median']:.2f} ms, max {r['ttft_ms_max']:.2f} "
-          f"ms; decode {r['decode_ms_per_iter_median']:.2f} ms/iteration "
-          f"(median of {r['decode_iterations']}); "
-          f"{r['generated_tokens_per_s']:.1f} generated tokens/s; kernel "
-          f"launches {r['launches']}", flush=True)
-    print(f"[30a] prefill ms by prompt: "
-          f"{[f'{n}: {t:.1f}' for n, t in zip(r['prompt_lens'], r['prefill_ms'])]}"
-          f" (in order of admission)", flush=True)
-    print(f"[30a] memory: {r['memory_left_before_init_bytes'] / 1e9:.2f} GB "
-          f"held before the build, weights {r['params_bytes'] / 1e9:.2f} GB "
-          f"drawn in {r['init_s']:.1f} s, init peak "
-          f"{r['init_peak_bytes'] / 1e9:.2f} GB, serve peak "
-          f"{r['serve_peak_bytes'] / 1e9:.2f} GB "
-          f"(torch.cuda.max_memory_allocated); {card}", flush=True)
-    prof = rec["profiled"] = _moe_profiled(run["model"], run["params"],
-                                           run["reqs"])
-    for kind in ("prefill", "decode"):
-        d = prof[kind]
-        print(f"[30d] one profiled {kind} ("
-              + (f"{prof['prefill_tokens']} tokens" if kind == "prefill"
-                 else f"{SERVE_MOE['slots']} slots at position "
-                      f"{prof['decode_position'] + 1}")
-              + f"): {d['wall_ms']:.2f} ms, {d['launches']:.0f} device ops, "
-              f"busy {d['device_busy_ms']:.2f} ms, idle share "
-              f"{d['device_idle_share']:.3f}; device ms by range "
-              f"{ {k: round(v['device_ms'], 3) for k, v in d['ranges'].items()} }",
-              flush=True)
-        for op in d["top_device_ops"][:6]:
-            print(f"    {op['device_ms']:9.3f} ms {op['calls']:6.0f} x "
-                  f"{op['name'][:100]}", flush=True)
+    _print_serve("[30a]", "MLA + 64 experts top-6 + 2 shared", rec["serve"],
+                 card)
+    prof = rec["profiled"] = _serve_profiled(run["model"], run["params"],
+                                             run["reqs"], SERVE_MOE)
+    _print_profiled("[30d]", prof)
     del run
     torch.cuda.empty_cache()
-    par = rec["card_vs_cpu"] = _moe_card_vs_cpu()
+    par = rec["card_vs_cpu"] = _reduced_card_vs_cpu("[30b]", MOE_PARITY)
     worst = ", ".join(f"{k} {v['max_abs_diff']:.3g}" for k, v in par.items())
     print(f"[30b] reduced configs (f32): prefill of {MOE_PARITY['batch']} x "
           f"{MOE_PARITY['prompt']} tokens + {MOE_PARITY['steps']} decode "
@@ -5470,6 +5539,121 @@ def phase_moe_serve(report: dict) -> dict:
           f"{ties['coarse_rows']} coarse rows ({ties['rows_with_ties_in_top6']}"
           f" with ties in their top 6) ≡ the CPU's order", flush=True)
     report["moe_serve"] = rec
+    return rec
+
+
+def _decode_vs_prefill_on_the_card(p: dict) -> dict:
+    """[31c] On the card, each reduced config (f32): prefill of the prompt,
+    then the next ``extend`` tokens by teacher-forced decode steps, gives
+    the last logits of one prefill of prompt + extend."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model, reduced_config
+
+    out = {}
+    for arch in p["archs"]:
+        cfg = reduced_config(ARCHS[arch])
+        m = build_model(cfg, device="cuda")
+        params = m.init_params(
+            torch.Generator(device="cuda").manual_seed(p["seed"]))
+        b, t0 = p["batch"], p["prompt"]
+        s = t0 + p["extend"]
+        toks = torch.from_numpy(np.random.default_rng(p["seed"]).integers(
+            0, cfg.vocab_size, (b, s))).cuda()
+        full, _ = m.prefill(params, toks)
+        _, pre = m.prefill(params, toks[:, :t0])
+        caches = m.init_decode_caches(b, s)
+        serve_lm.write_caches(caches, pre, t0)
+        for t in range(t0, s):
+            lg, caches = m.decode_step(params, toks[:, t], caches, t)
+        err = float((lg - full).abs().max())
+        check(err <= DECODE_VS_PREFILL_TOL,
+              f"[31c] {arch}: decode after prefill({t0}) differs from "
+              f"prefill({s}) by {err}")
+        out[arch] = {"prompt": t0, "extend": p["extend"],
+                     "max_abs_diff": err}
+    return out
+
+
+def phase_ssm_serve(report: dict) -> dict:
+    """[31] The SSM family and the jamba hybrid on the card: (a)
+    mamba2-370m at full width and depth served with phase 7's traffic (no
+    kernel: no attention); (b) jamba-v0.1-52b at full width, 16 of 32
+    layers, with the same traffic: K2 launches once per attention layer
+    per prefill, and K2 ≡ its plain version on the q, k, v the serve's
+    first prefill gave its first attention layer; (c) the reduced configs
+    card ≡ CPU, and on the card decode after prefill ≡ a longer prefill;
+    (d) one profiled prefill and decode iteration of each model."""
+    import torch
+    from repro_torch.device import card_description
+    from repro_torch.kernels import ops
+    torch.cuda.empty_cache()
+    card = card_description()
+    rec = {"card": card}
+
+    cfg = _serve_config(SERVE_SSM)
+    check(cfg.n_layers == 48 and cfg.d_model == 1024 and not cfg.n_heads
+          and cfg.param_dtype == "bfloat16", f"[31a] {cfg}")
+    run = _init_and_serve(SERVE_SSM, "[31a]")
+    r = rec["mamba2"] = run["rec"]
+    check(not any(r["launches"].values()),
+          f"[31a] a kernel launched on the mamba2 serve: {r['launches']}")
+    _print_serve("[31a]", "48 SSM layers, state 128, no attention", r, card)
+    prof = rec["mamba2_profiled"] = _serve_profiled(
+        run["model"], run["params"], run["reqs"], SERVE_SSM)
+    _print_profiled("[31d] mamba2-370m:", prof)
+    del run
+    torch.cuda.empty_cache()
+
+    cfg = _serve_config(SERVE_HYBRID)
+    check(cfg.n_layers == 16 and cfg.d_model == 4096 and cfg.n_experts == 16
+          and cfg.top_k == 2 and cfg.n_heads == 32 and cfg.n_kv_heads == 8
+          and cfg.d_head == 128 and cfg.param_dtype == "bfloat16",
+          f"[31b] {cfg}")
+    n_attn = sum(ld.kind == "attn" for ld in cfg.layer_pattern()) * (
+        cfg.n_layers // len(cfg.layer_pattern()))
+    with _first_call(ops, "flash_attention") as seen:
+        run = _init_and_serve(SERVE_HYBRID, "[31b]")
+    r = rec["jamba"] = run["rec"]
+    k2_n = r["launches"]["k2_flash_attention"]
+    check(k2_n == n_attn * r["prefills"],
+          f"[31b] K2 launched {k2_n} times in {r['prefills']} prefills of "
+          f"{n_attn} attention layers")
+    check(not any(v for k, v in r["launches"].items()
+                  if k != "k2_flash_attention"),
+          f"[31b] another kernel launched: {r['launches']}")
+    _print_serve("[31b]", f"16 of 32 layers: 14 SSM + {n_attn} GQA, 8 MoE "
+                 f"of 16 experts top-2", r, card)
+    q, k, v = seen["args"]
+    check(tuple(q.shape) == (1, 32, r["prompt_lens"][0], 128)
+          and tuple(k.shape) == (1, 8, r["prompt_lens"][0], 128)
+          and q.dtype == torch.bfloat16,
+          f"[31b] K2's first inputs {tuple(q.shape)} {tuple(k.shape)}")
+    rec["k2_check"] = _k2_case("[31b]", "jamba-first-prefill", q, k, v,
+                               seen["kw"].get("causal", True))
+    del q, k, v, seen
+    prof = rec["jamba_profiled"] = _serve_profiled(
+        run["model"], run["params"], run["reqs"], SERVE_HYBRID)
+    _print_profiled("[31d] jamba-v0.1-52b:", prof)
+    del run
+    torch.cuda.empty_cache()
+
+    par = rec["card_vs_cpu"] = _reduced_card_vs_cpu("[31c]", SSM_PARITY)
+    worst = ", ".join(f"{k} {v['max_abs_diff']:.3g}" for k, v in par.items())
+    print(f"[31c] reduced configs (f32): prefill of {SSM_PARITY['batch']} x "
+          f"{SSM_PARITY['prompt']} tokens + {SSM_PARITY['steps']} decode "
+          f"steps card ≡ CPU, max|Δlogit| {worst} (bound {LM_TOL}), greedy "
+          f"tokens equal", flush=True)
+    dvp = rec["decode_vs_prefill"] = _decode_vs_prefill_on_the_card(
+        SSM_PARITY)
+    worst = ", ".join(f"{k} {v['max_abs_diff']:.3g}" for k, v in dvp.items())
+    print(f"[31c] on the card, prefill({SSM_PARITY['prompt']}) + "
+          f"{SSM_PARITY['extend']} decode steps ≡ prefill("
+          f"{SSM_PARITY['prompt'] + SSM_PARITY['extend']}): max|Δlogit| "
+          f"{worst} (bound {DECODE_VS_PREFILL_TOL})", flush=True)
+    report["ssm_serve"] = rec
     return rec
 
 
@@ -5575,6 +5759,7 @@ def _run(workers, tmpdir: str) -> int:
     dist = timed("28", phase_distributed, report, tmpdir)
     training = timed("29", phase_training, report, tmpdir)
     moe = timed("30", phase_moe_serve, report)
+    ssm = timed("31", phase_ssm_serve, report)
     report["total_s"] = time.perf_counter() - T_START
     print(f"phases took {sum(seconds.values()):.1f} s, the script "
           f"{report['total_s']:.1f} s", flush=True)
@@ -5668,6 +5853,19 @@ def _run(workers, tmpdir: str) -> int:
     # attention is the plain _sdpa in both packages
     for k in kernels:
         k["moe_serving_launches"] = moe["serve"]["launches"][k["name"]]
+    # the SSM serve (phase 31 (a)) runs no kernel; the hybrid's (b) runs K2
+    # once per attention layer per prefill, held against its plain version
+    # on the inputs of the serve's first prefill
+    for k in kernels:
+        k["mamba2_serving_launches"] = ssm["mamba2"]["launches"][k["name"]]
+        k["jamba_serving_launches"] = ssm["jamba"]["launches"][k["name"]]
+        if k["name"] == "k2_flash_attention":
+            k["jamba_check"] = {f: ssm["k2_check"][f] for f in (
+                "shape", "dtype", "path", "max_abs_err",
+                "max_err_over_scaled_tol", "ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by")}
+            k["max_abs_err"] = max(k["max_abs_err"],
+                                   ssm["k2_check"]["max_abs_err"])
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

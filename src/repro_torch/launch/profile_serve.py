@@ -5,6 +5,10 @@
         --requests 4 --new-tokens 8 --out chiprun_out/profile_serve.json
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         --arch deepseek-v2-lite-16b --requests 4 --new-tokens 8
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+        --arch mamba2-370m --requests 4 --new-tokens 8
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+        --arch jamba-v0.1-52b --layers 16 --requests 4 --new-tokens 8
 
 Serves the requests twice after a short warm-up: once unprofiled (wall
 times) and once under the profiler. Reports the device's busy time and idle
@@ -13,11 +17,13 @@ the host, so the unprofiled serve idles less), and the device time and
 launches of each named range (a device operation belongs to the innermost
 range open on the host when it was launched): ``attn/k2`` (K2; none for an
 MLA model, whose attention runs the plain path), ``full/attn`` (prefill
-projections, rope, MLA's attention), ``full/mlp`` and ``full/moe`` (the
+projections, rope, MLA's attention), ``full/ssm`` (an SSM layer's
+projections, conv and chunked SSD), ``full/mlp`` and ``full/moe`` (the
 dense MLP; the router, dispatch, expert FFN and combine), ``full/logits``,
 ``serve/prefill`` (embedding, cache write, argmax), ``decode/attn``,
-``decode/mlp``, ``decode/moe``, ``decode/logits`` and ``serve/decode``
-(embedding, argmax, paged-pool update). Takes ``serve_lm``'s options, with
+``decode/ssm`` (the one-token recurrence), ``decode/mlp``, ``decode/moe``,
+``decode/logits`` and ``serve/decode`` (embedding, argmax, paged-pool
+update). Takes ``serve_lm``'s options, with
 fewer requests and new tokens by default so the trace stays short. Runs on
 the CUDA card only.
 """

@@ -3,6 +3,12 @@ on the CUDA card unless asked for the CPU.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch qwen2-1.5b \\
         --requests 8 --new-tokens 32 --slots 4 --s-max 4096 --pages 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch mamba2-370m
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm \\
+        --arch jamba-v0.1-52b --layers 16
+
+(jamba's 32 layers are 103 GB in bf16, more than one 80 GB card holds;
+16 layers, two of its 8-layer blocks, are 52 GB.)
 
 The counterpart of ``examples/serve_lm.py``: a ``ContinuousBatcher`` over
 the paged pool (admission control) with dense decode caches per slot
@@ -23,7 +29,18 @@ hold zeros; it decides admission). Its spec is the reference's,
 ``n_kv_heads`` × ``d_head`` a token per layer, for an MLA model too (whose
 decode caches hold ``c_kv`` and the rope key instead): at
 deepseek-v2-lite-16b's shape the pool's 1,024 pages of 16 tokens take
-27 × 1,024 × 16 × 16 × 128 × 2 (K and V) × 2 bytes ≈ 3.6 GB.
+27 × 1,024 × 16 × 16 × 128 × 2 (K and V) × 2 bytes ≈ 3.6 GB. For mamba2
+(``n_kv_heads`` 0, ``d_head`` 0) the pages are zero-size and still decide
+admission.
+
+An SSM layer's decode cache is a state, not a sequence: the prompt's
+conv window and final state are copied whole into the slot (the
+attention leaves of a hybrid into the slot's first rows), so an idle
+slot's state is overwritten when the slot is next admitted. Meanwhile
+``decode_step`` steps every slot's state, idle slots included (their
+outputs are not read), and the shared ``cur_len`` does not reach the SSM
+layers: each slot's state advances one token per iteration whatever the
+other slots' lengths.
 """
 
 from __future__ import annotations
@@ -100,27 +117,62 @@ def make_requests(n: int, vocab: int, *, prompt_min: int, prompt_max: int,
     return reqs
 
 
+# decode-cache leaves by key: an attention cache has a sequence axis
+# second from the end (GQA's k / v (B, Hkv, S, Dh), MLA's c_kv / k_pe
+# (B, S, ·)); an SSM cache has none (conv (B, K−1, C), state (B, H, P, N))
+_SEQ_LEAVES = ("k", "v", "c_kv", "k_pe")
+_STATE_LEAVES = ("conv", "state")
+
+
+def _keyed_leaves(tree: Any, key: str | None = None
+                  ) -> List[tuple[str | None, torch.Tensor]]:
+    """(dict key, tensor) of every leaf of a cache tree, dict entries in
+    key order."""
+    if isinstance(tree, dict):
+        return [kl for k in sorted(tree) for kl in _keyed_leaves(tree[k], k)]
+    if isinstance(tree, (list, tuple)):
+        return [kl for v in tree for kl in _keyed_leaves(v, key)]
+    return [(key, tree)]
+
+
 def _leaves(tree: Any) -> List[torch.Tensor]:
     """The tensors of a cache tree, dict entries in key order."""
-    if isinstance(tree, dict):
-        return [t for k in sorted(tree) for t in _leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in _leaves(v)]
-    return [tree]
+    return [t for _, t in _keyed_leaves(tree)]
+
+
+def _put(key: str | None, rows: torch.Tensor, src: torch.Tensor,
+         n: int) -> None:
+    """Write one leaf of a prefill of length ``n`` into decode rows of the
+    same batch: an attention leaf into its first ``n`` positions, zero
+    past them; an SSM leaf whole."""
+    if key in _STATE_LEAVES:
+        rows.copy_(src)
+    elif key in _SEQ_LEAVES:
+        rows.zero_()
+        rows[..., :n, :] = src
+    else:
+        raise KeyError(f"decode cache leaf {key!r}")
+
+
+def write_caches(dense: Any, pre: Any, n: int) -> None:
+    """Copy prefill caches (length n) into decode caches of the same batch
+    (length s_max): attention leaves into their first n positions, zero
+    past them; SSM leaves whole."""
+    for (key, d), (_, p) in zip(_keyed_leaves(dense), _keyed_leaves(pre),
+                                strict=True):
+        _put(key, d, p, n)
 
 
 def _write_prompt(dense: Any, pre: Any, slot: int, n: int) -> None:
     """Copy one prompt's prefill caches (batch 1, length n) into ``slot`` of
-    the dense decode caches (batch = slots, length s_max), zero past n.
-    Both are ``(prefix_caches, block_caches)``: the slot axis is axis 0 of
-    a prefix leaf and axis 1 of a stacked block leaf, and the sequence axis
-    the second from the end, for GQA's ``(B, Hkv, S, Dh)`` and MLA's
-    ``(B, S, r)`` alike."""
+    the dense decode caches (batch = slots), as :func:`write_caches`. Both
+    are ``(prefix_caches, block_caches)``: the slot axis is axis 0 of a
+    prefix leaf and axis 1 of a stacked block leaf. The leaf's key, not its
+    shape, says whether it has a sequence axis."""
     for axis, d_part, p_part in zip((0, 1), dense, pre):
-        for d, p in zip(_leaves(d_part), _leaves(p_part), strict=True):
-            rows = d.select(axis, slot)
-            rows.zero_()
-            rows[..., :n, :] = p.select(axis, 0)
+        for (key, d), (_, p) in zip(_keyed_leaves(d_part),
+                                    _keyed_leaves(p_part), strict=True):
+            _put(key, d.select(axis, slot), p.select(axis, 0), n)
 
 
 def _sync(dev: torch.device) -> None:

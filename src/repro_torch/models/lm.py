@@ -1,16 +1,20 @@
 """Decoder-only LM over repeating layer patterns (port of
 ``repro.models.lm``): the dense family (pattern [attn + dense]), the vlm
 family's backbone (phi-3-vision), whose frontend stub enters as
-precomputed embeddings ahead of the token embeddings, and the MoE family
+precomputed embeddings ahead of the token embeddings, the MoE family
 (dense prefix layers + [attn + moe]; deepseek-v2-lite's attention is MLA,
-kimi-k2's GQA).
+kimi-k2's GQA), the SSM family (pattern [ssm + none], mamba2) and the
+hybrid (jamba's pattern of 8: SSM layers with one GQA layer at index 4,
+MoE on the odd indices, dense MLPs on the even).
 
 The parameter tree is the reference's: ``embed/tokens``, ``prefix<i>/...``
 for unstacked leading layers, ``blocks/l<j>/...`` with a leading
 ``n_blocks`` axis, ``final_norm`` and, untied, ``lm_head``. The decode
 caches are the reference's ``(prefix_caches, block_caches)`` with stacked
-leaves: GQA's ``(n_blocks, B, Hkv, S, Dh)``, MLA's ``(n_blocks, B, S, r)``.
-So weights and caches carry across 1:1 (``convert.py``). The reference's
+leaves, chosen per layer kind: GQA's ``(n_blocks, B, Hkv, S, Dh)``, MLA's
+``(n_blocks, B, S, r)``, an SSM layer's conv window ``(n_blocks, B, K−1,
+C)`` and state ``(n_blocks, B, H, P, N)`` (no sequence axis). So weights
+and caches carry across 1:1 (``convert.py``). The reference's
 ``jax.lax.scan`` over blocks is a Python loop over the stacked axis.
 
 Modes:
@@ -23,8 +27,9 @@ Modes:
 either package. The reference's ``jax.checkpoint`` around the scanned
 block is ``torch.utils.checkpoint`` around each stacked block.
 
-Not ported yet (ROADMAP.md Queue 1 item 17b): SSM and cross-attention
-layers, and training of the MoE and MLA configs.
+Not ported yet (ROADMAP.md Queue 1 item 17b): cross-attention layers
+(the encoder-decoder family), and training of the MoE, MLA and SSM
+configs.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from ..configs.base import ArchConfig, LayerDesc
 from ..device import DeviceLike, resolve_device
 from . import attention as attn_mod
 from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .layers import (ParamSet, ShapeDtype, cross_entropy, rms_norm, swiglu,
                      torch_dtype)
 
@@ -64,9 +70,8 @@ def mlp_layer(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def _check_layer(ld: LayerDesc, cross: bool) -> None:
-    if ld.kind != "attn":
-        raise NotImplementedError(f"{ld.kind} layers are not ported yet "
-                                  f"({_TODO}, SSM family)")
+    if ld.kind not in ("attn", "ssm"):
+        raise ValueError(ld.kind)
     if cross:
         raise NotImplementedError(f"cross-attention is not ported yet "
                                   f"({_TODO}, encoder-decoder family)")
@@ -79,7 +84,9 @@ def register_pattern_block(ps: ParamSet, prefix: str, cfg: ArchConfig,
     for i, ld in enumerate(pattern):
         _check_layer(ld, cross)
         pfx = f"{prefix}/l{i}"
-        if cfg.mla:
+        if ld.kind == "ssm":
+            ssm_mod.register_ssm(ps, f"{pfx}/ssm", cfg, stack)
+        elif cfg.mla:
             attn_mod.register_mla(ps, f"{pfx}/attn", cfg, stack)
         else:
             attn_mod.register_attn(ps, f"{pfx}/attn", cfg, stack)
@@ -100,24 +107,31 @@ def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
     """Apply one pattern block. mode: "full" | "decode". Returns (x, the
     summed router aux loss of its MoE layers (() f32), new_caches). MLA
     runs the plain path whatever ``attn_impl`` says, as in the
-    reference."""
+    reference. Decode writes every layer's caches in place."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: List[Any] = []
     for i, ld in enumerate(pattern):
         lp = p_block[f"l{i}"]
-        with record_function(f"{mode}/attn"):
-            if mode == "full":
-                if cfg.mla:
-                    x, c = attn_mod.mla_full(lp["attn"], x, cfg,
-                                             causal=causal)
+        if ld.kind == "ssm":
+            with record_function(f"{mode}/ssm"):
+                if mode == "full":
+                    x, c = ssm_mod.ssm_full(lp["ssm"], x, cfg)
                 else:
-                    x, c = attn_mod.gqa_full(lp["attn"], x, cfg,
-                                             causal=causal,
-                                             attn_impl=attn_impl)
-            else:
-                decode = attn_mod.mla_decode if cfg.mla \
-                    else attn_mod.gqa_decode
-                x, c = decode(lp["attn"], x, caches[i], cur_len, cfg)
+                    x, c = ssm_mod.ssm_decode(lp["ssm"], x, caches[i], cfg)
+        else:
+            with record_function(f"{mode}/attn"):
+                if mode == "full":
+                    if cfg.mla:
+                        x, c = attn_mod.mla_full(lp["attn"], x, cfg,
+                                                 causal=causal)
+                    else:
+                        x, c = attn_mod.gqa_full(lp["attn"], x, cfg,
+                                                 causal=causal,
+                                                 attn_impl=attn_impl)
+                else:
+                    decode = attn_mod.mla_decode if cfg.mla \
+                        else attn_mod.gqa_decode
+                    x, c = decode(lp["attn"], x, caches[i], cur_len, cfg)
         if ld.mlp == "dense":
             with record_function(f"{mode}/mlp"):
                 x = mlp_layer(lp["mlp"], x, cfg)
@@ -202,8 +216,8 @@ def _train_block(x: torch.Tensor, p_block: Dict, cfg: ArchConfig,
 
 
 class LM:
-    """Decoder-only language model, dense, vlm and MoE families
-    (pattern-stacked).
+    """Decoder-only language model, dense, vlm, MoE, SSM and hybrid
+    families (pattern-stacked).
 
     ``device`` (None → the CUDA card, raising without one) is where
     :meth:`init_params` and :meth:`init_decode_caches` put their tensors;
@@ -319,11 +333,13 @@ class LM:
         ``{"tokens", "labels"[, "frontend_embeds"][, "loss_mask"]}``:
         logits after the frontend positions, ``[:, :-1]`` against
         ``labels[:, 1:]``. Returns ``(loss, {"ce", "aux"})``. Configs with
-        experts or MLA serve only: their training is a later slice."""
-        if self.cfg.n_experts or self.cfg.mla:
+        experts, MLA or SSM layers serve only: their training is a later
+        slice."""
+        if self.cfg.n_experts or self.cfg.mla or any(
+                ld.kind == "ssm" for ld in self.pattern):
             raise NotImplementedError(
-                f"{self.cfg.name}: training of the MoE and MLA configs is "
-                f"not ported yet ({_TODO}, slice 5: training)")
+                f"{self.cfg.name}: training of the MoE, MLA and SSM configs "
+                f"is not ported yet ({_TODO}, slice 5: training)")
         if self.attn_impl == "k2":
             raise ValueError(
                 "train_loss: K2 has no backward (nor has the reference's "
@@ -378,9 +394,12 @@ class LM:
     # -- cache construction ------------------------------------------------------
     def _slot_cache_spec(self, ld: LayerDesc, batch: int, s_max: int,
                          stack: Tuple[int, ...]) -> Dict[str, ShapeDtype]:
-        cache_spec = attn_mod.mla_cache_spec if self.cfg.mla \
-            else attn_mod.gqa_cache_spec
-        spec = cache_spec(self.cfg, batch, s_max, self.adt)
+        if ld.kind == "ssm":
+            spec = ssm_mod.ssm_cache_spec(self.cfg, batch, self.adt)
+        elif self.cfg.mla:
+            spec = attn_mod.mla_cache_spec(self.cfg, batch, s_max, self.adt)
+        else:
+            spec = attn_mod.gqa_cache_spec(self.cfg, batch, s_max, self.adt)
         return {k: ShapeDtype(stack + sd.shape, sd.dtype)
                 for k, sd in spec.items()}
 

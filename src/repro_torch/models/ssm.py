@@ -1,0 +1,217 @@
+"""Mamba2 — SSD (state-space duality), chunked prefill + O(1) decode (port
+of ``repro.models.ssm``).
+
+The chunked SSD algorithm (Dao & Gu 2024): split the sequence into chunks
+of length L; within a chunk the output is a masked (decay-weighted)
+attention-like quadratic form; across chunks a (B, H, P, N) state is
+carried. Decode is a pure recurrence on that state.
+
+The SSD is plain ``torch.einsum`` / ``torch.matmul`` in f32, as the
+reference computes it with XLA einsums outside any Pallas kernel. The
+reference's ``jax.lax.scan`` over chunks is a Python loop over the C
+chunks, adding in the same order.
+
+Decode caches per layer: the pre-conv window ``conv`` (B, d_conv − 1, C)
+and the SSM ``state`` (B, H, P, N), both in the activation dtype.
+``ssm_decode`` writes them in place (``copy_``), as the port's attention
+caches are written: ``LM.decode_step`` hands each layer views of the
+stacked caches.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from .layers import ParamSet, ShapeDtype, rms_norm
+
+
+def _dims(cfg: ArchConfig) -> Tuple[int, int, int, int]:
+    d_inner = cfg.ssm_expand * cfg.d_model
+    n_heads = d_inner // cfg.ssm_head_dim
+    return d_inner, n_heads, cfg.ssm_head_dim, cfg.ssm_state
+
+
+def register_ssm(ps: ParamSet, prefix: str, cfg: ArchConfig,
+                 stack: Tuple[int, ...]) -> None:
+    d = cfg.d_model
+    di, h, hp, n = _dims(cfg)
+    conv_dim = di + 2 * n                     # conv over (x, B, C)
+    s = tuple(stack)
+    ns = (None,) * len(s)
+    # in_proj → [z (di), x (di), B (n), C (n), dt (h)]
+    ps.add(f"{prefix}/w_in", s + (d, 2 * di + 2 * n + h), ns + ("fsdp", "tp"))
+    ps.add(f"{prefix}/conv_w", s + (cfg.ssm_conv, conv_dim), ns + (None, "tp"))
+    ps.add(f"{prefix}/conv_b", s + (conv_dim,), ns + ("tp",), init="zeros")
+    ps.add(f"{prefix}/a_log", s + (h,), ns + (None,), init="zeros")
+    ps.add(f"{prefix}/dt_bias", s + (h,), ns + (None,), init="zeros")
+    ps.add(f"{prefix}/d_skip", s + (h,), ns + (None,), init="ones")
+    ps.add(f"{prefix}/out_norm", s + (di,), ns + (None,), init="ones")
+    ps.add(f"{prefix}/w_out", s + (di, d), ns + ("tp", "fsdp"))
+    ps.add(f"{prefix}/norm", s + (d,), ns + (None,), init="ones")
+
+
+def _split_proj(cfg: ArchConfig, proj: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    di, h, hp, n = _dims(cfg)
+    z = proj[..., :di]
+    xbc = proj[..., di:di + di + 2 * n]
+    dt = proj[..., di + di + 2 * n:]
+    return z, xbc, dt
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv over time. xbc: (B, S, C); w: (K, C). The K
+    taps are summed one after another in the activation dtype, as the
+    reference sums them (``F.conv1d`` would accumulate otherwise)."""
+    k = w.shape[0]
+    s = xbc.shape[1]
+    if prev is None:
+        prev = torch.zeros((xbc.shape[0], k - 1, xbc.shape[2]),
+                           dtype=xbc.dtype, device=xbc.device)
+    xp = torch.cat([prev, xbc], dim=1)                        # (B, S+K-1, C)
+    out = xp[:, 0:s, :] * w[0]
+    for i in range(1, k):
+        out = out + xp[:, i:i + s, :] * w[i]
+    return F.silu(out + b)
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                bmat: torch.Tensor, cmat: torch.Tensor, chunk: int,
+                h0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SSD over a full sequence.
+
+    x: (B,S,H,P); dt: (B,S,H) (post-softplus); a: (H,) (negative);
+    bmat/cmat: (B,S,N). Returns (y (B,S,H,P), final state (B,H,P,N)).
+    """
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    l = min(chunk, s)
+    assert s % l == 0, (s, l)
+    c = s // l
+    xc = x.reshape(b, c, l, h, p)
+    dtc = dt.reshape(b, c, l, h)
+    bc = bmat.reshape(b, c, l, n)
+    cc = cmat.reshape(b, c, l, n)
+
+    da = dtc * a                                              # (B,C,L,H) ≤ 0
+    cum = torch.cumsum(da, dim=2)                             # within-chunk
+    # intra-chunk decay matrix: exp(cum_i - cum_j) for j <= i
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # (B,C,L,L,H)
+    mask = torch.tril(torch.ones((l, l), dtype=torch.bool, device=x.device))
+    decay = torch.exp(diff).masked_fill_(~mask[None, None, :, :, None], 0.0)
+    scores = torch.einsum("bcln,bcmn->bclm", cc, bc)          # (B,C,L,L)
+    w = scores[..., None] * decay * dtc[:, :, None, :, :]     # (B,C,L,L,H)
+    y_intra = torch.einsum("bclmh,bcmhp->bclhp", w, xc)
+
+    # chunk states: contribution of each chunk to the carried state
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)         # (B,C,L,H)
+    st = torch.einsum("bcln,bclhp->bchpn", bc,
+                      (dtc * decay_to_end)[..., None] * xc)   # (B,C,H,P,N)
+    chunk_decay = torch.exp(cum[:, :, -1, :])                 # (B,C,H)
+
+    hprev = h0 if h0 is not None else torch.zeros(
+        (b, h, p, n), dtype=x.dtype, device=x.device)
+    hprevs = []
+    for i in range(c):                      # the reference's scan over chunks
+        hprevs.append(hprev)
+        hprev = hprev * chunk_decay[:, i, :, None, None] + st[:, i]
+    hprevs = torch.stack(hprevs, dim=1)                       # (B,C,H,P,N)
+
+    # inter-chunk: y += C · (decay_in * h_prev)
+    decay_in = torch.exp(cum)                                 # (B,C,L,H)
+    y_inter = torch.einsum("bcln,bchpn->bclhp", cc,
+                           hprevs) * decay_in[..., None]
+    y = (y_intra + y_inter).reshape(b, s, h, p)
+    return y, hprev
+
+
+def ssm_full(p: Dict, x: torch.Tensor, cfg: ArchConfig
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence Mamba2 block. Returns (out, cache for the decode
+    hand-off: the pre-conv tail window and the final SSM state)."""
+    b, s, d = x.shape
+    di, h, hp, n = _dims(cfg)
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    proj = torch.matmul(xn, p["w_in"])
+    z, xbc_raw, dt = _split_proj(cfg, proj)
+    xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
+    xin = xbc[..., :di].reshape(b, s, h, hp)
+    bmat = xbc[..., di:di + n]
+    cmat = xbc[..., di + n:]
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    a = -torch.exp(p["a_log"].float())
+    # pad S to a chunk multiple with identity timesteps (dt=0 ⇒ decay=1 and
+    # zero state contribution), so the carried state is unaffected
+    l = min(cfg.ssm_chunk, s) if s % min(cfg.ssm_chunk, s) == 0 \
+        else cfg.ssm_chunk
+    pad = -(-s // l) * l - s
+    if pad:
+        xin_p = F.pad(xin, (0, 0, 0, 0, 0, pad))
+        dt_p, b_p, c_p = (F.pad(t, (0, 0, 0, pad)) for t in (dt, bmat, cmat))
+    else:
+        xin_p, dt_p, b_p, c_p = xin, dt, bmat, cmat
+    y, hfin = ssd_chunked(xin_p.float(), dt_p, a, b_p.float(), c_p.float(),
+                          l)
+    y = y[:, :s]
+    y = y + xin.float() * p["d_skip"][:, None]
+    y = y.reshape(b, s, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps)
+    out = torch.matmul(y, p["w_out"])
+    # decode hand-off: the *pre-conv* tail window (left-padded with zeros
+    # when S < K−1) + the final SSM state in the activation dtype; the
+    # tail is copied out of ``proj`` so the cache does not hold it
+    kw = cfg.ssm_conv - 1
+    conv_tail = (xbc_raw[:, s - kw:, :].clone() if s >= kw
+                 else F.pad(xbc_raw, (0, 0, kw - s, 0)))
+    cache = {"conv": conv_tail, "state": hfin.to(x.dtype)}
+    return x + out, cache
+
+
+def ssm_decode(p: Dict, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+               cfg: ArchConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token recurrence. x: (B, 1, D); cache: conv window (B, K−1, C)
+    and SSM state (B, H, P, N), both written in place: the window shifts
+    by one, the state is stepped in f32 and stored in the cache's dtype,
+    as the reference returns it. Returns (output, cache)."""
+    b = x.shape[0]
+    di, h, hp, n = _dims(cfg)
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    proj = torch.matmul(xn, p["w_in"])
+    z, xbc_new, dt = _split_proj(cfg, proj)
+
+    window = torch.cat([cache["conv"], xbc_new], dim=1)        # (B,K,C)
+    k = p["conv_w"].shape[0]
+    conv_out = torch.einsum("bkc,kc->bc", window[:, -k:, :], p["conv_w"])
+    xbc = F.silu(conv_out + p["conv_b"])[:, None, :]           # (B,1,C)
+
+    xin = xbc[..., :di].reshape(b, h, hp)
+    bmat = xbc[:, 0, di:di + n]
+    cmat = xbc[:, 0, di + n:]
+    dt1 = F.softplus(dt[:, 0].float() + p["dt_bias"])          # (B,H)
+    a = -torch.exp(p["a_log"].float())
+    decay = torch.exp(dt1 * a)                                 # (B,H)
+    state = cache["state"].float()
+    state = (state * decay[..., None, None]
+             + torch.einsum("bh,bhp,bn->bhpn", dt1, xin.float(),
+                            bmat.float()))
+    y = torch.einsum("bhpn,bn->bhp", state, cmat.float())
+    y = y + xin.float() * p["d_skip"][:, None]
+    y = y.reshape(b, 1, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps)
+    out = torch.matmul(y, p["w_out"])
+    cache["conv"].copy_(window[:, 1:, :])
+    cache["state"].copy_(state)
+    return x + out, {"conv": cache["conv"], "state": cache["state"]}
+
+
+def ssm_cache_spec(cfg: ArchConfig, batch: int, dtype: torch.dtype
+                   ) -> Dict[str, ShapeDtype]:
+    di, h, hp, n = _dims(cfg)
+    return {"conv": ShapeDtype((batch, cfg.ssm_conv - 1, di + 2 * n), dtype),
+            "state": ShapeDtype((batch, h, hp, n), dtype)}

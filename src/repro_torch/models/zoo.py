@@ -11,21 +11,21 @@ from .lm import LM
 
 
 # the families still to port, each with its slice of ROADMAP.md item 17b
-_UNPORTED = {"ssm": "SSM", "hybrid": "jamba hybrid",
-             "encdec": "encoder-decoder"}
+_UNPORTED = {"encdec": "encoder-decoder"}
 
 
 def build_model(cfg: ArchConfig, attn_impl: str = "k2",
                 device: DeviceLike = None) -> LM:
     """The dense family, the vlm backbone (its frontend stub enters as
-    ``frontend_embeds``) and the MoE family (MLA or GQA); the other
-    families raise, naming their slice of ROADMAP.md item 17b.
+    ``frontend_embeds``), the MoE family (MLA or GQA), the SSM family and
+    the hybrid; the encoder-decoder raises, naming its slice of ROADMAP.md
+    item 17b.
     ``attn_impl="sdpa"`` for training: K2 has no backward."""
     if cfg.encoder_layers > 0:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported yet "
             f"(ROADMAP.md Queue 1 item 17b, encoder-decoder family)")
-    if cfg.family not in ("dense", "vlm", "moe"):
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
             f"(ROADMAP.md Queue 1 item 17b, "

@@ -54,6 +54,10 @@ def test_import_check_covers_the_moe_layer():
     assert PORT / "models" / "moe.py" in PORT_FILES
 
 
+def test_import_check_covers_the_ssm_layer():
+    assert PORT / "models" / "ssm.py" in PORT_FILES
+
+
 def test_port_core_exports_what_the_reference_core_exports():
     """Every name of ``repro.core.__all__`` is exported by
     ``repro_torch.core`` too, the distributed engine's included."""

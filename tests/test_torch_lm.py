@@ -231,18 +231,19 @@ def test_init_params_follows_the_registry(jx):
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+    with pytest.raises(NotImplementedError,
+                       match="item 17b, encoder-decoder"):
         tbuild(TARCHS["seamless-m4t-large-v2"], device="cpu")
-    for name, slice_ in (("mamba2-370m", "SSM"),
-                         ("jamba-v0.1-52b", "jamba hybrid")):
-        with pytest.raises(NotImplementedError,
-                           match=f"item 17b, {slice_}"):
-            tbuild(TARCHS[name], device="cpu")
+    # the SSM family and the hybrid build at full size (no allocation)
+    for name in ("mamba2-370m", "jamba-v0.1-52b"):
+        assert tbuild(TARCHS[name], device="cpu").cfg.name == name
     m = tbuild(_small(treduced(TARCHS["qwen2-1.5b"])), device="cpu")
     with pytest.raises(ValueError):
         tattn.gqa_full({}, torch.zeros(1, 1, 64), m.cfg, attn_impl="xla")
-    # the MoE family serves; its training is item 17b's slice 5
-    for name in ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b"):
+    # the MoE, SSM and hybrid families serve; their training is item 17b's
+    # slice 5
+    for name in ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "mamba2-370m",
+                 "jamba-v0.1-52b"):
         m = tbuild(treduced(TARCHS[name]), attn_impl="sdpa", device="cpu")
         toks = torch.zeros((1, 4), dtype=torch.int64)
         with pytest.raises(NotImplementedError,
@@ -268,3 +269,115 @@ def test_init_params_scales_in_place_with_the_same_bits():
             bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
             assert torch.equal(got[part][leaf].view(bits),
                                want.view(bits)), (path, dtype)
+
+
+# -- the SSM family (mamba2) and the hybrid (jamba) -------------------------
+
+SSM_CASES = [("mamba2-370m", 1), ("mamba2-370m", 3), ("jamba-v0.1-52b", 8),
+             ("jamba-v0.1-52b", 16)]
+
+
+def _ssm_lm_pair(jx, arch, n_layers, seed=0):
+    """The reduced config at ``n_layers`` (1 or 3 blocks of mamba2's
+    pattern, 1 or 2 of jamba's) in both packages, the reference's weights
+    with its constant leaves perturbed, carried to the port."""
+    jcfg = dataclasses.replace(jx.reduced_config(jx.ARCHS[arch]),
+                               n_layers=n_layers)
+    tcfg = dataclasses.replace(treduced(TARCHS[arch]), n_layers=n_layers)
+    jm = jx.build_model(jcfg, attn_impl="pallas")
+    rng = np.random.default_rng(seed)
+    jparams = jx.jax.tree_util.tree_map_with_path(
+        lambda path, a: np.asarray(a) + rng.standard_normal(a.shape).astype(
+            np.float32) * (0.5 if path[-1].key in ("a_log", "dt_bias")
+                           else 0.1)
+        if a.ndim - (path[0].key == "blocks") == 1 else np.asarray(a),
+        jm.init_params(jx.jax.random.PRNGKey(seed)))
+    tm = tbuild(tcfg, device="cpu")
+    return jm, jparams, tm, convert.params_from_numpy(jparams, "cpu")
+
+
+@pytest.mark.parametrize("arch,n_layers", SSM_CASES)
+def test_ssm_lm_prefill_and_decode_match_jax(jx, arch, n_layers):
+    """Prefill logits and caches (SSM conv and state, the hybrid's K/V),
+    then teacher-forced decode steps from the reference's padded caches:
+    the port's logits equal the reference's at ATOL. Prompts of 21 tokens
+    (a chunk of 16 and a padded one) decoded to 27."""
+    jm, jparams, tm, tparams = _ssm_lm_pair(jx, arch, n_layers)
+    assert tm.n_params() == jm.n_params()
+    b, s, t0, s_max = 2, 27, 21, 32
+    toks = np.random.default_rng(2).integers(0, 512, (b, s))
+    want, jcaches = jm.prefill(jparams, jx.jnp.asarray(toks[:, :t0]))
+    got, tcaches = tm.prefill(tparams, torch.from_numpy(toks[:, :t0]))
+    np.testing.assert_allclose(_np(got), _np(want), atol=ATOL, rtol=ATOL)
+    jc_np = jx.jax.tree.map(np.asarray, jcaches)
+    tc_np = convert.params_to_numpy(tcaches)
+    assert jx.jax.tree.structure(jc_np) == jx.jax.tree.structure(tc_np)
+    for a, c in zip(jx.jax.tree.leaves(jc_np), jx.jax.tree.leaves(tc_np)):
+        np.testing.assert_allclose(c, a, atol=ATOL, rtol=ATOL)
+
+    specs = jm.decode_cache_specs(b, s_max)
+    assert [sd.shape for sd in jx.jax.tree.leaves(specs)] == [
+        tuple(t.shape) for t in jx.jax.tree.leaves(convert.params_to_numpy(
+            tm.init_decode_caches(b, s_max)))]
+
+    def pad_to(spec, val):
+        out = jx.jnp.zeros(spec.shape, spec.dtype)
+        return out.at[tuple(slice(0, d) for d in val.shape)].set(val)
+
+    jc = jx.jax.tree.map(pad_to, specs, jcaches)
+    tc = convert.params_from_numpy(jx.jax.tree.map(np.asarray, jc), "cpu")
+    for t in range(t0, s):
+        want, jc = jm.decode_step(jparams, jx.jnp.asarray(toks[:, t]), jc,
+                                  jx.jnp.int32(t))
+        got, tc = tm.decode_step(tparams, torch.from_numpy(toks[:, t]), tc,
+                                 t)
+        np.testing.assert_allclose(_np(got), _np(want), atol=ATOL,
+                                   rtol=ATOL, err_msg=f"position {t}")
+    for a, c in zip(jx.jax.tree.leaves(jx.jax.tree.map(np.asarray, jc)),
+                    jx.jax.tree.leaves(convert.params_to_numpy(tc))):
+        np.testing.assert_allclose(c, a, atol=ATOL, rtol=ATOL)
+
+
+@pytest.mark.parametrize("arch,n_layers", SSM_CASES)
+def test_ssm_lm_decode_matches_prefill(arch, n_layers):
+    """Within the port: prefill(S) then teacher-forced decode reproduces
+    prefill(S + k)'s last logits (the reference's 5e-4), from prompts
+    shorter than K−1, shorter than a chunk and longer than one."""
+    from repro_torch.launch import serve_lm
+    cfg = dataclasses.replace(treduced(TARCHS[arch]), n_layers=n_layers)
+    m = tbuild(cfg, device="cpu")
+    params = m.init_params(torch.Generator().manual_seed(1))
+    b, s = 2, 30
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 512, (b, s)))
+    full, _ = m.prefill(params, toks)
+    for t0 in (2, 11, 20):
+        _, pre = m.prefill(params, toks[:, :t0])
+        caches = m.init_decode_caches(b, s)
+        serve_lm.write_caches(caches, pre, t0)
+        for t in range(t0, s):
+            lg, caches = m.decode_step(params, toks[:, t], caches, t)
+        np.testing.assert_allclose(_np(lg), _np(full), atol=5e-4,
+                                   err_msg=f"prefill of {t0}")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "jamba-v0.1-52b"])
+def test_ssm_full_registry_and_n_params_equal_the_reference(jx, arch):
+    """The full-size registries (no allocation): paths, shapes, specs and
+    inits the reference's; per layer kind, the SSM leaves under
+    ``l<i>/ssm`` and the hybrid's GQA at index 4."""
+    jm = jx.build_model(jx.ARCHS[arch])
+    tm = tbuild(TARCHS[arch], device="cpu")
+    assert tm.n_params() == jm.n_params()
+    assert sorted(tm.ps.infos) == sorted(jm.ps.infos)
+    for path, info in jm.ps.infos.items():
+        ti = tm.ps.infos[path]
+        assert (ti.shape, ti.spec, ti.init, ti.std) == \
+            (info.shape, info.spec, info.init, info.std), path
+    assert "blocks/l0/ssm/w_in" in tm.ps.infos
+    if arch == "jamba-v0.1-52b":
+        assert "blocks/l4/attn/wq" in tm.ps.infos
+        assert "blocks/l4/ssm/w_in" not in tm.ps.infos
+        assert "blocks/l1/moe/w_gate" in tm.ps.infos
+        assert 45e9 < tm.n_params() < 58e9
+    else:
+        assert tm.n_blocks == 48

@@ -6,7 +6,14 @@
 * the never-leaks property of tests/test_train_serve.py, on the port;
 * the serve loop of ``repro_torch.launch.serve_lm`` against the same loop
   built here from the JAX package's functions: same requests, same
-  weights, equal token streams.
+  weights, equal token streams;
+* the SSM family (mamba2) and the hybrid (jamba) served on the CPU at
+  their reduced configs, with prompts shorter than ``ssm_head_dim`` and
+  longer than ``ssm_chunk``: the greedy tokens equal the JAX package's
+  ``LM.decode_step`` loop over each prompt alone (the reference example's
+  way of writing a prompt), and jamba's 2-slot serve equals the JAX
+  mirror of the port's loop (attention leaves written by position, SSM
+  leaves whole).
 """
 
 import dataclasses
@@ -164,12 +171,15 @@ def _jax_serve(jx, jm, jparams, requests, *, slots, s_max, page_size,
         logits, pre = prefill(jparams, jnp.asarray(prompt[None]))
         n = len(prompt)
 
-        def put(dense, part):
-            idx = (Ellipsis, slot, slice(None), slice(None), slice(None))
-            dense = dense.at[idx].set(0)
-            return dense.at[(Ellipsis, slot, slice(None), slice(0, n),
-                             slice(None))].set(part[..., 0, :, :, :])
-        caches = jx.jax.tree.map(put, caches, pre)
+        def put(path, dense, part):
+            # a stacked block leaf: (n_blocks, slots, ...); SSM leaves
+            # (conv, state) whole, K/V at positions [0, n), zero past
+            rows = part[:, 0]
+            if path[-1].key not in ("conv", "state"):
+                rows = jnp.zeros(dense.shape[:1] + dense.shape[2:],
+                                 dense.dtype).at[..., :n, :].set(rows)
+            return dense.at[:, slot].set(rows)
+        caches = jx.jax.tree_util.tree_map_with_path(put, caches, pre)
         lens[slot] = n
         return None, int(jnp.argmax(logits[0]))
 
@@ -231,3 +241,112 @@ def test_serve_refuses_requests_that_overflow_s_max():
     with pytest.raises(ValueError, match="s_max"):
         serve_lm.serve(m, params, reqs, slots=1, s_max=48, page_size=8,
                        n_pages=8)
+
+
+SSM_ARCHS = ("mamba2-370m", "jamba-v0.1-52b")
+
+
+def _ssm_pair(jx, arch):
+    """The reduced config in both packages (mamba2 at 2 layers), the
+    reference's weights ×10 (so greedy decoding does not repeat one token)
+    with its constant leaves perturbed, carried to the port."""
+    n_layers = 2 if arch == "mamba2-370m" else 8
+    jcfg = dataclasses.replace(jx.reduced_config(jx.ARCHS[arch]),
+                               n_layers=n_layers)
+    tcfg = dataclasses.replace(treduced(TARCHS[arch]), n_layers=n_layers)
+    jm = jx.build_model(jcfg)
+    rng = np.random.default_rng(5)
+
+    def scaled(path, a):
+        if a.ndim - (path[0].key == "blocks") >= 2:
+            return np.asarray(a) * 10
+        return np.asarray(a) + rng.standard_normal(a.shape).astype(
+            np.float32) * 0.3
+    jparams = jx.jax.tree_util.tree_map_with_path(
+        scaled, jm.init_params(jx.jax.random.PRNGKey(5)))
+    tm = tbuild(tcfg, device="cpu")
+    return jm, jparams, tm, convert.params_from_numpy(jparams, "cpu")
+
+
+def _ssm_requests(vocab):
+    reqs = serve_lm.make_requests(5, vocab, prompt_min=3, prompt_max=40,
+                                  new_tokens=6, seed=11)
+    lens = [len(r.prompt) for r in reqs]
+    assert min(lens) < 16 < max(lens), lens     # ssm_head_dim, ssm_chunk
+    return reqs
+
+
+def _jax_decode_loop(jx, jm, jparams, prompt, new_tokens, s_max):
+    """The reference example's way: the prompt written by one
+    ``decode_step`` per token into batch-1 caches, then greedy steps; the
+    tokens after the first, as the batcher records them."""
+    jnp = jx.jnp
+    decode = jx.jax.jit(jm.decode_step)
+    caches = jm.init_decode_caches(1, s_max)
+    for t, tok in enumerate(prompt):
+        logits, caches = decode(jparams, jnp.full((1,), int(tok), jnp.int32),
+                                caches, jnp.int32(t))
+    out = []
+    for i in range(new_tokens):
+        nxt = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        logits, caches = decode(jparams, nxt, caches,
+                                jnp.int32(len(prompt) + i))
+        out.append(int(jnp.argmax(logits[0])))
+    return out
+
+
+@pytest.mark.parametrize("arch,slots", [("mamba2-370m", 1),
+                                        ("mamba2-370m", 2),
+                                        ("jamba-v0.1-52b", 1)])
+def test_serve_ssm_token_streams_match_the_jax_decode_loop(jx, arch, slots):
+    """Each request's greedy tokens equal the reference's decode-step loop
+    over its prompt alone. mamba2 also with 2 slots: an SSM slot's state
+    advances one token a step whatever the other slot holds (the shared
+    position does not reach it) and is overwritten when the slot is next
+    admitted."""
+    jm, jparams, tm, tparams = _ssm_pair(jx, arch)
+    reqs = _ssm_requests(tm.cfg.vocab_size)
+    kw = dict(slots=slots, s_max=64, page_size=8, n_pages=32)
+    report = serve_lm.serve(tm, tparams, reqs, **kw)
+    assert sorted(f.uid for f in report.finished) == list(range(len(reqs)))
+    assert report.n_free == kw["n_pages"] and report.logits_finite
+    by_uid = {f.uid: f.tokens for f in report.finished}
+    for r in reqs:
+        want = _jax_decode_loop(jx, jm, jparams, r.prompt, r.max_new_tokens,
+                                kw["s_max"])
+        assert by_uid[r.uid] == want, (r.uid, len(r.prompt))
+    assert len({t for f in report.finished for t in f.tokens}) > 6
+
+
+def test_serve_hybrid_token_streams_match_jax_with_shared_slots(jx):
+    """jamba through 2 slots: the port's serve ≡ the same loop built from
+    the JAX package's prefill and decode_step (the shared position
+    ``lens.max()`` reaches the attention layer, so this is the loop's own
+    semantics, not each prompt alone)."""
+    jm, jparams, tm, tparams = _ssm_pair(jx, "jamba-v0.1-52b")
+    reqs = _ssm_requests(tm.cfg.vocab_size)
+    kw = dict(slots=2, s_max=64, page_size=8, n_pages=32)
+    report = serve_lm.serve(tm, tparams, reqs, **kw)
+    jb = _jax_serve(jx, jm, jparams, reqs, **kw)
+    assert [f.uid for f in report.finished] == [f.uid for f in jb.finished]
+    for got, want in zip(report.finished, jb.finished):
+        assert got.tokens == [int(t) for t in want.tokens], got.uid
+    assert report.n_free == int(jb.state.n_free) == kw["n_pages"]
+
+
+def test_serve_mamba2_pool_has_zero_size_pages_that_decide_admission():
+    """mamba2 has no attention: the paged pool's spec is (n_kv_heads 0,
+    d_head 0), its pages hold nothing, and admission still waits for free
+    pages (3 pages of 8 tokens for prompts of up to 20 + 4 new tokens
+    admit one request at a time)."""
+    cfg = dataclasses.replace(treduced(TARCHS["mamba2-370m"]), n_layers=1)
+    assert (cfg.n_kv_heads, cfg.d_head) == (0, 0)
+    m = tbuild(cfg, device="cpu")
+    params = m.init_params(torch.Generator().manual_seed(0))
+    reqs = serve_lm.make_requests(3, cfg.vocab_size, prompt_min=12,
+                                  prompt_max=20, new_tokens=4, seed=2)
+    report = serve_lm.serve(m, params, reqs, slots=2, s_max=32, page_size=8,
+                            n_pages=3)
+    assert sorted(f.uid for f in report.finished) == [0, 1, 2]
+    assert report.n_free == 3
+    assert report.summary()["decode_iterations"] == 3 * 4
