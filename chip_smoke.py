@@ -31,7 +31,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      Hq 12, Hkv 2, D 128, S 4096, bf16, causal), the same heads in bf16 at
      the first and the shortest prompt lengths phase 7 serves (not
      block-aligned) and as a chunk (Sq 64 < Sk 1088), f32 S 1000 (not
-     block-aligned), an f32 chunk and an f32 non-causal case: bf16 atol
+     block-aligned), an f32 chunk and an f32 non-causal case, and
+     seamless-m4t-large-v2's two shapes (Hq = Hkv 16, D 64, bf16: the
+     encoder's non-causal S 512, the decoder's causal S 1,024): bf16 atol
      2e-2 and, scaled to the output, within 1e-3 + 1.6e-2·|plain| (two
      bf16 ulps) everywhere; f32 atol 2e-5; each case names the kernel it
      ran (tensor-core bf16 or scalar); kernel, plain and library-call
@@ -345,6 +347,28 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      ``full/attn``, ``full/moe`` ... ranges). Every kernel entry adds
      ``mamba2_serving_launches`` and ``jamba_serving_launches``; K2's adds
      ``jamba_check``.
+ 32. the encoder-decoder: (a) seamless-m4t-large-v2 at full width and
+     depth (24 encoder + 24 decoder layers, d_model 1,024, 16 heads of
+     64, vocab 256,206 padded to 256,256; 2,034,886,656 parameters,
+     random bf16 weights from a seed) served through ``serve_lm.serve``
+     with phase 7's traffic and one block of 512 frames (f32 standard
+     normal from the seed) a request: every request finishes, no page
+     leaks, finite logits; K2 launches once per encoder and decoder
+     layer per prefill (48 × 8 = 384) and nothing else launches (counts
+     reset just before the serve, read just after: each kernel entry's
+     ``seamless_serving_launches``); the prints of phase 30 (a) and one
+     profiled prefill, decode iteration and encoder pass (``encode``,
+     ``full/attn``, ``attn/k2``, ``full/xattn``, ``full/mlp``,
+     ``decode/*`` ranges); (b) K2 ≡ its plain version (phase 5's bf16
+     tolerances) on the q, k, v the serve's first prefill gave encoder
+     layer 0 (non-causal, S 512) and decoder layer 0 (causal, the first
+     prompt's length), each timed beside the plain version, SDPA and its
+     bound (K2's ``seamless_check``); (c) the reduced seamless in f32
+     card ≡ CPU as phase 30 (b) (frames on both); (d) three steps of
+     ``launch/train.run`` at full width and depth, 1 × 1,024 tokens with
+     1,024 frames (``launch/train.run``'s frames of ``seq_len``), AdamW,
+     remat full: every loss finite; ms/step, tokens/s, peak memory; then one
+     more step profiled (device ops, busy ms, idle share, ms by range).
 
 The kernels line's K1 and column-map entries add their launches per tick
 on phase 23 (b) (``ensemble_launches_per_tick``); the pair-list build's
@@ -448,7 +472,11 @@ K2_CASES = (("qwen2-prefill", 1, 12, 2, 4096, 4096, 128, True, "bfloat16"),
             ("chunk-bf16", 1, 12, 2, 64, 1088, 128, True, "bfloat16"),
             ("f32-ragged", 1, 12, 2, 1000, 1000, 128, True, "float32"),
             ("chunk", 1, 12, 2, 64, 1088, 128, True, "float32"),
-            ("non-causal", 1, 12, 2, 512, 512, 128, False, "float32"))
+            ("non-causal", 1, 12, 2, 512, 512, 128, False, "float32"),
+            ("seamless-encoder", 1, 16, 16, 512, 512, 64, False,
+             "bfloat16"),
+            ("seamless-decoder", 1, 16, 16, 1024, 1024, 64, True,
+             "bfloat16"))
 K2_TOL = {"bfloat16": 2e-2, "float32": 2e-5}       # tests/test_kernels.py
 # bf16 also elementwise |Δ| <= atol + rtol·|plain|: the kernel and its plain
 # version both accumulate in f32, so they may differ by one rounding of
@@ -991,10 +1019,11 @@ def _small_lm_config():
 
 
 def _greedy_run(cfg, leaves, toks, dev: str, steps: int, s_max: int,
-                feed=None):
-    """Prefill ``toks`` then ``steps`` decode steps on ``dev``; the decode
-    inputs are ``feed`` or, without it, this run's own argmax. Returns the
-    logits of every step (numpy) and the tokens fed."""
+                feed=None, frames=None):
+    """Prefill ``toks`` (with an encoder-decoder's ``frames``) then
+    ``steps`` decode steps on ``dev``; the decode inputs are ``feed`` or,
+    without it, this run's own argmax. Returns the logits of every step
+    (numpy) and the tokens fed."""
     import torch
     from repro_torch import convert
     from repro_torch.launch import serve_lm
@@ -1003,8 +1032,10 @@ def _greedy_run(cfg, leaves, toks, dev: str, steps: int, s_max: int,
     m = build_model(cfg, device=dev)
     params = convert.params_from_numpy(leaves, dev)
     b, t0 = toks.shape
-    logits, pre = m.prefill(params, torch.from_numpy(toks).to(dev))
-    caches = m.init_decode_caches(b, s_max)
+    fe, s_enc = ((), ()) if frames is None else (
+        (torch.from_numpy(frames).to(dev),), (frames.shape[1],))
+    logits, pre = m.prefill(params, torch.from_numpy(toks).to(dev), *fe)
+    caches = m.init_decode_caches(b, s_max, *s_enc)
     serve_lm.write_caches(caches, pre, t0)
     out, fed = [logits.cpu().numpy()], []
     for i in range(steps):
@@ -4257,11 +4288,12 @@ def _by_tag(channels: dict, alive) -> dict:
 
 
 @contextlib.contextmanager
-def _first_call(module, name: str):
+def _first_call(module, name: str, when=None):
     """While the block runs, ``module.name`` records the arguments of its
     first call (tensors cloned, as the call received them) and then runs
     the call unchanged: a kernel's inputs as the distributed step gives
-    them."""
+    them. With ``when``, the first call for which ``when(*args, **kw)``
+    holds."""
     import torch
     real = getattr(module, name)
     seen = {}
@@ -4270,7 +4302,7 @@ def _first_call(module, name: str):
         return a.clone() if isinstance(a, torch.Tensor) else a
 
     def spy(*args, **kw):
-        if not seen:
+        if not seen and (when is None or when(*args, **kw)):
             seen["args"] = tuple(keep(a) for a in args)
             seen["kw"] = {k: keep(v) for k, v in kw.items()}
         return real(*args, **kw)
@@ -5316,8 +5348,10 @@ def _init_and_serve(spec: dict, tag: str) -> dict:
         spec["requests"], cfg.vocab_size, prompt_min=spec["prompt_min"],
         prompt_max=spec["prompt_max"], new_tokens=spec["new_tokens"],
         seed=spec["seed"])
+    frames = serve_lm.make_frames(cfg, reqs, spec["seed"])
     pool = dict(slots=spec["slots"], s_max=spec["s_max"],
-                page_size=spec["page_size"], n_pages=spec["n_pages"])
+                page_size=spec["page_size"], n_pages=spec["n_pages"],
+                frames=frames)
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     rep = serve_lm.serve(model, params, reqs, **pool)
@@ -5331,7 +5365,8 @@ def _init_and_serve(spec: dict, tag: str) -> dict:
     check(rep.n_free == spec["n_pages"],
           f"{tag} pool leaked: {rep.n_free} of {spec['n_pages']} free")
     check(rep.logits_finite, f"{tag} non-finite logits")
-    return {"model": model, "params": params, "reqs": reqs, "rec": {
+    return {"model": model, "params": params, "reqs": reqs,
+            "frames": frames, "rec": {
         "config": spec, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "n_params": model.n_params(), "launches": launches,
         "prompt_lens": [len(r.prompt) for r in reqs],
@@ -5396,12 +5431,15 @@ def _reduced_card_vs_cpu(tag: str, p: dict) -> dict:
             leaves = convert.params_to_numpy(build_model(
                 cfg, device="cpu").init_params(
                     torch.Generator().manual_seed(p["seed"])))
-            toks = np.random.default_rng(p["seed"]).integers(
-                0, cfg.vocab_size, (p["batch"], p["prompt"]))
+            rng = np.random.default_rng(p["seed"])
+            toks = rng.integers(0, cfg.vocab_size, (p["batch"], p["prompt"]))
+            frames = rng.standard_normal(
+                (p["batch"], cfg.frontend_tokens, cfg.d_model)).astype(
+                    np.float32) if cfg.encoder_layers else None
             got, fed = _greedy_run(cfg, leaves, toks, "cuda", p["steps"],
-                                   p["s_max"])
+                                   p["s_max"], frames=frames)
             want, _ = _greedy_run(cfg, leaves, toks, "cpu", p["steps"],
-                                  p["s_max"], fed)
+                                  p["s_max"], fed, frames=frames)
             worst = 0.0
             for i, (g, w) in enumerate(zip(got, want)):
                 np.testing.assert_allclose(g, w, atol=LM_TOL, rtol=LM_TOL,
@@ -5463,28 +5501,41 @@ def _profiled_call(fn) -> dict:
             **stats}
 
 
-def _serve_profiled(model, params, reqs, spec: dict) -> dict:
+def _serve_profiled(model, params, reqs, spec: dict, frames=None) -> dict:
     """One prefill of the first request's prompt and one decode iteration
     of the slots filled with the first prompts, at the longest one's
-    position, each profiled after a warm-up call."""
+    position, each profiled after a warm-up call. An encoder-decoder's
+    prompts go in with their ``frames``, and its encoder pass over the
+    first request's frames is profiled alone too."""
     import torch
     from repro_torch.launch import serve_lm
+
+    def fe(i):
+        return () if frames is None else (
+            torch.from_numpy(frames[i]).cuda()[None],)
 
     slots = spec["slots"]
     prompt = torch.as_tensor(reqs[0].prompt, dtype=torch.int64,
                              device="cuda")[None]
-    caches = model.init_decode_caches(slots, spec["s_max"])
+    caches = model.init_decode_caches(slots, spec["s_max"], *(
+        () if frames is None else (frames[0].shape[0],)))
     for slot, r in enumerate(reqs[:slots]):
         toks = torch.as_tensor(r.prompt, dtype=torch.int64,
                                device="cuda")[None]
-        _, pre = model.prefill(params, toks)
+        _, pre = model.prefill(params, toks, *fe(slot))
         serve_lm._write_prompt(caches, pre, slot, len(r.prompt))
     del pre
     cur = max(len(r.prompt) for r in reqs[:slots])
     tokens = torch.arange(slots, device="cuda") + 2
     out = {"prefill_tokens": prompt.shape[1], "decode_position": cur,
            "slots": slots}
-    out["prefill"] = _profiled_call(lambda: model.prefill(params, prompt))
+    out["prefill"] = _profiled_call(
+        lambda: model.prefill(params, prompt, *fe(0)))
+    if frames is not None:
+        out["frames"] = frames[0].shape[0]
+        with torch.no_grad():
+            out["encode"] = _profiled_call(
+                lambda: model.encode(params, fe(0)[0]))
     model.decode_step(params, tokens, caches, cur)            # warm-up
     out["decode"] = _profiled_call(
         lambda: model.decode_step(params, tokens, caches, cur + 1))
@@ -5492,12 +5543,17 @@ def _serve_profiled(model, params, reqs, spec: dict) -> dict:
 
 
 def _print_profiled(tag: str, prof: dict) -> None:
-    for kind in ("prefill", "decode"):
+    for kind in ("prefill", "decode", "encode"):
+        if kind not in prof:
+            continue
         d = prof[kind]
-        print(f"{tag} one profiled {kind} ("
-              + (f"{prof['prefill_tokens']} tokens" if kind == "prefill"
-                 else f"{prof['slots']} slots at position "
-                      f"{prof['decode_position'] + 1}")
+        what = {"prefill": f"{prof['prefill_tokens']} tokens"
+                + (f" and {prof['frames']} frames" if "frames" in prof
+                   else ""),
+                "decode": f"{prof['slots']} slots at position "
+                          f"{prof['decode_position'] + 1}",
+                "encode": f"encoder alone, {prof.get('frames')} frames"}
+        print(f"{tag} one profiled {kind} (" + what[kind]
               + f"): {d['wall_ms']:.2f} ms, {d['launches']:.0f} device ops, "
               f"busy {d['device_busy_ms']:.2f} ms, idle share "
               f"{d['device_idle_share']:.3f}; device ms by range "
@@ -5656,6 +5712,193 @@ def phase_ssm_serve(report: dict) -> dict:
     report["ssm_serve"] = rec
     return rec
 
+# phase 32: seamless-m4t-large-v2 (configs/seamless_m4t_large_v2.py,
+# arXiv:2308.11596) at full width and depth, 24 encoder + 24 decoder
+# layers: (a) phase 7's traffic with one block of frontend_tokens = 512
+# frames a request; (c) the reduced config in f32 card ≡ CPU; (d) three
+# steps of launch/train.run at 1 x 1,024 tokens, with its frames of
+# seq_len on the encoder
+SERVE_ENCDEC = dict(SERVE, arch="seamless-m4t-large-v2")
+ENCDEC_PARITY = dict(archs=("seamless-m4t-large-v2",), batch=2, prompt=48,
+                     steps=4, s_max=64, seed=8)
+TRAIN_ENCDEC = dict(arch="seamless-m4t-large-v2", batch=1, seq_len=1024,
+                    steps=3, lr=3e-4, warmup=1, seed=0)
+
+
+def _k2_by_causal(causal: bool):
+    """``_first_call``'s test for K2's first call with ``causal``."""
+    return lambda *args, **kw: kw.get("causal", True) == causal
+
+
+def _encdec_train_profiled(cfg) -> dict:
+    """[32d] One more train step of seamless under the profiler, after a
+    warm-up step, from a fresh draw (``train.run`` keeps its weights to
+    itself): wall ms, device ops, busy ms, idle share, ms by range."""
+    import torch
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+
+    t = TRAIN_ENCDEC
+    model = build_model(cfg, attn_impl="sdpa", device="cuda")
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(t["seed"]))
+    ocfg = AdamWConfig(lr=t["lr"], warmup_steps=t["warmup"],
+                       total_steps=t["steps"],
+                       moment_dtype=cfg.opt_moment_dtype)
+    state = init_state(ocfg, params)
+    step_fn = make_train_step(model, ocfg)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=t["seq_len"],
+                      global_batch=t["batch"], seed=t["seed"],
+                      frontend_tokens=t["seq_len"], d_model=cfg.d_model)
+    params, state, _ = step_fn(params, state, batch_at(dcfg, 0,
+                                                       device="cuda"))
+    batch = batch_at(dcfg, 1, device="cuda")
+    return _profiled_call(lambda: step_fn(params, state, batch))
+
+
+def _encdec_train() -> dict:
+    """[32d] ``launch/train.run`` on seamless at full width and depth: the
+    loss of every step finite; ms per step by the host clock between the
+    logged steps (each log reads the loss back, so it synchronises; the
+    first step also builds, draws and compiles, and is kept apart); then
+    one profiled step."""
+    import re
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import train
+
+    cfg = ARCHS[TRAIN_ENCDEC["arch"]]
+    check(cfg.remat == "full" and cfg.param_dtype == "bfloat16"
+          and cfg.opt_moment_dtype == "float32", f"[32d] {cfg}")
+    job = train.TrainJob(arch=cfg, steps=TRAIN_ENCDEC["steps"],
+                         seq_len=TRAIN_ENCDEC["seq_len"],
+                         global_batch=TRAIN_ENCDEC["batch"],
+                         lr=TRAIN_ENCDEC["lr"], warmup=TRAIN_ENCDEC["warmup"],
+                         log_every=1, seed=TRAIN_ENCDEC["seed"])
+    stamps, lines = [], []
+
+    def log(line):
+        stamps.append(time.perf_counter())
+        lines.append(line)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train.run(job, device="cuda", log=log)
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    check(len(losses) == TRAIN_ENCDEC["steps"]
+          and all(math.isfinite(v) for v in losses),
+          f"[32d] losses {losses}")
+    gnorms = [float(re.search(r"gnorm=(\S+)", ln).group(1)) for ln in lines]
+    check(all(math.isfinite(g) for g in gnorms), f"[32d] gnorms {gnorms}")
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    tokens = TRAIN_ENCDEC["batch"] * TRAIN_ENCDEC["seq_len"]
+    ms = statistics.median(step_ms)
+    del out
+    return {"config": TRAIN_ENCDEC, "n_layers": cfg.n_layers,
+            "encoder_layers": cfg.encoder_layers,
+            "tokens_per_step": tokens, "frames_per_step": tokens,
+            "losses": losses, "grad_norms": gnorms,
+            "first_step_s": stamps[0] - t0, "ms_per_step": step_ms,
+            "ms_per_step_median": ms, "tokens_per_s": tokens / (ms / 1e3),
+            "peak_memory_bytes": peak,
+            "profiled": _encdec_train_profiled(cfg)}
+
+
+def phase_encdec(report: dict) -> dict:
+    """[32] The encoder-decoder on the card: (a) seamless-m4t-large-v2 at
+    full width and depth served with phase 7's traffic and 512 frames a
+    request, K2 once per encoder and decoder layer per prefill and nothing
+    else; (b) K2 ≡ its plain version on the q, k, v the serve's first
+    prefill gave encoder layer 0 and decoder layer 0; (c) the reduced
+    config card ≡ CPU; (d) three training steps at full width."""
+    import torch
+    from repro_torch.device import card_description
+    from repro_torch.kernels import ops
+    torch.cuda.empty_cache()
+    card = card_description()
+    rec = {"card": card}
+
+    cfg = _serve_config(SERVE_ENCDEC)
+    check(cfg.encoder_layers == 24 and cfg.n_layers == 24
+          and cfg.d_model == 1024 and cfg.n_heads == cfg.n_kv_heads == 16
+          and cfg.d_head == 64 and cfg.frontend_tokens == 512
+          and cfg.param_dtype == "bfloat16", f"[32a] {cfg}")
+    with _first_call(ops, "flash_attention",
+                     when=_k2_by_causal(False)) as enc_seen, \
+            _first_call(ops, "flash_attention",
+                        when=_k2_by_causal(True)) as dec_seen:
+        run = _init_and_serve(SERVE_ENCDEC, "[32a]")
+    r = rec["serve"] = run["rec"]
+    check(r["n_params"] == 2_034_886_656, f"[32a] {r['n_params']} params")
+    per_prefill = cfg.encoder_layers + cfg.n_layers
+    k2_n = r["launches"]["k2_flash_attention"]
+    check(k2_n == per_prefill * r["prefills"] == 384,
+          f"[32a] K2 launched {k2_n} times in {r['prefills']} prefills of "
+          f"{per_prefill} self-attention layers")
+    check(not any(v for k, v in r["launches"].items()
+                  if k != "k2_flash_attention"),
+          f"[32a] another kernel launched: {r['launches']}")
+    check(r["frame_tokens"] == 512 * len(run["reqs"]),
+          f"[32a] {r['frame_tokens']} frame tokens")
+    _print_serve("[32a]", f"{cfg.encoder_layers} encoder + {cfg.n_layers} "
+                 f"decoder layers, {r['frame_tokens']} frames", r, card)
+    first = r["prompt_lens"][0]
+    checks = {}
+    for part, seen, shape, causal in (
+            ("encoder", enc_seen, (1, 16, 512, 64), False),
+            ("decoder", dec_seen, (1, 16, first, 64), True)):
+        q, k, v = seen["args"]
+        check(tuple(q.shape) == shape and tuple(k.shape) == shape
+              and q.dtype == torch.bfloat16
+              and seen["kw"].get("causal", True) == causal,
+              f"[32b] K2's first {part} inputs {tuple(q.shape)} "
+              f"{tuple(k.shape)} {q.dtype}")
+        checks[part] = _k2_case("[32b]", f"seamless-{part}-first-prefill",
+                                q, k, v, causal)
+        del q, k, v
+    rec["k2_checks"] = checks
+    del enc_seen, dec_seen
+    prof = rec["profiled"] = _serve_profiled(
+        run["model"], run["params"], run["reqs"], SERVE_ENCDEC,
+        run["frames"])
+    _print_profiled("[32a]", prof)
+    del run
+    torch.cuda.empty_cache()
+
+    par = rec["card_vs_cpu"] = _reduced_card_vs_cpu("[32c]", ENCDEC_PARITY)
+    worst = ", ".join(f"{k} {v['max_abs_diff']:.3g}" for k, v in par.items())
+    print(f"[32c] reduced config (f32): prefill of {ENCDEC_PARITY['batch']} "
+          f"x {ENCDEC_PARITY['prompt']} tokens with 8 frames + "
+          f"{ENCDEC_PARITY['steps']} decode steps card ≡ CPU, max|Δlogit| "
+          f"{worst} (bound {LM_TOL}), greedy tokens equal", flush=True)
+
+    _reset_counts()
+    t = rec["train"] = _encdec_train()
+    t["launches"] = _read_counts()
+    print(f"[32d] train {cfg.name} ({cfg.encoder_layers} + {cfg.n_layers} "
+          f"layers, bf16, remat full, AdamW f32 moments) through "
+          f"launch/train.run: {TRAIN_ENCDEC['steps']} steps of "
+          f"{TRAIN_ENCDEC['batch']} x {TRAIN_ENCDEC['seq_len']} tokens with "
+          f"{TRAIN_ENCDEC['seq_len']} frames; losses {t['losses']}, grad "
+          f"norms {t['grad_norms']}; first step (build, draw, first calls) "
+          f"{t['first_step_s']:.2f} s, then {t['ms_per_step']} ms/step "
+          f"(host clock), {t['tokens_per_s']:.0f} tokens/s; peak memory "
+          f"{t['peak_memory_bytes'] / 1e9:.2f} GB; kernel launches "
+          f"{t['launches']}; {card}", flush=True)
+    d = t["profiled"]
+    print(f"[32d] one profiled train step: {d['wall_ms']:.2f} ms, "
+          f"{d['launches']:.0f} device ops, busy {d['device_busy_ms']:.2f} "
+          f"ms, idle share {d['device_idle_share']:.3f}; device ms by range "
+          f"{ {k: round(v['device_ms'], 3) for k, v in d['ranges'].items()} }",
+          flush=True)
+    for op in d["top_device_ops"][:8]:
+        print(f"    {op['device_ms']:9.3f} ms {op['calls']:6.0f} x "
+              f"{op['name'][:100]}", flush=True)
+    report["encdec"] = rec
+    return rec
+
 
 T_START = time.perf_counter()
 
@@ -5760,6 +6003,7 @@ def _run(workers, tmpdir: str) -> int:
     training = timed("29", phase_training, report, tmpdir)
     moe = timed("30", phase_moe_serve, report)
     ssm = timed("31", phase_ssm_serve, report)
+    encdec = timed("32", phase_encdec, report)
     report["total_s"] = time.perf_counter() - T_START
     print(f"phases took {sum(seconds.values()):.1f} s, the script "
           f"{report['total_s']:.1f} s", flush=True)
@@ -5866,6 +6110,20 @@ def _run(workers, tmpdir: str) -> int:
                 "bound_ms", "bound_by")}
             k["max_abs_err"] = max(k["max_abs_err"],
                                    ssm["k2_check"]["max_abs_err"])
+    # the encoder-decoder serve (phase 32 (a)) runs K2 once per encoder
+    # and decoder layer per prefill, held against its plain version on
+    # the inputs of the serve's first prefill at both shapes
+    for k in kernels:
+        k["seamless_serving_launches"] = \
+            encdec["serve"]["launches"][k["name"]]
+        if k["name"] == "k2_flash_attention":
+            k["seamless_check"] = {part: {f: rec[f] for f in (
+                "shape", "causal", "dtype", "path", "max_abs_err",
+                "max_err_over_scaled_tol", "ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by")}
+                for part, rec in encdec["k2_checks"].items()}
+            k["max_abs_err"] = max([k["max_abs_err"]] + [
+                rec["max_abs_err"] for rec in encdec["k2_checks"].values()])
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -4,11 +4,16 @@ checkpoints → resume (the port's counterpart of examples/train_lm.py).
 Presets:
   smoke (default) ~7M params, 60 steps.
   100m            ~100M params, 300 steps — the end-to-end size.
+  encdec-smoke    the encoder-decoder (reduced seamless-m4t-large-v2,
+                  0.26M params), 60 steps, frames of the sequence length
+                  on the encoder; the port's own preset (the reference's
+                  example trains the qwen2 presets only).
 
 Demonstrates fault tolerance: run it, kill it mid-way, run again — it
 resumes from the latest checkpoint and repeats no data.
 
-    PYTHONPATH=src python -m repro_torch.examples.train_lm [smoke|100m] \\
+    PYTHONPATH=src python -m repro_torch.examples.train_lm \\
+        [smoke|100m|encdec-smoke] \\
         [--ckpt DIR] [--steps N] [--device D]
 
 ``--ckpt`` defaults to ``repro_torch_ckpt`` under the temporary
@@ -24,12 +29,14 @@ from typing import Optional, Sequence
 
 from ..configs import ARCHS, ArchConfig
 from ..launch.train import TrainJob, run
-from ..models import build_model
+from ..models import build_model, reduced_config
 from ._common import parser
 
 
 def make_arch(preset: str) -> ArchConfig:
-    """The reference's presets, field for field."""
+    """The reference's presets, field for field, and ``encdec-smoke``."""
+    if preset == "encdec-smoke":
+        return reduced_config(ARCHS["seamless-m4t-large-v2"])
     base = ARCHS["qwen2-1.5b"]
     if preset == "smoke":
         return dataclasses.replace(
@@ -46,7 +53,7 @@ def make_arch(preset: str) -> ArchConfig:
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = parser(__doc__)
     ap.add_argument("preset", nargs="?", default="smoke",
-                    choices=["smoke", "100m"])
+                    choices=["smoke", "100m", "encdec-smoke"])
     ap.add_argument("--ckpt", default=None,
                     help="checkpoint directory (default: repro_torch_ckpt "
                          "under the temporary directory)")
@@ -56,11 +63,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     arch = make_arch(args.preset)
     n = build_model(arch, device=args.device).n_params()
     print(f"[train_lm] arch={arch.name} params={n:,}")
-    steps = args.steps or (60 if args.preset == "smoke" else 300)
+    small = args.preset != "100m"
+    steps = args.steps or (60 if small else 300)
     ckpt = args.ckpt or os.path.join(tempfile.gettempdir(),
                                      "repro_torch_ckpt")
     job = TrainJob(arch=arch, steps=steps,
-                   seq_len=256 if args.preset == "smoke" else 512,
+                   seq_len=256 if small else 512,
                    global_batch=8, lr=1e-3, warmup=10,
                    ckpt_dir=ckpt, ckpt_every=20, log_every=5)
     out = run(job, device=args.device)

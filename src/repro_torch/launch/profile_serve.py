@@ -9,6 +9,8 @@
         --arch mamba2-370m --requests 4 --new-tokens 8
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         --arch jamba-v0.1-52b --layers 16 --requests 4 --new-tokens 8
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+        --arch seamless-m4t-large-v2 --requests 4 --new-tokens 8
 
 Serves the requests twice after a short warm-up: once unprofiled (wall
 times) and once under the profiler. Reports the device's busy time and idle
@@ -19,10 +21,14 @@ range open on the host when it was launched): ``attn/k2`` (K2; none for an
 MLA model, whose attention runs the plain path), ``full/attn`` (prefill
 projections, rope, MLA's attention), ``full/ssm`` (an SSM layer's
 projections, conv and chunked SSD), ``full/mlp`` and ``full/moe`` (the
-dense MLP; the router, dispatch, expert FFN and combine), ``full/logits``,
+dense MLP; the router, dispatch, expert FFN and combine), ``encode``
+(an encoder-decoder's encoder stack, outside its layers' ranges: the
+frames' cast and the final norm), ``full/xattn`` (cross-attention: the
+plain ``_sdpa`` over the encoder output), ``full/logits``,
 ``serve/prefill`` (embedding, cache write, argmax), ``decode/attn``,
-``decode/ssm`` (the one-token recurrence), ``decode/mlp``, ``decode/moe``,
-``decode/logits`` and ``serve/decode`` (embedding, argmax, paged-pool
+``decode/xattn`` (over the cached ``xk`` / ``xv``), ``decode/ssm`` (the
+one-token recurrence), ``decode/mlp``, ``decode/moe``, ``decode/logits``
+and ``serve/decode`` (embedding, argmax, paged-pool
 update). Takes ``serve_lm``'s options, with
 fewer requests and new tokens by default so the trace stays short. Runs on
 the CUDA card only.
@@ -53,7 +59,8 @@ def main() -> None:
                                   prompt_min=args.prompt_min,
                                   prompt_max=args.prompt_max, new_tokens=2,
                                   seed=args.seed + 1)
-    serve_lm.serve(model, params, warm, **pool)
+    serve_lm.serve(model, params, warm, **dict(
+        pool, frames=serve_lm.make_frames(cfg, warm, args.seed + 1)))
     plain = serve_lm.serve(model, params, reqs, **pool)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

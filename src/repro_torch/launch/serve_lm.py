@@ -6,6 +6,8 @@ on the CUDA card unless asked for the CPU.
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch mamba2-370m
     PYTHONPATH=src python -m repro_torch.launch.serve_lm \\
         --arch jamba-v0.1-52b --layers 16
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm \\
+        --arch seamless-m4t-large-v2
 
 (jamba's 32 layers are 103 GB in bf16, more than one 80 GB card holds;
 16 layers, two of its 8-layer blocks, are 52 GB.)
@@ -41,6 +43,16 @@ slot's state is overwritten when the slot is next admitted. Meanwhile
 outputs are not read), and the shared ``cur_len`` does not reach the SSM
 layers: each slot's state advances one token per iteration whatever the
 other slots' lengths.
+
+An encoder-decoder model (seamless-m4t) is served with one block of
+frame embeddings per request, ``(frontend_tokens, d_model)`` f32 drawn
+standard-normal from ``--seed`` in submission order (the reference's
+frontend stub, ``data/pipeline.py``; :func:`make_frames`). ``Request`` and
+``ContinuousBatcher`` are the reference's and carry no frames: ``serve``
+finds a prompt's frames by the identity of its prompt array. The prefill
+encodes the frames and writes the cross-attention cache ``xk`` / ``xv``
+whole into the slot, like an SSM state; decode reads it and never
+re-encodes. The frames do not offset the decoder's positions.
 """
 
 from __future__ import annotations
@@ -58,7 +70,7 @@ from torch.profiler import record_function
 
 from ..configs import ARCHS
 from ..kernels import flash_attention as k2
-from ..models import build_model
+from ..models import EncDecLM, build_model
 from ..models.lm import LM
 from ..serve import ContinuousBatcher, Finished, Request
 from ..serve import kv_cache as kvc
@@ -69,7 +81,7 @@ class ServeReport:
     finished: List[Finished]          # in order of completion
     n_free: int                       # pool pages free at the end
     n_pages: int
-    prompt_tokens: int
+    prompt_tokens: int                # decoder prompt tokens
     prefill_s: List[float]            # per prefill, prompt in → first token
     ttft_s: List[float]               # per prefill: serve start → first
                                       # token (admission is FIFO, so the
@@ -77,18 +89,23 @@ class ServeReport:
     decode_s: List[float]             # per decode iteration
     wall_s: float
     logits_finite: bool
+    frame_tokens: int = 0             # encoder frames (encoder-decoder)
 
     @property
     def generated_tokens(self) -> int:
         return sum(len(f.tokens) for f in self.finished)
 
     def summary(self) -> Dict[str, Any]:
+        """The serve's figures. ``prefill_tokens_per_s`` counts decoder
+        prompt tokens only: an encoder-decoder's frames (``frame_tokens``)
+        are encoded in the same prefills but not counted in it."""
         ttft = sorted(self.ttft_s)
         return {
             "requests": len(self.finished),
             "prefills": len(self.prefill_s),
             "decode_iterations": len(self.decode_s),
             "prompt_tokens": self.prompt_tokens,
+            "frame_tokens": self.frame_tokens,
             "generated_tokens": self.generated_tokens,
             "prefill_tokens_per_s": self.prompt_tokens / sum(self.prefill_s),
             "prefill_ms_mean": 1e3 * float(np.mean(self.prefill_s)),
@@ -117,11 +134,27 @@ def make_requests(n: int, vocab: int, *, prompt_min: int, prompt_max: int,
     return reqs
 
 
+def make_frames(cfg, requests: Sequence[Request], seed: int
+                ) -> List[np.ndarray] | None:
+    """``serve``'s ``frames`` for ``requests`` under ``cfg``: for an
+    encoder-decoder, one block of frame embeddings ``(frontend_tokens,
+    d_model)`` f32 per request, standard normal, in submission order, from
+    a stream of their own (entropy ``[seed, 1]``, so they do not repeat
+    the requests' draws); None for a decoder-only model."""
+    if not cfg.encoder_layers:
+        return None
+    rng = np.random.default_rng([seed, 1])
+    return [rng.standard_normal((cfg.frontend_tokens, cfg.d_model)
+                                ).astype(np.float32) for _ in requests]
+
+
 # decode-cache leaves by key: an attention cache has a sequence axis
 # second from the end (GQA's k / v (B, Hkv, S, Dh), MLA's c_kv / k_pe
-# (B, S, ·)); an SSM cache has none (conv (B, K−1, C), state (B, H, P, N))
+# (B, S, ·)); an SSM cache has none (conv (B, K−1, C), state (B, H, P,
+# N)), and an encoder-decoder's cross cache (xk / xv (B, Hkv, S_enc, Dh))
+# is the prompt's own: these are copied whole
 _SEQ_LEAVES = ("k", "v", "c_kv", "k_pe")
-_STATE_LEAVES = ("conv", "state")
+_WHOLE_LEAVES = ("conv", "state", "xk", "xv")
 
 
 def _keyed_leaves(tree: Any, key: str | None = None
@@ -143,9 +176,9 @@ def _leaves(tree: Any) -> List[torch.Tensor]:
 def _put(key: str | None, rows: torch.Tensor, src: torch.Tensor,
          n: int) -> None:
     """Write one leaf of a prefill of length ``n`` into decode rows of the
-    same batch: an attention leaf into its first ``n`` positions, zero
-    past them; an SSM leaf whole."""
-    if key in _STATE_LEAVES:
+    same batch: a self-attention leaf into its first ``n`` positions, zero
+    past them; an SSM or cross-attention leaf whole."""
+    if key in _WHOLE_LEAVES:
         rows.copy_(src)
     elif key in _SEQ_LEAVES:
         rows.zero_()
@@ -156,8 +189,8 @@ def _put(key: str | None, rows: torch.Tensor, src: torch.Tensor,
 
 def write_caches(dense: Any, pre: Any, n: int) -> None:
     """Copy prefill caches (length n) into decode caches of the same batch
-    (length s_max): attention leaves into their first n positions, zero
-    past them; SSM leaves whole."""
+    (length s_max): self-attention leaves into their first n positions,
+    zero past them; SSM and cross-attention leaves whole."""
     for (key, d), (_, p) in zip(_keyed_leaves(dense), _keyed_leaves(pre),
                                 strict=True):
         _put(key, d, p, n)
@@ -180,15 +213,36 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve(model: LM, params: Dict, requests: Sequence[Request], *,
-          slots: int = 4, s_max: int = 4096, page_size: int = 16,
-          n_pages: int = 1024, eos_token: int = -1,
-          max_steps: int = 100_000) -> ServeReport:
+def _frames_by_prompt(requests: Sequence[Request],
+                      frames: Sequence[np.ndarray]) -> Dict[int, np.ndarray]:
+    """{id of a request's prompt array: its frames}: the batcher hands
+    ``prefill_fn`` the request's own prompt array."""
+    if len(frames) != len(requests):
+        raise ValueError(f"{len(frames)} frame blocks for {len(requests)} "
+                         f"requests")
+    shapes = {f.shape for f in frames}
+    if len(shapes) != 1:
+        raise ValueError(f"frame blocks of unequal shapes {sorted(shapes)}: "
+                         f"the slots share one cross-attention cache shape")
+    by_prompt = {id(r.prompt): f for r, f in zip(requests, frames)}
+    if len(by_prompt) != len(requests):
+        raise ValueError("two requests share one prompt array: their "
+                         "frames cannot be told apart")
+    return by_prompt
+
+
+def serve(model: LM | EncDecLM, params: Dict, requests: Sequence[Request],
+          *, frames: Sequence[np.ndarray] | None = None, slots: int = 4,
+          s_max: int = 4096, page_size: int = 16, n_pages: int = 1024,
+          eos_token: int = -1, max_steps: int = 100_000) -> ServeReport:
     """Serve ``requests`` to completion on the model's device.
 
     ``eos_token`` −1 (no token ends a request: random weights have no end
     token) makes every request produce its ``max_new_tokens``. Each
-    request needs ``len(prompt) + max_new_tokens < s_max``.
+    request needs ``len(prompt) + max_new_tokens < s_max``. An
+    encoder-decoder model needs ``frames``, one ``(S_enc, d_model)`` block
+    per request in the order of ``requests`` (:func:`make_frames`); a
+    decoder-only model takes none.
     """
     cfg, dev = model.cfg, model.device
     for r in requests:
@@ -196,11 +250,19 @@ def serve(model: LM, params: Dict, requests: Sequence[Request], *,
             raise ValueError(f"request {r.uid}: prompt {len(r.prompt)} + "
                              f"{r.max_new_tokens} new tokens does not fit "
                              f"s_max={s_max}")
+    encdec = cfg.encoder_layers > 0
+    if encdec != (frames is not None):
+        raise ValueError(f"{cfg.name}: frames are "
+                         f"{'required' if encdec else 'not taken'}")
     spec = kvc.PagedCacheSpec(
         n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
         page_size=page_size, n_pages=n_pages, max_seqs=slots,
         max_pages_per_seq=s_max // page_size, dtype=cfg.activation_dtype)
-    caches = model.init_decode_caches(slots, s_max)
+    if encdec:
+        frames_of = _frames_by_prompt(requests, frames)
+        caches = model.init_decode_caches(slots, s_max, frames[0].shape[0])
+    else:
+        caches = model.init_decode_caches(slots, s_max)
     lens = np.zeros(slots, np.int64)
     zero_kv = torch.zeros((spec.n_layers, slots, spec.n_kv_heads,
                            spec.d_head), dtype=spec._dt, device=dev)
@@ -215,7 +277,11 @@ def serve(model: LM, params: Dict, requests: Sequence[Request], *,
         with record_function("serve/prefill"):
             toks = torch.as_tensor(prompt, dtype=torch.int64,
                                    device=dev)[None]
-            logits, pre = model.prefill(params, toks)
+            if encdec:
+                fe = torch.from_numpy(frames_of[id(prompt)]).to(dev)[None]
+                logits, pre = model.prefill(params, toks, fe)
+            else:
+                logits, pre = model.prefill(params, toks)
             _write_prompt(caches, pre, slot, toks.shape[1])
             lens[slot] = toks.shape[1]
             finite = finite & torch.isfinite(logits).all()
@@ -254,7 +320,8 @@ def serve(model: LM, params: Dict, requests: Sequence[Request], *,
         n_pages=n_pages,
         prompt_tokens=sum(len(r.prompt) for r in requests),
         prefill_s=prefill_s, ttft_s=ttft, decode_s=decode_s, wall_s=wall,
-        logits_finite=bool(finite))
+        logits_finite=bool(finite),
+        frame_tokens=sum(len(f) for f in frames) if encdec else 0)
 
 
 def traffic_parser(description: str, **defaults) -> argparse.ArgumentParser:
@@ -279,9 +346,10 @@ def traffic_parser(description: str, **defaults) -> argparse.ArgumentParser:
 
 
 def setup(args: argparse.Namespace, device: str | None = None
-          ) -> tuple[LM, Dict, List[Request], Dict[str, int]]:
-    """Model, random weights from ``--seed``, requests and ``serve``'s pool
-    keywords, from :func:`traffic_parser`'s options."""
+          ) -> tuple[LM | EncDecLM, Dict, List[Request], Dict[str, Any]]:
+    """Model, random weights from ``--seed``, requests and ``serve``'s
+    keywords (the pool's, and an encoder-decoder's frames), from
+    :func:`traffic_parser`'s options."""
     cfg = ARCHS[args.arch]
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
@@ -293,7 +361,8 @@ def setup(args: argparse.Namespace, device: str | None = None
                          prompt_max=args.prompt_max,
                          new_tokens=args.new_tokens, seed=args.seed)
     pool = dict(slots=args.slots, s_max=args.s_max,
-                page_size=args.page_size, n_pages=args.pages)
+                page_size=args.page_size, n_pages=args.pages,
+                frames=make_frames(cfg, reqs, args.seed))
     return model, params, reqs, pool
 
 

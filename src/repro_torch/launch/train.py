@@ -49,7 +49,9 @@ class TrainJob:
 def run(job: TrainJob, device: DeviceLike = None, log=print
         ) -> Dict[str, float]:
     """Train ``job`` on ``device`` (None → the CUDA card). Returns the
-    first and the last logged loss."""
+    first and the last logged loss, and every logged loss (``losses``).
+    An encoder-decoder config gets frames of ``seq_len`` on its encoder,
+    as the reference feeds it."""
     dev = resolve_device(device)
     cfg = job.arch
     model = build_model(cfg, attn_impl="sdpa", device=dev)
@@ -98,4 +100,5 @@ def run(job: TrainJob, device: DeviceLike = None, log=print
         ck.save_async(job.steps, {"params": params, "opt": opt_state})
         ck.wait()
     return {"final_loss": losses[-1] if losses else float("nan"),
-            "first_loss": losses[0] if losses else float("nan")}
+            "first_loss": losses[0] if losses else float("nan"),
+            "losses": losses}

@@ -1,0 +1,233 @@
+"""Encoder-decoder backbone (seamless-m4t): audio-frame encoder + text
+decoder (port of ``repro.models.encdec``).
+
+The audio frontend is a stub, as in the reference: the caller passes
+precomputed frame embeddings (B, S_enc, d_model); the encoder is a
+non-causal stack over them, with rope at ``arange(S_enc)``. The decoder is
+a causal stack whose layers add cross-attention (no rope, non-causal, the
+plain ``_sdpa``) against the encoder output; its K/V are cached at prefill
+as ``xk`` / ``xv`` (decode never re-encodes). The frames do not offset the
+decoder's positions.
+
+The parameter tree is the reference's: ``embed/tokens``, ``enc_blocks``
+stacked ``(encoder_layers,)``, ``enc_norm``, ``dec_blocks`` stacked
+``(n_layers,)`` with ``xattn`` beside ``attn``, ``final_norm``,
+``lm_head``. The decode caches are ``([], ({k, v, xk, xv},))`` with
+leaves ``(n_layers, B, Hkv, S, Dh)`` (``S`` = ``s_max`` for ``k`` / ``v``,
+``s_enc`` for ``xk`` / ``xv``), so weights and caches carry across 1:1
+(``convert.py``). The reference's ``jax.lax.scan`` over layers is a Python
+loop over the stacked axis; its ``jax.checkpoint`` around both stacks is
+``torch.utils.checkpoint`` around each layer (``lm._remat`` with
+``"full"``: the reference applies no ``dots`` policy here).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch.profiler import record_function
+
+from ..configs.base import ArchConfig, LayerDesc
+from ..device import DeviceLike, resolve_device
+from . import attention as attn_mod
+from .layers import ParamSet, ShapeDtype, cross_entropy, rms_norm, torch_dtype
+from .lm import (_index, _map, _remat, _stack, _unbind, apply_pattern_block,
+                 register_pattern_block)
+
+
+def _enc_layer(x: torch.Tensor, p_block: Dict, cfg: ArchConfig,
+               pattern: Tuple[LayerDesc, ...], attn_impl: str
+               ) -> torch.Tensor:
+    return apply_pattern_block(p_block, x, cfg, pattern, "full",
+                               causal=False, attn_impl=attn_impl)[0]
+
+
+def _dec_layer(x: torch.Tensor, enc_out: torch.Tensor, p_block: Dict,
+               cfg: ArchConfig, pattern: Tuple[LayerDesc, ...],
+               attn_impl: str) -> torch.Tensor:
+    return apply_pattern_block(p_block, x, cfg, pattern, "full",
+                               enc_out=enc_out, cross=True,
+                               attn_impl=attn_impl)[0]
+
+
+class EncDecLM:
+    """Encoder-decoder model (seamless-m4t-large-v2's family).
+
+    ``device`` (None → the CUDA card, raising without one) is where
+    :meth:`init_params` and :meth:`init_decode_caches` put their tensors;
+    ``attn_impl`` is ``"k2"`` (the reference's ``"pallas"``: K2 on every
+    encoder and decoder self-attention, non-causal in the encoder) or
+    ``"sdpa"`` (its ``"xla"``, for training: K2 has no backward).
+    """
+
+    def __init__(self, cfg: ArchConfig, attn_impl: str = "k2",
+                 device: DeviceLike = None):
+        assert cfg.encoder_layers > 0
+        if attn_impl not in attn_mod.ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of "
+                             f"{attn_mod.ATTN_IMPLS}, got {attn_impl!r}")
+        self.cfg = cfg
+        self.attn_impl = attn_impl
+        self.device = resolve_device(device)
+        self.pdt = torch_dtype(cfg.param_dtype)
+        self.adt = torch_dtype(cfg.activation_dtype)
+        self.pat = (LayerDesc(kind="attn", mlp="dense"),)
+
+        self.v_pad = ((cfg.vocab_size + 127) // 128) * 128
+        ps = ParamSet(dtype=self.pdt)
+        ps.add("embed/tokens", (self.v_pad, cfg.d_model), ("tp", "fsdp"))
+        register_pattern_block(ps, "enc_blocks", cfg, self.pat,
+                               (cfg.encoder_layers,))
+        ps.add("enc_norm", (cfg.d_model,), (None,), init="ones")
+        register_pattern_block(ps, "dec_blocks", cfg, self.pat,
+                               (cfg.n_layers,), cross=True)
+        ps.add("final_norm", (cfg.d_model,), (None,), init="ones")
+        ps.add("lm_head", (cfg.d_model, self.v_pad), ("fsdp", "tp"))
+        self.ps = ps
+
+    def init_params(self, generator: torch.Generator) -> Dict:
+        """Random-init weights from ``generator``, which must live on the
+        model's device."""
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator is on {generator.device}, the model "
+                             f"on {self.device}")
+        return self.ps.init_params(generator)
+
+    def n_params(self) -> int:
+        return self.ps.n_params()
+
+    def _layer(self, fn):
+        """``fn`` under the reference's ``jax.checkpoint`` when it runs under
+        autograd and the config remats; as it is otherwise."""
+        fn = functools.partial(fn, cfg=self.cfg, pattern=self.pat,
+                               attn_impl=self.attn_impl)
+        if not torch.is_grad_enabled() or self.cfg.remat == "none":
+            return fn
+        return _remat(fn, "full")
+
+    def _logits(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        logits = torch.matmul(x, params["lm_head"])
+        if self.v_pad != self.cfg.vocab_size:   # mask padded vocab columns
+            col = torch.arange(self.v_pad, device=x.device)
+            logits = torch.where(col < self.cfg.vocab_size, logits,
+                                 torch.full((), -1e30, dtype=logits.dtype,
+                                            device=x.device))
+        return logits
+
+    # -- encoder -------------------------------------------------------------
+    def encode(self, params: Dict, frames: torch.Tensor) -> torch.Tensor:
+        """frames (B, S_enc, d_model), any float dtype (cast to the
+        activation dtype first). Returns the normalised encoder output."""
+        cfg = self.cfg
+        with record_function("encode"):
+            x = frames.to(self.adt)
+            layer = self._layer(_enc_layer)
+            for p_block in _unbind(params["enc_blocks"], cfg.encoder_layers):
+                x = layer(x, p_block)
+            return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+    # -- decoder -------------------------------------------------------------
+    def _decode_full(self, params: Dict, tokens: torch.Tensor,
+                     enc_out: torch.Tensor, want_cache: bool,
+                     last_only: bool = False
+                     ) -> Tuple[torch.Tensor, Tuple]:
+        """The decoder over ``tokens`` (B, S) against ``enc_out``: logits
+        (B, S, V_pad), or (B, 1, V_pad) at the last position with
+        ``last_only``, and with ``want_cache`` the stacked layer caches
+        ``({k, v, xk, xv},)``, else ``()``."""
+        cfg = self.cfg
+        x = params["embed"]["tokens"][tokens].to(self.adt)
+        layers = _unbind(params["dec_blocks"], cfg.n_layers)
+        caches: Tuple = ()
+        if want_cache:
+            per_layer = []
+            for p_block in layers:
+                x, _, c = apply_pattern_block(
+                    p_block, x, cfg, self.pat, "full", enc_out=enc_out,
+                    cross=True, attn_impl=self.attn_impl, want_cache=True)
+                per_layer.append(c)
+            caches = _stack(per_layer)
+        else:
+            layer = self._layer(_dec_layer)
+            for p_block in layers:
+                x = layer(x, enc_out, p_block)
+        if last_only:
+            x = x[:, -1:, :]
+        with record_function("full/logits"):
+            return self._logits(params, x), caches
+
+    # -- public API ----------------------------------------------------------
+    def train_loss(self, params: Dict, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean next-token CE of a batch ``{"tokens", "labels",
+        "frontend_embeds"[, "loss_mask"]}``: the frames through the
+        encoder, the tokens through the decoder, ``logits[:, :-1]`` against
+        ``labels[:, 1:]``. Returns ``(ce, {"ce", "aux"})``, aux 0."""
+        if self.attn_impl == "k2":
+            raise ValueError(
+                "train_loss: K2 has no backward (nor has the reference's "
+                "Pallas kernel); training runs attn_impl='sdpa'")
+        enc_out = self.encode(params, batch["frontend_embeds"])
+        logits, _ = self._decode_full(params, batch["tokens"], enc_out,
+                                      want_cache=False)
+        with record_function("train/logits_ce"):
+            ce = cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
+                               batch.get("loss_mask"))
+        return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
+                                                 device=ce.device)}
+
+    @torch.no_grad()
+    def prefill(self, params: Dict, tokens: torch.Tensor,
+                frontend_embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Tuple[List, Tuple]]:
+        """tokens (B, S) int, frontend_embeds (B, S_enc, d_model). Returns
+        (logits (B, V_pad) at the last position, ([], ({k, v, xk, xv},)))
+        with ``k`` / ``v`` S long and ``xk`` / ``xv`` S_enc long."""
+        if frontend_embeds is None:
+            raise ValueError("an encoder-decoder prefill needs the frame "
+                             "embeddings (frontend_embeds)")
+        enc_out = self.encode(params, frontend_embeds)
+        logits, caches = self._decode_full(params, tokens, enc_out,
+                                           want_cache=True, last_only=True)
+        return logits[:, 0], ([], caches)
+
+    @torch.no_grad()
+    def decode_step(self, params: Dict, token: torch.Tensor,
+                    caches: Tuple[List, Tuple], cur_len: int
+                    ) -> Tuple[torch.Tensor, Tuple[List, Tuple]]:
+        """token: (B,) int; cur_len: the position being written, one for the
+        whole batch. ``k`` / ``v`` are written in place, ``xk`` / ``xv``
+        only read; the caches are returned."""
+        cfg = self.cfg
+        cur_len = int(cur_len)
+        _, block_caches = caches
+        x = params["embed"]["tokens"][token[:, None]].to(self.adt)
+        for j in range(cfg.n_layers):
+            x, _, _ = apply_pattern_block(
+                _index(params["dec_blocks"], j), x, cfg, self.pat, "decode",
+                caches=_index(block_caches, j), cur_len=cur_len, cross=True)
+        with record_function("decode/logits"):
+            logits = self._logits(params, x)
+        return logits[:, 0], caches
+
+    # -- caches --------------------------------------------------------------
+    def decode_cache_specs(self, batch: int, s_max: int, s_enc: int
+                           ) -> Tuple[List, Tuple]:
+        cfg = self.cfg
+        kv = attn_mod.gqa_cache_spec(cfg, batch, s_max, self.adt)
+        xshape = (batch, cfg.n_kv_heads, s_enc, cfg.d_head)
+        spec = {**kv, "xk": ShapeDtype(xshape, self.adt),
+                "xv": ShapeDtype(xshape, self.adt)}
+        stacked = {k: ShapeDtype((cfg.n_layers,) + sd.shape, sd.dtype)
+                   for k, sd in spec.items()}
+        return [], (stacked,)
+
+    def init_decode_caches(self, batch: int, s_max: int, s_enc: int
+                           ) -> Tuple[List, Tuple]:
+        """Zero decode caches on the model's device."""
+        return _map(lambda sd: torch.zeros(sd.shape, dtype=sd.dtype,
+                                           device=self.device),
+                    self.decode_cache_specs(batch, s_max, s_enc))

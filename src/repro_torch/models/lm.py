@@ -5,7 +5,10 @@ precomputed embeddings ahead of the token embeddings, the MoE family
 (dense prefix layers + [attn + moe]; deepseek-v2-lite's attention is MLA,
 kimi-k2's GQA), the SSM family (pattern [ssm + none], mamba2) and the
 hybrid (jamba's pattern of 8: SSM layers with one GQA layer at index 4,
-MoE on the odd indices, dense MLPs on the even).
+MoE on the odd indices, dense MLPs on the even). Its pattern blocks also
+carry the encoder-decoder's cross-attention (``register_pattern_block(...,
+cross=True)``, ``apply_pattern_block(..., enc_out=, cross=True)``), which
+``models/encdec.EncDecLM`` stacks.
 
 The parameter tree is the reference's: ``embed/tokens``, ``prefix<i>/...``
 for unstacked leading layers, ``blocks/l<j>/...`` with a leading
@@ -27,9 +30,8 @@ Modes:
 either package. The reference's ``jax.checkpoint`` around the scanned
 block is ``torch.utils.checkpoint`` around each stacked block.
 
-Not ported yet (ROADMAP.md Queue 1 item 17b): cross-attention layers
-(the encoder-decoder family), and training of the MoE, MLA and SSM
-configs.
+Not ported yet (ROADMAP.md Queue 1 item 17b, slice 5): training of the
+MoE, MLA and SSM configs.
 """
 
 from __future__ import annotations
@@ -69,37 +71,62 @@ def mlp_layer(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
                       p["w_gate"], p["w_up"], p["w_down"])
 
 
-def _check_layer(ld: LayerDesc, cross: bool) -> None:
-    if ld.kind not in ("attn", "ssm"):
-        raise ValueError(ld.kind)
-    if cross:
-        raise NotImplementedError(f"cross-attention is not ported yet "
-                                  f"({_TODO}, encoder-decoder family)")
-
-
 def register_pattern_block(ps: ParamSet, prefix: str, cfg: ArchConfig,
                            pattern: Tuple[LayerDesc, ...],
                            stack: Tuple[int, ...],
                            cross: bool = False) -> None:
     for i, ld in enumerate(pattern):
-        _check_layer(ld, cross)
         pfx = f"{prefix}/l{i}"
-        if ld.kind == "ssm":
+        if ld.kind == "attn":
+            if cfg.mla:
+                attn_mod.register_mla(ps, f"{pfx}/attn", cfg, stack)
+            else:
+                attn_mod.register_attn(ps, f"{pfx}/attn", cfg, stack)
+            if cross:
+                attn_mod.register_attn(ps, f"{pfx}/xattn", cfg, stack)
+        elif ld.kind == "ssm":
             ssm_mod.register_ssm(ps, f"{pfx}/ssm", cfg, stack)
-        elif cfg.mla:
-            attn_mod.register_mla(ps, f"{pfx}/attn", cfg, stack)
         else:
-            attn_mod.register_attn(ps, f"{pfx}/attn", cfg, stack)
+            raise ValueError(ld.kind)
         if ld.mlp == "dense":
             register_mlp(ps, f"{pfx}/mlp", cfg, stack)
         elif ld.mlp == "moe":
             moe_mod.register_moe(ps, f"{pfx}/moe", cfg, stack)
 
 
+def _cross_full(p: Dict, x: torch.Tensor, enc_out: torch.Tensor,
+                cfg: ArchConfig
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Cross-attention (no rope, non-causal) against the encoder output,
+    through the plain ``_sdpa`` as in the reference. Returns (output,
+    {"xk", "xv"} (B, Hkv, S_enc, Dh) for the decode cache)."""
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    q = attn_mod._split_heads(torch.matmul(xn, p["wq"]), cfg.n_heads)
+    k = attn_mod._split_heads(torch.matmul(enc_out, p["wk"]),
+                              cfg.n_kv_heads)
+    v = attn_mod._split_heads(torch.matmul(enc_out, p["wv"]),
+                              cfg.n_kv_heads)
+    o = attn_mod._sdpa(q, k, v, causal=False)
+    out = torch.matmul(attn_mod._merge_heads(o), p["wo"])
+    return x + out, {"xk": k, "xv": v}
+
+
+def _cross_decode(p: Dict, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                  cfg: ArchConfig) -> torch.Tensor:
+    """One-token cross-attention over the cached ``xk`` / ``xv`` (read
+    only: every key of the encoder output is visible)."""
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    q = attn_mod._split_heads(torch.matmul(xn, p["wq"]), cfg.n_heads)
+    o = attn_mod._sdpa(q, cache["xk"], cache["xv"], causal=False)
+    return x + torch.matmul(attn_mod._merge_heads(o), p["wo"])
+
+
 def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
                         pattern: Tuple[LayerDesc, ...], mode: str,
                         caches: Optional[Tuple] = None,
                         cur_len: Optional[int] = None,
+                        enc_out: Optional[torch.Tensor] = None,
+                        cross: bool = False,
                         causal: bool = True,
                         attn_impl: str = "k2",
                         want_cache: bool = False
@@ -107,7 +134,10 @@ def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
     """Apply one pattern block. mode: "full" | "decode". Returns (x, the
     summed router aux loss of its MoE layers (() f32), new_caches). MLA
     runs the plain path whatever ``attn_impl`` says, as in the
-    reference. Decode writes every layer's caches in place."""
+    reference. With ``cross`` an attention layer is followed by
+    cross-attention against ``enc_out`` (full) or the cached ``xk`` /
+    ``xv`` (decode), and its cache is ``{k, v, xk, xv}``. Decode writes
+    every layer's self-attention and SSM caches in place."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: List[Any] = []
     for i, ld in enumerate(pattern):
@@ -132,6 +162,14 @@ def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
                     decode = attn_mod.mla_decode if cfg.mla \
                         else attn_mod.gqa_decode
                     x, c = decode(lp["attn"], x, caches[i], cur_len, cfg)
+            if cross:
+                with record_function(f"{mode}/xattn"):
+                    if mode == "full":
+                        x, cx = _cross_full(lp["xattn"], x, enc_out, cfg)
+                    else:
+                        x = _cross_decode(lp["xattn"], x, caches[i], cfg)
+                        cx = {"xk": caches[i]["xk"], "xv": caches[i]["xv"]}
+                c = {**c, **cx}
         if ld.mlp == "dense":
             with record_function(f"{mode}/mlp"):
                 x = mlp_layer(lp["mlp"], x, cfg)

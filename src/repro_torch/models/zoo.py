@@ -7,29 +7,19 @@ import dataclasses
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike
+from .encdec import EncDecLM
 from .lm import LM
 
 
-# the families still to port, each with its slice of ROADMAP.md item 17b
-_UNPORTED = {"encdec": "encoder-decoder"}
-
-
 def build_model(cfg: ArchConfig, attn_impl: str = "k2",
-                device: DeviceLike = None) -> LM:
-    """The dense family, the vlm backbone (its frontend stub enters as
+                device: DeviceLike = None) -> LM | EncDecLM:
+    """``EncDecLM`` for a config with encoder layers (seamless-m4t), else
+    ``LM``: the dense family, the vlm backbone (its frontend stub enters as
     ``frontend_embeds``), the MoE family (MLA or GQA), the SSM family and
-    the hybrid; the encoder-decoder raises, naming its slice of ROADMAP.md
-    item 17b.
+    the hybrid.
     ``attn_impl="sdpa"`` for training: K2 has no backward."""
     if cfg.encoder_layers > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet "
-            f"(ROADMAP.md Queue 1 item 17b, encoder-decoder family)")
-    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP.md Queue 1 item 17b, "
-            f"{_UNPORTED.get(cfg.family, cfg.family)} slice)")
+        return EncDecLM(cfg, attn_impl=attn_impl, device=device)
     return LM(cfg, attn_impl=attn_impl, device=device)
 
 

@@ -280,6 +280,10 @@ CUDA_CASES = [  # (b, hq, hkv, sq, sk, d, causal, dtype, sk_actual)
     (1, 12, 2, 550, 550, 128, True, "bfloat16", None),    # shortest prompt
     (1, 8, 1, 77, 77, 16, True, "bfloat16", None),        # scalar bf16
     (1, 4, 2, 200, 200, 32, False, "bfloat16", None),     # scalar bf16
+    # seamless-m4t-large-v2: the encoder (group 1, non-causal) and the
+    # decoder (causal) at D 64
+    (1, 16, 16, 512, 512, 64, False, "bfloat16", None),
+    (1, 16, 16, 1024, 1024, 64, True, "bfloat16", None),
 ]
 
 

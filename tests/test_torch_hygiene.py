@@ -58,6 +58,10 @@ def test_import_check_covers_the_ssm_layer():
     assert PORT / "models" / "ssm.py" in PORT_FILES
 
 
+def test_import_check_covers_the_encoder_decoder():
+    assert PORT / "models" / "encdec.py" in PORT_FILES
+
+
 def test_port_core_exports_what_the_reference_core_exports():
     """Every name of ``repro.core.__all__`` is exported by
     ``repro_torch.core`` too, the distributed engine's included."""
@@ -242,7 +246,9 @@ def test_lm_and_serve_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         assert LM(cfg).device.type == "cuda"
         return
+    encdec = reduced_config(ARCHS["seamless-m4t-large-v2"])
     for make in (lambda: LM(cfg), lambda: build_model(cfg),
+                 lambda: build_model(encdec),
                  lambda: ContinuousBatcher(PagedCacheSpec(1, 1, 16), None,
                                            None),
                  lambda: serve_lm.main(["--layers", "1"])):

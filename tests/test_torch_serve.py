@@ -13,7 +13,13 @@
   ``LM.decode_step`` loop over each prompt alone (the reference example's
   way of writing a prompt), and jamba's 2-slot serve equals the JAX
   mirror of the port's loop (attention leaves written by position, SSM
-  leaves whole).
+  leaves whole);
+* the encoder-decoder (seamless) at its reduced config with one block of
+  frames per request: with 2 slots and prompts of one length each
+  request's greedy tokens equal the JAX package's ``EncDecLM.prefill``
+  (prompt and frames) + ``decode_step`` loop over that request alone;
+  with prompts of unequal lengths the serve equals the JAX mirror of the
+  port's loop (cross leaves ``xk`` / ``xv`` written whole).
 """
 
 import dataclasses
@@ -153,29 +159,40 @@ def test_allocator_never_leaks_property(ops):
 
 
 def _jax_serve(jx, jm, jparams, requests, *, slots, s_max, page_size,
-               n_pages):
+               n_pages, frames=None):
     """The port's serve loop, written with the JAX package's functions:
     prefill writes the slot's rows of the dense caches (zero past the
-    prompt), decode passes lens.max() as the shared position."""
+    prompt), decode passes lens.max() as the shared position. An
+    encoder-decoder takes ``frames``, one block per request, found by the
+    prompt array as the port finds them."""
     jnp = jx.jnp
     spec = jx.kvc.PagedCacheSpec(
         n_layers=jm.cfg.n_layers, n_kv_heads=jm.cfg.n_kv_heads,
         d_head=jm.cfg.d_head, page_size=page_size, n_pages=n_pages,
         max_seqs=slots, max_pages_per_seq=s_max // page_size,
         dtype="float32")
-    caches = jm.init_decode_caches(slots, s_max)
+    if frames is None:
+        caches = jm.init_decode_caches(slots, s_max)
+    else:
+        by_prompt = {id(r.prompt): f for r, f in zip(requests, frames)}
+        caches = jx.jax.tree.map(
+            lambda sd: jnp.zeros(sd.shape, sd.dtype),
+            jm.decode_cache_specs(slots, s_max, frames[0].shape[0]))
     lens = np.zeros(slots, np.int64)
 
     def prefill_fn(prompt, slot, batcher):
         nonlocal caches
-        logits, pre = prefill(jparams, jnp.asarray(prompt[None]))
+        fe = () if frames is None else (
+            jnp.asarray(by_prompt[id(prompt)][None]),)
+        logits, pre = prefill(jparams, jnp.asarray(prompt[None]), *fe)
         n = len(prompt)
 
         def put(path, dense, part):
             # a stacked block leaf: (n_blocks, slots, ...); SSM leaves
-            # (conv, state) whole, K/V at positions [0, n), zero past
+            # (conv, state) and cross leaves (xk, xv) whole, K/V at
+            # positions [0, n), zero past
             rows = part[:, 0]
-            if path[-1].key not in ("conv", "state"):
+            if path[-1].key not in ("conv", "state", "xk", "xv"):
                 rows = jnp.zeros(dense.shape[:1] + dense.shape[2:],
                                  dense.dtype).at[..., :n, :].set(rows)
             return dense.at[:, slot].set(rows)
@@ -350,3 +367,123 @@ def test_serve_mamba2_pool_has_zero_size_pages_that_decide_admission():
     assert sorted(f.uid for f in report.finished) == [0, 1, 2]
     assert report.n_free == 3
     assert report.summary()["decode_iterations"] == 3 * 4
+
+
+ENCDEC = "seamless-m4t-large-v2"
+
+
+def _encdec_pair(jx):
+    """The reduced seamless in both packages, the reference's weights ×10
+    (so greedy decoding does not repeat one token) with its norms
+    perturbed, carried to the port."""
+    jm = jx.build_model(jx.reduced_config(jx.ARCHS[ENCDEC]))
+    rng = np.random.default_rng(6)
+
+    def scaled(path, a):
+        if a.ndim >= 2:
+            return np.asarray(a) * 10
+        return np.asarray(a) + rng.standard_normal(a.shape).astype(
+            np.float32) * 0.3
+    jparams = jx.jax.tree_util.tree_map_with_path(
+        scaled, jm.init_params(jx.jax.random.PRNGKey(6)))
+    tm = tbuild(treduced(TARCHS[ENCDEC]), device="cpu")
+    return jm, jparams, tm, convert.params_from_numpy(jparams, "cpu")
+
+
+def _jax_encdec_loop(jx, jm, jparams, prompt, frames, new_tokens, s_max):
+    """The reference's own way for one request: ``prefill`` of the prompt
+    with its frames, the caches padded into ``decode_cache_specs(1, s_max,
+    s_enc)`` (tests/test_arch_smoke.py), then greedy ``decode_step``s; the
+    tokens after the first, as the batcher records them."""
+    jnp = jx.jnp
+    decode = jx.jax.jit(jm.decode_step)
+    logits, pre = jx.jax.jit(jm.prefill)(jparams, jnp.asarray(prompt[None]),
+                                         jnp.asarray(frames[None]))
+
+    def pad_to(spec, val):
+        out = jnp.zeros(spec.shape, spec.dtype)
+        return out.at[tuple(slice(0, d) for d in val.shape)].set(val)
+    caches = jx.jax.tree.map(pad_to, jm.decode_cache_specs(
+        1, s_max, frames.shape[0]), pre)
+    out = []
+    for i in range(new_tokens):
+        nxt = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        logits, caches = decode(jparams, nxt, caches,
+                                jnp.int32(len(prompt) + i))
+        out.append(int(jnp.argmax(logits[0])))
+    return out
+
+
+def test_serve_encdec_token_streams_match_the_jax_prefill_decode_loop(jx):
+    """2 slots, 4 requests with prompts of one length (so the shared
+    position is each slot's own) and a frame block each: every request's
+    greedy tokens equal the reference's loop over its prompt and frames
+    alone."""
+    jm, jparams, tm, tparams = _encdec_pair(jx)
+    reqs = serve_lm.make_requests(4, tm.cfg.vocab_size, prompt_min=13,
+                                  prompt_max=13, new_tokens=6, seed=8)
+    frames = serve_lm.make_frames(tm.cfg, reqs, seed=8)
+    kw = dict(slots=2, s_max=32, page_size=8, n_pages=16)
+    report = serve_lm.serve(tm, tparams, reqs, frames=frames, **kw)
+    assert sorted(f.uid for f in report.finished) == [0, 1, 2, 3]
+    assert report.n_free == kw["n_pages"] and report.logits_finite
+    summary = report.summary()
+    assert summary["frame_tokens"] == 4 * tm.cfg.frontend_tokens
+    assert summary["prompt_tokens"] == 4 * 13
+    by_uid = {f.uid: f.tokens for f in report.finished}
+    for r, f in zip(reqs, frames):
+        want = _jax_encdec_loop(jx, jm, jparams, r.prompt, f,
+                                r.max_new_tokens, kw["s_max"])
+        assert by_uid[r.uid] == want, r.uid
+    assert len({t for f in report.finished for t in f.tokens}) > 6
+
+
+def test_serve_encdec_matches_jax_with_shared_slots(jx):
+    """Prompts of 3-20 tokens through 2 slots: the port's serve ≡ the same
+    loop built from the JAX package's ``EncDecLM.prefill`` and
+    ``decode_step`` (the shared position ``lens.max()``; each slot's cross
+    cache its own request's)."""
+    jm, jparams, tm, tparams = _encdec_pair(jx)
+    reqs = serve_lm.make_requests(5, tm.cfg.vocab_size, prompt_min=3,
+                                  prompt_max=20, new_tokens=5, seed=9)
+    assert len({len(r.prompt) for r in reqs}) > 1
+    frames = serve_lm.make_frames(tm.cfg, reqs, seed=9)
+    kw = dict(slots=2, s_max=32, page_size=8, n_pages=16)
+    report = serve_lm.serve(tm, tparams, reqs, frames=frames, **kw)
+    jb = _jax_serve(jx, jm, jparams, reqs, frames=frames, **kw)
+    assert [f.uid for f in report.finished] == [f.uid for f in jb.finished]
+    for got, want in zip(report.finished, jb.finished):
+        assert got.tokens == [int(t) for t in want.tokens], got.uid
+    assert report.n_free == int(jb.state.n_free) == kw["n_pages"]
+
+
+def test_serve_encdec_frames_are_checked():
+    """An encoder-decoder needs one frame block per request, of one shape,
+    told apart by the prompt arrays; a decoder-only model takes none."""
+    cfg = treduced(TARCHS[ENCDEC])
+    m = tbuild(cfg, device="cpu")
+    params = m.init_params(torch.Generator().manual_seed(0))
+    reqs = serve_lm.make_requests(2, cfg.vocab_size, prompt_min=4,
+                                  prompt_max=4, new_tokens=2, seed=0)
+    frames = serve_lm.make_frames(cfg, reqs, seed=0)
+    kw = dict(slots=1, s_max=16, page_size=8, n_pages=4)
+    with pytest.raises(ValueError, match="frames are required"):
+        serve_lm.serve(m, params, reqs, **kw)
+    with pytest.raises(ValueError, match="1 frame blocks for 2"):
+        serve_lm.serve(m, params, reqs, frames=frames[:1], **kw)
+    with pytest.raises(ValueError, match="unequal shapes"):
+        serve_lm.serve(m, params, reqs, frames=[frames[0], frames[1][:4]],
+                       **kw)
+    twins = [reqs[0], dataclasses.replace(reqs[1], prompt=reqs[0].prompt)]
+    with pytest.raises(ValueError, match="share one prompt array"):
+        serve_lm.serve(m, params, twins, frames=frames, **kw)
+    dec = tbuild(dataclasses.replace(treduced(TARCHS["qwen2-1.5b"]),
+                                     n_layers=1), device="cpu")
+    with pytest.raises(ValueError, match="frames are not taken"):
+        serve_lm.serve(dec, dec.init_params(torch.Generator().manual_seed(0)),
+                       reqs, frames=frames, **kw)
+    assert serve_lm.make_frames(dec.cfg, reqs, 0) is None
+    assert [f.shape for f in frames] == [(8, cfg.d_model)] * 2
+    assert all(f.dtype == np.float32 for f in frames)
+    report = serve_lm.serve(m, params, reqs, frames=frames, **kw)
+    assert report.summary()["frame_tokens"] == 16

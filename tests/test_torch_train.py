@@ -3,11 +3,13 @@
 ``cross_entropy``; ``LM.train_loss`` and every gradient leaf against
 ``jax.value_and_grad`` of the reference's, on the reference's weights
 carried across by ``convert.params_from_numpy`` and the same batch, for
-four reduced configs (dense: qwen2 with QKV bias, qwen3 with qk_norm, yi;
-vlm: phi-3-vision with its frontend stub) at atol 1e-5 + rtol 1e-4; the
-three remat policies bit for bit; the AdamW schedule and update; three
-train steps; the reference's own optimizer and train-step tests mirrored
-on the port; and K2 refusing autograd. Inputs come from numpy seeds.
+five reduced configs (dense: qwen2 with QKV bias, qwen3 with qk_norm, yi;
+vlm: phi-3-vision with its frontend stub; the encoder-decoder seamless,
+frames on the encoder) at atol 1e-5 + rtol 1e-4; the three remat
+policies bit for bit (the encoder-decoder's two stacks too); the AdamW
+schedule and update; three train steps (seamless's too); the
+reference's own optimizer and train-step tests mirrored on the port;
+and K2 refusing autograd. Inputs come from numpy seeds.
 """
 
 import dataclasses
@@ -30,7 +32,8 @@ from repro_torch.train import optimizer as topt  # noqa: E402
 from repro_torch.train import make_train_step as tmake_train_step  # noqa: E402
 
 ATOL, RTOL = 1e-5, 1e-4
-TRAIN_ARCHS = ("qwen2-1.5b", "qwen3-14b", "yi-6b", "phi-3-vision-4.2b")
+TRAIN_ARCHS = ("qwen2-1.5b", "qwen3-14b", "yi-6b", "phi-3-vision-4.2b",
+               "seamless-m4t-large-v2")
 
 
 @pytest.fixture
@@ -236,6 +239,71 @@ def _stack3(tree):
     if isinstance(tree, dict):
         return {k: _stack3(v) for k, v in tree.items()}
     return torch.cat([tree] * 3)
+
+
+def test_encdec_remat_is_bit_equal_and_recomputes_both_stacks(jx):
+    """seamless: remat none / dots / full give the same loss and gradients
+    bit for bit. As the reference's ``jax.checkpoint`` (no policy) around
+    the encoder's and the decoder's layers, "dots" is "full" here: both
+    recompute every matmul of every layer of both stacks in the backward
+    (the head's matmul is outside any layer)."""
+    runs = {}
+    for remat in ("none", "dots", "full"):
+        _, _, _, tm, tp, tb = _both(jx, "seamless-m4t-large-v2", remat=remat)
+        runs[remat] = _count_ops(lambda: _loss_and_grads(tm, tp, tb))
+    (loss0, _, g0), c0 = runs["none"]
+    for remat in ("dots", "full"):
+        (loss, _, g), c = runs[remat]
+        assert torch.equal(loss, loss0), remat
+        for path in g0:
+            assert torch.equal(g[path], g0[path]), (remat, path)
+        assert c == runs["full"][1], remat
+    # every layer of both stacks runs its 7 self-attention and MLP
+    # matmuls (q, k, v, o, gate, up, down) again in the backward
+    cfg = tm.cfg
+    again = runs["full"][1]["mm"] - c0["mm"]
+    assert again >= 7 * (cfg.encoder_layers + cfg.n_layers), \
+        (c0, runs["full"][1])
+
+
+def test_encdec_three_train_steps_match_reference(jx):
+    """seamless through the train step, with frames of the sequence length
+    as ``launch/train.run`` feeds them: loss, grad_norm and lr of three
+    steps ≡ the reference's jitted step."""
+    from repro_torch.train import init_state
+    jm, jp, _, tm, tp, _ = _both(jx, "seamless-m4t-large-v2")
+    kw = dict(lr=1e-2, warmup_steps=2, total_steps=10)
+    jc, tc = jx.AdamWConfig(**kw), topt.AdamWConfig(**kw)
+    jstep = jx.jax.jit(jx.make_train_step(jm, jc))
+    tstep = tmake_train_step(tm, tc)
+    dcfg = dict(_data_cfg(tm.cfg, seq_len=16, global_batch=2),
+                frontend_tokens=16)
+    jst, tst = jx.optimizer.init_state(jc, jp), init_state(tc, tp)
+    for i in range(3):
+        tb = tbatch_at(TDataConfig(**dcfg), i, device="cpu")
+        assert tb["frontend_embeds"].shape == (2, 16, tm.cfg.d_model)
+        jp, jst, jmet = jstep(jp, jst, jx.batch_at(jx.DataConfig(**dcfg), i))
+        tp, tst, tmet = tstep(tp, tst, tb)
+        for key in ("loss", "grad_norm", "lr"):
+            _close(tmet[key], jmet[key], f"step {i + 1} {key}")
+    assert _tree_max_diff(tp, jp) < 1e-3
+
+
+def test_encdec_trains_through_launch_train_run(tmp_path):
+    """``launch/train.run`` builds seamless with ``attn_impl="sdpa"`` and
+    feeds it frames of ``seq_len``: a reduced run logs finite losses that
+    fall, and checkpoints."""
+    from repro_torch.launch import train as ttrain
+    from repro_torch.train import checkpoint as tckpt
+    job = ttrain.TrainJob(arch=treduced(TARCHS["seamless-m4t-large-v2"]),
+                          steps=6, seq_len=16, global_batch=2, lr=1e-2,
+                          warmup=2, ckpt_dir=str(tmp_path), ckpt_every=3,
+                          log_every=1)
+    logs = []
+    out = ttrain.run(job, device="cpu", log=logs.append)
+    assert len(logs) == 6 and np.isfinite(out["first_loss"])
+    assert out["final_loss"] < out["first_loss"]
+    assert tckpt.list_steps(str(tmp_path)) == [3, 6]
 
 
 def test_train_loss_with_k2_raises(jx):

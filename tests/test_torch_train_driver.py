@@ -9,7 +9,8 @@
   continuation, the final weights within the rounding bound below;
 * ``train_lm``'s presets equal the reference example's field for field
   (loaded from ``examples/`` by path); its ``main`` trains on the CPU and
-  prints ``OK``.
+  prints ``OK``, for the qwen2 smoke preset and the port's encoder-decoder
+  one.
 """
 
 import dataclasses
@@ -141,5 +142,17 @@ def test_main_trains_on_the_cpu(tmp_path, capsys):
     ttrain_lm.main(["smoke", "--device", "cpu", "--steps", "5", "--ckpt",
                     str(tmp_path)])
     out = capsys.readouterr().out.splitlines()
+    assert out[-1] == "OK"
+    assert tckpt.list_steps(str(tmp_path)) == [5]
+
+
+def test_main_trains_the_encoder_decoder_on_the_cpu(tmp_path, capsys):
+    """The port's ``encdec-smoke`` preset: the reduced seamless trained
+    through ``launch/train.run`` (frames of the sequence length on the
+    encoder) prints ``OK``."""
+    ttrain_lm.main(["encdec-smoke", "--device", "cpu", "--steps", "5",
+                    "--ckpt", str(tmp_path)])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("[train_lm] arch=seamless-m4t-large-v2-reduced")
     assert out[-1] == "OK"
     assert tckpt.list_steps(str(tmp_path)) == [5]
