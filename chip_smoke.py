@@ -293,7 +293,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      loss, grad_norm and lr finite and the loss lower at step 5 than at
      step 1; ms/step (median of steps 2-5 by CUDA events and by the host
      clock), tokens/s, peak memory, the model-FLOPs share of the bf16
-     peak with its formula, and one more step profiled (device ops, busy
+     peak with its formula and with ``launch/cells.analytic_step_flops``,
+     and one more step profiled (device ops, busy
      ms, idle share, device ms by range and by kind of kernel); (b) the
      reduced qwen2-1.5b in f32 with remat full, 3 steps on the card and
      on the CPU from the same weights and batches: loss, grad_norm and lr
@@ -369,6 +370,29 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      1,024 frames (``launch/train.run``'s frames of ``seq_len``), AdamW,
      remat full: every loss finite; ms/step, tokens/s, peak memory; then one
      more step profiled (device ops, busy ms, idle share, ms by range).
+ 33. training the MoE, MLA, SSM and hybrid configs, as phase 29 (a) trains
+     qwen2 (bf16 parameters, f32 moments, remat full, 5 AdamW steps of 2 ×
+     4,096 tokens from ``batch_at`` through ``make_train_step``, timed by
+     CUDA events and the host clock, then one more profiled): (a)
+     mamba2-370m at full width and depth (48 SSM layers at chunk 128,
+     368,363,008 parameters); (b) deepseek-v2-lite-16b at full width, depth
+     cut to 4 of its 27 layers (the dense first layer and 3 MoE layers,
+     2,254,983,168 parameters; 5 peak past ~72 GB), in the reference's
+     2 microbatches. Each: every loss, aux and grad_norm finite and the loss
+     lower after step 5 than after step 1; ms/step, tokens/s, peak memory,
+     the model-FLOPs share of ``launch/cells.analytic_step_flops`` (phase
+     29 prints its own formula beside it), device ops, busy ms, idle share,
+     device ms by range (``full/ssm``, ``full/attn``, ``full/moe``,
+     ``train/backward``, ``train/adamw``, ``train/logits_ce``) and the top
+     device ops; (b) also each step's aux loss and, read after the
+     profiled step, the share of expert assignments dropped at capacity
+     factor 1.25 in it; (c) the reduced deepseek-v2-lite (2 microbatches),
+     kimi-k2 (bf16 moments), mamba2 and jamba in f32 with remat full, 3
+     steps on the card (twice, under ``torch.use_deterministic_algorithms``,
+     the two bit for bit equal) ≡ on the CPU (the CPU worker of 16-18 runs
+     that half) within phase 29 (b)'s bounds; (d) no kernel launches in the
+     phase (counts reset before (a), read after (c); each kernel entry's
+     ``family_training_launches``).
 
 The kernels line's K1 and column-map entries add their launches per tick
 on phase 23 (b) (``ensemble_launches_per_tick``); the pair-list build's
@@ -377,11 +401,11 @@ entry adds its launches on phase 28's distributed runs
 (``distributed_launches`` in ``distributed_steps``: K1 and the map from
 (a)'s K1 run, the pair-list kernels from (d), secretion from (c)).
 
-Each phase prints its seconds. The CPU halves of phases 16-18 run in a
-child process (``chip_smoke.py --cpu-worker OUT``, one torch thread, no
-CUDA) and phase 21's in a second (``--cpu-worker-envs OUT``), both started
-before phase 0, so they overlap the card phases; the script waits for
-them, and kills them on a failure.
+Each phase prints its seconds. The CPU halves of phases 16-18 and 33 (c)
+run in a child process (``chip_smoke.py --cpu-worker OUT``, one torch
+thread, no CUDA) and phase 21's in a second (``--cpu-worker-envs OUT``),
+both started before phase 0, so they overlap the card phases; the script
+waits for them, and kills them on a failure.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and last ``{"ok": true, "device": {...}}``. Writes the same numbers to
@@ -1928,7 +1952,8 @@ def _cpu_worker(out: str) -> int:
                                 GROWTH_MAX_STEPS),
            "prolif": _prolif_lockstep("cpu"),
            "lean": {impl: _lean_run("cpu", impl) for impl in ("k1",
-                                                              "streamed")}}
+                                                              "streamed")},
+           "train_families": _family_parity_runs("cpu")}
     tmp = out + ".tmp"
     with open(tmp, "wb") as f:
         pickle.dump(res, f)
@@ -4940,89 +4965,162 @@ def _kernel_classes(events: list) -> dict:
     return out
 
 
-def _train_full_width() -> dict:
+@contextlib.contextmanager
+def _recording(module, name: str, pick):
+    """While the block runs, ``module.name`` appends ``pick(output)`` of
+    every call to the yielded list (device tensors: no host read)."""
+    real = getattr(module, name)
+    seen = []
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(pick(out))
+        return out
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+def _train_full_width(spec: dict, tag: str) -> dict:
+    """[29a, 33a-b] ``spec``'s config at full width on the card (its depth
+    cut to ``spec["n_layers"]`` where set): the steps through
+    ``make_train_step`` with the cell's microbatches, each timed by CUDA
+    events and the host clock; every loss (with its aux) and grad_norm
+    finite, the loss lower after the last step than after the first; then
+    one more step profiled, the MoE layers' kept masks recorded in it and
+    read after it."""
     import torch
-    from repro_torch.configs import ARCHS
+    from repro_torch.configs import ARCHS, ShapeSpec
     from repro_torch.data import DataConfig, batch_at
-    from repro_torch.launch.profile_step import analyze_trace
+    from repro_torch.launch import cells
     from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
     from repro_torch.train import AdamWConfig, init_state, make_train_step
 
-    cfg = ARCHS[TRAIN["arch"]]
+    cfg = ARCHS[spec["arch"]]
+    if spec.get("n_layers") is not None:
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
     check(cfg.param_dtype == "bfloat16" and cfg.remat == "full"
-          and cfg.opt_moment_dtype == "float32", f"[29a] {cfg}")
+          and cfg.opt_moment_dtype == "float32", f"{tag} {cfg}")
+    n_micro = cells.microbatches(spec["arch"], "train_4k")
+    torch.cuda.empty_cache()
     model = build_model(cfg, attn_impl="sdpa", device="cuda")
     params = model.init_params(
-        torch.Generator(device="cuda").manual_seed(TRAIN["seed"]))
-    ocfg = AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"],
-                       total_steps=TRAIN["steps"],
+        torch.Generator(device="cuda").manual_seed(spec["seed"]))
+    ocfg = AdamWConfig(lr=spec["lr"], warmup_steps=spec["warmup"],
+                       total_steps=spec["steps"],
                        moment_dtype=cfg.opt_moment_dtype)
     state = init_state(ocfg, params)
-    step_fn = make_train_step(model, ocfg)
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
-                      global_batch=TRAIN["batch"], seed=TRAIN["seed"])
-    tokens = TRAIN["batch"] * TRAIN["seq_len"]
+    step_fn = make_train_step(model, ocfg, n_microbatches=n_micro)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=spec["seq_len"],
+                      global_batch=spec["batch"], seed=spec["seed"])
+    tokens = spec["batch"] * spec["seq_len"]
     torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     metrics, ev_ms, host_ms = [], [], []
-    for i in range(TRAIN["steps"]):
-        batch = batch_at(dcfg, i, device="cuda")
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        params, state, met = step_fn(params, state, batch)
-        stop.record()
-        torch.cuda.synchronize()
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-        ev_ms.append(start.elapsed_time(stop))
-        metrics.append(met)
+    with _recording(model, "train_loss",
+                    lambda out: out[1]["aux"].detach()) as auxes:
+        for i in range(spec["steps"]):
+            batch = batch_at(dcfg, i, device="cuda")
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            params, state, met = step_fn(params, state, batch)
+            stop.record()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            ev_ms.append(start.elapsed_time(stop))
+            metrics.append(met)
     peak = torch.cuda.max_memory_allocated()
     rows = [{k: float(v) for k, v in m.items()} for m in metrics]
     for i, r in enumerate(rows):
+        r["aux"] = sum(float(a) for a in
+                       auxes[i * n_micro:(i + 1) * n_micro]) / n_micro
         check(all(math.isfinite(v) for v in r.values()),
-              f"[29a] step {i + 1} metrics {r}")
+              f"{tag} step {i + 1} metrics {r}")
     check(rows[-1]["loss"] < rows[0]["loss"],
-          f"[29a] the loss did not fall: {[r['loss'] for r in rows]}")
-    check(int(state["step"]) == TRAIN["steps"], f"[29a] {state['step']}")
-    # one more step under the profiler: device ops, busy ms, idle share
-    batch = batch_at(dcfg, TRAIN["steps"], device="cuda")
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        params, state, _ = step_fn(params, state, batch)
-        torch.cuda.synchronize()
-        prof_ms = (time.perf_counter() - t0) * 1e3
-    with tempfile.TemporaryDirectory() as tmp:
-        path = str(Path(tmp) / "trace.json")
-        prof.export_chrome_trace(path)
-        events = json.loads(Path(path).read_text())["traceEvents"]
-    prof_stats = analyze_trace(events, 1)
-    prof_stats["device_ms_by_kind"] = _kernel_classes(events)
+          f"{tag} the loss did not fall: {[r['loss'] for r in rows]}")
+    check(int(state["step"]) == spec["steps"], f"{tag} {state['step']}")
+    check((rows[0]["aux"] > 0) == bool(cfg.n_experts),
+          f"{tag} aux {rows[0]['aux']}")
+    batch = batch_at(dcfg, spec["steps"], device="cuda")
+    with _recording(moe_mod, "positions", lambda out: out[2]) as kept:
+        prof = _profiled_call(lambda: step_fn(params, state, batch))
+    dropped = sum(int((~k).sum()) for k in kept)
+    assignments = sum(k.numel() for k in kept)
     ms = statistics.median(ev_ms[1:])
     host = statistics.median(host_ms[1:])
-    flops = train_flops(cfg, model.n_params(), tokens, TRAIN["seq_len"])
-    rec = {"config": TRAIN, "n_layers": cfg.n_layers,
-           "n_params": model.n_params(), "tokens_per_step": tokens,
+    flops = cells.analytic_step_flops(cfg, ShapeSpec(
+        "train", spec["seq_len"], spec["batch"], "train"))
+    rec = {"config": spec, "n_layers": cfg.n_layers,
+           "n_params": model.n_params(),
+           "n_active_params": cells._count_active_params(model, cfg),
+           "microbatches": n_micro, "tokens_per_step": tokens,
            "steps": rows, "ms_per_step_events": ev_ms,
            "ms_per_step_host": host_ms, "ms_per_step_median": ms,
            "ms_per_step_host_median": host,
            "tokens_per_s": tokens / (host / 1e3),
-           "peak_memory_bytes": peak, "model_flops_per_step": flops,
-           "model_flops_formula": "T·(6·N + 12·L·H·d_head·S)",
+           "weights_bytes": weights, "peak_memory_bytes": peak,
+           "analytic_flops_per_step": flops,
            "mfu_bf16": flops / (ms / 1e3) / PEAK_BF16_TENSOR_FLOPS,
-           "profiled_ms": prof_ms,
-           "device_idle_share": 1.0 - prof_stats["device_busy_ms"] / prof_ms,
-           **prof_stats}
-    del params, state, metrics, batch
+           "profiled": prof}
+    if cfg.n_experts:
+        rec.update(capacity_factor=cfg.capacity_factor,
+                   assignments=assignments, dropped=dropped,
+                   dropped_share=dropped / assignments,
+                   positions_calls=len(kept))
+    del params, state, metrics, batch, kept, auxes
     torch.cuda.empty_cache()
     return rec
 
 
-def _train_steps(cfg, leaves, batches, ocfg, dev: str) -> tuple:
+def _print_train_full(tag: str, r: dict, card: str) -> None:
+    spec = r["config"]
+    print(f"{tag} train {spec['arch']} at full width ({r['n_layers']} "
+          f"layers, {r['n_params']:,} params, {r['n_active_params']:,} "
+          f"active; bf16, f32 moments, remat full), {spec['batch']} x "
+          f"{spec['seq_len']} tokens a step in {r['microbatches']} "
+          f"microbatch(es), {spec['steps']} AdamW steps: loss "
+          + " ".join(f"{s['loss']:.5g}" for s in r["steps"])
+          + "; aux " + " ".join(f"{s['aux']:.5g}" for s in r["steps"])
+          + "; grad_norm " + " ".join(f"{s['grad_norm']:.4g}"
+                                       for s in r["steps"]), flush=True)
+    print(f"{tag} {r['ms_per_step_median']:.1f} ms/step by CUDA events, "
+          f"{r['ms_per_step_host_median']:.1f} by the host clock (median of "
+          f"steps 2-{spec['steps']}; step 1 {r['ms_per_step_events'][0]:.1f})"
+          f"; {r['tokens_per_s']:.0f} tokens/s; weights and moments "
+          f"{r['weights_bytes'] / 1e9:.2f} GB, peak memory of the steps "
+          f"{r['peak_memory_bytes'] / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated); model-FLOPs share of the "
+          f"bf16 peak {r['mfu_bf16']:.4f} = launch/cells.analytic_step_flops "
+          f"{r['analytic_flops_per_step']:.4g} FLOPs (the recompute "
+          f"included) / (ms/step · {PEAK_BF16_TENSOR_FLOPS:.4g} FLOP/s); "
+          f"{card}", flush=True)
+    if "dropped_share" in r:
+        print(f"{tag} expert assignments dropped at capacity factor "
+              f"{r['capacity_factor']} in the profiled step: "
+              f"{r['dropped']:,} of {r['assignments']:,} = "
+              f"{r['dropped_share']:.5f} ({r['positions_calls']} routings: "
+              f"forward and recompute of each MoE layer and microbatch)",
+              flush=True)
+    d = r["profiled"]
+    print(f"{tag} one profiled step: {d['wall_ms']:.1f} ms, "
+          f"{d['launches']:.0f} device ops, busy {d['device_busy_ms']:.1f} "
+          f"ms, idle share {d['device_idle_share']:.3f}; device ms by range "
+          f"{ {k: round(v['device_ms'], 1) for k, v in d['ranges'].items()} }",
+          flush=True)
+    for op in d["top_device_ops"][:8]:
+        print(f"    {op['device_ms']:9.2f} ms {op['calls']:6.0f} x "
+              f"{op['name'][:100]}", flush=True)
+
+
+def _train_steps(cfg, leaves, batches, ocfg, dev: str,
+                 n_micro: int = 1) -> tuple:
     """``len(batches)`` train steps on ``dev`` from the numpy weights
     ``leaves``; returns each step's metrics and the params after each."""
     from repro_torch import convert
@@ -5032,7 +5130,7 @@ def _train_steps(cfg, leaves, batches, ocfg, dev: str) -> tuple:
     model = build_model(cfg, attn_impl="sdpa", device=dev)
     params = convert.params_from_numpy(leaves, dev)
     state = init_state(ocfg, params)
-    step_fn = make_train_step(model, ocfg)
+    step_fn = make_train_step(model, ocfg, n_microbatches=n_micro)
     rows, after = [], []
     for b in batches:
         params, state, met = step_fn(params, state,
@@ -5043,7 +5141,6 @@ def _train_steps(cfg, leaves, batches, ocfg, dev: str) -> tuple:
 
 
 def _train_card_vs_cpu() -> dict:
-    import numpy as np
     import torch
     from repro_torch import convert
     from repro_torch.configs import ARCHS
@@ -5069,11 +5166,22 @@ def _train_card_vs_cpu() -> dict:
         want, want_p = _train_steps(cfg, leaves, batches, ocfg, "cpu")
     finally:
         torch.set_num_threads(threads)
+    return {"config": dataclasses.asdict(cfg), "steps": p["steps"],
+            **_train_runs_agree("[29b]", got, want, got_p[0], want_p[0],
+                                ocfg, p)}
+
+
+def _train_runs_agree(tag: str, got, want, got_p1, want_p1, ocfg,
+                      p: dict) -> dict:
+    """Card ≡ CPU over train steps: every metric of every step within
+    ``p["rtol"]``; the params after step 1 within ``p["param_atol"]`` but
+    for at most 1e-3 of the elements, each within 2·lr."""
+    import numpy as np
     worst = {k: 0.0 for k in got[0]}
     for i, (g, w) in enumerate(zip(got, want)):
         for k in g:
             rel = abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
-            check(rel <= p["rtol"], f"[29b] step {i + 1} {k}: card {g[k]}, "
+            check(rel <= p["rtol"], f"{tag} step {i + 1} {k}: card {g[k]}, "
                                     f"CPU {w[k]}")
             worst[k] = max(worst[k], rel)
     # after step 1 every element moved by lr·m̂/(√v̂ + eps) + lr·wd·p:
@@ -5084,20 +5192,20 @@ def _train_card_vs_cpu() -> dict:
     lr1 = got[0]["lr"]
     n_all = n_loose = 0
     max_diff = 0.0
-    for key, a in _flat_np(got_p[0]).items():
-        b = _flat_np(want_p[0])[key]
+    want_flat = _flat_np(want_p1)
+    for key, a in _flat_np(got_p1).items():
+        b = want_flat[key]
         d = np.abs(a.astype(np.float64) - b)
         loose = d > p["param_atol"]
         bound = 2 * lr1 * (1 + ocfg.weight_decay * np.abs(b)) + 1e-7
-        check(bool(np.all(d <= bound)), f"[29b] {key}: max|Δp| "
+        check(bool(np.all(d <= bound)), f"{tag} {key}: max|Δp| "
                                         f"{d.max()} beyond 2·lr")
         n_all += d.size
         n_loose += int(loose.sum())
         max_diff = max(max_diff, float(d.max()))
-    check(n_loose <= 1e-3 * n_all, f"[29b] {n_loose} of {n_all} elements "
+    check(n_loose <= 1e-3 * n_all, f"{tag} {n_loose} of {n_all} elements "
                                    f"differ by more than {p['param_atol']}")
-    return {"config": dataclasses.asdict(cfg), "steps": p["steps"],
-            "card": got, "cpu": want, "max_rel_diff": worst,
+    return {"card": got, "cpu": want, "max_rel_diff": worst,
             "params_after_step1_max_abs_diff": max_diff,
             "params_beyond_atol": n_loose, "params": n_all}
 
@@ -5229,38 +5337,25 @@ def phase_training(report: dict, tmpdir: str) -> dict:
     profiled; (b) the reduced model card ≡ CPU for 3 steps; (c) K2 refuses
     autograd; (d) the train_lm example, killed and resumed. K2 launches
     nowhere in the phase (counts reset before (a), read after (d))."""
+    from repro_torch.configs import ARCHS
     from repro_torch.device import card_description
     card = card_description()
     _reset_counts()
     rec = {"card": card}
-    r = rec["full_width"] = _train_full_width()
-    loss, gnorm, lr = (" ".join(f"{s[k]:.4g}" for s in r["steps"])
-                       for k in ("loss", "grad_norm", "lr"))
-    print(f"[29a] train {TRAIN['arch']} at full width ({r['n_layers']} "
-          f"layers, {r['n_params']:,} params, bf16, f32 moments, remat "
-          f"full), {TRAIN['batch']} x {TRAIN['seq_len']} tokens a step, "
-          f"{TRAIN['steps']} AdamW steps: loss {loss}; grad_norm {gnorm}; "
-          f"lr {lr}", flush=True)
-    print(f"[29a] {r['ms_per_step_median']:.1f} ms/step by CUDA events, "
-          f"{r['ms_per_step_host_median']:.1f} by the host clock (median "
-          f"of steps 2-{TRAIN['steps']}; step 1 "
-          f"{r['ms_per_step_events'][0]:.1f}); {r['tokens_per_s']:.0f} "
-          f"tokens/s; peak memory {r['peak_memory_bytes'] / 1e9:.2f} GB "
-          f"(torch.cuda.max_memory_allocated); model-FLOPs share of the "
-          f"bf16 peak {r['mfu_bf16']:.4f} = {r['model_flops_formula']} "
-          f"= {r['model_flops_per_step']:.4g} FLOPs / (ms/step · "
-          f"{PEAK_BF16_TENSOR_FLOPS:.4g} FLOP/s); {card}", flush=True)
-    print(f"[29a] one profiled step: {r['profiled_ms']:.1f} ms, "
-          f"{r['launches']:.0f} device ops, busy "
-          f"{r['device_busy_ms']:.1f} ms, idle share "
-          f"{r['device_idle_share']:.3f}; device ms by range "
-          f"{ {k: round(v['device_ms'], 1) for k, v in r['ranges'].items()} }"
-          f"; by kind "
-          f"{ {k: round(v, 1) for k, v in r['device_ms_by_kind'].items()} }",
+    r = rec["full_width"] = _train_full_width(TRAIN, "[29a]")
+    _print_train_full("[29a]", r, card)
+    formula = train_flops(ARCHS[TRAIN["arch"]], r["n_params"],
+                          r["tokens_per_step"], TRAIN["seq_len"])
+    r.update(model_flops_formula="T·(6·N + 12·L·H·d_head·S)",
+             model_flops_per_step=formula,
+             mfu_bf16_formula=formula / (r["ms_per_step_median"] / 1e3)
+             / PEAK_BF16_TENSOR_FLOPS)
+    kinds = {k: round(v, 1)
+             for k, v in r["profiled"]["device_ms_by_kind"].items()}
+    print(f"[29a] model-FLOPs share by {r['model_flops_formula']} (no "
+          f"recompute): {r['mfu_bf16_formula']:.4f} ({formula:.4g} "
+          f"FLOPs); the profiled step's device ms by kind {kinds}",
           flush=True)
-    for op in r["top_device_ops"][:8]:
-        print(f"    {op['device_ms']:9.2f} ms {op['calls']:6.0f} x "
-              f"{op['name'][:100]}", flush=True)
     r = rec["card_vs_cpu"] = _train_card_vs_cpu()
     print(f"[29b] reduced {TRAIN['arch']} (f32, remat full), "
           f"{r['steps']} steps card ≡ CPU: loss, grad_norm, lr within rel "
@@ -5498,7 +5593,7 @@ def _profiled_call(fn) -> dict:
     stats = analyze_trace(events, 1)
     return {"wall_ms": wall,
             "device_idle_share": 1.0 - stats["device_busy_ms"] / wall,
-            **stats}
+            "device_ms_by_kind": _kernel_classes(events), **stats}
 
 
 def _serve_profiled(model, params, reqs, spec: dict, frames=None) -> dict:
@@ -5900,6 +5995,146 @@ def phase_encdec(report: dict) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 33: training the MoE, MLA, SSM and hybrid configs
+# ---------------------------------------------------------------------------
+
+# (a) mamba2-370m at full width and depth (configs/mamba2_370m.py,
+# arXiv:2405.21060: 48 SSM layers, state 128, chunk 128), bf16 params, f32
+# moments, remat full, 2 × 4,096 tokens a step as phase 29 cuts TRAIN_4K to
+# one card; steps 2-5 timed, then one more profiled
+TRAIN_SSM = dict(arch="mamba2-370m", batch=2, seq_len=4096, steps=5,
+                 lr=3e-4, warmup=2, seed=0, n_layers=None)
+# (b) deepseek-v2-lite-16b at full width (configs/deepseek_v2_lite_16b.py,
+# arXiv:2405.04434: MLA at rank 512, 64 experts top-6 + 2 shared, d_ff
+# 1,408 an expert, capacity factor 1.25) in the reference's 2 microbatches
+# at train_4k (launch/cells.MICROBATCHES); depth cut from 27 to 4 layers
+# (the dense first layer + 3 MoE layers), the deepest whose step stays
+# under ~72 GB of the card's 80: 4 layers peak at 56.56 GB, 5 (2.84 B
+# params) at 73.00 GB (PERF.md §4)
+TRAIN_MOE = dict(arch="deepseek-v2-lite-16b", batch=2, seq_len=4096,
+                 steps=5, lr=3e-4, warmup=2, seed=0, n_layers=4)
+# (c) the reduced configs in f32 with remat full, 3 steps card ≡ CPU
+# (phase 29 (b)'s bounds), each with its microbatches: deepseek its 2;
+# kimi-k2 keeps its bf16 moments. The card runs them twice under
+# deterministic algorithms
+FAMILY_PARITY = dict(archs=(("deepseek-v2-lite-16b", 2),
+                            ("kimi-k2-1t-a32b", 1), ("mamba2-370m", 1),
+                            ("jamba-v0.1-52b", 1)),
+                     steps=3, seq_len=64, batch=4, rtol=1e-4,
+                     param_atol=1e-6, seed=11)
+
+
+def _family_parity_runs(dev: str) -> dict:
+    """[33c] The reduced configs of FAMILY_PARITY (f32, remat full), 3
+    steps on ``dev`` from weights and batches drawn on the CPU; returns
+    each config's metrics and its params after step 1."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.models import build_model, reduced_config
+    from repro_torch.train import AdamWConfig
+
+    p = FAMILY_PARITY
+    out = {}
+    for arch, n_micro in p["archs"]:
+        cfg = dataclasses.replace(reduced_config(ARCHS[arch]), remat="full")
+        ocfg = AdamWConfig(lr=TRAIN_MOE["lr"],
+                           warmup_steps=TRAIN_MOE["warmup"],
+                           total_steps=TRAIN_MOE["steps"],
+                           moment_dtype=cfg.opt_moment_dtype)
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=p["seq_len"],
+                          global_batch=p["batch"], seed=p["seed"])
+        batches = [batch_at(dcfg, i, device="cpu")
+                   for i in range(p["steps"])]
+        leaves = convert.params_to_numpy(build_model(
+            cfg, device="cpu").init_params(
+                torch.Generator().manual_seed(p["seed"])))
+        rows, after = _train_steps(cfg, leaves, batches, ocfg, dev, n_micro)
+        out[arch] = {"config": cfg, "ocfg": ocfg, "microbatches": n_micro,
+                     "rows": rows, "params_1": after[0],
+                     "params_last": after[-1]}
+    return out
+
+
+def _family_card_vs_cpu(cpu: dict | None) -> dict:
+    """[33c] The card's runs of the reduced configs, twice under
+    ``torch.use_deterministic_algorithms`` (the two bit for bit equal), ≡
+    the CPU's (from the CPU worker, or run here when there is none)."""
+    import numpy as np
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)               # as phase 2
+    try:
+        if cpu is None:
+            cpu = _family_parity_runs("cpu")
+        torch.use_deterministic_algorithms(True)
+        try:
+            runs = [_family_parity_runs("cuda") for _ in range(2)]
+        finally:
+            torch.use_deterministic_algorithms(False)
+    finally:
+        torch.set_num_threads(threads)
+    out = {}
+    for arch, want in cpu.items():
+        got, again = runs[0][arch], runs[1][arch]
+        last = _flat_np(again["params_last"])
+        check(got["rows"] == again["rows"] and all(
+            np.array_equal(a, last[k])
+            for k, a in _flat_np(got["params_last"]).items()),
+              f"[33c] {arch}: two deterministic card runs differ")
+        out[arch] = {"config": dataclasses.asdict(got["config"]),
+                     "microbatches": got["microbatches"],
+                     "moment_dtype": got["ocfg"].moment_dtype,
+                     **_train_runs_agree(f"[33c] {arch}", got["rows"],
+                                         want["rows"], got["params_1"],
+                                         want["params_1"], got["ocfg"],
+                                         FAMILY_PARITY)}
+    return out
+
+
+def phase_family_training(report: dict, cpu: dict | None = None) -> dict:
+    """[33] Training the MoE, MLA, SSM and hybrid configs on the card: (a)
+    mamba2-370m at full width and depth; (b) deepseek-v2-lite-16b at full
+    width, 4 of its 27 layers, in 2 microbatches; (c) four reduced configs
+    card ≡ CPU; (d) K2 launches nowhere in the phase (counts reset before
+    (a), read after (c)). ``cpu``: the CPU worker's results, which hold
+    (c)'s CPU half."""
+    import os
+    import torch
+    from repro_torch.device import card_description
+    # deterministic cuBLAS for (c); H100's default workspace size anyway,
+    # and read at the process's first GEMM (main sets it before phase 0)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.cuda.empty_cache()
+    card = card_description()
+    _reset_counts()
+    rec = {"card": card}
+    for tag, spec in (("[33a]", TRAIN_SSM), ("[33b]", TRAIN_MOE)):
+        r = rec[spec["arch"]] = _train_full_width(spec, tag)
+        _print_train_full(tag, r, card)
+    par = rec["card_vs_cpu"] = _family_card_vs_cpu(
+        None if cpu is None else cpu["train_families"])
+    for arch, r in par.items():
+        rel = {k: float(f"{v:.3g}") for k, v in r["max_rel_diff"].items()}
+        print(f"[33c] reduced {arch} (f32, remat full, "
+              f"{r['microbatches']} microbatch(es), {r['moment_dtype']} "
+              f"moments), {FAMILY_PARITY['steps']} steps card ≡ CPU: loss, "
+              f"grad_norm, lr within rel {rel}"
+              f" (bound {FAMILY_PARITY['rtol']}); params after step 1 "
+              f"max|Δ| {r['params_after_step1_max_abs_diff']:.3g}, "
+              f"{r['params_beyond_atol']} of {r['params']} beyond "
+              f"{FAMILY_PARITY['param_atol']}; two card runs under "
+              f"deterministic algorithms bit for bit equal", flush=True)
+    launches = rec["launches"] = _read_counts()
+    check(not any(launches.values()),
+          f"[33d] a kernel launched in training: {launches}")
+    print(f"[33d] kernel launches over the phase: {launches}", flush=True)
+    report["family_training"] = rec
+    return rec
+
+
 T_START = time.perf_counter()
 
 
@@ -5913,6 +6148,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
+    # phase 33 (c) steps under deterministic algorithms, which need
+    # deterministic cuBLAS workspaces from the first GEMM on: ":4096:8" is
+    # the H100's default size anyway
+    import os
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, str(ROOT / "src"))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmpdir:
         workers = (_start_cpu_worker(tmpdir),
@@ -6004,6 +6244,7 @@ def _run(workers, tmpdir: str) -> int:
     moe = timed("30", phase_moe_serve, report)
     ssm = timed("31", phase_ssm_serve, report)
     encdec = timed("32", phase_encdec, report)
+    families = timed("33", phase_family_training, report, cpu)
     report["total_s"] = time.perf_counter() - T_START
     print(f"phases took {sum(seconds.values()):.1f} s, the script "
           f"{report['total_s']:.1f} s", flush=True)
@@ -6124,6 +6365,10 @@ def _run(workers, tmpdir: str) -> int:
                 for part, rec in encdec["k2_checks"].items()}
             k["max_abs_err"] = max([k["max_abs_err"]] + [
                 rec["max_abs_err"] for rec in encdec["k2_checks"].values()])
+    # training the MoE, MLA, SSM and hybrid configs (phase 33) runs no
+    # kernel either
+    for k in kernels:
+        k["family_training_launches"] = families["launches"][k["name"]]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -21,17 +21,16 @@ and caches carry across 1:1 (``convert.py``). The reference's
 ``jax.lax.scan`` over blocks is a Python loop over the stacked axis.
 
 Modes:
-  train_loss(params, batch)    → mean CE + aux (dense and vlm families)
+  train_loss(params, batch)    → mean CE + the MoE layers' router aux
   prefill(tokens[, embeds])    → last-position logits + decode caches
   decode_step(token, caches, len) → next logits + caches (updated in place)
 
 ``train_loss`` runs under autograd through the plain ``_sdpa``
 (``attn_impl="sdpa"``, the reference's ``"xla"``): K2 has no backward, in
 either package. The reference's ``jax.checkpoint`` around the scanned
-block is ``torch.utils.checkpoint`` around each stacked block.
-
-Not ported yet (ROADMAP.md Queue 1 item 17b, slice 5): training of the
-MoE, MLA and SSM configs.
+block is ``torch.utils.checkpoint`` around each stacked block, the aux
+loss its second output; the aux sums the prefix layers' first, then each
+block's, in the reference's order.
 """
 
 from __future__ import annotations
@@ -51,8 +50,6 @@ from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import (ParamSet, ShapeDtype, cross_entropy, rms_norm, swiglu,
                      torch_dtype)
-
-_TODO = "ROADMAP.md Queue 1 item 17b"
 
 
 def register_mlp(ps: ParamSet, prefix: str, cfg: ArchConfig,
@@ -248,9 +245,10 @@ def _remat(fn, remat: str):
 
 def _train_block(x: torch.Tensor, p_block: Dict, cfg: ArchConfig,
                  pattern: Tuple[LayerDesc, ...], attn_impl: str
-                 ) -> torch.Tensor:
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x, the block's summed router aux loss)."""
     return apply_pattern_block(p_block, x, cfg, pattern, "full",
-                               attn_impl=attn_impl)[0]
+                               attn_impl=attn_impl)[:2]
 
 
 class LM:
@@ -348,50 +346,47 @@ class LM:
         return x, prefix_caches, _stack(per_block)
 
     def _run_blocks_train(self, params: Dict, x: torch.Tensor
-                          ) -> torch.Tensor:
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The full pass under autograd: prefix layers as they are, each
         stacked block under ``cfg.remat`` on its slice of the stacked
-        leaves (split once, :func:`_unbind`)."""
+        leaves (split once, :func:`_unbind`). Returns (x, the summed
+        router aux loss () f32: the prefix layers', then each block's)."""
         cfg = self.cfg
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(self.n_prefix):
-            x, _, _ = apply_pattern_block(
+            x, aux, _ = apply_pattern_block(
                 params[f"prefix{i}"], x, cfg, self.prefix_pattern, "full",
                 attn_impl=self.attn_impl)
+            aux_total = aux_total + aux
         block = _remat(functools.partial(
             _train_block, cfg=cfg, pattern=self.pattern,
             attn_impl=self.attn_impl), cfg.remat)
         for p_block in _unbind(params["blocks"], self.n_blocks):
-            x = block(x, p_block)
-        return x
+            x, aux = block(x, p_block)
+            aux_total = aux_total + aux
+        return x, aux_total
 
     # -- public entry points ---------------------------------------------------
     def train_loss(self, params: Dict, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Mean next-token CE (+ aux, zero for these families) of a batch
-        ``{"tokens", "labels"[, "frontend_embeds"][, "loss_mask"]}``:
-        logits after the frontend positions, ``[:, :-1]`` against
-        ``labels[:, 1:]``. Returns ``(loss, {"ce", "aux"})``. Configs with
-        experts, MLA or SSM layers serve only: their training is a later
-        slice."""
-        if self.cfg.n_experts or self.cfg.mla or any(
-                ld.kind == "ssm" for ld in self.pattern):
-            raise NotImplementedError(
-                f"{self.cfg.name}: training of the MoE, MLA and SSM configs "
-                f"is not ported yet ({_TODO}, slice 5: training)")
+        """Mean next-token CE + the MoE layers' router aux loss (zero
+        without experts) of a batch ``{"tokens", "labels"[,
+        "frontend_embeds"][, "loss_mask"]}``: logits after the frontend
+        positions, ``[:, :-1]`` against ``labels[:, 1:]``. Returns
+        ``(loss, {"ce", "aux"})``."""
         if self.attn_impl == "k2":
             raise ValueError(
                 "train_loss: K2 has no backward (nor has the reference's "
                 "Pallas kernel); training runs attn_impl='sdpa'")
         fe = batch.get("frontend_embeds")
         x = self._embed(params, batch["tokens"], fe)
-        x = self._run_blocks_train(params, x)
+        x, aux = self._run_blocks_train(params, x)
         with record_function("train/logits_ce"):
             logits = self._logits(params, x)
             nfe = 0 if fe is None else fe.shape[1]
             ce = cross_entropy(logits[:, nfe:][:, :-1],
                                batch["labels"][:, 1:],
                                batch.get("loss_mask"))
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
         return ce + aux, {"ce": ce, "aux": aux}
 
     @torch.no_grad()

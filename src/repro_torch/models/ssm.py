@@ -9,7 +9,9 @@ carried. Decode is a pure recurrence on that state.
 The SSD is plain ``torch.einsum`` / ``torch.matmul`` in f32, as the
 reference computes it with XLA einsums outside any Pallas kernel. The
 reference's ``jax.lax.scan`` over chunks is a Python loop over the C
-chunks, adding in the same order.
+chunks, adding in the same order. One departure on purpose: the intra-chunk
+decay masks its exponent before the ``exp`` (ROADMAP.md), so its gradient
+stays finite at the configs' chunk of 128, where the reference's is NaN.
 
 Decode caches per layer: the pre-conv window ``conv`` (B, d_conv − 1, C)
 and the SSM ``state`` (B, H, P, N), both in the activation dtype.
@@ -103,8 +105,13 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     cum = torch.cumsum(da, dim=2)                             # within-chunk
     # intra-chunk decay matrix: exp(cum_i - cum_j) for j <= i
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # (B,C,L,L,H)
+    # masked before the exp, out of place: above the diagonal diff ≥ 0 sums
+    # up to ~L·dt·|a|, whose exp overflows at L 128 and would make the masked
+    # gradient 0·inf = NaN (the reference's ssm.py:94 takes it after the
+    # exp); exp(-inf) is exactly 0, so the forward is the same bit for bit
     mask = torch.tril(torch.ones((l, l), dtype=torch.bool, device=x.device))
-    decay = torch.exp(diff).masked_fill_(~mask[None, None, :, :, None], 0.0)
+    decay = torch.exp(diff.masked_fill(~mask[None, None, :, :, None],
+                                       float("-inf")))
     scores = torch.einsum("bcln,bcmn->bclm", cc, bc)          # (B,C,L,L)
     w = scores[..., None] * decay * dtc[:, :, None, :, :]     # (B,C,L,L,H)
     y_intra = torch.einsum("bclmh,bcmhp->bclhp", w, xc)

@@ -241,15 +241,28 @@ def test_unported_families_raise():
     m = tbuild(_small(treduced(TARCHS["qwen2-1.5b"])), device="cpu")
     with pytest.raises(ValueError):
         tattn.gqa_full({}, torch.zeros(1, 1, 64), m.cfg, attn_impl="xla")
-    # the MoE, SSM and hybrid families serve; their training is item 17b's
-    # slice 5
+    # the MoE (MLA and GQA), SSM and hybrid families train: a finite loss
+    # of CE + the router aux (positive exactly where there are experts)
+    # and a finite gradient in every leaf
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 512, (2, 16)))
     for name in ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "mamba2-370m",
                  "jamba-v0.1-52b"):
         m = tbuild(treduced(TARCHS[name]), attn_impl="sdpa", device="cpu")
-        toks = torch.zeros((1, 4), dtype=torch.int64)
-        with pytest.raises(NotImplementedError,
-                           match="item 17b, slice 5: training"):
-            m.train_loss({}, {"tokens": toks, "labels": toks})
+        p = m.init_params(torch.Generator().manual_seed(0))
+        leaves = [v.requires_grad_(True) for v in _leaves(p)]
+        loss, met = m.train_loss(p, {"tokens": toks, "labels": toks})
+        grads = torch.autograd.grad(loss, leaves)
+        assert torch.isfinite(loss) and torch.equal(
+            loss, met["ce"] + met["aux"]), name
+        assert (float(met["aux"].detach()) > 0) == bool(m.cfg.n_experts), name
+        assert all(torch.isfinite(g).all() for g in grads), name
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [v for k in sorted(tree) for v in _leaves(tree[k])]
+    return [tree]
 
 
 def test_init_params_scales_in_place_with_the_same_bits():

@@ -4,7 +4,8 @@
 under scatter and gather dispatch, at capacity factor 4.0 (no drops) and
 1.0 (drops): output atol 1e-5, aux rtol 1e-6, expert indices and kept
 mask exact (the reference's routing is recomputed here with its own
-functions, lines 79-95 of its ``moe_layer``). Ties among the top-k
+functions, lines 79-95 of its ``moe_layer``); at 1.0 the gradients of x
+and every leaf ≡ ``jax.grad``'s (1e-5 + 1e-4·|ref|). Ties among the top-k
 probabilities go to the lower expert index, as ``jax.lax.top_k`` orders
 them. Inputs come from numpy seeds; the reference's weights cross over
 through ``convert``.
@@ -125,6 +126,43 @@ def test_moe_layer_matches_jax(jx, arch, dispatch, capacity_factor):
     keep = _assert_layer_matches(jx, tcfg, jcfg, p, x)
     # 64 tokens × top-2 over 8 experts: capacity 64 at factor 4, 16 at 1
     assert keep.all() == (capacity_factor == 4.0)
+
+
+@pytest.mark.parametrize("dispatch", ["scatter", "gather"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_gradients_with_dropped_assignments_match_jax(jx, arch,
+                                                          dispatch):
+    """Capacity factor 1.0 drops assignments. The gradients of sum(out ·
+    r) + aux with respect to x and every MoE leaf ≡ ``jax.grad`` of the
+    reference's within 1e-5 + 1e-4·|ref|: through the dispatch (scatter
+    into slot ``cap`` for the dropped, or the gather), the combine's
+    gather at ``clamp(pos, cap − 1)`` under the kept mask, the gates of
+    the stable-sort top-k and the aux loss's mean probabilities."""
+    tcfg, jcfg = _cfgs(jx, arch, moe_dispatch=dispatch, capacity_factor=1.0)
+    p = _params(jx, jcfg, seed=7)
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((4, 16, tcfg.d_model)).astype(np.float32)
+    r = rng.standard_normal(x.shape).astype(np.float32)
+    _, _, keep = _port_routing(convert.params_from_numpy(p, "cpu"),
+                               torch.from_numpy(x), tcfg)
+    assert 0 < (~keep).sum() < keep.size / 2         # some dropped
+
+    def jloss(p, x):
+        out, aux = jx.moe.moe_layer(p, x, jcfg)
+        return jx.jnp.sum(out * r) + aux
+    want_p, want_x = jx.jax.grad(jloss, argnums=(0, 1))(
+        jx.jax.tree.map(jx.jnp.asarray, p), jx.jnp.asarray(x))
+    tp = {k: v.requires_grad_(True) for k, v in
+          convert.params_from_numpy(p, "cpu").items()}
+    tx = torch.from_numpy(x).requires_grad_(True)
+    out, aux = tmoe.moe_layer(tp, tx, tcfg)
+    grads = torch.autograd.grad((out * torch.from_numpy(r)).sum() + aux,
+                                [tx, *tp.values()])
+    np.testing.assert_allclose(grads[0].numpy(), np.asarray(want_x),
+                               atol=ATOL, rtol=1e-4, err_msg="x")
+    for name, g in zip(tp, grads[1:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want_p[name]),
+                                   atol=ATOL, rtol=1e-4, err_msg=name)
 
 
 @pytest.mark.parametrize("dispatch", ["scatter", "gather"])

@@ -5,7 +5,10 @@
 * ``_causal_conv`` with and without a carried window, ``ssd_chunked``
   with and without an initial state (atol 1e-5), and the chunked SSD ≡
   the naive step-by-step recurrence (tests/test_arch_smoke.py's oracle,
-  run in torch: atol 2e-4);
+  run in torch: atol 2e-4); its gradients ≡ ``jax.grad`` of the
+  reference's at chunks 16 and 64 (1e-5 + 1e-4·|ref|), and at chunk 128,
+  where the reference's is NaN, finite and ≡ the f64 recurrence's (1e-4 +
+  1e-4·|f64|);
 * ``ssm_full`` output and decode hand-off (atol 1e-5) at S a chunk
   multiple, S not one (the padding rule) and S < K−1 (the left-padded
   conv tail); ``ssm_decode`` from the reference's caches over several
@@ -169,6 +172,90 @@ def test_ssd_matches_naive_recurrence():
         ys[:, t] = np.einsum("bhpn,bn->bhp", hstate, cm[:, t])
     np.testing.assert_allclose(_np(y), ys, atol=2e-4)
     np.testing.assert_allclose(_np(hfin), hstate, atol=2e-4)
+
+
+def _ssd_grads(fn, x, dt, a, bm, cm, r, dtype=torch.float32):
+    """Gradients of sum(y · r) over (x, dt, a, bmat, cmat) in ``dtype``."""
+    args = [torch.from_numpy(v).to(dtype).requires_grad_(True)
+            for v in (x, dt, a, bm, cm)]
+    y = fn(*args)
+    g = torch.autograd.grad((y * torch.from_numpy(r).to(dtype)).sum(), args)
+    return [v.numpy() for v in g]
+
+
+def _recurrence_y(x, dt, a, bm, cm):
+    """The step-by-step recurrence (tests/test_arch_smoke.py's oracle) in
+    torch, so autograd differentiates it: h ← exp(dt·a)·h + dt·x⊗B,
+    y = h·C."""
+    b, s, h, p = x.shape
+    hstate = torch.zeros((b, h, p, bm.shape[-1]), dtype=x.dtype)
+    ys = []
+    for t in range(s):
+        hstate = hstate * torch.exp(dt[:, t] * a)[..., None, None] + \
+            torch.einsum("bh,bhp,bn->bhpn", dt[:, t], x[:, t], bm[:, t])
+        ys.append(torch.einsum("bhpn,bn->bhp", hstate, cm[:, t]))
+    return torch.stack(ys, dim=1)
+
+
+def _long_chunk_inputs(seed=5, s=128):
+    """dt·|a| near 1 a step: within a chunk of 128 the masked-out exponents
+    cum_i − cum_j (j > i) sum past 88.7, where f32 exp overflows."""
+    rng = np.random.default_rng(seed)
+    b, h, p, n = 1, 2, 4, 8
+    return (rng.standard_normal((b, s, h, p)).astype(np.float32),
+            rng.uniform(0.8, 1.2, (b, s, h)).astype(np.float32),
+            -rng.uniform(0.9, 1.1, (h,)).astype(np.float32),
+            rng.standard_normal((b, s, n)).astype(np.float32) * 0.5,
+            rng.standard_normal((b, s, n)).astype(np.float32) * 0.5,
+            rng.standard_normal((b, s, h, p)).astype(np.float32))
+
+
+def test_ssd_gradient_is_finite_at_chunk_128_and_matches_the_recurrence(jx):
+    """At chunk 128 the reference's gradient is NaN: it takes exp of the
+    masked-out upper triangle too (``src/repro/models/ssm.py:94``), and
+    0·inf there is NaN. The port masks the exponent first (a departure on
+    purpose, ROADMAP.md): its f32 gradients are finite and equal those of
+    the f64 step-by-step recurrence within 1e-4 + 1e-4·|f64|."""
+    x, dt, a, bm, cm, r = _long_chunk_inputs()
+    assert float(np.max(np.cumsum(-dt[0, :, 0] * a[0]))) > 88.8
+
+    def jfn(*v):
+        y, _ = jx.ssm.ssd_chunked(*v, chunk=128)
+        return jx.jnp.sum(y * r)
+    jg = jx.jax.grad(jfn, argnums=(0, 1, 2, 3, 4))(
+        *(jx.jnp.asarray(v) for v in (x, dt, a, bm, cm)))
+    assert not np.isfinite(np.asarray(jg[1])).all()      # the reference's dt
+    got = _ssd_grads(lambda *v: tssm.ssd_chunked(*v, chunk=128)[0],
+                     x, dt, a, bm, cm, r)
+    want = _ssd_grads(_recurrence_y, x, dt, a, bm, cm, r, torch.float64)
+    for name, g, w in zip(("x", "dt", "a", "bmat", "cmat"), got, want):
+        assert np.isfinite(g).all(), name
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=1e-4, err_msg=name)
+    # the forward is the reference's at the same chunk
+    y, _ = tssm.ssd_chunked(*(_t(v) for v in (x, dt, a, bm, cm)), chunk=128)
+    want_y, _ = jx.ssm.ssd_chunked(
+        *(jx.jnp.asarray(v) for v in (x, dt, a, bm, cm)), chunk=128)
+    np.testing.assert_allclose(_np(y), _np(want_y), atol=ATOL, rtol=ATOL)
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_ssd_gradient_matches_jax(jx, chunk):
+    """Where the reference's gradient is finite (chunk 16, the reduced
+    configs'; 64) the port's equals it within 1e-5 + 1e-4·|ref|."""
+    x, dt, a, bm, cm, _ = _ssd_inputs(3, s=128)
+    r = np.random.default_rng(4).standard_normal(x.shape).astype(np.float32)
+
+    def jfn(*v):
+        y, _ = jx.ssm.ssd_chunked(*v, chunk=chunk)
+        return jx.jnp.sum(y * r)
+    want = jx.jax.grad(jfn, argnums=(0, 1, 2, 3, 4))(
+        *(jx.jnp.asarray(v) for v in (x, dt, a, bm, cm)))
+    got = _ssd_grads(lambda *v: tssm.ssd_chunked(*v, chunk=chunk)[0],
+                     x, dt, a, bm, cm, r)
+    for name, g, w in zip(("x", "dt", "a", "bmat", "cmat"), got, want):
+        assert np.isfinite(np.asarray(w)).all(), name
+        np.testing.assert_allclose(g, np.asarray(w), atol=ATOL, rtol=1e-4,
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("arch", SSM_ARCHS)

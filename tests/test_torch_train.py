@@ -1,15 +1,19 @@
 """The port's training path ≡ the JAX package's, on the CPU.
 
-``cross_entropy``; ``LM.train_loss`` and every gradient leaf against
-``jax.value_and_grad`` of the reference's, on the reference's weights
-carried across by ``convert.params_from_numpy`` and the same batch, for
-five reduced configs (dense: qwen2 with QKV bias, qwen3 with qk_norm, yi;
-vlm: phi-3-vision with its frontend stub; the encoder-decoder seamless,
-frames on the encoder) at atol 1e-5 + rtol 1e-4; the three remat
-policies bit for bit (the encoder-decoder's two stacks too); the AdamW
-schedule and update; three train steps (seamless's too); the
-reference's own optimizer and train-step tests mirrored on the port;
-and K2 refusing autograd. Inputs come from numpy seeds.
+``cross_entropy``; ``LM.train_loss`` (loss, ce, the router aux) and every
+gradient leaf against ``jax.value_and_grad`` of the reference's, on the
+reference's weights carried across by ``convert.params_from_numpy`` and
+the same batch, for nine reduced configs (dense: qwen2 with QKV bias,
+qwen3 with qk_norm, yi; vlm: phi-3-vision with its frontend stub; the
+encoder-decoder seamless, frames on the encoder; MoE: deepseek-v2-lite
+with MLA, kimi-k2 with GQA; SSM: mamba2; hybrid: jamba) at atol 1e-5 +
+rtol 1e-4; the three remat policies bit for bit (the encoder-decoder's two
+stacks, and the MoE, SSM and hybrid configs without JAX); the AdamW
+schedule and update; three train steps (seamless's, deepseek-v2-lite's in
+2 microbatches and mamba2's too); the reference's own optimizer and
+train-step tests mirrored on the port; and K2 refusing autograd. One
+reference model per config and remat policy serves the module. Inputs
+come from numpy seeds.
 """
 
 import dataclasses
@@ -33,10 +37,13 @@ from repro_torch.train import make_train_step as tmake_train_step  # noqa: E402
 
 ATOL, RTOL = 1e-5, 1e-4
 TRAIN_ARCHS = ("qwen2-1.5b", "qwen3-14b", "yi-6b", "phi-3-vision-4.2b",
-               "seamless-m4t-large-v2")
+               "seamless-m4t-large-v2", "deepseek-v2-lite-16b",
+               "kimi-k2-1t-a32b", "mamba2-370m", "jamba-v0.1-52b")
+# the MoE (MLA and GQA), SSM and hybrid families
+FAMILY_ARCHS = TRAIN_ARCHS[5:]
 
 
-@pytest.fixture
+@pytest.fixture(scope="module")
 def jx():
     pytest.importorskip("jax")
     import jax
@@ -88,14 +95,26 @@ def _data_cfg(cfg, seq_len=16, global_batch=2, seed=1234):
                 frontend_tokens=cfg.frontend_tokens, d_model=cfg.d_model)
 
 
+_REF = {}
+
+
+def _ref(jx, name, remat):
+    """The reference's reduced model and its weights, one per (config,
+    remat) for the module."""
+    key = (name, remat)
+    if key not in _REF:
+        jcfg = dataclasses.replace(jx.reduced_config(jx.ARCHS[name]),
+                                   remat=remat)
+        jm = jx.build_model(jcfg)
+        _REF[key] = jm, jm.init_params(jx.jax.random.PRNGKey(0))
+    return _REF[key]
+
+
 def _both(jx, name, remat="none", **data):
     """(reference model, its params, its batch, port model, the same params
     and batch as tensors) for ``reduced_config(name)``."""
-    jcfg = dataclasses.replace(jx.reduced_config(jx.ARCHS[name]),
-                               remat=remat)
-    jm = jx.build_model(jcfg)
-    jp = jm.init_params(jx.jax.random.PRNGKey(0))
-    dcfg = _data_cfg(jcfg, **data)
+    jm, jp = _ref(jx, name, remat)
+    dcfg = _data_cfg(jm.cfg, **data)
     jb = jx.batch_at(jx.DataConfig(**dcfg), 0)
     tcfg = dataclasses.replace(treduced(TARCHS[name]), remat=remat)
     tm = tbuild(tcfg, attn_impl="sdpa", device="cpu")
@@ -154,7 +173,9 @@ def test_train_loss_and_grads_match_jax(jx, name):
     loss, met, grads = _loss_and_grads(tm, tp, tb)
     _close(loss, jloss, f"{name} loss")
     _close(met["ce"], jmet["ce"], f"{name} ce")
-    assert float(met["aux"]) == float(jmet["aux"]) == 0.0
+    _close(met["aux"], jmet["aux"], f"{name} aux")
+    # the router aux loss is in the loss exactly where there are experts
+    assert (float(jmet["aux"]) > 0) == bool(tm.cfg.n_experts), name
     want = {tuple(p.key for p in path): leaf for path, leaf in
             jx.jax.tree_util.tree_flatten_with_path(jgrads)[0]}
     assert set(want) == set(grads)
@@ -170,7 +191,7 @@ def test_train_loss_slices_off_the_frontend_positions(jx):
     assert tb["frontend_embeds"].shape[1] == tm.cfg.frontend_tokens == 8
     loss, _ = tm.train_loss(tp, tb)
     x = tm._embed(tp, tb["tokens"], tb["frontend_embeds"])
-    logits = tm._logits(tp, tm._run_blocks_train(tp, x))[:, 8:]
+    logits = tm._logits(tp, tm._run_blocks_train(tp, x)[0])[:, 8:]
     want = tlayers.cross_entropy(logits[:, :-1], tb["labels"][:, 1:])
     assert torch.equal(loss, want)
 
@@ -210,6 +231,28 @@ def test_remat_policies_are_bit_equal_and_recompute_what_they_say(jx):
     cd, cf = runs["dots"][1], runs["full"][1]
     assert cd["mm"] == c0["mm"] < cf["mm"], (c0, cd, cf)
     assert c0["bmm"] < cd["bmm"] == cf["bmm"], (c0, cd, cf)
+
+
+@pytest.mark.parametrize("name", FAMILY_ARCHS)
+def test_family_remat_policies_are_bit_equal(name):
+    """The MoE, MLA, SSM and hybrid configs: remat none / dots / full give
+    the same loss, aux and gradients bit for bit (the aux leaves each
+    checkpointed block as its second output)."""
+    runs = {}
+    for remat in ("none", "dots", "full"):
+        cfg = dataclasses.replace(treduced(TARCHS[name]), remat=remat)
+        tm = tbuild(cfg, attn_impl="sdpa", device="cpu")
+        tp = tm.init_params(torch.Generator().manual_seed(0))
+        tb = tbatch_at(TDataConfig(**_data_cfg(cfg)), 0, device="cpu")
+        runs[remat] = _loss_and_grads(tm, tp, tb)
+    loss0, met0, g0 = runs["none"]
+    assert (float(met0["aux"].detach()) > 0) == bool(cfg.n_experts)
+    for remat in ("dots", "full"):
+        loss, met, g = runs[remat]
+        assert torch.equal(loss, loss0), remat
+        assert torch.equal(met["aux"], met0["aux"]), remat
+        for path in g0:
+            assert torch.equal(g[path], g0[path]), (remat, path)
 
 
 def test_train_loss_unbinds_each_stacked_leaf_once(jx):
@@ -471,6 +514,29 @@ def test_three_train_steps_match_reference(jx):
     # f32 params after three steps at lr <= 1e-2: AdamW divides by √v̂ +
     # eps, so an element whose |g| is near eps could move by up to lr on
     # rounding alone; none does here (2e-5 measured), and 1e-3 says so
+    assert _tree_max_diff(tp, jp) < 1e-3
+
+
+@pytest.mark.parametrize("name,n_micro", [("deepseek-v2-lite-16b", 2),
+                                          ("mamba2-370m", 1)])
+def test_family_three_train_steps_match_reference(jx, name, n_micro):
+    """deepseek-v2-lite (MLA + MoE) with 2 microbatches, each carrying its
+    aux loss, and mamba2: loss, grad_norm and lr of three steps ≡ the
+    reference's jitted step."""
+    from repro_torch.train import init_state
+    jm, jp, _, tm, tp, _ = _both(jx, name)
+    kw = dict(lr=1e-2, warmup_steps=2, total_steps=10)
+    jc, tc = jx.AdamWConfig(**kw), topt.AdamWConfig(**kw)
+    jstep = jx.jax.jit(jx.make_train_step(jm, jc, n_microbatches=n_micro))
+    tstep = tmake_train_step(tm, tc, n_microbatches=n_micro)
+    dcfg = _data_cfg(tm.cfg, seq_len=16, global_batch=4)
+    jst, tst = jx.optimizer.init_state(jc, jp), init_state(tc, tp)
+    for i in range(3):
+        jp, jst, jmet = jstep(jp, jst, jx.batch_at(jx.DataConfig(**dcfg), i))
+        tp, tst, tmet = tstep(tp, tst, tbatch_at(TDataConfig(**dcfg), i,
+                                                 device="cpu"))
+        for key in ("loss", "grad_norm", "lr"):
+            _close(tmet[key], jmet[key], f"{name} step {i + 1} {key}")
     assert _tree_max_diff(tp, jp) < 1e-3
 
 

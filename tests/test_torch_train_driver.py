@@ -1,5 +1,7 @@
 """The port's train driver and ``train_lm`` example.
 
+* ``launch/train.run`` trains the reduced deepseek-v2-lite (2
+  microbatches), mamba2 and jamba with finite losses that fall;
 * ``launch/train.run`` on the CPU: a run resumed from its step-3
   checkpoint (what a kill after that save leaves on disk) ends bit for
   bit where the uninterrupted run ends — weights, moments, step and the
@@ -144,6 +146,21 @@ def test_main_trains_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out.splitlines()
     assert out[-1] == "OK"
     assert tckpt.list_steps(str(tmp_path)) == [5]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mamba2-370m",
+                                  "jamba-v0.1-52b"])
+def test_run_trains_the_moe_ssm_and_hybrid_families(arch):
+    """``launch/train.run`` trains the reduced deepseek-v2-lite (MLA + MoE,
+    2 microbatches), mamba2 and jamba: every logged loss finite, the last
+    below the first."""
+    logs = []
+    out = ttrain.run(ttrain.TrainJob(
+        arch=treduced(TARCHS[arch]), n_microbatches=2,
+        **{**JOB, "ckpt_every": 100}), device="cpu", log=logs.append)
+    assert len(out["losses"]) == JOB["steps"]
+    assert np.isfinite(out["losses"]).all(), out["losses"]
+    assert out["final_loss"] < out["first_loss"], out["losses"]
 
 
 def test_main_trains_the_encoder_decoder_on_the_cpu(tmp_path, capsys):
