@@ -393,6 +393,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      that half) within phase 29 (b)'s bounds; (d) no kernel launches in the
      phase (counts reset before (a), read after (c); each kernel entry's
      ``family_training_launches``).
+ 34. the dry run held against the card, on the training cells of phases
+     29 and 33 (qwen2-1.5b and mamba2-370m at 2 × 4,096 tokens,
+     deepseek-v2-lite-16b at 4 of 27 layers in 2 microbatches), each built
+     by ``launch/cells.build_cell`` on the host mesh at ``TRAIN_4K`` with
+     the global batch cut to 2: (a) the step traced under fake tensors on
+     the card's device (``roofline/analysis.trace_step``): FLOPs, bytes
+     moved, predicted peak, the compute, memory and collective terms
+     (the last not recorded: "-") and the bound; (b) one real step on the
+     card under the same tracer, from ``torch.cuda.reset_peak_memory_stats``:
+     its FLOPs must equal (a)'s, and ``torch.cuda.max_memory_allocated``
+     prints beside the predicted peak with their ratio; (c) the roofline
+     fraction, bound / the measured ms/step of phase 29 or 33 in this run
+     (3 steps timed after a warm-up where that phase did not run), which
+     must not exceed 1.05; (d) no kernel launches in the phase
+     (``dryrun_check_launches``). Also prints the card's ``total_memory``
+     beside ``roofline/analysis.HBM_BYTES``.
 
 The kernels line's K1 and column-map entries add their launches per tick
 on phase 23 (b) (``ensemble_launches_per_tick``); the pair-list build's
@@ -6135,6 +6151,167 @@ def phase_family_training(report: dict, cpu: dict | None = None) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 34: the dry run held against the card
+# ---------------------------------------------------------------------------
+
+# the training cells of phases 29 (a) and 33 (a-b): (arch, n_layers, the
+# phase whose ms/step the bound is held against); TRAIN_4K's global batch
+# cut to 2 sequences, as those phases cut it
+DRYRUN_CELLS = (("qwen2-1.5b", None, "29"), ("mamba2-370m", None, "33"),
+                ("deepseek-v2-lite-16b", 4, "33"))
+DRYRUN_BATCH, DRYRUN_SEED = 2, 0
+# a bound longer than the measured step means the trace over-counts
+DRYRUN_MAX_FRACTION = 1.05
+
+
+def _timed_steps(fn, args, steps: int = 3) -> float:
+    """Median ms of ``steps`` calls of ``fn(*args)`` after one warm-up
+    (CUDA events), for a cell whose phase did not run."""
+    import torch
+    fn(*args)
+    times = []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn(*args)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def _dryrun_vs_card(arch: str, n_layers, ms_measured) -> dict:
+    """[34a-c] for one cell; ``ms_measured``: its ms/step from phase 29 or
+    33, or None to time it here."""
+    import torch
+    from repro_torch.configs import ARCHS, TRAIN_4K
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import make_host_mesh, mesh_axes
+    from repro_torch.roofline import analysis as A
+    from repro_torch.train import AdamWConfig, init_state
+
+    cfg = ARCHS[arch]
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    shape = dataclasses.replace(TRAIN_4K, global_batch=DRYRUN_BATCH)
+    cell = cells.build_cell(cfg, shape, make_host_mesh(), mesh_axes(False))
+    t0 = time.perf_counter()
+    pred = A.trace_step(cell.fn, *cell.args, device="cuda")
+    trace_s = time.perf_counter() - t0
+    analytic = cells.analytic_step_flops(cfg, shape)
+    rl = A.analyze({"flops": analytic, "bytes accessed": pred.bytes_moved})
+    bound = rl.step_time_bound_s
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    baseline = torch.cuda.memory_allocated()
+    params = cell.model.ps.init_params(
+        torch.Generator(device="cuda").manual_seed(DRYRUN_SEED))
+    state = init_state(AdamWConfig(moment_dtype=cfg.opt_moment_dtype), params)
+    data = batch_at(DataConfig(vocab_size=cfg.vocab_size,
+                               seq_len=shape.seq_len,
+                               global_batch=shape.global_batch,
+                               seed=DRYRUN_SEED), 0, device="cuda")
+    # the cell's tokens and labels are two inputs; batch_at shares one
+    batch = {"tokens": data["tokens"], "labels": data["labels"].clone()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    real = A.trace_step(cell.fn, params, state, batch, fake=False)
+    torch.cuda.synchronize()
+    real_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(real.flops == pred.flops,
+          f"[34b] {arch}: the card's step counted {real.flops} FLOPs, the "
+          f"trace {pred.flops}")
+    timed_here = ms_measured is None
+    if timed_here:
+        ms_measured = _timed_steps(cell.fn, (params, state, batch))
+    fraction = bound / (ms_measured / 1e3)
+    del params, state, batch, data
+    torch.cuda.empty_cache()
+    return {"arch": arch, "n_layers": cfg.n_layers,
+            "microbatches": cells.microbatches(arch, shape.name),
+            "tokens_per_step": shape.global_batch * shape.seq_len,
+            "trace_s": trace_s, "traced": dataclasses.asdict(pred),
+            "analytic_flops": analytic, "roofline": rl.as_dict(),
+            "bound_s": bound, "real_step_s": real_s,
+            "card_step": dataclasses.asdict(real),
+            "baseline_bytes": baseline, "max_memory_allocated": peak,
+            "peak_ratio": pred.peak_bytes / peak,
+            "peak_ratio_above_baseline": pred.peak_bytes / (peak - baseline),
+            "ms_per_step": ms_measured, "ms_timed_here": timed_here,
+            "roofline_fraction": fraction}
+
+
+def _print_dryrun_vs_card(r: dict, phase: str, card: str) -> None:
+    rl, t = r["roofline"], r["traced"]
+    gb = 1e9
+    print(f"[34a] {r['arch']} ({r['n_layers']} layers, {r['microbatches']} "
+          f"microbatch(es), {r['tokens_per_step']:,} tokens a step) traced "
+          f"under fake tensors in {r['trace_s']:.1f} s: {t['flops']:.6g} "
+          f"FLOPs (FlopCounterMode; analytic {r['analytic_flops']:.6g}), "
+          f"{t['bytes_moved']:.6g} bytes moved in {t['n_ops']:,} ops, "
+          f"arguments {t['argument_bytes'] / gb:.2f} GB, predicted peak "
+          f"{t['peak_bytes'] / gb:.2f} GB; terms: compute "
+          f"{rl['compute_s']:.4f} s, memory {rl['memory_s']:.4f} s, "
+          f"collective -; bound {r['bound_s']:.4f} s ({rl['dominant']})",
+          flush=True)
+    c = r["card_step"]
+    print(f"[34b] {r['arch']} one step on the card under the same tracer "
+          f"({r['real_step_s']:.1f} s): {c['flops']:.6g} FLOPs (= the "
+          f"trace's), {c['bytes_moved']:.6g} bytes moved, the tracer's peak "
+          f"{c['peak_bytes'] / gb:.2f} GB; max_memory_allocated "
+          f"{r['max_memory_allocated'] / gb:.2f} GB (of which "
+          f"{r['baseline_bytes'] / gb:.3f} GB allocated before the step's "
+          f"inputs) against the predicted {t['peak_bytes'] / gb:.2f} GB: "
+          f"ratio {r['peak_ratio']:.4f} ({r['peak_ratio_above_baseline']:.4f}"
+          f" above the baseline)", flush=True)
+    where = ("timed here, 3 steps after a warm-up" if r["ms_timed_here"]
+             else f"phase {phase} of this run")
+    print(f"[34c] {r['arch']} roofline fraction {r['roofline_fraction']:.4f}"
+          f" = bound {r['bound_s'] * 1e3:.1f} ms / measured "
+          f"{r['ms_per_step']:.1f} ms/step ({where}); {card}", flush=True)
+
+
+def phase_dryrun_vs_card(report: dict, ms_measured: dict) -> dict:
+    """[34] The dry run held against the card on the training cells of
+    phases 29 and 33; ``ms_measured``: arch → ms/step those phases
+    measured in this run (an arch missing is timed here)."""
+    import torch
+    from repro_torch.device import card_description
+    from repro_torch.roofline import analysis as A
+    check(A.PEAK_FLOPS == PEAK_BF16_TENSOR_FLOPS
+          and A.HBM_BW == PEAK_HBM_BYTES,
+          "[34] roofline/analysis.py's peaks differ from this script's")
+    card = card_description()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[34] the card's total_memory {total:,} bytes "
+          f"(torch.cuda.get_device_properties(0)); roofline/analysis."
+          f"HBM_BYTES {A.HBM_BYTES:,}; peaks {A.PEAK_FLOPS:.4g} FLOP/s "
+          f"(bf16), {A.HBM_BW:.4g} B/s; {card}", flush=True)
+    _reset_counts()
+    rec = {"card": card, "total_memory": total, "cells": {}}
+    for arch, n_layers, phase in DRYRUN_CELLS:
+        r = rec["cells"][arch] = _dryrun_vs_card(arch, n_layers,
+                                                 ms_measured.get(arch))
+        _print_dryrun_vs_card(r, phase, card)
+        check(r["roofline_fraction"] <= DRYRUN_MAX_FRACTION,
+              f"[34c] {arch}: the bound is {r['roofline_fraction']:.4f} of "
+              f"the measured step (at most {DRYRUN_MAX_FRACTION}): the "
+              f"trace over-counts")
+    launches = rec["launches"] = _read_counts()
+    check(not any(launches.values()),
+          f"[34d] a kernel launched in the dry-run check: {launches}")
+    print(f"[34d] kernel launches over the phase: {launches}", flush=True)
+    report["dryrun_check"] = rec
+    return rec
+
+
 T_START = time.perf_counter()
 
 
@@ -6245,6 +6422,10 @@ def _run(workers, tmpdir: str) -> int:
     ssm = timed("31", phase_ssm_serve, report)
     encdec = timed("32", phase_encdec, report)
     families = timed("33", phase_family_training, report, cpu)
+    measured = {"qwen2-1.5b": training["full_width"]["ms_per_step_median"],
+                **{arch: families[arch]["ms_per_step_median"]
+                   for arch in ("mamba2-370m", "deepseek-v2-lite-16b")}}
+    dry = timed("34", phase_dryrun_vs_card, report, measured)
     report["total_s"] = time.perf_counter() - T_START
     print(f"phases took {sum(seconds.values()):.1f} s, the script "
           f"{report['total_s']:.1f} s", flush=True)
@@ -6369,6 +6550,9 @@ def _run(workers, tmpdir: str) -> int:
     # kernel either
     for k in kernels:
         k["family_training_launches"] = families["launches"][k["name"]]
+    # nor does holding the dry run against the card (phase 34)
+    for k in kernels:
+        k["dryrun_check_launches"] = dry["launches"][k["name"]]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,19 +1,28 @@
-"""Per-cell step accounting that needs no device (port of the
-device-independent part of ``repro.launch.cells``): the microbatch count
-of each (arch × shape) cell, the active parameter count, and the analytic
-FLOPs of one step.
+"""Dry-run cell assembly for every (arch × shape) (port of
+``repro.launch.cells``).
 
-The reference's ``input_specs``, ``cell_shardings`` and the dry run they
-feed lower XLA programs onto a TPU mesh; they wait for ROADMAP.md Queue 1
-item 18, with ``dryrun``, ``hillclimb``, ``mesh`` and ``roofline/``.
+``build_cell`` returns a step function with ``ShapeDtype`` stand-ins for
+every input (nothing allocated) and the matching spec trees: one resolved
+spec a leaf, each entry None, a mesh axis name or a tuple of names
+(``models/layers.resolve_spec``). ``launch/dryrun.py`` traces the step on
+them and reckons per-device bytes on the mesh. Also here: the microbatch
+count of each cell, the active parameter count, the analytic FLOPs of one
+step and the depth probe.
+
+The reference's ``unroll_scan`` has no counterpart: the port's layers are
+a Python loop, which every trace sees whole.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
 
 from ..configs.base import ArchConfig, LayerDesc, ShapeSpec
+from ..models.layers import MeshAxes, ShapeDtype, torch_dtype
 
 # per-cell microbatch counts (activation-memory fits; FLOPs unchanged)
 MICROBATCHES: Dict[Tuple[str, str], int] = {
@@ -27,6 +36,51 @@ MICROBATCHES: Dict[Tuple[str, str], int] = {
 
 def microbatches(arch: str, shape: str) -> int:
     return MICROBATCHES.get((arch, shape), 1)
+
+
+def _batch_axes(axes: MeshAxes):
+    b = axes.batch
+    return b if len(b) > 1 else b[0]
+
+
+@dataclasses.dataclass
+class Cell:
+    """Everything the dry run needs to trace one (arch × shape) on one
+    mesh."""
+    fn: Callable                  # the step function
+    args: Tuple                   # ShapeDtype trees
+    in_shardings: Tuple           # spec trees of the same structure
+    model: Any
+    n_params: int
+    n_active_params: int
+    model_flops: float            # 6ND train / 2ND decode-prefill
+    note: str = ""
+
+
+def map_structs(fn: Callable, tree: Any) -> Any:
+    """``fn`` of every ``ShapeDtype`` leaf of a tree of dicts, lists and
+    tuples."""
+    if isinstance(tree, dict):
+        return {k: map_structs(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, ShapeDtype):
+        return type(tree)(map_structs(fn, v) for v in tree)
+    return fn(tree)
+
+
+def leaves_with_specs(structs: Any, specs: Any, path: Tuple = ()):
+    """Yield ``(path, leaf, spec)`` for every leaf of ``structs``, walking
+    ``specs`` along the same structure (its leaves are tuples, so its own
+    structure cannot say where a leaf is). A path holds dict keys and
+    sequence indices."""
+    if isinstance(structs, dict):
+        for k, v in structs.items():
+            yield from leaves_with_specs(v, specs[k], path + (k,))
+    elif isinstance(structs, (list, tuple)) \
+            and not isinstance(structs, ShapeDtype):
+        for i, v in enumerate(structs):
+            yield from leaves_with_specs(v, specs[i], path + (i,))
+    else:
+        yield path, structs, specs
 
 
 def _count_active_params(model, cfg: ArchConfig) -> int:
@@ -103,3 +157,155 @@ def analytic_step_flops(cfg: ArchConfig, shape: ShapeSpec) -> float:
     if shape.kind == "train":
         passes = 3.0 + (1.0 if cfg.remat == "full" else 0.0)
     return float(total) * n_tokens * passes
+
+
+def probe_config(cfg: ArchConfig, k: int) -> ArchConfig:
+    """Depth-k variant for per-block probing: the dense prefix and k
+    pattern blocks (k encoder and k decoder layers for an encoder-decoder).
+    The difference of the depth-1 and depth-2 cells isolates one block."""
+    pat = cfg.layer_pattern()
+    upd: dict = {"n_layers": cfg.first_dense_layers + len(pat) * k}
+    if cfg.encoder_layers:
+        upd["encoder_layers"] = k
+        upd["n_layers"] = k
+    return dataclasses.replace(cfg, **upd)
+
+
+def _param_structs(model, axes: MeshAxes) -> Tuple[Any, Any]:
+    return model.ps.shape_tree(), model.ps.spec_tree(axes)
+
+
+def _opt_structs(model, cfg: ArchConfig, axes: MeshAxes) -> Tuple[Any, Any]:
+    mdt = torch_dtype(cfg.opt_moment_dtype)
+
+    def moments():
+        return map_structs(lambda sd: ShapeDtype(sd.shape, mdt),
+                           model.ps.shape_tree())
+    state = {"mu": moments(), "nu": moments(),
+             "step": ShapeDtype((), torch.int32)}
+    specs = {"mu": model.ps.spec_tree(axes), "nu": model.ps.spec_tree(axes),
+             "step": ()}
+    return state, specs
+
+
+def _batch_structs(cfg: ArchConfig, shape: ShapeSpec, axes: MeshAxes,
+                   adt: torch.dtype) -> Tuple[Dict, Dict]:
+    b, s = shape.global_batch, shape.seq_len
+    ba = _batch_axes(axes)
+    tok = ShapeDtype((b, s), torch.int32)
+    batch = {"tokens": tok, "labels": tok}
+    specs = {"tokens": (ba, None), "labels": (ba, None)}
+    if cfg.encoder_layers > 0:
+        # enc-dec: frames on the encoder, tokens on the decoder (both seq_len)
+        batch["frontend_embeds"] = ShapeDtype((b, s, cfg.d_model), adt)
+        specs["frontend_embeds"] = (ba, None, None)
+    elif cfg.frontend != "none":
+        batch["frontend_embeds"] = ShapeDtype(
+            (b, cfg.frontend_tokens, cfg.d_model), adt)
+        specs["frontend_embeds"] = (ba, None, None)
+    return batch, specs
+
+
+def _cache_shardings(cfg: ArchConfig, shape: ShapeSpec, axes: MeshAxes,
+                     cache_specs: Any, cache_seq_axis: Optional[str] = None
+                     ) -> Any:
+    """decode_32k: shard caches on batch. long_500k (B=1): shard the
+    sequence axis of attention caches over 'data' (sequence-parallel
+    decode); small SSM states stay replicated. ``cache_seq_axis`` also
+    shards the KV sequence dim of a batched cache over that axis."""
+    ba = _batch_axes(axes)
+    seq_parallel = shape.global_batch == 1
+
+    def leaf_spec(sd: ShapeDtype) -> Tuple:
+        dims: list = [None] * len(sd.shape)
+        if seq_parallel:
+            for i, d in enumerate(sd.shape):
+                if d == shape.seq_len:
+                    dims[i] = "data"
+                    break
+        else:
+            # batch axis: the axis matching global_batch (after the
+            # optional leading n_blocks stack dim)
+            for i, d in enumerate(sd.shape):
+                if d == shape.global_batch:
+                    dims[i] = ba
+                    break
+            if cache_seq_axis:
+                for i, d in enumerate(sd.shape):
+                    if d == shape.seq_len and dims[i] is None:
+                        dims[i] = cache_seq_axis
+                        break
+        return tuple(dims)
+
+    return map_structs(leaf_spec, cache_specs)
+
+
+def build_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, axes: MeshAxes,
+               attn_impl: str = "sdpa", force_micro: Optional[int] = None,
+               grad_sync_dtype: Optional[str] = None,
+               cache_seq_axis: Optional[str] = None) -> Cell:
+    """The step of ``shape.kind`` for ``cfg`` with its inputs at
+    ``shape``'s global sizes and their specs on ``axes``; every spec must
+    name only axes of ``mesh`` (ValueError otherwise). The model is built
+    on the ``meta`` device: it allocates nothing, and a caller who runs the
+    step makes its tensors itself (``model.ps.init_params`` on a
+    generator of the device wanted)."""
+    from ..models import build_model
+    from ..train import AdamWConfig
+    from ..train.train_step import (make_decode_step, make_prefill_step,
+                                    make_train_step)
+
+    model = build_model(cfg, attn_impl=attn_impl, device="meta")
+    adt = torch_dtype(cfg.activation_dtype)
+    n_params = model.ps.n_params()
+    n_active = _count_active_params(model, cfg)
+    tokens = shape.global_batch * shape.seq_len
+    param_shapes, param_specs = _param_structs(model, axes)
+
+    if shape.kind == "train":
+        opt_cfg = AdamWConfig(moment_dtype=cfg.opt_moment_dtype)
+        opt_shapes, opt_specs = _opt_structs(model, cfg, axes)
+        batch, batch_specs = _batch_structs(cfg, shape, axes, adt)
+        nm = force_micro or microbatches(cfg.name, shape.name)
+        fn = make_train_step(model, opt_cfg, n_microbatches=nm,
+                             grad_sync_dtype=grad_sync_dtype)
+        cell = Cell(fn=fn, args=(param_shapes, opt_shapes, batch),
+                    in_shardings=(param_specs, opt_specs, batch_specs),
+                    model=model, n_params=n_params, n_active_params=n_active,
+                    model_flops=6.0 * n_active * tokens,
+                    note=f"microbatches={nm}")
+    elif shape.kind == "prefill":
+        batch, batch_specs = _batch_structs(cfg, shape, axes, adt)
+        batch.pop("labels")
+        batch_specs.pop("labels")
+        cell = Cell(fn=make_prefill_step(model), args=(param_shapes, batch),
+                    in_shardings=(param_specs, batch_specs),
+                    model=model, n_params=n_params, n_active_params=n_active,
+                    model_flops=2.0 * n_active * tokens)
+    else:
+        # decode: one new token against a seq_len-deep cache
+        b, s_max = shape.global_batch, shape.seq_len
+        if cfg.encoder_layers > 0:
+            cache = model.decode_cache_specs(b, s_max, s_enc=s_max)
+        else:
+            cache = model.decode_cache_specs(b, s_max)
+        cache_specs = _cache_shardings(cfg, shape, axes, cache,
+                                       cache_seq_axis=cache_seq_axis)
+        token_spec = (_batch_axes(axes) if b > 1 else None,)
+        decode = make_decode_step(model)
+
+        def decode_last(params, token, caches, cur_len):
+            # the port's decode step takes the position as a host int: the
+            # cell writes the last one, s_max - 1, so attention reads the
+            # whole cache; ``cur_len`` is the reference's scalar input
+            return decode(params, token, caches, s_max - 1)
+        cell = Cell(fn=decode_last,
+                    args=(param_shapes, ShapeDtype((b,), torch.int32), cache,
+                          ShapeDtype((), torch.int32)),
+                    in_shardings=(param_specs, token_spec, cache_specs, ()),
+                    model=model, n_params=n_params, n_active_params=n_active,
+                    model_flops=2.0 * n_active * b)
+    for _, _, spec in leaves_with_specs(cell.args, cell.in_shardings):
+        for entry in spec:
+            mesh.axis_size(entry)
+    return cell

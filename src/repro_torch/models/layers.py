@@ -4,9 +4,11 @@
 Parameters are nested dicts of tensors. A ``ParamSet`` records, for every
 parameter: shape, dtype, init kind and std, and the placeholder sharding
 axes of the reference ("fsdp" / "tp"), kept as data so the two registries
-stay comparable. Sharding itself (``hint``, ``MeshAxes``,
-``resolve_spec``) waits for ROADMAP.md Queue 1 items 15b and 18; the port
-has no ``hint``.
+stay comparable. ``MeshAxes`` and ``resolve_spec`` turn those
+placeholders into per-dim mesh axes for the dry run
+(``launch/cells.build_cell``). ``hint`` and ``set_hint_axes`` act only
+through a sharded runtime, so they wait for ROADMAP.md Queue 1 item 15b;
+the port has no ``hint``.
 """
 
 from __future__ import annotations
@@ -82,6 +84,24 @@ class ParamSet:
             _set(out, path, val)
         return out
 
+    def shape_tree(self) -> Dict[str, Any]:
+        """Nested dict of every parameter's ``ShapeDtype``, its keys in
+        the order ``init_params`` makes them (sorted paths): an eager loop
+        over the leaves, as AdamW's, visits them in that order, which sets
+        where its transient peak falls."""
+        out: Dict[str, Any] = {}
+        for path, info in sorted(self.infos.items()):
+            _set(out, path, ShapeDtype(info.shape, info.dtype))
+        return out
+
+    def spec_tree(self, axes: "MeshAxes") -> Dict[str, Any]:
+        """Nested dict of every parameter's spec resolved on ``axes``, in
+        ``shape_tree``'s order."""
+        out: Dict[str, Any] = {}
+        for path, info in sorted(self.infos.items()):
+            _set(out, path, resolve_spec(info.spec, axes))
+        return out
+
     def n_params(self) -> int:
         return sum(math.prod(i.shape) for i in self.infos.values())
 
@@ -91,6 +111,50 @@ def _set(tree: Dict[str, Any], path: str, val: Any) -> None:
     for p in parts[:-1]:
         tree = tree.setdefault(p, {})
     tree[parts[-1]] = val
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshAxes:
+    """How placeholder axis names map onto the physical mesh.
+
+    fsdp=() replicates parameters across the data axes (inference mode: no
+    optimizer state, weights TP-only).
+    """
+    fsdp: Tuple[str, ...]        # e.g. ("data",) or ("pod", "data") or ()
+    tp: str = "model"
+    batch_axes: Optional[Tuple[str, ...]] = None
+
+    @property
+    def batch(self) -> Tuple[str, ...]:
+        return self.batch_axes if self.batch_axes is not None else self.fsdp
+
+
+# A resolved spec (the counterpart of a ``PartitionSpec``): one entry per
+# dim, each None (replicated), a mesh axis name, or a tuple of names.
+Spec = Tuple[Any, ...]
+
+
+def resolve_spec(spec: Tuple[Optional[str], ...], axes: MeshAxes) -> Spec:
+    """Resolve the placeholders "fsdp", "tp" and "batch" of ``spec`` on
+    ``axes``; raises ValueError on any other name."""
+    def _axes_or_none(t):
+        if not t:
+            return None
+        return t if len(t) > 1 else t[0]
+
+    resolved = []
+    for s in spec:
+        if s is None:
+            resolved.append(None)
+        elif s == "fsdp":
+            resolved.append(_axes_or_none(axes.fsdp))
+        elif s == "tp":
+            resolved.append(axes.tp)
+        elif s == "batch":
+            resolved.append(_axes_or_none(axes.batch))
+        else:
+            raise ValueError(f"unknown axis placeholder {s}")
+    return tuple(resolved)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,227 @@
+"""Roofline of one step on an NVIDIA H100 (port of
+``repro.roofline.analysis``).
+
+Per (arch × shape × mesh) cell:
+  compute term    = FLOPs per device / PEAK_FLOPS
+  memory term     = bytes moved per device / HBM_BW
+  collective term = wire bytes per device / NVLINK_BW
+
+``trace_step`` stands in for the reference's "lower, compile,
+``memory_analysis``, ``cost_analysis``": it runs the step once under
+``FakeTensorMode`` (no device memory, no kernels) and counts its FLOPs,
+the bytes its ops move, its argument bytes and its peak live bytes. The
+same tracer runs over real tensors too, so a step on the card can be held
+against its trace.
+
+The reference parses the collectives of XLA's optimised HLO
+(``_shape_bytes`` … ``parse_collectives``); torch gives no HLO, so that
+part has no counterpart. The port has no sharded runtime yet, so there are
+no collectives to count: ``analyze`` takes them as a breakdown of wire
+bytes by op, which a ``CommDebugMode`` over the sharded step of ROADMAP.md
+Queue 1 item 15b will give. Until then ``collective_s`` is None.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+import weakref
+from typing import Any, Callable, Dict, Optional
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+
+from ..models.layers import ShapeDtype
+
+# NVIDIA H100 80GB HBM3 (SXM) at its 700 W power limit, NVIDIA's data
+# sheet: dense bf16 tensor-core peak, HBM bandwidth, NVLink bandwidth per
+# direction
+PEAK_FLOPS = 989e12          # bf16 FLOP/s
+HBM_BW = 3.35e12             # bytes/s
+NVLINK_BW = 450e9            # bytes/s per direction
+# its memory as torch.cuda.get_device_properties(0).total_memory reported
+# it on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 34)
+HBM_BYTES = 85_017_493_504
+
+# ops that move no data: aliases of their input that the schema does not
+# mark as views, and what detach / lift return
+_VIEW_LIKE = frozenset(("aten._unsafe_view", "aten.alias", "aten.detach",
+                        "aten.lift_fresh"))
+
+
+@dataclasses.dataclass
+class StepCost:
+    flops: int                # FlopCounterMode's count (matmuls, convs, SDPA)
+    bytes_moved: int          # each op's tensor inputs and outputs, once
+    argument_bytes: int       # distinct storages of the arguments
+    peak_bytes: int           # most live bytes at once, arguments included
+    n_ops: int                # ops counted in bytes_moved
+
+
+def tensor_bytes(t: torch.Tensor) -> int:
+    """Bytes of the distinct elements a tensor addresses: a stride-0 dim
+    (a broadcast) counts once."""
+    if t.numel() == 0:
+        return 0
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride != 0:
+            n *= size
+    return n * t.element_size()
+
+
+class _Traffic(TorchDispatchMode):
+    """Counts the bytes each op moves and the live bytes of storages.
+
+    Bytes moved: for every op, the bytes of its tensor inputs and outputs
+    (``tensor_bytes``), so an in-place op counts its operand read and
+    written. Skipped: ``prim.*`` ops (metadata queries such as
+    ``prim.device``), every op whose schema makes it a view (``is_view``),
+    and the view-likes of ``_VIEW_LIKE``. This is the traffic of eager
+    execution with each op reading its inputs and writing its outputs once
+    (no cache reuse between ops, none of a kernel's own re-reads): a lower
+    bound on what the card moves when no ops are fused.
+
+    Live bytes: every storage an op's output lies on counts its ``nbytes``
+    from the op that made it until the last tensor on it dies (a weak
+    reference to the storage).
+    """
+
+    def __init__(self):
+        super().__init__()
+        self.bytes_moved = 0
+        self.n_ops = 0
+        self.live = 0
+        self.peak = 0
+        self._refs: Dict[int, Any] = {}
+        self._lock = threading.Lock()     # backward may run on another thread
+
+    def watch(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = st._cdata
+        with self._lock:
+            if key in self._refs:
+                return
+            nbytes = st.nbytes()
+
+            def gone(_, key=key, nbytes=nbytes):
+                with self._lock:
+                    self.live -= nbytes
+                    self._refs.pop(key, None)
+            self._refs[key] = weakref.ref(st, gone)
+            self.live += nbytes
+            self.peak = max(self.peak, self.live)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        outs = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
+        for t in outs:
+            self.watch(t)
+        if (func.namespace == "prim" or func.is_view
+                or str(func.overloadpacket) in _VIEW_LIKE):
+            return out
+        ins = [t for t in tree_flatten((args, kwargs))[0]
+               if isinstance(t, torch.Tensor)]
+        self.bytes_moved += sum(tensor_bytes(t) for t in ins + outs)
+        self.n_ops += 1
+        return out
+
+
+def _inputs(tree: Any, device: str, fake_mode) -> Any:
+    """``tree`` with each ``ShapeDtype`` leaf made as zeros on ``device``
+    and, under ``fake_mode``, each tensor leaf made a fake of itself."""
+    if isinstance(tree, dict):
+        return {k: _inputs(v, device, fake_mode) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, ShapeDtype):
+        return type(tree)(_inputs(v, device, fake_mode) for v in tree)
+    if isinstance(tree, ShapeDtype):
+        return torch.zeros(tree.shape, dtype=tree.dtype, device=device)
+    if fake_mode is not None and isinstance(tree, torch.Tensor):
+        return fake_mode.from_tensor(tree)
+    return tree
+
+
+def trace_step(fn: Callable, *args, device: str = "cpu",
+               fake: bool = True) -> StepCost:
+    """Run ``fn(*args)`` once and count what it does (``StepCost``).
+
+    ``args`` are trees of ``ShapeDtype`` leaves (made as zeros on
+    ``device``) or tensors. With ``fake`` the step runs under
+    ``FakeTensorMode``: no memory is taken and no kernel runs, and tensors
+    among ``args`` become fakes of themselves. Without it the step runs
+    for real on its arguments' devices. FLOPs come from
+    ``torch.utils.flop_counter.FlopCounterMode``; bytes moved and live
+    bytes from ``_Traffic``. The arguments stay alive through the step, as
+    a caller's do."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    mode = None
+    if fake:
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        mode = FakeTensorMode(allow_non_fake_inputs=False)
+    with mode if mode is not None else contextlib.nullcontext():
+        args = tuple(_inputs(a, device, mode) for a in args)
+        traffic = _Traffic()
+        for t in tree_flatten(args)[0]:
+            if isinstance(t, torch.Tensor):
+                traffic.watch(t)
+        argument_bytes = traffic.live
+        flops = FlopCounterMode(display=False)
+        with flops, traffic:
+            out = fn(*args)
+            del out
+    return StepCost(flops=int(flops.get_total_flops()),
+                    bytes_moved=int(traffic.bytes_moved),
+                    argument_bytes=int(argument_bytes),
+                    peak_bytes=int(traffic.peak), n_ops=int(traffic.n_ops))
+
+
+@dataclasses.dataclass
+class Roofline:
+    flops_per_device: float
+    bytes_per_device: Optional[float]
+    wire_bytes_per_device: Optional[float]
+    compute_s: float
+    memory_s: Optional[float]
+    collective_s: Optional[float]
+    dominant: str
+    collective_breakdown: Optional[Dict[str, float]]
+
+    def as_dict(self) -> Dict:
+        return dataclasses.asdict(self)
+
+    @property
+    def step_time_bound_s(self) -> float:
+        """The largest term reckoned: a lower bound on the step's time."""
+        return max(t for t in (self.compute_s, self.memory_s,
+                               self.collective_s) if t is not None)
+
+
+def analyze(cost: Dict, collectives: Optional[Dict[str, float]] = None
+            ) -> Roofline:
+    """The three terms of one device's step. ``cost``: ``"flops"`` and
+    ``"bytes accessed"`` per device (bytes None where not reckoned);
+    ``collectives``: wire bytes per device by collective op, None where not
+    recorded (then ``collective_s`` is None). The dominant term is the
+    largest of those reckoned."""
+    flops = float(cost.get("flops", 0.0))
+    byts = cost.get("bytes accessed")
+    terms = {"compute": flops / PEAK_FLOPS,
+             "memory": None if byts is None else float(byts) / HBM_BW,
+             "collective": None}
+    wire = None
+    if collectives is not None:
+        wire = float(sum(collectives.values()))
+        terms["collective"] = wire / NVLINK_BW
+    known = {k: v for k, v in terms.items() if v is not None}
+    return Roofline(flops_per_device=flops,
+                    bytes_per_device=None if byts is None else float(byts),
+                    wire_bytes_per_device=wire,
+                    compute_s=terms["compute"], memory_s=terms["memory"],
+                    collective_s=terms["collective"],
+                    dominant=max(known, key=known.get),
+                    collective_breakdown=(None if collectives is None
+                                          else dict(collectives)))
