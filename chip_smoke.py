@@ -3,6 +3,7 @@
 kernel of that path against its plain PyTorch version.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cards 4      # phase 35 (b) only, on 4 cards
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   0. build: compile every kernel under src/repro_torch/kernels/csrc with
@@ -409,13 +410,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      must not exceed 1.05; (d) no kernel launches in the phase
      (``dryrun_check_launches``). Also prints the card's ``total_memory``
      beside ``roofline/analysis.HBM_BYTES``.
+ 35. the distributed engine over a torch.distributed group, one block of
+     shards a rank (``launch/distributed.py``, ``core/transport.py``):
+     (a) phase 28 (a)'s K1 case (524,288 agents, 4 shards) on an NCCL
+     group of one rank holding all 4 shards, spawned through the
+     launcher, ≡ the lanes run (``ShardAxis``) of this process byte for
+     byte: the whole run's final state, every step's stats of every shard
+     and every step's slab boundaries; K1 and its column map once a step
+     in the rank (counted in the rank's process, reset just before its
+     steps and read just after); ms/step of the rank and of the lanes
+     beside phase 28 (a)'s. (b) only with ``--cards N`` (a host with N
+     cards; it builds the kernels and runs nothing else): (a)'s case,
+     SIR with migration and a rebalance (K1), sharded diffusion with
+     secretion and every_k on a skin-0 pair list (K1), each on N ranks
+     one card each ≡ the one-card lanes run of card 0 byte for byte; weak
+     scaling at 131,072 agents a shard and 8 shards (1,048,576 agents) a
+     card on 1, 2 and N cards: median ms/step, peak memory, idle share
+     and device ms in NCCL kernels a step, for each card (3 profiled
+     steps); ``epidemiology --distributed --ranks N`` prints its OK.
+     Writes chiprun_out/chip_smoke_cards.json and ends in the same last
+     line, with the real card count.
 
 The kernels line's K1 and column-map entries add their launches per tick
 on phase 23 (b) (``ensemble_launches_per_tick``); the pair-list build's
 and the pairs map's theirs on phase 26 (b), secretion's on 26 (a); every
 entry adds its launches on phase 28's distributed runs
 (``distributed_launches`` in ``distributed_steps``: K1 and the map from
-(a)'s K1 run, the pair-list kernels from (d), secretion from (c)).
+(a)'s K1 run, the pair-list kernels from (d), secretion from (c)), and
+its launches in phase 35 (a)'s rank (``ranks_launches`` in
+``ranks_steps``).
 
 Each phase prints its seconds. The CPU halves of phases 16-18 and 33 (c)
 run in a child process (``chip_smoke.py --cpu-worker OUT``, one torch
@@ -775,27 +798,15 @@ def phase_engine_cpu_parity(n: int, report: dict) -> None:
           f"max|Δ| {worst}, integer channels and stats equal", flush=True)
 
 
-def _counters() -> dict:
-    """Every kernel wrapper's launch counter, by the kernels line's name."""
-    from repro_torch.kernels import block_cols as colmap
-    from repro_torch.kernels import collision_force as k1
-    from repro_torch.kernels import flash_attention as k2
-    from repro_torch.kernels import pair_cols, pairlist, secretion
-    return {"k1_collision_force": k1.collision_force,
-            "k1_column_map": colmap.column_map,
-            "k2_flash_attention": k2.flash_attention,
-            "pairlist_build": pairlist.build_list,
-            "k1_pair_cols": pair_cols.column_map_from_pairs,
-            "secretion": secretion.add}
-
-
 def _reset_counts() -> None:
-    for fn in _counters().values():
+    from repro_torch.kernels import launch_counters
+    for fn in launch_counters().values():
         fn.launches = 0
 
 
 def _read_counts() -> dict:
-    return {name: fn.launches for name, fn in _counters().items()}
+    from repro_torch.kernels import launch_counters
+    return {name: fn.launches for name, fn in launch_counters().items()}
 
 
 def _timed_run(sim, st, steps: int, expect: dict | None = None):
@@ -4280,30 +4291,6 @@ def _dist_tag_behavior():
     return Tag()
 
 
-def _dist_weak_case(force_impl: str):
-    """benchmarks/distributed.py:64-89 at DIST_SHARDS shards: (DistConfig,
-    positions, diameters)."""
-    import numpy as np
-    from repro_torch.core import DistConfig, EngineConfig, ForceParams
-    n_total = DIST_PER_SHARD * DIST_SHARDS
-    rng = np.random.default_rng(DIST_SHARDS)
-    side = float(np.ceil((n_total / 2.0) ** (1 / 3)) * 4.0)
-    cfg = EngineConfig(capacity=n_total, domain_lo=(0, 0, 0),
-                       domain_hi=(side,) * 3, interaction_radius=4.0,
-                       dt=0.05, max_per_box=32, query_chunk=4096,
-                       force=ForceParams(max_displacement=0.5),
-                       force_impl=force_impl)
-    per = n_total // DIST_SHARDS
-    band = int(n_total * cfg.interaction_radius / side * 2.5) + 256
-    dcfg = DistConfig(engine=cfg, n_shards=DIST_SHARDS,
-                      local_capacity=int(per * 1.25) + 64,
-                      halo_capacity=min(band, int(per * 1.25) + 64),
-                      migrate_capacity=max(256, per // 16),
-                      rebalance_frequency=4)
-    pos = rng.uniform(1.0, side - 1.0, (n_total, 3)).astype(np.float32)
-    return dcfg, pos, np.full(n_total, 3.0, np.float32)
-
-
 def _synced_steps(sim, st, steps: int):
     """``steps`` steps, each timed on the host clock to a synchronise;
     every never-silent flag read after each step (outside its time) must
@@ -4407,10 +4394,14 @@ def _dist_weak(force_impl: str) -> dict:
     import numpy as np
     import torch
     from repro_torch.core import DistributedSimulation, Simulation
-    dcfg, pos, dia = _dist_weak_case(force_impl)
+    from repro_torch.launch import distributed as launcher
+    sc = launcher.scenario(dict(scenario="weak", force_impl=force_impl,
+                                agents_per_shard=DIST_PER_SHARD,
+                                n_shards=DIST_SHARDS))
+    dcfg, pos = sc.dcfg, sc.position
     n = pos.shape[0]
-    init = dict(diameter=dia, extra_init={"tag": np.arange(n,
-                                                           dtype=np.int32)})
+    init = dict(diameter=sc.init["diameter"],
+                extra_init={"tag": np.arange(n, dtype=np.int32)})
     beh = [_dist_tag_behavior()]
     solo = Simulation(dcfg.engine, beh, device="cuda")
     s_st, s_ms = _synced_steps(solo, solo.init_state(pos, **init),
@@ -4471,65 +4462,12 @@ def _dist_weak(force_impl: str) -> dict:
 
 def _dist_sir_parts():
     """tests/test_distributed.py's SIR case (its drift, deterministic
-    infection, births and deaths, migration and rebalance) with K1:
-    (DistConfig, behaviors factory, positions, init)."""
-    import numpy as np
-    import torch
-    from repro_torch.core import DistConfig, EngineConfig, ForceParams
-    from repro_torch.core.behaviors import (Behavior, BehaviorEffects,
-                                            INFECTED, RECOVERED, Infection)
-    side = 48.0
-
-    class Drift(Behavior):
-        name = "drift"
-
-        def __call__(self, ctx, pool, rng):
-            step = torch.tensor([1.2, 0.0, 0.0],
-                                device=pool.device) * ctx.dt
-            new_pos = torch.where(ctx.owned[:, None], pool.position + step,
-                                  pool.position)
-            return BehaviorEffects(set_channels={"position": torch.clamp(
-                new_pos, ctx.domain_lo, ctx.domain_hi)})
-
-    class RecoveredFate(Behavior):
-        name = "fate"
-
-        def extra_specs(self):
-            return {"post": ((), torch.int32, 0)}
-
-        def __call__(self, ctx, pool, rng):
-            rec = ctx.owned & (pool.agent_type == RECOVERED)
-            post = torch.where(rec, pool.extra["post"] + 1,
-                               pool.extra["post"])
-            bp = torch.clamp(pool.position + torch.tensor(
-                [0.0, 1.5, 0.0], device=pool.device), ctx.domain_lo,
-                ctx.domain_hi)
-            return BehaviorEffects(
-                set_channels={"extra.post": post},
-                birth_channels={"position": bp, "diameter": pool.diameter,
-                                "agent_type": torch.zeros_like(
-                                    pool.agent_type)},
-                birth_valid=rec & (post == 3), death_mask=rec & (post >= 6))
-
-    rng = np.random.default_rng(0)
-    rng.uniform(2, side - 2, (400, 3))       # the forces case's draw
-    n = 500
-    cfg = EngineConfig(capacity=1024, domain_lo=(0, 0, 0),
-                       domain_hi=(side,) * 3, interaction_radius=4.0,
-                       dt=0.5, max_per_box=64, query_chunk=128,
-                       force=ForceParams(max_displacement=0.5),
-                       force_impl="k1")
-    pos = rng.uniform(1, side - 1, (n, 3)).astype(np.float32)
-    types = np.zeros(n, np.int32)
-    types[:10] = INFECTED
-    init = dict(diameter=np.full(n, 2.0, np.float32), agent_type=types,
-                extra_init={"infect_timer": np.full(n, 4, np.int32)})
-    dcfg = DistConfig(engine=cfg, n_shards=4, local_capacity=512,
-                      halo_capacity=256, migrate_capacity=128,
-                      rebalance_frequency=3)
-    return dcfg, lambda: [Drift(), Infection(radius=4.0, beta=1.0,
-                                             recovery_time=4),
-                          RecoveredFate()], pos, init
+    infection, births and deaths, migration and rebalance) with K1, as the
+    launcher builds it: (DistConfig, behaviors factory, positions,
+    init)."""
+    from repro_torch.launch import distributed as launcher
+    sc = launcher.scenario({"scenario": "sir", "force_impl": "k1"})
+    return sc.dcfg, sc.behaviors, sc.position, sc.init
 
 
 def _dist_run(dcfg, behaviors, pos, init, steps: int, device: str):
@@ -4603,23 +4541,11 @@ def _dist_diffusion() -> dict:
     card against the solo card run; secretion once a step for all shards,
     and ≡ its plain version on the first step's own inputs."""
     import numpy as np
-    from repro_torch.core import (DiffusionSpec, DistConfig, EngineConfig,
-                                  Simulation, diffusion)
-    from repro_torch.core.behaviors import Chemotaxis, Secretion
-    side = 48.0
-    rng = np.random.default_rng(0)
-    dspec = DiffusionSpec(dims=(16, 8, 8), coefficient=0.2, decay=0.01,
-                          voxel=3.0)
-    cfg = EngineConfig(capacity=256, domain_lo=(0, 0, 0),
-                       domain_hi=(side, 24, 24), interaction_radius=4.0,
-                       dt=0.5, use_forces=False, max_per_box=64,
-                       query_chunk=64, diffusion=dspec, diffusion_substeps=2)
-    pos = rng.uniform(1, 23, (200, 3)).astype(np.float32)
-    pos[:, 0] = rng.uniform(1, side - 1, 200)
-    init = dict(diameter=np.full(200, 2.0, np.float32))
-    beh = lambda: [Secretion(rate=2.0), Chemotaxis(speed=0.8)]  # noqa
-    dcfg = DistConfig(engine=cfg, n_shards=4, local_capacity=128,
-                      halo_capacity=64, migrate_capacity=32)
+    from repro_torch.core import Simulation, diffusion
+    from repro_torch.launch import distributed as launcher
+    sc = launcher.scenario({"scenario": "diffusion"})
+    dcfg, beh, pos, init = sc.dcfg, sc.behaviors, sc.position, sc.init
+    cfg = dcfg.engine
     sim = Simulation(cfg, beh(), device="cuda")
     st = sim.run(sim.init_state(pos, **init), DIST_DIFF_STEPS,
                  check_overflow=True)
@@ -4696,39 +4622,14 @@ def _dist_secretion_vs_plain(args) -> dict:
 def _dist_ladder() -> dict:
     """[28d] tests/test_ladder.py:309's distributed ladder on the card ≡ a
     run pre-sized at its final rungs, bit for bit."""
-    import numpy as np
     import torch
-    from repro_torch.core import (DistConfig, DistributedCapacityLadder,
-                                  DistributedSimulation, EngineConfig,
-                                  ForceParams)
-    from repro_torch.core.behaviors import (Behavior, BehaviorEffects,
-                                            GrowDivide)
-
-    class Drift(Behavior):
-        name = "drift"
-
-        def __call__(self, ctx, pool, rng):
-            step = torch.tensor([1.0, 0.0, 0.0],
-                                device=pool.device) * ctx.dt
-            new_pos = torch.where(ctx.owned[:, None], pool.position + step,
-                                  pool.position)
-            return BehaviorEffects(set_channels={"position": torch.clamp(
-                new_pos, ctx.domain_lo, ctx.domain_hi)})
-
-    beh = lambda: [GrowDivide(rate=0.8, threshold_diameter=6.0),  # noqa
-                   Drift()]
-    rng = np.random.default_rng(1)
-    side, n0 = 64.0, 64
-    cfg = EngineConfig(capacity=n0, domain_lo=(0, 0, 0),
-                       domain_hi=(side,) * 3, interaction_radius=4.0, dt=1.0,
-                       max_per_box=8, query_chunk=128,
-                       force=ForceParams(max_displacement=0.5))
-    pos = rng.uniform(2, side - 2, (n0, 3)).astype(np.float32)
-    dia = np.full(n0, 5.2, np.float32)
-    dl = DistributedCapacityLadder(
-        DistConfig(engine=cfg, n_shards=4, local_capacity=48,
-                   halo_capacity=24, migrate_capacity=12,
-                   rebalance_frequency=3), beh(), device="cuda")
+    from repro_torch.core import (DistributedCapacityLadder,
+                                  DistributedSimulation)
+    from repro_torch.launch import distributed as launcher
+    sc = launcher.scenario({"scenario": "ladder"})
+    beh, pos, dia = sc.behaviors, sc.position, sc.init["diameter"]
+    n0 = pos.shape[0]
+    dl = DistributedCapacityLadder(sc.dcfg, beh(), device="cuda")
     _reset_counts()
     st = dl.run(dl.init_state(pos, diameter=dia), 7)
     launches = _read_counts()
@@ -6312,6 +6213,232 @@ def phase_dryrun_vs_card(report: dict, ms_measured: dict) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 35: the distributed engine over a torch.distributed group, one
+# block of shards a rank (launch/distributed.py)
+# ---------------------------------------------------------------------------
+
+# (a) phase 28 (a)'s K1 case (benchmarks/distributed.py's weak-scaling
+# set-up at 4 shards, 524,288 agents) on one NCCL rank holding all 4
+RANKS_WEAK = dict(scenario="weak", agents_per_shard=DIST_PER_SHARD,
+                  n_shards=DIST_SHARDS, force_impl="k1", steps=DIST_STEPS)
+# (b) on N cards: (a)'s case, SIR with migration and a rebalance (K1),
+# sharded diffusion with secretion, every_k from a skin-0 pair list (K1),
+# each against the one-card lanes run of card 0; then weak scaling at the
+# reference benchmark's 131,072 agents a shard, 8 shards (1,048,576 agents)
+# a card, on 1, 2 and N cards
+RANKS_PARITY = (dict(RANKS_WEAK, name="weak_k1"),
+                dict(scenario="sir", force_impl="k1", steps=DIST_SIR_STEPS,
+                     name="sir_k1"),
+                dict(scenario="diffusion", steps=DIST_DIFF_STEPS,
+                     name="diffusion"),
+                dict(scenario="every_k", skin=0.0, steps=DIST_PL_STEPS,
+                     name="every_k_skin0"))
+SCALE_SHARDS_PER_CARD, SCALE_STEPS, SCALE_PROFILED = 8, 10, 3
+RANKS_EXAMPLE_ENV = {"EXAMPLE_N": "6000", "EXAMPLE_EPOCHS": "5"}
+
+
+def _ranks_run(jobs: list, ranks: int, out: Path) -> tuple[dict, float]:
+    """``jobs`` on ``ranks`` spawned ranks through the launcher, one card
+    each over NCCL: {name: (arrays, meta)} and the launch's seconds."""
+    import numpy as np
+    from repro_torch.launch import distributed as launcher
+    t0 = time.perf_counter()
+    launcher.launch(jobs, ranks, str(out), device="cuda")
+    seconds = time.perf_counter() - t0
+    got = {}
+    for job in jobs:
+        name = job["name"]
+        got[name] = (dict(np.load(out / f"{name}.npz")),
+                     json.loads((out / f"{name}.json").read_text()))
+    return got, seconds
+
+
+def _same_run(got: dict, want: dict, what: str) -> None:
+    """Every array of two runs of one job equal byte for byte: the whole
+    final state, every step's stats of every shard, every boundary."""
+    check(sorted(got) == sorted(want), f"{what}: arrays {sorted(got)}")
+    for k, w in want.items():
+        g = got[k]
+        check(g.dtype == w.dtype and g.shape == w.shape
+              and g.tobytes() == w.tobytes(),
+              f"{what}: {k} differs from the one-card lanes run "
+              f"({g.dtype}{g.shape} vs {w.dtype}{w.shape})")
+
+
+def _lanes_run(job: dict) -> dict:
+    """The job as lanes of card 0 in this process (``ShardAxis``)."""
+    import gc
+    import torch
+    from repro_torch.launch import distributed as launcher
+    res = launcher.run_job(job, None, "cuda")
+    del res["state"]                  # the card's memory back for the next
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_ranks_one_card(report: dict, tmpdir: str) -> dict:
+    """[35a] an NCCL group of one rank, through the launcher, holding all
+    4 shards of phase 28 (a)'s K1 case ≡ the lanes run of this process,
+    bit for bit, every step's stats included; K1 and its map launch once
+    a step in the rank."""
+    import gc
+    import torch
+    from repro_torch.device import card_description
+    gc.collect()
+    torch.cuda.empty_cache()          # room for the rank's own context
+    job = dict(RANKS_WEAK, name="weak_k1")
+    got, spawn_s = _ranks_run([job], 1, Path(tmpdir) / "ranks1")
+    arrays, meta = got["weak_k1"]
+    lanes = _lanes_run(job)
+    _same_run(arrays, lanes["arrays"], "[35a]")
+    rank = meta["ranks"][0]
+    for k in ("k1_collision_force", "k1_column_map"):
+        check(rank["launches"][k] == DIST_STEPS,
+              f"[35a] {k} launched {rank['launches'][k]} times in the rank's "
+              f"{DIST_STEPS} steps, not once a step")
+    flags = arrays["stats"][:, [list(arrays["fields"]).index(f) for f in (
+        "halo_overflow", "migrate_overflow", "in_flight", "thin_slab",
+        "birth_overflow", "box_overflow")]]
+    check(not flags.any(), "[35a] an overflow flag is set")
+    weak28 = report.get("distributed", {}).get("weak", {}).get("k1", {})
+    rec = {"card": card_description(), "agents": DIST_PER_SHARD * DIST_SHARDS,
+           "shards": DIST_SHARDS, "steps": DIST_STEPS,
+           "rank_ms_steps": rank["ms"],
+           "rank_ms_median": statistics.median(rank["ms"]),
+           "lanes_ms_steps": lanes["own"]["ms"],
+           "lanes_ms_median": statistics.median(lanes["own"]["ms"]),
+           "phase28a_lanes_ms_median": weak28.get("dist_ms_median"),
+           "launches": rank["launches"], "peak_bytes": rank["peak_bytes"],
+           "launch_s": spawn_s,
+           "per_shard_live": arrays["stats"][-1][
+               list(arrays["fields"]).index("n_live")].tolist()}
+    print(f"[35a] one NCCL rank holding {DIST_SHARDS} shards of "
+          f"{rec['agents']} agents (K1), {DIST_STEPS} steps: ≡ the lanes run "
+          f"of this process byte for byte (final state, every step's stats "
+          f"and boundaries); {rec['rank_ms_median']:.3f} ms/step (median, "
+          f"host clock) against {rec['lanes_ms_median']:.3f} for the lanes "
+          f"here and {_ms(rec['phase28a_lanes_ms_median'])} in phase 28 "
+          f"(a); K1 "
+          f"{rank['launches']['k1_collision_force']}, map "
+          f"{rank['launches']['k1_column_map']} launches in the rank; peak "
+          f"{rank['peak_bytes'] / 1e9:.2f} GB; launch {spawn_s:.1f} s; "
+          f"{rec['card']}", flush=True)
+    report["ranks_one_card"] = rec
+    return rec
+
+
+def _ms(v) -> str:
+    """A time to three places, or "not run" where its phase did not."""
+    return "not run" if v is None else f"{v:.3f} ms"
+
+
+def _scale_job(cards: int) -> dict:
+    return dict(scenario="weak", agents_per_shard=DIST_PER_SHARD,
+                n_shards=SCALE_SHARDS_PER_CARD * cards, force_impl="k1",
+                steps=SCALE_STEPS, profile=SCALE_PROFILED,
+                name=f"scale_{cards}")
+
+
+def _scale_record(cards: int, arrays: dict, meta: dict) -> dict:
+    fields = list(arrays["fields"])
+    flags = arrays["stats"][:, [fields.index(f) for f in (
+        "halo_overflow", "migrate_overflow", "in_flight", "thin_slab",
+        "birth_overflow", "box_overflow")]]
+    check(not flags.any(), f"[35b] weak scaling on {cards} cards: an "
+                           f"overflow flag is set")
+    ranks = meta["ranks"]
+    return {"cards": cards,
+            "agents": DIST_PER_SHARD * SCALE_SHARDS_PER_CARD * cards,
+            "shards": SCALE_SHARDS_PER_CARD * cards,
+            "ms_median_by_card": [statistics.median(r["ms"]) for r in ranks],
+            "peak_gb_by_card": [r["peak_bytes"] / 1e9 for r in ranks],
+            # the profiled steps' own readings: the profiler slows each
+            # host, and a rank waiting for a slower one spins in NCCL
+            # kernels, so only the least NCCL time over the cards (the
+            # rank the others wait for) stands for the transfers
+            "profiled_idle_share_by_card": [
+                r["profile"]["device_idle_share"] for r in ranks],
+            "profiled_busy_ms_by_card": [r["profile"]["device_busy_ms"]
+                                         for r in ranks],
+            "profiled_nccl_ms_by_card": [r["profile"]["nccl_ms_per_step"]
+                                         for r in ranks],
+            "nccl_ms_min": min(r["profile"]["nccl_ms_per_step"]
+                               for r in ranks),
+            "k1_launches_by_card": [r["launches"]["k1_collision_force"]
+                                    for r in ranks]}
+
+
+def phase_ranks_cards(n_cards: int, tmpdir: str) -> dict:
+    """[35b] the distributed engine on ``n_cards`` ranks, one card each:
+    the parity jobs ≡ the one-card lanes runs of card 0, weak scaling on
+    1, 2 and n_cards cards, the epidemiology example with --ranks."""
+    import os
+    import subprocess as sp
+    from repro_torch.device import card_description
+    check(DIST_SHARDS % n_cards == 0,
+          f"[35b] {DIST_SHARDS} shards do not split over {n_cards} cards")
+    cards = sp.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                    "--format=csv,noheader"], capture_output=True,
+                   text=True, timeout=60, check=True).stdout.split("\n")
+    rec = {"cards": [c for c in cards if c.strip()], "parity": {},
+           "scaling": []}
+    jobs = list(RANKS_PARITY) + [_scale_job(n_cards)]
+    got, spawn_s = _ranks_run(jobs, n_cards, Path(tmpdir) / "ranksN")
+    rec["launch_s"] = spawn_s
+    for job in RANKS_PARITY:
+        arrays, meta = got[job["name"]]
+        lanes = _lanes_run(job)
+        _same_run(arrays, lanes["arrays"], f"[35b] {job['name']}")
+        ranks = meta["ranks"]
+        r = rec["parity"][job["name"]] = {
+            "steps": job["steps"],
+            "rank_ms_median": [statistics.median(x["ms"]) for x in ranks],
+            "lanes_ms_median": statistics.median(lanes["own"]["ms"]),
+            "launches_by_card": [x["launches"] for x in ranks]}
+        print(f"[35b] {job['name']} on {n_cards} cards ({DIST_SHARDS // n_cards}"
+              f" shard(s) a card), {job['steps']} steps: ≡ the one-card lanes "
+              f"run byte for byte, every step's stats included; ms/step by "
+              f"card {[round(x, 3) for x in r['rank_ms_median']]} against "
+              f"{r['lanes_ms_median']:.3f} on one card", flush=True)
+    scale = {n_cards: got[f"scale_{n_cards}"]}
+    for w in (1, 2):
+        if w < n_cards:
+            g, _ = _ranks_run([_scale_job(w)], w, Path(tmpdir) / f"scale{w}")
+            scale[w] = g[f"scale_{w}"]
+    for w in sorted(scale):
+        s = _scale_record(w, *scale[w])
+        rec["scaling"].append(s)
+        print(f"[35b] weak scaling, {w} card(s), {s['shards']} shards of "
+              f"{DIST_PER_SHARD} ({s['agents']} agents): ms/step by card "
+              f"{[round(x, 3) for x in s['ms_median_by_card']]}, peak GB "
+              f"{[round(x, 2) for x in s['peak_gb_by_card']]}; in "
+              f"{SCALE_PROFILED} profiled steps (the profiler's own, not the "
+              f"timed steps'): NCCL kernels {s['nccl_ms_min']:.4f} ms/step on "
+              f"the card the others wait for (by card "
+              f"{[round(x, 4) for x in s['profiled_nccl_ms_by_card']]}, the "
+              f"rest spin-waiting), idle share by card "
+              f"{[round(x, 3) for x in s['profiled_idle_share_by_card']]}; "
+              f"{card_description()}", flush=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **RANKS_EXAMPLE_ENV)
+    t0 = time.perf_counter()
+    proc = sp.run([sys.executable, "-m", "repro_torch.examples.epidemiology",
+                   "--distributed", "--ranks", str(n_cards)], env=env,
+                  capture_output=True, text=True, timeout=600)
+    ok = [ln for ln in proc.stdout.splitlines() if ln.startswith("OK:")]
+    check(proc.returncode == 0 and bool(ok),
+          f"[35b] epidemiology --distributed --ranks {n_cards}: "
+          f"rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    rec["example"] = {"seconds": time.perf_counter() - t0, "ok": ok,
+                      "output": proc.stdout}
+    print(f"[35b] epidemiology --distributed --ranks {n_cards} "
+          f"({RANKS_EXAMPLE_ENV}): {ok[-1]} in "
+          f"{rec['example']['seconds']:.1f} s; {card_description()}",
+          flush=True)
+    return rec
+
+
 T_START = time.perf_counter()
 
 
@@ -6325,6 +6452,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--cards"]:
+        return _cards_main(int(sys.argv[2]))
     # phase 33 (c) steps under deterministic algorithms, which need
     # deterministic cuBLAS workspaces from the first GEMM on: ":4096:8" is
     # the H100's default size anyway
@@ -6341,6 +6470,39 @@ def main() -> int:
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
+
+
+def _cards_main(n_cards: int) -> int:
+    """``--cards N``: build the kernels and run phase 35 (b) only."""
+    import tempfile
+    import torch
+    if torch.cuda.device_count() < n_cards:
+        print(f"chip_smoke: --cards {n_cards} needs {n_cards} cards, "
+              f"{torch.cuda.device_count()} visible", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.device import card_description
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    print(f"[0] built {sorted(libs)} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmpdir:
+        t0 = time.perf_counter()
+        rec = phase_ranks_cards(n_cards, tmpdir)
+        print(f"[35b] phase time {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    rec["device"] = torch.cuda.get_device_name(0)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_cards.json").write_text(json.dumps(rec, indent=1))
+    for line in rec["cards"]:
+        print(line, flush=True)
+    print(card_description(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def _run(workers, tmpdir: str) -> int:
@@ -6426,6 +6588,7 @@ def _run(workers, tmpdir: str) -> int:
                 **{arch: families[arch]["ms_per_step_median"]
                    for arch in ("mamba2-370m", "deepseek-v2-lite-16b")}}
     dry = timed("34", phase_dryrun_vs_card, report, measured)
+    ranks = timed("35", phase_ranks_one_card, report, tmpdir)
     report["total_s"] = time.perf_counter() - T_START
     print(f"phases took {sum(seconds.values()):.1f} s, the script "
           f"{report['total_s']:.1f} s", flush=True)
@@ -6553,6 +6716,11 @@ def _run(workers, tmpdir: str) -> int:
     # nor does holding the dry run against the card (phase 34)
     for k in kernels:
         k["dryrun_check_launches"] = dry["launches"][k["name"]]
+    # the distributed engine on one NCCL rank (phase 35 (a)): counted in
+    # the rank's process over its steps
+    for k in kernels:
+        k["ranks_launches"] = ranks["launches"].get(k["name"], 0)
+        k["ranks_steps"] = ranks["steps"]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

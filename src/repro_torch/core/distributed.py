@@ -20,23 +20,32 @@ ghost bands. The wrapper only distributes:
 * **Sharded diffusion.** The substance grid is split into x-slabs; each FTCS
   substep reads one-voxel face halos from the neighboring slabs.
 
-**One device, shards as lanes.** The reference runs one ``shard_map``
-program over a device mesh. Here the shards are the lanes of one lane-major
-pool on one device (``core/lanes.py``): lane ``i`` is shard ``i``'s in-step
-pool, stepped exactly as its own solo step, and the core's kernels (K1 and
-its column map, the pair-list build and the pairs map, secretion) launch
-once a step for all shards. The collectives become moves along the shard
-axis of the stacked tensors, all in :class:`ShardAxis`: ``ppermute`` a shift
-with a zero fill, ``all_gather`` a reshape, ``psum_scatter`` a sum over the
-shards and a slice. A transport across several cards would replace that one
-object (ROADMAP.md Queue 1, 15b).
+**Shards as lanes, blocks of shards as ranks.** The reference runs one
+``shard_map`` program over a device mesh, one shard a device. Here the
+shards a process holds are the lanes of one lane-major pool on its device
+(``core/lanes.py``): lane ``i`` is shard ``i``'s in-step pool, stepped
+exactly as its own solo step, and the core's kernels (K1 and its column
+map, the pair-list build and the pairs map, secretion) launch once a step
+for all of them. Every move between shards goes through one object:
+:class:`ShardAxis` when every shard is a lane of one device (``ppermute``
+a shift with a zero fill, ``all_gather`` a reshape, ``psum_scatter`` a sum
+over the shards and a slice), or :class:`~.transport.GroupShardAxis` over
+a ``torch.distributed`` group, rank ``r`` of ``W`` holding the block of
+shards ``[r·S/W, (r+1)·S/W)`` (NCCL between cards, gloo between CPU
+processes). The step is the same code either way, and a rank's state is
+bit for bit its block of the one-device run's.
 
-The state keeps the reference's global layout: every channel one
-``(n_shards·local_capacity, ...)`` tensor, shard ``i``'s agents in
-``[i·C, i·C + n_i)``. The step reads nothing from the card on the host but,
-under every_k, the (n_shards,) rebuild flags in one transfer; the
-rebalance branch is taken on ``DistState.iteration``, which lives on the
-host.
+The state keeps the reference's layout for the shards it holds: every
+channel one ``(n_local·local_capacity, ...)`` tensor, local shard ``i``'s
+agents in ``[i·C, i·C + n_i)`` (``n_local = n_shards`` on one device).
+:func:`gather_state` assembles the whole run on every rank, or on one
+(a checkpoint's writer). At init every rank stages the whole input and
+keeps a copy of its block; the step holds only the rank's shards, but for
+the rebalance's gather of every row's x and liveness. The step reads
+nothing from the card on the host but, under every_k, the rank's
+(n_local,) rebuild flags in one transfer; the rebalance branch is taken on
+``DistState.iteration``, which lives on the host, so every rank takes it
+on the same step.
 """
 
 from __future__ import annotations
@@ -102,20 +111,23 @@ class DistConfig:
 
 @dataclasses.dataclass
 class DistState:
-    """Sharded simulation state, the reference's leaves in its global layout.
+    """Sharded simulation state, the reference's leaves in its global
+    layout, of the ``n_local`` shards a rank holds (every shard on one
+    device: ``n_local = n_shards``).
 
-    channels:   every pool channel as one (n_shards·local_capacity, ...)
-                tensor, shard i's agents in [i·C, i·C + n_i)
-    conc:       the whole substance grid (X, Y, Z), shard i's slab its
-                x-rows [i·X/n, (i+1)·X/n); (n_shards, 1, 1) when unused
-    rng:        (n_shards, 2) int64 holding uint32 keys, one per shard
-    boundaries: (n_shards + 1,) float32 slab edges
+    channels:   every pool channel as one (n_local·local_capacity, ...)
+                tensor, local shard i's agents in [i·C, i·C + n_i)
+    conc:       the local shards' x-slabs of the substance grid (the
+                whole (X, Y, Z) grid on one device), shard i's slab its
+                x-rows [i·X/n, (i+1)·X/n); (n_local, 1, 1) when unused
+    rng:        (n_local, 2) int64 holding uint32 keys, one per shard
+    boundaries: (n_shards + 1,) float32 slab edges, on every rank
     iteration:  () int32 ON THE HOST: the step branches on it (rebalance)
                 without a read from the card
-    stats:      StepStats, (n_shards,) per field
-    env:        every_k: one cache per shard in the lane-major layout of
-                :class:`~.grid.RebuildState` (lanes of total_capacity);
-                None under every_step
+    stats:      StepStats, (n_local,) per field
+    env:        every_k: one cache per local shard in the lane-major
+                layout of :class:`~.grid.RebuildState` (lanes of
+                total_capacity); None under every_step
     """
     channels: Dict[str, torch.Tensor]
     conc: torch.Tensor
@@ -129,26 +141,38 @@ class DistState:
 class ShardAxis:
     """The moves along the shard axis of the stacked (n_shards, ...)
     tensors: the reference's collectives over its mesh axis. Nothing else
-    in this module moves data between shards, so a transport across cards
-    replaces this object alone."""
+    in this module moves data between shards. Every shard is local here;
+    :class:`~.transport.GroupShardAxis` makes the same moves over a
+    process group, each rank holding a block of the shards.
+
+    A move takes one tensor or a dict of tensors (moved alike)."""
 
     def __init__(self, n_shards: int):
-        self.n = n_shards
+        self.n = self.n_local = n_shards
+        self.first = 0
+        self.shard_ids = torch.arange(n_shards)
 
-    def shift_forward(self, x: torch.Tensor) -> torch.Tensor:
+    @staticmethod
+    def _each(fn: Callable, x):
+        return _tree(fn, x) if isinstance(x, dict) else fn(x)
+
+    def shift_forward(self, x):
         """Shard i receives shard i-1's rows; shard 0 receives zeros in
         every element (``ppermute`` over i → i+1)."""
-        return torch.cat([torch.zeros_like(x[:1]), x[:-1]])
+        return self._each(
+            lambda t: torch.cat([torch.zeros_like(t[:1]), t[:-1]]), x)
 
-    def shift_backward(self, x: torch.Tensor) -> torch.Tensor:
+    def shift_backward(self, x):
         """Shard i receives shard i+1's rows; the last receives zeros
         (``ppermute`` over i+1 → i)."""
-        return torch.cat([x[1:], torch.zeros_like(x[:1])])
+        return self._each(
+            lambda t: torch.cat([t[1:], torch.zeros_like(t[:1])]), x)
 
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
+    def gather(self, x, dst: Optional[int] = None):
         """(n_shards, k, ...) → (n_shards·k, ...): every shard's rows in
-        shard order (a tiled ``all_gather``)."""
-        return x.reshape(self.n * x.shape[1], *x.shape[2:])
+        shard order (a tiled ``all_gather``; ``dst`` is the one rank's)."""
+        return self._each(
+            lambda t: t.reshape(self.n * t.shape[1], *t.shape[2:]), x)
 
     def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
         """(n_shards, n_shards·k, ...) → (n_shards, k, ...): the sum over
@@ -158,6 +182,36 @@ class ShardAxis:
         for i in range(1, self.n):
             acc = acc + x[i]
         return acc.reshape(self.n, -1, *acc.shape[1:])
+
+    def block(self, x: torch.Tensor) -> torch.Tensor:
+        """A global tensor's rows of the local shards: all of them."""
+        return x
+
+
+def rank_device(device: DeviceLike, group) -> torch.device:
+    """``resolve_device``, but with a group and no device the rank's
+    current CUDA card (raising without one)."""
+    dev = resolve_device(device)
+    if group is not None and device is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def shard_axis(n_shards: int, group, device: torch.device):
+    """The moves for ``n_shards`` shards: :class:`ShardAxis` on one device
+    (``group`` None), else a :class:`~.transport.GroupShardAxis` over the
+    group, whose backend must suit ``device`` (gloo on the CPU, NCCL on
+    the cards)."""
+    if group is None:
+        return ShardAxis(n_shards)
+    import torch.distributed as tdist
+    from .transport import GroupShardAxis
+    want = "gloo" if device.type == "cpu" else "nccl"
+    backend = tdist.get_backend(group)
+    if backend != want:
+        raise ValueError(f"a {device.type} run needs a {want} group, got "
+                         f"{backend}")
+    return GroupShardAxis(n_shards, group, device)
 
 
 def _tree(fn: Callable, d: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -280,17 +334,17 @@ class _ShardedDiffusionOps(diff_mod.DiffusionOps):
     """
 
     def __init__(self, spec: diff_mod.DiffusionSpec, origin: torch.Tensor,
-                 shards: ShardAxis, lanes: Lanes):
+                 shards, lanes: Lanes):
         super().__init__(spec, origin)     # full-grid reads: lane offset 0
         self.shards = shards
         self.shard_lanes = lanes
-        sid = torch.arange(shards.n, device=origin.device)
+        sid = shards.shard_ids.to(origin.device)      # global ids
         self.first = (sid == 0)[:, None, None]
         self.last = (sid == shards.n - 1)[:, None, None]
 
     def _slabs(self, conc: torch.Tensor) -> torch.Tensor:
         x, y, z = self.spec.dims
-        return conc.reshape(self.shards.n, x // self.shards.n, y, z)
+        return conc.reshape(self.shards.n_local, x // self.shards.n, y, z)
 
     def _gathered(self, conc: torch.Tensor) -> torch.Tensor:
         return self.shards.gather(self._slabs(conc))
@@ -316,9 +370,10 @@ class _ShardedDiffusionOps(diff_mod.DiffusionOps):
 
     def add_sources(self, conc: torch.Tensor, position: torch.Tensor,
                     amount: torch.Tensor) -> torch.Tensor:
-        # one secretion launch: shard i's rows into grid i of the stack
-        g = torch.zeros((self.shards.n, *self.spec.dims), dtype=torch.float32,
-                        device=conc.device)
+        # one secretion launch: local shard i's rows into grid i of the
+        # stack, then every shard's grid summed in shard order
+        g = torch.zeros((self.shards.n_local, *self.spec.dims),
+                        dtype=torch.float32, device=conc.device)
         g = diff_mod.add_sources(self.spec, g, position, amount, self.origin,
                                  self.shard_lanes)
         return conc + self.shards.reduce_scatter(g).reshape(conc.shape)
@@ -334,32 +389,34 @@ def _pad_rows(v: torch.Tensor, rows: int) -> torch.Tensor:
 
 
 def make_distributed_step(dcfg: DistConfig, behaviors: Sequence[Behavior]
-                          = (), device: DeviceLike = None
+                          = (), device: DeviceLike = None, shards=None
                           ) -> Callable[[DistState], DistState]:
-    """The distributed step ``DistState → DistState`` over every shard at
-    once.
+    """The distributed step ``DistState → DistState`` over the local
+    shards at once: every shard, unless ``shards`` is a
+    :class:`~.transport.GroupShardAxis`, whose rank steps its block.
 
     Halo exchange (ghost rows appended to each shard's pool, owned False)
-    → the shared iteration core over the shards as lanes of
+    → the shared iteration core over the local shards as lanes of
     ``total_capacity`` rows → the quantile rebalance on its iterations →
     ring migration through the birth-commit path → repack to
     ``local_capacity``. The step leaves its input state unchanged.
     """
     cfg = dcfg.engine
-    s = dcfg.n_shards
     c_local, t = dcfg.local_capacity, dcfg.total_capacity
     hcap, mcap = dcfg.halo_capacity, dcfg.migrate_capacity
     if not 0 < hcap <= c_local or not 0 < mcap <= c_local:
         raise ValueError(
             "halo/migrate capacity must be in (0, local_capacity]")
-    if cfg.diffusion is not None and cfg.diffusion.dims[0] % s:
+    if cfg.diffusion is not None and cfg.diffusion.dims[0] % dcfg.n_shards:
         raise ValueError(f"diffusion dims[0]={cfg.diffusion.dims[0]} must be "
-                         f"divisible by n_shards={s} (x-slab sharding)")
+                         f"divisible by n_shards={dcfg.n_shards} (x-slab "
+                         f"sharding)")
     dev = resolve_device(device)
     x_lo_dom, x_hi_dom = float(cfg.domain_lo[0]), float(cfg.domain_hi[0])
     # the reference adds the band width as a float32 constant
     hw = float(np.float32(dcfg.halo_width))
-    shards = ShardAxis(s)
+    shards = shards or ShardAxis(dcfg.n_shards)
+    s, lo = shards.n_local, shards.first           # the local block
     ln = Lanes(s, t)
     diff_ops = None
     if cfg.diffusion is not None:
@@ -371,8 +428,10 @@ def make_distributed_step(dcfg: DistConfig, behaviors: Sequence[Behavior]
                                behaviors, dev, n_lanes=s,
                                owned_channel=OWNED, diff_ops=diff_ops)
     use_cache = cfg.rebuild.mode == "every_k"
-    sid = torch.arange(s, device=dev)
-    not_first, not_last = sid > 0, sid < s - 1
+    # global shard ids: a block that does not start at shard 0 has a left
+    # neighbor
+    sid = shards.shard_ids.to(dev)
+    not_first, not_last = sid > 0, sid < dcfg.n_shards - 1
     owned_rows = torch.cat([torch.ones((s, c_local), dtype=torch.bool,
                                        device=dev),
                             torch.zeros((s, 2 * hcap), dtype=torch.bool,
@@ -384,10 +443,14 @@ def make_distributed_step(dcfg: DistConfig, behaviors: Sequence[Behavior]
     def lane_count(m: torch.Tensor) -> torch.Tensor:
         return m.sum(1, dtype=torch.int32)
 
+    def slab_edges(bounds: torch.Tensor):
+        """The local shards' lower and upper slab edges, (s, 1) each."""
+        return bounds[lo:lo + s, None], bounds[lo + 1:lo + s + 1, None]
+
     def step(state: DistState) -> DistState:
         it = int(state.iteration)                 # a host tensor: no sync
         bounds = state.boundaries
-        my_lo, my_hi = bounds[:-1, None], bounds[1:, None]
+        my_lo, my_hi = slab_edges(bounds)
         ch = {k: per_shard(v, c_local) for k, v in state.channels.items()}
         alive = ch["alive"]
         x = ch["position"][..., 0]
@@ -395,8 +458,8 @@ def make_distributed_step(dcfg: DistConfig, behaviors: Sequence[Behavior]
         # ---- halo exchange: boundary bands → the neighbors' ghost rows ----
         band_l, ovf_hl = pack_channels(alive & (x < my_lo + hw), ch, hcap)
         band_r, ovf_hr = pack_channels(alive & (x > my_hi - hw), ch, hcap)
-        ghosts_l = _tree(shards.shift_forward, band_r)     # from shard i-1
-        ghosts_r = _tree(shards.shift_backward, band_l)    # from shard i+1
+        ghosts_l = shards.shift_forward(band_r)      # from shard i-1
+        ghosts_r = shards.shift_backward(band_l)     # from shard i+1
         # an edge shard's outer band is never shipped: a pile-up against
         # the wall must not flag overflow
         ovf_hl = torch.where(not_first, ovf_hl, 0)
@@ -410,7 +473,7 @@ def make_distributed_step(dcfg: DistConfig, behaviors: Sequence[Behavior]
         full["extra." + OWNED] = owned_rows
         pool = pool_from_channels(full)
 
-        # ---- the shared iteration core, every shard a lane ----
+        # ---- the shared iteration core, every local shard a lane ----
         env = state.env
         if use_cache:
             # a cached build indexes a layout whose ghost slots were all
@@ -422,7 +485,7 @@ def make_distributed_step(dcfg: DistConfig, behaviors: Sequence[Behavior]
                 env, dirty=env.dirty | (n_ghosts > 0).reshape(
                     env.dirty.shape))
         it_dev = torch.full((s,), it, dtype=torch.int32, device=dev)
-        if s == 1:          # one lane: the solo core on shard 0's leaves
+        if s == 1:          # one lane: the solo core on the shard's leaves
             pool, conc, rng, stats, env = core(pool, state.conc,
                                                state.rng[0], it_dev[0], env)
             rng = rng[None]
@@ -437,18 +500,18 @@ def make_distributed_step(dcfg: DistConfig, behaviors: Sequence[Behavior]
         # ---- quantile rebalance on its iterations (a host branch) ----
         if (dcfg.rebalance_frequency > 0
                 and (it + 1) % dcfg.rebalance_frequency == 0):
-            bounds = quantile_boundaries(shards.gather(x2),
-                                         shards.gather(alive2), s,
-                                         x_lo_dom, x_hi_dom)
-            my_lo, my_hi = bounds[:-1, None], bounds[1:, None]
+            every = shards.gather({"x": x2, "alive": alive2})
+            bounds = quantile_boundaries(every["x"], every["alive"],
+                                         dcfg.n_shards, x_lo_dom, x_hi_dom)
+            my_lo, my_hi = slab_edges(bounds)
 
         # ---- ring migration: leavers append through the birth commit ----
         go_l = alive2 & (x2 < my_lo) & not_first[:, None]
         go_r = alive2 & (x2 >= my_hi) & not_last[:, None]
         mig_l, ovf_ml = pack_channels(go_l, v, mcap)
         mig_r, ovf_mr = pack_channels(go_r, v, mcap)
-        arrivals = (_tree(shards.shift_forward, mig_r),
-                    _tree(shards.shift_backward, mig_l))
+        arrivals = (shards.shift_forward(mig_r),
+                    shards.shift_backward(mig_l))
         v["alive"] = alive2 & ~go_l & ~go_r        # drop ghosts + leavers
         pool = compaction.compact(pool_from_channels(
             {k: a.reshape(s * t, *a.shape[2:]) for k, a in v.items()}), ln)
@@ -506,9 +569,11 @@ def make_distributed_step(dcfg: DistConfig, behaviors: Sequence[Behavior]
     return step
 
 
-def initial_dist_env(dcfg: DistConfig, device: torch.device
+def initial_dist_env(dcfg: DistConfig, device: torch.device,
+                     n_lanes: Optional[int] = None
                      ) -> Optional[grid_mod.RebuildState]:
-    """One empty, dirty every_k cache per shard (lane-major), or None."""
+    """One empty, dirty every_k cache per shard (lane-major) for
+    ``n_lanes`` shards (default: all of them), or None."""
     cfg = dcfg.engine
     if cfg.rebuild.mode != "every_k":
         return None
@@ -516,7 +581,62 @@ def initial_dist_env(dcfg: DistConfig, device: torch.device
         cfg.grid_spec, dcfg.total_capacity,
         torch.tensor(cfg.domain_lo, dtype=torch.float32, device=device),
         cfg.cell_size, pairlist=cfg.pairlist,
-        lanes=Lanes(dcfg.n_shards, dcfg.total_capacity))
+        lanes=Lanes(n_lanes or dcfg.n_shards, dcfg.total_capacity))
+
+
+def gather_state(state: DistState, dcfg: DistConfig, shards,
+                 dst: Optional[int] = None) -> Optional[DistState]:
+    """The whole run's state on every rank, in the reference's layout (as
+    its checkpoints store it): every channel ``(n_shards·C, ...)``, the
+    whole grid, ``(n_shards, ...)`` keys and stats, and the every_k caches
+    stacked ``(n_shards, ...)``, each shard's slot ids its own. One
+    gather; with ``dst`` onto that rank of the group only (None on the
+    others)."""
+    s = shards.n_local
+    per = lambda v: v.reshape(s, -1, *v.shape[1:])        # noqa: E731
+    leaves = {"ch." + k: per(v) for k, v in state.channels.items()}
+    leaves.update({"conc": per(state.conc), "rng": per(state.rng)})
+    leaves.update({"stats." + f: per(v) for f, v in state.stats.items()})
+    env = state.env
+    env_leaves: list = []
+    if env is not None:
+        env = grid_mod.stack_rebuild_state(env, Lanes(s, dcfg.total_capacity))
+        grid_mod.map_rebuild_state(lambda t: env_leaves.append(t) or t, env)
+        leaves.update({f"env.{i}": t[:, None]
+                       for i, t in enumerate(env_leaves)})
+    got = shards.gather(leaves, dst)
+    if got is None:
+        return None
+    if env is not None:
+        it = iter(got[f"env.{i}"] for i in range(len(env_leaves)))
+        env = grid_mod.map_rebuild_state(lambda t: next(it), env)
+        n = dcfg.n_shards
+        env = dataclasses.replace(env, grid=dataclasses.replace(
+            env.grid, origin=env.grid.origin[:1].expand(n, 3).clone(),
+            box_size=env.grid.box_size[:1].expand(n).clone()))
+    return DistState(
+        channels={k[3:]: v for k, v in got.items() if k.startswith("ch.")},
+        conc=got["conc"], rng=got["rng"], boundaries=state.boundaries,
+        iteration=state.iteration,
+        stats=StepStats(**{f: got["stats." + f] for f in StepStats.FIELDS}),
+        env=env)
+
+
+def block_state(state: DistState, shards) -> DistState:
+    """Inverse of :func:`gather_state`: this rank's block of a whole run's
+    state (the caches back in the lane-major layout it steps with)."""
+    env = state.env
+    if env is not None:
+        env = grid_mod.flatten_rebuild_state(grid_mod.map_rebuild_state(
+            shards.block, dataclasses.replace(env, grid=dataclasses.replace(
+                env.grid, origin=shards.block(env.grid.origin),
+                box_size=shards.block(env.grid.box_size)))))
+    return DistState(
+        channels=_tree(shards.block, state.channels),
+        conc=shards.block(state.conc), rng=shards.block(state.rng),
+        boundaries=state.boundaries, iteration=state.iteration,
+        stats=StepStats(**_tree(shards.block, dict(state.stats.items()))),
+        env=env)
 
 
 def shard_keys(seed: int, n_shards: int, device: torch.device
@@ -528,27 +648,38 @@ def shard_keys(seed: int, n_shards: int, device: torch.device
 
 class DistributedSimulation:
     """The distributed counterpart of ``engine.Simulation``: the same
-    config and behaviors, the state sharded over ``dcfg.n_shards`` slabs
-    stepped together on one device. Any scenario ``Simulation`` runs runs
-    here unchanged: forces, behaviors, births and deaths, statics and
-    diffusion.
+    config and behaviors, the state sharded over ``dcfg.n_shards`` slabs.
+    Any scenario ``Simulation`` runs runs here unchanged: forces,
+    behaviors, births and deaths, statics and diffusion.
 
-    ``device=None`` means the CUDA card and raises without one; pass
-    ``device="cpu"`` for the plain path.
+    Without ``group`` every shard is a lane of one device. With a
+    ``torch.distributed`` group of W ranks, rank r steps the block of
+    shards ``[r·S/W, (r+1)·S/W)`` on its own device and the moves between
+    shards go over the group (:mod:`.transport`); every rank must call
+    every method in the same order. The states are the rank's block of
+    the one-device run's, bit for bit.
+
+    ``device=None`` means the CUDA card (with a group, the rank's current
+    one) and raises without one; pass ``device="cpu"`` for the plain path,
+    over a gloo group with ranks.
     """
 
     def __init__(self, dcfg: DistConfig, behaviors: Sequence[Behavior] = (),
-                 device: DeviceLike = None):
-        self.device = resolve_device(device)
+                 device: DeviceLike = None, group=None):
+        self.device = rank_device(device, group)
         self.dcfg = dcfg
+        self.group = group
         self.behaviors = list(behaviors)
+        self.shards = shard_axis(dcfg.n_shards, group, self.device)
         self._step_fn = make_distributed_step(dcfg, self.behaviors,
-                                              self.device)
+                                              self.device, self.shards)
 
     # -- state construction -------------------------------------------------
     def init_state(self, position, diameter=None, agent_type=None,
                    extra_init: Dict | None = None,
                    seed: int = 0) -> DistState:
+        """Every rank partitions the same global input and keeps its
+        block."""
         dcfg, cfg = self.dcfg, self.dcfg.engine
         staging = stage_pool(position.shape[0], self.behaviors, position,
                              diameter, agent_type, extra_init,
@@ -571,15 +702,17 @@ class DistributedSimulation:
                 f"local_capacity={dcfg.local_capacity}; raise it (heavy ties "
                 f"in x can defeat quantile balancing)")
         dspec = cfg.diffusion
+        block = self.shards.block
         return DistState(
-            channels=partition_global(ch, boundaries, dcfg),
-            conc=torch.zeros(dspec.dims if dspec else (dcfg.n_shards, 1, 1),
-                             dtype=torch.float32, device=self.device),
-            rng=shard_keys(seed, dcfg.n_shards, self.device),
+            channels=_tree(block, partition_global(ch, boundaries, dcfg)),
+            conc=block(torch.zeros(
+                dspec.dims if dspec else (dcfg.n_shards, 1, 1),
+                dtype=torch.float32, device=self.device)),
+            rng=block(shard_keys(seed, dcfg.n_shards, self.device)),
             boundaries=boundaries,
             iteration=torch.zeros((), dtype=torch.int32),
-            stats=StepStats.zeros(self.device, (dcfg.n_shards,)),
-            env=initial_dist_env(dcfg, self.device))
+            stats=StepStats.zeros(self.device, (self.shards.n_local,)),
+            env=initial_dist_env(dcfg, self.device, self.shards.n_local))
 
     # -- public API ----------------------------------------------------------
     def step(self, state: DistState) -> DistState:
@@ -588,15 +721,24 @@ class DistributedSimulation:
     def run(self, state: DistState, n_iterations: int,
             check_overflow: bool = False) -> DistState:
         """Run ``n_iterations``; with ``check_overflow`` the host reads
-        every per-shard flag after each step (one transfer) and raises on
-        the first set one, in severity order."""
+        every shard's flags after each step (one gather over the ranks, one
+        transfer) and raises on the first set one, in severity order: every
+        rank the same error at the same step."""
         for i in range(n_iterations):
             state = self._step_fn(state)
             if check_overflow:
-                flags = state.stats.flags()
+                # every rank reads every shard's flags: all raise alike
+                stats = self.global_stats(state.stats)
+                flags = stats.flags()
                 if flags:
-                    self._raise_overflow(i, flags, state.stats)
+                    self._raise_overflow(i, flags, stats)
         return state
+
+    def global_stats(self, stats: StepStats) -> StepStats:
+        """Every shard's stats (n_shards,) from the local ones, on every
+        rank."""
+        return StepStats(**self.shards.gather(
+            {f: v[:, None] for f, v in stats.items()}))
 
     def _raise_overflow(self, i: int, flags: Dict[str, int],
                         s: StepStats) -> None:
@@ -639,11 +781,14 @@ class DistributedSimulation:
                 raise RuntimeError(f"iteration {i}: {remediation[f]}")
 
     def gather_channels(self, state: DistState) -> Dict[str, np.ndarray]:
-        """The global channels on the host (only live rows are meaningful;
-        the order across shards is arbitrary). bfloat16 channels come back
-        as float32 (numpy has no bfloat16)."""
+        """The global channels on the host, on every rank (only live rows
+        are meaningful; the order across shards is arbitrary). bfloat16
+        channels come back as float32 (numpy has no bfloat16)."""
+        s = self.shards.n_local
         out = {}
-        for k, v in state.channels.items():
+        for k, v in self.shards.gather({k: v.reshape(s, -1, *v.shape[1:])
+                                        for k, v in state.channels.items()}
+                                       ).items():
             v = v.detach().cpu()
             out[k] = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
         return out
@@ -663,19 +808,21 @@ class DistributedCapacityLadder(LadderDriverBase):
     pre-step state, which keeps the trajectory bit-identical to a pre-sized
     run. ``thin_slab`` and ``in_flight`` are not buffer sizes: they raise
     with the remedy instead of growing. Each step reads every flag and
-    demand in one host transfer.
+    demand in one host transfer; over a process group every rank reads
+    every shard's (one gather first), so all ranks take the same rung.
     """
 
     def __init__(self, dcfg: DistConfig, behaviors: Sequence[Behavior] = (),
                  ladder: Optional[LadderConfig] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, group=None):
         self.ladder = ladder or LadderConfig()
         self.dcfg = dcfg
         self.behaviors = list(behaviors)
         self.rungs: list = []
         self.recompiles = 0
-        self._sim = DistributedSimulation(dcfg, self.behaviors, device)
+        self._sim = DistributedSimulation(dcfg, self.behaviors, device, group)
         self.device = self._sim.device
+        self.group = group
 
     @property
     def sim(self) -> DistributedSimulation:
@@ -704,6 +851,8 @@ class DistributedCapacityLadder(LadderDriverBase):
              "migrate_overflow", "capacity_demand")
 
     def _diagnose(self, stats: StepStats) -> Optional[DistConfig]:
+        # every shard's stats on every rank: all ranks take the same rung
+        stats = self._sim.global_stats(stats)
         vals = torch.stack(
             [stats[f].to(torch.int64).sum() for f in self._TOTAL]
             + [stats[f].to(torch.int64).max() for f in self._PEAK]).tolist()
@@ -781,7 +930,8 @@ class DistributedCapacityLadder(LadderDriverBase):
             + ([("max_pairs", pls[1].max_pairs, pls[0].max_pairs)]
                if None not in pls else []))
         self.dcfg = new_d
-        self._sim = DistributedSimulation(new_d, self.behaviors, self.device)
+        self._sim = DistributedSimulation(new_d, self.behaviors, self.device,
+                                          self.group)
 
     def _grow(self, new_d: DistConfig, prev: DistState,
               iteration: int) -> DistState:
@@ -789,14 +939,14 @@ class DistributedCapacityLadder(LadderDriverBase):
             self.dcfg.total_capacity
         old_pl = self.dcfg.engine.pairlist
         self._rebuild(new_d, iteration)
+        n_local = self._sim.shards.n_local
         if new_d.local_capacity != old_local:
             prev = dataclasses.replace(prev, channels=compaction.repack_slabs(
-                prev.channels, new_d.n_shards, old_local,
-                new_d.local_capacity))
+                prev.channels, n_local, old_local, new_d.local_capacity))
         env = prev.env
         if env is None:
             return prev
-        old_lanes = Lanes(new_d.n_shards, old_total)
+        old_lanes = Lanes(n_local, old_total)
         new_pl = new_d.engine.pairlist
         if (env.pairs is not None and new_pl is not None
                 and old_pl is not None

@@ -23,8 +23,12 @@
 * :func:`save_dist_state` / :func:`restore_dist_state` — a distributed
   run (every shard's slab, keys, boundaries and caches) in the reference's
   format, the caches stored ``(n_shards, ...)``; a restore onto another
-  shard count re-partitions the live agents. The supervisor drives a
-  :class:`DistributedCapacityLadder` as it drives a single-device one.
+  shard count re-partitions the live agents. Over a process group the
+  ranks gather the whole run and rank 0 writes it, so the file does not
+  depend on the rank count: every rank of any group (or one device)
+  restores it and keeps its block. The supervisor drives a
+  :class:`DistributedCapacityLadder` as it drives a single-device one,
+  over a group too.
 """
 
 from __future__ import annotations
@@ -41,8 +45,9 @@ from . import grid as grid_mod, rand
 from .behaviors import Behavior
 from .compaction import repack_slabs
 from .distributed import (OWNED, DistConfig, DistributedCapacityLadder,
-                          DistributedSimulation, DistState, initial_dist_env,
-                          partition_global, quantile_boundaries,
+                          DistributedSimulation, DistState, block_state,
+                          gather_state, initial_dist_env, partition_global,
+                          quantile_boundaries, rank_device, shard_axis,
                           shard_keys)
 from .engine import (CapacityExhausted, CapacityLadder, EngineConfig,
                      EngineState, ScenarioParams, Simulation, stage_pool)
@@ -329,14 +334,15 @@ def restore_ensemble_state(ckpt_dir: str, cfg: EngineConfig,
     return state, cfg, meta
 
 
-def _dist_stacked(state: DistState, dcfg: DistConfig) -> DistState:
-    """The distributed state as the reference stores it: every cache leaf
-    with a leading (n_shards,) axis and each shard's slot ids its own."""
-    env = state.env
-    if env is not None:
-        env = grid_mod.stack_rebuild_state(
-            env, Lanes(dcfg.n_shards, dcfg.total_capacity))
-    return dataclasses.replace(state, env=env)
+def _dist_stacked(state: DistState, dcfg: DistConfig,
+                  group=None) -> Optional[DistState]:
+    """The distributed state as the reference stores it: the whole run
+    (gathered from every rank of ``group`` onto its rank 0, the writer;
+    None on the others), every cache leaf with a leading (n_shards,) axis
+    and each shard's slot ids its own."""
+    dev = state.channels["alive"].device
+    return gather_state(state, dcfg, shard_axis(dcfg.n_shards, group, dev),
+                        dst=0)
 
 
 def _dist_flat(state: DistState) -> DistState:
@@ -344,6 +350,20 @@ def _dist_flat(state: DistState) -> DistState:
     if env is not None:
         env = grid_mod.flatten_rebuild_state(env)
     return dataclasses.replace(state, env=env)
+
+
+def _is_writer(group) -> bool:
+    """Rank 0 writes a distributed checkpoint; one device always does."""
+    return group is None or torch.distributed.get_rank(group) == 0
+
+
+def _barrier(group, device: torch.device) -> None:
+    """Every rank of ``group`` waits here for the others (a one-element
+    sum read on the host): after it, a file rank 0 wrote is there."""
+    if group is not None:
+        one = torch.ones(1, device=device)
+        torch.distributed.all_reduce(one, group=group)
+        one.item()
 
 
 def _dist_meta(dcfg: DistConfig, extras: Optional[Dict]) -> Dict:
@@ -354,21 +374,30 @@ def _dist_meta(dcfg: DistConfig, extras: Optional[Dict]) -> Dict:
 
 
 def save_dist_state(ckpt_dir: str, state: DistState, dcfg: DistConfig,
-                    extras: Optional[Dict] = None) -> str:
-    """Atomic checkpoint of a distributed run: every shard's slab at once
-    (the channels are already the global tensors)."""
-    return ckpt_mod.save(ckpt_dir, int(state.iteration),
-                         _stored(_dist_stacked(state, dcfg)),
-                         extras=_dist_meta(dcfg, extras))
+                    extras: Optional[Dict] = None, group=None
+                    ) -> Optional[str]:
+    """Atomic checkpoint of a distributed run: every shard's slab at once.
+    With ``group`` every rank must call it: the ranks gather the whole run
+    onto rank 0, which writes it (and gets the path; the others None), and
+    all wait until the file is there."""
+    whole = _dist_stacked(state, dcfg, group)
+    path = None
+    if _is_writer(group):
+        path = ckpt_mod.save(ckpt_dir, int(state.iteration), _stored(whole),
+                             extras=_dist_meta(dcfg, extras))
+    _barrier(group, state.channels["alive"].device)
+    return path
 
 
 def restore_dist_state(ckpt_dir: str, dcfg: DistConfig,
                        behaviors: Sequence[Behavior],
                        step: Optional[int] = None, apply_knobs: str = "all",
-                       seed: int = 0, device: DeviceLike = None
+                       seed: int = 0, device: DeviceLike = None, group=None
                        ) -> Tuple[DistState, DistConfig]:
     """Restore ``(state, dist_config)`` on ``device`` (None: the CUDA
-    card), across shard counts.
+    card, with ``group`` the rank's), across shard counts. With ``group``
+    every rank reads the file and keeps its block of the shards, whatever
+    the rank count that wrote it.
 
     The checkpoint's ``n_shards``: an exact restore, so the resumed run is
     bit-exact (a larger ``local_capacity`` in ``dcfg`` re-packs the slabs
@@ -377,7 +406,18 @@ def restore_dist_state(ckpt_dir: str, dcfg: DistConfig,
     per-shard keys folded from ``seed``, dirty caches) — the same
     population, another layout and stream, so not bit-exact.
     """
-    dev = resolve_device(device)
+    dev = rank_device(device, group)
+    state, target = _restore_whole_run(ckpt_dir, dcfg, behaviors, step,
+                                       apply_knobs, seed, dev)
+    shards = shard_axis(target.n_shards, group, dev)
+    return block_state(_dist_stacked(state, target), shards), target
+
+
+def _restore_whole_run(ckpt_dir: str, dcfg: DistConfig,
+                       behaviors: Sequence[Behavior], step: Optional[int],
+                       apply_knobs: str, seed: int, dev: torch.device
+                       ) -> Tuple[DistState, DistConfig]:
+    """:func:`restore_dist_state` of every shard on one device."""
     if step is None:
         step = ckpt_mod.latest_step(ckpt_dir)
         if step is None:
@@ -447,26 +487,35 @@ class SimCheckpointer:
     caller's thread, the file written on a background thread. Saves are
     serialised (a new save waits for the previous write)."""
 
-    def __init__(self, ckpt_dir: str, keep: int = 3):
+    def __init__(self, ckpt_dir: str, keep: int = 3, group=None):
         self.ckpt_dir = ckpt_dir
+        self.group = group
+        self._device: Optional[torch.device] = None
         self._async = ckpt_mod.AsyncCheckpointer(ckpt_dir, keep=keep)
 
     def save_async(self, state, config, extras: Optional[Dict] = None
                    ) -> int:
         """Save an ``EngineState`` under its ``EngineConfig`` or a
-        ``DistState`` under its ``DistConfig``."""
+        ``DistState`` under its ``DistConfig``. With a group (a
+        ``DistState``), every rank calls it: the ranks gather the whole
+        run onto rank 0 on this thread and rank 0 writes it."""
         step = int(state.iteration)
         if isinstance(config, DistConfig):
-            self._async.save_async(step, _stored(_dist_stacked(state,
-                                                               config)),
-                                   extras=_dist_meta(config, extras))
+            self._device = state.channels["alive"].device
+            whole = _dist_stacked(state, config, self.group)
+            if _is_writer(self.group):
+                self._async.save_async(step, _stored(whole),
+                                       extras=_dist_meta(config, extras))
         else:
             self._async.save_async(step, _stored(state),
                                    extras=_meta(config, extras))
         return step
 
     def wait(self) -> None:
+        """The last write has ended (with a group, on every rank)."""
         self._async.wait()
+        if self._device is not None:
+            _barrier(self.group, self._device)
 
 
 # ---------------------------------------------------------------------------
@@ -562,7 +611,8 @@ class SupervisedRunner:
         self.max_retries = max_retries
         self.fault_hook = fault_hook
         self.report = RunReport()
-        self._ckpt = SimCheckpointer(ckpt_dir, keep=keep)
+        self._ckpt = SimCheckpointer(
+            ckpt_dir, keep=keep, group=driver.group if self._dist else None)
         self._applied: List[str] = []
 
     # -- driver plumbing (CapacityLadder vs DistributedCapacityLadder) ------
@@ -576,7 +626,8 @@ class SupervisedRunner:
         d = self.driver
         if self._dist:
             d.dcfg = new_cfg
-            d._sim = DistributedSimulation(new_cfg, d.behaviors, d.device)
+            d._sim = DistributedSimulation(new_cfg, d.behaviors, d.device,
+                                           d.group)
         else:
             d.config = new_cfg
             d._sim = Simulation(new_cfg, d.behaviors, device=d.device)
@@ -589,10 +640,11 @@ class SupervisedRunner:
     def _rollback(self):
         """The latest checkpoint under the current (degraded) config."""
         self._ckpt.wait()
-        restore = restore_dist_state if self._dist else restore_state
+        restore, kw = ((restore_dist_state, {"group": self.driver.group})
+                       if self._dist else (restore_state, {}))
         state, cfg = restore(self.ckpt_dir, self._config(),
                              self.driver.behaviors, apply_knobs="rungs",
-                             device=self.driver.device)
+                             device=self.driver.device, **kw)
         self._reconfigure(cfg)
         return state
 
@@ -627,7 +679,11 @@ class SupervisedRunner:
                     state = injected
             try:
                 nxt = self.driver.step(state)
-                bits = nxt.stats.health_bits()
+                # over ranks, every shard's health on every rank: all
+                # roll back together
+                stats = (self.driver.sim.global_stats(nxt.stats)
+                         if self._dist else nxt.stats)
+                bits = stats.health_bits()
                 if bits:
                     raise HealthFault(
                         f"iteration {it}: health guard fired "

@@ -10,10 +10,15 @@ Running distributed
 -------------------
 The same scenario runs sharded without touching the model: every x-slab
 runs the shared iteration core, so behaviors, births and deaths and the
-infection state cross slab boundaries on their own. The port stacks the 4
-shards as lanes of one device (``core/distributed.py``):
+infection state cross slab boundaries on their own. Without ``--ranks``
+the port stacks the 4 shards as lanes of one device
+(``core/distributed.py``); with ``--ranks N`` it runs N shards, one a
+rank of a process group (one a card, or gloo ranks with ``--device
+cpu``), through ``launch/distributed.py``:
 
     PYTHONPATH=src python -m repro_torch.examples.epidemiology --distributed
+    PYTHONPATH=src python -m repro_torch.examples.epidemiology \
+        --distributed --ranks 4
 """
 
 from __future__ import annotations
@@ -21,12 +26,15 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from ..core import (DistConfig, DistributedSimulation, EngineConfig,
                     Simulation)
 from ..core.behaviors import (INFECTED, RECOVERED, SUSCEPTIBLE, Infection,
                               RandomWalk)
 from ..device import DeviceLike
+from ..launch.distributed import spawn_ranks
 from ._common import env_int, parser
 
 SIDE = 140.0
@@ -83,10 +91,13 @@ def run_single(device: DeviceLike = None) -> None:
     print("OK: epidemic spread and recovered")
 
 
-def main_distributed(n_shards: int = 4, device: DeviceLike = None) -> None:
+def main_distributed(n_shards: int = 4, device: DeviceLike = None,
+                     group=None) -> None:
     """The distributed path: the same config and behaviors over quantile
     x-slabs with in-loop rebalance. RandomWalk draws per shard, so the
-    curves equal the single-device run's statistically, not bit for bit."""
+    curves equal the single-device run's statistically, not bit for bit.
+    With ``group`` every rank runs this (its block of the shards) and
+    rank 0 prints."""
     n = n_agents()
     pos, types = initial_population(np.random.default_rng(1), n)
     local_capacity = 2 * n // n_shards
@@ -95,25 +106,43 @@ def main_distributed(n_shards: int = 4, device: DeviceLike = None) -> None:
                       halo_capacity=min(4096, local_capacity),
                       migrate_capacity=min(2048, local_capacity),
                       rebalance_frequency=10)
-    dsim = DistributedSimulation(dcfg, behaviors(), device=device)
+    dsim = DistributedSimulation(dcfg, behaviors(), device=device,
+                                 group=group)
     state = dsim.init_state(pos, **_init_kwargs(n, types))
-    print(f"{'iter':>5} {'S':>7} {'I':>7} {'R':>7}   (over {n_shards} "
-          f"shards)")
+    say = group is None or dist.get_rank(group) == 0
+    if say:
+        print(f"{'iter':>5} {'S':>7} {'I':>7} {'R':>7}   (over {n_shards} "
+              f"shards)")
     for _ in range(epochs()):
         state = dsim.run(state, 20, check_overflow=True)
-        t = report(state.iteration, state.channels["agent_type"],
-                   state.channels["alive"])
-        print(f"      per-shard live: {state.stats.n_live.tolist()}")
+        ch = dsim.gather_channels(state)          # every shard's agents
+        live = dsim.global_stats(state.stats).n_live.tolist()
+        if say:
+            t = report(state.iteration, torch.from_numpy(ch["agent_type"]),
+                       torch.from_numpy(ch["alive"]))
+            print(f"      per-shard live: {live}")
+    t = ch["agent_type"][ch["alive"]]
     assert (t != SUSCEPTIBLE).sum() > 20, "epidemic should have spread"
-    print("OK: epidemic spread and recovered (distributed)")
+    if say:
+        print("OK: epidemic spread and recovered (distributed)")
+
+
+def _rank_main(group, device, n_shards: int) -> None:
+    main_distributed(n_shards, device, group)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = parser(__doc__)
     ap.add_argument("--distributed", action="store_true",
                     help="4 x-slab shards stepped together on the device")
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="with --distributed: one shard a rank, this many "
+                         "ranks (one a card; gloo with --device cpu)")
     args = ap.parse_args(argv)
-    if args.distributed:
+    if args.distributed and args.ranks:
+        spawn_ranks(_rank_main, (args.ranks,), args.ranks,
+                    args.device or "cuda")
+    elif args.distributed:
         main_distributed(device=args.device)
     else:
         run_single(args.device)

@@ -14,7 +14,10 @@ device, ≡ the port's solo runs ≡ the reference's ``DistributedSimulation``.
   module-scoped subprocess with 4 host devices, as the reference's own
   test runs it): integers, stats and per-shard n_live equal, positions
   within 1e-3, boundaries within 1e-4; a checkpoint written by either
-  package restores in the other, whose next step is the writer's;
+  package restores in the other, whose next step is the writer's; the
+  same assertions hold for the port on 4 gloo ranks of one shard each
+  (``launch/distributed.py``), and the reference's checkpoint restored
+  onto those ranks steps as the reference's;
 * tests/test_fused.py's 4-shard contract (fused ≡ sequential, bit for
   bit) and K1 over shards ≡ the streamed sweep at 1e-4;
 * the port's own: the step leaves its input unchanged, one shard is the
@@ -28,6 +31,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import types
 
 import numpy as np
 import pytest
@@ -40,6 +44,7 @@ from repro_torch.core import (DistConfig, DistributedSimulation,  # noqa: E402
 from repro_torch.core import behaviors as tb  # noqa: E402
 from repro_torch.core import distributed as dist  # noqa: E402
 from repro_torch.core.diffusion import DiffusionSpec  # noqa: E402
+from repro_torch.launch import distributed as launcher  # noqa: E402
 
 SIDE = 48.0
 CPU = "cpu"
@@ -73,101 +78,32 @@ def _dist_live(st, *names):
 
 
 # ---------------------------------------------------------------------------
-# the test scenarios (tests/test_distributed.py's)
+# the test scenarios (tests/test_distributed.py's), as the launcher builds
+# them (launch/distributed.py: its Drift and RecoveredFate behaviors)
 # ---------------------------------------------------------------------------
-
-class Drift(tb.Behavior):
-    """Deterministic +x drift: every agent crosses slab boundaries."""
-    name = "drift"
-
-    def __init__(self, vx):
-        self.vx = vx
-
-    def __call__(self, ctx, pool, rng):
-        step = torch.tensor([self.vx, 0.0, 0.0]) * ctx.dt
-        new_pos = torch.where(ctx.owned[:, None], pool.position + step,
-                              pool.position)
-        new_pos = torch.clamp(new_pos, ctx.domain_lo, ctx.domain_hi)
-        return tb.BehaviorEffects(set_channels={"position": new_pos})
-
-
-class RecoveredFate(tb.Behavior):
-    """Deterministic births and deaths: a recovered agent seeds one
-    susceptible child 3 steps after recovery and dies after 6."""
-    name = "fate"
-
-    def extra_specs(self):
-        return {"post": ((), torch.int32, 0)}
-
-    def __call__(self, ctx, pool, rng):
-        rec = ctx.owned & (pool.agent_type == tb.RECOVERED)
-        post = torch.where(rec, pool.extra["post"] + 1, pool.extra["post"])
-        bp = torch.clamp(pool.position + torch.tensor([0.0, 1.5, 0.0]),
-                         ctx.domain_lo, ctx.domain_hi)
-        return tb.BehaviorEffects(
-            set_channels={"extra.post": post},
-            birth_channels={"position": bp, "diameter": pool.diameter,
-                            "agent_type": torch.zeros_like(pool.agent_type)},
-            birth_valid=rec & (post == 3), death_mask=rec & (post >= 6))
-
 
 def sir_behaviors():
     # beta 1.0 makes Infection deterministic; drift, recovery, births and
     # deaths are deterministic by construction
-    return [Drift(1.2), tb.Infection(radius=4.0, beta=1.0, recovery_time=4),
-            RecoveredFate()]
+    return launcher.scenario({"scenario": "sir"}).behaviors()
 
 
 def sir_case(force_impl="streamed"):
-    rng = np.random.default_rng(0)
-    rng.uniform(2, SIDE - 2, (400, 3))     # the forces case's draw
-    n = 500
-    cfg = EngineConfig(capacity=1024, domain_lo=(0, 0, 0),
-                       domain_hi=(SIDE,) * 3, interaction_radius=4.0,
-                       dt=0.5, max_per_box=64, query_chunk=128,
-                       force=ForceParams(max_displacement=0.5),
-                       force_impl=force_impl)
-    pos = rng.uniform(1, SIDE - 1, (n, 3)).astype(np.float32)
-    types = np.zeros(n, np.int32)
-    types[:10] = tb.INFECTED
-    init = dict(diameter=np.full(n, 2.0, np.float32), agent_type=types,
-                extra_init={"infect_timer": np.full(n, 4, np.int32)})
-    dcfg = DistConfig(engine=cfg, n_shards=4, local_capacity=512,
-                      halo_capacity=256, migrate_capacity=128,
-                      rebalance_frequency=3)
-    return dcfg, pos, init
+    sc = launcher.scenario({"scenario": "sir", "force_impl": force_impl})
+    return sc.dcfg, sc.position, sc.init
 
 
 SIR_STEPS = 20
 
 
 def forces_case(force_impl="streamed"):
-    rng = np.random.default_rng(0)
-    cfg = EngineConfig(capacity=512, domain_lo=(0, 0, 0),
-                       domain_hi=(SIDE,) * 3, interaction_radius=4.0,
-                       dt=0.1, max_per_box=64, query_chunk=128,
-                       force=ForceParams(max_displacement=0.5),
-                       force_impl=force_impl)
-    pos = rng.uniform(2, SIDE - 2, (400, 3)).astype(np.float32)
-    dcfg = DistConfig(engine=cfg, n_shards=4, local_capacity=256,
-                      halo_capacity=128, migrate_capacity=64)
-    return dcfg, pos, dict(diameter=np.full(400, 3.0, np.float32))
+    sc = launcher.scenario({"scenario": "forces", "force_impl": force_impl})
+    return sc.dcfg, sc.position, sc.init
 
 
 def diffusion_case():
-    rng = np.random.default_rng(0)
-    dspec = DiffusionSpec(dims=(16, 8, 8), coefficient=0.2, decay=0.01,
-                          voxel=3.0)
-    cfg = EngineConfig(capacity=256, domain_lo=(0, 0, 0),
-                       domain_hi=(SIDE, 24, 24), interaction_radius=4.0,
-                       dt=0.5, use_forces=False, max_per_box=64,
-                       query_chunk=64, diffusion=dspec, diffusion_substeps=2)
-    pos = rng.uniform(1, 23, (200, 3)).astype(np.float32)
-    pos[:, 0] = rng.uniform(1, SIDE - 1, 200)
-    dcfg = DistConfig(engine=cfg, n_shards=4, local_capacity=128,
-                      halo_capacity=64, migrate_capacity=32)
-    return (dcfg, pos, dict(diameter=np.full(200, 2.0, np.float32)),
-            lambda: [tb.Secretion(rate=2.0), tb.Chemotaxis(speed=0.8)])
+    sc = launcher.scenario({"scenario": "diffusion"})
+    return sc.dcfg, sc.position, sc.init, sc.behaviors
 
 
 def _solo(cfg, behaviors, pos, init, steps):
@@ -611,6 +547,78 @@ def test_sir_four_shards_equal_the_reference(reference_sir):
         assert np.abs(want[0] - got[0]).max() < 1e-3, s
         for w, g, n in zip(want[1:], got[1:], names):
             np.testing.assert_array_equal(g, w, err_msg=f"shard {s} {n}")
+
+
+@pytest.fixture(scope="module")
+def sir_on_ranks(tmp_path_factory, reference_sir):
+    """The SIR case on 4 gloo ranks, one shard each, through the launcher
+    (``launch/distributed.py``, one subprocess): 20 steps from the inputs,
+    and one step from the reference's checkpoint."""
+    import rank_cases
+    d = tmp_path_factory.mktemp("sir_ranks")
+    rank_cases.launch([
+        {"name": "sir", "scenario": "sir", "steps": SIR_STEPS},
+        {"name": "ref_next", "scenario": "sir", "steps": 1,
+         "resume": reference_sir["ref_ck"]}], 4, d)
+    return {name: dict(np.load(d / f"{name}.npz"))
+            for name in ("sir", "ref_next")}
+
+
+def _stats_by_field(run, fields, i):
+    """Step ``i``'s stats of a launcher run, (len(fields), n_shards)."""
+    own = [str(f) for f in run["fields"]]
+    return np.stack([run["stats"][i][own.index(f)] for f in fields])
+
+
+def test_sir_four_ranks_equal_the_reference(reference_sir, sir_on_ranks):
+    """test_sir_four_shards_equal_the_reference's assertions, on 4 gloo
+    ranks of one shard each."""
+    ref = reference_sir
+    run = sir_on_ranks["sir"]
+    dcfg, pos, init = sir_case()
+    np.testing.assert_array_equal(run["rng0"],
+                                  ref["rng0"].astype(np.int64))
+    np.testing.assert_array_equal(run["bounds"][0], ref["bounds0"])
+    fields = [str(f) for f in ref["fields"]]
+    for i in range(SIR_STEPS):
+        got = _stats_by_field(run, fields, i)
+        np.testing.assert_array_equal(got, ref["stats"][i],
+                                      err_msg=f"stats after step {i}")
+        np.testing.assert_allclose(run["bounds"][i + 1], ref["bounds"][i],
+                                   rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(run["rng"],
+                                  ref["rng"].astype(np.int64))
+    c = dcfg.local_capacity
+    names = ("agent_type", "extra.post", "extra.infect_timer", "born_iter",
+             "extra.owned")
+    for s in range(dcfg.n_shards):
+        sl = slice(s * c, (s + 1) * c)
+        want = _live({k[3:]: v[sl] for k, v in ref.items()
+                      if k.startswith("ch.")}, *names)
+        got = _live({k[3:]: v[sl] for k, v in run.items()
+                     if k.startswith("ch.")}, *names)
+        assert want[0].shape == got[0].shape, s
+        assert np.abs(want[0] - got[0]).max() < 1e-3, s
+        for w, g, n in zip(want[1:], got[1:], names):
+            np.testing.assert_array_equal(g, w, err_msg=f"shard {s} {n}")
+
+
+def test_a_reference_checkpoint_steps_on_four_ranks(reference_sir,
+                                                    sir_on_ranks):
+    """The reference's 4-shard checkpoint (after 20 steps) restored onto 4
+    gloo ranks, each keeping its shard: their next step is the
+    reference's."""
+    ref = reference_sir
+    run = sir_on_ranks["ref_next"]
+    fields = [str(f) for f in ref["fields"]]
+    np.testing.assert_array_equal(_stats_by_field(run, fields, 0),
+                                  ref["next.stats"])
+    st = types.SimpleNamespace(
+        stats=types.SimpleNamespace(n_live=run["stats"][0][0]),
+        channels={k[3:]: torch.from_numpy(v) for k, v in run.items()
+                  if k.startswith("ch.")})
+    _same_shards(ref, "next.ch.", st, sir_case()[0].local_capacity,
+                 ("agent_type", "extra.post", "extra.infect_timer"))
 
 
 def _same_shards(ref, prefix, st, c, names):

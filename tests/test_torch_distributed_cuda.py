@@ -14,7 +14,10 @@ tests/test_torch_distributed_cuda.py -m cuda``):
   shard, the grid within 1e-4 of the CPU run's scale;
 * a skin-0 pair list over the shards: the build and the pairs map once a
   step, the run ≡ the stencil map's bit for bit;
-* the distributed ladder ≡ a run pre-sized at its final rungs, bit for bit.
+* the distributed ladder ≡ a run pre-sized at its final rungs, bit for bit;
+* over ranks of a process group (``launch/distributed.py``): one NCCL
+  rank holding all 4 shards, and 2 or 4 ranks one card each (skipped
+  with fewer than 2 cards), ≡ the lanes run on card 0 byte for byte.
 """
 
 import dataclasses
@@ -183,3 +186,42 @@ def test_distributed_ladder_on_the_card_equals_presized():
     sp = pre.run(pre.init_state(pos, **init), 8, check_overflow=True)
     for k, v in st.channels.items():
         assert torch.equal(v, sp.channels[k]), k
+
+
+# ---------------------------------------------------------------------------
+# ranks of a process group (launch/distributed.py), one card each over NCCL
+# ---------------------------------------------------------------------------
+
+RANK_JOBS = ({"scenario": "sir", "force_impl": "k1", "steps": 8,
+              "name": "sir_k1"},
+             {"scenario": "every_k", "skin": 0.0, "steps": 6,
+              "name": "every_k"})
+
+
+def _ranks_equal_lanes(tmp_path, ranks: int) -> None:
+    """Each job on ``ranks`` NCCL ranks ≡ its lanes run on card 0, every
+    array byte for byte (the final state, every step's stats)."""
+    from repro_torch.launch import distributed as launcher
+    launcher.launch(list(RANK_JOBS), ranks, str(tmp_path), device="cuda")
+    for job in RANK_JOBS:
+        got = dict(np.load(tmp_path / f"{job['name']}.npz"))
+        want = launcher.run_job(job, None, "cuda")["arrays"]
+        assert sorted(got) == sorted(want)
+        for k, w in want.items():
+            assert got[k].dtype == w.dtype and got[k].tobytes() == \
+                w.tobytes(), (job["name"], k)
+
+
+@pytest.mark.cuda
+def test_one_nccl_rank_equals_the_lanes_run(tmp_path):
+    _card()
+    _ranks_equal_lanes(tmp_path, 1)
+
+
+@pytest.mark.cuda
+def test_nccl_ranks_on_several_cards_equal_the_lanes_run(tmp_path):
+    _card()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs 2 cards for 2 NCCL ranks, {n} visible")
+    _ranks_equal_lanes(tmp_path, 4 if n >= 4 else 2)

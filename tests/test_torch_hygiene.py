@@ -50,6 +50,11 @@ def test_import_check_covers_the_distributed_engine():
     assert PORT / "core" / "distributed.py" in PORT_FILES
 
 
+def test_import_check_covers_the_transport_and_its_launcher():
+    assert PORT / "core" / "transport.py" in PORT_FILES
+    assert PORT / "launch" / "distributed.py" in PORT_FILES
+
+
 def test_import_check_covers_the_moe_layer():
     assert PORT / "models" / "moe.py" in PORT_FILES
 
@@ -122,11 +127,12 @@ def test_simulation_defaults_to_cuda_and_raises_without_it():
 @pytest.mark.parametrize("make", ["make_pool", "stage_pool", "prng_key",
                                   "StepStats.zeros", "restore_state",
                                   "CapacityLadder", "restore_dist_state",
-                                  "DistributedCapacityLadder"])
+                                  "DistributedCapacityLadder", "run_job"])
 def test_public_constructors_default_to_cuda_and_raise_without_it(make,
                                                                   tmp_path):
-    """The pool, key and stats constructors, the restore and the ladder
-    put their tensors on the card unless asked for the CPU."""
+    """The pool, key and stats constructors, the restore, the ladder and
+    the launcher's job put their tensors on the card unless asked for the
+    CPU."""
     import numpy as np
     from repro_torch.core import (CapacityLadder, EngineConfig, StepStats,
                                   make_pool, rand, restore_state, save_state,
@@ -136,6 +142,7 @@ def test_public_constructors_default_to_cuda_and_raise_without_it(make,
     pos = np.zeros((2, 3), np.float32)
     from repro_torch.core import (DistConfig, DistributedCapacityLadder,
                                   restore_dist_state, save_dist_state)
+    from repro_torch.launch import distributed as launcher
     dcfg = DistConfig(engine=cfg, n_shards=2, local_capacity=8,
                       halo_capacity=4, migrate_capacity=4)
     if make == "restore_state":
@@ -158,6 +165,9 @@ def test_public_constructors_default_to_cuda_and_raise_without_it(make,
             str(tmp_path), dcfg, [], **kw)[0].channels["position"],
         "DistributedCapacityLadder": lambda **kw: DistributedCapacityLadder(
             dcfg, [], **kw).sim,
+        "run_job": lambda **kw: launcher.run_job(
+            {"scenario": "forces", "steps": 0}, **kw)[
+                "state"].channels["position"],
     }
     fn = calls[make]
 
