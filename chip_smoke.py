@@ -3,7 +3,7 @@
 kernel of that path against its plain PyTorch version.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --cards 4      # phase 35 (b) only, on 4 cards
+    python3 chip_smoke.py --cards 4      # phases 35 (b), 36 (a)-(c), 4 cards
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   0. build: compile every kernel under src/repro_torch/kernels/csrc with
@@ -430,6 +430,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      steps); ``epidemiology --distributed --ranks N`` prints its OK.
      Writes chiprun_out/chip_smoke_cards.json and ends in the same last
      line, with the real card count.
+ 36. the LM's sharded runtime (FSDP over a ``DeviceMesh``:
+     ``launch/mesh.make_device_mesh``, ``models/sharding.py``,
+     ``launch/train.run(job, mesh)``): phase 29's qwen2-1.5b at full width
+     and depth, 3 steps of 2 × 4,096 tokens, on an NCCL group of one rank
+     over a (1, 1) mesh, against the unsharded step in the same rank, both
+     under deterministic algorithms: loss, grad_norm, lr and every
+     parameter bit for bit, ``train.run(job, mesh)`` ≡ ``train.run(job)``
+     loss for loss; ms/step (CUDA events) of both beside phase 29's, peak
+     memory (``max_memory_allocated``), and the collectives of one more
+     step (``CommDebugMode`` counts by op, payload, 0 wire bytes at one
+     rank); no kernel launches in the rank's sharded steps (each kernel
+     entry's ``fsdp_launches``). With ``--cards N``, after 35 (b): (a)
+     qwen2-1.5b at full width, a global batch of 4 × 4,096, 3 steps on 1
+     rank (2 microbatches), 2 and N ranks: loss and grad_norm within rtol
+     2e-3 of the one rank's, params within 3·lr + 2^-8·|param|, the gaps
+     printed; (b) qwen3-14b at full width and depth (40 layers, 14.77 B
+     parameters, bf16, f32 moments, remat full) on N ranks, 4 × 4,096
+     tokens a step (one sequence a card), 5 steps: a finite loss that
+     falls, ms/step (the slowest card's median of steps 2-5), tokens/s,
+     the model-FLOPs share of N cards' bf16 peak, peak memory of every
+     card (under 80 GB), one more step under ``CommDebugMode`` (counts,
+     payload and ring-model wire bytes a card, the collective term at
+     NVLink's 450 GB/s) and one profiled (idle share and device ms in
+     NCCL kernels, each card); (c) qwen2-1.5b at full width, 2 of 28
+     layers, ``launch/train.run`` checkpointing at step 2 on N ranks:
+     step 3 resumed on N ranks ≡ the uninterrupted run bit for bit (loss
+     and every array of the step-3 checkpoint), on 2 ranks within (a)'s
+     tolerances.
 
 The kernels line's K1 and column-map entries add their launches per tick
 on phase 23 (b) (``ensemble_launches_per_tick``); the pair-list build's
@@ -5508,9 +5536,12 @@ def _profiled_call(fn) -> dict:
         prof.export_chrome_trace(path)
         events = json.loads(Path(path).read_text())["traceEvents"]
     stats = analyze_trace(events, 1)
+    nccl = sum(e["dur"] for e in events if e.get("cat") == "kernel"
+               and "nccl" in e.get("name", "").lower()) / 1e3
     return {"wall_ms": wall,
             "device_idle_share": 1.0 - stats["device_busy_ms"] / wall,
-            "device_ms_by_kind": _kernel_classes(events), **stats}
+            "device_ms_by_kind": _kernel_classes(events), "nccl_ms": nccl,
+            **stats}
 
 
 def _serve_profiled(model, params, reqs, spec: dict, frames=None) -> dict:
@@ -6439,6 +6470,462 @@ def phase_ranks_cards(n_cards: int, tmpdir: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# 36. the LM's sharded runtime: FSDP over a DeviceMesh (launch/mesh.py,
+# models/sharding.py, launch/train.run(job, mesh, axes))
+# ---------------------------------------------------------------------------
+
+# one NCCL rank on a (1, 1) mesh: phase 29's qwen2-1.5b at full width and
+# depth, 2 × 4,096 tokens, 3 steps, sharded and unsharded in the rank
+FSDP_ONE = dict(TRAIN, steps=3)
+# (a) the same model, a global batch of 4 × 4,096, 3 steps on W = 1 (in 2
+# microbatches), 2 and 4 ranks: loss and grad_norm within rtol 2e-3 (bf16
+# GEMMs tile a 1-row and a 4-row batch apart), params within 3·lr +
+# 2^-8·|param| (AdamW's sign steps and one bf16 rounding)
+FSDP_PARITY = dict(TRAIN, batch=4, steps=3)
+FSDP_RTOL = 2e-3
+# (b) qwen3-14b at full width and depth (40 layers, 14.77 B params),
+# TRAIN_4K's 256 sequences of 4,096 cut to one a card, 5 steps at lr 3e-4
+# on AdamWConfig's default warm-up of 100 steps (with phase 29's warm-up of
+# 2 the random-init model's loss rises over the first steps: PERF.md §4)
+FSDP_CELL = dict(arch="qwen3-14b", batch=4, seq_len=4096, steps=5,
+                 lr=3e-4, warmup=100, seed=0)
+# (c) qwen2-1.5b at full width, 2 of its 28 layers: a checkpoint at step 2
+# on 4 ranks resumed on 4 (bit for bit) and on 2 ranks (the tolerances)
+FSDP_ELASTIC = dict(arch="qwen2-1.5b", n_layers=2, batch=4, seq_len=4096,
+                    steps=3, lr=3e-4, warmup=2, seed=0)
+
+
+def _fsdp_cfg(spec: dict):
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS[spec["arch"]]
+    if spec.get("n_layers") is not None:
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
+    return cfg
+
+
+def _param_hashes(params) -> dict:
+    """sha256 of every leaf's bytes (this rank's block)."""
+    import hashlib
+    import torch
+    from repro_torch.models import sharding
+    from repro_torch.train.optimizer import _leaves
+    return [hashlib.sha256(sharding.local(p).contiguous().view(
+        torch.uint8).cpu().numpy()).hexdigest() for p in _leaves(params)]
+
+
+def _fsdp_steps(spec: dict, mesh, dev, micro: int = 1, extra=()) -> tuple:
+    """``spec``'s steps through ``make_train_step`` (in place on a mesh),
+    each timed by CUDA events and the host clock after a synchronise;
+    ``extra`` adds one more step each: ``"count"`` under
+    ``roofline/analysis.collectives_of``, ``"profile"`` profiled. Returns
+    (record, params, the hashes of the params after the timed steps)."""
+    import torch
+    from repro_torch.data import DataConfig, batch_at, rank_batch_at
+    from repro_torch.models import build_model, sharding
+    from repro_torch.roofline import analysis
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+    cfg = _fsdp_cfg(spec)
+    torch.cuda.empty_cache()
+    model = build_model(cfg, attn_impl="sdpa", device=dev)
+    params = model.init_params(
+        torch.Generator(device=dev).manual_seed(spec["seed"]), mesh)
+    ocfg = AdamWConfig(lr=spec["lr"], warmup_steps=spec["warmup"],
+                       total_steps=spec["steps"],
+                       moment_dtype=cfg.opt_moment_dtype)
+    state = init_state(ocfg, params)
+    step_fn = make_train_step(model, ocfg, n_microbatches=micro)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=spec["seq_len"],
+                      global_batch=spec["batch"], seed=spec["seed"])
+    _, rank, world = sharding.world_of(params)
+
+    def batch(i):
+        if mesh is None:
+            return batch_at(dcfg, i, device=dev)
+        return rank_batch_at(dcfg, i, rank, world, device=dev)
+
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rows, ev_ms, host_ms = [], [], []
+    for i in range(spec["steps"]):
+        b = batch(i)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        params, state, met = step_fn(params, state, b)
+        stop.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        ev_ms.append(start.elapsed_time(stop))
+        rows.append({k: float(v) for k, v in met.items()})
+    peak = torch.cuda.max_memory_allocated()
+    for i, r in enumerate(rows):
+        check(all(math.isfinite(v) for v in r.values()),
+              f"[36] {spec['arch']} step {i + 1} metrics {r}")
+    hashes = _param_hashes(params)
+    rec = {"arch": spec["arch"], "n_layers": cfg.n_layers,
+           "n_params": model.n_params(), "world": world, "rank": rank,
+           "microbatches": micro, "tokens_per_step":
+               spec["batch"] * spec["seq_len"], "steps": rows,
+           "ms_per_step_events": ev_ms, "ms_per_step_host": host_ms,
+           "ms_per_step_median": statistics.median(ev_ms[1:]),
+           "ms_per_step_host_median": statistics.median(host_ms[1:]),
+           "state_bytes": weights, "peak_memory_bytes": peak}
+    n = spec["steps"]
+    if "count" in extra:
+        (params, state, _), col = analysis.collectives_of(
+            step_fn, world, params, state, batch(n))
+        torch.cuda.synchronize()
+        rec["collectives"] = col.as_dict()
+        rec["collective_s"] = analysis.analyze(
+            {"flops": 0.0}, col.wire_bytes).collective_s
+        n += 1
+    if "profile" in extra:
+        b = batch(n)
+        rec["profiled"] = _profiled_call(lambda: step_fn(params, state, b))
+    del state
+    return rec, params, hashes
+
+
+def _save_params(params, path: str, step: int) -> None:
+    """The params in the reference's checkpoint layout (rank 0 writes)."""
+    from repro_torch.train import checkpoint
+    checkpoint.save(path, step, {"params": params})
+
+
+def _fsdp_rank(group, device, jobs: list, out: str) -> None:
+    """[36] ``jobs`` on this rank of ``group``, each on a (W, 1) ("data",
+    "model") mesh: ``one`` (the one-rank phase), ``steps`` (a spec's steps,
+    ``save`` writing the params after them, ``extra`` steps), ``run``
+    (``launch/train.run`` with a checkpoint directory, copied from
+    ``from`` first). Rank 0 writes ``out/<tag>.json`` with every rank's
+    record."""
+    import gc
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import train as ltrain
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    for job in jobs:
+        torch.use_deterministic_algorithms(bool(job.get("deterministic")))
+        mesh = lmesh.make_device_mesh(
+            lmesh.Mesh((world, 1), ("data", "model")), device)
+        spec = job["spec"]
+        t0 = time.perf_counter()
+        if job["kind"] == "one":
+            plain, p, want = _fsdp_steps(spec, None, device)
+            del p
+            gc.collect()
+            _reset_counts()
+            rec, p, got = _fsdp_steps(spec, mesh, device, extra=("count",))
+            rec["launches"] = _read_counts()
+            del p
+            gc.collect()
+            rec["unsharded"] = plain
+            rec["params_bit_equal"] = got == want
+            rec["leaves"] = len(want)
+            run_job = ltrain.TrainJob(
+                arch=_fsdp_cfg(spec), steps=spec["steps"],
+                seq_len=spec["seq_len"], global_batch=spec["batch"],
+                lr=spec["lr"], warmup=spec["warmup"], log_every=1,
+                seed=spec["seed"])
+            quiet = lambda *a, **k: None   # noqa: E731
+            rec["run_losses"] = ltrain.run(run_job, device=device,
+                                           log=quiet)["losses"]
+            rec["run_mesh_losses"] = ltrain.run(run_job, mesh=mesh,
+                                                log=quiet)["losses"]
+        elif job["kind"] == "steps":
+            rec, p, _ = _fsdp_steps(spec, mesh, device,
+                                    micro=job.get("micro", 1),
+                                    extra=tuple(job.get("extra", ())))
+            if job.get("save"):
+                _save_params(p, job["save"], spec["steps"])
+            del p
+        else:
+            if job.get("from") and rank == 0:
+                shutil.copytree(job["from"], job["ckpt"])
+            dist.barrier(group, device_ids=[device.index])
+            run_job = ltrain.TrainJob(
+                arch=_fsdp_cfg(spec), steps=job["steps"],
+                seq_len=spec["seq_len"], global_batch=spec["batch"],
+                lr=spec["lr"], warmup=spec["warmup"], log_every=1,
+                seed=spec["seed"], ckpt_dir=job["ckpt"])
+            rec = {"losses": ltrain.run(run_job, mesh=mesh,
+                                        log=lambda *a, **k: None)["losses"]}
+        rec["seconds"] = time.perf_counter() - t0
+        every = [None] * world
+        dist.all_gather_object(every, rec, group=group)
+        if rank == 0:
+            (Path(out) / f"{job['tag']}.json").write_text(json.dumps(every))
+        del mesh
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+
+
+def _fsdp_spawn(jobs: list, ranks: int, out: Path) -> dict:
+    """``jobs`` on ``ranks`` NCCL ranks, one card each: {tag: [the
+    ranks' records]}."""
+    from repro_torch.launch import distributed as launcher
+    out.mkdir(parents=True, exist_ok=True)
+    launcher.spawn_ranks(_fsdp_rank, (jobs, str(out)), ranks, "cuda",
+                         timeout_s=900)
+    return {j["tag"]: json.loads((out / f"{j['tag']}.json").read_text())
+            for j in jobs}
+
+
+def phase_fsdp_one_rank(report: dict, tmpdir: str) -> dict:
+    """[36] qwen2-1.5b at full width and depth on an NCCL group of one rank
+    over a (1, 1) mesh, 3 steps of 2 × 4,096 tokens, against the
+    unsharded step in the same rank (both under deterministic algorithms):
+    loss, grad_norm, lr and every param bit for bit; ``launch/train.run``
+    with and without the mesh, the same losses; ms/step, peak memory and
+    the collectives of one more step (count by op, 0 wire bytes)."""
+    import gc
+    import torch
+    from repro_torch.device import card_description
+    gc.collect()
+    torch.cuda.empty_cache()          # room for the rank's own context
+    t0 = time.perf_counter()
+    got = _fsdp_spawn([dict(tag="one", kind="one", spec=FSDP_ONE,
+                            deterministic=True)], 1,
+                      Path(tmpdir) / "fsdp1")
+    rec = got["one"][0]
+    spawn_s = time.perf_counter() - t0
+    plain = rec["unsharded"]
+    check(rec["steps"] == plain["steps"],
+          f"[36] sharded steps {rec['steps']} != unsharded {plain['steps']}")
+    check(rec["params_bit_equal"], "[36] the params after 3 sharded steps "
+          "differ from the unsharded step's")
+    check(rec["run_mesh_losses"] == rec["run_losses"],
+          f"[36] train.run(job, mesh) losses {rec['run_mesh_losses']} != "
+          f"train.run(job) {rec['run_losses']}")
+    check(rec["steps"][-1]["loss"] < rec["steps"][0]["loss"],
+          f"[36] the loss did not fall: {rec['steps']}")
+    col = rec["collectives"]
+    check(set(col["wire_bytes"].values()) == {0.0},
+          f"[36] wire bytes at one rank: {col['wire_bytes']}")
+    phase29 = report.get("training", {}).get("full_width", {}).get(
+        "ms_per_step_median")
+    rec.update(card=card_description(), launch_s=spawn_s,
+               phase29_ms_per_step=phase29)
+    print(f"[36] one NCCL rank, mesh (1, 1), qwen2-1.5b at full width and "
+          f"depth, {FSDP_ONE['batch']} x {FSDP_ONE['seq_len']} tokens, "
+          f"{FSDP_ONE['steps']} steps (deterministic algorithms): loss, "
+          f"grad_norm, lr and all {rec['leaves']} param leaves bit-equal to "
+          f"the unsharded step; train.run(job, mesh) losses ≡ "
+          f"train.run(job) {rec['run_losses']}", flush=True)
+    print(f"[36] ms/step (CUDA events, median of steps 2-3): sharded "
+          f"{rec['ms_per_step_median']:.1f}, unsharded "
+          f"{plain['ms_per_step_median']:.1f} in the rank, phase 29 "
+          f"{_ms(phase29)}; peak {rec['peak_memory_bytes'] / 1e9:.2f} GB "
+          f"sharded, {plain['peak_memory_bytes'] / 1e9:.2f} unsharded "
+          f"(max_memory_allocated); collectives of one step "
+          f"{col['counts']}, payload {col['payload_bytes']}, wire bytes "
+          f"{col['wire_bytes']}; launch {spawn_s:.1f} s; {rec['card']}",
+          flush=True)
+    report["fsdp_one_rank"] = rec
+    return rec
+
+
+def _param_gap(want_dir: str, got_dir: str, step: int, lr: float) -> dict:
+    """Largest |Δ| of the params of two saved runs (their ``params/``
+    leaves), and its largest ratio to 3·lr + 2^-8·|param| (must be
+    ≤ 1)."""
+    import numpy as np
+    from repro_torch.train import checkpoint
+
+    def load(d):
+        man = checkpoint.load_manifest(d, step)["leaves"]
+        with np.load(Path(d) / f"step_{step:09d}" / "arrays.npz") as z:
+            for k in z.files:
+                if not k.startswith("params/"):
+                    continue
+                v = z[k]
+                if man[k]["dtype"] == "bfloat16":
+                    v = (v.astype(np.uint32) << 16).view(np.float32)
+                yield k, v
+    got = dict(load(got_dir))
+    gap = ratio = 0.0
+    for k, w in load(want_dir):
+        d = np.abs(got.pop(k) - w)
+        gap = max(gap, float(d.max()))
+        ratio = max(ratio, float((d / (3 * lr + 2.0 ** -8 * np.abs(w)))
+                                 .max()))
+    check(not got, f"[36] leaves only in {got_dir}: {sorted(got)}")
+    return {"max_abs_gap": gap, "max_gap_over_bound": ratio}
+
+
+def _close_steps(got: list, want: list, rtol: float, what: str,
+                 soft) -> float:
+    """Largest relative gap of loss and grad_norm over the steps."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in ("loss", "grad_norm"):
+            rel = abs(g[k] - w[k]) / abs(w[k])
+            soft(rel <= rtol, f"{what} step {i + 1} {k} {g[k]} vs {w[k]}")
+            worst = max(worst, rel)
+    return worst
+
+
+def phase_fsdp_cards(n_cards: int, tmpdir: str) -> dict:
+    """[36 (a)-(c)] FSDP on ``n_cards`` cards: qwen2-1.5b parity over 1, 2
+    and n_cards ranks, qwen3-14b at full width and depth, the elastic
+    resume. Every part is run and printed before a failed check ends the
+    phase: ``failures`` lists them (the caller writes the record, then
+    fails)."""
+    import shutil
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.device import card_description
+    from repro_torch.launch import cells
+    d = Path(tmpdir) / "fsdp"
+    d.mkdir()
+    rec = {"disk_free_gb": shutil.disk_usage(tmpdir).free / 1e9,
+           "failures": []}
+
+    def soft(cond: bool, msg: str) -> None:
+        if not cond:
+            rec["failures"].append(msg)
+            print(f"FAILED: chip_smoke: {msg}", flush=True)
+    el = {k: str(d / k) for k in ("el4", "el4r", "el4f", "el2r")}
+    par = {w: str(d / f"parity{w}") for w in (1, 2, n_cards)}
+    det = dict(deterministic=True)
+    el_jobs = [dict(tag="el4", kind="run", spec=FSDP_ELASTIC, steps=2,
+                    ckpt=el["el4"], **det),
+               dict(tag="el4r", kind="run", spec=FSDP_ELASTIC, steps=3,
+                    ckpt=el["el4r"], **{"from": el["el4"]}, **det),
+               dict(tag="el4f", kind="run", spec=FSDP_ELASTIC, steps=3,
+                    ckpt=el["el4f"], **det)]
+    t0 = time.perf_counter()
+    got = _fsdp_spawn(
+        [dict(tag=f"parity{n_cards}", kind="steps", spec=FSDP_PARITY,
+              save=par[n_cards], **det), *el_jobs,
+         dict(tag="cell", kind="steps", spec=FSDP_CELL,
+              extra=("count", "profile"))], n_cards, d / "wN")
+    got.update(_fsdp_spawn(
+        [dict(tag="parity2", kind="steps", spec=FSDP_PARITY, save=par[2],
+              **det),
+         dict(tag="el2r", kind="run", spec=FSDP_ELASTIC, steps=3,
+              ckpt=el["el2r"], **{"from": el["el4"]}, **det)], 2, d / "w2"))
+    got.update(_fsdp_spawn(
+        [dict(tag="parity1", kind="steps", spec=FSDP_PARITY, micro=2,
+              save=par[1], **det)], 1, d / "w1"))
+    rec["spawn_s"] = time.perf_counter() - t0
+    # (a) parity
+    ref = got["parity1"][0]
+    rec["parity"] = {"1": ref}
+    for w in (2, n_cards):
+        r = got[f"parity{w}"][0]
+        rel = _close_steps(r["steps"], ref["steps"], FSDP_RTOL,
+                           f"[36a] W={w}", soft)
+        gap = _param_gap(par[1], par[w], FSDP_PARITY["steps"],
+                         FSDP_PARITY["lr"])
+        soft(gap["max_gap_over_bound"] <= 1.0, f"[36a] W={w} params {gap}")
+        rec["parity"][str(w)] = dict(r, max_rel_gap=rel, **gap,
+                                     ms_by_card=[x["ms_per_step_median"]
+                                                 for x in got[f"parity{w}"]])
+        print(f"[36a] qwen2-1.5b at full width, {FSDP_PARITY['batch']} x "
+              f"{FSDP_PARITY['seq_len']} tokens, {FSDP_PARITY['steps']} "
+              f"steps on {w} ranks against 1 rank in 2 microbatches "
+              f"(deterministic algorithms): loss "
+              + " ".join(f"{x['loss']:.6g}" for x in r["steps"])
+              + " against " + " ".join(f"{x['loss']:.6g}"
+                                       for x in ref["steps"])
+              + ", grad_norm " + " ".join(f"{x['grad_norm']:.6g}"
+                                          for x in r["steps"])
+              + " against " + " ".join(f"{x['grad_norm']:.6g}"
+                                       for x in ref["steps"])
+              + f": within rel {rel:.3g} (bound {FSDP_RTOL}); "
+              f"params max |Δ| {gap['max_abs_gap']:.3g}, "
+              f"{gap['max_gap_over_bound']:.3g} of 3·lr + 2^-8·|p|; "
+              f"ms/step by card {[round(x, 1) for x in rec['parity'][str(w)]['ms_by_card']]}"
+              f" against {ref['ms_per_step_median']:.1f} on one",
+              flush=True)
+    # (b) the cell
+    cell = got["cell"]
+    c0 = cell[0]
+    losses = [s["loss"] for s in c0["steps"]]
+    soft(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+         f"[36b] qwen3-14b losses {losses}")
+    ms = max(x["ms_per_step_median"] for x in cell)
+    flops = cells.analytic_step_flops(_fsdp_cfg(FSDP_CELL), ShapeSpec(
+        "train", FSDP_CELL["seq_len"], FSDP_CELL["batch"], "train"))
+    peaks = [x["peak_memory_bytes"] / 1e9 for x in cell]
+    soft(max(peaks) < 80.0, f"[36b] peak GB by card {peaks}")
+    tokens = FSDP_CELL["batch"] * FSDP_CELL["seq_len"]
+    rec["cell"] = {
+        "ranks": cell, "ms_per_step": ms, "tokens_per_s": tokens / (ms / 1e3),
+        "analytic_flops_per_step": flops,
+        "model_flops_share": flops / (ms / 1e3) / n_cards
+        / PEAK_BF16_TENSOR_FLOPS,
+        "peak_gb_by_card": peaks,
+        "idle_share_by_card": [x["profiled"]["device_idle_share"]
+                               for x in cell],
+        "nccl_ms_by_card": [x["profiled"]["nccl_ms"] for x in cell],
+        "profiled_ms_by_card": [x["profiled"]["wall_ms"] for x in cell],
+        "collectives": c0["collectives"], "collective_s": c0["collective_s"]}
+    cr = rec["cell"]
+    print(f"[36b] qwen3-14b at full width and depth ({c0['n_layers']} "
+          f"layers, {c0['n_params']:,} params, bf16, f32 moments, remat "
+          f"full) on {n_cards} cards, {FSDP_CELL['batch']} x "
+          f"{FSDP_CELL['seq_len']} tokens a step: loss "
+          + " ".join(f"{x:.5g}" for x in losses)
+          + f"; {ms:.1f} ms/step (slowest card's median of steps 2-"
+          f"{FSDP_CELL['steps']}, CUDA events; by card "
+          f"{[round(x['ms_per_step_median'], 1) for x in cell]}); "
+          f"{cr['tokens_per_s']:.0f} tokens/s; model-FLOPs share "
+          f"{cr['model_flops_share']:.4f} (analytic_step_flops {flops:.4g} / "
+          f"(ms · {n_cards} · {PEAK_BF16_TENSOR_FLOPS:.4g})); peak GB by "
+          f"card {[round(x, 2) for x in peaks]}", flush=True)
+    print(f"[36b] one profiled step: wall ms by card "
+          f"{[round(x, 1) for x in cr['profiled_ms_by_card']]}, idle share "
+          f"{[round(x, 3) for x in cr['idle_share_by_card']]}, device ms in "
+          f"NCCL kernels {[round(x, 1) for x in cr['nccl_ms_by_card']]}; "
+          f"collectives of one step (CommDebugMode) {c0['collectives']['counts']}"
+          f", payload {c0['collectives']['payload_bytes']}, wire bytes a "
+          f"card {c0['collectives']['wire_bytes']} → collective term "
+          f"{c0['collective_s']:.4f} s at NVLink {450e9:.3g} B/s; "
+          f"{card_description()}", flush=True)
+    # (c) the elastic resume
+    full = got["el4f"][0]["losses"]
+    same, other = got["el4r"][0]["losses"], got["el2r"][0]["losses"]
+    soft(same == full[-1:], f"[36c] W=4 resumed {same} != {full}")
+    arrays = {k: _arrays_of(el[k], FSDP_ELASTIC["steps"])
+              for k in ("el4r", "el4f")}
+    soft(arrays["el4r"].keys() == arrays["el4f"].keys() and all(
+        arrays["el4r"][k].tobytes() == v.tobytes()
+        for k, v in arrays["el4f"].items()),
+        "[36c] the W=4 resumed checkpoint differs from the uninterrupted")
+    del arrays
+    rel = abs(other[0] - full[-1]) / abs(full[-1])
+    soft(rel <= FSDP_RTOL, f"[36c] W=2 resumed loss {other} vs {full}")
+    gap = _param_gap(el["el4f"], el["el2r"], FSDP_ELASTIC["steps"],
+                     FSDP_ELASTIC["lr"])
+    soft(gap["max_gap_over_bound"] <= 1.0, f"[36c] W=2 params {gap}")
+    rec["elastic"] = {"w4_losses": full, "w4_resumed": same,
+                      "w2_resumed": other, "w2_rel": rel, **gap}
+    print(f"[36c] qwen2-1.5b at full width, {FSDP_ELASTIC['n_layers']} "
+          f"layers: a checkpoint at step 2 on {n_cards} ranks, step 3 "
+          f"resumed on {n_cards} bit for bit (loss {same[0]:.6g}, every "
+          f"array of the step-3 checkpoint), on 2 ranks loss {other[0]:.6g} "
+          f"(rel {rel:.3g}), params max |Δ| {gap['max_abs_gap']:.3g}, "
+          f"{gap['max_gap_over_bound']:.3g} of the bound", flush=True)
+    for p in list(el.values()) + list(par.values()):
+        shutil.rmtree(p, ignore_errors=True)
+    return rec
+
+
+def _arrays_of(ckpt_dir: str, step: int) -> dict:
+    import numpy as np
+    with np.load(Path(ckpt_dir) / f"step_{step:09d}" / "arrays.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
 T_START = time.perf_counter()
 
 
@@ -6473,13 +6960,16 @@ def main() -> int:
 
 
 def _cards_main(n_cards: int) -> int:
-    """``--cards N``: build the kernels and run phase 35 (b) only."""
+    """``--cards N``: build the kernels and run phases 35 (b) and 36
+    (a)-(c) only."""
     import tempfile
     import torch
     if torch.cuda.device_count() < n_cards:
         print(f"chip_smoke: --cards {n_cards} needs {n_cards} cards, "
               f"{torch.cuda.device_count()} visible", file=sys.stderr)
         return 1
+    import os
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.device import card_description
     from repro_torch.kernels import build
@@ -6492,10 +6982,17 @@ def _cards_main(n_cards: int) -> int:
         rec = phase_ranks_cards(n_cards, tmpdir)
         print(f"[35b] phase time {time.perf_counter() - t0:.1f} s",
               flush=True)
+        t0 = time.perf_counter()
+        rec["fsdp"] = phase_fsdp_cards(n_cards, tmpdir)
+        print(f"[36] (a)-(c) phase time {time.perf_counter() - t0:.1f} s",
+              flush=True)
     rec["device"] = torch.cuda.get_device_name(0)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_cards.json").write_text(json.dumps(rec, indent=1))
+    check(not rec["fsdp"]["failures"],
+          f"[36] {len(rec['fsdp']['failures'])} check(s) failed: "
+          f"{rec['fsdp']['failures']}")
     for line in rec["cards"]:
         print(line, flush=True)
     print(card_description(), flush=True)
@@ -6589,6 +7086,7 @@ def _run(workers, tmpdir: str) -> int:
                    for arch in ("mamba2-370m", "deepseek-v2-lite-16b")}}
     dry = timed("34", phase_dryrun_vs_card, report, measured)
     ranks = timed("35", phase_ranks_one_card, report, tmpdir)
+    fsdp = timed("36", phase_fsdp_one_rank, report, tmpdir)
     report["total_s"] = time.perf_counter() - T_START
     print(f"phases took {sum(seconds.values()):.1f} s, the script "
           f"{report['total_s']:.1f} s", flush=True)
@@ -6721,6 +7219,10 @@ def _run(workers, tmpdir: str) -> int:
     for k in kernels:
         k["ranks_launches"] = ranks["launches"].get(k["name"], 0)
         k["ranks_steps"] = ranks["steps"]
+    # the sharded training on one NCCL rank (phase 36) runs no kernel
+    # either: counted in the rank over its sharded steps
+    for k in kernels:
+        k["fsdp_launches"] = fsdp["launches"][k["name"]]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -30,6 +30,31 @@ class DataConfig:
     d_model: int = 0          # for frontend embeds
 
 
+def _host_batch(cfg: DataConfig, step: int, host_id: int, n_hosts: int
+                ) -> Dict[str, np.ndarray]:
+    per_host = cfg.global_batch // n_hosts
+    rng = np.random.default_rng(
+        np.random.SeedSequence([cfg.seed, step, host_id]))
+    # zipf-ish marginal: realistic token frequency skew
+    z = rng.zipf(1.3, size=(per_host, cfg.seq_len)).astype(np.int64)
+    tokens = ((z % (cfg.vocab_size - 2)) + 2).astype(np.int32)
+    out = {"tokens": tokens}
+    if cfg.frontend_tokens:
+        out["frontend_embeds"] = rng.standard_normal(
+            (per_host, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _on(host: Dict[str, np.ndarray], dev: torch.device
+        ) -> Dict[str, torch.Tensor]:
+    tokens = torch.from_numpy(host["tokens"]).to(dev)
+    out = {"tokens": tokens, "labels": tokens}
+    if "frontend_embeds" in host:
+        out["frontend_embeds"] = torch.from_numpy(
+            host["frontend_embeds"]).to(dev)
+    return out
+
+
 def batch_at(cfg: DataConfig, step: int, host_id: int = 0, n_hosts: int = 1,
              device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """Batch for ``step``, restricted to this host's shard
@@ -37,19 +62,24 @@ def batch_at(cfg: DataConfig, step: int, host_id: int = 0, n_hosts: int = 1,
     ``frontend_tokens``, f32 ``frontend_embeds`` (B, F, d_model), on
     ``device`` (None → the CUDA card)."""
     dev = resolve_device(device)
-    per_host = cfg.global_batch // n_hosts
-    rng = np.random.default_rng(
-        np.random.SeedSequence([cfg.seed, step, host_id]))
-    # zipf-ish marginal: realistic token frequency skew
-    z = rng.zipf(1.3, size=(per_host, cfg.seq_len)).astype(np.int64)
-    tokens = torch.from_numpy(((z % (cfg.vocab_size - 2)) + 2).astype(
-        np.int32)).to(dev)
-    out = {"tokens": tokens, "labels": tokens}
-    if cfg.frontend_tokens:
-        fe = rng.standard_normal((per_host, cfg.frontend_tokens,
-                                  cfg.d_model)).astype(np.float32)
-        out["frontend_embeds"] = torch.from_numpy(fe).to(dev)
-    return out
+    return _on(_host_batch(cfg, step, host_id, n_hosts), dev)
+
+
+def rank_batch_at(cfg: DataConfig, step: int, rank: int, world: int,
+                  device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Rows ``[rank·B/world, (rank+1)·B/world)`` of the global
+    ``batch_at(cfg, step)``: the data-parallel ranks of one step split one
+    batch, whatever their count (``batch_at``'s ``host_id`` would seed
+    each rank's rows apart, so the data would change with ``world``).
+    Only those rows go to ``device``."""
+    if cfg.global_batch % world:
+        raise ValueError(f"a global batch of {cfg.global_batch} does not "
+                         f"split over {world} ranks")
+    dev = resolve_device(device)
+    per = cfg.global_batch // world
+    rows = slice(rank * per, (rank + 1) * per)
+    return _on({k: np.ascontiguousarray(v[rows]) for k, v in
+                _host_batch(cfg, step, 0, 1).items()}, dev)
 
 
 def iterate(cfg: DataConfig, start_step: int = 0, host_id: int = 0,

@@ -16,8 +16,10 @@ What a record holds depends on the mesh:
   device's step, so temp, bytes moved and the memory term are null
   (``"pending"`` says why). ``argument_bytes_per_device`` is exact there
   too: each input's shard shape on the mesh.
-The collective term is null on every mesh: the port counts no
-collectives yet (``roofline/analysis.py``). The compute term is
+The collective term is null here: a real mesh's comes from counting
+the collectives of a sharded step on its ranks
+(``roofline/analysis.collectives_of``), and the production mesh's waits
+for a trace of one device's shard of the step. The compute term is
 ``cells.analytic_step_flops`` over the devices, as in the reference.
 
 The reference's ``lower_s`` and ``compile_s`` become one ``trace_s``;
@@ -46,7 +48,9 @@ from .mesh import Mesh, make_host_mesh, make_production_mesh, mesh_axes
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
-PENDING = "waits for ROADMAP 15b: the port has no sharded runtime"
+PENDING = ("waits for ROADMAP 15c: temp bytes, the memory term and the "
+           "collective term need a trace of one device's shard of the step "
+           "under a fake process group")
 
 
 def argument_bytes_per_device(cell, mesh: Mesh) -> int:

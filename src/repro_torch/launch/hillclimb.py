@@ -9,9 +9,10 @@ Cells:
 
 Each variant goes through the port's dry run (``dryrun.measure``) on the
 production mesh. That records the compute term and the argument bytes;
-temp bytes and the memory and collective terms are null until the port
-has a sharded runtime (ROADMAP 15b), so the hypotheses about collectives
-cannot be checked yet.
+temp bytes and the memory and collective terms are null until a device's
+shard of the step is traced under a fake process group (ROADMAP 15c: the
+sharded runtime counts the collectives of a real mesh only), so the
+hypotheses about collectives cannot be checked yet.
 
 Usage: PYTHONPATH=src python -m repro_torch.launch.hillclimb [variant ...]
 """

@@ -1,9 +1,15 @@
-"""Production meshes (port of ``repro.launch.mesh``).
+"""Production meshes (port of ``repro.launch.mesh``), and the device
+mesh of a sharded run.
 
-A ``Mesh`` here is shape and axis names only: the dry run reckons
-per-device shapes and bytes on it and runs on no device. No process group
-is made; a ``DeviceMesh`` over real cards is ROADMAP.md Queue 1 item 15b's
-work.
+A ``Mesh`` is shape and axis names only: the dry run reckons per-device
+shapes and bytes on it and runs on no device. :func:`make_device_mesh`
+lays the same shape and names over the ranks of the current process group
+as a ``torch.distributed`` ``DeviceMesh`` (NCCL on the cards, gloo on the
+CPU), and :func:`placements` turns a resolved spec
+(``models/layers.resolve_spec``) into the DTensor placements a leaf takes
+on it; :func:`shard` keeps one rank's block of a whole tensor. A mesh
+whose ``"model"`` axis is larger than 1 raises: tensor parallelism is
+ROADMAP.md Queue 1 item 15c's next step.
 """
 
 from __future__ import annotations
@@ -12,6 +18,9 @@ import dataclasses
 import math
 from typing import Any, Sequence, Tuple
 
+import torch
+
+from ..device import DeviceLike, resolve_device
 from ..models.layers import MeshAxes
 
 
@@ -72,3 +81,73 @@ def make_host_mesh() -> Mesh:
     """Degenerate 1×1 mesh: one device, the same axis names as the single
     pod's."""
     return Mesh((1, 1), ("data", "model"))
+
+
+# ---------------------------------------------------------------------------
+# A mesh over the ranks of a process group
+# ---------------------------------------------------------------------------
+
+def make_device_mesh(mesh: Mesh, device: DeviceLike = None):
+    """A ``DeviceMesh`` with ``mesh``'s shape and axis names over the ranks
+    of the current process group, rank r at row-major position r, on
+    ``device``'s type (None → the CUDA card, raising without one; NCCL
+    there, gloo on ``"cpu"``). Raises ``NotImplementedError`` when the
+    ``"model"`` axis is larger than 1 (tensor parallelism: ROADMAP 15c) and
+    ``ValueError`` when the group's size is not the mesh's."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    dev = resolve_device(device)
+    if "model" in mesh.axis_names and mesh.axis_size("model") > 1:
+        raise NotImplementedError(
+            f"a 'model' axis of {mesh.axis_size('model')}: tensor "
+            f"parallelism waits for ROADMAP 15c; this runtime shards "
+            f"parameters over the data axes only")
+    if not dist.is_initialized():
+        raise RuntimeError("make_device_mesh needs a process group "
+                           "(torch.distributed.init_process_group)")
+    if dist.get_world_size() != mesh.size:
+        raise ValueError(f"a {mesh.shape} mesh needs {mesh.size} ranks, the "
+                         f"group has {dist.get_world_size()}")
+    return DeviceMesh(dev.type, torch.arange(mesh.size).reshape(mesh.shape),
+                      mesh_dim_names=tuple(mesh.axis_names))
+
+
+def placements(spec: Tuple, device_mesh) -> Tuple:
+    """DTensor placements of a leaf laid out by the resolved ``spec`` (one
+    entry per dim: None, an axis name or a tuple of names): each mesh axis
+    named in dim d's entry is ``Shard(d)``, every other mesh axis
+    ``Replicate()``. Raises ValueError on a name the mesh does not have or
+    an axis named twice."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(device_mesh.mesh_dim_names)
+    out: list = [Replicate()] * len(names)
+    seen = set()
+    for d, entry in enumerate(spec):
+        for name in (entry if isinstance(entry, tuple)
+                     else () if entry is None else (entry,)):
+            if name not in names:
+                raise ValueError(f"axis {name!r} is not on the mesh {names}")
+            if name in seen:
+                raise ValueError(f"axis {name!r} shards two dims of {spec}")
+            seen.add(name)
+            out[names.index(name)] = Shard(d)
+    return tuple(out)
+
+
+def shard(full: torch.Tensor, device_mesh, places: Tuple):
+    """This rank's block of ``full`` as a DTensor with ``places`` (a copy,
+    so ``full`` can be freed). A sharded dim must divide by its mesh axes'
+    size (ValueError otherwise): every rank's block has one shape, as
+    ``Mesh.shard_shape`` reckons it."""
+    from torch.distributed.tensor import DTensor, Shard
+    local = full
+    for i, pl in enumerate(places):
+        if isinstance(pl, Shard):
+            n = device_mesh.size(i)
+            if local.shape[pl.dim] % n:
+                raise ValueError(f"dim {pl.dim} of {tuple(full.shape)} does "
+                                 f"not divide over {n} ranks")
+            local = local.chunk(n, dim=pl.dim)[device_mesh.get_local_rank(i)]
+    return DTensor.from_local(
+        local.clone(memory_format=torch.contiguous_format), device_mesh,
+        places, run_check=False, shape=full.shape, stride=full.stride())

@@ -1,18 +1,26 @@
 """End-to-end training driver (port of ``repro.launch.train``): config →
-data → train loop → checkpoints.
+mesh → data → train loop → checkpoints.
 
 Fault-tolerance contract, as the reference's:
   * resumes from the latest checkpoint automatically (crash/preemption
     safe),
   * checkpoints asynchronously every ``ckpt_every`` steps and at the end,
-  * the data pipeline is stateless-by-step, so a restart repeats no batch.
+  * the data pipeline is stateless-by-step, so a restart repeats no batch,
+  * restore reshards onto whatever mesh the restart runs with (elastic).
 
-The port runs one device: there is no mesh and no ``MeshAxes`` argument
-(the reference's FSDP and tensor-parallel sharding wait for ROADMAP.md
-Queue 1 items 15b and 18). The checkpoints are the reference's format
-(``{"params", "opt"}`` through ``train/checkpoint.py``), so a run resumes
-across the two packages. The model runs ``attn_impl="sdpa"``: K2 has no
-backward. The loss is read back to the host on the log steps only.
+Without a mesh the run is one device. With a ``DeviceMesh``
+(``launch/mesh.make_device_mesh``) over the ranks of a process group (the
+launcher's ``spawn_ranks``, or torchrun) every rank runs ``run`` and the
+step is FSDP over the data axis: each rank holds its block of every
+parameter and moment, gathers the weights where a layer uses them and
+takes its rows of each global batch (``models/sharding.py``,
+``data.rank_batch_at``); tensor parallelism over ``"model"`` and MoE
+routing over more than one rank raise (ROADMAP 15c). The checkpoints are
+the reference's format (``{"params", "opt"}`` through
+``train/checkpoint.py``, in the global layout), so a run resumes across
+the two packages and across rank counts. The model runs
+``attn_impl="sdpa"``: K2 has no backward. The loss is read back to the
+host on the log steps only.
 """
 
 from __future__ import annotations
@@ -24,9 +32,10 @@ from typing import Dict, Optional
 import torch
 
 from ..configs.base import ArchConfig
-from ..data import DataConfig, batch_at
+from ..data import DataConfig, batch_at, rank_batch_at
 from ..device import DeviceLike, resolve_device
-from ..models import build_model
+from ..models import build_model, sharding
+from ..models.layers import MeshAxes, set_hint_axes
 from ..train import AdamWConfig, checkpoint, make_train_step
 from ..train.optimizer import init_state as opt_init
 
@@ -46,13 +55,30 @@ class TrainJob:
     seed: int = 0
 
 
-def run(job: TrainJob, device: DeviceLike = None, log=print
-        ) -> Dict[str, float]:
-    """Train ``job`` on ``device`` (None → the CUDA card). Returns the
-    first and the last logged loss, and every logged loss (``losses``).
-    An encoder-decoder config gets frames of ``seq_len`` on its encoder,
-    as the reference feeds it."""
-    dev = resolve_device(device)
+def run(job: TrainJob, mesh=None, axes: Optional[MeshAxes] = None,
+        device: DeviceLike = None, log=print) -> Dict[str, float]:
+    """Train ``job`` on ``device`` (None → the CUDA card; with a ``mesh``,
+    the mesh's device type, this rank's card). Returns the first and the
+    last logged loss, and every logged loss (``losses``): with a mesh the
+    same on every rank (all-reduced), logged by rank 0 only. An
+    encoder-decoder config gets frames of ``seq_len`` on its encoder, as
+    the reference feeds it."""
+    if mesh is None:
+        return _run(job, None, None, resolve_device(device), log)
+    if device is None and mesh.device_type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    dev = resolve_device(device if device is not None else mesh.device_type)
+    axes = axes or MeshAxes(fsdp=("data",))
+    set_hint_axes(axes)
+    try:
+        return _run(job, mesh, axes, dev, log if torch.distributed.get_rank()
+                    == 0 else (lambda *a, **k: None))
+    finally:
+        set_hint_axes(None)
+
+
+def _run(job: TrainJob, mesh, axes: Optional[MeshAxes], dev: torch.device,
+         log) -> Dict[str, float]:
     cfg = job.arch
     model = build_model(cfg, attn_impl="sdpa", device=dev)
     opt_cfg = AdamWConfig(lr=job.lr, warmup_steps=job.warmup,
@@ -65,9 +91,15 @@ def run(job: TrainJob, device: DeviceLike = None, log=print
                       d_model=cfg.d_model, seed=job.seed)
 
     params = model.init_params(torch.Generator(device=dev).manual_seed(
-        job.seed))
+        job.seed), mesh, axes)
     opt_state = opt_init(opt_cfg, params)
     start_step = 0
+    group, rank, world = sharding.world_of(params)
+
+    def batch(step: int):
+        if mesh is None:
+            return batch_at(dcfg, step, device=dev)
+        return rank_batch_at(dcfg, step, rank, world, device=dev)
 
     ck = checkpoint.AsyncCheckpointer(job.ckpt_dir) if job.ckpt_dir else None
     if job.ckpt_dir:
@@ -84,8 +116,7 @@ def run(job: TrainJob, device: DeviceLike = None, log=print
     losses = []
     t0 = time.time()
     for step in range(start_step, job.steps):
-        batch = batch_at(dcfg, step, device=dev)
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        params, opt_state, metrics = step_fn(params, opt_state, batch(step))
         if (step + 1) % job.log_every == 0 or step == start_step:
             loss = float(metrics["loss"])
             losses.append(loss)
@@ -99,6 +130,10 @@ def run(job: TrainJob, device: DeviceLike = None, log=print
     if ck:
         ck.save_async(job.steps, {"params": params, "opt": opt_state})
         ck.wait()
+        if group is not None:       # the others wait for rank 0's write
+            one = torch.ones(1, device=dev)
+            torch.distributed.all_reduce(one, group=group)
+            one.item()
     return {"final_loss": losses[-1] if losses else float("nan"),
             "first_loss": losses[0] if losses else float("nan"),
             "losses": losses}

@@ -30,7 +30,7 @@ from torch.profiler import record_function
 
 from ..configs.base import ArchConfig
 from ..kernels import ops as kops
-from .layers import ParamSet, ShapeDtype, rms_norm, rope
+from .layers import ParamSet, ShapeDtype, hint, rms_norm, rope
 
 ATTN_IMPLS = ("k2", "sdpa")     # the reference's "pallas" and "xla"
 
@@ -119,12 +119,18 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 # GQA layer
 # ---------------------------------------------------------------------------
 
-def _qkv(p: Dict, x: torch.Tensor, cfg: ArchConfig
-         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _proj(p: Dict, x: torch.Tensor, cfg: ArchConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v projections of the normed x, heads not yet split."""
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
-    q = torch.matmul(xn, p["wq"])
-    k = torch.matmul(xn, p["wk"])
-    v = torch.matmul(xn, p["wv"])
+    return (torch.matmul(xn, p["wq"]), torch.matmul(xn, p["wk"]),
+            torch.matmul(xn, p["wv"]))
+
+
+def _heads(p: Dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           cfg: ArchConfig
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Bias, heads split, qk-norm."""
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = _split_heads(q, cfg.n_heads)
@@ -136,6 +142,11 @@ def _qkv(p: Dict, x: torch.Tensor, cfg: ArchConfig
     return q, k, v
 
 
+def _qkv(p: Dict, x: torch.Tensor, cfg: ArchConfig
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _heads(p, *_proj(p, x, cfg), cfg)
+
+
 def gqa_full(p: Dict, x: torch.Tensor, cfg: ArchConfig, causal: bool = True,
              positions: Optional[torch.Tensor] = None, attn_impl: str = "k2"
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -144,7 +155,11 @@ def gqa_full(p: Dict, x: torch.Tensor, cfg: ArchConfig, causal: bool = True,
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                          f"{attn_impl!r}")
     s = x.shape[1]
-    q, k, v = _qkv(p, x, cfg)
+    q, k, v = _proj(p, x, cfg)
+    q = hint(q, "batch", None, "tp")
+    k = hint(k, "batch", None, "tp")
+    v = hint(v, "batch", None, "tp")
+    q, k, v = _heads(p, q, k, v, cfg)
     pos = positions if positions is not None else torch.arange(
         s, device=x.device)
     q = rope(q, pos, cfg.rope_theta)
@@ -155,7 +170,7 @@ def gqa_full(p: Dict, x: torch.Tensor, cfg: ArchConfig, causal: bool = True,
     else:
         o = _sdpa(q, k, v, causal)
     out = torch.matmul(_merge_heads(o), p["wo"])
-    return x + out, {"k": k, "v": v}
+    return x + hint(out, "batch", None, None), {"k": k, "v": v}
 
 
 def gqa_decode(p: Dict, x: torch.Tensor, cache: Dict[str, torch.Tensor],

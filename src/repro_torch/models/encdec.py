@@ -18,13 +18,15 @@ leaves ``(n_layers, B, Hkv, S, Dh)`` (``S`` = ``s_max`` for ``k`` / ``v``,
 (``convert.py``). The reference's ``jax.lax.scan`` over layers is a Python
 loop over the stacked axis; its ``jax.checkpoint`` around both stacks is
 ``torch.utils.checkpoint`` around each layer (``lm._remat`` with
-``"full"``: the reference applies no ``dots`` policy here).
+``"full"``: the reference applies no ``dots`` policy here). On parameters
+sharded over a mesh each layer's leaves of both stacks are all-gathered
+inside that function (``models/sharding.py``), the other leaves once.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -32,23 +34,25 @@ from torch.profiler import record_function
 from ..configs.base import ArchConfig, LayerDesc
 from ..device import DeviceLike, resolve_device
 from . import attention as attn_mod
+from . import sharding
 from .layers import ParamSet, ShapeDtype, cross_entropy, rms_norm, torch_dtype
 from .lm import (_index, _map, _remat, _stack, _unbind, apply_pattern_block,
-                 register_pattern_block)
+                 embed_rows, register_pattern_block)
 
 
 def _enc_layer(x: torch.Tensor, p_block: Dict, cfg: ArchConfig,
-               pattern: Tuple[LayerDesc, ...], attn_impl: str
-               ) -> torch.Tensor:
-    return apply_pattern_block(p_block, x, cfg, pattern, "full",
-                               causal=False, attn_impl=attn_impl)[0]
+               pattern: Tuple[LayerDesc, ...], attn_impl: str,
+               plan: Any = None) -> torch.Tensor:
+    return apply_pattern_block(sharding.gather(p_block, plan), x, cfg,
+                               pattern, "full", causal=False,
+                               attn_impl=attn_impl)[0]
 
 
 def _dec_layer(x: torch.Tensor, enc_out: torch.Tensor, p_block: Dict,
                cfg: ArchConfig, pattern: Tuple[LayerDesc, ...],
-               attn_impl: str) -> torch.Tensor:
-    return apply_pattern_block(p_block, x, cfg, pattern, "full",
-                               enc_out=enc_out, cross=True,
+               attn_impl: str, plan: Any = None) -> torch.Tensor:
+    return apply_pattern_block(sharding.gather(p_block, plan), x, cfg,
+                               pattern, "full", enc_out=enc_out, cross=True,
                                attn_impl=attn_impl)[0]
 
 
@@ -87,22 +91,25 @@ class EncDecLM:
         ps.add("lm_head", (cfg.d_model, self.v_pad), ("fsdp", "tp"))
         self.ps = ps
 
-    def init_params(self, generator: torch.Generator) -> Dict:
+    def init_params(self, generator: torch.Generator, mesh=None,
+                    axes=None) -> Dict:
         """Random-init weights from ``generator``, which must live on the
-        model's device."""
+        model's device; with a ``DeviceMesh``, each rank's block of every
+        leaf (``ParamSet.init_params``)."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator is on {generator.device}, the model "
                              f"on {self.device}")
-        return self.ps.init_params(generator)
+        return self.ps.init_params(generator, mesh, axes)
 
     def n_params(self) -> int:
         return self.ps.n_params()
 
-    def _layer(self, fn):
+    def _layer(self, fn, plan: Any = None):
         """``fn`` under the reference's ``jax.checkpoint`` when it runs under
-        autograd and the config remats; as it is otherwise."""
+        autograd and the config remats; as it is otherwise. With a
+        ``plan`` each call gathers its layer's leaves first."""
         fn = functools.partial(fn, cfg=self.cfg, pattern=self.pat,
-                               attn_impl=self.attn_impl)
+                               attn_impl=self.attn_impl, plan=plan)
         if not torch.is_grad_enabled() or self.cfg.remat == "none":
             return fn
         return _remat(fn, "full")
@@ -118,13 +125,16 @@ class EncDecLM:
         return logits
 
     # -- encoder -------------------------------------------------------------
-    def encode(self, params: Dict, frames: torch.Tensor) -> torch.Tensor:
+    def encode(self, params: Dict, frames: torch.Tensor,
+               plan: Any = None) -> torch.Tensor:
         """frames (B, S_enc, d_model), any float dtype (cast to the
-        activation dtype first). Returns the normalised encoder output."""
+        activation dtype first). Returns the normalised encoder output.
+        ``plan``: the layouts of one encoder layer's blocks
+        (``sharding.for_train``)."""
         cfg = self.cfg
         with record_function("encode"):
             x = frames.to(self.adt)
-            layer = self._layer(_enc_layer)
+            layer = self._layer(_enc_layer, plan)
             for p_block in _unbind(params["enc_blocks"], cfg.encoder_layers):
                 x = layer(x, p_block)
             return rms_norm(x, params["enc_norm"], cfg.norm_eps)
@@ -132,14 +142,14 @@ class EncDecLM:
     # -- decoder -------------------------------------------------------------
     def _decode_full(self, params: Dict, tokens: torch.Tensor,
                      enc_out: torch.Tensor, want_cache: bool,
-                     last_only: bool = False
+                     last_only: bool = False, plan: Any = None
                      ) -> Tuple[torch.Tensor, Tuple]:
         """The decoder over ``tokens`` (B, S) against ``enc_out``: logits
         (B, S, V_pad), or (B, 1, V_pad) at the last position with
         ``last_only``, and with ``want_cache`` the stacked layer caches
         ``({k, v, xk, xv},)``, else ``()``."""
         cfg = self.cfg
-        x = params["embed"]["tokens"][tokens].to(self.adt)
+        x = embed_rows(params["embed"]["tokens"], tokens).to(self.adt)
         layers = _unbind(params["dec_blocks"], cfg.n_layers)
         caches: Tuple = ()
         if want_cache:
@@ -151,7 +161,7 @@ class EncDecLM:
                 per_layer.append(c)
             caches = _stack(per_layer)
         else:
-            layer = self._layer(_dec_layer)
+            layer = self._layer(_dec_layer, plan)
             for p_block in layers:
                 x = layer(x, enc_out, p_block)
         if last_only:
@@ -170,9 +180,13 @@ class EncDecLM:
             raise ValueError(
                 "train_loss: K2 has no backward (nor has the reference's "
                 "Pallas kernel); training runs attn_impl='sdpa'")
-        enc_out = self.encode(params, batch["frontend_embeds"])
+        params, plans = sharding.for_train(params,
+                                           ("enc_blocks", "dec_blocks"))
+        enc_out = self.encode(params, batch["frontend_embeds"],
+                              plans.get("enc_blocks"))
         logits, _ = self._decode_full(params, batch["tokens"], enc_out,
-                                      want_cache=False)
+                                      want_cache=False,
+                                      plan=plans.get("dec_blocks"))
         with record_function("train/logits_ce"):
             ce = cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
                                batch.get("loss_mask"))

@@ -5,10 +5,15 @@ Parameters are nested dicts of tensors. A ``ParamSet`` records, for every
 parameter: shape, dtype, init kind and std, and the placeholder sharding
 axes of the reference ("fsdp" / "tp"), kept as data so the two registries
 stay comparable. ``MeshAxes`` and ``resolve_spec`` turn those
-placeholders into per-dim mesh axes for the dry run
-(``launch/cells.build_cell``). ``hint`` and ``set_hint_axes`` act only
-through a sharded runtime, so they wait for ROADMAP.md Queue 1 item 15b;
-the port has no ``hint``.
+placeholders into per-dim mesh axes, for the dry run
+(``launch/cells.build_cell``) and for a sharded run, whose
+``ParamSet.init_params(generator, mesh, axes)`` keeps each rank's block of
+every leaf as a DTensor. ``hint`` (with ``set_hint_axes``) is the
+reference's sharding constraint on an activation: it redistributes a
+DTensor to its spec's placements and leaves anything else as it is. The
+FSDP runtime gathers the weights and keeps activations as plain tensors,
+so its hints are identities; they act once tensor parallelism over
+``"model"`` (ROADMAP 15c) hands the layers DTensor activations.
 """
 
 from __future__ import annotations
@@ -62,15 +67,26 @@ class ParamSet:
         self.infos[path] = ParamInfo(tuple(shape), dtype or self.default_dtype,
                                      tuple(spec), init, std)
 
-    def init_params(self, generator: torch.Generator) -> Dict[str, Any]:
+    def init_params(self, generator: torch.Generator, mesh=None,
+                    axes: Optional["MeshAxes"] = None) -> Dict[str, Any]:
         """Materialise every parameter on ``generator``'s device: in sorted
         path order, ``normal`` draws f32 N(0, 1)·std from ``generator`` and
         casts; ``zeros`` / ``ones`` are constant. The draws differ from
         ``jax.random`` — carry the reference's weights with
         ``convert.params_from_numpy`` where the numbers must agree. The
         scale is applied in place: one f32 copy of a leaf at a time (an
-        expert leaf of deepseek-v2-lite is 19.2 GB in f32)."""
+        expert leaf of deepseek-v2-lite is 19.2 GB in f32).
+
+        With a ``DeviceMesh`` every leaf is a DTensor laid out by its spec
+        resolved on ``axes`` (default ``MeshAxes(fsdp=("data",))``): every
+        rank draws each whole leaf in the same order from the same seed,
+        keeps its block (``launch/mesh.shard``) and frees the rest, so a
+        rank's block is bit-equal to the same slice of the one-device
+        init."""
         dev = generator.device
+        if mesh is not None:
+            from ..launch.mesh import placements, shard
+            axes = axes or MeshAxes(fsdp=("data",))
         out: Dict[str, Any] = {}
         for path, info in sorted(self.infos.items()):
             if info.init == "zeros":
@@ -81,6 +97,9 @@ class ParamSet:
                 val = torch.randn(info.shape, generator=generator,
                                   dtype=torch.float32, device=dev)
                 val = val.mul_(info.std).to(info.dtype)
+            if mesh is not None:
+                val = shard(val, mesh, placements(
+                    resolve_spec(info.spec, axes), mesh))
             _set(out, path, val)
         return out
 
@@ -158,6 +177,35 @@ def resolve_spec(spec: Tuple[Optional[str], ...], axes: MeshAxes) -> Spec:
 
 
 # ---------------------------------------------------------------------------
+# Intermediate-activation sharding hints
+# ---------------------------------------------------------------------------
+# The reference's models insert ``hint()`` constraints at layer boundaries;
+# they resolve against the MeshAxes the launcher installs and are no-ops
+# when none is installed.
+
+_HINT_AXES: Optional[MeshAxes] = None
+
+
+def set_hint_axes(axes: Optional[MeshAxes]) -> None:
+    global _HINT_AXES
+    _HINT_AXES = axes
+
+
+def hint(x: torch.Tensor, *spec: Optional[str]) -> torch.Tensor:
+    """``x`` itself without installed axes or when it is not a DTensor;
+    else ``x`` redistributed to the placements of ``spec`` resolved on the
+    installed axes (``launch/mesh.placements``)."""
+    if _HINT_AXES is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    from ..launch.mesh import placements
+    return x.redistribute(x.device_mesh, placements(
+        resolve_spec(tuple(spec), _HINT_AXES), x.device_mesh))
+
+
+# ---------------------------------------------------------------------------
 # Numerics (casts as in the reference)
 # ---------------------------------------------------------------------------
 
@@ -187,8 +235,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    g = torch.matmul(x, w_gate)
-    u = torch.matmul(x, w_up)
+    hspec = ("batch",) + (None,) * (x.dim() - 2) + ("tp",)
+    g = hint(torch.matmul(x, w_gate), *hspec)
+    u = hint(torch.matmul(x, w_up), *hspec)
     return torch.matmul(F.silu(g) * u, w_down)
 
 

@@ -30,7 +30,10 @@ Modes:
 either package. The reference's ``jax.checkpoint`` around the scanned
 block is ``torch.utils.checkpoint`` around each stacked block, the aux
 loss its second output; the aux sums the prefix layers' first, then each
-block's, in the reference's order.
+block's, in the reference's order. On parameters sharded over a mesh
+(``init_params(generator, mesh, axes)``) each stacked block's leaves are
+all-gathered inside that checkpointed function (``models/sharding.py``),
+so the recompute gathers them again; the other leaves are gathered once.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.profiler import record_function
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -47,9 +51,10 @@ from ..configs.base import ArchConfig, LayerDesc
 from ..device import DeviceLike, resolve_device
 from . import attention as attn_mod
 from . import moe as moe_mod
+from . import sharding
 from . import ssm as ssm_mod
-from .layers import (ParamSet, ShapeDtype, cross_entropy, rms_norm, swiglu,
-                     torch_dtype)
+from .layers import (ParamSet, ShapeDtype, cross_entropy, hint, rms_norm,
+                     swiglu, torch_dtype)
 
 
 def register_mlp(ps: ParamSet, prefix: str, cfg: ArchConfig,
@@ -243,12 +248,23 @@ def _remat(fn, remat: str):
     return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` through ``F.embedding``: the same rows, and on the
+    card a backward that sums each token's gradient rows in f32 before one
+    rounding into a bf16 table's gradient. Advanced indexing's backward
+    (``index_put_``) rounds after every row, so a frequent token loses its
+    small addends, and the more rows a card sums the more it loses: the
+    gradient would change with the number of ranks."""
+    return F.embedding(tokens, table)
+
+
 def _train_block(x: torch.Tensor, p_block: Dict, cfg: ArchConfig,
-                 pattern: Tuple[LayerDesc, ...], attn_impl: str
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(x, the block's summed router aux loss)."""
-    return apply_pattern_block(p_block, x, cfg, pattern, "full",
-                               attn_impl=attn_impl)[:2]
+                 pattern: Tuple[LayerDesc, ...], attn_impl: str,
+                 plan: Any = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x, the block's summed router aux loss). With a ``plan`` the
+    block's leaves are this rank's blocks, gathered here."""
+    return apply_pattern_block(sharding.gather(p_block, plan), x, cfg,
+                               pattern, "full", attn_impl=attn_impl)[:2]
 
 
 class LM:
@@ -294,13 +310,18 @@ class LM:
         self.prefix_pattern = prefix_pat
 
     # -- parameter plumbing --------------------------------------------------
-    def init_params(self, generator: torch.Generator) -> Dict:
+    def init_params(self, generator: torch.Generator, mesh=None,
+                    axes=None) -> Dict:
         """Random-init weights from ``generator``, which must live on the
-        model's device."""
+        model's device; with a ``DeviceMesh``, each rank's block of every
+        leaf (``ParamSet.init_params``). An MoE config raises on a data
+        axis of more than one rank (``sharding.refuse_moe``)."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator is on {generator.device}, the model "
                              f"on {self.device}")
-        return self.ps.init_params(generator)
+        if mesh is not None and self.cfg.n_experts:
+            sharding.refuse_moe(mesh.size(sharding.data_axis(mesh)))
+        return self.ps.init_params(generator, mesh, axes)
 
     def n_params(self) -> int:
         return self.ps.n_params()
@@ -308,10 +329,10 @@ class LM:
     # -- embedding / head ----------------------------------------------------
     def _embed(self, params: Dict, tokens: torch.Tensor,
                frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
-        x = params["embed"]["tokens"][tokens].to(self.adt)
+        x = embed_rows(params["embed"]["tokens"], tokens).to(self.adt)
         if frontend_embeds is not None:
             x = torch.cat([frontend_embeds.to(self.adt), x], dim=1)
-        return x
+        return hint(x, "batch", None, None)
 
     def _logits(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
@@ -324,7 +345,7 @@ class LM:
             logits = torch.where(col < self.cfg.vocab_size, logits,
                                  torch.full((), -1e30, dtype=logits.dtype,
                                             device=x.device))
-        return logits
+        return hint(logits, "batch", None, "tp")
 
     # -- full-sequence pass ----------------------------------------------------
     def _run_blocks_full(self, params: Dict, x: torch.Tensor,
@@ -345,12 +366,14 @@ class LM:
             per_block.append(c)
         return x, prefix_caches, _stack(per_block)
 
-    def _run_blocks_train(self, params: Dict, x: torch.Tensor
+    def _run_blocks_train(self, params: Dict, x: torch.Tensor,
+                          plan: Any = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The full pass under autograd: prefix layers as they are, each
         stacked block under ``cfg.remat`` on its slice of the stacked
-        leaves (split once, :func:`_unbind`). Returns (x, the summed
-        router aux loss () f32: the prefix layers', then each block's)."""
+        leaves (split once, :func:`_unbind`; with a ``plan``, gathered
+        inside the block). Returns (x, the summed router aux loss () f32:
+        the prefix layers', then each block's)."""
         cfg = self.cfg
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(self.n_prefix):
@@ -360,7 +383,7 @@ class LM:
             aux_total = aux_total + aux
         block = _remat(functools.partial(
             _train_block, cfg=cfg, pattern=self.pattern,
-            attn_impl=self.attn_impl), cfg.remat)
+            attn_impl=self.attn_impl, plan=plan), cfg.remat)
         for p_block in _unbind(params["blocks"], self.n_blocks):
             x, aux = block(x, p_block)
             aux_total = aux_total + aux
@@ -378,9 +401,12 @@ class LM:
             raise ValueError(
                 "train_loss: K2 has no backward (nor has the reference's "
                 "Pallas kernel); training runs attn_impl='sdpa'")
+        if self.cfg.n_experts:
+            sharding.refuse_moe(sharding.world_of(params)[2])
+        params, plans = sharding.for_train(params, ("blocks",))
         fe = batch.get("frontend_embeds")
         x = self._embed(params, batch["tokens"], fe)
-        x, aux = self._run_blocks_train(params, x)
+        x, aux = self._run_blocks_train(params, x, plans.get("blocks"))
         with record_function("train/logits_ce"):
             logits = self._logits(params, x)
             nfe = 0 if fe is None else fe.shape[1]

@@ -20,8 +20,9 @@ Kept from the reference:
   * the combine casts each gate to the activation dtype before it weights
     the expert's row, and sums the k rows in that dtype.
 
-The reference's sharding ``hint``s are dropped; ``expert_axes`` stays as
-data so the parameter registry equals the reference's.
+The reference's sharding ``hint``s stand where it has them, on the
+expert buffers and the expert FFN's outputs over ``expert_axes``; they are
+identities on plain tensors (``layers.hint``).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from .layers import ParamSet, rms_norm, swiglu
+from .layers import ParamSet, hint, rms_norm, swiglu
 
 
 def expert_axes(cfg: ArchConfig) -> Tuple[str, Optional[str]]:
@@ -126,6 +127,7 @@ def moe_layer(p: Dict, x: torch.Tensor, cfg: ArchConfig
 
     flat_e, pos, keep = positions(expert_idx, e, cap)
     pos_c = torch.where(keep, pos, torch.full_like(pos, cap))     # parked
+    e_ax, f_ax = expert_axes(cfg)
     if cfg.moe_dispatch == "gather":
         token_ids = torch.arange(t, device=x.device)[:, None].expand(
             t, k).reshape(-1)
@@ -136,17 +138,19 @@ def moe_layer(p: Dict, x: torch.Tensor, cfg: ArchConfig
                               device=x.device)
         slot_ok.index_put_((flat_e, pos_c), keep)
         buf = xt[slot_tok[:, :cap]] * slot_ok[:, :cap, None].to(xt.dtype)
+        buf = hint(buf, e_ax, None, None)
     else:
         # each kept (expert, position) slot receives exactly one row, so a
         # plain write equals the reference's scatter-add there; the rows
         # parked in slot ``cap`` (written in any order) are cut off
         buf = torch.zeros((e, cap + 1, d), dtype=xt.dtype, device=x.device)
         buf.index_put_((flat_e.view(t, k), pos_c.view(t, k)), xt[:, None])
-        buf = buf[:, :cap]
+        buf = hint(buf[:, :cap], e_ax, None, None)
 
-    h = torch.matmul(buf, p["w_gate"])                            # (E,cap,F)
-    u = torch.matmul(buf, p["w_up"])
-    out_e = torch.matmul(F.silu(h) * u, p["w_down"])              # (E,cap,D)
+    h = hint(torch.matmul(buf, p["w_gate"]), e_ax, None, f_ax)   # (E,cap,F)
+    u = hint(torch.matmul(buf, p["w_up"]), e_ax, None, f_ax)
+    out_e = hint(torch.matmul(F.silu(h) * u, p["w_down"]),       # (E,cap,D)
+                 e_ax, None, None)
 
     # combine: gather back, weight by the gate cast to the activation dtype
     gathered = out_e[flat_e, torch.clamp(pos_c, max=cap - 1)]     # (T·k, D)

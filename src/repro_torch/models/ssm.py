@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from .layers import ParamSet, ShapeDtype, rms_norm
+from .layers import ParamSet, ShapeDtype, hint, rms_norm
 
 
 def _dims(cfg: ArchConfig) -> Tuple[int, int, int, int]:
@@ -145,7 +145,7 @@ def ssm_full(p: Dict, x: torch.Tensor, cfg: ArchConfig
     b, s, d = x.shape
     di, h, hp, n = _dims(cfg)
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
-    proj = torch.matmul(xn, p["w_in"])
+    proj = hint(torch.matmul(xn, p["w_in"]), "batch", None, None)
     z, xbc_raw, dt = _split_proj(cfg, proj)
     xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
     xin = xbc[..., :di].reshape(b, s, h, hp)
@@ -169,7 +169,7 @@ def ssm_full(p: Dict, x: torch.Tensor, cfg: ArchConfig
     y = y + xin.float() * p["d_skip"][:, None]
     y = y.reshape(b, s, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps)
-    out = torch.matmul(y, p["w_out"])
+    out = hint(torch.matmul(y, p["w_out"]), "batch", None, None)
     # decode hand-off: the *pre-conv* tail window (left-padded with zeros
     # when S < K−1) + the final SSM state in the activation dtype; the
     # tail is copied out of ``proj`` so the cache does not hold it

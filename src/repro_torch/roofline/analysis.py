@@ -14,11 +14,15 @@ same tracer runs over real tensors too, so a step on the card can be held
 against its trace.
 
 The reference parses the collectives of XLA's optimised HLO
-(``_shape_bytes`` … ``parse_collectives``); torch gives no HLO, so that
-part has no counterpart. The port has no sharded runtime yet, so there are
-no collectives to count: ``analyze`` takes them as a breakdown of wire
-bytes by op, which a ``CommDebugMode`` over the sharded step of ROADMAP.md
-Queue 1 item 15b will give. Until then ``collective_s`` is None.
+(``_shape_bytes`` … ``parse_collectives``); torch gives no HLO, so the
+port counts them where they run: :func:`collectives_of` runs one step of
+the sharded runtime on a real mesh under ``CommDebugMode`` (the count by
+op) and a dispatch mode that reads each collective's operand bytes and
+group size, and applies the reference's ring model
+(``src/repro/roofline/analysis.py:16-21``). Its wire bytes per device by
+op are what ``analyze(cost, collectives)`` takes. The production mesh's
+collective term stays None: that needs a trace of one device's shard of
+the step under a fake process group (ROADMAP 15c).
 """
 
 from __future__ import annotations
@@ -225,3 +229,69 @@ def analyze(cost: Dict, collectives: Optional[Dict[str, float]] = None
                     dominant=max(known, key=known.get),
                     collective_breakdown=(None if collectives is None
                                           else dict(collectives)))
+
+
+# ---------------------------------------------------------------------------
+# Collectives of a sharded step on a real mesh
+# ---------------------------------------------------------------------------
+
+# the reference's ring model (src/repro/roofline/analysis.py:16-21): wire
+# bytes per device of one collective of ``b`` payload bytes over n ranks
+_RING = {"all-gather": lambda b, n: (n - 1) / n * b,
+         "reduce-scatter": lambda b, n: (n - 1) / n * b,
+         "all-reduce": lambda b, n: 2 * (n - 1) / n * b}
+# a c10d op: (the reference's name, the argument holding the payload: the
+# all-gather's output, the reduce-scatter's input, the all-reduce's list)
+_C10D = {"c10d._allgather_base_": ("all-gather", 0),
+         "c10d._reduce_scatter_base_": ("reduce-scatter", 1),
+         "c10d.allreduce_": ("all-reduce", 0)}
+
+
+class _CollectiveBytes(TorchDispatchMode):
+    """Payload bytes and counts of the c10d collectives dispatched while
+    active, by the reference's op name; raises on a collective the ring
+    model does not cover."""
+
+    def __init__(self):
+        super().__init__()
+        self.payload: Dict[str, int] = {}
+        self.count: Dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "c10d":
+            op = str(func.overloadpacket)
+            if op not in _C10D:
+                raise ValueError(f"{op}: no wire model for this collective")
+            name, arg = _C10D[op]
+            ts = [t for t in tree_flatten(args[arg])[0]
+                  if isinstance(t, torch.Tensor)]
+            self.payload[name] = self.payload.get(name, 0) + sum(
+                tensor_bytes(t) for t in ts)
+            self.count[name] = self.count.get(name, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+@dataclasses.dataclass
+class Collectives:
+    counts: Dict[str, int]            # CommDebugMode's count by op
+    payload_bytes: Dict[str, int]     # by the reference's op name
+    wire_bytes: Dict[str, float]      # per device, the ring model
+    ranks: int
+
+    def as_dict(self) -> Dict:
+        return dataclasses.asdict(self)
+
+
+def collectives_of(fn: Callable, ranks: int, *args) -> tuple:
+    """``(fn(*args), Collectives)``: one call of a step on a real mesh,
+    whose collectives all run over one group of ``ranks`` ranks (the FSDP
+    step's data axis), counted by ``CommDebugMode`` and weighed by the
+    reference's ring model. ``analyze(cost, c.wire_bytes)`` takes the
+    result."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    rec = _CollectiveBytes()
+    with CommDebugMode() as comm, rec:
+        out = fn(*args)
+    counts = {str(k): int(v) for k, v in comm.get_comm_counts().items()}
+    wire = {k: _RING[k](b, ranks) for k, b in rec.payload.items()}
+    return out, Collectives(counts, dict(rec.payload), wire, ranks)

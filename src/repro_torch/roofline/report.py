@@ -98,7 +98,7 @@ def bottleneck_note(r: Dict) -> str:
             return "KV/state reads dominate; shrink cache dtype or shard KV wider"
         return "activation traffic; raise arithmetic intensity (fusion, remat policy)"
     if rl["memory_s"] is None:
-        return "compute term only: memory and collective terms wait for 15b"
+        return "compute term only: memory and collective terms wait for 15c"
     return "compute-bound: already near the right wall; tune tensor-core use"
 
 

@@ -23,6 +23,13 @@ default types. :func:`restore` rebuilds ``like``'s structure: where
 ``like`` holds a tensor the leaf comes back as a tensor on that tensor's
 device, where it holds a Python float or int, as one of those (a float
 keeps ``like``'s double value when that rounds to the stored float32).
+
+Sharded trees (DTensor blocks over a mesh, ``models/sharding.py``) are
+saved in the same global layout: every rank takes part in gathering each
+leaf onto rank 0, on the caller's thread (a writer thread's collectives
+would race the step's), and rank 0 alone writes. Restore reads the global
+arrays on every rank and keeps each rank's block of them as ``like``'s
+DTensor holds it, on any number of ranks.
 """
 
 from __future__ import annotations
@@ -36,6 +43,10 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from ..models import sharding
 
 _MANIFEST = "manifest.json"
 _DATA = "arrays.npz"
@@ -93,10 +104,20 @@ def _dtype_name(leaf: Any, host: np.ndarray) -> str:
     return str(host.dtype)
 
 
-def _snapshot(tree: Any) -> Dict[str, tuple]:
-    """``{key: (host array as stored, manifest dtype)}`` of every leaf."""
+def _snapshot(tree: Any) -> Optional[Dict[str, tuple]]:
+    """``{key: (host array as stored, manifest dtype)}`` of every leaf; for
+    a sharded tree, on rank 0 only (None on the others)."""
+    flat = _flatten_with_paths(tree)
+    sharded = any(isinstance(v, DTensor) for v in flat.values())
+    if sharded and dist.get_rank() != 0:
+        for v in flat.values():
+            if isinstance(v, DTensor):
+                sharding.gather_to_rank0(v)
+        return None
     out = {}
-    for k, v in _flatten_with_paths(tree).items():
+    for k, v in flat.items():
+        if isinstance(v, DTensor):
+            v = sharding.gather_to_rank0(v)
         h = _host(v)
         name = _dtype_name(v, h)
         if h.dtype.name == "bfloat16":          # an ml_dtypes array
@@ -129,12 +150,14 @@ def _write(ckpt_dir: str, step: int, snap: Dict[str, tuple],
 
 def save(ckpt_dir: str, step: int, tree: Any,
          extras: Optional[Dict] = None) -> str:
-    """Synchronous atomic save. Returns the checkpoint's path.
+    """Synchronous atomic save. Returns the checkpoint's path (None on a
+    rank other than 0 of a sharded tree, which writes nothing).
 
     ``extras``: an optional JSON-serialisable dict stored in the manifest
     (the simulation checkpoints record their rung and degradation knobs).
     """
-    return _write(ckpt_dir, step, _snapshot(tree), extras)
+    snap = _snapshot(tree)
+    return None if snap is None else _write(ckpt_dir, step, snap, extras)
 
 
 def _update_latest(ckpt_dir: str, step: int) -> None:
@@ -158,6 +181,8 @@ class AsyncCheckpointer:
                    extras: Optional[Dict] = None) -> None:
         self.wait()
         snap = _snapshot(tree)          # device → host, on this thread
+        if snap is None:                # a sharded tree: rank 0 writes
+            return
 
         def _write_and_gc():
             _write(self.ckpt_dir, step, snap, extras)
@@ -210,7 +235,12 @@ def load_manifest(ckpt_dir: str, step: int) -> Dict:
 
 
 def _leaf_like(arr: np.ndarray, dtype_name: str, like: Any) -> Any:
-    """A stored array as ``like``'s kind of leaf."""
+    """A stored array as ``like``'s kind of leaf (a DTensor: this rank's
+    block of it)."""
+    if isinstance(like, DTensor):
+        from ..launch.mesh import shard
+        full = _leaf_like(arr, dtype_name, torch.empty(0))
+        return shard(full.to(like.device), like.device_mesh, like.placements)
     if isinstance(like, torch.Tensor):
         if dtype_name == "bfloat16":
             t = torch.from_numpy(arr.view(np.int16).copy()).view(

@@ -11,6 +11,15 @@ Trees are the parameter tree's nested dicts; the state is ``{"mu", "nu",
 it crosses in checkpoints and ``convert``. The update runs in f32 and is
 cast back to each leaf's dtype. The clip scale, the learning rate and the
 step stay tensors on the parameters' device: a step reads nothing back.
+
+On parameters sharded over a mesh (DTensor blocks, ``models/sharding.py``)
+each rank updates its blocks, with moments placed like their parameters;
+the gradients are the ranks' blocks (plain tensors or DTensors), and the
+global norm sums every block's squares in one all-reduce, so the clip
+scale is the one-device scale. There the new parameters and moments are
+written into the given ones, a slab of rows at a time (the reference's
+donated buffers: no second generation of moments at the update, which a
+model that needs its state sharded could not hold).
 """
 
 from __future__ import annotations
@@ -20,6 +29,10 @@ import math
 from typing import Any, Dict, Iterator, List, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from ..models import sharding
 
 _MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -71,22 +84,48 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(s < cfg.warmup_steps, warm, cos)
 
 
+def _like(p: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+    """``local`` as a block placed like ``p`` (a DTensor), or itself."""
+    if not isinstance(p, DTensor):
+        return local
+    return DTensor.from_local(local, p.device_mesh, p.placements,
+                              run_check=False, shape=p.shape,
+                              stride=p.stride())
+
+
 def init_state(cfg: AdamWConfig, params: Any) -> Dict[str, Any]:
     """Zero moments in ``cfg.moment_dtype`` and step 0, on each leaf's
-    device."""
+    device, each placed like its parameter."""
     dt = _MOMENT_DTYPES[cfg.moment_dtype]
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
-    dev = _leaves(params)[0].device
+        loc = sharding.local(p)
+        return _like(p, torch.zeros(loc.shape, dtype=dt, device=loc.device))
+    dev = sharding.local(_leaves(params)[0]).device
     return {"mu": _map(zeros, params), "nu": _map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    """√(Σ over leaves of Σ x²), each leaf's sum in f32."""
-    sums = [torch.sum(torch.square(x.float())) for x in _leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+def global_norm(tree: Any, params: Any = None) -> torch.Tensor:
+    """√(Σ over leaves of Σ x²), each leaf's sum in f32. With sharded
+    ``params`` (the layouts of ``tree``'s blocks) each leaf's sum is summed
+    over the data axis's ranks in one all-reduce, a replicated leaf's
+    counted once (rank 0's)."""
+    sums = torch.stack([torch.sum(torch.square(sharding.local(x).float()))
+                        for x in _leaves(tree)])
+    group, rank, _ = sharding.world_of(params)
+    if group is not None:
+        if rank:
+            rep = torch.tensor([sharding.layout(p).dim is None
+                                for p in _leaves(params)],
+                               device=sums.device)
+            sums = torch.where(rep, torch.zeros_like(sums), sums)
+        dist.all_reduce(sums, group=group)
+    return torch.sqrt(torch.sum(sums))
+
+
+# elements of one slab of an in-place update (its f32 temporaries)
+_SLAB = 1 << 26
 
 
 @torch.no_grad()
@@ -94,9 +133,13 @@ def apply_updates(cfg: AdamWConfig, params: Any, grads: Any,
                   state: Dict[str, Any]
                   ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step. Returns ``(params, state, {"grad_norm", "lr"})``;
-    the inputs are not modified."""
+    the inputs are not modified, unless the parameters are sharded over a
+    mesh: then the new parameters and moments are written into the given
+    ones (returned as they are), each leaf in slabs of leading-axis rows,
+    each slab computed as the whole leaf would be (elementwise, so
+    bit-equal)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, params)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = schedule(cfg, step)
@@ -119,7 +162,24 @@ def apply_updates(cfg: AdamWConfig, params: Any, grads: Any,
         p_n = p.float() - lr * delta
         return p_n.to(p.dtype), mu_n.to(mu.dtype), nu_n.to(nu.dtype)
 
-    out = _map(upd, params, grads, state["mu"], state["nu"])
+    def in_place(p, g, mu, nu):
+        loc = [sharding.local(t) for t in (p, g, mu, nu)]
+        rows = loc[0].shape[0] if loc[0].dim() else 1
+        per = max(1, _SLAB // max(1, loc[0].numel() // rows))
+        for i in range(0, rows, per):
+            part = [t[i:i + per] if t.dim() else t for t in loc]
+            for dst, new in zip((part[0], part[2], part[3]), upd(*part)):
+                dst.copy_(new)
+
+    if sharding.is_sharded(params):
+        _map(in_place, params, grads, state["mu"], state["nu"])
+        return (params, {"mu": state["mu"], "nu": state["nu"], "step": step},
+                {"grad_norm": gnorm, "lr": lr})
+
+    def local_upd(p, g, mu, nu):
+        out = upd(*(sharding.local(t) for t in (p, g, mu, nu)))
+        return tuple(_like(like, o) for like, o in zip((p, mu, nu), out))
+    out = _map(local_upd, params, grads, state["mu"], state["nu"])
 
     def pick(i):
         return _map(lambda o: o[i], out)

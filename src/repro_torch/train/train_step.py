@@ -10,6 +10,15 @@ Gradients come from ``torch.autograd.grad`` on the parameter leaves; the
 caller's parameter tensors need not require grad (the step takes detached
 views of them). ``make_prefill_step`` / ``make_decode_step`` are the
 serving entry points.
+
+On parameters sharded over a mesh (DTensor blocks from
+``init_params(generator, mesh, axes)``) the batch is the rank's own rows
+(``data.rank_batch_at``) and the step is data-parallel: the model gathers
+the weights and reduce-scatters each gradient into the rank's block
+(``models/sharding.py``); each rank's loss is the mean over its rows, so
+the summed gradient is divided by the ranks W, and the logged loss is the
+all-reduced mean. A ``loss_mask`` is refused there: the mean of the
+ranks' masked means is not the global masked mean.
 """
 
 from __future__ import annotations
@@ -17,8 +26,10 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
+from ..models import sharding
 from . import optimizer as opt_mod
 from .optimizer import _leaves, _unflatten
 
@@ -30,30 +41,40 @@ def make_train_step(model, opt_cfg: opt_mod.AdamWConfig,
                     grad_sync_dtype: Optional[str] = None) -> Callable:
     """``grad_sync_dtype="bfloat16"`` casts each (micro)batch's gradients
     to bf16 before they are summed (the reference's data-parallel
-    gradient compression; on one device only its rounding remains); the
-    moments still take the dequantised f32 value. Metrics: ``loss`` (the
-    mean over microbatches), ``grad_norm``, ``lr``, all device tensors."""
+    gradient compression: over ranks, before the reduce-scatter; on one
+    device only its rounding remains); the moments still take the
+    dequantised f32 value. Sharded parameters and moments are updated in
+    place (``apply_updates``). Metrics: ``loss``
+    (the mean over microbatches, and over ranks), ``grad_norm``, ``lr``,
+    all device tensors."""
     sync_dt = _SYNC_DTYPES[grad_sync_dtype]
 
     def loss_and_grads(params, batch):
         leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
-        with torch.enable_grad():
+        with torch.enable_grad(), sharding.grad_sync(sync_dt):
             loss, _ = model.train_loss(_unflatten(params, iter(leaves)),
                                        batch)
             with record_function("train/backward"):
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                             materialize_grads=True)
+        grads = [sharding.local(g) for g in grads]
         if sync_dt is not None:
             grads = [g.to(sync_dt) for g in grads]
         return loss.detach(), grads
 
     def train_step(params, opt_state, batch):
+        group, _, world = sharding.world_of(params)
+        if world > 1 and "loss_mask" in batch:
+            raise NotImplementedError(
+                "a loss_mask over more than one rank: the ranks' masked "
+                "sums and counts would have to be reduced apart")
         if n_microbatches == 1:
             loss, grads = loss_and_grads(params, batch)
         else:
             n = n_microbatches
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for p in _leaves(params)]
+            grads = [torch.zeros_like(sharding.local(p),
+                                      dtype=torch.float32)
+                     for p in _leaves(params)]
             loss = torch.zeros((), dtype=torch.float32,
                                device=grads[0].device)
             for i in range(n):
@@ -66,6 +87,12 @@ def make_train_step(model, opt_cfg: opt_mod.AdamWConfig,
                 del g_i
             grads = [g / n for g in grads]
             loss = loss / n
+        if group is not None:
+            if world > 1:
+                for g in grads:
+                    g.div_(world)
+            dist.all_reduce(loss, group=group)
+            loss = loss / world
         with record_function("train/adamw"):
             params, opt_state, om = opt_mod.apply_updates(
                 opt_cfg, params, _unflatten(params, iter(grads)), opt_state)

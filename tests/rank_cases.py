@@ -1,5 +1,6 @@
 """The cases of the rank tests (``test_torch_ranks.py``,
-``test_torch_distributed.py``) that the launcher's jobs do not cover:
+``test_torch_distributed.py``, ``test_torch_sharded_train.py``) that the
+launcher's jobs do not cover. For the distributed engine:
 the capacity ladder, a run pre-sized at given rungs, a supervised run with
 a NaN drill, a resume from and a save to a checkpoint. A case is a
 launcher job (``launch/distributed.py``) with any of these keys:
@@ -15,6 +16,11 @@ launcher job (``launch/distributed.py``) with any of these keys:
 :func:`run_case` runs one on every rank of a group or, with no group, as
 lanes of one device; :func:`launch` runs a list of them on gloo ranks in
 one subprocess (the launcher's ``spawn_ranks``), with a timeout.
+
+For the LM's sharded training, :func:`run_train_case` runs one case on
+every rank of a (W, 1) ("data", "model") mesh, and
+:func:`launch_train` a list of them on W gloo ranks in one subprocess; see
+:func:`run_train_case` for the keys of a case.
 """
 
 from __future__ import annotations
@@ -140,3 +146,182 @@ def launch(jobs: List[Dict], world: int, out: Path) -> None:
          str(plan), str(out), str(world)], env=env, capture_output=True,
         text=True, timeout=TIMEOUT_S)
     assert proc.returncode == 0, proc.stderr[-4000:]
+
+
+# ---------------------------------------------------------------------------
+# The LM's sharded training (test_torch_sharded_train.py)
+# ---------------------------------------------------------------------------
+
+def _flat(tree, path=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat(tree[k], path + (k,)))
+        return out
+    return {"/".join(path): tree}
+
+
+def _np(t):
+    import torch
+    return t.detach().float().cpu().numpy() if t.dtype == torch.bfloat16 \
+        else t.detach().cpu().numpy()
+
+
+def run_train_case(case: Dict, group, device) -> Optional[Dict]:
+    """One sharded-training case on this rank; rank 0 returns its record
+    (others None). Keys: ``name``, ``arch`` (reduced), ``remat``;
+    ``batch`` (global rows), ``seq``, ``steps`` (the step to end at),
+    ``opt`` (AdamWConfig fields), ``micro``, ``sync`` (grad_sync_dtype);
+    ``init``: a checkpoint directory holding ``{"params", "opt"}`` at step
+    0 (else the seed-0 init); ``restore`` / ``save``: checkpoint
+    directories to start from (its latest step) / write at the end;
+    ``count``: the first step under ``collectives_of``; ``init_shards``:
+    each rank writes its blocks of the seed-0 init to
+    ``out/<name>_r<rank>.npz``; ``shapes``: record each leaf's local shape
+    and a hint's placements; ``run``: ``launch/train.run`` with these
+    TrainJob fields instead; ``mesh``: another (data, model) shape;
+    ``mask``: batches with a ``loss_mask``; ``deterministic``: under
+    ``torch.use_deterministic_algorithms``; ``raises``: the case must
+    raise NotImplementedError or ValueError, its type and message
+    recorded."""
+    try:
+        rec = _train_case(case, group, device)
+    except (NotImplementedError, ValueError) as e:
+        if not case.get("raises"):
+            raise
+        rec = {"name": case["name"], "raised": [type(e).__name__, str(e)]}
+    else:
+        if case.get("raises"):
+            raise AssertionError(f"{case['name']} did not raise")
+    import torch.distributed as dist
+    return rec if dist.get_rank(group) == 0 else None
+
+
+def _train_case(case: Dict, group, device) -> Dict:
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, rank_batch_at
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import build_model, layers, reduced_config
+    from repro_torch.roofline import analysis
+    from repro_torch.train import (AdamWConfig, checkpoint, init_state,
+                                   make_train_step)
+
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    rec: Dict = {"name": case["name"], "world": world}
+    if case.get("deterministic"):
+        torch.use_deterministic_algorithms(True)
+    mesh = lmesh.make_device_mesh(lmesh.Mesh(
+        tuple(case.get("mesh", (world, 1))), ("data", "model")), device)
+    cfg = dc.replace(reduced_config(ARCHS[case["arch"]]),
+                     remat=case.get("remat", "none"))
+    if "run" in case:
+        logs: List[str] = []
+        out = ltrain.run(ltrain.TrainJob(arch=cfg, **case["run"]),
+                         mesh=mesh, device=device, log=logs.append)
+        rec.update(losses=out["losses"])
+        every = [None] * world
+        dist.all_gather_object(every, len(logs), group=group)
+        rec["log_lines"] = every
+        return rec
+    model = build_model(cfg, attn_impl="sdpa", device=device)
+    params = model.init_params(
+        torch.Generator(device=device).manual_seed(0), mesh)
+    if case.get("init_shards"):
+        np.savez(Path(case["out"]) / f"{case['name']}_r{rank}.npz", **{
+            k: _np(v.to_local()) for k, v in _flat(params).items()})
+    if case.get("shapes"):
+        from torch.distributed.tensor import DTensor
+        rec["local_shapes"] = {k: list(v.to_local().shape)
+                               for k, v in _flat(params).items()}
+        x = DTensor.from_local(torch.ones(2, 3, 8, device=device), mesh,
+                               lmesh.placements(("data", None, None), mesh))
+        layers.set_hint_axes(layers.MeshAxes(fsdp=("data",)))
+        try:
+            y = layers.hint(x, None, None, "fsdp")
+        finally:
+            layers.set_hint_axes(None)
+        rec["hint"] = [str(p) for p in y.placements]
+        rec["hint_local"] = list(y.to_local().shape)
+        try:
+            lmesh.shard(torch.ones(9, 8, device=device), mesh,
+                        lmesh.placements(("data", None), mesh))
+            rec["uneven"] = None
+        except ValueError as e:
+            rec["uneven"] = [type(e).__name__, str(e)]
+    ocfg = AdamWConfig(**case.get("opt", {}))
+    state = init_state(ocfg, params)
+    start = 0
+    src = case.get("restore") or case.get("init")
+    if src:
+        start = checkpoint.latest_step(src) if case.get("restore") else 0
+        got = checkpoint.restore(src, start,
+                                 {"params": params, "opt": state})
+        params, state = got["params"], got["opt"]
+    step_fn = make_train_step(model, ocfg,
+                              n_microbatches=case.get("micro", 1),
+                              grad_sync_dtype=case.get("sync"))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=case.get("seq", 16),
+                      global_batch=case.get("batch", 4), seed=1234,
+                      frontend_tokens=cfg.frontend_tokens,
+                      d_model=cfg.d_model)
+    rec["metrics"] = []
+    for i in range(start, case["steps"]):
+        batch = rank_batch_at(dcfg, i, rank, world, device=device)
+        if case.get("mask"):
+            batch["loss_mask"] = torch.ones_like(batch["tokens"])
+        if case.get("count") and i == start:
+            (params, state, m), col = analysis.collectives_of(
+                step_fn, world, params, state, batch)
+            rec["collectives"] = col.as_dict()
+        else:
+            params, state, m = step_fn(params, state, batch)
+        rec["metrics"].append({k: float(m[k])
+                               for k in ("loss", "grad_norm", "lr")})
+    if case.get("save"):
+        checkpoint.save(case["save"], case["steps"],
+                        {"params": params, "opt": state})
+        one = torch.ones(1)
+        dist.all_reduce(one, group=group)      # rank 0's write is done
+    return rec
+
+
+def run_train_cases(group, device, cases: List[Dict], out: str) -> None:
+    """Every case in order on this rank; rank 0 writes ``out/cases.json``
+    (a record a case)."""
+    recs = []
+    for case in cases:
+        rec = run_train_case(dict(case, out=out), group, device)
+        recs.append(rec)
+    if recs and recs[0] is not None:
+        (Path(out) / "cases.json").write_text(json.dumps(recs))
+
+
+def train_main(argv: List[str]) -> None:
+    """``PLAN OUT RANKS``: the plan's training cases on that many gloo
+    ranks."""
+    plan, out, ranks = argv
+    cases = json.loads(Path(plan).read_text())
+    launcher.spawn_ranks(run_train_cases, (cases, out), int(ranks), "cpu")
+
+
+def launch_train(cases: List[Dict], world: int, out: Path) -> List[Dict]:
+    """``cases`` on ``world`` gloo ranks in one subprocess (with a
+    timeout); rank 0's records."""
+    out.mkdir(parents=True, exist_ok=True)
+    plan = out / "plan.json"
+    plan.write_text(json.dumps(cases))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT / "tests")]))
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, rank_cases; rank_cases.train_main(sys.argv[1:])",
+         str(plan), str(out), str(world)], env=env, capture_output=True,
+        text=True, timeout=TIMEOUT_S)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads((out / "cases.json").read_text())

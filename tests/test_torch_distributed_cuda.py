@@ -17,7 +17,11 @@ tests/test_torch_distributed_cuda.py -m cuda``):
 * the distributed ladder ≡ a run pre-sized at its final rungs, bit for bit;
 * over ranks of a process group (``launch/distributed.py``): one NCCL
   rank holding all 4 shards, and 2 or 4 ranks one card each (skipped
-  with fewer than 2 cards), ≡ the lanes run on card 0 byte for byte.
+  with fewer than 2 cards), ≡ the lanes run on card 0 byte for byte;
+* the LM's sharded training (FSDP over a (W, 1) mesh, reduced qwen3-14b
+  in f32, 3 steps, deterministic algorithms): one NCCL rank ≡ the
+  unsharded step on the card bit for bit, and 2 or 4 ranks one card each
+  (skipped with fewer than 2 cards) within 1e-5 + 1e-4·|x| of it.
 """
 
 import dataclasses
@@ -225,3 +229,67 @@ def test_nccl_ranks_on_several_cards_equal_the_lanes_run(tmp_path):
     if n < 2:
         pytest.skip(f"needs 2 cards for 2 NCCL ranks, {n} visible")
     _ranks_equal_lanes(tmp_path, 4 if n >= 4 else 2)
+
+
+# ---------------------------------------------------------------------------
+# the LM's sharded training over NCCL ranks (rank_cases.run_train_case)
+# ---------------------------------------------------------------------------
+
+TRAIN_OPT = dict(lr=1e-2, warmup_steps=2, total_steps=10)
+TRAIN_CASE = dict(name="qwen3", arch="qwen3-14b", steps=3, batch=4, seq=16,
+                  opt=TRAIN_OPT, deterministic=True)
+
+
+def _unsharded_on_the_card():
+    """The same case on card 0 with no mesh: the port's one-device step."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.models import build_model, reduced_config
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+    cfg = reduced_config(ARCHS["qwen3-14b"])
+    model = build_model(cfg, attn_impl="sdpa", device="cuda")
+    p = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    oc = AdamWConfig(**TRAIN_OPT)
+    st, step, out = init_state(oc, p), make_train_step(model, oc), []
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4,
+                      seed=1234, d_model=cfg.d_model)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for i in range(3):
+            p, st, m = step(p, st, batch_at(dcfg, i, device="cuda"))
+            out.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    return out
+
+
+def _sharded_on_ranks(tmp_path, ranks: int):
+    import json
+
+    import rank_cases
+    from repro_torch.launch import distributed as launcher
+    launcher.spawn_ranks(rank_cases.run_train_cases,
+                         ([TRAIN_CASE], str(tmp_path)), ranks, "cuda")
+    return json.loads((tmp_path / "cases.json").read_text())[0]["metrics"]
+
+
+@pytest.mark.cuda
+def test_one_nccl_rank_trains_as_the_unsharded_step(tmp_path, monkeypatch):
+    _card()
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    assert _sharded_on_ranks(tmp_path, 1) == _unsharded_on_the_card()
+
+
+@pytest.mark.cuda
+def test_fsdp_on_several_cards_trains_as_one_card(tmp_path, monkeypatch):
+    _card()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs 2 cards for 2 NCCL ranks, {n} visible")
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    got = _sharded_on_ranks(tmp_path, 4 if n >= 4 else 2)
+    for g, w in zip(got, _unsharded_on_the_card()):
+        for k in w:
+            np.testing.assert_allclose(g[k], w[k], atol=1e-5, rtol=1e-4,
+                                       err_msg=k)

@@ -67,6 +67,30 @@ def test_import_check_covers_the_encoder_decoder():
     assert PORT / "models" / "encdec.py" in PORT_FILES
 
 
+def test_import_check_covers_the_sharded_runtime():
+    assert PORT / "models" / "sharding.py" in PORT_FILES
+    assert PORT / "launch" / "mesh.py" in PORT_FILES
+
+
+@pytest.mark.parametrize("make", ["make_device_mesh", "rank_batch_at"])
+def test_sharded_runtime_defaults_to_cuda_and_raises_without_it(make):
+    """The device mesh and a rank's rows of a batch go on the card unless
+    asked for the CPU."""
+    from repro_torch.data import DataConfig, rank_batch_at
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.device import resolve_device
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    calls = {
+        "make_device_mesh": lambda: lmesh.make_device_mesh(
+            lmesh.Mesh((1, 1), ("data", "model"))),
+        "rank_batch_at": lambda: rank_batch_at(
+            DataConfig(vocab_size=16, seq_len=4, global_batch=2), 0, 0, 2)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[make]()
+
+
 def test_port_core_exports_what_the_reference_core_exports():
     """Every name of ``repro.core.__all__`` is exported by
     ``repro_torch.core`` too, the distributed engine's included."""
