@@ -3,7 +3,7 @@
 kernel of that path against its plain PyTorch version.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --cards 4      # phases 35 (b), 36 (a)-(c), 4 cards
+    python3 chip_smoke.py --cards 4      # phases 35 (b), 36, 37 on 4 cards
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   0. build: compile every kernel under src/repro_torch/kernels/csrc with
@@ -458,6 +458,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      step 3 resumed on N ranks ≡ the uninterrupted run bit for bit (loss
      and every array of the step-3 checkpoint), on 2 ranks within (a)'s
      tolerances.
+ 37. tensor parallelism over the mesh's "model" axis (FSDP × TP:
+     ``models/sharding.py``, ``launch/train.run(job, mesh)`` on a ("data",
+     "model") mesh of (D, T)), only with ``--cards 4``, after 36 and
+     against its runs in the same call: (a) 36 (a)'s qwen2-1.5b job (tied
+     embeddings, qkv bias, 12 heads and 2 kv heads) on a (1, 2) mesh of 2
+     cards: loss and grad_norm within rtol 2e-3 of 36 (a)'s one rank,
+     params within 3·lr + 2^-8·|param|, the gaps and the element that
+     sets the largest printed; (b) 36 (b)'s
+     qwen3-14b job at full width and depth (the same init, batches and
+     seed) on a (2, 2) mesh, 2 microbatches of one sequence a data rank:
+     each step's loss within rtol 2e-3 of 36 (b)'s (4, 1) losses; ms/step
+     (the slowest card's median of steps 2-5), tokens/s, the model-FLOPs
+     share, peak memory of every card (under 80 GB), one more step under
+     ``CommDebugMode`` (counts by op and by group, payload, wire bytes a
+     card and the collective term, each group's too) and one profiled
+     (idle share and device ms in NCCL kernels by kind, each card), each
+     beside 36 (b)'s; (c) 36 (c)'s 2-layer qwen2-1.5b: a checkpoint at step
+     2 on (2, 2), step 3 resumed on (2, 2) ≡ the uninterrupted (2, 2) run
+     bit for bit, on (4, 1) within (a)'s bounds; (d) no kernel launches
+     over (b)'s steps on any card (printed as a ``tp_launches`` JSON line,
+     one entry a kernel).
 
 The kernels line's K1 and column-map entries add their launches per tick
 on phase 23 (b) (``ensemble_launches_per_tick``); the pair-list build's
@@ -5536,12 +5557,18 @@ def _profiled_call(fn) -> dict:
         prof.export_chrome_trace(path)
         events = json.loads(Path(path).read_text())["traceEvents"]
     stats = analyze_trace(events, 1)
-    nccl = sum(e["dur"] for e in events if e.get("cat") == "kernel"
-               and "nccl" in e.get("name", "").lower()) / 1e3
+    nccl = [e for e in events if e.get("cat") == "kernel"
+            and "nccl" in e.get("name", "").lower()]
+    by_kind: dict = {}
+    for e in nccl:
+        kind = next((k for k in ("AllGather", "ReduceScatter", "AllReduce")
+                     if k in e["name"]), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + e["dur"] / 1e3
     return {"wall_ms": wall,
             "device_idle_share": 1.0 - stats["device_busy_ms"] / wall,
-            "device_ms_by_kind": _kernel_classes(events), "nccl_ms": nccl,
-            **stats}
+            "device_ms_by_kind": _kernel_classes(events),
+            "nccl_ms": sum(e["dur"] for e in nccl) / 1e3,
+            "nccl_ms_by_kind": by_kind, **stats}
 
 
 def _serve_profiled(model, params, reqs, spec: dict, frames=None) -> dict:
@@ -6577,7 +6604,8 @@ def _fsdp_steps(spec: dict, mesh, dev, micro: int = 1, extra=()) -> tuple:
     n = spec["steps"]
     if "count" in extra:
         (params, state, _), col = analysis.collectives_of(
-            step_fn, world, params, state, batch(n))
+            step_fn, mesh.size(), params, state, batch(n),
+            groups=sharding.groups_of(params))
         torch.cuda.synchronize()
         rec["collectives"] = col.as_dict()
         rec["collective_s"] = analysis.analyze(
@@ -6597,12 +6625,13 @@ def _save_params(params, path: str, step: int) -> None:
 
 
 def _fsdp_rank(group, device, jobs: list, out: str) -> None:
-    """[36] ``jobs`` on this rank of ``group``, each on a (W, 1) ("data",
-    "model") mesh: ``one`` (the one-rank phase), ``steps`` (a spec's steps,
-    ``save`` writing the params after them, ``extra`` steps), ``run``
-    (``launch/train.run`` with a checkpoint directory, copied from
-    ``from`` first). Rank 0 writes ``out/<tag>.json`` with every rank's
-    record."""
+    """[36, 37] ``jobs`` on this rank of ``group``, each on a (W, 1)
+    ("data", "model") mesh or the job's ``mesh`` shape: ``one`` (the
+    one-rank phase), ``steps`` (a spec's steps, ``save`` writing the params
+    after them, ``extra`` steps, ``micro`` microbatches, ``launches``: every
+    kernel's launches counted over the steps), ``run`` (``launch/train.run``
+    with a checkpoint directory, copied from ``from`` first). Rank 0 writes
+    ``out/<tag>.json`` with every rank's record."""
     import gc
     import shutil
 
@@ -6613,9 +6642,10 @@ def _fsdp_rank(group, device, jobs: list, out: str) -> None:
     world, rank = dist.get_world_size(group), dist.get_rank(group)
     for job in jobs:
         torch.use_deterministic_algorithms(bool(job.get("deterministic")))
-        mesh = lmesh.make_device_mesh(
-            lmesh.Mesh((world, 1), ("data", "model")), device)
         spec = job["spec"]
+        mesh = lmesh.make_device_mesh(
+            lmesh.Mesh(tuple(job.get("mesh", (world, 1))),
+                       ("data", "model")), device, cfg=_fsdp_cfg(spec))
         t0 = time.perf_counter()
         if job["kind"] == "one":
             plain, p, want = _fsdp_steps(spec, None, device)
@@ -6640,9 +6670,13 @@ def _fsdp_rank(group, device, jobs: list, out: str) -> None:
             rec["run_mesh_losses"] = ltrain.run(run_job, mesh=mesh,
                                                 log=quiet)["losses"]
         elif job["kind"] == "steps":
+            if job.get("launches"):
+                _reset_counts()
             rec, p, _ = _fsdp_steps(spec, mesh, device,
                                     micro=job.get("micro", 1),
                                     extra=tuple(job.get("extra", ())))
+            if job.get("launches"):
+                rec["launches"] = _read_counts()
             if job.get("save"):
                 _save_params(p, job["save"], spec["steps"])
             del p
@@ -6735,8 +6769,9 @@ def phase_fsdp_one_rank(report: dict, tmpdir: str) -> dict:
 
 def _param_gap(want_dir: str, got_dir: str, step: int, lr: float) -> dict:
     """Largest |Δ| of the params of two saved runs (their ``params/``
-    leaves), and its largest ratio to 3·lr + 2^-8·|param| (must be
-    ≤ 1)."""
+    leaves), its largest ratio to 3·lr + 2^-8·|param| (must be ≤ 1), and
+    the element that sets that ratio (``worst``: leaf, index, both
+    values)."""
     import numpy as np
     from repro_torch.train import checkpoint
 
@@ -6752,13 +6787,19 @@ def _param_gap(want_dir: str, got_dir: str, step: int, lr: float) -> dict:
                 yield k, v
     got = dict(load(got_dir))
     gap = ratio = 0.0
+    worst = None
     for k, w in load(want_dir):
-        d = np.abs(got.pop(k) - w)
+        g = got.pop(k)
+        d = np.abs(g - w)
         gap = max(gap, float(d.max()))
-        ratio = max(ratio, float((d / (3 * lr + 2.0 ** -8 * np.abs(w)))
-                                 .max()))
+        r = d / (3 * lr + 2.0 ** -8 * np.abs(w))
+        at = np.unravel_index(int(r.argmax()), r.shape)
+        if float(r[at]) > ratio:
+            ratio = float(r[at])
+            worst = {"leaf": k, "index": [int(i) for i in at],
+                     "want": float(w[at]), "got": float(g[at])}
     check(not got, f"[36] leaves only in {got_dir}: {sorted(got)}")
-    return {"max_abs_gap": gap, "max_gap_over_bound": ratio}
+    return {"max_abs_gap": gap, "max_gap_over_bound": ratio, "worst": worst}
 
 
 def _close_steps(got: list, want: list, rtol: float, what: str,
@@ -6842,8 +6883,8 @@ def phase_fsdp_cards(n_cards: int, tmpdir: str) -> dict:
                                        for x in ref["steps"])
               + f": within rel {rel:.3g} (bound {FSDP_RTOL}); "
               f"params max |Δ| {gap['max_abs_gap']:.3g}, "
-              f"{gap['max_gap_over_bound']:.3g} of 3·lr + 2^-8·|p|; "
-              f"ms/step by card {[round(x, 1) for x in rec['parity'][str(w)]['ms_by_card']]}"
+              f"{gap['max_gap_over_bound']:.3g} of 3·lr + 2^-8·|p| (at "
+              f"{gap['worst']}); ms/step by card {[round(x, 1) for x in rec['parity'][str(w)]['ms_by_card']]}"
               f" against {ref['ms_per_step_median']:.1f} on one",
               flush=True)
     # (b) the cell
@@ -6915,7 +6956,225 @@ def phase_fsdp_cards(n_cards: int, tmpdir: str) -> dict:
           f"array of the step-3 checkpoint), on 2 ranks loss {other[0]:.6g} "
           f"(rel {rel:.3g}), params max |Δ| {gap['max_abs_gap']:.3g}, "
           f"{gap['max_gap_over_bound']:.3g} of the bound", flush=True)
-    for p in list(el.values()) + list(par.values()):
+    # (a)'s one-rank run stays for phase 37 (a), which removes it
+    for p in list(el.values()) + [par[w] for w in (2, n_cards)]:
+        shutil.rmtree(p, ignore_errors=True)
+    rec["parity1_dir"] = par[1]
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# [37] tensor parallelism over the mesh's "model" axis (--cards N only)
+# ---------------------------------------------------------------------------
+
+# (a) phase 36 (a)'s qwen2-1.5b run (4 × 4,096 tokens, 3 steps) on a (1, 2)
+# mesh: tied embeddings, qkv bias, 12 heads and 2 kv heads over 2 ranks
+TP_PARITY_MESH = (1, 2)
+# (b) phase 36 (b)'s qwen3-14b job on a (2, 2) mesh: the same init, batches
+# and seed, 2 microbatches of one sequence on each data rank
+TP_CELL_MESH = (2, 2)
+TP_CELL_MICRO = 2
+# (c) phase 36 (c)'s 2-layer qwen2-1.5b: a checkpoint at step 2 on (2, 2),
+# step 3 resumed on (2, 2) (bit for bit) and on (4, 1) ((a)'s bounds)
+
+
+def phase_tp_cards(n_cards: int, tmpdir: str, fsdp: dict) -> dict:
+    """[37 (a)-(d)] FSDP × tensor parallelism on ``n_cards`` = 4 cards,
+    against phase 36's runs in the same call (``fsdp``: its record). Every
+    part is run and printed before a failed check ends the phase:
+    ``failures`` lists them (the caller writes the record, then fails)."""
+    import shutil
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.device import card_description
+    from repro_torch.launch import cells
+    from repro_torch.roofline import analysis
+    d = Path(tmpdir) / "tp"
+    d.mkdir()
+    rec = {"failures": []}
+
+    def soft(cond: bool, msg: str) -> None:
+        if not cond:
+            rec["failures"].append(msg)
+            print(f"FAILED: chip_smoke: {msg}", flush=True)
+    if n_cards != math.prod(TP_CELL_MESH):
+        soft(False, f"[37] needs {math.prod(TP_CELL_MESH)} cards, got "
+                    f"{n_cards}")
+        return rec
+    det = dict(deterministic=True)
+    el = {k: str(d / k) for k in ("el22", "el22r", "el22f", "el41r")}
+    par = str(d / "parity12")
+    t0 = time.perf_counter()
+    got = _fsdp_spawn([dict(tag="parity12", kind="steps", spec=FSDP_PARITY,
+                            mesh=TP_PARITY_MESH, save=par, **det)],
+                      math.prod(TP_PARITY_MESH), d / "w2")
+    got.update(_fsdp_spawn(
+        [dict(tag="cell", kind="steps", spec=FSDP_CELL, mesh=TP_CELL_MESH,
+              micro=TP_CELL_MICRO, launches=True,
+              extra=("count", "profile")),
+         dict(tag="el22", kind="run", spec=FSDP_ELASTIC, steps=2,
+              mesh=TP_CELL_MESH, ckpt=el["el22"], **det),
+         dict(tag="el22r", kind="run", spec=FSDP_ELASTIC, steps=3,
+              mesh=TP_CELL_MESH, ckpt=el["el22r"], **{"from": el["el22"]},
+              **det),
+         dict(tag="el22f", kind="run", spec=FSDP_ELASTIC, steps=3,
+              mesh=TP_CELL_MESH, ckpt=el["el22f"], **det),
+         dict(tag="el41r", kind="run", spec=FSDP_ELASTIC, steps=3,
+              ckpt=el["el41r"], **{"from": el["el22"]}, **det)],
+        n_cards, d / "w4"))
+    rec["spawn_s"] = time.perf_counter() - t0
+    # (a) qwen2-1.5b on (1, 2) against 36 (a)'s one rank
+    one = fsdp["parity"]["1"]
+    r = got["parity12"][0]
+    rel = _close_steps(r["steps"], one["steps"], FSDP_RTOL, "[37a] (1, 2)",
+                       soft)
+    gap = _param_gap(fsdp["parity1_dir"], par, FSDP_PARITY["steps"],
+                     FSDP_PARITY["lr"])
+    soft(gap["max_gap_over_bound"] <= 1.0, f"[37a] (1, 2) params {gap}")
+    rec["parity"] = dict(r, max_rel_gap=rel, **gap, ms_by_card=[
+        x["ms_per_step_median"] for x in got["parity12"]],
+        peak_gb_by_card=[x["peak_memory_bytes"] / 1e9
+                         for x in got["parity12"]])
+    print(f"[37a] qwen2-1.5b at full width and depth on a {TP_PARITY_MESH} "
+          f"mesh (tensor-parallel: 6 of 12 heads, 1 of 2 kv heads, half "
+          f"the vocab a card), {FSDP_PARITY['batch']} x "
+          f"{FSDP_PARITY['seq_len']} tokens, {FSDP_PARITY['steps']} steps "
+          f"against 36 (a)'s one rank (deterministic algorithms): loss "
+          + " ".join(f"{x['loss']:.6g}" for x in r["steps"])
+          + " against " + " ".join(f"{x['loss']:.6g}" for x in one["steps"])
+          + ", grad_norm " + " ".join(f"{x['grad_norm']:.6g}"
+                                      for x in r["steps"])
+          + " against " + " ".join(f"{x['grad_norm']:.6g}"
+                                   for x in one["steps"])
+          + f": within rel {rel:.3g} (bound {FSDP_RTOL}); params max |Δ| "
+          f"{gap['max_abs_gap']:.3g}, {gap['max_gap_over_bound']:.3g} of "
+          f"3·lr + 2^-8·|p| (at {gap['worst']}); ms/step by card "
+          f"{[round(x, 1) for x in rec['parity']['ms_by_card']]} against "
+          f"{one['ms_per_step_median']:.1f} on one and "
+          f"{fsdp['parity']['2']['ms_by_card'][0]:.1f} on (2, 1); peak GB "
+          f"by card {[round(x, 2) for x in rec['parity']['peak_gb_by_card']]}"
+          f" against {one['peak_memory_bytes'] / 1e9:.2f} on one",
+          flush=True)
+    # (b) qwen3-14b on (2, 2) against 36 (b)'s (4, 1) run
+    cell, base = got["cell"], fsdp["cell"]
+    c0 = cell[0]
+    losses = [x["loss"] for x in c0["steps"]]
+    want = [x["loss"] for x in base["ranks"][0]["steps"]]
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(losses, want)):
+        worst = max(worst, abs(g - w) / abs(w))
+        soft(abs(g - w) <= FSDP_RTOL * abs(w),
+             f"[37b] step {i + 1} loss {g} vs (4, 1) {w}")
+    soft(len(losses) == len(want), f"[37b] {losses} vs {want}")
+    ms = max(x["ms_per_step_median"] for x in cell)
+    flops = cells.analytic_step_flops(_fsdp_cfg(FSDP_CELL), ShapeSpec(
+        "train", FSDP_CELL["seq_len"], FSDP_CELL["batch"], "train"))
+    peaks = [x["peak_memory_bytes"] / 1e9 for x in cell]
+    soft(max(peaks) < 80.0, f"[37b] peak GB by card {peaks}")
+    tokens = FSDP_CELL["batch"] * FSDP_CELL["seq_len"]
+    col = c0["collectives"]
+    from repro_torch.models import build_model
+    reckoned = analysis.reckon_collectives(
+        build_model(_fsdp_cfg(FSDP_CELL), attn_impl="sdpa", device="meta"),
+        TP_CELL_MESH[0], TP_CELL_MESH[1], TP_CELL_MICRO,
+        FSDP_CELL["batch"] // TP_CELL_MESH[0] // TP_CELL_MICRO,
+        FSDP_CELL["seq_len"])
+    soft(col["by_group"] == reckoned,
+         f"[37b] collectives by group {col['by_group']} != the spec tree's "
+         f"{reckoned}")
+    by_group_s = {g: analysis.analyze({"flops": 0.0},
+                                      v["wire_bytes"]).collective_s
+                  for g, v in col["by_group"].items()}
+    rec["cell"] = {
+        "ranks": cell, "ms_per_step": ms, "tokens_per_s": tokens / (ms / 1e3),
+        "analytic_flops_per_step": flops,
+        "model_flops_share": flops / (ms / 1e3) / n_cards
+        / PEAK_BF16_TENSOR_FLOPS,
+        "losses": losses, "fsdp41_losses": want, "max_rel_loss_gap": worst,
+        "peak_gb_by_card": peaks,
+        "idle_share_by_card": [x["profiled"]["device_idle_share"]
+                               for x in cell],
+        "nccl_ms_by_card": [x["profiled"]["nccl_ms"] for x in cell],
+        "nccl_ms_by_kind_by_card": [x["profiled"]["nccl_ms_by_kind"]
+                                    for x in cell],
+        "profiled_ms_by_card": [x["profiled"]["wall_ms"] for x in cell],
+        "collectives": col, "collective_s": c0["collective_s"],
+        "collective_s_by_group": by_group_s}
+    cr, br = rec["cell"], base
+    kinds = cr["nccl_ms_by_kind_by_card"]
+    print(f"[37b] qwen3-14b at full width and depth ({c0['n_layers']} "
+          f"layers, {c0['n_params']:,} params, bf16, f32 moments, remat "
+          f"full) on a {TP_CELL_MESH} mesh of {n_cards} cards, "
+          f"{FSDP_CELL['batch']} x {FSDP_CELL['seq_len']} tokens a step in "
+          f"{TP_CELL_MICRO} microbatches a data rank: loss "
+          + " ".join(f"{x:.5g}" for x in losses) + " against (4, 1) "
+          + " ".join(f"{x:.5g}" for x in want)
+          + f" (within rel {worst:.3g}, bound {FSDP_RTOL}); {ms:.1f} "
+          f"ms/step (slowest card's median of steps 2-{FSDP_CELL['steps']},"
+          f" CUDA events; by card "
+          f"{[round(x['ms_per_step_median'], 1) for x in cell]}) against "
+          f"{br['ms_per_step']:.1f} on (4, 1); "
+          f"{cr['tokens_per_s']:.0f} tokens/s against "
+          f"{br['tokens_per_s']:.0f}; model-FLOPs share "
+          f"{cr['model_flops_share']:.4f} against "
+          f"{br['model_flops_share']:.4f}; peak GB by card "
+          f"{[round(x, 2) for x in peaks]} against "
+          f"{[round(x, 2) for x in br['peak_gb_by_card']]}", flush=True)
+    print(f"[37b] one step under CommDebugMode: counts {col['counts']}; by "
+          f"group " + "; ".join(
+              f"{g} ({v['ranks']} ranks) counts {v['counts']}, payload "
+              f"{v['payload_bytes']}, wire bytes a card {v['wire_bytes']}"
+              for g, v in col["by_group"].items())
+          + f" (≡ roofline/analysis.reckon_collectives: "
+          f"{col['by_group'] == reckoned})"
+          + f" → collective term {c0['collective_s']:.4f} s at NVLink "
+          f"{450e9:.3g} B/s (by group "
+          f"{ {g: round(v, 4) for g, v in by_group_s.items()} }) against "
+          f"{br['collective_s']:.4f} s on (4, 1) (wire "
+          f"{ {k: v for k, v in br['collectives']['wire_bytes'].items()} })",
+          flush=True)
+    print(f"[37b] one profiled step: wall ms by card "
+          f"{[round(x, 1) for x in cr['profiled_ms_by_card']]}, idle share "
+          f"{[round(x, 3) for x in cr['idle_share_by_card']]}, device ms in "
+          f"NCCL kernels {[round(x, 1) for x in cr['nccl_ms_by_card']]} by "
+          f"kind {[{k: round(v, 1) for k, v in x.items()} for x in kinds]}"
+          f"; on (4, 1): idle "
+          f"{[round(x, 3) for x in br['idle_share_by_card']]}, NCCL ms "
+          f"{[round(x, 1) for x in br['nccl_ms_by_card']]}; "
+          f"{card_description()}", flush=True)
+    # (c) the checkpoint of (2, 2) resumed on (2, 2) and on (4, 1)
+    full = got["el22f"][0]["losses"]
+    same, other = got["el22r"][0]["losses"], got["el41r"][0]["losses"]
+    soft(same == full[-1:], f"[37c] (2, 2) resumed {same} != {full}")
+    arrays = {k: _arrays_of(el[k], FSDP_ELASTIC["steps"])
+              for k in ("el22r", "el22f")}
+    soft(arrays["el22r"].keys() == arrays["el22f"].keys() and all(
+        arrays["el22r"][k].tobytes() == v.tobytes()
+        for k, v in arrays["el22f"].items()),
+        "[37c] the (2, 2) resumed checkpoint differs from the uninterrupted")
+    del arrays
+    rel = abs(other[0] - full[-1]) / abs(full[-1])
+    soft(rel <= FSDP_RTOL, f"[37c] (4, 1) resumed loss {other} vs {full}")
+    gap = _param_gap(el["el22f"], el["el41r"], FSDP_ELASTIC["steps"],
+                     FSDP_ELASTIC["lr"])
+    soft(gap["max_gap_over_bound"] <= 1.0, f"[37c] (4, 1) params {gap}")
+    rec["elastic"] = {"tp22_losses": full, "tp22_resumed": same,
+                      "fsdp41_resumed": other, "fsdp41_rel": rel, **gap}
+    print(f"[37c] qwen2-1.5b at full width, {FSDP_ELASTIC['n_layers']} "
+          f"layers: a checkpoint at step 2 on (2, 2), step 3 resumed on "
+          f"(2, 2) bit for bit (loss {same[0]:.6g}, every array of the "
+          f"step-3 checkpoint), on (4, 1) loss {other[0]:.6g} (rel "
+          f"{rel:.3g}), params max |Δ| {gap['max_abs_gap']:.3g}, "
+          f"{gap['max_gap_over_bound']:.3g} of the bound", flush=True)
+    # (d) no kernel on the path: counted in every rank over (b)'s steps
+    launches = {}
+    for x in cell:
+        for k, v in x["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    soft(not any(launches.values()), f"[37d] kernel launches {launches}")
+    rec["tp_launches"] = launches
+    print(f"[37d] kernel launches over (b)'s steps on the {n_cards} cards: "
+          f"{launches}", flush=True)
+    for p in list(el.values()) + [par, fsdp["parity1_dir"]]:
         shutil.rmtree(p, ignore_errors=True)
     return rec
 
@@ -6960,8 +7219,8 @@ def main() -> int:
 
 
 def _cards_main(n_cards: int) -> int:
-    """``--cards N``: build the kernels and run phases 35 (b) and 36
-    (a)-(c) only."""
+    """``--cards N``: build the kernels and run phases 35 (b), 36 (a)-(c)
+    and 37 only."""
     import tempfile
     import torch
     if torch.cuda.device_count() < n_cards:
@@ -6986,6 +7245,10 @@ def _cards_main(n_cards: int) -> int:
         rec["fsdp"] = phase_fsdp_cards(n_cards, tmpdir)
         print(f"[36] (a)-(c) phase time {time.perf_counter() - t0:.1f} s",
               flush=True)
+        t0 = time.perf_counter()
+        rec["tp"] = phase_tp_cards(n_cards, tmpdir, rec["fsdp"])
+        print(f"[37] phase time {time.perf_counter() - t0:.1f} s",
+              flush=True)
     rec["device"] = torch.cuda.get_device_name(0)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -6993,6 +7256,14 @@ def _cards_main(n_cards: int) -> int:
     check(not rec["fsdp"]["failures"],
           f"[36] {len(rec['fsdp']['failures'])} check(s) failed: "
           f"{rec['fsdp']['failures']}")
+    check(not rec["tp"]["failures"],
+          f"[37] {len(rec['tp']['failures'])} check(s) failed: "
+          f"{rec['tp']['failures']}")
+    # no kernel launches on the tensor-parallel path (37 (d)): each
+    # kernel's count over 37 (b)'s steps, summed over the cards
+    print(json.dumps({"tp_launches": [
+        {"name": k, "tp_launches": v}
+        for k, v in sorted(rec["tp"]["tp_launches"].items())]}), flush=True)
     for line in rec["cards"]:
         print(line, flush=True)
     print(card_description(), flush=True)

@@ -71,7 +71,10 @@ def rank_batch_at(cfg: DataConfig, step: int, rank: int, world: int,
     ``batch_at(cfg, step)``: the data-parallel ranks of one step split one
     batch, whatever their count (``batch_at``'s ``host_id`` would seed
     each rank's rows apart, so the data would change with ``world``).
-    Only those rows go to ``device``."""
+    Only those rows go to ``device``. On a ("data", "model") mesh
+    ``rank`` is the data coordinate and ``world`` the data axis's size
+    (``models/sharding.world_of``): the model ranks of one data
+    coordinate take the same rows."""
     if cfg.global_batch % world:
         raise ValueError(f"a global batch of {cfg.global_batch} does not "
                          f"split over {world} ranks")

@@ -7,9 +7,10 @@ lays the same shape and names over the ranks of the current process group
 as a ``torch.distributed`` ``DeviceMesh`` (NCCL on the cards, gloo on the
 CPU), and :func:`placements` turns a resolved spec
 (``models/layers.resolve_spec``) into the DTensor placements a leaf takes
-on it; :func:`shard` keeps one rank's block of a whole tensor. A mesh
-whose ``"model"`` axis is larger than 1 raises: tensor parallelism is
-ROADMAP.md Queue 1 item 15c's next step.
+on it; :func:`shard` keeps one rank's block of a whole tensor, sharded
+along the data and the model axis alike (FSDP × TP, ``models/sharding.py``).
+:func:`check_divides` refuses a config whose sharded dims do not split
+into whole heads, rows and columns over the mesh.
 """
 
 from __future__ import annotations
@@ -87,21 +88,48 @@ def make_host_mesh() -> Mesh:
 # A mesh over the ranks of a process group
 # ---------------------------------------------------------------------------
 
-def make_device_mesh(mesh: Mesh, device: DeviceLike = None):
+def _axis_sizes(mesh) -> dict:
+    """{axis name: ranks} of a ``Mesh`` or a ``DeviceMesh``."""
+    names = tuple(getattr(mesh, "axis_names", None)
+                  or mesh.mesh_dim_names)
+    return dict(zip(names, tuple(mesh.shape)))
+
+
+def check_divides(cfg, mesh) -> None:
+    """Raise ValueError unless ``cfg``'s sharded dims split evenly over
+    ``mesh`` (a ``Mesh`` or a ``DeviceMesh`` with "data" and "model"
+    axes): the heads, the kv heads, ``d_ff`` and the vocab padded to 128
+    over "model" (a rank takes whole heads: query head h reads kv head
+    h // group on the same rank), ``d_model`` over "data". The reference's
+    GSPMD would reshard an uneven split; this runtime refuses it."""
+    sizes = _axis_sizes(mesh)
+    t, d = sizes.get("model", 1), sizes.get("data", 1)
+    v_pad = ((cfg.vocab_size + 127) // 128) * 128
+    bad = [f"{name} {n} over 'model' {t}" for name, n in (
+        ("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+        ("d_ff", cfg.d_ff), ("the padded vocab", v_pad)) if n % t]
+    if cfg.d_model % d:
+        bad.append(f"d_model {cfg.d_model} over 'data' {d}")
+    if bad:
+        raise ValueError(f"{cfg.name} on a mesh {sizes}: "
+                         + ", ".join(bad) + " do not divide")
+
+
+def make_device_mesh(mesh: Mesh, device: DeviceLike = None, cfg=None):
     """A ``DeviceMesh`` with ``mesh``'s shape and axis names over the ranks
     of the current process group, rank r at row-major position r, on
     ``device``'s type (None → the CUDA card, raising without one; NCCL
-    there, gloo on ``"cpu"``). Raises ``NotImplementedError`` when the
-    ``"model"`` axis is larger than 1 (tensor parallelism: ROADMAP 15c) and
-    ``ValueError`` when the group's size is not the mesh's."""
+    there, gloo on ``"cpu"``). On a ("data", "model") mesh of (D, T) the
+    ranks of one data coordinate form a model group of T and those of one
+    model coordinate a data group of D. With ``cfg``, raises ValueError
+    when its dims do not divide (:func:`check_divides`); RuntimeError
+    without a process group, ValueError when the group's size is not the
+    mesh's."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
     dev = resolve_device(device)
-    if "model" in mesh.axis_names and mesh.axis_size("model") > 1:
-        raise NotImplementedError(
-            f"a 'model' axis of {mesh.axis_size('model')}: tensor "
-            f"parallelism waits for ROADMAP 15c; this runtime shards "
-            f"parameters over the data axes only")
+    if cfg is not None:
+        check_divides(cfg, mesh)
     if not dist.is_initialized():
         raise RuntimeError("make_device_mesh needs a process group "
                            "(torch.distributed.init_process_group)")

@@ -11,11 +11,13 @@ Fault-tolerance contract, as the reference's:
 Without a mesh the run is one device. With a ``DeviceMesh``
 (``launch/mesh.make_device_mesh``) over the ranks of a process group (the
 launcher's ``spawn_ranks``, or torchrun) every rank runs ``run`` and the
-step is FSDP over the data axis: each rank holds its block of every
-parameter and moment, gathers the weights where a layer uses them and
-takes its rows of each global batch (``models/sharding.py``,
-``data.rank_batch_at``); tensor parallelism over ``"model"`` and MoE
-routing over more than one rank raise (ROADMAP 15c). The checkpoints are
+step is FSDP over the data axis × tensor parallelism over the model axis:
+each rank holds its block of every parameter and moment, gathers its TP
+block of the weights over the data axis where a layer uses them, runs
+the dense and vlm layers tensor-parallel over the model axis, and takes
+its data coordinate's rows of each global batch (``models/sharding.py``,
+``data.rank_batch_at``); tensor parallelism for the other families and
+MoE routing over more than one rank raise (ROADMAP 15c). The checkpoints are
 the reference's format (``{"params", "opt"}`` through
 ``train/checkpoint.py``, in the global layout), so a run resumes across
 the two packages and across rank counts. The model runs
@@ -58,9 +60,11 @@ class TrainJob:
 def run(job: TrainJob, mesh=None, axes: Optional[MeshAxes] = None,
         device: DeviceLike = None, log=print) -> Dict[str, float]:
     """Train ``job`` on ``device`` (None → the CUDA card; with a ``mesh``,
-    the mesh's device type, this rank's card). Returns the first and the
-    last logged loss, and every logged loss (``losses``): with a mesh the
-    same on every rank (all-reduced), logged by rank 0 only. An
+    the mesh's device type, this rank's card). ``axes`` names the mesh's
+    axes (default ``MeshAxes(fsdp=("data",), tp="model")``). Returns the
+    first and the last logged loss, and every logged loss (``losses``):
+    with a mesh the same on every rank (all-reduced), logged by global
+    rank 0 only. An
     encoder-decoder config gets frames of ``seq_len`` on its encoder, as
     the reference feeds it."""
     if mesh is None:
@@ -68,7 +72,7 @@ def run(job: TrainJob, mesh=None, axes: Optional[MeshAxes] = None,
     if device is None and mesh.device_type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
     dev = resolve_device(device if device is not None else mesh.device_type)
-    axes = axes or MeshAxes(fsdp=("data",))
+    axes = axes or MeshAxes(fsdp=("data",), tp="model")
     set_hint_axes(axes)
     try:
         return _run(job, mesh, axes, dev, log if torch.distributed.get_rank()

@@ -19,6 +19,16 @@ and the context.
 
 The KV caches are updated in place (the reference returns new arrays):
 at full width a copy per token would move the whole cache.
+
+In training over a model axis of T ranks (``tp``, ``models/sharding.py``)
+GQA is Megatron's: the normed input goes to every model rank
+(``sharding.to_model``), ``wq`` / ``wk`` / ``wv`` (and the biases) are
+column blocks holding the rank's ``n_heads / T`` query heads and
+``n_kv_heads / T`` kv heads, so query head h still reads kv head
+h // group on the same rank; ``wo`` is a row block whose partial output
+is summed over the model ranks at the reference's ``(batch, None, None)``
+hint. The qk-norm weights act on every rank's heads, so their gradient
+is summed over the model ranks too.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from torch.profiler import record_function
 
 from ..configs.base import ArchConfig
 from ..kernels import ops as kops
+from . import sharding
 from .layers import ParamSet, ShapeDtype, hint, rms_norm, rope
 
 ATTN_IMPLS = ("k2", "sdpa")     # the reference's "pallas" and "xla"
@@ -119,26 +130,29 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 # GQA layer
 # ---------------------------------------------------------------------------
 
-def _proj(p: Dict, x: torch.Tensor, cfg: ArchConfig
+def _proj(p: Dict, x: torch.Tensor, cfg: ArchConfig,
+          tp: Optional[sharding.ModelAxis] = None
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q, k, v projections of the normed x, heads not yet split."""
-    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    """q, k, v projections of the normed x, heads not yet split (with
+    ``tp``, the rank's column blocks of them)."""
+    xn = sharding.to_model(rms_norm(x, p["norm"], cfg.norm_eps), tp)
     return (torch.matmul(xn, p["wq"]), torch.matmul(xn, p["wk"]),
             torch.matmul(xn, p["wv"]))
 
 
 def _heads(p: Dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           cfg: ArchConfig
+           cfg: ArchConfig, tp: Optional[sharding.ModelAxis] = None
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Bias, heads split, qk-norm."""
+    """Bias, heads split (the rank's own with ``tp``), qk-norm."""
+    t = 1 if tp is None else tp.size
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = _split_heads(q, cfg.n_heads)
-    k = _split_heads(k, cfg.n_kv_heads)
-    v = _split_heads(v, cfg.n_kv_heads)
+    q = _split_heads(q, cfg.n_heads // t)
+    k = _split_heads(k, cfg.n_kv_heads // t)
+    v = _split_heads(v, cfg.n_kv_heads // t)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, sharding.to_model(p["q_norm"], tp), cfg.norm_eps)
+        k = rms_norm(k, sharding.to_model(p["k_norm"], tp), cfg.norm_eps)
     return q, k, v
 
 
@@ -148,18 +162,20 @@ def _qkv(p: Dict, x: torch.Tensor, cfg: ArchConfig
 
 
 def gqa_full(p: Dict, x: torch.Tensor, cfg: ArchConfig, causal: bool = True,
-             positions: Optional[torch.Tensor] = None, attn_impl: str = "k2"
+             positions: Optional[torch.Tensor] = None, attn_impl: str = "k2",
+             tp: Optional[sharding.ModelAxis] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence GQA. Returns (output, kv_for_cache)."""
+    """Full-sequence GQA. Returns (output, kv_for_cache). With ``tp``, on
+    the rank's heads (the cache entries are its kv heads)."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                          f"{attn_impl!r}")
     s = x.shape[1]
-    q, k, v = _proj(p, x, cfg)
+    q, k, v = _proj(p, x, cfg, tp)
     q = hint(q, "batch", None, "tp")
     k = hint(k, "batch", None, "tp")
     v = hint(v, "batch", None, "tp")
-    q, k, v = _heads(p, q, k, v, cfg)
+    q, k, v = _heads(p, q, k, v, cfg, tp)
     pos = positions if positions is not None else torch.arange(
         s, device=x.device)
     q = rope(q, pos, cfg.rope_theta)
@@ -169,7 +185,7 @@ def gqa_full(p: Dict, x: torch.Tensor, cfg: ArchConfig, causal: bool = True,
             o = kops.flash_attention(q, k, v, causal=causal)
     else:
         o = _sdpa(q, k, v, causal)
-    out = torch.matmul(_merge_heads(o), p["wo"])
+    out = sharding.from_model(torch.matmul(_merge_heads(o), p["wo"]), tp)
     return x + hint(out, "batch", None, None), {"k": k, "v": v}
 
 

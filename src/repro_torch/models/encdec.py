@@ -95,10 +95,13 @@ class EncDecLM:
                     axes=None) -> Dict:
         """Random-init weights from ``generator``, which must live on the
         model's device; with a ``DeviceMesh``, each rank's block of every
-        leaf (``ParamSet.init_params``)."""
+        leaf (``ParamSet.init_params``). A model axis of more than one rank
+        raises (``sharding.refuse_tp``)."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator is on {generator.device}, the model "
                              f"on {self.device}")
+        if mesh is not None:
+            sharding.refuse_tp(self.cfg, sharding.model_ranks(mesh))
         return self.ps.init_params(generator, mesh, axes)
 
     def n_params(self) -> int:
@@ -180,6 +183,8 @@ class EncDecLM:
             raise ValueError(
                 "train_loss: K2 has no backward (nor has the reference's "
                 "Pallas kernel); training runs attn_impl='sdpa'")
+        tp = sharding.tp_of(params)
+        sharding.refuse_tp(self.cfg, 1 if tp is None else tp.size)
         params, plans = sharding.for_train(params,
                                            ("enc_blocks", "dec_blocks"))
         enc_out = self.encode(params, batch["frontend_embeds"],

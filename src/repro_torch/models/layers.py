@@ -11,9 +11,10 @@ placeholders into per-dim mesh axes, for the dry run
 every leaf as a DTensor. ``hint`` (with ``set_hint_axes``) is the
 reference's sharding constraint on an activation: it redistributes a
 DTensor to its spec's placements and leaves anything else as it is. The
-FSDP runtime gathers the weights and keeps activations as plain tensors,
-so its hints are identities; they act once tensor parallelism over
-``"model"`` (ROADMAP 15c) hands the layers DTensor activations.
+sharded runtime (``models/sharding.py``) keeps activations as plain local
+tensors, so its hints are identities: they mark where its tensor-parallel
+collectives go (``swiglu``'s hidden stays on "tp"; the logits are
+vocab-parallel, and ``cross_entropy`` reduces over the model axis).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from . import sharding
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -234,20 +237,43 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
+           w_down: torch.Tensor,
+           tp: Optional[sharding.ModelAxis] = None) -> torch.Tensor:
+    """SwiGLU. With ``tp`` the weights are the rank's blocks: ``w_gate`` /
+    ``w_up`` column-parallel (the hidden stays on "tp"), ``w_down``
+    row-parallel, its partial output summed over the model ranks."""
+    x = sharding.to_model(x, tp)
     hspec = ("batch",) + (None,) * (x.dim() - 2) + ("tp",)
     g = hint(torch.matmul(x, w_gate), *hspec)
     u = hint(torch.matmul(x, w_up), *hspec)
-    return torch.matmul(F.silu(g) * u, w_down)
+    return sharding.from_model(torch.matmul(F.silu(g) * u, w_down), tp)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None,
+                  tp: Optional[sharding.ModelAxis] = None) -> torch.Tensor:
     """Mean token cross-entropy in f32. logits (..., V); labels (...).
-    With ``mask``: ``sum(nll · mask) / max(sum(mask), 1)``."""
+    With ``mask``: ``sum(nll · mask) / max(sum(mask), 1)``.
+
+    With ``tp`` the logits are vocab-parallel: this rank's columns
+    ``[rank·V, (rank+1)·V)`` of the whole vocab. The row maximum, the sum
+    of exponentials (in f32) and the gold logit are each reduced over the
+    model ranks, so every rank holds the same loss."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if tp is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    else:
+        v = logits.shape[-1]
+        top = sharding.max_over_model(torch.amax(logits, dim=-1), tp)
+        z = torch.sum(torch.exp(logits - top[..., None]), dim=-1)
+        logz = torch.log(sharding.from_model(z, tp)) + top
+        col = labels.long() - tp.rank * v
+        mine = (col >= 0) & (col < v)
+        gold = torch.gather(logits, -1,
+                            torch.where(mine, col, 0)[..., None])[..., 0]
+        gold = sharding.from_model(
+            torch.where(mine, gold, torch.zeros((), device=gold.device)), tp)
     nll = logz - gold
     if mask is not None:
         mask = mask.float()

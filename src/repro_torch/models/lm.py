@@ -34,6 +34,10 @@ block's, in the reference's order. On parameters sharded over a mesh
 (``init_params(generator, mesh, axes)``) each stacked block's leaves are
 all-gathered inside that checkpointed function (``models/sharding.py``),
 so the recompute gathers them again; the other leaves are gathered once.
+Over a model axis of more than one rank the dense and vlm families train
+tensor-parallel (``sharding.tp_of``): GQA and SwiGLU on the rank's
+blocks, the token lookup, the logits and the cross-entropy
+vocab-parallel; the other families raise (``sharding.refuse_tp``).
 """
 
 from __future__ import annotations
@@ -68,9 +72,10 @@ def register_mlp(ps: ParamSet, prefix: str, cfg: ArchConfig,
     ps.add(f"{prefix}/norm", s + (d,), ns + (None,), init="ones")
 
 
-def mlp_layer(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def mlp_layer(p: Dict, x: torch.Tensor, cfg: ArchConfig,
+              tp: Optional[sharding.ModelAxis] = None) -> torch.Tensor:
     return x + swiglu(rms_norm(x, p["norm"], cfg.norm_eps),
-                      p["w_gate"], p["w_up"], p["w_down"])
+                      p["w_gate"], p["w_up"], p["w_down"], tp)
 
 
 def register_pattern_block(ps: ParamSet, prefix: str, cfg: ArchConfig,
@@ -131,7 +136,8 @@ def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
                         cross: bool = False,
                         causal: bool = True,
                         attn_impl: str = "k2",
-                        want_cache: bool = False
+                        want_cache: bool = False,
+                        tp: Optional[sharding.ModelAxis] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, Tuple]:
     """Apply one pattern block. mode: "full" | "decode". Returns (x, the
     summed router aux loss of its MoE layers (() f32), new_caches). MLA
@@ -139,7 +145,9 @@ def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
     reference. With ``cross`` an attention layer is followed by
     cross-attention against ``enc_out`` (full) or the cached ``xk`` /
     ``xv`` (decode), and its cache is ``{k, v, xk, xv}``. Decode writes
-    every layer's self-attention and SSM caches in place."""
+    every layer's self-attention and SSM caches in place. ``tp``: GQA and
+    the dense MLP on the rank's blocks (the full pass of a dense or vlm
+    config)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: List[Any] = []
     for i, ld in enumerate(pattern):
@@ -159,7 +167,7 @@ def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
                     else:
                         x, c = attn_mod.gqa_full(lp["attn"], x, cfg,
                                                  causal=causal,
-                                                 attn_impl=attn_impl)
+                                                 attn_impl=attn_impl, tp=tp)
                 else:
                     decode = attn_mod.mla_decode if cfg.mla \
                         else attn_mod.gqa_decode
@@ -174,7 +182,7 @@ def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
                 c = {**c, **cx}
         if ld.mlp == "dense":
             with record_function(f"{mode}/mlp"):
-                x = mlp_layer(lp["mlp"], x, cfg)
+                x = mlp_layer(lp["mlp"], x, cfg, tp)
         elif ld.mlp == "moe":
             with record_function(f"{mode}/moe"):
                 x, a = moe_mod.moe_layer(lp["moe"], x, cfg)
@@ -248,23 +256,42 @@ def _remat(fn, remat: str):
     return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
-def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor,
+               tp: Optional[sharding.ModelAxis] = None) -> torch.Tensor:
     """``table[tokens]`` through ``F.embedding``: the same rows, and on the
     card a backward that sums each token's gradient rows in f32 before one
     rounding into a bf16 table's gradient. Advanced indexing's backward
     (``index_put_``) rounds after every row, so a frequent token loses its
     small addends, and the more rows a card sums the more it loses: the
-    gradient would change with the number of ranks."""
-    return F.embedding(tokens, table)
+    gradient would change with the number of ranks.
+
+    With ``tp`` the table is the rank's vocab block ``[rank·V, (rank+1)·V)``:
+    each rank looks up the tokens in its range, zeros the others' rows,
+    and the rows are summed over the model ranks (one nonzero term each,
+    so the sum is the lookup's row exactly)."""
+    if tp is None:
+        return F.embedding(tokens, table)
+    v = table.shape[0]
+    row = tokens.long() - tp.rank * v
+    mine = (row >= 0) & (row < v)
+    out = F.embedding(torch.where(mine, row, 0), table)
+    out = torch.where(mine[..., None], out,
+                      torch.zeros((), dtype=out.dtype, device=out.device))
+    return sharding.from_model(out, tp)
 
 
 def _train_block(x: torch.Tensor, p_block: Dict, cfg: ArchConfig,
                  pattern: Tuple[LayerDesc, ...], attn_impl: str,
-                 plan: Any = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                 plan: Any = None,
+                 tp: Optional[sharding.ModelAxis] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(x, the block's summed router aux loss). With a ``plan`` the
-    block's leaves are this rank's blocks, gathered here."""
+    block's leaves are this rank's blocks, gathered here over the data
+    axis; with ``tp`` the layers are tensor-parallel over the model axis
+    (the recompute under remat issues its collectives again)."""
     return apply_pattern_block(sharding.gather(p_block, plan), x, cfg,
-                               pattern, "full", attn_impl=attn_impl)[:2]
+                               pattern, "full", attn_impl=attn_impl,
+                               tp=tp)[:2]
 
 
 class LM:
@@ -315,12 +342,22 @@ class LM:
         """Random-init weights from ``generator``, which must live on the
         model's device; with a ``DeviceMesh``, each rank's block of every
         leaf (``ParamSet.init_params``). An MoE config raises on a data
-        axis of more than one rank (``sharding.refuse_moe``)."""
+        axis of more than one rank (``sharding.refuse_moe``); a model axis
+        of more than one rank raises for every family but dense and vlm
+        (``sharding.refuse_tp``), and ValueError where the heads, kv heads,
+        ``d_ff`` or the padded vocab do not divide over it
+        (``launch/mesh.check_divides``)."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator is on {generator.device}, the model "
                              f"on {self.device}")
-        if mesh is not None and self.cfg.n_experts:
-            sharding.refuse_moe(mesh.size(sharding.data_axis(mesh)))
+        if mesh is not None:
+            from ..launch.mesh import check_divides
+            if self.cfg.n_experts:
+                sharding.refuse_moe(mesh.size(sharding.data_axis(mesh)))
+            t = sharding.model_ranks(mesh)
+            sharding.refuse_tp(self.cfg, t)
+            if t > 1:
+                check_divides(self.cfg, mesh)
         return self.ps.init_params(generator, mesh, axes)
 
     def n_params(self) -> int:
@@ -328,20 +365,28 @@ class LM:
 
     # -- embedding / head ----------------------------------------------------
     def _embed(self, params: Dict, tokens: torch.Tensor,
-               frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
-        x = embed_rows(params["embed"]["tokens"], tokens).to(self.adt)
+               frontend_embeds: Optional[torch.Tensor],
+               tp: Optional[sharding.ModelAxis] = None) -> torch.Tensor:
+        x = embed_rows(params["embed"]["tokens"], tokens, tp).to(self.adt)
         if frontend_embeds is not None:
             x = torch.cat([frontend_embeds.to(self.adt), x], dim=1)
         return hint(x, "batch", None, None)
 
-    def _logits(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
-        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+    def _logits(self, params: Dict, x: torch.Tensor,
+                tp: Optional[sharding.ModelAxis] = None) -> torch.Tensor:
+        """Logits over the padded vocab, its padded columns masked; with
+        ``tp`` this rank's vocab block of them (the head's, or the tied
+        table's, columns ``[rank·V, (rank+1)·V)``)."""
+        x = sharding.to_model(
+            rms_norm(x, params["final_norm"], self.cfg.norm_eps), tp)
         if self.cfg.tie_embeddings:
             logits = torch.matmul(x, params["embed"]["tokens"].T)
         else:
             logits = torch.matmul(x, params["lm_head"])
         if self.v_pad != self.cfg.vocab_size:   # mask padded vocab columns
-            col = torch.arange(self.v_pad, device=x.device)
+            v = logits.shape[-1]
+            col = torch.arange(v, device=x.device) + (
+                0 if tp is None else tp.rank * v)
             logits = torch.where(col < self.cfg.vocab_size, logits,
                                  torch.full((), -1e30, dtype=logits.dtype,
                                             device=x.device))
@@ -367,23 +412,25 @@ class LM:
         return x, prefix_caches, _stack(per_block)
 
     def _run_blocks_train(self, params: Dict, x: torch.Tensor,
-                          plan: Any = None
+                          plan: Any = None,
+                          tp: Optional[sharding.ModelAxis] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The full pass under autograd: prefix layers as they are, each
         stacked block under ``cfg.remat`` on its slice of the stacked
         leaves (split once, :func:`_unbind`; with a ``plan``, gathered
-        inside the block). Returns (x, the summed router aux loss () f32:
-        the prefix layers', then each block's)."""
+        inside the block; with ``tp``, tensor-parallel). Returns (x, the
+        summed router aux loss () f32: the prefix layers', then each
+        block's)."""
         cfg = self.cfg
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(self.n_prefix):
             x, aux, _ = apply_pattern_block(
                 params[f"prefix{i}"], x, cfg, self.prefix_pattern, "full",
-                attn_impl=self.attn_impl)
+                attn_impl=self.attn_impl, tp=tp)
             aux_total = aux_total + aux
         block = _remat(functools.partial(
             _train_block, cfg=cfg, pattern=self.pattern,
-            attn_impl=self.attn_impl, plan=plan), cfg.remat)
+            attn_impl=self.attn_impl, plan=plan, tp=tp), cfg.remat)
         for p_block in _unbind(params["blocks"], self.n_blocks):
             x, aux = block(x, p_block)
             aux_total = aux_total + aux
@@ -403,16 +450,18 @@ class LM:
                 "Pallas kernel); training runs attn_impl='sdpa'")
         if self.cfg.n_experts:
             sharding.refuse_moe(sharding.world_of(params)[2])
+        tp = sharding.tp_of(params)
+        sharding.refuse_tp(self.cfg, 1 if tp is None else tp.size)
         params, plans = sharding.for_train(params, ("blocks",))
         fe = batch.get("frontend_embeds")
-        x = self._embed(params, batch["tokens"], fe)
-        x, aux = self._run_blocks_train(params, x, plans.get("blocks"))
+        x = self._embed(params, batch["tokens"], fe, tp)
+        x, aux = self._run_blocks_train(params, x, plans.get("blocks"), tp)
         with record_function("train/logits_ce"):
-            logits = self._logits(params, x)
+            logits = self._logits(params, x, tp)
             nfe = 0 if fe is None else fe.shape[1]
             ce = cross_entropy(logits[:, nfe:][:, :-1],
                                batch["labels"][:, 1:],
-                               batch.get("loss_mask"))
+                               batch.get("loss_mask"), tp)
         return ce + aux, {"ce": ce, "aux": aux}
 
     @torch.no_grad()

@@ -1,16 +1,29 @@
-"""FSDP for the training path: parameters live as DTensor blocks, one a
-rank, and are all-gathered where a layer uses them.
+"""The training path's sharded runtime: FSDP over the mesh's data axis and
+tensor parallelism (TP) over its model axis. Parameters live as DTensor
+blocks, one a rank.
 
-A leaf's *layout* on its mesh is read from its DTensor placements along
-the mesh's data axis (the one axis of more than one rank, or axis 0 on a
-mesh of one rank): ``Shard(d)`` gathers along dim d, ``Replicate()``
-needs no gather. Forward gathers the whole weight
+The axes are found by the names ``launch/mesh`` gives them: "model" is
+the model axis, "pod" and "data" are data axes. A leaf's *layout* is read
+from its DTensor placements: ``Shard(d)`` on the data axis gathers along
+dim d where a layer uses the leaf, ``Replicate()`` needs no gather; its
+placement on the model axis says which block of a
+column- or row-parallel weight the rank holds, and stays put. Forward
+gathers the rank's TP block whole over the data group
 (``all_gather_into_tensor``); backward reduce-scatters its gradient into
-the block (``reduce_scatter_tensor``, a sum over the ranks), or
-all-reduces a replicated leaf's, in the dtype :func:`grad_sync` names (the
-reference's ``grad_sync_dtype``). Collectives run on a mesh of one rank
-too (they are copies), so a step issues the same ones at every world
-size.
+the block (``reduce_scatter_tensor``, a sum over the data ranks), or
+all-reduces a data-replicated leaf's, in the gradient's own dtype: the
+reference's GSPMD program sums in that dtype too and casts to its
+``grad_sync_dtype`` after the sum (``train/train_step.py``). Collectives
+over the data axis run on a mesh of one rank too (they are copies), so a
+step issues the same ones at every data-axis size.
+
+Over a model axis of more than one rank (:func:`tp_of`) the layers are
+Megatron's: a column-parallel projection takes its input through
+:func:`to_model` (forward identity, backward all-reduce over the model
+group) and a row-parallel one gives its partial output to
+:func:`from_model` (forward all-reduce, backward identity); the embedding,
+the logits and the cross-entropy are vocab-parallel. A model axis of one
+rank issues none of these, so a (W, 1) step is the FSDP step alone.
 
 :func:`for_train` prepares a parameter tree for a loss: top-level leaves
 gathered once, each stacked subtree kept as plain local blocks with a
@@ -20,7 +33,8 @@ gathers again and the whole weights are never saved for backward. A tree
 of plain tensors passes through untouched, with no plan.
 
 Every collective runs on the caller's thread in program order, the same
-on every rank (the recompute re-issues the gathers in backward order).
+on every rank (the recompute re-issues the gathers and the model axis's
+forward all-reduces in backward order).
 """
 
 from __future__ import annotations
@@ -34,61 +48,92 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Shard
 
-_SYNC_DTYPE: Optional[torch.dtype] = None
-
-
-@contextlib.contextmanager
-def grad_sync(dtype: Optional[torch.dtype]) -> Iterator[None]:
-    """Gradients reduced across ranks inside this block are cast to
-    ``dtype`` first (None: the parameter's dtype). The dtype is taken when
-    a gather runs forward, so the recompute under remat keeps it."""
-    global _SYNC_DTYPE
-    prev, _SYNC_DTYPE = _SYNC_DTYPE, dtype
-    try:
-        yield
-    finally:
-        _SYNC_DTYPE = prev
-
-
 @dataclasses.dataclass(frozen=True)
 class Layout:
-    """Where a leaf's block sits: ``dim`` is the sharded dim (None:
-    replicated) of the tensor the gather is given, over ``group``."""
+    """Where a leaf's block sits: ``dim`` is its dim sharded over the data
+    axis (None: replicated there) in the tensor the gather is given, over
+    ``group``; ``mdim`` its dim sharded over the model axis (None:
+    replicated there), over ``mgroup`` (None: the mesh has no model
+    axis)."""
     dim: Optional[int]
     group: Any
+    mdim: Optional[int] = None
+    mgroup: Any = None
 
     @property
     def world(self) -> int:
         return dist.get_world_size(self.group)
 
 
-def data_axis(device_mesh) -> int:
-    """The mesh axis that FSDP shards over: its one axis of more than one
-    rank (axis 0 when every axis has one). Raises NotImplementedError on a
-    mesh with two such axes (tensor parallelism: ROADMAP 15c)."""
-    big = [i for i in range(device_mesh.ndim) if device_mesh.size(i) > 1]
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """The model axis of a tensor-parallel step: its group, this rank's
+    index in it (which block of every TP-sharded leaf it holds) and its
+    size."""
+    group: Any
+    rank: int
+    size: int
+
+
+# the axis names of ``launch/mesh``'s meshes: the data axes (FSDP shards
+# over the one of more than one rank) and the model axis
+DATA_AXES = ("pod", "data")
+MODEL_AXIS = "model"
+
+
+def mesh_dims(device_mesh) -> Tuple[int, Optional[int]]:
+    """(the data axis, the model axis or None) of a mesh, by its own axis
+    names (:data:`DATA_AXES`, :data:`MODEL_AXIS`). Of several data axes the
+    one of more than one rank is the data axis. Raises ValueError on a mesh
+    with no data axis, and NotImplementedError on two data axes of more
+    than one rank or another axis of more than one rank (ROADMAP 15c)."""
+    names = tuple(device_mesh.mesh_dim_names or ())
+    fsdp = [names.index(a) for a in DATA_AXES if a in names]
+    if not fsdp:
+        raise ValueError(f"no data axis {DATA_AXES} on the mesh {names}")
+    big = [i for i in fsdp if device_mesh.size(i) > 1]
     if len(big) > 1:
         raise NotImplementedError(
-            f"a mesh of shape {tuple(device_mesh.shape)}: sharding over more "
-            f"than one axis (tensor parallelism, a multi-axis data axis) "
-            f"waits for ROADMAP 15c")
-    return big[0] if big else 0
+            f"a mesh of shape {tuple(device_mesh.shape)}: a data axis over "
+            f"more than one mesh axis {[names[i] for i in big]} waits for "
+            f"ROADMAP 15c")
+    data = big[0] if big else fsdp[-1]
+    model = names.index(MODEL_AXIS) if MODEL_AXIS in names else None
+    for i, n in enumerate(names):
+        if i not in (data, model) and device_mesh.size(i) > 1:
+            raise NotImplementedError(
+                f"axis {n!r} of {device_mesh.size(i)} ranks is neither the "
+                f"data axis nor the model axis: ROADMAP 15c")
+    return data, model
 
 
-def layout(x: torch.Tensor, stacked: bool = False) -> Optional[Layout]:
-    """The layout of a DTensor leaf (its sharded dim one lower when
-    ``stacked``: the gather gets one slice of the leading axis); None for
-    a plain tensor."""
-    if not isinstance(x, DTensor):
-        return None
-    i = data_axis(x.device_mesh)
-    pl = x.placements[i]
+def data_axis(device_mesh) -> int:
+    """The mesh axis that FSDP shards over (:func:`mesh_dims`)."""
+    return mesh_dims(device_mesh)[0]
+
+
+def _placed_dim(pl, stacked: bool) -> Optional[int]:
     dim = pl.dim if isinstance(pl, Shard) else None
     if dim is not None and stacked:
         if dim == 0:
             raise ValueError("a stacked leaf sharded along its stack axis")
         dim -= 1
-    return Layout(dim, x.device_mesh.get_group(i))
+    return dim
+
+
+def layout(x: torch.Tensor, stacked: bool = False) -> Optional[Layout]:
+    """The layout of a DTensor leaf (its sharded dims one lower when
+    ``stacked``: the gather gets one slice of the leading axis); None for
+    a plain tensor."""
+    if not isinstance(x, DTensor):
+        return None
+    mesh = x.device_mesh
+    i, m = mesh_dims(mesh)
+    if m is None:
+        return Layout(_placed_dim(x.placements[i], stacked),
+                      mesh.get_group(i))
+    return Layout(_placed_dim(x.placements[i], stacked), mesh.get_group(i),
+                  _placed_dim(x.placements[m], stacked), mesh.get_group(m))
 
 
 def _leaves(tree: Any) -> list:
@@ -114,14 +159,55 @@ def local(x: torch.Tensor) -> torch.Tensor:
     return x.to_local() if isinstance(x, DTensor) else x
 
 
-def world_of(tree: Any) -> Tuple[Optional[Any], int, int]:
-    """(group, rank in it, ranks) of the data axis of a tree's DTensor
-    leaves, (None, 0, 1) for a tree of plain tensors."""
+def _first_dtensor(tree: Any) -> Optional[DTensor]:
     for x in _leaves(tree):
         if isinstance(x, DTensor):
-            g = x.device_mesh.get_group(data_axis(x.device_mesh))
-            return g, dist.get_rank(g), dist.get_world_size(g)
-    return None, 0, 1
+            return x
+    return None
+
+
+def world_of(tree: Any) -> Tuple[Optional[Any], int, int]:
+    """(group, rank in it, ranks) of the data axis of a tree's DTensor
+    leaves, (None, 0, 1) for a tree of plain tensors. The ranks of one
+    data coordinate (a row of the mesh) take the same rows of a batch."""
+    x = _first_dtensor(tree)
+    if x is None:
+        return None, 0, 1
+    g = x.device_mesh.get_group(data_axis(x.device_mesh))
+    return g, dist.get_rank(g), dist.get_world_size(g)
+
+
+def model_ranks(mesh) -> int:
+    """The size of a ``DeviceMesh``'s model axis (1 without one)."""
+    m = mesh_dims(mesh)[1]
+    return 1 if m is None else mesh.size(m)
+
+
+def tp_of(tree: Any) -> Optional[ModelAxis]:
+    """The model axis of a tree's DTensor leaves when it has more than one
+    rank (the layers are then tensor-parallel), else None."""
+    x = _first_dtensor(tree)
+    if x is None:
+        return None
+    m = mesh_dims(x.device_mesh)[1]
+    if m is None or x.device_mesh.size(m) == 1:
+        return None
+    g = x.device_mesh.get_group(m)
+    return ModelAxis(g, dist.get_rank(g), dist.get_world_size(g))
+
+
+def groups_of(tree: Any) -> Dict[str, Any]:
+    """``{"data": group[, "model": group]}`` of a tree's mesh (what
+    ``roofline/analysis.collectives_of`` names each collective's group
+    by); empty for a tree of plain tensors."""
+    x = _first_dtensor(tree)
+    if x is None:
+        return {}
+    i, m = mesh_dims(x.device_mesh)
+    out = {"data": x.device_mesh.get_group(i)}
+    if m is not None:
+        out["model"] = x.device_mesh.get_group(m)
+    return out
 
 
 @contextlib.contextmanager
@@ -140,8 +226,8 @@ class _Gather(torch.autograd.Function):
     summed over the ranks into this rank's block."""
 
     @staticmethod
-    def forward(ctx, x, lay: Layout, sync: Optional[torch.dtype]):
-        ctx.lay, ctx.sync = lay, sync
+    def forward(ctx, x, lay: Layout):
+        ctx.lay = lay
         moved = x.movedim(lay.dim, 0).contiguous()
         out = torch.empty((lay.world * moved.shape[0],)
                           + tuple(moved.shape[1:]),
@@ -152,13 +238,13 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        lay, dt = ctx.lay, g.dtype
-        g = g.to(ctx.sync or dt).movedim(lay.dim, 0).contiguous()
+        lay = ctx.lay
+        g = g.movedim(lay.dim, 0).contiguous()
         out = torch.empty((g.shape[0] // lay.world,) + tuple(g.shape[1:]),
                           dtype=g.dtype, device=g.device)
         with _quiet():
             dist.reduce_scatter_tensor(out, g, group=lay.group)
-        return out.movedim(0, lay.dim).contiguous().to(dt), None, None
+        return out.movedim(0, lay.dim).contiguous(), None
 
 
 class _SumGrad(torch.autograd.Function):
@@ -166,26 +252,77 @@ class _SumGrad(torch.autograd.Function):
     over the ranks."""
 
     @staticmethod
-    def forward(ctx, x, lay: Layout, sync: Optional[torch.dtype]):
-        ctx.lay, ctx.sync = lay, sync
+    def forward(ctx, x, lay: Layout):
+        ctx.lay = lay
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        dt = g.dtype
         # a copy: autograd may hand the same gradient to another branch
-        g = g.to(ctx.sync or dt, memory_format=torch.contiguous_format,
-                 copy=True)
+        g = g.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(g, group=ctx.lay.group)
-        return g.to(dt), None, None
+        return g, None
+
+
+class _ToModel(torch.autograd.Function):
+    """Copy to the model group: forward as it is (every model rank holds
+    the same activation), backward its gradient summed over the model
+    ranks (each rank's column-parallel block gave a part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _FromModel(torch.autograd.Function):
+    """Reduce from the model group: forward the row-parallel partials
+    summed over the model ranks, backward as it is (the sum's gradient
+    is every part's)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def to_model(x: torch.Tensor, tp: Optional[ModelAxis]) -> torch.Tensor:
+    """``x`` entering a column-parallel layer (:class:`_ToModel`); itself
+    without a model axis."""
+    return x if tp is None else _ToModel.apply(x, tp.group)
+
+
+def from_model(x: torch.Tensor, tp: Optional[ModelAxis]) -> torch.Tensor:
+    """A row-parallel layer's partial output summed over the model ranks
+    (:class:`_FromModel`); itself without a model axis."""
+    return x if tp is None else _FromModel.apply(x, tp.group)
+
+
+def max_over_model(x: torch.Tensor, tp: ModelAxis) -> torch.Tensor:
+    """The element-wise maximum over the model ranks, out of autograd."""
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=tp.group)
+    return out
 
 
 def gather_leaf(x: torch.Tensor, lay: Optional[Layout]) -> torch.Tensor:
-    """``x`` (a block, plain) made whole for a layer, per its layout."""
+    """``x`` (a block, plain) made whole over the data axis for a layer,
+    per its layout: its TP block on a model axis of more than one rank."""
     if lay is None:
         return x
     fn = _SumGrad if lay.dim is None else _Gather
-    return fn.apply(x, lay, _SYNC_DTYPE)
+    return fn.apply(x, lay)
 
 
 def gather(tree: Any, plan: Any) -> Any:
@@ -196,19 +333,38 @@ def gather(tree: Any, plan: Any) -> Any:
 
 
 def gather_to_rank0(leaf: DTensor) -> Optional[torch.Tensor]:
-    """A DTensor leaf made whole on rank 0 of its data axis (one
-    ``dist.gather`` of the blocks), None on the other ranks."""
+    """A DTensor leaf made whole on the mesh's rank 0, None on the other
+    ranks: one ``dist.gather`` over the model axis onto each data row's
+    model rank 0, then one over the data axis among those (a dim sharded
+    over both axes is split by data first, then by model). An axis of one
+    rank, or one the leaf is replicated over, costs nothing. Each stage
+    frees its input before it allocates the whole, so rank 0 holds at most
+    the whole leaf and one stage's input (1/D of the leaf on a (D, T) mesh
+    with D > 1) above the state."""
     lay = layout(leaf)
-    block = leaf.to_local()
-    root = dist.get_rank(lay.group) == 0
-    if lay.dim is None:
-        return block if root else None
-    moved = block.movedim(lay.dim, 0).contiguous()
-    parts = [torch.empty_like(moved) for _ in range(lay.world)] \
-        if root else None
-    dist.gather(moved, parts, dst=dist.get_global_rank(lay.group, 0),
-                group=lay.group)
-    return torch.cat(parts).movedim(0, lay.dim) if root else None
+    x = leaf.to_local()
+    for dim, group in ((lay.mdim, lay.mgroup), (lay.dim, lay.group)):
+        if group is None or dist.get_world_size(group) == 1:
+            continue
+        root = dist.get_rank(group) == 0
+        if dim is None:
+            if not root:
+                return None
+            continue
+        moved = x.movedim(dim, 0).contiguous()
+        del x
+        world = dist.get_world_size(group)
+        whole = torch.empty((world * moved.shape[0],) + moved.shape[1:],
+                            dtype=moved.dtype, device=moved.device) \
+            if root else None
+        dist.gather(moved, list(whole.chunk(world)) if root else None,
+                    dst=dist.get_global_rank(group, 0), group=group)
+        del moved
+        if not root:
+            return None
+        x = whole.movedim(0, dim)
+        del whole               # x alone keeps it: the next stage frees it
+    return x
 
 
 def refuse_moe(ranks: int) -> None:
@@ -220,6 +376,36 @@ def refuse_moe(ranks: int) -> None:
             "an MoE config over a data axis of more than one rank: global "
             "routing (the per-expert counts all-gathered for positions and "
             "capacity, summed aux statistics) waits for ROADMAP 15c")
+
+
+# what lifts the refusal of a model axis > 1 for each family this runtime
+# leaves out (ROADMAP 15c, step 5's rest)
+_TP_LATER = {
+    "encdec": "TP for the encoder-decoder",
+    "ssm": "TP for the SSM's fused w_in (z, x, B, C and dt share one "
+           "(fsdp, tp) matrix)",
+    "hybrid": "TP for the SSM's fused w_in and the expert FFN over 'tp'",
+    "moe": "the expert FFN over 'tp'",
+}
+
+
+def refuse_tp(cfg, ranks: int) -> None:
+    """Tensor parallelism covers the dense and vlm families: raise
+    NotImplementedError on a model axis of more than one rank for the MoE
+    (and MLA), SSM, hybrid and encoder-decoder configs, naming the step of
+    ROADMAP 15c that will lift it."""
+    if ranks <= 1:
+        return
+    fam = "encdec" if cfg.encoder_layers else cfg.family
+    if fam in ("dense", "vlm") and not (cfg.n_experts or cfg.mla):
+        return
+    why = _TP_LATER.get(fam, _TP_LATER["moe"])
+    if cfg.mla:
+        why = "TP for MLA's w_uk / w_uv, and " + why
+    raise NotImplementedError(
+        f"{cfg.name} ({fam}) over a 'model' axis of {ranks} ranks: {why} "
+        f"waits for ROADMAP 15c step 5's rest; this runtime's tensor "
+        f"parallelism covers the dense and vlm families")
 
 
 def for_train(params: Dict, stacked: Sequence[str]

@@ -20,7 +20,8 @@ the sharded runtime on a real mesh under ``CommDebugMode`` (the count by
 op) and a dispatch mode that reads each collective's operand bytes and
 group size, and applies the reference's ring model
 (``src/repro/roofline/analysis.py:16-21``). Its wire bytes per device by
-op are what ``analyze(cost, collectives)`` takes. The production mesh's
+op, each weighed over its own group (the data or the model axis), are
+what ``analyze(cost, collectives)`` takes. The production mesh's
 collective term stays None: that needs a trace of one device's shard of
 the step under a fake process group (ROADMAP 15c).
 """
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 import weakref
 from typing import Any, Callable, Dict, Optional
@@ -247,15 +249,29 @@ _C10D = {"c10d._allgather_base_": ("all-gather", 0),
          "c10d.allreduce_": ("all-reduce", 0)}
 
 
+def _group_of(args) -> Any:
+    """The process group among a c10d op's arguments (a boxed
+    ``ProcessGroup``), or None."""
+    import torch.distributed as dist
+    for a in args:
+        if isinstance(a, torch.ScriptObject):
+            try:
+                return dist.ProcessGroup.unbox(a)
+            except RuntimeError:      # another boxed argument (a ReduceOp)
+                continue
+    return None
+
+
 class _CollectiveBytes(TorchDispatchMode):
     """Payload bytes and counts of the c10d collectives dispatched while
-    active, by the reference's op name; raises on a collective the ring
-    model does not cover."""
+    active, by the reference's op name and by the group each ran over
+    (named by ``names``: a group's ``group_name`` → an axis name; else
+    "<n> ranks"); raises on a collective the ring model does not cover."""
 
-    def __init__(self):
+    def __init__(self, names: Dict[str, str]):
         super().__init__()
-        self.payload: Dict[str, int] = {}
-        self.count: Dict[str, int] = {}
+        self.names = names
+        self.by_group: Dict[str, Dict] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if func.namespace == "c10d":
@@ -263,12 +279,25 @@ class _CollectiveBytes(TorchDispatchMode):
             if op not in _C10D:
                 raise ValueError(f"{op}: no wire model for this collective")
             name, arg = _C10D[op]
-            ts = [t for t in tree_flatten(args[arg])[0]
-                  if isinstance(t, torch.Tensor)]
-            self.payload[name] = self.payload.get(name, 0) + sum(
-                tensor_bytes(t) for t in ts)
-            self.count[name] = self.count.get(name, 0) + 1
+            pg = _group_of(args)
+            n = pg.size()
+            key = self.names.get(pg.group_name, f"{n} ranks")
+            rec = self.by_group.setdefault(key, {
+                "ranks": n, "counts": {}, "payload_bytes": {},
+                "wire_bytes": {}})
+            b = sum(tensor_bytes(t) for t in tree_flatten(args[arg])[0]
+                    if isinstance(t, torch.Tensor))
+            for k, v in (("counts", 1), ("payload_bytes", b),
+                         ("wire_bytes", _RING[name](b, n))):
+                rec[k][name] = rec[k].get(name, 0) + v
         return func(*args, **(kwargs or {}))
+
+    def total(self, what: str) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        for rec in self.by_group.values():
+            for k, v in rec[what].items():
+                out[k] = out.get(k, 0) + v
+        return out
 
 
 @dataclasses.dataclass
@@ -276,22 +305,100 @@ class Collectives:
     counts: Dict[str, int]            # CommDebugMode's count by op
     payload_bytes: Dict[str, int]     # by the reference's op name
     wire_bytes: Dict[str, float]      # per device, the ring model
-    ranks: int
+    ranks: int                        # of the whole mesh
+    # {group: {"ranks", "counts", "payload_bytes", "wire_bytes"}}, each
+    # by the reference's op name
+    by_group: Dict[str, Dict] = dataclasses.field(default_factory=dict)
 
     def as_dict(self) -> Dict:
         return dataclasses.asdict(self)
 
 
-def collectives_of(fn: Callable, ranks: int, *args) -> tuple:
-    """``(fn(*args), Collectives)``: one call of a step on a real mesh,
-    whose collectives all run over one group of ``ranks`` ranks (the FSDP
-    step's data axis), counted by ``CommDebugMode`` and weighed by the
-    reference's ring model. ``analyze(cost, c.wire_bytes)`` takes the
-    result."""
+def collectives_of(fn: Callable, ranks: int, *args,
+                   groups: Optional[Dict[str, Any]] = None) -> tuple:
+    """``(fn(*args), Collectives)``: one call of a step on a real mesh of
+    ``ranks`` ranks, its collectives counted by ``CommDebugMode`` and each
+    weighed by the reference's ring model over the size of its own group
+    (the data axis's or the model axis's), so the wire bytes a device
+    sum both axes. ``groups`` names the groups in ``by_group``
+    (``models/sharding.groups_of``: ``{"data": ..., "model": ...}``).
+    ``analyze(cost, c.wire_bytes)`` takes the result."""
     from torch.distributed.tensor.debug import CommDebugMode
-    rec = _CollectiveBytes()
+    names = {g.group_name: k for k, g in (groups or {}).items()}
+    rec = _CollectiveBytes(names)
     with CommDebugMode() as comm, rec:
         out = fn(*args)
     counts = {str(k): int(v) for k, v in comm.get_comm_counts().items()}
-    wire = {k: _RING[k](b, ranks) for k, b in rec.payload.items()}
-    return out, Collectives(counts, dict(rec.payload), wire, ranks)
+    return out, Collectives(counts, rec.total("payload_bytes"),
+                            rec.total("wire_bytes"), ranks, rec.by_group)
+
+
+def reckon_collectives(model, data: int, model_ranks: int,
+                       microbatches: int, rows: int, seq_len: int
+                       ) -> Dict[str, Dict]:
+    """The collectives the spec tree implies for one train step of a dense
+    or vlm ``model`` (an ``LM``, remat "none" or "full") on a (``data``,
+    ``model_ranks``) ("data", "model") mesh, ``microbatches`` passes of
+    ``rows`` sequences of ``seq_len`` tokens on each data rank, as
+    :func:`collectives_of` records them in ``by_group``: ``{group:
+    {"ranks", "counts", "payload_bytes", "wire_bytes"}}``.
+
+    Data axis, each pass: every leaf sharded on "data" all-gathered (its
+    TP block) in the forward and, stacked under remat "full", again in the
+    recompute, then reduce-scattered; a data-replicated leaf's gradient
+    all-reduced. Then the loss and the global norm's per-leaf sums. Model
+    axis (more than one rank), each pass, all all-reduces: the lookup's
+    rows, ``wo``'s and ``w_down``'s partial outputs and, in the recompute,
+    ``wo``'s again (the recompute stops before ``w_down``'s, which the
+    backward does not need), the cross-entropy's maximum, sum of
+    exponentials and gold logit; in the backward the gradient into every
+    layer's and the head's normed input, and ``q_norm`` / ``k_norm``'s.
+    Then the global norm's sums."""
+    from ..models.layers import MeshAxes, resolve_spec
+    cfg = model.cfg
+    if cfg.remat not in ("none", "full"):
+        raise ValueError(f"reckoned for remat none and full, not "
+                         f"{cfg.remat!r}")
+    again = 2 if cfg.remat == "full" else 1
+    axes = MeshAxes(fsdp=("data",))
+    out: Dict[str, Dict] = {}
+
+    def add(group: str, n: int, op: str, calls: int, b: int) -> None:
+        rec = out.setdefault(group, {"ranks": n, "counts": {},
+                                     "payload_bytes": {}, "wire_bytes": {}})
+        for k, v in (("counts", calls), ("payload_bytes", calls * b),
+                     ("wire_bytes", calls * _RING[op](b, n))):
+            rec[k][op] = rec[k].get(op, 0) + v
+    for path, info in sorted(model.ps.infos.items()):
+        stacked = path.startswith("blocks/")
+        n = model.n_blocks if stacked else 1
+        spec = resolve_spec(info.spec, axes)
+        b = (math.prod(info.shape[1:] if stacked else info.shape)
+             * info.dtype.itemsize)
+        if "model" in spec:
+            b //= model_ranks
+        if "data" in spec:
+            add("data", data, "all-gather",
+                microbatches * n * (again if stacked else 1), b)
+            add("data", data, "reduce-scatter", microbatches * n, b)
+        else:
+            add("data", data, "all-reduce", microbatches * n, b)
+    leaves = 4 * len(model.ps.infos)
+    add("data", data, "all-reduce", 1, 4)
+    add("data", data, "all-reduce", 1, leaves)
+    if model_ranks > 1:
+        t, nb = model_ranks, model.n_blocks
+        act = model.adt.itemsize * rows * cfg.d_model
+        s_all = seq_len + cfg.frontend_tokens
+        add("model", t, "all-reduce", microbatches, act * seq_len)
+        add("model", t, "all-reduce", microbatches * nb * (again + 1),
+            act * s_all)
+        add("model", t, "all-reduce", microbatches * 3, 4 * rows
+            * (seq_len - 1))
+        add("model", t, "all-reduce", microbatches * (2 * nb + 1),
+            act * s_all)
+        if cfg.qk_norm:
+            add("model", t, "all-reduce", microbatches * 2 * nb,
+                cfg.d_head * model.pdt.itemsize)
+        add("model", t, "all-reduce", 1, leaves)
+    return out

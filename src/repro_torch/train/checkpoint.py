@@ -25,11 +25,13 @@ device, where it holds a Python float or int, as one of those (a float
 keeps ``like``'s double value when that rounds to the stored float32).
 
 Sharded trees (DTensor blocks over a mesh, ``models/sharding.py``) are
-saved in the same global layout: every rank takes part in gathering each
-leaf onto rank 0, on the caller's thread (a writer thread's collectives
-would race the step's), and rank 0 alone writes. Restore reads the global
-arrays on every rank and keeps each rank's block of them as ``like``'s
-DTensor holds it, on any number of ranks.
+saved in the same global layout: the ranks gather each leaf onto rank 0
+over the model axis and then the data axis
+(``sharding.gather_to_rank0``), on the caller's thread (a writer
+thread's collectives would race the step's), and rank 0 alone writes.
+Restore reads the global arrays on every rank and keeps each rank's
+block of them as ``like``'s DTensor holds it, on any mesh: (2, 2), (4, 1)
+and (1, 1) read each other's checkpoints.
 """
 
 from __future__ import annotations

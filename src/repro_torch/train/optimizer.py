@@ -15,11 +15,13 @@ step stay tensors on the parameters' device: a step reads nothing back.
 On parameters sharded over a mesh (DTensor blocks, ``models/sharding.py``)
 each rank updates its blocks, with moments placed like their parameters;
 the gradients are the ranks' blocks (plain tensors or DTensors), and the
-global norm sums every block's squares in one all-reduce, so the clip
-scale is the one-device scale. There the new parameters and moments are
-written into the given ones, a slab of rows at a time (the reference's
-donated buffers: no second generation of moments at the update, which a
-model that needs its state sharded could not hold).
+global norm sums every block's squares over the data axis and, on a
+tensor-parallel mesh, the model axis (a leaf replicated along an axis
+counted once), so the clip scale is the one-device scale. There the new
+parameters and moments are written into the given ones, a slab of rows
+at a time (the reference's donated buffers: no second generation of
+moments at the update, which a model that needs its state sharded could
+not hold).
 """
 
 from __future__ import annotations
@@ -109,18 +111,26 @@ def init_state(cfg: AdamWConfig, params: Any) -> Dict[str, Any]:
 def global_norm(tree: Any, params: Any = None) -> torch.Tensor:
     """√(Σ over leaves of Σ x²), each leaf's sum in f32. With sharded
     ``params`` (the layouts of ``tree``'s blocks) each leaf's sum is summed
-    over the data axis's ranks in one all-reduce, a replicated leaf's
-    counted once (rank 0's)."""
+    over the data axis's ranks in one all-reduce, a leaf replicated there
+    counted once (data rank 0's); over a model axis of more than one rank
+    (``sharding.tp_of``) in one more, a leaf replicated over it (the
+    norms) counted once (model rank 0's)."""
     sums = torch.stack([torch.sum(torch.square(sharding.local(x).float()))
                         for x in _leaves(tree)])
     group, rank, _ = sharding.world_of(params)
-    if group is not None:
-        if rank:
-            rep = torch.tensor([sharding.layout(p).dim is None
-                                for p in _leaves(params)],
-                               device=sums.device)
-            sums = torch.where(rep, torch.zeros_like(sums), sums)
-        dist.all_reduce(sums, group=group)
+    if group is None:
+        return torch.sqrt(torch.sum(sums))
+    tp = sharding.tp_of(params)
+    lays = [sharding.layout(p) for p in _leaves(params)]
+    drop = [(rank > 0 and lay.dim is None)
+            or (tp is not None and tp.rank > 0 and lay.mdim is None)
+            for lay in lays]
+    if any(drop):
+        sums = torch.where(torch.tensor(drop, device=sums.device),
+                           torch.zeros_like(sums), sums)
+    dist.all_reduce(sums, group=group)
+    if tp is not None:
+        dist.all_reduce(sums, group=tp.group)
     return torch.sqrt(torch.sum(sums))
 
 

@@ -16,9 +16,12 @@ On parameters sharded over a mesh (DTensor blocks from
 (``data.rank_batch_at``) and the step is data-parallel: the model gathers
 the weights and reduce-scatters each gradient into the rank's block
 (``models/sharding.py``); each rank's loss is the mean over its rows, so
-the summed gradient is divided by the ranks W, and the logged loss is the
-all-reduced mean. A ``loss_mask`` is refused there: the mean of the
-ranks' masked means is not the global masked mean.
+the summed gradient is divided by the data axis's ranks W, and the logged
+loss is the mean all-reduced over them. On a tensor-parallel mesh the
+ranks of one data coordinate take the same rows and hold the same loss;
+the model axis's sums are inside the layers. A ``loss_mask`` is refused
+over more than one data rank: the mean of the ranks' masked means is not
+the global masked mean.
 """
 
 from __future__ import annotations
@@ -40,18 +43,21 @@ def make_train_step(model, opt_cfg: opt_mod.AdamWConfig,
                     n_microbatches: int = 1,
                     grad_sync_dtype: Optional[str] = None) -> Callable:
     """``grad_sync_dtype="bfloat16"`` casts each (micro)batch's gradients
-    to bf16 before they are summed (the reference's data-parallel
-    gradient compression: over ranks, before the reduce-scatter; on one
-    device only its rounding remains); the moments still take the
-    dequantised f32 value. Sharded parameters and moments are updated in
-    place (``apply_updates``). Metrics: ``loss``
-    (the mean over microbatches, and over ranks), ``grad_norm``, ``lr``,
-    all device tensors."""
+    to bf16 before the microbatches are summed; the moments still take
+    the dequantised f32 value. Over ranks the cast comes after the
+    gradients are summed over the data axis, as in the reference's
+    compiled program: its GSPMD partitioner sums each gradient in the
+    gradient's own dtype where the backward makes it and casts after
+    (its docstring's "before the data-parallel reduction" is not what
+    XLA compiles, so a per-rank cast would round differently). Sharded
+    parameters and moments are updated in place (``apply_updates``).
+    Metrics: ``loss`` (the mean over microbatches, and over ranks),
+    ``grad_norm``, ``lr``, all device tensors."""
     sync_dt = _SYNC_DTYPES[grad_sync_dtype]
 
     def loss_and_grads(params, batch):
         leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
-        with torch.enable_grad(), sharding.grad_sync(sync_dt):
+        with torch.enable_grad():
             loss, _ = model.train_loss(_unflatten(params, iter(leaves)),
                                        batch)
             with record_function("train/backward"):
@@ -85,7 +91,8 @@ def make_train_step(model, opt_cfg: opt_mod.AdamWConfig,
                     acc += g.float()
                 loss = loss + l_i
                 del g_i
-            grads = [g / n for g in grads]
+            for g in grads:         # in place: one f32 copy of the grads
+                g.div_(n)
             loss = loss / n
         if group is not None:
             if world > 1:

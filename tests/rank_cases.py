@@ -18,7 +18,8 @@ lanes of one device; :func:`launch` runs a list of them on gloo ranks in
 one subprocess (the launcher's ``spawn_ranks``), with a timeout.
 
 For the LM's sharded training, :func:`run_train_case` runs one case on
-every rank of a (W, 1) ("data", "model") mesh, and
+every rank of a ("data", "model") mesh of W ranks ((W, 1) unless the case
+names another shape: (1, 2) and (2, 2) are tensor-parallel), and
 :func:`launch_train` a list of them on W gloo ranks in one subprocess; see
 :func:`run_train_case` for the keys of a case.
 """
@@ -183,7 +184,11 @@ def run_train_case(case: Dict, group, device) -> Optional[Dict]:
     ``mask``: batches with a ``loss_mask``; ``deterministic``: under
     ``torch.use_deterministic_algorithms``; ``raises``: the case must
     raise NotImplementedError or ValueError, its type and message
-    recorded."""
+    recorded; ``grads``: rank 0 writes the gradient of the loss of step
+    0's batch (every leaf made whole) to ``out/<name>_grads.npz``; ``ce``:
+    the vocab-parallel cross-entropy of random logits with padded columns
+    against the one-device ``cross_entropy`` of the whole logits (values
+    and gradients, with and without a mask)."""
     try:
         rec = _train_case(case, group, device)
     except (NotImplementedError, ValueError) as e:
@@ -212,12 +217,16 @@ def _train_case(case: Dict, group, device) -> Dict:
     from repro_torch.train import (AdamWConfig, checkpoint, init_state,
                                    make_train_step)
 
+    from repro_torch.models import sharding
     rank, world = dist.get_rank(group), dist.get_world_size(group)
     rec: Dict = {"name": case["name"], "world": world}
     if case.get("deterministic"):
         torch.use_deterministic_algorithms(True)
     mesh = lmesh.make_device_mesh(lmesh.Mesh(
         tuple(case.get("mesh", (world, 1))), ("data", "model")), device)
+    if case.get("ce"):
+        rec["ce"] = _vocab_parallel_ce(mesh, device)
+        return rec
     cfg = dc.replace(reduced_config(ARCHS[case["arch"]]),
                      remat=case.get("remat", "none"))
     if "run" in case:
@@ -232,6 +241,7 @@ def _train_case(case: Dict, group, device) -> Dict:
     model = build_model(cfg, attn_impl="sdpa", device=device)
     params = model.init_params(
         torch.Generator(device=device).manual_seed(0), mesh)
+    _, drank, dworld = sharding.world_of(params)
     if case.get("init_shards"):
         np.savez(Path(case["out"]) / f"{case['name']}_r{rank}.npz", **{
             k: _np(v.to_local()) for k, v in _flat(params).items()})
@@ -270,25 +280,114 @@ def _train_case(case: Dict, group, device) -> Dict:
                       global_batch=case.get("batch", 4), seed=1234,
                       frontend_tokens=cfg.frontend_tokens,
                       d_model=cfg.d_model)
+    if case.get("grads"):
+        _save_grads(model, params, rank_batch_at(dcfg, 0, drank, dworld,
+                                                 device=device),
+                    Path(case["out"]) / f"{case['name']}_grads.npz")
     rec["metrics"] = []
     for i in range(start, case["steps"]):
-        batch = rank_batch_at(dcfg, i, rank, world, device=device)
+        batch = rank_batch_at(dcfg, i, drank, dworld, device=device)
         if case.get("mask"):
             batch["loss_mask"] = torch.ones_like(batch["tokens"])
         if case.get("count") and i == start:
             (params, state, m), col = analysis.collectives_of(
-                step_fn, world, params, state, batch)
+                step_fn, world, params, state, batch,
+                groups=sharding.groups_of(params))
             rec["collectives"] = col.as_dict()
         else:
             params, state, m = step_fn(params, state, batch)
         rec["metrics"].append({k: float(m[k])
                                for k in ("loss", "grad_norm", "lr")})
     if case.get("save"):
-        checkpoint.save(case["save"], case["steps"],
-                        {"params": params, "opt": state})
+        tree = {"params": params, "opt": state}
+        rec["save_gathers"] = _count_gathers(
+            lambda: checkpoint.save(case["save"], case["steps"], tree))
+        rec["save_gathers_expected"] = _sharded_axes(tree)
         one = torch.ones(1)
         dist.all_reduce(one, group=group)      # rank 0's write is done
     return rec
+
+
+def _count_gathers(fn) -> int:
+    """The ``torch.distributed.gather`` calls this rank makes in ``fn()``."""
+    import torch.distributed as dist
+    real, calls = dist.gather, []
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+    dist.gather = counting
+    try:
+        fn()
+    finally:
+        dist.gather = real
+    return len(calls)
+
+
+def _sharded_axes(tree) -> int:
+    """Over a tree's DTensor leaves, the mesh axes of more than one rank
+    each leaf is sharded over: the gathers a save makes on rank 0 (a leaf
+    is gathered once over each such axis, and never over an axis of one
+    rank or one it is replicated over)."""
+    from torch.distributed.tensor import DTensor, Shard
+    return sum(isinstance(pl, Shard) and v.device_mesh.size(i) > 1
+               for v in _flat(tree).values() if isinstance(v, DTensor)
+               for i, pl in enumerate(v.placements))
+
+
+def _save_grads(model, params, batch, path: Path) -> None:
+    """The gradient of ``model.train_loss`` on ``batch`` for every leaf,
+    made whole on rank 0, which writes them to ``path``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import sharding
+    from repro_torch.train.optimizer import _leaves, _unflatten
+    leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
+    loss, _ = model.train_loss(_unflatten(params, iter(leaves)), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    whole = {k: sharding.gather_to_rank0(g) for k, g in
+             zip(_flat(params), grads)}
+    if dist.get_rank() == 0:
+        np.savez(path, **{k: _np(v) for k, v in whole.items()})
+
+
+def _vocab_parallel_ce(mesh, device) -> Dict:
+    """Random logits over a vocab of 200 padded to 256 (the padded columns
+    at -1e30, as ``LM._logits`` masks them), 2 × 6 labels: each rank's
+    column block through ``cross_entropy(..., tp)`` against the whole
+    logits through the one-device ``cross_entropy``; the gaps of the loss
+    and the largest of the gradient of this rank's columns, unmasked and
+    masked, gathered from every rank."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import layers, sharding
+    group = mesh.get_group(sharding.mesh_dims(mesh)[1])
+    tp = sharding.ModelAxis(group, dist.get_rank(group),
+                            dist.get_world_size(group))
+    gen = torch.Generator(device=device).manual_seed(5)
+    vocab, v_pad = 200, 256
+    logits = torch.randn(2, 6, v_pad, generator=gen, device=device) * 3
+    logits[..., vocab:] = -1e30
+    labels = torch.randint(0, vocab, (2, 6), generator=gen, device=device)
+    mask = (torch.rand(2, 6, generator=gen, device=device) > 0.3).float()
+    v = v_pad // tp.size
+    cols = slice(tp.rank * v, (tp.rank + 1) * v)
+    out = {}
+    for name, m in (("plain", None), ("masked", mask)):
+        whole = logits.clone().requires_grad_(True)
+        want = layers.cross_entropy(whole, labels, m)
+        (g_want,) = torch.autograd.grad(want, [whole])
+        part = logits[..., cols].clone().requires_grad_(True)
+        got = layers.cross_entropy(part, labels, m, tp)
+        (g_got,) = torch.autograd.grad(got, [part])
+        mine = {"loss": float(got), "loss_gap": abs(float(got - want)),
+                "grad_gap": float((g_got - g_want[..., cols]).abs().max()),
+                "padded_cols": int((logits[0, 0, cols] < -1e29).sum())}
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        out[name] = every
+    return out
 
 
 def run_train_cases(group, device, cases: List[Dict], out: str) -> None:
