@@ -80,8 +80,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
  12. the pair-list build kernel ≡ its plain version, entry for entry (idx,
      run_off, count, demand), on the forces + SIR step's pool at 1,048,576
      agents, max_pairs 64 at skin 0 (benchmarks/breakdown.py's) and 16
-     (below the demand: overflow rows); kernel and plain times and the
-     kernel's bound;
+     (below the demand: overflow rows), and on that pool with its rows
+     permuted and its tables kept (the kernel's global branch); kernel and
+     plain times and the kernel's bound, and the kernel's first design
+     (launch/kernel_variants.py, also ≡ plain) timed in turns with it;
  13. on the same inputs, the column map from the pair list ≡ its plain
      version (fused with the pack, entry for entry), and K1 on that map ≡
      K1 on the stencil map, bit for bit (force and nnz); K1's time on each
@@ -100,14 +102,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      printed beside phase 10's;
  15. reproducible secretion: the secretion kernel ≡ the plain CPU version
      (``index_add`` in slot order), bit for bit, with 4,000 agents in 32³
-     voxels (the clustering run's shape), 65,536 agents in 8 voxels and
-     1,048,576 agents in 32³ voxels, two card runs bit-equal
-     (``index_add_`` on the card timed for the record); then the clustering
+     voxels (the clustering run's shape), 65,536 agents in 8 voxels,
+     1,048,576 agents in 32³ voxels and 8 lanes of 4,000 agents, two card
+     runs bit-equal, timed in turns with the kernel's first design
+     (launch/kernel_variants.py, also ≡ the CPU; ``index_add_`` on the
+     card timed for the record, the bound the bytes of position, amount
+     and the grid read and the grid written); then the clustering
      ``--pairlist`` configuration of examples/cell_clustering.py (4,000
      agents, secretion, chemotaxis, forces from a pair list under
      every_k) for 10 steps: card ≡ CPU (integers, rebuilds and skips
      equal; floats 1e-4, the grid 1e-5 of its largest value) and two card
-     runs bit-equal, pools and grids;
+     runs bit-equal, pools and grids; four profiled steps give the device
+     ms of ``step/secretion`` and ``step/pairlist_build``;
  16. paper-scale growth through the capacity ladder: benchmarks/capacity.py's
      scenario unchanged (1,000 seeds in 512³, bf16 diameters and int16
      ints, GrowDivide + RandomWalk, no forces, capacity 1,024) stepped by
@@ -239,7 +245,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      ``pairlist.cu`` and ``pair_cols.cu`` ≡ their plain versions entry
      for entry on the first tick's inputs, timed against their bounds
      (bytes summed over lanes) and against the solo call on one Fig-6
-     pool of 65,536 agents; (c) 2 Fig-6 lanes with per-lane ``k_rep``
+     pool of 65,536 agents, the pair list also in turns with its first
+     design (also ≡ plain); (c) 2 Fig-6 lanes with per-lane ``k_rep``
      (2.0, 6.0) in the streamed sweep (integers and keys exact, floats
      1e-4, bit-equality printed, as 23 (c)) and 4 lanes of the 'front'
      (16³) with ``detect_static`` and K1 (bit for bit), 5 ticks, each ≡
@@ -1565,44 +1572,89 @@ def pairlist_bound(spec, grid, pool, pairs) -> tuple[float, str, dict]:
                                      "candidate_lanes": lanes}
 
 
+def _in_turns(fns: dict, iters: int = 20) -> dict:
+    """CUDA-event ms of each ``fns[name]()``, timed in turns (a, b, b, a):
+    {name: [first, second]}."""
+    order = list(fns) + list(reversed(list(fns)))
+    out = {k: [] for k in fns}
+    for k in order:
+        out[k].append(cuda_ms(fns[k], iters=iters, warmup=3))
+    return out
+
+
+def _pairlist_vs_previous(tag: str, build, previous, want) -> dict:
+    """The pair-list kernel and its first design (launch/kernel_variants)
+    on one set of inputs: both ≡ ``want`` (the plain list) entry for
+    entry; times in turns."""
+    import torch
+    got, prev = build(), previous()
+    torch.cuda.synchronize()
+    for f in ("idx", "run_off", "count", "demand"):
+        w = getattr(want, f)
+        check(torch.equal(getattr(got, f), w),
+              f"{tag} pair list differs from plain in {f}")
+        check(torch.equal(prev[("idx", "run_off", "count",
+                                "demand").index(f)], w),
+              f"{tag} the first design differs from plain in {f}")
+    t = _in_turns({"kernel": build, "previous": previous})
+    return {"ms": statistics.fmean(t["kernel"]), "ms_turns": t["kernel"],
+            "previous_design_ms": statistics.fmean(t["previous"]),
+            "previous_design_ms_turns": t["previous"]}
+
+
 def phase_pairlist_build(n: int, report: dict):
-    """[12] the pair-list kernel ≡ its plain version at full width."""
+    """[12] the pair-list kernel ≡ its plain version at full width, on the
+    grid-ordered pool and on the same pool with its rows permuted; timed
+    beside its first design in the same call."""
     import torch
     from repro_torch.core import grid as grid_mod
+    from repro_torch.launch import kernel_variants
     sim, _, res, _ = _breakdown_build(n)
     cfg, spec, pool, g = sim.config, sim.spec, res.pool, res.grid
     r = cfg.interaction_radius
+    perm = torch.randperm(pool.position.shape[0],
+                          generator=torch.Generator().manual_seed(12)
+                          ).to(pool.position.device)
+    shuffled = (pool.position[perm].contiguous(),
+                pool.alive[perm].contiguous())
     recs = {}
-    for mp in (64, 16):
+    for key, mp, (pos, alive) in ((64, 64, (pool.position, pool.alive)),
+                                  (16, 16, (pool.position, pool.alive)),
+                                  ("permuted", 64, shuffled)):
         kw = dict(radius=r, max_pairs=mp, chunk=cfg.query_chunk)
-        got = grid_mod.build_pairlist(spec, g, pool.position, pool.alive,
-                                      **kw)
+        want = grid_mod.build_pairlist_plain(spec, g, pos, alive, **kw)
         torch.cuda.synchronize()
-        want = grid_mod.build_pairlist_plain(spec, g, pool.position,
-                                             pool.alive, **kw)
-        torch.cuda.synchronize()
-        for f in ("idx", "run_off", "count", "demand"):
-            check(torch.equal(getattr(got, f), getattr(want, f)),
-                  f"pair list differs from plain in {f} (max_pairs {mp})")
-        demand = int(got.demand)
-        over = int((got.count > mp).sum())
-        check((demand > mp) == (mp == 16), f"max_pairs {mp}: demand "
-                                           f"{demand}")
-        ms = cuda_ms(lambda: grid_mod.build_pairlist(
-            spec, g, pool.position, pool.alive, **kw), iters=20, warmup=3)
+        timed = _pairlist_vs_previous(
+            f"[12] ({key})",
+            lambda: grid_mod.build_pairlist(spec, g, pos, alive, **kw),
+            lambda: kernel_variants.pairlist_build(
+                pos, alive, g.origin, g.box_size, g.starts, g.counts,
+                spec.dims, spec.run_capacity, grid_mod.pair_radius_sq(r),
+                mp), want)
+        demand = int(want.demand)
+        over = int((want.count > mp).sum())
+        if key != "permuted":
+            check((demand > mp) == (mp == 16), f"max_pairs {mp}: demand "
+                                               f"{demand}")
         plain_ms = cuda_ms(lambda: grid_mod.build_pairlist_plain(
-            spec, g, pool.position, pool.alive, **kw), iters=2, warmup=0)
-        bound_ms, bound_by, work = pairlist_bound(spec, g, pool, got)
-        recs[mp] = {"max_pairs": mp, "demand": demand, "rows_over": over,
-                    "pairs_listed": int(got.run_off[:, 9].sum()),
-                    "equal": True, "max_abs_err": 0.0, "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": None, **work}
-        print(f"[12] pair-list build, {n} agents, radius {r}, max_pairs "
-              f"{mp}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}); idx, run_off, count and "
-              f"demand equal (demand {demand}, {over} rows over max_pairs, "
-              f"{recs[mp]['pairs_listed']} pairs listed, "
+            spec, g, pos, alive, **kw), iters=2, warmup=0)
+        bound_ms, bound_by, work = pairlist_bound(
+            spec, g, types.SimpleNamespace(position=pos, alive=alive), want)
+        recs[key] = {"max_pairs": mp, "demand": demand, "rows_over": over,
+                     "pairs_listed": int(want.run_off[:, 9].sum()),
+                     "equal": True, "max_abs_err": 0.0, **timed,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None, **work}
+        print(f"[12] pair-list build, {n} agents"
+              f"{' (rows permuted, tables kept)' if key == 'permuted' else ''}"
+              f", radius {r}, max_pairs {mp}: kernel {timed['ms']:.4f} ms "
+              f"(turns {timed['ms_turns'][0]:.4f}, "
+              f"{timed['ms_turns'][1]:.4f}), first design "
+              f"{timed['previous_design_ms']:.4f} ms in the same call, plain "
+              f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+              f"idx, run_off, count and demand equal, both designs (demand "
+              f"{demand}, {over} rows over max_pairs, "
+              f"{recs[key]['pairs_listed']} pairs listed, "
               f"{work['candidate_lanes']} candidate lanes)", flush=True)
     report["pairlist_build"] = recs
     return recs[64]
@@ -1802,53 +1854,86 @@ def _secretion_inputs(n: int, dims, seed: int):
     return pos, amount, conc
 
 
+def secretion_bound(n: int, voxels: int) -> tuple[float, int]:
+    """Least time for one secretion call (ms, bytes): position and amount
+    read once, the grid read and written once."""
+    moved = 12 * n + 4 * n + 8 * voxels
+    return moved / PEAK_HBM_BYTES * 1e3, moved
+
+
+SECRETION_SHAPES = ((1, CLUSTER_AGENTS, (32, 32, 32)), (1, 65_536, (2, 2, 2)),
+                    (1, 1_048_576, (32, 32, 32)),
+                    (8, CLUSTER_AGENTS, (32, 32, 32)))
+
+
 def phase_secretion(report: dict) -> dict:
-    """[15] secretion reproducible on the card, ≡ the CPU; then the
-    clustering --pairlist configuration card ≡ CPU and card ≡ card."""
+    """[15] secretion reproducible on the card, ≡ the CPU, timed beside its
+    first design; then the clustering --pairlist configuration card ≡ CPU
+    and card ≡ card, and its profiled steps."""
     import numpy as np
     import torch
     from repro_torch import convert
     from repro_torch.core import diffusion
+    from repro_torch.core.lanes import Lanes
+    from repro_torch.launch import kernel_variants
+    from repro_torch.launch.profile_step import profile_steps
     recs = []
     # the clustering run's shape (the kernels line's), many agents per
-    # voxel, and a million agents
-    for n, dims in ((CLUSTER_AGENTS, (32, 32, 32)), (65_536, (2, 2, 2)),
-                    (1_048_576, (32, 32, 32))):
+    # voxel, a million agents, and 8 lanes of the clustering shape
+    for n_lanes, n, dims in SECRETION_SHAPES:
         spec = diffusion.DiffusionSpec(dims=dims, voxel=1.0)
-        pos, amount, conc = _secretion_inputs(n, dims, 3)
-        cpu = [torch.from_numpy(x) for x in (conc, pos, amount)]
+        parts = [_secretion_inputs(n, dims, 3 + lane)
+                 for lane in range(n_lanes)]
+        conc = np.stack([c for _, _, c in parts])
+        cpu = [torch.from_numpy(conc if n_lanes > 1 else conc[0]),
+               torch.from_numpy(np.concatenate([p for p, _, _ in parts])),
+               torch.from_numpy(np.concatenate([a for _, a, _ in parts]))]
         gpu = [x.cuda() for x in cpu]
+        lanes = Lanes(n_lanes, n) if n_lanes > 1 else None
         o_c, o_g = torch.zeros(3), torch.zeros(3, device="cuda")
-        want = diffusion.add_sources(spec, *cpu, o_c)
-        runs = [diffusion.add_sources(spec, *gpu, o_g) for _ in range(2)]
+        want = diffusion.add_sources(spec, *cpu, o_c, lanes)
+        runs = [diffusion.add_sources(spec, *gpu, o_g, lanes)
+                for _ in range(2)]
+        prev = kernel_variants.secretion_add(spec, *gpu, o_g, lanes)
         torch.cuda.synchronize()
         check(torch.equal(runs[0], runs[1]), "secretion: two card runs "
                                              "differ")
         check(torch.equal(runs[0].cpu(), want), "secretion: card differs "
                                                 "from the CPU's slot order")
-        flat = diffusion._flat(spec, diffusion.voxel_of(spec, gpu[1], o_g))
+        check(torch.equal(prev.cpu(), want), "secretion: the first design "
+                                             "differs from the CPU")
+        flat = diffusion._flat(spec, diffusion.voxel_of(spec, gpu[1], o_g),
+                               lanes)
         lib = gpu[0].reshape(-1).clone()
-        ms = cuda_ms(lambda: diffusion.add_sources(spec, *gpu, o_g),
-                     iters=20, warmup=3)
+        t = _in_turns({
+            "kernel": lambda: diffusion.add_sources(spec, *gpu, o_g, lanes),
+            "previous": lambda: kernel_variants.secretion_add(
+                spec, *gpu, o_g, lanes)})
         lib_ms = cuda_ms(lambda: lib.index_add_(0, flat, gpu[2]), iters=20,
                          warmup=3)
         t0 = time.perf_counter()
         for _ in range(3):
-            diffusion.add_sources(spec, *cpu, o_c)
+            diffusion.add_sources(spec, *cpu, o_c, lanes)
         plain_ms = (time.perf_counter() - t0) * 1e3 / 3
-        v = int(np.prod(dims))
-        moved = 4 * v + 12 * n + 8 * n + 4 * n + 4 * v
-        bound_ms = moved / PEAK_HBM_BYTES * 1e3
-        rec = {"agents": n, "voxels": v, "equal": True, "max_abs_err": 0.0,
-               "ms": ms, "plain_ms": plain_ms, "plain_device": "cpu",
+        v = int(np.prod(conc.shape)) if n_lanes > 1 else int(np.prod(dims))
+        bound_ms, moved = secretion_bound(n_lanes * n, v)
+        rec = {"lanes": n_lanes, "agents": n_lanes * n, "voxels": v,
+               "equal": True, "max_abs_err": 0.0,
+               "ms": statistics.fmean(t["kernel"]), "ms_turns": t["kernel"],
+               "previous_design_ms": statistics.fmean(t["previous"]),
+               "previous_design_ms_turns": t["previous"],
+               "plain_ms": plain_ms, "plain_device": "cpu",
                "library_ms": lib_ms, "bound_ms": bound_ms,
                "bound_by": "bytes", "bytes": moved}
         recs.append(rec)
-        print(f"[15] secretion, {n} agents into {v} voxels: kernel "
-              f"{ms:.4f} ms (sort included), plain (index_add on the CPU, "
-              f"host clock) {plain_ms:.2f} ms, index_add_ on the card "
-              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes); two card "
-              f"runs and the CPU bit-equal", flush=True)
+        print(f"[15] secretion, {n_lanes} x {n} agents into {v} voxels: "
+              f"kernel {rec['ms']:.4f} ms (turns {t['kernel'][0]:.4f}, "
+              f"{t['kernel'][1]:.4f}), first design (sort in the wrapper) "
+              f"{rec['previous_design_ms']:.4f} ms in the same call, plain "
+              f"(index_add on the CPU, host clock) {plain_ms:.2f} ms, "
+              f"index_add_ on the card {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms (bytes); two card runs, the first design "
+              f"and the CPU bit-equal", flush=True)
 
     # the clustering --pairlist configuration, card ≡ CPU, card ≡ card
     def run(dev):
@@ -1881,11 +1966,31 @@ def phase_secretion(report: dict) -> dict:
     check(again_counts == got_counts, "[15] two card runs rebuild apart")
     rebuilds = sum(r for r, _ in got_counts)
     check(0 < rebuilds < CLUSTER_STEPS, f"[15] rebuilds {rebuilds}")
+    sim, st = _clustering_pairlist("cuda")
+    st = sim.run(st, 2)
+    _, prof = profile_steps(sim, st, PROFILED_STEPS)
+    ranges = {k: prof["ranges"].get(k, {"device_ms": 0.0, "launches": 0.0})
+              for k in ("step/secretion", "step/pairlist_build")}
     rec = {"kernel": recs, "clustering": {
         "agents": CLUSTER_AGENTS, "steps": CLUSTER_STEPS,
         "rebuilds": rebuilds, "rebuild_skips": CLUSTER_STEPS - rebuilds,
         "launches": launches, "max_abs_diff_vs_cpu": worst,
-        "card_runs_bit_equal": True}}
+        "card_runs_bit_equal": True,
+        "profiled": {"steps": PROFILED_STEPS,
+                     "ms_per_step": prof["ms_per_step_profiled"],
+                     "device_busy_ms": prof["device_busy_ms"],
+                     "device_idle_share": prof["device_idle_share"],
+                     "device_ops_per_step": prof["launches"],
+                     "rebuilds": prof["rebuilds"], "ranges": ranges}}}
+    print(f"[15] clustering --pairlist profiled ({PROFILED_STEPS} steps, "
+          f"{prof['rebuilds']} rebuilds): {prof['ms_per_step_profiled']:.3f} "
+          f"ms/step, busy {prof['device_busy_ms']:.3f} ms, idle share "
+          f"{prof['device_idle_share']:.3f}; step/secretion "
+          f"{ranges['step/secretion']['device_ms']:.4f} ms in "
+          f"{ranges['step/secretion']['launches']:.0f} device ops, "
+          f"step/pairlist_build "
+          f"{ranges['step/pairlist_build']['device_ms']:.4f} ms per step",
+          flush=True)
     report["secretion"] = rec
     print(f"[15] clustering --pairlist, {CLUSTER_AGENTS} agents x "
           f"{CLUSTER_STEPS} steps: card ≡ CPU (rebuilds {rebuilds}, skips "
@@ -3619,7 +3724,7 @@ def phase_tissue_lanes(report: dict, tmpdir: str) -> dict:
     from repro_torch.core.lanes import Lanes
     from repro_torch.device import card_description
     from repro_torch.kernels import ops
-    from repro_torch.launch import simulate
+    from repro_torch.launch import kernel_variants, simulate
 
     card = card_description()
     rec = {"card": card}
@@ -3737,8 +3842,16 @@ def phase_tissue_lanes(report: dict, tmpdir: str) -> dict:
               f"[26b] lane-aware pair list differs from plain in {f}")
     check(tuple(got.demand.shape) == (ENS_PL_LANES,)
           and int(got.demand.max()) <= 64, f"[26b] demand {got.demand}")
-    pl_ms = cuda_ms(lambda: grid_mod.build_pairlist(
-        spec, g, pool.position, pool.alive, **kw), iters=20, warmup=3)
+    pl_t = _pairlist_vs_previous(
+        "[26b] lane-aware",
+        lambda: grid_mod.build_pairlist(spec, g, pool.position, pool.alive,
+                                        **kw),
+        lambda: kernel_variants.pairlist_build(
+            pool.position, pool.alive, g.origin, g.box_size, g.starts,
+            g.counts, spec.dims, spec.run_capacity,
+            grid_mod.pair_radius_sq(kw["radius"]), kw["max_pairs"],
+            lanes=ENS_PL_LANES), want_pl)
+    pl_ms = pl_t["ms"]
     pl_plain = cuda_ms(lambda: grid_mod.build_pairlist_plain(
         spec, g, pool.position, pool.alive, **kw), iters=2, warmup=0)
     pl_bound, pl_by, pl_work = pairlist_bound(spec, g, pool, got)
@@ -3776,7 +3889,7 @@ def phase_tissue_lanes(report: dict, tmpdir: str) -> dict:
                          warmup=3)
     kernels = {
         "pairlist_build": {
-            "equal": True, "max_abs_err": 0.0, "ms": pl_ms,
+            "equal": True, "max_abs_err": 0.0, **pl_t,
             "plain_ms": pl_plain, "bound_ms": pl_bound, "bound_by": pl_by,
             "library_ms": None, "solo_ms": solo_pl_ms,
             "rows": pool.position.shape[0],
@@ -3820,7 +3933,9 @@ def phase_tissue_lanes(report: dict, tmpdir: str) -> dict:
           f"launches (once a tick for all lanes); every lane ≡ its solo card "
           f"run bit for bit; lane-aware pair list ≡ plain (idx, run_off, "
           f"count, per-lane demand {rec['fig6_pairs']['demand']}): kernel "
-          f"{pl_ms:.4f} ms, plain {pl_plain:.2f} ms, bound {pl_bound:.4f} ms "
+          f"{pl_ms:.4f} ms (first design "
+          f"{pl_t['previous_design_ms']:.4f} ms in the same call), plain "
+          f"{pl_plain:.2f} ms, bound {pl_bound:.4f} ms "
           f"({pl_by}), the solo call on {sp.position.shape[0]} rows "
           f"{solo_pl_ms:.4f} ms; lane-aware pairs map ≡ plain: kernel "
           f"{pm_ms:.4f} ms, plain {pm_plain:.2f} ms, bound {pm_bound:.4f} ms "
@@ -4654,13 +4769,13 @@ def _dist_secretion_vs_plain(args) -> dict:
         diffusion.add_sources(*cpu)
     plain_ms = (time.perf_counter() - t0) * 1e3 / 3
     n, v = position.shape[0], int(np.prod(grids.shape))
-    moved = 4 * v + 12 * n + 8 * n + 4 * n + 4 * v      # as phase 15
+    bound_ms, moved = secretion_bound(n, v)
     rec = {"agents": n, "voxels": v, "equal": True, "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "plain_device": "cpu",
-           "library_ms": lib_ms, "bound_ms": moved / PEAK_HBM_BYTES * 1e3,
+           "library_ms": lib_ms, "bound_ms": bound_ms,
            "bound_by": "bytes", "bytes": moved}
     print(f"[28c] secretion on the step's own {n} rows into {lanes.n} "
-          f"grids of {spec.dims}: kernel {ms:.4f} ms (sort included), "
+          f"grids of {spec.dims}: kernel {ms:.4f} ms, "
           f"plain (index_add on the CPU, host clock) {plain_ms:.2f} ms, "
           f"index_add_ on the card {lib_ms:.4f} ms, bound "
           f"{rec['bound_ms']:.5f} ms (bytes); bit-equal to plain",
@@ -7414,6 +7529,7 @@ def _run(workers, tmpdir: str) -> int:
             "replaces": ref, "launches": count,
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},
+            **{k: rec[k] for k in ("previous_design_ms",) if k in rec},
             "ensemble_launches_per_tick": per_tick[name]})
     # the distributed path (phase 28): launches over its runs, all shards
     # stepped together — K1 and its map in (a)'s K1 run, the pair-list

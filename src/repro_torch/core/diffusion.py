@@ -109,13 +109,17 @@ def add_sources(spec: DiffusionSpec, conc: torch.Tensor,
                 ) -> torch.Tensor:
     """Add per-agent secretion into the voxel grid, each voxel's amounts in
     slot order, as XLA:CPU's scatter does: ``index_add`` on the CPU, the
-    secretion kernel on the card (``kernels/secretion.add``; the card's
-    ``index_add`` adds by atomics, in no fixed order). An ensemble's rows
-    add into their own lane's grid: the lanes' voxel ids are disjoint and
-    its rows lane-major, so one call keeps every voxel's slot order."""
-    idx = _flat(spec, voxel_of(spec, position, origin), lanes)
+    secretion kernel on the card (``kernels/secretion.add``, which computes
+    the voxels itself; the card's ``index_add`` adds by atomics, in no
+    fixed order). An ensemble's rows add into their own lane's grid: the
+    lanes' voxel ids are disjoint and its rows lane-major, so one call
+    keeps every voxel's slot order."""
     if conc.device.type != "cpu":
-        return secretion.add(conc, idx, amount)
+        lane_rows = (position.shape[0] if lanes is None or lanes.solo
+                     else lanes.capacity)
+        return secretion.add(conc, position, amount, origin, spec.dims,
+                             _recip(spec.voxel), lane_rows)
+    idx = _flat(spec, voxel_of(spec, position, origin), lanes)
     return conc.reshape(-1).index_add(0, idx, amount.to(conc.dtype)
                                       ).reshape(conc.shape)
 

@@ -842,7 +842,7 @@ def _row_step(spec: GridSpec, c: int, chunk: Optional[int],
               width: int) -> Tuple[int, int]:
     """(block, rows per chunk): whole ``chunk``-row blocks within
     ``SWEEP_LANES`` lanes of 9 runs × ``width``."""
-    b = min(chunk if chunk is not None else spec.query_chunk, c)
+    b = max(min(chunk if chunk is not None else spec.query_chunk, c), 1)
     return b, b * max(1, SWEEP_LANES // (9 * width * b))
 
 
@@ -1032,7 +1032,7 @@ def build_pairlist_plain(spec: GridSpec, grid: GridState,
         cnt_t[r0:r1] = inc[:, -1]
     n_lanes = grid.starts.shape[0] // spec.table_size
     demand = (cnt_t.reshape(n_lanes, -1).amax(1) if n_lanes > 1
-              else cnt_t.max() if c else cnt_t.sum())
+              else cnt_t.max() if c else cnt_t.sum(dtype=torch.int32))
     return PairList(idx=idx_t, run_off=off_t, count=cnt_t, demand=demand)
 
 

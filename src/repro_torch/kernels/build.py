@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -50,14 +51,29 @@ def sources() -> List[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+def constants(name: str) -> Dict[str, int]:
+    """The integer ``constexpr`` constants of ``csrc/<name>.cu`` (those of
+    type int or long long, in source order), each evaluated from the ones
+    before it: what a test needs to know of a kernel's tiling."""
+    out: Dict[str, int] = {}
+    text = (CSRC / f"{name}.cu").read_text()
+    for m in re.finditer(r"constexpr (?:int|long long) (\w+) = ([^;]+);",
+                         text):
+        expr = re.sub(r"(\d+)LL\b", r"\1", m.group(2)).replace("/", "//")
+        out[m.group(1)] = int(eval(expr, {"__builtins__": {}}, dict(out)))
+    return out
+
+
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    src = (csrc / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build_all(names: Sequence[str] | None = None) -> Dict[str, Path]:
-    """Compile every named source that is not built yet, all in parallel.
+def build_all(names: Sequence[str] | None = None,
+              csrc: Path = CSRC) -> Dict[str, Path]:
+    """Compile every named source of ``csrc`` (by default the kernels'
+    ``csrc/``) that is not built yet, all in parallel.
 
     Returns ``{name: library path}``. Raises with the compiler's output if
     any build fails; ``BUILD_LOGS[name]`` keeps each compiler's output
@@ -66,7 +82,7 @@ def build_all(names: Sequence[str] | None = None) -> Dict[str, Path]:
     """
     names = list(sources() if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {n: library_path(n) for n in names}
+    paths = {n: library_path(n, csrc) for n in names}
     todo = [n for n in names if not paths[n].is_file()]
     for n in names:
         log = paths[n].with_suffix(".log")
@@ -79,7 +95,7 @@ def build_all(names: Sequence[str] | None = None) -> Dict[str, Path]:
     for n in todo:
         tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
         procs[n] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{n}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
     for n, (tmp, proc) in procs.items():
@@ -96,10 +112,11 @@ def build_all(names: Sequence[str] | None = None) -> Dict[str, Path]:
     return paths
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    lib = _LOADED.get(name)
+def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
+    """The loaded library of ``<csrc>/<name>.cu``, built on first use."""
+    key = str(csrc / name)
+    lib = _LOADED.get(key)
     if lib is None:
-        lib = ctypes.CDLL(str(build_all([name])[name]))
-        _LOADED[name] = lib
+        lib = ctypes.CDLL(str(build_all([name], csrc)[name]))
+        _LOADED[key] = lib
     return lib

@@ -33,36 +33,28 @@ ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
+_FNS: dict = {}
+
+
 def _kernel_fn():
-    lib = build.load("pairlist")
-    fn = lib.pairlist_build
-    fn.argtypes = ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+    """The built library's ``pairlist_build``, bound once."""
+    if not _FNS:
+        fn = build.load("pairlist").pairlist_build
+        fn.argtypes = ARGTYPES
+        fn.restype = ctypes.c_int
+        _FNS["build"] = fn
+    return _FNS["build"]
 
 
-def build_list(position: torch.Tensor, alive: torch.Tensor,
-               origin: torch.Tensor, box_size: float, starts: torch.Tensor,
-               counts: torch.Tensor, dims: Tuple[int, int, int],
-               run_capacity: int, r2: float, max_pairs: int,
-               lanes: int = 1
-               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                          torch.Tensor]:
-    """The pair list of the resident pool ``position`` (C, 3) f32 /
-    ``alive`` (C,) bool over the grid's ``starts``/``counts`` (M,) tables,
-    on the card. ``r2`` is the inclusive squared radius as a float32 value.
-
-    Returns ``(idx (C, max_pairs) int32, run_off (C, 10) int32, count (C,)
-    int32, demand () int32)``.
-
-    ``lanes`` > 1: an ensemble's lane-major pool of ``lanes`` lanes of C /
-    lanes rows and its (lanes·M,) tables; each row lists its own lane's
-    candidates, and ``demand`` is (lanes,).
-    """
-    dev = position.device
-    if dev.type != "cuda":
-        raise ValueError(f"the pair-list kernel runs on CUDA tensors, not "
-                         f"{dev}")
+def launch_args(position: torch.Tensor, alive: torch.Tensor,
+                origin: torch.Tensor, box_size: float, starts: torch.Tensor,
+                counts: torch.Tensor, dims: Tuple[int, int, int],
+                run_capacity: int, r2: float, max_pairs: int,
+                lanes: int = 1) -> Tuple[list, Tuple[torch.Tensor, ...]]:
+    """:func:`build_list`'s checks and outputs: ``(the C entry point's
+    arguments but the stream, (idx, run_off, count, demand, then the
+    inputs as converted, which must outlive the launch))``. Raises
+    ``ValueError`` on what the kernel does not take."""
     c = position.shape[0]
     m = dims[0] * dims[1] * dims[2]
     if position.shape != (c, 3) or alive.shape != (c,) or 3 * c >= 2 ** 31:
@@ -84,6 +76,10 @@ def build_list(position: torch.Tensor, alive: torch.Tensor,
     if max_pairs < 1 or run_capacity < 0:
         raise ValueError(f"max_pairs={max_pairs}, "
                          f"run_capacity={run_capacity}")
+    dev = position.device
+    if dev.type != "cuda":
+        raise ValueError(f"the pair-list kernel runs on CUDA tensors, not "
+                         f"{dev}")
     for name, x in (("alive", alive), ("origin", origin), ("starts", starts),
                     ("counts", counts)):
         if x.device != dev:
@@ -99,18 +95,43 @@ def build_list(position: torch.Tensor, alive: torch.Tensor,
     count = torch.empty((c,), dtype=torch.int32, device=dev)
     demand = torch.zeros(() if lanes == 1 else (lanes,), dtype=torch.int32,
                          device=dev)
+    args = [position.data_ptr(), alive.data_ptr(), c, origin.data_ptr(),
+            recip, starts.data_ptr(), counts.data_ptr(), dims[0], dims[1],
+            dims[2], run_capacity, r2, max_pairs, c // lanes, idx.data_ptr(),
+            run_off.data_ptr(), count.data_ptr(), demand.data_ptr()]
+    return args, (idx, run_off, count, demand, position, alive, origin,
+                  starts, counts)
+
+
+def build_list(position: torch.Tensor, alive: torch.Tensor,
+               origin: torch.Tensor, box_size: float, starts: torch.Tensor,
+               counts: torch.Tensor, dims: Tuple[int, int, int],
+               run_capacity: int, r2: float, max_pairs: int,
+               lanes: int = 1
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                          torch.Tensor]:
+    """The pair list of the resident pool ``position`` (C, 3) f32 /
+    ``alive`` (C,) bool over the grid's ``starts``/``counts`` (M,) tables,
+    on the card. ``r2`` is the inclusive squared radius as a float32 value.
+
+    Returns ``(idx (C, max_pairs) int32, run_off (C, 10) int32, count (C,)
+    int32, demand () int32)``.
+
+    ``lanes`` > 1: an ensemble's lane-major pool of ``lanes`` lanes of C /
+    lanes rows and its (lanes·M,) tables; each row lists its own lane's
+    candidates, and ``demand`` is (lanes,).
+    """
+    args, held = launch_args(position, alive, origin, box_size, starts,
+                             counts, dims, run_capacity, r2, max_pairs,
+                             lanes)
+    dev = held[0].device
     fn = _kernel_fn()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(position.data_ptr(), alive.data_ptr(), c, origin.data_ptr(),
-                 recip, starts.data_ptr(), counts.data_ptr(), dims[0],
-                 dims[1], dims[2], run_capacity, r2, max_pairs,
-                 c // lanes, idx.data_ptr(), run_off.data_ptr(),
-                 count.data_ptr(), demand.data_ptr(), stream)
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pair-list launch failed: CUDA error {err}")
     build_list.launches += 1
-    return idx, run_off, count, demand
+    return held[:4]
 
 
 build_list.launches = 0

@@ -10,6 +10,7 @@ need no JAX (the GPU host runs them with
 
 import dataclasses
 import types
+import zlib
 
 import numpy as np
 import pytest
@@ -675,7 +676,25 @@ def test_k1_variants_follow_the_source():
 
 from repro_torch.core.agents import make_pool  # noqa: E402
 from repro_torch.kernels import pair_cols as tpaircols  # noqa: E402
+from repro_torch.kernels import build as tbuild  # noqa: E402
 from repro_torch.kernels import pairlist as tpairlist  # noqa: E402
+
+
+def test_pairlist_variants_follow_the_source():
+    """launch/kernel_variants.py keeps the first designs of the pair-list
+    and secretion kernels as sources of their own: each is there, with an
+    entry point whose arguments the argument list it is called with
+    fits."""
+    import re
+    from repro_torch.launch import kernel_variants
+    assert set(kernel_variants.FIRST) == {"pairlist_warp_row",
+                                          "secretion_sorted"}
+    for name, entry in kernel_variants.FIRST.items():
+        text = (kernel_variants._DIR / f"{name}.cu").read_text()
+        sig = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", text)
+        want = (tpairlist.ARGTYPES if name == "pairlist_warp_row"
+                else kernel_variants.SECRETION_ARGTYPES)
+        assert sig and len(sig.group(1).split(",")) == len(want), name
 
 
 def _radius_pairs(n=2048, r=4.0, seed=11):
@@ -790,6 +809,39 @@ def test_pairlist_wrapper_runs_the_plain_version_on_the_cpu():
                              g.starts, g.counts, spec.dims, 24, 16.0, 8)
 
 
+@pytest.mark.parametrize("bad", ["cpu", "position", "alive", "lanes",
+                                 "tables", "origin", "max_pairs",
+                                 "run_capacity"])
+def test_pairlist_wrapper_raises_on_cpu_tensors_and_bad_shapes(bad):
+    """kernels/pairlist.build_list takes CUDA tensors of the kernel's
+    shapes only: CPU tensors, and each shape it does not take, raise
+    ValueError before anything is built or launched."""
+    c, dims = 64, (2, 2, 2)
+    kw = dict(position=torch.zeros((c, 3)),
+              alive=torch.ones(c, dtype=torch.bool), origin=torch.zeros(3),
+              box_size=2.0, starts=torch.zeros(8, dtype=torch.int32),
+              counts=torch.zeros(8, dtype=torch.int32), dims=dims,
+              run_capacity=24, r2=4.0, max_pairs=8, lanes=1)
+    if bad == "position":
+        kw["position"] = torch.zeros((c, 2))
+    elif bad == "alive":
+        kw["alive"] = torch.ones(c + 1, dtype=torch.bool)
+    elif bad == "lanes":
+        kw["lanes"] = 3
+    elif bad == "tables":
+        kw["starts"] = torch.zeros(9, dtype=torch.int32)
+    elif bad == "origin":
+        kw["origin"] = torch.zeros(2)
+    elif bad == "max_pairs":
+        kw["max_pairs"] = 0
+    elif bad == "run_capacity":
+        kw["run_capacity"] = -1
+    before = tpairlist.build_list.launches
+    with pytest.raises(ValueError):
+        tpairlist.build_list(**kw)
+    assert tpairlist.build_list.launches == before
+
+
 @pytest.mark.cuda
 def test_pairlist_cuda_kernel_matches_plain():
     """The pair-list kernel ≡ its plain version, entry for entry (idx,
@@ -822,6 +874,189 @@ def test_pairlist_cuda_kernel_matches_plain():
                                           res.pool.alive, radius=radius,
                                           max_pairs=mp)
         _pairs_equal(got, want, f"breakdown r={radius} P={mp}")
+
+
+_PAIRLIST_K = tbuild.constants("pairlist")
+TILE_ROWS = _PAIRLIST_K["kRows"]        # rows a block of csrc/pairlist.cu
+STAGE_MAX = _PAIRLIST_K["kStageMax"]    # candidates a block stages
+
+
+def _grid_ordered(pos, alive, dims, box):
+    """A pool in grid order with its tables (the engine's resident layout):
+    (position, alive, starts, counts) tensors."""
+    P, A = _t(pos), _t(alive)
+    keys = tmorton.grid_sort_keys(P, A, torch.zeros(3), box, dims)
+    order = torch.sort(keys, stable=True).indices
+    starts, counts = tgrid.box_tables(keys[order], tmorton.linear_size(dims))
+    return P[order], A[order], starts, counts
+
+
+def _grid_state(starts, counts, box, rows):
+    return tgrid.GridState(origin=torch.zeros(3), box_size=box,
+                           keys=torch.zeros(rows, dtype=torch.int64),
+                           order=None, rank=None, starts=starts,
+                           counts=counts, max_count=None, max_run_count=None)
+
+
+def _pairlist_any_order_case(name):
+    """(spec, grid, position, alive, radius, max_pairs) on the CPU, one
+    case a branch of the pair-list kernel: rows not in grid order (tables
+    kept), tiles that straddle columns, a row whose own runs are past the
+    staged budget, tiles whose union of runs is past it though each row's
+    own runs fit, 16 ensemble lanes, no rows, and a row count that is not
+    a multiple of the tile."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    if name == "shuffled":
+        P, _, _, A, _, starts, counts = _sorted_case(21, 3000, 3200,
+                                                     (16, 16, 16), 2.0)
+        perm = rng.permutation(len(P))
+        spec = tgrid.GridSpec(dims=(16, 16, 16), max_per_box=8)
+        return (spec, _grid_state(_t(starts), _t(counts), 2.0, len(P)),
+                _t(P[perm]), _t(A[perm]), 2.0, 64)
+    if name == "straddle":             # ~250 rows a column
+        dims = (4, 4, 64)
+        pos = rng.uniform(0, 1, (4000, 3)) * np.array([8.0, 8.0, 128.0])
+        P, A, starts, counts = _grid_ordered(
+            pos.astype(np.float32), rng.random(4000) < 0.9, dims, 2.0)
+        spec = tgrid.GridSpec(dims=dims, max_per_box=16)
+        return (spec, _grid_state(starts, counts, 2.0, len(P)), P, A, 2.0,
+                64)
+    if name == "long-runs":            # ~220 agents a box
+        dims = (3, 3, 3)
+        pos = rng.uniform(0, 5.94, (6000, 3)).astype(np.float32)
+        P, A, starts, counts = _grid_ordered(pos, np.ones(6000, bool), dims,
+                                             2.0)
+        spec = tgrid.GridSpec(dims=dims, max_per_box=400)
+        return (spec, _grid_state(starts, counts, 2.0, len(P)), P, A, 1.0,
+                64)
+    if name == "wide-union":           # ~19 agents a box, 6x6 columns
+        dims, n = (6, 6, 16), 11008
+        pos = rng.uniform(0, 1, (n, 3)) * np.array([12.0, 12.0, 32.0])
+        P, A, starts, counts = _grid_ordered(
+            pos.astype(np.float32), rng.random(n) < 0.9, dims, 2.0)
+        spec = tgrid.GridSpec(dims=dims, max_per_box=40)
+        return (spec, _grid_state(starts, counts, 2.0, len(P)), P, A, 2.0,
+                64)
+    if name == "16-lanes":
+        dims, c = (8, 8, 8), 1000
+        parts = [_sorted_case(40 + lane, 900, c, dims, 2.0)
+                 for lane in range(16)]
+        P = np.concatenate([x[0] for x in parts])
+        A = np.concatenate([x[3] for x in parts])
+        starts = np.concatenate([x[5] + lane * c
+                                 for lane, x in enumerate(parts)])
+        counts = np.concatenate([x[6] for x in parts])
+        spec = tgrid.GridSpec(dims=dims, max_per_box=8)
+        return (spec, _grid_state(_t(starts), _t(counts), 2.0, len(P)),
+                _t(P), _t(A), 2.0, 32)
+    if name == "empty":
+        spec = tgrid.GridSpec(dims=(4, 4, 4), max_per_box=8)
+        zeros = torch.zeros(64, dtype=torch.int32)
+        return (spec, _grid_state(zeros, zeros, 2.0, 0),
+                torch.zeros((0, 3)), torch.zeros(0, dtype=torch.bool), 2.0, 8)
+    assert name == "ragged"
+    P, _, _, A, _, starts, counts = _sorted_case(22, 2900, 3001,
+                                                 (16, 16, 16), 2.0)
+    spec = tgrid.GridSpec(dims=(16, 16, 16), max_per_box=8)
+    return (spec, _grid_state(_t(starts), _t(counts), 2.0, len(P)), _t(P),
+            _t(A), 2.5, 16)
+
+
+PAIRLIST_ANY_ORDER = ["shuffled", "straddle", "long-runs", "wide-union",
+                      "16-lanes", "empty", "ragged"]
+
+
+def _tile_unions(spec, g, pos, alive):
+    """(tiles,) the records csrc/pairlist.cu would stage for each 32-row
+    tile of a one-lane pool: the runs of its first and its last live
+    row's columns' 9 neighbouring columns over the z span of the tile's
+    live rows in each (the kernel's step 1)."""
+    dims = spec.dims
+    cells = tmorton.cell_of(pos, g.origin, g.box_size, dims).numpy()
+    starts, counts = g.starts.numpy(), g.counts.numpy()
+    live = alive.numpy()
+    out = []
+    for r0 in range(0, len(cells), TILE_ROWS):
+        c, lv = cells[r0:r0 + TILE_ROWS], live[r0:r0 + TILE_ROWS]
+        rows = np.flatnonzero(lv)
+        total = 0
+        for col in {tuple(c[rows[0], :2]), tuple(c[rows[-1], :2])} \
+                if len(rows) else ():
+            z = c[rows[(c[rows, :2] == col).all(1)], 2]
+            z_lo, z_hi = max(z.min() - 1, 0), min(z.max() + 1, dims[2] - 1)
+            for k in range(9):
+                nx, ny = col[0] + k // 3 - 1, col[1] + k % 3 - 1
+                if 0 <= nx < dims[0] and 0 <= ny < dims[1]:
+                    base = (nx * dims[1] + ny) * dims[2]
+                    total += max(int(starts[base + z_hi] + counts[base + z_hi]
+                                     - starts[base + z_lo]), 0)
+        out.append(total)
+    return np.array(out)
+
+
+def test_pairlist_any_order_cases_reach_every_branch():
+    """Each case above is what it says: rows out of grid order, 32-row
+    tiles whose live rows lie in two columns, a row whose 9 runs alone
+    hold more candidates than a block stages, tiles whose staged union
+    would be past that budget though every row's own 9 runs are within it
+    (beside tiles that stage), 16 lanes of tables, no rows, a ragged last
+    tile; and the plain list of each is non-trivial."""
+    for name in PAIRLIST_ANY_ORDER:
+        spec, g, pos, alive, radius, mp = _pairlist_any_order_case(name)
+        c = pos.shape[0]
+        pl = tgrid.build_pairlist_plain(spec, g, pos, alive, radius=radius,
+                                        max_pairs=mp)
+        assert pl.idx.shape == (c, mp), name
+        if name == "empty":
+            assert c == 0 and int(pl.demand) == 0
+            continue
+        assert int(pl.count.sum()) > 0, name
+        cells = tmorton.cell_of(pos, g.origin, g.box_size, spec.dims)
+        keys = tmorton.linear_encode3(cells[:, 0], cells[:, 1],
+                                      cells[:, 2], spec.dims)
+        live = keys[alive]
+        if name == "shuffled":
+            assert (live[1:] < live[:-1]).any()
+        if name == "straddle":
+            col = (cells[:, 0] * spec.dims[1] + cells[:, 1])
+            n_tiles = c // TILE_ROWS
+            cols = col[:n_tiles * TILE_ROWS].reshape(n_tiles, TILE_ROWS)
+            assert ((cols != cols[:, :1]).any(1)).sum() >= 8
+        if name in ("long-runs", "wide-union"):
+            _, n = tgrid.run_bounds(spec, g, pos)
+            own = int(n.clamp(max=spec.run_capacity).sum(1).max())
+            assert (own > STAGE_MAX) == (name == "long-runs"), (name, own)
+            assert int(pl.demand) > mp
+        if name == "wide-union":
+            unions = _tile_unions(spec, g, pos, alive)
+            assert (unions > STAGE_MAX).sum() >= 20
+            assert ((unions > 0) & (unions <= STAGE_MAX)).sum() >= 8
+        if name == "16-lanes":
+            assert g.starts.shape[0] == 16 * spec.table_size
+            assert pl.demand.shape == (16,)
+        if name == "ragged":
+            assert c % TILE_ROWS != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PAIRLIST_ANY_ORDER)
+def test_pairlist_cuda_kernel_matches_plain_in_any_row_order(name):
+    """The pair-list kernel ≡ its plain version entry for entry (idx,
+    run_off, count, demand) on each case above: the staged branch, the
+    global branch and both in one tile; one launch a build; two card
+    builds bit-equal."""
+    dev = _cuda_or_skip()
+    spec, g, pos, alive, radius, mp = _pairlist_any_order_case(name)
+    want = tgrid.build_pairlist_plain(spec, g, pos, alive, radius=radius,
+                                      max_pairs=mp)
+    gd, pd, ad = _grid_to(g, dev), pos.to(dev), alive.to(dev)
+    before = tpairlist.build_list.launches
+    runs = [tgrid.build_pairlist(spec, gd, pd, ad, radius=radius,
+                                 max_pairs=mp) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tpairlist.build_list.launches == before + 2
+    for got in runs:
+        _pairs_equal(got, want, name)
 
 
 def _synthetic_pairs(seed=4, c=300, p=12, spread=2 ** 26):

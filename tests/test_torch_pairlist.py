@@ -197,6 +197,28 @@ def test_build_pairlist_matches_reference(case, chunk):
         assert int(got.demand) > 4
 
 
+@pytest.mark.parametrize("max_pairs", [64, 4])
+@pytest.mark.parametrize("chunk", [64, 7])
+def test_build_pairlist_on_a_permuted_pool_matches_reference(max_pairs,
+                                                            chunk):
+    """Rows out of grid order (the pool's rows permuted, the tables kept,
+    so runs name slots whose agents lie elsewhere): the port's plain list
+    ≡ the reference's build_pairlist on the same arrays, entry for entry —
+    the function the card kernel's global branch is held to."""
+    spec, tspec, jg, jch, tg, tch = _built(n=500, skin=1.2, dead=0.3)
+    perm = np.random.default_rng(5).permutation(len(tch["position"]))
+    jch = dict(jch, position=jnp.asarray(np.asarray(jch["position"])[perm]),
+               alive=jnp.asarray(np.asarray(jch["alive"])[perm]))
+    tpos, talive = tch["position"][perm], tch["alive"][perm]
+    want = _jpairs(spec, jg, jch, 4.2, max_pairs)
+    got = tgrid.build_pairlist(tspec, tg, tpos, talive, radius=4.2,
+                               max_pairs=max_pairs, chunk=chunk)
+    _assert_pairs_equal(want, got)
+    assert int(got.count.sum()) > 0
+    if max_pairs == 4:
+        assert int(got.demand) > 4
+
+
 @pytest.mark.parametrize("skin", [0.0, 1.0])
 def test_pair_sweep_matches_reference_pairs_mode(skin):
     """Force and Infection kernels over the pair list: integers exact,
