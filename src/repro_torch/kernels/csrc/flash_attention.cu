@@ -10,8 +10,9 @@
 // Accumulation is f32 whatever the input type; the output takes q's type.
 //
 // Two kernels, chosen statically by type and head dim:
-//   * bf16 with D ∈ {64, 128}: `tc::flash_attention_tc`, on the tensor
-//     cores (below). This is the serving path (qwen2, qwen3, yi: D 128).
+//   * bf16 with D ∈ {64, 96, 128}: `tc::flash_attention_tc`, on the tensor
+//     cores (below). This is the serving path (qwen2, qwen3, yi: D 128;
+//     phi-3-vision: D 96).
 //   * f32 (any D) and bf16 with D ∈ {16, 32}: the scalar kernel
 //     `flash_attention_kernel`. TF32 keeps about three decimal digits and
 //     would miss the f32 tolerance of 2e-5, so f32 stays on FP32 FMAs; D 16
@@ -21,7 +22,7 @@
 // 2·D each) against ~2·D bytes per query and key row: at the prefill shapes
 // (S ≥ 256) the function is bound by operations on the bf16 tensor cores.
 //
-// ---- The tensor-core kernel (bf16, D 64 or 128) ----
+// ---- The tensor-core kernel (bf16, D 64, 96 or 128) ----
 // One block per (128 query rows, head, batch), 384 threads: warpgroup 0 is
 // the producer, warpgroups 1 and 2 are consumers of 64 query rows each.
 // `setmaxnreg` moves registers from the producer (24) to the consumers
@@ -37,7 +38,14 @@
 //     operand and an empty barrier the 8 consumer warps arrive on: while
 //     tile t-1 is in P·V and tile t in Q·Kᵀ, tile t+1 loads. The key
 //     tensor map ends at sk_actual, so padded keys arrive as zeros.
-//     Shared memory: 132 KB at D 128, 66 KB at D 64.
+//     Shared memory: 132 KB at D 128 and 96, 66 KB at D 64.
+//   * D 96 runs as D 128 with zeros in columns 96-127: its tiles are two
+//     64-column sub-tiles, and the second box of each reads columns 64-127
+//     of a map whose inner dim is 96, so TMA fills 96-127 with zeros (and
+//     counts the whole box's bytes). Q·Kᵀ takes the 6 k-steps of the real
+//     columns; P·V runs m64n128k16 (the MN-major V operand is read in
+//     whole 64-column swizzle atoms), whose last 32 output columns are
+//     P·0 = 0 and are not stored. Exact; P·V does 4/3 of its work.
 //   * S = Q·Kᵀ by `wgmma` m64n64k16 (A and B from shared memory through
 //     descriptors, both K-major), f32 accumulator in registers.
 //   * Masks and the online softmax run on that accumulator fragment: row
@@ -46,7 +54,7 @@
 //     the output accumulator in place. Only tiles that cross the diagonal
 //     or sk_actual evaluate the mask; tiles wholly above the block's
 //     diagonal are never loaded (the loop bound).
-//   * O += P·V by `wgmma` m64nDk16 with A (P) in registers and V read from
+//   * O += P·V by `wgmma` m64nDk16 (D 96: n128) with A (P) in registers and V read from
 //     shared memory as an MN-major operand (stored keys × D: transpose bit).
 //     P is split into P_hi = bf16(p) and P_lo = bf16(p − P_hi), two
 //     products per 16 keys. Why: with P rounded once to bf16 (as
@@ -345,6 +353,8 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int b,
                                   kv_offset, causal, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, b, hq, hkv, sq, sk, sk_actual,
                                   kv_offset, causal, scale, stream);
+    case 96: return launch<T, 96>(q, k, v, o, b, hq, hkv, sq, sk, sk_actual,
+                                  kv_offset, causal, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, b, hq, hkv, sq, sk,
                                     sk_actual, kv_offset, causal, scale,
                                     stream);
@@ -371,9 +381,16 @@ constexpr int kEncodeError = 10000;          // + CUresult of a failed encode
 
 static_assert(kRowsWg == kBlockK, "Q and K/V tiles share one TMA box");
 
+// Columns a tile holds: D rounded up to whole 64-column sub-tiles (D 96
+// holds 128, the last 32 zero).
+template <int D>
+__host__ __device__ constexpr int padded() {
+  return (D + kSubCols - 1) / kSubCols * kSubCols;
+}
+
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
-  return (D / kSubCols) * kSubBytes;
+  return (padded<D>() / kSubCols) * kSubBytes;
 }
 
 // Q tiles, the K and V rings, 3·kStages + 1 barriers, and the slack that
@@ -610,7 +627,7 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
   if constexpr (D == 64) {
     wgmma_rs_n64(d, a, desc_v);
   } else {
-    static_assert(D == 128, "tensor-core K2 takes D 64 or 128");
+    static_assert(D == 128, "wgmma_pv takes n64 or n128 (D 96 runs n128)");
     wgmma_rs_n128(d, a, desc_v);
   }
 }
@@ -696,7 +713,7 @@ __device__ __forceinline__ void produce(const CUtensorMap* tm_q,
                                         const CUtensorMap* tm_v,
                                         const Smem& sm, int q0, int h,
                                         int kvh, int b, int n_tiles) {
-  constexpr int kSubs = D / kSubCols;
+  constexpr int kSubs = padded<D>() / kSubCols;
   constexpr int kTile = tile_bytes<D>();
   mbar_expect_tx(sm.q_full, kConsumers * kTile);
   for (int w = 0; w < kConsumers; ++w)
@@ -725,7 +742,8 @@ __device__ __forceinline__ void produce(const CUtensorMap* tm_q,
 // tile's P·V are issued outside the loop, so that every wgmma in the loop
 // is issued unconditionally (a conditional one makes ptxas serialize them
 // all). Both warpgroups visit every tile the block loads: a tile wholly
-// masked for the first warpgroup's rows gives p = 0 there.
+// masked for the first warpgroup's rows gives p = 0 there. The accumulator
+// holds padded<D>() columns; those past D stay 0 and are not stored.
 template <int D>
 __device__ __forceinline__ void consume(int c, const Smem& sm,
                                         const Masks& mk, int q0,
@@ -733,6 +751,7 @@ __device__ __forceinline__ void consume(int c, const Smem& sm,
                                         __nv_bfloat16* __restrict__ o_head,
                                         float scale_log2) {
   constexpr int kTile = tile_bytes<D>();
+  constexpr int kDp = padded<D>();
   const int t128 = threadIdx.x % 128;
   const int lane = t128 % 32;
   const int r0 = (t128 / 32) * 16 + lane / 4;   // fragment rows r0, r0 + 8
@@ -740,9 +759,9 @@ __device__ __forceinline__ void consume(int c, const Smem& sm,
   const int row_lo = q0 + c * kRowsWg;
   const uint32_t q_tile = smem_u32(sm.q + c * kTile);
 
-  float acc[D / 2];
+  float acc[kDp / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kDp / 2; ++i) acc[i] = 0.f;
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
   float s[kBlockK / 2];
@@ -761,8 +780,8 @@ __device__ __forceinline__ void consume(int c, const Smem& sm,
     const uint32_t v_tile = smem_u32(sm.v + (t % kStages) * kTile);
 #pragma unroll
     for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      wgmma_pv<D>(acc, p_hi[kk], mnmajor_desc(v_tile, kk));
-      wgmma_pv<D>(acc, p_lo[kk], mnmajor_desc(v_tile, kk));
+      wgmma_pv<kDp>(acc, p_hi[kk], mnmajor_desc(v_tile, kk));
+      wgmma_pv<kDp>(acc, p_lo[kk], mnmajor_desc(v_tile, kk));
     }
     wgmma_commit();
   };
@@ -999,9 +1018,9 @@ bool contiguous(const long long* s, int h, int rows, int d) {
 
 // Launch on `stream`; returns the CUDA error code (0 on success), or 10000
 // + the CUresult of a failed tensor-map encode. The caller checks shapes and
-// types: hq % hkv == 0, 0 <= sk_actual <= sk, d ∈ {16, 32, 64, 128},
+// types: hq % hkv == 0, 0 <= sk_actual <= sk, d ∈ {16, 32, 64, 96, 128},
 // dtype 0 (f32) or 1 (bf16), o contiguous. q_s*, k_s*, v_s* are the (B, H,
-// S) strides in elements (D's is 1): bf16 with d 64 or 128 takes multiples
+// S) strides in elements (D's is 1): bf16 with d 64, 96 or 128 takes multiples
 // of 8 on a 16-byte-aligned base, every other input must be contiguous.
 extern "C" int k2_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype, int b,
@@ -1016,6 +1035,9 @@ extern "C" int k2_flash_attention(
   const long long vs[3] = {v_sb, v_sh, v_ss};
   if (dtype == 1 && d == 64)
     return tc::launch<64>(q, k, v, o, b, hq, hkv, sq, sk_actual, kv_offset,
+                          causal, scale, qs, ks, vs, s);
+  if (dtype == 1 && d == 96)
+    return tc::launch<96>(q, k, v, o, b, hq, hkv, sq, sk_actual, kv_offset,
                           causal, scale, qs, ks, vs, s);
   if (dtype == 1 && d == 128)
     return tc::launch<128>(q, k, v, o, b, hq, hkv, sq, sk_actual, kv_offset,
@@ -1038,11 +1060,13 @@ extern "C" int k2_flash_attention(
 // Dynamic shared memory one block of K2 uses for this type and head dim.
 extern "C" int k2_smem_bytes(int dtype, int d) {
   if (dtype == 1 && d == 64) return static_cast<int>(tc::smem_bytes<64>());
+  if (dtype == 1 && d == 96) return static_cast<int>(tc::smem_bytes<96>());
   if (dtype == 1 && d == 128) return static_cast<int>(tc::smem_bytes<128>());
   switch (d) {
     case 16: return static_cast<int>(smem_bytes<16>());
     case 32: return static_cast<int>(smem_bytes<32>());
     case 64: return static_cast<int>(smem_bytes<64>());
+    case 96: return static_cast<int>(smem_bytes<96>());
     case 128: return static_cast<int>(smem_bytes<128>());
     default: return -1;
   }

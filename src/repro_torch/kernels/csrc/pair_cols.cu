@@ -11,21 +11,50 @@
 // wrapper (ops.k1_inputs): the row mask active & alive and the pack of
 // K1's (8, n_pad) data rows, as csrc/block_cols.cu does.
 //
-// Design. One thread block per row block, one warp per 32 of its rows;
-// a warp reads each of its rows' stored entries with its 32 lanes side by
-// side (coalesced). A first pass finds the lowest and highest column
-// block the row block lists; then, for each window of kWindowBits column
-// blocks from the lowest (one window at the engine's sizes: a row block's
-// neighbours lie within a few x-planes), the entries set bits of a shared
-// bitmap, the bitmap's words are counted per thread, an exclusive block
-// scan gives each thread its place, and the set bits are written in
-// ascending order. No sort; the flag is OR-ed into one int on the device.
+// Design. One thread block per row block, a thread a row for the pack.
+// A row block's stored entries are staged in shared memory once, with
+// every load in flight before any is used: the rows' stored counts (from
+// run_off) are scanned into each row's place in a flat array, and each
+// warp issues one 4-byte cp.async per entry of its 32 rows, lane by lane
+// along a row (a row's entries are contiguous), without waiting between
+// rows (each row's place and count come from its own lane by a shuffle);
+// one wait and one barrier then cover them all. At the engine's sizes
+// (~18 entries a row at 1M agents, skin 0) a row block stages ~9 KB, and
+// the blocks an SM holds keep ~80 KB of loads in flight. One pass over
+// the staged copy then finds the lowest and highest listed column block
+// and sets the entries' bits in a shared bitmap of kWindowBits column
+// blocks centred on the row block's own, a shared-memory atomic an entry.
+// When the bounds lie inside that window (always, at the engine's sizes:
+// a row block's neighbours lie within a few x-planes), the words between
+// them are counted, an exclusive block scan gives each thread its place,
+// and the set bits are written in ascending order. Otherwise the bitmap
+// is rebuilt window by window from the lowest block. Device memory is
+// read once. Measured no faster and left out: fewer atomics (a lane
+// leaves its bit to a left neighbour naming the same block), more
+// resident blocks (registers capped), other staging sizes, and a
+// persistent grid that stages the next row block while mapping this one.
+// A row block with more stored entries than the staging holds
+// (kStageEntries; 128 rows x 32 entries) takes them in chunks, staging
+// each again for every further window: exact, and slower only there. No
+// sort; the flag is OR-ed into one int on the device.
+//
+// What the first design (launch/variants/pair_cols_row_walk.cu) paid:
+// each warp walked its 32 rows one at a time, a row's load (at most a
+// few 128-byte lines with a variable trip count) finished before the next
+// row's was issued, so a warp had about one load in flight and paid the
+// DRAM latency ~32 times in the bounds pass and again, from the L2, in
+// the bitmap pass; every entry set its bit with its own shared-memory
+// atomic; and every window cleared and counted all 1,024 words.
 //
 // Bound. Bytes: the stored entries of the active rows and their run_off
-// rows read (twice here: the bounds pass and the bitmap pass, the second
-// mostly from the L2), maxb ids written per row block (and 32 B of data
-// rows a row in the fused form). The integer work is a divide and a
-// shared-memory OR per entry.
+// rows read once, maxb ids written per row block (and 32 B of data rows a
+// row in the fused form). The integer work is a divide and a shared-memory
+// OR per entry. What the layouts cost beyond it: device memory is read in
+// bursts of 32-64 bytes, so a row's run_off entry (4 of its 40 bytes)
+// brings most of its row, and a row's stored entries (a prefix of its
+// max_pairs) up to a burst more than they hold. The pack with the stored
+// counts and the staging each run near the HBM rate on those bytes; the
+// pass over the staged copy adds about a quarter.
 //
 // Lanes. An ensemble packs L lanes of lane_rows pool rows each at a stride
 // of lane_stride rows (a multiple of 128), as csrc/block_cols.cu does, so
@@ -49,10 +78,24 @@
 
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBlock = 128;
+constexpr int kBlockShift = 7;                // a column block: id >> 7
 constexpr int kWarps = kBlock / 32;
-constexpr int kWindowWords = 1024;
+constexpr int kWindowWords = 256;
 constexpr int kWindowBits = kWindowWords * 32;
+constexpr int kStageEntries = kBlock * 32;    // staged entries (16 KB)
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
 __device__ int block_exclusive_scan(int v, int* s_warp, int* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -83,11 +126,11 @@ pair_cols_kernel(const int* __restrict__ idx, const int* __restrict__ run_off,
                  const unsigned char* __restrict__ alive,
                  const unsigned char* __restrict__ active, int n_rows,
                  int n_pad, int maxb, int lane_rows, int lane_stride,
-                 int* __restrict__ block_cols,
-                 int* __restrict__ overflow, float* __restrict__ data_t,
+                 int* __restrict__ block_cols, int* __restrict__ overflow,
+                 float* __restrict__ data_t,
                  unsigned char* __restrict__ row_mask) {
+  __shared__ int s_stage[kStageEntries];
   __shared__ unsigned s_bits[kWindowWords];
-  __shared__ int s_stored[kBlock];
   __shared__ int s_warp[kWarps];
   __shared__ int s_lo[kWarps], s_hi[kWarps];
 
@@ -102,6 +145,9 @@ pair_cols_kernel(const int* __restrict__ idx, const int* __restrict__ run_off,
   const bool in_pool = row - lane_id * lane_stride < lane_rows &&
                        prow < n_rows;
 
+  // the row's stored count, loaded beside the pool (not after its flags)
+  const int stored_all =
+      in_pool ? run_off[static_cast<long long>(prow) * 10 + 9] : 0;
   bool act;
   if (position == nullptr) {
     act = row_active[row] != 0 && in_pool;
@@ -131,23 +177,92 @@ pair_cols_kernel(const int* __restrict__ idx, const int* __restrict__ run_off,
     data_t[6 * n_pad + row] = 0.f;
     data_t[7 * n_pad + row] = 0.f;
   }
-  s_stored[t] = act ? run_off[static_cast<long long>(prow) * 10 + 9] : 0;
-  __syncthreads();
+  const int stored = act ? stored_all : 0;
+  int total;
+  const int first = block_exclusive_scan(stored, s_warp, &total);
+  const int n_chunks = (total + kStageEntries - 1) / kStageEntries;
 
-  // pass 1: the lowest and highest listed column block
-  int lo = INT_MAX, hi = -1;
-  for (int r = warp * 32; r < warp * 32 + 32; ++r) {
-    const long long src_row = rb * kBlock + r - shift;
-    for (int m = lane; m < s_stored[r]; m += 32) {
-      const int b = (idx[src_row * max_pairs + m] + shift) / kBlock;
-      lo = min(lo, b);
-      hi = max(hi, b);
+  // Flat entries [f0, f0 + kStageEntries) into s_stage: each warp issues
+  // the copies of its 32 rows' entries in that range (row r's place and
+  // count from lane r), then one wait. Returns how many were staged.
+  auto stage = [&](int f0) {
+    __syncthreads();                          // s_stage free
+    const int f1 = min(total, f0 + kStageEntries);
+    const long long row0 = rb * kBlock + warp * 32 - shift;
+#pragma unroll 4
+    for (int r = 0; r < 32; ++r) {
+      const int a = __shfl_sync(kFull, first, r);
+      const int n = __shfl_sync(kFull, stored, r);
+      const int lo_f = max(a, f0), hi_f = min(a + n, f1);
+      const long long src = (row0 + r) * max_pairs - a;
+      for (int f = lo_f + lane; f < hi_f; f += 32)
+        cp_async4(&s_stage[f - f0], idx + src + f);
     }
+    cp_async_wait_all();
+    __syncthreads();
+    return f1 - f0;
+  };
+
+  // The staged entries' bits in the window of kWindowBits column blocks
+  // from `base`, OR-ed into s_bits (a shared-memory atomic an entry), and
+  // their lowest and highest block into lo_t, hi_t.
+  auto set_bits = [&](long long base, int n, int& lo_t, int& hi_t) {
+    for (int j = t; j < n; j += kBlock) {
+      const int b = (s_stage[j] + shift) >> kBlockShift;
+      lo_t = min(lo_t, b);
+      hi_t = max(hi_t, b);
+      const long long rel = b - base;
+      if (rel >= 0 && rel < kWindowBits)
+        atomicOr(&s_bits[rel >> 5], 1u << (rel & 31));
+    }
+  };
+
+  // The set bits of words [w_begin, w_end) of the window from `base`: each
+  // thread counts its words, a block scan gives its place after the
+  // n_uniq ids already listed, and it writes its ids in ascending order.
+  int* out = block_cols + static_cast<long long>(rb) * maxb;
+  long long n_uniq = 0;
+  auto emit = [&](long long base, int w_begin, int w_end) {
+    __syncthreads();                          // every bit set
+    const int n_words = w_end - w_begin;
+    const int per = (n_words + kBlock - 1) / kBlock;
+    const int w0 = w_begin + min(t * per, n_words);
+    const int w1 = min(w0 + per, w_end);
+    int mine = 0;
+    for (int w = w0; w < w1; ++w) mine += __popc(s_bits[w]);
+    int count;
+    long long pos = n_uniq + block_exclusive_scan(mine, s_warp, &count);
+    for (int w = w0; w < w1; ++w) {
+      unsigned bits = s_bits[w];
+      while (bits != 0u) {
+        const int bit = __ffs(bits) - 1;
+        bits &= bits - 1u;
+        if (pos < maxb) {
+          out[pos] = static_cast<int>(base + 32LL * w + bit);
+        }
+        ++pos;
+      }
+    }
+    n_uniq += count;
+    __syncthreads();                          // s_bits read
+  };
+
+  // One pass over the staged entries: their bounds, and their bits in the
+  // window centred on the row block's own column block, which holds every
+  // listed block of a grid-ordered pool at the engine's sizes.
+  const long long anchor = static_cast<long long>(rb) - kWindowBits / 2;
+  for (int w = t; w < kWindowWords; w += kBlock) s_bits[w] = 0u;
+  int lo = INT_MAX, hi = -1;
+  int held = -1, n_held = 0;                  // the chunk s_stage holds
+  for (int c = 0; c < n_chunks; ++c) {
+    n_held = stage(c * kStageEntries);
+    held = c;
+    set_bits(anchor, n_held, lo, hi);
   }
 #pragma unroll
   for (int d = 16; d > 0; d >>= 1) {
-    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, d));
-    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, d));
+    lo = min(lo, __shfl_xor_sync(kFull, lo, d));
+    hi = max(hi, __shfl_xor_sync(kFull, hi, d));
   }
   if (lane == 0) {
     s_lo[warp] = lo;
@@ -160,45 +275,27 @@ pair_cols_kernel(const int* __restrict__ idx, const int* __restrict__ run_off,
     lo = min(lo, s_lo[w]);
     hi = max(hi, s_hi[w]);
   }
-
-  // pass 2, window by window: bitmap, count, scan, ascending write
-  int* out = block_cols + static_cast<long long>(rb) * maxb;
-  long long n_uniq = 0;
-  for (long long base = lo; base <= hi; base += kWindowBits) {
-    for (int w = t; w < kWindowWords; w += kBlock) s_bits[w] = 0u;
-    __syncthreads();
-    for (int r = warp * 32; r < warp * 32 + 32; ++r) {
-      const long long src_row = rb * kBlock + r - shift;
-      for (int m = lane; m < s_stored[r]; m += 32) {
-        const long long b =
-            (idx[src_row * max_pairs + m] + shift) / kBlock - base;
-        if (b >= 0 && b < kWindowBits) {
-          atomicOr(&s_bits[b >> 5], 1u << (b & 31));
+  if (lo <= hi && lo >= anchor && hi < anchor + kWindowBits) {
+    emit(anchor, static_cast<int>((lo - anchor) >> 5),
+         static_cast<int>((hi - anchor) >> 5) + 1);
+  } else if (lo <= hi) {
+    // a span past the anchored window: window by window from the lowest
+    // block, the entries staged again where they do not fit at once
+    for (long long base = lo; base <= hi; base += kWindowBits) {
+      const int n_words = static_cast<int>(
+          min(static_cast<long long>(kWindowWords), (hi - base) / 32 + 1));
+      for (int w = t; w < n_words; w += kBlock) s_bits[w] = 0u;
+      __syncthreads();
+      int lo_w = INT_MAX, hi_w = -1;
+      for (int c = 0; c < n_chunks; ++c) {
+        if (c != held) {
+          n_held = stage(c * kStageEntries);
+          held = c;
         }
+        set_bits(base, n_held, lo_w, hi_w);
       }
+      emit(base, 0, n_words);
     }
-    __syncthreads();
-    const int n_words = static_cast<int>(
-        min(static_cast<long long>(kWindowWords), (hi - base) / 32 + 1));
-    const int per = (n_words + kBlock - 1) / kBlock;
-    const int w0 = min(t * per, n_words), w1 = min(w0 + per, n_words);
-    int mine = 0;
-    for (int w = w0; w < w1; ++w) mine += __popc(s_bits[w]);
-    int total;
-    long long pos = n_uniq + block_exclusive_scan(mine, s_warp, &total);
-    for (int w = w0; w < w1; ++w) {
-      unsigned bits = s_bits[w];
-      while (bits != 0u) {
-        const int bit = __ffs(bits) - 1;
-        bits &= bits - 1u;
-        if (pos < maxb) {
-          out[pos] = static_cast<int>(base + 32LL * w + bit);
-        }
-        ++pos;
-      }
-    }
-    n_uniq += total;
-    __syncthreads();
   }
   if (t == 0 && n_uniq > maxb) atomicOr(overflow + lane_id, 1);
   const int written = static_cast<int>(n_uniq < maxb ? n_uniq : maxb);

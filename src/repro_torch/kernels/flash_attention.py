@@ -4,12 +4,13 @@ version.
 Replaces ``repro/kernels/flash_attention.py::flash_attention_kernel`` (the
 Pallas TPU kernel). The kernels are in ``csrc/flash_attention.cu``; its
 header says how the TPU design was translated and what bounds it. The
-choice between them is static (:func:`kernel_path`): bf16 with D 64 or 128
-runs on the tensor cores (wgmma, TMA), everything else on the scalar
+choice between them is static (:func:`kernel_path`): bf16 with D 64, 96 or
+128 runs on the tensor cores (wgmma, TMA), everything else on the scalar
 kernel.
 
 :func:`flash_attention` takes q (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D),
-``Hq % Hkv == 0``, all float32 or all bfloat16, D in {16, 32, 64, 128}, and
+``Hq % Hkv == 0``, all float32 or all bfloat16, D in {16, 32, 64, 96, 128}
+(other head dims raise ``ValueError``; the reference's K2 takes any), and
 returns softmax(q·kᵀ·scale)·v (B, Hq, Sq, D) in q's dtype, accumulated in
 float32. Keys at or past ``sk_actual`` are masked; when ``causal``, key
 ``j`` is visible to query ``i`` iff ``j <= i + kv_offset`` (queries aligned
@@ -34,8 +35,8 @@ import torch
 
 from . import build
 
-SUPPORTED_D = (16, 32, 64, 128)
-TENSOR_CORE_D = (64, 128)           # bf16 head dims of the wgmma kernel
+SUPPORTED_D = (16, 32, 64, 96, 128)
+TENSOR_CORE_D = (64, 96, 128)       # bf16 head dims of the wgmma kernel
 NEG_INF = -1e30
 # operations per visible (query, key) pair, per unit of D: q·k and p·v,
 # a multiply and an add each — the work unit of the bound chip_smoke.py
@@ -87,9 +88,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def kernel_path(dtype: torch.dtype, d: int) -> str:
     """The CUDA kernel K2 runs for this input type and head dim:
-    ``"tensor_core"`` (bf16, D 64 or 128: wgmma with TMA loads, P·V with P
-    split into bf16 hi + lo) or ``"scalar"`` (f32 FMAs; every f32 input,
-    and bf16 at D 16 or 32)."""
+    ``"tensor_core"`` (bf16, D 64, 96 or 128: wgmma with TMA loads, P·V
+    with P split into bf16 hi + lo) or ``"scalar"`` (f32 FMAs; every f32
+    input, and bf16 at D 16 or 32)."""
     if dtype == torch.bfloat16 and d in TENSOR_CORE_D:
         return "tensor_core"
     return "scalar"

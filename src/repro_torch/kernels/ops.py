@@ -198,14 +198,19 @@ def build_block_cols_from_pairs_plain(pairs: grid.PairList,
                                       lanes: Optional[Lanes] = None
                                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`build_block_cols_from_pairs` in plain PyTorch, on any device:
-    chunks of row blocks, each sorting its column ids."""
+    chunks of row blocks, each sorting its column ids. A list of no rows
+    maps nothing (every entry -1, no overflow)."""
     c, p = pairs.idx.shape
     dev = pairs.idx.device
     n_rb = n_pad // BLOCK
     lane = torch.arange(p, dtype=torch.int32, device=dev)
+    multi = _multi(lanes)
+    if c == 0:
+        return (torch.full((n_rb, maxb), -1, dtype=torch.int32, device=dev),
+                torch.zeros((lanes.n,) if multi else (), dtype=torch.bool,
+                            device=dev))
     cols = torch.empty((n_rb, maxb), dtype=torch.int32, device=dev)
     ovf = torch.zeros((), dtype=torch.bool, device=dev)
-    multi = _multi(lanes)
     if multi:
         stride = n_pad // lanes.n
         ovf_rb = torch.zeros((n_rb,), dtype=torch.bool, device=dev)

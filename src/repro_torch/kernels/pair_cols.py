@@ -36,37 +36,31 @@ Pool = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
              torch.Tensor]
 
 
+_FNS: dict = {}
+
+
 def _kernel_fn():
-    lib = build.load("pair_cols")
-    fn = lib.k1_pair_cols
-    fn.argtypes = ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+    """The built library's ``k1_pair_cols``, bound once."""
+    if not _FNS:
+        fn = build.load("pair_cols").k1_pair_cols
+        fn.argtypes = ARGTYPES
+        fn.restype = ctypes.c_int
+        _FNS["map"] = fn
+    return _FNS["map"]
 
 
 def _ptr(x: Optional[torch.Tensor]) -> int:
     return 0 if x is None else x.data_ptr()
 
 
-def column_map_from_pairs(idx: torch.Tensor, run_off: torch.Tensor,
-                          n_pad: int, maxb: int, *,
-                          row_active: Optional[torch.Tensor] = None,
-                          pool: Optional[Pool] = None, lanes: int = 1):
-    """The column map of ``n_pad`` rows from a pair list (``idx`` (C, P)
-    int32, ``run_off`` (C, 10) int32) on the card, with the rows' activity
-    from ``row_active`` (n_pad,) bool or from ``pool`` = (position (C, 3)
-    f32, diameter (C,) f32, agent_type (C,) int, alive (C,) bool, active
-    (C,) bool).
-
-    Returns ``(block_cols (n_pad/128, maxb) int32, overflow () bool, data_t
-    (8, n_pad) f32 or None, row mask (n_pad,) bool or None)`` — the last
-    two only from a pool.
-
-    ``lanes`` > 1: an ensemble's list, its C rows ``lanes`` lanes of C /
-    lanes (lane-major, entries slot ids of the whole pool), packed at
-    n_pad / lanes rows each (``ops.lane_stride``); each row block maps its
-    own lane, and the overflow is (lanes,).
-    """
+def launch_args(idx: torch.Tensor, run_off: torch.Tensor, n_pad: int,
+                maxb: int, *, row_active: Optional[torch.Tensor] = None,
+                pool: Optional[Pool] = None, lanes: int = 1
+                ) -> Tuple[list, Tuple]:
+    """:func:`column_map_from_pairs`' checks and outputs: ``(the C entry
+    point's arguments but the stream, (block_cols, overflow, data_t,
+    mask, then the inputs as converted, which must outlive the
+    launch))``. Raises ``ValueError`` on what the kernel does not take."""
     dev = idx.device
     if dev.type != "cuda":
         raise ValueError(f"the pairs column-map kernel runs on CUDA "
@@ -115,18 +109,45 @@ def column_map_from_pairs(idx: torch.Tensor, run_off: torch.Tensor,
     cols = torch.empty((n_pad // BLOCK, maxb), dtype=torch.int32, device=dev)
     ovf = torch.zeros(() if lanes == 1 else (lanes,), dtype=torch.int32,
                       device=dev)
+    args = [idx.data_ptr(), run_off.data_ptr(), idx.shape[1],
+            _ptr(row_active), _ptr(position), _ptr(diameter),
+            _ptr(agent_type), _ptr(alive), _ptr(active), c, n_pad, maxb,
+            c // lanes, n_pad // lanes, cols.data_ptr(), ovf.data_ptr(),
+            _ptr(data_t), _ptr(mask)]
+    return args, (cols, ovf, data_t, mask, idx, run_off, row_active,
+                  position, diameter, agent_type, alive, active)
+
+
+def column_map_from_pairs(idx: torch.Tensor, run_off: torch.Tensor,
+                          n_pad: int, maxb: int, *,
+                          row_active: Optional[torch.Tensor] = None,
+                          pool: Optional[Pool] = None, lanes: int = 1):
+    """The column map of ``n_pad`` rows from a pair list (``idx`` (C, P)
+    int32, ``run_off`` (C, 10) int32) on the card, with the rows' activity
+    from ``row_active`` (n_pad,) bool or from ``pool`` = (position (C, 3)
+    f32, diameter (C,) f32, agent_type (C,) int, alive (C,) bool, active
+    (C,) bool).
+
+    Returns ``(block_cols (n_pad/128, maxb) int32, overflow () bool, data_t
+    (8, n_pad) f32 or None, row mask (n_pad,) bool or None)`` — the last
+    two only from a pool.
+
+    ``lanes`` > 1: an ensemble's list, its C rows ``lanes`` lanes of C /
+    lanes (lane-major, entries slot ids of the whole pool), packed at
+    n_pad / lanes rows each (``ops.lane_stride``); each row block maps its
+    own lane, and the overflow is (lanes,).
+    """
+    args, held = launch_args(idx, run_off, n_pad, maxb,
+                             row_active=row_active, pool=pool, lanes=lanes)
+    dev = held[0].device
     fn = _kernel_fn()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(idx.data_ptr(), run_off.data_ptr(), idx.shape[1],
-                 _ptr(row_active), _ptr(position), _ptr(diameter),
-                 _ptr(agent_type), _ptr(alive), _ptr(active), c, n_pad, maxb,
-                 c // lanes, n_pad // lanes, cols.data_ptr(), ovf.data_ptr(),
-                 _ptr(data_t), _ptr(mask), stream)
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pairs column-map launch failed: CUDA error "
                            f"{err}")
     column_map_from_pairs.launches += 1
+    cols, ovf, data_t, mask = held[:4]
     return cols, ovf != 0, data_t, mask
 
 

@@ -1,16 +1,21 @@
-"""The first designs of the pair-list and secretion kernels, built on the
-card to time them beside the kernels that replaced them. Nothing on any
-path of the port calls this module; ``chip_smoke.py`` phases 12, 15 and 26
-time each beside its successor on the same inputs:
+"""The first designs of the pair-list, pairs column-map and secretion
+kernels, built on the card to time them beside the kernels that replaced
+them. Nothing on any path of the port calls this module; ``chip_smoke.py``
+phases 12, 13, 15, 26 and 28 time each beside its successor on the same
+inputs:
 
 * ``variants/pairlist_warp_row.cu``: a warp a row, the 9 runs walked one
   after another in 32-lane passes, one ``atomicMax`` a row;
+* ``variants/pair_cols_row_walk.cu``: a warp walks its 32 rows one at a
+  time, reading each row's stored entries from device memory twice (a
+  bounds pass, a bitmap pass), a whole 1,024-word window cleared and
+  counted;
 * ``variants/secretion_sorted.cu``: the voxel ids computed by torch ops
   (``voxel_of``, ``_flat``), a stable ``torch.sort`` of the int64 ids, a
   clone of the grid, then a thread a voxel folds its sorted segment.
 
 Each takes the same inputs as the committed kernel's wrapper and returns
-the same outputs. Both build at once on the first call, through
+the same outputs. They build at once on the first call, through
 ``kernels/build.py``'s loader, so a built library is reused. Runs on the
 CUDA card only.
 """
@@ -25,16 +30,20 @@ import torch
 
 from ..core import diffusion
 from ..core.lanes import Lanes
-from ..kernels import build, pairlist
+from ..kernels import build, pair_cols, pairlist
 
 _DIR = Path(__file__).resolve().parent / "variants"
 FIRST = {"pairlist_warp_row": "pairlist_build",
+         "pair_cols_row_walk": "k1_pair_cols",
          "secretion_sorted": "secretion_add"}
 _FNS: dict = {}
 
 # secretion_add(keys, perm, amount, n, conc, stream)
 SECRETION_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+ARGTYPES = {"pairlist_warp_row": pairlist.ARGTYPES,
+            "pair_cols_row_walk": pair_cols.ARGTYPES,
+            "secretion_sorted": SECRETION_ARGTYPES}
 
 
 def _functions():
@@ -43,8 +52,7 @@ def _functions():
         build.build_all(list(FIRST), _DIR)
         for name, entry in FIRST.items():
             fn = getattr(build.load(name, _DIR), entry)
-            fn.argtypes = (pairlist.ARGTYPES if name == "pairlist_warp_row"
-                           else SECRETION_ARGTYPES)
+            fn.argtypes = ARGTYPES[name]
             fn.restype = ctypes.c_int
             _FNS[name] = fn
     return _FNS
@@ -62,6 +70,22 @@ def pairlist_build(position, alive, origin, box_size: float, starts, counts,
     if err != 0:
         raise RuntimeError(f"warp-a-row pair list: CUDA error {err}")
     return held[:4]
+
+
+def pair_cols_map(idx: torch.Tensor, run_off: torch.Tensor, n_pad: int,
+                  maxb: int, *, row_active: Optional[torch.Tensor] = None,
+                  pool=None, lanes: int = 1):
+    """``kernels/pair_cols.column_map_from_pairs`` by the row-walk
+    kernel."""
+    args, held = pair_cols.launch_args(idx, run_off, n_pad, maxb,
+                                       row_active=row_active, pool=pool,
+                                       lanes=lanes)
+    err = _functions()["pair_cols_row_walk"](
+        *args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"row-walk pairs column map: CUDA error {err}")
+    cols, ovf, data_t, mask = held[:4]
+    return cols, ovf != 0, data_t, mask
 
 
 def secretion_add(spec: diffusion.DiffusionSpec, conc: torch.Tensor,

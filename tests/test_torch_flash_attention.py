@@ -8,7 +8,7 @@ holds Pallas K2 to (f32 2e-5, bf16 2e-2). Rows with no visible key follow
 the kernel's rule (0), tested on their own. The wrapper's layout
 handling (strided views go to the kernel as they lie where it can read
 them) is tested on the CPU through the arguments it would pass. The CUDA
-kernels (tensor-core bf16 at D 64 and 128, scalar otherwise) are held
+kernels (tensor-core bf16 at D 64, 96 and 128, scalar otherwise) are held
 against their plain version by the card-only tests at the end, which need
 no JAX (on the GPU host: ``python -m pytest -q
 tests/test_torch_flash_attention.py -m cuda``).
@@ -34,6 +34,12 @@ CASES = [   # (b, hq, hkv, sq, sk, d, causal, dtype): tests/test_kernels.py
     (1, 4, 2, 128, 128, 64, False, "float32"),    # non-causal
     (1, 2, 2, 128, 128, 128, True, "bfloat16"),   # bf16 inputs
     (1, 2, 1, 384, 384, 64, True, "float32"),     # multi-block both axes
+    # head dim 96 (phi-3-vision-4.2b): f32 and bf16, causal and not, GQA
+    # and MHA
+    (1, 4, 2, 128, 128, 96, True, "float32"),
+    (1, 4, 4, 100, 100, 96, False, "float32"),
+    (1, 4, 4, 130, 130, 96, True, "bfloat16"),
+    (1, 4, 2, 128, 128, 96, False, "bfloat16"),
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -172,12 +178,13 @@ def test_flash_attention_wrapper_checks_inputs():
 
 
 def test_k2_kernel_path_is_static_by_type_and_head_dim():
-    """bf16 at D 64 and 128 runs on the tensor cores, everything else on
-    the scalar kernel (f32 would lose its 2e-5 tolerance in TF32)."""
+    """bf16 at D 64, 96 and 128 runs on the tensor cores, everything else
+    on the scalar kernel (f32 would lose its 2e-5 tolerance in TF32)."""
+    assert 96 in tk2.SUPPORTED_D
     for d in tk2.SUPPORTED_D:
         assert tk2.kernel_path(torch.float32, d) == "scalar"
         assert tk2.kernel_path(torch.bfloat16, d) == (
-            "tensor_core" if d in (64, 128) else "scalar")
+            "tensor_core" if d in (64, 96, 128) else "scalar")
 
 
 def _transposed_v(b, hkv, s, d, dtype):
@@ -204,6 +211,20 @@ def test_k2_wrapper_passes_a_transposed_v_as_it_lies():
                                           0.1, 77, 0)
     assert v_in.is_contiguous() and args[2] == v_in.data_ptr()
     assert args[21:24] == (2 * 77 * 128, 77 * 128, 128)
+
+
+def test_k2_wrapper_passes_a_d96_transposed_v_as_it_lies():
+    """At D 96 (phi-3-vision's MHA, 32 heads) a bf16 row is 192 bytes, a
+    multiple of 16: gqa_full's transposed V goes to the tensor-core kernel
+    as it lies, with its own strides."""
+    q, k, _ = (_t(x, "bfloat16") for x in _qkv(13, 1, 32, 32, 45, 45, 96))
+    v = _transposed_v(1, 32, 45, 96, "bfloat16")
+    assert tk2.kernel_path(v.dtype, 96) == "tensor_core"
+    assert tk2.kernel_takes(v, "tensor_core") and not v.is_contiguous()
+    args, (q_in, k_in, v_in) = tk2._launch_args(q, k, v, torch.empty_like(q),
+                                                True, 0.1, 45, 0)
+    assert q_in is q and k_in is k and v_in is v and args[10] == 96
+    assert args[21:24] == (45 * 32 * 96, 96, 32 * 96)
 
 
 @pytest.mark.parametrize("layout", ["d_strided", "row_stride_130",
@@ -284,6 +305,15 @@ CUDA_CASES = [  # (b, hq, hkv, sq, sk, d, causal, dtype, sk_actual)
     # decoder (causal) at D 64
     (1, 16, 16, 512, 512, 64, False, "bfloat16", None),
     (1, 16, 16, 1024, 1024, 64, True, "bfloat16", None),
+    # phi-3-vision-4.2b: D 96 on the tensor cores (tiles padded to 128
+    # columns with zeros) at its heads (MHA, 32) and the kernel's branches;
+    # the scalar kernel at D 96 in f32
+    (1, 32, 32, 1781, 1781, 96, True, "bfloat16", None),
+    (1, 4, 4, 300, 300, 96, False, "bfloat16", None),
+    (2, 4, 2, 64, 1088, 96, True, "bfloat16", None),      # chunk, GQA
+    (1, 4, 2, 40, 24, 96, True, "bfloat16", None),        # empty rows
+    (1, 4, 2, 100, 200, 96, False, "bfloat16", 131),      # sk_actual % 64
+    (1, 4, 4, 200, 200, 96, True, "float32", None),
 ]
 
 
@@ -318,7 +348,7 @@ def test_k2_cuda_kernel_matches_plain(b, hq, hkv, sq, sk, d, causal, dtype,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
 def test_k2_cuda_kernel_reads_a_transposed_v(d):
     """gqa_full's transposed V, read in place by the tensor-core kernel,
     gives its contiguous copy's result."""

@@ -681,20 +681,23 @@ from repro_torch.kernels import pairlist as tpairlist  # noqa: E402
 
 
 def test_pairlist_variants_follow_the_source():
-    """launch/kernel_variants.py keeps the first designs of the pair-list
-    and secretion kernels as sources of their own: each is there, with an
-    entry point whose arguments the argument list it is called with
-    fits."""
+    """launch/kernel_variants.py keeps the first designs of the pair-list,
+    pairs column-map and secretion kernels as sources of their own: each
+    is there, with an entry point whose arguments the argument list it is
+    called with fits."""
     import re
     from repro_torch.launch import kernel_variants
     assert set(kernel_variants.FIRST) == {"pairlist_warp_row",
+                                          "pair_cols_row_walk",
                                           "secretion_sorted"}
+    want = {"pairlist_warp_row": tpairlist.ARGTYPES,
+            "pair_cols_row_walk": tpaircols.ARGTYPES,
+            "secretion_sorted": kernel_variants.SECRETION_ARGTYPES}
     for name, entry in kernel_variants.FIRST.items():
         text = (kernel_variants._DIR / f"{name}.cu").read_text()
         sig = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", text)
-        want = (tpairlist.ARGTYPES if name == "pairlist_warp_row"
-                else kernel_variants.SECRETION_ARGTYPES)
-        assert sig and len(sig.group(1).split(",")) == len(want), name
+        assert sig and len(sig.group(1).split(",")) == len(want[name]), name
+        assert kernel_variants.ARGTYPES[name] == want[name]
 
 
 def _radius_pairs(n=2048, r=4.0, seed=11):
@@ -1137,6 +1140,156 @@ def test_pairs_column_map_cuda_kernel_matches_plain():
             assert gt.dtype == w.dtype, (name, what)
             np.testing.assert_array_equal(gt.cpu().numpy(), w.numpy(),
                                           err_msg=f"{name}: {what}")
+
+
+PAIRS_MAP_CASES = ["full-rows", "full-rows-128", "wide-span",
+                   "wide-span-full", "overflow-lanes", "16-lanes",
+                   "permuted", "none-stored", "no-rows"]
+
+
+def _run_off_of(stored, rng):
+    """run_off rows whose last entry (what the map reads) is ``stored``."""
+    c = len(stored)
+    off = np.zeros((c, 10), np.int32)
+    off[:, 1:] = np.minimum(np.sort(rng.integers(0, 129, (c, 9)), 1),
+                            stored[:, None])
+    off[:, 9] = stored
+    return off
+
+
+def _pairs_map_case(name):
+    """A pair list for the pairs column map on the CPU: ``(PairList,
+    row_active (n_pad,) bool, n_pad, maxb, lanes, lane capacity)``.
+    full-rows: every row stores max_pairs (64) entries, near its own row
+    (8,192 entries a row block, past the kernel's staging); full-rows-128:
+    the same at max_pairs 128; wide-span: column ids across many 32,768-
+    block windows; wide-span-full: the same with every row storing 64
+    entries (8,192 a row block, so each window stages its chunks again);
+    overflow-lanes: 2 lanes, the second needing more column
+    blocks than maxb; 16-lanes: 16 lanes of 200 rows, packed at 256;
+    permuted: a neighbour list of a pool whose rows were shuffled;
+    none-stored: rows that store nothing; no-rows: a list of no rows."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    lanes, cap, maxb = 1, 0, 64
+    if name in ("full-rows", "full-rows-128", "permuted"):
+        c, p = (1000, 64) if name != "full-rows-128" else (700, 128)
+        idx = np.clip(np.arange(c)[:, None]
+                      + rng.integers(-600, 600, (c, p)), 0, c - 1)
+        stored = (np.full(c, p) if name != "permuted"
+                  else rng.integers(0, p + 1, c))
+        if name == "permuted":
+            perm = rng.permutation(c)
+            inv = np.argsort(perm)
+            idx, stored = inv[idx[perm]], stored[perm]
+    elif name == "wide-span":
+        c, p = 600, 16
+        idx = rng.integers(0, 2 ** 26, (c, p))
+        idx[::3] = rng.integers(0, 3000, (len(idx[::3]), p))
+        stored = rng.integers(0, p + 1, c)
+        maxb = 4096
+    elif name == "wide-span-full":
+        c, p = 256, 64
+        idx = rng.integers(0, 2 ** 24, (c, p))
+        stored = np.full(c, p)
+        maxb = 8192
+    elif name in ("overflow-lanes", "16-lanes"):
+        lanes, cap, p = (2, 300, 12) if name == "overflow-lanes" \
+            else (16, 200, 24)
+        c = lanes * cap
+        lane_of = np.arange(c)[:, None] // cap
+        if name == "overflow-lanes":
+            # lane 0 lists slots of its first block only, lane 1 all its
+            # 300 slots: 3 packed column blocks, past maxb 2
+            spread = np.where(lane_of == 0, 40, cap)
+            idx = lane_of * cap + rng.integers(0, 1 << 20, (c, p)) % spread
+            maxb = 2
+        else:
+            idx = lane_of * cap + rng.integers(0, cap, (c, p))
+        stored = rng.integers(0, p + 1, c)
+    else:
+        c, p = (256, 8) if name == "none-stored" else (0, 8)
+        idx = rng.integers(0, 256, (c, p))
+        stored = np.zeros(c, np.int64)
+    stride = -(-cap // 128) * 128 if lanes > 1 else 0
+    n_pad = lanes * stride if lanes > 1 else max(128, -(-c // 128) * 128)
+    act = _t(rng.random(n_pad) < 0.8)
+    stored = stored.astype(np.int32)
+    pairs = tgrid.PairList(
+        idx=_t(idx.astype(np.int32)), run_off=_t(_run_off_of(stored, rng)),
+        count=_t(stored),
+        demand=torch.tensor(int(stored.max(initial=0)), dtype=torch.int32))
+    return pairs, act, n_pad, maxb, lanes, cap
+
+
+@pytest.mark.parametrize("name", PAIRS_MAP_CASES)
+def test_pairs_map_cases_reach_every_branch(name):
+    """Each card case below reaches what it is named for: row blocks past
+    the pairs column map's staging, spans wider than its bitmap window
+    (one with row blocks past the staging, so each window stages its
+    chunks again), one lane's overflow alone; and the plain version maps
+    a list of no rows to nothing."""
+    from repro_torch.core.lanes import Lanes
+    k = tbuild.constants("pair_cols")
+    pairs, act, n_pad, maxb, lanes, cap = _pairs_map_case(name)
+    stored = pairs.run_off[:, 9].numpy().astype(np.int64)
+    ln = Lanes(lanes, cap) if lanes > 1 else None
+    cols, ovf = tops.build_block_cols_from_pairs_plain(pairs, act, n_pad,
+                                                       maxb, ln)
+    assert cols.shape == (n_pad // 128, maxb)
+    rb_of = np.arange(len(stored)) // 128
+    per_rb = np.bincount(rb_of, stored, minlength=1)
+    # each row block's span of listed column blocks, over every stored
+    # entry (active or not: the card cases make most rows active)
+    listed = np.arange(pairs.idx.shape[1]) < stored[:, None]
+    ids = pairs.idx.numpy() // 128
+    span = np.zeros(len(per_rb), np.int64)
+    for rb in np.unique(rb_of[stored > 0]):
+        sel = ids[rb_of == rb][listed[rb_of == rb]]
+        span[rb] = sel.max() - sel.min()
+    if name.startswith("full-rows"):
+        assert per_rb.max() == 128 * pairs.idx.shape[1]
+    if name == "full-rows-128":
+        assert per_rb.max() > k["kStageEntries"]
+    if name == "wide-span":
+        assert span.max() > 4 * k["kWindowBits"]
+    if name == "wide-span-full":
+        past = (per_rb > k["kStageEntries"]) & (span > 4 * k["kWindowBits"])
+        assert past.all() and not bool(ovf.any())
+    if name == "overflow-lanes":
+        assert ovf.tolist() == [False, True]
+    if name in ("none-stored", "no-rows"):
+        assert bool((cols == -1).all()) and not bool(ovf.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PAIRS_MAP_CASES)
+def test_pairs_column_map_kernel_matches_plain_on_every_branch(name):
+    """The pairs column-map kernel ≡ its plain version, entry for entry and
+    flag for flag (per lane), on each case above at its maxb and at maxb 2
+    (overflow); its first design (launch/kernel_variants.py) too. One
+    launch a call of the committed kernel."""
+    dev = _cuda_or_skip()
+    from repro_torch.core.lanes import Lanes
+    from repro_torch.launch import kernel_variants
+    pairs, act, n_pad, maxb, lanes, cap = _pairs_map_case(name)
+    ln = Lanes(lanes, cap) if lanes > 1 else None
+    idx, off, dact = pairs.idx.to(dev), pairs.run_off.to(dev), act.to(dev)
+    for mb in (maxb, 2):
+        want, want_ovf = tops.build_block_cols_from_pairs_plain(
+            pairs, act, n_pad, mb, ln)
+        kw = dict(row_active=dact, lanes=lanes)
+        before = tpaircols.column_map_from_pairs.launches
+        runs = {"kernel": tpaircols.column_map_from_pairs(idx, off, n_pad,
+                                                          mb, **kw)}
+        assert tpaircols.column_map_from_pairs.launches == before + 1
+        runs["first design"] = kernel_variants.pair_cols_map(idx, off, n_pad,
+                                                             mb, **kw)
+        torch.cuda.synchronize()
+        for what, (cols, ovf, _, _) in runs.items():
+            np.testing.assert_array_equal(
+                cols.cpu().numpy(), want.numpy(),
+                err_msg=f"{name}, {what}, maxb {mb}")
+            assert ovf.cpu().tolist() == want_ovf.tolist(), (name, what, mb)
 
 
 @pytest.mark.cuda

@@ -34,6 +34,7 @@ from hypothesis_compat import given, settings, st  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import ARCHS as TARCHS  # noqa: E402
+from repro_torch.kernels import flash_attention as tk2  # noqa: E402
 from repro_torch.launch import serve_lm  # noqa: E402
 from repro_torch.models import build_model as tbuild  # noqa: E402
 from repro_torch.models import reduced_config as treduced  # noqa: E402
@@ -247,6 +248,48 @@ def test_serve_token_streams_match_jax(jx):
     assert summary["requests"] == summary["prefills"] == 4
     assert summary["generated_tokens"] == 4 * 6
     assert len({t for f in report.finished for t in f.tokens}) > 6
+
+
+PHI3 = "phi-3-vision-4.2b"
+
+
+def test_phi3_vision_at_head_dim_96_served_through_k2_matches_jax_pallas(jx):
+    """phi-3-vision-4.2b's head dim, 96, through K2: the reduced vlm config
+    (MHA, 4 heads) with ``d_head=96`` in both packages, the reference's
+    weights carried across by ``convert.params_from_numpy``. The port's
+    ``"k2"`` prefill logits ≡ the reference's ``"pallas"`` (interpret mode)
+    within 1e-4 (f32; the test_torch_lm.py bound), and the served greedy
+    token streams equal the JAX mirror of the port's serve loop. Text-only
+    prompts: no frontend embeddings, as the reference's ``LM.prefill``
+    takes them."""
+    jcfg = dataclasses.replace(jx.reduced_config(jx.ARCHS[PHI3]), d_head=96)
+    tcfg = dataclasses.replace(treduced(TARCHS[PHI3]), d_head=96)
+    assert jcfg.family == tcfg.family == "vlm"
+    assert tcfg.n_kv_heads == tcfg.n_heads and tcfg.d_head == 96
+    jm = jx.build_model(jcfg, attn_impl="pallas")
+    # weights ×10 so greedy decoding does not just repeat one token
+    jparams = jx.jax.tree.map(lambda a: a * 10 if a.ndim >= 2 else a,
+                              jm.init_params(jx.jax.random.PRNGKey(7)))
+    tm = tbuild(tcfg, device="cpu")
+    assert tm.attn_impl == "k2"
+    tparams = convert.params_from_numpy(
+        jx.jax.tree.map(np.asarray, jparams), "cpu")
+    toks = np.random.default_rng(7).integers(0, tcfg.vocab_size, (2, 37))
+    want, _ = jm.prefill(jparams, jx.jnp.asarray(toks))
+    before = tk2.flash_attention.launches
+    got, _ = tm.prefill(tparams, torch.from_numpy(toks))
+    assert tk2.flash_attention.launches == before      # CPU: plain version
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+    reqs = serve_lm.make_requests(3, tcfg.vocab_size, prompt_min=11,
+                                  prompt_max=14, new_tokens=5, seed=9)
+    kw = dict(slots=2, s_max=32, page_size=8, n_pages=8)
+    report = serve_lm.serve(tm, tparams, reqs, **kw)
+    jb = _jax_serve(jx, jm, jparams, reqs, **kw)
+    assert [f.uid for f in report.finished] == [f.uid for f in jb.finished]
+    for got_f, want_f in zip(report.finished, jb.finished):
+        assert got_f.tokens == [int(t) for t in want_f.tokens], got_f.uid
+    assert report.logits_finite and report.n_free == kw["n_pages"]
 
 
 def test_serve_refuses_requests_that_overflow_s_max():
