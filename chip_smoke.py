@@ -7,9 +7,10 @@ kernel of that path against its plain PyTorch version.
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   0. build: compile every kernel under src/repro_torch/kernels/csrc with
-     nvcc for sm_90a, all sources at once; print each K2 template's
+     nvcc for sm_90a, all sources at once, and beside them the first
+     designs of launch/kernel_variants.py; print each K2 template's
      registers and spills (from the ptxas log) and dynamic shared memory,
-     and fail if a tensor-core template spills;
+     and fail if any K2 template (tensor-core or scalar) spills;
   1. kernel vs plain, at the Fig-6 proliferation shapes (65,536 and
      1,048,576 agents, on the pool of the port's own resident build): the
      column-map kernel against its plain version, entry for entry (fused
@@ -40,12 +41,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      S 1,000 on the scalar kernel): bf16 atol
      2e-2 and, scaled to the output, within 1e-3 + 1.6e-2·|plain| (two
      bf16 ulps) everywhere; f32 atol 2e-5; each case names the kernel it
-     ran (tensor-core bf16 or scalar); kernel, plain and library-call
-     (``F.scaled_dot_product_attention``, timed for the record only) times
-     and the kernel's lower bound on this card;
+     ran (tensor-core bf16 or scalar); the kernel, its first design
+     (launch/kernel_variants.py: the tensor-core kernel at D 64, 96 and
+     128 with D 96 on zero columns, and the scalar kernel before its
+     redesign at D 96 and 128) and the library call
+     (``F.scaled_dot_product_attention``, timed for the record only) timed
+     in turns, the plain version's time and the kernel's lower bound on
+     this card; at D 64 and 128 in bf16, whose kernel the redesign left as
+     it was, the output must be bit-equal to the first design's (so also
+     in 31 (b), 32 (b) and 38 (b), which hold K2 on a serve's inputs);
   6. the LM on the card ≡ the LM on the CPU: a 2-layer f32 qwen2-family
      model (d_model 128, vocab 1000), prefill logits and 8 greedy decode
-     steps to atol/rtol 1e-4, argmax tokens equal;
+     steps to atol/rtol 1e-4, argmax tokens equal; every kernel's launch
+     count is reset just before the card's run and read just after: the
+     f32 K2 (the scalar kernel) launches once per layer of the prefill;
   7. the serving path: ``launch/serve_lm.serve`` with qwen2-1.5b at full
      width and depth (28 layers, bf16, random weights from a seed), 8
      requests of 256-2048 prompt tokens, 32 new tokens each, 4 slots, s_max
@@ -1002,7 +1011,7 @@ def k2_bound(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
 def k2_templates(log: str) -> list:
     """Each K2 kernel template in the ptxas log (``-Xptxas=-v``): path,
     type, head dim, registers, spill bytes, and the dynamic shared memory
-    the launch asks for. Fails if a tensor-core template spills."""
+    the launch asks for. Fails if any template spills."""
     import re
     import torch
     from repro_torch.kernels import flash_attention as k2
@@ -1042,24 +1051,34 @@ def k2_templates(log: str) -> list:
               f"{r.get('registers')} registers, {r.get('spill_bytes')} "
               f"spill bytes, {r['smem_bytes']:,} B dynamic shared memory",
               flush=True)
-        if r["path"] == "tensor_core":
-            check(r.get("spill_bytes") == 0,
-                  f"K2 tensor-core D{r['d']} spills: {r}")
-    check(any(r["path"] == "tensor_core" for r in recs),
-          "no tensor-core K2 template in the build log")
+        check(r.get("spill_bytes") == 0,
+              f"K2 {r['path']} {r['dtype']} D{r['d']} spills: {r}")
+    for path in ("tensor_core", "scalar"):
+        check(any(r["path"] == path for r in recs),
+              f"no {path} K2 template in the build log")
     return recs
+
+
+def _k2_first_takes(dtype: str, d: int) -> bool:
+    """Whether K2's first designs (launch/kernel_variants.py) take this
+    input: bf16 at D 64, 96, 128 and f32 at D 96, 128."""
+    return d in ((64, 96, 128) if dtype == "bfloat16" else (96, 128))
 
 
 def _k2_case(tag: str, name: str, q, k, v, causal: bool) -> dict:
     """K2 (``ops.flash_attention``) against its plain version on q, k, v:
     output type, shape and finiteness, max|Δ| within K2_TOL and, for bf16,
-    within atol + rtol·|plain| everywhere; kernel, plain and SDPA times
-    (SDPA where Sq = Sk: the library's causal mask is top-left aligned)
-    and the bound. Prints one line under ``tag``."""
+    within atol + rtol·|plain| everywhere; where its first design takes the
+    input, that design ≡ plain too, and at D 64 and 128 in bf16 (a kernel
+    the redesign left as it was) bit-equal to K2. The kernel, its first
+    design and SDPA (where Sq = Sk: the library's causal mask is top-left
+    aligned) timed in turns, the plain version's time and the bound.
+    Prints one line under ``tag``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as k2
     from repro_torch.kernels import ops
+    from repro_torch.launch import kernel_variants
 
     torch.backends.cuda.matmul.allow_tf32 = False     # plain f32 stays f32
     b, hq, sq, d = q.shape
@@ -1086,18 +1105,35 @@ def _k2_case(tag: str, name: str, q, k, v, causal: bool) -> dict:
         check(scaled_err <= 1.0, f"{tag} K2 differs from plain by "
               f"{scaled_err:.3g}× atol {atol} + rtol {rtol}·|plain| "
               f"at {name}")
-    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
-                 iters=20, warmup=3)
-    plain_ms = cuda_ms(lambda: k2.flash_attention_plain(
-        q, k, v, causal=causal), iters=3, warmup=1)
-    lib_ms = lib_err = None
+    fns = {"kernel": lambda: ops.flash_attention(q, k, v, causal=causal)}
+    first_err = None
+    if _k2_first_takes(dtype, d):
+        first = kernel_variants.flash_attention_first(q, k, v,
+                                                      causal=causal)
+        torch.cuda.synchronize()
+        first_err = float((first.float() - plain.float()).abs().max())
+        check(first_err <= K2_TOL[dtype], f"{tag} K2's first design "
+              f"differs from plain by {first_err} at {name}")
+        if path == "tensor_core" and d != 96:
+            check(torch.equal(out, first), f"{tag} K2 bf16 D{d} is not "
+                  f"bit-equal to its first design at {name}")
+        fns["first_design"] = lambda: kernel_variants.flash_attention_first(
+            q, k, v, causal=causal)
+        del first
+    lib_err = None
     if sq == sk:
         lib = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                              enable_gqa=True)
         lib_err = float((lib.float() - plain.float()).abs().max())
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=True), iters=20,
-            warmup=3)
+        fns["library"] = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True)
+        del lib
+    turns = _in_turns(fns)
+    mean = {n: sum(t) / len(t) for n, t in turns.items()}
+    ms, first_ms, lib_ms = (mean.get(n) for n in ("kernel", "first_design",
+                                                  "library"))
+    plain_ms = cuda_ms(lambda: k2.flash_attention_plain(
+        q, k, v, causal=causal), iters=3, warmup=1)
     bound_ms, bound_by, work = k2_bound(b, hq, hkv, sq, sk, d, causal,
                                          dtype)
     rec = {"case": name, "shape": [b, hq, hkv, sq, sk, d],
@@ -1106,15 +1142,22 @@ def _k2_case(tag: str, name: str, q, k, v, causal: bool) -> dict:
            "max_err_over_scaled_tol": scaled_err,
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "library_max_abs_err": lib_err, "bound_ms": bound_ms,
-           "bound_by": bound_by, **work}
+           "bound_by": bound_by, "first_design_ms": first_ms,
+           "first_design_max_abs_err": first_err,
+           "bit_equal_to_first_design": (path == "tensor_core" and d != 96
+                                         and first_err is not None),
+           "turns_ms": turns, **work}
     lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+    first_txt = "n/a" if first_ms is None else f"{first_ms:.4f} ms"
     print(f"{tag} K2 {name} (B{b} Hq{hq} Hkv{hkv} Sq{sq} Sk{sk} D{d} "
           f"{dtype}{' causal' if causal else ''}, {path} kernel): "
-          f"kernel {ms:.4f} ms, "
+          f"kernel {ms:.4f} ms, first design {first_txt}, "
           f"plain {plain_ms:.3f} ms, SDPA {lib_txt}, bound "
           f"{bound_ms:.4f} ms ({bound_by}); max|Δ| {err:.3g}"
           + ("" if scaled_err is None else
-             f", max |Δ|/(atol + rtol·|plain|) {scaled_err:.3g}"),
+             f", max |Δ|/(atol + rtol·|plain|) {scaled_err:.3g}")
+          + (", bit-equal to the first design"
+             if rec["bit_equal_to_first_design"] else ""),
           flush=True)
     return rec
 
@@ -1190,7 +1233,10 @@ def phase_lm_cpu_parity(report: dict) -> None:
         leaves = convert.params_to_numpy(build_model(
             cfg, device="cpu").init_params(torch.Generator().manual_seed(5)))
         toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (b, t0))
+        _reset_counts()
         got, fed = _greedy_run(cfg, leaves, toks, "cuda", steps, s_max)
+        torch.cuda.synchronize()
+        launches = _read_counts()
         # the card's greedy tokens drive the CPU run too
         want, _ = _greedy_run(cfg, leaves, toks, "cpu", steps, s_max, fed)
     finally:
@@ -1202,13 +1248,19 @@ def phase_lm_cpu_parity(report: dict) -> None:
         check(np.array_equal(g.argmax(-1), w.argmax(-1)),
               f"LM argmax differs at step {i}")
         worst = max(worst, float(np.abs(g - w).max()))
+    # the prefill runs the f32 K2 (the scalar kernel) once per layer
+    check(launches["k2_flash_attention"] == cfg.n_layers
+          and not any(n for k, n in launches.items()
+                      if k != "k2_flash_attention"),
+          f"[6] launches {launches}, want K2 {cfg.n_layers} and no other")
     report["lm_gpu_vs_cpu"] = {"config": dataclasses.asdict(cfg),
                                "prefill_tokens": [b, t0],
                                "decode_steps": steps, "max_abs_diff": worst,
-                               "argmax_equal": True}
+                               "argmax_equal": True, "launches": launches}
     print(f"[6] LM on the card ≡ on the CPU ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, vocab {cfg.vocab_size}, f32): prefill + {steps} "
-          f"decode steps, max|Δlogit| {worst:.3g}, argmax equal", flush=True)
+          f"decode steps, max|Δlogit| {worst:.3g}, argmax equal; f32 K2 "
+          f"launches {launches['k2_flash_attention']}", flush=True)
 
 
 def _served_requests() -> list:
@@ -7528,9 +7580,16 @@ def _run(workers, tmpdir: str) -> int:
               "nvcc": nvcc}
 
     t0 = time.perf_counter()
-    libs = build.build_all()
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.launch import kernel_variants
+    with ThreadPoolExecutor(1) as pool:     # both builds' nvcc at once
+        firsts = pool.submit(build.build_all, list(kernel_variants.FIRST),
+                             kernel_variants._DIR)
+        libs = build.build_all()
+        firsts = firsts.result()
     report["build_s"] = time.perf_counter() - t0
-    print(f"[0] built {sorted(libs)} in {report['build_s']:.1f} s", flush=True)
+    print(f"[0] built {sorted(libs)} and the first designs "
+          f"{sorted(firsts)} in {report['build_s']:.1f} s", flush=True)
     report["build_logs"] = dict(build.BUILD_LOGS)
     for name in ("collision_force", "block_cols", "pairlist", "pair_cols",
                  "secretion"):
@@ -7746,6 +7805,38 @@ def _run(workers, tmpdir: str) -> int:
                 "bound_ms", "bound_by")}
             k["max_abs_err"] = max(k["max_abs_err"],
                                    phi3["k2_check"]["max_abs_err"])
+    # K2's two redesigned kernels as entries of their own (one wrapper and
+    # counter, k2_flash_attention): bf16 at D 96 with the launches of the
+    # phi-3-vision serve (38 (a), all at D 96) and the times on its own
+    # first-prefill q, k, v (38 (b)); f32 (the scalar kernel) with the
+    # launches of phase 6's f32 LM and the times of phase 5's f32 case at
+    # qwen2's heads, phi-3-vision's f32 case beside it
+    by_case = {r["case"]: r for r in k2_recs}
+    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms", "first_design_ms")
+    d96 = [r for r in k2_recs if r["shape"][5] == 96
+           and r["dtype"] == "bfloat16"] + [phi3["k2_check"]]
+    f32 = [r for r in k2_recs if r["dtype"] == "float32"]
+    kernels += [{
+        "name": "k2_flash_attention_d96", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:84",
+        "counter": "k2_flash_attention",
+        "launches": phi3["serve"]["launches"]["k2_flash_attention"],
+        **{f: phi3["k2_check"][f] for f in fields},
+        "max_abs_err": max(r["max_abs_err"] for r in d96),
+        "cases": {r["case"]: {f: r[f] for f in ("shape",) + fields}
+                  for r in d96}}, {
+        "name": "k2_flash_attention_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:84",
+        "counter": "k2_flash_attention",
+        "launches": report["lm_gpu_vs_cpu"]["launches"][
+            "k2_flash_attention"],
+        **{f: by_case["f32-ragged"][f] for f in fields},
+        "max_abs_err": max(r["max_abs_err"] for r in f32),
+        "cases": {r["case"]: {f: r[f] for f in ("shape",) + fields}
+                  for r in f32}}]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

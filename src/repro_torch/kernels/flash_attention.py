@@ -87,10 +87,22 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def kernel_path(dtype: torch.dtype, d: int) -> str:
-    """The CUDA kernel K2 runs for this input type and head dim:
-    ``"tensor_core"`` (bf16, D 64, 96 or 128: wgmma with TMA loads, P·V
-    with P split into bf16 hi + lo) or ``"scalar"`` (f32 FMAs; every f32
-    input, and bf16 at D 16 or 32)."""
+    """The CUDA kernel K2 runs for this input type and head dim, a static
+    choice (no fallback):
+
+    * ``"tensor_core"``: bf16 at D 64, 96 or 128. Bound by the bf16 tensor
+      cores: wgmma fed by TMA loads through a 3-stage K/V ring, one
+      producer and two consumer warpgroups, each consumer overlapping a
+      tile's softmax with the previous tile's P·V, P split into bf16 hi +
+      lo (the port's bf16 check needs it). D 96 holds its tiles as three
+      32-column sub-tiles in 64-byte swizzle and runs P·V at n96, so no
+      column past 96 is loaded or multiplied.
+    * ``"scalar"``: every f32 input (TF32 would miss the 2e-5 gate), and
+      bf16 at D 16 or 32. Bound by the FP32 FMA units if shared memory
+      keeps up: 4-row × 4-key and 4-row × D/8-column register blocks read
+      by 128-bit shared loads (8-13 FMAs a wavefront), K and V loaded by
+      cp.async under the other operand's product, the softmax in
+      registers, heavy query tiles first."""
     if dtype == torch.bfloat16 and d in TENSOR_CORE_D:
         return "tensor_core"
     return "scalar"

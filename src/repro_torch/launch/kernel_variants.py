@@ -1,8 +1,8 @@
-"""The first designs of the pair-list, pairs column-map and secretion
+"""The first designs of the pair-list, pairs column-map, secretion and K2
 kernels, built on the card to time them beside the kernels that replaced
 them. Nothing on any path of the port calls this module; ``chip_smoke.py``
-phases 12, 13, 15, 26 and 28 time each beside its successor on the same
-inputs:
+phases 5, 12, 13, 15, 26, 28 and the K2 checks of 31, 32 and 38 time each
+beside its successor on the same inputs:
 
 * ``variants/pairlist_warp_row.cu``: a warp a row, the 9 runs walked one
   after another in 32-lane passes, one ``atomicMax`` a row;
@@ -12,7 +12,13 @@ inputs:
   counted;
 * ``variants/secretion_sorted.cu``: the voxel ids computed by torch ops
   (``voxel_of``, ``_flat``), a stable ``torch.sort`` of the int64 ids, a
-  clone of the grid, then a thread a voxel folds its sorted segment.
+  clone of the grid, then a thread a voxel folds its sorted segment;
+* ``variants/flash_attention_first.cu``: K2's tensor-core kernel at D 64,
+  96 (the D 128 kernel on zero columns) and 128, and its scalar kernel in
+  f32 at D 96 and 128 (scalar 32-bit shared loads, three block barriers a
+  tile), as they were before their redesign. At D 64 and 128 the
+  tensor-core kernel is the same code in both libraries, so its output
+  must be the same bits.
 
 Each takes the same inputs as the committed kernel's wrapper and returns
 the same outputs. They build at once on the first call, through
@@ -31,11 +37,13 @@ import torch
 from ..core import diffusion
 from ..core.lanes import Lanes
 from ..kernels import build, pair_cols, pairlist
+from ..kernels import flash_attention as k2
 
 _DIR = Path(__file__).resolve().parent / "variants"
 FIRST = {"pairlist_warp_row": "pairlist_build",
          "pair_cols_row_walk": "k1_pair_cols",
-         "secretion_sorted": "secretion_add"}
+         "secretion_sorted": "secretion_add",
+         "flash_attention_first": "k2_flash_attention"}
 _FNS: dict = {}
 
 # secretion_add(keys, perm, amount, n, conc, stream)
@@ -43,7 +51,8 @@ SECRETION_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
 ARGTYPES = {"pairlist_warp_row": pairlist.ARGTYPES,
             "pair_cols_row_walk": pair_cols.ARGTYPES,
-            "secretion_sorted": SECRETION_ARGTYPES}
+            "secretion_sorted": SECRETION_ARGTYPES,
+            "flash_attention_first": k2.ARGTYPES}
 
 
 def _functions():
@@ -105,4 +114,25 @@ def secretion_add(spec: diffusion.DiffusionSpec, conc: torch.Tensor,
              torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"sort-then-fold secretion: CUDA error {err}")
+    return out
+
+
+def flash_attention_first(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          scale: Optional[float] = None,
+                          sk_actual: Optional[int] = None,
+                          kv_offset: Optional[int] = None) -> torch.Tensor:
+    """``kernels/flash_attention.flash_attention`` on the card by K2's first
+    designs (bf16 at D 64, 96, 128; f32 at D 96, 128), with the wrapper's
+    defaults, checks and argument layout."""
+    scale, sk_actual, kv_offset = k2._resolve(q, k, scale, sk_actual,
+                                              kv_offset)
+    k2._check(q, k, v, sk_actual)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    args, _keep = k2._launch_args(q, k, v, out, causal, scale, sk_actual,
+                                  kv_offset)
+    err = _functions()["flash_attention_first"](
+        *args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K2 first design: error {err}")
     return out

@@ -270,12 +270,56 @@ def test_flash_attention_transposed_v_equals_its_contiguous_copy(dtype):
 
 def test_k2_variants_follow_the_source():
     """launch/k2_variants.py builds its variants from the kernel source by
-    text substitution: each substitution still finds its text."""
+    text substitution: each substitution still finds its text, and the
+    timed shapes include phi-3-vision's D 96."""
     from repro_torch.launch import k2_variants
     srcs = k2_variants.variant_sources()
-    assert len(set(srcs.values())) == len(srcs) == 3
-    assert "ex2.approx" in srcs["ex2_approx"]
+    assert len(set(srcs.values())) == len(srcs) == 13
+    assert "ex2.approx" in srcs["committed"]
+    assert "  return true;\n" in srcs["ex2_approx"]
+    assert "  return false;\n" in srcs["exp2f"]
     assert "wgmma_rs_n64_kmajor(s, qf[kk]" in srcs["q_in_registers"]
+    ping = srcs["ping_pong"]
+    assert ping.count("turn_wait();") == 3
+    assert ping.count("turn_pass(false);") == 2
+    assert ping.count("turn_pass(true);") == 1
+    assert "bar.sync %0, 256" in ping and "bar.arrive %0, 256" in ping
+    assert "constexpr int kStages = 4;" in srcs["stages_4"]
+    assert {s[4] for s in k2_variants.SHAPES} == {64, 96, 128}
+    assert (1, 32, 32, 1781, 96) in k2_variants.SHAPES
+    assert 96 not in k2_variants.ONLY_D["q_in_registers"]
+    assert "#pragma unroll 8" not in srcs["scalar_unroll_4"]
+    assert "static constexpr int kLane = 4;" in srcs["scalar_lane_rows_4"]
+    assert "static constexpr int kLane = 8;" in srcs["scalar_lane_rows_8"]
+    assert "constexpr int kStreams = 1;" in srcs["scalar_one_stream"]
+    assert "if (false) {" in srcs["scalar_no_pv"]
+    assert "d < 0;" in srcs["scalar_no_qk"]
+    assert "stage_rows<T, D>(vs" not in srcs["scalar_no_loads"]
+    assert set(k2_variants.SCALAR) <= set(srcs)
+    assert (1, 32, 32, 1000, 96) in k2_variants.F32_SHAPES
+
+
+def test_k2_first_designs_are_present_and_registered():
+    """K2's first designs (the tensor-core kernel with D 96 on zero
+    columns, the scalar kernel of 256 threads) are kept as
+    launch/variants/flash_attention_first.cu, registered in
+    launch/kernel_variants.py under K2's entry point and argument list;
+    the committed source holds the redesigns (64-byte swizzle and n96 at
+    D 96, no padded columns; the scalar kernel of two key streams)."""
+    import re
+    from repro_torch.kernels import build
+    from repro_torch.launch import kernel_variants
+    assert kernel_variants.FIRST["flash_attention_first"] == \
+        "k2_flash_attention"
+    assert kernel_variants.ARGTYPES["flash_attention_first"] == tk2.ARGTYPES
+    first = (kernel_variants._DIR / "flash_attention_first.cu").read_text()
+    sig = re.search(r'extern "C" int k2_flash_attention\(([^)]*)\)', first)
+    assert sig and len(sig.group(1).split(",")) == len(tk2.ARGTYPES)
+    assert "padded<D>()" in first and "SWIZZLE_64B" not in first
+    assert "constexpr int kThreads = 256;" in first
+    new = (build.CSRC / "flash_attention.cu").read_text()
+    assert "CU_TENSOR_MAP_SWIZZLE_64B" in new and "m64n96k16" in new
+    assert "padded<" not in new and "constexpr int kStreams = 2;" in new
 
 
 CUDA_CASES = [  # (b, hq, hkv, sq, sk, d, causal, dtype, sk_actual)
@@ -305,15 +349,32 @@ CUDA_CASES = [  # (b, hq, hkv, sq, sk, d, causal, dtype, sk_actual)
     # decoder (causal) at D 64
     (1, 16, 16, 512, 512, 64, False, "bfloat16", None),
     (1, 16, 16, 1024, 1024, 64, True, "bfloat16", None),
-    # phi-3-vision-4.2b: D 96 on the tensor cores (tiles padded to 128
-    # columns with zeros) at its heads (MHA, 32) and the kernel's branches;
-    # the scalar kernel at D 96 in f32
+    # phi-3-vision-4.2b: D 96 on the tensor cores (tiles of three
+    # 32-column sub-tiles in 64-byte swizzle, P·V at n96, no zero columns)
+    # at its heads (MHA, 32) and the kernel's branches
     (1, 32, 32, 1781, 1781, 96, True, "bfloat16", None),
     (1, 4, 4, 300, 300, 96, False, "bfloat16", None),
     (2, 4, 2, 64, 1088, 96, True, "bfloat16", None),      # chunk, GQA
     (1, 4, 2, 40, 24, 96, True, "bfloat16", None),        # empty rows
     (1, 4, 2, 100, 200, 96, False, "bfloat16", 131),      # sk_actual % 64
+    (1, 8, 2, 300, 300, 96, True, "bfloat16", None),      # group 4
+    (1, 4, 2, 40, 24, 96, False, "bfloat16", 0),          # no key at all
+    (1, 4, 2, 1, 1088, 96, True, "bfloat16", None),       # one query row
+    (2, 8, 2, 256, 256, 96, True, "bfloat16", None),      # B 2
+    # the scalar kernel in f32 at D 96 and 128: its branches (32-key
+    # tiles, warps of 16 rows that skip tiles masked for all their rows)
     (1, 4, 4, 200, 200, 96, True, "float32", None),
+    (1, 4, 2, 100, 200, 96, False, "float32", 131),       # sk_actual % 64
+    (1, 4, 2, 100, 200, 128, False, "float32", 131),
+    (2, 4, 2, 64, 1088, 96, True, "float32", None),       # chunk
+    (1, 12, 2, 64, 1088, 128, True, "float32", None),
+    (1, 4, 2, 40, 24, 96, True, "float32", None),         # empty rows
+    (1, 4, 2, 40, 24, 128, True, "float32", None),
+    (1, 4, 2, 40, 24, 96, False, "float32", 0),           # no key at all
+    (1, 4, 2, 40, 24, 128, False, "float32", 0),
+    (1, 4, 4, 300, 333, 96, False, "float32", None),      # non-causal
+    (2, 4, 2, 200, 200, 96, True, "float32", None),       # B 2, group 2
+    (2, 4, 2, 200, 200, 128, True, "float32", None),
 ]
 
 

@@ -682,17 +682,20 @@ from repro_torch.kernels import pairlist as tpairlist  # noqa: E402
 
 def test_pairlist_variants_follow_the_source():
     """launch/kernel_variants.py keeps the first designs of the pair-list,
-    pairs column-map and secretion kernels as sources of their own: each
-    is there, with an entry point whose arguments the argument list it is
-    called with fits."""
+    pairs column-map, secretion and K2 kernels as sources of their own:
+    each is there, with an entry point whose arguments the argument list
+    it is called with fits."""
     import re
+    from repro_torch.kernels import flash_attention as tk2
     from repro_torch.launch import kernel_variants
     assert set(kernel_variants.FIRST) == {"pairlist_warp_row",
                                           "pair_cols_row_walk",
-                                          "secretion_sorted"}
+                                          "secretion_sorted",
+                                          "flash_attention_first"}
     want = {"pairlist_warp_row": tpairlist.ARGTYPES,
             "pair_cols_row_walk": tpaircols.ARGTYPES,
-            "secretion_sorted": kernel_variants.SECRETION_ARGTYPES}
+            "secretion_sorted": kernel_variants.SECRETION_ARGTYPES,
+            "flash_attention_first": tk2.ARGTYPES}
     for name, entry in kernel_variants.FIRST.items():
         text = (kernel_variants._DIR / f"{name}.cu").read_text()
         sig = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", text)
