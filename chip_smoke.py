@@ -3,7 +3,8 @@
 kernel of that path against its plain PyTorch version.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --cards 4      # phases 35 (b), 36, 37 on 4 cards
+    python3 chip_smoke.py --cards 4      # phases 35 (b), 36, 37, 39 on 4 cards
+    python3 chip_smoke.py --cards 4 --only 39    # some of them
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   0. build: compile every kernel under src/repro_torch/kernels/csrc with
@@ -514,6 +515,38 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      SDPA and its bound (K2's ``phi3_check``); (c) one profiled prefill
      and decode iteration (``full/attn``, ``attn/k2``, ``full/mlp``,
      ``decode/*`` ranges).
+ 39. tensor parallelism of the encoder-decoder and the SSM family
+     (``models/encdec.py``, ``models/ssm.ssm_full`` on the rank's heads,
+     ``launch/train.run(job, mesh)``'s step on a ("data", "model") mesh),
+     only with ``--cards 4``, after 37 in the same call: (a)
+     seamless-m4t-large-v2 at full width and depth (24 + 24 layers,
+     d_model 1,024, 16 heads, d_ff 8,192, vocab 256,206, bf16, remat
+     full): phase 32 (d)'s job (1 × 1,024 tokens and frames, 3 steps) on
+     one device (rank 0, no mesh) against a (1, 2) mesh, and 4 × 1,024
+     for 5 steps on (4, 1) against (2, 2), 2 microbatches a data rank
+     there; (b) mamba2-370m at full width and depth (48 layers, 32 SSM
+     heads, chunk 128): phase 33's 2 × 4,096 tokens for 3 steps on one
+     device against (1, 2), 4 × 4,096 for 5 steps on (4, 1) against (2,
+     2). Each pair in one spawn, the first run's params and Adam moments
+     kept on its ranks and read against the second's leaf by leaf on
+     rank 0 (nothing written to disk): loss and grad_norm within rtol
+     2e-3; each leaf's gradient norm on the first batch within rel 2^-5;
+     at most 1e-3 of each leaf's elements beyond 37 (a)'s 3·lr +
+     2^-8·|param|, every element within AdamW's reach (2·Σ c_t·lr_t and a
+     bf16 rounding an update); printed: the counts beyond by leaf, how
+     many have first moments of opposite sign, and the worst elements
+     with both runs' params, moments and normalised steps (TPF_PARAMS_SHARE
+     says why not 37 (a)'s bound); (c) for each (2, 2) run beside its (4,
+     1) run: ms/step (the slowest card's median of steps 2-5), tokens/s,
+     the model-FLOPs share (``launch/cells.analytic_step_flops``), the
+     peak memory of every card (under 80 GB; (2, 2)'s includes the (4,
+     1) run's kept params and moments), one more step under
+     ``CommDebugMode`` (counts by op and by group, wire bytes a card, the
+     collective term; (2, 2)'s by
+     group ≡ ``roofline/analysis.reckon_collectives``) and one profiled
+     (idle share, NCCL device ms by kind, each card); (d) no kernel
+     launches on any card over (a)-(c) (printed as a
+     ``tp_families_launches`` JSON line, one entry a kernel).
 
 The kernels line's K1 and column-map entries add their launches per tick
 on phase 23 (b) (``ensemble_launches_per_tick``); the pair-list build's
@@ -6777,17 +6810,25 @@ def _param_hashes(params) -> dict:
         torch.uint8).cpu().numpy()).hexdigest() for p in _leaves(params)]
 
 
-def _fsdp_steps(spec: dict, mesh, dev, micro: int = 1, extra=()) -> tuple:
+def _fsdp_steps(spec: dict, mesh, dev, micro: int = 1, extra=(),
+                hold: dict | None = None, grad_norms: bool = False
+                ) -> tuple:
     """``spec``'s steps through ``make_train_step`` (in place on a mesh),
     each timed by CUDA events and the host clock after a synchronise;
     ``extra`` adds one more step each: ``"count"`` under
     ``roofline/analysis.collectives_of``, ``"profile"`` profiled. Returns
-    (record, params, the hashes of the params after the timed steps)."""
+    (record, params, the hashes of the params after the timed steps);
+    the record's ``lrs`` are the learning rates of every update made,
+    extra steps included. ``hold`` gets the optimizer state after them
+    (``"state"``); ``grad_norms`` records, before the steps, each leaf's
+    gradient norm on the first step's batch (``leaf_grad_norms``, rank
+    0's, :func:`_leaf_grad_norms`)."""
     import torch
     from repro_torch.data import DataConfig, batch_at, rank_batch_at
     from repro_torch.models import build_model, sharding
     from repro_torch.roofline import analysis
     from repro_torch.train import AdamWConfig, init_state, make_train_step
+    from repro_torch.train.optimizer import schedule
     cfg = _fsdp_cfg(spec)
     torch.cuda.empty_cache()
     model = build_model(cfg, attn_impl="sdpa", device=dev)
@@ -6799,7 +6840,10 @@ def _fsdp_steps(spec: dict, mesh, dev, micro: int = 1, extra=()) -> tuple:
     state = init_state(ocfg, params)
     step_fn = make_train_step(model, ocfg, n_microbatches=micro)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=spec["seq_len"],
-                      global_batch=spec["batch"], seed=spec["seed"])
+                      global_batch=spec["batch"], seed=spec["seed"],
+                      frontend_tokens=(spec["seq_len"] if cfg.encoder_layers
+                                       else cfg.frontend_tokens),
+                      d_model=cfg.d_model)
     _, rank, world = sharding.world_of(params)
 
     def batch(i):
@@ -6807,6 +6851,8 @@ def _fsdp_steps(spec: dict, mesh, dev, micro: int = 1, extra=()) -> tuple:
             return batch_at(dcfg, i, device=dev)
         return rank_batch_at(dcfg, i, rank, world, device=dev)
 
+    norms = (_leaf_grad_norms(model, params, batch(0), world)
+             if grad_norms else None)
     torch.cuda.synchronize()
     weights = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -6850,8 +6896,149 @@ def _fsdp_steps(spec: dict, mesh, dev, micro: int = 1, extra=()) -> tuple:
     if "profile" in extra:
         b = batch(n)
         rec["profiled"] = _profiled_call(lambda: step_fn(params, state, b))
+        n += 1
+    rec["lrs"] = [float(schedule(ocfg, torch.tensor(i)))
+                  for i in range(1, n + 1)]
+    if grad_norms:
+        rec["leaf_grad_norms"] = norms
+    if hold is not None:
+        hold["state"] = state
     del state
     return rec, params, hashes
+
+
+def _named(tree, path=()) -> list:
+    """(name, leaf) of a tree in ``train/optimizer._leaves``' order (dict
+    keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _named(tree[k], path + (k,))]
+    return [("/".join(path), tree)]
+
+
+def _whole(x):
+    """A leaf made whole on global rank 0, None on the other ranks: a
+    DTensor gathered there (``sharding.gather_to_rank0``), a plain tensor
+    (the one-device run's, rank 0's) as it is."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models import sharding
+    if isinstance(x, DTensor):
+        return sharding.gather_to_rank0(x)
+    return x if dist.get_rank() == 0 else None
+
+
+def _leaf_grad_norms(model, params, batch, data_ranks: int) -> dict | None:
+    """[39] The norm of each leaf's gradient of the loss on ``batch`` (the
+    step's own computation: the data ranks' gradients summed by the
+    gather's backward, then divided by their count), each leaf made
+    whole on rank 0: {name: norm} there, None on the other ranks."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.train.optimizer import _leaves, _unflatten
+    leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
+    with torch.enable_grad():
+        loss, _ = model.train_loss(_unflatten(params, iter(leaves)), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    del loss, leaves
+    out = {}
+    for (name, _), g in zip(_named(params), grads):
+        w = _whole(g)
+        if w is not None:
+            out[name] = float(torch.linalg.vector_norm(w.float())
+                              / data_ranks)
+        del w
+    del grads
+    return out if dist.get_rank() == 0 else None
+
+
+def _adam_reach(lrs: list, b1: float, b2: float) -> float:
+    """The farthest two AdamW runs from the same weights can part in
+    updates at ``lrs``, whatever their gradients: 2·Σ_t c_t·lr_t, c_t the
+    largest |m̂_t|/√v̂_t any gradients give at step t (Cauchy-Schwarz over
+    the moments' weights: 1 at t = 1, 1.0029 at t = 5)."""
+    total = 0.0
+    for t, lr in enumerate(lrs, 1):
+        a = [(1 - b1) * b1 ** (t - i) / (1 - b1 ** t) for i in range(1, t + 1)]
+        b = [(1 - b2) * b2 ** (t - i) / (1 - b2 ** t) for i in range(1, t + 1)]
+        total += lr * math.sqrt(sum(x * x / y for x, y in zip(a, b)))
+    return 2 * total
+
+
+def _pair_readings(base, other, lr: float, lrs: list, top: int = 4
+                   ) -> dict | None:
+    """[39] Two runs of one job from the same weights, ``base`` and
+    ``other`` each (params, optimizer state) after the same updates at
+    ``lrs`` (``base`` None off rank 0 when it is the one-device run):
+    every leaf and its moments made whole on rank 0, leaf by leaf. For
+    each leaf its elements, how many lie beyond 37 (a)'s bound 3·lr +
+    2^-8·|p| and how many of those have first moments of opposite sign
+    in the two runs, its largest ratio to that bound and to AdamW's
+    reach (:func:`_adam_reach` plus a bf16 rounding an update of each
+    run, half an ulp ≤ 2^-8 of the value: 2·Σ c_t·lr_t + T·2^-7·(max |p|
+    + that reach), the last term 5% wider for the T roundings); the ``top``
+    elements of the largest ratio to the bound over all leaves, with
+    both runs' params, moments and normalised step m̂/(√v̂ + eps). On
+    rank 0; None on the other ranks."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.train import AdamWConfig
+    ocfg = AdamWConfig()
+    t = len(lrs)
+    reach = _adam_reach(lrs, ocfg.b1, ocfg.b2)
+    bc1, bc2 = 1 - ocfg.b1 ** t, 1 - ocfg.b2 ** t
+    runs = {}
+    for run, pair in (("base", base), ("other", other)):
+        p, st = pair if pair is not None else (None, None)
+        runs[run] = {part: dict(_named(tree)) if tree is not None else {}
+                     for part, tree in (("p", p),
+                                        ("mu", st and st["mu"]),
+                                        ("nu", st and st["nu"]))}
+    root = dist.get_rank() == 0
+    leaves, worst = {}, []
+    for name, _ in _named(other[0]):
+        w = {(run, part): _whole(runs[run][part].get(name))
+             for run in runs for part in ("p", "mu", "nu")}
+        if not root:
+            continue
+        pa, pb = w["base", "p"].float(), w["other", "p"].float()
+        d = (pb - pa).abs()
+        ratio = d / (3 * lr + 2.0 ** -8 * pa.abs())
+        env = d / (reach + t * 2.0 ** -7 * 1.05
+                   * (torch.maximum(pa.abs(), pb.abs()) + reach))
+        over = ratio > 1
+        opposite = over & (w["base", "mu"].float()
+                           * w["other", "mu"].float() < 0)
+        leaves[name] = {"numel": ratio.numel(), "over": int(over.sum()),
+                        "over_opposite_mu": int(opposite.sum()),
+                        "max_ratio": float(ratio.max()),
+                        "max_reach_ratio": float(env.max())}
+        vals, idx = torch.topk(ratio.flatten(), min(top, ratio.numel()))
+        for v, i in zip(vals.tolist(), idx.tolist()):
+            at = tuple(int(j) for j in np.unravel_index(i, ratio.shape))
+
+            def read(run):
+                p, mu, nu = (float(w[run, part].flatten()[i].float())
+                             for part in ("p", "mu", "nu"))
+                return {"p": p, "mu": mu, "nu": nu, "step": (mu / bc1) / (
+                    math.sqrt(max(nu, 0.0) / bc2) + ocfg.eps)}
+            worst.append({"ratio": v, "leaf": name, "index": list(at),
+                          "base": read("base"), "other": read("other")})
+        del w, pa, pb, d, ratio, env, over, opposite
+    if not root:
+        return None
+    n = sum(x["numel"] for x in leaves.values())
+    over = sum(x["over"] for x in leaves.values())
+    return {"lrs": lrs, "reach": reach, "elements": n, "over": over,
+            "over_share": over / n,
+            "over_opposite_mu": sum(x["over_opposite_mu"]
+                                    for x in leaves.values()),
+            "max_ratio": max(x["max_ratio"] for x in leaves.values()),
+            "max_reach_ratio": max(x["max_reach_ratio"]
+                                   for x in leaves.values()),
+            "leaves": leaves,
+            "worst": sorted(worst, key=lambda x: -x["ratio"])[:top]}
 
 
 def _save_params(params, path: str, step: int) -> None:
@@ -6861,12 +7048,17 @@ def _save_params(params, path: str, step: int) -> None:
 
 
 def _fsdp_rank(group, device, jobs: list, out: str) -> None:
-    """[36, 37] ``jobs`` on this rank of ``group``, each on a (W, 1)
+    """[36, 37, 39] ``jobs`` on this rank of ``group``, each on a (W, 1)
     ("data", "model") mesh or the job's ``mesh`` shape: ``one`` (the
     one-rank phase), ``steps`` (a spec's steps, ``save`` writing the params
     after them, ``extra`` steps, ``micro`` microbatches, ``launches``: every
     kernel's launches counted over the steps), ``run`` (``launch/train.run``
-    with a checkpoint directory, copied from ``from`` first). Rank 0 writes
+    with a checkpoint directory, copied from ``from`` first). A ``steps``
+    job may also be ``alone`` (the one-device step on rank 0, no mesh;
+    the other ranks wait), ``grad_norms`` (each leaf's gradient norm on
+    the first batch), ``keep`` its params and optimizer state under that
+    key, or ``compare`` them with those kept under that key
+    (:func:`_pair_readings`, ``params_gap``). Rank 0 writes
     ``out/<tag>.json`` with every rank's record."""
     import gc
     import shutil
@@ -6876,6 +7068,7 @@ def _fsdp_rank(group, device, jobs: list, out: str) -> None:
     from repro_torch.launch import mesh as lmesh
     from repro_torch.launch import train as ltrain
     world, rank = dist.get_world_size(group), dist.get_rank(group)
+    kept: dict = {}
     for job in jobs:
         torch.use_deterministic_algorithms(bool(job.get("deterministic")))
         spec = job["spec"]
@@ -6905,17 +7098,30 @@ def _fsdp_rank(group, device, jobs: list, out: str) -> None:
                                            log=quiet)["losses"]
             rec["run_mesh_losses"] = ltrain.run(run_job, mesh=mesh,
                                                 log=quiet)["losses"]
+        elif job["kind"] == "steps" and job.get("alone") and rank:
+            rec = {"alone": True}          # rank 0's one-device run
         elif job["kind"] == "steps":
             if job.get("launches"):
                 _reset_counts()
-            rec, p, _ = _fsdp_steps(spec, mesh, device,
-                                    micro=job.get("micro", 1),
-                                    extra=tuple(job.get("extra", ())))
+            # the optimizer state outlives the steps only for a pair
+            hold = ({} if job.get("keep") or job.get("compare")
+                    else None)
+            rec, p, _ = _fsdp_steps(
+                spec, None if job.get("alone") else mesh, device,
+                micro=job.get("micro", 1),
+                extra=tuple(job.get("extra", ())), hold=hold,
+                grad_norms=bool(job.get("grad_norms")))
             if job.get("launches"):
                 rec["launches"] = _read_counts()
             if job.get("save"):
                 _save_params(p, job["save"], spec["steps"])
-            del p
+            if job.get("keep"):
+                kept[job["keep"]] = (p, hold["state"])
+            if job.get("compare"):
+                rec["params_gap"] = _pair_readings(
+                    kept.pop(job["compare"], None), (p, hold["state"]),
+                    spec["lr"], rec["lrs"])
+            del p, hold
         else:
             if job.get("from") and rank == 0:
                 shutil.copytree(job["from"], job["ckpt"])
@@ -7415,6 +7621,253 @@ def phase_tp_cards(n_cards: int, tmpdir: str, fsdp: dict) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# [39] tensor parallelism of the encoder-decoder and the SSM family
+# (--cards N only)
+# ---------------------------------------------------------------------------
+
+# (a) seamless-m4t-large-v2 at full width and depth: phase 32 (d)'s job (1 ×
+# 1,024 tokens and frames, 3 steps) on one rank and on (1, 2); 4 × 1,024 on
+# (4, 1) and (2, 2) for 5 steps, 2 microbatches of one sequence a data rank
+# on (2, 2) (one pass of one sequence a card, as on (4, 1))
+TPF_SEAMLESS_ONE = dict(TRAIN_ENCDEC)
+TPF_SEAMLESS_CELL = dict(TRAIN_ENCDEC, batch=4, steps=5, warmup=2)
+# (b) mamba2-370m at full width and depth: phase 33's 2 × 4,096 tokens on
+# one rank and on (1, 2), 3 steps; 4 × 4,096 on (4, 1) and (2, 2), 5 steps,
+# one pass of two sequences a data rank on (2, 2) (the step is host-bound,
+# phase 33: a microbatch would add a pass's operations)
+TPF_MAMBA_ONE = dict(TRAIN_SSM, steps=3)
+TPF_MAMBA_CELL = dict(TRAIN_SSM, batch=4)
+# each pair beyond its loss and grad_norm: AdamW moves an element whose
+# gradient is at the level of bf16's rounding by about ±lr a step
+# whatever its size, so where the two runs round such a gradient to
+# opposite signs they part by up to 2·lr a step, past 37 (a)'s 3·lr +
+# 2^-8·|p|; at full width on the CPU (tests/test_torch_tp_full_width.py)
+# a few elements in 10^6 do so in bf16, under TP and under FSDP alike,
+# and none in f32. A fault of the TP path moves a block of a leaf (a
+# rank's heads, columns or vocab rows) instead, and one that scales or
+# drops a leaf's gradient, which AdamW's normalised step hides from the
+# params, shows in that leaf's gradient norm. So: at most this share of
+# each leaf's elements beyond 3·lr + 2^-8·|p| (one in a leaf of 1,024),
+# every element within AdamW's reach (_pair_readings), and each leaf's
+# step-1 gradient norm within TPF_LEAF_GRAD_RTOL (8 of bf16's 2^-8)
+TPF_PARAMS_SHARE = 1e-3
+TPF_LEAF_GRAD_RTOL = 2.0 ** -5
+
+
+def phase_tp_families_cards(n_cards: int, tmpdir: str) -> dict:
+    """[39 (a)-(d)] FSDP × tensor parallelism of seamless-m4t-large-v2 and
+    mamba2-370m at full width and depth on ``n_cards`` = 4 cards: each on
+    one device against (1, 2), and on (4, 1) against (2, 2), with each
+    pair's step-1 gradient norms by leaf, its params and moments read
+    leaf by leaf, (2, 2)'s step figures beside (4, 1)'s and no kernel
+    launched. Every part is run and printed before a failed check ends
+    the phase: ``failures`` lists them (the caller writes the record,
+    then fails)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.device import card_description
+    from repro_torch.launch import cells
+    from repro_torch.models import build_model
+    from repro_torch.roofline import analysis
+    d = Path(tmpdir) / "tpf"
+    d.mkdir()
+    rec = {"failures": [], "card": card_description()}
+
+    def soft(cond: bool, msg: str) -> None:
+        if not cond:
+            rec["failures"].append(msg)
+            print(f"FAILED: chip_smoke: {msg}", flush=True)
+    if n_cards != math.prod(TP_CELL_MESH):
+        soft(False, f"[39] needs {math.prod(TP_CELL_MESH)} cards, got "
+                    f"{n_cards}")
+        return rec
+    # (part, key, the one-device spec, the four-card spec, microbatches a
+    # data rank on (2, 2))
+    models = (("a", "seamless", TPF_SEAMLESS_ONE, TPF_SEAMLESS_CELL, 2),
+              ("b", "mamba2", TPF_MAMBA_ONE, TPF_MAMBA_CELL, 1))
+    det = dict(deterministic=True, launches=True, grad_norms=True)
+    cell = dict(launches=True, grad_norms=True, extra=("count", "profile"))
+    t0 = time.perf_counter()
+    # each pair in one spawn: the first run's params and moments kept on
+    # its ranks, compared with the second's leaf by leaf on rank 0
+    got = _fsdp_spawn(
+        [job for _, k, one, _, _ in models for job in (
+            dict(tag=f"{k}_one", kind="steps", spec=one, alone=True,
+                 keep=k, **det),
+            dict(tag=f"{k}_tp12", kind="steps", spec=one,
+                 mesh=TP_PARITY_MESH, compare=k, **det))],
+        math.prod(TP_PARITY_MESH), d / "w2")
+    got.update(_fsdp_spawn(
+        [job for _, k, _, c, micro in models for job in (
+            dict(tag=f"{k}_fsdp41", kind="steps", spec=c, keep=k, **cell),
+            dict(tag=f"{k}_tp22", kind="steps", spec=c, mesh=TP_CELL_MESH,
+                 micro=micro, compare=k, **cell))],
+        n_cards, d / "w4"))
+    rec["spawn_s"] = time.perf_counter() - t0
+    launches: dict = {}
+    for part, k, one, c, micro in models:
+        tag = f"[39{part}]"
+        cfg = _fsdp_cfg(c)
+        depth = (f"{cfg.encoder_layers} + {cfg.n_layers}"
+                 if cfg.encoder_layers else f"{cfg.n_layers}")
+        # one device against (1, 2), (4, 1) against (2, 2): loss and
+        # grad_norm within 37 (a)'s rtol; the params by TPF_PARAMS' rule
+        pairs = {}
+        for base, tp, spec in (("one", "tp12", one), ("fsdp41", "tp22", c)):
+            want, r = got[f"{k}_{base}"][0], got[f"{k}_{tp}"][0]
+            rel = _close_steps(r["steps"], want["steps"], FSDP_RTOL,
+                               f"{tag} {tp}", soft)
+            gap = r["params_gap"]
+            crowded = {n: x for n, x in gap["leaves"].items()
+                       if x["over"] > TPF_PARAMS_SHARE * x["numel"]}
+            soft(not crowded and gap["max_reach_ratio"] <= 1.0,
+                 f"{tag} {tp} params: leaves with more than "
+                 f"{TPF_PARAMS_SHARE:g} of their elements beyond 3·lr + "
+                 f"2^-8·|p| {crowded}; largest ratio to AdamW's reach "
+                 f"{gap['max_reach_ratio']}")
+            norms = {n: (r["leaf_grad_norms"][n], g)
+                     for n, g in want["leaf_grad_norms"].items()}
+            norm_gaps = sorted(((abs(a - b) / b if b else abs(a), n)
+                                for n, (a, b) in norms.items()),
+                               reverse=True)
+            soft(norm_gaps[0][0] <= TPF_LEAF_GRAD_RTOL,
+                 f"{tag} {tp} step-1 gradient norms beyond rel "
+                 f"{TPF_LEAF_GRAD_RTOL:g}: "
+                 f"{[x for x in norm_gaps if x[0] > TPF_LEAF_GRAD_RTOL]}")
+            pairs[tp] = dict(max_rel_gap=rel, params_gap=gap,
+                             leaf_grad_norms=norms,
+                             max_leaf_grad_norm_gap=norm_gaps[0])
+            print(f"{tag} {r['arch']} at full width and depth ({depth} "
+                  f"layers, {r['n_params']:,} params, "
+                  f"bf16, f32 moments, remat full), {spec['batch']} x "
+                  f"{spec['seq_len']} tokens, {spec['steps']} steps: "
+                  f"{'(1, 2)' if tp == 'tp12' else '(2, 2)'} against "
+                  f"{'one device' if base == 'one' else '(4, 1)'}: loss "
+                  + " ".join(f"{x['loss']:.6g}" for x in r["steps"])
+                  + " against " + " ".join(f"{x['loss']:.6g}"
+                                           for x in want["steps"])
+                  + ", grad_norm " + " ".join(f"{x['grad_norm']:.6g}"
+                                              for x in r["steps"])
+                  + " against " + " ".join(f"{x['grad_norm']:.6g}"
+                                           for x in want["steps"])
+                  + f": within rel {rel:.3g} (bound {FSDP_RTOL})",
+                  flush=True)
+            print(f"{tag} {tp} step-1 gradient norm by leaf: largest gaps "
+                  + "; ".join(f"{n} {norms[n][0]:.6g} against "
+                              f"{norms[n][1]:.6g} (rel {x:.3g})"
+                              for x, n in norm_gaps[:4])
+                  + f"; {len(norms)} leaves (bound {TPF_LEAF_GRAD_RTOL:g})",
+                  flush=True)
+            print(f"{tag} {tp} params after {len(gap['lrs'])} updates (lr "
+                  f"sum {sum(gap['lrs']):.4g}): {gap['over']} of "
+                  f"{gap['elements']:,} elements (share "
+                  f"{gap['over_share']:.3g}) beyond 3·lr + 2^-8·|p|, "
+                  f"{gap['over_opposite_mu']} of them with first moments "
+                  f"of opposite sign; largest ratio {gap['max_ratio']:.4g}; "
+                  f"largest ratio to AdamW's reach ({gap['reach']:.4g} + "
+                  f"a bf16 rounding an update) {gap['max_reach_ratio']:.4g} "
+                  f"(bound 1); leaves beyond: "
+                  + (", ".join(f"{n} {x['over']}/{x['numel']:,}"
+                               for n, x in gap["leaves"].items()
+                               if x["over"]) or "none")
+                  + f" (bound {TPF_PARAMS_SHARE:g} of each leaf)",
+                  flush=True)
+            for x in gap["worst"]:
+                a, b = x["base"], x["other"]
+                print(f"{tag} {tp}   {x['ratio']:.4g} at {x['leaf']}"
+                      f"{x['index']}: p {a['p']:.6g} / {b['p']:.6g}, mu "
+                      f"{a['mu']:.3g} / {b['mu']:.3g}, nu {a['nu']:.3g} / "
+                      f"{b['nu']:.3g}, m̂/(√v̂+eps) {a['step']:.3g} / "
+                      f"{b['step']:.3g}", flush=True)
+        # (c) the (2, 2) step beside the (4, 1) step
+        flops = cells.analytic_step_flops(cfg, ShapeSpec(
+            "train", c["seq_len"], c["batch"], "train"))
+        tokens = c["batch"] * c["seq_len"]
+        reckoned = analysis.reckon_collectives(
+            build_model(cfg, attn_impl="sdpa", device="meta"),
+            TP_CELL_MESH[0], TP_CELL_MESH[1], micro,
+            c["batch"] // TP_CELL_MESH[0] // micro, c["seq_len"],
+            enc_len=c["seq_len"] if cfg.encoder_layers else 0)
+        steps = {}
+        for mesh in ("fsdp41", "tp22"):
+            ranks = got[f"{k}_{mesh}"]
+            r0 = ranks[0]
+            ms = max(x["ms_per_step_median"] for x in ranks)
+            peaks = [x["peak_memory_bytes"] / 1e9 for x in ranks]
+            soft(max(peaks) < 80.0, f"{tag} {mesh} peak GB by card {peaks}")
+            col = r0["collectives"]
+            steps[mesh] = {
+                "ms_per_step": ms, "tokens_per_s": tokens / (ms / 1e3),
+                "ms_by_card": [x["ms_per_step_median"] for x in ranks],
+                "analytic_flops_per_step": flops,
+                "model_flops_share": flops / (ms / 1e3) / n_cards
+                / PEAK_BF16_TENSOR_FLOPS,
+                "peak_gb_by_card": peaks,
+                "idle_share_by_card": [x["profiled"]["device_idle_share"]
+                                       for x in ranks],
+                "nccl_ms_by_kind_by_card": [x["profiled"]["nccl_ms_by_kind"]
+                                            for x in ranks],
+                "profiled_ms_by_card": [x["profiled"]["wall_ms"]
+                                        for x in ranks],
+                "collectives": col, "collective_s": r0["collective_s"],
+                "collective_s_by_group": {
+                    g: analysis.analyze({"flops": 0.0},
+                                        v["wire_bytes"]).collective_s
+                    for g, v in col["by_group"].items()}}
+            for x in ranks:
+                for name, n in x["launches"].items():
+                    launches[name] = launches.get(name, 0) + n
+        for x in (got[f"{k}_one"] + got[f"{k}_tp12"]):
+            for name, n in x.get("launches", {}).items():
+                launches[name] = launches.get(name, 0) + n
+        tp22 = steps["tp22"]["collectives"]
+        soft(tp22["by_group"] == reckoned,
+             f"{tag} (2, 2) collectives by group {tp22['by_group']} != the "
+             f"spec tree's {reckoned}")
+        rec[k] = {"parity": pairs, "steps": steps,
+                  "reckoned_equal": tp22["by_group"] == reckoned,
+                  "runs": {m: got[f"{k}_{m}"] for m in (
+                      "one", "tp12", "fsdp41", "tp22")}}
+        a, b = steps["tp22"], steps["fsdp41"]
+        print(f"{tag} (c) {r['arch']}: (2, 2) in {micro} microbatch(es) a "
+              f"data rank "
+              f"against (4, 1), {tokens} tokens a step: {a['ms_per_step']:.1f}"
+              f" against {b['ms_per_step']:.1f} ms/step (slowest card's "
+              f"median of steps 2-{c['steps']}, CUDA events; by card "
+              f"{[round(x, 1) for x in a['ms_by_card']]}, "
+              f"{[round(x, 1) for x in b['ms_by_card']]}); "
+              f"{a['tokens_per_s']:.0f} against {b['tokens_per_s']:.0f} "
+              f"tokens/s; model-FLOPs share {a['model_flops_share']:.4f} "
+              f"against {b['model_flops_share']:.4f} (analytic_step_flops "
+              f"{flops:.4g}); peak GB by card "
+              f"{[round(x, 2) for x in a['peak_gb_by_card']]} against "
+              f"{[round(x, 2) for x in b['peak_gb_by_card']]}", flush=True)
+        for mesh, v in (("(2, 2)", a), ("(4, 1)", b)):
+            col = v["collectives"]
+            print(f"{tag} (c) {mesh} one step under CommDebugMode: counts "
+                  f"{col['counts']}; by group " + "; ".join(
+                      f"{g} ({x['ranks']} ranks) counts {x['counts']}, "
+                      f"payload {x['payload_bytes']}, wire bytes a card "
+                      f"{x['wire_bytes']}" for g, x in col["by_group"].items())
+                  + f" → collective term {v['collective_s']:.4f} s at NVLink "
+                  f"{450e9:.3g} B/s (by group "
+                  f"{ {g: round(x, 4) for g, x in v['collective_s_by_group'].items()} })"
+                  + (f" (≡ reckon_collectives: {rec[k]['reckoned_equal']})"
+                     if mesh == "(2, 2)" else ""), flush=True)
+            print(f"{tag} (c) {mesh} one profiled step: wall ms by card "
+                  f"{[round(x, 1) for x in v['profiled_ms_by_card']]}, idle "
+                  f"share {[round(x, 3) for x in v['idle_share_by_card']]}, "
+                  f"NCCL device ms by kind "
+                  f"{[{kk: round(x, 1) for kk, x in y.items()} for y in v['nccl_ms_by_kind_by_card']]}"
+                  f"; {rec['card']}", flush=True)
+    # (d) no kernel on these paths: counted in every rank over every run
+    soft(not any(launches.values()), f"[39d] kernel launches {launches}")
+    rec["tp_families_launches"] = launches
+    print(f"[39d] kernel launches over (a)-(c)'s steps on every card: "
+          f"{launches}", flush=True)
+    return rec
+
+
 # phase 38: phi-3-vision-4.2b (configs/phi_3_vision_4_2b.py,
 # hf:microsoft/Phi-3-vision-128k-instruct) at full width and depth, 32
 # layers of MHA over 32 heads of 96, with phase 7's traffic: text-only
@@ -7489,7 +7942,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
     if sys.argv[1:2] == ["--cards"]:
-        return _cards_main(int(sys.argv[2]))
+        only = (sys.argv[4].split(",") if sys.argv[3:4] == ["--only"]
+                else CARDS_PHASES)
+        return _cards_main(int(sys.argv[2]), only)
     # phase 33 (c) steps under deterministic algorithms, which need
     # deterministic cuBLAS workspaces from the first GEMM on: ":4096:8" is
     # the H100's default size anyway
@@ -7508,11 +7963,22 @@ def main() -> int:
                     proc.wait()
 
 
-def _cards_main(n_cards: int) -> int:
-    """``--cards N``: build the kernels and run phases 35 (b), 36 (a)-(c)
-    and 37 only."""
+# the phases of ``--cards N``; ``--only`` names some of them (37 reads
+# 36's runs, so it needs 36)
+CARDS_PHASES = ("35b", "36", "37", "39")
+
+
+def _cards_main(n_cards: int, only=CARDS_PHASES) -> int:
+    """``--cards N``: build the kernels and run phases 35 (b), 36 (a)-(c),
+    37 and 39 only; with ``--only``, those of them it names (the kernels
+    built only for 35 (b), the one phase that launches them)."""
     import tempfile
     import torch
+    bad = set(only) - set(CARDS_PHASES)
+    if bad or ("37" in only and "36" not in only):
+        print(f"chip_smoke: --only takes phases of {CARDS_PHASES} (37 with "
+              f"36), not {list(only)}", file=sys.stderr)
+        return 1
     if torch.cuda.device_count() < n_cards:
         print(f"chip_smoke: --cards {n_cards} needs {n_cards} cards, "
               f"{torch.cuda.device_count()} visible", file=sys.stderr)
@@ -7522,39 +7988,59 @@ def _cards_main(n_cards: int) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.device import card_description
     from repro_torch.kernels import build
-    t0 = time.perf_counter()
-    libs = build.build_all()
-    print(f"[0] built {sorted(libs)} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    rec: dict = {}
+    if "35b" in only:
+        t0 = time.perf_counter()
+        libs = build.build_all()
+        print(f"[0] built {sorted(libs)} in {time.perf_counter() - t0:.1f} "
+              f"s", flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmpdir:
-        t0 = time.perf_counter()
-        rec = phase_ranks_cards(n_cards, tmpdir)
-        print(f"[35b] phase time {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        t0 = time.perf_counter()
-        rec["fsdp"] = phase_fsdp_cards(n_cards, tmpdir)
-        print(f"[36] (a)-(c) phase time {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        t0 = time.perf_counter()
-        rec["tp"] = phase_tp_cards(n_cards, tmpdir, rec["fsdp"])
-        print(f"[37] phase time {time.perf_counter() - t0:.1f} s",
-              flush=True)
+        if "35b" in only:
+            t0 = time.perf_counter()
+            rec = phase_ranks_cards(n_cards, tmpdir)
+            print(f"[35b] phase time {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        if "36" in only:
+            t0 = time.perf_counter()
+            rec["fsdp"] = phase_fsdp_cards(n_cards, tmpdir)
+            print(f"[36] (a)-(c) phase time {time.perf_counter() - t0:.1f} "
+                  f"s", flush=True)
+        if "37" in only:
+            t0 = time.perf_counter()
+            rec["tp"] = phase_tp_cards(n_cards, tmpdir, rec["fsdp"])
+            print(f"[37] phase time {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        if "39" in only:
+            t0 = time.perf_counter()
+            rec["tp_families"] = phase_tp_families_cards(n_cards, tmpdir)
+            print(f"[39] phase time {time.perf_counter() - t0:.1f} s",
+                  flush=True)
     rec["device"] = torch.cuda.get_device_name(0)
+    rec["phases"] = list(only)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_cards.json").write_text(json.dumps(rec, indent=1))
-    check(not rec["fsdp"]["failures"],
-          f"[36] {len(rec['fsdp']['failures'])} check(s) failed: "
-          f"{rec['fsdp']['failures']}")
-    check(not rec["tp"]["failures"],
-          f"[37] {len(rec['tp']['failures'])} check(s) failed: "
-          f"{rec['tp']['failures']}")
+    for key, phase in (("fsdp", "36"), ("tp", "37"),
+                       ("tp_families", "39")):
+        if key in rec:
+            check(not rec[key]["failures"],
+                  f"[{phase}] {len(rec[key]['failures'])} check(s) "
+                  f"failed: {rec[key]['failures']}")
     # no kernel launches on the tensor-parallel path (37 (d)): each
     # kernel's count over 37 (b)'s steps, summed over the cards
-    print(json.dumps({"tp_launches": [
-        {"name": k, "tp_launches": v}
-        for k, v in sorted(rec["tp"]["tp_launches"].items())]}), flush=True)
-    for line in rec["cards"]:
+    if "tp" in rec:
+        print(json.dumps({"tp_launches": [
+            {"name": k, "tp_launches": v}
+            for k, v in sorted(rec["tp"]["tp_launches"].items())]}),
+            flush=True)
+    # nor on the encoder-decoder's and the SSM's (39 (d)): each kernel's
+    # count over every run of the phase, summed over the cards
+    if "tp_families" in rec:
+        print(json.dumps({"tp_families_launches": [
+            {"name": k, "tp_families_launches": v} for k, v in sorted(
+                rec["tp_families"]["tp_families_launches"].items())]}),
+            flush=True)
+    for line in rec.get("cards", []):
         print(line, flush=True)
     print(card_description(), flush=True)
     print(json.dumps({"ok": True, "device": {

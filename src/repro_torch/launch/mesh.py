@@ -100,14 +100,22 @@ def check_divides(cfg, mesh) -> None:
     ``mesh`` (a ``Mesh`` or a ``DeviceMesh`` with "data" and "model"
     axes): the heads, the kv heads, ``d_ff`` and the vocab padded to 128
     over "model" (a rank takes whole heads: query head h reads kv head
-    h // group on the same rank), ``d_model`` over "data". The reference's
-    GSPMD would reshard an uneven split; this runtime refuses it."""
+    h // group on the same rank); with SSM layers also their heads
+    (``ssm_expand · d_model / ssm_head_dim``), ``w_in``'s columns and the
+    conv's channels, the blocks the model group gathers; ``d_model`` over
+    "data". The reference's GSPMD would reshard an uneven split; this
+    runtime refuses it."""
     sizes = _axis_sizes(mesh)
     t, d = sizes.get("model", 1), sizes.get("data", 1)
     v_pad = ((cfg.vocab_size + 127) // 128) * 128
-    bad = [f"{name} {n} over 'model' {t}" for name, n in (
-        ("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
-        ("d_ff", cfg.d_ff), ("the padded vocab", v_pad)) if n % t]
+    dims = [("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+            ("d_ff", cfg.d_ff), ("the padded vocab", v_pad)]
+    if any(ld.kind == "ssm" for ld in cfg.layer_pattern()):
+        di = cfg.ssm_expand * cfg.d_model
+        h, n = di // cfg.ssm_head_dim, cfg.ssm_state
+        dims += [("the SSM heads", h), ("w_in's columns", 2 * di + 2 * n + h),
+                 ("the conv channels", di + 2 * n)]
+    bad = [f"{name} {n} over 'model' {t}" for name, n in dims if n % t]
     if cfg.d_model % d:
         bad.append(f"d_model {cfg.d_model} over 'data' {d}")
     if bad:

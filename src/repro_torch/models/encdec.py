@@ -21,6 +21,11 @@ loop over the stacked axis; its ``jax.checkpoint`` around both stacks is
 ``"full"``: the reference applies no ``dots`` policy here). On parameters
 sharded over a mesh each layer's leaves of both stacks are all-gathered
 inside that function (``models/sharding.py``), the other leaves once.
+Over a model axis of more than one rank (``sharding.tp_of``) every layer
+of both stacks is tensor-parallel (GQA, the cross-attention and SwiGLU
+on the rank's heads and columns), the token lookup, the logits and the
+cross-entropy vocab-parallel; ``enc_norm`` and ``final_norm`` stay
+whole on every rank.
 """
 
 from __future__ import annotations
@@ -37,23 +42,25 @@ from . import attention as attn_mod
 from . import sharding
 from .layers import ParamSet, ShapeDtype, cross_entropy, rms_norm, torch_dtype
 from .lm import (_index, _map, _remat, _stack, _unbind, apply_pattern_block,
-                 embed_rows, register_pattern_block)
+                 embed_rows, mask_vocab, register_pattern_block)
 
 
 def _enc_layer(x: torch.Tensor, p_block: Dict, cfg: ArchConfig,
                pattern: Tuple[LayerDesc, ...], attn_impl: str,
-               plan: Any = None) -> torch.Tensor:
+               plan: Any = None,
+               tp: Optional[sharding.ModelAxis] = None) -> torch.Tensor:
     return apply_pattern_block(sharding.gather(p_block, plan), x, cfg,
                                pattern, "full", causal=False,
-                               attn_impl=attn_impl)[0]
+                               attn_impl=attn_impl, tp=tp)[0]
 
 
 def _dec_layer(x: torch.Tensor, enc_out: torch.Tensor, p_block: Dict,
                cfg: ArchConfig, pattern: Tuple[LayerDesc, ...],
-               attn_impl: str, plan: Any = None) -> torch.Tensor:
+               attn_impl: str, plan: Any = None,
+               tp: Optional[sharding.ModelAxis] = None) -> torch.Tensor:
     return apply_pattern_block(sharding.gather(p_block, plan), x, cfg,
                                pattern, "full", enc_out=enc_out, cross=True,
-                               attn_impl=attn_impl)[0]
+                               attn_impl=attn_impl, tp=tp)[0]
 
 
 class EncDecLM:
@@ -95,49 +102,61 @@ class EncDecLM:
                     axes=None) -> Dict:
         """Random-init weights from ``generator``, which must live on the
         model's device; with a ``DeviceMesh``, each rank's block of every
-        leaf (``ParamSet.init_params``). A model axis of more than one rank
-        raises (``sharding.refuse_tp``)."""
+        leaf (``ParamSet.init_params``). Over a model axis of more than
+        one rank both stacks train tensor-parallel: NotImplementedError
+        for a config with experts or MLA (``sharding.refuse_tp``), as
+        ``LM`` raises, and ValueError where the heads, kv heads, ``d_ff``
+        or the padded vocab do not divide over it
+        (``launch/mesh.check_divides``)."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator is on {generator.device}, the model "
                              f"on {self.device}")
-        if mesh is not None:
+        if mesh is not None and sharding.model_ranks(mesh) > 1:
+            from ..launch.mesh import check_divides
             sharding.refuse_tp(self.cfg, sharding.model_ranks(mesh))
+            check_divides(self.cfg, mesh)
         return self.ps.init_params(generator, mesh, axes)
 
     def n_params(self) -> int:
         return self.ps.n_params()
 
-    def _layer(self, fn, plan: Any = None):
+    def _layer(self, fn, plan: Any = None,
+               tp: Optional[sharding.ModelAxis] = None):
         """``fn`` under the reference's ``jax.checkpoint`` when it runs under
         autograd and the config remats; as it is otherwise. With a
-        ``plan`` each call gathers its layer's leaves first."""
+        ``plan`` each call gathers its layer's leaves first; with ``tp``
+        the layer is tensor-parallel."""
         fn = functools.partial(fn, cfg=self.cfg, pattern=self.pat,
-                               attn_impl=self.attn_impl, plan=plan)
+                               attn_impl=self.attn_impl, plan=plan, tp=tp)
         if not torch.is_grad_enabled() or self.cfg.remat == "none":
             return fn
         return _remat(fn, "full")
 
-    def _logits(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
-        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+    def _logits(self, params: Dict, x: torch.Tensor,
+                tp: Optional[sharding.ModelAxis] = None) -> torch.Tensor:
+        """Logits over the padded vocab, its padded columns masked; with
+        ``tp`` this rank's vocab block of them (``lm_head``'s columns
+        ``[rank·V, (rank+1)·V)``)."""
+        x = sharding.to_model(
+            rms_norm(x, params["final_norm"], self.cfg.norm_eps), tp)
         logits = torch.matmul(x, params["lm_head"])
-        if self.v_pad != self.cfg.vocab_size:   # mask padded vocab columns
-            col = torch.arange(self.v_pad, device=x.device)
-            logits = torch.where(col < self.cfg.vocab_size, logits,
-                                 torch.full((), -1e30, dtype=logits.dtype,
-                                            device=x.device))
+        if self.v_pad != self.cfg.vocab_size:
+            logits = mask_vocab(logits, self.cfg.vocab_size, tp)
         return logits
 
     # -- encoder -------------------------------------------------------------
     def encode(self, params: Dict, frames: torch.Tensor,
-               plan: Any = None) -> torch.Tensor:
+               plan: Any = None,
+               tp: Optional[sharding.ModelAxis] = None) -> torch.Tensor:
         """frames (B, S_enc, d_model), any float dtype (cast to the
         activation dtype first). Returns the normalised encoder output.
         ``plan``: the layouts of one encoder layer's blocks
-        (``sharding.for_train``)."""
+        (``sharding.for_train``); ``tp``: the layers tensor-parallel (the
+        output is whole on every model rank)."""
         cfg = self.cfg
         with record_function("encode"):
             x = frames.to(self.adt)
-            layer = self._layer(_enc_layer, plan)
+            layer = self._layer(_enc_layer, plan, tp)
             for p_block in _unbind(params["enc_blocks"], cfg.encoder_layers):
                 x = layer(x, p_block)
             return rms_norm(x, params["enc_norm"], cfg.norm_eps)
@@ -145,14 +164,17 @@ class EncDecLM:
     # -- decoder -------------------------------------------------------------
     def _decode_full(self, params: Dict, tokens: torch.Tensor,
                      enc_out: torch.Tensor, want_cache: bool,
-                     last_only: bool = False, plan: Any = None
+                     last_only: bool = False, plan: Any = None,
+                     tp: Optional[sharding.ModelAxis] = None
                      ) -> Tuple[torch.Tensor, Tuple]:
         """The decoder over ``tokens`` (B, S) against ``enc_out``: logits
         (B, S, V_pad), or (B, 1, V_pad) at the last position with
         ``last_only``, and with ``want_cache`` the stacked layer caches
-        ``({k, v, xk, xv},)``, else ``()``."""
+        ``({k, v, xk, xv},)``, else ``()``. With ``tp`` (training) the
+        layers are tensor-parallel and the lookup and logits
+        vocab-parallel: the logits are this rank's vocab block."""
         cfg = self.cfg
-        x = embed_rows(params["embed"]["tokens"], tokens).to(self.adt)
+        x = embed_rows(params["embed"]["tokens"], tokens, tp).to(self.adt)
         layers = _unbind(params["dec_blocks"], cfg.n_layers)
         caches: Tuple = ()
         if want_cache:
@@ -164,13 +186,13 @@ class EncDecLM:
                 per_layer.append(c)
             caches = _stack(per_layer)
         else:
-            layer = self._layer(_dec_layer, plan)
+            layer = self._layer(_dec_layer, plan, tp)
             for p_block in layers:
                 x = layer(x, enc_out, p_block)
         if last_only:
             x = x[:, -1:, :]
         with record_function("full/logits"):
-            return self._logits(params, x), caches
+            return self._logits(params, x, tp), caches
 
     # -- public API ----------------------------------------------------------
     def train_loss(self, params: Dict, batch: Dict[str, torch.Tensor]
@@ -188,13 +210,13 @@ class EncDecLM:
         params, plans = sharding.for_train(params,
                                            ("enc_blocks", "dec_blocks"))
         enc_out = self.encode(params, batch["frontend_embeds"],
-                              plans.get("enc_blocks"))
+                              plans.get("enc_blocks"), tp)
         logits, _ = self._decode_full(params, batch["tokens"], enc_out,
                                       want_cache=False,
-                                      plan=plans.get("dec_blocks"))
+                                      plan=plans.get("dec_blocks"), tp=tp)
         with record_function("train/logits_ce"):
             ce = cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
-                               batch.get("loss_mask"))
+                               batch.get("loss_mask"), tp)
         return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                                  device=ce.device)}
 

@@ -34,10 +34,12 @@ block's, in the reference's order. On parameters sharded over a mesh
 (``init_params(generator, mesh, axes)``) each stacked block's leaves are
 all-gathered inside that checkpointed function (``models/sharding.py``),
 so the recompute gathers them again; the other leaves are gathered once.
-Over a model axis of more than one rank the dense and vlm families train
-tensor-parallel (``sharding.tp_of``): GQA and SwiGLU on the rank's
-blocks, the token lookup, the logits and the cross-entropy
-vocab-parallel; the other families raise (``sharding.refuse_tp``).
+Over a model axis of more than one rank the dense, vlm and SSM families
+(and ``EncDecLM``) train tensor-parallel (``sharding.tp_of``): GQA,
+SwiGLU and the SSM layer on the rank's heads and blocks, the token
+lookup, the logits and the cross-entropy vocab-parallel; the MoE family,
+kimi-k2 and the jamba hybrid (experts) and MLA raise
+(``sharding.refuse_tp``).
 """
 
 from __future__ import annotations
@@ -102,19 +104,26 @@ def register_pattern_block(ps: ParamSet, prefix: str, cfg: ArchConfig,
 
 
 def _cross_full(p: Dict, x: torch.Tensor, enc_out: torch.Tensor,
-                cfg: ArchConfig
+                cfg: ArchConfig, tp: Optional[sharding.ModelAxis] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Cross-attention (no rope, non-causal) against the encoder output,
     through the plain ``_sdpa`` as in the reference. Returns (output,
-    {"xk", "xv"} (B, Hkv, S_enc, Dh) for the decode cache)."""
-    xn = rms_norm(x, p["norm"], cfg.norm_eps)
-    q = attn_mod._split_heads(torch.matmul(xn, p["wq"]), cfg.n_heads)
-    k = attn_mod._split_heads(torch.matmul(enc_out, p["wk"]),
-                              cfg.n_kv_heads)
-    v = attn_mod._split_heads(torch.matmul(enc_out, p["wv"]),
-                              cfg.n_kv_heads)
+    {"xk", "xv"} (B, Hkv, S_enc, Dh) for the decode cache). With ``tp``
+    on the rank's heads, as ``attention.gqa_full``: the normed decoder
+    state and the encoder output go to every model rank (so the encoder's
+    gradient is summed over them), ``wq`` / ``wk`` / ``wv`` column blocks,
+    ``wo`` a row block whose partial output is summed over the ranks."""
+    t = 1 if tp is None else tp.size
+    xn = sharding.to_model(rms_norm(x, p["norm"], cfg.norm_eps), tp)
+    enc = sharding.to_model(enc_out, tp)
+    q = attn_mod._split_heads(torch.matmul(xn, p["wq"]), cfg.n_heads // t)
+    k = attn_mod._split_heads(torch.matmul(enc, p["wk"]),
+                              cfg.n_kv_heads // t)
+    v = attn_mod._split_heads(torch.matmul(enc, p["wv"]),
+                              cfg.n_kv_heads // t)
     o = attn_mod._sdpa(q, k, v, causal=False)
-    out = torch.matmul(attn_mod._merge_heads(o), p["wo"])
+    out = sharding.from_model(
+        torch.matmul(attn_mod._merge_heads(o), p["wo"]), tp)
     return x + out, {"xk": k, "xv": v}
 
 
@@ -145,9 +154,9 @@ def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
     reference. With ``cross`` an attention layer is followed by
     cross-attention against ``enc_out`` (full) or the cached ``xk`` /
     ``xv`` (decode), and its cache is ``{k, v, xk, xv}``. Decode writes
-    every layer's self-attention and SSM caches in place. ``tp``: GQA and
-    the dense MLP on the rank's blocks (the full pass of a dense or vlm
-    config)."""
+    every layer's self-attention and SSM caches in place. ``tp``: GQA,
+    the cross-attention, the SSM and the dense MLP on the rank's blocks
+    (the full pass of a dense, vlm, SSM or encoder-decoder config)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: List[Any] = []
     for i, ld in enumerate(pattern):
@@ -155,7 +164,7 @@ def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
         if ld.kind == "ssm":
             with record_function(f"{mode}/ssm"):
                 if mode == "full":
-                    x, c = ssm_mod.ssm_full(lp["ssm"], x, cfg)
+                    x, c = ssm_mod.ssm_full(lp["ssm"], x, cfg, tp)
                 else:
                     x, c = ssm_mod.ssm_decode(lp["ssm"], x, caches[i], cfg)
         else:
@@ -175,7 +184,8 @@ def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
             if cross:
                 with record_function(f"{mode}/xattn"):
                     if mode == "full":
-                        x, cx = _cross_full(lp["xattn"], x, enc_out, cfg)
+                        x, cx = _cross_full(lp["xattn"], x, enc_out, cfg,
+                                            tp)
                     else:
                         x = _cross_decode(lp["xattn"], x, caches[i], cfg)
                         cx = {"xk": caches[i]["xk"], "xv": caches[i]["xv"]}
@@ -280,6 +290,19 @@ def embed_rows(table: torch.Tensor, tokens: torch.Tensor,
     return sharding.from_model(out, tp)
 
 
+def mask_vocab(logits: torch.Tensor, vocab_size: int,
+               tp: Optional[sharding.ModelAxis] = None) -> torch.Tensor:
+    """Logits over the padded vocab with the padded columns (at or past
+    ``vocab_size``) at -1e30; with ``tp`` the logits are this rank's vocab
+    block, its columns starting at ``rank·V``."""
+    v = logits.shape[-1]
+    col = torch.arange(v, device=logits.device) + (
+        0 if tp is None else tp.rank * v)
+    return torch.where(col < vocab_size, logits,
+                       torch.full((), -1e30, dtype=logits.dtype,
+                                  device=logits.device))
+
+
 def _train_block(x: torch.Tensor, p_block: Dict, cfg: ArchConfig,
                  pattern: Tuple[LayerDesc, ...], attn_impl: str,
                  plan: Any = None,
@@ -343,9 +366,11 @@ class LM:
         model's device; with a ``DeviceMesh``, each rank's block of every
         leaf (``ParamSet.init_params``). An MoE config raises on a data
         axis of more than one rank (``sharding.refuse_moe``); a model axis
-        of more than one rank raises for every family but dense and vlm
-        (``sharding.refuse_tp``), and ValueError where the heads, kv heads,
-        ``d_ff`` or the padded vocab do not divide over it
+        of more than one rank raises for a config with experts or MLA
+        (``sharding.refuse_tp``: the dense, vlm and SSM families train
+        tensor-parallel), and ValueError where the heads, kv heads,
+        ``d_ff``, the padded vocab or the SSM's heads, ``w_in`` columns or
+        conv channels do not divide over it
         (``launch/mesh.check_divides``)."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator is on {generator.device}, the model "
@@ -383,13 +408,8 @@ class LM:
             logits = torch.matmul(x, params["embed"]["tokens"].T)
         else:
             logits = torch.matmul(x, params["lm_head"])
-        if self.v_pad != self.cfg.vocab_size:   # mask padded vocab columns
-            v = logits.shape[-1]
-            col = torch.arange(v, device=x.device) + (
-                0 if tp is None else tp.rank * v)
-            logits = torch.where(col < self.cfg.vocab_size, logits,
-                                 torch.full((), -1e30, dtype=logits.dtype,
-                                            device=x.device))
+        if self.v_pad != self.cfg.vocab_size:
+            logits = mask_vocab(logits, self.cfg.vocab_size, tp)
         return hint(logits, "batch", None, "tp")
 
     # -- full-sequence pass ----------------------------------------------------

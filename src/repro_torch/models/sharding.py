@@ -22,8 +22,12 @@ Megatron's: a column-parallel projection takes its input through
 :func:`to_model` (forward identity, backward all-reduce over the model
 group) and a row-parallel one gives its partial output to
 :func:`from_model` (forward all-reduce, backward identity); the embedding,
-the logits and the cross-entropy are vocab-parallel. A model axis of one
-rank issues none of these, so a (W, 1) step is the FSDP step alone.
+the logits and the cross-entropy are vocab-parallel. The SSM layer keeps
+its fused ``w_in``, ``conv_w`` and ``conv_b`` in the reference's layout,
+makes them whole over the model group (:func:`gather_model`) and takes
+its heads' columns; its gated norm's sum of squares is summed over the
+model ranks (:func:`sum_over_model`). A model axis of one rank issues
+none of these, so a (W, 1) step is the FSDP step alone.
 
 :func:`for_train` prepares a parameter tree for a loss: top-level leaves
 gathered once, each stacked subtree kept as plain local blocks with a
@@ -309,6 +313,25 @@ def from_model(x: torch.Tensor, tp: Optional[ModelAxis]) -> torch.Tensor:
     return x if tp is None else _FromModel.apply(x, tp.group)
 
 
+def sum_over_model(x: torch.Tensor, tp: ModelAxis) -> torch.Tensor:
+    """``x`` summed over the model ranks, forward and backward: a
+    statistic of the whole of a dim that each rank holds a block of, such
+    as the SSM's gated norm's sum of squares. Each rank's copy of the sum
+    feeds only that rank's part of the layer, so its gradient is a part
+    too and is summed over the model ranks: :func:`from_model` of
+    :func:`to_model`, one all-reduce each way."""
+    return from_model(to_model(x, tp), tp)
+
+
+def gather_model(x: torch.Tensor, dim: int, tp: ModelAxis) -> torch.Tensor:
+    """This rank's TP block of a leaf made whole along ``dim`` over the
+    model ranks: forward an all-gather, backward its gradient
+    reduce-scattered into the block (:class:`_Gather` over the model
+    group), so a part every rank uses has its gradient summed over
+    them."""
+    return _Gather.apply(x, Layout(dim, tp.group))
+
+
 def max_over_model(x: torch.Tensor, tp: ModelAxis) -> torch.Tensor:
     """The element-wise maximum over the model ranks, out of autograd."""
     out = x.detach().clone(memory_format=torch.contiguous_format)
@@ -378,34 +401,23 @@ def refuse_moe(ranks: int) -> None:
             "capacity, summed aux statistics) waits for ROADMAP 15c")
 
 
-# what lifts the refusal of a model axis > 1 for each family this runtime
-# leaves out (ROADMAP 15c, step 5's rest)
-_TP_LATER = {
-    "encdec": "TP for the encoder-decoder",
-    "ssm": "TP for the SSM's fused w_in (z, x, B, C and dt share one "
-           "(fsdp, tp) matrix)",
-    "hybrid": "TP for the SSM's fused w_in and the expert FFN over 'tp'",
-    "moe": "the expert FFN over 'tp'",
-}
-
-
 def refuse_tp(cfg, ranks: int) -> None:
-    """Tensor parallelism covers the dense and vlm families: raise
-    NotImplementedError on a model axis of more than one rank for the MoE
-    (and MLA), SSM, hybrid and encoder-decoder configs, naming the step of
-    ROADMAP 15c that will lift it."""
-    if ranks <= 1:
+    """Tensor parallelism covers the dense, vlm, SSM and encoder-decoder
+    families: raise NotImplementedError on a model axis of more than one
+    rank for a config with experts (the MoE family, kimi-k2, the jamba
+    hybrid) or MLA, naming what of ROADMAP 15c step 5's rest will lift
+    it."""
+    if ranks <= 1 or not (cfg.n_experts or cfg.mla):
         return
     fam = "encdec" if cfg.encoder_layers else cfg.family
-    if fam in ("dense", "vlm") and not (cfg.n_experts or cfg.mla):
-        return
-    why = _TP_LATER.get(fam, _TP_LATER["moe"])
-    if cfg.mla:
-        why = "TP for MLA's w_uk / w_uv, and " + why
+    why = " and ".join(w for w, on in (
+        ("TP for MLA's w_uk / w_uv", cfg.mla),
+        ("the expert FFN over 'tp'", cfg.n_experts)) if on)
     raise NotImplementedError(
         f"{cfg.name} ({fam}) over a 'model' axis of {ranks} ranks: {why} "
         f"waits for ROADMAP 15c step 5's rest; this runtime's tensor "
-        f"parallelism covers the dense and vlm families")
+        f"parallelism covers the dense, vlm, SSM and encoder-decoder "
+        f"families")
 
 
 def for_train(params: Dict, stacked: Sequence[str]

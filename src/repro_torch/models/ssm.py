@@ -13,6 +13,10 @@ chunks, adding in the same order. One departure on purpose: the intra-chunk
 decay masks its exponent before the ``exp`` (ROADMAP.md), so its gradient
 stays finite at the configs' chunk of 128, where the reference's is NaN.
 
+In training over a model axis of T ranks (``tp``, ``models/sharding.py``)
+``ssm_full`` runs on the rank's h / T heads, the storage left in the
+reference's fused layout (:func:`_rank_proj`).
+
 Decode caches per layer: the pre-conv window ``conv`` (B, d_conv − 1, C)
 and the SSM ``state`` (B, H, P, N), both in the activation dtype.
 ``ssm_decode`` writes them in place (``copy_``), as the port's attention
@@ -28,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from . import sharding
 from .layers import ParamSet, ShapeDtype, hint, rms_norm
 
 
@@ -56,13 +61,68 @@ def register_ssm(ps: ParamSet, prefix: str, cfg: ArchConfig,
     ps.add(f"{prefix}/norm", s + (d,), ns + (None,), init="ones")
 
 
-def _split_proj(cfg: ArchConfig, proj: torch.Tensor
+def _split_proj(cfg: ArchConfig, proj: torch.Tensor, t: int = 1
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """z, the conv's input (x, B, C) and dt of a projection whose columns
+    hold ``1/t`` of the heads (:func:`_rank_proj`'s layout; all of them
+    at ``t`` 1)."""
     di, h, hp, n = _dims(cfg)
+    di //= t
     z = proj[..., :di]
     xbc = proj[..., di:di + di + 2 * n]
     dt = proj[..., di + di + 2 * n:]
     return z, xbc, dt
+
+
+def _rank_proj(p: Dict, cfg: ArchConfig, tp: sharding.ModelAxis
+               ) -> Tuple[torch.Tensor, ...]:
+    """``w_in``, ``conv_w`` and ``conv_b`` for this rank's heads
+    ``[r·h/T, (r+1)·h/T)``: each TP block made whole over the model group
+    (``sharding.gather_model``: the reference's fused ``(fsdp, tp)``
+    layout cuts across z, x, B, C and dt), then the columns of the rank's
+    z, x and dt and all of B and C, in the reference's order (the conv's
+    channels: the rank's x, B, C). B and C's columns and channels are
+    every rank's: the gather's reduce-scatter sums their gradients over
+    the model ranks."""
+    di, h, hp, n = _dims(cfg)
+    r, t = tp.rank, tp.size
+    dl, hl = di // t, h // t
+    w_in, conv_w, conv_b = (sharding.gather_model(p[k], p[k].dim() - 1, tp)
+                            for k in ("w_in", "conv_w", "conv_b"))
+    cols = (slice(r * dl, (r + 1) * dl),                      # z
+            slice(di + r * dl, di + (r + 1) * dl),            # x
+            slice(2 * di, 2 * di + 2 * n),                    # B, C
+            slice(2 * di + 2 * n + r * hl, 2 * di + 2 * n + (r + 1) * hl))
+    chans = (slice(r * dl, (r + 1) * dl), slice(di, di + 2 * n))
+    return (torch.cat([w_in[..., c] for c in cols], dim=-1),
+            torch.cat([conv_w[..., c] for c in chans], dim=-1),
+            torch.cat([conv_b[..., c] for c in chans], dim=-1))
+
+
+def _rank_part(w: torch.Tensor, tp: Optional[sharding.ModelAxis]
+               ) -> torch.Tensor:
+    """This rank's block of a leaf the reference keeps whole on every
+    model rank (``a_log``, ``dt_bias``, ``d_skip``, ``out_norm``), its
+    gradient summed over the model ranks (``sharding.to_model``); the
+    leaf itself without ``tp``."""
+    if tp is None:
+        return w
+    m = w.shape[-1] // tp.size
+    return sharding.to_model(w, tp)[..., tp.rank * m:(tp.rank + 1) * m]
+
+
+def _gated_norm(y: torch.Tensor, w: torch.Tensor, eps: float,
+                tp: Optional[sharding.ModelAxis]) -> torch.Tensor:
+    """``rms_norm`` over the whole ``d_inner``: with ``tp``, of which this
+    rank holds 1/T, the f32 sum of squares summed over the model ranks
+    (``sharding.sum_over_model``) before the mean."""
+    if tp is None:
+        return rms_norm(y, w, eps)
+    dt = y.dtype
+    y = y.float()
+    ss = sharding.sum_over_model(torch.sum(y * y, dim=-1, keepdim=True), tp)
+    var = ss / (y.shape[-1] * tp.size)
+    return (y * torch.rsqrt(var + eps)).to(dt) * w
 
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -138,21 +198,32 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y, hprev
 
 
-def ssm_full(p: Dict, x: torch.Tensor, cfg: ArchConfig
+def ssm_full(p: Dict, x: torch.Tensor, cfg: ArchConfig,
+             tp: Optional[sharding.ModelAxis] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence Mamba2 block. Returns (out, cache for the decode
-    hand-off: the pre-conv tail window and the final SSM state)."""
+    hand-off: the pre-conv tail window and the final SSM state). With
+    ``tp`` on the rank's heads (Megatron's Mamba2 with one group): the
+    normed input goes to every model rank, the projection, conv and SSD
+    run on the rank's z, x and dt with all of B and C (:func:`_rank_proj`),
+    the gated norm over the rank's channels with its sum of squares summed
+    over the model ranks, ``w_out`` a row block whose partial output is
+    summed over them; the cache holds the rank's channels and heads."""
     b, s, d = x.shape
     di, h, hp, n = _dims(cfg)
-    xn = rms_norm(x, p["norm"], cfg.norm_eps)
-    proj = hint(torch.matmul(xn, p["w_in"]), "batch", None, None)
-    z, xbc_raw, dt = _split_proj(cfg, proj)
-    xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
-    xin = xbc[..., :di].reshape(b, s, h, hp)
-    bmat = xbc[..., di:di + n]
-    cmat = xbc[..., di + n:]
-    dt = F.softplus(dt.float() + p["dt_bias"])
-    a = -torch.exp(p["a_log"].float())
+    t = 1 if tp is None else tp.size
+    dl, hl = di // t, h // t
+    xn = sharding.to_model(rms_norm(x, p["norm"], cfg.norm_eps), tp)
+    w_in, conv_w, conv_b = ((p["w_in"], p["conv_w"], p["conv_b"])
+                            if tp is None else _rank_proj(p, cfg, tp))
+    proj = hint(torch.matmul(xn, w_in), "batch", None, None)
+    z, xbc_raw, dt = _split_proj(cfg, proj, t)
+    xbc = _causal_conv(xbc_raw, conv_w, conv_b)
+    xin = xbc[..., :dl].reshape(b, s, hl, hp)
+    bmat = xbc[..., dl:dl + n]
+    cmat = xbc[..., dl + n:]
+    dt = F.softplus(dt.float() + _rank_part(p["dt_bias"], tp))
+    a = -torch.exp(_rank_part(p["a_log"], tp).float())
     # pad S to a chunk multiple with identity timesteps (dt=0 ⇒ decay=1 and
     # zero state contribution), so the carried state is unaffected
     l = min(cfg.ssm_chunk, s) if s % min(cfg.ssm_chunk, s) == 0 \
@@ -160,16 +231,18 @@ def ssm_full(p: Dict, x: torch.Tensor, cfg: ArchConfig
     pad = -(-s // l) * l - s
     if pad:
         xin_p = F.pad(xin, (0, 0, 0, 0, 0, pad))
-        dt_p, b_p, c_p = (F.pad(t, (0, 0, 0, pad)) for t in (dt, bmat, cmat))
+        dt_p, b_p, c_p = (F.pad(u, (0, 0, 0, pad)) for u in (dt, bmat, cmat))
     else:
         xin_p, dt_p, b_p, c_p = xin, dt, bmat, cmat
     y, hfin = ssd_chunked(xin_p.float(), dt_p, a, b_p.float(), c_p.float(),
                           l)
     y = y[:, :s]
-    y = y + xin.float() * p["d_skip"][:, None]
-    y = y.reshape(b, s, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps)
-    out = hint(torch.matmul(y, p["w_out"]), "batch", None, None)
+    y = y + xin.float() * _rank_part(p["d_skip"], tp)[:, None]
+    y = y.reshape(b, s, dl).to(x.dtype)
+    y = _gated_norm(y * F.silu(z), _rank_part(p["out_norm"], tp),
+                    cfg.norm_eps, tp)
+    out = hint(sharding.from_model(torch.matmul(y, p["w_out"]), tp),
+               "batch", None, None)
     # decode hand-off: the *pre-conv* tail window (left-padded with zeros
     # when S < K−1) + the final SSM state in the activation dtype; the
     # tail is copied out of ``proj`` so the cache does not hold it

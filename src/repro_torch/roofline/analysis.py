@@ -262,13 +262,21 @@ def _group_of(args) -> Any:
     return None
 
 
+def _ranks(group) -> tuple:
+    """The global ranks of a process group."""
+    import torch.distributed as dist
+    return tuple(dist.get_process_group_ranks(group))
+
+
 class _CollectiveBytes(TorchDispatchMode):
     """Payload bytes and counts of the c10d collectives dispatched while
     active, by the reference's op name and by the group each ran over
-    (named by ``names``: a group's ``group_name`` → an axis name; else
-    "<n> ranks"); raises on a collective the ring model does not cover."""
+    (named by ``names``: a group's global ranks → an axis name, so two
+    group objects over the same ranks, as two meshes of one layout give,
+    take one name; else "<n> ranks"); raises on a collective the ring
+    model does not cover."""
 
-    def __init__(self, names: Dict[str, str]):
+    def __init__(self, names: Dict[tuple, str]):
         super().__init__()
         self.names = names
         self.by_group: Dict[str, Dict] = {}
@@ -281,7 +289,7 @@ class _CollectiveBytes(TorchDispatchMode):
             name, arg = _C10D[op]
             pg = _group_of(args)
             n = pg.size()
-            key = self.names.get(pg.group_name, f"{n} ranks")
+            key = self.names.get(_ranks(pg), f"{n} ranks")
             rec = self.by_group.setdefault(key, {
                 "ranks": n, "counts": {}, "payload_bytes": {},
                 "wire_bytes": {}})
@@ -324,7 +332,9 @@ def collectives_of(fn: Callable, ranks: int, *args,
     (``models/sharding.groups_of``: ``{"data": ..., "model": ...}``).
     ``analyze(cost, c.wire_bytes)`` takes the result."""
     from torch.distributed.tensor.debug import CommDebugMode
-    names = {g.group_name: k for k, g in (groups or {}).items()}
+    names: Dict[tuple, str] = {}
+    for k, g in (groups or {}).items():     # on one rank the first: "data"
+        names.setdefault(_ranks(g), k)
     rec = _CollectiveBytes(names)
     with CommDebugMode() as comm, rec:
         out = fn(*args)
@@ -334,33 +344,48 @@ def collectives_of(fn: Callable, ranks: int, *args,
 
 
 def reckon_collectives(model, data: int, model_ranks: int,
-                       microbatches: int, rows: int, seq_len: int
-                       ) -> Dict[str, Dict]:
-    """The collectives the spec tree implies for one train step of a dense
-    or vlm ``model`` (an ``LM``, remat "none" or "full") on a (``data``,
-    ``model_ranks``) ("data", "model") mesh, ``microbatches`` passes of
-    ``rows`` sequences of ``seq_len`` tokens on each data rank, as
-    :func:`collectives_of` records them in ``by_group``: ``{group:
-    {"ranks", "counts", "payload_bytes", "wire_bytes"}}``.
+                       microbatches: int, rows: int, seq_len: int,
+                       enc_len: int = 0) -> Dict[str, Dict]:
+    """The collectives the spec tree implies for one train step of a dense,
+    vlm or SSM ``LM`` or an ``EncDecLM`` (remat "none" or "full"; frames
+    of ``enc_len`` on its encoder) on a (``data``, ``model_ranks``)
+    ("data", "model") mesh, ``microbatches`` passes of ``rows`` sequences
+    of ``seq_len`` tokens on each data rank, as :func:`collectives_of`
+    records them in ``by_group``: ``{group: {"ranks", "counts",
+    "payload_bytes", "wire_bytes"}}``.
 
     Data axis, each pass: every leaf sharded on "data" all-gathered (its
     TP block) in the forward and, stacked under remat "full", again in the
     recompute, then reduce-scattered; a data-replicated leaf's gradient
     all-reduced. Then the loss and the global norm's per-leaf sums. Model
-    axis (more than one rank), each pass, all all-reduces: the lookup's
-    rows, ``wo``'s and ``w_down``'s partial outputs and, in the recompute,
-    ``wo``'s again (the recompute stops before ``w_down``'s, which the
-    backward does not need), the cross-entropy's maximum, sum of
-    exponentials and gold logit; in the backward the gradient into every
-    layer's and the head's normed input, and ``q_norm`` / ``k_norm``'s.
+    axis (more than one rank), each pass, all all-reduces but the SSM's
+    gathers: the lookup's rows; in the forward the row-parallel partial
+    outputs (``wo``'s, the cross-attention's ``wo``'s, ``w_down``'s, the
+    SSM's ``w_out``'s) and, in the recompute, those the backward needs (it
+    stops before a layer's last: ``w_down``'s or ``w_out``'s); the SSM's
+    ``w_in``, ``conv_w`` and ``conv_b`` all-gathered (forward and
+    recompute) and reduce-scattered, its gated norm's f32 sum of squares
+    summed (forward, recompute, backward); the cross-entropy's maximum,
+    sum of exponentials and gold logit; in the backward the gradient into
+    every layer's and the head's normed input, the encoder output's into
+    each cross-attention, and the gradients of ``q_norm`` / ``k_norm`` and
+    of the SSM's ``a_log``, ``dt_bias``, ``d_skip`` and ``out_norm``.
     Then the global norm's sums."""
     from ..models.layers import MeshAxes, resolve_spec
     cfg = model.cfg
     if cfg.remat not in ("none", "full"):
         raise ValueError(f"reckoned for remat none and full, not "
                          f"{cfg.remat!r}")
+    kinds = {(ld.kind, ld.mlp) for ld in cfg.layer_pattern()}
+    if cfg.n_experts or cfg.mla or len(kinds) > 1 or not kinds <= {
+            ("attn", "dense"), ("ssm", "none")}:
+        raise ValueError(f"{cfg.name}: reckoned for the dense, vlm, SSM "
+                         f"and encoder-decoder families")
     again = 2 if cfg.remat == "full" else 1
     axes = MeshAxes(fsdp=("data",))
+    stacks = ({"enc_blocks/": cfg.encoder_layers,
+               "dec_blocks/": cfg.n_layers} if cfg.encoder_layers
+              else {"blocks/": model.n_blocks})
     out: Dict[str, Dict] = {}
 
     def add(group: str, n: int, op: str, calls: int, b: int) -> None:
@@ -370,35 +395,69 @@ def reckon_collectives(model, data: int, model_ranks: int,
                      ("wire_bytes", calls * _RING[op](b, n))):
             rec[k][op] = rec[k].get(op, 0) + v
     for path, info in sorted(model.ps.infos.items()):
-        stacked = path.startswith("blocks/")
-        n = model.n_blocks if stacked else 1
-        spec = resolve_spec(info.spec, axes)
-        b = (math.prod(info.shape[1:] if stacked else info.shape)
+        stack = next((k for k in stacks if path.startswith(k)), None)
+        n = 1 if stack is None else stacks[stack]
+        b = (math.prod(info.shape[1:] if stack else info.shape)
              * info.dtype.itemsize)
+        spec = resolve_spec(info.spec, axes)
         if "model" in spec:
             b //= model_ranks
         if "data" in spec:
             add("data", data, "all-gather",
-                microbatches * n * (again if stacked else 1), b)
+                microbatches * n * (again if stack else 1), b)
             add("data", data, "reduce-scatter", microbatches * n, b)
         else:
             add("data", data, "all-reduce", microbatches * n, b)
     leaves = 4 * len(model.ps.infos)
     add("data", data, "all-reduce", 1, 4)
     add("data", data, "all-reduce", 1, leaves)
-    if model_ranks > 1:
-        t, nb = model_ranks, model.n_blocks
-        act = model.adt.itemsize * rows * cfg.d_model
-        s_all = seq_len + cfg.frontend_tokens
-        add("model", t, "all-reduce", microbatches, act * seq_len)
-        add("model", t, "all-reduce", microbatches * nb * (again + 1),
-            act * s_all)
-        add("model", t, "all-reduce", microbatches * 3, 4 * rows
-            * (seq_len - 1))
-        add("model", t, "all-reduce", microbatches * (2 * nb + 1),
-            act * s_all)
+    if model_ranks <= 1:
+        return out
+    t, m = model_ranks, microbatches
+    act = model.adt.itemsize * rows * cfg.d_model
+    s_all = seq_len + (0 if cfg.encoder_layers else cfg.frontend_tokens)
+
+    def ar(calls: int, b: int) -> None:
+        add("model", t, "all-reduce", m * calls, b)
+    ar(1, act * seq_len)                        # the lookup's rows
+    ar(3, 4 * rows * (seq_len - 1))             # the cross-entropy's sums
+    ar(1, act * s_all)                          # the head's normed input
+    qk = cfg.d_head * model.pdt.itemsize      # q_norm's, k_norm's
+    if cfg.encoder_layers:
+        ne, nd, s_enc = cfg.encoder_layers, cfg.n_layers, enc_len
+        # encoder: wo, w_down, wo again; the attention's and the MLP's
+        # normed inputs
+        ar(ne * (again + 1), act * s_enc)
+        ar(2 * ne, act * s_enc)
+        # decoder: wo, the cross wo, w_down, both wo again; the normed
+        # inputs of the attention, the cross-attention and the MLP; the
+        # encoder output into the cross-attention
+        ar(nd * (3 + 2 * (again - 1)), act * seq_len)
+        ar(3 * nd, act * seq_len)
+        ar(nd, act * s_enc)
         if cfg.qk_norm:
-            add("model", t, "all-reduce", microbatches * 2 * nb,
-                cfg.d_head * model.pdt.itemsize)
-        add("model", t, "all-reduce", 1, leaves)
+            ar(2 * (ne + nd), qk)
+    elif ("ssm", "none") in kinds:
+        nb = model.n_blocks
+        di = cfg.ssm_expand * cfg.d_model
+        h, nst = di // cfg.ssm_head_dim, cfg.ssm_state
+        ssq = 4 * rows * s_all                  # the gated norm's sums
+        ar(nb, act * s_all)                     # w_out
+        ar(nb * (again + 1), ssq)
+        ar(nb, act * s_all)                     # the normed input
+        for width in (h, h, h, di):             # a_log, dt_bias, d_skip,
+            ar(nb, width * model.pdt.itemsize)  # out_norm
+        for width in ((2 * di + 2 * nst + h) * cfg.d_model,    # w_in
+                      (di + 2 * nst) * cfg.ssm_conv,           # conv_w
+                      di + 2 * nst):                           # conv_b
+            b = width * model.pdt.itemsize
+            add("model", t, "all-gather", m * nb * again, b)
+            add("model", t, "reduce-scatter", m * nb, b)
+    else:
+        nb = model.n_blocks
+        ar(nb * (again + 1), act * s_all)
+        ar(2 * nb, act * s_all)
+        if cfg.qk_norm:
+            ar(2 * nb, qk)
+    add("model", t, "all-reduce", 1, leaves)
     return out

@@ -181,6 +181,7 @@ def run_train_case(case: Dict, group, device) -> Optional[Dict]:
     ``out/<name>_r<rank>.npz``; ``shapes``: record each leaf's local shape
     and a hint's placements; ``run``: ``launch/train.run`` with these
     TrainJob fields instead; ``mesh``: another (data, model) shape;
+    ``cfg``: ArchConfig fields to override on the reduced config;
     ``mask``: batches with a ``loss_mask``; ``deterministic``: under
     ``torch.use_deterministic_algorithms``; ``raises``: the case must
     raise NotImplementedError or ValueError, its type and message
@@ -228,7 +229,7 @@ def _train_case(case: Dict, group, device) -> Dict:
         rec["ce"] = _vocab_parallel_ce(mesh, device)
         return rec
     cfg = dc.replace(reduced_config(ARCHS[case["arch"]]),
-                     remat=case.get("remat", "none"))
+                     remat=case.get("remat", "none"), **case.get("cfg", {}))
     if "run" in case:
         logs: List[str] = []
         out = ltrain.run(ltrain.TrainJob(arch=cfg, **case["run"]),

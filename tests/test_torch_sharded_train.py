@@ -17,13 +17,16 @@ shows:
   in a subprocess);
 * tensor parallelism on (1, 2) (in the W = 2 subprocess) and (2, 2) (in
   the W = 4 one) for the reduced qwen3-14b (qk-norm), qwen2-1.5b (tied
-  embeddings, qkv bias), yi-6b and phi-3-vision (frontend tokens): the
-  same bounds; the gradient of every leaf on (1, 2), the qk-norm's among
-  them, ≡ ``jax.grad`` of the reference; the vocab-parallel cross-entropy
-  with padded columns; the (2, 2) init blocks; the collectives of a (2, 2)
-  step by group; checkpoints between (2, 2), (4, 1) and (1, 1); the
-  families tensor parallelism leaves out and an uneven kv-head split
-  raise;
+  embeddings, qkv bias), yi-6b, phi-3-vision (frontend tokens),
+  seamless-m4t-large-v2 (both stacks, the cross-attention) and mamba2
+  (8 SSM heads over a fused ``w_in`` of 296 columns, tied embeddings):
+  the same bounds; the gradient of every leaf on (1, 2), the qk-norm's
+  and the SSM's among them, ≡ ``jax.grad`` of the reference; the
+  vocab-parallel cross-entropy with padded columns; the (1, 2) and (2, 2)
+  init blocks; the collectives of a (2, 2) step by group; checkpoints
+  between (2, 2), (4, 1) and (1, 1), and the reference's restore of them;
+  the families tensor parallelism leaves out (experts, MLA), an uneven
+  kv-head split and SSM heads that do not divide raise;
 * W = 1 ≡ the port's unsharded step bit for bit, and ``launch/train.run``
   on a mesh ≡ the unsharded run (bit for bit at W = 1), logging on rank 0
   only;
@@ -33,8 +36,8 @@ shows:
 * checkpoints: saved on W = 4, continued on W = 4 bit for bit, on W = 2
   and W = 1 within the tolerances; readable by the reference's
   ``checkpoint.restore``;
-* an MoE config over 2 ranks and an SSM config over a "model" axis of 2
-  raise naming 15c;
+* an MoE config over 2 ranks and the jamba hybrid over a "model" axis of
+  2 raise naming 15c (jamba's message names only the expert FFN);
 * ``hint`` is ``x`` itself without axes or on a plain tensor, and gives
   ``resolve_spec``'s placements on a DTensor; the port calls it in the
   functions where the reference does;
@@ -74,12 +77,17 @@ STEPS, BATCH, SEQ = 3, 4, 16
 REF_ARCHS = ("qwen3-14b", "yi-6b", "seamless-m4t-large-v2", "mamba2-370m",
              "qwen2-1.5b", "phi-3-vision-4.2b")
 # the tensor-parallel configs: qk-norm, tied embeddings with qkv bias, GQA,
-# MHA with frontend tokens
-TP_ARCHS = ("qwen3-14b", "qwen2-1.5b", "yi-6b", "phi-3-vision-4.2b")
+# MHA with frontend tokens, the encoder-decoder, the SSM
+TP_ARCHS = ("qwen3-14b", "qwen2-1.5b", "yi-6b", "phi-3-vision-4.2b",
+            "seamless-m4t-large-v2", "mamba2-370m")
+# the families added after the dense ones: each also has its gradients,
+# init blocks, (2, 2) checkpoint and collectives held
+TP_FAMILIES = ("seamless-m4t-large-v2", "mamba2-370m")
 TP_MESHES = {"tp12": (1, 2), "tp22": (2, 2)}
 # each family tensor parallelism leaves out, on a (1, 2) mesh
-TP_REFUSED = ("mamba2-370m", "deepseek-v2-lite-16b", "kimi-k2-1t-a32b",
-              "jamba-v0.1-52b", "seamless-m4t-large-v2")
+TP_REFUSED = ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "jamba-v0.1-52b")
+# a reduced mamba2 of 6 SSM heads (d_inner 192, head dim 32)
+SSM_6_HEADS = dict(ssm_expand=3, ssm_head_dim=32)
 RUN_JOB = dict(steps=3, seq_len=16, global_batch=4, lr=1e-2, warmup=2,
                log_every=1)
 
@@ -172,13 +180,31 @@ def runs(ref, tmp_path_factory):
         "tp22_from41")}
     dirs.update({f"{m}_{a}": str(d / f"{m}_{a}") for m in TP_MESHES
                  for a in TP_ARCHS})
+    dirs.update({f"{k}_{a}": str(d / f"{k}_{a}") for a in TP_FAMILIES
+                 for k in ("tp22_ck", "tp22_ck_same", "ck41_from22")})
     q = "qwen3-14b"
     shards = dict(arch=q, steps=0, init_shards=True, shapes=True)
     tp = {m: [_case(f"{m}_{a}", a, ref, mesh=shape, save=dirs[f"{m}_{a}"])
               for a in TP_ARCHS] for m, shape in TP_MESHES.items()}
-    # the (2, 2) qwen3 step under remat "full", its collectives counted
-    tp["tp22"][0].update(remat="full", count=True)
+    # the (2, 2) steps of qwen3 and the families under remat "full", their
+    # collectives counted
+    for c in tp["tp22"]:
+        if c["arch"] in (q,) + TP_FAMILIES:
+            c.update(remat="full", count=True)
     ck22 = dict(arch=q, opt=OPT, remat="full", steps=STEPS)
+    # each family's (2, 2) checkpoint at step 2, resumed on (2, 2) and
+    # (4, 1)
+    fam_ck = []
+    for a in TP_FAMILIES:
+        fck = dict(arch=a, opt=OPT, remat="full", steps=STEPS,
+                   restore=dirs[f"tp22_ck_{a}"])
+        fam_ck += [
+            _case(f"tp22_ck_{a}", a, ref, mesh=(2, 2), remat="full",
+                  steps=2, save=dirs[f"tp22_ck_{a}"]),
+            dict(fck, name=f"tp22_ck_same_{a}", mesh=(2, 2),
+                 save=dirs[f"tp22_ck_same_{a}"]),
+            dict(fck, name=f"ck41_from22_{a}",
+                 save=dirs[f"ck41_from22_{a}"])]
     plans = {
         4: [_case("qwen3", q, ref, save=dirs["w4_qwen3"], count=True),
             _case("yi", "yi-6b", ref),
@@ -200,6 +226,11 @@ def runs(ref, tmp_path_factory):
                  mesh=(2, 2)),
             dict(name="kv_uneven", arch=q, steps=0, mesh=(1, 4),
                  raises=True),
+            *fam_ck,
+            *[dict(name=f"shards_tp22_{a}", arch=a, steps=0,
+                   init_shards=True, mesh=(2, 2)) for a in TP_FAMILIES],
+            dict(name="ssm_uneven", arch="mamba2-370m", steps=0,
+                 mesh=(1, 4), cfg=SSM_6_HEADS, raises=True),
             dict(name="run_tp22", arch=q, run=RUN_JOB, mesh=(2, 2))],
         2: [_case("qwen3", q, ref),
             _case("yi", "yi-6b", ref),
@@ -212,7 +243,7 @@ def runs(ref, tmp_path_factory):
                  restore=dirs["ck4"], save=dirs["ck2_from4"]),
             dict(name="moe", arch="deepseek-v2-lite-16b", steps=0,
                  raises=True),
-            dict(name="tp", arch="mamba2-370m", steps=0, mesh=(1, 2),
+            dict(name="tp", arch="jamba-v0.1-52b", steps=0, mesh=(1, 2),
                  raises=True),
             dict(name="mask", arch=q, steps=1, mask=True, raises=True),
             dict(shards, name="shards"),
@@ -222,6 +253,10 @@ def runs(ref, tmp_path_factory):
             dict(name="tp12_ce", arch=q, steps=0, mesh=(1, 2), ce=True),
             dict(name="shards_tp12", arch=q, steps=0, init_shards=True,
                  mesh=(1, 2)),
+            *[_case(f"tp12_grads_{a}", a, ref, mesh=(1, 2), steps=0,
+                    grads=True) for a in TP_FAMILIES],
+            *[dict(name=f"shards_tp12_{a}", arch=a, steps=0,
+                   init_shards=True, mesh=(1, 2)) for a in TP_FAMILIES],
             *[dict(name=f"refuse_{a}", arch=a, steps=0, mesh=(1, 2),
                    raises=True) for a in TP_REFUSED],
             dict(name="run_tp12", arch=q, run=RUN_JOB, mesh=(1, 2))],
@@ -467,9 +502,9 @@ def test_reference_restores_the_sharded_checkpoint(runs, ref, jx):
 @pytest.mark.parametrize("case,pattern", [("moe", "MoE.*15c"),
                                           ("tp", "model.*15c")])
 def test_moe_and_model_axis_raise_naming_15c(runs, case, pattern):
-    """An MoE config over a data axis of 2 ranks, and the SSM config
-    (mamba2) over a "model" axis of 2: tensor parallelism covers the dense
-    and vlm families only."""
+    """An MoE config over a data axis of 2 ranks, and the jamba hybrid
+    over a "model" axis of 2: tensor parallelism covers the dense, vlm,
+    SSM and encoder-decoder families, not the expert FFN."""
     import re
     rec = runs[0][2][case]
     assert rec["raised"][0] == "NotImplementedError"
@@ -655,9 +690,9 @@ def _ref_grads(jx, ref, arch):
     return _flat_np(jx.jax.tree.map(np.asarray, grads))
 
 
-def _tp12_grads(runs):
+def _tp12_grads(runs, name="tp12_grads"):
     _, _, d = runs
-    with np.load(d / "w2" / "tp12_grads_grads.npz") as z:
+    with np.load(d / "w2" / f"{name}_grads.npz") as z:
         return {k: z[k] for k in z.files}
 
 
@@ -706,10 +741,14 @@ def test_tensor_parallel_init_blocks_are_slices_of_the_one_device_init(
     """Rank r of a (D, T) mesh sits at data coordinate r // T and model
     coordinate r % T; its block of every leaf ≡ the slice of the
     one-device seed-0 init along both axes, bit for bit."""
+    _init_blocks_are_slices(runs, mesh, "qwen3-14b", f"shards_{mesh}")
+
+
+def _init_blocks_are_slices(runs, mesh, arch, name):
     _, _, d = runs
     shape = TP_MESHES[mesh]
     world = math.prod(shape)
-    cfg = treduced(TARCHS["qwen3-14b"])
+    cfg = treduced(TARCHS[arch])
     model = tbuild(cfg, attn_impl="sdpa", device="cpu")
     whole = _flat_np_t(model.init_params(
         torch.Generator(device="cpu").manual_seed(0)))
@@ -718,7 +757,7 @@ def test_tensor_parallel_init_blocks_are_slices_of_the_one_device_init(
     for r in range(world):
         at = {"data": r // shape[1], "model": r % shape[1]}
         size = {"data": shape[0], "model": shape[1]}
-        with np.load(d / f"w{world}" / f"shards_{mesh}_r{r}.npz") as z:
+        with np.load(d / f"w{world}" / f"{name}_r{r}.npz") as z:
             for k, full in whole.items():
                 idx = tuple(
                     slice(None) if e is None else
@@ -773,11 +812,15 @@ def test_tensor_parallel_checkpoint_continues_bit_for_bit_on_its_mesh(
     """A (2, 2) checkpoint at step 2, step 3 resumed on (2, 2) ≡ the
     uninterrupted (2, 2) run: its metrics and every array of the step-3
     checkpoint."""
+    _resumed_bit_for_bit(runs, "tp22_qwen3-14b", "tp22_ck_same")
+
+
+def _resumed_bit_for_bit(runs, full_case, resumed_case):
     recs, dirs, _ = runs
-    full, resumed = recs[4]["tp22_qwen3-14b"], recs[4]["tp22_ck_same"]
+    full, resumed = recs[4][full_case], recs[4][resumed_case]
     assert resumed["metrics"] == full["metrics"][2:]
-    want = _arrays(dirs["tp22_qwen3-14b"], STEPS)
-    got = _arrays(dirs["tp22_ck_same"], STEPS)
+    want = _arrays(dirs[full_case], STEPS)
+    got = _arrays(dirs[resumed_case], STEPS)
     assert set(got) == set(want)
     for k in want:
         assert got[k].tobytes() == want[k].tobytes(), k
@@ -802,11 +845,15 @@ def test_tensor_parallel_checkpoint_moves_between_meshes(runs, case, world,
 def test_reference_restores_the_tensor_parallel_checkpoint(runs, ref, jx):
     """The (2, 2) checkpoint is the reference's format: its restore reads
     it, and its params after 2 steps are the reference's within 1e-3."""
+    _reference_restores(runs, ref, jx, "qwen3-14b", "tp22_ck")
+
+
+def _reference_restores(runs, ref, jx, arch, ckpt):
     _, dirs, _ = runs
-    jm, jp = ref["qwen3-14b"]["model"], ref["qwen3-14b"]["params"]
+    jm, jp = ref[arch]["model"], ref[arch]["params"]
     jc = jx.AdamWConfig(**OPT)
     like = {"params": jp, "opt": jx.optimizer.init_state(jc, jp)}
-    got = jx.checkpoint.restore(dirs["tp22_ck"], 2, like)
+    got = jx.checkpoint.restore(dirs[ckpt], 2, like)
     assert int(got["opt"]["step"]) == 2
     step = jx.jax.jit(jx.make_train_step(jm, jc))
     p, st = jp, like["opt"]
@@ -819,9 +866,8 @@ def test_reference_restores_the_tensor_parallel_checkpoint(runs, ref, jx):
 
 @pytest.mark.parametrize("arch", TP_REFUSED)
 def test_families_outside_tensor_parallelism_raise_naming_15c(runs, arch):
-    """The SSM, MoE (MLA and GQA), hybrid and encoder-decoder configs on a
-    (1, 2) mesh raise NotImplementedError naming 15c and the step that
-    will lift it."""
+    """The MoE (MLA and GQA) and hybrid configs on a (1, 2) mesh raise
+    NotImplementedError naming 15c and the step that will lift it."""
     rec = runs[0][2][f"refuse_{arch}"]
     assert rec["raised"][0] == "NotImplementedError", rec
     assert "15c step 5's rest" in rec["raised"][1], rec
@@ -897,6 +943,133 @@ def test_train_run_on_a_tensor_parallel_mesh(runs, mesh):
     rec = runs[0][world][f"run_{mesh}"]
     assert rec["log_lines"] == [STEPS] + [0] * (world - 1)
     np.testing.assert_allclose(rec["losses"], want, atol=ATOL, rtol=RTOL)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism of the encoder-decoder and the SSM family
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", TP_FAMILIES)
+def test_tp_family_gradients_match_reference(runs, ref, jx, arch):
+    """The gradient of every leaf on a (1, 2) mesh, made whole, ≡
+    ``jax.grad`` of the reference: of seamless's two stacks, its
+    cross-attention (the encoder output's gradient summed over the model
+    ranks) and its vocab-parallel lookup and head; of mamba2's ``w_in``
+    (each rank's heads' z, x and dt columns, B and C's summed over the
+    ranks), conv, ``a_log``, ``dt_bias``, ``d_skip``, ``out_norm`` (each
+    rank's part, summed) and ``w_out``."""
+    got = _tp12_grads(runs, f"tp12_grads_{arch}")
+    want = _ref_grads(jx, ref, arch)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], atol=ATOL, rtol=RTOL,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("arch", TP_FAMILIES)
+@pytest.mark.parametrize("mesh", list(TP_MESHES))
+def test_tp_family_init_blocks_are_slices_of_the_one_device_init(
+        runs, mesh, arch):
+    """Each rank's block of every leaf of the reduced seamless and mamba2
+    on (1, 2) and (2, 2) ≡ the slice of the one-device seed-0 init, bit for
+    bit: the SSM's fused ``w_in`` stays in the reference's layout."""
+    _init_blocks_are_slices(runs, mesh, arch, f"shards_{mesh}_{arch}")
+
+
+@pytest.mark.parametrize("arch", TP_FAMILIES)
+def test_tp_family_checkpoint_continues_bit_for_bit_on_its_mesh(runs,
+                                                               arch):
+    """A (2, 2) checkpoint at step 2, step 3 resumed on (2, 2) ≡ the
+    uninterrupted (2, 2) run: its metrics and every array of the step-3
+    checkpoint."""
+    _resumed_bit_for_bit(runs, f"tp22_{arch}", f"tp22_ck_same_{arch}")
+
+
+@pytest.mark.parametrize("arch", TP_FAMILIES)
+def test_tp_family_checkpoint_resumes_on_four_data_ranks(runs, arch):
+    """The (2, 2) checkpoint at step 2 resumed on (4, 1): step 3 within the
+    tolerances of the uninterrupted (2, 2) run, params within 1e-3."""
+    recs, dirs, _ = runs
+    _close(recs[4][f"ck41_from22_{arch}"]["metrics"],
+           recs[4][f"tp22_{arch}"]["metrics"][2:], f"(2, 2) → (4, 1) {arch}")
+    assert _max_diff(_params_of(dirs[f"ck41_from22_{arch}"], STEPS),
+                     _params_of(dirs[f"tp22_{arch}"], STEPS)) < 1e-3
+
+
+@pytest.mark.parametrize("arch", TP_FAMILIES)
+def test_reference_restores_the_tp_family_checkpoint(runs, ref, jx, arch):
+    """Each family's (2, 2) checkpoint is the reference's format: its
+    restore reads it, and its params after 2 steps are the reference's
+    within 1e-3."""
+    _reference_restores(runs, ref, jx, arch, f"tp22_ck_{arch}")
+
+
+@pytest.mark.parametrize("arch", TP_FAMILIES)
+def test_tp_family_collectives_are_what_the_spec_tree_implies(runs, arch):
+    """One (2, 2) step under remat "full", by group, ≡
+    ``roofline/analysis.reckon_collectives``; CommDebugMode's counts by op
+    are the groups' sums. For the reduced mamba2 (one layer) the model
+    axis spelled out: all-reduces of the lookup's rows, the
+    cross-entropy's 3 sums, the head's and the layer's normed inputs,
+    ``w_out``'s partial output, the gated norm's sums of squares in the
+    forward, the recompute and the backward, the gradients of ``a_log``,
+    ``dt_bias``, ``d_skip`` and ``out_norm``, the global norm's sums; the
+    gathers of ``w_in``, ``conv_w`` and ``conv_b`` in the forward and the
+    recompute, and their reduce-scatters."""
+    from repro_torch.roofline import analysis
+    rec = runs[0][4][f"tp22_{arch}"]["collectives"]
+    cfg = dataclasses.replace(treduced(TARCHS[arch]), remat="full")
+    model = tbuild(cfg, attn_impl="sdpa", device="cpu")
+    want = analysis.reckon_collectives(model, 2, 2, 1, BATCH // 2, SEQ,
+                                       enc_len=cfg.frontend_tokens)
+    assert rec["by_group"] == want
+    ops = {"all-gather": "c10d._allgather_base_",
+           "reduce-scatter": "c10d._reduce_scatter_base_",
+           "all-reduce": "c10d.allreduce_"}
+    total = {}
+    for g in want.values():
+        for op, n in g["counts"].items():
+            total[ops[op]] = total.get(ops[op], 0) + n
+    assert rec["counts"] == total
+    if arch == "mamba2-370m":
+        assert want["model"]["counts"] == {
+            "all-reduce": 1 + 3 + 1 + 1 + 1 + 3 + 4 + 1,
+            "all-gather": 3 * 2, "reduce-scatter": 3}
+
+
+def test_ssm_heads_that_do_not_divide_raise(runs):
+    """A reduced mamba2 of 6 SSM heads on a "model" axis of 4: ValueError
+    (``launch/mesh.check_divides``: a rank takes whole SSM heads)."""
+    rec = runs[0][4]["ssm_uneven"]
+    assert rec["raised"][0] == "ValueError", rec
+    assert "the SSM heads 6 over 'model' 4" in rec["raised"][1], rec
+
+
+def test_jamba_refusal_names_only_the_expert_ffn(runs):
+    """jamba on a (1, 2) mesh: its SSM and attention layers are
+    tensor-parallel now, so the refusal names only the expert FFN."""
+    msg = runs[0][2]["tp"]["raised"][1]
+    head = msg.split(" waits for ")[0]
+    assert head.endswith(": the expert FFN over 'tp'"), msg
+    assert "w_in" not in msg and "MLA" not in msg, msg
+
+
+@pytest.mark.parametrize("arch,shape,bad", [
+    ("mamba2-370m", (2, 2), None), ("mamba2-370m", (1, 8), None),
+    ("mamba2-370m", (1, 3), "the SSM heads 32 over 'model' 3"),
+    ("mamba2-370m", (1, 64), "the SSM heads 32 over 'model' 64"),
+    ("seamless-m4t-large-v2", (2, 2), None),
+    ("seamless-m4t-large-v2", (1, 32), "n_heads 16 over 'model' 32")])
+def test_check_divides_ssm_and_encdec(arch, shape, bad):
+    """``launch/mesh.check_divides`` on mamba2-370m (32 SSM heads, ``w_in``
+    of 4,384 columns, 2,304 conv channels) and seamless-m4t-large-v2 (16
+    heads and kv heads, d_ff 8,192, vocab padded to 256,256)."""
+    mesh = tmesh.Mesh(shape, ("data", "model"))
+    if bad is None:
+        tmesh.check_divides(TARCHS[arch], mesh)
+    else:
+        with pytest.raises(ValueError, match=bad.replace("'", ".")):
+            tmesh.check_divides(TARCHS[arch], mesh)
 
 
 _DP2_SCRIPT = """
