@@ -3,8 +3,8 @@
 kernel of that path against its plain PyTorch version.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --cards 4      # phases 35 (b), 36, 37, 39 on 4 cards
-    python3 chip_smoke.py --cards 4 --only 39    # some of them
+    python3 chip_smoke.py --cards 4      # phases 35 (b), 36, 37, 39, 40 on 4 cards
+    python3 chip_smoke.py --cards 4 --only 40    # some of them
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   0. build: compile every kernel under src/repro_torch/kernels/csrc with
@@ -547,6 +547,37 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      (idle share, NCCL device ms by kind, each card); (d) no kernel
      launches on any card over (a)-(c) (printed as a
      ``tp_families_launches`` JSON line, one entry a kernel).
+ 40. tensor parallelism of MLA and the expert FFN (``attention.mla_full``
+     on the rank's heads, ``moe.moe_layer``'s expert FFN over "model"),
+     only with ``--cards 4``, after 39 in the same call: (a)
+     deepseek-v2-lite-16b at full width (MLA at rank 512, 64 experts top-6
+     + 2 shared, bf16, remat full), 4 of 27 layers, 2 × 4,096 tokens in 2
+     microbatches, 5 steps at lr 3e-4 after a warm-up of 100 under
+     deterministic algorithms on one device (rank 0, no mesh) against a
+     (1, 2) mesh, and again against (1, 4),
+     each pair in one spawn and held by phase 39's checks (loss and
+     grad_norm within rtol 2e-3, each leaf's step-1 gradient norm within
+     rel 2^-5, at most 1e-3 of a leaf beyond 3·lr + 2^-8·|param|, every
+     element within AdamW's reach); step 1's routing (the sha256 of every
+     ``moe.positions`` call's expert indices) equal on every model rank of
+     a run; each run's dropped share at capacity factor 1.25 printed
+     beside the one device's, not gated; (b) the same job on (1, 4) at 26
+     layers (the deepest under ~72 GB a card by PERF.md §6 PR 36's
+     reckoning), in a spawn of its own after (a) and (c) print: every
+     loss and aux finite, the loss lower after step 5 than after step 1,
+     ms/step (the slowest card's median of steps 2-5), tokens/s, the
+     model-FLOPs share (``launch/cells.analytic_step_flops``), the peak of
+     every card (under 80 GB) beside the reckoned one, one more step under
+     ``CommDebugMode`` (by group ≡ ``roofline/analysis.reckon_collectives``,
+     the collective term) and one profiled (idle share, device ms by
+     range ``full/attn``, ``full/moe``, ``train/backward``,
+     ``train/adamw``, NCCL device ms by kind, each card); (c) the reduced
+     deepseek (32 experts: the FFN dim over "model"), jamba and kimi-k2
+     (8 experts: the experts over "model") in f32, 3 steps of 4 × 64 on
+     one device against (1, 2): loss and grad_norm within phase 33 (c)'s
+     rtol 1e-4, the params after step 1 within 1e-6 but for at most 1e-3
+     of them, each within 2·lr; (d) no kernel launches on any card over
+     (a)-(c) (printed as a ``tp_moe_launches`` JSON line).
 
 The kernels line's K1 and column-map entries add their launches per tick
 on phase 23 (b) (``ensemble_launches_per_tick``); the pair-list build's
@@ -6793,8 +6824,15 @@ FSDP_ELASTIC = dict(arch="qwen2-1.5b", n_layers=2, batch=4, seq_len=4096,
 
 
 def _fsdp_cfg(spec: dict):
+    """``spec``'s config: its depth cut to ``n_layers`` where set; with
+    ``reduced``, ``reduced_config``'s (remat full) with the fields of
+    ``over``."""
     from repro_torch.configs import ARCHS
+    from repro_torch.models import reduced_config
     cfg = ARCHS[spec["arch"]]
+    if spec.get("reduced"):
+        cfg = dataclasses.replace(reduced_config(cfg), remat="full",
+                                  **spec.get("over", {}))
     if spec.get("n_layers") is not None:
         cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
     return cfg
@@ -6811,7 +6849,8 @@ def _param_hashes(params) -> dict:
 
 
 def _fsdp_steps(spec: dict, mesh, dev, micro: int = 1, extra=(),
-                hold: dict | None = None, grad_norms: bool = False
+                hold: dict | None = None, grad_norms: bool = False,
+                routing: bool = False, first_params: bool = False
                 ) -> tuple:
     """``spec``'s steps through ``make_train_step`` (in place on a mesh),
     each timed by CUDA events and the host clock after a synchronise;
@@ -6820,12 +6859,16 @@ def _fsdp_steps(spec: dict, mesh, dev, micro: int = 1, extra=(),
     (record, params, the hashes of the params after the timed steps);
     the record's ``lrs`` are the learning rates of every update made,
     extra steps included. ``hold`` gets the optimizer state after them
-    (``"state"``); ``grad_norms`` records, before the steps, each leaf's
-    gradient norm on the first step's batch (``leaf_grad_norms``, rank
-    0's, :func:`_leaf_grad_norms`)."""
+    (``"state"``) and, with ``first_params``, the params after step 1
+    made whole on rank 0 (``"first"``, {name: f32 tensor}); ``grad_norms``
+    records, before the steps, each leaf's gradient norm on the first
+    step's batch (``leaf_grad_norms``, rank 0's, :func:`_leaf_grad_norms`).
+    A config with experts records each step's mean aux loss, and with
+    ``routing`` the first step's routing (:func:`_routing_of`)."""
     import torch
     from repro_torch.data import DataConfig, batch_at, rank_batch_at
     from repro_torch.models import build_model, sharding
+    from repro_torch.models import moe as moe_mod
     from repro_torch.roofline import analysis
     from repro_torch.train import AdamWConfig, init_state, make_train_step
     from repro_torch.train.optimizer import schedule
@@ -6856,7 +6899,11 @@ def _fsdp_steps(spec: dict, mesh, dev, micro: int = 1, extra=(),
     torch.cuda.synchronize()
     weights = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    rows, ev_ms, host_ms = [], [], []
+    rows, ev_ms, host_ms, routed = [], [], [], None
+    auxes = contextlib.ExitStack()
+    if cfg.n_experts:
+        aux = auxes.enter_context(_recording(
+            model, "train_loss", lambda out: out[1]["aux"].detach()))
     for i in range(spec["steps"]):
         b = batch(i)
         torch.cuda.synchronize()
@@ -6864,12 +6911,28 @@ def _fsdp_steps(spec: dict, mesh, dev, micro: int = 1, extra=(),
         stop = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        params, state, met = step_fn(params, state, b)
+        with (_recording(moe_mod, "positions", lambda out: (out[0], out[2]))
+              if routing and i == 0 else contextlib.nullcontext()) as seen:
+            params, state, met = step_fn(params, state, b)
         stop.record()
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
         ev_ms.append(start.elapsed_time(stop))
         rows.append({k: float(v) for k, v in met.items()})
+        if seen is not None:
+            routed = _routing_of(seen)
+            del seen
+        if first_params and i == 0:
+            # a copy: the one-device run's leaf is its live parameter
+            hold["first"] = {n: w.detach().to(torch.float32, copy=True)
+                             for n, w in ((n, _whole(x))
+                                          for n, x in _named(params))
+                             if w is not None}
+    auxes.close()
+    if cfg.n_experts:
+        for i, r in enumerate(rows):
+            r["aux"] = sum(float(a) for a in
+                           aux[i * micro:(i + 1) * micro]) / micro
     peak = torch.cuda.max_memory_allocated()
     for i, r in enumerate(rows):
         check(all(math.isfinite(v) for v in r.values()),
@@ -6901,10 +6964,43 @@ def _fsdp_steps(spec: dict, mesh, dev, micro: int = 1, extra=(),
                   for i in range(1, n + 1)]
     if grad_norms:
         rec["leaf_grad_norms"] = norms
+    if routing:
+        rec["routing"] = routed
     if hold is not None:
         hold["state"] = state
     del state
     return rec, params, hashes
+
+
+def _routing_of(seen: list) -> dict:
+    """[40] One step's routing from ``moe.positions``' calls (each MoE
+    layer's forward and recompute, every microbatch): the sha256 of each
+    call's expert indices, and the assignments and dropped ones over
+    all calls."""
+    import hashlib
+    return {"hashes": [hashlib.sha256(e.cpu().numpy().tobytes()).hexdigest()
+                       for e, _ in seen],
+            "assignments": sum(k.numel() for _, k in seen),
+            "dropped": sum(int((~k).sum()) for _, k in seen)}
+
+
+def _first_gap(base: dict | None, other: dict | None, lr: float,
+               weight_decay: float, atol: float) -> dict | None:
+    """[40c] Two runs' params after step 1 (rank 0's whole leaves; None
+    elsewhere), as phase 33 (c) reads a card against the CPU: the largest
+    |Δ|, the elements beyond ``atol``, and those beyond 2·lr·(1 +
+    wd·|p|) + 1e-7, the most rounding alone can part them by."""
+    if base is None or other is None:
+        return None
+    out = {"elements": 0, "beyond_atol": 0, "beyond_2lr": 0, "max_abs": 0.0}
+    for name, a in base.items():
+        d = (other[name] - a).abs()
+        out["elements"] += d.numel()
+        out["beyond_atol"] += int((d > atol).sum())
+        out["beyond_2lr"] += int((d > 2 * lr * (1 + weight_decay * a.abs())
+                                  + 1e-7).sum())
+        out["max_abs"] = max(out["max_abs"], float(d.max()))
+    return out
 
 
 def _named(tree, path=()) -> list:
@@ -7056,10 +7152,12 @@ def _fsdp_rank(group, device, jobs: list, out: str) -> None:
     with a checkpoint directory, copied from ``from`` first). A ``steps``
     job may also be ``alone`` (the one-device step on rank 0, no mesh;
     the other ranks wait), ``grad_norms`` (each leaf's gradient norm on
-    the first batch), ``keep`` its params and optimizer state under that
-    key, or ``compare`` them with those kept under that key
-    (:func:`_pair_readings`, ``params_gap``). Rank 0 writes
-    ``out/<tag>.json`` with every rank's record."""
+    the first batch), ``routing`` (the first step's, :func:`_routing_of`),
+    ``keep`` its params and optimizer state (with ``first_params`` also
+    its params after step 1) under that key, or ``compare`` them with
+    those kept under that key (:func:`_pair_readings`, ``params_gap``;
+    :func:`_first_gap`, ``first_gap``). Rank 0 writes ``out/<tag>.json``
+    with every rank's record."""
     import gc
     import shutil
 
@@ -7110,17 +7208,27 @@ def _fsdp_rank(group, device, jobs: list, out: str) -> None:
                 spec, None if job.get("alone") else mesh, device,
                 micro=job.get("micro", 1),
                 extra=tuple(job.get("extra", ())), hold=hold,
-                grad_norms=bool(job.get("grad_norms")))
+                grad_norms=bool(job.get("grad_norms")),
+                routing=bool(job.get("routing")),
+                first_params=bool(job.get("first_params")))
             if job.get("launches"):
                 rec["launches"] = _read_counts()
             if job.get("save"):
                 _save_params(p, job["save"], spec["steps"])
             if job.get("keep"):
-                kept[job["keep"]] = (p, hold["state"])
+                kept[job["keep"]] = (p, hold["state"], hold.get("first"))
             if job.get("compare"):
+                base = kept.pop(job["compare"], None)
                 rec["params_gap"] = _pair_readings(
-                    kept.pop(job["compare"], None), (p, hold["state"]),
-                    spec["lr"], rec["lrs"])
+                    base and base[:2], (p, hold["state"]), spec["lr"],
+                    rec["lrs"])
+                if job.get("first_params"):
+                    from repro_torch.train import AdamWConfig
+                    rec["first_gap"] = _first_gap(
+                        base and base[2], hold.get("first"), rec["lrs"][0],
+                        AdamWConfig().weight_decay,
+                        FAMILY_PARITY["param_atol"])
+                del base
             del p, hold
         else:
             if job.get("from") and rank == 0:
@@ -7868,6 +7976,332 @@ def phase_tp_families_cards(n_cards: int, tmpdir: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# [40] tensor parallelism of MLA and the expert FFN (--cards N only)
+# ---------------------------------------------------------------------------
+
+# (a) phase 33 (b)'s deepseek-v2-lite-16b at full width, 4 of 27 layers
+# (the deepest one card holds), 2 × 4,096 tokens in 2 microbatches, 5
+# steps: one device against (1, 2), and against (1, 4), under
+# deterministic algorithms, by phase 39's checks; each run's routing of
+# step 1 equal on its model ranks. At lr 3e-4 after AdamWConfig's warm-up
+# of 100 steps, as FSDP_CELL: after phase 33's warm-up of 2 the job's
+# routing over near-ties and its drops amplify any rounding, and one bf16
+# ulp on 2^-10 of the weights moves its one-device grad_norm by 1e-2 at
+# step 4, past the rtol 2e-3; at 100, by 3.6e-4 at most
+# (scripts/probe_moe_noise.py, PERF.md §6 PR 36)
+TPM_PAIR = dict(TRAIN_MOE, warmup=100)
+TPM_MICRO = 2
+TPM_MESHES = ((1, 2), (1, 4))
+# (b) the same job on (1, 4) at the deepest depth whose step stays under
+# ~72 GB a card: 26 layers (PERF.md §4's reckoning: one card's 16.44 GB
+# a MoE layer is 27.5 bytes a parameter, 10 of them the unsharded
+# AdamW's new params and moments beside the old; the sharded step updates
+# in place, so a card holds ~18 bytes a parameter of its 1/4: ~68.4 GB at
+# 26 layers, ~71.2 at 27)
+TPM_DEEP = dict(TRAIN_MOE, n_layers=26)
+TPM_DEEP_MESH = (1, 4)
+# (c) the reduced configs in f32 (remat full), FAMILY_PARITY's 3 steps of
+# 4 × 64 tokens, one device against (1, 2) within phase 33 (c)'s bounds:
+# deepseek at 32 experts (the FFN dim over "tp", as at full width), jamba
+# and kimi-k2 (8 experts: the experts over "tp")
+TPM_REDUCED = (("deepseek", "deepseek-v2-lite-16b", dict(n_experts=32)),
+               ("jamba", "jamba-v0.1-52b", {}),
+               ("kimi", "kimi-k2-1t-a32b", {}))
+
+
+def _card_params(cfg, model_ranks: int) -> int:
+    """[40b] The parameters one card of a (1, ``model_ranks``) mesh holds:
+    each leaf's elements, over the model ranks where its spec has "tp"."""
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import MeshAxes, resolve_spec
+    infos = build_model(cfg, attn_impl="sdpa", device="meta").ps.infos
+    return sum(math.prod(i.shape) // (
+        model_ranks if "model" in resolve_spec(i.spec, MeshAxes(
+            fsdp=("data",))) else 1) for i in infos.values())
+
+
+def _tpm_reduced_spec(arch: str, over: dict) -> dict:
+    p = FAMILY_PARITY
+    return dict(arch=arch, reduced=True, over=over, batch=p["batch"],
+                seq_len=p["seq_len"], steps=p["steps"], lr=TRAIN_MOE["lr"],
+                warmup=TRAIN_MOE["warmup"], seed=p["seed"])
+
+
+def phase_tp_moe_cards(n_cards: int, tmpdir: str) -> dict:
+    """[40 (a)-(d)] tensor parallelism of MLA and the expert FFN on
+    ``n_cards`` = 4 cards: deepseek-v2-lite-16b at full width, 4 layers,
+    on one device against (1, 2) and against (1, 4) (phase 39's checks
+    and equal routing on every model rank); at 26 layers on (1, 4) with
+    its step figures; the reduced deepseek, jamba and kimi-k2 in f32 on
+    one device against (1, 2); no kernel launched. Every part is run and
+    printed before a failed check ends the phase: ``failures`` lists them
+    (the caller writes the record, then fails)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.device import card_description
+    from repro_torch.launch import cells
+    from repro_torch.models import build_model
+    from repro_torch.roofline import analysis
+    d = Path(tmpdir) / "tpm"
+    d.mkdir()
+    rec = {"failures": [], "card": card_description()}
+
+    def soft(cond: bool, msg: str) -> None:
+        if not cond:
+            rec["failures"].append(msg)
+            print(f"FAILED: chip_smoke: {msg}", flush=True)
+    if n_cards != math.prod(TPM_DEEP_MESH):
+        soft(False, f"[40] needs {math.prod(TPM_DEEP_MESH)} cards, got "
+                    f"{n_cards}")
+        return rec
+    det = dict(deterministic=True, launches=True, grad_norms=True,
+               routing=True, micro=TPM_MICRO)
+    red = dict(deterministic=True, launches=True, first_params=True)
+    t0 = time.perf_counter()
+    # each pair in one spawn, the one-device run first (rank 0 alone,
+    # kept there), so it runs in both; (c) in the 2-card one; (b) in a
+    # spawn of its own after (a) and (c) are printed
+    got = {}
+    for mesh in TPM_MESHES:
+        tp = f"tp{mesh[0]}{mesh[1]}"
+        jobs = [dict(tag=f"one_{tp}", kind="steps", spec=TPM_PAIR,
+                     alone=True, keep="one", **det),
+                dict(tag=tp, kind="steps", spec=TPM_PAIR, mesh=mesh,
+                     compare="one", **det)]
+        if mesh == (1, 2):
+            for k, arch, over in TPM_REDUCED:
+                spec = _tpm_reduced_spec(arch, over)
+                jobs += [dict(tag=f"{k}_one", kind="steps", spec=spec,
+                              alone=True, keep=k, **red),
+                         dict(tag=f"{k}_tp12", kind="steps", spec=spec,
+                              mesh=mesh, compare=k, **red)]
+        got.update(_fsdp_spawn(jobs, math.prod(mesh), d / tp))
+    rec["pairs_spawn_s"] = time.perf_counter() - t0
+    launches: dict = {}
+
+    def count_launches(tags) -> None:
+        for tag in tags:
+            for x in got[tag]:
+                for name, n in x.get("launches", {}).items():
+                    launches[name] = launches.get(name, 0) + n
+    count_launches(list(got))
+
+    def routing_equal(tag: str) -> bool:
+        hashes = [x["routing"]["hashes"] for x in got[tag]]
+        return all(h == hashes[0] for h in hashes)
+
+    def dropped(x: dict) -> float:
+        return x["routing"]["dropped"] / x["routing"]["assignments"]
+    # (a) the pairs at 4 layers
+    cfg = _fsdp_cfg(TPM_PAIR)
+    pairs = {}
+    for mesh in TPM_MESHES:
+        tp = f"tp{mesh[0]}{mesh[1]}"
+        want, r = got[f"one_{tp}"][0], got[tp][0]
+        rel = _close_steps(r["steps"], want["steps"], FSDP_RTOL,
+                           f"[40a] {tp}", soft)
+        gap = r["params_gap"]
+        crowded = {n: x for n, x in gap["leaves"].items()
+                   if x["over"] > TPF_PARAMS_SHARE * x["numel"]}
+        soft(not crowded and gap["max_reach_ratio"] <= 1.0,
+             f"[40a] {tp} params: leaves with more than "
+             f"{TPF_PARAMS_SHARE:g} of their elements beyond 3·lr + "
+             f"2^-8·|p| {crowded}; largest ratio to AdamW's reach "
+             f"{gap['max_reach_ratio']}")
+        norms = {n: (r["leaf_grad_norms"][n], g)
+                 for n, g in want["leaf_grad_norms"].items()}
+        norm_gaps = sorted(((abs(a - b) / b if b else abs(a), n)
+                            for n, (a, b) in norms.items()), reverse=True)
+        soft(norm_gaps[0][0] <= TPF_LEAF_GRAD_RTOL,
+             f"[40a] {tp} step-1 gradient norms beyond rel "
+             f"{TPF_LEAF_GRAD_RTOL:g}: "
+             f"{[x for x in norm_gaps if x[0] > TPF_LEAF_GRAD_RTOL]}")
+        same = routing_equal(tp)
+        soft(same, f"[40a] {tp}: the model ranks routed step 1 apart")
+        pairs[tp] = dict(max_rel_gap=rel, params_gap=gap,
+                         leaf_grad_norms=norms,
+                         max_leaf_grad_norm_gap=norm_gaps[0],
+                         routing_equal_on_ranks=same,
+                         routing_equal_to_one_device=(
+                             r["routing"]["hashes"]
+                             == want["routing"]["hashes"]),
+                         dropped_share=dropped(r),
+                         one_device_dropped_share=dropped(want),
+                         one_device_bit_equal=(
+                             want["steps"]
+                             == got["one_tp12"][0]["steps"]),
+                         ms_per_step=max(y["ms_per_step_median"]
+                                         for y in got[tp]),
+                         one_device_ms_per_step=want["ms_per_step_median"],
+                         peak_gb_by_card=[y["peak_memory_bytes"] / 1e9
+                                          for y in got[tp]],
+                         one_device_peak_gb=want["peak_memory_bytes"] / 1e9)
+        x = pairs[tp]
+        print(f"[40a] {r['arch']} at full width ({cfg.n_layers} of 27 "
+              f"layers, {r['n_params']:,} params, bf16, f32 moments, remat "
+              f"full), {TPM_PAIR['batch']} x {TPM_PAIR['seq_len']} tokens "
+              f"in {TPM_MICRO} microbatches, {TPM_PAIR['steps']} steps: "
+              f"{mesh} against one device: loss "
+              + " ".join(f"{s['loss']:.6g}" for s in r["steps"])
+              + " against " + " ".join(f"{s['loss']:.6g}"
+                                       for s in want["steps"])
+              + ", grad_norm " + " ".join(f"{s['grad_norm']:.6g}"
+                                          for s in r["steps"])
+              + " against " + " ".join(f"{s['grad_norm']:.6g}"
+                                       for s in want["steps"])
+              + f", aux {r['steps'][0]['aux']:.6g} against "
+              f"{want['steps'][0]['aux']:.6g} at step 1: within rel "
+              f"{rel:.3g} (bound {FSDP_RTOL}); ms/step "
+              f"{max(y['ms_per_step_median'] for y in got[tp]):.1f} "
+              f"against {want['ms_per_step_median']:.1f}, peak GB by card "
+              f"{[round(y['peak_memory_bytes'] / 1e9, 2) for y in got[tp]]} "
+              f"against {want['peak_memory_bytes'] / 1e9:.2f}", flush=True)
+        print(f"[40a] {tp} step-1 gradient norm by leaf: largest gaps "
+              + "; ".join(f"{n} {norms[n][0]:.6g} against "
+                          f"{norms[n][1]:.6g} (rel {v:.3g})"
+                          for v, n in norm_gaps[:4])
+              + f"; {len(norms)} leaves (bound {TPF_LEAF_GRAD_RTOL:g})",
+              flush=True)
+        print(f"[40a] {tp} params after {len(gap['lrs'])} updates: "
+              f"{gap['over']} of {gap['elements']:,} elements (share "
+              f"{gap['over_share']:.3g}) beyond 3·lr + 2^-8·|p|, "
+              f"{gap['over_opposite_mu']} of them with first moments of "
+              f"opposite sign; largest ratio {gap['max_ratio']:.4g}; "
+              f"largest ratio to AdamW's reach {gap['max_reach_ratio']:.4g}"
+              f" (bound 1); leaves beyond: "
+              + (", ".join(f"{n} {v['over']}/{v['numel']:,}"
+                           for n, v in gap["leaves"].items() if v["over"])
+                 or "none")
+              + f" (bound {TPF_PARAMS_SHARE:g} of each leaf)", flush=True)
+        print(f"[40a] {tp} step 1's routing ({len(r['routing']['hashes'])}"
+              f" positions calls): equal on the {mesh[1]} model ranks: "
+              f"{same}; equal to one device's: "
+              f"{x['routing_equal_to_one_device']}; dropped share at "
+              f"capacity factor {cfg.capacity_factor} "
+              f"{x['dropped_share']:.5f} against one device's "
+              f"{x['one_device_dropped_share']:.5f} (not gated: near-ties "
+              f"may flip); the one-device runs of the two spawns bit for "
+              f"bit equal: {x['one_device_bit_equal']}", flush=True)
+    rec["pairs"] = pairs
+    # (c) the reduced configs in f32
+    reduced = {}
+    p = FAMILY_PARITY
+    for k, arch, over in TPM_REDUCED:
+        want, r = got[f"{k}_one"][0], got[f"{k}_tp12"][0]
+        rel = _close_steps(r["steps"], want["steps"], p["rtol"],
+                           f"[40c] {k}", soft)
+        fg = r["first_gap"]
+        soft(fg["beyond_2lr"] == 0
+             and fg["beyond_atol"] <= 1e-3 * fg["elements"],
+             f"[40c] {k} params after step 1: {fg}")
+        reduced[k] = dict(max_rel_gap=rel, first_gap=fg,
+                          params_gap=r["params_gap"])
+        print(f"[40c] reduced {arch} {over or ''} (f32, remat full), "
+              f"{p['steps']} steps of {p['batch']} x {p['seq_len']}: (1, 2) "
+              f"against one device: loss and grad_norm within rel "
+              f"{rel:.3g} (bound {p['rtol']}); params after step 1 max|Δ| "
+              f"{fg['max_abs']:.3g}, {fg['beyond_atol']} of "
+              f"{fg['elements']} beyond {p['param_atol']}, "
+              f"{fg['beyond_2lr']} beyond 2·lr", flush=True)
+    rec["reduced"] = reduced
+    # (b) deepseek at TPM_DEEP's depth on (1, 4)
+    t0 = time.perf_counter()
+    got.update(_fsdp_spawn([dict(
+        tag="deep", kind="steps", spec=TPM_DEEP, mesh=TPM_DEEP_MESH,
+        micro=TPM_MICRO, launches=True, routing=True,
+        extra=("count", "profile"))], math.prod(TPM_DEEP_MESH), d / "deep"))
+    rec["deep_spawn_s"] = time.perf_counter() - t0
+    count_launches(["deep"])
+    dcfg = _fsdp_cfg(TPM_DEEP)
+    ranks = got["deep"]
+    r0 = ranks[0]
+    tokens = TPM_DEEP["batch"] * TPM_DEEP["seq_len"]
+    ms = max(x["ms_per_step_median"] for x in ranks)
+    flops = cells.analytic_step_flops(dcfg, ShapeSpec(
+        "train", TPM_DEEP["seq_len"], TPM_DEEP["batch"], "train"))
+    peaks = [x["peak_memory_bytes"] / 1e9 for x in ranks]
+    soft(max(peaks) < 80.0, f"[40b] peak GB by card {peaks}")
+    losses = [x["loss"] for x in r0["steps"]]
+    soft(all(math.isfinite(x["loss"]) and math.isfinite(x["aux"])
+             for x in r0["steps"]) and losses[-1] < losses[0],
+         f"[40b] losses {losses}, aux {[x['aux'] for x in r0['steps']]}")
+    same = routing_equal("deep")
+    soft(same, "[40b] the model ranks routed step 1 apart")
+    col = r0["collectives"]
+    reckoned = analysis.reckon_collectives(
+        build_model(dcfg, attn_impl="sdpa", device="meta"),
+        TPM_DEEP_MESH[0], TPM_DEEP_MESH[1], TPM_MICRO,
+        TPM_DEEP["batch"] // TPM_DEEP_MESH[0] // TPM_MICRO,
+        TPM_DEEP["seq_len"])
+    soft(col["by_group"] == reckoned,
+         f"[40b] collectives by group {col['by_group']} != the spec "
+         f"tree's {reckoned}")
+    ranges = ("full/attn", "full/moe", "train/backward", "train/adamw")
+    # PERF.md §6 PR 36's reckoning: a card's parameters at ~18 bytes each
+    # (params, moments, the f32 microbatch sum, the bf16 gradients and
+    # their stack) under the sharded step's in-place AdamW
+    card_params = _card_params(dcfg, TPM_DEEP_MESH[1])
+    deep = {
+        "n_layers": dcfg.n_layers, "n_params": r0["n_params"],
+        "ms_per_step": ms, "tokens_per_s": tokens / (ms / 1e3),
+        "ms_by_card": [x["ms_per_step_median"] for x in ranks],
+        "steps": r0["steps"], "analytic_flops_per_step": flops,
+        "model_flops_share": flops / (ms / 1e3) / n_cards
+        / PEAK_BF16_TENSOR_FLOPS,
+        "peak_gb_by_card": peaks, "card_params": card_params,
+        "reckoned_peak_gb": 18 * card_params / 1e9,
+        "state_gb_by_card": [x["state_bytes"] / 1e9 for x in ranks],
+        "idle_share_by_card": [x["profiled"]["device_idle_share"]
+                               for x in ranks],
+        "device_ms_by_range_by_card": [
+            {k: x["profiled"]["ranges"].get(k, {}).get("device_ms", 0.0)
+             for k in ranges} for x in ranks],
+        "nccl_ms_by_kind_by_card": [x["profiled"]["nccl_ms_by_kind"]
+                                    for x in ranks],
+        "profiled_ms_by_card": [x["profiled"]["wall_ms"] for x in ranks],
+        "collectives": col, "collective_s": r0["collective_s"],
+        "reckoned_equal": col["by_group"] == reckoned,
+        "routing_equal_on_ranks": same, "dropped_share": dropped(r0)}
+    rec["deep"] = deep
+    print(f"[40b] {r0['arch']} at full width, {dcfg.n_layers} of 27 layers "
+          f"({r0['n_params']:,} params) on {TPM_DEEP_MESH}, {tokens} tokens "
+          f"a step in {TPM_MICRO} microbatches: {ms:.1f} ms/step (slowest "
+          f"card's median of steps 2-{TPM_DEEP['steps']}, CUDA events; by "
+          f"card {[round(x, 1) for x in deep['ms_by_card']]}); "
+          f"{deep['tokens_per_s']:.0f} tokens/s; model-FLOPs share "
+          f"{deep['model_flops_share']:.4f} (analytic_step_flops "
+          f"{flops:.4g}); peak GB by card {[round(x, 2) for x in peaks]} "
+          f"(reckoned {deep['reckoned_peak_gb']:.1f}: 18 bytes each of a "
+          f"card's {card_params:,} parameters; weights and moments "
+          f"{[round(x, 2) for x in deep['state_gb_by_card']]}); "
+          f"loss " + " ".join(f"{x:.6g}" for x in losses) + ", aux "
+          + " ".join(f"{x['aux']:.4g}" for x in r0["steps"])
+          + f"; routing equal on the ranks: {same}, dropped share "
+          f"{deep['dropped_share']:.5f}", flush=True)
+    print(f"[40b] one step under CommDebugMode: counts {col['counts']}; by "
+          f"group " + "; ".join(
+              f"{g} ({x['ranks']} ranks) counts {x['counts']}, payload "
+              f"{x['payload_bytes']}, wire bytes a card {x['wire_bytes']}"
+              for g, x in col["by_group"].items())
+          + f" → collective term {deep['collective_s']:.4f} s at NVLink "
+          f"{450e9:.3g} B/s (≡ reckon_collectives: "
+          f"{deep['reckoned_equal']})", flush=True)
+    print(f"[40b] one profiled step: wall ms by card "
+          f"{[round(x, 1) for x in deep['profiled_ms_by_card']]}, idle share "
+          f"{[round(x, 3) for x in deep['idle_share_by_card']]} (the last "
+          f"card's {deep['idle_share_by_card'][-1]:.3f}), device ms by "
+          f"range {[{k: round(v, 1) for k, v in y.items()} for y in deep['device_ms_by_range_by_card']]}"
+          f", NCCL device ms by kind "
+          f"{[{k: round(v, 1) for k, v in y.items()} for y in deep['nccl_ms_by_kind_by_card']]}"
+          f"; {rec['card']}", flush=True)
+    # (d) no kernel on these paths: counted in every rank over every run
+    soft(not any(launches.values()), f"[40d] kernel launches {launches}")
+    rec["tp_moe_launches"] = launches
+    print(f"[40d] kernel launches over (a)-(c)'s steps on every card: "
+          f"{launches}", flush=True)
+    return rec
+
+
 # phase 38: phi-3-vision-4.2b (configs/phi_3_vision_4_2b.py,
 # hf:microsoft/Phi-3-vision-128k-instruct) at full width and depth, 32
 # layers of MHA over 32 heads of 96, with phase 7's traffic: text-only
@@ -7965,13 +8399,13 @@ def main() -> int:
 
 # the phases of ``--cards N``; ``--only`` names some of them (37 reads
 # 36's runs, so it needs 36)
-CARDS_PHASES = ("35b", "36", "37", "39")
+CARDS_PHASES = ("35b", "36", "37", "39", "40")
 
 
 def _cards_main(n_cards: int, only=CARDS_PHASES) -> int:
     """``--cards N``: build the kernels and run phases 35 (b), 36 (a)-(c),
-    37 and 39 only; with ``--only``, those of them it names (the kernels
-    built only for 35 (b), the one phase that launches them)."""
+    37, 39 and 40 only; with ``--only``, those of them it names (the
+    kernels built only for 35 (b), the one phase that launches them)."""
     import tempfile
     import torch
     bad = set(only) - set(CARDS_PHASES)
@@ -8015,13 +8449,18 @@ def _cards_main(n_cards: int, only=CARDS_PHASES) -> int:
             rec["tp_families"] = phase_tp_families_cards(n_cards, tmpdir)
             print(f"[39] phase time {time.perf_counter() - t0:.1f} s",
                   flush=True)
+        if "40" in only:
+            t0 = time.perf_counter()
+            rec["tp_moe"] = phase_tp_moe_cards(n_cards, tmpdir)
+            print(f"[40] phase time {time.perf_counter() - t0:.1f} s",
+                  flush=True)
     rec["device"] = torch.cuda.get_device_name(0)
     rec["phases"] = list(only)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_cards.json").write_text(json.dumps(rec, indent=1))
     for key, phase in (("fsdp", "36"), ("tp", "37"),
-                       ("tp_families", "39")):
+                       ("tp_families", "39"), ("tp_moe", "40")):
         if key in rec:
             check(not rec[key]["failures"],
                   f"[{phase}] {len(rec[key]['failures'])} check(s) "
@@ -8040,6 +8479,11 @@ def _cards_main(n_cards: int, only=CARDS_PHASES) -> int:
             {"name": k, "tp_families_launches": v} for k, v in sorted(
                 rec["tp_families"]["tp_families_launches"].items())]}),
             flush=True)
+    # nor on MLA's and the expert FFN's (40 (d)), likewise
+    if "tp_moe" in rec:
+        print(json.dumps({"tp_moe_launches": [
+            {"name": k, "tp_moe_launches": v} for k, v in sorted(
+                rec["tp_moe"]["tp_moe_launches"].items())]}), flush=True)
     for line in rec.get("cards", []):
         print(line, flush=True)
     print(card_description(), flush=True)

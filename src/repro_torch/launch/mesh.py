@@ -23,6 +23,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models.layers import MeshAxes
+from ..models.moe import expert_axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,9 +101,13 @@ def check_divides(cfg, mesh) -> None:
     ``mesh`` (a ``Mesh`` or a ``DeviceMesh`` with "data" and "model"
     axes): the heads, the kv heads, ``d_ff`` and the vocab padded to 128
     over "model" (a rank takes whole heads: query head h reads kv head
-    h // group on the same rank); with SSM layers also their heads
-    (``ssm_expand · d_model / ssm_head_dim``), ``w_in``'s columns and the
-    conv's channels, the blocks the model group gathers; ``d_model`` over
+    h // group on the same rank; MLA's heads are ``n_heads``); with SSM
+    layers also their heads (``ssm_expand · d_model / ssm_head_dim``),
+    ``w_in``'s columns and the conv's channels, the blocks the model group
+    gathers; with experts the shared experts' ``moe_d_ff ·
+    n_shared_experts`` over "model", and the expert dims where
+    ``models/moe.expert_axes`` puts them (``n_experts`` or ``moe_d_ff``
+    over "model" for "tp", over "data" for "fsdp"); ``d_model`` over
     "data". The reference's GSPMD would reshard an uneven split; this
     runtime refuses it."""
     sizes = _axis_sizes(mesh)
@@ -110,14 +115,24 @@ def check_divides(cfg, mesh) -> None:
     v_pad = ((cfg.vocab_size + 127) // 128) * 128
     dims = [("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
             ("d_ff", cfg.d_ff), ("the padded vocab", v_pad)]
+    over_data = [("d_model", cfg.d_model)]
     if any(ld.kind == "ssm" for ld in cfg.layer_pattern()):
         di = cfg.ssm_expand * cfg.d_model
         h, n = di // cfg.ssm_head_dim, cfg.ssm_state
         dims += [("the SSM heads", h), ("w_in's columns", 2 * di + 2 * n + h),
                  ("the conv channels", di + 2 * n)]
+    if cfg.n_experts:
+        dims.append(("the shared experts' d_ff",
+                     cfg.moe_d_ff * cfg.n_shared_experts))
+        e_ax, f_ax = expert_axes(cfg)
+        for ax, dim in ((e_ax, ("n_experts", cfg.n_experts)),
+                        (f_ax, ("moe_d_ff", cfg.moe_d_ff))):
+            if ax == "tp":
+                dims.append(dim)
+            elif ax == "fsdp":
+                over_data.append(dim)
     bad = [f"{name} {n} over 'model' {t}" for name, n in dims if n % t]
-    if cfg.d_model % d:
-        bad.append(f"d_model {cfg.d_model} over 'data' {d}")
+    bad += [f"{name} {n} over 'data' {d}" for name, n in over_data if n % d]
     if bad:
         raise ValueError(f"{cfg.name} on a mesh {sizes}: "
                          + ", ".join(bad) + " do not divide")

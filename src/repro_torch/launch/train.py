@@ -14,10 +14,11 @@ launcher's ``spawn_ranks``, or torchrun) every rank runs ``run`` and the
 step is FSDP over the data axis × tensor parallelism over the model axis:
 each rank holds its block of every parameter and moment, gathers its TP
 block of the weights over the data axis where a layer uses them, runs
-the dense and vlm layers tensor-parallel over the model axis, and takes
-its data coordinate's rows of each global batch (``models/sharding.py``,
-``data.rank_batch_at``); tensor parallelism for the other families and
-MoE routing over more than one rank raise (ROADMAP 15c). The checkpoints are
+every family's layers tensor-parallel over the model axis (GQA, MLA, the
+MLPs, the SSM, the expert FFN, the encoder-decoder's cross-attention),
+and takes its data coordinate's rows of each global batch
+(``models/sharding.py``, ``data.rank_batch_at``); MoE routing over a data
+axis of more than one rank raises (ROADMAP 15c). The checkpoints are
 the reference's format (``{"params", "opt"}`` through
 ``train/checkpoint.py``, in the global layout), so a run resumes across
 the two packages and across rank counts. The model runs

@@ -28,7 +28,13 @@ column blocks holding the rank's ``n_heads / T`` query heads and
 h // group on the same rank; ``wo`` is a row block whose partial output
 is summed over the model ranks at the reference's ``(batch, None, None)``
 hint. The qk-norm weights act on every rank's heads, so their gradient
-is summed over the model ranks too.
+is summed over the model ranks too. MLA is split the same way: ``wq``,
+``w_uk`` and ``w_uv`` are column blocks of the rank's ``n_heads / T``
+heads and ``wo`` a row block; the compressed ``c_kv`` and the shared rope
+key are made on every rank from the replicated ``w_dkv``, ``w_kpe`` and
+``kv_norm``, which feed only the rank's heads there, so those three enter
+through ``sharding.to_model`` and their gradients are summed over the
+model ranks. Decode runs on one device.
 """
 
 from __future__ import annotations
@@ -219,38 +225,49 @@ def gqa_cache_spec(cfg: ArchConfig, batch: int, s_max: int,
 
 def _mla_q(p: Dict, xn: torch.Tensor, cfg: ArchConfig, pos: torch.Tensor
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(q_nope, roped q_pe), each (B, H, S, ·)."""
+    """(q_nope, roped q_pe), each (B, H, S, ·): H the heads of ``wq``'s
+    columns (the rank's under TP)."""
     b, s, _ = xn.shape
     dn = cfg.qk_nope_dim
-    q = torch.matmul(xn, p["wq"]).reshape(b, s, cfg.n_heads, -1)
+    q = torch.matmul(xn, p["wq"]).reshape(b, s, -1, dn + cfg.qk_rope_dim)
     q = q.transpose(1, 2)
     return q[..., :dn], rope(q[..., dn:], pos, cfg.rope_theta)
 
 
-def _mla_kv(p: Dict, xn: torch.Tensor, cfg: ArchConfig, pos: torch.Tensor
+def _mla_kv(p: Dict, xn: torch.Tensor, cfg: ArchConfig, pos: torch.Tensor,
+            tp: Optional[sharding.ModelAxis] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(c_kv (B, S, r) normalised, roped k_pe (B, 1, S, dr))."""
-    c_kv = rms_norm(torch.matmul(xn, p["w_dkv"]), p["kv_norm"], cfg.norm_eps)
-    k_pe = rope(torch.matmul(xn, p["w_kpe"])[:, None], pos, cfg.rope_theta)
+    """(c_kv (B, S, r) normalised, roped k_pe (B, 1, S, dr)). With ``tp``
+    they feed only the rank's heads, so ``w_dkv``, ``w_kpe`` and
+    ``kv_norm`` enter through ``to_model`` (their gradients summed over
+    the model ranks)."""
+    w_dkv, w_kpe, kv_norm = (sharding.to_model(p[k], tp)
+                             for k in ("w_dkv", "w_kpe", "kv_norm"))
+    c_kv = rms_norm(torch.matmul(xn, w_dkv), kv_norm, cfg.norm_eps)
+    k_pe = rope(torch.matmul(xn, w_kpe)[:, None], pos, cfg.rope_theta)
     return c_kv, k_pe
 
 
-def mla_full(p: Dict, x: torch.Tensor, cfg: ArchConfig, causal: bool = True
+def mla_full(p: Dict, x: torch.Tensor, cfg: ArchConfig, causal: bool = True,
+             tp: Optional[sharding.ModelAxis] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence MLA through ``_sdpa``. Returns (output, {"c_kv" (B, S,
-    r), "k_pe" (B, S, dr)})."""
+    r), "k_pe" (B, S, dr)}). With ``tp``, on the rank's heads: the normed
+    input goes to every model rank, ``wo``'s partial output is summed over
+    them."""
     b, s, _ = x.shape
-    h, dn, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
-    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    t = 1 if tp is None else tp.size
+    h, dn, dv = cfg.n_heads // t, cfg.qk_nope_dim, cfg.v_head_dim
+    xn = sharding.to_model(rms_norm(x, p["norm"], cfg.norm_eps), tp)
     pos = torch.arange(s, device=x.device)
     q_nope, q_pe = _mla_q(p, xn, cfg, pos)
-    c_kv, k_pe = _mla_kv(p, xn, cfg, pos)
+    c_kv, k_pe = _mla_kv(p, xn, cfg, pos, tp)
     k_nope = torch.matmul(c_kv, p["w_uk"]).reshape(b, s, h, dn).transpose(1, 2)
     v = torch.matmul(c_kv, p["w_uv"]).reshape(b, s, h, dv).transpose(1, 2)
     qf = torch.cat([q_nope, q_pe], dim=-1)
     kf = torch.cat([k_nope, k_pe.expand(b, h, s, k_pe.shape[-1])], dim=-1)
     o = _sdpa(qf, kf, v, causal)
-    out = torch.matmul(_merge_heads(o), p["wo"])
+    out = sharding.from_model(torch.matmul(_merge_heads(o), p["wo"]), tp)
     return x + out, {"c_kv": c_kv, "k_pe": k_pe[:, 0]}
 
 

@@ -103,17 +103,14 @@ class EncDecLM:
         """Random-init weights from ``generator``, which must live on the
         model's device; with a ``DeviceMesh``, each rank's block of every
         leaf (``ParamSet.init_params``). Over a model axis of more than
-        one rank both stacks train tensor-parallel: NotImplementedError
-        for a config with experts or MLA (``sharding.refuse_tp``), as
-        ``LM`` raises, and ValueError where the heads, kv heads, ``d_ff``
-        or the padded vocab do not divide over it
-        (``launch/mesh.check_divides``)."""
+        one rank both stacks train tensor-parallel: ValueError where the
+        heads, kv heads, ``d_ff`` or the padded vocab do not divide over it
+        (``launch/mesh.check_divides``), as ``LM`` raises."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator is on {generator.device}, the model "
                              f"on {self.device}")
         if mesh is not None and sharding.model_ranks(mesh) > 1:
             from ..launch.mesh import check_divides
-            sharding.refuse_tp(self.cfg, sharding.model_ranks(mesh))
             check_divides(self.cfg, mesh)
         return self.ps.init_params(generator, mesh, axes)
 
@@ -206,7 +203,6 @@ class EncDecLM:
                 "train_loss: K2 has no backward (nor has the reference's "
                 "Pallas kernel); training runs attn_impl='sdpa'")
         tp = sharding.tp_of(params)
-        sharding.refuse_tp(self.cfg, 1 if tp is None else tp.size)
         params, plans = sharding.for_train(params,
                                            ("enc_blocks", "dec_blocks"))
         enc_out = self.encode(params, batch["frontend_embeds"],

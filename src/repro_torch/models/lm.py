@@ -34,12 +34,12 @@ block's, in the reference's order. On parameters sharded over a mesh
 (``init_params(generator, mesh, axes)``) each stacked block's leaves are
 all-gathered inside that checkpointed function (``models/sharding.py``),
 so the recompute gathers them again; the other leaves are gathered once.
-Over a model axis of more than one rank the dense, vlm and SSM families
-(and ``EncDecLM``) train tensor-parallel (``sharding.tp_of``): GQA,
-SwiGLU and the SSM layer on the rank's heads and blocks, the token
-lookup, the logits and the cross-entropy vocab-parallel; the MoE family,
-kimi-k2 and the jamba hybrid (experts) and MLA raise
-(``sharding.refuse_tp``).
+Over a model axis of more than one rank every family (and ``EncDecLM``)
+trains tensor-parallel (``sharding.tp_of``): GQA, MLA, SwiGLU, the SSM
+layer and the expert FFN on the rank's heads, columns or experts, the
+token lookup, the logits and the cross-entropy vocab-parallel. An MoE
+config still raises over a data axis of more than one rank
+(``sharding.refuse_moe``).
 """
 
 from __future__ import annotations
@@ -155,8 +155,8 @@ def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
     cross-attention against ``enc_out`` (full) or the cached ``xk`` /
     ``xv`` (decode), and its cache is ``{k, v, xk, xv}``. Decode writes
     every layer's self-attention and SSM caches in place. ``tp``: GQA,
-    the cross-attention, the SSM and the dense MLP on the rank's blocks
-    (the full pass of a dense, vlm, SSM or encoder-decoder config)."""
+    MLA, the cross-attention, the SSM, the dense MLP and the MoE layer's
+    expert FFN and shared experts on the rank's blocks (the full pass)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: List[Any] = []
     for i, ld in enumerate(pattern):
@@ -172,7 +172,7 @@ def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
                 if mode == "full":
                     if cfg.mla:
                         x, c = attn_mod.mla_full(lp["attn"], x, cfg,
-                                                 causal=causal)
+                                                 causal=causal, tp=tp)
                     else:
                         x, c = attn_mod.gqa_full(lp["attn"], x, cfg,
                                                  causal=causal,
@@ -195,7 +195,7 @@ def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
                 x = mlp_layer(lp["mlp"], x, cfg, tp)
         elif ld.mlp == "moe":
             with record_function(f"{mode}/moe"):
-                x, a = moe_mod.moe_layer(lp["moe"], x, cfg)
+                x, a = moe_mod.moe_layer(lp["moe"], x, cfg, tp)
                 aux = aux + a
         if mode == "full" and not want_cache:
             c = ()
@@ -366,12 +366,10 @@ class LM:
         model's device; with a ``DeviceMesh``, each rank's block of every
         leaf (``ParamSet.init_params``). An MoE config raises on a data
         axis of more than one rank (``sharding.refuse_moe``); a model axis
-        of more than one rank raises for a config with experts or MLA
-        (``sharding.refuse_tp``: the dense, vlm and SSM families train
-        tensor-parallel), and ValueError where the heads, kv heads,
-        ``d_ff``, the padded vocab or the SSM's heads, ``w_in`` columns or
-        conv channels do not divide over it
-        (``launch/mesh.check_divides``)."""
+        of more than one rank raises ValueError where the heads, kv heads,
+        ``d_ff``, the padded vocab, the SSM's heads, ``w_in`` columns or
+        conv channels, or the experts or their FFN dims do not divide over
+        it (``launch/mesh.check_divides``)."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator is on {generator.device}, the model "
                              f"on {self.device}")
@@ -379,9 +377,7 @@ class LM:
             from ..launch.mesh import check_divides
             if self.cfg.n_experts:
                 sharding.refuse_moe(mesh.size(sharding.data_axis(mesh)))
-            t = sharding.model_ranks(mesh)
-            sharding.refuse_tp(self.cfg, t)
-            if t > 1:
+            if sharding.model_ranks(mesh) > 1:
                 check_divides(self.cfg, mesh)
         return self.ps.init_params(generator, mesh, axes)
 
@@ -471,7 +467,6 @@ class LM:
         if self.cfg.n_experts:
             sharding.refuse_moe(sharding.world_of(params)[2])
         tp = sharding.tp_of(params)
-        sharding.refuse_tp(self.cfg, 1 if tp is None else tp.size)
         params, plans = sharding.for_train(params, ("blocks",))
         fe = batch.get("frontend_embeds")
         x = self._embed(params, batch["tokens"], fe, tp)

@@ -23,6 +23,20 @@ Kept from the reference:
 The reference's sharding ``hint``s stand where it has them, on the
 expert buffers and the expert FFN's outputs over ``expert_axes``; they are
 identities on plain tensors (``layers.hint``).
+
+In training over a model axis of T ranks (``tp``, ``models/sharding.py``)
+every model rank computes the router, the slot positions, the aux loss
+and the combine on the same tokens; only the expert FFN is split, as
+``expert_axes`` lays its weights out. With the FFN dim over "tp" the
+rank holds every expert's (D, F/T) columns of ``w_gate`` / ``w_up`` and
+(F/T, D) rows of ``w_down``: the buffer enters through
+``sharding.to_model`` and the experts' partial outputs are summed by
+``sharding.from_model``. With the experts over "tp" the rank runs its
+E/T experts on its slice of the buffer (taken after ``to_model``) and
+``sharding.join_model`` makes their outputs whole, so the combine sums
+each token's k rows in the activation dtype as on one device. With
+neither (``moe_ffn_unsharded``, experts over "fsdp") the expert FFN runs
+whole on every rank. The shared experts are a Megatron SwiGLU.
 """
 
 from __future__ import annotations
@@ -34,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from . import sharding
 from .layers import ParamSet, hint, rms_norm, swiglu
 
 
@@ -109,9 +124,12 @@ def positions(expert_idx: torch.Tensor, n_experts: int, cap: int
     return flat_e, pos, pos < cap
 
 
-def moe_layer(p: Dict, x: torch.Tensor, cfg: ArchConfig
+def moe_layer(p: Dict, x: torch.Tensor, cfg: ArchConfig,
+              tp: Optional[sharding.ModelAxis] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D). Returns (x + MoE output, router aux loss () f32)."""
+    """x: (B, S, D). Returns (x + MoE output, router aux loss () f32).
+    With ``tp`` the expert FFN and the shared experts run on the rank's
+    blocks (module docstring)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
@@ -147,10 +165,21 @@ def moe_layer(p: Dict, x: torch.Tensor, cfg: ArchConfig
         buf.index_put_((flat_e.view(t, k), pos_c.view(t, k)), xt[:, None])
         buf = hint(buf[:, :cap], e_ax, None, None)
 
+    split = tp is not None and "tp" in (e_ax, f_ax)
+    if split:
+        # the buffer's gradient from the rank's FFN columns or experts is
+        # a part of the whole
+        buf = sharding.to_model(buf, tp)
+        if e_ax == "tp":
+            n = e // tp.size
+            buf = buf[tp.rank * n:(tp.rank + 1) * n]
     h = hint(torch.matmul(buf, p["w_gate"]), e_ax, None, f_ax)   # (E,cap,F)
     u = hint(torch.matmul(buf, p["w_up"]), e_ax, None, f_ax)
-    out_e = hint(torch.matmul(F.silu(h) * u, p["w_down"]),       # (E,cap,D)
-                 e_ax, None, None)
+    out_e = torch.matmul(F.silu(h) * u, p["w_down"])             # (E,cap,D)
+    if split:
+        out_e = (sharding.join_model(out_e, 0, tp) if e_ax == "tp"
+                 else sharding.from_model(out_e, tp))
+    out_e = hint(out_e, e_ax, None, None)
 
     # combine: gather back, weight by the gate cast to the activation dtype
     gathered = out_e[flat_e, torch.clamp(pos_c, max=cap - 1)]     # (T·k, D)
@@ -159,5 +188,5 @@ def moe_layer(p: Dict, x: torch.Tensor, cfg: ArchConfig
     y = gathered.reshape(t, k, d).sum(dim=1)
 
     if cfg.n_shared_experts:
-        y = y + swiglu(xt, p["ws_gate"], p["ws_up"], p["ws_down"])
+        y = y + swiglu(xt, p["ws_gate"], p["ws_up"], p["ws_down"], tp)
     return x + y.reshape(b, s, d), aux

@@ -26,8 +26,17 @@ the logits and the cross-entropy are vocab-parallel. The SSM layer keeps
 its fused ``w_in``, ``conv_w`` and ``conv_b`` in the reference's layout,
 makes them whole over the model group (:func:`gather_model`) and takes
 its heads' columns; its gated norm's sum of squares is summed over the
-model ranks (:func:`sum_over_model`). A model axis of one rank issues
-none of these, so a (W, 1) step is the FSDP step alone.
+model ranks (:func:`sum_over_model`). MLA runs on the rank's heads
+(``wq``, ``w_uk``, ``w_uv`` column blocks, ``wo`` a row block); its
+replicated ``w_dkv``, ``w_kpe`` and ``kv_norm`` feed only those heads, so
+they pass :func:`to_model` and their gradients are summed. Every model
+rank routes the same tokens (router, slot positions, aux loss, combine);
+the expert FFN is split either by its FFN dim (the expert buffer enters
+through :func:`to_model`, the experts' partial outputs are summed by
+:func:`from_model`) or by its experts (the rank's experts run on their
+slice of the buffer, and :func:`join_model` makes their outputs whole
+for the combine). A model axis of one rank issues none of these, so a
+(W, 1) step is the FSDP step alone.
 
 :func:`for_train` prepares a parameter tree for a loss: top-level leaves
 gathered once, each stacked subtree kept as plain local blocks with a
@@ -225,6 +234,17 @@ def _quiet() -> Iterator[None]:
         yield
 
 
+def _all_gather(x: torch.Tensor, dim: int, group, world: int
+                ) -> torch.Tensor:
+    """The ``world`` ranks' blocks of ``x`` concatenated along ``dim``."""
+    moved = x.movedim(dim, 0).contiguous()
+    out = torch.empty((world * moved.shape[0],) + tuple(moved.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    with _quiet():
+        dist.all_gather_into_tensor(out, moved, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
 class _Gather(torch.autograd.Function):
     """Forward: the whole weight from the blocks. Backward: its gradient
     summed over the ranks into this rank's block."""
@@ -232,13 +252,7 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, lay: Layout):
         ctx.lay = lay
-        moved = x.movedim(lay.dim, 0).contiguous()
-        out = torch.empty((lay.world * moved.shape[0],)
-                          + tuple(moved.shape[1:]),
-                          dtype=x.dtype, device=x.device)
-        with _quiet():
-            dist.all_gather_into_tensor(out, moved, group=lay.group)
-        return out.movedim(0, lay.dim).contiguous()
+        return _all_gather(x, lay.dim, lay.group, lay.world)
 
     @staticmethod
     def backward(ctx, g):
@@ -332,6 +346,33 @@ def gather_model(x: torch.Tensor, dim: int, tp: ModelAxis) -> torch.Tensor:
     return _Gather.apply(x, Layout(dim, tp.group))
 
 
+class _Join(torch.autograd.Function):
+    """Forward: the model ranks' blocks all-gathered along ``dim``.
+    Backward: this rank's slice of the gradient, summed with nothing:
+    every model rank runs the same work on the whole tensor, so each holds
+    the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, tp: ModelAxis):
+        ctx.dim, ctx.tp = dim, tp
+        return _all_gather(x, dim, tp.group, tp.size)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[ctx.dim] // ctx.tp.size
+        return (g.narrow(ctx.dim, ctx.tp.rank * n, n).contiguous(), None,
+                None)
+
+
+def join_model(x: torch.Tensor, dim: int, tp: ModelAxis) -> torch.Tensor:
+    """The model ranks' blocks of an activation made whole along ``dim``
+    for work every model rank repeats on the whole (:class:`_Join`), such
+    as the MoE combine of the experts each rank ran. Not
+    :func:`gather_model`: its backward sums the ranks' gradients, which
+    here are the same whole gradient T times."""
+    return _Join.apply(x, dim, tp)
+
+
 def max_over_model(x: torch.Tensor, tp: ModelAxis) -> torch.Tensor:
     """The element-wise maximum over the model ranks, out of autograd."""
     out = x.detach().clone(memory_format=torch.contiguous_format)
@@ -399,25 +440,6 @@ def refuse_moe(ranks: int) -> None:
             "an MoE config over a data axis of more than one rank: global "
             "routing (the per-expert counts all-gathered for positions and "
             "capacity, summed aux statistics) waits for ROADMAP 15c")
-
-
-def refuse_tp(cfg, ranks: int) -> None:
-    """Tensor parallelism covers the dense, vlm, SSM and encoder-decoder
-    families: raise NotImplementedError on a model axis of more than one
-    rank for a config with experts (the MoE family, kimi-k2, the jamba
-    hybrid) or MLA, naming what of ROADMAP 15c step 5's rest will lift
-    it."""
-    if ranks <= 1 or not (cfg.n_experts or cfg.mla):
-        return
-    fam = "encdec" if cfg.encoder_layers else cfg.family
-    why = " and ".join(w for w, on in (
-        ("TP for MLA's w_uk / w_uv", cfg.mla),
-        ("the expert FFN over 'tp'", cfg.n_experts)) if on)
-    raise NotImplementedError(
-        f"{cfg.name} ({fam}) over a 'model' axis of {ranks} ranks: {why} "
-        f"waits for ROADMAP 15c step 5's rest; this runtime's tensor "
-        f"parallelism covers the dense, vlm, SSM and encoder-decoder "
-        f"families")
 
 
 def for_train(params: Dict, stacked: Sequence[str]

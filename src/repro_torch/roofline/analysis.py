@@ -343,12 +343,76 @@ def collectives_of(fn: Callable, ranks: int, *args,
                             rec.total("wire_bytes"), ranks, rec.by_group)
 
 
+def _layer_collectives(model, ld, tokens: int) -> tuple:
+    """The model-axis collectives of one layer of an ``LM`` over a model
+    axis of more than one rank, one pass of ``tokens`` tokens: ``(forward,
+    backward)``, each a list of (op, payload bytes) in the order issued
+    (the backward's order is not kept). The forward's row-parallel sums
+    and the SSM's gathers; the backward's sums into the normed input of
+    each column-parallel region and into the weights every model rank
+    uses on its own heads only, and the gathers' reduce-scatters."""
+    from ..models.moe import capacity, expert_axes
+    cfg = model.cfg
+    act = model.adt.itemsize * tokens * cfg.d_model
+    w = model.pdt.itemsize
+    fwd, bwd = [], []
+    if ld.kind == "ssm":
+        di = cfg.ssm_expand * cfg.d_model
+        h, nst = di // cfg.ssm_head_dim, cfg.ssm_state
+        ssq = 4 * tokens                        # the gated norm's sums
+        gathered = [(2 * di + 2 * nst + h) * cfg.d_model * w,   # w_in
+                    (di + 2 * nst) * cfg.ssm_conv * w,          # conv_w
+                    (di + 2 * nst) * w]                         # conv_b
+        fwd += [("all-gather", b) for b in gathered]
+        fwd += [("all-reduce", ssq), ("all-reduce", act)]       # w_out
+        bwd += [("all-reduce", ssq), ("all-reduce", act)]       # normed in
+        bwd += [("all-reduce", n * w) for n in (h, h, h, di)]   # a_log,
+        bwd += [("reduce-scatter", b) for b in gathered]  # dt_bias, d_skip,
+    elif cfg.mla:                                               # out_norm
+        r, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+        fwd.append(("all-reduce", act))                         # wo
+        bwd.append(("all-reduce", act))                         # normed in
+        bwd += [("all-reduce", n * w) for n in (        # w_dkv, w_kpe,
+            cfg.d_model * r, cfg.d_model * dr, r)]      # kv_norm
+    else:
+        fwd.append(("all-reduce", act))                         # wo
+        bwd.append(("all-reduce", act))                         # normed in
+        if cfg.qk_norm:
+            bwd += [("all-reduce", cfg.d_head * w)] * 2   # q_norm, k_norm
+    if ld.mlp == "dense":
+        fwd.append(("all-reduce", act))                         # w_down
+        bwd.append(("all-reduce", act))                         # normed in
+    elif ld.mlp == "moe":
+        e_ax, f_ax = expert_axes(cfg)
+        buf = (cfg.n_experts * capacity(tokens, cfg) * cfg.d_model
+               * model.adt.itemsize)
+        if e_ax == "tp":            # the experts' outputs made whole
+            fwd.append(("all-gather", buf))
+        elif f_ax == "tp":          # their partial outputs summed
+            fwd.append(("all-reduce", buf))
+        if "tp" in (e_ax, f_ax):
+            bwd.append(("all-reduce", buf))     # into the expert buffer
+        if cfg.n_shared_experts:
+            fwd.append(("all-reduce", act))                     # ws_down
+            bwd.append(("all-reduce", act))                     # xt
+    return fwd, bwd
+
+
+def _ends_in_a_sum(cfg, ld) -> bool:
+    """Whether a layer's last forward collective is a row-parallel sum
+    that only joins the residual: under remat the recompute stops before
+    it (torch's checkpoint early stop), since no saved tensor follows."""
+    if ld.mlp == "moe":
+        return bool(cfg.n_shared_experts)
+    return True
+
+
 def reckon_collectives(model, data: int, model_ranks: int,
                        microbatches: int, rows: int, seq_len: int,
                        enc_len: int = 0) -> Dict[str, Dict]:
-    """The collectives the spec tree implies for one train step of a dense,
-    vlm or SSM ``LM`` or an ``EncDecLM`` (remat "none" or "full"; frames
-    of ``enc_len`` on its encoder) on a (``data``, ``model_ranks``)
+    """The collectives the spec tree implies for one train step of an
+    ``LM`` of any family or an ``EncDecLM`` (remat "none" or "full";
+    frames of ``enc_len`` on its encoder) on a (``data``, ``model_ranks``)
     ("data", "model") mesh, ``microbatches`` passes of ``rows`` sequences
     of ``seq_len`` tokens on each data rank, as :func:`collectives_of`
     records them in ``by_group``: ``{group: {"ranks", "counts",
@@ -358,29 +422,36 @@ def reckon_collectives(model, data: int, model_ranks: int,
     TP block) in the forward and, stacked under remat "full", again in the
     recompute, then reduce-scattered; a data-replicated leaf's gradient
     all-reduced. Then the loss and the global norm's per-leaf sums. Model
-    axis (more than one rank), each pass, all all-reduces but the SSM's
-    gathers: the lookup's rows; in the forward the row-parallel partial
-    outputs (``wo``'s, the cross-attention's ``wo``'s, ``w_down``'s, the
-    SSM's ``w_out``'s) and, in the recompute, those the backward needs (it
-    stops before a layer's last: ``w_down``'s or ``w_out``'s); the SSM's
-    ``w_in``, ``conv_w`` and ``conv_b`` all-gathered (forward and
-    recompute) and reduce-scattered, its gated norm's f32 sum of squares
-    summed (forward, recompute, backward); the cross-entropy's maximum,
-    sum of exponentials and gold logit; in the backward the gradient into
-    every layer's and the head's normed input, the encoder output's into
-    each cross-attention, and the gradients of ``q_norm`` / ``k_norm`` and
-    of the SSM's ``a_log``, ``dt_bias``, ``d_skip`` and ``out_norm``.
-    Then the global norm's sums."""
+    axis (more than one rank), each pass: the lookup's rows; the
+    cross-entropy's maximum, sum of exponentials and gold logit; in the
+    backward the gradient into the head's normed input; and each layer's
+    own (:func:`_layer_collectives`): in the forward the row-parallel
+    partial outputs (GQA's and MLA's ``wo``, ``w_down``, the SSM's
+    ``w_out``, the shared experts' ``ws_down``), the expert FFN's partial
+    outputs summed or its experts' outputs all-gathered, the SSM's
+    ``w_in``, ``conv_w`` and ``conv_b`` all-gathered and its gated norm's
+    f32 sum of squares; in the backward the gradient into every
+    column-parallel region's input (the normed inputs, the expert buffer,
+    the shared experts' tokens), of ``q_norm`` / ``k_norm``, of MLA's
+    ``w_dkv``, ``w_kpe`` and ``kv_norm``, of the SSM's ``a_log``,
+    ``dt_bias``, ``d_skip`` and ``out_norm`` and its sum of squares, and
+    the gathers' reduce-scatters. A stacked block under remat "full"
+    issues its forward's again in the recompute, but for a last
+    row-parallel sum that only joins the residual
+    (:func:`_ends_in_a_sum`); the prefix layers run once. The
+    encoder-decoder's layers (dense, GQA, the cross-attention's ``wo``
+    and the encoder output's gradient into each cross-attention) are
+    reckoned apart. Then the global norm's sums."""
     from ..models.layers import MeshAxes, resolve_spec
     cfg = model.cfg
     if cfg.remat not in ("none", "full"):
         raise ValueError(f"reckoned for remat none and full, not "
                          f"{cfg.remat!r}")
-    kinds = {(ld.kind, ld.mlp) for ld in cfg.layer_pattern()}
-    if cfg.n_experts or cfg.mla or len(kinds) > 1 or not kinds <= {
-            ("attn", "dense"), ("ssm", "none")}:
-        raise ValueError(f"{cfg.name}: reckoned for the dense, vlm, SSM "
-                         f"and encoder-decoder families")
+    if cfg.encoder_layers and (cfg.n_experts or cfg.mla or {
+            (ld.kind, ld.mlp) for ld in cfg.layer_pattern()} != {
+                ("attn", "dense")}):
+        raise ValueError(f"{cfg.name}: the encoder-decoder is reckoned "
+                         f"with GQA and dense layers")
     again = 2 if cfg.remat == "full" else 1
     axes = MeshAxes(fsdp=("data",))
     stacks = ({"enc_blocks/": cfg.encoder_layers,
@@ -422,7 +493,6 @@ def reckon_collectives(model, data: int, model_ranks: int,
     ar(1, act * seq_len)                        # the lookup's rows
     ar(3, 4 * rows * (seq_len - 1))             # the cross-entropy's sums
     ar(1, act * s_all)                          # the head's normed input
-    qk = cfg.d_head * model.pdt.itemsize      # q_norm's, k_norm's
     if cfg.encoder_layers:
         ne, nd, s_enc = cfg.encoder_layers, cfg.n_layers, enc_len
         # encoder: wo, w_down, wo again; the attention's and the MLP's
@@ -436,28 +506,23 @@ def reckon_collectives(model, data: int, model_ranks: int,
         ar(3 * nd, act * seq_len)
         ar(nd, act * s_enc)
         if cfg.qk_norm:
-            ar(2 * (ne + nd), qk)
-    elif ("ssm", "none") in kinds:
-        nb = model.n_blocks
-        di = cfg.ssm_expand * cfg.d_model
-        h, nst = di // cfg.ssm_head_dim, cfg.ssm_state
-        ssq = 4 * rows * s_all                  # the gated norm's sums
-        ar(nb, act * s_all)                     # w_out
-        ar(nb * (again + 1), ssq)
-        ar(nb, act * s_all)                     # the normed input
-        for width in (h, h, h, di):             # a_log, dt_bias, d_skip,
-            ar(nb, width * model.pdt.itemsize)  # out_norm
-        for width in ((2 * di + 2 * nst + h) * cfg.d_model,    # w_in
-                      (di + 2 * nst) * cfg.ssm_conv,           # conv_w
-                      di + 2 * nst):                           # conv_b
-            b = width * model.pdt.itemsize
-            add("model", t, "all-gather", m * nb * again, b)
-            add("model", t, "reduce-scatter", m * nb, b)
+            ar(2 * (ne + nd), cfg.d_head * model.pdt.itemsize)
     else:
-        nb = model.n_blocks
-        ar(nb * (again + 1), act * s_all)
-        ar(2 * nb, act * s_all)
-        if cfg.qk_norm:
-            ar(2 * nb, qk)
+        for pattern, n, stacked in ((model.prefix_pattern, model.n_prefix,
+                                     False),
+                                    (model.pattern, model.n_blocks, True)):
+            if not n:
+                continue
+            fwd, bwd = [], []
+            for ld in pattern:
+                f, b = _layer_collectives(model, ld, rows * s_all)
+                fwd += f
+                bwd += b
+            issued = fwd + bwd
+            if stacked and again == 2:
+                issued += (fwd[:-1] if _ends_in_a_sum(cfg, pattern[-1])
+                           else fwd)
+            for op, b in issued:
+                add("model", t, op, m * n, b)
     add("model", t, "all-reduce", 1, leaves)
     return out

@@ -25,8 +25,8 @@ shows:
   vocab-parallel cross-entropy with padded columns; the (1, 2) and (2, 2)
   init blocks; the collectives of a (2, 2) step by group; checkpoints
   between (2, 2), (4, 1) and (1, 1), and the reference's restore of them;
-  the families tensor parallelism leaves out (experts, MLA), an uneven
-  kv-head split and SSM heads that do not divide raise;
+  an uneven kv-head split and SSM heads that do not divide raise (the
+  MoE and MLA configs on a model axis: ``test_torch_tp_moe.py``);
 * W = 1 ≡ the port's unsharded step bit for bit, and ``launch/train.run``
   on a mesh ≡ the unsharded run (bit for bit at W = 1), logging on rank 0
   only;
@@ -36,8 +36,7 @@ shows:
 * checkpoints: saved on W = 4, continued on W = 4 bit for bit, on W = 2
   and W = 1 within the tolerances; readable by the reference's
   ``checkpoint.restore``;
-* an MoE config over 2 ranks and the jamba hybrid over a "model" axis of
-  2 raise naming 15c (jamba's message names only the expert FFN);
+* an MoE config over a data axis of 2 ranks raises naming 15c;
 * ``hint`` is ``x`` itself without axes or on a plain tensor, and gives
   ``resolve_spec``'s placements on a DTensor; the port calls it in the
   functions where the reference does;
@@ -84,8 +83,6 @@ TP_ARCHS = ("qwen3-14b", "qwen2-1.5b", "yi-6b", "phi-3-vision-4.2b",
 # init blocks, (2, 2) checkpoint and collectives held
 TP_FAMILIES = ("seamless-m4t-large-v2", "mamba2-370m")
 TP_MESHES = {"tp12": (1, 2), "tp22": (2, 2)}
-# each family tensor parallelism leaves out, on a (1, 2) mesh
-TP_REFUSED = ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "jamba-v0.1-52b")
 # a reduced mamba2 of 6 SSM heads (d_inner 192, head dim 32)
 SSM_6_HEADS = dict(ssm_expand=3, ssm_head_dim=32)
 RUN_JOB = dict(steps=3, seq_len=16, global_batch=4, lr=1e-2, warmup=2,
@@ -243,8 +240,6 @@ def runs(ref, tmp_path_factory):
                  restore=dirs["ck4"], save=dirs["ck2_from4"]),
             dict(name="moe", arch="deepseek-v2-lite-16b", steps=0,
                  raises=True),
-            dict(name="tp", arch="jamba-v0.1-52b", steps=0, mesh=(1, 2),
-                 raises=True),
             dict(name="mask", arch=q, steps=1, mask=True, raises=True),
             dict(shards, name="shards"),
             dict(name="run", arch=q, run=RUN_JOB),
@@ -257,8 +252,6 @@ def runs(ref, tmp_path_factory):
                     grads=True) for a in TP_FAMILIES],
             *[dict(name=f"shards_tp12_{a}", arch=a, steps=0,
                    init_shards=True, mesh=(1, 2)) for a in TP_FAMILIES],
-            *[dict(name=f"refuse_{a}", arch=a, steps=0, mesh=(1, 2),
-                   raises=True) for a in TP_REFUSED],
             dict(name="run_tp12", arch=q, run=RUN_JOB, mesh=(1, 2))],
         1: [_case("qwen3", q, ref, save=dirs["w1_qwen3"], count=True),
             dict(name="qwen3_from4", arch=q, steps=STEPS, opt=OPT,
@@ -499,12 +492,11 @@ def test_reference_restores_the_sharded_checkpoint(runs, ref, jx):
                      _flat_np(jx.jax.tree.map(np.asarray, p))) < 1e-3
 
 
-@pytest.mark.parametrize("case,pattern", [("moe", "MoE.*15c"),
-                                          ("tp", "model.*15c")])
+@pytest.mark.parametrize("case,pattern", [("moe", "MoE.*15c")])
 def test_moe_and_model_axis_raise_naming_15c(runs, case, pattern):
-    """An MoE config over a data axis of 2 ranks, and the jamba hybrid
-    over a "model" axis of 2: tensor parallelism covers the dense, vlm,
-    SSM and encoder-decoder families, not the expert FFN."""
+    """An MoE config over a data axis of 2 ranks: its routing is not
+    data-parallel-exact (``sharding.refuse_moe``). Over a model axis the
+    MoE configs train (``test_torch_tp_moe.py``)."""
     import re
     rec = runs[0][2][case]
     assert rec["raised"][0] == "NotImplementedError"
@@ -864,16 +856,6 @@ def _reference_restores(runs, ref, jx, arch, ckpt):
                      _flat_np(jx.jax.tree.map(np.asarray, p))) < 1e-3
 
 
-@pytest.mark.parametrize("arch", TP_REFUSED)
-def test_families_outside_tensor_parallelism_raise_naming_15c(runs, arch):
-    """The MoE (MLA and GQA) and hybrid configs on a (1, 2) mesh raise
-    NotImplementedError naming 15c and the step that will lift it."""
-    rec = runs[0][2][f"refuse_{arch}"]
-    assert rec["raised"][0] == "NotImplementedError", rec
-    assert "15c step 5's rest" in rec["raised"][1], rec
-    assert "'model' axis of 2" in rec["raised"][1], rec
-
-
 def test_uneven_kv_heads_raise(runs):
     """The reduced qwen3's 2 kv heads over a "model" axis of 4: ValueError
     (a rank takes whole heads; the reference's GSPMD would reshard)."""
@@ -1043,15 +1025,6 @@ def test_ssm_heads_that_do_not_divide_raise(runs):
     rec = runs[0][4]["ssm_uneven"]
     assert rec["raised"][0] == "ValueError", rec
     assert "the SSM heads 6 over 'model' 4" in rec["raised"][1], rec
-
-
-def test_jamba_refusal_names_only_the_expert_ffn(runs):
-    """jamba on a (1, 2) mesh: its SSM and attention layers are
-    tensor-parallel now, so the refusal names only the expert FFN."""
-    msg = runs[0][2]["tp"]["raised"][1]
-    head = msg.split(" waits for ")[0]
-    assert head.endswith(": the expert FFN over 'tp'"), msg
-    assert "w_in" not in msg and "MLA" not in msg, msg
 
 
 @pytest.mark.parametrize("arch,shape,bad", [
