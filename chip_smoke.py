@@ -3,7 +3,7 @@
 kernel of that path against its plain PyTorch version.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --cards 4      # phases 35 (b), 36, 37, 39, 40 on 4 cards
+    python3 chip_smoke.py --cards 4      # phases 35 (b)-41 and 39 (f), 4 cards
     python3 chip_smoke.py --cards 4 --only 40    # some of them
 
 Phases (any failure ends the run with a non-zero exit and no result line):
@@ -578,6 +578,43 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      rtol 1e-4, the params after step 1 within 1e-6 but for at most 1e-3
      of them, each within 2·lr; (d) no kernel launches on any card over
      (a)-(c) (printed as a ``tp_moe_launches`` JSON line).
+ 41. serving over a tensor-parallel mesh (``sharding.for_serve``, every
+     layer on the rank's heads, columns or experts, K2 on the rank's
+     heads), only with ``--cards 4``, after 40 in the same call; every
+     pair fed the same prompts (2 × 1,024 tokens; an encoder-decoder's
+     frames too) and 8 teacher-forced decode steps, the last-position
+     logits of each compared, the same bytes on every rank, K2 launched
+     once per attention layer in the prefill on every rank and given the
+     rank's heads, and K2 ≡ its plain version on each rank's first-prefill
+     q, k, v, timed beside SDPA and its bound (phase 5's check, no first
+     design): (a) qwen3-14b at full width and depth, one card against (1,
+     2) and against (1, 4): the greedy token the same wherever the
+     one-card top-2 margin exceeds the logits' max|Δ|, and that max|Δ|
+     within 2^-2 of the one card's largest |logit| (a config with
+     experts: max|Δ| and mean|Δ| within twice those of its base run again
+     with one bf16 ulp more on 2^-10 of its weights); (b) jamba-v0.1-52b
+     at full width and all 32 layers on (1, 2) against (1, 4) by (a)'s
+     checks, each serving phase 7's traffic (every request finished, the
+     pool whole, the ranks' token streams equal, K2 alone launched, once
+     per attention layer per prefill on every rank; peak GB a card beside
+     the reckoned weights and init peak, under 80; ms a prefill and a
+     decode iteration), at 16 layers one card against (1, 2), a negative
+     control (the last rank's experts rolled) outside (a)'s bound, and
+     ``serve_lm --model-ranks 2`` run as a command; (c)
+     deepseek-v2-lite-16b (MLA decode), mamba2-370m, phi-3-vision-4.2b and
+     seamless-m4t-large-v2 at full width and depth, one card against (1,
+     2) by (a)'s checks; (d) in f32 the reduced config of every family,
+     qwen3-14b, deepseek and jamba at full width and cut depth, one card
+     against (1, 2) (deepseek and jamba also (1, 4)) within atol 1e-4 +
+     rtol 1e-4·|one card| (phase 31 (c)'s). Two decode steps of (a), (b)
+     and mamba2 are traced on every rank: no wait for the device within a
+     step, copies no more than one card's. Prints a ``tp_serve_kernels``
+     JSON line (K2's launches by rank in every run and its checks).
+ 39 (f). Phase 39's four pairs in f32 (ROADMAP Queue 3's open check), only
+     with ``--cards 4``, after 41: 2 steps each under deterministic
+     algorithms, loss and grad_norm within 37 (a)'s rtol 2e-3, step 1's
+     grad_norm gap, leaf gradient norms and params printed beside 39's
+     bf16 readings; no kernel launched.
 
 The kernels line's K1 and column-map entries add their launches per tick
 on phase 23 (b) (``ensemble_launches_per_tick``); the pair-list build's
@@ -1129,11 +1166,13 @@ def _k2_first_takes(dtype: str, d: int) -> bool:
     return d in ((64, 96, 128) if dtype == "bfloat16" else (96, 128))
 
 
-def _k2_case(tag: str, name: str, q, k, v, causal: bool) -> dict:
+def _k2_case(tag: str, name: str, q, k, v, causal: bool,
+             first: bool = True) -> dict:
     """K2 (``ops.flash_attention``) against its plain version on q, k, v:
     output type, shape and finiteness, max|Δ| within K2_TOL and, for bf16,
     within atol + rtol·|plain| everywhere; where its first design takes the
-    input, that design ≡ plain too, and at D 64 and 128 in bf16 (a kernel
+    input (and ``first``: a ``--cards`` run builds no first design), that
+    design ≡ plain too, and at D 64 and 128 in bf16 (a kernel
     the redesign left as it was) bit-equal to K2. The kernel, its first
     design and SDPA (where Sq = Sk: the library's causal mask is top-left
     aligned) timed in turns, the plain version's time and the bound.
@@ -1171,7 +1210,7 @@ def _k2_case(tag: str, name: str, q, k, v, causal: bool) -> dict:
               f"at {name}")
     fns = {"kernel": lambda: ops.flash_attention(q, k, v, causal=causal)}
     first_err = None
-    if _k2_first_takes(dtype, d):
+    if first and _k2_first_takes(dtype, d):
         first = kernel_variants.flash_attention_first(q, k, v,
                                                       causal=causal)
         torch.cuda.synchronize()
@@ -6826,7 +6865,7 @@ FSDP_ELASTIC = dict(arch="qwen2-1.5b", n_layers=2, batch=4, seq_len=4096,
 def _fsdp_cfg(spec: dict):
     """``spec``'s config: its depth cut to ``n_layers`` where set; with
     ``reduced``, ``reduced_config``'s (remat full) with the fields of
-    ``over``."""
+    ``over``; its params and activations in ``dtype`` where set."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import reduced_config
     cfg = ARCHS[spec["arch"]]
@@ -6835,6 +6874,9 @@ def _fsdp_cfg(spec: dict):
                                   **spec.get("over", {}))
     if spec.get("n_layers") is not None:
         cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
+    if spec.get("dtype"):
+        cfg = dataclasses.replace(cfg, param_dtype=spec["dtype"],
+                                  activation_dtype=spec["dtype"])
     return cfg
 
 
@@ -7242,23 +7284,32 @@ def _fsdp_rank(group, device, jobs: list, out: str) -> None:
             rec = {"losses": ltrain.run(run_job, mesh=mesh,
                                         log=lambda *a, **k: None)["losses"]}
         rec["seconds"] = time.perf_counter() - t0
-        every = [None] * world
-        dist.all_gather_object(every, rec, group=group)
-        if rank == 0:
-            (Path(out) / f"{job['tag']}.json").write_text(json.dumps(every))
+        _gather_job(group, job, rec, out)
         del mesh
         gc.collect()
         torch.cuda.empty_cache()
     torch.use_deterministic_algorithms(False)
 
 
-def _fsdp_spawn(jobs: list, ranks: int, out: Path) -> dict:
-    """``jobs`` on ``ranks`` NCCL ranks, one card each: {tag: [the
-    ranks' records]}."""
+def _gather_job(group, job: dict, rec: dict, out: str) -> None:
+    """Every rank's record of ``job`` gathered; rank 0 writes them to
+    ``out/<tag>.json``."""
+    import torch.distributed as dist
+    every = [None] * dist.get_world_size(group)
+    dist.all_gather_object(every, rec, group=group)
+    if dist.get_rank(group) == 0:
+        (Path(out) / f"{job['tag']}.json").write_text(json.dumps(every))
+
+
+def _fsdp_spawn(jobs: list, ranks: int, out: Path, rank_fn=None,
+                device: str = "cuda", timeout_s: float = 900) -> dict:
+    """``jobs`` on ``ranks`` ranks through ``rank_fn`` (default
+    :func:`_fsdp_rank`; NCCL, one card each, or gloo ranks with
+    ``device="cpu"``): {tag: [the ranks' records]}."""
     from repro_torch.launch import distributed as launcher
     out.mkdir(parents=True, exist_ok=True)
-    launcher.spawn_ranks(_fsdp_rank, (jobs, str(out)), ranks, "cuda",
-                         timeout_s=900)
+    launcher.spawn_ranks(rank_fn or _fsdp_rank, (jobs, str(out)), ranks,
+                         device, timeout_s=timeout_s)
     return {j["tag"]: json.loads((out / f"{j['tag']}.json").read_text())
             for j in jobs}
 
@@ -8302,6 +8353,877 @@ def phase_tp_moe_cards(n_cards: int, tmpdir: str) -> dict:
     return rec
 
 
+# Queue 3's open check (ROADMAP): phase 39's four pairs in f32, 2 steps
+# each (the question is step 1's readings), under deterministic
+# algorithms, held by 39's loss and grad_norm rtol; each pair's step-1
+# grad_norm gap set beside the dense pairs' ~1.4e-4 (37 (a), bf16) and
+# 39's bf16 gaps of 6e-4 to 1e-3
+TPF_F32 = (("seamless", dict(TPF_SEAMLESS_ONE, dtype="float32", steps=2),
+            dict(TPF_SEAMLESS_CELL, dtype="float32", steps=2), 2),
+           ("mamba2", dict(TPF_MAMBA_ONE, dtype="float32", steps=2),
+            dict(TPF_MAMBA_CELL, dtype="float32", steps=2), 1))
+
+
+def phase_tp_families_f32(n_cards: int, tmpdir: str) -> dict:
+    """[39f] phase 39's pairs in f32 on ``n_cards`` = 4 cards: seamless and
+    mamba2 at full width and depth, one device against (1, 2) and (4, 1)
+    against (2, 2), 2 steps each: loss and grad_norm within 37 (a)'s rtol,
+    step 1's grad_norm gap, each leaf's step-1 gradient norm gap and the
+    params after the steps read as 39 reads them (printed, not gated: f32
+    moves no element by AdamW's sign flips). ``failures`` lists the
+    failed checks."""
+    from repro_torch.device import card_description
+    d = Path(tmpdir) / "tpf32"
+    d.mkdir()
+    rec = {"failures": [], "card": card_description()}
+
+    def soft(cond: bool, msg: str) -> None:
+        if not cond:
+            rec["failures"].append(msg)
+            print(f"FAILED: chip_smoke: {msg}", flush=True)
+    if n_cards != math.prod(TP_CELL_MESH):
+        soft(False, f"[39f] needs {math.prod(TP_CELL_MESH)} cards, got "
+                    f"{n_cards}")
+        return rec
+    det = dict(deterministic=True, launches=True, grad_norms=True)
+    t0 = time.perf_counter()
+    got = _fsdp_spawn(
+        [job for k, one, _, _ in TPF_F32 for job in (
+            dict(tag=f"{k}_one", kind="steps", spec=one, alone=True,
+                 keep=k, **det),
+            dict(tag=f"{k}_tp12", kind="steps", spec=one,
+                 mesh=TP_PARITY_MESH, compare=k, **det))],
+        math.prod(TP_PARITY_MESH), d / "w2")
+    got.update(_fsdp_spawn(
+        [job for k, _, c, micro in TPF_F32 for job in (
+            dict(tag=f"{k}_fsdp41", kind="steps", spec=c, keep=k, **det),
+            dict(tag=f"{k}_tp22", kind="steps", spec=c, mesh=TP_CELL_MESH,
+                 micro=micro, compare=k, **det))],
+        n_cards, d / "w4"))
+    rec["spawn_s"] = time.perf_counter() - t0
+    launches: dict = {}
+    pairs = {}
+    for k, one, c, _ in TPF_F32:
+        for base, tp, spec in (("one", "tp12", one), ("fsdp41", "tp22", c)):
+            want, r = got[f"{k}_{base}"][0], got[f"{k}_{tp}"][0]
+            tag = f"[39f] {k} {tp}"
+            rel = _close_steps(r["steps"], want["steps"], FSDP_RTOL, tag,
+                               soft)
+            gaps = {m: abs(r["steps"][0][m] - want["steps"][0][m])
+                    / abs(want["steps"][0][m]) for m in ("loss", "grad_norm")}
+            norms = {n: (r["leaf_grad_norms"][n], g)
+                     for n, g in want["leaf_grad_norms"].items()}
+            norm_gaps = sorted(((abs(a - b) / b if b else abs(a), n)
+                                for n, (a, b) in norms.items()),
+                               reverse=True)
+            gap = r["params_gap"]
+            pairs[f"{k}_{tp}"] = dict(
+                max_rel_gap=rel, step1_rel_gaps=gaps,
+                max_leaf_grad_norm_gap=norm_gaps[0],
+                params_over=gap["over"], params_elements=gap["elements"],
+                params_max_ratio=gap["max_ratio"],
+                params_max_reach_ratio=gap["max_reach_ratio"],
+                ms_per_step=max(x["ms_per_step_median"]
+                                for x in got[f"{k}_{tp}"]),
+                peak_gb_by_card=[x["peak_memory_bytes"] / 1e9
+                                 for x in got[f"{k}_{tp}"]])
+            print(f"{tag}: {r['arch']} at full width and depth in f32, "
+                  f"{spec['batch']} x {spec['seq_len']} tokens, "
+                  f"{spec['steps']} steps, against "
+                  f"{'one device' if base == 'one' else '(4, 1)'}: step-1 "
+                  f"grad_norm {r['steps'][0]['grad_norm']:.8g} against "
+                  f"{want['steps'][0]['grad_norm']:.8g} (rel gap "
+                  f"{gaps['grad_norm']:.3g}; the dense bf16 pairs ~1.4e-4, "
+                  f"39's bf16 6e-4-1e-3), loss rel gap {gaps['loss']:.3g}; "
+                  f"every step within rel {rel:.3g} (bound {FSDP_RTOL}); "
+                  f"largest step-1 leaf gradient-norm gap "
+                  f"{norm_gaps[0][0]:.3g} at {norm_gaps[0][1]}; params "
+                  f"after the steps: {gap['over']} of {gap['elements']:,} "
+                  f"elements beyond 3·lr + 2^-8·|p|, largest ratio "
+                  f"{gap['max_ratio']:.4g}, to AdamW's reach "
+                  f"{gap['max_reach_ratio']:.4g}; peak GB by card "
+                  f"{[round(x, 2) for x in pairs[f'{k}_{tp}']['peak_gb_by_card']]}"
+                  f"; {rec['card']}", flush=True)
+        for tagged in (f"{k}_one", f"{k}_tp12", f"{k}_fsdp41", f"{k}_tp22"):
+            for x in got[tagged]:
+                for name, n in x.get("launches", {}).items():
+                    launches[name] = launches.get(name, 0) + n
+    rec["pairs"] = pairs
+    soft(not any(launches.values()), f"[39f] kernel launches {launches}")
+    rec["tp_families_f32_launches"] = launches
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# [41] serving over a tensor-parallel mesh (--cards N only)
+# ---------------------------------------------------------------------------
+
+# the teacher-forced check of every serve pair: TPS's prompts prefilled,
+# then its decode steps fed tokens drawn from its seed; the last-position
+# logits of the prefill and of each step compared
+TPS = dict(batch=2, prompt=1024, steps=8, s_max=1040, seed=0)
+# (a) qwen3-14b at full width and depth (40 layers, 14.77 B params), one
+# card against (1, 2) and (1, 4)
+TPS_QWEN = dict(SERVE, arch="qwen3-14b")
+# (b) jamba-v0.1-52b at full width and all 32 layers (103 GB of bf16: no
+# card holds it) on (1, 2) against (1, 4), phase 7's traffic served on
+# each; at 16 layers (phase 31 (b)'s one-card serve) one card against
+# (1, 2)
+TPS_JAMBA = dict(SERVE, arch="jamba-v0.1-52b")
+TPS_JAMBA16 = dict(SERVE_HYBRID)
+# (c) the other families at full width and depth, one card against (1, 2):
+# MLA decode, the SSM, head dim 96, the encoder-decoder
+TPS_OTHERS = (("deepseek", dict(SERVE, arch="deepseek-v2-lite-16b")),
+              ("mamba2", dict(SERVE, arch="mamba2-370m")),
+              ("phi3", dict(SERVE, arch="phi-3-vision-4.2b")),
+              ("seamless", dict(SERVE, arch="seamless-m4t-large-v2")))
+# (d) in f32, one card against (1, 2) within phase 31 (c)'s LM_TOL: the
+# reduced config of every family (TPS at 48 tokens); at full width
+# qwen3-14b at 2 layers, deepseek-v2-lite at 2 (its dense first layer and
+# an MoE layer: 64 experts over "data", the FFN dim over "model") and
+# jamba at 8 (one block: 7 SSM layers, GQA, 4 MoE layers of 16 experts
+# over "model"), 2 × 256 tokens: f32 leaves the routing's near-ties
+# where bf16 settles them apart (below)
+TPS_WIDE = dict(TPS, prompt=256, steps=4, s_max=272)
+TPS_F32 = tuple(
+    (f"{k}_f32", dict(arch=a, reduced=True, dtype="float32", seed=7,
+                      tf=dict(TPS, prompt=48, steps=4, s_max=64)))
+    for k, a in (("qwen3", "qwen3-14b"), ("phi3", "phi-3-vision-4.2b"),
+                 ("mamba2", "mamba2-370m"), ("jamba", "jamba-v0.1-52b"),
+                 ("deepseek", "deepseek-v2-lite-16b"),
+                 ("seamless", "seamless-m4t-large-v2"))) + tuple(
+    (f"{k}_wide_f32", dict(arch=a, n_layers=n, dtype="float32", seed=7,
+                           tf=TPS_WIDE))
+    for k, a, n in (("qwen3", "qwen3-14b", 2),
+                    ("deepseek", "deepseek-v2-lite-16b", 2),
+                    ("jamba", "jamba-v0.1-52b", 8)))
+# (d) on (1, 4) against one card as well: the experts over "model" at
+# T = 4 (jamba) and MLA with the expert FFN dim over "model" (deepseek)
+TPS_F32_14 = ("jamba_wide_f32", "deepseek_wide_f32")
+# the bf16 pairs: the greedy token the same wherever the one-card top-2
+# margin exceeds the logits' max|Δ|; without experts also that max|Δ|
+# within this share of the one-card logits' largest magnitude over the
+# vocab (a rank's block wrong moves them by about their own size)
+TPS_REL = 2.0 ** -2
+# An MoE router's near-ties, which two roundings settle apart, shift the
+# slot positions of every later token at that expert and with them which
+# tokens its capacity drops, so an MoE pair is held to the base's own
+# spread under one bf16 ulp more on 2^-10 of its weights
+# (scripts/probe_moe_noise.py's perturbation; the base run again with its
+# weights bumped): max|Δ| and mean|Δ| each within TPS_NOISE times the
+# spread's. (b)'s negative control, jamba at 16 layers on (1, 2) with the
+# last rank's experts rolled by one, must fall outside that bound.
+TPS_BUMP_SHARE = 2.0 ** -10
+TPS_NOISE = 2.0
+# (b)'s command line: jamba's 32 layers served through serve_lm's
+# --model-ranks (spawned NCCL ranks, rank 0 reporting)
+TPS_CLI = ("--arch", "jamba-v0.1-52b", "--model-ranks", "2", "--requests",
+           "4", "--new-tokens", "8", "--prompt-max", "1024")
+
+
+def _dev_sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _tps_run(model, params, tp, tf: dict, trace: bool = False) -> dict:
+    """[41] ``tf``'s prompts prefilled (an encoder-decoder's with frames of
+    its ``frontend_tokens``), then its decode steps teacher-forced from its
+    seed, on a serve tree and its ``tp`` (or one device's params, no
+    ``tp``): the last-position logits of each (f32, numpy), the prefill's
+    ms and each step's, host clock after a synchronise. With ``trace``
+    two more steps under ``torch.profiler`` (:func:`_tps_trace`)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve_lm
+    cfg, dev = model.cfg, model.device
+    b, s = tf["batch"], tf["prompt"]
+    rng = np.random.default_rng(tf["seed"])
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab_size, (b, s)),
+                           device=dev)
+    fed = torch.as_tensor(rng.integers(2, cfg.vocab_size, (tf["steps"], b)),
+                          device=dev)
+    fe, enc = None, ()
+    if cfg.encoder_layers:
+        fe = torch.as_tensor(rng.standard_normal(
+            (b, cfg.frontend_tokens, cfg.d_model)).astype(np.float32),
+            device=dev)
+        enc = (cfg.frontend_tokens,)
+    t = 1 if tp is None else tp.size
+    _dev_sync(dev)
+    t0 = time.perf_counter()
+    logits, pre = model.prefill(params, toks, fe, tp=tp)
+    _dev_sync(dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    caches = model.init_decode_caches(b, tf["s_max"], *enc, model_ranks=t)
+    serve_lm.write_caches(caches, pre, s)
+    del pre
+    out, step_ms = [logits.float().cpu()], []
+    for i in range(tf["steps"]):
+        _dev_sync(dev)
+        t0 = time.perf_counter()
+        logits, caches = model.decode_step(params, fed[i], caches, s + i,
+                                           tp=tp)
+        _dev_sync(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits.float().cpu())
+    rec = {"logits": torch.stack(out).numpy(), "prefill_ms": prefill_ms,
+           "decode_ms": step_ms}
+    if trace:
+        rec["trace"] = _tps_trace(model, params, tp, caches, fed,
+                                  s + tf["steps"])
+    del caches
+    return rec
+
+
+# the runtime calls that make the host wait for the device
+TPS_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                  "cudaEventSynchronize", "cudaMemcpy", "cuStreamSynchronize",
+                  "cuCtxSynchronize")
+
+
+def _tps_trace(model, params, tp, caches, fed, pos: int,
+               steps: int = 2) -> dict:
+    """[41] ``steps`` teacher-forced decode steps from position ``pos``
+    under ``torch.profiler`` (the device's kernels and copies on the card),
+    per step: the host's wall ms (profiled), the device's busy ms and ops
+    (``launch/profile_step.analyze_trace``), its ms in NCCL kernels (on a
+    rank ahead of the others, mostly waiting in them) and in the other
+    kernels (``compute_ms``), in copies (memcpy and memset, and kernels
+    named for copying: the decode's casts), the copies' bytes where the
+    trace gives them, the runtime calls within a step that wait for the
+    device (:data:`TPS_SYNC_CALLS`; those outside the steps by name), the
+    runtime and driver calls' count and host ms, the host ms in each range
+    (``decode/ssm``, ``decode/moe``, …) and the largest device ops."""
+    import collections
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.launch.profile_step import analyze_trace
+    dev = model.device
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if dev.type == "cuda" else [])
+    _dev_sync(dev)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            with record_function("tps/step"):
+                model.decode_step(params, fed[i], caches, pos + i, tp=tp)
+        _dev_sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    stats = analyze_trace(events, steps)
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    copies = [e for e in device if e["cat"] != "kernel"
+              or "copy" in e["name"].lower()]
+    api = [e for e in events if e.get("cat") in ("cuda_runtime",
+                                                 "cuda_driver")]
+    host = collections.defaultdict(float)
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"] != "tps/step":
+            host[e["name"]] += e.get("dur", 0) / 1e3 / steps
+    windows = [(e["ts"], e["ts"] + e["dur"]) for e in events
+               if e.get("name") == "tps/step"
+               and e.get("cat") == "user_annotation"]
+    waits = [e for e in api if e["name"] in TPS_SYNC_CALLS]
+    inside = [e for e in waits
+              if any(a <= e["ts"] <= b for a, b in windows)]
+    nccl = [e for e in device if "nccl" in e["name"].lower()]
+    per = lambda x: x / steps             # noqa: E731
+    return {
+        "steps": steps, "wall_ms": wall_ms,
+        "device_busy_ms": stats["device_busy_ms"],
+        "device_ops": stats["launches"],
+        "nccl_ms": per(sum(e["dur"] for e in nccl) / 1e3),
+        "compute_ms": per(sum(e["dur"] for e in device
+                              if e not in nccl) / 1e3),
+        "copy_ms": per(sum(e["dur"] for e in copies) / 1e3),
+        "copy_ops": per(len(copies)),
+        "copy_bytes": per(sum(e.get("args", {}).get("bytes", 0) or 0
+                              for e in copies)),
+        "sync_calls": per(len(inside)),
+        "sync_calls_outside_steps": sorted(
+            e["name"] for e in waits if e not in inside),
+        "api_calls": per(len(api)),
+        "api_host_ms": per(sum(e.get("dur", 0) for e in api) / 1e3),
+        "host_ms_by_range": dict(sorted(host.items(),
+                                        key=lambda kv: -kv[1])),
+        "device_ms_by_range": {k: v["device_ms"]
+                               for k, v in stats["ranges"].items()},
+        "top_device_ops": stats["top_device_ops"][:6]}
+
+
+def _bump_ulps(params, seed: int) -> None:
+    """One unit in the last place more magnitude on a random
+    ``TPS_BUMP_SHARE`` of each leaf's elements, in place (the integer
+    view of the float adds 1; leaves in sorted path order, one generator
+    from ``seed``)."""
+    import torch
+    from repro_torch.train.optimizer import _leaves
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    for leaf in _leaves(params):
+        gen = torch.Generator(device=leaf.device).manual_seed(seed)
+        seed += 1
+        mask = torch.rand(leaf.shape, generator=gen,
+                          device=leaf.device) < TPS_BUMP_SHARE
+        bits = leaf.view(ints[leaf.dtype])
+        bits += mask.to(bits.dtype)
+
+
+def _roll_experts(params) -> None:
+    """The negative control of (b): each MoE layer's expert FFN leaves
+    (``w_gate``, ``w_up``, ``w_down``: the rank's experts on a serve tree)
+    rolled by one along their expert axis, in place, so a token sent to one
+    of these experts meets its neighbour's weights."""
+    import torch
+    if not isinstance(params, dict):
+        return
+    for k, v in params.items():
+        if k == "moe":
+            for w in (v["w_gate"], v["w_up"], v["w_down"]):
+                w.copy_(torch.roll(w, 1, dims=w.dim() - 3))
+        else:
+            _roll_experts(v)
+
+
+def _tps_memory(dev) -> dict:
+    import torch
+    if dev.type != "cuda":
+        return {}
+    return {"allocated_bytes": torch.cuda.memory_allocated(dev),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+
+
+def _tps_job(job: dict, group, device, out: str) -> dict:
+    """[41] One job on this rank: ``kind`` "one" (rank 0 alone, one
+    device's params) or "tp" (every rank, the serve tree of the job's
+    (1, T) ``mesh``), with ``bump`` one ulp more on 2^-10 of the weights
+    (:func:`_bump_ulps`), with ``wrong`` the last rank's experts rolled
+    (:func:`_roll_experts`); the teacher-forced run (:func:`_tps_run`,
+    every kernel's launches counted over it, with ``trace`` two more
+    steps profiled), its logits written by rank 0 to
+    ``out/<tag>.npy`` and their sha256 recorded on every rank; with
+    ``k2`` K2 ≡ its plain version on the q, k, v of this rank's first K2
+    call (on the card); with ``serve`` the spec's traffic through
+    ``serve_lm.serve`` on the serve tree, launches counted over it; the
+    weights' bytes, the init's and the runs' peaks a card."""
+    import gc
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model, sharding
+    rank = dist.get_rank(group)
+    spec = job["spec"]
+    cfg = _fsdp_cfg(spec)
+    model = build_model(cfg, device=device)
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "n_params": model.n_params(), "dtype": cfg.param_dtype}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    held = _tps_memory(device).get("allocated_bytes", 0)
+    gen = torch.Generator(device=device).manual_seed(spec["seed"])
+    t0 = time.perf_counter()
+    if job["kind"] == "one":
+        params, tp = model.init_params(gen), None
+    else:
+        mesh = lmesh.make_device_mesh(
+            lmesh.Mesh(tuple(job["mesh"]), ("data", "model")), device)
+        lmesh.check_divides(cfg, mesh, attn_impl=model.attn_impl)
+        params, tp = sharding.for_serve(model.init_params(gen, mesh))
+    if job.get("bump"):
+        _bump_ulps(params, spec["seed"] + 1)
+    if job.get("wrong") and rank == dist.get_world_size(group) - 1:
+        _roll_experts(params)
+    _dev_sync(device)
+    rec["init_s"] = time.perf_counter() - t0
+    mem = _tps_memory(device)
+    if mem:
+        rec["weights_bytes"] = mem["allocated_bytes"] - held
+        rec["init_peak_bytes"] = mem["peak_bytes"]
+        torch.cuda.reset_peak_memory_stats(device)
+    tf = spec.get("tf", TPS)
+    _reset_counts()
+    with _first_call(ops, "flash_attention") as seen:
+        run = _tps_run(model, params, tp, tf, bool(job.get("trace")))
+    rec["launches"] = _read_counts()
+    logits = run.pop("logits")
+    rec.update(run, logits_shape=list(logits.shape),
+               logits_sha256=hashlib.sha256(logits.tobytes()).hexdigest())
+    if rank == 0:
+        np.save(Path(out) / f"{job['tag']}.npy", logits)
+    del logits
+    if seen:
+        q, k, _ = seen["args"]
+        rec["k2_shapes"] = [list(q.shape), list(k.shape)]
+    if job.get("k2") and device.type == "cuda":
+        check(bool(seen), f"[41] {job['tag']}: no K2 call in the prefill")
+        q, k, v = seen["args"]
+        rec["k2_check"] = _k2_case(
+            f"[41] rank {rank}", f"{job['tag']}-first-prefill", q, k, v,
+            seen["kw"].get("causal", True), first=False)
+        del q, k, v
+    seen.clear()
+    if job.get("serve"):
+        reqs = serve_lm.make_requests(
+            spec["requests"], cfg.vocab_size, prompt_min=spec["prompt_min"],
+            prompt_max=spec["prompt_max"], new_tokens=spec["new_tokens"],
+            seed=spec["seed"])
+        _reset_counts()
+        rep = serve_lm.serve(
+            model, params, reqs, tp=tp,
+            frames=serve_lm.make_frames(cfg, reqs, spec["seed"]),
+            slots=spec["slots"], s_max=spec["s_max"],
+            page_size=spec["page_size"], n_pages=spec["n_pages"])
+        rec["serve"] = dict(rep.summary(), launches=_read_counts(),
+                            prompt_lens=[len(r.prompt) for r in reqs],
+                            streams=[list(map(int, f.tokens))
+                                     for f in rep.finished])
+    mem = _tps_memory(device)
+    if mem:
+        rec["run_peak_bytes"] = mem["peak_bytes"]
+    del params, model
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _tps_rank(group, device, jobs: list, out: str) -> None:
+    """[41] ``jobs`` on this rank of ``group`` in order (:func:`_tps_job`;
+    a "one" job runs on rank 0 while the others wait); rank 0 writes
+    ``out/<tag>.json`` with every rank's record."""
+    import torch.distributed as dist
+    rank = dist.get_rank(group)
+    for job in jobs:
+        t0 = time.perf_counter()
+        rec = ({"alone": True} if job["kind"] == "one" and rank
+               else _tps_job(job, group, device, out))
+        rec["seconds"] = time.perf_counter() - t0
+        _gather_job(group, job, rec, out)
+
+
+def _tps_jobs() -> tuple[list, list]:
+    """[41] The two spawns' jobs: on 2 ranks every one-card run (rank 0)
+    and every (1, 2) run, each MoE pair's base also with its weights
+    bumped (:data:`TPS_NOISE`), (b)'s negative control, jamba's 32 layers
+    last; on 4 ranks (1, 4). The decode steps of (a) and (b) and of
+    mamba2 are traced (:func:`_tps_trace`)."""
+    traced = ("qwen3", "jamba16", "mamba2")
+    two: list = []
+    for key, spec in (("qwen3", TPS_QWEN),) + TPS_OTHERS + (
+            ("jamba16", TPS_JAMBA16),):
+        two += [dict(tag=f"{key}_one", kind="one", spec=spec,
+                     trace=key in traced),
+                dict(tag=f"{key}_tp12", kind="tp", spec=spec, mesh=(1, 2),
+                     k2=key not in ("deepseek", "mamba2"),
+                     trace=key in traced)]
+        if _fsdp_cfg(spec).n_experts:
+            two.append(dict(tag=f"{key}_bump", kind="one", spec=spec,
+                            bump=True))
+    two.append(dict(tag="jamba16_wrong", kind="tp", spec=TPS_JAMBA16,
+                    mesh=(1, 2), wrong=True))
+    for key, spec in TPS_F32:
+        two += [dict(tag=f"{key}_one", kind="one", spec=spec),
+                dict(tag=f"{key}_tp12", kind="tp", spec=spec, mesh=(1, 2))]
+    two += [dict(tag="jamba_bump", kind="tp", spec=TPS_JAMBA, mesh=(1, 2),
+                 bump=True),
+            dict(tag="jamba_tp12", kind="tp", spec=TPS_JAMBA, mesh=(1, 2),
+                 k2=True, serve=True, trace=True)]
+    four = [dict(tag=f"{key}_tp14", kind="tp", spec=dict(TPS_F32)[key],
+                 mesh=(1, 4)) for key in TPS_F32_14]
+    four += [dict(tag="qwen3_tp14", kind="tp", spec=TPS_QWEN, mesh=(1, 4),
+                  k2=True, trace=True),
+             dict(tag="jamba_tp14", kind="tp", spec=TPS_JAMBA, mesh=(1, 4),
+                  k2=True, serve=True, trace=True)]
+    return two, four
+
+
+def _tps_compare(want, got, vocab: int) -> dict:
+    """Two runs' logits (steps + 1, B, V_pad) over the first ``vocab``
+    columns (the padded ones are -1e30 in both): max|Δ| and mean|Δ|, the
+    one-card logits' largest magnitude, and the greedy tokens where the
+    one-card top-2 margin exceeds max|Δ| (``checked``) and how many of
+    them agree."""
+    import numpy as np
+    want, got = want[..., :vocab], got[..., :vocab]
+    diff = np.abs(got - want)
+    err = float(diff.max())
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]
+    sure = margin > err
+    same = want.argmax(-1) == got.argmax(-1)
+    over = float((diff / (LM_TOL + LM_TOL * np.abs(want))).max())
+    return {"max_abs_err": err, "mean_abs_err": float(diff.mean()),
+            "max_abs_logit": float(np.abs(want).max()),
+            "max_err_over_lm_tol": over, "positions": int(same.size),
+            "checked": int(sure.sum()), "agree_where_checked":
+            int((same & sure).sum()), "agree_all": int(same.sum()),
+            "by_step_max_abs_err": [float(x) for x in
+                                    diff.reshape(len(diff), -1).max(-1)]}
+
+
+def _tps_traces(got: dict, soft, card: str) -> dict:
+    """[41] The traced decode steps (:func:`_tps_trace`) of each run, by
+    rank, printed; no runtime call within a step that waits for the
+    device, and a (1, T) run's copies a step no more than 1.1× its
+    one-card base's where that is traced (the copies are the decode's
+    casts, the same on one card: a weight copied each step would add its
+    bytes; ``tests/test_torch_tp_serve.py`` finds no op that copies one)."""
+    out = {}
+    for tag, ranks in got.items():
+        if "trace" not in ranks[0]:
+            continue
+        ranks = [x for x in ranks if "trace" in x]   # a "one" job's rank 0
+        out[tag] = [x["trace"] for x in ranks]
+        base = got.get(f"{tag.rsplit('_', 1)[0]}_one", [{}])[0].get("trace")
+        for i, (x, tr) in enumerate(zip(ranks, out[tag])):
+            stream_ms = x.get("weights_bytes", 0) / PEAK_HBM_BYTES * 1e3
+            if base is not None and "_one" not in tag:
+                soft(tr["copy_ms"] <= 1.1 * base["copy_ms"],
+                     f"[41] {tag} rank {i}: copies {tr['copy_ms']:.3f} ms a "
+                     f"decode step, one card's {base['copy_ms']:.3f}")
+            soft(tr["sync_calls"] == 0,
+                 f"[41] {tag} rank {i}: {tr['sync_calls']} runtime calls a "
+                 f"decode step wait for the device")
+            rng = ", ".join(f"{k} {v:.2f}" for k, v in list(
+                tr["host_ms_by_range"].items())[:6])
+            ops = "; ".join(f"{o['name'][:60]} {o['device_ms']:.3f} ms "
+                            f"×{o['calls']:.0f}" for o in
+                            tr["top_device_ops"][:4])
+            print(f"[41] trace {tag} rank {i}: a decode step {tr['wall_ms']:.2f} "
+                  f"ms on the host (profiled), device busy "
+                  f"{tr['device_busy_ms']:.3f} ms in {tr['device_ops']:.0f} ops: "
+                  f"NCCL {tr['nccl_ms']:.3f} ms, the rest {tr['compute_ms']:.3f}"
+                  f" (copies {tr['copy_ms']:.3f} ms in {tr['copy_ops']:.0f} "
+                  f"ops, {tr['copy_bytes']:,.0f} bytes where traced; the "
+                  f"weights stream in {stream_ms:.2f} ms); "
+                  f"{tr['api_calls']:.0f} runtime calls taking "
+                  f"{tr['api_host_ms']:.2f} ms of the host, "
+                  f"{tr['sync_calls']:g} a step waiting for the device "
+                  f"(outside the steps: {tr['sync_calls_outside_steps']}); "
+                  f"host ms by range: {rng}; largest device ops: {ops}; "
+                  f"{card}", flush=True)
+    return out
+
+
+def _tps_cli(d: Path, device: str, soft, card: str) -> dict:
+    """[41b] ``python -m repro_torch.launch.serve_lm`` with
+    :data:`TPS_CLI` in a child process: it exits 0 and prints one report
+    (rank 0's) of every request finished with finite logits on the ranks
+    asked for, K2 launched on every rank once an attention layer a
+    prefill (its plain version on CPU tensors)."""
+    import os
+    out = d / "cli.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve_lm", *TPS_CLI,
+           "--out", str(out)] + (["--device", "cpu"] if device == "cpu"
+                                 else [])
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=900)
+    secs = time.perf_counter() - t0
+    args = dict(zip(TPS_CLI[::2], TPS_CLI[1::2]))
+    said = f"[41b] serve_lm {' '.join(TPS_CLI)}"
+    soft(run.returncode == 0,
+         f"{said}: exit {run.returncode}: {run.stderr[-1500:]}")
+    if run.returncode:
+        return {"rc": run.returncode}
+    reports = [ln for ln in run.stdout.splitlines() if ln.startswith("{")]
+    rep = json.loads(out.read_text())
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS[args["--arch"]]
+    attn = sum(1 for ld in _layer_kinds(cfg) if ld == "attn")
+    t = int(args["--model-ranks"])
+    want_k2 = [0 if device == "cpu" else attn * rep["prefills"]] * t
+    soft(len(reports) == 1 and json.loads(reports[0]) == rep
+         and rep["model_ranks"] == t
+         and rep["requests"] == int(args["--requests"])
+         and rep["logits_finite"] and rep["k2_launches_by_rank"] == want_k2,
+         f"{said}: {len(reports)} reports, {rep}; K2 launches by rank "
+         f"wanted {want_k2}")
+    print(f"{said}: {rep['requests']} requests, {rep['prompt_tokens']} "
+          f"prompt tokens, {rep['generated_tokens']} generated over "
+          f"{rep['model_ranks']} ranks; prefill {rep['prefill_ms_mean']:.2f} "
+          f"ms a prompt (mean), decode {rep['decode_ms_per_iter_median']:.2f} "
+          f"ms an iteration (median of {rep['decode_iterations']}); K2 "
+          f"launches by rank {rep['k2_launches_by_rank']}; {secs:.1f} s "
+          f"with its start and the weights' draw; {card}", flush=True)
+    return dict(rep, seconds=secs)
+
+
+def phase_tp_serve_cards(n_cards: int, tmpdir: str,
+                         device: str = "cuda") -> dict:
+    """[41 (a)-(d)] serving over a tensor-parallel mesh on ``n_cards`` = 4
+    cards: every pair's teacher-forced logits compared (:func:`_tps_run`,
+    :func:`_tps_compare`), K2 ≡ its plain version on each rank's first
+    prefill q, k, v (the rank's heads) with its launches counted per
+    rank, jamba's 32 layers served on (1, 2) and (1, 4) with their peaks
+    and times. Every part is run and printed before a failed check ends
+    the phase: ``failures`` lists them. ``device="cpu"`` rehearses the
+    phase on gloo ranks (with the specs cut to reduced configs by the
+    caller: K2 then runs its plain version, and nothing of the card is
+    read)."""
+    import numpy as np
+    from repro_torch.device import card_description
+    d = Path(tmpdir) / "tps"
+    d.mkdir()
+    cpu = device == "cpu"
+    rec = {"failures": [], "card": "cpu" if cpu else card_description()}
+
+    def soft(cond: bool, msg: str) -> None:
+        if not cond:
+            rec["failures"].append(msg)
+            print(f"FAILED: chip_smoke: {msg}", flush=True)
+    if n_cards != 4 and not cpu:
+        soft(False, f"[41] needs 4 cards, got {n_cards}")
+        return rec
+    two, four = _tps_jobs()
+    t0 = time.perf_counter()
+    got = _fsdp_spawn(two, 2, d / "w2", _tps_rank, device, 600)
+    rec["spawn2_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got.update(_fsdp_spawn(four, 4, d / "w4", _tps_rank, device, 600))
+    rec["spawn4_s"] = time.perf_counter() - t0
+    logits = {tag: np.load(d / ("w4" if "tp14" in tag else "w2")
+                           / f"{tag}.npy") for tag in got}
+    pairs = {}
+
+    def pair(part: str, base: str, other: str, f32: bool = False,
+             control: bool = False) -> dict:
+        ranks = got[other]
+        r = ranks[0]
+        cfg = _fsdp_cfg(_tps_spec(other))
+        cmp = _tps_compare(logits[base], logits[other], cfg.vocab_size)
+        same_bytes = len({x["logits_sha256"] for x in ranks}) == 1
+        soft(same_bytes, f"[41{part}] {other}: the ranks' logits differ")
+        if f32:
+            soft(cmp["max_err_over_lm_tol"] <= 1.0,
+                 f"[41{part}] {other} against {base}: max|Δ| "
+                 f"{cmp['max_abs_err']:.3g}, {cmp['max_err_over_lm_tol']:.3g}"
+                 f"× atol {LM_TOL} + rtol {LM_TOL}·|one card|")
+        noise = None
+        if f"{base.rsplit('_', 1)[0]}_bump" in got:
+            noise = _tps_compare(logits[base], logits[
+                f"{base.rsplit('_', 1)[0]}_bump"], cfg.vocab_size)
+        if not f32 and cfg.n_experts:
+            within = (cmp["max_abs_err"] <= TPS_NOISE * noise["max_abs_err"]
+                      and cmp["mean_abs_err"]
+                      <= TPS_NOISE * noise["mean_abs_err"])
+            said = (f"[41{part}] {other} against {base}: max|Δ| "
+                    f"{cmp['max_abs_err']:.4g}, mean|Δ| "
+                    f"{cmp['mean_abs_err']:.4g}; bound {TPS_NOISE:g}× the "
+                    f"bumped base's {noise['max_abs_err']:.4g}, "
+                    f"{noise['mean_abs_err']:.4g}")
+            if control:
+                soft(not within, f"{said}: the negative control is inside "
+                     f"the bound")
+            else:
+                soft(within and cmp["agree_where_checked"] == cmp["checked"],
+                     f"{said}; top-1 agrees at "
+                     f"{cmp['agree_where_checked']} of {cmp['checked']} "
+                     f"positions whose margin exceeds max|Δ|")
+        elif not f32:
+            soft(cmp["max_abs_err"] <= TPS_REL * cmp["max_abs_logit"]
+                 and cmp["agree_where_checked"] == cmp["checked"],
+                 f"[41{part}] {other} against {base}: max|Δ| "
+                 f"{cmp['max_abs_err']:.4g} (bound {TPS_REL:g} of "
+                 f"{cmp['max_abs_logit']:.4g}), top-1 "
+                 f"agrees at {cmp['agree_where_checked']} of "
+                 f"{cmp['checked']} positions whose margin exceeds it")
+        k2 = [x.get("launches", {}).get("k2_flash_attention", 0)
+              for x in ranks]
+        attn = sum(1 for ld in _layer_kinds(cfg) if ld == "attn") \
+            if not cfg.mla else 0
+        # K2 runs on the card only (its plain version on CPU tensors)
+        soft(all(n == (0 if cpu else attn) for n in k2),
+             f"[41{part}] {other}: K2 launches by rank {k2}, not one per "
+             f"attention layer ({attn}) in the one prefill")
+        heads = [x.get("k2_shapes") for x in ranks]
+        t = len(ranks)
+        if attn:
+            soft(all(h and h[0][1] == cfg.n_heads // t
+                     and h[1][1] == cfg.n_kv_heads // t for h in heads),
+                 f"[41{part}] {other}: K2's q, k shapes by rank {heads}")
+        out = dict(cmp, bumped_base_spread=noise,
+                   k2_launches_by_rank=k2, k2_shapes_by_rank=heads,
+                   logits_equal_on_ranks=same_bytes,
+                   prefill_ms=max(x["prefill_ms"] for x in ranks),
+                   decode_ms_median=max(statistics.median(x["decode_ms"])
+                                        for x in ranks),
+                   base_prefill_ms=got[base][0]["prefill_ms"],
+                   base_decode_ms_median=statistics.median(
+                       got[base][0]["decode_ms"]),
+                   peak_gb_by_card=[x.get("run_peak_bytes", 0) / 1e9
+                                    for x in ranks],
+                   init_peak_gb_by_card=[x.get("init_peak_bytes", 0) / 1e9
+                                         for x in ranks],
+                   weights_gb_by_card=[x.get("weights_bytes", 0) / 1e9
+                                       for x in ranks],
+                   base_peak_gb=got[base][0].get("run_peak_bytes", 0) / 1e9,
+                   base_weights_gb=got[base][0].get("weights_bytes", 0)
+                   / 1e9)
+        pairs[other] = out
+        print(f"[41{part}] {r['arch']} ({r['n_layers']} layers, "
+              f"{r['n_params']:,} params, {r['dtype']}) {other} against "
+              f"{base}: {out['positions']} last-position logits of 1 "
+              f"prefill + {len(r['decode_ms'])} teacher-forced steps, "
+              f"max|Δ| {cmp['max_abs_err']:.4g}, mean|Δ| "
+              f"{cmp['mean_abs_err']:.4g} (largest |logit| "
+              f"{cmp['max_abs_logit']:.4g}; by step "
+              f"{[float(f'{x:.3g}') for x in cmp['by_step_max_abs_err']]}); "
+              f"top-1 "
+              f"agrees at {cmp['agree_where_checked']} of {cmp['checked']} "
+              f"positions whose one-card margin exceeds it, "
+              f"{cmp['agree_all']} of {cmp['positions']} in all"
+              + ("" if noise is None else
+                 f" ({base}'s own spread under one ulp on "
+                 f"{TPS_BUMP_SHARE:g} of its weights: max|Δ| "
+                 f"{noise['max_abs_err']:.4g}, mean|Δ| "
+                 f"{noise['mean_abs_err']:.4g}, top-1 {noise['agree_all']} "
+                 f"of {noise['positions']})")
+              + f"; logits equal on the ranks: {same_bytes}; first "
+              f"(cold) prefill "
+              f"{out['prefill_ms']:.1f} ms against {out['base_prefill_ms']:.1f}"
+              f", decode {out['decode_ms_median']:.2f} ms/step against "
+              f"{out['base_decode_ms_median']:.2f} (median, slowest rank); "
+              f"K2 launches by rank {k2}, q/k heads {[h[0][1] if h else None for h in heads]}"
+              f"/{[h[1][1] if h else None for h in heads]}; weights GB by "
+              f"card {[round(x, 2) for x in out['weights_gb_by_card']]}, "
+              f"init peak {[round(x, 2) for x in out['init_peak_gb_by_card']]}"
+              f", run peak {[round(x, 2) for x in out['peak_gb_by_card']]} "
+              f"({base}: weights {out['base_weights_gb']:.2f}, peak "
+              f"{out['base_peak_gb']:.2f} on its first card); {rec['card']}",
+              flush=True)
+        return out
+
+    def _tps_spec(tag: str) -> dict:
+        key = tag.rsplit("_", 1)[0]
+        return dict(dict((("qwen3", TPS_QWEN), ("jamba16", TPS_JAMBA16),
+                          ("jamba", TPS_JAMBA)) + TPS_OTHERS
+                         + TPS_F32)[key])
+    pair("a", "qwen3_one", "qwen3_tp12")
+    pair("a", "qwen3_one", "qwen3_tp14")
+    pair("b", "jamba16_one", "jamba16_tp12")
+    pair("b", "jamba16_one", "jamba16_wrong", control=True)
+    pair("b", "jamba_tp12", "jamba_tp14")
+    for key, _ in TPS_OTHERS:
+        pair("c", f"{key}_one", f"{key}_tp12")
+    for key, _ in TPS_F32:
+        pair("d", f"{key}_one", f"{key}_tp12", f32=True)
+    for key in TPS_F32_14:
+        pair("d", f"{key}_one", f"{key}_tp14", f32=True)
+    rec["pairs"] = pairs
+    rec["traces"] = _tps_traces(got, soft, rec["card"])
+    # (b)'s serves: jamba's 32 layers, phase 7's traffic
+    cfg = _fsdp_cfg(TPS_JAMBA)
+    one_params = _card_params(cfg, 1)
+    serves = {}
+    for tag in ("jamba_tp12", "jamba_tp14"):
+        ranks = got[tag]
+        t = len(ranks)
+        s = [x["serve"] for x in ranks]
+        k2 = [x["launches"]["k2_flash_attention"] for x in s]
+        attn = sum(1 for ld in _layer_kinds(cfg) if ld == "attn")
+        soft(all(x["requests"] == TPS_JAMBA["requests"]
+                 and x["logits_finite"]
+                 and x["n_free"] == TPS_JAMBA["n_pages"] for x in s),
+             f"[41b] {tag} serve: {[{k: x[k] for k in ('requests', 'logits_finite', 'n_free')} for x in s]}")
+        soft(all(x["streams"] == s[0]["streams"] for x in s),
+             f"[41b] {tag}: the ranks' token streams differ")
+        soft(all(n == (0 if cpu else attn) * x["prefills"]
+                 for n, x in zip(k2, s)),
+             f"[41b] {tag}: K2 launches by rank {k2}, not {attn} a "
+             f"prefill")
+        others = {k: v for x in s for k, v in x["launches"].items()
+                  if k != "k2_flash_attention" and v}
+        soft(not others, f"[41b] {tag}: other kernels launched {others}")
+        peaks = [x.get("run_peak_bytes", 0) / 1e9 for x in ranks]
+        inits = [x.get("init_peak_bytes", 0) / 1e9 for x in ranks]
+        card = _card_params(cfg, t)
+        # the reckoning (PERF.md §6): a card's bf16 blocks, and
+        # at init the f32 draw and bf16 cast of the largest whole leaf
+        big = max(math.prod(i.shape) for i in _infos(cfg).values())
+        serves[tag] = dict(
+            s[0], k2_launches_by_rank=k2, peak_gb_by_card=peaks,
+            init_peak_gb_by_card=inits,
+            weights_gb_by_card=[x.get("weights_bytes", 0) / 1e9
+                                for x in ranks],
+            reckoned_weights_gb=2 * card / 1e9,
+            reckoned_init_peak_gb=(2 * card + 6 * big) / 1e9,
+            prefill_ms_by_card=[x["prefill_ms_mean"] for x in s],
+            decode_ms_by_card=[x["decode_ms_per_iter_median"]
+                               for x in s])
+        soft(max(peaks + inits) < 80.0,
+             f"[41b] {tag} peak GB by card {peaks}, init {inits}")
+        v = serves[tag]
+        print(f"[41b] serve {cfg.name} at full width, all "
+              f"{cfg.n_layers} layers ({one_params:,} params, bf16) on "
+              f"(1, {t}): {v['requests']} requests, "
+              f"{v['prompt_tokens']} prompt tokens, "
+              f"{v['generated_tokens']} generated; prefill "
+              f"{v['prefill_tokens_per_s']:.0f} tokens/s (mean "
+              f"{v['prefill_ms_mean']:.2f} ms per prompt, by card "
+              f"{[round(x, 2) for x in v['prefill_ms_by_card']]}); time "
+              f"to first token median {v['ttft_ms_median']:.2f} ms; "
+              f"decode {v['decode_ms_per_iter_median']:.2f} "
+              f"ms/iteration (median of {v['decode_iterations']}; by "
+              f"card {[round(x, 2) for x in v['decode_ms_by_card']]}); "
+              f"{v['generated_tokens_per_s']:.1f} generated tokens/s; "
+              f"K2 launches by rank {k2} ({attn} a prefill); weights "
+              f"GB by card {[round(x, 2) for x in v['weights_gb_by_card']]}"
+              f" (reckoned {v['reckoned_weights_gb']:.2f}: 2 bytes each "
+              f"of a card's {card:,} parameters), init peak "
+              f"{[round(x, 2) for x in inits]} (reckoned "
+              f"{v['reckoned_init_peak_gb']:.2f}: those and the largest "
+              f"leaf's {big:,} elements drawn in f32 and cast to bf16), "
+              f"serve peak {[round(x, 2) for x in peaks]} "
+              f"(torch.cuda.max_memory_allocated); {rec['card']}",
+              flush=True)
+    rec["serves"] = serves
+    rec["cli"] = _tps_cli(d, device, soft, rec["card"])
+    # K2 on each rank's first prefill q, k, v: (a) and (b)'s pairs
+    checks = {tag: [x["k2_check"] for x in got[tag]]
+              for tag in got if "k2_check" in got[tag][0]}
+    rec["k2_checks"] = checks
+    launches: dict = {}
+    for tag, ranks in got.items():
+        for x in ranks:
+            for src in (x.get("launches", {}),
+                        x.get("serve", {}).get("launches", {})):
+                for name, n in src.items():
+                    launches[name] = launches.get(name, 0) + n
+    rec["tp_serve_launches"] = launches
+    print(f"[41] kernel launches over every run of the phase, all cards: "
+          f"{launches}", flush=True)
+    return rec
+
+
+def _infos(cfg) -> dict:
+    from repro_torch.models import build_model
+    return build_model(cfg, attn_impl="sdpa", device="meta").ps.infos
+
+
+def _layer_kinds(cfg) -> list:
+    """The kind of every layer of a config, prefix and encoder layers
+    included (an encoder-decoder's self-attention layers of both
+    stacks)."""
+    if cfg.encoder_layers:
+        return ["attn"] * (cfg.encoder_layers + cfg.n_layers)
+    pat = cfg.layer_pattern()
+    n = (cfg.n_layers - cfg.first_dense_layers) // len(pat)
+    return ["attn"] * cfg.first_dense_layers + [ld.kind for ld in pat] * n
+
+
 # phase 38: phi-3-vision-4.2b (configs/phi_3_vision_4_2b.py,
 # hf:microsoft/Phi-3-vision-128k-instruct) at full width and depth, 32
 # layers of MHA over 32 heads of 96, with phase 7's traffic: text-only
@@ -8399,13 +9321,14 @@ def main() -> int:
 
 # the phases of ``--cards N``; ``--only`` names some of them (37 reads
 # 36's runs, so it needs 36)
-CARDS_PHASES = ("35b", "36", "37", "39", "40")
+CARDS_PHASES = ("35b", "36", "37", "39", "40", "41", "39f")
 
 
 def _cards_main(n_cards: int, only=CARDS_PHASES) -> int:
     """``--cards N``: build the kernels and run phases 35 (b), 36 (a)-(c),
-    37, 39 and 40 only; with ``--only``, those of them it names (the
-    kernels built only for 35 (b), the one phase that launches them)."""
+    37, 39, 40, 41 and 39 (f) only; with ``--only``, those of them it
+    names (the kernels built only for 35 (b) and 41, the phases that
+    launch them)."""
     import tempfile
     import torch
     bad = set(only) - set(CARDS_PHASES)
@@ -8423,7 +9346,7 @@ def _cards_main(n_cards: int, only=CARDS_PHASES) -> int:
     from repro_torch.device import card_description
     from repro_torch.kernels import build
     rec: dict = {}
-    if "35b" in only:
+    if "35b" in only or "41" in only:
         t0 = time.perf_counter()
         libs = build.build_all()
         print(f"[0] built {sorted(libs)} in {time.perf_counter() - t0:.1f} "
@@ -8454,13 +9377,24 @@ def _cards_main(n_cards: int, only=CARDS_PHASES) -> int:
             rec["tp_moe"] = phase_tp_moe_cards(n_cards, tmpdir)
             print(f"[40] phase time {time.perf_counter() - t0:.1f} s",
                   flush=True)
+        if "41" in only:
+            t0 = time.perf_counter()
+            rec["tp_serve"] = phase_tp_serve_cards(n_cards, tmpdir)
+            print(f"[41] phase time {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        if "39f" in only:
+            t0 = time.perf_counter()
+            rec["tp_families_f32"] = phase_tp_families_f32(n_cards, tmpdir)
+            print(f"[39f] phase time {time.perf_counter() - t0:.1f} s",
+                  flush=True)
     rec["device"] = torch.cuda.get_device_name(0)
     rec["phases"] = list(only)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_cards.json").write_text(json.dumps(rec, indent=1))
     for key, phase in (("fsdp", "36"), ("tp", "37"),
-                       ("tp_families", "39"), ("tp_moe", "40")):
+                       ("tp_families", "39"), ("tp_moe", "40"),
+                       ("tp_serve", "41"), ("tp_families_f32", "39f")):
         if key in rec:
             check(not rec[key]["failures"],
                   f"[{phase}] {len(rec[key]['failures'])} check(s) "
@@ -8484,6 +9418,27 @@ def _cards_main(n_cards: int, only=CARDS_PHASES) -> int:
         print(json.dumps({"tp_moe_launches": [
             {"name": k, "tp_moe_launches": v} for k, v in sorted(
                 rec["tp_moe"]["tp_moe_launches"].items())]}), flush=True)
+    # K2 on the tensor-parallel serving path (41): its launches in each
+    # run, by rank, and its check against the plain version on each rank's
+    # first-prefill q, k, v (the rank's heads)
+    if "tp_serve" in rec:
+        ts = rec["tp_serve"]
+        fields = ("shape", "dtype", "path", "max_abs_err", "ms", "plain_ms",
+                  "bound_ms", "bound_by", "library_ms")
+        print(json.dumps({"tp_serve_kernels": [{
+            "name": "k2_flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:84",
+            "launches_by_rank": {
+                **{t: p["k2_launches_by_rank"]
+                   for t, p in ts["pairs"].items()},
+                **{f"{t}_serve": v["k2_launches_by_rank"]
+                   for t, v in ts["serves"].items()}},
+            "max_abs_err": max(c["max_abs_err"] for cs in
+                               ts["k2_checks"].values() for c in cs),
+            "checks": {t: [{f: c[f] for f in fields} for c in cs]
+                       for t, cs in ts["k2_checks"].items()}}]}),
+            flush=True)
     for line in rec.get("cards", []):
         print(line, flush=True)
     print(card_description(), flush=True)

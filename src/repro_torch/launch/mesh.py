@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
@@ -96,7 +96,7 @@ def _axis_sizes(mesh) -> dict:
     return dict(zip(names, tuple(mesh.shape)))
 
 
-def check_divides(cfg, mesh) -> None:
+def check_divides(cfg, mesh, attn_impl: Optional[str] = None) -> None:
     """Raise ValueError unless ``cfg``'s sharded dims split evenly over
     ``mesh`` (a ``Mesh`` or a ``DeviceMesh`` with "data" and "model"
     axes): the heads, the kv heads, ``d_ff`` and the vocab padded to 128
@@ -109,7 +109,10 @@ def check_divides(cfg, mesh) -> None:
     ``models/moe.expert_axes`` puts them (``n_experts`` or ``moe_d_ff``
     over "model" for "tp", over "data" for "fsdp"); ``d_model`` over
     "data". The reference's GSPMD would reshard an uneven split; this
-    runtime refuses it."""
+    runtime refuses it. A serve through K2 (``attn_impl="k2"``, the check
+    of a (1, T) serving mesh) also needs a GQA config's head dim among
+    K2's (``kernels/flash_attention.SUPPORTED_D``), which every rank's
+    prefill runs on its heads."""
     sizes = _axis_sizes(mesh)
     t, d = sizes.get("model", 1), sizes.get("data", 1)
     v_pad = ((cfg.vocab_size + 127) // 128) * 128
@@ -136,6 +139,11 @@ def check_divides(cfg, mesh) -> None:
     if bad:
         raise ValueError(f"{cfg.name} on a mesh {sizes}: "
                          + ", ".join(bad) + " do not divide")
+    if attn_impl == "k2" and cfg.n_heads and not cfg.mla:
+        from ..kernels.flash_attention import SUPPORTED_D
+        if cfg.d_head not in SUPPORTED_D:
+            raise ValueError(f"{cfg.name} served through K2: head dim "
+                             f"{cfg.d_head} is not one of {SUPPORTED_D}")
 
 
 def make_device_mesh(mesh: Mesh, device: DeviceLike = None, cfg=None):

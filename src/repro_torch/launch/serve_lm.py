@@ -1,16 +1,33 @@
 """Serve a language model with continuous batching over the paged KV pool,
-on the CUDA card unless asked for the CPU.
+on the CUDA card unless asked for the CPU, or tensor-parallel over the
+cards of a (1, T) mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch qwen2-1.5b \\
         --requests 8 --new-tokens 32 --slots 4 --s-max 4096 --pages 1024
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch mamba2-370m
     PYTHONPATH=src python -m repro_torch.launch.serve_lm \\
-        --arch jamba-v0.1-52b --layers 16
+        --arch jamba-v0.1-52b --model-ranks 2
     PYTHONPATH=src python -m repro_torch.launch.serve_lm \\
         --arch seamless-m4t-large-v2
 
-(jamba's 32 layers are 103 GB in bf16, more than one 80 GB card holds;
-16 layers, two of its 8-layer blocks, are 52 GB.)
+(jamba's 32 layers are 103 GB in bf16, more than one 80 GB card holds:
+``--model-ranks 2`` serves them over two cards, 52 GB of weights each;
+``--layers 16``, two of its 8-layer blocks, fits one card.)
+
+``--model-ranks T`` spawns T ranks (``launch/distributed.spawn_ranks``:
+one card each and NCCL, or gloo ranks with ``--device cpu``) over a
+("data", "model") mesh of (1, T). Every rank draws the weights from
+``--seed`` and keeps its TP block of each (``LM.init_params(generator,
+mesh)``), makes its serve tree once (``models/sharding.for_serve``) and
+runs the same batcher on the same requests: the prefills and decode
+steps run on the rank's heads, columns and experts (K2 on the rank's
+heads), its decode caches hold its kv heads and SSM channels, and the
+next token is the argmax of the logits made whole over the model group,
+the same bytes on every rank, so every host decision (the token, the
+admission, ``lens``) is every rank's and the collectives stay in step.
+The paged pool keeps the reference's spec with the global ``n_kv_heads``;
+it only decides admission. Rank 0 prints and writes the report, with
+K2's launches summed over the ranks.
 
 The counterpart of ``examples/serve_lm.py``: a ``ContinuousBatcher`` over
 the paged pool (admission control) with dense decode caches per slot
@@ -71,6 +88,7 @@ from torch.profiler import record_function
 from ..configs import ARCHS
 from ..kernels import flash_attention as k2
 from ..models import EncDecLM, build_model
+from ..models import sharding
 from ..models.lm import LM
 from ..serve import ContinuousBatcher, Finished, Request
 from ..serve import kv_cache as kvc
@@ -234,7 +252,8 @@ def _frames_by_prompt(requests: Sequence[Request],
 def serve(model: LM | EncDecLM, params: Dict, requests: Sequence[Request],
           *, frames: Sequence[np.ndarray] | None = None, slots: int = 4,
           s_max: int = 4096, page_size: int = 16, n_pages: int = 1024,
-          eos_token: int = -1, max_steps: int = 100_000) -> ServeReport:
+          eos_token: int = -1, max_steps: int = 100_000,
+          tp: sharding.ModelAxis | None = None) -> ServeReport:
     """Serve ``requests`` to completion on the model's device.
 
     ``eos_token`` −1 (no token ends a request: random weights have no end
@@ -242,9 +261,13 @@ def serve(model: LM | EncDecLM, params: Dict, requests: Sequence[Request],
     request needs ``len(prompt) + max_new_tokens < s_max``. An
     encoder-decoder model needs ``frames``, one ``(S_enc, d_model)`` block
     per request in the order of ``requests`` (:func:`make_frames`); a
-    decoder-only model takes none.
+    decoder-only model takes none. With ``tp``, ``params`` is the serve
+    tree it came with (``sharding.for_serve``): every rank of the model
+    group calls ``serve`` with the same requests, and the decode caches
+    are the rank's.
     """
     cfg, dev = model.cfg, model.device
+    t = 1 if tp is None else tp.size
     for r in requests:
         if len(r.prompt) + r.max_new_tokens >= s_max:
             raise ValueError(f"request {r.uid}: prompt {len(r.prompt)} + "
@@ -260,9 +283,10 @@ def serve(model: LM | EncDecLM, params: Dict, requests: Sequence[Request],
         max_pages_per_seq=s_max // page_size, dtype=cfg.activation_dtype)
     if encdec:
         frames_of = _frames_by_prompt(requests, frames)
-        caches = model.init_decode_caches(slots, s_max, frames[0].shape[0])
+        caches = model.init_decode_caches(slots, s_max, frames[0].shape[0],
+                                          model_ranks=t)
     else:
-        caches = model.init_decode_caches(slots, s_max)
+        caches = model.init_decode_caches(slots, s_max, model_ranks=t)
     lens = np.zeros(slots, np.int64)
     zero_kv = torch.zeros((spec.n_layers, slots, spec.n_kv_heads,
                            spec.d_head), dtype=spec._dt, device=dev)
@@ -277,11 +301,9 @@ def serve(model: LM | EncDecLM, params: Dict, requests: Sequence[Request],
         with record_function("serve/prefill"):
             toks = torch.as_tensor(prompt, dtype=torch.int64,
                                    device=dev)[None]
-            if encdec:
-                fe = torch.from_numpy(frames_of[id(prompt)]).to(dev)[None]
-                logits, pre = model.prefill(params, toks, fe)
-            else:
-                logits, pre = model.prefill(params, toks)
+            fe = (torch.from_numpy(frames_of[id(prompt)]).to(dev)[None]
+                  if encdec else None)
+            logits, pre = model.prefill(params, toks, fe, tp=tp)
             _write_prompt(caches, pre, slot, toks.shape[1])
             lens[slot] = toks.shape[1]
             finite = finite & torch.isfinite(logits).all()
@@ -296,7 +318,7 @@ def serve(model: LM | EncDecLM, params: Dict, requests: Sequence[Request],
         t = time.perf_counter()
         with record_function("serve/decode"):
             logits, _ = model.decode_step(p, tokens.to(dev, torch.int64),
-                                          caches, int(lens.max()))
+                                          caches, int(lens.max()), tp=tp)
             lens[active.numpy()] += 1
             finite = finite & torch.isfinite(logits).all()
             nxt = torch.argmax(logits, dim=-1)
@@ -345,45 +367,93 @@ def traffic_parser(description: str, **defaults) -> argparse.ArgumentParser:
     return ap
 
 
-def setup(args: argparse.Namespace, device: str | None = None
+def setup(args: argparse.Namespace, device: str | None = None, mesh=None
           ) -> tuple[LM | EncDecLM, Dict, List[Request], Dict[str, Any]]:
     """Model, random weights from ``--seed``, requests and ``serve``'s
     keywords (the pool's, and an encoder-decoder's frames), from
-    :func:`traffic_parser`'s options."""
+    :func:`traffic_parser`'s options. With a (1, T) ``DeviceMesh`` the
+    weights are this rank's serve tree (``sharding.for_serve``, its TP
+    blocks of the same draws) and the keywords carry its ``tp``;
+    ``launch/mesh.check_divides`` refuses a config that does not split
+    over the mesh or whose head dim K2 does not take."""
     cfg = ARCHS[args.arch]
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = build_model(cfg, device=device)
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
-    params = model.init_params(gen)
+    pool: Dict[str, Any] = {}
+    if mesh is None:
+        params = model.init_params(gen)
+    else:
+        from .mesh import check_divides
+        check_divides(cfg, mesh, attn_impl=model.attn_impl)
+        params, pool["tp"] = sharding.for_serve(model.init_params(gen, mesh))
     reqs = make_requests(args.requests, cfg.vocab_size,
                          prompt_min=args.prompt_min,
                          prompt_max=args.prompt_max,
                          new_tokens=args.new_tokens, seed=args.seed)
-    pool = dict(slots=args.slots, s_max=args.s_max,
+    pool.update(slots=args.slots, s_max=args.s_max,
                 page_size=args.page_size, n_pages=args.pages,
                 frames=make_frames(cfg, reqs, args.seed))
     return model, params, reqs, pool
 
 
-def main(argv: Sequence[str] | None = None) -> ServeReport:
-    ap = traffic_parser(__doc__.splitlines()[0])
-    ap.add_argument("--device", default=None,
-                    help="default: the CUDA card (raises without one)")
-    args = ap.parse_args(argv)
-
-    model, params, reqs, pool = setup(args, args.device)
+def _serve_and_report(args: argparse.Namespace, device: str | None,
+                      mesh=None) -> tuple[ServeReport, Dict[str, Any]]:
+    """:func:`setup` and :func:`serve`, K2's launches counted over the
+    serve; the report's summary with the config, the device and the
+    ranks."""
+    model, params, reqs, pool = setup(args, device, mesh)
     cfg = model.cfg
     k2.flash_attention.launches = 0
     report = serve(model, params, reqs, **pool)
     summary = {"arch": cfg.name, "n_layers": cfg.n_layers,
                "device": str(model.device),
+               "model_ranks": 1 if mesh is None else mesh.size(),
                "k2_launches": k2.flash_attention.launches,
                **report.summary()}
+    return report, summary
+
+
+def _emit(args: argparse.Namespace, summary: Dict[str, Any]) -> None:
     print(json.dumps(summary))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(summary, indent=1))
+
+
+def _serve_rank(group, device, args: argparse.Namespace) -> None:
+    """One rank of ``--model-ranks``: its serve over the (1, T) mesh of
+    ``group``; rank 0 prints and writes the summary, K2's launches summed
+    over the ranks."""
+    import torch.distributed as dist
+    from .mesh import Mesh, make_device_mesh
+    t = dist.get_world_size(group)
+    mesh = make_device_mesh(Mesh((1, t), ("data", "model")), device)
+    _, summary = _serve_and_report(args, device, mesh)
+    launches = [None] * t
+    dist.all_gather_object(launches, summary["k2_launches"], group=group)
+    if dist.get_rank(group) == 0:
+        _emit(args, dict(summary, k2_launches=sum(launches),
+                         k2_launches_by_rank=launches))
+
+
+def main(argv: Sequence[str] | None = None) -> ServeReport | None:
+    ap = traffic_parser(__doc__.splitlines()[0])
+    ap.add_argument("--device", default=None,
+                    help="default: the CUDA card (raises without one)")
+    ap.add_argument("--model-ranks", type=int, default=1,
+                    help="serve tensor-parallel over a (1, T) mesh of T "
+                         "spawned ranks (one card each; gloo ranks with "
+                         "--device cpu)")
+    args = ap.parse_args(argv)
+    if args.model_ranks > 1:
+        from .distributed import spawn_ranks
+        spawn_ranks(_serve_rank, (args,), args.model_ranks,
+                    args.device or "cuda")
+        return None
+    report, summary = _serve_and_report(args, args.device)
+    _emit(args, summary)
     return report
 
 

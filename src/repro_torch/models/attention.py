@@ -34,7 +34,10 @@ heads and ``wo`` a row block; the compressed ``c_kv`` and the shared rope
 key are made on every rank from the replicated ``w_dkv``, ``w_kpe`` and
 ``kv_norm``, which feed only the rank's heads there, so those three enter
 through ``sharding.to_model`` and their gradients are summed over the
-model ranks. Decode runs on one device.
+model ranks. Serving over a model axis (a serve tree,
+``sharding.for_serve``) runs both modes so: ``gqa_full`` through K2 on
+the rank's heads, ``gqa_decode`` against a cache of the rank's kv heads,
+``mla_decode`` on the rank's heads against the whole compressed cache.
 """
 
 from __future__ import annotations
@@ -162,11 +165,6 @@ def _heads(p: Dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return q, k, v
 
 
-def _qkv(p: Dict, x: torch.Tensor, cfg: ArchConfig
-         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    return _heads(p, *_proj(p, x, cfg), cfg)
-
-
 def gqa_full(p: Dict, x: torch.Tensor, cfg: ArchConfig, causal: bool = True,
              positions: Optional[torch.Tensor] = None, attn_impl: str = "k2",
              tp: Optional[sharding.ModelAxis] = None
@@ -196,12 +194,16 @@ def gqa_full(p: Dict, x: torch.Tensor, cfg: ArchConfig, causal: bool = True,
 
 
 def gqa_decode(p: Dict, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-               cur_len: int, cfg: ArchConfig
+               cur_len: int, cfg: ArchConfig,
+               tp: Optional[sharding.ModelAxis] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode. x: (B, 1, D); cache k/v: (B, Hkv, S_max, Dh),
     written in place at ``cur_len`` (one position shared by the batch, as
-    in the reference). Returns (output, cache)."""
-    q, k, v = _qkv(p, x, cfg)
+    in the reference). Returns (output, cache). With ``tp`` on the rank's
+    heads, as :func:`gqa_full`: the cache holds its ``n_kv_heads / T``
+    kv heads and ``wo``'s partial output is summed over the model
+    ranks."""
+    q, k, v = _heads(p, *_proj(p, x, cfg, tp), cfg, tp)
     pos = torch.full((1, 1, 1), cur_len, dtype=torch.int64, device=x.device)
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
@@ -209,13 +211,15 @@ def gqa_decode(p: Dict, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     kc[:, :, cur_len, :] = k[:, :, 0, :]
     vc[:, :, cur_len, :] = v[:, :, 0, :]
     o = _sdpa(q, kc, vc, causal=False, kv_len=cur_len + 1)
-    out = torch.matmul(_merge_heads(o), p["wo"])
+    out = sharding.from_model(torch.matmul(_merge_heads(o), p["wo"]), tp)
     return x + out, {"k": kc, "v": vc}
 
 
 def gqa_cache_spec(cfg: ArchConfig, batch: int, s_max: int,
-                   dtype: torch.dtype) -> Dict[str, ShapeDtype]:
-    shp = (batch, cfg.n_kv_heads, s_max, cfg.d_head)
+                   dtype: torch.dtype, model_ranks: int = 1
+                   ) -> Dict[str, ShapeDtype]:
+    """K and V of one layer; over ``model_ranks`` a rank's kv heads."""
+    shp = (batch, cfg.n_kv_heads // model_ranks, s_max, cfg.d_head)
     return {"k": ShapeDtype(shp, dtype), "v": ShapeDtype(shp, dtype)}
 
 
@@ -272,20 +276,27 @@ def mla_full(p: Dict, x: torch.Tensor, cfg: ArchConfig, causal: bool = True,
 
 
 def mla_decode(p: Dict, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-               cur_len: int, cfg: ArchConfig
+               cur_len: int, cfg: ArchConfig,
+               tp: Optional[sharding.ModelAxis] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Absorbed-weight one-token decode. x: (B, 1, D); cache ``c_kv`` (B,
     S_max, r) and ``k_pe`` (B, S_max, dr), written in place at
     ``cur_len``. The absorbed query is in the activation dtype, the scores,
     softmax and context in f32, as in the reference. Returns (output,
-    cache)."""
-    h = cfg.n_heads
+    cache). With ``tp`` on the rank's ``n_heads / T`` heads (the absorbed
+    query, ``w_uk`` and ``w_uv`` by ``reshape(r, h/T, ·)``), ``wo``'s
+    partial output summed over the model ranks; ``c_kv`` and ``k_pe`` are
+    whole on every rank, each computing them from the replicated
+    ``w_dkv``, ``w_kpe`` and ``kv_norm``, so the cache is the one-device
+    cache."""
+    t = 1 if tp is None else tp.size
+    h = cfg.n_heads // t
     dn, dr, dv, r = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
                      cfg.kv_lora_rank)
-    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    xn = sharding.to_model(rms_norm(x, p["norm"], cfg.norm_eps), tp)
     pos = torch.full((1, 1, 1), cur_len, dtype=torch.int64, device=x.device)
     q_nope, q_pe = _mla_q(p, xn, cfg, pos)                        # (B,h,1,·)
-    c_new, kpe_new = _mla_kv(p, xn, cfg, pos)
+    c_new, kpe_new = _mla_kv(p, xn, cfg, pos, tp)
     c_kv, k_pe = cache["c_kv"], cache["k_pe"]
     c_kv[:, cur_len, :] = c_new[:, 0]
     k_pe[:, cur_len, :] = kpe_new[:, 0, 0]
@@ -305,7 +316,7 @@ def mla_decode(p: Dict, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     ctx = torch.einsum("bhst,btr->bhsr", pr, c32)                 # (B,h,1,r)
     o = torch.einsum("bhsr,rhv->bhsv", ctx,
                      p["w_uv"].reshape(r, h, dv).float()).to(x.dtype)
-    out = torch.matmul(_merge_heads(o), p["wo"])
+    out = sharding.from_model(torch.matmul(_merge_heads(o), p["wo"]), tp)
     return x + out, {"c_kv": c_kv, "k_pe": k_pe}
 
 

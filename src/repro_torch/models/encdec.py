@@ -25,7 +25,11 @@ Over a model axis of more than one rank (``sharding.tp_of``) every layer
 of both stacks is tensor-parallel (GQA, the cross-attention and SwiGLU
 on the rank's heads and columns), the token lookup, the logits and the
 cross-entropy vocab-parallel; ``enc_norm`` and ``final_norm`` stay
-whole on every rank.
+whole on every rank. Serving takes the serve tree of
+``sharding.for_serve`` and its ``tp`` the same way: both stacks on the
+rank's heads (K2 on them in every encoder and decoder self-attention),
+the decode caches the rank's kv heads (``xk`` / ``xv`` too), the logits
+made whole over the model group.
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ from . import attention as attn_mod
 from . import sharding
 from .layers import ParamSet, ShapeDtype, cross_entropy, rms_norm, torch_dtype
 from .lm import (_index, _map, _remat, _stack, _unbind, apply_pattern_block,
-                 embed_rows, mask_vocab, register_pattern_block)
+                 embed_rows, mask_vocab, register_pattern_block,
+                 whole_logits)
 
 
 def _enc_layer(x: torch.Tensor, p_block: Dict, cfg: ArchConfig,
@@ -167,9 +172,9 @@ class EncDecLM:
         """The decoder over ``tokens`` (B, S) against ``enc_out``: logits
         (B, S, V_pad), or (B, 1, V_pad) at the last position with
         ``last_only``, and with ``want_cache`` the stacked layer caches
-        ``({k, v, xk, xv},)``, else ``()``. With ``tp`` (training) the
-        layers are tensor-parallel and the lookup and logits
-        vocab-parallel: the logits are this rank's vocab block."""
+        ``({k, v, xk, xv},)``, else ``()``. With ``tp`` the layers are
+        tensor-parallel and the lookup and logits vocab-parallel: the
+        logits are this rank's vocab block, the caches its kv heads."""
         cfg = self.cfg
         x = embed_rows(params["embed"]["tokens"], tokens, tp).to(self.adt)
         layers = _unbind(params["dec_blocks"], cfg.n_layers)
@@ -179,7 +184,8 @@ class EncDecLM:
             for p_block in layers:
                 x, _, c = apply_pattern_block(
                     p_block, x, cfg, self.pat, "full", enc_out=enc_out,
-                    cross=True, attn_impl=self.attn_impl, want_cache=True)
+                    cross=True, attn_impl=self.attn_impl, want_cache=True,
+                    tp=tp)
                 per_layer.append(c)
             caches = _stack(per_layer)
         else:
@@ -218,53 +224,66 @@ class EncDecLM:
 
     @torch.no_grad()
     def prefill(self, params: Dict, tokens: torch.Tensor,
-                frontend_embeds: Optional[torch.Tensor] = None
+                frontend_embeds: Optional[torch.Tensor] = None,
+                tp: Optional[sharding.ModelAxis] = None
                 ) -> Tuple[torch.Tensor, Tuple[List, Tuple]]:
         """tokens (B, S) int, frontend_embeds (B, S_enc, d_model). Returns
         (logits (B, V_pad) at the last position, ([], ({k, v, xk, xv},)))
-        with ``k`` / ``v`` S long and ``xk`` / ``xv`` S_enc long."""
+        with ``k`` / ``v`` S long and ``xk`` / ``xv`` S_enc long. With
+        ``tp`` (a serve tree, ``sharding.for_serve``) both stacks run on
+        the rank's heads, the caches are its kv heads and the logits are
+        made whole over the model group."""
         if frontend_embeds is None:
             raise ValueError("an encoder-decoder prefill needs the frame "
                              "embeddings (frontend_embeds)")
-        enc_out = self.encode(params, frontend_embeds)
+        enc_out = self.encode(params, frontend_embeds, tp=tp)
         logits, caches = self._decode_full(params, tokens, enc_out,
-                                           want_cache=True, last_only=True)
-        return logits[:, 0], ([], caches)
+                                           want_cache=True, last_only=True,
+                                           tp=tp)
+        return whole_logits(logits, tp)[:, 0], ([], caches)
 
     @torch.no_grad()
     def decode_step(self, params: Dict, token: torch.Tensor,
-                    caches: Tuple[List, Tuple], cur_len: int
+                    caches: Tuple[List, Tuple], cur_len: int,
+                    tp: Optional[sharding.ModelAxis] = None
                     ) -> Tuple[torch.Tensor, Tuple[List, Tuple]]:
         """token: (B,) int; cur_len: the position being written, one for the
         whole batch. ``k`` / ``v`` are written in place, ``xk`` / ``xv``
-        only read; the caches are returned."""
+        only read; the caches are returned. With ``tp`` as
+        :meth:`prefill`."""
         cfg = self.cfg
         cur_len = int(cur_len)
         _, block_caches = caches
-        x = params["embed"]["tokens"][token[:, None]].to(self.adt)
+        x = embed_rows(params["embed"]["tokens"], token[:, None],
+                       tp).to(self.adt)
         for j in range(cfg.n_layers):
             x, _, _ = apply_pattern_block(
                 _index(params["dec_blocks"], j), x, cfg, self.pat, "decode",
-                caches=_index(block_caches, j), cur_len=cur_len, cross=True)
+                caches=_index(block_caches, j), cur_len=cur_len, cross=True,
+                tp=tp)
         with record_function("decode/logits"):
-            logits = self._logits(params, x)
+            logits = whole_logits(self._logits(params, x, tp), tp)
         return logits[:, 0], caches
 
     # -- caches --------------------------------------------------------------
-    def decode_cache_specs(self, batch: int, s_max: int, s_enc: int
-                           ) -> Tuple[List, Tuple]:
+    def decode_cache_specs(self, batch: int, s_max: int, s_enc: int,
+                           model_ranks: int = 1) -> Tuple[List, Tuple]:
+        """The decode caches' shapes; over a model axis of ``model_ranks``
+        one rank's kv heads."""
         cfg = self.cfg
-        kv = attn_mod.gqa_cache_spec(cfg, batch, s_max, self.adt)
-        xshape = (batch, cfg.n_kv_heads, s_enc, cfg.d_head)
+        kv = attn_mod.gqa_cache_spec(cfg, batch, s_max, self.adt, model_ranks)
+        xshape = (batch, cfg.n_kv_heads // model_ranks, s_enc, cfg.d_head)
         spec = {**kv, "xk": ShapeDtype(xshape, self.adt),
                 "xv": ShapeDtype(xshape, self.adt)}
         stacked = {k: ShapeDtype((cfg.n_layers,) + sd.shape, sd.dtype)
                    for k, sd in spec.items()}
         return [], (stacked,)
 
-    def init_decode_caches(self, batch: int, s_max: int, s_enc: int
-                           ) -> Tuple[List, Tuple]:
-        """Zero decode caches on the model's device."""
+    def init_decode_caches(self, batch: int, s_max: int, s_enc: int,
+                           model_ranks: int = 1) -> Tuple[List, Tuple]:
+        """Zero decode caches on the model's device (a rank's over a model
+        axis of ``model_ranks``)."""
         return _map(lambda sd: torch.zeros(sd.shape, dtype=sd.dtype,
                                            device=self.device),
-                    self.decode_cache_specs(batch, s_max, s_enc))
+                    self.decode_cache_specs(batch, s_max, s_enc,
+                                            model_ranks))

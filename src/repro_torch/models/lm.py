@@ -40,6 +40,15 @@ layer and the expert FFN on the rank's heads, columns or experts, the
 token lookup, the logits and the cross-entropy vocab-parallel. An MoE
 config still raises over a data axis of more than one rank
 (``sharding.refuse_moe``).
+
+Serving runs over a (1, T) mesh as well: ``prefill`` and ``decode_step``
+take the serve tree of ``sharding.for_serve`` and its ``tp``, every layer
+on the rank's heads, columns or experts (K2 on the rank's heads in every
+GQA prefill), the decode caches the rank's (``decode_cache_specs(...,
+model_ranks=T)``: GQA's kv heads, an SSM layer's channels and heads;
+MLA's compressed cache whole), and both return the whole ``(B, V_pad)``
+logits, made whole over the model group, so every rank reads the same
+next token.
 """
 
 from __future__ import annotations
@@ -128,13 +137,18 @@ def _cross_full(p: Dict, x: torch.Tensor, enc_out: torch.Tensor,
 
 
 def _cross_decode(p: Dict, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                  cfg: ArchConfig) -> torch.Tensor:
+                  cfg: ArchConfig, tp: Optional[sharding.ModelAxis] = None
+                  ) -> torch.Tensor:
     """One-token cross-attention over the cached ``xk`` / ``xv`` (read
-    only: every key of the encoder output is visible)."""
-    xn = rms_norm(x, p["norm"], cfg.norm_eps)
-    q = attn_mod._split_heads(torch.matmul(xn, p["wq"]), cfg.n_heads)
+    only: every key of the encoder output is visible). With ``tp`` on the
+    rank's heads, as :func:`_cross_full`: the cache holds its kv heads,
+    ``wo``'s partial output is summed over the model ranks."""
+    t = 1 if tp is None else tp.size
+    xn = sharding.to_model(rms_norm(x, p["norm"], cfg.norm_eps), tp)
+    q = attn_mod._split_heads(torch.matmul(xn, p["wq"]), cfg.n_heads // t)
     o = attn_mod._sdpa(q, cache["xk"], cache["xv"], causal=False)
-    return x + torch.matmul(attn_mod._merge_heads(o), p["wo"])
+    return x + sharding.from_model(
+        torch.matmul(attn_mod._merge_heads(o), p["wo"]), tp)
 
 
 def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
@@ -156,7 +170,8 @@ def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
     ``xv`` (decode), and its cache is ``{k, v, xk, xv}``. Decode writes
     every layer's self-attention and SSM caches in place. ``tp``: GQA,
     MLA, the cross-attention, the SSM, the dense MLP and the MoE layer's
-    expert FFN and shared experts on the rank's blocks (the full pass)."""
+    expert FFN and shared experts on the rank's blocks, in both modes
+    (decode on a serve tree, ``sharding.for_serve``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: List[Any] = []
     for i, ld in enumerate(pattern):
@@ -166,7 +181,8 @@ def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
                 if mode == "full":
                     x, c = ssm_mod.ssm_full(lp["ssm"], x, cfg, tp)
                 else:
-                    x, c = ssm_mod.ssm_decode(lp["ssm"], x, caches[i], cfg)
+                    x, c = ssm_mod.ssm_decode(lp["ssm"], x, caches[i], cfg,
+                                              tp)
         else:
             with record_function(f"{mode}/attn"):
                 if mode == "full":
@@ -180,14 +196,16 @@ def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
                 else:
                     decode = attn_mod.mla_decode if cfg.mla \
                         else attn_mod.gqa_decode
-                    x, c = decode(lp["attn"], x, caches[i], cur_len, cfg)
+                    x, c = decode(lp["attn"], x, caches[i], cur_len, cfg,
+                                  tp)
             if cross:
                 with record_function(f"{mode}/xattn"):
                     if mode == "full":
                         x, cx = _cross_full(lp["xattn"], x, enc_out, cfg,
                                             tp)
                     else:
-                        x = _cross_decode(lp["xattn"], x, caches[i], cfg)
+                        x = _cross_decode(lp["xattn"], x, caches[i], cfg,
+                                          tp)
                         cx = {"xk": caches[i]["xk"], "xv": caches[i]["xv"]}
                 c = {**c, **cx}
         if ld.mlp == "dense":
@@ -303,6 +321,17 @@ def mask_vocab(logits: torch.Tensor, vocab_size: int,
                                   device=logits.device))
 
 
+def whole_logits(logits: torch.Tensor,
+                 tp: Optional[sharding.ModelAxis]) -> torch.Tensor:
+    """Logits over the whole padded vocab: with ``tp`` the model ranks'
+    vocab blocks all-gathered along the last dim, the same bytes on every
+    rank (so a greedy token taken from them is every rank's); themselves
+    without ``tp``."""
+    if tp is None:
+        return logits
+    return sharding.join_model(logits, logits.dim() - 1, tp)
+
+
 def _train_block(x: torch.Tensor, p_block: Dict, cfg: ArchConfig,
                  pattern: Tuple[LayerDesc, ...], attn_impl: str,
                  plan: Any = None,
@@ -410,20 +439,21 @@ class LM:
 
     # -- full-sequence pass ----------------------------------------------------
     def _run_blocks_full(self, params: Dict, x: torch.Tensor,
-                         want_cache: bool) -> Tuple[torch.Tensor, List,
-                                                    Tuple]:
+                         want_cache: bool,
+                         tp: Optional[sharding.ModelAxis] = None
+                         ) -> Tuple[torch.Tensor, List, Tuple]:
         cfg = self.cfg
         prefix_caches = []
         for i in range(self.n_prefix):
             x, _, c = apply_pattern_block(
                 params[f"prefix{i}"], x, cfg, self.prefix_pattern, "full",
-                attn_impl=self.attn_impl, want_cache=want_cache)
+                attn_impl=self.attn_impl, want_cache=want_cache, tp=tp)
             prefix_caches.append(c)
         per_block = []
         for j in range(self.n_blocks):
             x, _, c = apply_pattern_block(
                 _index(params["blocks"], j), x, cfg, self.pattern, "full",
-                attn_impl=self.attn_impl, want_cache=want_cache)
+                attn_impl=self.attn_impl, want_cache=want_cache, tp=tp)
             per_block.append(c)
         return x, prefix_caches, _stack(per_block)
 
@@ -481,62 +511,81 @@ class LM:
 
     @torch.no_grad()
     def prefill(self, params: Dict, tokens: torch.Tensor,
-                frontend_embeds: Optional[torch.Tensor] = None
+                frontend_embeds: Optional[torch.Tensor] = None,
+                tp: Optional[sharding.ModelAxis] = None
                 ) -> Tuple[torch.Tensor, Tuple[List, Tuple]]:
         """tokens: (B, S) int. Returns (logits (B, V_pad) at the last
-        position, (prefix_caches, block_caches)) with caches S long."""
-        x = self._embed(params, tokens, frontend_embeds)
-        x, prefix_caches, caches = self._run_blocks_full(params, x,
-                                                         want_cache=True)
+        position, (prefix_caches, block_caches)) with caches S long. With
+        ``tp`` (a serve tree, ``sharding.for_serve``) every layer runs on
+        the rank's blocks, the caches are the rank's, and the logits are
+        made whole over the model group."""
+        x = self._embed(params, tokens, frontend_embeds, tp)
+        x, prefix_caches, caches = self._run_blocks_full(
+            params, x, want_cache=True, tp=tp)
         with record_function("full/logits"):
-            logits = self._logits(params, x[:, -1:, :])
+            logits = whole_logits(self._logits(params, x[:, -1:, :], tp),
+                                  tp)
         return logits[:, 0], (prefix_caches, caches)
 
     @torch.no_grad()
     def decode_step(self, params: Dict, token: torch.Tensor,
-                    caches: Tuple[List, Tuple], cur_len: int
+                    caches: Tuple[List, Tuple], cur_len: int,
+                    tp: Optional[sharding.ModelAxis] = None
                     ) -> Tuple[torch.Tensor, Tuple[List, Tuple]]:
         """token: (B,) int; cur_len: the position being written, one for the
-        whole batch. The caches are written in place and returned."""
+        whole batch. The caches are written in place and returned. With
+        ``tp`` as :meth:`prefill`: the caches the rank's, the logits whole
+        on every rank."""
         cfg = self.cfg
         cur_len = int(cur_len)
         prefix_caches, block_caches = caches
-        x = params["embed"]["tokens"][token[:, None]].to(self.adt)
+        x = embed_rows(params["embed"]["tokens"], token[:, None],
+                       tp).to(self.adt)
         for i in range(self.n_prefix):
             x, _, _ = apply_pattern_block(
                 params[f"prefix{i}"], x, cfg, self.prefix_pattern, "decode",
-                caches=prefix_caches[i], cur_len=cur_len)
+                caches=prefix_caches[i], cur_len=cur_len, tp=tp)
         for j in range(self.n_blocks):
             x, _, _ = apply_pattern_block(
                 _index(params["blocks"], j), x, cfg, self.pattern, "decode",
-                caches=_index(block_caches, j), cur_len=cur_len)
+                caches=_index(block_caches, j), cur_len=cur_len, tp=tp)
         with record_function("decode/logits"):
-            logits = self._logits(params, x)
+            logits = whole_logits(self._logits(params, x, tp), tp)
         return logits[:, 0], caches
 
     # -- cache construction ------------------------------------------------------
     def _slot_cache_spec(self, ld: LayerDesc, batch: int, s_max: int,
-                         stack: Tuple[int, ...]) -> Dict[str, ShapeDtype]:
+                         stack: Tuple[int, ...], model_ranks: int = 1
+                         ) -> Dict[str, ShapeDtype]:
         if ld.kind == "ssm":
-            spec = ssm_mod.ssm_cache_spec(self.cfg, batch, self.adt)
+            spec = ssm_mod.ssm_cache_spec(self.cfg, batch, self.adt,
+                                          model_ranks)
         elif self.cfg.mla:
             spec = attn_mod.mla_cache_spec(self.cfg, batch, s_max, self.adt)
         else:
-            spec = attn_mod.gqa_cache_spec(self.cfg, batch, s_max, self.adt)
+            spec = attn_mod.gqa_cache_spec(self.cfg, batch, s_max, self.adt,
+                                           model_ranks)
         return {k: ShapeDtype(stack + sd.shape, sd.dtype)
                 for k, sd in spec.items()}
 
-    def decode_cache_specs(self, batch: int, s_max: int) -> Tuple[List, Tuple]:
-        prefix = [tuple(self._slot_cache_spec(ld, batch, s_max, ())
+    def decode_cache_specs(self, batch: int, s_max: int,
+                           model_ranks: int = 1) -> Tuple[List, Tuple]:
+        """The decode caches' shapes; over a model axis of ``model_ranks``
+        one rank's (GQA's kv heads and an SSM layer's channels and heads
+        split, MLA's cache whole)."""
+        prefix = [tuple(self._slot_cache_spec(ld, batch, s_max, (),
+                                              model_ranks)
                         for ld in self.prefix_pattern)
                   for _ in range(self.n_prefix)]
         blocks = tuple(self._slot_cache_spec(ld, batch, s_max,
-                                             (self.n_blocks,))
+                                             (self.n_blocks,), model_ranks)
                        for ld in self.pattern)
         return prefix, blocks
 
-    def init_decode_caches(self, batch: int, s_max: int) -> Tuple[List, Tuple]:
-        """Zero decode caches on the model's device."""
+    def init_decode_caches(self, batch: int, s_max: int,
+                           model_ranks: int = 1) -> Tuple[List, Tuple]:
+        """Zero decode caches on the model's device (a rank's over a model
+        axis of ``model_ranks``)."""
         return _map(lambda sd: torch.zeros(sd.shape, dtype=sd.dtype,
                                            device=self.device),
-                    self.decode_cache_specs(batch, s_max))
+                    self.decode_cache_specs(batch, s_max, model_ranks))

@@ -1,6 +1,6 @@
-"""The training path's sharded runtime: FSDP over the mesh's data axis and
-tensor parallelism (TP) over its model axis. Parameters live as DTensor
-blocks, one a rank.
+"""The LM's sharded runtime: FSDP over the mesh's data axis and tensor
+parallelism (TP) over its model axis in training, TP alone in serving.
+Parameters live as DTensor blocks, one a rank.
 
 The axes are found by the names ``launch/mesh`` gives them: "model" is
 the model axis, "pod" and "data" are data axes. A leaf's *layout* is read
@@ -48,6 +48,18 @@ of plain tensors passes through untouched, with no plan.
 Every collective runs on the caller's thread in program order, the same
 on every rank (the recompute re-issues the gathers and the model axis's
 forward all-reduces in backward order).
+
+Serving (``LM.prefill`` / ``decode_step`` and ``EncDecLM``'s) takes the
+*serve tree* of :func:`for_serve`, made once at set-up: on a (1, T) mesh
+each leaf's TP block as a plain tensor (a view of the DTensor's block, no
+copy), and in each SSM layer the rank's own columns of ``w_in``,
+``conv_w`` and ``conv_b`` and its part of ``a_log``, ``dt_bias``,
+``d_skip`` and ``out_norm`` in place of their blocks. A step then issues
+only the model axis's forward collectives (the row-parallel sums, the
+expert outputs made whole, the SSM's sums of squares, the lookup's rows
+and the logits made whole) and none over the data axis: no weight is
+gathered or copied per call, where :func:`for_train`'s data-axis gathers
+would copy every weight even on a data axis of one rank.
 """
 
 from __future__ import annotations
@@ -82,10 +94,12 @@ class Layout:
 class ModelAxis:
     """The model axis of a tensor-parallel step: its group, this rank's
     index in it (which block of every TP-sharded leaf it holds) and its
-    size."""
+    size. ``serving``: the layers run on a serve tree (:func:`for_serve`),
+    whose SSM leaves already hold this rank's columns and parts."""
     group: Any
     rank: int
     size: int
+    serving: bool = False
 
 
 # the axis names of ``launch/mesh``'s meshes: the data axes (FSDP shards
@@ -459,3 +473,40 @@ def for_train(params: Dict, stacked: Sequence[str]
         else:
             out[k] = _map(lambda x: gather_leaf(local(x), layout(x)), sub)
     return out, plans
+
+
+def for_serve(params: Dict) -> Tuple[Dict, Optional[ModelAxis]]:
+    """``(tree, tp)`` for the serving steps, once at set-up: on a (1, T)
+    mesh every leaf's TP block as a plain tensor (the DTensor's own block,
+    not copied) and ``tp`` its model axis (None for T = 1, with
+    ``serving`` set otherwise); each SSM layer's ``w_in``, ``conv_w`` and
+    ``conv_b`` replaced by the rank's columns and ``a_log``, ``dt_bias``,
+    ``d_skip`` and ``out_norm`` by the rank's part
+    (``models/ssm.serve_leaves``: the blocks are gathered over the model
+    group here, once, and freed). A tree of plain tensors comes back as it
+    is with no ``tp``. A data axis of more than one rank raises
+    NotImplementedError: serving over data ranks (the reference shards its
+    decode caches by batch, or by sequence at one row) waits for ROADMAP
+    15c."""
+    x = _first_dtensor(params)
+    if x is None:
+        return params, None
+    mesh = x.device_mesh
+    data = mesh.size(data_axis(mesh))
+    if data > 1:
+        raise NotImplementedError(
+            f"serving over a data axis of {data} ranks (the caches split by "
+            f"batch or by sequence) waits for ROADMAP 15c")
+    tp = tp_of(params)
+    tree = _map(lambda v: local(v).detach(), params)
+    if tp is None:
+        return tree, None
+    from .ssm import serve_leaves
+    tp = dataclasses.replace(tp, serving=True)
+
+    def walk(t: Any) -> Any:
+        if not isinstance(t, dict):
+            return t
+        return {k: serve_leaves(v, tp) if k == "ssm" else walk(v)
+                for k, v in t.items()}
+    return walk(tree), tp

@@ -13,9 +13,11 @@ chunks, adding in the same order. One departure on purpose: the intra-chunk
 decay masks its exponent before the ``exp`` (ROADMAP.md), so its gradient
 stays finite at the configs' chunk of 128, where the reference's is NaN.
 
-In training over a model axis of T ranks (``tp``, ``models/sharding.py``)
-``ssm_full`` runs on the rank's h / T heads, the storage left in the
-reference's fused layout (:func:`_rank_proj`).
+Over a model axis of T ranks (``tp``, ``models/sharding.py``)
+``ssm_full`` and ``ssm_decode`` run on the rank's h / T heads. In training
+the storage stays in the reference's fused layout and is gathered over the
+model group each call (:func:`_rank_proj`); a serve tree holds the rank's
+columns and parts instead (:func:`serve_leaves`, once at set-up).
 
 Decode caches per layer: the pre-conv window ``conv`` (B, d_conv − 1, C)
 and the SSM ``state`` (B, H, P, N), both in the activation dtype.
@@ -83,8 +85,18 @@ def _rank_proj(p: Dict, cfg: ArchConfig, tp: sharding.ModelAxis
     z, x and dt and all of B and C, in the reference's order (the conv's
     channels: the rank's x, B, C). B and C's columns and channels are
     every rank's: the gather's reduce-scatter sums their gradients over
-    the model ranks."""
-    di, h, hp, n = _dims(cfg)
+    the model ranks. On a serve tree (``tp.serving``) the leaves are
+    those columns already (:func:`serve_leaves`)."""
+    if tp.serving:
+        return p["w_in"], p["conv_w"], p["conv_b"]
+    di, h, _, n = _dims(cfg)
+    return _rank_columns(p, di, h, n, tp)
+
+
+def _rank_columns(p: Dict, di: int, h: int, n: int,
+                  tp: sharding.ModelAxis) -> Tuple[torch.Tensor, ...]:
+    """:func:`_rank_proj` of a layer of ``d_inner`` ``di``, ``h`` heads
+    and state ``n``."""
     r, t = tp.rank, tp.size
     dl, hl = di // t, h // t
     w_in, conv_w, conv_b = (sharding.gather_model(p[k], p[k].dim() - 1, tp)
@@ -104,11 +116,34 @@ def _rank_part(w: torch.Tensor, tp: Optional[sharding.ModelAxis]
     """This rank's block of a leaf the reference keeps whole on every
     model rank (``a_log``, ``dt_bias``, ``d_skip``, ``out_norm``), its
     gradient summed over the model ranks (``sharding.to_model``); the
-    leaf itself without ``tp``."""
-    if tp is None:
+    leaf itself without ``tp`` or on a serve tree (``tp.serving``: the
+    part already)."""
+    if tp is None or tp.serving:
         return w
     m = w.shape[-1] // tp.size
     return sharding.to_model(w, tp)[..., tp.rank * m:(tp.rank + 1) * m]
+
+
+_PARTS = ("a_log", "dt_bias", "d_skip", "out_norm")
+
+
+def serve_leaves(p: Dict, tp: sharding.ModelAxis) -> Dict:
+    """An SSM layer's leaves (TP blocks, any leading stack dims) for a
+    serve tree (``sharding.for_serve``): ``w_in``, ``conv_w`` and
+    ``conv_b`` replaced by this rank's columns (:func:`_rank_proj`, its
+    gathers made here once) and ``a_log``, ``dt_bias``, ``d_skip`` and
+    ``out_norm`` by this rank's part; the others as they are. The config's
+    dims are read off the leaves (``a_log`` has the heads, ``out_norm``
+    ``d_inner``, ``conv_b`` a block of ``d_inner + 2·state``)."""
+    h, di = p["a_log"].shape[-1], p["out_norm"].shape[-1]
+    n = (p["conv_b"].shape[-1] * tp.size - di) // 2
+    out = dict(p)
+    out["w_in"], out["conv_w"], out["conv_b"] = _rank_columns(p, di, h, n,
+                                                              tp)
+    for k in _PARTS:
+        m = p[k].shape[-1] // tp.size
+        out[k] = p[k][..., tp.rank * m:(tp.rank + 1) * m].contiguous()
+    return out
 
 
 def _gated_norm(y: torch.Tensor, w: torch.Tensor, eps: float,
@@ -254,44 +289,58 @@ def ssm_full(p: Dict, x: torch.Tensor, cfg: ArchConfig,
 
 
 def ssm_decode(p: Dict, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-               cfg: ArchConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               cfg: ArchConfig, tp: Optional[sharding.ModelAxis] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token recurrence. x: (B, 1, D); cache: conv window (B, K−1, C)
     and SSM state (B, H, P, N), both written in place: the window shifts
     by one, the state is stepped in f32 and stored in the cache's dtype,
-    as the reference returns it. Returns (output, cache)."""
+    as the reference returns it. Returns (output, cache). With ``tp`` on
+    the rank's h / T heads, as ``ssm_full``: the window holds the rank's
+    channels in :func:`_rank_proj`'s order (its x, then all of B and C)
+    and the state its heads; the gated norm's sum of squares and
+    ``w_out``'s partial output are summed over the model ranks."""
     b = x.shape[0]
     di, h, hp, n = _dims(cfg)
-    xn = rms_norm(x, p["norm"], cfg.norm_eps)
-    proj = torch.matmul(xn, p["w_in"])
-    z, xbc_new, dt = _split_proj(cfg, proj)
+    t = 1 if tp is None else tp.size
+    dl, hl = di // t, h // t
+    xn = sharding.to_model(rms_norm(x, p["norm"], cfg.norm_eps), tp)
+    w_in, conv_w, conv_b = ((p["w_in"], p["conv_w"], p["conv_b"])
+                            if tp is None else _rank_proj(p, cfg, tp))
+    proj = torch.matmul(xn, w_in)
+    z, xbc_new, dt = _split_proj(cfg, proj, t)
 
     window = torch.cat([cache["conv"], xbc_new], dim=1)        # (B,K,C)
-    k = p["conv_w"].shape[0]
-    conv_out = torch.einsum("bkc,kc->bc", window[:, -k:, :], p["conv_w"])
-    xbc = F.silu(conv_out + p["conv_b"])[:, None, :]           # (B,1,C)
+    k = conv_w.shape[0]
+    conv_out = torch.einsum("bkc,kc->bc", window[:, -k:, :], conv_w)
+    xbc = F.silu(conv_out + conv_b)[:, None, :]                # (B,1,C)
 
-    xin = xbc[..., :di].reshape(b, h, hp)
-    bmat = xbc[:, 0, di:di + n]
-    cmat = xbc[:, 0, di + n:]
-    dt1 = F.softplus(dt[:, 0].float() + p["dt_bias"])          # (B,H)
-    a = -torch.exp(p["a_log"].float())
+    xin = xbc[..., :dl].reshape(b, hl, hp)
+    bmat = xbc[:, 0, dl:dl + n]
+    cmat = xbc[:, 0, dl + n:]
+    dt1 = F.softplus(dt[:, 0].float() + _rank_part(p["dt_bias"], tp))
+    a = -torch.exp(_rank_part(p["a_log"], tp).float())
     decay = torch.exp(dt1 * a)                                 # (B,H)
     state = cache["state"].float()
     state = (state * decay[..., None, None]
              + torch.einsum("bh,bhp,bn->bhpn", dt1, xin.float(),
                             bmat.float()))
     y = torch.einsum("bhpn,bn->bhp", state, cmat.float())
-    y = y + xin.float() * p["d_skip"][:, None]
-    y = y.reshape(b, 1, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps)
-    out = torch.matmul(y, p["w_out"])
+    y = y + xin.float() * _rank_part(p["d_skip"], tp)[:, None]
+    y = y.reshape(b, 1, dl).to(x.dtype)
+    y = _gated_norm(y * F.silu(z), _rank_part(p["out_norm"], tp),
+                    cfg.norm_eps, tp)
+    out = sharding.from_model(torch.matmul(y, p["w_out"]), tp)
     cache["conv"].copy_(window[:, 1:, :])
     cache["state"].copy_(state)
     return x + out, {"conv": cache["conv"], "state": cache["state"]}
 
 
-def ssm_cache_spec(cfg: ArchConfig, batch: int, dtype: torch.dtype
-                   ) -> Dict[str, ShapeDtype]:
+def ssm_cache_spec(cfg: ArchConfig, batch: int, dtype: torch.dtype,
+                   model_ranks: int = 1) -> Dict[str, ShapeDtype]:
+    """The conv window and state of one layer; over ``model_ranks`` a
+    rank's: its 1/T of the x channels beside all of B and C, its heads."""
     di, h, hp, n = _dims(cfg)
-    return {"conv": ShapeDtype((batch, cfg.ssm_conv - 1, di + 2 * n), dtype),
-            "state": ShapeDtype((batch, h, hp, n), dtype)}
+    t = model_ranks
+    return {"conv": ShapeDtype((batch, cfg.ssm_conv - 1, di // t + 2 * n),
+                               dtype),
+            "state": ShapeDtype((batch, h // t, hp, n), dtype)}

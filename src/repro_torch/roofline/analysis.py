@@ -343,14 +343,16 @@ def collectives_of(fn: Callable, ranks: int, *args,
                             rec.total("wire_bytes"), ranks, rec.by_group)
 
 
-def _layer_collectives(model, ld, tokens: int) -> tuple:
+def _layer_collectives(model, ld, tokens: int, gathers: bool = True
+                       ) -> tuple:
     """The model-axis collectives of one layer of an ``LM`` over a model
     axis of more than one rank, one pass of ``tokens`` tokens: ``(forward,
     backward)``, each a list of (op, payload bytes) in the order issued
     (the backward's order is not kept). The forward's row-parallel sums
-    and the SSM's gathers; the backward's sums into the normed input of
-    each column-parallel region and into the weights every model rank
-    uses on its own heads only, and the gathers' reduce-scatters."""
+    and the SSM's gathers (not on a serve tree: ``gathers`` False); the
+    backward's sums into the normed input of each column-parallel region
+    and into the weights every model rank uses on its own heads only, and
+    the gathers' reduce-scatters."""
     from ..models.moe import capacity, expert_axes
     cfg = model.cfg
     act = model.adt.itemsize * tokens * cfg.d_model
@@ -363,7 +365,8 @@ def _layer_collectives(model, ld, tokens: int) -> tuple:
         gathered = [(2 * di + 2 * nst + h) * cfg.d_model * w,   # w_in
                     (di + 2 * nst) * cfg.ssm_conv * w,          # conv_w
                     (di + 2 * nst) * w]                         # conv_b
-        fwd += [("all-gather", b) for b in gathered]
+        if gathers:
+            fwd += [("all-gather", b) for b in gathered]
         fwd += [("all-reduce", ssq), ("all-reduce", act)]       # w_out
         bwd += [("all-reduce", ssq), ("all-reduce", act)]       # normed in
         bwd += [("all-reduce", n * w) for n in (h, h, h, di)]   # a_log,
@@ -525,4 +528,55 @@ def reckon_collectives(model, data: int, model_ranks: int,
             for op, b in issued:
                 add("model", t, op, m * n, b)
     add("model", t, "all-reduce", 1, leaves)
+    return out
+
+
+def reckon_serve_collectives(model, model_ranks: int, kind: str, rows: int,
+                             seq_len: int = 1, enc_len: int = 0,
+                             frontend_len: int = 0) -> Dict[str, Dict]:
+    """The collectives of one serving step on a serve tree
+    (``models/sharding.for_serve``) over a (1, ``model_ranks``) mesh, as
+    :func:`collectives_of` records them in ``by_group``: ``kind``
+    ``"prefill"`` (``rows`` prompts of ``seq_len`` tokens, an
+    encoder-decoder's frames ``enc_len`` long, ``frontend_len`` frontend
+    embeddings ahead of a vlm's tokens) or ``"decode"`` (``rows``
+    tokens).
+    Model axis only, and the forward's only: the lookup's rows; each
+    layer's (:func:`_layer_collectives` without the SSM's gathers: the
+    serve tree holds the rank's columns), and an encoder-decoder's
+    encoder (``wo``, ``w_down``) and decoder (``wo``, the cross
+    attention's ``wo``, ``w_down``) layers; the logits made whole. No
+    collective on the data axis, and none at ``model_ranks`` 1."""
+    if kind not in ("prefill", "decode"):
+        raise ValueError(f"kind {kind!r}: prefill or decode")
+    out: Dict[str, Dict] = {}
+    if model_ranks <= 1:
+        return out
+    cfg = model.cfg
+    t = model_ranks
+    rec = out.setdefault("model", {"ranks": t, "counts": {},
+                                   "payload_bytes": {}, "wire_bytes": {}})
+
+    def add(op: str, calls: int, b: int) -> None:
+        for k, v in (("counts", calls), ("payload_bytes", calls * b),
+                     ("wire_bytes", calls * _RING[op](b, t))):
+            rec[k][op] = rec[k].get(op, 0) + v
+    seq = seq_len if kind == "prefill" else 1
+    act = model.adt.itemsize * rows * cfg.d_model
+    add("all-reduce", 1, act * seq)                     # the lookup's rows
+    if cfg.encoder_layers:
+        if kind == "prefill":
+            add("all-reduce", 2 * cfg.encoder_layers, act * enc_len)
+        add("all-reduce", 3 * cfg.n_layers, act * seq)
+    else:
+        s_all = seq + (frontend_len if kind == "prefill" else 0)
+        for pattern, n in ((model.prefix_pattern, model.n_prefix),
+                           (model.pattern, model.n_blocks)):
+            for ld in pattern:
+                fwd, _ = _layer_collectives(model, ld, rows * s_all,
+                                            gathers=False)
+                for op, b in fwd:
+                    add(op, n, b)
+    v_pad = ((cfg.vocab_size + 127) // 128) * 128
+    add("all-gather", 1, rows * v_pad * model.adt.itemsize)    # the logits
     return out

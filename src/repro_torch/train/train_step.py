@@ -9,7 +9,9 @@ their gradients summed into f32 buffers and divided by n.
 Gradients come from ``torch.autograd.grad`` on the parameter leaves; the
 caller's parameter tensors need not require grad (the step takes detached
 views of them). ``make_prefill_step`` / ``make_decode_step`` are the
-serving entry points.
+serving entry points: over a (1, T) mesh they take the serve tree of
+``sharding.for_serve`` (made once, as the reference's jitted serving
+steps take their sharded params) and its model axis.
 
 On parameters sharded over a mesh (DTensor blocks from
 ``init_params(generator, mesh, axes)``) the batch is the rank's own rows
@@ -108,18 +110,23 @@ def make_train_step(model, opt_cfg: opt_mod.AdamWConfig,
     return train_step
 
 
-def make_prefill_step(model) -> Callable:
+def make_prefill_step(model, tp: Optional[sharding.ModelAxis] = None
+                      ) -> Callable:
+    """(params, batch) → (last-position logits, caches). With ``tp`` the
+    params are the serve tree it came with (``sharding.for_serve``)."""
     def prefill_step(params, batch: Dict[str, torch.Tensor]):
-        fe = batch.get("frontend_embeds")
-        if fe is not None:
-            return model.prefill(params, batch["tokens"], fe)
-        return model.prefill(params, batch["tokens"])
+        return model.prefill(params, batch["tokens"],
+                             batch.get("frontend_embeds"), tp=tp)
 
     return prefill_step
 
 
-def make_decode_step(model) -> Callable:
+def make_decode_step(model, tp: Optional[sharding.ModelAxis] = None
+                     ) -> Callable:
+    """(params, token, caches, cur_len) → (logits, caches), the caches
+    written in place. With ``tp`` as :func:`make_prefill_step`, the caches
+    the rank's (``init_decode_caches(..., model_ranks=tp.size)``)."""
     def decode_step(params, token, caches, cur_len):
-        return model.decode_step(params, token, caches, cur_len)
+        return model.decode_step(params, token, caches, cur_len, tp=tp)
 
     return decode_step

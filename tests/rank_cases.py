@@ -21,7 +21,9 @@ For the LM's sharded training, :func:`run_train_case` runs one case on
 every rank of a ("data", "model") mesh of W ranks ((W, 1) unless the case
 names another shape: (1, 2) and (2, 2) are tensor-parallel), and
 :func:`launch_train` a list of them on W gloo ranks in one subprocess; see
-:func:`run_train_case` for the keys of a case.
+:func:`run_train_case` for the keys of a case. For the LM's serving over
+a (1, T) mesh, :func:`run_serve_case` and :func:`launch_serve` do the
+same (``test_torch_tp_serve.py``).
 """
 
 from __future__ import annotations
@@ -421,6 +423,230 @@ def launch_train(cases: List[Dict], world: int, out: Path) -> List[Dict]:
     proc = subprocess.run(
         [sys.executable, "-c",
          "import sys, rank_cases; rank_cases.train_main(sys.argv[1:])",
+         str(plan), str(out), str(world)], env=env, capture_output=True,
+        text=True, timeout=TIMEOUT_S)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads((out / "cases.json").read_text())
+
+
+# ---------------------------------------------------------------------------
+# The LM's serving over a model axis (test_torch_tp_serve.py)
+# ---------------------------------------------------------------------------
+
+def unflatten(flat: Dict) -> Dict:
+    """``{"a/b/c": leaf}`` → the nested dict."""
+    out: Dict = {}
+    for path, leaf in flat.items():
+        node = out
+        parts = path.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+    return out
+
+
+def _shard_whole(model, whole, mesh):
+    """A whole parameter tree laid out on ``mesh`` by the model's spec
+    tree (each rank's block as a DTensor)."""
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import layers
+    axes = layers.MeshAxes(fsdp=("data",))
+    flat = _flat(whole)
+    out = {}
+    for path, info in model.ps.infos.items():
+        out[path] = lmesh.shard(flat[path], mesh, lmesh.placements(
+            layers.resolve_spec(info.spec, axes), mesh))
+    return unflatten(out)
+
+
+# the ops that copy what they read (a read of a weight by one of them is a
+# copy of that weight); ``embedding`` is a lookup of rows, not listed
+_COPY_OPS = ("_to_copy", "clone", "copy_", "cat", "stack", "index",
+             "index_select", "gather", "repeat", "contiguous",
+             "expand_copy", "_unsafe_index")
+
+
+def _weight_copies(fn, tree, *args):
+    """``fn(*args)`` with every aten op recorded that copies an input
+    sharing storage with a leaf of ``tree`` (:data:`_COPY_OPS`): (its
+    result, [[op, input shape], ...])."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    ptrs = {x.untyped_storage().data_ptr() for x in tree_leaves(tree)
+            if isinstance(x, torch.Tensor)}
+    seen: List = []
+
+    class Copies(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ in _COPY_OPS:
+                for a in tree_leaves((args, kwargs or {})):
+                    if (isinstance(a, torch.Tensor)
+                            and a.untyped_storage().data_ptr() in ptrs):
+                        seen.append([str(func), list(a.shape)])
+            return func(*args, **(kwargs or {}))
+    with Copies():
+        out = fn(*args)
+    return out, seen
+
+
+def _serve_case(case: Dict, group, device) -> Dict:
+    """One serving case on this rank (keys in :func:`run_serve_case`)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import convert
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model, reduced_config, sharding
+    from repro_torch.roofline import analysis
+    from repro_torch.train import make_decode_step, make_prefill_step
+    world = dist.get_world_size(group)
+    rec: Dict = {"name": case["name"]}
+    cfg = dataclasses.replace(reduced_config(ARCHS[case["arch"]]),
+                              **case.get("cfg", {}))
+    model = build_model(cfg, device=device)
+    shape = tuple(case.get("mesh", (1, world)))
+    mesh = lmesh.make_device_mesh(lmesh.Mesh(shape, ("data", "model")),
+                                  device)
+    with np.load(case["weights"]) as z:
+        whole = convert.params_from_numpy(unflatten(
+            {k: z[k] for k in z.files}), device)
+    params = _shard_whole(model, whole, mesh)
+    tree, tp = sharding.for_serve(params)
+    locals_ = _flat(params)
+    rec["views"] = {k: v.data_ptr() == locals_[k].to_local().data_ptr()
+                    for k, v in _flat(tree).items()}
+    rec["local_shapes"] = {k: list(v.shape) for k, v in _flat(tree).items()}
+    del params, whole
+    groups = {"data": mesh.get_group(0), "model": mesh.get_group(1)}
+    with np.load(case["inputs"]) as z:
+        inp = {k: torch.from_numpy(z[k]).to(device) for k in z.files}
+    b, s = inp["tokens"].shape
+    batch = {"tokens": inp["tokens"]}
+    fe = inp.get("frontend_embeds")
+    if fe is not None:
+        batch["frontend_embeds"] = fe
+    shapes: List = []
+    real = kops.flash_attention
+
+    def spy(q, k, v, **kw):
+        shapes.append([list(q.shape), list(k.shape)])
+        return real(q, k, v, **kw)
+    kops.flash_attention = spy
+    try:
+        (logits, pre), col = analysis.collectives_of(
+            make_prefill_step(model, tp), world, tree, batch, groups=groups)
+    finally:
+        kops.flash_attention = real
+    rec["k2_shapes"] = shapes
+    rec["prefill_collectives"] = col.by_group
+    n = s + (fe.shape[1] if fe is not None and not cfg.encoder_layers
+             else 0)
+    t = 1 if tp is None else tp.size
+    s_max = case["s_max"]
+    if cfg.encoder_layers:
+        caches = model.init_decode_caches(b, s_max, fe.shape[1],
+                                          model_ranks=t)
+    else:
+        caches = model.init_decode_caches(b, s_max, model_ranks=t)
+    rec["cache_shapes"] = [list(c.shape) for c in serve_lm._leaves(caches)]
+    serve_lm.write_caches(caches, pre, n)
+    decode = make_decode_step(model, tp)
+    out = [logits]
+    for i, tok in enumerate(inp["decode_tokens"]):
+        if i == 0:
+            (lg, caches), col = analysis.collectives_of(
+                decode, world, tree, tok, caches, n, groups=groups)
+            rec["decode_collectives"] = col.by_group
+        elif i == 1:
+            (lg, caches), rec["decode_weight_copies"] = _weight_copies(
+                decode, tree, tree, tok, caches, n + i)
+        else:
+            lg, caches = decode(tree, tok, caches, n + i)
+        out.append(lg)
+    logits = torch.stack(out).cpu().numpy()
+    every: List = [None] * world
+    dist.all_gather_object(every, logits.tobytes(), group=group)
+    rec["logits_equal_on_ranks"] = all(x == every[0] for x in every)
+    if dist.get_rank(group) == 0:
+        np.save(Path(case["out"]) / f"{case['name']}_logits.npy", logits)
+    if case.get("serve"):
+        kw = dict(case["serve"])
+        reqs = serve_lm.make_requests(kw.pop("requests"), cfg.vocab_size,
+                                      prompt_min=kw.pop("prompt_min"),
+                                      prompt_max=kw.pop("prompt_max"),
+                                      new_tokens=kw.pop("new_tokens"),
+                                      seed=kw.pop("seed"))
+        frames = serve_lm.make_frames(cfg, reqs, case["serve"]["seed"])
+        rep = serve_lm.serve(model, tree, reqs, frames=frames, tp=tp, **kw)
+        streams = [[f.uid, list(map(int, f.tokens))] for f in rep.finished]
+        dist.all_gather_object(every, streams, group=group)
+        rec["streams"] = streams
+        rec["streams_equal_on_ranks"] = all(x == streams for x in every)
+        rec["n_free"] = rep.n_free
+    return rec
+
+
+def run_serve_case(case: Dict, group, device) -> Optional[Dict]:
+    """One serving case on this rank; rank 0 returns its record (others
+    None). Keys: ``name``, ``arch`` (reduced; ``cfg``: ArchConfig fields
+    to override on it), ``weights`` (an npz of the
+    whole weights, flat paths), ``inputs`` (an npz of ``tokens`` (B, S),
+    ``decode_tokens`` (steps, B) and optionally ``frontend_embeds``),
+    ``s_max``; ``mesh``: another (data, model) shape; ``serve``:
+    ``serve_lm.serve``'s traffic and pool; ``raises``: the case must
+    raise NotImplementedError or ValueError, its type and message
+    recorded. The record: each serve-tree leaf's local shape and whether
+    it is a view of the DTensor's block, the q and k shapes K2 got, the
+    prefill's and the first decode step's collectives by group, the ops
+    of the second decode step that copy a weight (:func:`_weight_copies`),
+    the decode
+    caches' shapes, whether the logits are equal on every rank (rank 0
+    writes the prefill's and 4 decode steps' to ``<name>_logits.npy``),
+    and the serve's token streams."""
+    import torch.distributed as dist
+    try:
+        rec = _serve_case(case, group, device)
+    except (NotImplementedError, ValueError) as e:
+        if not case.get("raises"):
+            raise
+        rec = {"name": case["name"], "raised": [type(e).__name__, str(e)]}
+    else:
+        if case.get("raises"):
+            raise AssertionError(f"{case['name']} did not raise")
+    return rec if dist.get_rank(group) == 0 else None
+
+
+def run_serve_cases(group, device, cases: List[Dict], out: str) -> None:
+    """Every case in order on this rank; rank 0 writes ``out/cases.json``."""
+    recs = [run_serve_case(dict(case, out=out), group, device)
+            for case in cases]
+    if recs and recs[0] is not None:
+        (Path(out) / "cases.json").write_text(json.dumps(recs))
+
+
+def serve_main(argv: List[str]) -> None:
+    """``PLAN OUT RANKS``: the plan's serving cases on that many gloo
+    ranks."""
+    plan, out, ranks = argv
+    cases = json.loads(Path(plan).read_text())
+    launcher.spawn_ranks(run_serve_cases, (cases, out), int(ranks), "cpu")
+
+
+def launch_serve(cases: List[Dict], world: int, out: Path) -> List[Dict]:
+    """``cases`` on ``world`` gloo ranks in one subprocess (with a
+    timeout); rank 0's records."""
+    out.mkdir(parents=True, exist_ok=True)
+    plan = out / "plan.json"
+    plan.write_text(json.dumps(cases))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT / "tests")]))
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, rank_cases; rank_cases.serve_main(sys.argv[1:])",
          str(plan), str(out), str(world)], env=env, capture_output=True,
         text=True, timeout=TIMEOUT_S)
     assert proc.returncode == 0, proc.stderr[-4000:]
