@@ -6906,7 +6906,9 @@ def _fsdp_steps(spec: dict, mesh, dev, micro: int = 1, extra=(),
     records, before the steps, each leaf's gradient norm on the first
     step's batch (``leaf_grad_norms``, rank 0's, :func:`_leaf_grad_norms`).
     A config with experts records each step's mean aux loss, and with
-    ``routing`` the first step's routing (:func:`_routing_of`)."""
+    ``routing`` the first step's routing (:func:`_routing_of`). On a mesh
+    the batch is the rank's block of each of the ``micro`` global
+    microbatches (``rank_batch_at``)."""
     import torch
     from repro_torch.data import DataConfig, batch_at, rank_batch_at
     from repro_torch.models import build_model, sharding
@@ -6934,9 +6936,11 @@ def _fsdp_steps(spec: dict, mesh, dev, micro: int = 1, extra=(),
     def batch(i):
         if mesh is None:
             return batch_at(dcfg, i, device=dev)
-        return rank_batch_at(dcfg, i, rank, world, device=dev)
+        return rank_batch_at(dcfg, i, rank, world, device=dev,
+                             n_microbatches=step_fn.n_microbatches)
 
-    norms = (_leaf_grad_norms(model, params, batch(0), world)
+    norms = (_leaf_grad_norms(model, params, batch(0), world,
+                              step_fn.n_microbatches)
              if grad_norms else None)
     torch.cuda.synchronize()
     weights = torch.cuda.memory_allocated()
@@ -6962,7 +6966,7 @@ def _fsdp_steps(spec: dict, mesh, dev, micro: int = 1, extra=(),
         ev_ms.append(start.elapsed_time(stop))
         rows.append({k: float(v) for k, v in met.items()})
         if seen is not None:
-            routed = _routing_of(seen)
+            routed = _routing_of(seen, cfg.n_experts)
             del seen
         if first_params and i == 0:
             # a copy: the one-device run's leaf is its live parameter
@@ -7014,16 +7018,23 @@ def _fsdp_steps(spec: dict, mesh, dev, micro: int = 1, extra=(),
     return rec, params, hashes
 
 
-def _routing_of(seen: list) -> dict:
-    """[40] One step's routing from ``moe.positions``' calls (each MoE
+def _routing_of(seen: list, n_experts: int) -> dict:
+    """[40, 42] One step's routing from ``moe.positions``' calls (each MoE
     layer's forward and recompute, every microbatch): the sha256 of each
-    call's expert indices, and the assignments and dropped ones over
-    all calls."""
+    call's expert indices, the assignments and dropped ones over all
+    calls, and each call's kept assignments by expert (a data rank's
+    share of them over data ranks)."""
     import hashlib
+    import torch
+    kept = []
+    for e, k in seen:
+        experts = torch.arange(n_experts, device=e.device)[:, None]
+        kept.append((e[k][None, :] == experts).sum(1).tolist())
     return {"hashes": [hashlib.sha256(e.cpu().numpy().tobytes()).hexdigest()
                        for e, _ in seen],
             "assignments": sum(k.numel() for _, k in seen),
-            "dropped": sum(int((~k).sum()) for _, k in seen)}
+            "dropped": sum(int((~k).sum()) for _, k in seen),
+            "kept_by_expert": kept}
 
 
 def _first_gap(base: dict | None, other: dict | None, lr: float,
@@ -7065,20 +7076,31 @@ def _whole(x):
     return x if dist.get_rank() == 0 else None
 
 
-def _leaf_grad_norms(model, params, batch, data_ranks: int) -> dict | None:
+def _leaf_grad_norms(model, params, batch, data_ranks: int,
+                     micro: int = 1) -> dict | None:
     """[39] The norm of each leaf's gradient of the loss on ``batch`` (the
-    step's own computation: the data ranks' gradients summed by the
-    gather's backward, then divided by their count), each leaf made
-    whole on rank 0: {name: norm} there, None on the other ranks."""
+    step's own computation: the mean over ``micro`` microbatches, the data
+    ranks' gradients summed by the gather's backward, then divided by
+    their count), each leaf made whole on rank 0: {name: norm} there, None
+    on the other ranks."""
     import torch
     import torch.distributed as dist
+    from repro_torch.train import microbatch
     from repro_torch.train.optimizer import _leaves, _unflatten
     leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
-    with torch.enable_grad():
-        loss, _ = model.train_loss(_unflatten(params, iter(leaves)), batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+    grads = None
+    for i in range(micro):
+        part = microbatch(batch, micro, i)
+        with torch.enable_grad():
+            loss, _ = model.train_loss(_unflatten(params, iter(leaves)),
+                                       part)
+            g = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
-    del loss, leaves
+        grads = (list(g) if grads is None
+                 else [a + b for a, b in zip(grads, g)])
+        del loss, g
+    grads = [g / micro for g in grads]
+    del leaves
     out = {}
     for (name, _), g in zip(_named(params), grads):
         w = _whole(g)
@@ -7198,8 +7220,10 @@ def _fsdp_rank(group, device, jobs: list, out: str) -> None:
     ``keep`` its params and optimizer state (with ``first_params`` also
     its params after step 1) under that key, or ``compare`` them with
     those kept under that key (:func:`_pair_readings`, ``params_gap``;
-    :func:`_first_gap`, ``first_gap``). Rank 0 writes ``out/<tag>.json``
-    with every rank's record."""
+    :func:`_first_gap`, ``first_gap``), which are then dropped unless the
+    job says ``keep_base``; ``local_routing``: the steps with each data
+    rank routing alone (:func:`_local_routing`). Rank 0 writes
+    ``out/<tag>.json`` with every rank's record."""
     import gc
     import shutil
 
@@ -7246,13 +7270,15 @@ def _fsdp_rank(group, device, jobs: list, out: str) -> None:
             # the optimizer state outlives the steps only for a pair
             hold = ({} if job.get("keep") or job.get("compare")
                     else None)
-            rec, p, _ = _fsdp_steps(
-                spec, None if job.get("alone") else mesh, device,
-                micro=job.get("micro", 1),
-                extra=tuple(job.get("extra", ())), hold=hold,
-                grad_norms=bool(job.get("grad_norms")),
-                routing=bool(job.get("routing")),
-                first_params=bool(job.get("first_params")))
+            with (_local_routing() if job.get("local_routing")
+                  else contextlib.nullcontext()):
+                rec, p, _ = _fsdp_steps(
+                    spec, None if job.get("alone") else mesh, device,
+                    micro=job.get("micro", 1),
+                    extra=tuple(job.get("extra", ())), hold=hold,
+                    grad_norms=bool(job.get("grad_norms")),
+                    routing=bool(job.get("routing")),
+                    first_params=bool(job.get("first_params")))
             if job.get("launches"):
                 rec["launches"] = _read_counts()
             if job.get("save"):
@@ -7260,7 +7286,8 @@ def _fsdp_rank(group, device, jobs: list, out: str) -> None:
             if job.get("keep"):
                 kept[job["keep"]] = (p, hold["state"], hold.get("first"))
             if job.get("compare"):
-                base = kept.pop(job["compare"], None)
+                base = (kept.get if job.get("keep_base")
+                        else kept.pop)(job["compare"], None)
                 rec["params_gap"] = _pair_readings(
                     base and base[:2], (p, hold["state"]), spec["lr"],
                     rec["lrs"])
@@ -7289,6 +7316,26 @@ def _fsdp_rank(group, device, jobs: list, out: str) -> None:
         gc.collect()
         torch.cuda.empty_cache()
     torch.use_deterministic_algorithms(False)
+
+
+@contextlib.contextmanager
+def _local_routing():
+    """[42 (b)] The negative control: each data rank routes its tokens
+    alone, its capacity from its own token count and no slot offsets (the
+    aux loss stays global), where ``moe.global_slots`` gives the global
+    microbatch's."""
+    import torch
+    from repro_torch.models import moe
+    real = moe.global_slots
+
+    def alone(expert_idx, tokens, cfg, dp):
+        _, offset, fe = real(expert_idx, tokens, cfg, dp)
+        return moe.capacity(tokens, cfg), torch.zeros_like(offset), fe
+    moe.global_slots = alone
+    try:
+        yield
+    finally:
+        moe.global_slots = real
 
 
 def _gather_job(group, job: dict, rec: dict, out: str) -> None:
@@ -8061,15 +8108,19 @@ TPM_REDUCED = (("deepseek", "deepseek-v2-lite-16b", dict(n_experts=32)),
                ("kimi", "kimi-k2-1t-a32b", {}))
 
 
-def _card_params(cfg, model_ranks: int) -> int:
-    """[40b] The parameters one card of a (1, ``model_ranks``) mesh holds:
-    each leaf's elements, over the model ranks where its spec has "tp"."""
+def _card_params(cfg, mesh) -> int:
+    """[40b, 41, 42c] The parameters one card of a (D, T) mesh holds:
+    each leaf's elements over T where its spec has "tp" and over D where
+    it has "fsdp"."""
     from repro_torch.models import build_model
     from repro_torch.models.layers import MeshAxes, resolve_spec
     infos = build_model(cfg, attn_impl="sdpa", device="meta").ps.infos
-    return sum(math.prod(i.shape) // (
-        model_ranks if "model" in resolve_spec(i.spec, MeshAxes(
-            fsdp=("data",))) else 1) for i in infos.values())
+    total = 0
+    for i in infos.values():
+        spec = resolve_spec(i.spec, MeshAxes(fsdp=("data",)))
+        total += math.prod(i.shape) // (mesh[1] if "model" in spec else 1) \
+            // (mesh[0] if "data" in spec else 1)
+    return total
 
 
 def _tpm_reduced_spec(arch: str, over: dict) -> dict:
@@ -8077,6 +8128,74 @@ def _tpm_reduced_spec(arch: str, over: dict) -> dict:
     return dict(arch=arch, reduced=True, over=over, batch=p["batch"],
                 seq_len=p["seq_len"], steps=p["steps"], lr=TRAIN_MOE["lr"],
                 warmup=TRAIN_MOE["warmup"], seed=p["seed"])
+
+
+def _pair_gates(phase: str, tag: str, mesh, ranks: list, want: dict,
+                cfg, spec: dict, micro: int, soft) -> dict:
+    """[40a, 42a] One full-width bf16 pair, a mesh's ``ranks`` records
+    against the one-device run ``want``, by phase 39's checks: loss and
+    grad_norm within ``FSDP_RTOL``, each leaf's share of elements beyond
+    3·lr + 2^-8·|p| and AdamW's reach, step-1 gradient norms by leaf;
+    each printed. Returns the readings."""
+    r = ranks[0]
+    rel = _close_steps(r["steps"], want["steps"], FSDP_RTOL,
+                       f"[{phase}] {tag}", soft)
+    gap = r["params_gap"]
+    crowded = {n: x for n, x in gap["leaves"].items()
+               if x["over"] > TPF_PARAMS_SHARE * x["numel"]}
+    soft(not crowded and gap["max_reach_ratio"] <= 1.0,
+         f"[{phase}] {tag} params: leaves with more than "
+         f"{TPF_PARAMS_SHARE:g} of their elements beyond 3·lr + 2^-8·|p| "
+         f"{crowded}; largest ratio to AdamW's reach "
+         f"{gap['max_reach_ratio']}")
+    norms = {n: (r["leaf_grad_norms"][n], g)
+             for n, g in want["leaf_grad_norms"].items()}
+    norm_gaps = sorted(((abs(a - b) / b if b else abs(a), n)
+                        for n, (a, b) in norms.items()), reverse=True)
+    soft(norm_gaps[0][0] <= TPF_LEAF_GRAD_RTOL,
+         f"[{phase}] {tag} step-1 gradient norms beyond rel "
+         f"{TPF_LEAF_GRAD_RTOL:g}: "
+         f"{[x for x in norm_gaps if x[0] > TPF_LEAF_GRAD_RTOL]}")
+    out = dict(max_rel_gap=rel, params_gap=gap, leaf_grad_norms=norms,
+               max_leaf_grad_norm_gap=norm_gaps[0],
+               ms_per_step=max(y["ms_per_step_median"] for y in ranks),
+               one_device_ms_per_step=want["ms_per_step_median"],
+               peak_gb_by_card=[y["peak_memory_bytes"] / 1e9
+                                for y in ranks],
+               one_device_peak_gb=want["peak_memory_bytes"] / 1e9)
+    print(f"[{phase}] {r['arch']} at full width ({cfg.n_layers} of 27 "
+          f"layers, {r['n_params']:,} params, bf16, f32 moments, remat "
+          f"full), {spec['batch']} x {spec['seq_len']} tokens in {micro} "
+          f"microbatches, {spec['steps']} steps: {mesh} against one "
+          f"device: loss " + " ".join(f"{s['loss']:.6g}" for s in r["steps"])
+          + " against " + " ".join(f"{s['loss']:.6g}" for s in want["steps"])
+          + ", grad_norm " + " ".join(f"{s['grad_norm']:.6g}"
+                                      for s in r["steps"])
+          + " against " + " ".join(f"{s['grad_norm']:.6g}"
+                                   for s in want["steps"])
+          + f", aux {r['steps'][0]['aux']:.6g} against "
+          f"{want['steps'][0]['aux']:.6g} at step 1: within rel {rel:.3g} "
+          f"(bound {FSDP_RTOL}); ms/step {out['ms_per_step']:.1f} against "
+          f"{out['one_device_ms_per_step']:.1f}, peak GB by card "
+          f"{[round(y, 2) for y in out['peak_gb_by_card']]} against "
+          f"{out['one_device_peak_gb']:.2f}", flush=True)
+    print(f"[{phase}] {tag} step-1 gradient norm by leaf: largest gaps "
+          + "; ".join(f"{n} {norms[n][0]:.6g} against {norms[n][1]:.6g} "
+                      f"(rel {v:.3g})" for v, n in norm_gaps[:4])
+          + f"; {len(norms)} leaves (bound {TPF_LEAF_GRAD_RTOL:g})",
+          flush=True)
+    print(f"[{phase}] {tag} params after {len(gap['lrs'])} updates: "
+          f"{gap['over']} of {gap['elements']:,} elements (share "
+          f"{gap['over_share']:.3g}) beyond 3·lr + 2^-8·|p|, "
+          f"{gap['over_opposite_mu']} of them with first moments of "
+          f"opposite sign; largest ratio {gap['max_ratio']:.4g}; largest "
+          f"ratio to AdamW's reach {gap['max_reach_ratio']:.4g} (bound 1); "
+          f"leaves beyond: "
+          + (", ".join(f"{n} {v['over']}/{v['numel']:,}"
+                       for n, v in gap["leaves"].items() if v["over"])
+             or "none")
+          + f" (bound {TPF_PARAMS_SHARE:g} of each leaf)", flush=True)
+    return out
 
 
 def phase_tp_moe_cards(n_cards: int, tmpdir: str) -> dict:
@@ -8149,81 +8268,18 @@ def phase_tp_moe_cards(n_cards: int, tmpdir: str) -> dict:
     for mesh in TPM_MESHES:
         tp = f"tp{mesh[0]}{mesh[1]}"
         want, r = got[f"one_{tp}"][0], got[tp][0]
-        rel = _close_steps(r["steps"], want["steps"], FSDP_RTOL,
-                           f"[40a] {tp}", soft)
-        gap = r["params_gap"]
-        crowded = {n: x for n, x in gap["leaves"].items()
-                   if x["over"] > TPF_PARAMS_SHARE * x["numel"]}
-        soft(not crowded and gap["max_reach_ratio"] <= 1.0,
-             f"[40a] {tp} params: leaves with more than "
-             f"{TPF_PARAMS_SHARE:g} of their elements beyond 3·lr + "
-             f"2^-8·|p| {crowded}; largest ratio to AdamW's reach "
-             f"{gap['max_reach_ratio']}")
-        norms = {n: (r["leaf_grad_norms"][n], g)
-                 for n, g in want["leaf_grad_norms"].items()}
-        norm_gaps = sorted(((abs(a - b) / b if b else abs(a), n)
-                            for n, (a, b) in norms.items()), reverse=True)
-        soft(norm_gaps[0][0] <= TPF_LEAF_GRAD_RTOL,
-             f"[40a] {tp} step-1 gradient norms beyond rel "
-             f"{TPF_LEAF_GRAD_RTOL:g}: "
-             f"{[x for x in norm_gaps if x[0] > TPF_LEAF_GRAD_RTOL]}")
+        x = _pair_gates("40a", tp, mesh, got[tp], want, cfg, TPM_PAIR,
+                        TPM_MICRO, soft)
         same = routing_equal(tp)
         soft(same, f"[40a] {tp}: the model ranks routed step 1 apart")
-        pairs[tp] = dict(max_rel_gap=rel, params_gap=gap,
-                         leaf_grad_norms=norms,
-                         max_leaf_grad_norm_gap=norm_gaps[0],
-                         routing_equal_on_ranks=same,
-                         routing_equal_to_one_device=(
-                             r["routing"]["hashes"]
-                             == want["routing"]["hashes"]),
-                         dropped_share=dropped(r),
-                         one_device_dropped_share=dropped(want),
-                         one_device_bit_equal=(
-                             want["steps"]
-                             == got["one_tp12"][0]["steps"]),
-                         ms_per_step=max(y["ms_per_step_median"]
-                                         for y in got[tp]),
-                         one_device_ms_per_step=want["ms_per_step_median"],
-                         peak_gb_by_card=[y["peak_memory_bytes"] / 1e9
-                                          for y in got[tp]],
-                         one_device_peak_gb=want["peak_memory_bytes"] / 1e9)
-        x = pairs[tp]
-        print(f"[40a] {r['arch']} at full width ({cfg.n_layers} of 27 "
-              f"layers, {r['n_params']:,} params, bf16, f32 moments, remat "
-              f"full), {TPM_PAIR['batch']} x {TPM_PAIR['seq_len']} tokens "
-              f"in {TPM_MICRO} microbatches, {TPM_PAIR['steps']} steps: "
-              f"{mesh} against one device: loss "
-              + " ".join(f"{s['loss']:.6g}" for s in r["steps"])
-              + " against " + " ".join(f"{s['loss']:.6g}"
-                                       for s in want["steps"])
-              + ", grad_norm " + " ".join(f"{s['grad_norm']:.6g}"
-                                          for s in r["steps"])
-              + " against " + " ".join(f"{s['grad_norm']:.6g}"
-                                       for s in want["steps"])
-              + f", aux {r['steps'][0]['aux']:.6g} against "
-              f"{want['steps'][0]['aux']:.6g} at step 1: within rel "
-              f"{rel:.3g} (bound {FSDP_RTOL}); ms/step "
-              f"{max(y['ms_per_step_median'] for y in got[tp]):.1f} "
-              f"against {want['ms_per_step_median']:.1f}, peak GB by card "
-              f"{[round(y['peak_memory_bytes'] / 1e9, 2) for y in got[tp]]} "
-              f"against {want['peak_memory_bytes'] / 1e9:.2f}", flush=True)
-        print(f"[40a] {tp} step-1 gradient norm by leaf: largest gaps "
-              + "; ".join(f"{n} {norms[n][0]:.6g} against "
-                          f"{norms[n][1]:.6g} (rel {v:.3g})"
-                          for v, n in norm_gaps[:4])
-              + f"; {len(norms)} leaves (bound {TPF_LEAF_GRAD_RTOL:g})",
-              flush=True)
-        print(f"[40a] {tp} params after {len(gap['lrs'])} updates: "
-              f"{gap['over']} of {gap['elements']:,} elements (share "
-              f"{gap['over_share']:.3g}) beyond 3·lr + 2^-8·|p|, "
-              f"{gap['over_opposite_mu']} of them with first moments of "
-              f"opposite sign; largest ratio {gap['max_ratio']:.4g}; "
-              f"largest ratio to AdamW's reach {gap['max_reach_ratio']:.4g}"
-              f" (bound 1); leaves beyond: "
-              + (", ".join(f"{n} {v['over']}/{v['numel']:,}"
-                           for n, v in gap["leaves"].items() if v["over"])
-                 or "none")
-              + f" (bound {TPF_PARAMS_SHARE:g} of each leaf)", flush=True)
+        x.update(routing_equal_on_ranks=same,
+                 routing_equal_to_one_device=(
+                     r["routing"]["hashes"] == want["routing"]["hashes"]),
+                 dropped_share=dropped(r),
+                 one_device_dropped_share=dropped(want),
+                 one_device_bit_equal=(
+                     want["steps"] == got["one_tp12"][0]["steps"]))
+        pairs[tp] = x
         print(f"[40a] {tp} step 1's routing ({len(r['routing']['hashes'])}"
               f" positions calls): equal on the {mesh[1]} model ranks: "
               f"{same}; equal to one device's: "
@@ -8291,7 +8347,7 @@ def phase_tp_moe_cards(n_cards: int, tmpdir: str) -> dict:
     # PERF.md §6 PR 36's reckoning: a card's parameters at ~18 bytes each
     # (params, moments, the f32 microbatch sum, the bf16 gradients and
     # their stack) under the sharded step's in-place AdamW
-    card_params = _card_params(dcfg, TPM_DEEP_MESH[1])
+    card_params = _card_params(dcfg, TPM_DEEP_MESH)
     deep = {
         "n_layers": dcfg.n_layers, "n_params": r0["n_params"],
         "ms_per_step": ms, "tokens_per_s": tokens / (ms / 1e3),
@@ -8451,6 +8507,322 @@ def phase_tp_families_f32(n_cards: int, tmpdir: str) -> dict:
     rec["pairs"] = pairs
     soft(not any(launches.values()), f"[39f] kernel launches {launches}")
     rec["tp_families_f32_launches"] = launches
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# [42] MoE routing over the data axis (--cards N only)
+# ---------------------------------------------------------------------------
+
+# (a) phase 40 (a)'s deepseek-v2-lite-16b at full width, 4 layers, bf16,
+# at a warm-up of 100 (TPM_PAIR's reason), one device carrying 4,096
+# tokens a microbatch as there: 8 × 1,024 tokens in 2 microbatches, so
+# 8 divides over 2 microbatches × 4 data ranks. One device against (2,
+# 1), (4, 1) and (2, 2) by phase 40's checks, with step 1's dropped
+# share and kept assignments by expert beside one device's
+TDM_PAIR = dict(TRAIN_MOE, batch=8, seq_len=1024, warmup=100)
+TDM_MICRO = 2
+TDM_MESHES = ((2, 1), (4, 1), (2, 2))
+# (b) the reduced configs in f32 (remat full), FAMILY_PARITY's 3 steps of
+# 64-token sequences in 2 microbatches, at a batch of 8 (4 does not split
+# over 2 microbatches × 4 data ranks), one device against each mesh
+# within phase 33 (c)'s bounds: deepseek at 32 experts (experts over
+# "fsdp"), and at capacity factor 1.0 (assignments dropped across rank
+# boundaries), jamba (experts over "tp", their FFN dim over "fsdp"),
+# kimi-k2. The negative control: the capacity-1.0 job on (2, 1) with each
+# rank routing alone (:func:`_local_routing`), which must fall outside
+TDM_REDUCED = (("deepseek", "deepseek-v2-lite-16b", dict(n_experts=32)),
+               ("drops", "deepseek-v2-lite-16b",
+                dict(n_experts=32, capacity_factor=1.0)),
+               ("jamba", "jamba-v0.1-52b", {}),
+               ("kimi", "kimi-k2-1t-a32b", {}))
+TDM_CONTROL = "drops"
+# (c) deepseek-v2-lite-16b at all 27 layers on (2, 2): 4 × 4,096 tokens in
+# 2 microbatches (one sequence a data rank a microbatch), 5 steps
+TDM_DEEP = dict(TRAIN_MOE, n_layers=27, batch=4, seq_len=4096)
+TDM_DEEP_MESH = (2, 2)
+
+
+def _tdm_reduced_spec(arch: str, over: dict) -> dict:
+    p = FAMILY_PARITY
+    return dict(arch=arch, reduced=True, over=over, batch=8,
+                seq_len=p["seq_len"], steps=p["steps"], lr=TRAIN_MOE["lr"],
+                warmup=TRAIN_MOE["warmup"], seed=p["seed"])
+
+
+def _tdm_tag(mesh) -> str:
+    return f"dp{mesh[0]}{mesh[1]}"
+
+
+def _tdm_global_kept(ranks: list, mesh) -> list:
+    """Each ``positions`` call's kept assignments by expert over the
+    global microbatch: the data ranks' shares summed (model rank 0 of
+    each data row)."""
+    rows = [ranks[d * mesh[1]]["routing"]["kept_by_expert"]
+            for d in range(mesh[0])]
+    return [[sum(r[c][e] for r in rows) for e in range(len(rows[0][c]))]
+            for c in range(len(rows[0]))]
+
+
+def _tdm_dropped(ranks: list, mesh) -> float:
+    rows = [ranks[d * mesh[1]]["routing"] for d in range(mesh[0])]
+    return (sum(r["dropped"] for r in rows)
+            / sum(r["assignments"] for r in rows))
+
+
+def phase_dp_moe_cards(n_cards: int, tmpdir: str,
+                       device: str = "cuda") -> dict:
+    """[42 (a)-(d)] MoE routing over the data axis on ``n_cards`` = 4
+    cards: deepseek-v2-lite-16b at full width, 4 layers, one device
+    against (2, 1), (4, 1) and (2, 2); the reduced deepseek (and at
+    capacity factor 1.0), jamba and kimi-k2 in f32 against the same
+    meshes, with a negative control that routes each rank alone; all 27
+    layers on (2, 2) with its step figures; no kernel launched. Every
+    part is run and printed before a failed check ends the phase:
+    ``failures`` lists them (the caller writes the record, then fails).
+    ``device="cpu"`` runs it on gloo ranks (a rehearsal)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.device import card_description
+    from repro_torch.launch import cells
+    from repro_torch.models import build_model
+    from repro_torch.roofline import analysis
+    d = Path(tmpdir) / "tdm"
+    d.mkdir()
+    rec = {"failures": [], "card": card_description()}
+
+    def soft(cond: bool, msg: str) -> None:
+        if not cond:
+            rec["failures"].append(msg)
+            print(f"FAILED: chip_smoke: {msg}", flush=True)
+    if n_cards != math.prod(TDM_DEEP_MESH):
+        soft(False, f"[42] needs {math.prod(TDM_DEEP_MESH)} cards, got "
+                    f"{n_cards}")
+        return rec
+    det = dict(deterministic=True, launches=True, grad_norms=True,
+               routing=True, micro=TDM_MICRO)
+    red = dict(deterministic=True, launches=True, first_params=True,
+               micro=TDM_MICRO)
+    t0 = time.perf_counter()
+    # one spawn of 2 ranks for (2, 1), one of 4 for (4, 1) and (2, 2); in
+    # each the one-device runs first (rank 0 alone, kept there)
+    got = {}
+    for ranks, meshes in ((2, TDM_MESHES[:1]), (4, TDM_MESHES[1:])):
+        jobs = [dict(tag=f"one_{ranks}", kind="steps", spec=TDM_PAIR,
+                     alone=True, keep="one", **det)]
+        for i, mesh in enumerate(meshes):
+            jobs.append(dict(tag=_tdm_tag(mesh), kind="steps", spec=TDM_PAIR,
+                             mesh=mesh, compare="one",
+                             keep_base=i < len(meshes) - 1, **det))
+        for k, arch, over in TDM_REDUCED:
+            spec = _tdm_reduced_spec(arch, over)
+            jobs.append(dict(tag=f"{k}_one_{ranks}", kind="steps", spec=spec,
+                             alone=True, keep=k, **red))
+            if k == TDM_CONTROL and ranks == 2:
+                jobs.append(dict(tag=f"{k}_alone_dp21", kind="steps",
+                                 spec=spec, mesh=(2, 1), compare=k,
+                                 keep_base=True, local_routing=True, **red))
+            for i, mesh in enumerate(meshes):
+                jobs.append(dict(tag=f"{k}_{_tdm_tag(mesh)}", kind="steps",
+                                 spec=spec, mesh=mesh, compare=k,
+                                 keep_base=i < len(meshes) - 1, **red))
+        got.update(_fsdp_spawn(jobs, ranks, d / f"w{ranks}", device=device))
+    rec["pairs_spawn_s"] = time.perf_counter() - t0
+    launches: dict = {}
+
+    def count_launches(tags) -> None:
+        for tag in tags:
+            for x in got[tag]:
+                for name, n in x.get("launches", {}).items():
+                    launches[name] = launches.get(name, 0) + n
+    count_launches(list(got))
+
+    def routing_equal(tag: str, mesh) -> bool:
+        """Every model rank of each data row routed its row's tokens
+        alike."""
+        h = [x["routing"]["hashes"] for x in got[tag]]
+        return all(h[r] == h[r - r % mesh[1]] for r in range(len(h)))
+    # (a) the full-width pairs
+    cfg = _fsdp_cfg(TDM_PAIR)
+    moe_layers = cfg.n_layers - cfg.first_dense_layers
+    pairs = {}
+    for mesh in TDM_MESHES:
+        tag = _tdm_tag(mesh)
+        want = got[f"one_{2 if mesh == (2, 1) else 4}"][0]
+        x = _pair_gates("42a", tag, mesh, got[tag], want, cfg, TDM_PAIR,
+                        TDM_MICRO, soft)
+        same = routing_equal(tag, mesh)
+        soft(same, f"[42a] {tag}: the model ranks of a data row routed "
+                   f"step 1 apart")
+        kept = _tdm_global_kept(got[tag], mesh)
+        kept_one = want["routing"]["kept_by_expert"]
+        soft(len(kept) == len(kept_one),
+             f"[42a] {tag}: {len(kept)} positions calls against one "
+             f"device's {len(kept_one)}")
+        # microbatch 0's forward: one call a MoE layer, in layer order
+        layers = [dict(kept=kept[i], one_device=kept_one[i],
+                       l1=sum(abs(a - b) for a, b in zip(kept[i],
+                                                         kept_one[i])))
+                  for i in range(min(moe_layers, len(kept)))]
+        x.update(routing_equal_on_model_ranks=same,
+                 kept_by_expert_by_layer=layers,
+                 dropped_share=_tdm_dropped(got[tag], mesh),
+                 one_device_dropped_share=want["routing"]["dropped"]
+                 / want["routing"]["assignments"])
+        pairs[tag] = x
+        print(f"[42a] {tag} step 1's routing: the model ranks of each data "
+              f"row equal: {same}; dropped share at capacity factor "
+              f"{cfg.capacity_factor} {x['dropped_share']:.5f} against one "
+              f"device's {x['one_device_dropped_share']:.5f} (not gated: "
+              f"near-ties may flip); the first microbatch's kept "
+              f"assignments by expert, summed over the data ranks, against "
+              f"one device's, by MoE layer: "
+              + "; ".join(f"layer {i + 2} L1 gap {y['l1']} of "
+                          f"{sum(y['one_device'])}: {y['kept']} against "
+                          f"{y['one_device']}" for i, y in enumerate(layers)),
+              flush=True)
+    rec["pairs"] = pairs
+    # (b) the reduced configs in f32, and the negative control
+    reduced = {}
+    p = FAMILY_PARITY
+    ignore = lambda cond, msg: None   # noqa: E731
+
+    def held(tag: str, base: str, gate) -> dict:
+        want, r = got[base][0], got[tag][0]
+        rel = _close_steps(r["steps"], want["steps"], p["rtol"],
+                           f"[42b] {tag}", gate)
+        fg = r["first_gap"]
+        inside = (rel <= p["rtol"] and fg["beyond_2lr"] == 0
+                  and fg["beyond_atol"] <= 1e-3 * fg["elements"])
+        gate(inside, f"[42b] {tag} params after step 1: {fg}")
+        return dict(max_rel_gap=rel, first_gap=fg, inside=inside,
+                    params_gap=r["params_gap"],
+                    aux=[s["aux"] for s in r["steps"]],
+                    one_device_aux=[s["aux"] for s in want["steps"]])
+
+    def line(tag: str, x: dict, what: str) -> None:
+        fg = x["first_gap"]
+        print(f"[42b] {tag} ({what}): loss and grad_norm within rel "
+              f"{x['max_rel_gap']:.3g} (bound {p['rtol']}); aux by step "
+              + " ".join(f"{a:.8g}" for a in x["aux"]) + " against "
+              + " ".join(f"{a:.8g}" for a in x["one_device_aux"])
+              + f"; params after step 1 max|Δ| {fg['max_abs']:.3g}, "
+              f"{fg['beyond_atol']} of {fg['elements']} beyond "
+              f"{p['param_atol']}, {fg['beyond_2lr']} beyond 2·lr: "
+              f"{'inside' if x['inside'] else 'outside'} the bounds",
+              flush=True)
+    for k, arch, over in TDM_REDUCED:
+        for mesh in TDM_MESHES:
+            tag = f"{k}_{_tdm_tag(mesh)}"
+            base = f"{k}_one_{2 if mesh == (2, 1) else 4}"
+            reduced[tag] = held(tag, base, soft)
+            line(tag, reduced[tag], f"reduced {arch} {over or ''}, f32, "
+                 f"remat full, {p['steps']} steps of 8 x {p['seq_len']} "
+                 f"in {TDM_MICRO} microbatches, {mesh} against one device")
+    rec["reduced"] = reduced
+    tag = f"{TDM_CONTROL}_alone_dp21"
+    control = held(tag, f"{TDM_CONTROL}_one_2", ignore)
+    soft(not control["inside"],
+         f"[42b] the negative control {tag} (each data rank routing alone) "
+         f"fell inside the bounds: the gate cannot fail")
+    rec["control"] = control
+    line(tag, control, "the negative control: each data rank routing "
+         "alone, its capacity from its own tokens, no offsets; must be "
+         "outside")
+    # (c) deepseek at all 27 layers on (2, 2)
+    t0 = time.perf_counter()
+    got.update(_fsdp_spawn([dict(
+        tag="deep", kind="steps", spec=TDM_DEEP, mesh=TDM_DEEP_MESH,
+        micro=TDM_MICRO, launches=True, routing=True,
+        extra=("count", "profile"))], math.prod(TDM_DEEP_MESH), d / "deep",
+        device=device))
+    rec["deep_spawn_s"] = time.perf_counter() - t0
+    count_launches(["deep"])
+    dcfg = _fsdp_cfg(TDM_DEEP)
+    ranks = got["deep"]
+    r0 = ranks[0]
+    tokens = TDM_DEEP["batch"] * TDM_DEEP["seq_len"]
+    ms = max(x["ms_per_step_median"] for x in ranks)
+    flops = cells.analytic_step_flops(dcfg, ShapeSpec(
+        "train", TDM_DEEP["seq_len"], TDM_DEEP["batch"], "train"))
+    peaks = [x["peak_memory_bytes"] / 1e9 for x in ranks]
+    soft(max(peaks) < 80.0, f"[42c] peak GB by card {peaks}")
+    soft(all(math.isfinite(x[k]) for x in r0["steps"]
+             for k in ("loss", "aux", "grad_norm")),
+         f"[42c] steps {r0['steps']}")
+    same = routing_equal("deep", TDM_DEEP_MESH)
+    soft(same, "[42c] the model ranks of a data row routed step 1 apart")
+    col = r0["collectives"]
+    reckoned = analysis.reckon_collectives(
+        build_model(dcfg, attn_impl="sdpa", device="meta"),
+        TDM_DEEP_MESH[0], TDM_DEEP_MESH[1], TDM_MICRO,
+        TDM_DEEP["batch"] // TDM_DEEP_MESH[0] // TDM_MICRO,
+        TDM_DEEP["seq_len"])
+    soft(col["by_group"] == reckoned,
+         f"[42c] collectives by group {col['by_group']} != the spec "
+         f"tree's {reckoned}")
+    ranges = ("full/attn", "full/moe", "train/backward", "train/adamw")
+    card_params = _card_params(dcfg, TDM_DEEP_MESH)
+    losses = [x["loss"] for x in r0["steps"]]
+    deep = {
+        "n_layers": dcfg.n_layers, "n_params": r0["n_params"],
+        "ms_per_step": ms, "tokens_per_s": tokens / (ms / 1e3),
+        "ms_by_card": [x["ms_per_step_median"] for x in ranks],
+        "steps": r0["steps"], "analytic_flops_per_step": flops,
+        "model_flops_share": flops / (ms / 1e3) / n_cards
+        / PEAK_BF16_TENSOR_FLOPS,
+        "peak_gb_by_card": peaks, "card_params": card_params,
+        "reckoned_peak_gb": 18 * card_params / 1e9,
+        "state_gb_by_card": [x["state_bytes"] / 1e9 for x in ranks],
+        "idle_share_by_card": [x["profiled"]["device_idle_share"]
+                               for x in ranks],
+        "device_ms_by_range_by_card": [
+            {k: x["profiled"]["ranges"].get(k, {}).get("device_ms", 0.0)
+             for k in ranges} for x in ranks],
+        "nccl_ms_by_kind_by_card": [x["profiled"]["nccl_ms_by_kind"]
+                                    for x in ranks],
+        "profiled_ms_by_card": [x["profiled"]["wall_ms"] for x in ranks],
+        "collectives": col, "collective_s": r0["collective_s"],
+        "reckoned_equal": col["by_group"] == reckoned,
+        "routing_equal_on_model_ranks": same,
+        "dropped_share": _tdm_dropped(ranks, TDM_DEEP_MESH)}
+    rec["deep"] = deep
+    print(f"[42c] {r0['arch']} at full width, {dcfg.n_layers} of 27 layers "
+          f"({r0['n_params']:,} params) on {TDM_DEEP_MESH}, {tokens} tokens "
+          f"a step in {TDM_MICRO} microbatches: {ms:.1f} ms/step (slowest "
+          f"card's median of steps 2-{TDM_DEEP['steps']}, CUDA events; by "
+          f"card {[round(x, 1) for x in deep['ms_by_card']]}); "
+          f"{deep['tokens_per_s']:.0f} tokens/s; model-FLOPs share "
+          f"{deep['model_flops_share']:.4f} (analytic_step_flops "
+          f"{flops:.4g}); peak GB by card {[round(x, 2) for x in peaks]} "
+          f"(reckoned {deep['reckoned_peak_gb']:.1f}: 18 bytes each of a "
+          f"card's {card_params:,} parameters; weights and moments "
+          f"{[round(x, 2) for x in deep['state_gb_by_card']]}); "
+          f"loss " + " ".join(f"{x:.6g}" for x in losses) + ", grad_norm "
+          + " ".join(f"{x['grad_norm']:.4g}" for x in r0["steps"])
+          + ", aux " + " ".join(f"{x['aux']:.4g}" for x in r0["steps"])
+          + f"; routing equal on the model ranks: {same}, dropped share "
+          f"{deep['dropped_share']:.5f}", flush=True)
+    print(f"[42c] one step under CommDebugMode: counts {col['counts']}; by "
+          f"group " + "; ".join(
+              f"{g} ({x['ranks']} ranks) counts {x['counts']}, payload "
+              f"{x['payload_bytes']}, wire bytes a card {x['wire_bytes']}"
+              for g, x in col["by_group"].items())
+          + f" → collective term {deep['collective_s']:.4f} s at NVLink "
+          f"{450e9:.3g} B/s (≡ reckon_collectives: "
+          f"{deep['reckoned_equal']})", flush=True)
+    print(f"[42c] one profiled step: wall ms by card "
+          f"{[round(x, 1) for x in deep['profiled_ms_by_card']]}, idle share "
+          f"{[round(x, 3) for x in deep['idle_share_by_card']]}, device ms "
+          f"by range "
+          f"{[{k: round(v, 1) for k, v in y.items()} for y in deep['device_ms_by_range_by_card']]}"
+          f", NCCL device ms by kind "
+          f"{[{k: round(v, 1) for k, v in y.items()} for y in deep['nccl_ms_by_kind_by_card']]}"
+          f"; {rec['card']}", flush=True)
+    # (d) no kernel on these paths: counted in every rank over every run
+    soft(not any(launches.values()), f"[42d] kernel launches {launches}")
+    rec["dp_moe_launches"] = launches
+    print(f"[42d] kernel launches over (a)-(c)'s steps on every card: "
+          f"{launches}", flush=True)
     return rec
 
 
@@ -9126,7 +9498,7 @@ def phase_tp_serve_cards(n_cards: int, tmpdir: str,
     rec["traces"] = _tps_traces(got, soft, rec["card"])
     # (b)'s serves: jamba's 32 layers, phase 7's traffic
     cfg = _fsdp_cfg(TPS_JAMBA)
-    one_params = _card_params(cfg, 1)
+    one_params = _card_params(cfg, (1, 1))
     serves = {}
     for tag in ("jamba_tp12", "jamba_tp14"):
         ranks = got[tag]
@@ -9149,7 +9521,7 @@ def phase_tp_serve_cards(n_cards: int, tmpdir: str,
         soft(not others, f"[41b] {tag}: other kernels launched {others}")
         peaks = [x.get("run_peak_bytes", 0) / 1e9 for x in ranks]
         inits = [x.get("init_peak_bytes", 0) / 1e9 for x in ranks]
-        card = _card_params(cfg, t)
+        card = _card_params(cfg, (1, t))
         # the reckoning (PERF.md §6): a card's bf16 blocks, and
         # at init the f32 draw and bf16 cast of the largest whole leaf
         big = max(math.prod(i.shape) for i in _infos(cfg).values())
@@ -9321,12 +9693,12 @@ def main() -> int:
 
 # the phases of ``--cards N``; ``--only`` names some of them (37 reads
 # 36's runs, so it needs 36)
-CARDS_PHASES = ("35b", "36", "37", "39", "40", "41", "39f")
+CARDS_PHASES = ("35b", "36", "37", "39", "40", "41", "39f", "42")
 
 
 def _cards_main(n_cards: int, only=CARDS_PHASES) -> int:
     """``--cards N``: build the kernels and run phases 35 (b), 36 (a)-(c),
-    37, 39, 40, 41 and 39 (f) only; with ``--only``, those of them it
+    37, 39, 40, 41, 39 (f) and 42 only; with ``--only``, those of them it
     names (the kernels built only for 35 (b) and 41, the phases that
     launch them)."""
     import tempfile
@@ -9387,6 +9759,11 @@ def _cards_main(n_cards: int, only=CARDS_PHASES) -> int:
             rec["tp_families_f32"] = phase_tp_families_f32(n_cards, tmpdir)
             print(f"[39f] phase time {time.perf_counter() - t0:.1f} s",
                   flush=True)
+        if "42" in only:
+            t0 = time.perf_counter()
+            rec["dp_moe"] = phase_dp_moe_cards(n_cards, tmpdir)
+            print(f"[42] phase time {time.perf_counter() - t0:.1f} s",
+                  flush=True)
     rec["device"] = torch.cuda.get_device_name(0)
     rec["phases"] = list(only)
     out_dir = ROOT / "chiprun_out"
@@ -9394,7 +9771,8 @@ def _cards_main(n_cards: int, only=CARDS_PHASES) -> int:
     (out_dir / "chip_smoke_cards.json").write_text(json.dumps(rec, indent=1))
     for key, phase in (("fsdp", "36"), ("tp", "37"),
                        ("tp_families", "39"), ("tp_moe", "40"),
-                       ("tp_serve", "41"), ("tp_families_f32", "39f")):
+                       ("tp_serve", "41"), ("tp_families_f32", "39f"),
+                       ("dp_moe", "42")):
         if key in rec:
             check(not rec[key]["failures"],
                   f"[{phase}] {len(rec[key]['failures'])} check(s) "
@@ -9418,6 +9796,11 @@ def _cards_main(n_cards: int, only=CARDS_PHASES) -> int:
         print(json.dumps({"tp_moe_launches": [
             {"name": k, "tp_moe_launches": v} for k, v in sorted(
                 rec["tp_moe"]["tp_moe_launches"].items())]}), flush=True)
+    # nor on MoE routing over the data axis (42 (d)), likewise
+    if "dp_moe" in rec:
+        print(json.dumps({"dp_moe_launches": [
+            {"name": k, "dp_moe_launches": v} for k, v in sorted(
+                rec["dp_moe"]["dp_moe_launches"].items())]}), flush=True)
     # K2 on the tensor-parallel serving path (41): its launches in each
     # run, by rank, and its check against the plain version on each rank's
     # first-prefill q, k, v (the rank's heads)

@@ -111,8 +111,9 @@ def _steps(spec: dict, cfg, mesh, device, micro: int, save: str) -> dict:
     rows = []
     for i in range(spec["steps"]):
         params, state, met = step_fn(
-            params, state, rank_batch_at(dcfg, i, rank, world,
-                                         device=device))
+            params, state, rank_batch_at(
+                dcfg, i, rank, world, device=device,
+                n_microbatches=step_fn.n_microbatches))
         rows.append({k: float(v) for k, v in met.items()})
     checkpoint.save(save, spec["steps"], {"params": params, "opt": state})
     return {"steps": rows}

@@ -66,21 +66,34 @@ def batch_at(cfg: DataConfig, step: int, host_id: int = 0, n_hosts: int = 1,
 
 
 def rank_batch_at(cfg: DataConfig, step: int, rank: int, world: int,
-                  device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """Rows ``[rank·B/world, (rank+1)·B/world)`` of the global
-    ``batch_at(cfg, step)``: the data-parallel ranks of one step split one
-    batch, whatever their count (``batch_at``'s ``host_id`` would seed
-    each rank's rows apart, so the data would change with ``world``).
-    Only those rows go to ``device``. On a ("data", "model") mesh
-    ``rank`` is the data coordinate and ``world`` the data axis's size
-    (``models/sharding.world_of``): the model ranks of one data
-    coordinate take the same rows."""
-    if cfg.global_batch % world:
+                  device: DeviceLike = None, n_microbatches: int = 1
+                  ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of the global ``batch_at(cfg, step)``: the
+    data-parallel ranks of one step split one batch, whatever their count
+    (``batch_at``'s ``host_id`` would seed each rank's rows apart, so the
+    data would change with ``world``). The step splits the batch into
+    ``n_microbatches`` contiguous global microbatches, as the reference
+    does, and the rank takes block ``rank`` of ``world`` of each, in
+    microbatch order: rows ``[i·B/n + rank·B/(n·world), i·B/n +
+    (rank+1)·B/(n·world))`` for microbatch i (at n = 1, ``[rank·B/world,
+    (rank+1)·B/world)``). So the step's own split of these rows into n
+    gives the rank its block of each global microbatch, and MoE routing
+    over the data ranks sees the reference's microbatches. Only those rows
+    go to ``device``. On a ("data", "model") mesh ``rank`` is the data
+    coordinate and ``world`` the data axis's size
+    (``models/sharding.world_of``): the model ranks of one data coordinate
+    take the same rows. Raises ValueError where ``n_microbatches · world``
+    does not divide the global batch."""
+    if cfg.global_batch % (world * n_microbatches):
         raise ValueError(f"a global batch of {cfg.global_batch} does not "
-                         f"split over {world} ranks")
+                         f"split over {world} ranks × {n_microbatches} "
+                         f"microbatches")
     dev = resolve_device(device)
-    per = cfg.global_batch // world
-    rows = slice(rank * per, (rank + 1) * per)
+    micro = cfg.global_batch // n_microbatches
+    per = micro // world
+    rows = np.concatenate([np.arange(i * micro + rank * per,
+                                     i * micro + (rank + 1) * per)
+                           for i in range(n_microbatches)])
     return _on({k: np.ascontiguousarray(v[rows]) for k, v in
                 _host_batch(cfg, step, 0, 1).items()}, dev)
 

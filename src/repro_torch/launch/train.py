@@ -16,10 +16,10 @@ each rank holds its block of every parameter and moment, gathers its TP
 block of the weights over the data axis where a layer uses them, runs
 every family's layers tensor-parallel over the model axis (GQA, MLA, the
 MLPs, the SSM, the expert FFN, the encoder-decoder's cross-attention),
-and takes its data coordinate's rows of each global batch
-(``models/sharding.py``, ``data.rank_batch_at``); MoE routing over a data
-axis of more than one rank raises (ROADMAP 15c). The checkpoints are
-the reference's format (``{"params", "opt"}`` through
+and takes its data coordinate's block of each global microbatch
+(``models/sharding.py``, ``data.rank_batch_at``); MoE routing and a
+``loss_mask`` over the data ranks keep their one-device meaning. The
+checkpoints are the reference's format (``{"params", "opt"}`` through
 ``train/checkpoint.py``, in the global layout), so a run resumes across
 the two packages and across rank counts. The model runs
 ``attn_impl="sdpa"``: K2 has no backward. The loss is read back to the
@@ -101,10 +101,6 @@ def _run(job: TrainJob, mesh, axes: Optional[MeshAxes], dev: torch.device,
     start_step = 0
     group, rank, world = sharding.world_of(params)
 
-    def batch(step: int):
-        if mesh is None:
-            return batch_at(dcfg, step, device=dev)
-        return rank_batch_at(dcfg, step, rank, world, device=dev)
 
     ck = checkpoint.AsyncCheckpointer(job.ckpt_dir) if job.ckpt_dir else None
     if job.ckpt_dir:
@@ -118,6 +114,12 @@ def _run(job: TrainJob, mesh, axes: Optional[MeshAxes], dev: torch.device,
 
     step_fn = make_train_step(model, opt_cfg,
                               n_microbatches=job.n_microbatches)
+
+    def batch(step: int):
+        if mesh is None:
+            return batch_at(dcfg, step, device=dev)
+        return rank_batch_at(dcfg, step, rank, world, device=dev,
+                             n_microbatches=step_fn.n_microbatches)
     losses = []
     t0 = time.time()
     for step in range(start_step, job.steps):

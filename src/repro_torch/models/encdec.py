@@ -203,12 +203,13 @@ class EncDecLM:
         """Mean next-token CE of a batch ``{"tokens", "labels",
         "frontend_embeds"[, "loss_mask"]}``: the frames through the
         encoder, the tokens through the decoder, ``logits[:, :-1]`` against
-        ``labels[:, 1:]``. Returns ``(ce, {"ce", "aux"})``, aux 0."""
+        ``labels[:, 1:]``. Returns ``(ce, {"ce", "aux"})``, aux 0. A
+        masked CE spans the data ranks (``layers.cross_entropy``)."""
         if self.attn_impl == "k2":
             raise ValueError(
                 "train_loss: K2 has no backward (nor has the reference's "
                 "Pallas kernel); training runs attn_impl='sdpa'")
-        tp = sharding.tp_of(params)
+        tp, dp = sharding.tp_of(params), sharding.dp_of(params)
         params, plans = sharding.for_train(params,
                                            ("enc_blocks", "dec_blocks"))
         enc_out = self.encode(params, batch["frontend_embeds"],
@@ -218,7 +219,7 @@ class EncDecLM:
                                       plan=plans.get("dec_blocks"), tp=tp)
         with record_function("train/logits_ce"):
             ce = cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
-                               batch.get("loss_mask"), tp)
+                               batch.get("loss_mask"), tp, dp)
         return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                                  device=ce.device)}
 

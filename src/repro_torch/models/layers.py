@@ -251,9 +251,13 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
-                  tp: Optional[sharding.ModelAxis] = None) -> torch.Tensor:
+                  tp: Optional[sharding.ModelAxis] = None,
+                  dp: Optional[sharding.DataAxis] = None) -> torch.Tensor:
     """Mean token cross-entropy in f32. logits (..., V); labels (...).
-    With ``mask``: ``sum(nll · mask) / max(sum(mask), 1)``.
+    With ``mask``: ``sum(nll · mask) / max(sum(mask), 1)``, the two sums
+    over the data ranks' rows with ``dp`` (``sharding.sum_over_data``), so
+    every data rank holds the global masked mean (``dp`` is not used
+    without a mask: each rank's mean is its share of the global one).
 
     With ``tp`` the logits are vocab-parallel: this rank's columns
     ``[rank·V, (rank+1)·V)`` of the whole vocab. The row maximum, the sum
@@ -277,5 +281,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     nll = logz - gold
     if mask is not None:
         mask = mask.float()
-        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        num, den = sharding.sum_over_data(
+            torch.stack([torch.sum(nll * mask), torch.sum(mask)]), dp)
+        return num / torch.clamp(den, min=1.0)
     return torch.mean(nll)

@@ -37,9 +37,11 @@ so the recompute gathers them again; the other leaves are gathered once.
 Over a model axis of more than one rank every family (and ``EncDecLM``)
 trains tensor-parallel (``sharding.tp_of``): GQA, MLA, SwiGLU, the SSM
 layer and the expert FFN on the rank's heads, columns or experts, the
-token lookup, the logits and the cross-entropy vocab-parallel. An MoE
-config still raises over a data axis of more than one rank
-(``sharding.refuse_moe``).
+token lookup, the logits and the cross-entropy vocab-parallel. Over a
+data axis of more than one rank (``sharding.dp_of``) the MoE layers route
+each rank's rows with the global microbatch's capacity, slot positions
+and aux loss, and a ``loss_mask``'s sums span the data ranks, as on one
+device (``models/moe.py``, ``layers.cross_entropy``).
 
 Serving runs over a (1, T) mesh as well: ``prefill`` and ``decode_step``
 take the serve tree of ``sharding.for_serve`` and its ``tp``, every layer
@@ -160,7 +162,8 @@ def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
                         causal: bool = True,
                         attn_impl: str = "k2",
                         want_cache: bool = False,
-                        tp: Optional[sharding.ModelAxis] = None
+                        tp: Optional[sharding.ModelAxis] = None,
+                        dp: Optional[sharding.DataAxis] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, Tuple]:
     """Apply one pattern block. mode: "full" | "decode". Returns (x, the
     summed router aux loss of its MoE layers (() f32), new_caches). MLA
@@ -171,7 +174,8 @@ def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
     every layer's self-attention and SSM caches in place. ``tp``: GQA,
     MLA, the cross-attention, the SSM, the dense MLP and the MoE layer's
     expert FFN and shared experts on the rank's blocks, in both modes
-    (decode on a serve tree, ``sharding.for_serve``)."""
+    (decode on a serve tree, ``sharding.for_serve``). ``dp`` (training
+    only): the MoE layers route over the data ranks."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: List[Any] = []
     for i, ld in enumerate(pattern):
@@ -213,7 +217,7 @@ def apply_pattern_block(p_block: Dict, x: torch.Tensor, cfg: ArchConfig,
                 x = mlp_layer(lp["mlp"], x, cfg, tp)
         elif ld.mlp == "moe":
             with record_function(f"{mode}/moe"):
-                x, a = moe_mod.moe_layer(lp["moe"], x, cfg, tp)
+                x, a = moe_mod.moe_layer(lp["moe"], x, cfg, tp, dp)
                 aux = aux + a
         if mode == "full" and not want_cache:
             c = ()
@@ -335,15 +339,17 @@ def whole_logits(logits: torch.Tensor,
 def _train_block(x: torch.Tensor, p_block: Dict, cfg: ArchConfig,
                  pattern: Tuple[LayerDesc, ...], attn_impl: str,
                  plan: Any = None,
-                 tp: Optional[sharding.ModelAxis] = None
+                 tp: Optional[sharding.ModelAxis] = None,
+                 dp: Optional[sharding.DataAxis] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(x, the block's summed router aux loss). With a ``plan`` the
     block's leaves are this rank's blocks, gathered here over the data
-    axis; with ``tp`` the layers are tensor-parallel over the model axis
-    (the recompute under remat issues its collectives again)."""
+    axis; with ``tp`` the layers are tensor-parallel over the model axis;
+    with ``dp`` the MoE layers route over the data ranks (the recompute
+    under remat issues its collectives again)."""
     return apply_pattern_block(sharding.gather(p_block, plan), x, cfg,
                                pattern, "full", attn_impl=attn_impl,
-                               tp=tp)[:2]
+                               tp=tp, dp=dp)[:2]
 
 
 class LM:
@@ -393,19 +399,16 @@ class LM:
                     axes=None) -> Dict:
         """Random-init weights from ``generator``, which must live on the
         model's device; with a ``DeviceMesh``, each rank's block of every
-        leaf (``ParamSet.init_params``). An MoE config raises on a data
-        axis of more than one rank (``sharding.refuse_moe``); a model axis
-        of more than one rank raises ValueError where the heads, kv heads,
-        ``d_ff``, the padded vocab, the SSM's heads, ``w_in`` columns or
-        conv channels, or the experts or their FFN dims do not divide over
-        it (``launch/mesh.check_divides``)."""
+        leaf (``ParamSet.init_params``). A model axis of more than one
+        rank raises ValueError where the heads, kv heads, ``d_ff``, the
+        padded vocab, the SSM's heads, ``w_in`` columns or conv channels,
+        or the experts or their FFN dims do not divide over it
+        (``launch/mesh.check_divides``)."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator is on {generator.device}, the model "
                              f"on {self.device}")
         if mesh is not None:
             from ..launch.mesh import check_divides
-            if self.cfg.n_experts:
-                sharding.refuse_moe(mesh.size(sharding.data_axis(mesh)))
             if sharding.model_ranks(mesh) > 1:
                 check_divides(self.cfg, mesh)
         return self.ps.init_params(generator, mesh, axes)
@@ -459,12 +462,14 @@ class LM:
 
     def _run_blocks_train(self, params: Dict, x: torch.Tensor,
                           plan: Any = None,
-                          tp: Optional[sharding.ModelAxis] = None
+                          tp: Optional[sharding.ModelAxis] = None,
+                          dp: Optional[sharding.DataAxis] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The full pass under autograd: prefix layers as they are, each
         stacked block under ``cfg.remat`` on its slice of the stacked
         leaves (split once, :func:`_unbind`; with a ``plan``, gathered
-        inside the block; with ``tp``, tensor-parallel). Returns (x, the
+        inside the block; with ``tp``, tensor-parallel; with ``dp``, MoE
+        routed over the data ranks). Returns (x, the
         summed router aux loss () f32: the prefix layers', then each
         block's)."""
         cfg = self.cfg
@@ -472,11 +477,11 @@ class LM:
         for i in range(self.n_prefix):
             x, aux, _ = apply_pattern_block(
                 params[f"prefix{i}"], x, cfg, self.prefix_pattern, "full",
-                attn_impl=self.attn_impl, tp=tp)
+                attn_impl=self.attn_impl, tp=tp, dp=dp)
             aux_total = aux_total + aux
         block = _remat(functools.partial(
             _train_block, cfg=cfg, pattern=self.pattern,
-            attn_impl=self.attn_impl, plan=plan, tp=tp), cfg.remat)
+            attn_impl=self.attn_impl, plan=plan, tp=tp, dp=dp), cfg.remat)
         for p_block in _unbind(params["blocks"], self.n_blocks):
             x, aux = block(x, p_block)
             aux_total = aux_total + aux
@@ -489,24 +494,26 @@ class LM:
         without experts) of a batch ``{"tokens", "labels"[,
         "frontend_embeds"][, "loss_mask"]}``: logits after the frontend
         positions, ``[:, :-1]`` against ``labels[:, 1:]``. Returns
-        ``(loss, {"ce", "aux"})``."""
+        ``(loss, {"ce", "aux"})``. On a mesh whose data axis has more than
+        one rank the batch is this rank's rows (``data.rank_batch_at``),
+        the aux loss and a masked CE are the global microbatch's, the same
+        on every rank, and an unmasked CE is the mean over its rows."""
         if self.attn_impl == "k2":
             raise ValueError(
                 "train_loss: K2 has no backward (nor has the reference's "
                 "Pallas kernel); training runs attn_impl='sdpa'")
-        if self.cfg.n_experts:
-            sharding.refuse_moe(sharding.world_of(params)[2])
-        tp = sharding.tp_of(params)
+        tp, dp = sharding.tp_of(params), sharding.dp_of(params)
         params, plans = sharding.for_train(params, ("blocks",))
         fe = batch.get("frontend_embeds")
         x = self._embed(params, batch["tokens"], fe, tp)
-        x, aux = self._run_blocks_train(params, x, plans.get("blocks"), tp)
+        x, aux = self._run_blocks_train(params, x, plans.get("blocks"), tp,
+                                        dp)
         with record_function("train/logits_ce"):
             logits = self._logits(params, x, tp)
             nfe = 0 if fe is None else fe.shape[1]
             ce = cross_entropy(logits[:, nfe:][:, :-1],
                                batch["labels"][:, 1:],
-                               batch.get("loss_mask"), tp)
+                               batch.get("loss_mask"), tp, dp)
         return ce + aux, {"ce": ce, "aux": aux}
 
     @torch.no_grad()

@@ -37,6 +37,21 @@ E/T experts on its slice of the buffer (taken after ``to_model``) and
 each token's k rows in the activation dtype as on one device. With
 neither (``moe_ffn_unsharded``, experts over "fsdp") the expert FFN runs
 whole on every rank. The shared experts are a Megatron SwiGLU.
+
+In training over a data axis of W ranks (``dp``) each rank routes its own
+t tokens, a block of the global microbatch's W·t, with the reference's
+global meaning (:func:`global_slots`): the capacity is that of W·t
+tokens; an assignment's position is the count of the lower data ranks'
+assignments to its expert plus its local exclusive prefix sum, kept while
+below the capacity; the aux loss's ``f_e`` and ``p_e`` are means over
+the W·t tokens. The rank's ``(E, cap, D)`` buffer holds only its own kept
+rows, each at its global position less the rank's offset, and the expert
+FFN works row by row, so every kept token gets the one-device value. The
+table of counts is all-gathered once (no gradient), the summed router
+probabilities all-reduced forward and backward
+(``sharding.sum_over_data``); the recompute under remat issues both
+again, in the same order on every rank. Every model rank of a data row
+routes the same tokens, as above.
 """
 
 from __future__ import annotations
@@ -108,42 +123,75 @@ def route(xt: torch.Tensor, router: torch.Tensor, cfg: ArchConfig
     return gate, expert_idx, probs
 
 
-def positions(expert_idx: torch.Tensor, n_experts: int, cap: int
+def positions(expert_idx: torch.Tensor, n_experts: int, cap: int,
+              offset: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Slot reservation over the flattened (T·k) assignments: (expert of
     each assignment, its position in that expert's buffer, kept: position
     < ``cap``). The position counts the earlier assignments to the same
-    expert (an exclusive prefix sum). The one-hot is laid out (E, T·k) so
-    the sum scans its rows' inner axis: CUDA's scan along the outer axis of
-    a (T·k, E) one-hot runs one thread a column (2 ms at 10,686 × 64)."""
+    expert (an exclusive prefix sum). With ``offset`` (E,), the lower data
+    ranks' assignments to each expert, an assignment is kept while its
+    global position, ``offset[e]`` more, is below ``cap``; the position
+    returned is still the one in this rank's buffer. The one-hot is laid
+    out (E, T·k) so the sum scans its rows' inner axis: CUDA's scan along
+    the outer axis of a (T·k, E) one-hot runs one thread a column (2 ms at
+    10,686 × 64)."""
     flat_e = expert_idx.reshape(-1)
     experts = torch.arange(n_experts, device=flat_e.device)
     onehot = (flat_e[None, :] == experts[:, None]).long()        # (E, T·k)
     before = torch.cumsum(onehot, dim=1) - onehot
     pos = torch.gather(before, 0, flat_e[None, :])[0]
-    return flat_e, pos, pos < cap
+    glob = pos if offset is None else pos + offset[flat_e]
+    return flat_e, pos, glob < cap
+
+
+def global_slots(expert_idx: torch.Tensor, tokens: int, cfg: ArchConfig,
+                 dp: sharding.DataAxis
+                 ) -> Tuple[int, torch.Tensor, torch.Tensor]:
+    """Routing over the data ranks, from this rank's expert indices
+    ``(tokens, k)``: (the capacity of the global microbatch's
+    ``dp.size · tokens`` tokens, this rank's slot offset per expert (E,)
+    int64: the assignments of the lower data ranks, the aux loss's
+    ``f_e`` (E,) f32: the global share of top-1 choices). Each rank's
+    assignments and top-1 choices per expert go in one all-gather of a
+    (2E,) int64 row."""
+    e = cfg.n_experts
+    experts = torch.arange(e, device=expert_idx.device)[:, None]
+    counts = torch.cat([(expert_idx.reshape(-1)[None, :] == experts).sum(1),
+                        (expert_idx[None, :, 0] == experts).sum(1)])
+    table = sharding.gather_data(counts.long(), dp)              # (W, 2E)
+    offset = table[:dp.rank, :e].sum(0)
+    fe = table[:, e:].sum(0).float() / (dp.size * tokens)
+    return capacity(dp.size * tokens, cfg), offset, fe
 
 
 def moe_layer(p: Dict, x: torch.Tensor, cfg: ArchConfig,
-              tp: Optional[sharding.ModelAxis] = None
+              tp: Optional[sharding.ModelAxis] = None,
+              dp: Optional[sharding.DataAxis] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D). Returns (x + MoE output, router aux loss () f32).
     With ``tp`` the expert FFN and the shared experts run on the rank's
-    blocks (module docstring)."""
+    blocks; with ``dp`` x is this data rank's block of the global
+    microbatch, routed with the global capacity, positions and aux loss
+    (module docstring)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
     xt = xn.reshape(b * s, d)
     t = b * s
-    cap = capacity(t, cfg)
     gate, expert_idx, probs = route(xt, p["router"], cfg)
 
     # load-balancing aux loss (Switch/GShard): E · sum_e f_e · p_e
-    me = probs.mean(dim=0)
-    fe = F.one_hot(expert_idx[:, 0], e).float().mean(dim=0)
+    if dp is None:
+        cap, offset = capacity(t, cfg), None
+        me = probs.mean(dim=0)
+        fe = F.one_hot(expert_idx[:, 0], e).float().mean(dim=0)
+    else:
+        cap, offset, fe = global_slots(expert_idx, t, cfg, dp)
+        me = sharding.sum_over_data(probs.sum(dim=0), dp) / (dp.size * t)
     aux = e * torch.sum(fe * me) * cfg.router_aux_coef
 
-    flat_e, pos, keep = positions(expert_idx, e, cap)
+    flat_e, pos, keep = positions(expert_idx, e, cap, offset)
     pos_c = torch.where(keep, pos, torch.full_like(pos, cap))     # parked
     e_ax, f_ax = expert_axes(cfg)
     if cfg.moe_dispatch == "gather":

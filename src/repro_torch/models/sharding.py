@@ -35,8 +35,22 @@ the expert FFN is split either by its FFN dim (the expert buffer enters
 through :func:`to_model`, the experts' partial outputs are summed by
 :func:`from_model`) or by its experts (the rank's experts run on their
 slice of the buffer, and :func:`join_model` makes their outputs whole
-for the combine). A model axis of one rank issues none of these, so a
-(W, 1) step is the FSDP step alone.
+for the combine). A model axis of one rank issues none of these.
+
+Over a data axis of more than one rank (:func:`dp_of`) MoE routing keeps
+its one-device meaning, as the reference's GSPMD program does: the
+capacity, the slot positions and the aux loss are those of the global
+microbatch, whose tokens are the data ranks' blocks in data-coordinate
+order (``data.rank_batch_at``). Each rank counts its assignments and its
+top-1 choices per expert; one all-gather over the data group
+(:func:`gather_data`) makes the table from which a rank takes its slot
+offsets (the lower data ranks' counts) and the aux loss's ``f_e``; the
+aux loss's ``p_e`` is the data ranks' sums of the router probabilities
+summed by :func:`sum_over_data` (all-reduce forward and backward: every
+rank's loss holds the whole aux, and the step divides the summed gradient
+by the data ranks). A ``loss_mask``'s masked sum and count are summed the
+same way, so every rank's loss is the global masked mean. A (W, 1) step of
+a config without experts or mask is the FSDP step alone.
 
 :func:`for_train` prepares a parameter tree for a loss: top-level leaves
 gathered once, each stacked subtree kept as plain local blocks with a
@@ -100,6 +114,17 @@ class ModelAxis:
     rank: int
     size: int
     serving: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class DataAxis:
+    """The data axis of a step over more than one data rank: its group,
+    this rank's data coordinate (which block of every global microbatch
+    it takes, ``data.rank_batch_at``; not its global rank) and its
+    size."""
+    group: Any
+    rank: int
+    size: int
 
 
 # the axis names of ``launch/mesh``'s meshes: the data axes (FSDP shards
@@ -202,6 +227,14 @@ def world_of(tree: Any) -> Tuple[Optional[Any], int, int]:
         return None, 0, 1
     g = x.device_mesh.get_group(data_axis(x.device_mesh))
     return g, dist.get_rank(g), dist.get_world_size(g)
+
+
+def dp_of(tree: Any) -> Optional[DataAxis]:
+    """The data axis of a tree's DTensor leaves when it has more than one
+    rank (MoE routing and a ``loss_mask`` then span the data ranks), else
+    None."""
+    group, rank, size = world_of(tree)
+    return None if size <= 1 else DataAxis(group, rank, size)
 
 
 def model_ranks(mesh) -> int:
@@ -351,6 +384,27 @@ def sum_over_model(x: torch.Tensor, tp: ModelAxis) -> torch.Tensor:
     return from_model(to_model(x, tp), tp)
 
 
+def sum_over_data(x: torch.Tensor, dp: Optional[DataAxis]) -> torch.Tensor:
+    """``x`` summed over the data ranks, forward and backward (itself
+    without ``dp``): a statistic of the global batch, such as the aux
+    loss's summed router probabilities. Every rank's loss holds the whole
+    statistic and the step divides the summed gradient by the data ranks,
+    so the backward sums the ranks' gradients too: an identity backward
+    would leave the statistic's gradient ``dp.size`` times too small. One
+    all-reduce each way (:class:`_ToModel` and :class:`_FromModel` over
+    the data group)."""
+    if dp is None:
+        return x
+    return _FromModel.apply(_ToModel.apply(x, dp.group), dp.group)
+
+
+def gather_data(x: torch.Tensor, dp: DataAxis) -> torch.Tensor:
+    """The data ranks' ``x`` stacked in data-coordinate order, ``(size,)
+    + x.shape``, out of autograd (integer tables: gloo refuses int16, so
+    send int32 or int64)."""
+    return _all_gather(x.detach()[None], 0, dp.group, dp.size)
+
+
 def gather_model(x: torch.Tensor, dim: int, tp: ModelAxis) -> torch.Tensor:
     """This rank's TP block of a leaf made whole along ``dim`` over the
     model ranks: forward an all-gather, backward its gradient
@@ -443,17 +497,6 @@ def gather_to_rank0(leaf: DTensor) -> Optional[torch.Tensor]:
         x = whole.movedim(0, dim)
         del whole               # x alone keeps it: the next stage frees it
     return x
-
-
-def refuse_moe(ranks: int) -> None:
-    """MoE routing is not data-parallel-exact (the capacity, the slot
-    positions and the aux loss come from the global token count and
-    batch): raise where the data axis has more than one rank."""
-    if ranks > 1:
-        raise NotImplementedError(
-            "an MoE config over a data axis of more than one rank: global "
-            "routing (the per-expert counts all-gathered for positions and "
-            "capacity, summed aux statistics) waits for ROADMAP 15c")
 
 
 def for_train(params: Dict, stacked: Sequence[str]

@@ -343,12 +343,14 @@ def collectives_of(fn: Callable, ranks: int, *args,
                             rec.total("wire_bytes"), ranks, rec.by_group)
 
 
-def _layer_collectives(model, ld, tokens: int, gathers: bool = True
-                       ) -> tuple:
+def _layer_collectives(model, ld, tokens: int, gathers: bool = True,
+                       routed: Optional[int] = None) -> tuple:
     """The model-axis collectives of one layer of an ``LM`` over a model
-    axis of more than one rank, one pass of ``tokens`` tokens: ``(forward,
-    backward)``, each a list of (op, payload bytes) in the order issued
-    (the backward's order is not kept). The forward's row-parallel sums
+    axis of more than one rank, one pass of ``tokens`` tokens (an MoE
+    layer's capacity that of ``routed`` tokens, default ``tokens``: the
+    global microbatch's over data ranks): ``(forward, backward)``, each a
+    list of (op, payload bytes) in the order issued (the backward's order
+    is not kept). The forward's row-parallel sums
     and the SSM's gathers (not on a serve tree: ``gathers`` False); the
     backward's sums into the normed input of each column-parallel region
     and into the weights every model rank uses on its own heads only, and
@@ -387,8 +389,8 @@ def _layer_collectives(model, ld, tokens: int, gathers: bool = True
         bwd.append(("all-reduce", act))                         # normed in
     elif ld.mlp == "moe":
         e_ax, f_ax = expert_axes(cfg)
-        buf = (cfg.n_experts * capacity(tokens, cfg) * cfg.d_model
-               * model.adt.itemsize)
+        buf = (cfg.n_experts * capacity(routed or tokens, cfg)
+               * cfg.d_model * model.adt.itemsize)
         if e_ax == "tp":            # the experts' outputs made whole
             fwd.append(("all-gather", buf))
         elif f_ax == "tp":          # their partial outputs summed
@@ -424,7 +426,14 @@ def reckon_collectives(model, data: int, model_ranks: int,
     Data axis, each pass: every leaf sharded on "data" all-gathered (its
     TP block) in the forward and, stacked under remat "full", again in the
     recompute, then reduce-scattered; a data-replicated leaf's gradient
-    all-reduced. Then the loss and the global norm's per-leaf sums. Model
+    all-reduced. Over more than one data rank each MoE layer's routing
+    (``models/moe.global_slots``): its (2E,) int64 counts all-gathered and
+    its (E,) f32 sum of router probabilities all-reduced in the forward
+    and, stacked under remat "full", again in the recompute, and that
+    sum's gradient all-reduced in the backward; the MoE capacity is the
+    global microbatch's. Then the loss and the global norm's per-leaf
+    sums (a step without a ``loss_mask``, whose sums would add one
+    all-reduce each way). Model
     axis (more than one rank), each pass: the lookup's rows; the
     cross-entropy's maximum, sum of exponentials and gold logit; in the
     backward the gradient into the head's normed input; and each layer's
@@ -482,6 +491,16 @@ def reckon_collectives(model, data: int, model_ranks: int,
             add("data", data, "reduce-scatter", microbatches * n, b)
         else:
             add("data", data, "all-reduce", microbatches * n, b)
+    s_all = seq_len + (0 if cfg.encoder_layers else cfg.frontend_tokens)
+    if data > 1 and cfg.n_experts:
+        e = cfg.n_experts
+        for pattern, n, stacked in ((model.prefix_pattern, model.n_prefix,
+                                     False),
+                                    (model.pattern, model.n_blocks, True)):
+            moe = n * sum(ld.mlp == "moe" for ld in pattern)
+            fwd = microbatches * moe * (again if stacked else 1)
+            add("data", data, "all-gather", fwd, data * 2 * e * 8)
+            add("data", data, "all-reduce", fwd + microbatches * moe, 4 * e)
     leaves = 4 * len(model.ps.infos)
     add("data", data, "all-reduce", 1, 4)
     add("data", data, "all-reduce", 1, leaves)
@@ -489,7 +508,6 @@ def reckon_collectives(model, data: int, model_ranks: int,
         return out
     t, m = model_ranks, microbatches
     act = model.adt.itemsize * rows * cfg.d_model
-    s_all = seq_len + (0 if cfg.encoder_layers else cfg.frontend_tokens)
 
     def ar(calls: int, b: int) -> None:
         add("model", t, "all-reduce", m * calls, b)
@@ -518,7 +536,8 @@ def reckon_collectives(model, data: int, model_ranks: int,
                 continue
             fwd, bwd = [], []
             for ld in pattern:
-                f, b = _layer_collectives(model, ld, rows * s_all)
+                f, b = _layer_collectives(model, ld, rows * s_all,
+                                          routed=data * rows * s_all)
                 fwd += f
                 bwd += b
             issued = fwd + bwd

@@ -15,15 +15,18 @@ steps take their sharded params) and its model axis.
 
 On parameters sharded over a mesh (DTensor blocks from
 ``init_params(generator, mesh, axes)``) the batch is the rank's own rows
-(``data.rank_batch_at``) and the step is data-parallel: the model gathers
-the weights and reduce-scatters each gradient into the rank's block
-(``models/sharding.py``); each rank's loss is the mean over its rows, so
-the summed gradient is divided by the data axis's ranks W, and the logged
-loss is the mean all-reduced over them. On a tensor-parallel mesh the
-ranks of one data coordinate take the same rows and hold the same loss;
-the model axis's sums are inside the layers. A ``loss_mask`` is refused
-over more than one data rank: the mean of the ranks' masked means is not
-the global masked mean.
+(``data.rank_batch_at(..., n_microbatches)``: its block of each global
+microbatch, so microbatch i of every rank is its block of the reference's
+microbatch i) and the step is data-parallel: the model gathers the
+weights and reduce-scatters each gradient into the rank's block
+(``models/sharding.py``). Each rank's loss is the mean over its rows, or
+a statistic of the global microbatch held whole on every rank (the MoE
+aux loss, a masked CE: their sums over the data ranks sum the gradient
+back too), so the summed gradient is divided by the data axis's ranks W,
+and the logged loss is the mean all-reduced over them. Across
+microbatches the losses are averaged, as the reference's scan does. On a
+tensor-parallel mesh the ranks of one data coordinate take the same rows
+and hold the same loss; the model axis's sums are inside the layers.
 """
 
 from __future__ import annotations
@@ -41,6 +44,17 @@ from .optimizer import _leaves, _unflatten
 _SYNC_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
 
 
+def microbatch(batch: Dict[str, torch.Tensor], n: int, i: int
+               ) -> Dict[str, torch.Tensor]:
+    """Microbatch ``i`` of ``n`` of ``batch``: block i of its rows. A data
+    rank's rows come from ``data.rank_batch_at(..., n)``, laid out so
+    that this block is the rank's block of the global microbatch i; pass
+    it the step's own ``n_microbatches`` (an attribute of the function
+    :func:`make_train_step` returns)."""
+    return {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
+            for k, v in batch.items()}
+
+
 def make_train_step(model, opt_cfg: opt_mod.AdamWConfig,
                     n_microbatches: int = 1,
                     grad_sync_dtype: Optional[str] = None) -> Callable:
@@ -54,7 +68,9 @@ def make_train_step(model, opt_cfg: opt_mod.AdamWConfig,
     XLA compiles, so a per-rank cast would round differently). Sharded
     parameters and moments are updated in place (``apply_updates``).
     Metrics: ``loss`` (the mean over microbatches, and over ranks),
-    ``grad_norm``, ``lr``, all device tensors."""
+    ``grad_norm``, ``lr``, all device tensors. The returned function's
+    ``n_microbatches`` is the count its batches' rows must be laid out
+    for (``data.rank_batch_at``)."""
     sync_dt = _SYNC_DTYPES[grad_sync_dtype]
 
     def loss_and_grads(params, batch):
@@ -72,10 +88,6 @@ def make_train_step(model, opt_cfg: opt_mod.AdamWConfig,
 
     def train_step(params, opt_state, batch):
         group, _, world = sharding.world_of(params)
-        if world > 1 and "loss_mask" in batch:
-            raise NotImplementedError(
-                "a loss_mask over more than one rank: the ranks' masked "
-                "sums and counts would have to be reduced apart")
         if n_microbatches == 1:
             loss, grads = loss_and_grads(params, batch)
         else:
@@ -86,9 +98,7 @@ def make_train_step(model, opt_cfg: opt_mod.AdamWConfig,
             loss = torch.zeros((), dtype=torch.float32,
                                device=grads[0].device)
             for i in range(n):
-                micro = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
-                         for k, v in batch.items()}
-                l_i, g_i = loss_and_grads(params, micro)
+                l_i, g_i = loss_and_grads(params, microbatch(batch, n, i))
                 for acc, g in zip(grads, g_i):
                     acc += g.float()
                 loss = loss + l_i
@@ -107,6 +117,7 @@ def make_train_step(model, opt_cfg: opt_mod.AdamWConfig,
                 opt_cfg, params, _unflatten(params, iter(grads)), opt_state)
         return params, opt_state, {"loss": loss, **om}
 
+    train_step.n_microbatches = n_microbatches
     return train_step
 
 

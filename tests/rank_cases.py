@@ -28,6 +28,7 @@ same (``test_torch_tp_serve.py``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -184,11 +185,17 @@ def run_train_case(case: Dict, group, device) -> Optional[Dict]:
     and a hint's placements; ``run``: ``launch/train.run`` with these
     TrainJob fields instead; ``mesh``: another (data, model) shape;
     ``cfg``: ArchConfig fields to override on the reduced config;
-    ``mask``: batches with a ``loss_mask``; ``deterministic``: under
+    ``mask``: batches with a ragged ``loss_mask`` (:func:`ragged_mask`);
+    ``aux``: every ``train_loss`` call's aux loss on every rank
+    (``aux_by_rank``); ``routing``: over every MoE ``positions`` call on
+    every rank, the assignments, the dropped ones and those dropped only
+    by the lower data ranks' offsets (``routing_by_rank``);
+    ``deterministic``: under
     ``torch.use_deterministic_algorithms``; ``raises``: the case must
     raise NotImplementedError or ValueError, its type and message
     recorded; ``grads``: rank 0 writes the gradient of the loss of step
-    0's batch (every leaf made whole) to ``out/<name>_grads.npz``; ``ce``:
+    0's batch (every leaf made whole; the mean over ``micro``
+    microbatches) to ``out/<name>_grads.npz``; ``ce``:
     the vocab-parallel cross-entropy of random logits with padded columns
     against the one-device ``cross_entropy`` of the whole logits (values
     and gradients, with and without a mask)."""
@@ -283,15 +290,29 @@ def _train_case(case: Dict, group, device) -> Dict:
                       global_batch=case.get("batch", 4), seed=1234,
                       frontend_tokens=cfg.frontend_tokens,
                       d_model=cfg.d_model)
+    micro = step_fn.n_microbatches
+
+    def batch_of(i):
+        b = rank_batch_at(dcfg, i, drank, dworld, device=device,
+                          n_microbatches=micro)
+        if case.get("mask"):
+            b["loss_mask"] = ragged_mask(b["tokens"])
+        return b
+    spies, seen = contextlib.ExitStack(), {}
+    if case.get("aux"):
+        seen["aux"] = spies.enter_context(_spy(
+            model, "train_loss",
+            lambda a, out: float(out[1]["aux"].detach())))
+    if case.get("routing"):
+        from repro_torch.models import moe
+        seen["routing"] = spies.enter_context(_spy(moe, "positions",
+                                                   _routed))
     if case.get("grads"):
-        _save_grads(model, params, rank_batch_at(dcfg, 0, drank, dworld,
-                                                 device=device),
+        _save_grads(model, params, batch_of(0), micro,
                     Path(case["out"]) / f"{case['name']}_grads.npz")
     rec["metrics"] = []
     for i in range(start, case["steps"]):
-        batch = rank_batch_at(dcfg, i, drank, dworld, device=device)
-        if case.get("mask"):
-            batch["loss_mask"] = torch.ones_like(batch["tokens"])
+        batch = batch_of(i)
         if case.get("count") and i == start:
             (params, state, m), col = analysis.collectives_of(
                 step_fn, world, params, state, batch,
@@ -301,6 +322,11 @@ def _train_case(case: Dict, group, device) -> Dict:
             params, state, m = step_fn(params, state, batch)
         rec["metrics"].append({k: float(m[k])
                                for k in ("loss", "grad_norm", "lr")})
+    spies.close()
+    for key, calls in seen.items():
+        every = [None] * world
+        dist.all_gather_object(every, calls, group=group)
+        rec[f"{key}_by_rank"] = every
     if case.get("save"):
         tree = {"params": params, "opt": state}
         rec["save_gathers"] = _count_gathers(
@@ -309,6 +335,45 @@ def _train_case(case: Dict, group, device) -> Dict:
         one = torch.ones(1)
         dist.all_reduce(one, group=group)      # rank 0's write is done
     return rec
+
+
+def ragged_mask(tokens):
+    """A ``loss_mask`` over the label positions ``[:, 1:]`` of a batch's
+    tokens, a function of the tokens alone (so a rank's rows of the
+    global mask are the mask of its rows): 0 where the next token is a
+    multiple of 3, so each row keeps a different count."""
+    return (tokens[:, 1:] % 3 != 0).int()
+
+
+@contextlib.contextmanager
+def _spy(owner, name: str, pick):
+    """While the block runs, ``owner.name`` appends ``pick(args,
+    output)`` of every call to the yielded list."""
+    own = name in vars(owner)      # else an instance's method, shadowed
+    real = getattr(owner, name)
+    seen: List = []
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(pick(args, out))
+        return out
+    setattr(owner, name, spy)
+    try:
+        yield seen
+    finally:
+        if own:
+            setattr(owner, name, real)
+        else:
+            delattr(owner, name)
+
+
+def _routed(args, out) -> List[int]:
+    """[assignments, dropped, dropped only by the offsets (the position in
+    the rank's buffer below the capacity)] of one ``moe.positions(
+    expert_idx, n_experts, cap, offset)`` call."""
+    _, pos, keep = out
+    return [keep.numel(), int((~keep).sum()),
+            int(((pos < args[2]) & ~keep).sum())]
 
 
 def _count_gathers(fn) -> int:
@@ -338,19 +403,27 @@ def _sharded_axes(tree) -> int:
                for i, pl in enumerate(v.placements))
 
 
-def _save_grads(model, params, batch, path: Path) -> None:
-    """The gradient of ``model.train_loss`` on ``batch`` for every leaf,
-    made whole on rank 0, which writes them to ``path``."""
+def _save_grads(model, params, batch, micro: int, path: Path) -> None:
+    """The gradient of ``model.train_loss`` for every leaf, the mean over
+    ``micro`` microbatches of ``batch`` (its rows split as the train step
+    splits them), made whole on rank 0, which writes them to ``path``:
+    the data ranks' gradients summed (by the gathers' backward) and
+    divided by their count, as the train step divides them."""
     import numpy as np
     import torch
     import torch.distributed as dist
     from repro_torch.models import sharding
+    from repro_torch.train import microbatch
     from repro_torch.train.optimizer import _leaves, _unflatten
     leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
-    loss, _ = model.train_loss(_unflatten(params, iter(leaves)), batch)
+    tree = _unflatten(params, iter(leaves))
+    loss = sum(model.train_loss(tree, microbatch(batch, micro, i))[0]
+               for i in range(micro)) / micro
     grads = torch.autograd.grad(loss, leaves)
+    data = sharding.world_of(params)[2]
     whole = {k: sharding.gather_to_rank0(g) for k, g in
              zip(_flat(params), grads)}
+    whole = {k: None if v is None else v / data for k, v in whole.items()}
     if dist.get_rank() == 0:
         np.savez(path, **{k: _np(v) for k, v in whole.items()})
 

@@ -36,7 +36,8 @@ shows:
 * checkpoints: saved on W = 4, continued on W = 4 bit for bit, on W = 2
   and W = 1 within the tolerances; readable by the reference's
   ``checkpoint.restore``;
-* an MoE config over a data axis of 2 ranks raises naming 15c;
+* (the MoE configs and a ``loss_mask`` over data ranks:
+  ``test_torch_dp_moe.py``);
 * ``hint`` is ``x`` itself without axes or on a plain tensor, and gives
   ``resolve_spec``'s placements on a DTensor; the port calls it in the
   functions where the reference does;
@@ -238,9 +239,6 @@ def runs(ref, tmp_path_factory):
             _case("qwen3_remat", q, ref, remat="full", count=True),
             dict(name="qwen3_from4", arch=q, steps=STEPS, opt=OPT,
                  restore=dirs["ck4"], save=dirs["ck2_from4"]),
-            dict(name="moe", arch="deepseek-v2-lite-16b", steps=0,
-                 raises=True),
-            dict(name="mask", arch=q, steps=1, mask=True, raises=True),
             dict(shards, name="shards"),
             dict(name="run", arch=q, run=RUN_JOB),
             *tp["tp12"],
@@ -492,30 +490,11 @@ def test_reference_restores_the_sharded_checkpoint(runs, ref, jx):
                      _flat_np(jx.jax.tree.map(np.asarray, p))) < 1e-3
 
 
-@pytest.mark.parametrize("case,pattern", [("moe", "MoE.*15c")])
-def test_moe_and_model_axis_raise_naming_15c(runs, case, pattern):
-    """An MoE config over a data axis of 2 ranks: its routing is not
-    data-parallel-exact (``sharding.refuse_moe``). Over a model axis the
-    MoE configs train (``test_torch_tp_moe.py``)."""
-    import re
-    rec = runs[0][2][case]
-    assert rec["raised"][0] == "NotImplementedError"
-    assert re.search(pattern, rec["raised"][1]), rec["raised"]
-
-
 def test_model_axis_raises_before_any_group():
     """A (1, 2) mesh is made (the "model" axis is no longer refused), but
     not without a process group."""
     with pytest.raises(RuntimeError, match="process group"):
         tmesh.make_device_mesh(tmesh.Mesh((1, 2), ("data", "model")), "cpu")
-
-
-def test_sharded_step_refuses_a_loss_mask(runs):
-    """Trap 2: the mean of the ranks' masked means is not the global
-    masked mean, so a masked batch over 2 ranks raises."""
-    rec = runs[0][2]["mask"]
-    assert rec["raised"][0] == "NotImplementedError"
-    assert "loss_mask" in rec["raised"][1]
 
 
 def test_hint_is_an_identity_without_axes_and_on_plain_tensors():

@@ -209,11 +209,9 @@ def _readings(arch: str, dtype: str, out: Path) -> None:
                   for g, w in zip(recs[name]["metrics"],
                                   recs["one"]["metrics"])
                   for k in ("loss", "grad_norm"))
-        # the gradient of a (W, 1) mesh's loss is the sum of its W data
-        # ranks' means: divided by W it is the step's mean
         with np.load(out / "w2" / f"{name}_grads.npz") as z:
             norms = {k: float(np.linalg.norm(z[k].astype(np.float64)))
-                     / mesh[0] for k in z.files}
+                     for k in z.files}
         leaf_gap = max((abs(norms[k] - g_one[k]) / g_one[k], k)
                        for k in g_one if g_one[k])
         got = _saved(out / name)
